@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path the way a user would and holds every
-hand-written kernel on it to its plain PyTorch version.  Phases, one
-JSON line each:
+Drives the port's training and serving paths the way a user would and
+holds every hand-written kernel on them to its plain PyTorch version.
+Phases, one JSON line each:
 
   env      torch and CUDA versions, the card's name and power limit;
   build    compiles every csrc/ source with nvcc (in parallel);
@@ -15,6 +15,19 @@ JSON line each:
            against its plain version, with the kernel's, the plain
            version's and a library composition's (gather +
            scaled_dot_product_attention) times beside the bound;
+  flash    the flash-attention forward, dQ and dK/dV kernels at the
+           training shape [8, 512, 16, 128] (causal fp32, causal bf16,
+           non-causal fp32), each against its plain version, with the
+           kernel's, the plain version's and scaled_dot_product_attention's
+           (forward; backward) times beside the bound;
+  train    the transformer LM of benchmark/run_ridge.py at its full
+           width (vocab 30000, d_model 2048, 16 heads, 12 layers, seq
+           512, batch 8; fp32, Momentum) built as a Fluid Program and
+           trained by the interpreter Executor from one seeded startup:
+           4 timed steps and one profiled step on the kernel path, then
+           4 from the same state on the plain path (the op's lowering
+           swapped for the plain composition inside this script):
+           per-step losses and every weight matrix's change compared;
   serve    the full-width LM of benchmark/run_generation.py (vocab
            32000, d_model 512, 8 heads, 6 layers, d_inner 2048) with
            seeded random weights, written as a model dir and served
@@ -24,9 +37,10 @@ JSON line each:
   spec     the same model as its own draft (spec_k 3, the W=4 kernel):
            accept rate 1.0 and the plain greedy tokens.
 
-The kernel-path serve and spec phases are the main path: the kernel
-launch counts are zeroed just before them and read just after.  Any
-failed check raises, and the script exits non-zero.  The last line is
+The main paths are the train phase's kernel path (flash attention) and
+the kernel-path serve and spec phases (paged attention): each kernel's
+launch counts are zeroed just before its path and read just after.
+Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
 result.
@@ -44,14 +58,28 @@ import numpy as np
 import torch
 
 # published dense peaks (NVIDIA data sheets): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores
-_CARD_PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-               ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# outside the tensor cores, bf16 FLOP/s on the tensor cores
+_CARD_PEAKS = (("H200", 4.8e12, 67e12, 989e12),
+               ("H100 NVL", 3.9e12, 60e12, 835e12),
+               ("H100 PCIe", 2.0e12, 51e12, 756e12),
+               ("H100", 3.35e12, 67e12, 989e12))
 
 V, D_MODEL, N_HEADS, N_LAYERS, D_INNER = 32000, 512, 8, 6, 2048
 BLOCK, MAX_BLOCKS, SLOTS, KV_BLOCKS = 16, 32, 8, 256
 N_REQUESTS, SEED = 16, 0
 KV_DTYPES = ("fp32", "bf16", "int8")
+
+# the training configuration: benchmark/run_ridge.py's defaults
+T_VOCAB, T_D, T_HEADS, T_LAYERS, T_SEQ, T_BATCH = 30000, 2048, 16, 12, 512, 8
+T_STEPS = 4
+# kernel path vs plain path: per-step loss, and each weight matrix's
+# change over the steps (||dW_kernel - dW_plain|| / ||dW_plain||).  At
+# random init the attention is near uniform, so dS = P (dP - delta) is a
+# difference of near-equal terms and the Q/K projections' updates differ
+# by up to ~1e-3 from float32 summation order alone; a miswired backward
+# (dK and dV swapped, a scale dropped) moves them by order one
+LOSS_RTOL, PARAM_RTOL = 1e-5, 1e-2
+FLASH_SHAPE = (T_BATCH, T_SEQ, T_HEADS, T_D // T_HEADS)
 
 
 class CheckFailed(RuntimeError):
@@ -68,9 +96,10 @@ def emit(obj):
 
 
 def card_peaks(name):
-    for key, bw, fl in _CARD_PEAKS:
+    """-> (bytes/s, {dtype: FLOP/s}) of the card."""
+    for key, bw, fp32, bf16 in _CARD_PEAKS:
         if key in name:
-            return bw, fl
+            return bw, {torch.float32: fp32, torch.bfloat16: bf16}
     raise CheckFailed(f"no published peaks for card {name!r}")
 
 
@@ -208,6 +237,355 @@ def kernels_phase(dev, bw, flops):
           "timing": "median of cold-L2 calls, CUDA events",
           "cases": cases})
     return cases
+
+
+# -- flash phase -------------------------------------------------------------
+
+def _flash_work(kind, b, sq, sk, h, d, causal, elem):
+    """(FLOPs, bytes) the kernel must do on these shapes: 2 per
+    multiply-add, only the (query, key) pairs causal masking keeps; each
+    input read once, each output written once."""
+    pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if causal
+                     else sq * sk)
+    qo = b * sq * h * d * elem
+    kv = b * sk * h * d * elem
+    vec = b * h * sq * 4
+    if kind == "fwd":      # S = QK^T, O = PV; q,k,v in, o and lse out
+        return 4 * d * pairs, 2 * qo + 2 * kv + vec
+    if kind == "dq":       # S, dP = dO V^T, dQ = dS K
+        return 6 * d * pairs, 3 * qo + 2 * kv + 2 * vec
+    # S, dP, dV = P^T dO, dK = dS^T Q; q, do, k, v, lse, delta in
+    return 8 * d * pairs, 2 * qo + 4 * kv + 2 * vec
+
+
+def _sdpa(q, k, v, causal):
+    """torch's fused attention on [b, s, h, d] views — the library
+    yardstick.  Timed only; the port never calls it."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal)
+    return out.transpose(1, 2)
+
+
+def _close_bf16(got, want):
+    """(ok, limits) for a bfloat16 result against its plain version, both
+    rounded from float32: the largest error at most one bf16 ulp of
+    max|plain| (a rounding flip where float32 sums differ), the error's
+    RMS at most 2^-9 of the plain values' RMS."""
+    top = float(want.abs().max())
+    lim = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+    rms_lim = 2.0 ** -9 * float(want.pow(2).mean().sqrt())
+    err = (got - want).abs()
+    rms = float(err.pow(2).mean().sqrt())
+    return float(err.max()) <= lim and rms <= rms_lim, lim, rms, rms_lim
+
+
+def flash_phase(dev, bw, peaks):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    b, s, h, d = FLASH_SHAPE
+    cases = {}
+    for name, dtype, causal in (("fp32_causal", torch.float32, True),
+                                ("bf16_causal", torch.bfloat16, True),
+                                ("fp32_full", torch.float32, False)):
+        gen = torch.Generator().manual_seed(SEED)
+        q, k, v, do = (torch.randn(FLASH_SHAPE, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        fp32 = dtype == torch.float32
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+        delta = fa.attention_delta(o_ref, do)
+        bwd = (q, k, v, do, lse_ref, delta, causal)
+        dq = fa.flash_attention_dq(*bwd)
+        dk, dv = fa.flash_attention_dkv(*bwd)
+        dq_ref = fa.flash_attention_dq_reference(*bwd)
+        dk_ref, dv_ref = fa.flash_attention_dkv_reference(*bwd)
+        lib_o = _sdpa(q, k, v, causal)
+        torch.cuda.synchronize()
+        errs, rms_errs = {}, {}
+        for key, got, want, tol in (
+                ("fwd", o, o_ref, 2e-5), ("lse", lse, lse_ref, 2e-5),
+                ("dq", dq, dq_ref, 2e-4), ("dk", dk, dk_ref, 2e-4),
+                ("dv", dv, dv_ref, 2e-4)):
+            bf16 = got.dtype == torch.bfloat16
+            got, want = got.float(), want.float()
+            check(bool(torch.isfinite(got).all()), f"flash {name} {key}: "
+                  "non-finite output")
+            err = float((got - want).abs().max())
+            rms_errs[key] = float((got - want).pow(2).mean().sqrt())
+            if bf16:
+                ok, lim, rms, rms_lim = _close_bf16(got, want)
+                check(ok, f"flash {name} {key}: max_abs_err {err} > {lim} "
+                      f"or RMS error {rms} > {rms_lim}")
+            else:
+                lim = tol * max(1.0, float(want.abs().max()))
+                check(err <= lim,
+                      f"flash {name} {key}: max_abs_err {err} > {lim}")
+            errs[key] = err
+        lib_err = float((lib_o.float() - o_ref.float()).abs().max())
+
+        # library yardstick: SDPA forward, and its backward alone (one
+        # autograd call computing dQ, dK and dV together)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = _sdpa(*leaves, causal)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, do, retain_graph=True)
+        elem = 4 if fp32 else 2
+        flops = peaks[dtype]
+        res = {"max_abs_err": errs, "rms_err": rms_errs,
+               "sdpa_fwd_max_abs_err": lib_err, "peak_flops": flops,
+               "sdpa_fwd_ms": cold_ms(lambda: _sdpa(q, k, v, causal), 20,
+                                      flush),
+               "sdpa_bwd_ms": cold_ms(lib_bwd, 20, flush)}
+        res["sdpa_fwd_bwd_ms"] = res["sdpa_fwd_ms"] + res["sdpa_bwd_ms"]
+        for kind, run, plain in (
+                ("fwd", lambda: fa.flash_attention_fwd(q, k, v, causal),
+                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal)),
+                ("dq", lambda: fa.flash_attention_dq(*bwd),
+                 lambda: fa.flash_attention_dq_reference(*bwd)),
+                ("dkv", lambda: fa.flash_attention_dkv(*bwd),
+                 lambda: fa.flash_attention_dkv_reference(*bwd))):
+            n_ops, n_bytes = _flash_work(kind, b, s, s, h, d, causal, elem)
+            t_ops, t_bytes = n_ops / flops * 1e3, n_bytes / bw * 1e3
+            ms = cold_ms(run, 20, flush)
+            res[kind] = {"ms": ms, "plain_ms": cold_ms(plain, 10, flush),
+                         "bound_ms": max(t_ops, t_bytes),
+                         "bound_by": ("operations" if t_ops >= t_bytes
+                                      else "bytes"),
+                         "flop": n_ops, "bytes": n_bytes,
+                         "flop_per_s": n_ops / (ms * 1e-3)}
+        res["bwd_ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+        del leaves, lib_out
+        cases[name] = res
+    emit({"phase": "flash", "shape_bshd": list(FLASH_SHAPE),
+          "timing": "median of cold-L2 calls, CUDA events; the backward "
+                    "kernels take the plain forward's lse and delta; "
+                    "bwd_ms = dq + dkv against sdpa_bwd_ms (one call "
+                    "computing dQ, dK and dV); bounds over peak_flops, "
+                    "the card's peak for the case's dtype",
+          "cases": cases})
+    return cases
+
+
+# -- train phase -------------------------------------------------------------
+
+def _param_count(vocab, d_model, n_layers, seq):
+    """benchmark/run_ridge.py's analytic count for the 6*N*P convention:
+    12*d^2 per block plus token, position and output tables."""
+    return (n_layers * 12 * d_model * d_model + 2 * vocab * d_model
+            + max(seq, 2048) * d_model)
+
+
+def _train_feed(step):
+    """The periodic next-token data of examples/transformer_lm.py."""
+    base = np.arange(T_BATCH * T_SEQ).reshape(T_BATCH, T_SEQ) % 97
+    return {"ids": ((base + step) % 97).astype(np.int64),
+            "lbl": ((base + step + 1) % 97).astype(np.int64)[..., None]}
+
+
+def _train_steps(exe, main, loss, launches):
+    """T_STEPS steps -> (losses, step seconds, flash launches per step)."""
+    losses, secs, per_step = [], [], []
+    for step in range(T_STEPS):
+        before = dict(launches)
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=_train_feed(step), fetch_list=[loss])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out.reshape(-1)[0]))
+        per_step.append({k: launches[k] - before[k] for k in launches})
+    return losses, secs, per_step
+
+
+def _kernel_group(name):
+    low = name.lower()
+    if "gemm" in low or "cublas" in low or "cutlass" in low:
+        return "matmul"
+    if any(k in name for k in ("fwd_kernel<", "dq_kernel<", "dkv_kernel<")):
+        return "flash_attention"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def _profile_step(exe, main, loss, step):
+    """One more kernel-path step under torch.profiler -> device time by
+    kernel group and the top kernels (self device time, ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed=_train_feed(step), fetch_list=[loss])
+        torch.cuda.synchronize()
+    kernels = {}   # device-side events only: host ops would count twice
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            kernels[ev.key] = ev.self_device_time_total / 1e3
+    groups = {}
+    for name, ms in kernels.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    check(groups.get("flash_attention", 0.0) > 0,
+          f"train: the profile shows no flash-attention kernel: {groups}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": sum(kernels.values()), "by_group_ms": groups,
+            "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+
+
+class _PlainAttention:
+    """The `flash_attention` op's lowering swapped for the plain
+    composition while the block runs (the package itself has one path on
+    the card); `calls` counts the forward and recomputed-forward runs."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.registry import get_op_info
+
+        self.info = get_op_info("flash_attention")
+        self.lower, self.calls = self.info.lower, 0
+        self.info.lower = self._plain
+        return self
+
+    def __exit__(self, *exc):
+        self.info.lower = self.lower
+
+    def _plain(self, ctx, ins, attrs):
+        from paddle_tpu_torch.core.execution import one
+        from paddle_tpu_torch.kernels.flash_attention import (
+            flash_attention_reference)
+
+        self.calls += 1
+        scale = None if attrs.get("default_scale", True) else attrs["scale"]
+        return {"Out": flash_attention_reference(
+            one(ins, "Q"), one(ins, "K"), one(ins, "V"),
+            causal=bool(attrs.get("causal", False)), scale=scale)}
+
+
+def _param_rel_diff(scope, init, k_params):
+    """{name: ||dW_kernel - dW_plain|| / ||dW_plain||} over the weight
+    matrices, dW = value after the steps - initial value."""
+    out = {}
+    for n, k_val in k_params.items():
+        d_plain = scope.find_var(n) - init[n]
+        d_kern = k_val - init[n]
+        out[n] = float((d_kern - d_plain).norm() / d_plain.norm())
+    return out
+
+
+def train_phase(card, place, flops, flash_cases):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
+        lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
+        logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
+                                n_layers=T_LAYERS, max_len=max(T_SEQ, 2048),
+                                return_logits=True)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, shape=[-1, T_VOCAB]),
+            fluid.layers.reshape(lbl, shape=[-1, 1]))
+        loss = fluid.layers.mean(cost)
+        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    params = main.global_block().all_parameters()
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    weights = [p.name for p in params if len(p.shape) == 2]
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    prev_scope = executor_mod.switch_scope(Scope())
+    exe = None
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(place, seed=SEED)
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        init = {n: scope.find_var(n).clone() for n in persist}
+
+        # the main path: counts zeroed just before, read just after
+        launches = flash_attention.launches
+        for key in launches:
+            launches[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        k_loss, k_secs, k_steps = _train_steps(exe, main, loss, launches)
+        peak = torch.cuda.max_memory_allocated()
+        k_params = {n: scope.find_var(n).clone() for n in weights}
+        before = dict(launches)
+        profile = _profile_step(exe, main, loss, T_STEPS)
+        k_steps.append({k: launches[k] - before[k] for k in launches})
+        k_total = dict(launches)
+        want = {"fwd": 2 * T_LAYERS, "dq": T_LAYERS, "dkv": T_LAYERS}
+        check(all(st == want for st in k_steps),
+              f"train: flash launches per step {k_steps}, want {want}")
+
+        # the plain path from the same state and feeds
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        with _PlainAttention() as plain:
+            p_loss, p_secs, p_steps = _train_steps(exe, main, loss, launches)
+        check(all(st == {"fwd": 0, "dq": 0, "dkv": 0} for st in p_steps),
+              f"train: the plain path launched flash kernels {p_steps}")
+        check(plain.calls == 2 * T_LAYERS * T_STEPS,
+              f"train: {plain.calls} plain attentions on the plain path")
+        param_rel = _param_rel_diff(scope, init, k_params)
+        del init, k_params
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        del exe
+        torch.cuda.empty_cache()
+
+    check(all(np.isfinite(k_loss + p_loss)), f"train: non-finite losses "
+          f"{k_loss} / {p_loss}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    check(max(rel) <= LOSS_RTOL, f"train: kernel/plain losses differ {rel}")
+    worst = max(param_rel, key=param_rel.get)
+    check(param_rel[worst] <= PARAM_RTOL, f"train: weight {worst} moved "
+          f"{param_rel[worst]} apart on the kernel and plain paths")
+    tokens = T_BATCH * T_SEQ
+    p_an = _param_count(T_VOCAB, T_D, T_LAYERS, T_SEQ)
+    step_s = float(np.median(k_secs[1:]))
+    plain_step_s = float(np.median(p_secs[1:]))
+    fc = flash_cases["fp32_causal"]
+    attn_ms = sum(fc[kind]["ms"] * want[kind] for kind in want)
+    emit({"phase": "train", "card": card, "vocab": T_VOCAB, "d_model": T_D,
+          "n_heads": T_HEADS, "n_layers": T_LAYERS, "seq": T_SEQ,
+          "batch": T_BATCH, "dtype": "float32", "optimizer": "momentum",
+          "params": n_params, "params_analytic": p_an,
+          "startup_s": startup_s, "steps": T_STEPS,
+          "kernel_path": {"losses": k_loss, "step_s": k_secs,
+                          "launches_per_step": k_steps[0],
+                          "launches": k_total},
+          "plain_path": {"losses": p_loss, "step_s": p_secs,
+                         "plain_attentions": plain.calls},
+          "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+          "weight_change_rel_diff": {"max": param_rel[worst],
+                                     "argmax": worst,
+                                     "n_weights": len(param_rel),
+                                     "per_weight": param_rel,
+                                     "limit": PARAM_RTOL},
+          "ms_per_step": step_s * 1e3,
+          "plain_ms_per_step": plain_step_s * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "mfu_6np_fp32": 6.0 * tokens * p_an / step_s / flops,
+          "attention_ms_per_step": attn_ms,
+          "attention_share": attn_ms / (step_s * 1e3),
+          "profiled_step": profile,
+          "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
+          "peak_memory_bytes": peak,
+          "timing": "host clock around exe.run + synchronize; median of "
+                    "steps 2..N; attention from the flash phase's cold "
+                    "kernel ms x launches per step; the profiled step "
+                    "(torch.profiler, one step after the timed ones) "
+                    "gives device time by kernel, and the idle share is "
+                    "1 - its device time / the median step"})
+    return k_total
 
 
 # -- serve / spec phases -----------------------------------------------------
@@ -385,7 +763,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
-    from paddle_tpu_torch.kernels import cuda_build, paged_attention as pa
+    from paddle_tpu_torch.kernels import cuda_build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -395,24 +775,30 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_peaks(name)
+    bw, peaks = card_peaks(name)
+    flops = peaks[torch.float32]
     card = {"name": name, "nvidia_smi": smi}
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "card": card, "peak_bytes_per_s": bw, "peak_fp32_flops": flops})
+          "card": card, "peak_bytes_per_s": bw, "peak_fp32_flops": flops,
+          "peak_bf16_tensor_flops": peaks[torch.bfloat16]})
 
     t0 = time.perf_counter()
     cuda_build.build_all()
     pa.build()
-    log = cuda_build.build_log(pa.SOURCE)
+    fa.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "counts": cuda_build.build_counts(),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": {src: [ln.strip() for ln in
+                          cuda_build.build_log(src).splitlines()
+                          if "registers" in ln or "spill" in ln]
+                    for src in (pa.SOURCE, fa.SOURCE)}})
 
     cases = kernels_phase(dev, bw, flops)
+    flash_cases = flash_phase(dev, bw, peaks)
     from paddle_tpu_torch import CUDAPlace
 
+    flash_launches = train_phase(card, CUDAPlace(0), flops, flash_cases)
     launches = serve_phases(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
@@ -424,7 +810,31 @@ def main():
              **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
              "case": "fp32_w1", "cases": cases}
-    emit({"kernels": [entry]})
+    entries = [entry]
+    src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+    main_case = flash_cases["fp32_causal"]
+    for kind, kname, line, err_keys in (
+            ("fwd", "flash_attention_fwd", 63, ("fwd", "lse")),
+            ("dq", "flash_attention_bwd_dq", 188, ("dq",)),
+            ("dkv", "flash_attention_bwd_dkv", 239, ("dk", "dv"))):
+        per_case = {n: dict(c[kind], max_abs_err=max(
+            c["max_abs_err"][e] for e in err_keys),
+            peak_flops=c["peak_flops"]) for n, c in flash_cases.items()}
+        # SDPA computes the forward alone, but dQ, dK and dV only
+        # together: the backward rows carry it once, against dq + dkv
+        lib = ({"library_ms": main_case["sdpa_fwd_ms"]} if kind == "fwd"
+               else {"library_ms": None,
+                     "library_bwd_ms": main_case["sdpa_bwd_ms"],
+                     "bwd_ms": main_case["bwd_ms"]})
+        entries.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "launches": flash_launches[kind],
+            "max_abs_err": per_case["fp32_causal"]["max_abs_err"],
+            **{k: main_case[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+            **lib, "case": "fp32_causal", "cases": per_case})
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

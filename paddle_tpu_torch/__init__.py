@@ -7,19 +7,27 @@ never paddle_tpu.  Entry points run on CUDAPlace(0) unless the caller
 passes CPUPlace(); with no CUDA device they raise.
 
 Ported so far: the Program IR and the layers the transformer LM builds
-with, and LM serving — the paged decoder (models/transformer.py) with
-its hand-written CUDA paged-attention kernel (kernels/) under the
-continuous-batching GenerationServer (serving/).
+with; LM serving — the paged decoder (models/transformer.py) with its
+hand-written CUDA paged-attention kernel (kernels/) under the
+continuous-batching GenerationServer (serving/); and training — the
+interpreter Executor, append_backward, gradient clipping and
+regularization, and the SGD/Momentum/Adam optimizers, with the
+flash-attention op on hand-written CUDA forward and backward kernels.
 """
 from . import (  # noqa: F401
+    backward,
+    clip,
     initializer,
     kernels,
     layers,
     models,
     nets,
     observability,
+    optimizer,
+    regularizer,
     serving,
 )
+from .backward import append_backward, calc_gradient  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace,
     CUDAPlace,
@@ -29,7 +37,17 @@ from .core import (  # noqa: F401
     default_startup_program,
     program_guard,
 )
+from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
+from .core.scope import Scope  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD,
+    Adam,
+    AdamOptimizer,
+    Momentum,
+    MomentumOptimizer,
+    SGDOptimizer,
+)
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

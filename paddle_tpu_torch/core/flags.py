@@ -74,9 +74,8 @@ define_flag("trace_dir", "",
             "at process exit")
 define_flag("remat", False,
             "default rematerialization for model builders that accept "
-            "remat=None.  Read at BUILD time; the inference builders of "
-            "this package never differentiate, so it only shapes the "
-            "Program a builder records")
+            "remat=None.  Read at BUILD time; layers.recompute is not "
+            "ported (ROADMAP A4), so a training build with it on raises")
 define_flag("serving_kv_dtype", "",
             "default KV-pool storage precision for "
             "models.transformer.build_lm_paged_decoder when the caller "

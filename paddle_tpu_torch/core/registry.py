@@ -4,9 +4,14 @@ Counterpart of paddle_tpu/core/registry.py.  Every op registers ONE
 `lower(ctx, ins, attrs) -> {output_slot: value}` function over torch
 tensors.  The same function serves eager execution on any device and
 build-time shape inference, which runs it on ``device="meta"`` tensors
-(core/shape_inference.py).  This package runs inference only, so the
-gradient metadata of the JAX registry is kept as plain fields and never
-consulted.
+(core/shape_inference.py).
+
+Gradients: an op may register an explicit `grad_maker` or a lowering of
+its own "<type>_grad" op (lookup_table_grad); otherwise "<type>_grad"
+resolves to the forward op's info and runs the generic gradient
+(core/execution.generic_grad_lower: torch autograd over the forward
+lowering).  `diff_inputs`/`diff_outputs` name the slots it
+differentiates.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ class OpInfo:
     lower: Callable = None
     # infer_shape(op, block) -> None ; fills output var shapes at build time
     infer_shape: Callable = None
+    # grad_maker(op, block, out_grad_names, no_grad_set, partials) ;
+    # None = the generic "<type>_grad" op (backward.py)
+    grad_maker: Callable = None
     # input/output slots that are differentiable (None = all)
     diff_inputs: Optional[Sequence[str]] = None
     diff_outputs: Optional[Sequence[str]] = None
@@ -75,8 +83,41 @@ def register_op(
     return deco
 
 
+def register_infer_shape(type: str):
+    def deco(fn):
+        info = _REGISTRY.setdefault(type, OpInfo(type=type))
+        info.infer_shape = fn
+        return fn
+
+    return deco
+
+
+def register_grad_maker(type: str):
+    def deco(fn):
+        info = _REGISTRY.setdefault(type, OpInfo(type=type))
+        info.grad_maker = fn
+        return fn
+
+    return deco
+
+
 def get_op_info(type: str) -> OpInfo:
     info = _REGISTRY.get(type)
     if info is None or info.lower is None:
+        # grad ops resolve generically: "<fwd>_grad" with no explicit lowering
+        if type.endswith("_grad") and type[: -len("_grad")] in _REGISTRY:
+            return _REGISTRY[type[: -len("_grad")]]
         raise KeyError(f"op '{type}' is not registered")
     return info
+
+
+def has_op(type: str) -> bool:
+    try:
+        get_op_info(type)
+        return True
+    except KeyError:
+        return False
+
+
+def registered_ops() -> List[str]:
+    return sorted(t for t, i in _REGISTRY.items() if i.lower is not None)

@@ -74,6 +74,29 @@ def default_infer_shape(op, block, report=None):
             var.dtype = canonical_dtype(val.dtype)
 
 
+def set_output_shape(op, block, slot, shape, dtype=None):
+    """Helper for explicit infer fns: declare shape/dtype for every var
+    bound to output `slot` (sentinel/undeclared names skipped)."""
+    for name in op.output(slot):
+        if name in EMPTY_VAR_NAMES:
+            continue
+        var = block.vars.get(name)
+        if var is None:
+            continue
+        var.shape = tuple(int(d) for d in shape)
+        if dtype is not None and var.dtype is None:
+            var.dtype = canonical_dtype(dtype)
+
+
+def input_var(op, block, slot):
+    """First var bound to input `slot`, or None (KeyError propagates for
+    dangling names, as in default_infer_shape)."""
+    names = op.input(slot)
+    if not names or names[0] in EMPTY_VAR_NAMES:
+        return None
+    return block.var(names[0])
+
+
 def infer_grad_shapes(op, block):
     """'<x>@GRAD' vars mirror their forward var's shape/dtype."""
     from .framework import GRAD_SUFFIX

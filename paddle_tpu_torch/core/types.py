@@ -27,6 +27,7 @@ _TORCH = {
 }
 _FROM_TORCH = {v: k for k, v in _TORCH.items()}
 
+FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
 
 def canonical_dtype(d) -> str:
@@ -49,6 +50,10 @@ def canonical_dtype(d) -> str:
 def torch_dtype(name) -> torch.dtype:
     """Canonical name (or anything canonical_dtype takes) -> torch dtype."""
     return _TORCH[canonical_dtype(name)]
+
+
+def is_float_dtype(d) -> bool:
+    return canonical_dtype(d) in FLOAT_DTYPES
 
 
 # ---------------------------------------------------------------------------

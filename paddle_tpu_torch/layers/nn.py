@@ -1,4 +1,5 @@
-"""NN layers: fc, embedding, flash_attention, layer_norm (counterpart of
+"""NN layers: fc, embedding, flash_attention, layer_norm, the losses
+and reductions of a training Program (counterpart of
 paddle_tpu/layers/nn.py)."""
 from __future__ import annotations
 
@@ -7,7 +8,9 @@ import math
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "flash_attention", "layer_norm"]
+__all__ = ["fc", "embedding", "flash_attention", "layer_norm", "mean",
+           "reduce_sum", "cross_entropy", "square_error_cost",
+           "softmax_with_cross_entropy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -30,13 +33,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
             {"Out": [tmp.name]},
             {"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the `sum` op, which this "
-            "package does not carry yet")
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype)
+        helper.append_op("sum", {"X": [v.name for v in mul_results]},
+                         {"Out": [pre_bias.name]})
     # bias covers only the projected dims: a [size] bias
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -58,7 +62,9 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
 
 def flash_attention(q, k, v, causal=False, scale=None, min_seq_k=None,
                     name=None):
-    """Fused attention over [batch, seq, heads, head_dim] tensors."""
+    """Fused attention over [batch, seq, heads, head_dim] tensors.
+    `min_seq_k` is recorded on the op as the JAX package does; this
+    package's op does not read it."""
     helper = LayerHelper("flash_attention", name=name)
     out = helper.create_tmp_variable(q.dtype)
     out.shape = q.shape
@@ -99,3 +105,58 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"epsilon": epsilon,
                       "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("mean", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    attrs = {"keep_dim": keep_dim}
+    if dim is None:
+        attrs["reduce_all"] = True
+        attrs["dim"] = [0]
+    else:
+        attrs["reduce_all"] = False
+        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+    helper.append_op("reduce_sum", {"X": [input.name]}, {"Out": [out.name]},
+                     attrs)
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("cross_entropy",
+                     {"X": [input.name], "Label": [label.name]},
+                     {"Y": [out.name]}, {"soft_label": soft_label})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2."""
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("elementwise_sub",
+                     {"X": [input.name], "Y": [label.name]},
+                     {"Out": [minus_out.name]}, {"axis": -1})
+    square_out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("square", {"X": [minus_out.name]},
+                     {"Out": [square_out.name]})
+    return square_out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_tmp_variable(logits.dtype)
+    loss = helper.create_tmp_variable(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": [logits.name], "Label": [label.name]},
+                     {"Softmax": [softmax.name], "Loss": [loss.name]},
+                     {"soft_label": soft_label})
+    return loss

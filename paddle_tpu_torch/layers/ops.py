@@ -8,8 +8,10 @@ import sys
 from ..core import registry
 from ..layer_helper import LayerHelper
 
-_UNARY = ["relu", "softmax", "reshape", "slice"]
-_BINARY = ["elementwise_add"]
+_UNARY = ["relu", "square", "sqrt", "softmax", "clip", "clip_by_norm",
+          "reshape", "slice"]
+_BINARY = ["elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max"]
 
 __all__ = list(_UNARY) + list(_BINARY)
 

@@ -110,13 +110,15 @@ def transformer_decoder(tgt_ids, enc_out, vocab_size, d_model=256,
 
     `pipeline_stages=S` annotates the block stack with `pipeline_stage`
     (n_layers/S consecutive blocks per stage).  `remat` (None reads the
-    `remat` flag) needs the recompute layer, which arrives with the
-    training slice: asking for it raises."""
+    `remat` flag) needs the recompute layer, which is not ported: asking
+    for it raises."""
     d_inner = d_inner or 4 * d_model
     if remat is None:
         remat = bool(get_flag("remat")) and not pipeline_stages
     if remat:
-        raise NotImplementedError("remat (layers.recompute) is not ported yet")
+        raise NotImplementedError(
+            "remat needs layers.recompute, which is not ported yet "
+            "(ROADMAP A4); build with remat=False")
     if pipeline_stages and n_layers % pipeline_stages:
         raise ValueError(
             f"n_layers {n_layers} must be a multiple of "

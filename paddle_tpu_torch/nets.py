@@ -14,8 +14,8 @@ def scaled_dot_product_attention(queries, keys, values,
     `flash_attention` op.  `causal=True` masks future positions.
 
     Attention-weight dropout in training needs the composed
-    matmul/softmax/dropout chain, which arrives with the training
-    slice; asking for it raises."""
+    matmul/softmax/dropout chain of the JAX package, whose dropout and
+    matmul ops are not ported yet; asking for it raises."""
     d_model = int(queries.shape[-1])
     if num_heads < 1:
         raise ValueError("num_heads must be >= 1")

@@ -1,8 +1,9 @@
 """Op corpus: importing this package registers the op lowerings.
 
 Counterpart of paddle_tpu/ops/.  This package carries the ops that the
-transformer LM Program contains (plus the startup initializers), each
-lowered once in PyTorch.
+transformer LM's training Program contains (forward ops, losses, the
+small ops backward and the optimizers emit, the optimizer updates and
+the startup initializers), each lowered once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -10,7 +11,11 @@ from . import (  # noqa: F401
     creation,
     elementwise,
     embedding,
+    loss,
     manip,
     matmul,
+    misc,
     norm,
+    optimizer_ops,
+    reduce,
 )

@@ -1,4 +1,5 @@
-"""relu and softmax (counterpart of paddle_tpu/ops/activation.py)."""
+"""relu, square, sqrt and softmax (counterpart of
+paddle_tpu/ops/activation.py)."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +11,16 @@ from ..core.registry import register_op
 @register_op("relu", inputs=("X",), outputs=("Out",))
 def relu(ctx, ins, attrs):
     return {"Out": torch.relu(one(ins, "X"))}
+
+
+@register_op("square", inputs=("X",), outputs=("Out",))
+def square(ctx, ins, attrs):
+    return {"Out": torch.square(one(ins, "X"))}
+
+
+@register_op("sqrt", inputs=("X",), outputs=("Out",))
+def sqrt(ctx, ins, attrs):
+    return {"Out": torch.sqrt(one(ins, "X"))}
 
 
 @register_op("softmax", inputs=("X",), outputs=("Out",))

@@ -1,29 +1,19 @@
 """The `flash_attention` op (counterpart of paddle_tpu/ops/attention.py).
 
-Here it has only its plain PyTorch lowering — materialized scores,
-softmax, weighted sum — which serves build-time shape inference of the
-LM Program.  Its hand-written kernel belongs to the training slice; the
-paged decoder does not run this op.
+On CUDA tensors it runs the hand-written flash-attention kernels
+(kernels/flash_attention.py: forward here, dQ and dK/dV when the
+generic gradient differentiates it), and a call the kernels do not take
+(head_dim, dtype, shape) raises there.  CPU and meta tensors
+(build-time shape inference) run the plain composition.  The
+`min_seq_k` attr is kept so Programs equal the JAX package's, and is
+not read: the JAX op's crossover was measured on a TPU.  The JAX op's
+sequence-parallel branch (sp_axis) is ROADMAP A9.
 """
 from __future__ import annotations
 
-import torch
-
 from ..core.execution import one
 from ..core.registry import register_op
-
-
-def flash_attention_reference(q, k, v, causal=False, scale=None):
-    """Attention on [b, s, h, d] tensors, computed in float32."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        ql, kl = q.shape[1], k.shape[1]
-        keep = (torch.arange(ql, device=q.device)[:, None]
-                >= torch.arange(kl, device=q.device)[None, :])
-        s = s.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+from ..kernels.flash_attention import flash_attention
 
 
 @register_op("flash_attention", inputs=("Q", "K", "V"), outputs=("Out",),
@@ -31,10 +21,9 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
                     "min_seq_k": -1})
 def flash_attention_op(ctx, ins, attrs):
     """Q/K/V: [batch, seq, heads, head_dim].  default_scale=True ->
-    1/sqrt(head_dim); otherwise the explicit `scale` attr.  `min_seq_k`
-    is carried for Program parity and not read."""
+    1/sqrt(head_dim); otherwise the explicit `scale` attr."""
+    q, k, v = one(ins, "Q"), one(ins, "K"), one(ins, "V")
     scale = None if attrs.get("default_scale", True) else attrs["scale"]
-    out = flash_attention_reference(
-        one(ins, "Q"), one(ins, "K"), one(ins, "V"),
-        causal=bool(attrs.get("causal", False)), scale=scale)
-    return {"Out": out}
+    return {"Out": flash_attention(q, k, v,
+                                   causal=bool(attrs.get("causal", False)),
+                                   scale=scale)}

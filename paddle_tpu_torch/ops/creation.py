@@ -1,15 +1,15 @@
-"""Startup initializer ops (counterpart of paddle_tpu/ops/creation.py).
+"""Creation ops: the startup initializers, fill_zeros_like and assign
+(counterpart of paddle_tpu/ops/creation.py).
 
-The port's parameters come from a saved model or from the JAX package,
-so nothing here runs a startup Program yet; the lowerings exist so the
-startup ops register and shape-infer like the JAX package's.  Random
-draws use the ExecContext's `torch.Generator`: the values differ from
-the JAX package's threefry streams by design.
+Random draws use the ExecContext's `torch.Generator`: the values differ
+from the JAX package's threefry streams by design, so parity tests copy
+the JAX package's initial parameters in (core/scope.scope_from_numpy).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.execution import one
 from ..core.registry import register_op
 from ..core.types import torch_dtype
 
@@ -44,3 +44,22 @@ def gaussian_random(ctx, ins, attrs):
                       device=ctx.device)
     out.normal_(attrs["mean"], attrs["std"], generator=ctx.generator)
     return {"Out": out.to(torch_dtype(attrs["dtype"]))}
+
+
+@register_op("fill_zeros_like", inputs=("X",), outputs=("Out",),
+             not_differentiable=True)
+def fill_zeros_like(ctx, ins, attrs):
+    return {"Out": torch.zeros_like(one(ins, "X"))}
+
+
+@register_op("assign", inputs=("X",), outputs=("Out",))
+def assign(ctx, ins, attrs):
+    return {"Out": one(ins, "X")}
+
+
+@register_op("increment", inputs=("X",), outputs=("Out",),
+             attrs={"step": 1.0}, inplace={"Out": "X"})
+def increment(ctx, ins, attrs):
+    x = one(ins, "X")
+    return {"Out": x + torch.tensor(attrs["step"], dtype=x.dtype,
+                                    device=x.device)}

@@ -1,4 +1,6 @@
-"""Embedding lookup (counterpart of paddle_tpu/ops/embedding.py)."""
+"""Embedding lookup and its dense gradient (counterpart of
+paddle_tpu/ops/embedding.py).  The `is_sparse` gradient needs the
+SelectedRows type (ROADMAP A1) and raises."""
 from __future__ import annotations
 
 import torch
@@ -23,3 +25,23 @@ def lookup_table(ctx, ins, attrs):
     else:
         out_shape = tuple(ids.shape) + (w.shape[1],)
     return {"Out": out.reshape(out_shape)}
+
+
+@register_op("lookup_table_grad", inputs=("Ids", "W", "Out@GRAD"),
+             outputs=("W@GRAD",))
+def lookup_table_grad(ctx, ins, attrs):
+    """Dense W@GRAD: the output rows scatter-added into a zero table
+    (index_add_: duplicate ids accumulate)."""
+    if attrs.get("is_sparse"):
+        raise NotImplementedError(
+            "lookup_table with is_sparse=True needs the SelectedRows "
+            "gradient type, which is not ported yet (ROADMAP A1); build "
+            "the embedding with is_sparse=False")
+    ids = one(ins, "Ids")
+    w = one(ins, "W")
+    flat = ids.reshape(-1).long()
+    og2 = one(ins, "Out@GRAD").reshape(-1, w.shape[1]).to(w.dtype)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        og2 = torch.where((flat == pad)[:, None], torch.zeros_like(og2), og2)
+    return {"W@GRAD": torch.zeros_like(w).index_add_(0, flat, og2)}

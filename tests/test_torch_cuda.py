@@ -90,3 +90,200 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take(dev):
     q, pk, pv, tables, positions = _inputs("fp32", 1, 64, 4, dev)
     with pytest.raises(ValueError, match="int32"):
         paged_attention(q, pk, pv, tables.long(), positions, 0, n_heads=4)
+
+
+# -- flash attention ---------------------------------------------------------
+#
+# Each kernel against its plain version on the same inputs (the backward
+# kernels get the plain forward's lse and delta).  Tolerances relative to
+# max(1, max|plain|): 2e-5 for the float32 output and 2e-4 for float32
+# gradients (tiled online softmax vs one pass, other summation order);
+# 2e-2 for bfloat16 (the output and gradients round to bf16).
+
+from paddle_tpu_torch.kernels.flash_attention import (  # noqa: E402
+    attention_delta, flash_attention, flash_attention_dkv,
+    flash_attention_dkv_reference, flash_attention_dq,
+    flash_attention_dq_reference, flash_attention_fwd,
+    flash_attention_fwd_reference, flash_attention_reference)
+
+
+def _flash_inputs(b, sq, sk, h, d, dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dev, dtype)
+            for s in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                      (b, sq, h, d))]
+
+
+def _close(got, want, tol, what):
+    got, want = got.detach().float(), want.detach().float()
+    lim = tol * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= lim, f"{what}: max_abs_err {err} > {lim}"
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 128), (80, 200), (200, 80)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d_head", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(dev, dtype, d_head, causal, sq, sk):
+    q, k, v, do = _flash_inputs(2, sq, sk, 3, d_head, dtype, dev)
+    fp32 = dtype == torch.float32
+    before = dict(flash_attention.launches)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
+    delta = attention_delta(o_ref, do)
+    dq = flash_attention_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse_ref, delta, causal)
+    dq_ref = flash_attention_dq_reference(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = flash_attention_dkv_reference(q, k, v, do, lse_ref,
+                                                   delta, causal)
+    torch.cuda.synchronize()
+    _close(o, o_ref, 2e-5 if fp32 else 2e-2, "o")
+    _close(lse, lse_ref, 2e-5 if fp32 else 2e-2, "lse")
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want, 2e-4 if fp32 else 2e-2, name)
+    assert flash_attention.launches == {
+        key: before[key] + 1 for key in ("fwd", "dq", "dkv")}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_matches_plain_autograd(dev, causal):
+    q, k, v, do = _flash_inputs(2, 96, 160, 2, 32, torch.float32, dev, 1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_reference(*ref_leaves, causal=causal)
+    want = torch.autograd.grad(ref, ref_leaves, do)
+    _close(out, ref, 2e-5, "out")
+    for name, g, w in zip("qkv", got, want):
+        _close(g, w, 2e-4, "d" + name)
+
+
+def test_flash_backward_is_bit_identical_across_calls(dev):
+    q, k, v, do = _flash_inputs(2, 256, 256, 4, 128, torch.float32, dev, 2)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    delta = attention_delta(o, do)
+    first = (flash_attention_dq(q, k, v, do, lse, delta, True),
+             *flash_attention_dkv(q, k, v, do, lse, delta, True))
+    again = (flash_attention_dq(q, k, v, do, lse, delta, True),
+             *flash_attention_dkv(q, k, v, do, lse, delta, True))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_reads_strided_inputs(dev):
+    """q/k/v as views of one fused [b, s, 3, h, d] tensor: read through
+    their strides, no copy needed."""
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn((2, 64, 3, 4, 64), generator=gen).to(dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, _ = flash_attention_fwd(q, k, v, True)
+    _close(o, flash_attention_reference(q, k, v, True), 2e-5, "o")
+
+
+def test_flash_raises_on_what_the_kernels_do_not_take(dev):
+    q, k, v, _ = _flash_inputs(1, 64, 64, 2, 64, torch.float16, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k, v)
+    q, k, v, do = _flash_inputs(1, 64, 64, 2, 96, torch.float32, dev)
+    with pytest.raises(ValueError, match="d_head"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="d_head"):
+        flash_attention_fwd(q, k, v)
+    q, k, v, do = _flash_inputs(1, 64, 64, 2, 64, torch.float32, dev)
+    _, lse = flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention_dq(q, k, v, do, lse, lse[:, :, :8], False)
+
+
+def test_flash_op_raises_on_the_card_instead_of_running_plain(dev):
+    """The op never gives way to the plain version on the card: a
+    head_dim or dtype the kernels do not take raises at the op, with
+    nothing launched and nothing counted; a supported shape launches
+    the kernel whatever the op's `min_seq_k` attr says."""
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.kernels import registry as kreg
+
+    lower = get_op_info("flash_attention").lower
+    attrs = {"causal": True, "scale": 1.0, "default_scale": True,
+             "min_seq_k": 1 << 20}
+    fam = kreg._M_FALLBACKS
+    counted = {tuple(sorted(lb.items())): c.value for lb, c in fam.samples()}
+    launches = dict(flash_attention.launches)
+    for d_head, dtype, reason in ((96, torch.float32, "d_head"),
+                                  (64, torch.float16, "dtype")):
+        q, k, v, _ = _flash_inputs(1, 32, 32, 2, d_head, dtype, dev)
+        with pytest.raises(ValueError, match=rf"\({reason}\)"):
+            lower(ExecContext(dev), {"Q": [q], "K": [k], "V": [v]}, attrs)
+    assert flash_attention.launches == launches
+    assert {tuple(sorted(lb.items())): c.value
+            for lb, c in fam.samples()} == counted
+    q, k, v, _ = _flash_inputs(1, 32, 32, 2, 64, torch.float32, dev)
+    out = lower(ExecContext(dev), {"Q": [q], "K": [k], "V": [v]},
+                attrs)["Out"]
+    _close(out, flash_attention_reference(q, k, v, True), 2e-5, "o")
+    assert flash_attention.launches["fwd"] == launches["fwd"] + 1
+
+
+def test_lm_trains_on_cuda_like_on_cpu(dev):
+    """A tiny transformer LM, 3 Momentum steps from the same parameters:
+    the kernel path on the card against the plain path on the CPU
+    (losses within 1e-4 relative: cuBLAS and the CPU sum in other
+    orders)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core import framework as tfw
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    vocab, seq, batch = 29, 32, 4
+    tfw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[seq], dtype="int64")
+        lbl = fluid.layers.data(name="lbl", shape=[seq, 1], dtype="int64")
+        logits = transformer_lm(ids, vocab, d_model=128, n_heads=2,
+                                n_layers=2, max_len=seq, return_logits=True)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, shape=[-1, vocab]),
+            fluid.layers.reshape(lbl, shape=[-1, 1])))
+        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    base = np.arange(batch * seq).reshape(batch, seq) % 97
+    losses = {}
+    init = None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        prev = texecutor.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(place, seed=1)
+            exe.run(startup)
+            if init is None:
+                init = scope_to_numpy(fluid.global_scope(), names)
+            scope_from_numpy(init, place, fluid.global_scope())
+            before = dict(flash_attention.launches)
+            out = []
+            for step in range(3):
+                feed = {"ids": ((base + step) % vocab).astype(np.int64),
+                        "lbl": ((base + step + 1) % vocab).astype(
+                            np.int64)[..., None]}
+                out.append(float(exe.run(main, feed=feed,
+                                         fetch_list=[loss])[0][0]))
+            launched = {key: flash_attention.launches[key] - before[key]
+                        for key in before}
+        finally:
+            texecutor.switch_scope(prev)
+        losses[str(place)] = out
+        if str(place) == "CPUPlace":
+            assert launched == {"fwd": 0, "dq": 0, "dkv": 0}
+        else:   # 2 layers: 2 forward ops + 2 recomputed in the grad ops
+            assert launched == {"fwd": 12, "dq": 6, "dkv": 6}
+    cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
+    assert np.all(np.isfinite(gpu))
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=0)

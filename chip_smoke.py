@@ -35,11 +35,30 @@ Phases, one JSON line each:
            16 staggered requests per kv_dtype on the plain path and on
            the kernel path, batched-vs-solo bit identity, pool drain;
   spec     the same model as its own draft (spec_k 3, the W=4 kernel):
-           accept rate 1.0 and the plain greedy tokens.
+           accept rate 1.0 and the plain greedy tokens;
+  dp       the train phase's LM with plain SGD, trained data-parallel
+           through ShardingTranspiler(mesh={"dp": 1}, overlap=
+           "bucketed") and ParallelExecutor over a single-rank NCCL
+           group: bucketed gradient all-reduces and the fused bucket
+           update kernel, then the per-op sgd chain from the same state;
+  fused_update  the fused bucket SGD kernel against its plain version
+           (bit for bit) on the dp path's largest bucket and odd sizes;
+  moe_kernel  the MoE gate + dispatch kernel against its plain version
+           at the MoE LM's shape (T 4096, D 1024, E 8): top-2, top-1 and
+           an overflowing capacity; routing, expert_in, combine, aux and
+           the autograd Function's gradients;
+  moe      the MoE transformer LM of benchmark/run_moe.py at its
+           defaults (vocab 30000, d_model 1024, 8 heads, 6 layers, 8
+           experts, top-2, capacity factor 1.25, seq 512, batch 8; fp32,
+           Momentum) trained by the interpreter Executor: the kernel
+           path, then the plain path from the same state, and the
+           for_test clone's forward on both.
 
-The main paths are the train phase's kernel path (flash attention) and
-the kernel-path serve and spec phases (paged attention): each kernel's
-launch counts are zeroed just before its path and read just after.
+The main paths are the train phase's kernel path (flash attention), the
+kernel-path serve and spec phases (paged attention), the dp phase's
+fused run (fused bucket update) and the moe phase's kernel path (MoE
+gate + dispatch): each kernel's launch counts are zeroed just before
+its path and read just after.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -80,6 +99,13 @@ T_STEPS = 4
 # (dK and dV swapped, a scale dropped) moves them by order one
 LOSS_RTOL, PARAM_RTOL = 1e-5, 1e-2
 FLASH_SHAPE = (T_BATCH, T_SEQ, T_HEADS, T_D // T_HEADS)
+
+# the MoE configuration: benchmark/run_moe.py's defaults
+M_VOCAB, M_D, M_HEADS, M_LAYERS, M_SEQ, M_BATCH = 30000, 1024, 8, 6, 512, 8
+M_EXPERTS, M_TOPK, M_CF, M_AUX = 8, 2, 1.25, 0.01
+# the moe_kernel phase's router: N(0, 0.05), about the spread of the
+# LM's Xavier-initialised [1024, 8] gate weights
+M_GATE_STD = 0.05
 
 
 class CheckFailed(RuntimeError):
@@ -384,18 +410,42 @@ def _train_feed(step):
             "lbl": ((base + step + 1) % 97).astype(np.int64)[..., None]}
 
 
-def _train_steps(exe, main, loss, launches):
-    """T_STEPS steps -> (losses, step seconds, flash launches per step)."""
+def _timed_steps(run_step, counts):
+    """T_STEPS steps of `run_step(step)` (-> the loss) -> (losses, step
+    seconds, per step {name: how much counts[name]() grew})."""
     losses, secs, per_step = [], [], []
     for step in range(T_STEPS):
-        before = dict(launches)
+        before = {k: f() for k, f in counts.items()}
         t0 = time.perf_counter()
-        out, = exe.run(main, feed=_train_feed(step), fetch_list=[loss])
+        out = run_step(step)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(float(out.reshape(-1)[0]))
-        per_step.append({k: launches[k] - before[k] for k in launches})
+        per_step.append({k: f() - before[k] for k, f in counts.items()})
     return losses, secs, per_step
+
+
+def _lm_program(optimizer):
+    """The run_ridge transformer LM's training Program -> (main, startup,
+    loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
+        lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
+        logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
+                                n_layers=T_LAYERS, max_len=max(T_SEQ, 2048),
+                                return_logits=True)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, shape=[-1, T_VOCAB]),
+            fluid.layers.reshape(lbl, shape=[-1, 1]))
+        loss = fluid.layers.mean(cost)
+        optimizer.minimize(loss)
+    return main, startup, loss
 
 
 def _kernel_group(name):
@@ -404,20 +454,26 @@ def _kernel_group(name):
         return "matmul"
     if any(k in name for k in ("fwd_kernel<", "dq_kernel<", "dkv_kernel<")):
         return "flash_attention"
+    if any(k in name for k in ("route_kernel", "position_kernel",
+                               "write_kernel")):
+        return "moe_dispatch"
+    if "fused_sgd_kernel" in name:
+        return "fused_update"
     if "memcpy" in low or "memset" in low:
         return "copy"
     return "other"
 
 
-def _profile_step(exe, main, loss, step):
-    """One more kernel-path step under torch.profiler -> device time by
-    kernel group and the top kernels (self device time, ms)."""
+def _profile_step(run_step, need, phase):
+    """`run_step()` (one more kernel-path step) under torch.profiler ->
+    device time by kernel group and the top kernels (self device time,
+    ms); every group in `need` must show."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        exe.run(main, feed=_train_feed(step), fetch_list=[loss])
+        run_step()
         torch.cuda.synchronize()
     kernels = {}   # device-side events only: host ops would count twice
     for ev in prof.key_averages():
@@ -427,8 +483,9 @@ def _profile_step(exe, main, loss, step):
     for name, ms in kernels.items():
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
-    check(groups.get("flash_attention", 0.0) > 0,
-          f"train: the profile shows no flash-attention kernel: {groups}")
+    for g in need:
+        check(groups.get(g, 0.0) > 0,
+              f"{phase}: the profile shows no {g} kernel: {groups}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ms": sum(kernels.values()), "by_group_ms": groups,
             "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
@@ -462,12 +519,79 @@ class _PlainAttention:
             causal=bool(attrs.get("causal", False)), scale=scale)}
 
 
-def _param_rel_diff(scope, init, k_params):
+class _PlainMoe:
+    """The `moe_ffn` op's lowering swapped for the plain composition
+    (moe_gate, the dispatch einsum, the expert FFNs, the combine einsum)
+    while the block runs; `calls` counts the forward and
+    recomputed-forward runs."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.registry import get_op_info
+
+        self.info = get_op_info("moe_ffn")
+        self.lower, self.calls = self.info.lower, 0
+        self.info.lower = self._plain
+        return self
+
+    def __exit__(self, *exc):
+        self.info.lower = self.lower
+
+    def _plain(self, ctx, ins, attrs):
+        from paddle_tpu_torch.core.execution import one
+        from paddle_tpu_torch.kernels.moe_dispatch import (
+            moe_gate_dispatch_reference)
+        from paddle_tpu_torch.parallel.moe import _capacity, _expert_mm
+
+        self.calls += 1
+        x, gw = one(ins, "X"), one(ins, "GateW")
+        flat = x.reshape(-1, x.shape[-1])
+        e_n, top_k = gw.shape[1], int(attrs["top_k"])
+        c_n = _capacity(flat.shape[0], e_n, float(attrs["capacity_factor"]),
+                        top_k)
+        expert_in, combine, aux = moe_gate_dispatch_reference(flat, gw, e_n,
+                                                              c_n, top_k)
+        y = torch.einsum("ecd,tec->td", _expert_mm(
+            expert_in, one(ins, "WIn"), one(ins, "WOut"), torch.relu),
+            combine)
+        return {"Out": y.reshape(*x.shape[:-1], y.shape[-1]),
+                "AuxLoss": aux.reshape(1)}
+
+
+class _PerOpChain:
+    """The ParallelExecutor's fused bucket update swapped for the
+    program's own per-op `sgd` chain while the block runs (the package
+    has one path on the card); `calls` counts the sgd ops run."""
+
+    def __init__(self, pe):
+        self.pe = pe
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.registry import get_op_info
+
+        self.plan = self.pe._plan
+        buckets, issue_after, _ = self.plan
+        self.pe._plan = (buckets, issue_after, None)
+        self.info = get_op_info("sgd")
+        self.lower, self.calls = self.info.lower, 0
+        self.info.lower = self._counted
+        return self
+
+    def __exit__(self, *exc):
+        self.info.lower = self.lower
+        self.pe._plan = self.plan
+
+    def _counted(self, ctx, ins, attrs):
+        self.calls += 1
+        return self.lower(ctx, ins, attrs)
+
+
+def _param_rel_diff(current, init, k_params):
     """{name: ||dW_kernel - dW_plain|| / ||dW_plain||} over the weight
-    matrices, dW = value after the steps - initial value."""
+    matrices, dW = value after the steps - initial value; `current(n)`
+    is the plain path's value now."""
     out = {}
     for n, k_val in k_params.items():
-        d_plain = scope.find_var(n) - init[n]
+        d_plain = current(n) - init[n]
         d_kern = k_val - init[n]
         out[n] = float((d_kern - d_plain).norm() / d_plain.norm())
     return out
@@ -476,24 +600,11 @@ def _param_rel_diff(scope, init, k_params):
 def train_phase(card, place, flops, flash_cases):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import executor as executor_mod
-    from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.kernels.flash_attention import flash_attention
-    from paddle_tpu_torch.models.transformer import transformer_lm
 
-    fw.reset_unique_names()
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
-        ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
-        lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
-        logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
-                                n_layers=T_LAYERS, max_len=max(T_SEQ, 2048),
-                                return_logits=True)
-        cost = fluid.layers.softmax_with_cross_entropy(
-            fluid.layers.reshape(logits, shape=[-1, T_VOCAB]),
-            fluid.layers.reshape(lbl, shape=[-1, 1]))
-        loss = fluid.layers.mean(cost)
-        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    main, startup, loss = _lm_program(
+        fluid.Momentum(learning_rate=0.01, momentum=0.9))
     params = main.global_block().all_parameters()
     n_params = sum(int(np.prod(p.shape)) for p in params)
     weights = [p.name for p in params if len(p.shape) == 2]
@@ -514,11 +625,17 @@ def train_phase(card, place, flops, flash_cases):
         for key in launches:
             launches[key] = 0
         torch.cuda.reset_peak_memory_stats()
-        k_loss, k_secs, k_steps = _train_steps(exe, main, loss, launches)
+        run = lambda step: exe.run(  # noqa: E731
+            main, feed=_train_feed(step), fetch_list=[loss])[0]
+        counts = {k: (lambda k=k: launches[k]) for k in launches}
+        k_loss, k_secs, k_steps = _timed_steps(run, counts)
         peak = torch.cuda.max_memory_allocated()
         k_params = {n: scope.find_var(n).clone() for n in weights}
         before = dict(launches)
-        profile = _profile_step(exe, main, loss, T_STEPS)
+        profile = _profile_step(
+            lambda: exe.run(main, feed=_train_feed(T_STEPS),
+                            fetch_list=[loss]),
+            ("flash_attention",), "train")
         k_steps.append({k: launches[k] - before[k] for k in launches})
         k_total = dict(launches)
         want = {"fwd": 2 * T_LAYERS, "dq": T_LAYERS, "dkv": T_LAYERS}
@@ -529,12 +646,12 @@ def train_phase(card, place, flops, flash_cases):
         for n in persist:
             scope.set_var(n, init[n].clone())
         with _PlainAttention() as plain:
-            p_loss, p_secs, p_steps = _train_steps(exe, main, loss, launches)
+            p_loss, p_secs, p_steps = _timed_steps(run, counts)
         check(all(st == {"fwd": 0, "dq": 0, "dkv": 0} for st in p_steps),
               f"train: the plain path launched flash kernels {p_steps}")
         check(plain.calls == 2 * T_LAYERS * T_STEPS,
               f"train: {plain.calls} plain attentions on the plain path")
-        param_rel = _param_rel_diff(scope, init, k_params)
+        param_rel = _param_rel_diff(scope.find_var, init, k_params)
         del init, k_params
     finally:
         executor_mod.switch_scope(prev_scope)
@@ -757,6 +874,404 @@ def serve_phases(card, place):
     return serve_launches + spec_launches
 
 
+# -- dp / fused_update phases ------------------------------------------------
+
+def dp_phase(card, place, flops):
+    """The data-parallel path at the train phase's width.  The optimizer
+    is plain SGD (lr 0.01): ParallelExecutor._plan_fused_update fuses
+    only a chain of plain dense `sgd` ops (Momentum or Adam keep the
+    per-op chain, as in the JAX package), and this phase drives the
+    fused update.  One card: a single-rank NCCL group, so every bucket's
+    all-reduce is issued and waited on, and reduces nothing.  The chain
+    run swaps the fused update for the per-op sgd chain in this script
+    (`_PerOpChain`)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.flags import get_flag
+    from paddle_tpu_torch.kernels.fused_update import fused_bucket_sgd
+
+    main, startup, loss = _lm_program(fluid.SGD(learning_rate=0.01))
+    params = main.global_block().all_parameters()
+    weights = [p.name for p in params if len(p.shape) == 2]
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    pe = None
+    try:
+        t = fluid.ShardingTranspiler()
+        t.transpile(program=main, startup_program=startup, mesh={"dp": 1},
+                    overlap="bucketed")
+        t0 = time.perf_counter()
+        pe = t.build_executor(["ids", "lbl"], [loss], place=place)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        info = dict(pe.overlap_info)
+        check(info["mode"] == "bucketed" and info["update"] == "fused",
+              f"dp: overlap_info {info}")
+        init = {n: pe.state(n, return_numpy=False).clone() for n in persist}
+        buckets = info["buckets"]
+        # a bucket holds at most overlap_bucket_bytes unless one
+        # gradient is larger: then it is that gradient alone, so the
+        # largest bucket is the largest parameter
+        largest = max(int(np.prod(p.shape)) for p in params)
+        check(4 * largest > get_flag("overlap_bucket_bytes"),
+              "dp: the largest parameter fits a bucket with others")
+
+        # the main path: counts zeroed just before, read just after
+        fused_bucket_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        run = lambda step: pe.run(_train_feed(step))[0]  # noqa: E731
+        counts = {"fused": lambda: fused_bucket_sgd.launches,
+                  "grad_all_reduce":
+                  lambda: pe.collective_calls["grad_all_reduce"]}
+        k_loss, k_secs, k_steps = _timed_steps(run, counts)
+        peak = torch.cuda.max_memory_allocated()
+        k_params = {n: pe.state(n, return_numpy=False).clone()
+                    for n in weights}
+        before = fused_bucket_sgd.launches
+        profile = _profile_step(lambda: pe.run(_train_feed(T_STEPS)),
+                                ("fused_update", "flash_attention"), "dp")
+        k_total = fused_bucket_sgd.launches
+        check(k_total - before == buckets,
+              f"dp: {k_total - before} fused launches in the profiled step")
+        want = {"fused": buckets, "grad_all_reduce": buckets}
+        check(all(st == want for st in k_steps),
+              f"dp: per-step launches {k_steps}, want {want}")
+
+        # the per-op sgd chain from the same state and feeds
+        for n in persist:
+            pe.set_state(n, init[n].clone())
+        with _PerOpChain(pe) as chain:
+            p_loss, p_secs, p_steps = _timed_steps(run, counts)
+        check(all(st == {"fused": 0, "grad_all_reduce": buckets}
+                  for st in p_steps),
+              f"dp: the chain run's per-step launches {p_steps}")
+        check(chain.calls == info["grads"] * T_STEPS,
+              f"dp: the chain run ran {chain.calls} sgd ops in {T_STEPS} "
+              f"steps of {info['grads']} gradients")
+        param_rel = _param_rel_diff(
+            lambda n: pe.state(n, return_numpy=False), init, k_params)
+        del init, k_params
+    finally:
+        del pe
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+    check(all(np.isfinite(k_loss + p_loss)), f"dp: non-finite losses "
+          f"{k_loss} / {p_loss}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    check(max(rel) <= LOSS_RTOL, f"dp: fused/chain losses differ {rel}")
+    worst = max(param_rel, key=param_rel.get)
+    check(param_rel[worst] <= PARAM_RTOL, f"dp: weight {worst} moved "
+          f"{param_rel[worst]} apart on the fused and chain runs")
+    tokens = T_BATCH * T_SEQ
+    p_an = _param_count(T_VOCAB, T_D, T_LAYERS, T_SEQ)
+    step_s = float(np.median(k_secs[1:]))
+    emit({"phase": "dp", "card": card, "mesh": {"dp": 1},
+          "backend": "nccl", "vocab": T_VOCAB, "d_model": T_D,
+          "n_heads": T_HEADS, "n_layers": T_LAYERS, "seq": T_SEQ,
+          "batch": T_BATCH, "dtype": "float32", "optimizer": "sgd",
+          "overlap_info": info, "largest_bucket_numel": largest,
+          "startup_s": startup_s, "steps": T_STEPS,
+          "fused_run": {"losses": k_loss, "step_s": k_secs,
+                        "launches_per_step": k_steps[0],
+                        "fused_launches": k_total},
+          "chain_run": {"losses": p_loss, "step_s": p_secs,
+                        "sgd_ops": chain.calls,
+                        "launches_per_step": p_steps[0]},
+          "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+          "weight_change_rel_diff": {"max": param_rel[worst],
+                                     "argmax": worst,
+                                     "n_weights": len(param_rel),
+                                     "limit": PARAM_RTOL},
+          "ms_per_step": step_s * 1e3,
+          "chain_ms_per_step": float(np.median(p_secs[1:])) * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "mfu_6np_fp32": 6.0 * tokens * p_an / step_s / flops,
+          "profiled_step": profile,
+          "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
+          "peak_memory_bytes": peak,
+          "timing": "host clock around pe.run + synchronize; median of "
+                    "steps 2..N; the profiled step (torch.profiler, one "
+                    "step after the timed ones) gives device time by "
+                    "kernel group"})
+    return k_total, largest
+
+
+def fused_update_phase(dev, bw, flops, largest):
+    """The fused bucket SGD kernel against its plain version on the dp
+    path's largest bucket and odd sizes: bit for bit, lr a device
+    scalar.  Times: the kernel, the plain version (two PyTorch kernels)
+    and torch.add(p, g, alpha=-lr) with a host lr (one kernel; a
+    yardstick only, it rounds once)."""
+    from paddle_tpu_torch.kernels.fused_update import (
+        fused_bucket_sgd, fused_bucket_sgd_reference)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lr_host = 0.01
+    lr = torch.tensor([lr_host], device=dev)
+    cases = {}
+    for name, n in (("largest_bucket", largest), ("n1", 1),
+                    ("n1023", 1023), ("n1048583", (1 << 20) + 7)):
+        p = torch.randn(n, generator=gen, device=dev)
+        g = torch.randn(n, generator=gen, device=dev)
+        out = fused_bucket_sgd(p, g, lr)
+        ref = fused_bucket_sgd_reference(p, g, lr)
+        lib = torch.add(p, g, alpha=-lr_host)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref),
+              f"fused_update {name}: not bit-identical to the plain version")
+        nbytes, n_ops = 12 * n, 2 * n
+        t_bytes, t_ops = nbytes / bw * 1e3, n_ops / flops * 1e3
+        ms = cold_ms(lambda: fused_bucket_sgd(p, g, lr), 50, flush)
+        cases[name] = {
+            "numel": n, "max_abs_err": float((out - ref).abs().max()),
+            "library_max_abs_err": float((lib - ref).abs().max()),
+            "ms": ms,
+            "plain_ms": cold_ms(
+                lambda: fused_bucket_sgd_reference(p, g, lr), 50, flush),
+            "library_ms": cold_ms(
+                lambda: torch.add(p, g, alpha=-lr_host), 50, flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "bytes_per_s": nbytes / (ms * 1e-3)}
+        del p, g, out, ref, lib
+    emit({"phase": "fused_update", "kernel": "fused_bucket_sgd",
+          "timing": "median of cold-L2 calls, CUDA events; library = "
+                    "torch.add(p, g, alpha=-lr) with a host lr",
+          "cases": cases})
+    return cases
+
+
+# -- moe_kernel / moe phases -------------------------------------------------
+
+def _tol_err(got, want, tol):
+    err = float((got - want).abs().max())
+    return err, tol * max(1.0, float(want.abs().max()))
+
+
+def moe_kernel_phase(dev, bw, flops):
+    from paddle_tpu_torch.kernels.moe_dispatch import (
+        moe_gate_dispatch, moe_gate_dispatch_launch,
+        moe_gate_dispatch_reference, moe_routing_reference)
+    from paddle_tpu_torch.parallel.moe import _capacity
+
+    t_n, d, e_n = M_BATCH * M_SEQ, M_D, M_EXPERTS
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((t_n, d), generator=gen).to(dev)
+    gw = (torch.randn((d, e_n), generator=gen) * M_GATE_STD).to(dev)
+    cases = {}
+    for name, top_k, cf in (("top2", 2, M_CF), ("top1", 1, M_CF),
+                            ("top2_cf0.5", 2, 0.5)):
+        c_n = _capacity(t_n, e_n, cf, top_k)
+        ei, cb, aux, _, idx, slots = moe_gate_dispatch_launch(x, gw, e_n,
+                                                              c_n, top_k)
+        ei_r, cb_r, aux_r = moe_gate_dispatch_reference(x, gw, e_n, c_n,
+                                                        top_k)
+        _, idx_r, slots_r = moe_routing_reference(x, gw, e_n, c_n, top_k)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, idx_r), f"moe_kernel {name}: experts differ "
+              f"for {int((idx != idx_r).any(0).sum())} tokens")
+        check(torch.equal(slots, slots_r),
+              f"moe_kernel {name}: capacity slots differ")
+        check(torch.equal(ei, ei_r), f"moe_kernel {name}: expert_in is not "
+              "bit-equal")
+        errs = {}
+        for key, got, want in (("combine", cb, cb_r), ("aux", aux, aux_r)):
+            err, lim = _tol_err(got, want, 1e-6)
+            check(err <= lim, f"moe_kernel {name} {key}: {err} > {lim}")
+            errs[key] = err
+        kept = int((slots >= 0).sum())
+
+        # the Function's gradients against plain autograd
+        cots = [torch.randn(s, generator=gen).to(dev)
+                for s in (ei.shape, cb.shape, aux.shape)]
+        leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+        outs = moe_gate_dispatch(*leaves, e_n, c_n, top_k)
+        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+        want = torch.autograd.grad(
+            moe_gate_dispatch_reference(*ref_leaves, e_n, c_n, top_k),
+            ref_leaves, cots)
+        for key, g, w in zip(("dx", "dgate_w"), got, want):
+            err, lim = _tol_err(g, w, 1e-5)
+            check(err <= lim, f"moe_kernel {name} {key}: {err} > {lim}")
+            errs[key] = err
+        bwd_ms = cold_ms(lambda: torch.autograd.grad(
+            outs, leaves, cots, retain_graph=True), 10, flush)
+        del outs, got, want, leaves, ref_leaves, cots
+
+        nbytes = 4 * (t_n * d + d * e_n + e_n * c_n * d + t_n * e_n * c_n
+                      + 1)
+        n_ops = 2 * t_n * d * e_n
+        t_bytes, t_ops = nbytes / bw * 1e3, n_ops / flops * 1e3
+        with torch.no_grad():
+            ms = cold_ms(lambda: moe_gate_dispatch(x, gw, e_n, c_n, top_k),
+                         50, flush)
+            plain_ms = cold_ms(lambda: moe_gate_dispatch_reference(
+                x, gw, e_n, c_n, top_k), 10, flush)
+        cases[name] = {
+            "top_k": top_k, "capacity_factor": cf, "capacity": c_n,
+            "assignments": t_n * top_k, "kept": kept,
+            "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "backward_ms": bwd_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "bytes_per_s": nbytes / (ms * 1e-3)}
+        del ei, cb, aux, ei_r, cb_r, aux_r
+    emit({"phase": "moe_kernel", "kernel": "moe_gate_dispatch",
+          "tokens": t_n, "d_model": d, "experts": e_n,
+          "gate_std": M_GATE_STD,
+          "timing": "median of cold-L2 calls, CUDA events; backward_ms is "
+                    "the autograd Function's backward (the plain "
+                    "composition's VJP at the kernel's saved routing); "
+                    "library_ms null: no PyTorch call computes gate + "
+                    "capacity dispatch",
+          "cases": cases})
+    return cases
+
+
+def moe_phase(card, place, flops, moe_cases):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels.moe_dispatch import moe_gate_dispatch
+    from paddle_tpu_torch.models.moe import active_param_count, build_moe_lm
+    from paddle_tpu_torch.parallel.spmd import backward_start_index
+
+    fw.reset_unique_names()
+    main, startup, loss = build_moe_lm(M_BATCH, M_SEQ, M_VOCAB, M_D,
+                                       M_HEADS, M_LAYERS, M_EXPERTS, M_TOPK,
+                                       M_CF, aux_weight=M_AUX)
+    params = main.global_block().all_parameters()
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    weights = [p.name for p in params if len(p.shape) >= 2]
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    # the for_test clone, cut to its forward; its logits are the cross
+    # entropy's input
+    test_prog = main.clone(for_test=True)
+    blk = test_prog.global_block()
+    blk.ops = blk.ops[:backward_start_index(blk)]
+    logits_name = next(op.input("Logits")[0] for op in blk.ops
+                       if op.type == "softmax_with_cross_entropy")
+    prev_scope = executor_mod.switch_scope(Scope())
+    exe = None
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(place, seed=SEED)
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        init = {n: scope.find_var(n).clone() for n in persist}
+
+        # the main path: counts zeroed just before, read just after
+        moe_gate_dispatch.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        run = lambda step: exe.run(  # noqa: E731
+            main, feed=_train_feed(step), fetch_list=[loss])[0]
+        counts = {"moe": lambda: moe_gate_dispatch.launches}
+        k_loss, k_secs, k_steps = _timed_steps(run, counts)
+        k_steps = [st["moe"] for st in k_steps]
+        peak = torch.cuda.max_memory_allocated()
+        k_params = {n: scope.find_var(n).clone() for n in weights}
+        before = moe_gate_dispatch.launches
+        profile = _profile_step(
+            lambda: exe.run(main, feed=_train_feed(T_STEPS),
+                            fetch_list=[loss]),
+            ("moe_dispatch", "flash_attention"), "moe")
+        k_steps.append(moe_gate_dispatch.launches - before)
+        k_total = moe_gate_dispatch.launches
+        check(all(st == 2 * M_LAYERS for st in k_steps),
+              f"moe: MoE launches per step {k_steps}, want {2 * M_LAYERS}")
+
+        # the for_test forward from the initial state on both paths
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        logits_k, = exe.run(test_prog, feed=_train_feed(0),
+                            fetch_list=[logits_name], return_numpy=False)
+        with _PlainMoe() as plain:
+            logits_p, = exe.run(test_prog, feed=_train_feed(0),
+                                fetch_list=[logits_name], return_numpy=False)
+        check(plain.calls == M_LAYERS,
+              f"moe: {plain.calls} plain MoE FFNs in the for_test forward")
+        check(bool(torch.isfinite(logits_k).all()),
+              "moe: non-finite for_test logits")
+        logits_rel = float((logits_k - logits_p).abs().max()
+                           / logits_p.abs().max())
+        del logits_k, logits_p
+
+        # the plain path from the same state and feeds
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        with _PlainMoe() as plain:
+            p_loss, p_secs, p_steps = _timed_steps(run, counts)
+        p_steps = [st["moe"] for st in p_steps]
+        check(all(st == 0 for st in p_steps),
+              f"moe: the plain path launched the MoE kernel {p_steps}")
+        check(plain.calls == 2 * M_LAYERS * T_STEPS,
+              f"moe: {plain.calls} plain MoE FFNs on the plain path")
+        param_rel = _param_rel_diff(scope.find_var, init, k_params)
+        del init, k_params
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        del exe
+        torch.cuda.empty_cache()
+
+    check(logits_rel <= LOSS_RTOL, f"moe: for_test logits differ "
+          f"{logits_rel} relative between the kernel and plain paths")
+    check(all(np.isfinite(k_loss + p_loss)), f"moe: non-finite losses "
+          f"{k_loss} / {p_loss}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    check(max(rel) <= LOSS_RTOL, f"moe: kernel/plain losses differ {rel}")
+    worst = max(param_rel, key=param_rel.get)
+    check(param_rel[worst] <= PARAM_RTOL, f"moe: weight {worst} moved "
+          f"{param_rel[worst]} apart on the kernel and plain paths")
+    tokens = M_BATCH * M_SEQ
+    p_active = active_param_count(M_VOCAB, M_D, M_LAYERS, M_EXPERTS,
+                                  M_TOPK, M_SEQ)
+    step_s = float(np.median(k_secs[1:]))
+    kern_ms = profile["by_group_ms"].get("moe_dispatch", 0.0)
+    emit({"phase": "moe", "card": card, "vocab": M_VOCAB, "d_model": M_D,
+          "n_heads": M_HEADS, "n_layers": M_LAYERS, "experts": M_EXPERTS,
+          "top_k": M_TOPK, "capacity_factor": M_CF, "aux_weight": M_AUX,
+          "seq": M_SEQ, "batch": M_BATCH, "dtype": "float32",
+          "optimizer": "momentum", "params": n_params,
+          "params_active": p_active, "startup_s": startup_s,
+          "steps": T_STEPS,
+          "kernel_path": {"losses": k_loss, "step_s": k_secs,
+                          "launches_per_step": k_steps,
+                          "launches": k_total},
+          "plain_path": {"losses": p_loss, "step_s": p_secs,
+                         "launches_per_step": p_steps,
+                         "plain_moe_ffns": plain.calls},
+          "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+          "for_test_logits_rel_diff": logits_rel,
+          "weight_change_rel_diff": {"max": param_rel[worst],
+                                     "argmax": worst,
+                                     "n_weights": len(param_rel),
+                                     "limit": PARAM_RTOL},
+          "ms_per_step": step_s * 1e3,
+          "plain_ms_per_step": float(np.median(p_secs[1:])) * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "mfu_6np_active_fp32": 6.0 * tokens * p_active / step_s / flops,
+          "moe_kernel_ms_per_step": kern_ms,
+          "moe_kernel_share": kern_ms / (step_s * 1e3),
+          "moe_kernel_cold_ms_x_launches": moe_cases["top2"]["ms"]
+          * 2 * M_LAYERS,
+          "profiled_step": profile,
+          "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
+          "peak_memory_bytes": peak,
+          "timing": "host clock around exe.run + synchronize; median of "
+                    "steps 2..N; the MoE kernel's share from the profiled "
+                    "step's device time of its three CUDA kernels"})
+    return k_total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -765,6 +1280,8 @@ def main():
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
     from paddle_tpu_torch.kernels import cuda_build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -785,14 +1302,15 @@ def main():
 
     t0 = time.perf_counter()
     cuda_build.build_all()
-    pa.build()
-    fa.build()
+    for mod in (pa, fa, fu, md):
+        mod.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "counts": cuda_build.build_counts(),
           "ptxas": {src: [ln.strip() for ln in
                           cuda_build.build_log(src).splitlines()
                           if "registers" in ln or "spill" in ln]
-                    for src in (pa.SOURCE, fa.SOURCE)}})
+                    for src in (pa.SOURCE, fa.SOURCE, fu.SOURCE,
+                                md.SOURCE)}})
 
     cases = kernels_phase(dev, bw, flops)
     flash_cases = flash_phase(dev, bw, peaks)
@@ -800,6 +1318,10 @@ def main():
 
     flash_launches = train_phase(card, CUDAPlace(0), flops, flash_cases)
     launches = serve_phases(card, CUDAPlace(0))
+    fused_launches, largest = dp_phase(card, CUDAPlace(0), flops)
+    fused_cases = fused_update_phase(dev, bw, flops, largest)
+    moe_cases = moe_kernel_phase(dev, bw, flops)
+    moe_launches = moe_phase(card, CUDAPlace(0), flops, moe_cases)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -834,6 +1356,28 @@ def main():
             **{k: main_case[kind][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by")},
             **lib, "case": "fp32_causal", "cases": per_case})
+    main_case = fused_cases["largest_bucket"]
+    entries.append({
+        "name": "fused_bucket_sgd", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/fused_update.cu",
+        "replaces": "paddle_tpu/kernels/fused_update.py:58",
+        "launches": fused_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in fused_cases.values()),
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "case": "largest_bucket", "cases": fused_cases})
+    main_case = moe_cases["top2"]
+    entries.append({
+        "name": "moe_gate_dispatch", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/kernels/moe_dispatch.py:68",
+        "launches": moe_launches,
+        "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
+                           for k in ("combine", "aux")),
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "library_note": "no PyTorch call computes gate + capacity dispatch",
+        "case": "top2", "cases": moe_cases})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,7 +12,10 @@ hand-written CUDA paged-attention kernel (kernels/) under the
 continuous-batching GenerationServer (serving/); and training — the
 interpreter Executor, append_backward, gradient clipping and
 regularization, and the SGD/Momentum/Adam optimizers, with the
-flash-attention op on hand-written CUDA forward and backward kernels.
+flash-attention op on hand-written CUDA forward and backward kernels;
+data-parallel training through ParallelExecutor's bucketed overlap step
+(parallel/), with the fused bucket SGD update in a CUDA kernel; and the
+MoE FFN op, with gate and dispatch in a CUDA kernel.
 """
 from . import (  # noqa: F401
     backward,
@@ -24,6 +27,7 @@ from . import (  # noqa: F401
     nets,
     observability,
     optimizer,
+    parallel,
     regularizer,
     serving,
 )
@@ -40,6 +44,12 @@ from .core import (  # noqa: F401
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
 from .core.scope import Scope  # noqa: F401
+from .parallel.executor import (  # noqa: F401
+    DistributeTranspiler,
+    ParallelExecutor,
+    ShardingTranspiler,
+    SimpleDistributeTranspiler,
+)
 from .optimizer import (  # noqa: F401
     SGD,
     Adam,

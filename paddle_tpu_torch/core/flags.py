@@ -93,7 +93,21 @@ define_flag("serving_kernels", "auto",
             "decoder on the CPU then records the counted reason "
             "'no_cuda' and runs the plain PyTorch version); 'off' keeps "
             "the plain version.  Env alias PADDLE_TPU_SERVING_KERNELS.  "
-            "Read at BUILD time by build_lm_paged_decoder")
+            "Read at BUILD time by build_lm_paged_decoder, by "
+            "ParallelExecutor for the fused bucket update (at build and "
+            "at its first run after a change), and by the moe_ffn op for "
+            "gate + dispatch at every call")
+define_flag("overlap_bucket_bytes", 4 << 20,
+            "size cap (bytes) for the compute/collective-overlap "
+            "gradient buckets of ParallelExecutor(overlap='bucketed'|"
+            "'auto'): parameter gradients are concatenated in "
+            "production (backward) order into buckets of at most this "
+            "many bytes, one stream per dtype, and each bucket gets ONE "
+            "asynchronous all-reduce issued as soon as its last "
+            "gradient is produced, so early buckets' all-reduces "
+            "overlap the remaining backward (DDP-style).  0 puts every "
+            "gradient in its own bucket.  Read when the executor is "
+            "built, and again at its first run after a change")
 define_flag("serving_spec_k", 4,
             "default speculative-decoding draft length: how many tokens "
             "the draft model proposes per scheduler tick for the target "

@@ -12,7 +12,10 @@ retargeted to hand-written CUDA kernels:
     is what runs when the kernel is not armed;
   * an armed combination the kernel does not take records its reason,
     counted in ``paddle_tpu_kernel_fallbacks_total{kernel,reason}``, and
-    the Selection that counted it reclaims its series on close.
+    the Selection that counted it reclaims its series on close;
+  * `Selection.require(name, **ctx)` serves consumers that have no plain
+    path on a CUDA device (the training kernels): no flag disarms the
+    kernel there, and a context it does not take raises.
 
 Reasons are real limits of the kernel (dtype, head split, window, head
 width) or of the place (no CUDA device).  Nothing is routed silently: a
@@ -66,6 +69,14 @@ def register_kernel(name: str, supports: Callable[..., Optional[str]]):
     return deco
 
 
+def _kernel_def(name: str) -> _KernelDef:
+    kdef = _REGISTRY.get(name)
+    if kdef is None:
+        raise KeyError(f"unknown serving kernel {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}")
+    return kdef
+
+
 def kernels_mode() -> str:
     """The `serving_kernels` flag, normalized to auto/on/off."""
     from ..core.flags import get_flag
@@ -107,21 +118,47 @@ class Selection:
         Disarmed returns None without counting — nothing fell back, the
         plain version was the plan.  Armed but unsupported counts one
         fallback and returns None."""
-        kdef = _REGISTRY.get(name)
-        if kdef is None:
-            raise KeyError(f"unknown serving kernel {name!r}; "
-                           f"registered: {sorted(_REGISTRY)}")
+        kdef = _kernel_def(name)
         if not kernels_armed(platform):
             self.chosen[name] = "plain:disarmed"
             return None
         reason = kdef.supports(platform=platform, **ctx)
         if reason is not None:
-            self.chosen[name] = f"plain:{reason}"
-            self._counted.append((name, reason))
-            _M_FALLBACKS.labels(kernel=name, reason=reason).inc()
+            self._count(name, reason)
             return None
         self.chosen[name] = "cuda"
         return kdef.build(**ctx)
+
+    def require(self, name: str, **ctx):
+        """-> the kernel callable for a consumer whose tensors are on a
+        CUDA device, where the port has no plain path: the flag does not
+        disarm it, and a context the kernel does not take raises
+        ValueError naming the reason."""
+        kdef = _kernel_def(name)
+        reason = kdef.supports(platform="cuda", **ctx)
+        if reason is not None:
+            raise ValueError(
+                f"{name}: the CUDA kernel does not take this call "
+                f"({reason}) and there is no plain path on a CUDA device: "
+                f"{ctx}")
+        self.chosen[name] = "cuda"
+        return kdef.build(**ctx)
+
+    def decline(self, name: str, reason: str, *, platform: str):
+        """The consumer ruled the kernel out itself (the shape of its
+        program, not a limit of the kernel): "plain:disarmed" when the
+        flag keeps the tier off, else counted like an unsupported
+        context."""
+        _kernel_def(name)
+        if not kernels_armed(platform):
+            self.chosen[name] = "plain:disarmed"
+        else:
+            self._count(name, reason)
+
+    def _count(self, name: str, reason: str):
+        self.chosen[name] = f"plain:{reason}"
+        self._counted.append((name, reason))
+        _M_FALLBACKS.labels(kernel=name, reason=reason).inc()
 
     def close(self):
         """Drop this consumer's fallback series.  Safe to call twice."""

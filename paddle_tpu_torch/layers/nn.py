@@ -8,7 +8,8 @@ import math
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "flash_attention", "layer_norm", "mean",
+__all__ = ["fc", "embedding", "flash_attention", "moe_ffn", "layer_norm",
+           "mean",
            "reduce_sum", "cross_entropy", "square_error_cost",
            "softmax_with_cross_entropy"]
 
@@ -77,6 +78,53 @@ def flash_attention(q, k, v, causal=False, scale=None, min_seq_k=None,
                       "min_seq_k": -1 if min_seq_k is None
                       else int(min_seq_k)})
     return out
+
+
+def moe_ffn(input, num_experts, d_inner=None, top_k=1,
+            capacity_factor=1.25, param_attr=None, name=None):
+    """Mixture-of-Experts FFN layer (parallel/moe.py holds the math).
+
+    input: [..., D] activations; builds a [D, E] router plus per-expert
+    [E, D, H]/[E, H, D] FFN weights and returns (out [..., D],
+    aux_loss [1]).  Add `weight * aux_loss` to the training loss to
+    train the router toward load balance (Switch eq. 4).
+    """
+    helper = LayerHelper("moe_ffn", input=input, param_attr=param_attr,
+                         name=name)
+    dtype = helper.input_dtype()
+    d = int(input.shape[-1])
+    d_inner = int(d_inner or 4 * d)
+    num_experts = int(num_experts)
+
+    def attr_for(suffix):
+        # three differently-shaped params from ONE param_attr: an
+        # explicit name must fan out per suffix or create_parameter
+        # would silently overwrite the same variable three times
+        a = dict(param_attr or {})
+        if a.get("name"):
+            a["name"] = f"{a['name']}.{suffix}"
+        return a
+
+    gate_w = helper.create_parameter(attr_for("gate_w"),
+                                     [d, num_experts], dtype,
+                                     suffix="gate_w")
+    w_in = helper.create_parameter(attr_for("w_in"),
+                                   [num_experts, d, d_inner],
+                                   dtype, suffix="w_in")
+    w_out = helper.create_parameter(attr_for("w_out"),
+                                    [num_experts, d_inner, d],
+                                    dtype, suffix="w_out")
+    out = helper.create_tmp_variable(dtype)
+    out.shape = input.shape
+    aux = helper.create_tmp_variable(dtype)
+    aux.shape = [1]
+    helper.append_op("moe_ffn",
+                     {"X": [input.name], "GateW": [gate_w.name],
+                      "WIn": [w_in.name], "WOut": [w_out.name]},
+                     {"Out": [out.name], "AuxLoss": [aux.name]},
+                     {"top_k": int(top_k),
+                      "capacity_factor": float(capacity_factor)})
+    return out, aux
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -9,7 +9,7 @@ from ..core import registry
 from ..layer_helper import LayerHelper
 
 _UNARY = ["relu", "square", "sqrt", "softmax", "clip", "clip_by_norm",
-          "reshape", "slice"]
+          "scale", "reshape", "slice"]
 _BINARY = ["elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max"]
 

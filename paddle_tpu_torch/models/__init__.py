@@ -4,3 +4,4 @@ from .transformer import (  # noqa: F401
     transformer_decoder,
     transformer_lm,
 )
+from .moe import active_param_count, build_moe_lm  # noqa: F401

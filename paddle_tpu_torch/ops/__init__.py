@@ -3,7 +3,8 @@
 Counterpart of paddle_tpu/ops/.  This package carries the ops that the
 transformer LM's training Program contains (forward ops, losses, the
 small ops backward and the optimizers emit, the optimizer updates and
-the startup initializers), each lowered once in PyTorch.
+the startup initializers) and the MoE FFN, each lowered once in
+PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -15,6 +16,7 @@ from . import (  # noqa: F401
     manip,
     matmul,
     misc,
+    moe,
     norm,
     optimizer_ops,
     reduce,

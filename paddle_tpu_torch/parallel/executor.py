@@ -1,0 +1,763 @@
+"""ParallelExecutor: data-parallel training of a Program over a mesh.
+
+Counterpart of paddle_tpu/parallel/executor.py.  Each process of a
+`torch.distributed` group drives one device and holds a full copy of
+the parameters; the feed is the GLOBAL batch, and each rank runs the
+program on its own rows of it.
+
+The data-parallel step is the JAX package's bucketed overlap step
+(`overlap="bucketed"`, or "auto" where the program allows it).  The
+ops up to the first consumer of a raw parameter gradient — forward and
+backward — are interpreted op by op on this rank's rows.  The
+parameter gradients are concatenated, in production order, into
+size-capped buckets (`overlap_bucket_bytes`, one stream per dtype), and
+each bucket's flat gradient gets ONE asynchronous all-reduce the moment
+the op that produces its last gradient has run, so NCCL reduces early
+buckets while the rest of the backward still runs: the DDP overlap that
+XLA's scheduler gave the JAX step.  After every handle is waited on,
+the update section (gradient clipping and the optimizer ops) runs on
+the reduced gradients, identically on every rank.  When that section
+is a chain of plain dense `sgd` ops, one hand-written CUDA kernel per
+bucket applies it (kernels/fused_update.py, selected through
+kernels/registry.py as "fused_bucket_update").
+
+With a batch-mean loss, the mean over the global batch equals the mean
+over ranks of the per-rank means, so the step is the serial step up to
+float associativity; at world 1 it is the serial step bit for bit.
+
+Not ported (ROADMAP A8/A9): the GSPMD step (`overlap="off"` at world
+> 1), tensor-parallel placements (`param_shardings`, spmd model axes),
+ZeRO-1 (`shard_optimizer_states=True` at world > 1),
+`compiled_collectives`, the sharded checkpoint mixin, the pipeline
+executors, and the pserver transpiler mode (A11).
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.execution import DictEnv, ExecContext, _mix, run_op
+from ..core.executor import (CUDAPlace, Executor, _to_device_value,
+                             _to_numpy, resolve_place)
+from ..core.framework import Variable, default_startup_program
+from ..core.scope import Scope
+from ..core.types import torch_dtype
+from ..observability import metrics as obs_metrics
+from ..observability import tracing as obs_tracing
+from .mesh import make_mesh
+
+__all__ = ["ParallelExecutor", "DistributeTranspiler",
+           "SimpleDistributeTranspiler", "ShardingTranspiler"]
+
+# same series as core.executor's run histogram (get-or-create by name),
+# with a "pe<N>" instance label and mode="parallel"
+_PE_IDS = itertools.count()
+_M_RUN_SECONDS = obs_metrics.histogram(
+    "paddle_tpu_executor_run_seconds",
+    "Executor.run wall latency by execution mode", ("exe", "mode"))
+
+
+def _plan_flags() -> tuple:
+    """Flags the overlap plan is built from (the bucket cap and the
+    kernel tier); a change rebuilds the plan at the next run, as a
+    change re-traces the JAX package's step."""
+    from ..core.flags import get_flag
+    from ..kernels.registry import kernels_mode
+
+    return int(get_flag("overlap_bucket_bytes")), kernels_mode()
+
+
+class ParallelExecutor:
+    """Data-parallel executor over `mesh` ({"dp": n} or a `Mesh`).
+
+    `place` is this rank's device: CUDAPlace(0) unless told otherwise
+    (raising without a card); `CPUPlace()` runs on the CPU, with gloo
+    between ranks."""
+
+    def __init__(
+        self,
+        program,
+        feed_names: Sequence[str],
+        fetch_list: Sequence,
+        mesh,
+        startup_program=None,
+        batch_axis: str = "dp",
+        param_shardings: Optional[Dict] = None,
+        shard_optimizer_states: bool = False,
+        seed: int = 0,
+        overlap: str = "off",
+        spmd_plan=None,
+        place=None,
+    ):
+        if isinstance(mesh, dict):
+            mesh = make_mesh(mesh)
+        if overlap not in ("off", "auto", "bucketed"):
+            raise ValueError(
+                f"overlap must be 'off', 'auto' or 'bucketed', got "
+                f"{overlap!r}")
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        if set(mesh.axis_names) != {batch_axis}:
+            raise NotImplementedError(
+                f"mesh axes {dict(mesh.shape)}: only a data-parallel mesh "
+                f"over {batch_axis!r} runs here; tensor, sequence and "
+                "pipeline axes are not ported yet (ROADMAP A8/A9)")
+        self.dp = int(mesh.shape[batch_axis])
+        self.place = CUDAPlace(0) if place is None else place
+        self.device = resolve_place(self.place)
+        self.program = program
+        self.feed_names = list(feed_names)
+        self.fetch_names = [
+            v.name if isinstance(v, Variable) else str(v)
+            for v in fetch_list
+        ]
+        from .spmd import has_annotations, propagate_sharding
+
+        blk = program.global_block()
+        if spmd_plan is None and has_annotations(blk):
+            spmd_plan = propagate_sharding(
+                program, mesh_axes=dict(mesh.shape), batch_axis=batch_axis)
+        self._spmd_plan = spmd_plan
+        if spmd_plan is not None:
+            spmd_plan.check()
+            if spmd_plan.model_axes:
+                raise NotImplementedError(
+                    f"model-parallel placements over "
+                    f"{spmd_plan.model_axes}: tensor parallelism is not "
+                    "ported yet (ROADMAP A8)")
+        placed = sorted(n for n, s in (param_shardings or {}).items()
+                        if s is not None and any(e is not None
+                                                 for e in tuple(s)))
+        if placed:
+            raise NotImplementedError(
+                f"param_shardings on {placed}: tensor parallelism is not "
+                "ported yet (ROADMAP A8)")
+        if shard_optimizer_states and self.dp > 1:
+            raise NotImplementedError(
+                "shard_optimizer_states=True (ZeRO-1) at dp > 1 is not "
+                "ported yet (ROADMAP A8); pass shard_optimizer_states="
+                "False")
+        self._feed_specs = dict(spmd_plan.feed_specs) if spmd_plan \
+            else {}
+        self._seed = seed
+        self._step = 0
+
+        # compute/collective overlap: 'auto' falls back to the plain step
+        # (reason kept in overlap_info) where the program shape rules the
+        # overlap out; explicit 'bucketed' raises instead
+        self.overlap_info = {"mode": "off",
+                             "reason": "overlap='off' requested"}
+        self._overlap_cfg = None
+        from ..kernels import registry as _kernel_registry
+
+        self._kernel_selection = _kernel_registry.Selection()
+        if overlap != "off":
+            cfg, reason = self._analyze_overlap(program, blk)
+            if cfg is None:
+                if overlap == "bucketed":
+                    raise ValueError(
+                        f"overlap='bucketed' is not applicable to this "
+                        f"program: {reason}")
+                self.overlap_info = {"mode": "off", "reason": reason}
+            else:
+                self._overlap_cfg = cfg
+                self.overlap_info = {"mode": "bucketed"}
+        if self._overlap_cfg is None and self.dp > 1:
+            raise NotImplementedError(
+                f"the GSPMD step (overlap off: "
+                f"{self.overlap_info['reason']}) at dp {self.dp} is not "
+                "ported yet (ROADMAP A8); only the bucketed overlap step "
+                "runs across ranks")
+        # collectives this executor issued (none without a process
+        # group): one all-reduce per gradient bucket, and the fetches'
+        # all-reduce (means) or all-gather (per-row values)
+        self.collective_calls = {"grad_all_reduce": 0,
+                                 "fetch_all_reduce": 0,
+                                 "fetch_all_gather": 0}
+        # --- states from the startup program, on this rank's device ------
+        startup = startup_program or default_startup_program()
+        scope = Scope()
+        Executor(self.place).run(startup, scope=scope)
+        self._state_in, self._state_out = self._analyze_states(program, blk)
+        self._states = {}
+        for n in self._state_in:
+            if not scope.has_var(n):
+                raise RuntimeError(
+                    f"state var {n!r} not produced by the startup program")
+            self._states[n] = scope.find_var(n)
+        self._plan = None
+        self._plan_state = None
+        self._refresh_plan()
+
+    @staticmethod
+    def _analyze_states(program, block):
+        """Persistable vars read (before being written) and written by
+        the block's ops."""
+        persistable = {v.name for v in program.list_vars() if v.persistable}
+        reads, writes = set(), set()
+        for op in block.ops:
+            for n in op.input_names():
+                if n in persistable and n not in writes:
+                    reads.add(n)
+            for n in op.output_names():
+                if n in persistable:
+                    writes.add(n)
+        return sorted(reads), sorted(writes)
+
+    # -- compute/collective overlap (bucketed grad all-reduce) --------------
+    def _analyze_overlap(self, program, block):
+        """Validate the program for the overlapped step and extract its
+        structure.  Returns (cfg, None) or (None, reason), with the JAX
+        package's reasons.
+
+        The overlapped step runs every op up to the first gradient
+        consumer on this rank's rows, reduces the parameter gradients
+        with bucketed all-reduces, and runs the update section (grad
+        clip + optimizer ops) on the reduced values."""
+        from ..core import registry as op_registry
+        from ..core.framework import (EMPTY_VAR_NAMES, GRAD_SUFFIX,
+                                      Parameter, grad_var_name)
+        from .spmd import backward_start_index
+
+        ops = block.ops
+        opt_ops = [op for op in ops
+                   if "Param" in op.inputs and "ParamOut" in op.outputs]
+        if not opt_ops:
+            return None, ("no optimizer ops — the overlap lowers a "
+                          "training step")
+        # the reduction point is the first consumer of any RAW parameter
+        # gradient — NOT the optimizer's Grad input, which may be a
+        # clipped/regularized derivative of it: grad-clip (e.g.
+        # global-norm) must see the REDUCED full-batch gradients, so
+        # clip/regularizer ops belong to the update section
+        all_produced = {n for op in ops for n in op.output_names()}
+        grad_of = {}
+        for v in block.vars.values():
+            if isinstance(v, Parameter) and getattr(v, "trainable", True):
+                g = grad_var_name(v.name)
+                if g in all_produced:
+                    grad_of[g] = v.name
+        if not grad_of:
+            return None, "no parameter gradients in the program"
+        grad_names = set(grad_of)
+        split = next((i for i, op in enumerate(ops)
+                      if set(op.input_names()) & grad_names), None)
+        if split is None:
+            return None, "no op consumes the parameter gradients"
+        produced = set()
+        last_prod = {}
+        for i, op in enumerate(ops[:split]):
+            for n in op.output_names():
+                produced.add(n)
+                if n in grad_names:
+                    last_prod[n] = i
+        if not grad_names <= produced:
+            missing = sorted(grad_names - produced)
+            return None, (f"gradient(s) {missing} are produced after "
+                          "their first consumer")
+
+        # the grad reduction is a mean over ranks, which equals the
+        # serial gradient ONLY for a batch-MEAN loss
+        seed_idx = backward_start_index(block)
+        if seed_idx >= split:
+            return None, "no backward section (loss@GRAD seed) found"
+        seed_out = ops[seed_idx].output_names()[0]
+        loss_name = seed_out[:-len(GRAD_SUFFIX)]
+        loss_var = block.vars.get(loss_name)
+        if loss_var is None or loss_var.op is None or \
+                loss_var.op.type != "mean":
+            return None, (
+                f"loss {loss_name!r} is not produced by a mean op — "
+                "per-shard gradients averaged over dp only equal the "
+                "serial gradient for a batch-mean loss")
+
+        persistable = {v.name for v in program.list_vars()
+                       if v.persistable}
+        for i, op in enumerate(ops):
+            if any(isinstance(v, dict) and "__block__" in v
+                   for v in op.attrs.values()):
+                return None, f"control-flow op {op.type!r} (sub-blocks)"
+            try:
+                info = op_registry.get_op_info(op.type)
+            except KeyError:
+                return None, f"unregistered op {op.type!r}"
+            if info.random and not op.attrs.get("is_test", False):
+                if i >= split:
+                    return None, (
+                        f"stochastic op {op.type!r} in the update "
+                        "section — its draws would differ from serial")
+                if op.type != "dropout":
+                    return None, (
+                        f"stochastic op {op.type!r}: only dropout has "
+                        "the batch-position-keyed PRNG that keeps "
+                        "per-shard draws equal to serial")
+            if i < split:
+                if (op.type == "batch_norm"
+                        and not op.attrs.get("is_test", False)):
+                    return None, ("training-mode batch_norm couples "
+                                  "rows across the dp shards")
+                if any(n and n in persistable
+                       for n in op.output_names()):
+                    return None, (
+                        f"op {op.type!r} writes persistable state "
+                        "inside the sharded section")
+
+        # the update section may read only persistables, the reduced
+        # grads, and its own intermediates
+        upd_prod = set()
+        for op in ops[split:]:
+            for n in op.input_names():
+                if (not n or n in EMPTY_VAR_NAMES or n in grad_names
+                        or n in upd_prod or n in persistable):
+                    continue
+                return None, (
+                    f"update-section op {op.type} reads forward value "
+                    f"{n!r} (e.g. a per-example regularizer input)")
+            upd_prod.update(op.output_names())
+
+        for n in self.feed_names:
+            v = block.vars.get(n)
+            if v is None:
+                continue
+            if v.lod_level:
+                return None, f"LoD feed {n!r} (host-side metadata)"
+            if not v.shape or v.shape[0] != -1:
+                return None, f"feed {n!r} has no leading batch dim"
+            spec = self._feed_specs.get(n)
+            if spec is not None and (
+                    not spec or spec[0] != self.batch_axis):
+                return None, (
+                    f"feed {n!r} is annotated {spec}, not sharded over "
+                    f"the '{self.batch_axis}' batch axis")
+
+        fetch_kinds = {}
+        for n in self.fetch_names:
+            if n not in produced:
+                return None, (f"fetch {n!r} is produced by the update "
+                              "section (not supported under overlap)")
+            v = block.vars.get(n)
+            if v is not None and v.shape and v.shape[0] == -1:
+                fetch_kinds[n] = "batch"
+                continue
+            # non-batch fetches are averaged over dp — only correct for
+            # batch-mean quantities, so require a mean-semantics producer
+            if v is None or v.op is None or v.op.type not in (
+                    "mean", "accuracy"):
+                return None, (
+                    f"fetch {n!r} is not a per-row output or a batch "
+                    "mean — its per-shard values cannot be combined")
+            fetch_kinds[n] = "mean"
+
+        inside_state = sorted({
+            n for op in ops[:split] for n in op.input_names()
+            if n in persistable})
+        grad_order = sorted(grad_names, key=lambda g: last_prod[g])
+        grad_meta = []
+        for g in grad_order:
+            pv = block.vars.get(grad_of[g])
+            if pv is None or pv.shape is None or any(
+                    d < 0 for d in pv.shape):
+                return None, f"parameter {grad_of[g]!r} has no static shape"
+            grad_meta.append((g, tuple(pv.shape), pv.dtype or "float32"))
+        return {
+            "split": split,
+            "inside": tuple(ops[:split]),
+            "update": tuple(ops[split:]),
+            "grad_meta": grad_meta,
+            "last_prod": last_prod,
+            "inside_state": inside_state,
+            "fetch_kinds": fetch_kinds,
+        }, None
+
+    def _refresh_plan(self):
+        """(Re)build the buckets and the fused-update plan when the flags
+        they are made from changed since the last build."""
+        if self._overlap_cfg is None or self._plan_state == _plan_flags():
+            return
+        self._plan_state = _plan_flags()
+        cfg = self._overlap_cfg
+        # size-capped buckets in gradient PRODUCTION (backward) order,
+        # one stream per dtype (a bucket is one concatenated all-reduce)
+        cap = self._plan_state[0]
+        buckets, cur, cur_bytes, cur_dt = [], [], 0, None
+        for g, shape, dtype in cfg["grad_meta"]:
+            nbytes = math.prod(shape) * torch_dtype(dtype).itemsize
+            if cur and (dtype != cur_dt
+                        or (cap > 0 and cur_bytes + nbytes > cap)
+                        or cap <= 0):
+                buckets.append(tuple(cur))
+                cur, cur_bytes = [], 0
+            cur.append((g, shape, dtype))
+            cur_dt, cur_bytes = dtype, cur_bytes + nbytes
+        if cur:
+            buckets.append(tuple(cur))
+        # each bucket's all-reduce is issued right after the op that
+        # produces the last of its gradients
+        issue_after = {}
+        for b, bucket in enumerate(buckets):
+            at = max(cfg["last_prod"][g] for g, _, _ in bucket)
+            issue_after.setdefault(at, []).append(b)
+        fused_plan = self._plan_fused_update(buckets, cfg["update"])
+        self._plan = (buckets, issue_after, fused_plan)
+        self.overlap_info.update(
+            buckets=len(buckets), grads=len(cfg["grad_meta"]),
+            split=cfg["split"],
+            update=("fused" if fused_plan is not None else
+                    self._kernel_selection.chosen.get(
+                        "fused_bucket_update", "per_op")))
+
+    def _plan_fused_update(self, buckets, update_ops):
+        """Map the overlap buckets onto the fused bucket update: one
+        kernel per bucket replaces the per-parameter sgd op chain WHEN
+        the chain's shape allows it — every update op a plain dense
+        `sgd` writing its param in place, fed the raw reduced bucket
+        grad, all params of a bucket sharing one learning-rate scalar.
+        Anything fancier (momentum/adam, clipping chains, per-param LR)
+        keeps the op chain — the program's own update ops — and the
+        executor records that verdict in the fallback registry itself.
+
+        On a CUDA device a chain of that shape always runs the kernel
+        (no flag disarms it) and a bucket the kernel does not take
+        raises; on the CPU the `serving_kernels` flag decides, as in
+        the JAX package.
+
+        Returns [(entries, lr_name, kern)] with entries
+        [(param, grad, shape)] in bucket order, or None."""
+        platform = self.device.type
+        sel = self._kernel_selection
+        structure = None
+        grad_to_op = {}
+        for op in update_ops:
+            if op.type != "sgd":
+                structure = "op_mix"
+                break
+            ps, gs = op.input("Param"), op.input("Grad")
+            ls, pouts = op.input("LearningRate"), op.output("ParamOut")
+            if len(ps) != 1 or len(gs) != 1 or len(ls) != 1 \
+                    or pouts != ps:
+                structure = "op_shape"
+                break
+            grad_to_op[gs[0]] = (ps[0], ls[0])
+
+        plan = []
+        if structure is None:
+            for bucket in buckets:
+                entries, lr_names = [], set()
+                for g, shape, dtype in bucket:
+                    if g not in grad_to_op:
+                        # the op chain reads something other than the
+                        # raw reduced grad (e.g. a clip rewrote it)
+                        structure = "clipped_grads"
+                        break
+                    pname, lr_name = grad_to_op[g]
+                    entries.append((pname, g, shape))
+                    lr_names.add(lr_name)
+                if structure is not None:
+                    break
+                if len(lr_names) != 1:
+                    structure = "lr_mismatch"
+                    break
+                lr_name = lr_names.pop()
+                if lr_name not in self._states:
+                    structure = "lr_missing"
+                    break
+                ctx = dict(numel=sum(math.prod(s) for _, _, s in entries),
+                           dtype=str(bucket[0][2]))
+                kern = (sel.require("fused_bucket_update", **ctx)
+                        if platform == "cuda" else
+                        sel.pick("fused_bucket_update", platform=platform,
+                                 **ctx))
+                if kern is None:
+                    return None
+                plan.append((tuple(entries), lr_name, kern))
+            if structure is None:
+                return plan
+
+        # the chain's shape ruled the fusion out: counted (when armed)
+        # like a context the kernel does not take
+        sel.decline("fused_bucket_update", structure, platform=platform)
+        return None
+
+    # -- execution -----------------------------------------------------------
+    def _local_feeds(self, feed):
+        """This rank's rows of the global feed, on its device (the
+        overlap analysis has checked that every feed is batch-major)."""
+        out = {}
+        for n, v in feed.items():
+            if self.dp > 1:
+                rows = len(v)
+                if rows % self.dp:
+                    raise ValueError(
+                        f"feed {n!r}: batch {rows} is not divisible by "
+                        f"dp {self.dp}")
+                mb = rows // self.dp
+                v = v[self.mesh.rank * mb:(self.mesh.rank + 1) * mb]
+            out[n] = _to_device_value(v, self.device)
+        return out
+
+    def _all_reduce(self, t, kind):
+        import torch.distributed as dist
+
+        self.collective_calls[kind] += 1
+        return dist.all_reduce(t, group=self.mesh.group, async_op=True)
+
+    def _gather_rows(self, v):
+        import torch.distributed as dist
+
+        self.collective_calls["fetch_all_gather"] += 1
+        parts = [torch.empty_like(v) for _ in range(self.dp)]
+        dist.all_gather(parts, v.contiguous(), group=self.mesh.group)
+        return torch.cat(parts)
+
+    def _overlap_step(self, feeds, ctx):
+        cfg = self._overlap_cfg
+        buckets, issue_after, fused_plan = self._plan
+        states = self._states
+        env = DictEnv({**{n: states[n] for n in cfg["inside_state"]},
+                       **feeds})
+        group = self.mesh.group
+        pending = []
+        for i, op in enumerate(cfg["inside"]):
+            run_op(ctx, op, env)
+            for b in issue_after.get(i, ()):
+                # a fresh flat buffer per bucket: the all-reduce writes
+                # in place, and a gradient may alias a value the rest of
+                # the backward still reads
+                flat = torch.cat([env.get(g).reshape(-1)
+                                  for g, _, _ in buckets[b]])
+                pending.append((b, flat,
+                                self._all_reduce(flat, "grad_all_reduce")
+                                if group is not None else None))
+        flats, grads = {}, {}
+        for b, flat, handle in pending:
+            if handle is not None:
+                handle.wait()
+            if self.dp > 1:
+                flat = flat / self.dp
+            flats[b] = flat
+            off = 0
+            for g, shape, _ in buckets[b]:
+                size = math.prod(shape)
+                grads[g] = flat[off:off + size].view(shape)
+                off += size
+        fetches = {}
+        for n, kind in cfg["fetch_kinds"].items():
+            v = env.get(n)
+            if group is not None and kind == "batch":
+                v = self._gather_rows(v)
+            elif group is not None:
+                v = v.clone()
+                self._all_reduce(v, "fetch_all_reduce").wait()
+                v = v / self.dp
+            fetches[n] = v
+
+        if fused_plan is not None:
+            # one launch per bucket applies the whole bucket's
+            # p -= lr * g over the concatenated flat views
+            new_states = dict(states)
+            for b, (entries, lr_name, kern) in enumerate(fused_plan):
+                flat_p = torch.cat([states[p].reshape(-1)
+                                    for p, _, _ in entries])
+                new_flat = kern(flat_p, flats[b], states[lr_name])
+                off = 0
+                for p, _, shape in entries:
+                    size = math.prod(shape)
+                    new_states[p] = new_flat[off:off + size].view(shape)
+                    off += size
+            return fetches, new_states
+        env = DictEnv({**states, **grads})
+        for op in cfg["update"]:
+            run_op(ctx, op, env)
+        return fetches, {n: env.d.get(n, states[n]) for n in states}
+
+    def _plain_step(self, feeds, ctx):
+        """The whole program on one rank (overlap off, world 1)."""
+        env = DictEnv({**self._states, **feeds})
+        for op in self.program.global_block().ops:
+            run_op(ctx, op, env)
+        missing = [n for n in self.fetch_names if not env.has(n)]
+        if missing:
+            raise KeyError(f"fetch variable(s) {missing} were never "
+                           "produced by the program")
+        new_states = {n: env.d.get(n, v) for n, v in self._states.items()}
+        for n in self._state_out:
+            new_states[n] = env.d[n]
+        return {n: env.get(n) for n in self.fetch_names}, new_states
+
+    def run(self, feed: Dict, fetch_list=None, return_numpy=True):
+        """One training step on the global batch `feed` -> the values of
+        the construction-time fetch list."""
+        t0 = time.perf_counter()
+        fetch_names = ([v.name if isinstance(v, Variable) else str(v)
+                        for v in fetch_list]
+                       if fetch_list is not None else self.fetch_names)
+        if fetch_names != self.fetch_names:
+            raise ValueError("fetch_list must match the construction-time "
+                             "fetch_list")
+        self._refresh_plan()
+        with obs_tracing.span("executor.run", mode="parallel"), \
+                torch.no_grad():
+            feeds = self._local_feeds(feed)
+            seed = _mix(self.program.seed or self._seed, self._step)
+            self._step += 1
+            ctx = ExecContext(self.device, seed=seed)
+            step = (self._overlap_step if self._overlap_cfg is not None
+                    else self._plain_step)
+            fetches, self._states = step(feeds, ctx)
+            out = [fetches[n] for n in fetch_names]
+            if return_numpy:
+                out = [_to_numpy(v) for v in out]
+        if obs_metrics.enabled():
+            if not hasattr(self, "_m_run"):
+                self._m_run_id = f"pe{next(_PE_IDS)}"
+                self._m_run = _M_RUN_SECONDS.labels(
+                    exe=self._m_run_id, mode="parallel")
+            self._m_run.observe(time.perf_counter() - t0)
+        return out
+
+    def close(self):
+        """Reclaim this instance's registry series.  The executor stays
+        usable."""
+        if hasattr(self, "_m_run"):
+            _M_RUN_SECONDS.remove(exe=self._m_run_id, mode="parallel")
+        self._kernel_selection.close()
+
+    def compiled_collectives(self, feed: Dict) -> Dict[str, int]:
+        raise NotImplementedError(
+            "compiled_collectives reads the collectives of a compiled XLA "
+            "program; the port has no compiled step (ROADMAP A8) — "
+            "ParallelExecutor.collective_calls counts the collectives "
+            "issued")
+
+    def state(self, name, return_numpy=True):
+        v = self._states[name]
+        return _to_numpy(v) if return_numpy else v
+
+    def set_state(self, name, value):
+        if name not in self._states:
+            raise KeyError(f"{name!r} is not a state of this executor")
+        self._states[name] = _to_device_value(
+            value if isinstance(value, torch.Tensor) else np.asarray(value),
+            self.device)
+
+
+class DistributeTranspiler:
+    """The reference's transpiler workflow, spmd mode
+    (reference distribute_transpiler.py:133).
+
+    `transpile` records the mesh layout and completes the program's
+    sharding annotations, `get_trainer_program` returns the ORIGINAL
+    program, and `build_executor` yields a ParallelExecutor whose
+    gradient aggregation is the bucketed all-reduce over the dp axis.
+    The pserver mode (`pservers=...`) is not ported (ROADMAP A11)."""
+
+    def __init__(self):
+        self._mesh_axes = None
+        self._program = None
+        self._startup = None
+        self._shard_opt = True
+        self._mode = None
+        self._plan = None
+        self._overlap = "auto"
+        self._batch_axis = "dp"
+
+    def transpile(self, optimize_ops=None, params_grads=None,
+                  trainers=1, pservers: str = "", program=None,
+                  startup_program=None,
+                  mesh_axes: Optional[Dict[str, int]] = None,
+                  mesh=None,
+                  mode: Optional[str] = None,
+                  shard_optimizer_states: bool = True,
+                  split_method=None, sync_mode: bool = True,
+                  overlap: str = "auto", batch_axis: str = "dp"):
+        """Prepare `program` for data-parallel execution over
+        `mesh_axes` (alias `mesh`; default {"dp": trainers}): record the
+        mesh on the program, complete its sharding annotations, and
+        raise on inconsistent specs here, at transpile time.  `overlap`
+        is the ParallelExecutor overlap mode."""
+        from ..core.framework import default_main_program
+
+        endpoints = [e.strip() for e in (pservers or "").split(",")
+                     if e.strip()]
+        if mode is None:
+            mode = "pserver" if endpoints else "spmd"
+        if mode not in ("pserver", "spmd"):
+            raise ValueError(f"mode must be 'pserver' or 'spmd', "
+                             f"got {mode!r}")
+        if mode == "pserver":
+            raise NotImplementedError(
+                "the pserver transpiler mode (send/recv, listen_and_serv) "
+                "is not ported yet (ROADMAP A11); use the spmd mode")
+        self._program = program or default_main_program()
+        self._startup = startup_program or default_startup_program()
+        if mesh_axes is None and mesh is not None:
+            mesh_axes = mesh
+        if mesh_axes is None:
+            mesh_axes = {"dp": trainers}
+        self._mesh_axes = mesh_axes
+        self._shard_opt = shard_optimizer_states
+        self._overlap = overlap
+        self._batch_axis = batch_axis
+        self._mode = mode
+        self._transpile_spmd()
+
+    def _transpile_spmd(self):
+        from .spmd import propagate_sharding
+
+        self._program.mesh_axes = {str(k): int(v)
+                                   for k, v in self._mesh_axes.items()}
+        self._program.bump_version()
+        self._plan = propagate_sharding(
+            self._program, mesh_axes=self._program.mesh_axes,
+            batch_axis=self._batch_axis).check()
+
+    def get_trainer_program(self):
+        return self._program
+
+    def get_pserver_program(self, endpoint=None):
+        """No pserver role in the spmd mode: the original program, for
+        API parity."""
+        return self._program
+
+    def get_startup_program(self, endpoint=None, pserver_program=None):
+        return self._startup or default_startup_program()
+
+    def build_executor(self, feed_names, fetch_list, startup_program=None,
+                       **kw):
+        """A ParallelExecutor for the transpiled program (pass
+        `place=CPUPlace()` to run on the CPU).  A 'pp' mesh axis needs
+        the pipeline executors, which are not ported (ROADMAP A9)."""
+        if self._mesh_axes.get("pp", 1) > 1:
+            raise NotImplementedError(
+                "a 'pp' mesh axis needs PipelineExecutor, which is not "
+                "ported yet (ROADMAP A9)")
+        startup_program = startup_program or self._startup
+        kw.setdefault("overlap", self._overlap)
+        kw.setdefault("spmd_plan", self._plan)
+        kw.setdefault("batch_axis", self._batch_axis)
+        kw.setdefault("shard_optimizer_states", self._shard_opt)
+        return ParallelExecutor(
+            self._program, feed_names, fetch_list,
+            mesh=self._mesh_axes, startup_program=startup_program, **kw)
+
+
+class ShardingTranspiler(DistributeTranspiler):
+    """The annotation entry point: `transpile(program=..., mesh={'dp':
+    n})` + `build_executor(...)` (always mode='spmd')."""
+
+    def transpile(self, *args, **kw):
+        kw.setdefault("mode", "spmd")
+        if kw["mode"] != "spmd":
+            raise ValueError("ShardingTranspiler is spmd-only — use "
+                             "DistributeTranspiler for the pserver path")
+        return super().transpile(*args, **kw)
+
+
+class SimpleDistributeTranspiler(DistributeTranspiler):
+    """Whole-variable placement variant (reference
+    distribute_transpiler_simple.py), kept so both entry points exist."""

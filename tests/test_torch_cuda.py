@@ -287,3 +287,249 @@ def test_lm_trains_on_cuda_like_on_cpu(dev):
     cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
     assert np.all(np.isfinite(gpu))
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=0)
+
+
+# -- fused bucket SGD update -------------------------------------------------
+#
+# Bit-identical to its plain version (p - lr * g, two roundings): no
+# tolerance.
+
+from paddle_tpu_torch.kernels.fused_update import (  # noqa: E402
+    fused_bucket_sgd, fused_bucket_sgd_reference)
+
+
+@pytest.mark.parametrize("numel", [1, 3, 4, 1023, 4096, (1 << 20) + 7])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_update_is_bit_identical_to_plain(dev, numel, offset):
+    """Odd sizes, and views starting one element in (not 16-byte
+    aligned: the kernel's scalar path); lr a device scalar."""
+    gen = torch.Generator().manual_seed(numel)
+    p = torch.randn(numel + offset, generator=gen).to(dev)[offset:]
+    g = torch.randn(numel + offset, generator=gen).to(dev)[offset:]
+    lr = torch.tensor([0.0123], device=dev)
+    before = fused_bucket_sgd.launches
+    got = fused_bucket_sgd(p, g, lr)
+    want = fused_bucket_sgd_reference(p, g, lr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert fused_bucket_sgd.launches == before + 1
+
+
+def test_fused_update_rejects_what_the_kernel_does_not_take(dev):
+    p = torch.zeros(8, device=dev)
+    lr = torch.tensor([0.1], device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fused_bucket_sgd(p.double(), p.double(), lr)
+    with pytest.raises(ValueError, match="lr"):
+        fused_bucket_sgd(p, p, torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="1-D"):
+        fused_bucket_sgd(p, p[:4], lr)
+
+
+# -- MoE gate + dispatch -----------------------------------------------------
+#
+# Routing is identical and expert_in bit-equal (a gather of x); combine
+# and aux within 1e-6 * max(1, max|plain|) (softmax and the aux means
+# sum in another order); the Function's gradients equal plain autograd's
+# within 1e-5 * max(1, max|plain|) (its backward is the plain version's
+# VJP at the kernel's routing, summed in another order).
+
+from paddle_tpu_torch.kernels.moe_dispatch import (  # noqa: E402
+    moe_gate_dispatch, moe_gate_dispatch_launch, moe_gate_dispatch_reference,
+    moe_routing_reference)
+
+
+def _moe_inputs(t_n, d, e_n, dev, seed=0, ties=False):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((t_n, d), generator=gen)
+    gw = torch.randn((d, e_n), generator=gen) * 0.05
+    if ties:   # experts 1 and 2 identical: every token ties between them
+        gw[:, 2] = gw[:, 1]
+    return x.to(dev), gw.to(dev)
+
+
+@pytest.mark.parametrize("t_n,d,e_n,c_n,top_k,ties", [
+    (256, 64, 4, 80, 2, False), (256, 64, 4, 20, 2, False),
+    (256, 64, 4, 80, 1, False), (256, 64, 4, 30, 1, False),
+    (300, 60, 5, 70, 2, True), (1000, 128, 8, 250, 2, False),
+    (64, 32, 64, 3, 2, False), (2048, 256, 8, 320, 2, False)])
+def test_moe_kernel_matches_plain(dev, t_n, d, e_n, c_n, top_k, ties):
+    x, gw = _moe_inputs(t_n, d, e_n, dev, ties=ties)
+    ei, cb, aux, _, idx, slots = moe_gate_dispatch_launch(x, gw, e_n, c_n,
+                                                          top_k)
+    ei_r, cb_r, aux_r = moe_gate_dispatch_reference(x, gw, e_n, c_n, top_k)
+    _, idx_r, slots_r = moe_routing_reference(x, gw, e_n, c_n, top_k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_r)
+    assert torch.equal(slots, slots_r)
+    assert torch.equal(ei, ei_r)
+    _close(cb, cb_r, 1e-6, "combine")
+    _close(aux, aux_r, 1e-6, "aux")
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_function_gradient_matches_plain_autograd(dev, top_k):
+    x, gw = _moe_inputs(512, 64, 8, dev, seed=1)
+    c_n = 100
+    gen = torch.Generator().manual_seed(2)
+    cots = [torch.randn(s, generator=gen).to(dev)
+            for s in ((8, c_n, 64), (512, 8, c_n), (1, 1))]
+    leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+    before = moe_gate_dispatch.launches
+    outs = moe_gate_dispatch(*leaves, 8, c_n, top_k)
+    assert moe_gate_dispatch.launches == before + 1
+    got = torch.autograd.grad(outs, leaves, cots)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+    want = torch.autograd.grad(
+        moe_gate_dispatch_reference(*ref_leaves, 8, c_n, top_k), ref_leaves,
+        cots)
+    for name, g, w in zip(("x", "gate_w"), got, want):
+        _close(g, w, 1e-5, "d" + name)
+
+
+def test_moe_kernel_rejects_what_it_does_not_take(dev):
+    x, gw = _moe_inputs(32, 16, 4, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        moe_gate_dispatch(x.double(), gw.double(), 4, 8, 2)
+    with pytest.raises(ValueError, match="top_k"):
+        moe_gate_dispatch(x, gw, 4, 8, 3)
+
+
+def test_moe_dense_has_no_plain_path_on_the_card(dev):
+    """On the card moe_dense launches the kernel whatever the
+    serving_kernels flag says, and raises for a call the kernel does
+    not take (bfloat16) instead of running the plain composition."""
+    from paddle_tpu_torch.core import flags as tflags
+    from paddle_tpu_torch.parallel.moe import moe_dense
+
+    x, gw = _moe_inputs(64, 32, 4, dev)
+    wi = torch.randn((4, 32, 16), device=dev) * 0.1
+    wo = torch.randn((4, 16, 32), device=dev) * 0.1
+    before = moe_gate_dispatch.launches
+    tflags.set_flags({"serving_kernels": "off"})
+    try:
+        y, aux = moe_dense(x, gw, wi, wo, top_k=2)
+    finally:
+        tflags.reset_flags()
+    assert moe_gate_dispatch.launches == before + 1
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    with pytest.raises(ValueError, match="dtype"):
+        moe_dense(*(t.bfloat16() for t in (x, gw, wi, wo)), top_k=2)
+    assert moe_gate_dispatch.launches == before + 1
+
+
+# -- the data-parallel and MoE paths on the card ----------------------------
+
+def test_pe_on_cuda_like_on_cpu(dev):
+    """A small MLP through ShardingTranspiler at dp 1, with the fused
+    update on the card against the per-op chain on the CPU, from the
+    same parameters
+    (losses 1e-5 relative, parameters 1e-5 absolute: cuBLAS and the CPU
+    sum in other orders); one fused launch per bucket per step."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as tfw
+
+    def build():
+        tfw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+            h = fluid.layers.fc(input=x, size=256, act="relu")
+            logits = fluid.layers.fc(input=h, size=10)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, y))
+            fluid.SGD(learning_rate=0.1).minimize(loss)
+        t = fluid.ShardingTranspiler()
+        t.transpile(program=main, startup_program=startup, mesh={"dp": 1},
+                    overlap="bucketed")
+        return main, t, loss
+
+    r = np.random.RandomState(0)
+    feeds = [{"x": r.rand(32, 64).astype(np.float32),
+              "y": r.randint(0, 10, (32, 1)).astype(np.int64)}
+             for _ in range(4)]
+    res, init = {}, None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        main, t, loss = build()
+        pe = t.build_executor(["x", "y"], [loss], place=place)
+        params = [p.name for p in main.global_block().all_parameters()]
+        if init is None:
+            init = {n: pe.state(n) for n in params}
+        for n in params:
+            pe.set_state(n, init[n])
+        before = fused_bucket_sgd.launches
+        losses = [float(pe.run(f)[0][0]) for f in feeds]
+        launched = fused_bucket_sgd.launches - before
+        res[str(place)] = (losses, {n: pe.state(n) for n in params})
+        on_card = place != fluid.CPUPlace()
+        # "auto" arms the kernel tier on the card only
+        assert pe.overlap_info["update"] == ("fused" if on_card
+                                             else "plain:disarmed")
+        assert launched == (4 * pe.overlap_info["buckets"] if on_card
+                            else 0)
+    (cl, cp), (gl, gp) = res["CPUPlace"], res["CUDAPlace(0)"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-5, atol=0)
+    for n in cp:
+        np.testing.assert_allclose(gp[n], cp[n], rtol=0, atol=1e-5)
+    # no flag disarms the kernel on the card: "off" replans, still fused
+    from paddle_tpu_torch.core import flags as tflags
+
+    tflags.set_flags({"serving_kernels": "off"})
+    try:
+        before = fused_bucket_sgd.launches
+        pe.run(feeds[0])
+    finally:
+        tflags.reset_flags()
+    assert pe.overlap_info["update"] == "fused"
+    assert fused_bucket_sgd.launches == before + pe.overlap_info["buckets"]
+
+
+def test_moe_lm_trains_on_cuda_like_on_cpu(dev):
+    """The MoE LM at a small width, 3 Momentum steps from the same
+    parameters: the kernel path on the card against the plain path on
+    the CPU (losses within 1e-4 relative); 2 MoE launches per layer per
+    step on the card (the forward op and the grad op's recompute)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core import framework as tfw
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+    from paddle_tpu_torch.models.moe import build_moe_lm
+
+    vocab, seq, batch, n_layers = 61, 32, 4, 2
+    tfw.reset_unique_names()
+    main, startup, loss = build_moe_lm(batch, seq, vocab, 128, 2, n_layers,
+                                       4, 2, 1.25)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    r = np.random.RandomState(0)
+    feeds = []
+    for _ in range(3):
+        ids = r.randint(0, vocab, (batch, seq))
+        feeds.append({"ids": ids.astype(np.int64),
+                      "lbl": np.roll(ids, -1, 1)[..., None].astype(np.int64)})
+    losses, init = {}, None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        prev = texecutor.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(place, seed=1)
+            exe.run(startup)
+            if init is None:
+                init = scope_to_numpy(fluid.global_scope(), names)
+            scope_from_numpy(init, place, fluid.global_scope())
+            before = moe_gate_dispatch.launches
+            losses[str(place)] = [
+                float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
+                for f in feeds]
+            launched = moe_gate_dispatch.launches - before
+        finally:
+            texecutor.switch_scope(prev)
+        assert launched == (0 if place == fluid.CPUPlace()
+                            else 3 * 2 * n_layers)
+    cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
+    assert np.all(np.isfinite(gpu))
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=0)

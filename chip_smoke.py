@@ -8,7 +8,8 @@ holds every hand-written kernel on them to its plain PyTorch version.
 Phases, one JSON line each:
 
   env      torch and CUDA versions, the card's name and power limit;
-  build    compiles every csrc/ source with nvcc (in parallel);
+  build    compiles every csrc/ source with nvcc (in parallel), with
+           each kernel's ptxas registers, stack and spills;
   kernels  paged-attention decode at the serving geometry (8 slots,
            context 512 = 32 blocks of 16, d_model 512, 8 heads) for
            fp32/bf16/int8 pools and windows W in {1, 4}: the kernel
@@ -19,7 +20,10 @@ Phases, one JSON line each:
            training shape [8, 512, 16, 128] (causal fp32, causal bf16,
            non-causal fp32), each against its plain version, with the
            kernel's, the plain version's and scaled_dot_product_attention's
-           (forward; backward) times beside the bound;
+           (forward; backward, against dQ + dK/dV in every case) times
+           beside the bound (float32 over TF32/3, the rate of float32-
+           accurate 3xTF32 products, with the scalar-fp32 bound beside
+           it; bf16 over the bf16 tensor peak);
   train    the transformer LM of benchmark/run_ridge.py at its full
            width (vocab 30000, d_model 2048, 16 heads, 12 layers, seq
            512, batch 8; fp32, Momentum) built as a Fluid Program and
@@ -76,12 +80,13 @@ import time
 import numpy as np
 import torch
 
-# published dense peaks (NVIDIA data sheets): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores, bf16 FLOP/s on the tensor cores
-_CARD_PEAKS = (("H200", 4.8e12, 67e12, 989e12),
-               ("H100 NVL", 3.9e12, 60e12, 835e12),
-               ("H100 PCIe", 2.0e12, 51e12, 756e12),
-               ("H100", 3.35e12, 67e12, 989e12))
+# published dense peaks (NVIDIA data sheets, without sparsity): HBM
+# bytes/s, fp32 FLOP/s outside the tensor cores, bf16 and TF32 FLOP/s on
+# the tensor cores
+_CARD_PEAKS = (("H200", 4.8e12, 67e12, 989e12, 495e12),
+               ("H100 NVL", 3.9e12, 60e12, 835e12, 418e12),
+               ("H100 PCIe", 2.0e12, 51e12, 756e12, 378e12),
+               ("H100", 3.35e12, 67e12, 989e12, 495e12))
 
 V, D_MODEL, N_HEADS, N_LAYERS, D_INNER = 32000, 512, 8, 6, 2048
 BLOCK, MAX_BLOCKS, SLOTS, KV_BLOCKS = 16, 32, 8, 256
@@ -122,11 +127,38 @@ def emit(obj):
 
 
 def card_peaks(name):
-    """-> (bytes/s, {dtype: FLOP/s}) of the card."""
-    for key, bw, fp32, bf16 in _CARD_PEAKS:
+    """-> (bytes/s, {torch.float32: scalar fp32, torch.bfloat16: bf16
+    tensor, "tf32": TF32 tensor FLOP/s}) of the card."""
+    for key, bw, fp32, bf16, tf32 in _CARD_PEAKS:
         if key in name:
-            return bw, {torch.float32: fp32, torch.bfloat16: bf16}
+            return bw, {torch.float32: fp32, torch.bfloat16: bf16,
+                        "tf32": tf32}
     raise CheckFailed(f"no published peaks for card {name!r}")
+
+
+def _ptxas_summary(log):
+    """nvcc -Xptxas=-v output -> one line per kernel: its name (the
+    flash kernels as name<dtype,D>), registers, and stack and spills."""
+    import re
+
+    out, name, frame = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(
+                r"([a-z]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+            if short:
+                dt = "f32" if short.group(2) == "f" else "bf16"
+                name = f"{short.group(1)}<{dt},{short.group(3)}>"
+            else:
+                name = name[:80]
+        elif "spill" in ln:
+            frame = ln.strip()
+        elif "registers" in ln:
+            used = ln.split(":", 1)[-1].strip()
+            out.append(f"{name}: {used}; {frame}")
+    return out
 
 
 def cold_ms(fn, n, flush):
@@ -358,13 +390,18 @@ def flash_phase(dev, bw, peaks):
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, leaves, do, retain_graph=True)
         elem = 4 if fp32 else 2
-        flops = peaks[dtype]
+        # float32-accurate products on the tensor cores take three TF32
+        # products each (3xTF32: the backward kernels, and SDPA's float32
+        # path); the scalar float32 peak stays beside it for PRs 2-3
+        flops = peaks["tf32"] / 3 if fp32 else peaks[dtype]
         res = {"max_abs_err": errs, "rms_err": rms_errs,
                "sdpa_fwd_max_abs_err": lib_err, "peak_flops": flops,
                "sdpa_fwd_ms": cold_ms(lambda: _sdpa(q, k, v, causal), 20,
                                       flush),
                "sdpa_bwd_ms": cold_ms(lib_bwd, 20, flush)}
         res["sdpa_fwd_bwd_ms"] = res["sdpa_fwd_ms"] + res["sdpa_bwd_ms"]
+        if fp32:
+            res["peak_flops_fp32_scalar"] = peaks[torch.float32]
         for kind, run, plain in (
                 ("fwd", lambda: fa.flash_attention_fwd(q, k, v, causal),
                  lambda: fa.flash_attention_fwd_reference(q, k, v, causal)),
@@ -375,21 +412,31 @@ def flash_phase(dev, bw, peaks):
             n_ops, n_bytes = _flash_work(kind, b, s, s, h, d, causal, elem)
             t_ops, t_bytes = n_ops / flops * 1e3, n_bytes / bw * 1e3
             ms = cold_ms(run, 20, flush)
+            bound = max(t_ops, t_bytes)
             res[kind] = {"ms": ms, "plain_ms": cold_ms(plain, 10, flush),
-                         "bound_ms": max(t_ops, t_bytes),
+                         "bound_ms": bound,
                          "bound_by": ("operations" if t_ops >= t_bytes
                                       else "bytes"),
+                         "bound_share": bound / ms,
                          "flop": n_ops, "bytes": n_bytes,
                          "flop_per_s": n_ops / (ms * 1e-3)}
+            if fp32:
+                res[kind]["bound_ms_fp32_scalar"] = max(
+                    n_ops / peaks[torch.float32] * 1e3, t_bytes)
+            check(res[kind]["bound_share"] <= 1.0,
+                  f"flash {name} {kind}: {ms} ms beats its bound {bound} ms")
         res["bwd_ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+        res["bwd_over_sdpa_bwd"] = res["bwd_ms"] / res["sdpa_bwd_ms"]
         del leaves, lib_out
         cases[name] = res
     emit({"phase": "flash", "shape_bshd": list(FLASH_SHAPE),
           "timing": "median of cold-L2 calls, CUDA events; the backward "
                     "kernels take the plain forward's lse and delta; "
                     "bwd_ms = dq + dkv against sdpa_bwd_ms (one call "
-                    "computing dQ, dK and dV); bounds over peak_flops, "
-                    "the card's peak for the case's dtype",
+                    "computing dQ, dK and dV), in every case; bounds over "
+                    "peak_flops: bf16 on the tensor cores for bf16, TF32/3 "
+                    "(3xTF32) for float32, with bound_ms_fp32_scalar over "
+                    "the scalar float32 peak beside it",
           "cases": cases})
     return cases
 
@@ -1298,7 +1345,8 @@ def main():
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "card": card, "peak_bytes_per_s": bw, "peak_fp32_flops": flops,
-          "peak_bf16_tensor_flops": peaks[torch.bfloat16]})
+          "peak_bf16_tensor_flops": peaks[torch.bfloat16],
+          "peak_tf32_tensor_flops": peaks["tf32"]})
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -1306,9 +1354,7 @@ def main():
         mod.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "counts": cuda_build.build_counts(),
-          "ptxas": {src: [ln.strip() for ln in
-                          cuda_build.build_log(src).splitlines()
-                          if "registers" in ln or "spill" in ln]
+          "ptxas": {src: _ptxas_summary(cuda_build.build_log(src))
                     for src in (pa.SOURCE, fa.SOURCE, fu.SOURCE,
                                 md.SOURCE)}})
 
@@ -1339,11 +1385,14 @@ def main():
             ("fwd", "flash_attention_fwd", 63, ("fwd", "lse")),
             ("dq", "flash_attention_bwd_dq", 188, ("dq",)),
             ("dkv", "flash_attention_bwd_dkv", 239, ("dk", "dv"))):
+        # SDPA computes the forward alone, but dQ, dK and dV only
+        # together: the backward rows carry it, against dq + dkv
+        bwd_keys = () if kind == "fwd" else ("sdpa_bwd_ms", "bwd_ms",
+                                             "bwd_over_sdpa_bwd")
         per_case = {n: dict(c[kind], max_abs_err=max(
             c["max_abs_err"][e] for e in err_keys),
-            peak_flops=c["peak_flops"]) for n, c in flash_cases.items()}
-        # SDPA computes the forward alone, but dQ, dK and dV only
-        # together: the backward rows carry it once, against dq + dkv
+            peak_flops=c["peak_flops"], **{k: c[k] for k in bwd_keys})
+            for n, c in flash_cases.items()}
         lib = ({"library_ms": main_case["sdpa_fwd_ms"]} if kind == "fwd"
                else {"library_ms": None,
                      "library_bwd_ms": main_case["sdpa_bwd_ms"],
@@ -1353,8 +1402,9 @@ def main():
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
             "launches": flash_launches[kind],
             "max_abs_err": per_case["fp32_causal"]["max_abs_err"],
-            **{k: main_case[kind][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by")},
+            **{k: main_case[kind][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_ms_fp32_scalar")},
             **lib, "case": "fp32_causal", "cases": per_case})
     main_case = fused_cases["largest_bucket"]
     entries.append({

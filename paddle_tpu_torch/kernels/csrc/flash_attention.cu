@@ -14,29 +14,72 @@
 // Semantics follow the JAX kernels exactly: scores S = Q K^T * scale;
 // causal masking is top-left aligned (query row i sees key positions
 // 0..i, also when seq_q != seq_k) with the finite mask value -1e30; a
-// row whose softmax sum is 0 divides by 1.  K/V tiles wholly above the
-// diagonal are skipped (forward, dQ), and a K/V tile's backward starts
-// at the first query tile that can see it (dK/dV).
+// row whose softmax sum is 0 divides by 1.  Key tiles wholly above the
+// diagonal are skipped (forward, dQ), and a key tile's backward starts
+// at the first query tile that can see it (dK/dV).  No atomics: dQ is
+// summed over key tiles by its own CTA and dK/dV over query tiles by
+// theirs, each in a fixed order, so the backward is bit-identical from
+// run to run.
 //
 // Bound: operations.  At the training shape [8, 512, 16, 128] causal in
-// float32, the forward does 8.6 GFLOP on 134 MB, far above the card's
-// float32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP per byte).
-// Design, simple first: float32 FMA on tiles staged in shared memory,
-// inputs converted to float32 as they are staged (bf16 in, float32
-// accumulate).  One CTA of 256 threads per (batch*head, 64-row tile);
-// each thread owns a 4x4 block of a 64x64 score tile (rows ty+16i,
-// columns tx+16j) and 4 rows x D/16 columns of its accumulators, so a
-// row's softmax max and sum reduce inside one half-warp by shuffles.
-// Shared rows are padded to D+4 floats: the 16-byte loads of the
-// score products are free of bank conflicts.  The online softmax keeps
-// the running max and sum per row in registers.  No atomics: dQ is
-// summed over K tiles by its own CTA and dK/dV over Q tiles by theirs,
-// so the backward is bit-identical from run to run.  Tensor cores
-// (mma.sync / wgmma), TMA and cp.async pipelining are later work.
+// float32, the forward does 8.6 GFLOP on 134 MB and the backward 30 GFLOP
+// on about 370 MB, far above the card's ridge.
+//
+// Forward (fwd_kernel): float32 FMA on tiles staged in shared memory,
+// inputs converted to float32 as they are staged.  One CTA of 256
+// threads per (batch*head, 64-row tile); each thread owns a 4x4 block of
+// a 64x64 score tile and 4 rows x D/16 columns of its accumulators; rows
+// padded to D+4 floats; the online softmax keeps the running max and sum
+// per row in registers.
+//
+// Backward (dq_kernel, dkv_kernel): every product on the tensor cores
+// with mma.sync, accumulated in float32.
+//   - float32 inputs: m16n8k8 TF32 with the 3xTF32 split.  Each operand
+//     x becomes big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big),
+//     and acc += a_small b_big + a_big b_small + a_big b_big (small terms
+//     first): float32-level accuracy at three TF32 products per product.
+//   - bfloat16 inputs: m16n8k16.  S = Q K^T and dP = dO V^T take the
+//     inputs as they are (exact products).  P and dS are float32, so
+//     P^T dO, dS K and dS^T Q split them into a bf16 hi + lo pair: two
+//     products, lo first.
+// Ownership.  dQ: each of the CTA's 8 warps owns 16 of its 128 query
+// rows and computes S and dP for them in one pass over the head dim
+// (interleaved mma chains), then dQ += dS K.  dK/dV: the CTA owns 64 key
+// rows; warps w and w + 4 share 16 of them: warp w computes S^T, P^T and
+// dV += P^T dO, its partner dP^T, dS^T and dK += dS^T Q, with P^T passed
+// through shared memory behind a barrier of the pair, so each warp holds
+// one D-wide float32 accumulator (two did not fit 255 registers).  S, dP,
+// P and dS live in mma accumulator registers; lse, delta, the scale and
+// the causal mask are applied there, and P = exp(s * scale - lse) is
+// exp2f of the log2(e)-scaled argument.  The next product takes P or dS
+// as its A operand straight from those registers: with bf16 the
+// accumulator pairs are the A pairs; with TF32 the k order inside each
+// 8-wide step is permuted (mma k index t <-> column 2t, t+4 <-> column
+// 2t+1), which makes the accumulator layout the A layout, and the B rows
+// are read in the same order.
+// Staging: cp.async (16 bytes, .cg), double-buffered: dQ's CTA keeps its
+// Q and dO rows and streams 32-key tiles of K and V (separate buffers,
+// both score products behind one wait); dK/dV's CTA keeps its K and V
+// rows and streams 32-row tiles of Q, dO, lse and delta.  Every warp reads
+// the streamed tile as a B operand, so a float32 tile is split once when
+// it lands (TF32 big parts in place, small parts in a buffer beside it)
+// rather than by each of the 8 warps.  Rows of 32-bit words are XOR-
+// swizzled in 16-byte chunks (word c of row r at c ^ 4(r mod 8)), so the
+// score products' ldmatrix loads, the scalar loads of the transposed
+// TF32 B operand and the bf16 ldmatrix.trans loads are free of bank
+// conflicts for rows of 32 words or more.  One CTA of 8 warps per SM at
+// D = 128: in float32 the shared memory holds one (224 KB for dQ, 168.5
+// KB for dK/dV), in bf16 (96 KB; 72.5 KB) the registers do.  A warp (a
+// pair in dK/dV) whose 16 rows are all masked for a tile (causal) or past
+// the sequence skips that tile's products.  Causal load balance: heavy
+// CTAs first (the query tiles near the end for dQ, the key tiles near 0
+// for dK/dV).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,6 +87,7 @@ constexpr int kTile = 64;        // query rows and key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kSP = kTile + 4;   // padded row of a 64-wide score tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Layout {
   long long sb, ss, sh;  // element strides of the batch, seq, head dims
@@ -102,14 +146,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* x, Layout l,
       for (int e = 0; e < N; ++e) d[e] = 0.f;
     }
   }
-}
-
-// The first 64 entries from v + row0 (a [b, h] row of lse or delta)
-// -> dst; zero past n.
-__device__ __forceinline__ void load_vec(float* dst, const float* v,
-                                         int row0, int n) {
-  const int t = threadIdx.x;
-  if (t < kTile) dst[t] = (row0 + t < n) ? v[row0 + t] : 0.f;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
@@ -236,14 +272,6 @@ template <int D>
 constexpr size_t fwd_smem() {
   return (2 * kTile * (D + 4) + kTile * kSP) * sizeof(float);
 }
-template <int D>
-constexpr size_t dq_smem() {
-  return (3 * kTile * (D + 4) + kTile * kSP + 2 * kTile) * sizeof(float);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return (4 * kTile * (D + 4) + kTile * kSP + 2 * kTile) * sizeof(float);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -322,144 +350,574 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, D>(o, acc, inv, b, h, H, SQ, q0, ty, tx);
 }
 
+// ---------------------------------------------------------------------------
+// backward: tensor-core kernels
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kDqRows = 16 * kBwdWarps;  // query rows of a dQ CTA
+constexpr int kDqKeys = 32;     // keys a dQ step (a multiple of 16)
+constexpr int kDkvKeys = 8 * kBwdWarps;  // key rows of a dK/dV CTA
+constexpr int kDkvRows = 32;    // query rows a dK/dV step (a multiple of 16)
+
+// 32-bit words per row of a T[D] tile row
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int words() {
+  return D * (int)sizeof(T) / 4;
+}
+
+// Word c of row r of a tile with W words a row: 16-byte chunks XOR-
+// swizzled by the row (c ^ 4(r mod 8), inside each 32-word span).
+template <int W>
+__host__ __device__ constexpr int swz_mask() {
+  return (W < 32 ? W : 32) - 4;
+}
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + (c ^ ((r << 2) & swz_mask<W>()));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + R) of one head (`head`: its row 0; rows `ss`
+// elements apart) -> R swizzled rows of `tile` by cp.async; rows at or
+// past n are zero.
+template <typename T, int D, int R>
+__device__ __forceinline__ void stage(uint32_t* tile, const T* head,
+                                      long long ss, int row0, int n) {
+  constexpr int W = words<T, D>();
+  constexpr int C = W / 4;                  // 16-byte chunks a row
+  constexpr int E = 16 / (int)sizeof(T);    // elements a chunk
+  for (int i = threadIdx.x; i < R * C; i += kBwdThreads) {
+    const int r = i / C, c = i % C;
+    const int row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(tile + swz<W>(r, 4 * c),
+               head + (long long)(ok ? row : 0) * ss + c * E, ok);
+  }
+}
+
+// row 0 of head (b, h) of x
+template <typename T>
+__device__ __forceinline__ const T* head_of(const T* x, Layout l, int b,
+                                            int h) {
+  return x + (long long)b * l.sb + (long long)h * l.sh;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small (+ a rest below float32 resolution), both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// (x0, x1) -> bf16 pairs hi and lo = the rounded rest (low half x0)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += a b in 3xTF32: a_small b_big + a_big b_small + a_big b_big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t* ab,
+                                           const uint32_t* as,
+                                           const uint32_t* bb,
+                                           const uint32_t* bs) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint32_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const uint32_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// A staged float32 tile of R rows, split in place into its TF32 big
+// parts; the small parts go to `small` (the same layout).  Every warp
+// reads these tiles as B operands: splitting once here spares each warp
+// the conversions.
+template <int W, int R>
+__device__ __forceinline__ void split_tile(uint32_t* tile, uint32_t* small) {
+  for (int i = threadIdx.x; i < R * W / 4; i += kBwdThreads) {
+    const uint4 x = reinterpret_cast<const uint4*>(tile)[i];
+    uint4 b, s;
+    split_tf32(__uint_as_float(x.x), b.x, s.x);
+    split_tf32(__uint_as_float(x.y), b.y, s.y);
+    split_tf32(__uint_as_float(x.z), b.z, s.z);
+    split_tf32(__uint_as_float(x.w), b.w, s.w);
+    reinterpret_cast<uint4*>(tile)[i] = b;
+    reinterpret_cast<uint4*>(small)[i] = s;
+  }
+}
+
+// P score products in one pass over the head dim (S = Q K^T with
+// dP = dO V^T, or their transposes): acc[p][n] += A_p[ra .. ra+16) .
+// B_p[8n .. 8n+8)^T, A and B rows of tiles of inputs in shared memory;
+// for float32 the B tiles are split (big in B, small in Bs).  Fragments
+// by ldmatrix (b16 rows of 16 bytes; a 32-bit word lands where the TF32
+// and bf16 fragments both want it): A = rows ra + {0, 8} + lane % 8,
+// 4-word chunks kw/4 + {0, 1}; B = rows 8n + {0, 8} + lane % 8, the same
+// chunks, two n-tiles a load.  Word kw = hi + lo with hi a multiple of
+// 32: the swizzle touches lo only.
+template <typename T, int D, int N, int P>
+__device__ __forceinline__ void mma_scores(float (&acc)[P][N][4],
+                                           const uint32_t* const (&sA)[P],
+                                           int ra,
+                                           const uint32_t* const (&sB)[P],
+                                           const uint32_t* const (&sBs)[P],
+                                           int g, int t) {
+  static_assert(N % 2 == 0, "B loads take two n-tiles");
+  constexpr int W = words<T, D>();
+  const int lane = t | (g << 2), mi = lane >> 3, rr = lane & 7;
+  const int sw = (rr << 2) & swz_mask<W>();
+  const int row_a = (ra + 8 * (mi & 1) + rr) * W;
+  const int row_b = (8 * (mi >> 1) + rr) * W;
+#pragma unroll 1
+  for (int hi = 0; hi < W; hi += 32) {
+#pragma unroll
+    for (int lo = 0; lo < (W < 32 ? W : 32); lo += 8) {
+      const int ca = row_a + hi + ((lo + 4 * (mi >> 1)) ^ sw);
+      const int cb = row_b + hi + ((lo + 4 * (mi & 1)) ^ sw);
+      uint32_t a[P][4], as[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        ldmatrix_x4(a[p], sA[p] + ca);
+        if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[p][i]), a[p][i], as[p][i]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < N; n += 2) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          uint32_t b[4];  // b0, b1 of n-tile n, then of n + 1
+          ldmatrix_x4(b, sB[p] + cb + 8 * n * W);
+          if constexpr (std::is_same<T, float>::value) {
+            uint32_t bs[4];
+            ldmatrix_x4(bs, sBs[p] + cb + 8 * n * W);
+            mma_3xtf32(acc[p][n], a[p], as[p], b, bs);
+            mma_3xtf32(acc[p][n + 1], a[p], as[p], b + 2, bs + 2);
+          } else {
+            mma_bf16(acc[p][n], a[p], b);
+            mma_bf16(acc[p][n + 1], a[p], b + 2);
+          }
+        }
+      }
+    }
+  }
+}
+
+// acc[nd] += A . B[.., 8nd .. 8nd+8): A (16 rows x 8NA) float32 in
+// accumulator layout (a[j] = columns 8j .. 8j+8: P or dS), B the first
+// 8NA rows of a tile of inputs in shared memory (dO, K or Q; for
+// float32 split, big in B and small in Bs).
+template <typename T, int D, int NA>
+__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4],
+                                        const float (&a)[NA][4],
+                                        const uint32_t* sB,
+                                        const uint32_t* sBs, int g, int t) {
+  constexpr int W = words<T, D>();
+  constexpr int kMask = swz_mask<W>();
+  if constexpr (std::is_same<T, float>::value) {
+    // B rows 8j + 2t and 8j + 2t + 1 (swizzles sw0, sw1), word 8nd + g
+    const int sw0 = (t << 3) & kMask, sw1 = ((t << 3) + 4) & kMask;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      // k t <-> column 2t and k t+4 <-> column 2t+1 of this step, so the
+      // accumulator registers are the A fragment: (c0, c2, c1, c3)
+      uint32_t ab[4], as[4];
+      split_tf32(a[j][0], ab[0], as[0]);
+      split_tf32(a[j][2], ab[1], as[1]);
+      split_tf32(a[j][1], ab[2], as[2]);
+      split_tf32(a[j][3], ab[3], as[3]);
+      const int r = (8 * j + 2 * t) * W;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const int hi = 32 * (nd >> 2), lo = 8 * (nd & 3) + g;
+        const int j0 = r + hi + (lo ^ sw0), j1 = r + W + hi + (lo ^ sw1);
+        const uint32_t bb[2] = {sB[j0], sB[j1]}, bs[2] = {sBs[j0], sBs[j1]};
+        mma_3xtf32(acc[nd], ab, as, bb, bs);
+      }
+    }
+  } else {
+    const int lane = (t | (g << 2));
+    const int m = lane >> 3;  // this lane's ldmatrix row address: matrix m
+    const int sw = ((lane & 7) << 2) & kMask;
+    const uint32_t* base = sB + (8 * (m & 1) + (lane & 7)) * W;
+#pragma unroll
+    for (int j = 0; j < NA; j += 2) {
+      // k16 step = accumulator tiles j, j + 1 as bf16 pairs, hi and lo
+      uint32_t hi[4], lo[4];
+      split_bf16(a[j][0], a[j][1], hi[0], lo[0]);
+      split_bf16(a[j][2], a[j][3], hi[1], lo[1]);
+      split_bf16(a[j + 1][0], a[j + 1][1], hi[2], lo[2]);
+      split_bf16(a[j + 1][2], a[j + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        // b (k rows 2t, 2t+1 at column g) of n-tiles nd and nd + 1:
+        // chunk nd + m/2 of rows 8j + 8(m & 1) + (lane & 7)
+        const int c = 32 * (nd >> 3) + ((4 * ((nd & 7) + (m >> 1))) ^ sw);
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, base + 8 * j * W + c);
+        mma_bf16(acc[nd], lo, bb);
+        mma_bf16(acc[nd], hi, bb);
+        mma_bf16(acc[nd + 1], lo, bb + 2);
+        mma_bf16(acc[nd + 1], hi, bb + 2);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x,
+                                           float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// A warp's accumulator (rows row, row + 8; columns 8nd + 2t, +1) -> a
+// contiguous [B, n, H, D] tensor, rows past n dropped.
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 8][4],
+                                          int b, int h, int H, int n, int row,
+                                          int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row + 8 * half;
+    if (r >= n) continue;
+    T* dst = out + (((long long)b * n + r) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      store_pair(dst + 8 * nd, acc[nd][2 * half], acc[nd][2 * half + 1]);
+  }
+}
+
+// float32 B tiles are split once per step (split_tile): room for the
+// small parts of the current K and V (dQ) or Q and dO (dK/dV) tiles
+template <typename T>
+__host__ __device__ constexpr int split_tiles() {
+  return std::is_same<T, float>::value ? 2 : 0;
+}
+template <typename T, int D>
+constexpr size_t dq_smem() {
+  return (size_t)(2 * kDqRows + (4 + split_tiles<T>()) * kDqKeys) *
+         words<T, D>() * 4;
+}
+template <typename T, int D>
+constexpr size_t dkv_smem() {
+  return (size_t)(2 * kDkvKeys + (4 + split_tiles<T>()) * kDkvRows) *
+             words<T, D>() * 4 +
+         // lse and delta [2][kDkvRows]; P^T [pair][kDkvRows / 8][4][32]
+         (4 * kDkvRows + kBwdWarps / 2 * kDkvRows / 2 * 32) * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int H, int SQ, int SK, Layout lq, Layout lk,
               Layout lv, float scale, int causal) {
-  constexpr int S = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kTile * S;
-  float* sKV = sdO + kTile * S;
-  float* sDS = sKV + kTile * S;
-  float* sL = sDS + kTile * kSP;
-  float* sDelta = sL + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  constexpr int W = words<T, D>();
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  uint32_t* sQ = smem_w;                    // [kDqRows][W]
+  uint32_t* sdO = sQ + kDqRows * W;         // [kDqRows][W]
+  uint32_t* sK = sdO + kDqRows * W;         // [2][kDqKeys][W]
+  uint32_t* sV = sK + 2 * kDqKeys * W;      // [2][kDqKeys][W]
+  uint32_t* sKs = sV + 2 * kDqKeys * W;     // [kDqKeys][W] small parts,
+  uint32_t* sVs = sKs + kDqKeys * W;        // float32 only
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int qt = blockIdx.y, q0 = qt * kTile;
-  const Layout ld = {(long long)SQ * H * D, (long long)H * D, D};
+  const int nq = (SQ + kDqRows - 1) / kDqRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kDqRows;  // heavy tiles first
   const long long vec = ((long long)b * H + h) * SQ;
+  const T* kh = head_of(k, lk, b, h);
+  const T* vh = head_of(v, lv, b, h);
 
-  load_tile<T, D>(sQ, q, lq, b, h, q0, SQ);
-  load_tile<T, D>(sdO, dout, ld, b, h, q0, SQ);
-  load_vec(sL, lse + vec, q0, SQ);
-  load_vec(sDelta, delta + vec, q0, SQ);
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  int nk = (SK + kTile - 1) / kTile;
-  if (causal && nk > qt + 1) nk = qt + 1;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's dS.K is done with sKV and sDS
-    load_tile<T, D>(sKV, v, lv, b, h, k0, SK);
-    __syncthreads();
-    float dp[4][4];
-    mm_abt<D>(sdO, sKV, ty, tx, dp);  // dP = dO V^T
-    __syncthreads();
-    load_tile<T, D>(sKV, k, lk, b, h, k0, SK);
-    __syncthreads();
-    float s[4][4];
-    mm_abt<D>(sQ, sKV, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool masked = col >= SK || (causal && col > row);
-        const float p = masked ? 0.f : expf(s[i][j] * scale - sL[r]);
-        sDS[r * kSP + tx + 16 * j] = p * (dp[i][j] - sDelta[r]) * scale;
-      }
-    }
-    __syncthreads();
-    mm_ab<D>(sDS, sKV, ty, tx, acc);  // dQ += dS K
+  int nk = (SK + kDqKeys - 1) / kDqKeys;
+  if (causal) {  // keys past the tile's last row are masked everywhere
+    const int last = min(q0 + kDqRows, SQ) - 1;
+    nk = min(nk, last / kDqKeys + 1);
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dq, acc, one, b, h, H, SQ, q0, ty, tx);
+  stage<T, D, kDqRows>(sQ, head_of(q, lq, b, h), lq.ss, q0, SQ);
+  stage<T, D, kDqRows>(sdO, dout + ((long long)b * SQ * H + h) * D,
+                       (long long)H * D, q0, SQ);
+  stage<T, D, kDqKeys>(sK, kh, lk.ss, 0, SK);
+  stage<T, D, kDqKeys>(sV, vh, lv.ss, 0, SK);
+  cp_async_commit();
+
+  const int r0 = 16 * warp;  // this warp's rows of the tile
+  const int row = q0 + r0 + g;
+  // exp(s * scale - lse) = exp2(s * scale * log2(e) - lse * log2(e))
+  const float scale_log2 = scale * kLog2e;
+  const float lse0 = row < SQ ? lse[vec + row] * kLog2e : 0.f;
+  const float lse1 = row + 8 < SQ ? lse[vec + row + 8] * kLog2e : 0.f;
+  const float del0 = row < SQ ? delta[vec + row] : 0.f;
+  const float del1 = row + 8 < SQ ? delta[vec + row + 8] : 0.f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kDqKeys;
+    const int buf = j & 1;
+    if (j + 1 < nk) {  // the next K/V tile loads while this one computes
+      stage<T, D, kDqKeys>(sK + (buf ^ 1) * kDqKeys * W, kh, lk.ss,
+                           k0 + kDqKeys, SK);
+      stage<T, D, kDqKeys>(sV + (buf ^ 1) * kDqKeys * W, vh, lv.ss,
+                           k0 + kDqKeys, SK);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    uint32_t* cK = sK + buf * kDqKeys * W;
+    uint32_t* cV = sV + buf * kDqKeys * W;
+    if constexpr (split_tiles<T>() > 0) {
+      split_tile<W, kDqKeys>(cK, sKs);
+      split_tile<W, kDqKeys>(cV, sVs);
+      __syncthreads();
+    }
+    // warp-uniform: rows past the sequence, or every key of the step
+    // above this warp's diagonal
+    if (q0 + r0 < SQ && !(causal && k0 > q0 + r0 + 15)) {
+      constexpr int N = kDqKeys / 8;
+      float sd[2][N][4];  // S (then dS) and dP
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sd[0][n][c] = sd[1][n][c] = 0.f;
+      const uint32_t* const sA[2] = {sQ, sdO};
+      const uint32_t* const sB[2] = {cK, cV};
+      const uint32_t* const sBs[2] = {sKs, sVs};
+      mma_scores<T, D, N, 2>(sd, sA, r0, sB, sBs, g, t);  // S, dP
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qrow = row + 8 * (c >> 1);
+          const int col = k0 + 8 * n + 2 * t + (c & 1);
+          const bool masked = col >= SK || (causal && col > qrow);
+          const float p = masked ? 0.f
+                                 : exp2f(fmaf(sd[0][n][c], scale_log2,
+                                              c < 2 ? -lse0 : -lse1));
+          sd[0][n][c] = p * (sd[1][n][c] - (c < 2 ? del0 : del1)) * scale;
+        }
+      mma_acc<T, D, N>(acc, sd[0], cK, sKs, g, t);  // dQ += dS K
+    }
+    __syncthreads();  // done with this buffer before it is refilled
+  }
+  store_acc<T, D>(dq, acc, b, h, H, SQ, row, t);
 }
 
+// Warps w and w + 4 share key rows 16 (w mod 4) .. +16: warp w computes
+// S^T, P^T and dV += P^T dO, its partner dP^T, dS^T = P^T (dP^T - delta)
+// and dK += dS^T Q, with P^T passed through shared memory behind a
+// barrier of the pair.  Each warp so holds one D-wide accumulator.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 1)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int H, int SQ, int SK,
                Layout lq, Layout lk, Layout lv, float scale, int causal) {
-  constexpr int S = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * S;
-  float* sQ = sV + kTile * S;
-  float* sdO = sQ + kTile * S;
-  float* sPS = sdO + kTile * S;
-  float* sL = sPS + kTile * kSP;
-  float* sDelta = sL + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  constexpr int W = words<T, D>();
+  constexpr int N = kDkvRows / 8;            // n-tiles of a query step
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  uint32_t* sK = smem_w;                     // [kDkvKeys][W]
+  uint32_t* sV = sK + kDkvKeys * W;          // [kDkvKeys][W]
+  uint32_t* sQ = sV + kDkvKeys * W;          // [2][kDkvRows][W]
+  uint32_t* sdO = sQ + 2 * kDkvRows * W;     // [2][kDkvRows][W]
+  uint32_t* sQs = sdO + 2 * kDkvRows * W;    // [kDkvRows][W] small parts,
+  uint32_t* sdOs = sQs + kDkvRows * W;       // float32 only
+  float* sL = reinterpret_cast<float*>(
+      sdO + (2 + split_tiles<T>()) * kDkvRows * W);  // [2][kDkvRows]
+  float* sDelta = sL + 2 * kDkvRows;                  // [2][kDkvRows]
+  float* sP = sDelta + 2 * kDkvRows;  // [pair][N][4][32 lanes]: P^T
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp % (kBwdWarps / 2);
+  const bool dk_warp = warp >= kBwdWarps / 2;  // dP^T, dS^T, dK
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int kt = blockIdx.y, k0 = kt * kTile;
-  const Layout ld = {(long long)SQ * H * D, (long long)H * D, D};
-  const long long vec = ((long long)b * H + h) * SQ;
+  const int k0 = blockIdx.y * kDkvKeys;  // key tile 0 (heaviest) first
+  // what the loop stages: this head's rows of Q, dO (rows H*D apart), and
+  // of lse or delta (thread x < 2 kDkvRows copies row x mod kDkvRows)
+  const T* qh = head_of(q, lq, b, h);
+  const T* doh = dout + ((long long)b * SQ * H + h) * D;
+  const int x = threadIdx.x;
+  const float* vec = (x < kDkvRows ? lse : delta) + ((long long)b * H + h) * SQ;
+  float* svec = (x < kDkvRows ? sL : sDelta) + x % kDkvRows;
 
-  load_tile<T, D>(sK, k, lk, b, h, k0, SK);
-  load_tile<T, D>(sV, v, lv, b, h, k0, SK);
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      acc_k[i][j] = 0.f;
-      acc_v[i][j] = 0.f;
+  // query rows [i * kDkvRows, +kDkvRows) of Q, dO, lse, delta -> buffer
+  auto stage_q = [&](int i, int buf) {
+    const int row0 = i * kDkvRows;
+    stage<T, D, kDkvRows>(sQ + buf * kDkvRows * W, qh, lq.ss, row0, SQ);
+    stage<T, D, kDkvRows>(sdO + buf * kDkvRows * W, doh, (long long)H * D,
+                          row0, SQ);
+    if (x < 2 * kDkvRows) {
+      const int row = row0 + x % kDkvRows;
+      cp_async4(svec + buf * kDkvRows, vec + (row < SQ ? row : 0), row < SQ);
     }
-  const int nq = (SQ + kTile - 1) / kTile;
-  // causal: query tiles before this key tile's diagonal never see it
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's products are done with sQ/sdO/sPS
-    load_tile<T, D>(sQ, q, lq, b, h, q0, SQ);
-    load_tile<T, D>(sdO, dout, ld, b, h, q0, SQ);
-    load_vec(sL, lse + vec, q0, SQ);
-    load_vec(sDelta, delta + vec, q0, SQ);
+  };
+
+  stage<T, D, kDkvKeys>(sK, head_of(k, lk, b, h), lk.ss, k0, SK);
+  stage<T, D, kDkvKeys>(sV, head_of(v, lv, b, h), lv.ss, k0, SK);
+  const int nq = (SQ + kDkvRows - 1) / kDkvRows;
+  // causal: query rows before this key tile never see it
+  const int i0 = causal ? k0 / kDkvRows : 0;
+  if (i0 < nq) stage_q(i0, 0);
+  cp_async_commit();
+
+  const int r0 = 16 * pair;  // the pair's key rows of the tile
+  const int krow = k0 + r0 + g;
+  const float scale_log2 = scale * kLog2e;
+  float* my_p = sP + pair * N * 4 * 32 + lane;
+  float acc[D / 8][4];  // dV or dK
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
+
+  for (int i = i0; i < nq; ++i) {
+    const int q0 = i * kDkvRows;
+    const int buf = (i - i0) & 1;
+    if (i + 1 < nq) stage_q(i + 1, buf ^ 1);  // loads while this computes
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // transposed tiles: rows are key positions, columns query positions
-    float st[4][4], dpt[4][4];
-    mm_abt<D>(sK, sQ, ty, tx, st);
-    mm_abt<D>(sV, sdO, ty, tx, dpt);
+    uint32_t* cQ = sQ + buf * kDkvRows * W;
+    uint32_t* cdO = sdO + buf * kDkvRows * W;
+    if constexpr (split_tiles<T>() > 0) {
+      split_tile<W, kDkvRows>(cQ, sQs);
+      split_tile<W, kDkvRows>(cdO, sdOs);
+      __syncthreads();
+    }
+    // pair-uniform: key rows past the sequence, or every query row of
+    // the step before the pair's first key
+    if (k0 + r0 < SK && !(causal && q0 + kDkvRows - 1 < k0 + r0)) {
+      // transposed tiles: rows are key positions, columns query positions
+      float s[1][N][4];  // S^T then P^T, or dP^T then dS^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int krow = k0 + ty + 16 * i;
+      for (int n = 0; n < N; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qcol = q0 + c;
-        const bool masked = qcol >= SQ || (causal && qcol < krow);
-        const float p = masked ? 0.f : expf(st[i][j] * scale - sL[c]);
-        dpt[i][j] = p * (dpt[i][j] - sDelta[c]) * scale;  // dS^T
-        sPS[(ty + 16 * i) * kSP + c] = p;
+        for (int c = 0; c < 4; ++c) s[0][n][c] = 0.f;
+      const uint32_t* const sA[1] = {dk_warp ? sV : sK};
+      const uint32_t* const sB[1] = {dk_warp ? cdO : cQ};
+      const uint32_t* const sBs[1] = {dk_warp ? sdOs : sQs};
+      mma_scores<T, D, N, 1>(s, sA, r0, sB, sBs, g, t);
+      if (!dk_warp) {
+        const float* cL = sL + buf * kDkvRows;
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int kr = krow + 8 * (c >> 1);
+            const int col = 8 * n + 2 * t + (c & 1);
+            const int qcol = q0 + col;
+            const bool masked = qcol >= SQ || (causal && qcol < kr);
+            s[0][n][c] = masked ? 0.f
+                                : exp2f(fmaf(s[0][n][c], scale_log2,
+                                             -cL[col] * kLog2e));  // P^T
+            my_p[(4 * n + c) * 32] = s[0][n][c];
+          }
       }
+      // barrier 1 + pair of the pair's 64 threads: the P warp arrives
+      // once its P^T is written and goes on; its partner waits for it
+      if (!dk_warp) {
+        asm volatile("bar.arrive %0, %1;" ::"r"(1 + pair), "n"(64)
+                     : "memory");
+      } else {
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + pair), "n"(64)
+                     : "memory");
+        const float* cDelta = sDelta + buf * kDkvRows;
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = 8 * n + 2 * t + (c & 1);
+            s[0][n][c] = my_p[(4 * n + c) * 32] *
+                         (s[0][n][c] - cDelta[col]) * scale;  // dS^T
+          }
+      }
+      // dV += P^T dO, or dK += dS^T Q
+      mma_acc<T, D, N>(acc, s[0], dk_warp ? cQ : cdO, dk_warp ? sQs : sdOs,
+                       g, t);
     }
-    __syncthreads();
-    mm_ab<D>(sPS, sdO, ty, tx, acc_v);  // dV += P^T dO
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sPS[(ty + 16 * i) * kSP + tx + 16 * j] = dpt[i][j];
-    __syncthreads();
-    mm_ab<D>(sPS, sQ, ty, tx, acc_k);  // dK += dS^T Q
+    __syncthreads();  // done with this buffer (and sP) before refilling
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dk, acc_k, one, b, h, H, SK, k0, ty, tx);
-  store_rows<T, D>(dv, acc_v, one, b, h, H, SK, k0, ty, tx);
+  cp_async_wait<0>();  // nothing in flight at exit (no query step ran)
+  store_acc<T, D>(dk_warp ? dk : dv, acc, b, h, H, SK, krow, t);
 }
 
 // Raise the kernel's dynamic shared-memory cap (above 48 KB it must be
@@ -486,30 +944,29 @@ enum class Which { kFwd, kDq, kDkv };
 
 template <typename T, int D>
 cudaError_t launch(Which which, const Args& a) {
-  const dim3 block(kThreads);
   if (which == Which::kFwd) {
     const size_t smem = fwd_smem<D>();
     cudaError_t err = allow_smem(fwd_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(a.B * a.H, (a.SQ + kTile - 1) / kTile);
-    fwd_kernel<T, D><<<grid, block, smem, a.stream>>>(
+    fwd_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse_out, a.H,
         a.SQ, a.SK, a.lq, a.lk, a.lv, a.scale, a.causal);
   } else if (which == Which::kDq) {
-    const size_t smem = dq_smem<D>();
+    const size_t smem = dq_smem<T, D>();
     cudaError_t err = allow_smem(dq_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.B * a.H, (a.SQ + kTile - 1) / kTile);
-    dq_kernel<T, D><<<grid, block, smem, a.stream>>>(
+    const dim3 grid(a.B * a.H, (a.SQ + kDqRows - 1) / kDqRows);
+    dq_kernel<T, D><<<grid, kBwdThreads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
         a.delta, (T*)a.dq, a.H, a.SQ, a.SK, a.lq, a.lk, a.lv, a.scale,
         a.causal);
   } else {
-    const size_t smem = dkv_smem<D>();
+    const size_t smem = dkv_smem<T, D>();
     cudaError_t err = allow_smem(dkv_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.B * a.H, (a.SK + kTile - 1) / kTile);
-    dkv_kernel<T, D><<<grid, block, smem, a.stream>>>(
+    const dim3 grid(a.B * a.H, (a.SK + kDkvKeys - 1) / kDkvKeys);
+    dkv_kernel<T, D><<<grid, kBwdThreads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
         a.delta, (T*)a.dk, (T*)a.dv, a.H, a.SQ, a.SK, a.lq, a.lk, a.lv,
         a.scale, a.causal);

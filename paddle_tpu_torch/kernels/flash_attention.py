@@ -4,7 +4,11 @@ Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py —
 `_fwd_kernel` (tiled attention with an online softmax, writing O and the
 per-row logsumexp), `_dq_kernel` and `_dkv_kernel` (the recomputing
 backward) — with csrc/flash_attention.cu.  The kernels are bound by
-operations (float32 FMA on shared-memory tiles); the source says how.
+operations: the forward runs float32 FMA on shared-memory tiles, the
+backward runs every product on the tensor cores (3xTF32 for float32
+inputs, bf16 with a hi + lo split of the float32 operand for bfloat16);
+the source says how.  `_round_tf32`, `_split_matmul` and `_bf16_split`
+model that product arithmetic on the CPU for the tests.
 
 `flash_attention(q, k, v, causal, scale)` on [batch, seq, heads,
 head_dim] tensors is a `torch.autograd.Function`: its forward launches
@@ -98,6 +102,37 @@ def flash_attention_dkv_reference(q, k, v, do, lse, delta, causal=False,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _round_tf32(x):
+    """float32 -> TF32 as `cvt.rna.tf32.f32` rounds it: to nearest, ties
+    away from zero, on the low 13 mantissa bits (kept in float32)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_matmul(a, b, terms=3):
+    """a @ b as the backward kernels' float32 products compute it on the
+    tensor cores: each operand split into TF32 big = rna(x) and small =
+    rna(x - big); terms=3 sums a_small b_big + a_big b_small + a_big b_big
+    (3xTF32), terms=1 is one TF32 product a_big b_big.  The products are
+    exact in float32, their sums float32."""
+    a_big, b_big = _round_tf32(a), _round_tf32(b)
+    out = a_big @ b_big
+    if terms == 1:
+        return out
+    if terms != 3:
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    a_small = _round_tf32(a.float() - a_big)
+    b_small = _round_tf32(b.float() - b_big)
+    return a_small @ b_big + a_big @ b_small + out
+
+
+def _bf16_split(x):
+    """float32 -> (hi, lo) bfloat16 with hi + lo ~ x: how the bf16
+    backward feeds P and dS (float32) to a bf16 product, as two."""
+    hi = x.float().bfloat16()
+    return hi, (x.float() - hi.float()).bfloat16()
 
 
 def attention_delta(o, do):

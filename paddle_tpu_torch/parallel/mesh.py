@@ -89,11 +89,15 @@ def make_mesh(axes: Dict[str, int], group=None) -> Mesh:
 
 def get_places(device_count: Optional[int] = None):
     """Places of this host's devices (reference get_places_op): every
-    visible CUDA device, or the CPU when there is none."""
-    from ..core.executor import CPUPlace, CUDAPlace
+    visible CUDA device.  With none it raises as `CUDAPlace.torch_device`
+    does: nothing carries on on the CPU unless the caller passes
+    `CPUPlace()` itself."""
+    from ..core.executor import CUDAPlace
 
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    places = [CUDAPlace(i) for i in range(n)] or [CPUPlace()]
+    if n == 0:
+        CUDAPlace(0).torch_device()   # raises: no CUDA device
+    places = [CUDAPlace(i) for i in range(n)]
     return places[:device_count] if device_count else places
 
 

@@ -405,3 +405,15 @@ def test_pe_without_cuda_raises(monkeypatch):
     t.transpile(program=main, startup_program=startup, mesh={"dp": 1})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t.build_executor(feeds, [loss])
+
+
+def test_get_places_without_cuda_raises(monkeypatch):
+    """get_places() lists CUDA devices only: with none it raises as
+    CUDAPlace.torch_device() does, and never returns the CPU."""
+    from paddle_tpu_torch.parallel.mesh import get_places
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_places()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_places(1)

@@ -20,7 +20,8 @@ Phases, one JSON line each:
            training shape [8, 512, 16, 128] (causal fp32, causal bf16,
            non-causal fp32), each against its plain version, with the
            kernel's, the plain version's and scaled_dot_product_attention's
-           (forward; backward, against dQ + dK/dV in every case) times
+           (forward against the forward kernel; backward against dQ +
+           dK/dV; in every case) times
            beside the bound (float32 over TF32/3, the rate of float32-
            accurate 3xTF32 products, with the scalar-fp32 bound beside
            it; bf16 over the bf16 tensor peak);
@@ -425,6 +426,7 @@ def flash_phase(dev, bw, peaks):
                     n_ops / peaks[torch.float32] * 1e3, t_bytes)
             check(res[kind]["bound_share"] <= 1.0,
                   f"flash {name} {kind}: {ms} ms beats its bound {bound} ms")
+        res["fwd_over_sdpa_fwd"] = res["fwd"]["ms"] / res["sdpa_fwd_ms"]
         res["bwd_ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
         res["bwd_over_sdpa_bwd"] = res["bwd_ms"] / res["sdpa_bwd_ms"]
         del leaves, lib_out
@@ -432,8 +434,9 @@ def flash_phase(dev, bw, peaks):
     emit({"phase": "flash", "shape_bshd": list(FLASH_SHAPE),
           "timing": "median of cold-L2 calls, CUDA events; the backward "
                     "kernels take the plain forward's lse and delta; "
-                    "bwd_ms = dq + dkv against sdpa_bwd_ms (one call "
-                    "computing dQ, dK and dV), in every case; bounds over "
+                    "fwd against sdpa_fwd_ms, and bwd_ms = dq + dkv "
+                    "against sdpa_bwd_ms (one call computing dQ, dK and "
+                    "dV), in every case; bounds over "
                     "peak_flops: bf16 on the tensor cores for bf16, TF32/3 "
                     "(3xTF32) for float32, with bound_ms_fp32_scalar over "
                     "the scalar float32 peak beside it",
@@ -1387,11 +1390,11 @@ def main():
             ("dkv", "flash_attention_bwd_dkv", 239, ("dk", "dv"))):
         # SDPA computes the forward alone, but dQ, dK and dV only
         # together: the backward rows carry it, against dq + dkv
-        bwd_keys = () if kind == "fwd" else ("sdpa_bwd_ms", "bwd_ms",
-                                             "bwd_over_sdpa_bwd")
+        sdpa_keys = (("sdpa_fwd_ms", "fwd_over_sdpa_fwd") if kind == "fwd"
+                     else ("sdpa_bwd_ms", "bwd_ms", "bwd_over_sdpa_bwd"))
         per_case = {n: dict(c[kind], max_abs_err=max(
             c["max_abs_err"][e] for e in err_keys),
-            peak_flops=c["peak_flops"], **{k: c[k] for k in bwd_keys})
+            peak_flops=c["peak_flops"], **{k: c[k] for k in sdpa_keys})
             for n, c in flash_cases.items()}
         lib = ({"library_ms": main_case["sdpa_fwd_ms"]} if kind == "fwd"
                else {"library_ms": None,

@@ -16,23 +16,16 @@
 // 0..i, also when seq_q != seq_k) with the finite mask value -1e30; a
 // row whose softmax sum is 0 divides by 1.  Key tiles wholly above the
 // diagonal are skipped (forward, dQ), and a key tile's backward starts
-// at the first query tile that can see it (dK/dV).  No atomics: dQ is
-// summed over key tiles by its own CTA and dK/dV over query tiles by
-// theirs, each in a fixed order, so the backward is bit-identical from
-// run to run.
+// at the first query tile that can see it (dK/dV).  No atomics: O and dQ
+// are summed over key tiles by their own CTA and dK/dV over query tiles
+// by theirs, each in a fixed order, so every kernel is bit-identical
+// from run to run.
 //
 // Bound: operations.  At the training shape [8, 512, 16, 128] causal in
 // float32, the forward does 8.6 GFLOP on 134 MB and the backward 30 GFLOP
 // on about 370 MB, far above the card's ridge.
 //
-// Forward (fwd_kernel): float32 FMA on tiles staged in shared memory,
-// inputs converted to float32 as they are staged.  One CTA of 256
-// threads per (batch*head, 64-row tile); each thread owns a 4x4 block of
-// a 64x64 score tile and 4 rows x D/16 columns of its accumulators; rows
-// padded to D+4 floats; the online softmax keeps the running max and sum
-// per row in registers.
-//
-// Backward (dq_kernel, dkv_kernel): every product on the tensor cores
+// One design for all three kernels: every product on the tensor cores
 // with mma.sync, accumulated in float32.
 //   - float32 inputs: m16n8k8 TF32 with the 3xTF32 split.  Each operand
 //     x becomes big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big),
@@ -40,40 +33,49 @@
 //     first): float32-level accuracy at three TF32 products per product.
 //   - bfloat16 inputs: m16n8k16.  S = Q K^T and dP = dO V^T take the
 //     inputs as they are (exact products).  P and dS are float32, so
-//     P^T dO, dS K and dS^T Q split them into a bf16 hi + lo pair: two
-//     products, lo first.
-// Ownership.  dQ: each of the CTA's 8 warps owns 16 of its 128 query
-// rows and computes S and dP for them in one pass over the head dim
-// (interleaved mma chains), then dQ += dS K.  dK/dV: the CTA owns 64 key
-// rows; warps w and w + 4 share 16 of them: warp w computes S^T, P^T and
-// dV += P^T dO, its partner dP^T, dS^T and dK += dS^T Q, with P^T passed
-// through shared memory behind a barrier of the pair, so each warp holds
-// one D-wide float32 accumulator (two did not fit 255 registers).  S, dP,
-// P and dS live in mma accumulator registers; lse, delta, the scale and
-// the causal mask are applied there, and P = exp(s * scale - lse) is
-// exp2f of the log2(e)-scaled argument.  The next product takes P or dS
-// as its A operand straight from those registers: with bf16 the
-// accumulator pairs are the A pairs; with TF32 the k order inside each
-// 8-wide step is permuted (mma k index t <-> column 2t, t+4 <-> column
-// 2t+1), which makes the accumulator layout the A layout, and the B rows
-// are read in the same order.
-// Staging: cp.async (16 bytes, .cg), double-buffered: dQ's CTA keeps its
-// Q and dO rows and streams 32-key tiles of K and V (separate buffers,
-// both score products behind one wait); dK/dV's CTA keeps its K and V
-// rows and streams 32-row tiles of Q, dO, lse and delta.  Every warp reads
-// the streamed tile as a B operand, so a float32 tile is split once when
-// it lands (TF32 big parts in place, small parts in a buffer beside it)
-// rather than by each of the 8 warps.  Rows of 32-bit words are XOR-
-// swizzled in 16-byte chunks (word c of row r at c ^ 4(r mod 8)), so the
-// score products' ldmatrix loads, the scalar loads of the transposed
-// TF32 B operand and the bf16 ldmatrix.trans loads are free of bank
-// conflicts for rows of 32 words or more.  One CTA of 8 warps per SM at
-// D = 128: in float32 the shared memory holds one (224 KB for dQ, 168.5
-// KB for dK/dV), in bf16 (96 KB; 72.5 KB) the registers do.  A warp (a
-// pair in dK/dV) whose 16 rows are all masked for a tile (causal) or past
-// the sequence skips that tile's products.  Causal load balance: heavy
-// CTAs first (the query tiles near the end for dQ, the key tiles near 0
-// for dK/dV).
+//     P V, P^T dO, dS K and dS^T Q split them into a bf16 hi + lo pair:
+//     two products, lo first.
+// Ownership.  Forward and dQ: each warp owns 16 query rows of its CTA
+// (dQ: 8 warps, 128 rows; forward: 8 warps in float32, 4 in bf16, where
+// two CTAs share an SM so one CTA's loads overlap the other's products).
+// The forward computes S for them, keeps the online softmax (running
+// max, running sum) in registers and adds P V to its D-wide accumulator;
+// dQ computes S and dP in one pass over the head dim (interleaved mma
+// chains), then dQ += dS K.  dK/dV: the CTA owns 64 key rows; warps w
+// and w + 4 share 16 of them: warp w computes S^T, P^T and dV += P^T dO,
+// its partner dP^T, dS^T and dK += dS^T Q, with P^T passed through
+// shared memory behind a barrier of the pair, so each warp holds one
+// D-wide float32 accumulator (two did not fit 255 registers).  S, dP,
+// P and dS live in mma accumulator registers: a row's values sit in one
+// quad of lanes, so the forward's row max and sum are a thread's own
+// values and two xor-shuffles; lse, delta, the scale and the causal mask
+// are applied there, and every exp is exp2f of a log2(e)-scaled argument.
+// The next product takes P or dS as its A operand straight from those
+// registers: with bf16 the accumulator pairs are the A pairs; with TF32
+// the k order inside each 8-wide step is permuted (mma k index t <->
+// column 2t, t+4 <-> column 2t+1), which makes the accumulator layout the
+// A layout, and the B rows are read in the same order.
+// Staging: cp.async (16 bytes, .cg), double-buffered (the forward: a
+// ring of three buffers, one barrier fewer a step).  The forward's and dQ's CTAs keep
+// their query rows (Q; Q and dO) and stream tiles of K and V (separate
+// buffers, behind one wait): 32 keys a step, 64 in the bf16 forward.
+// dK/dV's CTA keeps its K and V rows and streams 32-row tiles of Q, dO,
+// lse and delta.  Every warp reads the streamed tile as a B operand, so
+// a float32 tile is split once when it lands (TF32 big parts in place,
+// small parts in a buffer beside it) rather than by each of the 8 warps.
+// Rows of 32-bit words are XOR-swizzled in 16-byte chunks (word c of row
+// r at c ^ 4(r mod 8)), so the score products' ldmatrix loads, the
+// scalar loads of the transposed TF32 B operand and the bf16
+// ldmatrix.trans loads are free of bank conflicts for rows of 32 words or
+// more.  At D = 128 an SM holds one CTA of 8 warps: in float32 the
+// shared memory allows one (192 KB forward, 224 KB dQ, 168.5 KB dK/dV),
+// in bf16 (96 KB dQ, 72.5 KB dK/dV) the registers do; the bf16 forward's
+// CTAs of 4 warps (112 KB) fit two.  A warp (a pair in dK/dV) whose 16
+// rows are all masked for a tile (causal) or past the sequence skips
+// that tile's products; the forward masks only on the steps that cross
+// the diagonal or the sequence end.  Causal load balance: heavy CTAs
+// first (the query tiles near the end for the forward and dQ, the key
+// tiles near 0 for dK/dV).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,275 +85,13 @@
 
 namespace {
 
-constexpr int kTile = 64;        // query rows and key rows per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kSP = kTile + 4;   // padded row of a 64-wide score tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Layout {
   long long sb, ss, sh;  // element strides of the batch, seq, head dims
 };
-
-template <typename T>
-struct Chunk;  // elements per 16-byte global load
-template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-};
-
-__device__ __forceinline__ void load_chunk(const float* p, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]);
-  const float2 d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
-__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Rows [row0, row0 + 64) of head (b, h) of x -> dst [64][D + 4] float32;
-// rows at or past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, Layout l,
-                                          int b, int h, int row0, int n) {
-  constexpr int N = Chunk<T>::N;
-  constexpr int kPerRow = D / N;
-  const T* base = x + (long long)b * l.sb + (long long)h * l.sh;
-  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * N;
-    float* d = dst + r * (D + 4) + c;
-    const int row = row0 + r;
-    if (row < n) {
-      load_chunk(base + (long long)row * l.ss + c, d);
-    } else {
-#pragma unroll
-      for (int e = 0; e < N; ++e) d[e] = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i][j] = sum_k A[ty+16i][k] * B[tx+16j][k], k < K; both operands
-// [64][K + 4] in shared memory.
-template <int K>
-__device__ __forceinline__ void mm_abt(const float* A, const float* B,
-                                       int ty, int tx, float (&acc)[4][4]) {
-  constexpr int S = K + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; k += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * S + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * S + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// Column of a thread's j-th accumulator: 4 consecutive columns per
-// 16-byte load when D >= 64, else every 16th column.
-template <int D>
-__device__ __forceinline__ int col_of(int tx, int j) {
-  if constexpr (D >= 64) {
-    return 4 * (tx + 16 * (j >> 2)) + (j & 3);
-  } else {
-    return tx + 16 * j;
-  }
-}
-
-// acc[i][j] += sum_k P[ty+16i][k] * B[k][col_of(j)], k < 64; P is
-// [64][68], B [64][D + 4], both in shared memory.
-template <int D>
-__device__ __forceinline__ void mm_ab(const float* P, const float* B, int ty,
-                                      int tx, float (&acc)[4][D / 16]) {
-  constexpr int S = D + 4;
-  constexpr int NC = D / 16;
-#pragma unroll 2
-  for (int k = 0; k < kTile; k += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * kSP + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* brow = B + (k + kk) * S;
-      float bv[NC];
-      if constexpr (D >= 64) {
-#pragma unroll
-        for (int g = 0; g < D / 64; ++g) {
-          const float4 t =
-              *reinterpret_cast<const float4*>(brow + 4 * (tx + 16 * g));
-          bv[4 * g] = t.x;
-          bv[4 * g + 1] = t.y;
-          bv[4 * g + 2] = t.z;
-          bv[4 * g + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) bv[j] = brow[tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = comp(p[i], kk);
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(pv, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Rows [row0, row0 + 64) of acc (this thread's part) -> a contiguous
-// [B, n, H, D] tensor, rows past n dropped, times `mul` per row.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][D / 16],
-                                           const float (&mul)[4], int b, int h,
-                                           int H, int n, int row0, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n) continue;
-    T* dst = out + (((long long)b * n + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      store_val(dst + col_of<D>(tx, j), acc[i][j] * mul[i]);
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return (2 * kTile * (D + 4) + kTile * kSP) * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, int H, int SQ, int SK, Layout lq,
-               Layout lk, Layout lv, float scale, int causal) {
-  constexpr int S = D + 4;
-  constexpr int NC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sKV = sQ + kTile * S;
-  float* sP = sKV + kTile * S;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int qt = blockIdx.y, q0 = qt * kTile;
-
-  load_tile<T, D>(sQ, q, lq, b, h, q0, SQ);
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
-  int nk = (SK + kTile - 1) / kTile;
-  if (causal && nk > qt + 1) nk = qt + 1;  // tiles past the diagonal
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's P.V is done with sKV and sP
-    load_tile<T, D>(sKV, k, lk, b, h, k0, SK);
-    __syncthreads();
-    float s[4][4];
-    mm_abt<D>(sQ, sKV, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (col >= SK || (causal && col > row)) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sP[(ty + 16 * i) * kSP + tx + 16 * j] = p;
-      }
-      l[i] = alpha * l[i] + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // K reads done, P written
-    load_tile<T, D>(sKV, v, lv, b, h, k0, SK);
-    __syncthreads();
-    mm_ab<D>(sP, sKV, ty, tx, acc);
-  }
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    inv[i] = 1.f / l_safe;
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < SQ)
-      lse[((long long)b * H + h) * SQ + row] = m[i] + logf(l_safe);
-  }
-  store_rows<T, D>(o, acc, inv, b, h, H, SQ, q0, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// backward: tensor-core kernels
 
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
@@ -409,13 +149,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // Rows [row0, row0 + R) of one head (`head`: its row 0; rows `ss`
 // elements apart) -> R swizzled rows of `tile` by cp.async; rows at or
 // past n are zero.
-template <typename T, int D, int R>
+template <typename T, int D, int R, int NT = kBwdThreads>
 __device__ __forceinline__ void stage(uint32_t* tile, const T* head,
                                       long long ss, int row0, int n) {
   constexpr int W = words<T, D>();
   constexpr int C = W / 4;                  // 16-byte chunks a row
   constexpr int E = 16 / (int)sizeof(T);    // elements a chunk
-  for (int i = threadIdx.x; i < R * C; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < R * C; i += NT) {
     const int r = i / C, c = i % C;
     const int row = row0 + r;
     const bool ok = row < n;
@@ -501,9 +241,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 // parts; the small parts go to `small` (the same layout).  Every warp
 // reads these tiles as B operands: splitting once here spares each warp
 // the conversions.
-template <int W, int R>
+template <int W, int R, int NT = kBwdThreads>
 __device__ __forceinline__ void split_tile(uint32_t* tile, uint32_t* small) {
-  for (int i = threadIdx.x; i < R * W / 4; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < R * W / 4; i += NT) {
     const uint4 x = reinterpret_cast<const uint4*>(tile)[i];
     uint4 b, s;
     split_tf32(__uint_as_float(x.x), b.x, s.x);
@@ -661,11 +401,30 @@ __device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 8][4],
   }
 }
 
+// warps of a forward CTA, 16 query rows each.  In float32 the shared
+// memory holds one CTA of 8 an SM; in bf16 the registers allow 8 warps an
+// SM, as two CTAs of 4, so one CTA's loads overlap the other's products.
+template <typename T>
+__host__ __device__ constexpr int fwd_warps() {
+  return std::is_same<T, float>::value ? 8 : 4;
+}
+// keys a forward step (a multiple of 16): the bf16 step's tiles are half
+// as wide, so twice the keys fit the same shared memory
+template <typename T>
+__host__ __device__ constexpr int fwd_keys() {
+  return std::is_same<T, float>::value ? 32 : 64;
+}
 // float32 B tiles are split once per step (split_tile): room for the
-// small parts of the current K and V (dQ) or Q and dO (dK/dV) tiles
+// small parts of the current K and V (forward, dQ) or Q and dO (dK/dV)
+// tiles
 template <typename T>
 __host__ __device__ constexpr int split_tiles() {
   return std::is_same<T, float>::value ? 2 : 0;
+}
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return (size_t)(16 * fwd_warps<T>() + (6 + split_tiles<T>()) *
+                  fwd_keys<T>()) * words<T, D>() * 4;
 }
 template <typename T, int D>
 constexpr size_t dq_smem() {
@@ -678,6 +437,154 @@ constexpr size_t dkv_smem() {
              words<T, D>() * 4 +
          // lse and delta [2][kDkvRows]; P^T [pair][kDkvRows / 8][4][32]
          (4 * kDkvRows + kBwdWarps / 2 * kDkvRows / 2 * 32) * sizeof(float);
+}
+
+// Each warp owns 16 query rows: S = Q K^T for a step of keys, the online
+// softmax in the accumulator registers (running max m in the log2
+// domain; each thread sums its own columns of a row, and the quad's sums
+// are added once at the end), then O += P V.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * fwd_warps<T>(), 8 / fwd_warps<T>())
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int H, int SQ, int SK, Layout lq,
+               Layout lk, Layout lv, float scale, int causal) {
+  constexpr int W = words<T, D>();
+  constexpr int NT = 32 * fwd_warps<T>();   // threads
+  constexpr int R = 16 * fwd_warps<T>();    // query rows
+  constexpr int KN = fwd_keys<T>();
+  constexpr int N = KN / 8;                 // n-tiles of a key step
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  uint32_t* sQ = smem_w;                    // [R][W]
+  uint32_t* sK = sQ + R * W;                // [3][KN][W]
+  uint32_t* sV = sK + 3 * KN * W;           // [3][KN][W]
+  uint32_t* sKs = sV + 3 * KN * W;          // [KN][W] small parts,
+  uint32_t* sVs = sKs + KN * W;             // float32 only
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int nq = (SQ + R - 1) / R;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * R;  // heavy tiles first
+  const T* kh = head_of(k, lk, b, h);
+  const T* vh = head_of(v, lv, b, h);
+
+  int nk = (SK + KN - 1) / KN;
+  if (causal) {  // keys past the tile's last row are masked everywhere
+    const int last = min(q0 + R, SQ) - 1;
+    nk = min(nk, last / KN + 1);
+  }
+  stage<T, D, R, NT>(sQ, head_of(q, lq, b, h), lq.ss, q0, SQ);
+  stage<T, D, KN, NT>(sK, kh, lk.ss, 0, SK);
+  stage<T, D, KN, NT>(sV, vh, lv.ss, 0, SK);
+  cp_async_commit();
+  // K/V tiles in a ring of three buffers: tile j + 2 loads while tile j
+  // computes, so the barrier after a tile lands also guards the reuse of
+  // the buffer step j - 1 read (no barrier at the end of a step)
+  if (nk > 1) {
+    stage<T, D, KN, NT>(sK + KN * W, kh, lk.ss, KN, SK);
+    stage<T, D, KN, NT>(sV + KN * W, vh, lv.ss, KN, SK);
+  }
+  cp_async_commit();
+
+  const int r0 = 16 * warp;  // this warp's rows of the tile
+  const int row = q0 + r0 + g;
+  const float scale_log2 = scale * kLog2e;
+  // rows row and row + 8: the running max of the log2-scaled scores, and
+  // this thread's part of the running sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * KN;
+    const int buf = j % 3;
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
+    __syncthreads();     // and every warp is done with step j - 1, whose
+    if (j + 2 < nk) {    // buffer now takes tile j + 2
+      const int nb = (j + 2) % 3;
+      stage<T, D, KN, NT>(sK + nb * KN * W, kh, lk.ss, k0 + 2 * KN, SK);
+      stage<T, D, KN, NT>(sV + nb * KN * W, vh, lv.ss, k0 + 2 * KN, SK);
+    }
+    cp_async_commit();
+    uint32_t* cK = sK + buf * KN * W;
+    uint32_t* cV = sV + buf * KN * W;
+    if constexpr (split_tiles<T>() > 0) {
+      split_tile<W, KN, NT>(cK, sKs);
+      split_tile<W, KN, NT>(cV, sVs);
+      __syncthreads();
+    }
+    // warp-uniform: rows past the sequence, or every key of the step
+    // above this warp's diagonal
+    if (q0 + r0 < SQ && !(causal && k0 > q0 + r0 + 15)) {
+      float s[1][N][4];  // S, then P
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[0][n][c] = 0.f;
+      const uint32_t* const sA[1] = {sQ};
+      const uint32_t* const sB[1] = {cK};
+      const uint32_t* const sBs[1] = {sKs};
+      mma_scores<T, D, N, 1>(s, sA, r0, sB, sBs, g, t);
+      // warp-uniform: the step crosses the sequence end or the diagonal
+      const bool edge = k0 + KN > SK || (causal && k0 + KN - 1 > q0 + r0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[0][n][c] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * n + 2 * t + (c & 1);
+            if (col >= SK || (causal && col > row + 8 * (c >> 1)))
+              x = kNegInf;
+          }
+          s[0][n][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // a row's values: the quad's lanes
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        alpha[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = exp2f(s[0][n][c] - m[c >> 1]);
+          l[c >> 1] += p;
+          s[0][n][c] = p;
+        }
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[nd][c] *= alpha[c >> 1];
+      mma_acc<T, D, N>(acc, s[0], cV, sVs, g, t);  // O += P V
+    }
+  }
+  cp_async_wait<0>();  // nothing in flight at exit
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    inv[i] = 1.f / l_safe;
+    const int r = row + 8 * i;
+    if (t == 0 && r < SQ)  // natural log: m * ln(2) + ln(l)
+      lse[((long long)b * H + h) * SQ + r] = m[i] * kLn2 + logf(l_safe);
+  }
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] *= inv[c >> 1];
+  store_acc<T, D>(o, acc, b, h, H, SQ, row, t);
 }
 
 template <typename T, int D>
@@ -945,11 +852,17 @@ enum class Which { kFwd, kDq, kDkv };
 template <typename T, int D>
 cudaError_t launch(Which which, const Args& a) {
   if (which == Which::kFwd) {
-    const size_t smem = fwd_smem<D>();
+    const size_t smem = fwd_smem<T, D>();
     cudaError_t err = allow_smem(fwd_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.B * a.H, (a.SQ + kTile - 1) / kTile);
-    fwd_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+    // all of L1 as shared memory, so two bf16 CTAs fit an SM
+    err = cudaFuncSetAttribute(fwd_kernel<T, D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    constexpr int warps = fwd_warps<T>(), rows = 16 * warps;
+    const dim3 grid(a.B * a.H, (a.SQ + rows - 1) / rows);
+    fwd_kernel<T, D><<<grid, 32 * warps, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse_out, a.H,
         a.SQ, a.SK, a.lq, a.lk, a.lv, a.scale, a.causal);
   } else if (which == Which::kDq) {

@@ -4,11 +4,11 @@ Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py —
 `_fwd_kernel` (tiled attention with an online softmax, writing O and the
 per-row logsumexp), `_dq_kernel` and `_dkv_kernel` (the recomputing
 backward) — with csrc/flash_attention.cu.  The kernels are bound by
-operations: the forward runs float32 FMA on shared-memory tiles, the
-backward runs every product on the tensor cores (3xTF32 for float32
-inputs, bf16 with a hi + lo split of the float32 operand for bfloat16);
-the source says how.  `_round_tf32`, `_split_matmul` and `_bf16_split`
-model that product arithmetic on the CPU for the tests.
+operations, and all three run every product on the tensor cores (3xTF32
+for float32 inputs, bf16 with a hi + lo split of the float32 operand, P
+or dS, for bfloat16); the source says how.  `_round_tf32`,
+`_split_matmul` and `_bf16_split` model that product arithmetic on the
+CPU for the tests.
 
 `flash_attention(q, k, v, causal, scale)` on [batch, seq, heads,
 head_dim] tensors is a `torch.autograd.Function`: its forward launches
@@ -112,7 +112,7 @@ def _round_tf32(x):
 
 
 def _split_matmul(a, b, terms=3):
-    """a @ b as the backward kernels' float32 products compute it on the
+    """a @ b as the kernels' float32 products compute it on the
     tensor cores: each operand split into TF32 big = rna(x) and small =
     rna(x - big); terms=3 sums a_small b_big + a_big b_small + a_big b_big
     (3xTF32), terms=1 is one TF32 product a_big b_big.  The products are
@@ -130,7 +130,7 @@ def _split_matmul(a, b, terms=3):
 
 def _bf16_split(x):
     """float32 -> (hi, lo) bfloat16 with hi + lo ~ x: how the bf16
-    backward feeds P and dS (float32) to a bf16 product, as two."""
+    kernels feed P and dS (float32) to a bf16 product, as two."""
     hi = x.float().bfloat16()
     return hi, (x.float() - hi.float()).bfloat16()
 

@@ -165,28 +165,37 @@ def test_flash_autograd_matches_plain_autograd(dev, causal):
         _close(g, w, 2e-4, "d" + name)
 
 
+@pytest.mark.parametrize("kernels", ["forward", "backward"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_is_bit_identical_across_calls(dev, dtype):
-    """At the training shape: no atomics, each sum in a fixed order."""
+def test_flash_backward_is_bit_identical_across_calls(dev, dtype, kernels):
+    """At the training shape: no atomics, each sum in a fixed order
+    (the forward's O and lse; the backward's dQ, dK and dV)."""
     q, k, v, do = _flash_inputs(8, 512, 512, 16, 128, dtype, dev, 2)
     o, lse = flash_attention_fwd(q, k, v, True)
     delta = attention_delta(o, do)
-    first = (flash_attention_dq(q, k, v, do, lse, delta, True),
-             *flash_attention_dkv(q, k, v, do, lse, delta, True))
-    again = (flash_attention_dq(q, k, v, do, lse, delta, True),
-             *flash_attention_dkv(q, k, v, do, lse, delta, True))
+
+    def run():
+        if kernels == "forward":
+            return flash_attention_fwd(q, k, v, True)
+        return (flash_attention_dq(q, k, v, do, lse, delta, True),
+                *flash_attention_dkv(q, k, v, do, lse, delta, True))
+
+    first, again = run(), run()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 
 
-def test_flash_reads_strided_inputs(dev):
+@pytest.mark.parametrize("dtype,d_head", [(torch.float32, 64),
+                                          (torch.bfloat16, 128)])
+def test_flash_reads_strided_inputs(dev, dtype, d_head):
     """q/k/v as views of one fused [b, s, 3, h, d] tensor: read through
     their strides, no copy needed."""
     gen = torch.Generator().manual_seed(3)
-    qkv = torch.randn((2, 64, 3, 4, 64), generator=gen).to(dev)
+    qkv = torch.randn((2, 64, 3, 4, d_head), generator=gen).to(dev, dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     o, _ = flash_attention_fwd(q, k, v, True)
-    _close(o, flash_attention_reference(q, k, v, True), 2e-5, "o")
+    _close(o, flash_attention_reference(q, k, v, True),
+           2e-5 if dtype == torch.float32 else 2e-2, "o")
 
 
 def test_flash_raises_on_what_the_kernels_do_not_take(dev):

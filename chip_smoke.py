@@ -13,9 +13,13 @@ Phases, one JSON line each:
   kernels  paged-attention decode at the serving geometry (8 slots,
            context 512 = 32 blocks of 16, d_model 512, 8 heads) for
            fp32/bf16/int8 pools and windows W in {1, 4}: the kernel
-           against its plain version, with the kernel's, the plain
-           version's and a library composition's (gather +
-           scaled_dot_product_attention) times beside the bound;
+           against its plain version and against itself (bit-equal over
+           two calls), with the kernel's time between CUDA events and
+           its device time in torch.profiler, the host time of a call
+           (direct, and through the decoder's wrapper), its split-KV
+           grid (split length, CTAs), and the plain version's and a
+           library composition's (gather + scaled_dot_product_attention)
+           times beside the bound;
   flash    the flash-attention forward, dQ and dK/dV kernels at the
            training shape [8, 512, 16, 128] (causal fp32, causal bf16,
            non-causal fp32), each against its plain version, with the
@@ -45,9 +49,12 @@ Phases, one JSON line each:
            through ShardingTranspiler(mesh={"dp": 1}, overlap=
            "bucketed") and ParallelExecutor over a single-rank NCCL
            group: bucketed gradient all-reduces and the fused bucket
-           update kernel, then the per-op sgd chain from the same state;
+           update kernel in place over each bucket's flat parameter
+           buffer, then the per-op sgd chain from the same state;
   fused_update  the fused bucket SGD kernel against its plain version
-           (bit for bit) on the dp path's largest bucket and odd sizes;
+           (bit for bit), in place and into a new buffer, on the dp
+           path's largest bucket and odd sizes, beside torch.add and
+           p.add_;
   moe_kernel  the MoE gate + dispatch kernel against its plain version
            at the MoE LM's shape (T 4096, D 1024, E 8): top-2, top-1 and
            an overflowing capacity; routing, expert_in, combine, aux and
@@ -71,6 +78,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -148,9 +156,9 @@ def _ptxas_summary(log):
         if m:
             name = m.group(1)
             short = re.search(
-                r"([a-z]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+                r"([a-z_]+_kernel)I(f|13__nv_bfloat16|a)Li(\d+)E", name)
             if short:
-                dt = "f32" if short.group(2) == "f" else "bf16"
+                dt = {"f": "f32", "a": "i8"}.get(short.group(2), "bf16")
                 name = f"{short.group(1)}<{dt},{short.group(3)}>"
             else:
                 name = name[:80]
@@ -179,6 +187,62 @@ def cold_ms(fn, n, flush):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def device_ms(fn, n, flush, match):
+    """-> (median device time in ms of the kernels whose name contains
+    `match`, how many there were, their launch grids) over `n` cold-L2
+    calls of `fn` under torch.profiler: the kernel's own duration on the
+    card, with no launch gap and no host time in it, and the grid as
+    the profiler recorded the launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and match in e.get("name", "")]
+    # the profiler may miss a few of the first kernels of a window
+    check(len(kernels) >= n // 2, f"device_ms: the profile shows "
+          f"{len(kernels)} {match!r} kernels for {n} calls")
+    grids = sorted({tuple(e["args"]["grid"]) for e in kernels
+                    if "grid" in e.get("args", {})})
+    check(grids, f"device_ms: the profile records no grid for {match!r}")
+    return (float(np.median([e["dur"] for e in kernels])) / 1e3,
+            len(kernels), [list(g) for g in grids])
+
+
+def _reset_peak():
+    """Start a phase's peak-memory reading: tensors that an earlier phase
+    left in reference cycles are collected first, so the peak counts
+    what this phase holds, not what the collector had not reached yet."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def host_us(fn, n):
+    """Host time of one call of `fn` in microseconds: `n` calls back to
+    back with no synchronisation between them (the card finishes each
+    faster than the host issues the next, so the clock reads the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 # -- kernels phase -----------------------------------------------------------
@@ -279,21 +343,38 @@ def kernels_phase(dev, bw, flops):
                   f"max_abs_err {err} > {tol}")
             bound, bound_by, nbytes = _bound(kv_dtype, q, positions, w_n,
                                              bw, flops)
-            ms = cold_ms(lambda: paged_attention(*args, n_heads=N_HEADS),
-                         200, flush)
+            again = paged_attention(*args, n_heads=N_HEADS)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"paged_attention {kv_dtype} "
+                  f"W={w_n}: two calls differ")
+            run = lambda: paged_attention(*args, n_heads=N_HEADS)  # noqa
+            ms = cold_ms(run, 200, flush)
+            dev_ms, n_kernels, grids = device_ms(run, 200, flush, "paged_")
+            check(len(grids) == 1, f"paged_attention {kv_dtype} W={w_n}: "
+                  f"launch grids {grids}")
             plain_ms = cold_ms(
                 lambda: paged_attention_reference(*args, n_heads=N_HEADS),
                 50, flush)
             library_ms = cold_ms(lambda: _library_attention(*args), 50, flush)
             cases[f"{kv_dtype}_w{w_n}"] = {
                 "max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "ms": ms, "device_ms": dev_ms,
+                "device_kernels_profiled": n_kernels,
+                # the grid is (splits, heads, slots)
+                "grid": grids[0], "splits": grids[0][0],
+                "ctas": int(np.prod(grids[0])),
+                "host_us": host_us(run, 200),
+                "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-                "bytes_per_s": nbytes / (ms * 1e-3)}
+                "bytes_per_s": nbytes / (dev_ms * 1e-3)}
     emit({"phase": "kernels", "kernel": "paged_attention_decode",
           "slots": SLOTS, "context": BLOCK * MAX_BLOCKS, "d_model": D_MODEL,
           "n_heads": N_HEADS, "layer": layer,
-          "timing": "median of cold-L2 calls, CUDA events",
+          "timing": "ms: median of cold-L2 calls between CUDA events; "
+                    "device_ms: median duration of the kernel itself in "
+                    "torch.profiler over the same cold-L2 calls, and grid "
+                    "its launch grid there; host_us: host time per call "
+                    "of paged_attention; bytes_per_s over device_ms",
           "cases": cases})
     return cases
 
@@ -674,7 +755,7 @@ def train_phase(card, place, flops, flash_cases):
         launches = flash_attention.launches
         for key in launches:
             launches[key] = 0
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         run = lambda step: exe.run(  # noqa: E731
             main, feed=_train_feed(step), fetch_list=[loss])[0]
         counts = {k: (lambda k=k: launches[k]) for k in launches}
@@ -939,7 +1020,7 @@ def dp_phase(card, place, flops):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core.flags import get_flag
-    from paddle_tpu_torch.kernels.fused_update import fused_bucket_sgd
+    from paddle_tpu_torch.kernels.fused_update import fused_bucket_sgd_
 
     main, startup, loss = _lm_program(fluid.SGD(learning_rate=0.01))
     params = main.global_block().all_parameters()
@@ -959,7 +1040,7 @@ def dp_phase(card, place, flops):
         info = dict(pe.overlap_info)
         check(info["mode"] == "bucketed" and info["update"] == "fused",
               f"dp: overlap_info {info}")
-        init = {n: pe.state(n, return_numpy=False).clone() for n in persist}
+        init = {n: pe.state(n, return_numpy=False) for n in persist}
         buckets = info["buckets"]
         # a bucket holds at most overlap_bucket_bytes unless one
         # gradient is larger: then it is that gradient alone, so the
@@ -969,22 +1050,25 @@ def dp_phase(card, place, flops):
               "dp: the largest parameter fits a bucket with others")
 
         # the main path: counts zeroed just before, read just after
-        fused_bucket_sgd.launches = 0
-        torch.cuda.reset_peak_memory_stats()
+        fused_bucket_sgd_.launches = 0
+        _reset_peak()
         run = lambda step: pe.run(_train_feed(step))[0]  # noqa: E731
-        counts = {"fused": lambda: fused_bucket_sgd.launches,
+        counts = {"fused": lambda: fused_bucket_sgd_.launches,
                   "grad_all_reduce":
                   lambda: pe.collective_calls["grad_all_reduce"]}
         k_loss, k_secs, k_steps = _timed_steps(run, counts)
         peak = torch.cuda.max_memory_allocated()
-        k_params = {n: pe.state(n, return_numpy=False).clone()
-                    for n in weights}
-        before = fused_bucket_sgd.launches
+        k_params = {n: pe.state(n, return_numpy=False) for n in weights}
+        before = fused_bucket_sgd_.launches
         profile = _profile_step(lambda: pe.run(_train_feed(T_STEPS)),
                                 ("fused_update", "flash_attention"), "dp")
-        k_total = fused_bucket_sgd.launches
+        k_total = fused_bucket_sgd_.launches
         check(k_total - before == buckets,
               f"dp: {k_total - before} fused launches in the profiled step")
+        # in place: every weight is still a view of its bucket's buffer
+        in_place = all(pe._in_bucket(pe._states[n]) for n in weights)
+        check(in_place, "dp: a weight is no view of its bucket's flat "
+              "buffer after the fused steps")
         want = {"fused": buckets, "grad_all_reduce": buckets}
         check(all(st == want for st in k_steps),
               f"dp: per-step launches {k_steps}, want {want}")
@@ -1023,6 +1107,8 @@ def dp_phase(card, place, flops):
           "n_heads": T_HEADS, "n_layers": T_LAYERS, "seq": T_SEQ,
           "batch": T_BATCH, "dtype": "float32", "optimizer": "sgd",
           "overlap_info": info, "largest_bucket_numel": largest,
+          "fused_in_place": in_place,
+          "copies_ms": profile["by_group_ms"].get("copy", 0.0),
           "startup_s": startup_s, "steps": T_STEPS,
           "fused_run": {"losses": k_loss, "step_s": k_secs,
                         "launches_per_step": k_steps[0],
@@ -1051,12 +1137,13 @@ def dp_phase(card, place, flops):
 
 def fused_update_phase(dev, bw, flops, largest):
     """The fused bucket SGD kernel against its plain version on the dp
-    path's largest bucket and odd sizes: bit for bit, lr a device
-    scalar.  Times: the kernel, the plain version (two PyTorch kernels)
-    and torch.add(p, g, alpha=-lr) with a host lr (one kernel; a
-    yardstick only, it rounds once)."""
+    path's largest bucket and odd sizes: in place, as the dp path calls
+    it, bit for bit, lr a device scalar.  Times: the kernel, the plain
+    version (two PyTorch kernels into a new tensor), and
+    torch.add(p, g, alpha=-lr) and p.add_(g, alpha=-lr) with a host lr
+    (one kernel each; yardsticks only, they round once)."""
     from paddle_tpu_torch.kernels.fused_update import (
-        fused_bucket_sgd, fused_bucket_sgd_reference)
+        fused_bucket_sgd_, fused_bucket_sgd_reference)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1067,30 +1154,39 @@ def fused_update_phase(dev, bw, flops, largest):
                     ("n1023", 1023), ("n1048583", (1 << 20) + 7)):
         p = torch.randn(n, generator=gen, device=dev)
         g = torch.randn(n, generator=gen, device=dev)
-        out = fused_bucket_sgd(p, g, lr)
         ref = fused_bucket_sgd_reference(p, g, lr)
         lib = torch.add(p, g, alpha=-lr_host)
+        q = p.clone()
+        got = fused_bucket_sgd_(q, g, lr)
         torch.cuda.synchronize()
-        check(torch.equal(out, ref),
-              f"fused_update {name}: not bit-identical to the plain version")
+        check(got is q and torch.equal(q, ref),
+              f"fused_update {name}: the in-place update is not "
+              "bit-identical to the plain version")
         nbytes, n_ops = 12 * n, 2 * n
         t_bytes, t_ops = nbytes / bw * 1e3, n_ops / flops * 1e3
-        ms = cold_ms(lambda: fused_bucket_sgd(p, g, lr), 50, flush)
-        cases[name] = {
-            "numel": n, "max_abs_err": float((out - ref).abs().max()),
+        res = {
+            "numel": n,
+            "max_abs_err": float((q - ref).abs().max()),
             "library_max_abs_err": float((lib - ref).abs().max()),
-            "ms": ms,
             "plain_ms": cold_ms(
                 lambda: fused_bucket_sgd_reference(p, g, lr), 50, flush),
             "library_ms": cold_ms(
                 lambda: torch.add(p, g, alpha=-lr_host), 50, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "bytes_per_s": nbytes / (ms * 1e-3)}
-        del p, g, out, ref, lib
+            "bytes": nbytes}
+        del q, got, ref, lib
+        # the in-place calls last: they move p
+        res["ms"] = cold_ms(lambda: fused_bucket_sgd_(p, g, lr), 50, flush)
+        res["library_in_place_ms"] = cold_ms(
+            lambda: p.add_(g, alpha=-lr_host), 50, flush)
+        res["bytes_per_s"] = nbytes / (res["ms"] * 1e-3)
+        cases[name] = res
+        del p, g
     emit({"phase": "fused_update", "kernel": "fused_bucket_sgd",
           "timing": "median of cold-L2 calls, CUDA events; library = "
-                    "torch.add(p, g, alpha=-lr) with a host lr",
+                    "torch.add(p, g, alpha=-lr), library_in_place = "
+                    "p.add_(g, alpha=-lr), with a host lr",
           "cases": cases})
     return cases
 
@@ -1221,7 +1317,7 @@ def moe_phase(card, place, flops, moe_cases):
 
         # the main path: counts zeroed just before, read just after
         moe_gate_dispatch.launches = 0
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         run = lambda step: exe.run(  # noqa: E731
             main, feed=_train_feed(step), fetch_list=[loss])[0]
         counts = {"moe": lambda: moe_gate_dispatch.launches}
@@ -1379,7 +1475,8 @@ def main():
              "launches": launches,
              "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
              **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+                                          "bound_by", "library_ms",
+                                          "device_ms", "splits", "ctas")},
              "case": "fp32_w1", "cases": cases}
     entries = [entry]
     src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"

@@ -1,18 +1,32 @@
-// Fused per-bucket SGD update: out = p - lr * g over one gradient
-// bucket's concatenated flat float32 parameters, in one launch.
+// Fused per-bucket SGD update: p -= lr * g over one gradient bucket's
+// flat float32 parameters, in place, in one launch.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/fused_update.py
 // `_sgd_kernel` (pallas_call in `build_fused_bucket_update.update`),
 // which tiled the flat bucket to (8, 128) VPU blocks after zero
-// padding.  Here there is no padding: a grid-stride loop over 16-byte
-// (float4) loads and stores covers the aligned body and a scalar tail
-// takes the last numel % 4 elements (or every element when a pointer
-// is not 16-byte aligned).
+// padding and wrote a new buffer.  Here the executor keeps each
+// bucket's parameters as views of one flat buffer, so the kernel
+// updates that buffer where it lies: no padding, no concatenation, no
+// output allocation.  `p` is the one read-write pointer; each element
+// is read and then written by the same thread.
 //
-// Bound by bytes: 12 bytes moved per element (p and g read, out
-// written) for 2 floating-point operations; the loop keeps several
-// 16-byte loads in flight per thread so the card's memory runs at its
-// rate on large buckets.  Small buckets are bound by the launch.
+// Bound by bytes: 12 bytes moved per element (p and g read, p written)
+// for 2 floating-point operations.  Design, for the card's memory rate
+// on buckets of up to hundreds of MB: one 16-byte load of p and of g
+// per thread, and a grid that covers the whole bucket, so every SM
+// keeps as many loads in flight as it holds threads and the blocks
+// drain evenly.  A grid-stride loop keeps any size correct; a scalar
+// tail takes the last numel % 4 elements, and every element when a
+// pointer is not 16-byte aligned.  Small buckets are bound by the
+// launch.
+//
+// Three compile-time switches rebuild the alternatives this design was
+// measured against (tools/torch_tree_probe.py sgd-sweep; PERF.md):
+//   SGD_UNROLL         float4 pairs in flight per thread and iteration
+//   SGD_BLOCKS_PER_SM  0: a grid covering the bucket; k > 0: k blocks
+//                      per SM, the rest by the grid-stride loop
+//   SGD_STREAMING      1: streaming cache hints (__ldcs / __stcs)
+// The defaults are the design above.
 //
 // Bit identity: the per-parameter `sgd` op computes p - lr * g with two
 // roundings (a product, then a difference).  nvcc would contract that
@@ -26,62 +40,103 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef SGD_UNROLL
+#define SGD_UNROLL 1
+#endif
+#ifndef SGD_BLOCKS_PER_SM
+#define SGD_BLOCKS_PER_SM 0
+#endif
+#ifndef SGD_STREAMING
+#define SGD_STREAMING 0
+#endif
+
 namespace {
+
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float sgd1(float p, float g, float lr) {
   return __fsub_rn(p, __fmul_rn(lr, g));
 }
 
-__global__ void fused_sgd_kernel(const float* __restrict__ p,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ lr_ptr,
-                                 float* __restrict__ out, long long n,
-                                 int vectorized) {
+__device__ __forceinline__ float4 load4(const float4* a) {
+#if SGD_STREAMING
+  return __ldcs(a);
+#else
+  return *a;
+#endif
+}
+
+__device__ __forceinline__ void store4(float4* a, float4 v) {
+#if SGD_STREAMING
+  __stcs(a, v);
+#else
+  *a = v;
+#endif
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_sgd_kernel(float* p, const float* __restrict__ g,
+                 const float* __restrict__ lr_ptr, long long n,
+                 int vectorized) {
   const float lr = __ldg(lr_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   long long body = 0;
   if (vectorized) {
     const long long n4 = n >> 2;
-    const float4* p4 = reinterpret_cast<const float4*>(p);
+    float4* p4 = reinterpret_cast<float4*>(p);
     const float4* g4 = reinterpret_cast<const float4*>(g);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (long long i = tid; i < n4; i += stride) {
-      const float4 a = __ldg(p4 + i);
-      const float4 b = __ldg(g4 + i);
-      float4 r;
-      r.x = sgd1(a.x, b.x, lr);
-      r.y = sgd1(a.y, b.y, lr);
-      r.z = sgd1(a.z, b.z, lr);
-      r.w = sgd1(a.w, b.w, lr);
-      o4[i] = r;
+    for (long long i0 = tid; i0 < n4; i0 += stride * SGD_UNROLL) {
+      float4 a[SGD_UNROLL], b[SGD_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SGD_UNROLL; ++u) {
+        const long long i = i0 + u * stride;
+        if (i < n4) {
+          a[u] = load4(p4 + i);
+          b[u] = load4(g4 + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SGD_UNROLL; ++u) {
+        const long long i = i0 + u * stride;
+        if (i < n4) {
+          float4 r;
+          r.x = sgd1(a[u].x, b[u].x, lr);
+          r.y = sgd1(a[u].y, b[u].y, lr);
+          r.z = sgd1(a[u].z, b[u].z, lr);
+          r.w = sgd1(a[u].w, b[u].w, lr);
+          store4(p4 + i, r);
+        }
+      }
     }
     body = n4 << 2;
   }
   for (long long i = body + tid; i < n; i += stride) {
-    out[i] = sgd1(__ldg(p + i), __ldg(g + i), lr);
+    p[i] = sgd1(p[i], g[i], lr);
   }
 }
 
 }  // namespace
 
-extern "C" int fused_sgd_update(const void* p, const void* g,
-                                const void* lr, void* out, long long n,
-                                void* stream) {
+// p -= lr * g in place.  Returns the CUDA error of the launch.
+extern "C" int fused_sgd_update_(void* p, const void* g, const void* lr,
+                                 long long n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const int vectorized =
-      ((uintptr_t)p % 16 == 0 && (uintptr_t)g % 16 == 0 &&
-       (uintptr_t)out % 16 == 0) ? 1 : 0;
-  const int threads = 256;
-  // enough blocks for one float4 per thread, capped: the grid-stride
-  // loop covers the rest with several loads in flight per thread
-  long long work = vectorized ? (n + 3) / 4 : n;
-  long long blocks = (work + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  if (blocks < 1) blocks = 1;
-  fused_sgd_kernel<<<(unsigned)blocks, threads, 0,
+      ((uintptr_t)p % 16 == 0 && (uintptr_t)g % 16 == 0) ? 1 : 0;
+  // one float4 (or one float, unaligned) per thread over the bucket
+  const long long work = vectorized ? (n + 3) / 4 : n;
+  long long blocks = (work + kThreads - 1) / kThreads;
+#if SGD_BLOCKS_PER_SM > 0
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (blocks > (long long)sms * SGD_BLOCKS_PER_SM)
+    blocks = (long long)sms * SGD_BLOCKS_PER_SM;
+#endif
+  if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL;
+  fused_sgd_kernel<<<(unsigned)blocks, kThreads, 0,
                      (cudaStream_t)stream>>>(
-      (const float*)p, (const float*)g, (const float*)lr, (float*)out, n,
-      vectorized);
+      (float*)p, (const float*)g, (const float*)lr, n, vectorized);
   return (int)cudaGetLastError();
 }

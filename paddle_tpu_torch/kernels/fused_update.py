@@ -5,21 +5,22 @@ Replaces the TPU kernel paddle_tpu/kernels/fused_update.py
 `_sgd_kernel`.  ParallelExecutor's overlap step reduces gradients in
 same-dtype buckets (one flat all-reduce per bucket); when the update
 section is a chain of plain dense `sgd` ops sharing one learning rate
-per bucket, this kernel applies a whole bucket in ONE launch over the
-concatenated flat views (csrc/fused_update.cu):
+per bucket, the executor keeps each bucket's parameters as views of one
+flat buffer and this kernel applies the whole bucket in ONE launch, in
+place (csrc/fused_update.cu):
 
-    new_flat_params = flat_params - lr * flat_grads
+    flat_params -= lr * flat_grads
 
 It is bit-identical to the per-parameter `sgd` chain by construction:
-the same product and difference, each rounded once, in float32.  The
-flat concatenation and the split back to per-parameter views stay in
-PyTorch (ParallelExecutor), as they were outside the JAX kernel.
+the same product and difference, each rounded once, in float32.
 
-`fused_bucket_sgd` launches the kernel for CUDA tensors and runs
-`fused_bucket_sgd_reference` for CPU tensors; a CUDA call the kernel
-does not take raises.  Selection goes through kernels/registry.py
-("fused_bucket_update"); whether the update chain has the shape the
-kernel replaces is the executor's verdict, not this module's.
+`fused_bucket_sgd_` launches the kernel for CUDA tensors and runs the
+same two roundings in place with PyTorch for CPU tensors; a CUDA call
+the kernel does not take raises.  `fused_bucket_sgd_reference` is the
+plain version, into a new tensor.  Selection goes through
+kernels/registry.py ("fused_bucket_update"); whether the update chain
+has the shape the kernel replaces is the executor's verdict, not this
+module's.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from .registry import register_kernel
 
 __all__ = ["fused_update_supports", "build_fused_bucket_update",
-           "fused_bucket_sgd", "fused_bucket_sgd_reference", "build",
+           "fused_bucket_sgd_", "fused_bucket_sgd_reference", "build",
            "SOURCE"]
 
 SOURCE = "fused_update.cu"
@@ -50,10 +51,14 @@ def fused_update_supports(*, numel: int, dtype: str = "float32",
     return None
 
 
+def _step(flat_g, lr, dtype):
+    return lr.reshape(()).float().to(dtype) * flat_g
+
+
 def fused_bucket_sgd_reference(flat_p, flat_g, lr):
     """The plain version: the `sgd` op's arithmetic on the flat views
-    (lr a one-element float32 tensor)."""
-    return flat_p - lr.reshape(()).float().to(flat_p.dtype) * flat_g
+    (lr a one-element float32 tensor), into a new tensor."""
+    return flat_p - _step(flat_g, lr, flat_p.dtype)
 
 
 def _library():
@@ -62,8 +67,8 @@ def _library():
         from . import cuda_build
 
         lib = cuda_build.load_library(SOURCE)
-        fn = lib.fused_sgd_update
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+        fn = lib.fused_sgd_update_
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -76,64 +81,65 @@ def build():
     _library()
 
 
-def fused_bucket_sgd(flat_p, flat_g, lr):
+def fused_bucket_sgd_(flat_p, flat_g, lr):
     """flat_p, flat_g [numel] float32, lr a one-element float32 tensor
-    on the same device -> new flat params [numel] float32.  CPU tensors
-    run the plain version; CUDA tensors launch the kernel (one launch
-    per call) or raise."""
+    on the same device: flat_p -= lr * flat_g in place; returns flat_p.
+    CPU tensors run the plain arithmetic in place; CUDA tensors launch
+    the kernel (one launch per call) or raise."""
     if flat_p.device.type != "cuda":
-        return fused_bucket_sgd_reference(flat_p, flat_g, lr)
+        return flat_p.sub_(_step(flat_g, lr, flat_p.dtype))
     dtypes = {str(t.dtype).replace("torch.", "") for t in (flat_p, flat_g,
                                                            lr)}
     reason = fused_update_supports(
         numel=flat_p.numel(),
         dtype=dtypes.pop() if len(dtypes) == 1 else "mixed")
     if reason is not None:
-        raise ValueError(f"fused_bucket_sgd: the kernel does not take this "
-                         f"call ({reason}): params, grads and lr "
+        raise ValueError(f"fused_bucket_sgd_: the kernel does not take "
+                         f"this call ({reason}): params, grads and lr "
                          f"{flat_p.dtype}/{flat_g.dtype}/{lr.dtype}, numel "
                          f"{flat_p.numel()} (float32 and non-empty)")
     for name, t in (("grads", flat_g), ("lr", lr)):
         if t.device != flat_p.device:
-            raise ValueError(f"fused_bucket_sgd: {name} on {t.device}, "
+            raise ValueError(f"fused_bucket_sgd_: {name} on {t.device}, "
                              f"params on {flat_p.device}")
     if not (flat_p.is_contiguous() and flat_g.is_contiguous()):
-        raise ValueError("fused_bucket_sgd: params and grads must be "
+        raise ValueError("fused_bucket_sgd_: params and grads must be "
                          "contiguous")
     if flat_p.dim() != 1 or flat_g.shape != flat_p.shape:
-        raise ValueError(f"fused_bucket_sgd: flat params "
+        raise ValueError(f"fused_bucket_sgd_: flat params "
                          f"{tuple(flat_p.shape)} and grads "
                          f"{tuple(flat_g.shape)} must be one 1-D shape")
     if lr.numel() != 1:
-        raise ValueError(f"fused_bucket_sgd: lr must hold one value, got "
+        raise ValueError(f"fused_bucket_sgd_: lr must hold one value, got "
                          f"{tuple(lr.shape)}")
-    out = torch.empty_like(flat_p)
     lib = _library()
     with torch.cuda.device(flat_p.device):
-        rc = lib.fused_sgd_update(
+        rc = lib.fused_sgd_update_(
             flat_p.data_ptr(), flat_g.data_ptr(), lr.data_ptr(),
-            out.data_ptr(), flat_p.numel(),
+            flat_p.numel(),
             torch.cuda.current_stream(flat_p.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_sgd_update launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_sgd_update_ launch failed: CUDA error "
+                           f"{rc}")
     with _count_lock:
-        fused_bucket_sgd.launches += 1
-    return out
+        fused_bucket_sgd_.launches += 1
+    return flat_p
 
 
-fused_bucket_sgd.launches = 0
+fused_bucket_sgd_.launches = 0
 
 
 @register_kernel("fused_bucket_update", fused_update_supports)
 def build_fused_bucket_update(*, numel: int, **_):
-    """-> update(flat_params [numel] f32, flat_grads [numel] f32,
-    lr one-element f32 tensor) -> new flat_params [numel] f32."""
+    """-> update_(flat_params [numel] f32, flat_grads [numel] f32,
+    lr one-element f32 tensor): flat_params -= lr * flat_grads in
+    place; returns flat_params."""
     n = int(numel)
 
-    def update(flat_p, flat_g, lr):
+    def update_(flat_p, flat_g, lr):
         if flat_p.numel() != n:
             raise ValueError(f"fused bucket update built for {n} elements, "
                              f"got {flat_p.numel()}")
-        return fused_bucket_sgd(flat_p, flat_g, lr)
+        return fused_bucket_sgd_(flat_p, flat_g, lr)
 
-    return update
+    return update_

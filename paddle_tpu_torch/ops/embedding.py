@@ -1,6 +1,11 @@
 """Embedding lookup and its dense gradient (counterpart of
 paddle_tpu/ops/embedding.py).  The `is_sparse` gradient needs the
-SelectedRows type (ROADMAP A1) and raises."""
+SelectedRows type (ROADMAP A1) and raises.
+
+On a CUDA device the dense gradient is a segment sum with a fixed
+order (`sorted_segment_sum`) instead of `index_add_`, whose CUDA kernel
+accumulates duplicate ids with atomics in an order that changes from
+call to call."""
 from __future__ import annotations
 
 import torch
@@ -30,8 +35,9 @@ def lookup_table(ctx, ins, attrs):
 @register_op("lookup_table_grad", inputs=("Ids", "W", "Out@GRAD"),
              outputs=("W@GRAD",))
 def lookup_table_grad(ctx, ins, attrs):
-    """Dense W@GRAD: the output rows scatter-added into a zero table
-    (index_add_: duplicate ids accumulate)."""
+    """Dense W@GRAD: the output rows scatter-added into a zero table,
+    duplicate ids accumulating in the order they occur (index_add_ on
+    the CPU, `sorted_segment_sum` on a card)."""
     if attrs.get("is_sparse"):
         raise NotImplementedError(
             "lookup_table with is_sparse=True needs the SelectedRows "
@@ -44,4 +50,23 @@ def lookup_table_grad(ctx, ins, attrs):
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         og2 = torch.where((flat == pad)[:, None], torch.zeros_like(og2), og2)
+    if og2.device.type == "cuda":
+        return {"W@GRAD": sorted_segment_sum(flat, og2, w.shape[0])}
     return {"W@GRAD": torch.zeros_like(w).index_add_(0, flat, og2)}
+
+
+def sorted_segment_sum(flat, rows, n_rows):
+    """[n_rows, D] table whose row i is the sum of rows[k] over the k with
+    flat[k] == i, in increasing k: the ids are sorted stably, the rows
+    gathered in that order, and each id's run summed front to back by
+    `segment_reduce` (one sequential sum per output element, no
+    atomics).  So the same inputs give the same bits on every call, and
+    the same bits as `index_add_` on the CPU.  The run lengths are
+    counted for every table row by an integer scatter-add (exact in any
+    order); rows no id names are empty runs and stay zero.  Nothing
+    here reads a value back to the host."""
+    order = torch.sort(flat, stable=True)
+    counts = torch.zeros(n_rows, dtype=torch.long, device=flat.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
+    return torch.segment_reduce(rows.index_select(0, order.indices), "sum",
+                                lengths=counts, axis=0, unsafe=True)

@@ -19,7 +19,10 @@ the update section (gradient clipping and the optimizer ops) runs on
 the reduced gradients, identically on every rank.  When that section
 is a chain of plain dense `sgd` ops, one hand-written CUDA kernel per
 bucket applies it (kernels/fused_update.py, selected through
-kernels/registry.py as "fused_bucket_update").
+kernels/registry.py as "fused_bucket_update"): the parameters of such a
+bucket are views of one flat buffer, made when the plan is built, and
+the kernel updates that buffer in place.  `state` hands out copies and
+`set_state` writes into the buffer, so the views never part from it.
 
 With a batch-mean loss, the mean over the global batch equals the mean
 over ranks of the per-rank means, so the step is the serial step up to
@@ -192,6 +195,7 @@ class ParallelExecutor:
             self._states[n] = scope.find_var(n)
         self._plan = None
         self._plan_state = None
+        self._flat_storages = frozenset()
         self._refresh_plan()
 
     @staticmethod
@@ -403,6 +407,16 @@ class ParallelExecutor:
             at = max(cfg["last_prod"][g] for g, _, _ in bucket)
             issue_after.setdefault(at, []).append(b)
         fused_plan = self._plan_fused_update(buckets, cfg["update"])
+        if fused_plan is not None:
+            fused_plan = [(entries, lr_name, kern,
+                           *self._flatten_params(entries))
+                          for entries, lr_name, kern in fused_plan]
+        # the storages of the flat parameter buffers, to tell a live
+        # view of one from any other tensor
+        self._flat_storages = frozenset(
+            () if fused_plan is None else
+            (flat.untyped_storage().data_ptr()
+             for _, _, _, flat, _ in fused_plan))
         self._plan = (buckets, issue_after, fused_plan)
         self.overlap_info.update(
             buckets=len(buckets), grads=len(cfg["grad_meta"]),
@@ -410,6 +424,27 @@ class ParallelExecutor:
             update=("fused" if fused_plan is not None else
                     self._kernel_selection.chosen.get(
                         "fused_bucket_update", "per_op")))
+
+    def _flatten_params(self, entries):
+        """-> (flat, views): one flat float32 buffer for a fused bucket's
+        parameters, filled once from their current values, and each
+        parameter's view of its slice, which becomes its state; the
+        kernel updates the buffer in place."""
+        flat = torch.cat([self._states[p].reshape(-1)
+                          for p, _, _ in entries])
+        views, off = [], 0
+        for p, _, shape in entries:
+            size = math.prod(shape)
+            views.append(flat[off:off + size].view(shape))
+            self._states[p] = views[-1]
+            off += size
+        return flat, views
+
+    def _in_bucket(self, v):
+        """Whether tensor `v` is a view of a fused bucket's flat
+        parameter buffer."""
+        return (bool(self._flat_storages) and isinstance(v, torch.Tensor)
+                and v.untyped_storage().data_ptr() in self._flat_storages)
 
     def _plan_fused_update(self, buckets, update_ops):
         """Map the overlap buckets onto the fused bucket update: one
@@ -427,7 +462,8 @@ class ParallelExecutor:
         the JAX package.
 
         Returns [(entries, lr_name, kern)] with entries
-        [(param, grad, shape)] in bucket order, or None."""
+        [(param, grad, shape)] in bucket order, or None; `_refresh_plan`
+        adds each bucket's flat parameter buffer and its views."""
         platform = self.device.type
         sel = self._kernel_selection
         structure = None
@@ -557,19 +593,23 @@ class ParallelExecutor:
             fetches[n] = v
 
         if fused_plan is not None:
+            # a fetch that is (a view of) a parameter keeps the value it
+            # had when the step read it: the update below is in place
+            for n, v in fetches.items():
+                if self._in_bucket(v):
+                    fetches[n] = v.clone()
             # one launch per bucket applies the whole bucket's
-            # p -= lr * g over the concatenated flat views
-            new_states = dict(states)
-            for b, (entries, lr_name, kern) in enumerate(fused_plan):
-                flat_p = torch.cat([states[p].reshape(-1)
-                                    for p, _, _ in entries])
-                new_flat = kern(flat_p, flats[b], states[lr_name])
-                off = 0
-                for p, _, shape in entries:
-                    size = math.prod(shape)
-                    new_states[p] = new_flat[off:off + size].view(shape)
-                    off += size
-            return fetches, new_states
+            # p -= lr * g in place over its flat buffer, of which every
+            # parameter state is a view; a state that was replaced by
+            # another tensor since the plan was made is copied back in
+            for b, (entries, lr_name, kern, flat_p, views) in enumerate(
+                    fused_plan):
+                for (p, _, _), view in zip(entries, views):
+                    if states[p] is not view:
+                        view.copy_(states[p])
+                        states[p] = view
+                kern(flat_p, flats[b], states[lr_name])
+            return fetches, states
         env = DictEnv({**states, **grads})
         for op in cfg["update"]:
             run_op(ctx, op, env)
@@ -635,15 +675,34 @@ class ParallelExecutor:
             "issued")
 
     def state(self, name, return_numpy=True):
+        """The state's current value, as a copy that later steps do not
+        change (a fused parameter is a view of its bucket's flat buffer,
+        which every step updates in place): a numpy array, or with
+        return_numpy=False a tensor on the device."""
         v = self._states[name]
-        return _to_numpy(v) if return_numpy else v
+        if not return_numpy:
+            return v.clone()
+        # a CPU tensor's array shares its memory
+        return _to_numpy(v).copy() if v.device.type == "cpu" \
+            else _to_numpy(v)
 
     def set_state(self, name, value):
+        """Replace a state's value; a fused parameter's is written into
+        its slice of the bucket's flat buffer."""
         if name not in self._states:
             raise KeyError(f"{name!r} is not a state of this executor")
-        self._states[name] = _to_device_value(
+        value = _to_device_value(
             value if isinstance(value, torch.Tensor) else np.asarray(value),
             self.device)
+        view = self._states[name]
+        if not self._in_bucket(view):
+            self._states[name] = value
+            return
+        if tuple(value.shape) != tuple(view.shape):
+            raise ValueError(f"set_state({name!r}): shape "
+                             f"{tuple(value.shape)}, the parameter is "
+                             f"{tuple(view.shape)}")
+        view.copy_(value)
 
 
 class DistributeTranspiler:

@@ -92,6 +92,90 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take(dev):
         paged_attention(q, pk, pv, tables.long(), positions, 0, n_heads=4)
 
 
+def _edge_inputs(kv_dtype, w_n, dev, nb, seed=2):
+    """A context of nb blocks of 16 with cursors whose last visible
+    position sits on, one short of and one past the kernel's split
+    edges, and at the context's end."""
+    from paddle_tpu_torch.kernels.paged_attention import split_len_for
+
+    gen = torch.Generator().manual_seed(seed)
+    d_model, layers, bs = 512, 2, 16
+    ctx = bs * nb
+    sl = split_len_for(ctx)
+    ends = [1, sl - 1, sl, sl + 1, 2 * sl, 2 * sl + 1, ctx - 1, ctx]
+    positions = torch.tensor(sorted({max(e - w_n, 0) for e in ends}),
+                             dtype=torch.int32)
+    s_n = positions.numel()
+    blocks = [-(-(int(p) + w_n) // bs) for p in positions]
+    pool = sum(blocks) + 1
+    tables = torch.zeros((s_n, nb), dtype=torch.int32)
+    perm = torch.randperm(pool - 1, generator=gen) + 1
+    used = 0
+    for s, n in enumerate(blocks):
+        tables[s, :n] = perm[used:used + n]
+        used += n
+    shape = (layers, pool, bs, d_model)
+
+    def one():
+        if kv_dtype == "int8":
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    (torch.rand((layers, pool), generator=gen) * 0.05
+                     + 1e-3).to(dev))
+        t = torch.randn(shape, generator=gen)
+        return (t.bfloat16() if kv_dtype == "bf16" else t).to(dev)
+
+    q = torch.randn((s_n, w_n, d_model), generator=gen).to(dev)
+    return q, one(), one(), tables.to(dev), positions.to(dev)
+
+
+@pytest.mark.parametrize("nb", [16, 264])
+@pytest.mark.parametrize("w_n", [1, 4])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "bf16", "int8"])
+def test_paged_split_kernel_at_split_edges_is_plain_and_repeatable(
+        dev, kv_dtype, w_n, nb):
+    """Split-KV at split edges (contexts of 256 and 4224 positions:
+    splits of 64 and of 128): within the gate of the plain version, and
+    the same bits from call to call (the merge order is fixed; the
+    ticket counter only picks the CTA that merges)."""
+    q, pk, pv, tables, positions = _edge_inputs(kv_dtype, w_n, dev, nb)
+    args = (q, pk, pv, tables, positions, 1)
+    before = paged_attention.launches
+    first = paged_attention(*args, n_heads=8)
+    second = paged_attention(*args, n_heads=8)
+    want = paged_attention_reference(*args, n_heads=8)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 2
+    assert torch.equal(first, second)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((first - want).abs().max()) <= tol
+
+
+def test_built_paged_wrapper_is_the_direct_call_and_raises(dev):
+    """The decoder's wrapper gives the direct call's bits, and a call
+    the kernel does not take raises."""
+    from paddle_tpu_torch.kernels.paged_attention import (
+        build_paged_attention)
+
+    q, pk, pv, tables, positions = _inputs("bf16", 1, 256, 4, dev)
+    attend = build_paged_attention(n_heads=4)
+    got = attend(q, pk, pv, tables, positions, 0)
+    again = attend(q, pk, pv, tables, positions, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, paged_attention(q, pk, pv, tables, positions,
+                                            0, n_heads=4))
+    assert torch.equal(again, paged_attention(q, pk, pv, tables,
+                                              positions, 1, n_heads=4))
+    with pytest.raises(ValueError, match="int32"):
+        attend(q, pk, pv, tables.long(), positions, 0)
+    strided = q.new_empty(q.shape[::-1]).permute(2, 1, 0)
+    strided.copy_(q)            # q's shape and values, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        attend(strided, pk, pv, tables, positions, 0)
+    with pytest.raises(ValueError, match="layer"):
+        attend(q, pk, pv, tables, positions, 2)
+
+
 # -- flash attention ---------------------------------------------------------
 #
 # Each kernel against its plain version on the same inputs (the backward
@@ -309,35 +393,73 @@ def test_lm_trains_on_cuda_like_on_cpu(dev):
 # tolerance.
 
 from paddle_tpu_torch.kernels.fused_update import (  # noqa: E402
-    fused_bucket_sgd, fused_bucket_sgd_reference)
+    fused_bucket_sgd_, fused_bucket_sgd_reference)
 
 
 @pytest.mark.parametrize("numel", [1, 3, 4, 1023, 4096, (1 << 20) + 7])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_fused_update_is_bit_identical_to_plain(dev, numel, offset):
-    """Odd sizes, and views starting one element in (not 16-byte
-    aligned: the kernel's scalar path); lr a device scalar."""
+    """In place (one read-write pointer) at odd sizes, and on views
+    starting one element in (not 16-byte aligned: the kernel's scalar
+    path); lr a device scalar."""
     gen = torch.Generator().manual_seed(numel)
     p = torch.randn(numel + offset, generator=gen).to(dev)[offset:]
     g = torch.randn(numel + offset, generator=gen).to(dev)[offset:]
     lr = torch.tensor([0.0123], device=dev)
-    before = fused_bucket_sgd.launches
-    got = fused_bucket_sgd(p, g, lr)
     want = fused_bucket_sgd_reference(p, g, lr)
+    before = fused_bucket_sgd_.launches
+    ptr = p.data_ptr()
+    got = fused_bucket_sgd_(p, g, lr)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert fused_bucket_sgd.launches == before + 1
+    assert got is p and p.data_ptr() == ptr
+    assert torch.equal(p, want)
+    assert fused_bucket_sgd_.launches == before + 1
 
 
 def test_fused_update_rejects_what_the_kernel_does_not_take(dev):
     p = torch.zeros(8, device=dev)
     lr = torch.tensor([0.1], device=dev)
     with pytest.raises(ValueError, match="float32"):
-        fused_bucket_sgd(p.double(), p.double(), lr)
+        fused_bucket_sgd_(p.double(), p.double(), lr)
     with pytest.raises(ValueError, match="lr"):
-        fused_bucket_sgd(p, p, torch.ones(2, device=dev))
+        fused_bucket_sgd_(p, p, torch.ones(2, device=dev))
     with pytest.raises(ValueError, match="1-D"):
-        fused_bucket_sgd(p, p[:4], lr)
+        fused_bucket_sgd_(p, p[:4], lr)
+
+
+# -- the dense embedding gradient --------------------------------------------
+
+def test_embedding_grad_is_repeatable_on_the_card(dev):
+    """4096 ids drawn from 64 values: two calls give the same W@GRAD
+    bits, the bits of the CPU's index_add_ (the same per-id order), and
+    within float32 rounding of CUDA's index_add_ (atomics, another
+    order: 1e-5 * max(1, max|W@GRAD|))."""
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    gen = torch.Generator().manual_seed(0)
+    rows, d = 1000, 256
+    ids = torch.randint(0, 64, (16, 256), generator=gen)
+    og = torch.randn((16, 256, d), generator=gen)
+    lower = get_op_info("lookup_table_grad").lower
+    attrs = {"is_sparse": False, "padding_idx": 3}
+
+    def run(device):
+        ins = {"Ids": [ids.to(device)], "W": [torch.zeros(rows, d,
+                                                          device=device)],
+               "Out@GRAD": [og.to(device)]}
+        return lower(None, ins, attrs)["W@GRAD"]
+
+    first, second = run(dev), run(dev)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), run("cpu"))
+    flat = ids.reshape(-1).to(dev)
+    og2 = og.reshape(-1, d).to(dev)
+    og2 = torch.where((flat == 3)[:, None], torch.zeros((), device=dev), og2)
+    atomic = torch.zeros(rows, d, device=dev).index_add_(0, flat, og2)
+    tol = 1e-5 * max(1.0, float(atomic.abs().max()))
+    assert float((first - atomic).abs().max()) <= tol
+    assert not first[3].any() and not first[64:].any()
 
 
 # -- MoE gate + dispatch -----------------------------------------------------
@@ -474,9 +596,9 @@ def test_pe_on_cuda_like_on_cpu(dev):
             init = {n: pe.state(n) for n in params}
         for n in params:
             pe.set_state(n, init[n])
-        before = fused_bucket_sgd.launches
+        before = fused_bucket_sgd_.launches
         losses = [float(pe.run(f)[0][0]) for f in feeds]
-        launched = fused_bucket_sgd.launches - before
+        launched = fused_bucket_sgd_.launches - before
         res[str(place)] = (losses, {n: pe.state(n) for n in params})
         on_card = place != fluid.CPUPlace()
         # "auto" arms the kernel tier on the card only
@@ -493,12 +615,12 @@ def test_pe_on_cuda_like_on_cpu(dev):
 
     tflags.set_flags({"serving_kernels": "off"})
     try:
-        before = fused_bucket_sgd.launches
+        before = fused_bucket_sgd_.launches
         pe.run(feeds[0])
     finally:
         tflags.reset_flags()
     assert pe.overlap_info["update"] == "fused"
-    assert fused_bucket_sgd.launches == before + pe.overlap_info["buckets"]
+    assert fused_bucket_sgd_.launches == before + pe.overlap_info["buckets"]
 
 
 def test_moe_lm_trains_on_cuda_like_on_cpu(dev):

@@ -1,6 +1,7 @@
 """Import isolation of the PyTorch port.
 
-`paddle_tpu_torch` and `chip_smoke.py` must run where JAX is absent:
+`paddle_tpu_torch`, `chip_smoke.py` and the port's probes
+(`tools/torch_*.py`) must run where JAX is absent:
 they import neither `jax` (nor `jaxlib`) nor the JAX package
 `paddle_tpu`, not even one of its JAX-free modules.  Two guards: a fresh
 interpreter imports every submodule and chip_smoke's import graph and
@@ -37,6 +38,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(tools, f)
 
 
 def test_fresh_import_loads_no_jax_and_no_paddle_tpu():

@@ -254,6 +254,185 @@ def test_fused_update_is_the_per_op_chain_bit_for_bit():
                                       err_msg=n)
 
 
+# -- the in-place fused plan: parameters as views of one flat buffer ------
+
+def _fused_pe(cap=1024):
+    """The MLP through the fused bucket update (its plain version on the
+    CPU), several buckets."""
+    tflags.set_flags({"serving_kernels": "on", "overlap_bucket_bytes": cap})
+    main, startup, loss, params, feeds = _mlp(tfluid, tfw, "sgd")
+    pe = _port_pe(main, startup, feeds, loss, overlap="bucketed")
+    assert pe.overlap_info["update"] == "fused"
+    return pe, params
+
+
+def _bucket_layout(pe):
+    """[(flat buffer, [(param, offset)])] of the fused plan."""
+    out = []
+    for entries, _, _, flat, _ in pe._plan[2]:
+        off, members = 0, []
+        for p, _, shape in entries:
+            members.append((p, off))
+            off += int(np.prod(shape))
+        assert off == flat.numel()
+        out.append((flat, members))
+    return out
+
+
+def test_fused_params_are_views_of_their_buckets_flat_buffer():
+    pe, params = _fused_pe()
+    layout = _bucket_layout(pe)
+    assert len(layout) == pe.overlap_info["buckets"] > 1
+    assert sorted(p for _, m in layout for p, _ in m) == sorted(params)
+    for _ in range(2):
+        for flat, members in layout:
+            for p, off in members:
+                v = pe._states[p]
+                assert v.untyped_storage().data_ptr() == \
+                    flat.untyped_storage().data_ptr()
+                assert v.storage_offset() == flat.storage_offset() + off
+        pe.run(_batches(1)[0])
+    # the step updated the buffers in place: the same buffers, moved
+    assert [f for f, _ in _bucket_layout(pe)] == [f for f, _ in layout]
+
+
+def test_state_hands_out_copies_and_set_state_writes_the_buffer():
+    pe, params = _fused_pe()
+    name = params[0]
+    before = pe.state(name, return_numpy=False)
+    snapshot = before.clone()
+    before.add_(1.0)            # a copy: the executor's value is untouched
+    np.testing.assert_array_equal(pe.state(name), snapshot.numpy())
+    as_numpy = pe.state(name)
+    pe.run(_batches(1)[0])      # nor does the step change the copies
+    assert torch.equal(before, snapshot + 1.0)
+    np.testing.assert_array_equal(as_numpy, snapshot.numpy())
+    assert not np.array_equal(pe.state(name), snapshot.numpy())
+
+    flat, members = next((f, m) for f, m in _bucket_layout(pe)
+                         if any(p == name for p, _ in m))
+    view = pe._states[name]
+    value = np.arange(view.numel(), dtype=np.float32).reshape(view.shape)
+    pe.set_state(name, value)
+    assert pe._states[name] is view                 # still the view
+    off = dict(members)[name]
+    np.testing.assert_array_equal(
+        flat[off:off + view.numel()].reshape(view.shape).numpy(), value)
+    with pytest.raises(ValueError, match="shape"):
+        pe.set_state(name, value.reshape(-1)[:-1])
+
+
+def test_a_fetched_parameter_keeps_its_value_from_before_the_update():
+    """The analysis admits only per-row or batch-mean fetches, and no
+    parameter is one; a fetch that is a live view of a bucket (from a
+    lowering that returns a view of its input) is cloned before the
+    in-place update all the same.  This drives that guard with a
+    parameter in the fetch list."""
+    pe, params = _fused_pe()
+    name = params[0]
+    pe._overlap_cfg["fetch_kinds"][name] = "batch"
+    pe.fetch_names.append(name)
+    want = pe.state(name)
+    loss, got = pe.run(_batches(1)[0])
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(pe.state(name), want)
+    _, got = pe.run(_batches(1)[0], return_numpy=False)
+    assert got.untyped_storage().data_ptr() not in pe._flat_storages
+
+
+def test_rebucketing_keeps_the_values_and_the_chain_bits():
+    """A flag change re-buckets at the next run: the new flat buffers
+    start from the current values, and the steps stay the per-op sgd
+    chain bit for bit."""
+    batches = _batches(4)
+    pe, params = _fused_pe(cap=1024)
+    for b in batches[:2]:
+        pe.run(b)
+    mid = {n: pe.state(n) for n in params}
+    old = [f for f, _ in _bucket_layout(pe)]
+    tflags.set_flags({"overlap_bucket_bytes": 0})
+    pe._refresh_plan()
+    assert pe.overlap_info["buckets"] == pe.overlap_info["grads"] == 4
+    assert len(old) != pe.overlap_info["buckets"]
+    for n in params:
+        np.testing.assert_array_equal(pe.state(n), mid[n], err_msg=n)
+    fused = [pe.run(b)[0] for b in batches[2:]]
+
+    tflags.set_flags({"serving_kernels": "off"})
+    main, startup, loss, _, feeds = _mlp(tfluid, tfw, "sgd")
+    chain = _port_pe(main, startup, feeds, loss, overlap="bucketed")
+    assert chain.overlap_info["update"] == "plain:disarmed"
+    for b in batches[:2]:
+        chain.run(b)
+    assert [chain.run(b)[0] for b in batches[2:]] == fused
+    for n in params:
+        np.testing.assert_array_equal(pe.state(n), chain.state(n),
+                                      err_msg=n)
+
+
+def test_a_replaced_parameter_state_is_written_back_into_its_bucket():
+    """A step with the fused plan set aside (the per-op chain, as a
+    caller that swaps the update runs it) replaces the parameter states
+    with new tensors; the next fused step copies them back into the flat
+    buffers and updates them there, so no update is lost: the steps stay
+    the per-op chain bit for bit."""
+    batches = _batches(3)
+    pe, params = _fused_pe()
+    plan = pe._plan
+    pe._plan = (plan[0], plan[1], None)
+    first = pe.run(batches[0])[0]
+    assert not any(pe._in_bucket(pe._states[n]) for n in params)
+    pe._plan = plan
+    fused = [first] + [pe.run(b)[0] for b in batches[1:]]
+    assert all(pe._in_bucket(pe._states[n]) for n in params)
+
+    tflags.set_flags({"serving_kernels": "off"})
+    main, startup, loss, _, feeds = _mlp(tfluid, tfw, "sgd")
+    chain = _port_pe(main, startup, feeds, loss, overlap="bucketed")
+    assert chain.overlap_info["update"] == "plain:disarmed"
+    assert [chain.run(b)[0] for b in batches] == fused
+    for n in params:
+        np.testing.assert_array_equal(pe.state(n), chain.state(n),
+                                      err_msg=n)
+
+
+def test_in_place_fused_pe_matches_the_jax_pe():
+    """As test_pe_matches_the_jax_pe, with the fused bucket update armed
+    in both packages (several buckets)."""
+    with _Flags(serving_kernels="on", overlap_bucket_bytes=1024):
+        jm, js, jl, params, feeds = _mlp(jfluid, jfw, "sgd")
+        jpe = _jax_pe(jm, js, feeds, jl, overlap="bucketed")
+        init = {n: np.asarray(jpe.state(n)) for n in params}
+        jloss, jparams = _train(jpe, params, _batches())
+        tm, ts, tl, _, _ = _mlp(tfluid, tfw, "sgd")
+        tpe = _port_pe(tm, ts, feeds, tl, overlap="bucketed")
+        for n, v in init.items():
+            tpe.set_state(n, v)
+        tloss, tp = _train(tpe, params, _batches())
+        assert tpe.overlap_info == _port_info(jpe.overlap_info)
+        assert tpe.overlap_info["update"] == "fused"
+    np.testing.assert_allclose(tloss, jloss, rtol=RTOL, atol=0)
+    for n in params:
+        np.testing.assert_allclose(tp[n], jparams[n], rtol=RTOL, atol=1e-7,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("numel", [1, 5, 1031])
+def test_plain_fused_update_in_place_is_the_out_of_place_bits(numel):
+    from paddle_tpu_torch.kernels.fused_update import (
+        fused_bucket_sgd_, fused_bucket_sgd_reference)
+
+    r = np.random.RandomState(numel)
+    p = torch.from_numpy(r.standard_normal(numel).astype(np.float32))
+    g = torch.from_numpy(r.standard_normal(numel).astype(np.float32))
+    lr = torch.tensor([0.0123])
+    want = fused_bucket_sgd_reference(p, g, lr)
+    chain = p - lr * g          # the sgd op's two roundings
+    q = p.clone()
+    assert fused_bucket_sgd_(q, g, lr) is q
+    assert torch.equal(q, want) and torch.equal(want, chain)
+
+
 def test_flag_change_replans_at_the_next_run():
     main, startup, loss, params, feeds = _mlp(tfluid, tfw, "sgd")
     pe = _port_pe(main, startup, feeds, loss, overlap="bucketed")

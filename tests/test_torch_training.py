@@ -431,3 +431,34 @@ def test_scope_guard_swaps_the_global_scope():
     out, = tfluid.Executor(CPUPlace()).run(
         main, feed=next(_line_batches(1)), fetch_list=[loss], scope=scope)
     assert out.shape == (1,) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("pad", [-1, 0, 5])
+def test_sorted_segment_sum_is_index_add_bit_for_bit(pad):
+    """The card's dense embedding gradient (ids sorted stably, each id's
+    run summed front to back) gives the same bits as the CPU's
+    index_add_ (each id's rows added in the order they occur), with
+    many duplicate ids, unused table rows and a padding row; the op on
+    the CPU still takes index_add_."""
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.ops.embedding import sorted_segment_sum
+
+    r = np.random.RandomState(3)
+    rows, d = 80, 16
+    ids = r.randint(0, 12, (64, 8)).astype(np.int64)      # 12 of 80 rows
+    ids[0, :4] = rows - 1
+    og = r.standard_normal((64, 8, d)).astype(np.float32)
+    ins = {"Ids": [torch.from_numpy(ids)],
+           "W": [torch.zeros(rows, d)], "Out@GRAD": [torch.from_numpy(og)]}
+    want = get_op_info("lookup_table_grad").lower(
+        None, ins, {"is_sparse": False, "padding_idx": pad})["W@GRAD"]
+    flat = torch.from_numpy(ids.reshape(-1))
+    og2 = torch.from_numpy(og.reshape(-1, d))
+    if pad >= 0:
+        og2 = torch.where((flat == pad)[:, None], torch.zeros(()), og2)
+    got = sorted_segment_sum(flat, og2, rows)
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.zeros(rows, d).index_add_(0, flat, og2))
+    assert not got[12:rows - 1].any() and got[rows - 1].any()
+    if pad >= 0:
+        assert not got[pad].any()

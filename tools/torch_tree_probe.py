@@ -1,0 +1,254 @@
+"""Probes of the PyTorch port on one CUDA card, made to compare two
+checkouts of the port on the same card (for instance a parent commit's
+`git archive` and this tree, in turns):
+
+    python3 tools/torch_tree_probe.py paged [--package-root DIR]
+    python3 tools/torch_tree_probe.py dp-memory [--package-root DIR]
+    python3 tools/torch_tree_probe.py sgd-sweep
+
+paged      device time (torch.profiler) and launch grid of the
+           paged-attention decode kernel at the kernels phase's shapes
+           of chip_smoke.py (fp32/bf16/int8, W 1 and 4);
+dp-memory  chip_smoke.py's dp phase model and steps under the CUDA
+           allocator's history: the peak of allocated bytes, the step it
+           sat in, and the bytes live at that peak by the lines of the
+           package that allocated them;
+sgd-sweep  csrc/fused_update.cu built once for each setting of its
+           SGD_UNROLL / SGD_BLOCKS_PER_SM / SGD_STREAMING switches and
+           timed in place at the dp path's largest bucket beside
+           torch.add and p.add_ (CUDA events, cold L2, three rounds
+           interleaved); every variant is checked bit for bit.
+
+The measuring code is this checkout's chip_smoke.py; `paddle_tpu_torch`
+is imported from DIR (default: this checkout).  Each result is one JSON
+object on a line of its own.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import importlib.util
+import itertools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _smoke():
+    """This checkout's chip_smoke.py as a module, whatever is first on
+    sys.path."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def paged(cs, dev):
+    from paddle_tpu_torch.kernels.paged_attention import paged_attention
+
+    # the kernels phase's inputs: the same generator, drawn in order
+    gen = torch.Generator().manual_seed(cs.SEED)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    layer = cs.N_LAYERS // 2
+    for kv_dtype in cs.KV_DTYPES:
+        for w_n in (1, 4):
+            args = (*cs._kernel_inputs(kv_dtype, w_n, dev, gen), layer)
+            run = lambda: paged_attention(*args, n_heads=cs.N_HEADS)  # noqa
+            ms = cs.cold_ms(run, 200, flush)
+            dev_ms, n_kernels, grids = cs.device_ms(run, 200, flush,
+                                                    "paged_")
+            emit({"probe": "paged", "case": f"{kv_dtype}_w{w_n}",
+                  "ms": ms, "device_ms": dev_ms,
+                  "device_kernels_profiled": n_kernels, "grids": grids})
+
+
+def _repo_frames(frames):
+    """The allocation's frames inside the package, innermost first, as
+    'path:line function'."""
+    out = []
+    for f in frames:
+        path = f.get("filename", "")
+        if "paddle_tpu_torch" in path:
+            rel = path[path.rindex("paddle_tpu_torch"):]
+            out.append(f"{rel}:{f.get('line')} {f.get('name')}")
+    return out
+
+
+def dp_memory(cs, dev):
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import CUDAPlace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main, startup, loss = cs._lm_program(fluid.SGD(learning_rate=0.01))
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=4_000_000,
+                                             stacks="python")
+    marks = []
+    try:
+        t = fluid.ShardingTranspiler()
+        t.transpile(program=main, startup_program=startup, mesh={"dp": 1},
+                    overlap="bucketed")
+        pe = t.build_executor(["ids", "lbl"], [loss], place=CUDAPlace(0))
+        # the dp phase holds a copy of every persistable meanwhile
+        init = {n: pe.state(n, return_numpy=False).clone() for n in persist}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(cs.T_STEPS):
+            marks.append(len(torch.cuda.memory._snapshot()
+                             ["device_traces"][dev.index]))
+            pe.run(cs._train_feed(step))
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        trace = torch.cuda.memory._snapshot()["device_traces"][dev.index]
+        del init, pe
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    # replay the history: allocated bytes rise at each alloc and fall at
+    # each free the program requests
+    cur, top, at = base, base, 0
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            cur += ev["size"]
+        elif ev["action"] == "free_requested":
+            cur -= ev["size"]
+        if cur > top:
+            top, at = cur, i
+    live = {}
+    for ev in trace[:at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_requested":
+            live.pop(ev["addr"], None)
+    groups = collections.defaultdict(lambda: [0, 0])
+    for ev in live.values():
+        frames = _repo_frames(ev.get("frames", []))
+        key = " <- ".join(frames[:2]) if frames else "(outside the package)"
+        groups[key][0] += ev["size"]
+        groups[key][1] += 1
+    step = sum(m <= at for m in marks)
+    emit({"probe": "dp-memory", "max_memory_allocated": peak,
+          "replayed_peak": top, "before_trace": base,
+          "peak_in_step": step if step else None,
+          "peak_event": {k: trace[at].get(k) for k in ("action", "size")},
+          "peak_event_frames": _repo_frames(trace[at].get("frames", []))[:4],
+          "live_at_peak_by_site": sorted(
+              ({"bytes": b, "blocks": n, "site": k}
+               for k, (b, n) in groups.items()),
+              key=lambda r: -r["bytes"])[:16]})
+
+
+_SWEEP = {"SGD_UNROLL": (1, 2, 4, 8), "SGD_BLOCKS_PER_SM": (0, 8, 16, 32),
+          "SGD_STREAMING": (0, 1)}
+
+
+def sgd_sweep(cs, dev):
+    from paddle_tpu_torch.kernels import cuda_build
+    from paddle_tpu_torch.kernels.fused_update import (
+        SOURCE, fused_bucket_sgd_reference)
+
+    src = os.path.join(cuda_build.CSRC_DIR, SOURCE)
+    variants = [dict(zip(_SWEEP, vals))
+                for vals in itertools.product(*_SWEEP.values())]
+    libs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for v in variants:
+            name = "u{SGD_UNROLL}_b{SGD_BLOCKS_PER_SM}_s{SGD_STREAMING}" \
+                .format(**v)
+            so = os.path.join(tmp, f"{name}.so")
+            procs.append((name, so, subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                 *(f"-D{k}={x}" for k, x in v.items()), "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        ptxas = {}
+        for name, so, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc {name}: {log[-2000:]}")
+            ptxas[name] = cs._ptxas_summary(log)
+            fn = ctypes.CDLL(so).fused_sgd_update_
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            libs[name] = fn
+        n = cs.T_VOCAB * cs.T_D        # the dp path's largest bucket
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        p = torch.randn(n, generator=gen, device=dev)
+        g = torch.randn(n, generator=gen, device=dev)
+        lr_host = 0.01
+        lr = torch.tensor([lr_host], device=dev)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        want = fused_bucket_sgd_reference(p, g, lr)
+        for name, fn in libs.items():
+            q = p.clone()
+            if fn(q.data_ptr(), g.data_ptr(), lr.data_ptr(), n, stream):
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            if not torch.equal(q, want):
+                raise RuntimeError(f"{name}: not bit-identical to the "
+                                   "plain version")
+        del q, want
+        calls = {"torch.add": lambda: torch.add(p, g, alpha=-lr_host),
+                 "p.add_": lambda: p.add_(g, alpha=-lr_host)}
+        for name, fn in libs.items():
+            calls[name] = (lambda fn=fn: fn(p.data_ptr(), g.data_ptr(),
+                                            lr.data_ptr(), n, stream))
+        rounds = collections.defaultdict(list)
+        for _ in range(3):
+            for name, call in calls.items():
+                rounds[name].append(cs.cold_ms(call, 50, flush))
+    for name, ms in sorted(rounds.items(), key=lambda kv: min(kv[1])):
+        emit({"probe": "sgd-sweep", "variant": name, "numel": n,
+              "ms_rounds": ms, "ptxas": ptxas.get(name)})
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("probe", choices=("paged", "dp-memory", "sgd-sweep"))
+    ap.add_argument("--package-root", default=ROOT,
+                    help="import paddle_tpu_torch from this checkout")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_tree_probe: no CUDA device", file=sys.stderr)
+        return 2
+    cs = _smoke()
+    sys.path.insert(0, os.path.abspath(args.package_root))
+    import paddle_tpu_torch
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    emit({"probe": args.probe, "card": smi,
+          "package": os.path.dirname(paddle_tpu_torch.__file__)})
+    {"paged": paged, "dp-memory": dp_memory,
+     "sgd-sweep": sgd_sweep}[args.probe](cs, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,22 +55,28 @@ Phases, one JSON line each:
            (bit for bit), in place and into a new buffer, on the dp
            path's largest bucket and odd sizes, beside torch.add and
            p.add_;
-  moe_kernel  the MoE gate + dispatch kernel against its plain version
-           at the MoE LM's shape (T 4096, D 1024, E 8): top-2, top-1 and
-           an overflowing capacity; routing, expert_in, combine, aux and
-           the autograd Function's gradients;
+  moe_kernel  the MoE gate + dispatch kernels against their plain
+           versions at the MoE LM's shape (T 4096, D 1024, E 8): top-2,
+           top-1 and an overflowing capacity; the routing form (routing,
+           expert_in, slot weights, aux), the dense contract (combine)
+           and the backward kernel, each bit-equal over two calls, the
+           autograd Functions' gradients, and each one's time (events and
+           device) beside its bound and its plain version;
   moe      the MoE transformer LM of benchmark/run_moe.py at its
            defaults (vocab 30000, d_model 1024, 8 heads, 6 layers, 8
            experts, top-2, capacity factor 1.25, seq 512, batch 8; fp32,
            Momentum) trained by the interpreter Executor: the kernel
-           path, then the plain path from the same state, and the
-           for_test clone's forward on both.
+           path (routing form, gather combine; no [T, E, C] tensor and no
+           GEMM with an E * C operand), then the plain path (the dense
+           einsums) from the same state, the for_test clone's forward on
+           both, and a profiled step of each with its GEMMs split by
+           shape.
 
 The main paths are the train phase's kernel path (flash attention), the
 kernel-path serve and spec phases (paged attention), the dp phase's
 fused run (fused bucket update) and the moe phase's kernel path (MoE
-gate + dispatch): each kernel's launch counts are zeroed just before
-its path and read just after.
+gate + dispatch and its backward): each kernel's launch counts are
+zeroed just before its path and read just after.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -199,20 +205,24 @@ def device_ms(fn, n, flush, match):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"
-               and match in e.get("name", "")]
-    # the profiler may miss a few of the first kernels of a window
+    # the profiler may miss kernels of a window (a few of the first; once,
+    # in the moe_kernel phase, 17 of 30): up to three windows
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and match in e.get("name", "")]
+        if len(kernels) >= n // 2:
+            break
     check(len(kernels) >= n // 2, f"device_ms: the profile shows "
           f"{len(kernels)} {match!r} kernels for {n} calls")
     grids = sorted({tuple(e["args"]["grid"]) for e in kernels
@@ -585,9 +595,10 @@ def _kernel_group(name):
         return "matmul"
     if any(k in name for k in ("fwd_kernel<", "dq_kernel<", "dkv_kernel<")):
         return "flash_attention"
-    if any(k in name for k in ("route_kernel", "position_kernel",
-                               "write_kernel")):
+    if "route_kernel<" in name or "place_kernel(" in name:
         return "moe_dispatch"
+    if "route_backward_kernel<" in name:
+        return "moe_backward"
     if "fused_sgd_kernel" in name:
         return "fused_update"
     if "memcpy" in low or "memset" in low:
@@ -595,15 +606,40 @@ def _kernel_group(name):
     return "other"
 
 
-def _profile_step(run_step, need, phase):
-    """`run_step()` (one more kernel-path step) under torch.profiler ->
-    device time by kernel group and the top kernels (self device time,
-    ms); every group in `need` must show."""
+_GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def _gemm_split(prof, dim):
+    """Device time of the profiled GEMM calls (aten mm/bmm/addmm/baddbmm,
+    by input shape) with an operand dimension `dim` and of the others:
+    at dim = E * C, the dense [T, E, C] dispatch and combine products
+    and their VJPs."""
+    from torch.autograd import DeviceType
+
+    out = {"dim": dim, "with_dim_ms": 0.0, "with_dim_calls": 0,
+           "other_ms": 0.0, "other_calls": 0, "shapes_with_dim": []}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.device_type != DeviceType.CPU or ev.key not in _GEMM_OPS:
+            continue
+        shapes = [list(sh) for sh in (ev.input_shapes or []) if sh]
+        key = "with_dim" if any(dim in sh for sh in shapes) else "other"
+        out[f"{key}_ms"] += ev.self_device_time_total / 1e3
+        out[f"{key}_calls"] += ev.count
+        if key == "with_dim":
+            out["shapes_with_dim"].append([ev.key, shapes])
+    return out
+
+
+def _profile_step(run_step, need, phase, gemm_dim=None):
+    """`run_step()` (one more step) under torch.profiler -> device time
+    by kernel group and the top kernels (self device time, ms), and with
+    `gemm_dim` the GEMMs split by that operand dimension (_gemm_split);
+    every group in `need` must show."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=gemm_dim is not None) as prof:
         run_step()
         torch.cuda.synchronize()
     kernels = {}   # device-side events only: host ops would count twice
@@ -618,8 +654,11 @@ def _profile_step(run_step, need, phase):
         check(groups.get(g, 0.0) > 0,
               f"{phase}: the profile shows no {g} kernel: {groups}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ms": sum(kernels.values()), "by_group_ms": groups,
-            "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+    out = {"device_ms": sum(kernels.values()), "by_group_ms": groups,
+           "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+    if gemm_dim is not None:
+        out["gemm_split"] = _gemm_split(prof, gemm_dim)
+    return out
 
 
 class _PlainAttention:
@@ -1198,14 +1237,29 @@ def _tol_err(got, want, tol):
     return err, tol * max(1.0, float(want.abs().max()))
 
 
+def _moe_bytes(t_n, d, e_n, c_n, top_k, dense):
+    """Bytes the forward must move: x and gate_w read once; expert_in,
+    the routing (probs, idx, slot_of, slot_token, slot_weight,
+    first_count) and aux written once; the dense combine when asked."""
+    n = (t_n * d + d * e_n + e_n * c_n * d + t_n * e_n + 2 * top_k * t_n
+         + 2 * e_n * c_n + e_n + 1)
+    return 4 * (n + (t_n * e_n * c_n if dense else 0))
+
+
 def moe_kernel_phase(dev, bw, flops):
     from paddle_tpu_torch.kernels.moe_dispatch import (
-        moe_gate_dispatch, moe_gate_dispatch_launch,
-        moe_gate_dispatch_reference, moe_routing_reference)
+        moe_gate_dispatch, moe_gate_dispatch_reference, moe_gate_route,
+        moe_gate_route_backward, moe_gate_route_launch,
+        moe_gate_route_reference, moe_gate_route_vjp,
+        moe_route_backward_launch, moe_routing_reference)
     from paddle_tpu_torch.parallel.moe import _capacity
 
     t_n, d, e_n = M_BATCH * M_SEQ, M_D, M_EXPERTS
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    # 1 GiB: its memset (about 0.4 ms) outlasts the host's ~0.1 ms of
+    # Python a call, so the card never waits on the host between a cold
+    # call's events and the events time the kernels
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
+    flush_l2 = flush[:64 * 2 ** 20]   # for device times: L2 is 50 MB
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randn((t_n, d), generator=gen).to(dev)
     gw = (torch.randn((d, e_n), generator=gen) * M_GATE_STD).to(dev)
@@ -1213,82 +1267,210 @@ def moe_kernel_phase(dev, bw, flops):
     for name, top_k, cf in (("top2", 2, M_CF), ("top1", 1, M_CF),
                             ("top2_cf0.5", 2, 0.5)):
         c_n = _capacity(t_n, e_n, cf, top_k)
-        ei, cb, aux, _, idx, slots = moe_gate_dispatch_launch(x, gw, e_n,
-                                                              c_n, top_k)
-        ei_r, cb_r, aux_r = moe_gate_dispatch_reference(x, gw, e_n, c_n,
-                                                        top_k)
-        _, idx_r, slots_r = moe_routing_reference(x, gw, e_n, c_n, top_k)
+        errs = {}
+        # the routing form and the dense contract against their plain
+        # versions, and each against a second call (bit for bit)
+        runs = [moe_gate_route_launch(x, gw, e_n, c_n, top_k, dense=dense)
+                for dense in (False, False, True, True)]
+        (ei, sw, aux, slot_of, slot_token, probs, idx, first,
+         _) = runs[0]
+        ei_r, sw_r, aux_r, slot_of_r, slot_token_r = \
+            moe_gate_route_reference(x, gw, e_n, c_n, top_k)
+        _, idx_r, _ = moe_routing_reference(x, gw, e_n, c_n, top_k)
+        _, cb_r, _ = moe_gate_dispatch_reference(x, gw, e_n, c_n, top_k)
         torch.cuda.synchronize()
         check(torch.equal(idx, idx_r), f"moe_kernel {name}: experts differ "
               f"for {int((idx != idx_r).any(0).sum())} tokens")
-        check(torch.equal(slots, slots_r),
-              f"moe_kernel {name}: capacity slots differ")
+        check(torch.equal(slot_of, slot_of_r) and torch.equal(
+            slot_token, slot_token_r), f"moe_kernel {name}: capacity "
+            "slots differ")
         check(torch.equal(ei, ei_r), f"moe_kernel {name}: expert_in is not "
               "bit-equal")
-        errs = {}
-        for key, got, want in (("combine", cb, cb_r), ("aux", aux, aux_r)):
+        for key, got, want in (("slot_weight", sw, sw_r), ("aux", aux, aux_r),
+                               ("combine", runs[2][8], cb_r)):
             err, lim = _tol_err(got, want, 1e-6)
             check(err <= lim, f"moe_kernel {name} {key}: {err} > {lim}")
             errs[key] = err
-        kept = int((slots >= 0).sum())
+        for other in runs[1:]:
+            check(all(torch.equal(a, b) for a, b in zip(runs[0][:8],
+                                                        other[:8])),
+                  f"moe_kernel {name}: two calls differ")
+        check(torch.equal(runs[2][8], runs[3][8]),
+              f"moe_kernel {name}: two dense combines differ")
+        kept = int((slot_token >= 0).sum())
+        del runs, cb_r
 
-        # the Function's gradients against plain autograd
+        # the backward kernel against the plain VJP at the kernel's
+        # routing, twice (bit for bit); the Functions' gradients (routing
+        # form and dense contract) against plain autograd
         cots = [torch.randn(s, generator=gen).to(dev)
-                for s in (ei.shape, cb.shape, aux.shape)]
-        leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
-        outs = moe_gate_dispatch(*leaves, e_n, c_n, top_k)
-        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
-        ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
-        want = torch.autograd.grad(
-            moe_gate_dispatch_reference(*ref_leaves, e_n, c_n, top_k),
-            ref_leaves, cots)
-        for key, g, w in zip(("dx", "dgate_w"), got, want):
+                for s in (ei.shape, sw.shape, aux.shape)]
+        bwd = [moe_gate_route_backward(x, gw, probs, idx, slot_of, first,
+                                       *cots, capacity=c_n)
+               for _ in range(2)]
+        want = moe_gate_route_vjp(x, gw, probs, idx, slot_of, *cots)
+        for key, g, g2, w in zip(("bwd_dx", "bwd_dgate_w"), bwd[0], bwd[1],
+                                 want):
             err, lim = _tol_err(g, w, 1e-5)
             check(err <= lim, f"moe_kernel {name} {key}: {err} > {lim}")
+            check(torch.equal(g, g2), f"moe_kernel {name} {key}: two calls "
+                  "differ")
             errs[key] = err
-        bwd_ms = cold_ms(lambda: torch.autograd.grad(
-            outs, leaves, cots, retain_graph=True), 10, flush)
-        del outs, got, want, leaves, ref_leaves, cots
+        del bwd, want
+        for form, fn, ref, shapes in (
+                ("route", moe_gate_route, moe_gate_route_reference,
+                 (ei.shape, sw.shape, aux.shape)),
+                ("dense", moe_gate_dispatch, moe_gate_dispatch_reference,
+                 (ei.shape, (t_n, e_n, c_n), aux.shape))):
+            fcots = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+            leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+            got = torch.autograd.grad(fn(*leaves, e_n, c_n, top_k)[:3],
+                                      leaves, fcots)
+            ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+            want = torch.autograd.grad(ref(*ref_leaves, e_n, c_n, top_k)[:3],
+                                       ref_leaves, fcots)
+            for key, g, w in zip(("dx", "dgate_w"), got, want):
+                err, lim = _tol_err(g, w, 1e-5)
+                check(err <= lim, f"moe_kernel {name} {form} {key}: "
+                      f"{err} > {lim}")
+                errs[f"{form}_{key}"] = err
+            if form == "dense":   # the Function's whole backward
+                outs = fn(*leaves, e_n, c_n, top_k)
+                dense_bwd_ms = cold_ms(lambda: torch.autograd.grad(
+                    outs, leaves, fcots, retain_graph=True), 10, flush)
+                del outs
+            del fcots, leaves, ref_leaves, got, want
 
-        nbytes = 4 * (t_n * d + d * e_n + e_n * c_n * d + t_n * e_n * c_n
-                      + 1)
-        n_ops = 2 * t_n * d * e_n
-        t_bytes, t_ops = nbytes / bw * 1e3, n_ops / flops * 1e3
+        # times: CUDA events around the entry point (host time included
+        # where the host is slower than the card) and the kernels' own
+        # device time (torch.profiler)
+        def route():
+            return moe_gate_route(x, gw, e_n, c_n, top_k)
+
+        def dense():
+            return moe_gate_dispatch(x, gw, e_n, c_n, top_k)
+
+        def backward():
+            return moe_route_backward_launch(gw, probs, idx, slot_of, first,
+                                             *cots, c_n, d)
+
         with torch.no_grad():
-            ms = cold_ms(lambda: moe_gate_dispatch(x, gw, e_n, c_n, top_k),
-                         50, flush)
-            plain_ms = cold_ms(lambda: moe_gate_dispatch_reference(
-                x, gw, e_n, c_n, top_k), 10, flush)
-        cases[name] = {
-            "top_k": top_k, "capacity_factor": cf, "capacity": c_n,
-            "assignments": t_n * top_k, "kept": kept,
-            "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "backward_ms": bwd_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "bytes_per_s": nbytes / (ms * 1e-3)}
-        del ei, cb, aux, ei_r, cb_r, aux_r
+            forms = {}
+            for form, fn, plain, is_dense in (
+                    ("route", route, lambda: moe_gate_route_reference(
+                        x, gw, e_n, c_n, top_k), False),
+                    ("dense", dense, lambda: moe_gate_dispatch_reference(
+                        x, gw, e_n, c_n, top_k), True)):
+                nbytes = _moe_bytes(t_n, d, e_n, c_n, top_k, is_dense)
+                t_bytes = nbytes / bw * 1e3
+                t_ops = 2 * t_n * d * e_n / flops * 1e3
+                dev_ms = [device_ms(fn, 30, flush_l2, k)[0]
+                          for k in ("route_kernel<", "place_kernel(")]
+                forms[form] = {
+                    "ms": cold_ms(fn, 50, flush),
+                    "host_us": host_us(fn, 200),
+                    "device_ms": sum(dev_ms),
+                    "device_ms_route_place": dev_ms,
+                    "plain_ms": cold_ms(plain, 10, flush),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes}
+            # the backward kernel: the kept d expert_in rows read, the
+            # routing and d slot_weight read, dx and d_logits written
+            nbytes = 4 * (kept * d + d * e_n + t_n * e_n + 2 * top_k * t_n
+                          + e_n + e_n * c_n + 1 + t_n * d + t_n * e_n)
+            t_bytes = nbytes / bw * 1e3
+            t_ops = 2 * t_n * d * e_n / flops * 1e3
+            forms["backward"] = {
+                "ms": cold_ms(backward, 50, flush),
+                "device_ms": device_ms(backward, 30, flush_l2,
+                                       "route_backward_kernel<")[0],
+                "plain_ms": cold_ms(lambda: moe_gate_route_vjp(
+                    x, gw, probs, idx, slot_of, *cots), 10, flush),
+                "function_ms": cold_ms(lambda: moe_gate_route_backward(
+                    x, gw, probs, idx, slot_of, first, *cots,
+                    capacity=c_n), 50, flush),
+                "dense_function_backward_ms": dense_bwd_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes}
+        for f in forms.values():
+            f["library_ms"] = None
+            f["bytes_per_s"] = f["bytes"] / (f["device_ms"] * 1e-3)
+        cases[name] = {"top_k": top_k, "capacity_factor": cf,
+                       "capacity": c_n, "assignments": t_n * top_k,
+                       "kept": kept, "max_abs_err": errs, **forms}
+        del ei, sw, aux, slot_of, slot_token, probs, idx, first, cots
+        del ei_r, sw_r, aux_r, slot_of_r, slot_token_r
     emit({"phase": "moe_kernel", "kernel": "moe_gate_dispatch",
           "tokens": t_n, "d_model": d, "experts": e_n,
           "gate_std": M_GATE_STD,
-          "timing": "median of cold-L2 calls, CUDA events; backward_ms is "
-                    "the autograd Function's backward (the plain "
-                    "composition's VJP at the kernel's saved routing); "
-                    "library_ms null: no PyTorch call computes gate + "
-                    "capacity dispatch",
+          "timing": "cold L2 (a 1 GiB memset before each call timed "
+                    "between events, 256 MB before each profiled one); "
+                    "ms: median between CUDA events around the entry point "
+                    "(moe_gate_route, moe_gate_dispatch, the backward "
+                    "launch); host_us: host time of a call; device_ms: "
+                    "the kernels' own durations "
+                    "in torch.profiler (route + place for the forward); "
+                    "backward function_ms: the kernel plus the dgate_w "
+                    "GEMM; dense_function_backward_ms: the dense "
+                    "contract's autograd backward; library_ms null: no "
+                    "PyTorch call computes gate + capacity dispatch",
           "cases": cases})
     return cases
 
 
+class _TecWatch:
+    """Records every tensor an op makes (through a TorchDispatchMode)
+    whose shape is a dense [T, E, C] dispatch or combine: dims T, E, C
+    in a row, or dims T and E * C."""
+
+    def __init__(self, t_n, e_n, c_n):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        watch = self
+        self.t_n, self.e_n, self.c_n, self.hits = t_n, e_n, c_n, []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in torch.utils._pytree.tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and watch.dense(t.shape):
+                        watch.hits.append([str(func), list(t.shape)])
+                return out
+
+        self.mode = Mode()
+
+    def dense(self, shape):
+        sh = tuple(shape)
+        tec = (self.t_n, self.e_n, self.c_n)
+        return ((self.t_n in sh and self.e_n * self.c_n in sh)
+                or any(sh[i:i + 3] == tec for i in range(len(sh) - 2)))
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
 def moe_phase(card, place, flops, moe_cases):
+    import torch.utils._pytree  # noqa: F401  (_TecWatch)
+
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.core.scope import Scope
-    from paddle_tpu_torch.kernels.moe_dispatch import moe_gate_dispatch
+    from paddle_tpu_torch.kernels.moe_dispatch import (
+        moe_gate_dispatch, moe_gate_route_backward)
     from paddle_tpu_torch.models.moe import active_param_count, build_moe_lm
+    from paddle_tpu_torch.parallel.moe import _capacity
     from paddle_tpu_torch.parallel.spmd import backward_start_index
 
+    tokens = M_BATCH * M_SEQ
+    c_n = _capacity(tokens, M_EXPERTS, M_CF, M_TOPK)
+    ec_n = M_EXPERTS * c_n
     fw.reset_unique_names()
     main, startup, loss = build_moe_lm(M_BATCH, M_SEQ, M_VOCAB, M_D,
                                        M_HEADS, M_LAYERS, M_EXPERTS, M_TOPK,
@@ -1317,34 +1499,56 @@ def moe_phase(card, place, flops, moe_cases):
 
         # the main path: counts zeroed just before, read just after
         moe_gate_dispatch.launches = 0
+        moe_gate_route_backward.launches = 0
         _reset_peak()
         run = lambda step: exe.run(  # noqa: E731
             main, feed=_train_feed(step), fetch_list=[loss])[0]
-        counts = {"moe": lambda: moe_gate_dispatch.launches}
+        counts = {"moe": lambda: moe_gate_dispatch.launches,
+                  "moe_bwd": lambda: moe_gate_route_backward.launches}
         k_loss, k_secs, k_steps = _timed_steps(run, counts)
+        k_bwd = [st["moe_bwd"] for st in k_steps]
         k_steps = [st["moe"] for st in k_steps]
         peak = torch.cuda.max_memory_allocated()
         k_params = {n: scope.find_var(n).clone() for n in weights}
-        before = moe_gate_dispatch.launches
+        before = (moe_gate_dispatch.launches,
+                  moe_gate_route_backward.launches)
         profile = _profile_step(
             lambda: exe.run(main, feed=_train_feed(T_STEPS),
                             fetch_list=[loss]),
-            ("moe_dispatch", "flash_attention"), "moe")
-        k_steps.append(moe_gate_dispatch.launches - before)
+            ("moe_dispatch", "moe_backward", "flash_attention"), "moe",
+            gemm_dim=ec_n)
+        k_steps.append(moe_gate_dispatch.launches - before[0])
+        k_bwd.append(moe_gate_route_backward.launches - before[1])
         k_total = moe_gate_dispatch.launches
+        k_bwd_total = moe_gate_route_backward.launches
         check(all(st == 2 * M_LAYERS for st in k_steps),
               f"moe: MoE launches per step {k_steps}, want {2 * M_LAYERS}")
+        check(all(st == M_LAYERS for st in k_bwd),
+              f"moe: MoE backward launches per step {k_bwd}, want "
+              f"{M_LAYERS}")
+        check(profile["gemm_split"]["with_dim_calls"] == 0,
+              "moe: the kernel path ran GEMMs with an E*C operand "
+              f"dimension: {profile['gemm_split']['shapes_with_dim']}")
+        # one more kernel-path step watched: no [T, E, C] tensor is made
+        with _TecWatch(tokens, M_EXPERTS, c_n) as k_watch:
+            exe.run(main, feed=_train_feed(T_STEPS + 1), fetch_list=[loss])
+        check(not k_watch.hits, "moe: the kernel path made dense [T, E, C] "
+              f"tensors: {k_watch.hits[:4]}")
 
         # the for_test forward from the initial state on both paths
         for n in persist:
             scope.set_var(n, init[n].clone())
         logits_k, = exe.run(test_prog, feed=_train_feed(0),
                             fetch_list=[logits_name], return_numpy=False)
-        with _PlainMoe() as plain:
+        with _PlainMoe() as plain, _TecWatch(tokens, M_EXPERTS,
+                                             c_n) as p_watch:
             logits_p, = exe.run(test_prog, feed=_train_feed(0),
                                 fetch_list=[logits_name], return_numpy=False)
         check(plain.calls == M_LAYERS,
               f"moe: {plain.calls} plain MoE FFNs in the for_test forward")
+        # the watch's control: the plain composition makes them
+        check(len(p_watch.hits) >= M_LAYERS, "moe: the [T, E, C] watch saw "
+              f"{len(p_watch.hits)} dense tensors on the plain path")
         check(bool(torch.isfinite(logits_k).all()),
               "moe: non-finite for_test logits")
         logits_rel = float((logits_k - logits_p).abs().max()
@@ -1354,14 +1558,21 @@ def moe_phase(card, place, flops, moe_cases):
         # the plain path from the same state and feeds
         for n in persist:
             scope.set_var(n, init[n].clone())
+        _reset_peak()
         with _PlainMoe() as plain:
             p_loss, p_secs, p_steps = _timed_steps(run, counts)
-        p_steps = [st["moe"] for st in p_steps]
+        p_peak = torch.cuda.max_memory_allocated()
+        p_steps = [st["moe"] + st["moe_bwd"] for st in p_steps]
         check(all(st == 0 for st in p_steps),
-              f"moe: the plain path launched the MoE kernel {p_steps}")
+              f"moe: the plain path launched the MoE kernels {p_steps}")
         check(plain.calls == 2 * M_LAYERS * T_STEPS,
               f"moe: {plain.calls} plain MoE FFNs on the plain path")
         param_rel = _param_rel_diff(scope.find_var, init, k_params)
+        with _PlainMoe():
+            p_profile = _profile_step(
+                lambda: exe.run(main, feed=_train_feed(T_STEPS),
+                                fetch_list=[loss]),
+                ("matmul",), "moe plain", gemm_dim=ec_n)
         del init, k_params
     finally:
         executor_mod.switch_scope(prev_scope)
@@ -1377,24 +1588,36 @@ def moe_phase(card, place, flops, moe_cases):
     worst = max(param_rel, key=param_rel.get)
     check(param_rel[worst] <= PARAM_RTOL, f"moe: weight {worst} moved "
           f"{param_rel[worst]} apart on the kernel and plain paths")
-    tokens = M_BATCH * M_SEQ
     p_active = active_param_count(M_VOCAB, M_D, M_LAYERS, M_EXPERTS,
                                   M_TOPK, M_SEQ)
     step_s = float(np.median(k_secs[1:]))
+    p_step_s = float(np.median(p_secs[1:]))
     kern_ms = profile["by_group_ms"].get("moe_dispatch", 0.0)
+    bwd_ms = profile["by_group_ms"].get("moe_backward", 0.0)
     emit({"phase": "moe", "card": card, "vocab": M_VOCAB, "d_model": M_D,
           "n_heads": M_HEADS, "n_layers": M_LAYERS, "experts": M_EXPERTS,
-          "top_k": M_TOPK, "capacity_factor": M_CF, "aux_weight": M_AUX,
-          "seq": M_SEQ, "batch": M_BATCH, "dtype": "float32",
-          "optimizer": "momentum", "params": n_params,
+          "top_k": M_TOPK, "capacity_factor": M_CF, "capacity": c_n,
+          "aux_weight": M_AUX, "seq": M_SEQ, "batch": M_BATCH,
+          "dtype": "float32", "optimizer": "momentum", "params": n_params,
           "params_active": p_active, "startup_s": startup_s,
           "steps": T_STEPS,
           "kernel_path": {"losses": k_loss, "step_s": k_secs,
                           "launches_per_step": k_steps,
-                          "launches": k_total},
+                          "launches": k_total,
+                          "backward_launches_per_step": k_bwd,
+                          "backward_launches": k_bwd_total,
+                          "dense_tec_tensors": len(k_watch.hits)},
           "plain_path": {"losses": p_loss, "step_s": p_secs,
                          "launches_per_step": p_steps,
-                         "plain_moe_ffns": plain.calls},
+                         "plain_moe_ffns": plain.calls,
+                         "dense_tec_tensors_for_test": len(p_watch.hits),
+                         "peak_memory_bytes": p_peak,
+                         "tokens_per_s": tokens / p_step_s,
+                         "mfu_6np_active_fp32":
+                             6.0 * tokens * p_active / p_step_s / flops,
+                         "device_idle_share":
+                             1.0 - p_profile["device_ms"] / (p_step_s * 1e3),
+                         "profiled_step": p_profile},
           "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
           "for_test_logits_rel_diff": logits_rel,
           "weight_change_rel_diff": {"max": param_rel[worst],
@@ -1402,20 +1625,24 @@ def moe_phase(card, place, flops, moe_cases):
                                      "n_weights": len(param_rel),
                                      "limit": PARAM_RTOL},
           "ms_per_step": step_s * 1e3,
-          "plain_ms_per_step": float(np.median(p_secs[1:])) * 1e3,
+          "plain_ms_per_step": p_step_s * 1e3,
           "tokens_per_s": tokens / step_s,
           "mfu_6np_active_fp32": 6.0 * tokens * p_active / step_s / flops,
           "moe_kernel_ms_per_step": kern_ms,
-          "moe_kernel_share": kern_ms / (step_s * 1e3),
-          "moe_kernel_cold_ms_x_launches": moe_cases["top2"]["ms"]
-          * 2 * M_LAYERS,
+          "moe_backward_kernel_ms_per_step": bwd_ms,
+          "moe_kernel_share": (kern_ms + bwd_ms) / (step_s * 1e3),
+          "moe_kernel_device_ms_x_launches":
+              moe_cases["top2"]["route"]["device_ms"] * 2 * M_LAYERS,
           "profiled_step": profile,
           "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
           "peak_memory_bytes": peak,
           "timing": "host clock around exe.run + synchronize; median of "
-                    "steps 2..N; the MoE kernel's share from the profiled "
-                    "step's device time of its three CUDA kernels"})
-    return k_total
+                    "steps 2..N; the MoE kernels' device time from the "
+                    "profiled step (route + place; the backward kernel); "
+                    "gemm_split: aten mm/bmm/addmm/baddbmm device time by "
+                    "whether an operand has an E*C dimension (the dense "
+                    "[T, E, C] dispatch/combine products and their VJPs)"})
+    return k_total, k_bwd_total
 
 
 def main():
@@ -1466,7 +1693,8 @@ def main():
     fused_launches, largest = dp_phase(card, CUDAPlace(0), flops)
     fused_cases = fused_update_phase(dev, bw, flops, largest)
     moe_cases = moe_kernel_phase(dev, bw, flops)
-    moe_launches = moe_phase(card, CUDAPlace(0), flops, moe_cases)
+    moe_launches, moe_bwd_launches = moe_phase(card, CUDAPlace(0), flops,
+                                               moe_cases)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -1517,17 +1745,36 @@ def main():
                                      "bound_by", "library_ms")},
         "case": "largest_bucket", "cases": fused_cases})
     main_case = moe_cases["top2"]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     entries.append({
         "name": "moe_gate_dispatch", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:68",
         "launches": moe_launches,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
-                           for k in ("combine", "aux")),
-        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+                           for k in ("slot_weight", "combine", "aux")),
+        **{k: main_case["route"][k] for k in keys},
+        "form": "routing (the main path's); dense: the JAX contract",
+        "dense": {k: main_case["dense"][k] for k in keys},
         "library_note": "no PyTorch call computes gate + capacity dispatch",
         "case": "top2", "cases": moe_cases})
+    entries.append({
+        "name": "moe_gate_dispatch_backward", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/parallel/moe.py:48",
+        "replaces_note": "no TPU kernel: the JAX package takes this "
+                         "gradient by jax.vjp of moe_gate and the dispatch "
+                         "einsum (its Pallas kernel has no VJP)",
+        "launches": moe_bwd_launches,
+        "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
+                           for k in ("bwd_dx", "bwd_dgate_w")),
+        **{k: main_case["backward"][k] for k in keys},
+        "function_ms": main_case["backward"]["function_ms"],
+        "dense_function_backward_ms":
+            main_case["backward"]["dense_function_backward_ms"],
+        "library_note": "no PyTorch call computes this gradient",
+        "case": "top2"})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,15 @@
 """Mixture-of-Experts: gating, dispatch and the mesh-free MoE FFN.
 
 Counterpart of paddle_tpu/parallel/moe.py.  `moe_gate` is the one gating
-implementation (GShard/Switch dispatch-combine tensors, top-1 or
-top-2, static capacity, differentiable through the gate probabilities),
-and `moe_dense` the mesh-free MoE FFN the `moe_ffn` op lowers to.  On a
-CUDA device gate and dispatch run as one hand-written CUDA kernel
-(kernels/moe_dispatch.py, "moe_gate_dispatch"): the same math, with the
-dispatch contraction done as a gather.
+implementation of the JAX package (GShard/Switch dispatch-combine
+tensors, top-1 or top-2, static capacity, differentiable through the
+gate probabilities), and `moe_dense` the mesh-free MoE FFN the `moe_ffn`
+op lowers to.  `moe_dense` computes the same function in routing form:
+gate and dispatch give each capacity slot its token and combine weight
+and each token its slots (kernels/moe_dispatch.py, "moe_gate_dispatch":
+a hand-written CUDA kernel on a card, its plain version on the CPU), and
+`moe_combine` gathers at most two expert rows a token instead of
+contracting a dense [T, E, C] combine.
 
 The expert-parallel forms `moe_ffn` and `moe_ffn_a2a` (replicated
 routing over an 'ep' mesh axis, and all_to_all dispatch) are not ported
@@ -20,7 +23,8 @@ import torch
 
 from ..kernels.registry import Selection
 
-__all__ = ["moe_gate", "moe_dense", "load_balance", "drop_rate"]
+__all__ = ["moe_gate", "moe_dense", "moe_combine", "load_balance",
+           "drop_rate"]
 
 
 def _one_hot(idx, n):
@@ -94,6 +98,52 @@ def _expert_mm(inp, wi, wo, activation):
     return torch.einsum("...ch,...hd->...cd", h, wo)
 
 
+class _MoeCombine(torch.autograd.Function):
+    """y [T, D] = sum over a token's kept slots s of slot_weight[s] *
+    expert_out[s]: two row gathers and a weighted add.  Each kept slot
+    holds exactly one token, so the backward gathers dy at slot_token:
+    no scatter, no atomics."""
+
+    @staticmethod
+    def forward(ctx, expert_out, slot_weight, slot_of, slot_token):
+        d = expert_out.shape[-1]
+        rows = expert_out.reshape(-1, d)
+        weights = slot_weight.reshape(-1)
+        held = slot_of >= 0
+        at = slot_of.clamp(min=0).long()
+        y = torch.where(held[0, :, None], weights[at[0], None] * rows[at[0]],
+                        0.0)
+        if slot_of.shape[0] == 2:
+            y = y + torch.where(held[1, :, None],
+                                weights[at[1], None] * rows[at[1]], 0.0)
+        ctx.save_for_backward(expert_out, slot_weight, slot_token)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        expert_out, slot_weight, slot_token = ctx.saved_tensors
+        d = expert_out.shape[-1]
+        tok = slot_token.reshape(-1).long()
+        held = (tok >= 0)[:, None]
+        g = dy[tok.clamp(min=0)]                           # [E * C, D]
+        rows = expert_out.reshape(-1, d)
+        d_weight = torch.where(held[:, 0], (g * rows).sum(-1), 0.0)
+        d_rows = torch.where(held, slot_weight.reshape(-1, 1) * g, 0.0)
+        return (d_rows.view_as(expert_out), d_weight.view_as(slot_weight),
+                None, None)
+
+
+def moe_combine(expert_out, slot_weight, slot_of, slot_token):
+    """The combine in routing form: expert_out [E, C, D] f32, slot_weight
+    [E, C] f32, slot_of [k, T] and slot_token [E, C] (int, -1 for a
+    dropped choice or an empty slot) -> y [T, D] with y[t] = sum_j
+    [slot_of[j, t] >= 0] slot_weight[slot_of[j, t]] expert_out[slot_of[j,
+    t]]: `einsum("ecd,tec->td", expert_out, combine)` without the dense
+    combine.  Differentiable in expert_out and slot_weight; plain
+    PyTorch on every device."""
+    return _MoeCombine.apply(expert_out, slot_weight, slot_of, slot_token)
+
+
 def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
               top_k: int = 1, activation=torch.relu,
               capacity: int = None,
@@ -101,15 +151,18 @@ def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
     """Mesh-free MoE FFN: the math every parallel form implements.
     x: [T, D]; returns (y [T, D], aux_loss).
 
-    On a CUDA device gate + capacity dispatch always run as one CUDA
-    kernel (kernels/moe_dispatch.py) — same math, the dispatch
-    contraction a gather — and a call the kernel does not take raises:
-    the port has no plain path on the card.  On the CPU the kernel tier
-    follows the `serving_kernels` flag, as in the JAX package (the
-    kernel's wrapper runs its plain version for CPU tensors).
-    `selection` takes an existing kernels.registry.Selection for
-    fallback-series ownership (defaults to this module's one)."""
+    Gate and dispatch run in routing form and `moe_combine` gathers the
+    expert rows back; no dense [T, E, C] dispatch or combine is formed.
+    On a CUDA device they always run as the CUDA kernels
+    (kernels/moe_dispatch.py), and a call the kernel does not take
+    raises: the port has no plain path on the card.  On the CPU the
+    kernel tier follows the `serving_kernels` flag, as in the JAX
+    package (the kernel's wrapper runs its plain version for CPU
+    tensors, so both give the same bits).  `selection` takes an existing
+    kernels.registry.Selection for fallback-series ownership (defaults
+    to this module's one)."""
     from ..core.types import canonical_dtype
+    from ..kernels.moe_dispatch import moe_gate_route_reference
 
     E = gate_w.shape[1]
     T = x.shape[0]
@@ -124,17 +177,14 @@ def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
              if x.device.type == "cuda" else
              picker.pick("moe_gate_dispatch", platform=x.device.type, **ctx))
     if fused is not None:
-        expert_in_f, combine, aux2 = fused(x, gate_w)
-        expert_in = expert_in_f.to(x.dtype)
-        aux = aux2[0, 0]
+        routed = fused.route(x, gate_w)
     else:
-        dispatch, combine, aux = moe_gate(x, gate_w, E, capacity, top_k)
-        expert_in = torch.einsum("td,tec->ecd", x.float(),
-                                 dispatch).to(x.dtype)
-    expert_out = _expert_mm(expert_in, w_in, w_out, activation)
-    y = torch.einsum("ecd,tec->td", expert_out.float(),
-                     combine).to(x.dtype)
-    return y, aux
+        routed = moe_gate_route_reference(x, gate_w, E, capacity, top_k)
+    expert_in, slot_weight, aux2, slot_of, slot_token = routed
+    expert_out = _expert_mm(expert_in.to(x.dtype), w_in, w_out, activation)
+    y = moe_combine(expert_out.float(), slot_weight, slot_of,
+                    slot_token).to(x.dtype)
+    return y, aux2[0, 0]
 
 
 def load_balance(x, gate_w) -> dict:

@@ -464,15 +464,26 @@ def test_embedding_grad_is_repeatable_on_the_card(dev):
 
 # -- MoE gate + dispatch -----------------------------------------------------
 #
-# Routing is identical and expert_in bit-equal (a gather of x); combine
-# and aux within 1e-6 * max(1, max|plain|) (softmax and the aux means
-# sum in another order); the Function's gradients equal plain autograd's
-# within 1e-5 * max(1, max|plain|) (its backward is the plain version's
-# VJP at the kernel's routing, summed in another order).
+# Routing is identical (idx, slot_of, slot_token) and expert_in bit-equal
+# (a gather of x); slot_weight, the dense combine and aux within 1e-6 *
+# max(1, max|plain|) (softmax and the aux means sum in another order);
+# the Functions' gradients and the backward kernel equal plain
+# autograd's / the plain VJP within 1e-5 * max(1, max|plain|) (the same
+# VJP at the kernel's routing, summed in another order).  Two calls of a
+# kernel give the same bits.
 
 from paddle_tpu_torch.kernels.moe_dispatch import (  # noqa: E402
     moe_gate_dispatch, moe_gate_dispatch_launch, moe_gate_dispatch_reference,
+    moe_gate_route, moe_gate_route_backward, moe_gate_route_launch,
+    moe_gate_route_reference, moe_gate_route_vjp, moe_route_backward_launch,
     moe_routing_reference)
+
+_MOE_CASES = [
+    (256, 64, 4, 80, 2, False), (256, 64, 4, 20, 2, False),
+    (256, 64, 4, 80, 1, False), (256, 64, 4, 30, 1, False),
+    (300, 60, 5, 70, 2, True), (1000, 128, 8, 250, 2, False),
+    (64, 32, 64, 3, 2, False), (2048, 256, 8, 320, 2, False),
+    (100, 1030, 64, 4, 2, False), (77, 33, 3, 40, 1, False)]
 
 
 def _moe_inputs(t_n, d, e_n, dev, seed=0, ties=False):
@@ -484,11 +495,7 @@ def _moe_inputs(t_n, d, e_n, dev, seed=0, ties=False):
     return x.to(dev), gw.to(dev)
 
 
-@pytest.mark.parametrize("t_n,d,e_n,c_n,top_k,ties", [
-    (256, 64, 4, 80, 2, False), (256, 64, 4, 20, 2, False),
-    (256, 64, 4, 80, 1, False), (256, 64, 4, 30, 1, False),
-    (300, 60, 5, 70, 2, True), (1000, 128, 8, 250, 2, False),
-    (64, 32, 64, 3, 2, False), (2048, 256, 8, 320, 2, False)])
+@pytest.mark.parametrize("t_n,d,e_n,c_n,top_k,ties", _MOE_CASES)
 def test_moe_kernel_matches_plain(dev, t_n, d, e_n, c_n, top_k, ties):
     x, gw = _moe_inputs(t_n, d, e_n, dev, ties=ties)
     ei, cb, aux, _, idx, slots = moe_gate_dispatch_launch(x, gw, e_n, c_n,
@@ -512,12 +519,96 @@ def test_moe_function_gradient_matches_plain_autograd(dev, top_k):
             for s in ((8, c_n, 64), (512, 8, c_n), (1, 1))]
     leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
     before = moe_gate_dispatch.launches
+    bwd = moe_gate_route_backward.launches
     outs = moe_gate_dispatch(*leaves, 8, c_n, top_k)
     assert moe_gate_dispatch.launches == before + 1
     got = torch.autograd.grad(outs, leaves, cots)
+    assert moe_gate_route_backward.launches == bwd + 1
     ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
     want = torch.autograd.grad(
         moe_gate_dispatch_reference(*ref_leaves, 8, c_n, top_k), ref_leaves,
+        cots)
+    for name, g, w in zip(("x", "gate_w"), got, want):
+        _close(g, w, 1e-5, "d" + name)
+
+
+@pytest.mark.parametrize("t_n,d,e_n,c_n,top_k,ties", _MOE_CASES)
+def test_moe_routing_form_matches_plain_and_repeats(dev, t_n, d, e_n, c_n,
+                                                    top_k, ties):
+    x, gw = _moe_inputs(t_n, d, e_n, dev, ties=ties)
+    runs = [moe_gate_route_launch(x, gw, e_n, c_n, top_k, dense=dense)
+            for dense in (False, True, False)]
+    ei, sw, aux, slot_of, slot_token, probs, idx, first, _ = runs[0]
+    ei_r, sw_r, aux_r, slot_of_r, slot_token_r = moe_gate_route_reference(
+        x, gw, e_n, c_n, top_k)
+    _, idx_r, _ = moe_routing_reference(x, gw, e_n, c_n, top_k)
+    _, cb_r, _ = moe_gate_dispatch_reference(x, gw, e_n, c_n, top_k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_r)
+    assert torch.equal(slot_of, slot_of_r)
+    assert torch.equal(slot_token, slot_token_r)
+    assert torch.equal(ei, ei_r)
+    assert torch.equal(first.long(), torch.bincount(idx_r[0].long(),
+                                                    minlength=e_n))
+    _close(sw, sw_r, 1e-6, "slot_weight")
+    _close(aux, aux_r, 1e-6, "aux")
+    _close(runs[1][8], cb_r, 1e-6, "combine")
+    # the dense contract changes nothing else, and a call repeats bit
+    # for bit
+    for other in runs[1:]:
+        for a, b in zip(runs[0][:8], other[:8]):
+            assert torch.equal(a, b)
+
+
+def _route_cotangents(e_n, c_n, d, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dev)
+            for s in ((e_n, c_n, d), (e_n, c_n), (1, 1))]
+
+
+@pytest.mark.parametrize("t_n,d,e_n,c_n,top_k,ties", _MOE_CASES)
+@pytest.mark.parametrize("which", ["all", "expert_in", "slot_weight", "aux"])
+def test_moe_backward_kernel_matches_plain_vjp(dev, t_n, d, e_n, c_n, top_k,
+                                               ties, which):
+    x, gw = _moe_inputs(t_n, d, e_n, dev, seed=3, ties=ties)
+    (_, _, _, slot_of, _, probs, idx, first,
+     _) = moe_gate_route_launch(x, gw, e_n, c_n, top_k)
+    cots = _route_cotangents(e_n, c_n, d, dev, 4)
+    if which != "all":
+        keep = ("expert_in", "slot_weight", "aux").index(which)
+        cots = [c if i == keep else None for i, c in enumerate(cots)]
+    want = moe_gate_route_vjp(x, gw, probs, idx, slot_of, *cots)
+    before = moe_gate_route_backward.launches
+    got = moe_gate_route_backward(x, gw, probs, idx, slot_of, first, *cots,
+                                  capacity=c_n)
+    again = moe_gate_route_backward(x, gw, probs, idx, slot_of, first, *cots,
+                                    capacity=c_n)
+    assert moe_gate_route_backward.launches == before + 2
+    for name, g, w, a in zip(("dx", "dgate_w"), got, want, again):
+        _close(g, w, 1e-5, name)
+        assert torch.equal(g, a), name
+    kern = [moe_route_backward_launch(gw, probs, idx, slot_of, first, *cots,
+                                      c_n, d) for _ in range(2)]
+    for a, b in zip(*kern):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_route_function_gradient_matches_plain_autograd(dev, top_k):
+    x, gw = _moe_inputs(512, 64, 8, dev, seed=1)
+    c_n = 100
+    cots = _route_cotangents(8, c_n, 64, dev, 2)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+    fwd, bwd = moe_gate_dispatch.launches, moe_gate_route_backward.launches
+    outs = moe_gate_route(*leaves, 8, c_n, top_k)
+    assert moe_gate_dispatch.launches == fwd + 1
+    assert [o.requires_grad for o in outs] == [True, True, True, False,
+                                               False]
+    got = torch.autograd.grad(outs[:3], leaves, cots)
+    assert moe_gate_route_backward.launches == bwd + 1
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, gw)]
+    want = torch.autograd.grad(
+        moe_gate_route_reference(*ref_leaves, 8, c_n, top_k)[:3], ref_leaves,
         cots)
     for name, g, w in zip(("x", "gate_w"), got, want):
         _close(g, w, 1e-5, "d" + name)
@@ -552,6 +643,45 @@ def test_moe_dense_has_no_plain_path_on_the_card(dev):
     with pytest.raises(ValueError, match="dtype"):
         moe_dense(*(t.bfloat16() for t in (x, gw, wi, wo)), top_k=2)
     assert moe_gate_dispatch.launches == before + 1
+
+
+def test_moe_dense_forms_no_dense_combine_on_the_card(dev):
+    """moe_dense's forward and backward on the card: one forward and one
+    backward kernel launch, and no tensor as large as a [T, E, C]
+    combine, neither made by an op nor saved for the backward."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from paddle_tpu_torch.parallel.moe import _capacity, moe_dense
+
+    class Largest(TorchDispatchMode):
+        largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    Largest.largest = max(Largest.largest, t.numel())
+            return out
+
+    t_n, d, e_n, h = 512, 64, 8, 32
+    x, gw = _moe_inputs(t_n, d, e_n, dev, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    wi = (torch.randn((e_n, d, h), generator=gen) * 0.1).to(dev)
+    wo = (torch.randn((e_n, h, d), generator=gen) * 0.1).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gw, wi, wo)]
+    tec = t_n * e_n * _capacity(t_n, e_n, 1.25, 2)
+    saved = []
+    fwd, bwd = moe_gate_dispatch.launches, moe_gate_route_backward.launches
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t.numel()) or t, lambda t: t):
+        with Largest():
+            y, aux = moe_dense(*leaves, top_k=2)
+            torch.autograd.grad(y.sum() + aux, leaves)
+    torch.cuda.synchronize()
+    assert moe_gate_dispatch.launches == fwd + 1
+    assert moe_gate_route_backward.launches == bwd + 1
+    assert saved and max(saved) < tec
+    assert 0 < Largest.largest < tec
 
 
 # -- the data-parallel and MoE paths on the card ----------------------------

@@ -4,6 +4,7 @@ checkouts of the port on the same card (for instance a parent commit's
 
     python3 tools/torch_tree_probe.py paged [--package-root DIR]
     python3 tools/torch_tree_probe.py dp-memory [--package-root DIR]
+    python3 tools/torch_tree_probe.py moe-memory [--package-root DIR]
     python3 tools/torch_tree_probe.py sgd-sweep
 
 paged      device time (torch.profiler) and launch grid of the
@@ -13,6 +14,9 @@ dp-memory  chip_smoke.py's dp phase model and steps under the CUDA
            allocator's history: the peak of allocated bytes, the step it
            sat in, and the bytes live at that peak by the lines of the
            package that allocated them;
+moe-memory the same for chip_smoke.py's moe phase: the MoE LM's steps
+           on the kernel path and on the plain path (the dense
+           einsums), each from a fresh startup;
 sgd-sweep  csrc/fused_update.cu built once for each setting of its
            SGD_UNROLL / SGD_BLOCKS_PER_SM / SGD_STREAMING switches and
            timed in place at the dp path's largest bucket beside
@@ -124,8 +128,15 @@ def dp_memory(cs, dev):
         torch.cuda.memory._record_memory_history(enabled=None)
         dist.destroy_process_group()
         torch.cuda.empty_cache()
-    # replay the history: allocated bytes rise at each alloc and fall at
-    # each free the program requests
+    emit({"probe": "dp-memory", "max_memory_allocated": peak,
+          **_peak_sites(trace, base, marks)})
+
+
+def _peak_sites(trace, base, marks):
+    """Replay an allocator history (allocated bytes rise at each alloc
+    and fall at each free the program requests) -> the peak, the step it
+    sat in (`marks`: each step's first event) and the bytes live at it
+    by the lines of the package that allocated them."""
     cur, top, at = base, base, 0
     for i, ev in enumerate(trace):
         if ev["action"] == "alloc":
@@ -147,15 +158,62 @@ def dp_memory(cs, dev):
         groups[key][0] += ev["size"]
         groups[key][1] += 1
     step = sum(m <= at for m in marks)
-    emit({"probe": "dp-memory", "max_memory_allocated": peak,
-          "replayed_peak": top, "before_trace": base,
-          "peak_in_step": step if step else None,
-          "peak_event": {k: trace[at].get(k) for k in ("action", "size")},
-          "peak_event_frames": _repo_frames(trace[at].get("frames", []))[:4],
-          "live_at_peak_by_site": sorted(
-              ({"bytes": b, "blocks": n, "site": k}
-               for k, (b, n) in groups.items()),
-              key=lambda r: -r["bytes"])[:16]})
+    return {"replayed_peak": top, "before_trace": base,
+            "peak_in_step": step if step else None,
+            "peak_event": {k: trace[at].get(k) for k in ("action", "size")},
+            "peak_event_frames": _repo_frames(trace[at].get("frames",
+                                                            []))[:4],
+            "live_at_peak_by_site": sorted(
+                ({"bytes": b, "blocks": n, "site": k}
+                 for k, (b, n) in groups.items()),
+                key=lambda r: -r["bytes"])[:16]}
+
+
+def moe_memory(cs, dev):
+    import contextlib
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models.moe import build_moe_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fw.reset_unique_names()
+    main, startup, loss = build_moe_lm(
+        cs.M_BATCH, cs.M_SEQ, cs.M_VOCAB, cs.M_D, cs.M_HEADS, cs.M_LAYERS,
+        cs.M_EXPERTS, cs.M_TOPK, cs.M_CF, aux_weight=cs.M_AUX)
+    # the moe phase's kernel path, and its plain path (the dense
+    # einsums, chip_smoke's _PlainMoe), each from a fresh startup
+    for path in ("kernel", "plain"):
+        prev = executor_mod.switch_scope(Scope())
+        marks = []
+        try:
+            exe = fluid.Executor(CUDAPlace(0), seed=cs.SEED)
+            exe.run(startup)
+            cs._reset_peak()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.memory._record_memory_history(max_entries=4_000_000,
+                                                     stacks="python")
+            with (cs._PlainMoe() if path == "plain"
+                  else contextlib.nullcontext()):
+                for step in range(cs.T_STEPS):
+                    marks.append(len(torch.cuda.memory._snapshot()
+                                     ["device_traces"][dev.index]))
+                    exe.run(main, feed=cs._train_feed(step),
+                            fetch_list=[loss])
+                    torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            trace = torch.cuda.memory._snapshot()["device_traces"][dev.index]
+            del exe
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+            executor_mod.switch_scope(prev)
+            torch.cuda.empty_cache()
+        emit({"probe": "moe-memory", "path": path,
+              "max_memory_allocated": peak,
+              **_peak_sites(trace, base, marks)})
 
 
 _SWEEP = {"SGD_UNROLL": (1, 2, 4, 8), "SGD_BLOCKS_PER_SM": (0, 8, 16, 32),
@@ -227,7 +285,8 @@ def sgd_sweep(cs, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=("paged", "dp-memory", "sgd-sweep"))
+    ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
+                                      "sgd-sweep"))
     ap.add_argument("--package-root", default=ROOT,
                     help="import paddle_tpu_torch from this checkout")
     args = ap.parse_args()
@@ -245,7 +304,7 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     emit({"probe": args.probe, "card": smi,
           "package": os.path.dirname(paddle_tpu_torch.__file__)})
-    {"paged": paged, "dp-memory": dp_memory,
+    {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
      "sgd-sweep": sgd_sweep}[args.probe](cs, dev)
     return 0
 

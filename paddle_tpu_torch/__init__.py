@@ -15,9 +15,12 @@ regularization, and the SGD/Momentum/Adam optimizers, with the
 flash-attention op on hand-written CUDA forward and backward kernels;
 data-parallel training through ParallelExecutor's bucketed overlap step
 (parallel/), with the fused bucket SGD update in a CUDA kernel; and the
-MoE FFN op, with gate and dispatch in a CUDA kernel.
+MoE FFN op, with gate and dispatch in a CUDA kernel; bf16 mixed
+precision (`fluid.amp`), with explicit gradients for `mul` and
+`flash_attention`.
 """
 from . import (  # noqa: F401
+    amp,
     backward,
     clip,
     initializer,

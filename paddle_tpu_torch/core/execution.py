@@ -4,7 +4,9 @@ Counterpart of paddle_tpu/core/execution.py.  A lowering gets `ins` as
 {slot: [tensor or None, ...]} and an `ExecContext` naming the device to
 create new tensors on and the `torch.Generator` random ops draw from.
 
-Gradient ops named "<type>_grad" with no lowering of their own run
+Gradient ops named "<type>_grad" with no lowering of their own run the
+forward op's `grad_lower` where it registered one (mul and
+flash_attention: their gradients without a forward recompute), else
 `generic_grad_lower`: the forward lowering is re-run under torch
 autograd with the differentiable inputs as leaves, and
 `torch.autograd.grad` pulls the output cotangents back to them.  Every
@@ -158,6 +160,8 @@ def run_op(ctx: ExecContext, op, env):
     attrs = {**info.attrs, **op.attrs}
     if info.type == t:  # explicit lowering (fwd op, or an own grad op)
         outs = info.lower(op_ctx, ins, attrs)
+    elif info.grad_lower is not None:  # "<fwd>_grad", explicit
+        outs = info.grad_lower(op_ctx, ins, attrs)
     else:  # generic "<fwd>_grad" resolved to the forward info
         outs = generic_grad_lower(op_ctx, ins, attrs, info)
     scatter_outputs(op, env, outs)

@@ -72,6 +72,15 @@ define_flag("trace_dir", "",
             "(paddle_tpu_torch.observability.tracing): setting it "
             "enables span recording and auto-writes trace_<pid>.json "
             "at process exit")
+define_flag("amp_bf16", False,
+            "mixed precision (paddle_tpu_torch.amp): mul casts float32 "
+            "operands to bfloat16 at its input edge, an elementwise op "
+            "meeting bfloat16 and float32 computes in bfloat16, softmax "
+            "and the cross-entropy losses upcast bfloat16 inputs to "
+            "float32, and parameters stay float32 (master weights).  "
+            "Read by the op lowerings at BUILD time (shape inference "
+            "types the Program's vars) and at RUN time, so keep it "
+            "fixed between building a Program and running it")
 define_flag("remat", False,
             "default rematerialization for model builders that accept "
             "remat=None.  Read at BUILD time; layers.recompute is not "

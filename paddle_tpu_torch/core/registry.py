@@ -8,10 +8,12 @@ build-time shape inference, which runs it on ``device="meta"`` tensors
 
 Gradients: an op may register an explicit `grad_maker` or a lowering of
 its own "<type>_grad" op (lookup_table_grad); otherwise "<type>_grad"
-resolves to the forward op's info and runs the generic gradient
-(core/execution.generic_grad_lower: torch autograd over the forward
-lowering).  `diff_inputs`/`diff_outputs` name the slots it
-differentiates.
+resolves to the forward op's info and runs its `grad_lower` when one is
+registered (`register_grad_lower`: mul, flash_attention), else the
+generic gradient (core/execution.generic_grad_lower: torch autograd over
+the forward lowering).  Either way the grad op in the Program is the
+generic one, as in the JAX package.  `diff_inputs`/`diff_outputs` name
+the slots it differentiates.
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ class OpInfo:
     # grad_maker(op, block, out_grad_names, no_grad_set, partials) ;
     # None = the generic "<type>_grad" op (backward.py)
     grad_maker: Callable = None
+    # grad_lower(ctx, ins, attrs) -> {"<in_slot>@GRAD": [...]}: computes
+    # the generic "<type>_grad" op (its slots) without re-running the
+    # forward; None = core/execution.generic_grad_lower
+    grad_lower: Callable = None
     # input/output slots that are differentiable (None = all)
     diff_inputs: Optional[Sequence[str]] = None
     diff_outputs: Optional[Sequence[str]] = None
@@ -96,6 +102,19 @@ def register_grad_maker(type: str):
     def deco(fn):
         info = _REGISTRY.setdefault(type, OpInfo(type=type))
         info.grad_maker = fn
+        return fn
+
+    return deco
+
+
+def register_grad_lower(type: str):
+    """Decorator: `fn(ctx, ins, attrs)` runs op `type`'s generic
+    "<type>_grad" op in place of the generic gradient; the grad op and
+    its slots in the Program stay the generic ones."""
+
+    def deco(fn):
+        info = _REGISTRY.setdefault(type, OpInfo(type=type))
+        info.grad_lower = fn
         return fn
 
     return deco

@@ -13,9 +13,13 @@ CPU for the tests.
 `flash_attention(q, k, v, causal, scale)` on [batch, seq, heads,
 head_dim] tensors is a `torch.autograd.Function`: its forward launches
 the forward kernel (`flash_attention_fwd`) and saves q, k, v, o and the
-logsumexp; its backward computes delta = rowsum(dO * O) in PyTorch (as
-the JAX package does outside its kernels) and launches the dQ and dK/dV
-kernels (`flash_attention_dq`, `flash_attention_dkv`).  Each of the
+logsumexp; its backward (`flash_attention_bwd`) computes delta =
+rowsum(dO * O) in PyTorch (as the JAX package does outside its kernels)
+and launches the dQ and dK/dV kernels (`flash_attention_dq`,
+`flash_attention_dkv`).  The logsumexp also rides on the returned
+tensor (`saved_lse(o)`), so the `flash_attention` op's gradient
+(ops/attention.py) runs the backward without re-running the forward.
+Each of the
 three wrappers has its plain version beside it (`*_reference`, the same
 function in plain PyTorch) and counts its launches in
 `flash_attention.launches`.  A CPU (or meta) tensor runs the plain
@@ -37,7 +41,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_supports", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_fwd_reference", "flash_attention_dq_reference",
-           "flash_attention_dkv_reference", "attention_delta", "build",
+           "flash_attention_dkv_reference", "flash_attention_bwd",
+           "attention_delta", "saved_lse", "build",
            "SUPPORTED_HEAD_DIMS", "SOURCE"]
 
 SOURCE = "flash_attention.cu"
@@ -321,6 +326,25 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     return dk, dv
 
 
+def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
+    """The backward from the forward's output `o` and its `lse`: delta =
+    rowsum(dO * O), then the dQ and dK/dV kernels -> (dq, dk, dv); two
+    launches.  CPU tensors run the plain versions."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+_LSE_ATTR = "flash_attention_lse"
+
+
+def saved_lse(o):
+    """The logsumexp the forward kernel wrote beside `o` (a tensor
+    `flash_attention` returned on a card), or None."""
+    return getattr(o, _LSE_ATTR, None)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernels under autograd, in the setup_context form (so
     torch.func transforms accept it too)."""
@@ -340,12 +364,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        delta = attention_delta(o, do)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.causal,
-                                ctx.scale)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.causal,
-                                     ctx.scale)
-        return dq, dk, dv, None, None
+        return (*flash_attention_bwd(q, k, v, o, do, lse, ctx.causal,
+                                     ctx.scale), None, None)
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
@@ -353,11 +373,13 @@ def flash_attention(q, k, v, causal=False, scale=None):
     another seq length).  `scale` None means 1/sqrt(head_dim).  CPU and
     meta tensors run the plain version; CUDA tensors launch the kernels
     (forward now, dQ and dK/dV when autograd asks for gradients) or
-    raise when the kernels cannot take them."""
+    raise when the kernels cannot take them.  On a card the result
+    carries the forward's logsumexp (`saved_lse`)."""
     if q.device.type != "cuda":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     _validate(q, k, v)
-    o, _ = _FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale))
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale))
+    setattr(o, _LSE_ATTR, lse)
     return o
 
 

@@ -4,6 +4,7 @@ BOTH the main program's global block (as inputs to compute ops) and the
 startup program (where their init ops run once)."""
 from __future__ import annotations
 
+from .amp import is_bf16_enabled
 from .core.framework import (
     default_main_program,
     default_startup_program,
@@ -68,6 +69,11 @@ class LayerHelper:
             init = (ConstantInitializer(0.0) if is_bias
                     else XavierInitializer())
         shape = [int(s) for s in shape]
+        # amp master weights: a layer whose input is a bf16 amp
+        # intermediate still makes an f32 parameter (bf16 optimizer
+        # state is numerically unsound)
+        if is_bf16_enabled() and str(dtype) == "bfloat16":
+            dtype = "float32"
         main_p = self.main_program.global_block().create_parameter(
             name, shape, dtype,
             trainable=attr.get("trainable", True),
@@ -87,14 +93,27 @@ class LayerHelper:
     def append_op(self, *a, **kw):
         return self.block.append_op(*a, **kw)
 
+    # mixed float widths are legal under amp (an embedding path stays
+    # f32 while a mul path emits bf16); the widest wins, so parameters
+    # made from it stay f32.  Any other mix (float64, int with float)
+    # raises
+    _FLOAT_WIDTH = {"float32": 3, "bfloat16": 2, "float16": 1}
+
     def input_dtype(self, name="input"):
-        inputs = self.multiple_input(name)
-        dtype = inputs[0].dtype
-        for v in inputs[1:]:
-            if v.dtype != dtype:
+        dtype = None
+        for v in self.multiple_input(name):
+            if dtype is None or dtype == v.dtype:
+                dtype = v.dtype
+            elif str(dtype) in self._FLOAT_WIDTH \
+                    and str(v.dtype) in self._FLOAT_WIDTH:
+                if self._FLOAT_WIDTH[str(v.dtype)] \
+                        > self._FLOAT_WIDTH[str(dtype)]:
+                    dtype = v.dtype
+            else:
                 raise ValueError(
-                    f"all inputs must have the same dtype (got {dtype} "
-                    f"and {v.dtype})")
+                    f"all inputs must have the same dtype, or mix only "
+                    f"the amp float widths float16/bfloat16/float32 "
+                    f"(got {dtype} and {v.dtype})")
         return dtype
 
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):

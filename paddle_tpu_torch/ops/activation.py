@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import amp_upcast
 from ..core.execution import one
 from ..core.registry import register_op
 
@@ -25,5 +26,6 @@ def sqrt(ctx, ins, attrs):
 
 @register_op("softmax", inputs=("X",), outputs=("Out",))
 def softmax(ctx, ins, attrs):
-    """Reference softmax_op.cc: softmax over the last dim."""
-    return {"Out": torch.softmax(one(ins, "X"), dim=-1)}
+    """Reference softmax_op.cc: softmax over the last dim.  Under amp a
+    bf16 input is upcast to f32 (numerically sensitive)."""
+    return {"Out": torch.softmax(amp_upcast(one(ins, "X")), dim=-1)}

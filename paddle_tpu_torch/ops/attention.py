@@ -1,29 +1,58 @@
-"""The `flash_attention` op (counterpart of paddle_tpu/ops/attention.py).
+"""The `flash_attention` op and its gradient (counterpart of
+paddle_tpu/ops/attention.py).
 
-On CUDA tensors it runs the hand-written flash-attention kernels
-(kernels/flash_attention.py: forward here, dQ and dK/dV when the
-generic gradient differentiates it), and a call the kernels do not take
-(head_dim, dtype, shape) raises there.  CPU and meta tensors
-(build-time shape inference) run the plain composition.  The
-`min_seq_k` attr is kept so Programs equal the JAX package's, and is
-not read: the JAX op's crossover was measured on a TPU.  The JAX op's
-sequence-parallel branch (sp_axis) is ROADMAP A9.
+On CUDA tensors the forward runs the hand-written flash-attention
+kernel (kernels/flash_attention.py), whose output carries the forward's
+logsumexp, and the gradient runs the dQ and dK/dV kernels from `Out`,
+`Out@GRAD` and that logsumexp, with no forward recompute; a call the
+kernels do not take (head_dim, dtype, shape) raises there.  CPU and meta
+tensors (build-time shape inference) run the plain composition, and
+their gradient is its autograd gradient.  The `min_seq_k` attr is kept
+so Programs equal the JAX package's, and is not read: the JAX op's
+crossover was measured on a TPU.  The JAX op's sequence-parallel branch
+(sp_axis) is ROADMAP A9.
 """
 from __future__ import annotations
 
-from ..core.execution import one
-from ..core.registry import register_op
-from ..kernels.flash_attention import flash_attention
+from ..core.execution import generic_grad_lower, one
+from ..core.registry import get_op_info, register_grad_lower, register_op
+from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                       flash_attention_fwd, saved_lse)
+
+
+def _causal_scale(attrs):
+    """(causal, scale): default_scale=True -> scale None, 1/sqrt(head_dim);
+    otherwise the explicit `scale` attr."""
+    scale = None if attrs.get("default_scale", True) else attrs["scale"]
+    return bool(attrs.get("causal", False)), scale
 
 
 @register_op("flash_attention", inputs=("Q", "K", "V"), outputs=("Out",),
              attrs={"causal": False, "scale": 1.0, "default_scale": True,
                     "min_seq_k": -1})
 def flash_attention_op(ctx, ins, attrs):
-    """Q/K/V: [batch, seq, heads, head_dim].  default_scale=True ->
-    1/sqrt(head_dim); otherwise the explicit `scale` attr."""
-    q, k, v = one(ins, "Q"), one(ins, "K"), one(ins, "V")
-    scale = None if attrs.get("default_scale", True) else attrs["scale"]
-    return {"Out": flash_attention(q, k, v,
-                                   causal=bool(attrs.get("causal", False)),
+    """Q/K/V: [batch, seq, heads, head_dim]."""
+    causal, scale = _causal_scale(attrs)
+    return {"Out": flash_attention(one(ins, "Q"), one(ins, "K"),
+                                   one(ins, "V"), causal=causal,
                                    scale=scale)}
+
+
+@register_grad_lower("flash_attention")
+def flash_attention_grad(ctx, ins, attrs):
+    """Q@GRAD, K@GRAD, V@GRAD.  On a card: the backward kernels from the
+    forward's `Out` and the logsumexp it carries; an `Out` without one
+    (not made by the forward kernel) re-runs the forward kernel for
+    it.  CPU tensors: the plain composition's autograd gradient."""
+    q, k, v = one(ins, "Q"), one(ins, "K"), one(ins, "V")
+    if q.device.type != "cuda":
+        return generic_grad_lower(ctx, ins, attrs,
+                                  get_op_info("flash_attention"))
+    causal, scale = _causal_scale(attrs)
+    out = one(ins, "Out")
+    lse = saved_lse(out)
+    if lse is None:
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, one(ins, "Out@GRAD"),
+                                     lse, causal, scale)
+    return {"Q@GRAD": [dq], "K@GRAD": [dk], "V@GRAD": [dv]}

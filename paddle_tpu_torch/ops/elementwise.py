@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import is_bf16_enabled
 from ..core.execution import many, one
 from ..core.registry import register_op
 
@@ -29,9 +30,19 @@ def _make_elementwise(name, fn):
                  attrs={"axis": -1})
     def lower(ctx, ins, attrs, _fn=fn):
         x, y = one(ins, "X"), one(ins, "Y")
+        if _amp_mixed(x, y):
+            # under amp, a bf16 activation meeting an f32 side (bias,
+            # residual) computes in bf16: the activation chain stays bf16
+            # instead of promoting back to f32
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
         return {"Out": _fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))}
 
     return lower
+
+
+def _amp_mixed(x, y) -> bool:
+    return is_bf16_enabled() and {x.dtype, y.dtype} == {torch.bfloat16,
+                                                        torch.float32}
 
 
 elementwise_add = _make_elementwise("elementwise_add", torch.add)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import amp_upcast
 from ..core.execution import one
 from ..core.registry import register_infer_shape, register_op
 from ..core.shape_inference import input_var, set_output_shape
@@ -19,7 +20,8 @@ def _take_label(x, label):
 @register_op("cross_entropy", inputs=("X", "Label"), outputs=("Y",),
              attrs={"soft_label": False}, diff_inputs=("X",))
 def cross_entropy(ctx, ins, attrs):
-    x = one(ins, "X")
+    # numerically sensitive tail: bf16 probabilities upcast to f32
+    x = amp_upcast(one(ins, "X"))
     # additive eps (not clamp): keeps a finite, recovery-capable gradient
     # -1/(p+eps) when the softmax saturates to p≈0 on the true class
     eps = torch.tensor(1e-10 if x.dtype == torch.float32 else 1e-20,
@@ -37,7 +39,7 @@ def cross_entropy(ctx, ins, attrs):
              attrs={"soft_label": False},
              diff_inputs=("Logits",), diff_outputs=("Loss",))
 def softmax_with_cross_entropy(ctx, ins, attrs):
-    log_p = torch.log_softmax(one(ins, "Logits"), dim=-1)
+    log_p = torch.log_softmax(amp_upcast(one(ins, "Logits")), dim=-1)
     if attrs.get("soft_label"):
         loss = -torch.sum(one(ins, "Label") * log_p, dim=-1, keepdim=True)
     else:

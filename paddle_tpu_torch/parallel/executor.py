@@ -75,6 +75,16 @@ def _plan_flags() -> tuple:
     return int(get_flag("overlap_bucket_bytes")), kernels_mode()
 
 
+def _bucket_grad(t, name, dtype):
+    """A gradient flattened into its bucket, which holds `dtype` (its
+    parameter's): another dtype (a bf16 gradient of an f32 master
+    weight) raises rather than being promoted by the concatenation."""
+    if t.dtype != torch_dtype(dtype):
+        raise TypeError(f"gradient {name!r} is {t.dtype}, but its bucket "
+                        f"holds {dtype} (its parameter's dtype)")
+    return t.reshape(-1)
+
+
 class ParallelExecutor:
     """Data-parallel executor over `mesh` ({"dp": n} or a `Mesh`).
 
@@ -564,8 +574,8 @@ class ParallelExecutor:
                 # a fresh flat buffer per bucket: the all-reduce writes
                 # in place, and a gradient may alias a value the rest of
                 # the backward still reads
-                flat = torch.cat([env.get(g).reshape(-1)
-                                  for g, _, _ in buckets[b]])
+                flat = torch.cat([_bucket_grad(env.get(g), g, dtype)
+                                  for g, _, dtype in buckets[b]])
                 pending.append((b, flat,
                                 self._all_reduce(flat, "grad_all_reduce")
                                 if group is not None else None))

@@ -6,6 +6,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py dp-memory [--package-root DIR]
     python3 tools/torch_tree_probe.py moe-memory [--package-root DIR]
     python3 tools/torch_tree_probe.py sgd-sweep
+    python3 tools/torch_tree_probe.py host [--fp32] [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -21,7 +22,15 @@ sgd-sweep  csrc/fused_update.cu built once for each setting of its
            SGD_UNROLL / SGD_BLOCKS_PER_SM / SGD_STREAMING switches and
            timed in place at the dp path's largest bucket beside
            torch.add and p.add_ (CUDA events, cold L2, three rounds
-           interleaved); every variant is checked bit for bit.
+           interleaved); every variant is checked bit for bit;
+host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
+           trained 3 steps, then one more under torch.profiler with
+           every Program op in a record_function: the step's wall time,
+           device time and host time by op type (inclusive, so an op
+           that waits on the device carries the wait), and the CUDA
+           runtime calls (launches, copies, synchronisations) by count
+           and host time.  dp-memory and moe-memory run amp, as the dp
+           and moe phases do, where the package has it.
 
 The measuring code is this checkout's chip_smoke.py; `paddle_tpu_torch`
 is imported from DIR (default: this checkout).  Each result is one JSON
@@ -98,6 +107,7 @@ def dp_memory(cs, dev):
     from paddle_tpu_torch import CUDAPlace
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    _amp_on(fluid)
     main, startup, loss = cs._lm_program(fluid.SGD(learning_rate=0.01))
     persist = [v.name for v in main.list_vars() if v.persistable]
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -180,6 +190,7 @@ def moe_memory(cs, dev):
     from paddle_tpu_torch.models.moe import build_moe_lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    _amp_on(fluid)
     fw.reset_unique_names()
     main, startup, loss = build_moe_lm(
         cs.M_BATCH, cs.M_SEQ, cs.M_VOCAB, cs.M_D, cs.M_HEADS, cs.M_LAYERS,
@@ -283,10 +294,78 @@ def sgd_sweep(cs, dev):
               "ms_rounds": ms, "ptxas": ptxas.get(name)})
 
 
+def _amp_on(fluid):
+    """bf16 amp on, as chip_smoke's amp phases run, where the package
+    has it (a parent checkout may not)."""
+    if hasattr(fluid, "amp"):
+        fluid.amp.enable_bf16()
+
+
+def host(cs, dev, fp32=False):
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not fp32:
+        _amp_on(fluid)
+    main, startup, loss = cs._lm_program(
+        fluid.Momentum(learning_rate=0.01, momentum=0.9))
+    executor_mod.switch_scope(Scope())
+    exe = fluid.Executor(CUDAPlace(0), seed=cs.SEED)
+    exe.run(startup)
+    secs = []
+    for step in range(cs.T_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=cs._train_feed(step), fetch_list=[loss])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    run_op = executor_mod.run_op
+
+    def traced(ctx, op, env):
+        with record_function("op:" + op.type):
+            return run_op(ctx, op, env)
+
+    executor_mod.run_op = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=cs._train_feed(cs.T_STEPS), fetch_list=[loss])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        executor_mod.run_op = run_op
+    by_op, runtime, device = {}, {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            device += ev.self_device_time_total / 1e3
+        elif ev.key.startswith("op:"):
+            by_op[ev.key[3:]] = [ev.count, ev.cpu_time_total / 1e3]
+        elif ev.key.startswith("cuda"):
+            runtime[ev.key] = [ev.count, ev.self_cpu_time_total / 1e3]
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][1])
+    emit({"probe": "host", "dtype": "float32" if fp32 else "bf16 amp",
+          "step_s": secs, "profiled_wall_ms": wall * 1e3,
+          "device_ms": device,
+          "ops": sum(c for c, _ in by_op.values()),
+          "op_host_ms": sum(ms for _, ms in by_op.values()),
+          "by_op_type_count_ms": dict(top),
+          "cuda_runtime_count_ms": runtime})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
-                                      "sgd-sweep"))
+                                      "sgd-sweep", "host"))
+    ap.add_argument("--fp32", action="store_true",
+                    help="host: the float32 train step (default: amp)")
     ap.add_argument("--package-root", default=ROOT,
                     help="import paddle_tpu_torch from this checkout")
     args = ap.parse_args()
@@ -304,8 +383,11 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     emit({"probe": args.probe, "card": smi,
           "package": os.path.dirname(paddle_tpu_torch.__file__)})
-    {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
-     "sgd-sweep": sgd_sweep}[args.probe](cs, dev)
+    if args.probe == "host":
+        host(cs, dev, fp32=args.fp32)
+    else:
+        {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
+         "sgd-sweep": sgd_sweep}[args.probe](cs, dev)
     return 0
 
 

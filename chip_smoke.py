@@ -41,13 +41,22 @@ Phases, one JSON line each:
            512, batch 8; Momentum) under bf16 amp, as run_ridge runs it
            (`fluid.amp.enable_bf16()` before the Program is built; f32
            master weights), built as a Fluid Program and
-           trained by the interpreter Executor from one seeded startup:
-           4 timed steps and one profiled step on the kernel path, then
-           4 from the same state on the plain path (the op's lowering
-           and its gradient swapped for the plain composition inside
-           this script): per-step losses and every weight matrix's
-           change compared; every parameter and parameter gradient
-           float32;
+           trained from one seeded startup in the Executor's default
+           mode, as the JAX package's cells run: the block compiled,
+           run eagerly at its miss, captured into a CUDA graph at its
+           first hit and replayed after (6 timed steps and one profiled
+           replay: one miss, then hits, no recompile; the kernels
+           counted at the eager run and the capture, and by the
+           profiler in the replay); then 6 from the same state in the
+           interpreter (compiled=False), whose losses and parameters
+           must equal the replay's bit for bit, and 6 on the plain path
+           (interpreted; the op's lowering and its gradient swapped for
+           the plain composition inside this script): per-step losses
+           and every weight matrix's change compared; every parameter
+           and parameter gradient float32; step time in both modes,
+           capture seconds, the replay's device time and idle share,
+           peak allocated and reserved memory, the interpreter's host
+           synchronisations;
   train_fp32  the same LM and steps in float32 (amp off);
   serve    the full-width LM of benchmark/run_generation.py (vocab
            32000, d_model 512, 8 heads, 6 layers, d_inner 2048) with
@@ -79,19 +88,23 @@ Phases, one JSON line each:
            defaults (vocab 30000, d_model 1024, 8 heads, 6 layers, 8
            experts, top-2, capacity factor 1.25, seq 512, batch 8;
            Momentum; bf16 amp as run_moe runs it, which leaves the MoE
-           FFN float32) trained by the interpreter Executor: the kernel
-           path (routing form, gather combine; no [T, E, C] tensor and no
-           GEMM with an E * C operand), then the plain path (the dense
-           einsums) from the same state, the for_test clone's forward on
-           both, and a profiled step of each with its GEMMs split by
-           shape.
+           FFN float32) trained as the train phase is: the kernel path
+           in the default mode (routing form, gather combine; no
+           [T, E, C] tensor and no GEMM with an E * C operand; the
+           replay held bit for bit to the interpreter), then the plain
+           path (the dense einsums, interpreted) from the same state,
+           the for_test clone's forward on both, and a profiled step of
+           each with its GEMMs split by shape.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 phase's too), the kernel-path serve and spec phases (paged
 attention), the dp phase's fused run (fused bucket update) and the moe
 phase's kernel path (MoE gate + dispatch and its backward): each
 kernel's launch counts are zeroed just before its path and read just
-after.
+after.  A CUDA graph's replay runs the captured kernels without their
+wrappers, so on the train and moe paths the counts cover the eager
+first step and the capture, and the kernels line adds the profiler's
+count in a replayed step.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -126,6 +139,10 @@ KV_DTYPES = ("fp32", "bf16", "int8")
 # the training configuration: benchmark/run_ridge.py's defaults
 T_VOCAB, T_D, T_HEADS, T_LAYERS, T_SEQ, T_BATCH = 30000, 2048, 16, 12, 512, 8
 T_STEPS = 4
+# the train and moe phases' steps in each mode: in the default mode the
+# miss (eager), the first hit (captured into a CUDA graph, then
+# replayed) and 4 replays
+G_STEPS = 6
 # kernel path vs plain path: per-step loss, and each weight matrix's
 # change over the steps (||dW_kernel - dW_plain|| / ||dW_plain||).  At
 # random init the attention is near uniform, so dS = P (dP - delta) is a
@@ -698,11 +715,11 @@ def _train_feed(step):
             "lbl": ((base + step + 1) % 97).astype(np.int64)[..., None]}
 
 
-def _timed_steps(run_step, counts):
-    """T_STEPS steps of `run_step(step)` (-> the loss) -> (losses, step
+def _timed_steps(run_step, counts, steps=T_STEPS):
+    """`steps` steps of `run_step(step)` (-> the loss) -> (losses, step
     seconds, per step {name: how much counts[name]() grew})."""
     losses, secs, per_step = [], [], []
-    for step in range(T_STEPS):
+    for step in range(steps):
         before = {k: f() for k, f in counts.items()}
         t0 = time.perf_counter()
         out = run_step(step)
@@ -783,22 +800,38 @@ def _gemm_split(prof, dim):
     return out
 
 
-def _profile_step(run_step, need, phase, gemm_dim=None):
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def _profile_step(run_step, need, phase, gemm_dim=None, kinds=None):
     """`run_step()` (one more step) under torch.profiler -> device time
-    by kernel group and the top kernels (self device time, ms), and with
-    `gemm_dim` the GEMMs split by that operand dimension (_gemm_split);
-    every group in `need` must show."""
+    by kernel group and the top kernels (self device time, ms), how many
+    kernels ran (and of each kind in `kinds`, {kind: a substring of the
+    kernel's name}), the device-to-device copies, the host's
+    synchronisations (CUDA runtime calls that wait for the card), the
+    step's span between CUDA events around it, and with `gemm_dim` the
+    GEMMs split by that operand dimension (_gemm_split); every group in
+    `need` must show."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=gemm_dim is not None) as prof:
+        start.record()
         run_step()
+        end.record()
         torch.cuda.synchronize()
-    kernels = {}   # device-side events only: host ops would count twice
+    kernels, counts, syncs = {}, {}, {}
+    # device-side events only: host ops would count twice
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
             kernels[ev.key] = ev.self_device_time_total / 1e3
+            counts[ev.key] = ev.count
+        elif ev.key in _SYNC_CALLS:
+            syncs[ev.key] = ev.count
     groups = {}
     for name, ms in kernels.items():
         g = _kernel_group(name)
@@ -807,11 +840,73 @@ def _profile_step(run_step, need, phase, gemm_dim=None):
         check(groups.get(g, 0.0) > 0,
               f"{phase}: the profile shows no {g} kernel: {groups}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    dtod = [n for n in kernels if n.startswith("Memcpy DtoD")]
     out = {"device_ms": sum(kernels.values()), "by_group_ms": groups,
-           "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+           "top_kernels_ms": [[n[:120], ms] for n, ms in top],
+           "kernels": sum(counts.values()),
+           "kind_counts": {k: sum(c for n, c in counts.items() if pat in n)
+                           for k, pat in (kinds or {}).items()},
+           "memcpy_dtod_ms": sum(kernels[n] for n in dtod),
+           "memcpy_dtod_count": sum(counts[n] for n in dtod),
+           "host_syncs": syncs, "event_ms": start.elapsed_time(end)}
     if gemm_dim is not None:
         out["gemm_split"] = _gemm_split(prof, gemm_dim)
     return out
+
+
+def _default_mode_path(exe, run, counts, want, kinds, need, phase,
+                       snapshot):
+    """The main path in the Executor's default mode: G_STEPS timed steps
+    (the miss runs the block eagerly, the first hit captures it into a
+    CUDA graph and replays it, every later hit replays) and a profiled
+    replay.  Holds the cache (one miss, then hits, no recompile after
+    warm-up), the graphs (one capture, then replays), the wrappers'
+    counts (`want` a step on the eager run and on the capture, none on a
+    replay) and the kernels the profiler saw the replay run (`want`
+    again, by `kinds`).  -> (losses, step seconds, per-step counts,
+    `snapshot()` after the timed steps, the profile, a record for the
+    phase's line)."""
+    s0, g0 = exe.cache_stats(), exe.graph_stats()
+    losses, secs, per_step = _timed_steps(run, counts, G_STEPS)
+    state = snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    zero = {k: 0 for k in want}
+    check(per_step[:2] == [want, want] and all(st == zero
+                                               for st in per_step[2:]),
+          f"{phase}: wrapper launches per step {per_step}: want {want} on "
+          "the eager run and the capture, none on a replay")
+    # the profiled step is a replay; the profiler may drop records of a
+    # window (see device_ms): up to three windows.  Its peak memory is a
+    # replay's alone
+    torch.cuda.reset_peak_memory_stats()
+    for windows in range(1, 4):
+        before = {k: f() for k, f in counts.items()}
+        profile = _profile_step(lambda: run(G_STEPS), need, phase,
+                                kinds=kinds)
+        check({k: f() - before[k] for k, f in counts.items()} == zero,
+              f"{phase}: a wrapper ran during the profiled replay")
+        if profile["kind_counts"] == want:
+            break
+    check(profile["kind_counts"] == want, f"{phase}: the profiled replay "
+          f"ran kernels {profile['kind_counts']}, want {want}")
+    replay_peak = torch.cuda.max_memory_allocated()
+    s1, g1 = exe.cache_stats(), exe.graph_stats()
+    stats = {k: s1[k] - s0[k] for k in ("hits", "misses", "entries",
+                                        "recompiles_after_warmup")}
+    graphs = {k: g1[k] - g0[k] for k in ("captures", "replays")}
+    check(stats == {"hits": G_STEPS - 1 + windows, "misses": 1,
+                    "entries": 1, "recompiles_after_warmup": 0}
+          and graphs == {"captures": 1, "replays": G_STEPS - 2 + windows},
+          f"{phase}: the main Program's cache {stats} and graphs {graphs}: "
+          "want one miss, then hits replaying one captured graph")
+    return losses, secs, per_step, state, profile, {
+        "cache": stats, "graphs": graphs, "profile_windows": windows,
+        "capture_s": g1["capture_s"] - g0["capture_s"],
+        "compile_s": s1["compile_s"] - s0["compile_s"],
+        "write_back_bytes": g1["write_back_bytes"],
+        "peak_memory_bytes": peak, "peak_reserved_bytes": reserved,
+        "replay_peak_memory_bytes": replay_peak}
 
 
 class _PlainAttention:
@@ -957,9 +1052,35 @@ def _grad_names(program):
             if "Param" in op.inputs and "Grad" in op.inputs}
 
 
+def _bit_equal(phase, k_loss, i_loss, k_params, current):
+    """The default mode's losses and parameters against the
+    interpreter's from the same state and feeds: bit for bit (same
+    kernels, same order, one stream); `current(n)` is the interpreter's
+    value now."""
+    check(k_loss == i_loss, f"{phase}: replayed losses {k_loss} differ "
+          f"from the interpreter's {i_loss}")
+    diff = sorted(n for n, v in k_params.items()
+                  if not torch.equal(v, current(n)))
+    check(not diff, f"{phase}: after the same steps {len(diff)} "
+          f"parameters differ between the replay and the interpreter: "
+          f"{diff[:5]}")
+
+
+def _interpreter_record(i_secs, i_profile):
+    step_ms = float(np.median(i_secs[1:])) * 1e3
+    return {"interpreted_ms_per_step": step_ms,
+            "interpreted_device_idle_share":
+                1.0 - i_profile["device_ms"] / step_ms,
+            "interpreted_profiled_step": i_profile,
+            "interpreted_host_syncs_per_step": i_profile["host_syncs"]}
+
+
 def train_phase(card, place, peaks, flash_cases, amp):
-    """The run_ridge LM trained by the interpreter Executor, under bf16
-    amp (phase "train", the main path) or in float32 ("train_fp32")."""
+    """The run_ridge LM trained in the Executor's default mode (the block
+    compiled: eager at the miss, then a CUDA graph, captured at the first
+    hit and replayed), under bf16 amp (phase "train", the main path) or
+    in float32 ("train_fp32"); then the interpreter and the plain path
+    from the same state."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.core.scope import Scope
@@ -997,22 +1118,37 @@ def train_phase(card, place, peaks, flash_cases, amp):
         run = lambda step: exe.run(  # noqa: E731
             main, feed=_train_feed(step), fetch_list=[loss])[0]
         counts = {k: (lambda k=k: launches[k]) for k in launches}
-        k_loss, k_secs, k_steps = _timed_steps(run, counts)
-        peak = torch.cuda.max_memory_allocated()
-        k_params = {n: scope.find_var(n).clone() for n in weights}
-        before = dict(launches)
-        fetched = []
-        profile = _profile_step(
-            lambda: fetched.extend(exe.run(
-                main, feed=_train_feed(T_STEPS),
-                fetch_list=[loss] + list(grads.values()),
-                return_numpy=False)),
-            ("flash_attention", "matmul"), phase)
-        k_steps.append({k: launches[k] - before[k] for k in launches})
-        k_total = dict(launches)
         want = {"fwd": T_LAYERS, "dq": T_LAYERS, "dkv": T_LAYERS}
-        check(all(st == want for st in k_steps),
-              f"{phase}: flash launches per step {k_steps}, want {want}")
+        k_loss, k_secs, k_steps, k_params, profile, graph = \
+            _default_mode_path(
+                exe, run, counts, want, {"fwd": "fwd_kernel<",
+                                         "dq": "dq_kernel<",
+                                         "dkv": "dkv_kernel<"},
+                ("flash_attention", "matmul"), phase,
+                lambda: {n: scope.find_var(n).clone() for n in grads})
+        k_total = dict(launches)
+        # the graph and its pool go before the interpreter's runs
+        exe.close()
+        exe = fluid.Executor(place, seed=SEED)
+
+        # the interpreter from the same state and feeds
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        run_i = lambda step: exe.run(  # noqa: E731
+            main, feed=_train_feed(step), fetch_list=[loss],
+            compiled=False)[0]
+        i_loss, i_secs, i_steps = _timed_steps(run_i, counts, G_STEPS)
+        check(all(st == want for st in i_steps),
+              f"{phase}: interpreter flash launches per step {i_steps}, "
+              f"want {want}")
+        _bit_equal(phase, k_loss, i_loss, k_params, scope.find_var)
+        fetched = []
+        i_profile = _profile_step(
+            lambda: fetched.extend(exe.run(
+                main, feed=_train_feed(G_STEPS),
+                fetch_list=[loss] + list(grads.values()),
+                return_numpy=False, compiled=False)),
+            ("flash_attention", "matmul"), phase)
         # master weights: every parameter and its gradient float32
         bad = sorted(({str(t.dtype) for t in fetched[1:]}
                       | {str(scope.find_var(p.name).dtype) for p in params})
@@ -1020,21 +1156,26 @@ def train_phase(card, place, peaks, flash_cases, amp):
         check(not bad, f"{phase}: parameters or gradients in {bad}")
         del fetched
 
-        # the plain path from the same state and feeds
+        # the plain path from the same state and feeds, interpreted (its
+        # counters tick at each run of the swapped lowering)
         for n in persist:
             scope.set_var(n, init[n].clone())
         with _PlainAttention() as plain:
-            p_loss, p_secs, p_steps = _timed_steps(run, counts)
+            p_loss, p_secs, p_steps = _timed_steps(
+                run_i, counts, G_STEPS)
         check(all(st == {"fwd": 0, "dq": 0, "dkv": 0} for st in p_steps),
               f"{phase}: the plain path launched flash kernels {p_steps}")
-        check(plain.calls == 2 * T_LAYERS * T_STEPS
-              and plain.grad_calls == T_LAYERS * T_STEPS,
+        check(plain.calls == 2 * T_LAYERS * G_STEPS
+              and plain.grad_calls == T_LAYERS * G_STEPS,
               f"{phase}: {plain.calls} plain attentions and "
               f"{plain.grad_calls} plain gradients on the plain path")
-        param_rel = _param_rel_diff(scope.find_var, init, k_params)
+        param_rel = _param_rel_diff(scope.find_var, init,
+                                    {n: k_params[n] for n in weights})
         del init, k_params
     finally:
         executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
         del exe
         torch.cuda.empty_cache()
         if amp:
@@ -1047,7 +1188,7 @@ def train_phase(card, place, peaks, flash_cases, amp):
           f"{param_rel[worst]} apart on the kernel and plain paths")
     tokens = T_BATCH * T_SEQ
     p_an = _param_count(T_VOCAB, T_D, T_LAYERS, T_SEQ)
-    step_s = float(np.median(k_secs[1:]))
+    step_s = float(np.median(k_secs[2:]))       # the replays
     plain_step_s = float(np.median(p_secs[1:]))
     fc = flash_cases["bf16_causal" if amp else "fp32_causal"]
     attn_ms = sum(fc[kind]["ms"] * want[kind] for kind in want)
@@ -1059,13 +1200,19 @@ def train_phase(card, place, peaks, flash_cases, amp):
           "n_heads": T_HEADS, "n_layers": T_LAYERS, "seq": T_SEQ,
           "batch": T_BATCH,
           "dtype": "bf16 amp, f32 master weights" if amp else "float32",
-          "optimizer": "momentum",
+          "optimizer": "momentum", "mode": "compiled (CUDA graph replay)",
           "params": n_params, "params_analytic": p_an,
-          "startup_s": startup_s, "steps": T_STEPS,
+          "startup_s": startup_s, "steps": G_STEPS,
           "kernel_path": {"losses": k_loss, "step_s": k_secs,
-                          "launches_per_step": k_steps[0],
-                          "launches": k_total},
+                          "launches_per_step": k_steps,
+                          "launches": k_total,
+                          "replayed_kernels_per_step":
+                              profile["kind_counts"], **graph},
+          "interpreter": {"losses": i_loss, "step_s": i_secs,
+                          "launches_per_step": i_steps[0],
+                          "bit_equal_to_replay": True},
           "plain_path": {"losses": p_loss, "step_s": p_secs,
+                         "mode": "interpreted",
                          "plain_attentions": plain.calls,
                          "plain_attention_grads": plain.grad_calls},
           "loss_diff": diff, "loss_limit": lim, "loss_diff_unit": unit,
@@ -1075,22 +1222,27 @@ def train_phase(card, place, peaks, flash_cases, amp):
                                      "per_weight": param_rel,
                                      "limit": p_lim},
           "ms_per_step": step_s * 1e3,
+          **_interpreter_record(i_secs, i_profile),
           "plain_ms_per_step": plain_step_s * 1e3,
           "tokens_per_s": tokens / step_s, **mfu,
           "attention_ms_per_step": attn_ms,
           "attention_share": attn_ms / (step_s * 1e3),
           "profiled_step": profile,
           "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
-          "peak_memory_bytes": peak,
-          "timing": "host clock around exe.run + synchronize; median of "
-                    "steps 2..N; attention from the flash phase's cold "
-                    "kernel ms (bf16 causal under amp) x launches per "
-                    "step; the profiled step (torch.profiler, one step "
-                    "after the timed ones, also fetching every "
-                    "parameter gradient) gives device time by kernel, "
-                    "and the idle share is 1 - its device time / the "
-                    "median step"})
-    return k_total
+          "peak_memory_bytes": graph["peak_memory_bytes"],
+          "peak_reserved_bytes": graph["peak_reserved_bytes"],
+          "timing": "host clock around exe.run + synchronize; ms_per_step "
+                    "the median of the replayed steps (3..N), the "
+                    "interpreter's and the plain path's of steps 2..N; "
+                    "attention from the flash phase's cold kernel ms "
+                    "(bf16 causal under amp) x launches per step; the "
+                    "profiled step (torch.profiler, a replay after the "
+                    "timed ones) gives device time by kernel, and the "
+                    "idle share is 1 - its device time / the median "
+                    "replayed step; peak memory over the default mode's "
+                    "steps (allocated, and reserved with the graph's "
+                    "pool)"})
+    return k_total, profile["kind_counts"]
 
 
 # -- serve / spec phases -----------------------------------------------------
@@ -1742,22 +1894,51 @@ def moe_phase(card, place, peaks, moe_cases):
             main, feed=_train_feed(step), fetch_list=[loss])[0]
         counts = {"moe": lambda: moe_gate_dispatch.launches,
                   "moe_bwd": lambda: moe_gate_route_backward.launches}
-        k_loss, k_secs, k_steps = _timed_steps(run, counts)
+        want = {"moe": 2 * M_LAYERS, "moe_bwd": M_LAYERS}
+        grads = _grad_names(main)
+        k_loss, k_secs, k_steps, k_params, profile, graph = \
+            _default_mode_path(
+                exe, run, counts, want,
+                {"moe": "route_kernel<",
+                 "moe_bwd": "route_backward_kernel<"},
+                ("moe_dispatch", "moe_backward", "flash_attention",
+                 "matmul"), "moe",
+                lambda: {n: scope.find_var(n).clone() for n in grads})
         k_bwd = [st["moe_bwd"] for st in k_steps]
         k_steps = [st["moe"] for st in k_steps]
-        peak = torch.cuda.max_memory_allocated()
-        k_params = {n: scope.find_var(n).clone() for n in weights}
-        before = (moe_gate_dispatch.launches,
-                  moe_gate_route_backward.launches)
-        grads = _grad_names(main)
+        k_total = moe_gate_dispatch.launches
+        k_bwd_total = moe_gate_route_backward.launches
+        # the graph and its pool go before the interpreter's runs
+        exe.close()
+        exe = fluid.Executor(place, seed=SEED)
+
+        # the interpreter from the same state and feeds
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        run_i = lambda step: exe.run(  # noqa: E731
+            main, feed=_train_feed(step), fetch_list=[loss],
+            compiled=False)[0]
+        i_loss, i_secs, i_steps = _timed_steps(run_i, counts, G_STEPS)
+        check(all(st == want for st in i_steps),
+              f"moe: interpreter MoE launches per step {i_steps}, want "
+              f"{want}")
+        _bit_equal("moe", k_loss, i_loss, k_params, scope.find_var)
         fetched = []
-        profile = _profile_step(
+        i_profile = _profile_step(
             lambda: fetched.extend(exe.run(
-                main, feed=_train_feed(T_STEPS),
+                main, feed=_train_feed(G_STEPS),
                 fetch_list=[loss] + list(grads.values()),
-                return_numpy=False)),
+                return_numpy=False, compiled=False)),
             ("moe_dispatch", "moe_backward", "flash_attention", "matmul"),
             "moe", gemm_dim=ec_n)
+        # the GEMM split needs the aten ops a replay does not dispatch: it
+        # is taken from this interpreted step of the kernel path, which
+        # must show GEMMs and none with an E*C operand dimension
+        split = i_profile["gemm_split"]
+        check(split["other_calls"] > 0 and split["with_dim_calls"] == 0,
+              f"moe: the kernel path's GEMMs {split['other_calls']} without "
+              f"and {split['with_dim_calls']} with an E*C operand "
+              f"dimension: {split['shapes_with_dim']}")
         # master weights: every parameter has an f32 gradient
         grad_dtypes = {str(t.dtype) for t in fetched[1:]}
         check(len(grads) == len(params)
@@ -1765,34 +1946,24 @@ def moe_phase(card, place, peaks, moe_cases):
               f"moe: {len(grads)} gradients for {len(params)} parameters, "
               f"in {grad_dtypes}")
         del fetched
-        k_steps.append(moe_gate_dispatch.launches - before[0])
-        k_bwd.append(moe_gate_route_backward.launches - before[1])
-        k_total = moe_gate_dispatch.launches
-        k_bwd_total = moe_gate_route_backward.launches
-        check(all(st == 2 * M_LAYERS for st in k_steps),
-              f"moe: MoE launches per step {k_steps}, want {2 * M_LAYERS}")
-        check(all(st == M_LAYERS for st in k_bwd),
-              f"moe: MoE backward launches per step {k_bwd}, want "
-              f"{M_LAYERS}")
         # the kernel takes float32 only: a bf16 x raises, launching nothing
         dev = exe.device
         x_bf16 = torch.zeros((tokens, M_D), dtype=torch.bfloat16,
                              device=dev)
         gw = torch.zeros((M_D, M_EXPERTS), device=dev)
+        n_launched = moe_gate_dispatch.launches
         try:
             moe_gate_route(x_bf16, gw, M_EXPERTS, c_n, M_TOPK)
             raised = False
         except ValueError:
             raised = True
-        check(raised and moe_gate_dispatch.launches == k_total,
+        check(raised and moe_gate_dispatch.launches == n_launched,
               "moe: the MoE kernel took a bf16 x")
         del x_bf16, gw
-        check(profile["gemm_split"]["with_dim_calls"] == 0,
-              "moe: the kernel path ran GEMMs with an E*C operand "
-              f"dimension: {profile['gemm_split']['shapes_with_dim']}")
-        # one more kernel-path step watched: no [T, E, C] tensor is made
+        # one more kernel-path step watched (interpreted: a replay makes
+        # no tensor to watch): no [T, E, C] tensor is made
         with _TecWatch(tokens, M_EXPERTS, c_n) as k_watch:
-            exe.run(main, feed=_train_feed(T_STEPS + 1), fetch_list=[loss])
+            run_i(G_STEPS + 1)
         check(not k_watch.hits, "moe: the kernel path made dense [T, E, C] "
               f"tensors: {k_watch.hits[:4]}")
 
@@ -1800,11 +1971,13 @@ def moe_phase(card, place, peaks, moe_cases):
         for n in persist:
             scope.set_var(n, init[n].clone())
         logits_k, = exe.run(test_prog, feed=_train_feed(0),
-                            fetch_list=[logits_name], return_numpy=False)
+                            fetch_list=[logits_name], return_numpy=False,
+                            compiled=False)
         with _PlainMoe() as plain, _TecWatch(tokens, M_EXPERTS,
                                              c_n) as p_watch:
             logits_p, = exe.run(test_prog, feed=_train_feed(0),
-                                fetch_list=[logits_name], return_numpy=False)
+                                fetch_list=[logits_name], return_numpy=False,
+                                compiled=False)
         check(plain.calls == M_LAYERS,
               f"moe: {plain.calls} plain MoE FFNs in the for_test forward")
         # the watch's control: the plain composition makes them
@@ -1818,29 +1991,35 @@ def moe_phase(card, place, peaks, moe_cases):
             logits_k.float(), logits_p.float())
         del logits_k, logits_p
 
-        # the plain path from the same state and feeds
+        # the plain path from the same state and feeds, interpreted (its
+        # counter ticks at each run of the swapped lowering)
         for n in persist:
             scope.set_var(n, init[n].clone())
         _reset_peak()
         with _PlainMoe() as plain:
-            p_loss, p_secs, p_steps = _timed_steps(run, counts)
+            p_loss, p_secs, p_steps = _timed_steps(run_i, counts, G_STEPS)
         p_peak = torch.cuda.max_memory_allocated()
         p_steps = [st["moe"] + st["moe_bwd"] for st in p_steps]
         check(all(st == 0 for st in p_steps),
               f"moe: the plain path launched the MoE kernels {p_steps}")
-        check(plain.calls == 2 * M_LAYERS * T_STEPS,
+        check(plain.calls == 2 * M_LAYERS * G_STEPS,
               f"moe: {plain.calls} plain MoE FFNs on the plain path")
-        param_rel = _param_rel_diff(scope.find_var, init, k_params)
+        param_rel = _param_rel_diff(scope.find_var, init,
+                                    {n: k_params[n] for n in weights})
         with _PlainMoe():
             p_profile = _profile_step(
-                lambda: exe.run(main, feed=_train_feed(T_STEPS),
-                                fetch_list=[loss]),
-                ("matmul",), "moe plain", gemm_dim=ec_n)
+                lambda: run_i(G_STEPS), ("matmul",), "moe plain",
+                gemm_dim=ec_n)
+        # the split's control: the plain composition runs such GEMMs
+        check(p_profile["gemm_split"]["with_dim_calls"] > 0,
+              "moe: the GEMM split saw no E*C operand on the plain path")
         dtypes = {str(scope.find_var(p.name).dtype) for p in params}
         check(dtypes == {"torch.float32"}, f"moe: parameters in {dtypes}")
         del init, k_params
     finally:
         executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
         del exe
         torch.cuda.empty_cache()
         fluid.amp.disable_bf16()
@@ -1858,7 +2037,7 @@ def moe_phase(card, place, peaks, moe_cases):
           f"{param_rel[worst]} apart on the kernel and plain paths")
     p_active = active_param_count(M_VOCAB, M_D, M_LAYERS, M_EXPERTS,
                                   M_TOPK, M_SEQ)
-    step_s = float(np.median(k_secs[1:]))
+    step_s = float(np.median(k_secs[2:]))       # the replays
     p_step_s = float(np.median(p_secs[1:]))
     kern_ms = profile["by_group_ms"].get("moe_dispatch", 0.0)
     bwd_ms = profile["by_group_ms"].get("moe_backward", 0.0)
@@ -1869,14 +2048,21 @@ def moe_phase(card, place, peaks, moe_cases):
           "dtype": "bf16 amp (MoE FFN float32), f32 master weights",
           "optimizer": "momentum", "params": n_params,
           "params_active": p_active, "startup_s": startup_s,
-          "steps": T_STEPS,
+          "steps": G_STEPS, "mode": "compiled (CUDA graph replay)",
           "kernel_path": {"losses": k_loss, "step_s": k_secs,
                           "launches_per_step": k_steps,
                           "launches": k_total,
                           "backward_launches_per_step": k_bwd,
                           "backward_launches": k_bwd_total,
-                          "dense_tec_tensors": len(k_watch.hits)},
+                          "replayed_kernels_per_step":
+                              profile["kind_counts"],
+                          "dense_tec_tensors": len(k_watch.hits), **graph},
+          "interpreter": {"losses": i_loss, "step_s": i_secs,
+                          "launches_per_step": i_steps[0],
+                          "bit_equal_to_replay": True},
+          **_interpreter_record(i_secs, i_profile),
           "plain_path": {"losses": p_loss, "step_s": p_secs,
+                         "mode": "interpreted",
                          "launches_per_step": p_steps,
                          "plain_moe_ffns": plain.calls,
                          "dense_tec_tensors_for_test": len(p_watch.hits),
@@ -1907,14 +2093,26 @@ def moe_phase(card, place, peaks, moe_cases):
               moe_cases["top2"]["route"]["device_ms"] * 2 * M_LAYERS,
           "profiled_step": profile,
           "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
-          "peak_memory_bytes": peak,
-          "timing": "host clock around exe.run + synchronize; median of "
-                    "steps 2..N; the MoE kernels' device time from the "
-                    "profiled step (route + place; the backward kernel); "
-                    "gemm_split: aten mm/bmm/addmm/baddbmm device time by "
-                    "whether an operand has an E*C dimension (the dense "
-                    "[T, E, C] dispatch/combine products and their VJPs)"})
-    return k_total, k_bwd_total
+          "peak_memory_bytes": graph["peak_memory_bytes"],
+          "peak_reserved_bytes": graph["peak_reserved_bytes"],
+          "timing": "host clock around exe.run + synchronize; ms_per_step "
+                    "the median of the replayed steps (3..N), the "
+                    "interpreter's and the plain path's of steps 2..N; "
+                    "the MoE kernels' device time from the profiled "
+                    "replay (route + place; the backward kernel); "
+                    "gemm_split (of the interpreted kernel-path step and "
+                    "the plain path's step): aten mm/bmm/addmm/baddbmm "
+                    "device time by whether an operand has an E*C "
+                    "dimension (the dense [T, E, C] dispatch/combine "
+                    "products and their VJPs)"})
+    return k_total, k_bwd_total, profile["kind_counts"]
+
+
+_REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
+                "runs them at the Executor's eager first step and at the "
+                "capture; a replay runs the captured kernels without the "
+                "wrapper: replayed_per_step is the profiler's count in a "
+                "replayed step")
 
 
 def main():
@@ -1962,16 +2160,16 @@ def main():
     from paddle_tpu_torch import CUDAPlace
 
     # the main path runs bf16 amp, the reference cells' mode
-    flash_launches = train_phase(card, CUDAPlace(0), peaks, flash_cases,
-                                 amp=True)
-    fp32_launches = train_phase(card, CUDAPlace(0), peaks, flash_cases,
-                                amp=False)
+    flash_launches, flash_replayed = train_phase(
+        card, CUDAPlace(0), peaks, flash_cases, amp=True)
+    fp32_launches, _ = train_phase(card, CUDAPlace(0), peaks, flash_cases,
+                                   amp=False)
     launches = serve_phases(card, CUDAPlace(0))
     fused_launches, largest = dp_phase(card, CUDAPlace(0), peaks)
     fused_cases = fused_update_phase(dev, bw, flops, largest)
     moe_cases = moe_kernel_phase(dev, bw, flops)
-    moe_launches, moe_bwd_launches = moe_phase(card, CUDAPlace(0), peaks,
-                                               moe_cases)
+    moe_launches, moe_bwd_launches, moe_replayed = moe_phase(
+        card, CUDAPlace(0), peaks, moe_cases)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -2006,6 +2204,8 @@ def main():
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
             "launches": flash_launches[kind],
+            "replayed_per_step": flash_replayed[kind],
+            "launches_note": _REPLAY_NOTE,
             "launches_train_fp32": fp32_launches[kind],
             "max_abs_err": per_case["bf16_causal"]["max_abs_err"],
             **{k: main_case[kind][k] for k in (
@@ -2030,6 +2230,8 @@ def main():
         "source": "paddle_tpu_torch/kernels/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:68",
         "launches": moe_launches,
+        "replayed_per_step": moe_replayed["moe"],
+        "launches_note": _REPLAY_NOTE,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
                            for k in ("slot_weight", "combine", "aux")),
         **{k: main_case["route"][k] for k in keys},
@@ -2045,6 +2247,8 @@ def main():
                          "gradient by jax.vjp of moe_gate and the dispatch "
                          "einsum (its Pallas kernel has no VJP)",
         "launches": moe_bwd_launches,
+        "replayed_per_step": moe_replayed["moe_bwd"],
+        "launches_note": _REPLAY_NOTE,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
                            for k in ("bwd_dx", "bwd_dgate_w")),
         **{k: main_case["backward"][k] for k in keys},

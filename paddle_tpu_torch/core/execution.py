@@ -15,6 +15,7 @@ registered op is differentiable by construction, as in the JAX package
 """
 from __future__ import annotations
 
+import functools
 import zlib
 from typing import Dict, List, Optional
 
@@ -148,23 +149,28 @@ def _op_rng_tag(op, info) -> str:
     return f"{op.type}:{tuple(op.output_names())}"
 
 
+def resolve_op(op):
+    """-> (the callable that runs `op` as fn(ctx, ins, attrs), its merged
+    attrs, its random-stream tag hash)."""
+    try:
+        info = registry.get_op_info(op.type)
+    except KeyError:
+        raise NotImplementedError(f"op '{op.type}' has no lowering") from None
+    if info.type == op.type:  # explicit lowering (fwd op, or an own grad op)
+        fn = info.lower
+    elif info.grad_lower is not None:  # "<fwd>_grad", explicit
+        fn = info.grad_lower
+    else:  # generic "<fwd>_grad" resolved to the forward info
+        fn = functools.partial(generic_grad_lower, fwd_info=info)
+    return (fn, {**info.attrs, **op.attrs},
+            zlib.crc32(_op_rng_tag(op, info).encode()))
+
+
 def run_op(ctx: ExecContext, op, env):
     """Execute one op desc against `env`."""
     ins = gather_inputs(op, env)
-    t = op.type
-    try:
-        info = registry.get_op_info(t)
-    except KeyError:
-        raise NotImplementedError(f"op '{t}' has no lowering") from None
-    op_ctx = ctx.child(zlib.crc32(_op_rng_tag(op, info).encode()))
-    attrs = {**info.attrs, **op.attrs}
-    if info.type == t:  # explicit lowering (fwd op, or an own grad op)
-        outs = info.lower(op_ctx, ins, attrs)
-    elif info.grad_lower is not None:  # "<fwd>_grad", explicit
-        outs = info.grad_lower(op_ctx, ins, attrs)
-    else:  # generic "<fwd>_grad" resolved to the forward info
-        outs = generic_grad_lower(op_ctx, ins, attrs, info)
-    scatter_outputs(op, env, outs)
+    fn, attrs, tag = resolve_op(op)
+    scatter_outputs(op, env, fn(ctx.child(tag), ins, attrs))
 
 
 # ---------------------------------------------------------------------------

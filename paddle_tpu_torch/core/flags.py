@@ -81,6 +81,20 @@ define_flag("amp_bf16", False,
             "Read by the op lowerings at BUILD time (shape inference "
             "types the Program's vars) and at RUN time, so keep it "
             "fixed between building a Program and running it")
+define_flag("jit_granularity", "block",
+            "how much of a program one Executor cache entry covers: "
+            "'block' (default) resolves the whole block 0 into one "
+            "compiled plan (on a CUDA place captured into one CUDA "
+            "graph); 'segment' makes maximal device segments (the mode "
+            "host ops already force) even for pure-device programs; "
+            "'op' runs the eager interpreter.  An explicit "
+            "Executor.run(compiled=...) argument overrides it")
+define_flag("log_recompiles", False,
+            "warn (RuntimeWarning) whenever the Executor misses its "
+            "cache for a program that already reached steady state (had "
+            "a cache hit): a feed shape/dtype or a run-time flag changed "
+            "on the hot path.  Counted unconditionally in "
+            "Executor.cache_stats()['recompiles_after_warmup']")
 define_flag("remat", False,
             "default rematerialization for model builders that accept "
             "remat=None.  Read at BUILD time; layers.recompute is not "

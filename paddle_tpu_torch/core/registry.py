@@ -14,11 +14,27 @@ generic gradient (core/execution.generic_grad_lower: torch autograd over
 the forward lowering).  Either way the grad op in the Program is the
 generic one, as in the JAX package.  `diff_inputs`/`diff_outputs` name
 the slots it differentiates.
+
+`host` marks an op that must run on the host, eagerly, between the
+compiled Executor's device segments (core/executor.py); `random` an op
+that draws from its context's generator.  `lowering_generation()`
+changes whenever any op's `lower` or `grad_lower` is set — by
+`register_op`, `register_grad_lower` or a plain assignment — so the
+Executor's cache never serves a plan (or a CUDA graph) resolved against
+a lowering that was swapped since.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
+
+
+_generation = 0
+
+
+def lowering_generation() -> int:
+    """A number that changes whenever an op's lowering is (re)set."""
+    return _generation
 
 
 @dataclasses.dataclass
@@ -50,6 +66,14 @@ class OpInfo:
     # True if op is random (draws from ctx.generator)
     random: bool = False
     not_differentiable: bool = False
+    # True if the op runs on the host (never inside a compiled segment)
+    host: bool = False
+
+    def __setattr__(self, name, value):
+        if name in ("lower", "grad_lower"):
+            global _generation
+            _generation += 1
+        object.__setattr__(self, name, value)
 
 
 _REGISTRY: Dict[str, OpInfo] = {}

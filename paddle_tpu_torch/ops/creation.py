@@ -61,5 +61,5 @@ def assign(ctx, ins, attrs):
              attrs={"step": 1.0}, inplace={"Out": "X"})
 def increment(ctx, ins, attrs):
     x = one(ins, "X")
-    return {"Out": x + torch.tensor(attrs["step"], dtype=x.dtype,
-                                    device=x.device)}
+    return {"Out": x + torch.full((), attrs["step"], dtype=x.dtype,
+                                  device=x.device)}

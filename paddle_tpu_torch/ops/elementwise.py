@@ -56,8 +56,10 @@ _make_elementwise("elementwise_max", torch.maximum)
              attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
 def scale(ctx, ins, attrs):
     x = one(ins, "X")
-    s = torch.tensor(attrs["scale"], dtype=x.dtype, device=x.device)
-    b = torch.tensor(attrs.get("bias", 0.0), dtype=x.dtype, device=x.device)
+    # device fills (no host copy), rounded to x's type first
+    s = torch.full((), attrs["scale"], dtype=x.dtype, device=x.device)
+    b = torch.full((), attrs.get("bias", 0.0), dtype=x.dtype,
+                   device=x.device)
     if attrs.get("bias_after_scale", True):
         return {"Out": x * s + b}
     return {"Out": (x + b) * s}

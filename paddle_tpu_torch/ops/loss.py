@@ -24,8 +24,8 @@ def cross_entropy(ctx, ins, attrs):
     x = amp_upcast(one(ins, "X"))
     # additive eps (not clamp): keeps a finite, recovery-capable gradient
     # -1/(p+eps) when the softmax saturates to p≈0 on the true class
-    eps = torch.tensor(1e-10 if x.dtype == torch.float32 else 1e-20,
-                       dtype=x.dtype, device=x.device)
+    eps = torch.full((), 1e-10 if x.dtype == torch.float32 else 1e-20,
+                     dtype=x.dtype, device=x.device)
     if attrs.get("soft_label"):
         lbl = one(ins, "Label")
         y = -torch.sum(lbl * torch.log(x + eps), dim=-1, keepdim=True)

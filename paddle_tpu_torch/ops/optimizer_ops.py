@@ -20,7 +20,10 @@ def _lr(ins, p):
 
 
 def _const(v, p):
-    return torch.tensor(v, dtype=p.dtype, device=p.device)
+    """A 0-d constant of `p`'s type made on its device: a fill, not a
+    host-to-device copy, so it neither waits for the stream nor breaks a
+    CUDA graph capture; the bits of the constant rounded to p's type."""
+    return torch.full((), v, dtype=p.dtype, device=p.device)
 
 
 @register_op("sgd", inputs=("Param", "Grad", "LearningRate"),

@@ -331,7 +331,9 @@ def test_lm_trains_on_cuda_like_on_cpu(dev):
     """A tiny transformer LM, 3 Momentum steps from the same parameters:
     the kernel path on the card against the plain path on the CPU
     (losses within 1e-4 relative: cuBLAS and the CPU sum in other
-    orders)."""
+    orders).  On the card the block runs compiled: the first step
+    eagerly, the second captured into a CUDA graph and replayed, the
+    third replayed; the wrappers count the first two."""
     import numpy as np
 
     import paddle_tpu_torch as fluid
@@ -381,8 +383,10 @@ def test_lm_trains_on_cuda_like_on_cpu(dev):
         if str(place) == "CPUPlace":
             assert launched == {"fwd": 0, "dq": 0, "dkv": 0}
         else:   # 2 layers: the forward op's launch; the grad op runs
-            # the backward from the lse the forward saved, no recompute
-            assert launched == {"fwd": 6, "dq": 6, "dkv": 6}
+            # the backward from the lse the forward saved, no recompute;
+            # 2 steps counted (the eager run and the capture)
+            assert launched == {"fwd": 4, "dq": 4, "dkv": 4}
+            assert exe.graph_stats()["replays"] == 1
     cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
     assert np.all(np.isfinite(gpu))
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=0)
@@ -473,7 +477,9 @@ def test_amp_lm_trains_on_cuda_like_on_cpu(dev):
     parameters: the card (bf16 flash kernels, cuBLAS bf16) against the
     CPU's plain path, each loss within one bf16 ulp (the card's kernels
     round bf16 at other places, as chip_smoke's LOSS_ULPS_BF16 states);
-    every parameter stays float32; one forward launch per layer."""
+    every parameter stays float32; one forward launch per layer, counted
+    on the eager first step and on the capture (the third step is a
+    replay)."""
     import numpy as np
 
     import paddle_tpu_torch as fluid
@@ -521,10 +527,12 @@ def test_amp_lm_trains_on_cuda_like_on_cpu(dev):
                             for key in before}
                 assert all(fluid.global_scope().find_var(n).dtype
                            == torch.float32 for n in names)
+                replays = exe.graph_stats()["replays"]
             finally:
                 texecutor.switch_scope(prev)
             losses[str(place)] = out
-            want = 0 if str(place) == "CPUPlace" else 6
+            assert replays == (0 if str(place) == "CPUPlace" else 1)
+            want = 0 if str(place) == "CPUPlace" else 4
             assert launched == {"fwd": want, "dq": want, "dkv": want}
     cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
     assert np.all(np.isfinite(gpu))
@@ -902,7 +910,8 @@ def test_moe_lm_trains_on_cuda_like_on_cpu(dev):
     """The MoE LM at a small width, 3 Momentum steps from the same
     parameters: the kernel path on the card against the plain path on
     the CPU (losses within 1e-4 relative); 2 MoE launches per layer per
-    step on the card (the forward op and the grad op's recompute)."""
+    step on the card (the forward op and the grad op's recompute),
+    counted on the eager first step and the capture (then a replay)."""
     import numpy as np
 
     import paddle_tpu_torch as fluid
@@ -937,10 +946,220 @@ def test_moe_lm_trains_on_cuda_like_on_cpu(dev):
                 float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
                 for f in feeds]
             launched = moe_gate_dispatch.launches - before
+            replays = exe.graph_stats()["replays"]
         finally:
             texecutor.switch_scope(prev)
-        assert launched == (0 if place == fluid.CPUPlace()
-                            else 3 * 2 * n_layers)
+        if place == fluid.CPUPlace():
+            assert launched == 0
+        else:
+            assert launched == 2 * 2 * n_layers
+            assert replays == 1
     cpu, gpu = np.array(losses["CPUPlace"]), np.array(losses["CUDAPlace(0)"])
     assert np.all(np.isfinite(gpu))
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=0)
+
+
+# -- the Executor's compiled block as a CUDA graph ---------------------------
+#
+# The miss runs the plan eagerly, the first hit captures it and every
+# later hit replays the graph: same kernels, same order, one stream, so
+# the replay must give the interpreter's bits.
+
+def _graph_lm(amp):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as tfw
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    vocab, seq = 29, 32
+    with (fluid.amp.bf16_guard() if amp else _nullcontext()):
+        tfw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            ids = fluid.layers.data(name="ids", shape=[seq], dtype="int64")
+            lbl = fluid.layers.data(name="lbl", shape=[seq, 1],
+                                    dtype="int64")
+            logits = transformer_lm(ids, vocab, d_model=128, n_heads=2,
+                                    n_layers=2, max_len=seq,
+                                    return_logits=True)
+            loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+                fluid.layers.reshape(logits, shape=[-1, vocab]),
+                fluid.layers.reshape(lbl, shape=[-1, 1])))
+            fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def _graph_feed(step, batch=4, seq=32, vocab=29):
+    import numpy as np
+
+    base = np.arange(batch * seq).reshape(batch, seq) % 97
+    return {"ids": ((base + step) % vocab).astype(np.int64),
+            "lbl": ((base + step + 1) % vocab).astype(np.int64)[..., None]}
+
+
+def _graph_run(main, startup, loss, init, steps, compiled, amp,
+               between=None):
+    """`steps` steps from the persistables `init` (None: from the
+    startup) -> (losses as bits, {name: final value}, executor)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev = texecutor.switch_scope(Scope())
+    try:
+        with (fluid.amp.bf16_guard() if amp else _nullcontext()):
+            scope = fluid.global_scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+            if init is None:
+                exe.run(startup)
+            else:
+                for n, v in init.items():
+                    scope.set_var(n, v.clone())
+            out = []
+            for step in range(steps):
+                if between is not None:
+                    between(step, scope)
+                out.append(exe.run(main, feed=_graph_feed(step),
+                                   fetch_list=[loss], compiled=compiled,
+                                   return_numpy=False)[0])
+            torch.cuda.synchronize()
+            names = sorted(v.name for v in main.list_vars()
+                           if v.persistable)
+            final = {n: scope.find_var(n).clone() for n in names}
+    finally:
+        texecutor.switch_scope(prev)
+    return [t.cpu().view(torch.int32).tolist() for t in out], final, exe
+
+
+def _same_bits(a, b):
+    assert a.keys() == b.keys()
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
+def test_graph_replay_is_the_interpreter_bit_for_bit(dev, amp):
+    main, startup, loss = _graph_lm(amp)
+    _, init, _ = _graph_run(main, startup, loss, None, 0, None, amp)
+    g_loss, g_final, exe = _graph_run(main, startup, loss, init, 5, None,
+                                      amp)
+    i_loss, i_final, _ = _graph_run(main, startup, loss, init, 5, False,
+                                    amp)
+    assert exe.graph_stats()["captures"] == 1
+    assert exe.graph_stats()["replays"] == 3
+    assert exe.cache_stats()["recompiles_after_warmup"] == 0
+    assert g_loss == i_loss
+    _same_bits(g_final, i_final)
+    exe.close()
+
+
+def test_graph_replay_reads_a_state_rebound_in_the_scope(dev):
+    """After the capture, a weight set anew in the scope (as a checkpoint
+    load does) is copied into the graph's buffer before the replay."""
+    main, startup, loss = _graph_lm(False)
+    _, init, _ = _graph_run(main, startup, loss, None, 0, None, False)
+    w = next(p.name for p in main.global_block().all_parameters()
+             if len(p.shape) == 2)
+
+    def rebind(step, scope):
+        if step == 3:
+            scope.set_var(w, torch.full_like(scope.find_var(w), 0.01))
+
+    g_loss, g_final, exe = _graph_run(main, startup, loss, init, 5, None,
+                                      False, rebind)
+    i_loss, i_final, _ = _graph_run(main, startup, loss, init, 5, False,
+                                    False, rebind)
+    assert exe.graph_stats()["replays"] == 3
+    assert g_loss == i_loss
+    _same_bits(g_final, i_final)
+    exe.close()
+
+
+def test_a_replayed_step_makes_no_host_sync(dev):
+    """Feeds go through pinned memory, the graph is one launch and the
+    fetch a clone on the card: under sync debug mode "error" a replayed
+    step raises nothing."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = _graph_lm(False)
+    prev = texecutor.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+        exe.run(startup)
+        for step in range(2):       # the miss, then the capture
+            exe.run(main, feed=_graph_feed(step), fetch_list=[loss])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = exe.run(main, feed=_graph_feed(2), fetch_list=[loss],
+                          return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert exe.graph_stats()["replays"] == 1
+        assert torch.isfinite(out[0]).all()
+        exe.close()
+    finally:
+        texecutor.switch_scope(prev)
+
+
+def test_close_releases_the_graph_pool(dev):
+    import gc
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = _graph_lm(False)
+    prev = texecutor.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+        exe.run(startup)
+        for step in range(3):
+            exe.run(main, feed=_graph_feed(step), fetch_list=[loss])
+        torch.cuda.synchronize()
+        gc.collect()
+        held = torch.cuda.memory_reserved()
+        assert exe.graph_stats()["graphs"] == 1
+        exe.close()
+        gc.collect()
+        assert exe.graph_stats()["graphs"] == 0
+        assert torch.cuda.memory_reserved() < held
+    finally:
+        texecutor.switch_scope(prev)
+
+
+def test_segmented_random_op_draws_fresh_on_the_card(dev):
+    """A random op between device ops: on the card it runs eagerly
+    between two segments (each captured at its first hit, then
+    replayed), drawing anew every run, with the interpreter's values."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as tfw
+
+    tfw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        h = fluid.layers.scale(x, scale=3.0)
+        blk = main.global_block()
+        noise = blk.create_var(name="noise", shape=[2, 4], dtype="float32")
+        blk.append_op(type="gaussian_random", outputs={"Out": [noise]},
+                      attrs={"shape": [2, 4], "mean": 0.0, "std": 1.0,
+                             "dtype": "float32"})
+        out = fluid.layers.mean(fluid.layers.elementwise_add(h, noise))
+    feed = {"x": np.ones((2, 4), np.float32)}
+    got = {}
+    for compiled in (None, False):
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=5)
+        got[compiled] = [exe.run(main, feed=feed, fetch_list=[out],
+                                 compiled=compiled)[0] for _ in range(4)]
+        if compiled is None:
+            assert exe.cache_stats()["misses"] == 2      # two segments
+            assert exe.graph_stats()["captures"] == 2
+            assert exe.graph_stats()["replays"] == 4
+        exe.close()
+    for a, b in zip(got[None], got[False]):
+        assert a.tobytes() == b.tobytes()
+    assert len({a.tobytes() for a in got[None]}) == 4

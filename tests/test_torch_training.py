@@ -358,15 +358,6 @@ def test_executor_without_cuda_raises(monkeypatch):
         tfluid.Executor()
 
 
-def test_compiled_mode_is_not_ported():
-    main, startup, loss = _fit_a_line(tfluid, tfw)
-    exe = tfluid.Executor(CPUPlace())
-    exe.run(startup)
-    with pytest.raises(NotImplementedError, match="A4"):
-        exe.run(main, feed=next(_line_batches(1)), fetch_list=[loss],
-                compiled=True)
-
-
 def test_main_before_startup_names_the_missing_parameter():
     main, _, loss = _fit_a_line(tfluid, tfw)
     with pytest.raises(RuntimeError, match="run the startup program"):

@@ -6,7 +6,8 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py dp-memory [--package-root DIR]
     python3 tools/torch_tree_probe.py moe-memory [--package-root DIR]
     python3 tools/torch_tree_probe.py sgd-sweep
-    python3 tools/torch_tree_probe.py host [--fp32] [--package-root DIR]
+    python3 tools/torch_tree_probe.py host [--fp32] [--mode MODE]
+                                          [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -24,13 +25,19 @@ sgd-sweep  csrc/fused_update.cu built once for each setting of its
            torch.add and p.add_ (CUDA events, cold L2, three rounds
            interleaved); every variant is checked bit for bit;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
-           trained 3 steps, then one more under torch.profiler with
-           every Program op in a record_function: the step's wall time,
-           device time and host time by op type (inclusive, so an op
-           that waits on the device carries the wait), and the CUDA
-           runtime calls (launches, copies, synchronisations) by count
-           and host time.  dp-memory and moe-memory run amp, as the dp
-           and moe phases do, where the package has it.
+           trained chip_smoke's T_STEPS steps, then one more under
+           torch.profiler: the step's wall time, device time, and the
+           CUDA runtime calls (launches, copies, synchronisations) by
+           count and host time.  --mode interpreted (the default) runs
+           compiled=False with every Program op in a record_function:
+           host time by op type (inclusive, so an op that waits on the
+           device carries the wait).  --mode compiled runs the
+           Executor's default mode, whose later steps replay a CUDA
+           graph: the replayed step's host time by part (feeds to
+           tensors, the state check, the cache key and lookup, the
+           input copies, the graph launch, the fetch's copy out of the
+           pool and to the host).  dp-memory and moe-memory run amp, as
+           the dp and moe phases do, where the package has it.
 
 The measuring code is this checkout's chip_smoke.py; `paddle_tpu_torch`
 is imported from DIR (default: this checkout).  Each result is one JSON
@@ -42,6 +49,7 @@ import argparse
 import collections
 import ctypes
 import importlib.util
+import inspect
 import itertools
 import json
 import os
@@ -301,7 +309,45 @@ def _amp_on(fluid):
         fluid.amp.enable_bf16()
 
 
-def host(cs, dev, fp32=False):
+def _replay_parts(executor_mod):
+    """Wrap the parts of a compiled run in record_functions ("part:...")
+    -> a function that undoes it."""
+    from torch.profiler import record_function
+
+    exe_cls, entry_cls = executor_mod.Executor, executor_mod._Entry
+    sites = [(executor_mod, "_feed_tensor", "feeds to tensors"),
+             (exe_cls, "_states", "state layout"),
+             (exe_cls, "_read_states", "state check"),
+             (exe_cls, "_compiled_key", "cache key"),
+             (exe_cls, "_lookup", "cache lookup"),
+             (entry_cls, "replay", "input copies + graph launch"),
+             (torch.cuda.CUDAGraph, "replay", "graph launch"),
+             (exe_cls, "_copied_out", "fetch copy out of the pool"),
+             (executor_mod, "_to_numpy", "fetch to host")]
+    saved = []
+    for owner, name, label in sites:
+        fn = inspect.getattr_static(owner, name)
+        inner = fn.__func__ if isinstance(fn, staticmethod) else fn
+
+        def wrapped(*a, _inner=inner, _label=label, **k):
+            with record_function("part:" + _label):
+                return _inner(*a, **k)
+
+        saved.append((owner, name, owner.__dict__.get(name)))
+        setattr(owner, name, staticmethod(wrapped)
+                if isinstance(fn, staticmethod) else wrapped)
+
+    def undo():
+        for owner, name, fn in saved:
+            if fn is None:      # inherited: drop the wrapper
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+
+    return undo
+
+
+def host(cs, dev, fp32=False, mode="interpreted"):
     import time
 
     from torch.autograd import DeviceType
@@ -320,10 +366,12 @@ def host(cs, dev, fp32=False):
     executor_mod.switch_scope(Scope())
     exe = fluid.Executor(CUDAPlace(0), seed=cs.SEED)
     exe.run(startup)
+    compiled = None if mode == "compiled" else False
     secs = []
     for step in range(cs.T_STEPS):
         t0 = time.perf_counter()
-        exe.run(main, feed=cs._train_feed(step), fetch_list=[loss])
+        exe.run(main, feed=cs._train_feed(step), fetch_list=[loss],
+                compiled=compiled)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     run_op = executor_mod.run_op
@@ -332,32 +380,52 @@ def host(cs, dev, fp32=False):
         with record_function("op:" + op.type):
             return run_op(ctx, op, env)
 
-    executor_mod.run_op = traced
+    if mode == "compiled":
+        undo = _replay_parts(executor_mod)
+    else:
+        executor_mod.run_op = traced
+    replays = exe.graph_stats()["replays"]
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            exe.run(main, feed=cs._train_feed(cs.T_STEPS), fetch_list=[loss])
+            with record_function("exe.run"):
+                exe.run(main, feed=cs._train_feed(cs.T_STEPS),
+                        fetch_list=[loss], compiled=compiled)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
+        if mode == "compiled":
+            undo()
         executor_mod.run_op = run_op
-    by_op, runtime, device = {}, {}, 0.0
+    by_op, parts, runtime, device, run_ms = {}, {}, {}, 0.0, 0.0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             device += ev.self_device_time_total / 1e3
         elif ev.key.startswith("op:"):
             by_op[ev.key[3:]] = [ev.count, ev.cpu_time_total / 1e3]
+        elif ev.key.startswith("part:"):
+            parts[ev.key[5:]] = [ev.count, ev.cpu_time_total / 1e3]
+        elif ev.key == "exe.run":
+            run_ms = ev.cpu_time_total / 1e3
         elif ev.key.startswith("cuda"):
             runtime[ev.key] = [ev.count, ev.self_cpu_time_total / 1e3]
     top = sorted(by_op.items(), key=lambda kv: -kv[1][1])
-    emit({"probe": "host", "dtype": "float32" if fp32 else "bf16 amp",
-          "step_s": secs, "profiled_wall_ms": wall * 1e3,
-          "device_ms": device,
-          "ops": sum(c for c, _ in by_op.values()),
-          "op_host_ms": sum(ms for _, ms in by_op.values()),
-          "by_op_type_count_ms": dict(top),
-          "cuda_runtime_count_ms": runtime})
+    out = {"probe": "host", "dtype": "float32" if fp32 else "bf16 amp",
+           "mode": mode, "step_s": secs, "profiled_wall_ms": wall * 1e3,
+           "device_ms": device, "exe_run_host_ms": run_ms,
+           "cuda_runtime_count_ms": runtime}
+    if mode == "compiled":
+        out.update(replayed=exe.graph_stats()["replays"] == replays + 1,
+                   graph_stats=exe.graph_stats(),
+                   cache_stats=exe.cache_stats(),
+                   host_ms_by_part=parts)
+    else:
+        out.update(ops=sum(c for c, _ in by_op.values()),
+                   op_host_ms=sum(ms for _, ms in by_op.values()),
+                   by_op_type_count_ms=dict(top))
+    emit(out)
+    exe.close()
 
 
 def main():
@@ -366,6 +434,10 @@ def main():
                                       "sgd-sweep", "host"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
+    ap.add_argument("--mode", choices=("interpreted", "compiled"),
+                    default="interpreted",
+                    help="host: the Executor's mode (compiled: the "
+                    "default mode, a replayed CUDA graph)")
     ap.add_argument("--package-root", default=ROOT,
                     help="import paddle_tpu_torch from this checkout")
     args = ap.parse_args()
@@ -384,7 +456,7 @@ def main():
     emit({"probe": args.probe, "card": smi,
           "package": os.path.dirname(paddle_tpu_torch.__file__)})
     if args.probe == "host":
-        host(cs, dev, fp32=args.fp32)
+        host(cs, dev, fp32=args.fp32, mode=args.mode)
     else:
         {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
          "sgd-sweep": sgd_sweep}[args.probe](cs, dev)

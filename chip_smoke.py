@@ -94,7 +94,29 @@ Phases, one JSON line each:
            replay held bit for bit to the interpreter), then the plain
            path (the dense einsums, interpreted) from the same state,
            the for_test clone's forward on both, and a profiled step of
-           each with its GEMMs split by shape.
+           each with its GEMMs split by shape;
+  resnet50  benchmark/run_image.py's ResNet-50 at its defaults (224x224,
+           1000 classes, batch 128, bf16 throughout: no amp; Momentum),
+           seeded images and labels as run_image makes them: steps in
+           the Executor's default mode (one CUDA graph: one miss, then
+           hits replaying it) and a profiled replay (device time by
+           group: cuDNN forward, dgrad and wgrad, layout transposes,
+           pooling, copies, batch norm and elementwise), then the same
+           steps interpreted from the same state (losses, parameters,
+           velocities and running statistics bit for bit the replay's),
+           then again with conv_layout=NHWC; ms a step, images/s, the
+           idle share, peak memory, capture seconds and the model FLOPs
+           (the Program's conv2d and fc shapes, forward x 3) against the
+           bf16 peak;
+  resnet_card_vs_cpu  ResNet-18 at 64x64, batch 8, float32: two steps
+           on the CPU and on the card (with cuDNN's TF32 switch on) from
+           the same startup weights, losses and every state within 1e-4;
+  vgg_segmented  the book's VGG-16 with batch norm and dropout at the
+           CIFAR-10 width (32x32, 10 classes, batch 128, float32) in the
+           default mode, which the dropout ops make segmented (each runs
+           eagerly between captured device segments): the segment
+           counts, finite losses, and the interpreter's losses and keep
+           rates from the same state and seed.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 phase's too), the kernel-path serve and spec phases (paged
@@ -104,7 +126,9 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train and moe paths the counts cover the eager
 first step and the capture, and the kernels line adds the profiler's
-count in a replayed step.
+count in a replayed step.  The image phases run no kernel of the
+port's own: convolution, pooling and batch norm are cuDNN or plain
+PyTorch calls there, as they are XLA ops in the JAX package.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -169,6 +193,21 @@ M_EXPERTS, M_TOPK, M_CF, M_AUX = 8, 2, 1.25, 0.01
 # the moe_kernel phase's router: N(0, 0.05), about the spread of the
 # LM's Xavier-initialised [1024, 8] gate weights
 M_GATE_STD = 0.05
+
+# the image configurations: benchmark/run_image.py's resnet50 at its
+# defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
+# every parameter and Momentum's velocity); ResNet-18 at 64x64, batch 8,
+# float32, on the card and on the CPU (the card-vs-CPU phase); the
+# book's VGG-16 with batch norm and dropout at the CIFAR-10 width (32x32,
+# 10 classes, batch 128, float32)
+R_IMG, R_CLASSES, R_BATCH, R_DEPTH = 224, 1000, 128, 50
+C_IMG, C_CLASSES, C_BATCH, C_DEPTH, C_STEPS = 64, 1000, 8, 18, 2
+V_IMG, V_CLASSES, V_BATCH = 32, 10, 128
+# card against CPU in float32: losses, and every parameter, velocity and
+# running statistic after the steps, within 1e-4 of max(1, |CPU value|)
+# (cuDNN and the CPU's convolutions sum in other orders; the CPU tests
+# hold the CPU path to the JAX package at the same 1e-4)
+CARD_CPU_RTOL = 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -756,11 +795,24 @@ def _lm_program(optimizer):
 _GEMM_NAMES = ("gemm", "cublas", "cutlass", "nvjet", "xmma")
 
 
+_CONV_GROUPS = (("wgrad", "conv_wgrad"), ("dgrad", "conv_dgrad"),
+                ("fprop", "conv_fwd"), ("convolve", "conv_fwd"))
+
+
 def _kernel_group(name):
     """Device-time group of a kernel by its name.  cuBLAS names its
     Hopper bf16 GEMMs `nvjet_*` or `sm90_xmma_*` beside the
-    `*gemm*`/`cutlass` names of its float32 ones."""
+    `*gemm*`/`cutlass` names of its float32 ones; cuDNN names its
+    convolutions' implicit GEMMs by pass (`fprop`, `dgrad`, `wgrad`) and
+    its layout changes `nchwToNhwc`/`nhwcToNchw`."""
     low = name.lower()
+    for pat, group in _CONV_GROUPS:
+        if pat in low:
+            return group
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout"
+    if "pool" in low:
+        return "pooling"
     if any(k in low for k in _GEMM_NAMES):
         return "matmul"
     if any(k in name for k in ("fwd_kernel<", "dq_kernel<", "dkv_kernel<")):
@@ -839,10 +891,16 @@ def _profile_step(run_step, need, phase, gemm_dim=None, kinds=None):
     for g in need:
         check(groups.get(g, 0.0) > 0,
               f"{phase}: the profile shows no {g} kernel: {groups}")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    by_group_top = {}
+    for n, ms in top:
+        g = by_group_top.setdefault(_kernel_group(n), [])
+        if len(g) < 3:
+            g.append([n[:120], ms, counts[n]])
     dtod = [n for n in kernels if n.startswith("Memcpy DtoD")]
     out = {"device_ms": sum(kernels.values()), "by_group_ms": groups,
-           "top_kernels_ms": [[n[:120], ms] for n, ms in top],
+           "top_kernels_ms": [[n[:120], ms] for n, ms in top[:10]],
+           "by_group_top_kernels": by_group_top,
            "kernels": sum(counts.values()),
            "kind_counts": {k: sum(c for n, c in counts.items() if pat in n)
                            for k, pat in (kinds or {}).items()},
@@ -2108,6 +2166,373 @@ def moe_phase(card, place, peaks, moe_cases):
     return k_total, k_bwd_total, profile["kind_counts"]
 
 
+# -- image phases -------------------------------------------------------------
+
+def _image_program(model, img, classes, dtype):
+    """benchmark/run_image.py's training Program (`build`, :42-66) for
+    `model` ("resnet<depth>" through resnet_imagenet, or "vgg16_bn_drop")
+    -> (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="img", shape=[3, img, img],
+                                 dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        if model == "vgg16_bn_drop":
+            predict = models.vgg16_bn_drop(data, class_dim=classes)
+        else:
+            predict = models.resnet_imagenet(data, class_dim=classes,
+                                             depth=int(model[len("resnet"):]))
+        cost = fluid.layers.cross_entropy(input=predict, label=label)
+        avg = fluid.layers.mean(cost)
+        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(avg)
+    return main, startup, avg
+
+
+def _image_feed(batch, img, classes, dtype):
+    """run_image's feed (:76-79): uniform images from RandomState(0) in
+    `dtype` (bf16 as a torch tensor: numpy has no bf16) and int32
+    labels, the same every step."""
+    r = np.random.RandomState(0)
+    x = torch.from_numpy(r.rand(batch, 3, img, img).astype(np.float32))
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    return {"img": x,
+            "label": r.randint(0, classes, (batch, 1)).astype(np.int32)}
+
+
+def _conv_net_flops(program, batch):
+    """A training step's model FLOPs from the Program's shapes: 2 x the
+    multiply-adds of every conv2d (output positions x filter elements)
+    and every mul (fc), forward x 3 (the backward's data and weight
+    gradients each cost a forward)."""
+    blk = program.global_block()
+    fwd = 0
+    for op in blk.ops:
+        if op.type == "conv2d":
+            out = blk.var(op.output("Output")[0]).shape
+            w = blk.var(op.input("Filter")[0]).shape
+            hw = out[1:3] if op.attrs.get("data_format") == "NHWC" \
+                else out[2:4]
+            fwd += 2 * batch * int(np.prod(w)) * int(np.prod(hw))
+        elif op.type == "mul":
+            fwd += 2 * batch * int(np.prod(blk.var(op.input("Y")[0]).shape))
+    return 3 * fwd
+
+
+def _persistables(program):
+    return [v.name for v in program.list_vars() if v.persistable]
+
+
+def resnet50_phase(card, place, peaks):
+    """run_image's ResNet-50, bf16, batch 128, 224x224: G_STEPS steps in
+    the Executor's default mode (one compiled block: eager at the miss,
+    captured into a CUDA graph at the first hit, replayed after) and a
+    profiled replay, then the same steps from the same state
+    interpreted (bit for bit the replay's losses, parameters, velocities
+    and running statistics), then the default mode again with
+    conv_layout=NHWC."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase = "resnet50"
+    main, startup, loss = _image_program(f"resnet{R_DEPTH}", R_IMG,
+                                         R_CLASSES, "bfloat16")
+    blk = main.global_block()
+    params = blk.all_parameters()
+    check(all(p.dtype == "bfloat16" for p in params),
+          f"{phase}: a parameter is not bf16")
+    types = [op.type for op in blk.ops]
+    persist = _persistables(main)
+    flops = _conv_net_flops(main, R_BATCH)
+    feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "bfloat16")
+    need = ("conv_fwd", "conv_dgrad", "conv_wgrad", "pooling")
+    prev_scope = executor_mod.switch_scope(Scope())
+    exe = None
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(place, seed=SEED)
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        init = {n: scope.find_var(n).clone() for n in persist}
+        snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
+                            for n in persist}
+
+        _reset_peak()
+        run = lambda step: exe.run(  # noqa: E731
+            main, feed=feed, fetch_list=[loss])[0]
+        k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
+            exe, run, {}, {}, {}, need, phase, snapshot)
+        exe.close()
+
+        # the interpreter from the same state and feeds
+        exe = fluid.Executor(place, seed=SEED)
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        run_i = lambda step: exe.run(  # noqa: E731
+            main, feed=feed, fetch_list=[loss], compiled=False)[0]
+        i_loss, i_secs, _ = _timed_steps(run_i, {}, G_STEPS)
+        _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
+        i_profile = _profile_step(lambda: run_i(G_STEPS), need, phase)
+        del k_state
+        exe.close()
+
+        # the default mode again, the convolutions channels-last
+        set_flags({"conv_layout": "NHWC"})
+        exe = fluid.Executor(place, seed=SEED)
+        for n in persist:
+            scope.set_var(n, init[n].clone())
+        _reset_peak()
+        run_n = lambda step: exe.run(  # noqa: E731
+            main, feed=feed, fetch_list=[loss])[0]
+        n_loss, n_secs, _ = _timed_steps(run_n, {}, G_STEPS)
+        n_peak = torch.cuda.max_memory_allocated()
+        n_profile = _profile_step(lambda: run_n(G_STEPS), need, phase)
+        del init
+    finally:
+        set_flags({"conv_layout": ""})
+        executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
+        del exe
+        torch.cuda.empty_cache()
+
+    check(all(np.isfinite(k_loss + n_loss)), f"{phase}: non-finite losses "
+          f"{k_loss} / {n_loss}")
+    check(abs(n_loss[0] - k_loss[0]) <= _bf16_ulp(k_loss[0]),
+          f"{phase}: the first NHWC loss {n_loss[0]} is more than one bf16 "
+          f"ulp from the NCHW one {k_loss[0]}")
+    step_s = float(np.median(k_secs[2:]))       # the replays
+    i_step_s = float(np.median(i_secs[1:]))
+    n_step_s = float(np.median(n_secs[2:]))
+    step_ms = step_s * 1e3
+    bound_ms = flops / peaks[torch.bfloat16] * 1e3
+    emit({"phase": phase, "card": card, "model": f"resnet{R_DEPTH}",
+          "source": "benchmark/run_image.py:42-66 (resnet50, defaults "
+                    "224x224, 1000 classes, batch 128, --dtype bfloat16)",
+          "image": R_IMG, "classes": R_CLASSES, "batch": R_BATCH,
+          "dtype": "bfloat16 throughout (image, parameters, velocities)",
+          "optimizer": "momentum", "mode": "compiled (CUDA graph replay)",
+          "ops": len(types), "conv2d_ops": types.count("conv2d"),
+          "batch_norm_ops": types.count("batch_norm"),
+          "params": sum(int(np.prod(p.shape)) for p in params
+                        if p.trainable),
+          "startup_s": startup_s, "steps": G_STEPS,
+          "default_mode": {"losses": k_loss, "step_s": k_secs, **graph},
+          "interpreter": {"losses": i_loss, "step_s": i_secs,
+                          "bit_equal_to_replay": True},
+          "ms_per_step": step_ms, "images_per_s": R_BATCH / step_s,
+          "interpreted_ms_per_step": i_step_s * 1e3,
+          "interpreted_images_per_s": R_BATCH / i_step_s,
+          "interpreted_device_idle_share":
+              1.0 - i_profile["device_ms"] / (i_step_s * 1e3),
+          "interpreted_profiled_step": i_profile,
+          "model_flops_per_step": flops,
+          "model_flops_share_of_bf16_peak": bound_ms / step_ms,
+          "bound_ms": bound_ms, "bound_by": "operations",
+          "profiled_step": profile,
+          "device_ms_by_group": profile["by_group_ms"],
+          "device_idle_share": 1.0 - profile["device_ms"] / step_ms,
+          "peak_memory_bytes": graph["peak_memory_bytes"],
+          "peak_reserved_bytes": graph["peak_reserved_bytes"],
+          "capture_s": graph["capture_s"],
+          "conv_layout_nhwc": {
+              "losses": n_loss, "step_s": n_secs,
+              "ms_per_step": n_step_s * 1e3,
+              "images_per_s": R_BATCH / n_step_s,
+              "device_ms_by_group": n_profile["by_group_ms"],
+              "device_idle_share":
+                  1.0 - n_profile["device_ms"] / (n_step_s * 1e3),
+              "peak_memory_bytes": n_peak,
+              "top_kernels_ms": n_profile["top_kernels_ms"]},
+          "groups": "conv_fwd/conv_dgrad/conv_wgrad: cuDNN's kernels by "
+                    "pass (fprop, dgrad, wgrad in the name); pooling; "
+                    "layout: cuDNN's NCHW<->NHWC transposes; copy: "
+                    "memcpy/memset (the state write-back); matmul: the "
+                    "fc; other: batch norm, relu, the residual adds, the "
+                    "loss and Momentum (elementwise and reductions)",
+          "timing": "host clock around exe.run + synchronize; ms_per_step "
+                    "the median of the replayed steps (3..N), the "
+                    "interpreter's of steps 2..N; device time by group "
+                    "from one profiled step (torch.profiler); idle share "
+                    "1 - its device time / the median step; "
+                    "model FLOPs from the Program's conv2d and mul shapes "
+                    "(forward x 3) over the bf16 dense peak"})
+
+
+def resnet_card_vs_cpu_phase(card, place):
+    """ResNet-18 at 64x64, batch 8, float32: C_STEPS steps on the CPU,
+    then on the card from the same startup weights, with the caller's
+    cuDNN TF32 switch ON (the conv lowering must pin float32 itself):
+    losses and every state within CARD_CPU_RTOL.  The CPU tests hold
+    the CPU path to the JAX package; this ties the cuDNN route to it."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+
+    phase = "resnet_card_vs_cpu"
+    main, startup, loss = _image_program(f"resnet{C_DEPTH}", C_IMG,
+                                         C_CLASSES, "float32")
+    persist = _persistables(main)
+    feed = _image_feed(C_BATCH, C_IMG, C_CLASSES, "float32")
+    prev_scope = executor_mod.switch_scope(Scope())
+    tf32 = torch.backends.cudnn.allow_tf32
+    exe = None
+    try:
+        cpu = fluid.Executor(fluid.CPUPlace(), seed=SEED)
+        cpu.run(startup)
+        init = scope_to_numpy(fluid.global_scope(), persist)
+        t0 = time.perf_counter()
+        cpu_loss = [float(cpu.run(main, feed=feed, fetch_list=[loss])[0][0])
+                    for _ in range(C_STEPS)]
+        cpu_s = time.perf_counter() - t0
+        cpu_state = scope_to_numpy(fluid.global_scope(), persist)
+
+        executor_mod.switch_scope(Scope())
+        scope_from_numpy(init, place, fluid.global_scope())
+        torch.backends.cudnn.allow_tf32 = True
+        exe = fluid.Executor(place, seed=SEED)
+        card_loss = [float(exe.run(main, feed=feed, fetch_list=[loss])[0][0])
+                     for _ in range(C_STEPS)]
+        card_state = scope_to_numpy(fluid.global_scope(), persist)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
+        del exe
+
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss)]
+    check(all(np.isfinite(card_loss)) and max(loss_rel) <= CARD_CPU_RTOL,
+          f"{phase}: card losses {card_loss} against the CPU's {cpu_loss}")
+    rel = {n: float(np.abs(card_state[n] - cpu_state[n]).max()
+                    / max(1.0, float(np.abs(cpu_state[n]).max())))
+           for n in persist}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= CARD_CPU_RTOL, f"{phase}: states differ by more "
+          f"than {CARD_CPU_RTOL} of max(1, |CPU|) between the card and the "
+          f"CPU: {sorted(rel.items(), key=lambda kv: -kv[1])[:5]}; losses "
+          f"{card_loss} / {cpu_loss}")
+    emit({"phase": phase, "card": card, "model": f"resnet{C_DEPTH}",
+          "image": C_IMG, "classes": C_CLASSES, "batch": C_BATCH,
+          "dtype": "float32", "steps": C_STEPS,
+          "cudnn_allow_tf32_during_card_run": True,
+          "card_losses": card_loss, "cpu_losses": cpu_loss,
+          "loss_rel_diff": loss_rel, "states": len(persist),
+          "state_max_rel_diff": rel[worst], "state_argmax": worst,
+          "limit": CARD_CPU_RTOL, "cpu_s": cpu_s})
+
+
+def vgg_segmented_phase(card, place):
+    """The book's VGG-16 with batch norm and dropout at the CIFAR-10
+    width, float32, batch 128, G_STEPS steps in the default mode: its
+    dropout ops draw from per-run seeded generators, so on the card the
+    block runs segmented (each dropout eagerly between captured device
+    segments).  Then the interpreter from the same state, with the same
+    executor seed and step count (so the same draws): the same losses
+    and the same keep rate."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase = "vgg_segmented"
+    main, startup, loss = _image_program("vgg16_bn_drop", V_IMG, V_CLASSES,
+                                         "float32")
+    blk = main.global_block()
+    drops = [op for op in blk.ops if op.type == "dropout"]
+    mask, prob = drops[0].output("Mask")[0], drops[0].attrs["dropout_prob"]
+    persist = _persistables(main)
+    feed = _image_feed(V_BATCH, V_IMG, V_CLASSES, "float32")
+    prev_scope = executor_mod.switch_scope(Scope())
+    exe = None
+    runs = {}
+    try:
+        scope = fluid.global_scope()
+        init = None
+        for mode in ("segmented", "interpreted"):
+            exe = fluid.Executor(place, seed=SEED)
+            exe.run(startup)    # both executors count the same steps
+            if init is None:
+                init = {n: scope.find_var(n).clone() for n in persist}
+            for n in persist:
+                scope.set_var(n, init[n].clone())
+            compiled = None if mode == "segmented" else False
+            losses, keeps, secs = [], [], []
+            s0, g0 = exe.cache_stats(), exe.graph_stats()
+            for _ in range(G_STEPS):
+                t0 = time.perf_counter()
+                out, m = exe.run(main, feed=feed, fetch_list=[loss, mask],
+                                 compiled=compiled)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(out[0]))
+                keeps.append(float(m.mean()))
+            s1, g1 = exe.cache_stats(), exe.graph_stats()
+            runs[mode] = {"losses": losses, "keep_rates": keeps,
+                          "step_s": secs,
+                          "cache": {k: s1[k] - s0[k] for k in
+                                    ("hits", "misses", "entries")},
+                          "graphs": {k: g1[k] - g0[k] for k in
+                                     ("captures", "replays")}}
+            if mode == "segmented":
+                segs = exe._segments(blk, exe._fingerprint(main))
+            exe.close()
+        del init
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
+        del exe
+        torch.cuda.empty_cache()
+
+    host = [op.type for h, ops, _ in segs if h for op in ops]
+    n_device = sum(1 for h, _, _ in segs if not h)
+    check(host == ["dropout"] * len(drops) and n_device == len(drops) + 1,
+          f"{phase}: host segments run {host}, {n_device} device segments "
+          f"for {len(drops)} dropout ops")
+    seg = runs["segmented"]
+    check(seg["graphs"]["captures"] == n_device
+          and seg["cache"]["misses"] == n_device,
+          f"{phase}: {seg['graphs']} and {seg['cache']} for {n_device} "
+          "device segments")
+    check(all(np.isfinite(seg["losses"])), f"{phase}: non-finite losses "
+          f"{seg['losses']}")
+    check(seg["losses"] == runs["interpreted"]["losses"]
+          and seg["keep_rates"] == runs["interpreted"]["keep_rates"],
+          f"{phase}: segmented {seg['losses']} / {seg['keep_rates']} "
+          f"against interpreted {runs['interpreted']}")
+    n_mask = V_BATCH * 64 * V_IMG * V_IMG
+    sigma = float(np.sqrt(prob * (1 - prob) / (n_mask * G_STEPS)))
+    keep = float(np.mean(seg["keep_rates"]))
+    check(abs(keep - (1 - prob)) <= 4 * sigma, f"{phase}: keep rate {keep} "
+          f"for dropout_prob {prob} (sigma {sigma})")
+    step_s = float(np.median(seg["step_s"][2:]))
+    i_step_s = float(np.median(runs["interpreted"]["step_s"][1:]))
+    emit({"phase": phase, "card": card, "model": "vgg16_bn_drop",
+          "source": "paddle_tpu/models/vgg.py:28 (the book's CIFAR-10 "
+                    "model)", "image": V_IMG, "classes": V_CLASSES,
+          "batch": V_BATCH, "dtype": "float32", "optimizer": "momentum",
+          "dropout_ops": len(drops), "device_segments": n_device,
+          "host_segments": len(host), **runs,
+          "first_dropout_prob": prob, "keep_rate": keep,
+          "keep_rate_sigma": sigma,
+          "ms_per_step": step_s * 1e3, "images_per_s": V_BATCH / step_s,
+          "interpreted_ms_per_step": i_step_s * 1e3,
+          "timing": "host clock around exe.run + synchronize, the fetch "
+                    "of the first dropout's mask included; ms_per_step "
+                    "the median of the replayed steps (3..N), the "
+                    "interpreter's of steps 2..N"})
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -2170,6 +2595,9 @@ def main():
     moe_cases = moe_kernel_phase(dev, bw, flops)
     moe_launches, moe_bwd_launches, moe_replayed = moe_phase(
         card, CUDAPlace(0), peaks, moe_cases)
+    resnet50_phase(card, CUDAPlace(0), peaks)
+    resnet_card_vs_cpu_phase(card, CUDAPlace(0))
+    vgg_segmented_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",

@@ -17,7 +17,9 @@ data-parallel training through ParallelExecutor's bucketed overlap step
 (parallel/), with the fused bucket SGD update in a CUDA kernel; and the
 MoE FFN op, with gate and dispatch in a CUDA kernel; bf16 mixed
 precision (`fluid.amp`), with explicit gradients for `mul` and
-`flash_attention`.
+`flash_attention`; conv-net training — conv2d, pool2d, batch_norm,
+dropout and accuracy, the ResNet and VGG builders (models/), with
+explicit conv2d and batch_norm gradients.
 """
 from . import (  # noqa: F401
     amp,

@@ -46,7 +46,7 @@ from .execution import (DictEnv, ExecContext, ScopeEnv, _mix,
 from .flags import get_flag
 from .framework import EMPTY_VAR_NAMES as _EMPTY
 from .framework import Program, Variable, default_main_program
-from .scope import Scope
+from .scope import Scope, tensor_from_numpy
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_place", "Executor",
            "global_scope", "scope_guard", "switch_scope"]
@@ -151,16 +151,13 @@ class scope_guard:
 
 
 def _feed_tensor(v):
-    """Feed value -> a tensor where it stays (numpy arrays and Python
-    scalars on the host, without a copy where numpy allows); opaque host
-    objects pass."""
+    """Feed value -> a tensor where it stays (numpy arrays, bf16 ones
+    included, and Python scalars on the host, without a copy where numpy
+    allows); opaque host objects pass."""
     if isinstance(v, torch.Tensor):
         return v
     if isinstance(v, (np.ndarray, np.generic)):
-        a = np.ascontiguousarray(v)
-        if not a.flags.writeable:
-            a = a.copy()
-        return torch.from_numpy(a)
+        return tensor_from_numpy(v)
     if isinstance(v, (bool, int, float)):
         return torch.tensor(v)
     return v
@@ -189,8 +186,10 @@ def _aval(v):
 
 def _run_flags():
     """Flags the lowerings read at run time, so part of every cache key:
-    amp changes compute dtypes, serving_kernels the CPU's MoE route."""
-    return get_flag("amp_bf16"), get_flag("serving_kernels")
+    amp changes compute dtypes, serving_kernels the CPU's MoE route,
+    conv_layout the convolutions' memory format."""
+    return (get_flag("amp_bf16"), get_flag("serving_kernels"),
+            get_flag("conv_layout"))
 
 
 def _owns_storage(t) -> bool:

@@ -81,6 +81,14 @@ define_flag("amp_bf16", False,
             "Read by the op lowerings at BUILD time (shape inference "
             "types the Program's vars) and at RUN time, so keep it "
             "fixed between building a Program and running it")
+define_flag("conv_layout", "",
+            "conv layout override, read at RUN time by the conv2d "
+            "lowering and its gradient: 'NHWC' runs every NCHW-declared "
+            "conv2d channels-last (torch.channels_last memory format; "
+            "the output stays channels-last, so a conv trunk runs "
+            "without transposes between its convs).  '' (default) keeps "
+            "each op's declared data_format.  No value changes.  The "
+            "Executor's cache keys include it, as amp_bf16")
 define_flag("jit_granularity", "block",
             "how much of a program one Executor cache entry covers: "
             "'block' (default) resolves the whole block 0 into one "

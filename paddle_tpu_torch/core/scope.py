@@ -12,7 +12,8 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-__all__ = ["Scope", "scope_from_numpy", "scope_to_numpy"]
+__all__ = ["Scope", "scope_from_numpy", "scope_to_numpy",
+           "tensor_from_numpy"]
 
 
 class Scope:
@@ -73,18 +74,32 @@ class Scope:
         self._vars.pop(name, None)
 
 
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A host array as a CPU tensor sharing its memory where numpy
+    allows.  numpy's extension dtype named "bfloat16" (what JAX hands
+    over for a bf16 value; torch cannot read it) keeps its bits: viewed
+    as uint16, then as torch.bfloat16."""
+    a = np.asarray(arr)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def scope_from_numpy(arrays, place=None, scope: Optional[Scope] = None
                      ) -> Scope:
     """{name: array} -> `scope` (a new Scope when None) holding each
     value as a tensor on `place` (None = CUDAPlace(0); a place or a
     torch.device).  Integer arrays become int64, Paddle's id type: the
-    JAX package runs its int64 as int32, so values, not dtypes, match."""
+    JAX package runs its int64 as int32, so values, not dtypes, match.
+    A bf16 array keeps its bits (`tensor_from_numpy`)."""
     from .executor import resolve_place
 
     device = resolve_place(place)
     scope = Scope() if scope is None else scope
     for name, arr in arrays.items():
-        t = torch.tensor(np.asarray(arr))
+        t = tensor_from_numpy(arr).clone()
         if not (t.is_floating_point() or t.dtype == torch.bool):
             t = t.long()
         scope.set_var(name, t.to(device))

@@ -1,17 +1,18 @@
-"""NN layers: fc, embedding, flash_attention, layer_norm, the losses
-and reductions of a training Program (counterpart of
+"""NN layers: fc, embedding, flash_attention, the conv-net layers
+(conv2d, pool2d, batch_norm, dropout), layer_norm, the losses,
+reductions and metrics of a training Program (counterpart of
 paddle_tpu/layers/nn.py)."""
 from __future__ import annotations
 
 import math
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "flash_attention", "moe_ffn", "layer_norm",
-           "mean",
-           "reduce_sum", "cross_entropy", "square_error_cost",
-           "softmax_with_cross_entropy"]
+__all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
+           "accuracy", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "mean", "reduce_sum", "topk", "cross_entropy",
+           "square_error_cost", "softmax_with_cross_entropy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -59,6 +60,19 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
         {"is_sparse": bool(is_sparse),
          "padding_idx": -1 if padding_idx is None else int(padding_idx)})
     return tmp
+
+
+def dropout(x, dropout_prob, is_test=False, seed=0, name=None):
+    """Dropout (ops/activation.py): a nonzero `seed` fixes the draws."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op("dropout", {"X": [x.name]},
+                     {"Out": [out.name], "Mask": [mask.name]},
+                     {"dropout_prob": float(dropout_prob),
+                      "is_test": is_test, "seed": seed,
+                      "fix_seed": seed != 0})
+    return out
 
 
 def flash_attention(q, k, v, causal=False, scale=None, min_seq_k=None,
@@ -127,6 +141,130 @@ def moe_ffn(input, num_experts, d_inner=None, top_k=1,
     return out, aux
 
 
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy from top_k + accuracy ops."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    topk_indices = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op("top_k", {"X": [input.name]},
+                     {"Out": [topk_out.name],
+                      "Indices": [topk_indices.name]}, {"k": k})
+    acc_out = helper.create_tmp_variable("float32", stop_gradient=True)
+    correct = correct or helper.create_tmp_variable("int32",
+                                                    stop_gradient=True)
+    total = total or helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        {"Out": [topk_out.name], "Indices": [topk_indices.name],
+         "Label": [label.name]},
+        {"Accuracy": [acc_out.name], "Correct": [correct.name],
+         "Total": [total.name]})
+    return acc_out
+
+
+def _check_layout(value, name="data_format"):
+    """Normalize/validate a layout string: a typo such as "nhwc" must not
+    build a mixed-layout network."""
+    v = str(value).upper()
+    if v not in ("NCHW", "NHWC"):
+        raise ValueError(f"{name} must be 'NCHW' or 'NHWC', got {value!r}")
+    return v
+
+
+def _pair_list(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None,
+           name=None, use_cudnn=True, main_program=None,
+           startup_program=None, data_format="NCHW"):
+    """2-D convolution (+ bias over the channel axis, + act); the filter
+    is [num_filters, C / groups, kh, kw], N(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name,
+                         main_program=main_program,
+                         startup_program=startup_program)
+    dtype = input.dtype
+    data_format = _check_layout(data_format)
+    c_axis = 3 if data_format == "NHWC" else 1
+    num_channels = input.shape[c_axis]
+    groups = groups or 1
+    filter_size = _pair_list(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = math.sqrt(2.0 / (num_channels * filter_size[0] * filter_size[1]))
+    w = helper.create_parameter(param_attr, filter_shape, dtype,
+                                default_initializer=NormalInitializer(
+                                    0.0, std),
+                                suffix="w")
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "conv2d", {"Input": [input.name], "Filter": [w.name]},
+        {"Output": [pre_bias.name]},
+        {"strides": _pair_list(stride), "paddings": _pair_list(padding),
+         "dilations": _pair_list(dilation), "groups": groups,
+         "use_cudnn": use_cudnn, "data_format": data_format})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=c_axis,
+                                    dim_end=c_axis + 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True, name=None,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    data_format = _check_layout(data_format)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "pool2d", {"X": [input.name]}, {"Out": [out.name]},
+        {"pooling_type": pool_type, "ksize": _pair_list(pool_size),
+         "strides": _pair_list(pool_stride),
+         "paddings": _pair_list(pool_padding),
+         "global_pooling": global_pooling, "use_cudnn": use_cudnn,
+         "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None):
+    """Batch norm over the channel axis; the moving mean and variance are
+    persistable, non-trainable parameters that the op updates in place
+    (MeanOut/VarianceOut are written under their names)."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    data_layout = _check_layout(data_layout, "data_layout")
+    c_axis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    channels = input.shape[c_axis]
+    scale = helper.create_parameter(
+        param_attr, [channels], dtype,
+        default_initializer=ConstantInitializer(1.0), suffix="scale")
+    bias = helper.create_parameter(bias_attr or {}, [channels], dtype,
+                                   is_bias=True, suffix="offset")
+    mean = helper.create_parameter(
+        {"name": moving_mean_name, "trainable": False}, [channels], dtype,
+        default_initializer=ConstantInitializer(0.0), suffix="mean")
+    variance = helper.create_parameter(
+        {"name": moving_variance_name, "trainable": False}, [channels],
+        dtype, default_initializer=ConstantInitializer(1.0), suffix="var")
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_tmp_variable(dtype, stop_gradient=True)
+    saved_var = helper.create_tmp_variable(dtype, stop_gradient=True)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "batch_norm",
+        {"X": [input.name], "Scale": [scale.name], "Bias": [bias.name],
+         "Mean": [mean.name], "Variance": [variance.name]},
+        {"Y": [out.name], "MeanOut": [mean.name],
+         "VarianceOut": [variance.name], "SavedMean": [saved_mean.name],
+         "SavedVariance": [saved_var.name]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -175,6 +313,16 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     helper.append_op("reduce_sum", {"X": [input.name]}, {"Out": [out.name]},
                      attrs)
     return out
+
+
+def topk(input, k=1):
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    indices = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op("top_k", {"X": [input.name]},
+                     {"Out": [values.name], "Indices": [indices.name]},
+                     {"k": k})
+    return values, indices
 
 
 def cross_entropy(input, label, soft_label=False):

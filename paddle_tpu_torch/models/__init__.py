@@ -5,3 +5,5 @@ from .transformer import (  # noqa: F401
     transformer_lm,
 )
 from .moe import active_param_count, build_moe_lm  # noqa: F401
+from .resnet import resnet_cifar10, resnet_imagenet  # noqa: F401
+from .vgg import vgg, vgg16_bn_drop  # noqa: F401

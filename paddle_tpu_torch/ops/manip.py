@@ -1,6 +1,8 @@
-"""Tensor manipulation ops: reshape, slice (counterpart of
+"""Tensor manipulation ops: reshape, slice, top_k (counterpart of
 paddle_tpu/ops/manip.py)."""
 from __future__ import annotations
+
+import torch
 
 from ..core.execution import one
 from ..core.registry import register_op
@@ -26,3 +28,14 @@ def slice_op(ctx, ins, attrs):
     for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
         idx[a] = slice(s, e)
     return {"Out": x[tuple(idx)]}
+
+
+@register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
+             attrs={"k": 1}, diff_outputs=())
+def top_k(ctx, ins, attrs):
+    """The k largest along the last dim, largest first, equal values in
+    index order (as `lax.top_k`): a stable descending sort, cut to k."""
+    vals, idx = torch.sort(one(ins, "X"), dim=-1, descending=True,
+                           stable=True)
+    k = int(attrs["k"])
+    return {"Out": vals[..., :k], "Indices": idx[..., :k]}

@@ -1163,3 +1163,201 @@ def test_segmented_random_op_draws_fresh_on_the_card(dev):
     for a, b in zip(got[None], got[False]):
         assert a.tobytes() == b.tobytes()
     assert len({a.tobytes() for a in got[None]}) == 4
+
+
+# -- conv nets: conv2d, pool2d, batch_norm on the card -----------------------
+
+def _op_on(op, arrays, attrs, device, dtype=torch.float32):
+    """Run the port's lowering of `op` on `device` -> {slot: tensor}."""
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    info = get_op_info(op)
+    ins = {s: [a.to(device, dtype if a.is_floating_point() else a.dtype)]
+           for s, a in arrays.items()}
+    out = info.lower(ExecContext(device), ins, {**info.attrs, **attrs})
+    return {s: (v[0] if isinstance(v, list) else v) for s, v in out.items()}
+
+
+def _grad_on(op, arrays, attrs, device):
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    info = get_op_info(op)
+    ins = {s: [a.to(device)] for s, a in arrays.items()}
+    out = info.grad_lower(ExecContext(device), ins, {**info.attrs, **attrs})
+    return {s: v[0] for s, v in out.items()}
+
+
+def _close_to_cpu(got, want, tol=1e-5):
+    got = got.float().cpu()
+    assert got.shape == want.shape
+    assert float((got - want.float()).abs().max()) <= \
+        tol * max(1.0, float(want.abs().max()))
+
+
+_CARD_CONVS = [  # (x shape, w shape, strides, paddings, groups, layout)
+    ((4, 3, 32, 32), (16, 3, 7, 7), [2, 2], [3, 3], 1, "NCHW"),
+    ((4, 16, 16, 16), (32, 16, 3, 3), [1, 1], [1, 1], 1, "NCHW"),
+    ((4, 32, 16, 16), (64, 32, 1, 1), [2, 2], [0, 0], 1, "NCHW"),
+    ((4, 16, 16, 16), (16, 4, 3, 3), [1, 1], [1, 1], 4, "NCHW"),
+    ((4, 16, 16, 16), (32, 16, 3, 3), [1, 1], [1, 1], 1, "NHWC"),
+]
+
+
+@pytest.mark.parametrize("case", _CARD_CONVS, ids=range(len(_CARD_CONVS)))
+def test_conv_on_the_card_matches_cpu_with_tf32_switched_on(dev, case):
+    """float32 convolution and its explicit gradient: the lowering pins
+    full float32 itself, whatever the caller's TF32 switches say."""
+    xs, ws, s, p, g, layout = case
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(xs, generator=gen), torch.randn(ws, generator=gen)
+    attrs = {"strides": s, "paddings": p, "dilations": [1, 1], "groups": g,
+             "data_format": layout}
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        arrays = {"Input": x, "Filter": w}
+        cpu = _op_on("conv2d", arrays, attrs, torch.device("cpu"))
+        card = _op_on("conv2d", arrays, attrs, dev)
+        _close_to_cpu(card["Output"], cpu["Output"])
+        dy = torch.randn(cpu["Output"].shape, generator=gen)
+        gins = {**arrays, "Output": cpu["Output"], "Output@GRAD": dy}
+        g_cpu = _grad_on("conv2d", gins, attrs, torch.device("cpu"))
+        g_card = _grad_on("conv2d", gins, attrs, dev)
+        for slot in ("Input@GRAD", "Filter@GRAD"):
+            _close_to_cpu(g_card[slot], g_cpu[slot])
+        assert torch.backends.cudnn.allow_tf32      # the caller's, back
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_grad_matches_cudnn_autograd_on_the_card(dev, dtype):
+    """The explicit conv2d gradient against autograd through F.conv2d
+    with the same backend settings (cuDNN for bf16, PyTorch's own
+    convolution for float32)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.conv import conv_pinned
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((8, 64, 28, 28), generator=gen).to(dev, dtype)
+    w = torch.randn((128, 64, 3, 3), generator=gen).to(dev, dtype)
+    attrs = {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+             "groups": 1, "data_format": "NCHW"}
+    with conv_pinned(dtype):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = F.conv2d(xl, wl, None, 2, 1)
+        dy = torch.randn(y.shape, generator=gen).to(dev, dtype)
+        dx, dw = torch.autograd.grad(y, [xl, wl], dy)
+    got = _grad_on("conv2d", {"Input": x, "Filter": w, "Output": y.detach(),
+                              "Output@GRAD": dy}, attrs, dev)
+    torch.cuda.synchronize()
+    for slot, want in (("Input@GRAD", dx), ("Filter@GRAD", dw)):
+        t = got[slot]
+        assert t.dtype == dtype
+        tol = (1e-5 if dtype == torch.float32 else 2.0 ** -8) * float(
+            want.float().abs().max())
+        assert float((t.float() - want.float()).abs().max()) <= tol, slot
+
+
+@pytest.mark.parametrize("attrs", [
+    {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1]},
+    {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1]},
+    {"pooling_type": "avg", "global_pooling": True}])
+def test_pool_on_the_card_matches_cpu(dev, attrs):
+    x = torch.randn((4, 8, 15, 15), generator=torch.Generator().manual_seed(2))
+    cpu = _op_on("pool2d", {"X": x}, attrs, torch.device("cpu"))
+    card = _op_on("pool2d", {"X": x}, attrs, dev)
+    _close_to_cpu(card["Out"], cpu["Out"])
+
+
+@pytest.mark.parametrize("is_test", [False, True])
+def test_batch_norm_on_the_card_matches_cpu(dev, is_test):
+    gen = torch.Generator().manual_seed(3)
+    c = 16
+    arrays = {"X": torch.randn((8, c, 12, 12), generator=gen) * 2 + 3,
+              "Scale": torch.rand(c, generator=gen) + 0.5,
+              "Bias": torch.randn(c, generator=gen),
+              "Mean": torch.randn(c, generator=gen) * 0.1,
+              "Variance": torch.rand(c, generator=gen) + 0.5}
+    attrs = {"is_test": is_test}
+    cpu = _op_on("batch_norm", arrays, attrs, torch.device("cpu"))
+    card = _op_on("batch_norm", arrays, attrs, dev)
+    for slot in cpu:
+        _close_to_cpu(card[slot], cpu[slot])
+    gins = {**arrays, **cpu,
+            "Y@GRAD": torch.randn(cpu["Y"].shape, generator=gen)}
+    g_cpu = _grad_on("batch_norm", gins, attrs, torch.device("cpu"))
+    g_card = _grad_on("batch_norm", gins, attrs, dev)
+    for slot in g_cpu:
+        _close_to_cpu(g_card[slot], g_cpu[slot])
+
+
+def _small_resnet(dtype):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.core import framework as tfw
+
+    tfw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, 32, 32], dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        pred = models.resnet_imagenet(img, class_dim=10, depth=18)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=pred,
+                                                            label=label))
+        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_step_is_repeatable_on_the_card(dev, dtype):
+    """Two runs of the same ResNet-18 steps from the same state give the
+    same bits (deterministic cuDNN algorithms, a gather-style max-pool
+    backward, no atomics), interpreted and as a replayed CUDA graph, and
+    the two modes agree bit for bit."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = _small_resnet(dtype)
+    r = np.random.RandomState(0)
+    x = torch.from_numpy(r.rand(16, 3, 32, 32).astype(np.float32))
+    feed = {"img": x.to(getattr(torch, dtype)),
+            "label": r.randint(0, 10, (16, 1)).astype(np.int64)}
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    prev = texecutor.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+        exe.run(startup)
+        init = {n: fluid.global_scope().find_var(n).clone() for n in names}
+        runs = []
+        for compiled in (False, False, None, None):
+            texecutor.switch_scope(Scope())
+            for n in names:
+                fluid.global_scope().set_var(n, init[n].clone())
+            exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+            losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                              compiled=compiled, return_numpy=False)[0]
+                      .float().item() for _ in range(3)]
+            runs.append((losses, {n: fluid.global_scope().find_var(n)
+                                  .clone() for n in names}))
+            if compiled is None:
+                assert exe.graph_stats()["replays"] == 1
+            exe.close()
+    finally:
+        texecutor.switch_scope(prev)
+    for losses, final in runs[1:]:
+        assert losses == runs[0][0]
+        _same_bits(final, runs[0][1])

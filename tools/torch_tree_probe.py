@@ -8,6 +8,8 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py sgd-sweep
     python3 tools/torch_tree_probe.py host [--fp32] [--mode MODE]
                                           [--package-root DIR]
+    python3 tools/torch_tree_probe.py convnets [--package-root DIR]
+    python3 tools/torch_tree_probe.py conv-fp32 [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -24,6 +26,15 @@ sgd-sweep  csrc/fused_update.cu built once for each setting of its
            timed in place at the dp path's largest bucket beside
            torch.add and p.add_ (CUDA events, cold L2, three rounds
            interleaved); every variant is checked bit for bit;
+convnets   chip_smoke.py's image phases alone (resnet50,
+           resnet_card_vs_cpu, vgg_segmented), with its TF32 settings;
+conv-fp32  float32 convolution on the card through cuDNN (deterministic
+           algorithms, TF32 off) against PyTorch's own convolution (the
+           conv lowering's float32 route), each against float64: the
+           largest relative error of the forward, dInput and dFilter at
+           ResNet shapes; every state after chip_smoke's card-vs-CPU
+           ResNet-18 steps against the same steps in float64 on the CPU;
+           and the VGG phase's step time with either route;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -56,6 +67,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -428,10 +440,161 @@ def host(cs, dev, fp32=False, mode="interpreted"):
     exe.close()
 
 
+def convnets(cs, dev):
+    """chip_smoke's image phases, as its main() sets the card up."""
+    from paddle_tpu_torch import CUDAPlace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    _, peaks = cs.card_peaks(name)
+    card = {"name": name}
+    cs.resnet50_phase(card, CUDAPlace(0), peaks)
+    cs.resnet_card_vs_cpu_phase(card, CUDAPlace(0))
+    cs.vgg_segmented_phase(card, CUDAPlace(0))
+
+
+def _cudnn_fp32(conv_mod):
+    """conv_mod.conv_pinned swapped for one that keeps cuDNN on for
+    float32 (deterministic, no benchmark search, TF32 off) -> undo()."""
+    import contextlib
+
+    inner = conv_mod.conv_pinned
+
+    @contextlib.contextmanager
+    def cudnn_always(dtype):
+        with inner(torch.bfloat16):
+            yield
+
+    conv_mod.conv_pinned = cudnn_always
+
+    def undo():
+        conv_mod.conv_pinned = inner
+
+    return undo
+
+
+def conv_fp32(cs, dev):
+    """float32 convolution: cuDNN against the lowering's route."""
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                             scope_to_numpy)
+    from paddle_tpu_torch.ops import conv as conv_mod
+
+    card = fluid.CUDAPlace(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    routes = ("cudnn", "lowering")
+    gen = torch.Generator().manual_seed(0)
+    shapes = []
+    for xs, ws, st, pd in (((8, 3, 64, 64), (64, 3, 7, 7), 2, 3),
+                           ((8, 64, 16, 16), (64, 64, 3, 3), 1, 1),
+                           ((8, 128, 8, 8), (128, 128, 3, 3), 1, 1),
+                           ((8, 64, 16, 16), (128, 64, 1, 1), 2, 0),
+                           ((8, 256, 4, 4), (256, 256, 3, 3), 1, 1)):
+        x = torch.randn(xs, generator=gen, dtype=torch.float64)
+        w = torch.randn(ws, generator=gen, dtype=torch.float64)
+        y = F.conv2d(x, w, None, st, pd)
+        dy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+        want = (y, *torch.ops.aten.convolution_backward(
+            dy, x, w, None, [st, st], [pd, pd], [1, 1], False, [0, 0], 1,
+            [True, True, False])[:2])
+        row = {"x": list(xs), "w": list(ws), "stride": st}
+        for route in routes:
+            pin = (conv_mod.conv_pinned(torch.bfloat16) if route == "cudnn"
+                   else conv_mod.conv_pinned(torch.float32))
+            with pin:
+                xf, wf, dyf = (t.float().to(dev) for t in (x, w, dy))
+                got = (F.conv2d(xf, wf, None, st, pd),
+                       *torch.ops.aten.convolution_backward(
+                           dyf, xf, wf, None, [st, st], [pd, pd], [1, 1],
+                           False, [0, 0], 1, [True, True, False])[:2])
+            row[route] = {k: float((g.double().cpu() - r).abs().max()
+                                   / r.abs().max())
+                          for k, g, r in zip(("fwd", "dx", "dw"), got, want)}
+        shapes.append(row)
+    emit({"probe": "conv-fp32", "part": "single convs, max |err| / max "
+          "|float64|", "shapes": shapes})
+
+    main, startup, loss = cs._image_program(
+        f"resnet{cs.C_DEPTH}", cs.C_IMG, cs.C_CLASSES, "float32")
+    persist = cs._persistables(main)
+    feed = cs._image_feed(cs.C_BATCH, cs.C_IMG, cs.C_CLASSES, "float32")
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        fluid.Executor(fluid.CPUPlace(), seed=cs.SEED).run(startup)
+        init = scope_to_numpy(fluid.global_scope(), persist)
+
+        def steps(place, dtype):
+            executor_mod.switch_scope(Scope())
+            scope_from_numpy({n: v.astype(dtype) for n, v in init.items()},
+                             place, fluid.global_scope())
+            exe = fluid.Executor(place, seed=cs.SEED)
+            f = {"img": feed["img"].to(getattr(torch, dtype)),
+                 "label": feed["label"]}
+            for _ in range(cs.C_STEPS):
+                exe.run(main, feed=f, fetch_list=[loss], compiled=False)
+            return {n: v.astype(np.float64) for n, v in scope_to_numpy(
+                fluid.global_scope(), persist).items()}
+
+        ref = steps(fluid.CPUPlace(), "float64")
+        errs = {"cpu": steps(fluid.CPUPlace(), "float32")}
+        undo = _cudnn_fp32(conv_mod)
+        try:
+            errs["cudnn"] = steps(card, "float32")
+        finally:
+            undo()
+        errs["lowering"] = steps(card, "float32")
+        out = {}
+        for route, st in errs.items():
+            rel = {n: float(np.abs(st[n] - ref[n]).max()
+                            / max(1.0, np.abs(ref[n]).max())) for n in persist}
+            worst = max(rel, key=rel.get)
+            out[route] = {"max": rel[worst], "argmax": worst,
+                          "argmax_largest": float(np.abs(ref[worst]).max())}
+        emit({"probe": "conv-fp32", "part": f"resnet{cs.C_DEPTH} at "
+              f"{cs.C_IMG}x{cs.C_IMG}, batch {cs.C_BATCH}, {cs.C_STEPS} "
+              "Momentum steps: max |state - float64 CPU| / max(1, |state|)",
+              **out})
+
+        main, startup, loss = cs._image_program(
+            "vgg16_bn_drop", cs.V_IMG, cs.V_CLASSES, "float32")
+        feed = cs._image_feed(cs.V_BATCH, cs.V_IMG, cs.V_CLASSES, "float32")
+        times = {}
+        for route in ("cudnn", "lowering", "cudnn", "lowering"):
+            undo = _cudnn_fp32(conv_mod) if route == "cudnn" else None
+            try:
+                executor_mod.switch_scope(Scope())
+                exe = fluid.Executor(card, seed=cs.SEED)
+                exe.run(startup)
+                secs = []
+                for _ in range(cs.G_STEPS):
+                    t0 = time.perf_counter()
+                    exe.run(main, feed=feed, fetch_list=[loss])
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                exe.close()
+            finally:
+                if undo is not None:
+                    undo()
+            times.setdefault(route, []).append(
+                float(np.median(secs[2:])) * 1e3)
+        emit({"probe": "conv-fp32", "part": "vgg16_bn_drop, the "
+              "vgg_segmented phase's model and batch, default mode: median "
+              "ms a replayed step (3..N), two runs each, in turns",
+              "ms_per_step": times})
+    finally:
+        executor_mod.switch_scope(prev)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
-                                      "sgd-sweep", "host"))
+                                      "sgd-sweep", "host", "convnets",
+                                      "conv-fp32"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -459,7 +622,8 @@ def main():
         host(cs, dev, fp32=args.fp32, mode=args.mode)
     else:
         {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
-         "sgd-sweep": sgd_sweep}[args.probe](cs, dev)
+         "sgd-sweep": sgd_sweep, "convnets": convnets,
+         "conv-fp32": conv_fp32}[args.probe](cs, dev)
     return 0
 
 

@@ -21,8 +21,10 @@ Phases, one JSON line each:
            library composition's (gather + scaled_dot_product_attention)
            times beside the bound;
   flash    the flash-attention forward, dQ and dK/dV kernels at the
-           training shape [8, 512, 16, 128] (causal fp32, causal bf16,
-           non-causal fp32), each against its plain version, with the
+           LM's training shape [8, 512, 16, 128] (causal fp32, causal
+           bf16, non-causal fp32, non-causal bf16) and at the seq2seq
+           model's [32, 128, 8, 64] (causal and non-causal bf16), each
+           against its plain version, with the
            kernel's, the plain version's and scaled_dot_product_attention's
            (forward against the forward kernel; backward against dQ +
            dK/dV; in every case) times
@@ -58,6 +60,16 @@ Phases, one JSON line each:
            peak allocated and reserved memory, the interpreter's host
            synchronisations;
   train_fp32  the same LM and steps in float32 (amp off);
+  seq2seq  the transformer translator of benchmark/run_seq2seq.py at its
+           defaults (vocab 30000 on both sides, d_model 512, 8 heads,
+           6 + 6 layers, batch 32, source and target length 128; Adam;
+           bf16 amp as run_seq2seq runs it), trained as the train phase
+           is: the default mode (one CUDA graph; 18 forward, dQ and
+           dK/dV launches a replayed step, 12 of them non-causal), the
+           interpreter bit for bit, the plain path within one bf16 ulp
+           of loss; tokens/s as run_seq2seq counts them and the model
+           FLOPs (mul and flash_attention shapes, forward x 3) against
+           the bf16 peak;
   serve    the full-width LM of benchmark/run_generation.py (vocab
            32000, d_model 512, 8 heads, 6 layers, d_inner 2048) with
            seeded random weights, written as a model dir and served
@@ -116,19 +128,31 @@ Phases, one JSON line each:
            default mode, which the dropout ops make segmented (each runs
            eagerly between captured device segments): the segment
            counts, finite losses, and the interpreter's losses and keep
-           rates from the same state and seed.
+           rates from the same state and seed;
+  dropout_rows  the batch-position-keyed dropout draw on the card
+           against the CPU's, bit for bit (a whole draw, two halves at
+           their row offsets, the op's lowering), its keep rate within
+           4 sigma, and its time beside torch.rand;
+  image_models  the rest of run_image's models at its defaults (alexnet
+           227x227 with lrn, googlenet 224x224 with concat, smallnet
+           32x32, vgg19 224x224; batch 128, bf16 throughout, Momentum):
+           the default mode (segmented around the dropouts, one graph for
+           smallnet) against the interpreter bit for bit, images/s, model
+           FLOPs against the bf16 peak, device time by group, segments,
+           graphs and peak memory.
 
 The main paths are the train phase's kernel path (flash attention; the
-train_fp32 phase's too), the kernel-path serve and spec phases (paged
-attention), the dp phase's fused run (fused bucket update) and the moe
+train_fp32 and seq2seq phases' too), the kernel-path serve and spec
+phases (paged attention), the dp phase's fused run (fused bucket update) and the moe
 phase's kernel path (MoE gate + dispatch and its backward): each
 kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
-wrappers, so on the train and moe paths the counts cover the eager
-first step and the capture, and the kernels line adds the profiler's
-count in a replayed step.  The image phases run no kernel of the
-port's own: convolution, pooling and batch norm are cuDNN or plain
-PyTorch calls there, as they are XLA ops in the JAX package.
+wrappers, so on the train, seq2seq and moe paths the counts cover the
+eager first step and the capture, and the kernels line adds the
+profiler's count in a replayed step.  The image phases run no kernel of
+the port's own: convolution, pooling, batch norm, lrn and concat are
+cuDNN or plain PyTorch calls there, as they are XLA ops in the JAX
+package.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -187,6 +211,14 @@ LOSS_RTOL, PARAM_RTOL = 1e-5, 1e-2
 LOSS_ULPS_BF16, PARAM_RTOL_BF16 = 1, 0.15
 FLASH_SHAPE = (T_BATCH, T_SEQ, T_HEADS, T_D // T_HEADS)
 
+# the seq2seq configuration: benchmark/run_seq2seq.py's defaults
+# (transformer translator, d_model 512, 8 heads, 6 + 6 layers, vocab
+# 30000 on both sides, batch 32, source and target length 128, Adam 1e-4,
+# bf16 amp, dropout 0); tokens a step counted as run_seq2seq counts
+# them, batch x (src + tgt)
+S_VOCAB, S_D, S_HEADS, S_LAYERS, S_LEN, S_BATCH = 30000, 512, 8, 6, 128, 32
+S2S_FLASH_SHAPE = (S_BATCH, S_LEN, S_HEADS, S_D // S_HEADS)
+
 # the MoE configuration: benchmark/run_moe.py's defaults
 M_VOCAB, M_D, M_HEADS, M_LAYERS, M_SEQ, M_BATCH = 30000, 1024, 8, 6, 512, 8
 M_EXPERTS, M_TOPK, M_CF, M_AUX = 8, 2, 1.25, 0.01
@@ -208,6 +240,16 @@ V_IMG, V_CLASSES, V_BATCH = 32, 10, 128
 # (cuDNN and the CPU's convolutions sum in other orders; the CPU tests
 # hold the CPU path to the JAX package at the same 1e-4)
 CARD_CPU_RTOL = 1e-4
+# the rest of run_image's models at its defaults (batch 128, bf16
+# throughout, Momentum): (model, image side, classes)
+IMAGE_MODELS = (("alexnet", 227, 1000), ("googlenet", 224, 1000),
+                ("smallnet", 32, 10), ("vgg19", 224, 1000))
+I_BATCH = 128
+# the dropout_rows phase's draws: (name, shape, p, dtype); AlexNet's fc
+# dropout as run_image runs it, and VGG-16's first conv dropout (float32,
+# several chunks of the keyed draw)
+DROPOUT_CASES = (("alexnet_fc", (128, 4096), 0.5, torch.bfloat16),
+                 ("vgg_conv", (128, 64, 32, 32), 0.3, torch.float32))
 
 
 class CheckFailed(RuntimeError):
@@ -512,17 +554,26 @@ def _close_bf16(got, want):
     return float(err.max()) <= lim and rms <= rms_lim, lim, rms, rms_lim
 
 
+# the flash phase's cases: (name, dtype, causal, [b, s, h, d]); the LM's
+# training shape, and the seq2seq model's (its encoder self-attention
+# and cross-attention non-causal, its decoder self-attention causal)
+FLASH_CASES = (("fp32_causal", torch.float32, True, FLASH_SHAPE),
+               ("bf16_causal", torch.bfloat16, True, FLASH_SHAPE),
+               ("fp32_full", torch.float32, False, FLASH_SHAPE),
+               ("bf16_full", torch.bfloat16, False, FLASH_SHAPE),
+               ("s2s_bf16_causal", torch.bfloat16, True, S2S_FLASH_SHAPE),
+               ("s2s_bf16_full", torch.bfloat16, False, S2S_FLASH_SHAPE))
+
+
 def flash_phase(dev, bw, peaks):
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
-    b, s, h, d = FLASH_SHAPE
     cases = {}
-    for name, dtype, causal in (("fp32_causal", torch.float32, True),
-                                ("bf16_causal", torch.bfloat16, True),
-                                ("fp32_full", torch.float32, False)):
+    for name, dtype, causal, shape in FLASH_CASES:
+        b, s, h, d = shape
         gen = torch.Generator().manual_seed(SEED)
-        q, k, v, do = (torch.randn(FLASH_SHAPE, generator=gen).to(dev, dtype)
+        q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype)
                        for _ in range(4))
         fp32 = dtype == torch.float32
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -568,7 +619,8 @@ def flash_phase(dev, bw, peaks):
         # products each (3xTF32: the backward kernels, and SDPA's float32
         # path); the scalar float32 peak stays beside it for PRs 2-3
         flops = peaks["tf32"] / 3 if fp32 else peaks[dtype]
-        res = {"max_abs_err": errs, "rms_err": rms_errs,
+        res = {"shape_bshd": list(shape), "causal": causal,
+               "max_abs_err": errs, "rms_err": rms_errs,
                "sdpa_fwd_max_abs_err": lib_err, "peak_flops": flops,
                "sdpa_fwd_ms": cold_ms(lambda: _sdpa(q, k, v, causal), 20,
                                       flush),
@@ -604,7 +656,7 @@ def flash_phase(dev, bw, peaks):
         res["bwd_over_sdpa_bwd"] = res["bwd_ms"] / res["sdpa_bwd_ms"]
         del leaves, lib_out
         cases[name] = res
-    emit({"phase": "flash", "shape_bshd": list(FLASH_SHAPE),
+    emit({"phase": "flash",
           "timing": "median of cold-L2 calls, CUDA events; the backward "
                     "kernels take the plain forward's lse and delta; "
                     "fwd against sdpa_fwd_ms, and bwd_ms = dq + dkv "
@@ -1133,35 +1185,34 @@ def _interpreter_record(i_secs, i_profile):
             "interpreted_host_syncs_per_step": i_profile["host_syncs"]}
 
 
-def train_phase(card, place, peaks, flash_cases, amp):
-    """The run_ridge LM trained in the Executor's default mode (the block
-    compiled: eager at the miss, then a CUDA graph, captured at the first
-    hit and replayed), under bf16 amp (phase "train", the main path) or
-    in float32 ("train_fp32"); then the interpreter and the plain path
-    from the same state."""
+def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
+                 keep=()):
+    """A transformer Program's flash main path, under the caller's amp
+    setting: G_STEPS steps in the Executor's default mode (eager at the
+    miss, captured into a CUDA graph at the first hit, replayed after)
+    and a profiled replay, the launch counts zeroed just before; then
+    the same steps from the same state interpreted (losses and every
+    state in `snapshot` bit for bit the replay's), and a profiled
+    interpreted step that fetches every parameter's gradient (all
+    float32, as every parameter); then the plain path (interpreted, the
+    flash op and its gradient swapped for the plain composition).
+    -> a dict of the three paths' readings, with the startup's values
+    ("init") and the replay's of the states in `keep` ("kept"); the
+    scope holds the plain path's."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.core import executor as executor_mod
-    from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.kernels.flash_attention import flash_attention
 
-    phase = "train" if amp else "train_fp32"
-    if amp:
-        fluid.amp.enable_bf16()     # before the Program is built
-    prev_scope = executor_mod.switch_scope(Scope())
-    exe = None
+    blk = main.global_block()
+    params = blk.all_parameters()
+    persist = _persistables(main)
+    grads = _grad_names(main)
+    n_attn = sum(op.type == "flash_attention" for op in blk.ops)
+    check(sorted(grads) == sorted(p.name for p in params)
+          and all(p.dtype == "float32" for p in params),
+          f"{phase}: a parameter is not float32 or has no gradient")
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
     try:
-        main, startup, loss = _lm_program(
-            fluid.Momentum(learning_rate=0.01, momentum=0.9))
-        params = main.global_block().all_parameters()
-        n_params = sum(int(np.prod(p.shape)) for p in params)
-        weights = [p.name for p in params if len(p.shape) == 2]
-        persist = [v.name for v in main.list_vars() if v.persistable]
-        grads = _grad_names(main)
-        check(sorted(grads) == sorted(p.name for p in params)
-              and all(p.dtype == "float32" for p in params),
-              f"{phase}: a parameter is not float32 or has no gradient")
-        scope = fluid.global_scope()
-        exe = fluid.Executor(place, seed=SEED)
         t0 = time.perf_counter()
         exe.run(startup)
         torch.cuda.synchronize()
@@ -1174,16 +1225,16 @@ def train_phase(card, place, peaks, flash_cases, amp):
             launches[key] = 0
         _reset_peak()
         run = lambda step: exe.run(  # noqa: E731
-            main, feed=_train_feed(step), fetch_list=[loss])[0]
+            main, feed=feed_of(step), fetch_list=[loss])[0]
         counts = {k: (lambda k=k: launches[k]) for k in launches}
-        want = {"fwd": T_LAYERS, "dq": T_LAYERS, "dkv": T_LAYERS}
-        k_loss, k_secs, k_steps, k_params, profile, graph = \
+        want = {"fwd": n_attn, "dq": n_attn, "dkv": n_attn}
+        k_loss, k_secs, k_steps, k_state, profile, graph = \
             _default_mode_path(
                 exe, run, counts, want, {"fwd": "fwd_kernel<",
                                          "dq": "dq_kernel<",
                                          "dkv": "dkv_kernel<"},
                 ("flash_attention", "matmul"), phase,
-                lambda: {n: scope.find_var(n).clone() for n in grads})
+                lambda: {n: scope.find_var(n).clone() for n in snapshot})
         k_total = dict(launches)
         # the graph and its pool go before the interpreter's runs
         exe.close()
@@ -1193,17 +1244,18 @@ def train_phase(card, place, peaks, flash_cases, amp):
         for n in persist:
             scope.set_var(n, init[n].clone())
         run_i = lambda step: exe.run(  # noqa: E731
-            main, feed=_train_feed(step), fetch_list=[loss],
-            compiled=False)[0]
+            main, feed=feed_of(step), fetch_list=[loss], compiled=False)[0]
         i_loss, i_secs, i_steps = _timed_steps(run_i, counts, G_STEPS)
         check(all(st == want for st in i_steps),
               f"{phase}: interpreter flash launches per step {i_steps}, "
               f"want {want}")
-        _bit_equal(phase, k_loss, i_loss, k_params, scope.find_var)
+        _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
+        kept = {n: k_state[n] for n in keep}
+        del k_state
         fetched = []
         i_profile = _profile_step(
             lambda: fetched.extend(exe.run(
-                main, feed=_train_feed(G_STEPS),
+                main, feed=feed_of(G_STEPS),
                 fetch_list=[loss] + list(grads.values()),
                 return_numpy=False, compiled=False)),
             ("flash_attention", "matmul"), phase)
@@ -1219,37 +1271,80 @@ def train_phase(card, place, peaks, flash_cases, amp):
         for n in persist:
             scope.set_var(n, init[n].clone())
         with _PlainAttention() as plain:
-            p_loss, p_secs, p_steps = _timed_steps(
-                run_i, counts, G_STEPS)
+            p_loss, p_secs, p_steps = _timed_steps(run_i, counts, G_STEPS)
         check(all(st == {"fwd": 0, "dq": 0, "dkv": 0} for st in p_steps),
               f"{phase}: the plain path launched flash kernels {p_steps}")
-        check(plain.calls == 2 * T_LAYERS * G_STEPS
-              and plain.grad_calls == T_LAYERS * G_STEPS,
+        check(plain.calls == 2 * n_attn * G_STEPS
+              and plain.grad_calls == n_attn * G_STEPS,
               f"{phase}: {plain.calls} plain attentions and "
               f"{plain.grad_calls} plain gradients on the plain path")
-        param_rel = _param_rel_diff(scope.find_var, init,
-                                    {n: k_params[n] for n in weights})
-        del init, k_params
+    finally:
+        exe.close()
+    return {"want": want, "startup_s": startup_s, "init": init,
+            "kept": kept,
+            "params": sum(int(np.prod(p.shape)) for p in params),
+            "k_loss": k_loss, "k_secs": k_secs, "profile": profile,
+            "p_loss": p_loss, "p_secs": p_secs, "i_secs": i_secs,
+            "i_profile": i_profile,
+            "kernel_path": {"losses": k_loss, "step_s": k_secs,
+                            "launches_per_step": k_steps,
+                            "launches": k_total,
+                            "replayed_kernels_per_step":
+                                profile["kind_counts"], **graph},
+            "interpreter": {"losses": i_loss, "step_s": i_secs,
+                            "launches_per_step": i_steps[0],
+                            "bit_equal_to_replay": True},
+            "plain_path": {"losses": p_loss, "step_s": p_secs,
+                           "mode": "interpreted",
+                           "plain_attentions": plain.calls,
+                           "plain_attention_grads": plain.grad_calls}}
+
+
+def train_phase(card, place, peaks, flash_cases, amp):
+    """The run_ridge LM trained in the Executor's default mode (the block
+    compiled: eager at the miss, then a CUDA graph, captured at the first
+    hit and replayed), under bf16 amp (phase "train", the main path) or
+    in float32 ("train_fp32"); then the interpreter and the plain path
+    from the same state (`_flash_paths`), and each weight matrix's
+    change on the kernel and plain paths."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase = "train" if amp else "train_fp32"
+    if amp:
+        fluid.amp.enable_bf16()     # before the Program is built
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        main, startup, loss = _lm_program(
+            fluid.Momentum(learning_rate=0.01, momentum=0.9))
+        weights = [p.name for p in main.global_block().all_parameters()
+                   if len(p.shape) == 2]
+        # the replay is held to the interpreter over the parameters
+        r = _flash_paths(phase, place, main, startup, loss, _train_feed,
+                         list(_grad_names(main)), keep=weights)
+        # each weight's change on the kernel path (the replay's) and on
+        # the plain path (the scope's now)
+        param_rel = _param_rel_diff(fluid.global_scope().find_var,
+                                    r.pop("init"), r.pop("kept"))
     finally:
         executor_mod.switch_scope(prev_scope)
-        if exe is not None:
-            exe.close()
-        del exe
         torch.cuda.empty_cache()
         if amp:
             fluid.amp.disable_bf16()
 
-    diff, lim, unit = _loss_check(phase, k_loss, p_loss, amp)
+    diff, lim, unit = _loss_check(phase, r["k_loss"], r["p_loss"], amp)
     p_lim = PARAM_RTOL_BF16 if amp else PARAM_RTOL
     worst = max(param_rel, key=param_rel.get)
     check(param_rel[worst] <= p_lim, f"{phase}: weight {worst} moved "
           f"{param_rel[worst]} apart on the kernel and plain paths")
     tokens = T_BATCH * T_SEQ
     p_an = _param_count(T_VOCAB, T_D, T_LAYERS, T_SEQ)
-    step_s = float(np.median(k_secs[2:]))       # the replays
-    plain_step_s = float(np.median(p_secs[1:]))
+    step_s = float(np.median(r["k_secs"][2:]))       # the replays
+    plain_step_s = float(np.median(r["p_secs"][1:]))
     fc = flash_cases["bf16_causal" if amp else "fp32_causal"]
-    attn_ms = sum(fc[kind]["ms"] * want[kind] for kind in want)
+    attn_ms = sum(fc[kind]["ms"] * n for kind, n in r["want"].items())
+    profile = r["profile"]
     mfu = ({"mfu_6np_bf16": 6.0 * tokens * p_an / step_s
             / peaks[torch.bfloat16]} if amp else
            {"mfu_6np_fp32": 6.0 * tokens * p_an / step_s
@@ -1259,20 +1354,10 @@ def train_phase(card, place, peaks, flash_cases, amp):
           "batch": T_BATCH,
           "dtype": "bf16 amp, f32 master weights" if amp else "float32",
           "optimizer": "momentum", "mode": "compiled (CUDA graph replay)",
-          "params": n_params, "params_analytic": p_an,
-          "startup_s": startup_s, "steps": G_STEPS,
-          "kernel_path": {"losses": k_loss, "step_s": k_secs,
-                          "launches_per_step": k_steps,
-                          "launches": k_total,
-                          "replayed_kernels_per_step":
-                              profile["kind_counts"], **graph},
-          "interpreter": {"losses": i_loss, "step_s": i_secs,
-                          "launches_per_step": i_steps[0],
-                          "bit_equal_to_replay": True},
-          "plain_path": {"losses": p_loss, "step_s": p_secs,
-                         "mode": "interpreted",
-                         "plain_attentions": plain.calls,
-                         "plain_attention_grads": plain.grad_calls},
+          "params": r["params"], "params_analytic": p_an,
+          "startup_s": r["startup_s"], "steps": G_STEPS,
+          **{k: r[k] for k in ("kernel_path", "interpreter",
+                               "plain_path")},
           "loss_diff": diff, "loss_limit": lim, "loss_diff_unit": unit,
           "weight_change_rel_diff": {"max": param_rel[worst],
                                      "argmax": worst,
@@ -1280,15 +1365,15 @@ def train_phase(card, place, peaks, flash_cases, amp):
                                      "per_weight": param_rel,
                                      "limit": p_lim},
           "ms_per_step": step_s * 1e3,
-          **_interpreter_record(i_secs, i_profile),
+          **_interpreter_record(r["i_secs"], r["i_profile"]),
           "plain_ms_per_step": plain_step_s * 1e3,
           "tokens_per_s": tokens / step_s, **mfu,
           "attention_ms_per_step": attn_ms,
           "attention_share": attn_ms / (step_s * 1e3),
           "profiled_step": profile,
           "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
-          "peak_memory_bytes": graph["peak_memory_bytes"],
-          "peak_reserved_bytes": graph["peak_reserved_bytes"],
+          "peak_memory_bytes": r["kernel_path"]["peak_memory_bytes"],
+          "peak_reserved_bytes": r["kernel_path"]["peak_reserved_bytes"],
           "timing": "host clock around exe.run + synchronize; ms_per_step "
                     "the median of the replayed steps (3..N), the "
                     "interpreter's and the plain path's of steps 2..N; "
@@ -1300,7 +1385,128 @@ def train_phase(card, place, peaks, flash_cases, amp):
                     "replayed step; peak memory over the default mode's "
                     "steps (allocated, and reserved with the graph's "
                     "pool)"})
-    return k_total, profile["kind_counts"]
+    return r["kernel_path"]["launches"], profile["kind_counts"]
+
+
+# -- seq2seq phase -----------------------------------------------------------
+
+def _s2s_program():
+    """run_seq2seq's transformer translator (`build_transformer`, :39-60)
+    -> (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models.transformer import transformer_translate
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.layers.data(name="src", shape=[S_LEN], dtype="int64")
+        tgt = fluid.layers.data(name="tgt", shape=[S_LEN], dtype="int64")
+        lbl = fluid.layers.data(name="lbl", shape=[S_LEN, 1], dtype="int64")
+        logits = transformer_translate(
+            src, tgt, S_VOCAB, S_VOCAB, d_model=S_D, n_heads=S_HEADS,
+            n_layers=S_LAYERS, dropout_rate=0.0, is_test=False,
+            return_logits=True, remat=False)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, shape=[-1, S_VOCAB]),
+            fluid.layers.reshape(lbl, shape=[-1, 1]))
+        loss = fluid.layers.mean(cost)
+        fluid.Adam(learning_rate=1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def _s2s_feed():
+    """run_seq2seq's feed (:117-126): ids from RandomState(0), the same
+    every step (as int64, the port's id type)."""
+    r = np.random.RandomState(0)
+    shape = (S_BATCH, S_LEN)
+    return {"src": r.randint(0, S_VOCAB, shape).astype(np.int64),
+            "tgt": r.randint(0, S_VOCAB, shape).astype(np.int64),
+            "lbl": r.randint(0, S_VOCAB, shape + (1,)).astype(np.int64)}
+
+
+def seq2seq_phase(card, place, peaks, flash_cases):
+    """run_seq2seq's transformer at its defaults under bf16 amp, trained
+    in the Executor's default mode (one compiled block: eager at the
+    miss, captured into a CUDA graph at the first hit, replayed after),
+    then the same steps interpreted from the same state (bit for bit:
+    losses, parameters and Adam's moments), then the plain path
+    (interpreted, the flash op swapped for the plain composition): each
+    loss within one bf16 ulp of the plain path's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase = "seq2seq"
+    fluid.amp.enable_bf16()     # before the Program is built
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        main, startup, loss = _s2s_program()
+        blk = main.global_block()
+        causal = [bool(op.attrs.get("causal")) for op in blk.ops
+                  if op.type == "flash_attention"]
+        check(len(causal) == 3 * S_LAYERS and sum(causal) == S_LAYERS,
+              f"{phase}: flash ops causal {causal}: want {S_LAYERS} causal "
+              f"and {2 * S_LAYERS} non-causal")
+        flops = _model_flops(main, S_BATCH)
+        feed = _s2s_feed()
+        # the replay is held to the interpreter over every state:
+        # parameters, Adam's moments and beta powers
+        r = _flash_paths(phase, place, main, startup, loss,
+                         lambda step: feed, _persistables(main))
+        del r["init"]
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+        fluid.amp.disable_bf16()
+
+    diff, lim, unit = _loss_check(phase, r["k_loss"], r["p_loss"], amp=True)
+    tokens = S_BATCH * (S_LEN + S_LEN)
+    step_s = float(np.median(r["k_secs"][2:]))       # the replays
+    step_ms = step_s * 1e3
+    bound_ms = flops / peaks[torch.bfloat16] * 1e3
+    per_kind = {"s2s_bf16_full": 2 * S_LAYERS, "s2s_bf16_causal": S_LAYERS}
+    attn_ms = sum(flash_cases[c][kind]["ms"] * n
+                  for c, n in per_kind.items() for kind in r["want"])
+    profile, graph = r["profile"], r["kernel_path"]
+    emit({"phase": phase, "card": card,
+          "source": "benchmark/run_seq2seq.py:39-60 (transformer, "
+                    "defaults: batch 32, src and tgt length 128, "
+                    "--dtype bfloat16 = amp)",
+          "vocab": S_VOCAB, "d_model": S_D, "n_heads": S_HEADS,
+          "n_layers": S_LAYERS, "src_len": S_LEN, "tgt_len": S_LEN,
+          "batch": S_BATCH, "dtype": "bf16 amp, f32 master weights",
+          "optimizer": "adam", "mode": "compiled (CUDA graph replay)",
+          "ops": len(blk.ops), "params": r["params"],
+          "startup_s": r["startup_s"], "steps": G_STEPS,
+          **{k: r[k] for k in ("kernel_path", "interpreter",
+                               "plain_path")},
+          "loss_diff": diff, "loss_limit": lim, "loss_diff_unit": unit,
+          "ms_per_step": step_ms, "tokens_per_step": tokens,
+          "tokens_per_s": tokens / step_s,
+          **_interpreter_record(r["i_secs"], r["i_profile"]),
+          "plain_ms_per_step": float(np.median(r["p_secs"][1:])) * 1e3,
+          "model_flops_per_step": flops, "bound_ms": bound_ms,
+          "bound_by": "operations",
+          "model_flops_share_of_bf16_peak": bound_ms / step_ms,
+          "attention_ms_per_step": attn_ms,
+          "attention_share": attn_ms / step_ms,
+          "profiled_step": profile,
+          "device_ms_by_group": profile["by_group_ms"],
+          "device_idle_share": 1.0 - profile["device_ms"] / step_ms,
+          "peak_memory_bytes": graph["peak_memory_bytes"],
+          "peak_reserved_bytes": graph["peak_reserved_bytes"],
+          "capture_s": graph["capture_s"],
+          "timing": "host clock around exe.run + synchronize; ms_per_step "
+                    "the median of the replayed steps (3..N), the "
+                    "interpreter's and the plain path's of steps 2..N; "
+                    "tokens a step batch x (src + tgt), as run_seq2seq "
+                    "counts them; model FLOPs from the Program's mul and "
+                    "flash_attention shapes (forward x 3) over the bf16 "
+                    "dense peak; attention from the flash phase's s2s "
+                    "cases (cold kernel ms x launches a step); device "
+                    "time and idle share from one profiled replay"})
+    return graph["launches"], profile["kind_counts"]
 
 
 # -- serve / spec phases -----------------------------------------------------
@@ -2170,7 +2376,8 @@ def moe_phase(card, place, peaks, moe_cases):
 
 def _image_program(model, img, classes, dtype):
     """benchmark/run_image.py's training Program (`build`, :42-66) for
-    `model` ("resnet<depth>" through resnet_imagenet, or "vgg16_bn_drop")
+    `model` ("resnet<depth>" through resnet_imagenet, "alexnet",
+    "googlenet", "smallnet", "vgg19", or the book's "vgg16_bn_drop")
     -> (main, startup, loss)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import models
@@ -2184,6 +2391,14 @@ def _image_program(model, img, classes, dtype):
         label = fluid.layers.data(name="label", shape=[1], dtype="int64")
         if model == "vgg16_bn_drop":
             predict = models.vgg16_bn_drop(data, class_dim=classes)
+        elif model == "alexnet":
+            predict = models.alexnet(data, class_dim=classes)
+        elif model == "googlenet":
+            predict = models.googlenet(data, class_dim=classes)
+        elif model == "smallnet":
+            predict = models.smallnet_mnist_cifar(data, class_dim=classes)
+        elif model == "vgg19":
+            predict = models.vgg(data, class_dim=classes, depth=19)
         else:
             predict = models.resnet_imagenet(data, class_dim=classes,
                                              depth=int(model[len("resnet"):]))
@@ -2205,12 +2420,18 @@ def _image_feed(batch, img, classes, dtype):
             "label": r.randint(0, classes, (batch, 1)).astype(np.int32)}
 
 
-def _conv_net_flops(program, batch):
+def _model_flops(program, batch):
     """A training step's model FLOPs from the Program's shapes: 2 x the
-    multiply-adds of every conv2d (output positions x filter elements)
-    and every mul (fc), forward x 3 (the backward's data and weight
-    gradients each cost a forward)."""
+    multiply-adds of every conv2d (output positions x filter elements),
+    every mul (rows x the weight's elements) and every flash_attention
+    (QK^T and PV over the (query, key) pairs causal masking keeps),
+    forward x 3 (the backward's data and weight gradients each cost a
+    forward)."""
     blk = program.global_block()
+
+    def rows(shape):
+        return batch * int(np.prod([d for d in shape if d > 0]))
+
     fwd = 0
     for op in blk.ops:
         if op.type == "conv2d":
@@ -2220,7 +2441,14 @@ def _conv_net_flops(program, batch):
                 else out[2:4]
             fwd += 2 * batch * int(np.prod(w)) * int(np.prod(hw))
         elif op.type == "mul":
-            fwd += 2 * batch * int(np.prod(blk.var(op.input("Y")[0]).shape))
+            x = blk.var(op.input("X")[0]).shape
+            fwd += 2 * rows(x[:op.attrs.get("x_num_col_dims", 1)]) * \
+                int(np.prod(blk.var(op.input("Y")[0]).shape))
+        elif op.type == "flash_attention":
+            _, sq, h, d = blk.var(op.input("Q")[0]).shape
+            sk = blk.var(op.input("K")[0]).shape[1]
+            fwd += _flash_work("fwd", batch, sq, sk, h, d,
+                               op.attrs.get("causal"), 0)[0]
     return 3 * fwd
 
 
@@ -2250,7 +2478,7 @@ def resnet50_phase(card, place, peaks):
           f"{phase}: a parameter is not bf16")
     types = [op.type for op in blk.ops]
     persist = _persistables(main)
-    flops = _conv_net_flops(main, R_BATCH)
+    flops = _model_flops(main, R_BATCH)
     feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "bfloat16")
     need = ("conv_fwd", "conv_dgrad", "conv_wgrad", "pooling")
     prev_scope = executor_mod.switch_scope(Scope())
@@ -2533,6 +2761,186 @@ def vgg_segmented_phase(card, place):
                     "interpreter's of steps 2..N"})
 
 
+def image_models_phase(card, place, peaks):
+    """The rest of run_image's models at its defaults (batch 128, bf16
+    throughout, Momentum): for each, G_STEPS steps in the Executor's
+    default mode (one CUDA graph, or with dropout device segments
+    captured between the eager dropouts) and a profiled step, then the
+    same steps interpreted from the same state and with the same
+    executor seed and step count (so the same masks): losses, parameters
+    and velocities bit for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    results = {}
+    for model, img, classes in IMAGE_MODELS:
+        phase = f"image_models/{model}"
+        main, startup, loss = _image_program(model, img, classes,
+                                             "bfloat16")
+        blk = main.global_block()
+        n_drop = sum(op.type == "dropout" for op in blk.ops)
+        persist = _persistables(main)
+        flops = _model_flops(main, I_BATCH)
+        feed = _image_feed(I_BATCH, img, classes, "bfloat16")
+        prev_scope = executor_mod.switch_scope(Scope())
+        exe = None
+        runs = {}
+        try:
+            scope = fluid.global_scope()
+            init = None
+            for mode in ("default", "interpreted"):
+                exe = fluid.Executor(place, seed=SEED)
+                exe.run(startup)    # both executors count the same steps
+                if init is None:
+                    init = {n: scope.find_var(n).clone() for n in persist}
+                for n in persist:
+                    scope.set_var(n, init[n].clone())
+                compiled = None if mode == "default" else False
+                _reset_peak()
+                s0, g0 = exe.cache_stats(), exe.graph_stats()
+                run = lambda step: exe.run(  # noqa: E731
+                    main, feed=feed, fetch_list=[loss],
+                    compiled=compiled)[0]
+                losses, secs, _ = _timed_steps(run, {}, G_STEPS)
+                peak = torch.cuda.max_memory_allocated()
+                reserved = torch.cuda.max_memory_reserved()
+                state = {n: scope.find_var(n).clone() for n in persist}
+                s1, g1 = exe.cache_stats(), exe.graph_stats()
+                runs[mode] = {
+                    "losses": losses, "step_s": secs, "state": state,
+                    "peak_memory_bytes": peak,
+                    "peak_reserved_bytes": reserved,
+                    "cache": {k: s1[k] - s0[k] for k in
+                              ("hits", "misses", "entries")},
+                    "graphs": {k: g1[k] - g0[k] for k in
+                               ("captures", "replays", "capture_s")},
+                    "profiled_step": _profile_step(
+                        lambda: run(G_STEPS), (), phase)}
+                if mode == "default":
+                    segs = exe._segments(blk, exe._fingerprint(main))
+                exe.close()
+            del init
+        finally:
+            executor_mod.switch_scope(prev_scope)
+            if exe is not None:
+                exe.close()
+            del exe
+            torch.cuda.empty_cache()
+
+        dflt, interp = runs["default"], runs["interpreted"]
+        host = [op.type for h, ops, _ in segs if h for op in ops]
+        n_device = sum(1 for h, _, _ in segs if not h)
+        check(host == ["dropout"] * n_drop and n_device == n_drop + 1,
+              f"{phase}: host segments run {host}, {n_device} device "
+              f"segments for {n_drop} dropout ops")
+        check(dflt["graphs"]["captures"] == n_device
+              and dflt["cache"]["misses"] == n_device,
+              f"{phase}: {dflt['graphs']} and {dflt['cache']} for "
+              f"{n_device} device segments")
+        check(all(np.isfinite(dflt["losses"])), f"{phase}: non-finite "
+              f"losses {dflt['losses']}")
+        _bit_equal(phase, dflt["losses"], interp["losses"], dflt["state"],
+                   interp["state"].get)
+        for r in (dflt, interp):
+            del r["state"]
+        step_s = float(np.median(dflt["step_s"][2:]))
+        i_step_s = float(np.median(interp["step_s"][1:]))
+        step_ms = step_s * 1e3
+        bound_ms = flops / peaks[torch.bfloat16] * 1e3
+        prof = dflt.pop("profiled_step")
+        i_prof = interp.pop("profiled_step")
+        results[model] = {
+            "image": img, "classes": classes, "ops": len(blk.ops),
+            "dropout_ops": n_drop, "device_segments": n_device,
+            "mode": ("segmented (dropout eager between captured segments)"
+                     if n_drop else "compiled (one CUDA graph)"),
+            "default_mode": dflt, "interpreter": interp,
+            "bit_equal_to_interpreter": True,
+            "ms_per_step": step_ms, "images_per_s": I_BATCH / step_s,
+            "interpreted_ms_per_step": i_step_s * 1e3,
+            "interpreted_images_per_s": I_BATCH / i_step_s,
+            "model_flops_per_step": flops, "bound_ms": bound_ms,
+            "bound_by": "operations",
+            "model_flops_share_of_bf16_peak": bound_ms / step_ms,
+            "device_ms": prof["device_ms"],
+            "device_ms_by_group": prof["by_group_ms"],
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "device_idle_share": 1.0 - prof["device_ms"] / step_ms,
+            "interpreted_device_idle_share":
+                1.0 - i_prof["device_ms"] / (i_step_s * 1e3),
+            "peak_memory_bytes": dflt["peak_memory_bytes"]}
+    emit({"phase": "image_models", "card": card,
+          "source": "benchmark/run_image.py:42-66 (defaults: batch 128, "
+                    "--dtype bfloat16; alexnet 227x227, googlenet and "
+                    "vgg19 224x224, smallnet 32x32 with 10 classes)",
+          "batch": I_BATCH, "steps": G_STEPS,
+          "dtype": "bfloat16 throughout (image, parameters, velocities)",
+          "optimizer": "momentum", "models": results,
+          "timing": "host clock around exe.run + synchronize; ms_per_step "
+                    "the median of the default mode's steps 3..N (replays), "
+                    "the interpreter's of steps 2..N; device time and "
+                    "idle share from one profiled step after them; model "
+                    "FLOPs from the Program's conv2d and mul shapes "
+                    "(forward x 3) over the bf16 dense peak"})
+    return results
+
+
+def dropout_rows_phase(card, dev):
+    """The batch-position-keyed dropout draw on the card against the
+    CPU's: the same mask bits for one (seed, shape) at row offset 0, the
+    same again from two halves drawn at offsets 0 and rows/2, the op's
+    lowering the same on both, and the keep rate within 4 sigma of
+    1 - p; with the draw's time."""
+    from paddle_tpu_torch.core.execution import ExecContext, _mix
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.ops.activation import keyed_uniform_mask
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    info = get_op_info("dropout")
+    cases = {}
+    for name, shape, p, dtype in DROPOUT_CASES:
+        seed = _mix(SEED, len(cases))
+        rows, half = shape[0], shape[0] // 2
+
+        def draw(r0, n, where):
+            return keyed_uniform_mask((n,) + shape[1:], p, seed, r0, dtype,
+                                      where)
+
+        card_mask = draw(0, rows, dev)
+        cpu_mask = draw(0, rows, "cpu")
+        check(card_mask.dtype == dtype and torch.equal(card_mask.cpu(),
+                                                       cpu_mask),
+              f"dropout_rows {name}: the card's mask differs from the CPU's")
+        halves = torch.cat([draw(0, half, dev), draw(half, rows - half, dev)])
+        check(torch.equal(halves, card_mask), f"dropout_rows {name}: two "
+              "halves at offsets 0 and rows/2 differ from the whole draw")
+        attrs = {**info.attrs, "dropout_prob": p}
+        x = torch.ones(shape, dtype=dtype)
+        op_card = info.lower(ExecContext(dev, seed=seed), {"X": [x.to(dev)]},
+                             attrs)["Mask"]
+        op_cpu = info.lower(ExecContext("cpu", seed=seed), {"X": [x]},
+                            attrs)["Mask"]
+        check(torch.equal(op_card.cpu(), op_cpu), f"dropout_rows {name}: "
+              "the op's mask on the card differs from the CPU's")
+        n = card_mask.numel()
+        keep = float(card_mask.float().mean())
+        sigma = float(np.sqrt(p * (1 - p) / n))
+        check(abs(keep - (1 - p)) <= 4 * sigma, f"dropout_rows {name}: "
+              f"keep rate {keep} for p {p} (sigma {sigma})")
+        cases[name] = {"shape": list(shape), "p": p, "dtype": str(dtype),
+                       "draws": n, "keep_rate": keep, "sigma": sigma,
+                       "ms": cold_ms(lambda: draw(0, rows, dev), 10, flush),
+                       "torch_rand_ms": cold_ms(
+                           lambda: torch.rand(shape, device=dev), 10,
+                           flush)}
+    emit({"phase": "dropout_rows", "card": card, "cases": cases,
+          "timing": "median of cold-L2 calls, CUDA events: the keyed draw "
+                    "(plain integer ops, chunked) beside torch.rand of "
+                    "the same shape"})
+    return cases
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -2589,6 +2997,8 @@ def main():
         card, CUDAPlace(0), peaks, flash_cases, amp=True)
     fp32_launches, _ = train_phase(card, CUDAPlace(0), peaks, flash_cases,
                                    amp=False)
+    s2s_launches, s2s_replayed = seq2seq_phase(card, CUDAPlace(0), peaks,
+                                               flash_cases)
     launches = serve_phases(card, CUDAPlace(0))
     fused_launches, largest = dp_phase(card, CUDAPlace(0), peaks)
     fused_cases = fused_update_phase(dev, bw, flops, largest)
@@ -2598,6 +3008,8 @@ def main():
     resnet50_phase(card, CUDAPlace(0), peaks)
     resnet_card_vs_cpu_phase(card, CUDAPlace(0))
     vgg_segmented_phase(card, CUDAPlace(0))
+    dropout_rows_phase(card, dev)
+    image_models_phase(card, CUDAPlace(0), peaks)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -2635,6 +3047,13 @@ def main():
             "replayed_per_step": flash_replayed[kind],
             "launches_note": _REPLAY_NOTE,
             "launches_train_fp32": fp32_launches[kind],
+            "launches_seq2seq": s2s_replayed[kind],
+            "launches_seq2seq_note": "the profiler's count in one replayed "
+                                     "seq2seq step (6 encoder, 6 decoder "
+                                     "and 6 cross attentions); the "
+                                     "wrappers' count over its path is "
+                                     "launches_seq2seq_wrapper",
+            "launches_seq2seq_wrapper": s2s_launches[kind],
             "max_abs_err": per_case["bf16_causal"]["max_abs_err"],
             **{k: main_case[kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")},

@@ -38,6 +38,20 @@ def _mix(seed: int, tag: int) -> int:
     return (z ^ (z >> 31)) & _MASK63
 
 
+_M32 = 0xFFFFFFFF
+
+
+def mix32_(x: torch.Tensor) -> torch.Tensor:
+    """Bijective 32-bit integer hash, in place, on an int64 tensor holding
+    values in [0, 2^32).  The multiplier stays below 2^31, so no product
+    leaves int64's range and the CPU and a CUDA device compute the same
+    bits."""
+    for _ in range(2):
+        x.bitwise_xor_(x >> 16)
+        x.mul_(0x45D9F3B).bitwise_and_(_M32)
+    return x.bitwise_xor_(x >> 16)
+
+
 class ExecContext:
     """Device + random stream for one op run.
 
@@ -46,14 +60,19 @@ class ExecContext:
     per-op context: its seed mixes the step's seed with a stable hash of
     the op's identity (`_op_rng_tag`), so draws do not depend on op
     order, and a generic grad op — which carries its FORWARD op's
-    identity — redraws exactly the forward's numbers.  Shape inference
-    passes ``torch.device("meta")`` and no seed."""
+    identity — redraws exactly the forward's numbers.  `row_offset` is
+    the global batch row of this run's row 0 (a data-parallel rank's
+    first row; 0 in the serial Executor): dropout keys its masks by
+    global row, so a sharded step draws the serial masks.  Shape
+    inference passes ``torch.device("meta")`` and no seed."""
 
-    def __init__(self, device=None, generator: Optional[torch.Generator] = None,
-                 seed: Optional[int] = None):
+    def __init__(self, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 seed: Optional[int] = None, row_offset: int = 0):
         self.device = torch.device(device if device is not None else "cpu")
         self._generator = generator
         self.seed = seed
+        self.row_offset = row_offset
 
     @property
     def generator(self) -> Optional[torch.Generator]:
@@ -66,13 +85,15 @@ class ExecContext:
     def child(self, tag_hash: int) -> "ExecContext":
         """Per-op context: the step seed mixed with the op's identity."""
         base = self.seed if self.seed is not None else 0
-        return ExecContext(self.device, seed=_mix(base, tag_hash))
+        return ExecContext(self.device, seed=_mix(base, tag_hash),
+                           row_offset=self.row_offset)
 
     def pure(self) -> "ExecContext":
         """Context for re-running a forward op inside its gradient: the
         same seed with a fresh generator, so the recomputation draws
         the forward's numbers."""
-        return ExecContext(self.device, seed=self.seed)
+        return ExecContext(self.device, seed=self.seed,
+                           row_offset=self.row_offset)
 
 
 # ---------------------------------------------------------------------------

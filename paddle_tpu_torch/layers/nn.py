@@ -10,7 +10,7 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
-           "accuracy", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "accuracy", "conv2d", "pool2d", "batch_norm", "layer_norm", "lrn",
            "mean", "reduce_sum", "topk", "cross_entropy",
            "square_error_cost", "softmax_with_cross_entropy"]
 
@@ -291,6 +291,17 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"epsilon": epsilon,
                       "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    """Cross-channel local response normalization (ops/norm.py)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    mid = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op("lrn", {"X": [input.name]},
+                     {"Out": [out.name], "MidOut": [mid.name]},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 def mean(x, name=None):

@@ -1,11 +1,12 @@
-"""Decoder-only transformer LM: the Program builders and the paged decoder.
+"""Transformer family: the decoder-only LM, the encoder-decoder
+translator, and the LM's paged decoder.
 
 Counterpart of paddle_tpu/models/transformer.py.  The Program builders
-(`transformer_lm` and its blocks) produce the same Program as the JAX
-package's — same ops, attrs, variable names and shapes — so parameter
-names extracted from it (`_lm_param_structure`) name the same trained
-values in both packages.  All blocks are pre-LN (LN -> sublayer ->
-residual add).
+(`transformer_lm`, `transformer_translate` and their blocks) produce
+the same Program as the JAX package's — same ops, attrs, variable
+names and shapes — so parameter names extracted from it
+(`_lm_param_structure`) name the same trained values in both packages.
+All blocks are pre-LN (LN -> sublayer -> residual add).
 
 `build_lm_paged_decoder` is the serving decode step over a paged KV
 cache, written in PyTorch, with attention through the hand-written CUDA
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import layers, nets
+from ..core.execution import _M32, mix32_
 from ..core.executor import resolve_place
 from ..core.flags import get_flag
 from ..core.framework import Program, pipeline_stage, program_guard
@@ -29,8 +31,10 @@ from ..initializer import NormalInitializer
 __all__ = [
     "multi_head_attention",
     "positionwise_ffn",
+    "transformer_encoder",
     "transformer_decoder",
     "transformer_lm",
+    "transformer_translate",
     "build_lm_paged_decoder",
     "states_from_reference",
     "sample_tokens",
@@ -57,10 +61,11 @@ def multi_head_attention(queries, keys, values, d_model, n_heads,
 
 
 def positionwise_ffn(x, d_model, d_inner, dropout_rate=0.0, is_test=False):
-    if dropout_rate:
-        raise NotImplementedError("dropout layers are not ported yet")
     hidden = layers.fc(input=x, size=d_inner, num_flatten_dims=2,
                        act="relu")
+    if dropout_rate:
+        hidden = layers.dropout(hidden, dropout_prob=dropout_rate,
+                                is_test=is_test)
     return layers.fc(input=hidden, size=d_model, num_flatten_dims=2)
 
 
@@ -74,8 +79,6 @@ def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test):
     seq = int(ids.shape[1])
     if seq > max_len:
         raise ValueError(f"sequence length {seq} exceeds max_len {max_len}")
-    if dropout_rate:
-        raise NotImplementedError("dropout layers are not ported yet")
     emb = layers.embedding(
         ids, size=[vocab_size, d_model],
         param_attr={"initializer": NormalInitializer(0.0, 0.02)})
@@ -83,7 +86,43 @@ def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test):
         shape=[max_len, d_model], dtype=emb.dtype,
         default_initializer=NormalInitializer(0.0, 0.02))
     pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[seq])
-    return layers.elementwise_add(emb, pos, axis=1)
+    x = layers.elementwise_add(emb, pos, axis=1)
+    if dropout_rate:
+        x = layers.dropout(x, dropout_prob=dropout_rate, is_test=is_test)
+    return x
+
+
+def _encoder_block(x, d_model, n_heads, d_inner, dropout_rate, is_test):
+    ln_x = _pre_ln(x)
+    a = multi_head_attention(ln_x, ln_x, ln_x, d_model, n_heads,
+                             causal=False, dropout_rate=dropout_rate,
+                             is_test=is_test)
+    x = layers.elementwise_add(x, a)
+    f = positionwise_ffn(_pre_ln(x), d_model, d_inner, dropout_rate, is_test)
+    return layers.elementwise_add(x, f)
+
+
+def _no_remat(remat):
+    """`remat` (None reads the `remat` flag) needs the recompute layer,
+    which is not ported: asking for it raises."""
+    if remat:
+        raise NotImplementedError(
+            "remat needs layers.recompute, which is not ported yet "
+            "(ROADMAP A4b); build with remat=False")
+
+
+def transformer_encoder(src_ids, vocab_size, d_model=256, n_heads=4,
+                        n_layers=2, d_inner=None, max_len=2048,
+                        dropout_rate=0.0, is_test=False, remat=None):
+    """Bidirectional encoder over [b, s] token ids -> [b, s, d_model]."""
+    d_inner = d_inner or 4 * d_model
+    _no_remat(bool(get_flag("remat")) if remat is None else remat)
+    x = _embed(src_ids, vocab_size, d_model, max_len, dropout_rate,
+               is_test)
+    for _ in range(n_layers):
+        x = _encoder_block(x, d_model, n_heads, d_inner, dropout_rate,
+                           is_test)
+    return _pre_ln(x)
 
 
 def _decoder_block(x, enc_out, d_model, n_heads, d_inner, dropout_rate,
@@ -109,16 +148,12 @@ def transformer_decoder(tgt_ids, enc_out, vocab_size, d_model=256,
     """Causal decoder ([b, t] ids, optional [b, s, d] memory) -> [b, t, d].
 
     `pipeline_stages=S` annotates the block stack with `pipeline_stage`
-    (n_layers/S consecutive blocks per stage).  `remat` (None reads the
-    `remat` flag) needs the recompute layer, which is not ported: asking
-    for it raises."""
+    (n_layers/S consecutive blocks per stage).  `remat` as in
+    transformer_encoder; the flag never applies to a pipeline build."""
     d_inner = d_inner or 4 * d_model
     if remat is None:
         remat = bool(get_flag("remat")) and not pipeline_stages
-    if remat:
-        raise NotImplementedError(
-            "remat needs layers.recompute, which is not ported yet "
-            "(ROADMAP A4); build with remat=False")
+    _no_remat(remat)
     if pipeline_stages and n_layers % pipeline_stages:
         raise ValueError(
             f"n_layers {n_layers} must be a multiple of "
@@ -145,6 +180,26 @@ def transformer_lm(ids, vocab_size, d_model=256, n_heads=4, n_layers=2,
                             n_layers, d_inner, max_len, dropout_rate,
                             is_test, pipeline_stages=pipeline_stages)
     logits = layers.fc(input=h, size=vocab_size, num_flatten_dims=2)
+    if return_logits:
+        return logits
+    return layers.softmax(logits)
+
+
+def transformer_translate(src_ids, tgt_ids, src_vocab, tgt_vocab,
+                          d_model=256, n_heads=4, n_layers=2, d_inner=None,
+                          max_len=2048, dropout_rate=0.0, is_test=False,
+                          return_logits=False, remat=None):
+    """Encoder-decoder translation model -> [b, t, tgt_vocab] softmax
+    (raw logits with `return_logits=True`, for
+    softmax_with_cross_entropy: the [b*t, vocab] probabilities are then
+    never materialised)."""
+    enc = transformer_encoder(src_ids, src_vocab, d_model, n_heads,
+                              n_layers, d_inner, max_len, dropout_rate,
+                              is_test, remat=remat)
+    dec = transformer_decoder(tgt_ids, enc, tgt_vocab, d_model, n_heads,
+                              n_layers, d_inner, max_len, dropout_rate,
+                              is_test, remat=remat)
+    logits = layers.fc(input=dec, size=tgt_vocab, num_flatten_dims=2)
     if return_logits:
         return logits
     return layers.softmax(logits)
@@ -231,26 +286,14 @@ def states_from_reference(states_np, decoder, device, *, who="target"):
 
 
 # -- stateless per-(seed, position) sampling --------------------------------
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x):
-    """Bijective 32-bit integer hash on int64 tensors holding values in
-    [0, 2^32); multipliers stay below 2^31 so no product overflows."""
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _M32
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _M32
-    return x ^ (x >> 16)
-
 
 def _uniforms(seeds, positions, vocab):
     """[S, vocab] float32 uniforms in (0, 1), a counter-based function of
     (seed, position, token id) alone."""
-    key = _mix32(_mix32(seeds & _M32) ^ (positions & _M32))
+    key = mix32_(mix32_(seeds & _M32) ^ (positions & _M32))
     ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    col = _mix32((ids * 0x2545F491 + 0x9E3779B9) & _M32)
-    bits = _mix32(key[:, None] ^ col[None, :])
+    col = mix32_((ids * 0x2545F491 + 0x9E3779B9) & _M32)
+    bits = mix32_(key[:, None] ^ col[None, :])
     return ((bits >> 8).to(torch.float32) + 0.5) / 16777216.0
 
 

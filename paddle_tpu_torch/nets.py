@@ -61,7 +61,7 @@ def scaled_dot_product_attention(queries, keys, values,
 
     Attention-weight dropout in training needs the composed
     matmul/softmax/dropout chain of the JAX package, whose `matmul` op
-    is not ported yet; asking for it raises."""
+    (ROADMAP A3) is not ported yet; asking for it raises."""
     d_model = int(queries.shape[-1])
     if num_heads < 1:
         raise ValueError("num_heads must be >= 1")
@@ -70,7 +70,8 @@ def scaled_dot_product_attention(queries, keys, values,
             f"hidden size {d_model} not divisible by num_heads {num_heads}")
     if dropout_rate and not is_test:
         raise NotImplementedError(
-            "attention-weight dropout in training is not ported yet")
+            "attention-weight dropout in training needs the `matmul` op, "
+            "which is not ported yet (ROADMAP A3)")
     d_head = d_model // num_heads
 
     def split_heads(x):

@@ -1,10 +1,10 @@
-"""Tensor manipulation ops: reshape, slice, top_k (counterpart of
+"""Tensor manipulation ops: reshape, slice, concat, top_k (counterpart of
 paddle_tpu/ops/manip.py)."""
 from __future__ import annotations
 
 import torch
 
-from ..core.execution import one
+from ..core.execution import many, one
 from ..core.registry import register_op
 
 
@@ -28,6 +28,14 @@ def slice_op(ctx, ins, attrs):
     for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
         idx[a] = slice(s, e)
     return {"Out": x[tuple(idx)]}
+
+
+@register_op("concat", inputs=("X",), outputs=("Out",),
+             dup_inputs=("X",), attrs={"axis": 0})
+def concat(ctx, ins, attrs):
+    """The inputs joined along `axis` in slot order (the JAX package's
+    LoD branch waits for ROADMAP A1's LoDTensor)."""
+    return {"Out": torch.cat(many(ins, "X"), dim=int(attrs["axis"]))}
 
 
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),

@@ -1,5 +1,5 @@
-"""batch_norm and layer_norm (counterpart of paddle_tpu/ops/norm.py:15-92
-and its layer_norm), with an explicit batch_norm gradient."""
+"""batch_norm, layer_norm and lrn (counterpart of
+paddle_tpu/ops/norm.py), with an explicit batch_norm gradient."""
 from __future__ import annotations
 
 import torch
@@ -135,3 +135,23 @@ def layer_norm(ctx, ins, attrs):
         y = y + bias.reshape(norm_shape)
     return {"Y": y, "Mean": mean.reshape(x.shape[:a]),
             "Variance": var.reshape(x.shape[:a])}
+
+
+@register_op("lrn", inputs=("X",), outputs=("Out", "MidOut"),
+             attrs={"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75},
+             diff_outputs=("Out",))
+def lrn(ctx, ins, attrs):
+    """Cross-channel local response normalization (reference lrn_op.cc)
+    on NCHW: MidOut = k + alpha * (the sum of x^2 over a window of n
+    channels centred on each, zero-padded), Out = x / MidOut^beta, in
+    x's dtype; the window is summed channel-slice by channel-slice in
+    the JAX lowering's order."""
+    x = one(ins, "X")
+    n = int(attrs["n"])
+    half = n // 2
+    sq = torch.nn.functional.pad(torch.square(x),
+                                 (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    window = sum(sq[:, i:i + c] for i in range(n))
+    mid = attrs["k"] + attrs["alpha"] * window
+    return {"Out": x / torch.pow(mid, attrs["beta"]), "MidOut": mid}

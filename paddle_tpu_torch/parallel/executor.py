@@ -655,7 +655,11 @@ class ParallelExecutor:
             feeds = self._local_feeds(feed)
             seed = _mix(self.program.seed or self._seed, self._step)
             self._step += 1
-            ctx = ExecContext(self.device, seed=seed)
+            # dropout masks are batch-position keyed: offset this rank's
+            # rows (_local_feeds' slice) so the composed draw is serial's
+            mb = len(next(iter(feeds.values()))) if feeds else 0
+            ctx = ExecContext(self.device, seed=seed,
+                              row_offset=self.mesh.rank * mb)
             step = (self._overlap_step if self._overlap_cfg is not None
                     else self._plain_step)
             fetches, self._states = step(feeds, ctx)

@@ -1361,3 +1361,38 @@ def test_resnet_step_is_repeatable_on_the_card(dev, dtype):
     for losses, final in runs[1:]:
         assert losses == runs[0][0]
         _same_bits(final, runs[0][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_keyed_dropout_mask_on_the_card_is_the_cpus(dev, dtype):
+    """The batch-position-keyed draw in integer ops: the card's mask is
+    the CPU's bit for bit, whole and from two halves at their row
+    offsets, through several chunks."""
+    from paddle_tpu_torch.ops.activation import keyed_uniform_mask
+
+    shape, p, seed = (64, 3, 40, 40), 0.3, 123456789
+    cpu = keyed_uniform_mask(shape, p, seed, 0, dtype, "cpu")
+    card = keyed_uniform_mask(shape, p, seed, 0, dtype, dev)
+    assert torch.equal(card.cpu(), cpu)
+    halves = torch.cat([keyed_uniform_mask((32,) + shape[1:], p, seed, r0,
+                                           dtype, dev) for r0 in (0, 32)])
+    assert torch.equal(halves, card)
+
+
+def test_lrn_and_concat_on_the_card_match_cpu(dev):
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 16, 9, 9, generator=gen) * 3
+    lrn = get_op_info("lrn")
+    attrs = {**lrn.attrs, "alpha": 1e-2}
+    want = lrn.lower(ExecContext("cpu"), {"X": [x]}, attrs)
+    got = lrn.lower(ExecContext(dev), {"X": [x.to(dev)]}, attrs)
+    for slot in ("Out", "MidOut"):
+        torch.testing.assert_close(got[slot].cpu(), want[slot], rtol=1e-5,
+                                   atol=1e-6)
+    parts = [x[:, :3], x[:, 3:10], x[:, 10:]]
+    cat = get_op_info("concat").lower(
+        ExecContext(dev), {"X": [t.to(dev) for t in parts]}, {"axis": 1})
+    assert torch.equal(cat["Out"].cpu(), x)

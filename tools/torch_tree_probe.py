@@ -10,6 +10,8 @@ checkouts of the port on the same card (for instance a parent commit's
                                           [--package-root DIR]
     python3 tools/torch_tree_probe.py convnets [--package-root DIR]
     python3 tools/torch_tree_probe.py conv-fp32 [--package-root DIR]
+    python3 tools/torch_tree_probe.py seq2seq [--package-root DIR]
+    python3 tools/torch_tree_probe.py image-models [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -35,6 +37,10 @@ conv-fp32  float32 convolution on the card through cuDNN (deterministic
            ResNet shapes; every state after chip_smoke's card-vs-CPU
            ResNet-18 steps against the same steps in float64 on the CPU;
            and the VGG phase's step time with either route;
+seq2seq    chip_smoke.py's flash phase (every case, the seq2seq shapes
+           among them) and its seq2seq phase alone;
+image-models  chip_smoke.py's dropout_rows and image_models phases
+           alone;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -444,14 +450,39 @@ def convnets(cs, dev):
     """chip_smoke's image phases, as its main() sets the card up."""
     from paddle_tpu_torch import CUDAPlace
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    _, peaks = cs.card_peaks(name)
-    card = {"name": name}
+    card, _, peaks = _card(cs)
     cs.resnet50_phase(card, CUDAPlace(0), peaks)
     cs.resnet_card_vs_cpu_phase(card, CUDAPlace(0))
     cs.vgg_segmented_phase(card, CUDAPlace(0))
+
+
+def _card(cs):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    bw, peaks = cs.card_peaks(name)
+    return {"name": name}, bw, peaks
+
+
+def seq2seq(cs, dev):
+    """chip_smoke's flash kernels (all cases, the seq2seq shapes among
+    them) and its seq2seq phase."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    card, bw, peaks = _card(cs)
+    fa.build()
+    cs.seq2seq_phase(card, CUDAPlace(0), peaks,
+                     cs.flash_phase(dev, bw, peaks))
+
+
+def image_models(cs, dev):
+    """chip_smoke's dropout_rows and image_models phases."""
+    from paddle_tpu_torch import CUDAPlace
+
+    card, _, peaks = _card(cs)
+    cs.dropout_rows_phase(card, dev)
+    cs.image_models_phase(card, CUDAPlace(0), peaks)
 
 
 def _cudnn_fp32(conv_mod):
@@ -594,7 +625,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
                                       "sgd-sweep", "host", "convnets",
-                                      "conv-fp32"))
+                                      "conv-fp32", "seq2seq",
+                                      "image-models"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -623,7 +655,8 @@ def main():
     else:
         {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
          "sgd-sweep": sgd_sweep, "convnets": convnets,
-         "conv-fp32": conv_fp32}[args.probe](cs, dev)
+         "conv-fp32": conv_fp32, "seq2seq": seq2seq,
+         "image-models": image_models}[args.probe](cs, dev)
     return 0
 
 

@@ -59,7 +59,26 @@ Phases, one JSON line each:
            capture seconds, the replay's device time and idle share,
            peak allocated and reserved memory, the interpreter's host
            synchronisations;
+  ops      every op type of the dense op corpus (tests/torch_op_cases.py:
+           89 types, their attribute, boundary and tie cases) on the card
+           against the CPU from the same seeded inputs: the forward and
+           the generic gradient in float32 (TF32 off) within 1e-5 of
+           max(1, max|CPU|), ints and bools exactly; matmul and cast
+           again in bf16 under amp within one bf16 ulp; the drawn
+           uniform_random_batch_size_like by distribution;
   train_fp32  the same LM and steps in float32 (amp off);
+  lm_dropout  the train phase's LM under amp with dropout_rate 0.1, the
+           attention weights' included (the composed transpose, matmul,
+           softmax, dropout, matmul path): T_STEPS steps in the default
+           mode (segmented: each dropout eager between captured device
+           segments) and interpreted from the same state, bit for bit;
+           the loss finite and falling; the attention keep rate within 4
+           sigma of 0.9; with every dropout_prob 0, one step of the
+           composed path against one of the flash path (one bf16 ulp of
+           loss, each weight's change within 15 %); step times, segments,
+           device time, idle share, peak memory, and the composed
+           attention's time beside the flash kernels' at [8, 512, 16,
+           128];
   seq2seq  the transformer translator of benchmark/run_seq2seq.py at its
            defaults (vocab 30000 on both sides, d_model 512, 8 heads,
            6 + 6 layers, batch 32, source and target length 128; Adam;
@@ -225,6 +244,12 @@ M_EXPERTS, M_TOPK, M_CF, M_AUX = 8, 2, 1.25, 0.01
 # the moe_kernel phase's router: N(0, 0.05), about the spread of the
 # LM's Xavier-initialised [1024, 8] gate weights
 M_GATE_STD = 0.05
+
+# the ops phase: every op type of the dense corpus, card against CPU in
+# float32 (TF32 off), each output and generic gradient within OPS_RTOL
+# of max(1, max|CPU value|); matmul and cast again in bf16 under amp,
+# within one bf16 ulp
+OPS_RTOL = 1e-5
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -821,9 +846,10 @@ def _timed_steps(run_step, counts, steps=T_STEPS):
     return losses, secs, per_step
 
 
-def _lm_program(optimizer):
+def _lm_program(optimizer, dropout_rate=0.0):
     """The run_ridge transformer LM's training Program -> (main, startup,
-    loss)."""
+    loss); with `dropout_rate` its dropouts, the attention weights'
+    included (the composed attention path)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.models.transformer import transformer_lm
@@ -835,6 +861,7 @@ def _lm_program(optimizer):
         lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
         logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
                                 n_layers=T_LAYERS, max_len=max(T_SEQ, 2048),
+                                dropout_rate=dropout_rate,
                                 return_logits=True)
         cost = fluid.layers.softmax_with_cross_entropy(
             fluid.layers.reshape(logits, shape=[-1, T_VOCAB]),
@@ -2940,6 +2967,458 @@ def dropout_rows_phase(card, dev):
                     "the same shape"})
     return cases
 
+# -- ops phase ---------------------------------------------------------------
+
+def _op_cases():
+    """tests/torch_op_cases.py's seeded cases (numpy only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_op_cases import CASES
+
+    return CASES
+
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def _op_grad_slots(info, case, outs):
+    """(input slots the generic gradient differentiates, float output
+    slots that take a cotangent), by its rule; ((), ()) when the case has
+    no gradient."""
+    if info.not_differentiable or case.random:
+        return (), ()
+    floats = lambda vs: all(np.issubdtype(np.asarray(a).dtype,  # noqa: E731
+                                          np.floating) for a in vs)
+    ins = (info.diff_inputs if info.diff_inputs is not None
+           else [s for s in info.inputs if s in case.ins
+                 and floats(_as_list(case.ins[s]))])
+    ins = [s for s in ins if s in case.ins]
+    out = (info.diff_outputs if info.diff_outputs is not None
+           else info.outputs)
+    out = [s for s in out if s in outs
+           and all(v.is_floating_point() for v in outs[s])]
+    return (ins, out) if ins and out else ((), ())
+
+
+def _op_run(case, info, dev, dtype, cots=None):
+    """The case's forward on `dev` with float inputs in `dtype` -> (outs,
+    the generic gradient {slot@GRAD: [...]} for `cots`, or None)."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 generic_grad_lower)
+
+    ins = {}
+    for slot, v in case.ins.items():
+        ts = [torch.from_numpy(np.array(a)).to(dev) for a in _as_list(v)]
+        ins[slot] = [t.to(dtype) if t.is_floating_point() else t
+                     for t in ts]
+    attrs = {**info.attrs, **case.attrs}
+    outs = info.lower(ExecContext(dev), ins, attrs)
+    outs = {s: _as_list(v) for s, v in outs.items() if v is not None}
+    if not cots:
+        return outs, None
+    g_ins = dict(ins)
+    g_ins.update({s: outs[s] for s in info.outputs if s in outs})
+    for s, cs in cots.items():
+        g_ins[s + GRAD] = [torch.from_numpy(c).to(dev, v.dtype)
+                           for c, v in zip(cs, outs[s])]
+    return outs, generic_grad_lower(ExecContext(dev), g_ins, attrs, info)
+
+
+def _op_err(card, cpu):
+    """Card against CPU: max |card - cpu| over max(1, max |cpu|) for
+    floats (the same non-finite positions), 0 or inf for the rest."""
+    card = card.cpu()
+    if card.shape != cpu.shape or card.dtype != cpu.dtype:
+        return float("inf")
+    if not cpu.is_floating_point():
+        return 0.0 if torch.equal(card, cpu) else float("inf")
+    a, b = card.double(), cpu.double()
+    fin = torch.isfinite(b)
+    if not torch.equal(fin, torch.isfinite(a)) \
+            or not torch.equal(a[~fin], b[~fin]):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return float((a[fin] - b[fin]).abs().max()
+                 / max(1.0, float(b[fin].abs().max())))
+
+
+def ops_phase(card, dev):
+    """Every op type of the dense corpus (tests/torch_op_cases.py: 89
+    types, their attribute, boundary and tie cases) on the card and on
+    the CPU from the same seeded inputs: the forward and, where the op
+    has one, the generic gradient (autograd over the lowering, seeded
+    cotangents), in float32 with TF32 off, within OPS_RTOL of max(1,
+    max |CPU value|); ints and bools exactly.  matmul and cast again
+    with bf16 inputs under amp, each element within one bf16 ulp of the
+    CPU's.  The drawn op (uniform_random_batch_size_like) is held by
+    distribution on the card: its range, mean and variance within 4
+    sigma.  `print` writes its lines into a buffer here."""
+    import contextlib
+    import io
+    import zlib
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    cases = _op_cases()
+    t0 = time.perf_counter()
+    worst, per_op, random = {"err": 0.0}, {}, {}
+    bf16 = {"cases": 0, "outputs": 0, "max_ulps": 0.0}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        for case in cases:
+            info = get_op_info(case.op)
+            if case.random:
+                out = _op_run(case, info, dev, torch.float32)[0]["Out"][0]
+                lo, hi = case.attrs["min"], case.attrs["max"]
+                n = out.numel()
+                mu, var = (lo + hi) / 2, (hi - lo) ** 2 / 12
+                mean, v = float(out.mean()), float(out.var())
+                check(out.is_cuda and float(out.min()) >= lo
+                      and float(out.max()) < hi
+                      and abs(mean - mu) <= 4 * np.sqrt(var / n)
+                      and abs(v - var) <= 4 * var * np.sqrt(0.8 / n),
+                      f"ops {case.name}: the card's draws {mean} / {v} "
+                      f"against U[{lo}, {hi})")
+                random[case.name] = {"draws": n, "mean": mean, "var": v,
+                                     "want_mean": mu, "want_var": var}
+                per_op.setdefault(case.op, 0)
+                continue
+            cpu_outs = _op_run(case, info, "cpu", torch.float32)[0]
+            _, out_slots = _op_grad_slots(info, case, cpu_outs)
+            r = np.random.RandomState(zlib.crc32(case.name.encode()))
+            cots = {s: [r.standard_normal(tuple(v.shape)).astype(np.float32)
+                        for v in cpu_outs[s]] for s in out_slots}
+            cpu_outs, cpu_g = _op_run(case, info, "cpu", torch.float32, cots)
+            card_outs, card_g = _op_run(case, info, dev, torch.float32, cots)
+            check(set(card_outs) == set(cpu_outs) and set(card_g or {})
+                  == set(cpu_g or {}), f"ops {case.name}: slots differ")
+            pairs = [(f"{s}[{i}]", a, b) for s in cpu_outs
+                     for i, (a, b) in enumerate(zip(card_outs[s],
+                                                    cpu_outs[s]))]
+            pairs += [(f"{s}[{i}]", a, b) for s in (cpu_g or {})
+                      for i, (a, b) in enumerate(zip(card_g[s], cpu_g[s]))
+                      if b is not None]
+            for what, a, b in pairs:
+                err = _op_err(a, b)
+                check(err <= OPS_RTOL, f"ops {case.name} {what}: card "
+                      f"against CPU {err} > {OPS_RTOL}")
+                if err >= worst["err"]:
+                    worst = {"err": err, "case": case.name, "slot": what}
+            per_op[case.op] = per_op.get(case.op, 0) + len(pairs)
+        with amp.bf16_guard():
+            for case in cases:
+                if case.op not in ("matmul", "cast"):
+                    continue
+                info = get_op_info(case.op)
+                cpu_outs = _op_run(case, info, "cpu", torch.bfloat16)[0]
+                _, out_slots = _op_grad_slots(info, case, cpu_outs)
+                cots = {s: [np.ones(tuple(v.shape), np.float32)
+                            for v in cpu_outs[s]] for s in out_slots}
+                cpu_outs, cpu_g = _op_run(case, info, "cpu", torch.bfloat16,
+                                          cots)
+                card_outs, card_g = _op_run(case, info, dev, torch.bfloat16,
+                                            cots)
+                pairs = [(a, b) for s in cpu_outs
+                         for a, b in zip(card_outs[s], cpu_outs[s])]
+                pairs += [(a, b) for s in (cpu_g or {})
+                          for a, b in zip(card_g[s], cpu_g[s])
+                          if b is not None]
+                for a, b in pairs:
+                    a = a.cpu()
+                    if b.is_floating_point():
+                        top = torch.maximum(a.float().abs(), b.float().abs())
+                        ulps = float(((a.float() - b.float()).abs()
+                                      / torch.exp2(torch.floor(torch.log2(
+                                          top.clamp(min=1e-30))) - 7))
+                                     .max()) if a.numel() else 0.0
+                    else:
+                        ulps = 0.0 if torch.equal(a, b) else float("inf")
+                    check(ulps <= 1.0 and a.dtype == b.dtype,
+                          f"ops {case.name} (bf16 amp): card and CPU "
+                          f"differ by {ulps} bf16 ulps")
+                    bf16["max_ulps"] = max(bf16["max_ulps"], ulps)
+                if case.op == "matmul":
+                    check(all(v.dtype == torch.bfloat16
+                              for vs in card_outs.values() for v in vs),
+                          f"ops {case.name}: amp matmul output not bf16")
+                bf16["cases"] += 1
+                bf16["outputs"] += len(pairs)
+    check(len(per_op) == 89, f"ops: {len(per_op)} op types checked, "
+          "want the corpus's 89")
+    emit({"phase": "ops", "card": card, "op_types": len(per_op),
+          "cases": len(cases), "compared_tensors": sum(per_op.values()),
+          "tolerance": f"{OPS_RTOL} of max(1, max|CPU|) in float32, TF32 "
+                       "off; ints and bools exact",
+          "worst": worst, "bf16_amp": {"ops": ["matmul", "cast"],
+                                       "tolerance": "one bf16 ulp", **bf16},
+          "random": random, "printed_lines": len(
+              printed.getvalue().splitlines()),
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
+# -- lm_dropout phase --------------------------------------------------------
+
+# the LM trained with dropout: run_ridge's width, dropout_rate 0.1 (the
+# embedding's, each FFN's and each attention's weights, the composed path)
+LD_RATE = 0.1
+
+
+def _composed_attention_ms(dev, flush):
+    """The composed attention (transpose, scale, matmul, + causal mask,
+    softmax, dropout, matmul, transpose; the ops' own lowerings under
+    amp) at the flash shape [8, 512, 16, 128] with bf16 q, k, v -> (fwd
+    ms, fwd + bwd ms), cold L2, CUDA events; the backward by autograd
+    over the same lowerings."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    def op(t):
+        info = get_op_info(t)
+        return lambda ctx, ins, **a: info.lower(ctx, ins,
+                                                {**info.attrs, **a})
+
+    tr, sc, mm, add, sm, dr = (op(t) for t in (
+        "transpose", "scale", "matmul", "elementwise_add", "softmax",
+        "dropout"))
+    b, s, h, d = FLASH_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(
+        dev, torch.bfloat16).requires_grad_(True) for _ in range(3))
+    mask = torch.triu(torch.full((s, s), -1e9, device=dev), 1)
+    ctx = ExecContext(dev, seed=SEED)
+    perm = [0, 2, 1, 3]
+
+    def fwd():
+        qt = tr(ctx, {"X": [q]}, axis=perm)["Out"]
+        kt = tr(ctx, {"X": [k]}, axis=perm)["Out"]
+        vt = tr(ctx, {"X": [v]}, axis=perm)["Out"]
+        p = mm(ctx, {"X": [sc(ctx, {"X": [qt]}, scale=d ** -0.5)["Out"]],
+                     "Y": [kt]}, transpose_Y=True)["Out"]
+        p = add(ctx, {"X": [p], "Y": [mask]}, axis=2)["Out"]
+        w = dr(ctx, {"X": [sm(ctx, {"X": [p]})["Out"]]},
+               dropout_prob=LD_RATE)["Out"]
+        o = mm(ctx, {"X": [w], "Y": [vt]})["Out"]
+        return tr(ctx, {"X": [o]}, axis=perm)["Out"]
+
+    with amp.bf16_guard():
+        with torch.no_grad():
+            f_ms = cold_ms(fwd, 10, flush)
+        do = torch.randn((b, s, h, d), generator=gen).to(dev, torch.bfloat16)
+        fb_ms = cold_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), do),
+                        10, flush)
+    return f_ms, fb_ms
+
+
+def lm_dropout_phase(card, place, dev, flash_cases):
+    """The run_ridge LM at full width under bf16 amp with dropout_rate
+    0.1, the attention weights' included: the composed attention path,
+    whose dropouts run eagerly between captured device segments in the
+    Executor's default mode.  T_STEPS steps in the default mode and a
+    profiled step, then the same steps interpreted from the same state
+    with the same executor seed and step count (so the same draws):
+    losses and parameters bit for bit; the loss finite and falling; the
+    first attention dropout's keep rate within 4 sigma of 1 - 0.1 over
+    its draws.  Then, with every dropout_prob set to 0, one interpreted
+    step of the composed path against one of the flash path
+    (dropout_rate 0) from the same state: loss within one bf16 ulp,
+    every weight matrix's change within PARAM_RTOL_BF16.  Beside it the
+    composed attention's time and the flash kernels' at [8, 512, 16,
+    128]."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase = "lm_dropout"
+    fluid.amp.enable_bf16()     # before the Programs are built
+    prev_scope = executor_mod.switch_scope(Scope())
+    exe = None
+    runs = {}
+    try:
+        main, startup, loss = _lm_program(
+            fluid.Momentum(learning_rate=0.01, momentum=0.9), LD_RATE)
+        blk = main.global_block()
+        drops = [op for op in blk.ops if op.type == "dropout"]
+        attn = [op for op in drops
+                if len(blk.var(op.input("X")[0]).shape) == 4]
+        check(len(attn) == T_LAYERS and len(drops) == 2 * T_LAYERS + 1
+              and not any(op.type == "flash_attention" for op in blk.ops),
+              f"{phase}: {len(drops)} dropouts, {len(attn)} over attention "
+              "weights, or a flash_attention op")
+        mask = attn[0].output("Mask")[0]
+        persist = _persistables(main)
+        weights = [p.name for p in blk.all_parameters() if len(p.shape) == 2]
+        scope = fluid.global_scope()
+        init = None
+        for mode in ("segmented", "interpreted"):
+            exe = fluid.Executor(place, seed=SEED)
+            exe.run(startup)    # both executors count the same steps
+            if init is None:
+                init = {n: scope.find_var(n).clone() for n in persist}
+            for n in persist:
+                scope.set_var(n, init[n].clone())
+            compiled = None if mode == "segmented" else False
+            _reset_peak()
+            losses, keeps, secs = [], [], []
+            s0, g0 = exe.cache_stats(), exe.graph_stats()
+            for step in range(T_STEPS):
+                t0 = time.perf_counter()
+                out, m = exe.run(main, feed=_train_feed(step),
+                                 fetch_list=[loss, mask], compiled=compiled,
+                                 return_numpy=False)
+                keeps.append(float(m.float().mean()))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(out.reshape(-1)[0]))
+                del m
+            s1, g1 = exe.cache_stats(), exe.graph_stats()
+            rec = {"losses": losses, "keep_rates": keeps, "step_s": secs,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                   "cache": {k: s1[k] - s0[k] for k in
+                             ("hits", "misses", "entries")},
+                   "graphs": {k: g1[k] - g0[k] for k in
+                              ("captures", "replays", "capture_s")}}
+            rec["profiled_step"] = _profile_step(
+                lambda: exe.run(main, feed=_train_feed(T_STEPS),
+                                fetch_list=[loss], compiled=compiled),
+                ("matmul",), phase)
+            if mode == "segmented":
+                segs = exe._segments(blk, exe._fingerprint(main))
+                state = {n: scope.find_var(n).clone() for n in weights}
+            else:
+                rec["params_bit_equal"] = not [
+                    n for n in weights
+                    if not torch.equal(state[n], scope.find_var(n))]
+            runs[mode] = rec
+            exe.close()
+        del state
+
+        # composed (every dropout_prob 0) against flash, one interpreted
+        # step each from the same state
+        for op in drops:
+            op.attrs["dropout_prob"] = 0.0
+        fmain, fstartup, floss = _lm_program(
+            fluid.Momentum(learning_rate=0.01, momentum=0.9), 0.0)
+        check(sorted(p.name for p in fmain.global_block().all_parameters())
+              == sorted(p.name for p in blk.all_parameters()),
+              f"{phase}: the flash and composed Programs' parameters differ")
+        zeroed = {}
+        for name, prog, lss in (("composed", main, loss),
+                                ("flash", fmain, floss)):
+            for n in persist:
+                scope.set_var(n, init[n].clone())
+            exe = fluid.Executor(place, seed=SEED)
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=_train_feed(0), fetch_list=[lss],
+                          compiled=False)[0]
+            torch.cuda.synchronize()
+            zeroed[name] = {"loss": float(out.reshape(-1)[0]),
+                            "step_s": time.perf_counter() - t0,
+                            "after": {n: scope.find_var(n).clone()
+                                      for n in weights}}
+            exe.close()
+        rel = {}
+        for n in weights:
+            d_c = zeroed["composed"]["after"][n] - init[n]
+            d_f = zeroed["flash"]["after"][n] - init[n]
+            rel[n] = float((d_c - d_f).norm() / d_f.norm())
+        for z in zeroed.values():
+            del z["after"]
+        del init
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        if exe is not None:
+            exe.close()
+        del exe
+        torch.cuda.empty_cache()
+        fluid.amp.disable_bf16()
+
+    seg, interp = runs["segmented"], runs["interpreted"]
+    host = [op.type for h, ops, _ in segs if h for op in ops]
+    n_device = sum(1 for h, _, _ in segs if not h)
+    check(host == ["dropout"] * len(drops) and n_device == len(drops) + 1,
+          f"{phase}: host segments run {host}, {n_device} device segments "
+          f"for {len(drops)} dropout ops")
+    check(all(np.isfinite(seg["losses"])) and seg["losses"][-1]
+          < seg["losses"][0], f"{phase}: losses {seg['losses']} not finite "
+          "or not falling")
+    check(seg["losses"] == interp["losses"]
+          and seg["keep_rates"] == interp["keep_rates"]
+          and interp["params_bit_equal"],
+          f"{phase}: segmented {seg['losses']} / {seg['keep_rates']} "
+          f"against interpreted {interp['losses']} / "
+          f"{interp['keep_rates']} (parameters bit-equal: "
+          f"{interp['params_bit_equal']})")
+    n_mask = T_BATCH * T_HEADS * T_SEQ * T_SEQ
+    sigma = float(np.sqrt(LD_RATE * (1 - LD_RATE) / (n_mask * T_STEPS)))
+    keep = float(np.mean(seg["keep_rates"]))
+    check(abs(keep - (1 - LD_RATE)) <= 4 * sigma, f"{phase}: attention "
+          f"keep rate {keep} (sigma {sigma})")
+    z_c, z_f = zeroed["composed"]["loss"], zeroed["flash"]["loss"]
+    loss_ulps = abs(z_c - z_f) / _bf16_ulp(z_f)
+    worst = max(rel, key=rel.get)
+    check(np.isfinite(z_c) and loss_ulps <= LOSS_ULPS_BF16
+          and rel[worst] <= PARAM_RTOL_BF16,
+          f"{phase}: with the draws zeroed the composed path's loss {z_c} "
+          f"is {loss_ulps} bf16 ulps from the flash path's {z_f}, or "
+          f"weight {worst} moved {rel[worst]} apart")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    c_fwd, c_fwd_bwd = _composed_attention_ms(dev, flush)
+    fc = flash_cases["bf16_causal"]
+    step_s = float(np.median(seg["step_s"][2:]))
+    i_step_s = float(np.median(interp["step_s"][1:]))
+    prof = seg["profiled_step"]
+    emit({"phase": phase, "card": card, "vocab": T_VOCAB, "d_model": T_D,
+          "n_heads": T_HEADS, "n_layers": T_LAYERS, "seq": T_SEQ,
+          "batch": T_BATCH, "dtype": "bf16 amp, f32 master weights",
+          "optimizer": "momentum", "dropout_rate": LD_RATE,
+          "dropout_ops": len(drops), "attention_dropout_ops": len(attn),
+          "mode": "segmented (dropouts eager between captured segments)",
+          "device_segments": n_device, "host_segments": len(host),
+          "steps": T_STEPS, "segmented": seg, "interpreted": interp,
+          "keep_rate": keep, "keep_rate_sigma": sigma,
+          "ms_per_step": step_s * 1e3,
+          "interpreted_ms_per_step": i_step_s * 1e3,
+          "tokens_per_s": T_BATCH * T_SEQ / step_s,
+          "device_ms": prof["device_ms"],
+          "device_idle_share": 1.0 - prof["device_ms"] / (step_s * 1e3),
+          "interpreted_device_idle_share":
+              1.0 - interp["profiled_step"]["device_ms"] / (i_step_s * 1e3),
+          "peak_memory_bytes": seg["peak_memory_bytes"],
+          "peak_reserved_bytes": seg["peak_reserved_bytes"],
+          "draws_zeroed": {"composed": zeroed["composed"],
+                           "flash": zeroed["flash"],
+                           "loss_diff_bf16_ulps": loss_ulps,
+                           "loss_limit_ulps": LOSS_ULPS_BF16,
+                           "weight_change_rel_diff": {
+                               "max": rel[worst], "argmax": worst,
+                               "n_weights": len(rel),
+                               "limit": PARAM_RTOL_BF16}},
+          "attention_ms": {
+              "shape_bshd": list(FLASH_SHAPE), "dtype": "bf16 (amp)",
+              "causal": True, "composed_fwd": c_fwd,
+              "composed_fwd_bwd": c_fwd_bwd,
+              "flash_fwd": fc["fwd"]["ms"],
+              "flash_fwd_bwd": fc["fwd"]["ms"] + fc["bwd_ms"],
+              "composed_over_flash_fwd": c_fwd / fc["fwd"]["ms"],
+              "composed_over_flash_fwd_bwd":
+                  c_fwd_bwd / (fc["fwd"]["ms"] + fc["bwd_ms"])},
+          "timing": "host clock around exe.run + synchronize, the fetch of "
+                    "the first attention mask's mean included; ms_per_step "
+                    "the median of the default mode's steps 3..N (replays "
+                    "between the eager dropouts), the interpreter's of "
+                    "steps 2..N; device time and idle share from one "
+                    "profiled step after them; peak memory over each "
+                    "mode's steps; attention times: median of cold-L2 "
+                    "calls, CUDA events, the composed chain's backward by "
+                    "autograd, the flash kernels from the flash phase"})
+    return seg
+
 
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
@@ -2990,6 +3469,7 @@ def main():
     cases = kernels_phase(dev, bw, flops)
     flash_cases = flash_phase(dev, bw, peaks)
     grads_flash, _ = grads_phase(dev)
+    ops_phase(card, dev)
     from paddle_tpu_torch import CUDAPlace
 
     # the main path runs bf16 amp, the reference cells' mode
@@ -2997,6 +3477,7 @@ def main():
         card, CUDAPlace(0), peaks, flash_cases, amp=True)
     fp32_launches, _ = train_phase(card, CUDAPlace(0), peaks, flash_cases,
                                    amp=False)
+    lm_dropout_phase(card, CUDAPlace(0), dev, flash_cases)
     s2s_launches, s2s_replayed = seq2seq_phase(card, CUDAPlace(0), peaks,
                                                flash_cases)
     launches = serve_phases(card, CUDAPlace(0))

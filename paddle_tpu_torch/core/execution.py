@@ -64,7 +64,9 @@ class ExecContext:
     the global batch row of this run's row 0 (a data-parallel rank's
     first row; 0 in the serial Executor): dropout keys its masks by
     global row, so a sharded step draws the serial masks.  Shape
-    inference passes ``torch.device("meta")`` and no seed."""
+    inference passes ``torch.device("meta")`` and no seed.  `op` is the
+    op desc a host op's context runs (`run_op` sets it: `print` names
+    its input), else None."""
 
     def __init__(self, device=None,
                  generator: Optional[torch.Generator] = None,
@@ -73,6 +75,7 @@ class ExecContext:
         self._generator = generator
         self.seed = seed
         self.row_offset = row_offset
+        self.op = None
 
     @property
     def generator(self) -> Optional[torch.Generator]:
@@ -191,7 +194,9 @@ def run_op(ctx: ExecContext, op, env):
     """Execute one op desc against `env`."""
     ins = gather_inputs(op, env)
     fn, attrs, tag = resolve_op(op)
-    scatter_outputs(op, env, fn(ctx.child(tag), ins, attrs))
+    child = ctx.child(tag)
+    child.op = op
+    scatter_outputs(op, env, fn(child, ins, attrs))
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +278,10 @@ def one(ins, slot):
 
 def many(ins, slot) -> List:
     return list(ins.get(slot) or [])
+
+
+def scalar_like(x, v):
+    """A 0-d tensor of x's dtype on x's device holding `v` rounded to that
+    dtype: a device fill, not a host-to-device copy, so it neither waits
+    for the stream nor breaks a CUDA graph capture."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)

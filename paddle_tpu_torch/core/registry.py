@@ -91,6 +91,7 @@ def register_op(
     not_differentiable: bool = False,
     dup_inputs: Sequence[str] = (),
     dup_outputs: Sequence[str] = (),
+    host: bool = False,
 ):
     """Decorator: register `fn` as the torch lowering for op `type`."""
 
@@ -107,6 +108,7 @@ def register_op(
         info.inplace = dict(inplace or {})
         info.random = random
         info.not_differentiable = not_differentiable
+        info.host = host
         _REGISTRY[type] = info
         return fn
 

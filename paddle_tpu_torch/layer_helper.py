@@ -60,6 +60,14 @@ class LayerHelper:
     def create_variable(self, name, **kw):
         return self.block.create_var(name=name, **kw)
 
+    def create_global_variable(self, name=None, persistable=False,
+                               dtype="float32", shape=None,
+                               stop_gradient=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name(f"{self.name}.global"),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None, suffix="w"):
         attr = dict(attr or {})

@@ -1,6 +1,7 @@
 """NN layers: fc, embedding, flash_attention, the conv-net layers
-(conv2d, pool2d, batch_norm, dropout), layer_norm, the losses,
-reductions and metrics of a training Program (counterpart of
+(conv2d, pool2d, batch_norm, dropout), layer_norm, matmul, the losses,
+reductions, split, l2_normalize, one_hot, cos_sim, multiplex, the step
+counter and the metrics of a training Program (counterpart of
 paddle_tpu/layers/nn.py)."""
 from __future__ import annotations
 
@@ -11,8 +12,12 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "accuracy", "conv2d", "pool2d", "batch_norm", "layer_norm", "lrn",
-           "mean", "reduce_sum", "topk", "cross_entropy",
-           "square_error_cost", "softmax_with_cross_entropy"]
+           "mean", "matmul", "reduce_sum", "reduce_mean", "reduce_max",
+           "reduce_min", "topk", "cross_entropy", "square_error_cost",
+           "cos_sim", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits", "split", "l2_normalize",
+           "one_hot", "autoincreased_step_counter", "smooth_l1",
+           "multiplex"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -311,8 +316,19 @@ def mean(x, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("matmul", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]},
+                     {"transpose_X": transpose_x,
+                      "transpose_Y": transpose_y})
+    return out
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    """dim None reduces every dim (reduce_all)."""
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_tmp_variable(input.dtype)
     attrs = {"keep_dim": keep_dim}
     if dim is None:
@@ -321,9 +337,25 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     else:
         attrs["reduce_all"] = False
         attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
-    helper.append_op("reduce_sum", {"X": [input.name]}, {"Out": [out.name]},
+    helper.append_op(op_type, {"X": [input.name]}, {"Out": [out.name]},
                      attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
 
 
 def topk(input, k=1):
@@ -358,6 +390,19 @@ def square_error_cost(input, label):
     return square_out
 
 
+def cos_sim(X, Y):
+    """Row-wise cosine similarity; Y may have a single row, broadcast
+    to X."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_tmp_variable(X.dtype)
+    xnorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    ynorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    helper.append_op("cos_sim", {"X": [X.name], "Y": [Y.name]},
+                     {"Out": [out.name], "XNorm": [xnorm.name],
+                      "YNorm": [ynorm.name]})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False):
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax = helper.create_tmp_variable(logits.dtype)
@@ -367,3 +412,100 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      {"Softmax": [softmax.name], "Loss": [loss.name]},
                      {"soft_label": soft_label})
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits")
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x.name], "Label": [label.name]},
+                     {"Out": [out.name]})
+    return out
+
+
+def split(input, num_or_sections, dim=-1):
+    """`num_or_sections` equal parts (an int) or those sizes (a list)
+    along `dim` -> the list of parts."""
+    helper = LayerHelper("split")
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_tmp_variable(input.dtype)
+            for _ in range(num if num else len(sections))]
+    helper.append_op("split", {"X": [input.name]},
+                     {"Out": [o.name for o in outs]},
+                     {"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(sum(x^2) over `axis`), built from square, reduce_sum,
+    sqrt and elementwise_div (axis 0) as the JAX package builds it;
+    `epsilon` is accepted and not used, as there."""
+    from . import ops as _ops
+
+    LayerHelper("l2_normalize", name=name)      # counts the name
+    ssum = reduce_sum(_ops.square(x), dim=axis, keep_dim=True)
+    helper = LayerHelper("l2_normalize")
+    norm = helper.create_tmp_variable(x.dtype)
+    helper.append_op("sqrt", {"X": [ssum.name]}, {"Out": [norm.name]})
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("elementwise_div", {"X": [x.name], "Y": [norm.name]},
+                     {"Out": [out.name]}, {"axis": 0})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op("one_hot", {"X": [input.name]}, {"Out": [out.name]},
+                     {"depth": depth, "dtype": "float32"})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter, `begin - step` at startup and
+    incremented by `step` at every run of the main program."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    counter = helper.main_program.global_block().create_var(
+        name=name, dtype="int64", shape=(1,), persistable=True,
+        stop_gradient=True)
+    sb = helper.startup_program.global_block()
+    if name not in sb.vars:
+        sb.create_var(name=name, dtype="int64", shape=(1,),
+                      persistable=True)
+        sb.append_op("fill_constant", {}, {"Out": [name]},
+                     {"shape": [1], "dtype": "int64",
+                      "value": float(begin - step)})
+    helper.append_op("increment", {"X": [name]}, {"Out": [name]},
+                     {"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1")
+    diff = helper.create_tmp_variable(x.dtype)
+    out = helper.create_tmp_variable(x.dtype)
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op("smooth_l1_loss", inputs,
+                     {"Diff": [diff.name], "Out": [out.name]},
+                     {"sigma": sigma or 1.0})
+    return out
+
+
+def multiplex(inputs, index):
+    """Row i from inputs[index[i]]."""
+    helper = LayerHelper("multiplex")
+    out = helper.create_tmp_variable(inputs[0].dtype)
+    helper.append_op("multiplex",
+                     {"Ids": [index.name], "X": [v.name for v in inputs]},
+                     {"Out": [out.name]}, {})
+    return out

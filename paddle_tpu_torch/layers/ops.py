@@ -1,6 +1,6 @@
 """Thin generated layer wrappers for one-input and two-input ops
-(counterpart of paddle_tpu/layers/ops.py), for the ops this package
-registers."""
+(counterpart of paddle_tpu/layers/ops.py, the same three lists): the
+comparisons and logicals make bool outputs."""
 from __future__ import annotations
 
 import sys
@@ -8,12 +8,29 @@ import sys
 from ..core import registry
 from ..layer_helper import LayerHelper
 
-_UNARY = ["relu", "square", "sqrt", "softmax", "clip", "clip_by_norm",
-          "scale", "reshape", "slice"]
-_BINARY = ["elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_max"]
+_UNARY = [
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink",
+    "softshrink", "sqrt", "abs", "ceil", "floor", "round", "reciprocal",
+    "log", "square", "softplus", "softsign", "brelu", "leaky_relu",
+    "soft_relu", "elu", "relu6", "pow", "stanh", "hard_shrink",
+    "thresholded_relu", "hard_sigmoid", "swish", "softmax", "cumsum",
+    "clip", "clip_by_norm", "scale", "transpose", "reshape", "slice",
+]
 
-__all__ = list(_UNARY) + list(_BINARY)
+_BINARY = [
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "less_than", "less_equal", "greater_than",
+    "greater_equal", "equal", "not_equal", "logical_and", "logical_or",
+    "logical_xor",
+]
+
+_BOOL_OUT = {
+    "less_than", "less_equal", "greater_than", "greater_equal", "equal",
+    "not_equal", "logical_and", "logical_or", "logical_xor", "logical_not",
+}
+
+__all__ = list(_UNARY) + list(_BINARY) + ["logical_not"]
 
 _mod = sys.modules[__name__]
 
@@ -25,7 +42,8 @@ def _make_unary(op_type):
 
     def layer(x, name=None, **attrs):
         helper = LayerHelper(op_type, name=name)
-        out = helper.create_tmp_variable(dtype=x.dtype)
+        dtype = "bool" if op_type in _BOOL_OUT else x.dtype
+        out = helper.create_tmp_variable(dtype=dtype)
         helper.append_op(op_type, {in_slot: [x.name]},
                          {out_slot: [out.name]}, attrs)
         return out
@@ -38,9 +56,13 @@ def _make_unary(op_type):
 def _make_binary(op_type):
     def layer(x, y, axis=-1, name=None, **attrs):
         helper = LayerHelper(op_type, name=name)
-        out = helper.create_tmp_variable(dtype=x.dtype)
+        dtype = "bool" if op_type in _BOOL_OUT else x.dtype
+        out = helper.create_tmp_variable(dtype=dtype)
+        a = dict(attrs)
+        if not op_type.startswith("logical"):   # the logicals have no axis
+            a["axis"] = axis
         helper.append_op(op_type, {"X": [x.name], "Y": [y.name]},
-                         {"Out": [out.name]}, {**attrs, "axis": axis})
+                         {"Out": [out.name]}, a)
         return out
 
     layer.__name__ = op_type
@@ -52,3 +74,4 @@ for _t in _UNARY:
     setattr(_mod, _t, _make_unary(_t))
 for _t in _BINARY:
     setattr(_mod, _t, _make_binary(_t))
+setattr(_mod, "logical_not", _make_unary("logical_not"))

@@ -3,6 +3,10 @@ image helpers simple_img_conv_pool and img_conv_group, and multi-head
 scaled dot-product attention."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
+
 from . import layers
 
 __all__ = ["simple_img_conv_pool", "img_conv_group",
@@ -56,28 +60,43 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 def scaled_dot_product_attention(queries, keys, values,
                                  num_heads=1, dropout_rate=0.0,
                                  causal=False, is_test=False):
-    """Multi-head attention on [batch, seq, dim] tensors through the
-    `flash_attention` op.  `causal=True` masks future positions.
-
-    Attention-weight dropout in training needs the composed
-    matmul/softmax/dropout chain of the JAX package, whose `matmul` op
-    (ROADMAP A3) is not ported yet; asking for it raises."""
+    """Multi-head attention on [batch, seq, dim] tensors.  `causal=True`
+    masks future positions.  Without attention-weight dropout (or at
+    test, where dropout is a scale) it is the `flash_attention` op;
+    training with dropout takes the composed path of the JAX package:
+    transpose -> scale -> matmul -> (+ causal mask) -> softmax ->
+    dropout -> matmul -> transpose, the [b, h, s, s] weights
+    materialised so the dropout can draw over them."""
     d_model = int(queries.shape[-1])
     if num_heads < 1:
         raise ValueError("num_heads must be >= 1")
     if d_model % num_heads:
         raise ValueError(
             f"hidden size {d_model} not divisible by num_heads {num_heads}")
-    if dropout_rate and not is_test:
-        raise NotImplementedError(
-            "attention-weight dropout in training needs the `matmul` op, "
-            "which is not ported yet (ROADMAP A3)")
     d_head = d_model // num_heads
 
     def split_heads(x):
         # [b, s, d] -> [b, s, h, d/h]
         return layers.reshape(x, shape=[0, 0, num_heads, d_head])
 
-    out = layers.flash_attention(split_heads(queries), split_heads(keys),
-                                 split_heads(values), causal=causal)
-    return layers.reshape(out, shape=[0, 0, d_model])
+    if not dropout_rate or is_test:
+        out = layers.flash_attention(split_heads(queries), split_heads(keys),
+                                     split_heads(values), causal=causal)
+        return layers.reshape(out, shape=[0, 0, d_model])
+
+    q = layers.transpose(split_heads(queries), axis=[0, 2, 1, 3])
+    k = layers.transpose(split_heads(keys), axis=[0, 2, 1, 3])
+    v = layers.transpose(split_heads(values), axis=[0, 2, 1, 3])
+    scaled_q = layers.scale(q, scale=1.0 / math.sqrt(d_head))
+    product = layers.matmul(scaled_q, k, transpose_y=True)  # [b, h, s, s]
+    if causal:
+        seq_q, seq_k = int(queries.shape[1]), int(keys.shape[1])
+        mask = np.triu(np.full((seq_q, seq_k), -1e9, dtype=np.float32), k=1)
+        product = layers.elementwise_add(product, layers.assign(mask),
+                                         axis=2)
+    weights = layers.softmax(product)
+    weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                             is_test=is_test)
+    ctx = layers.matmul(weights, v)                  # [b, h, s, d/h]
+    ctx = layers.transpose(ctx, axis=[0, 2, 1, 3])   # [b, s, h, d/h]
+    return layers.reshape(ctx, shape=[0, 0, d_model])

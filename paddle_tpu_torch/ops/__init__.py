@@ -3,9 +3,12 @@
 Counterpart of paddle_tpu/ops/.  This package carries the ops that the
 transformer LM's training Program contains (forward ops, losses, the
 small ops backward and the optimizers emit, the optimizer updates and
-the startup initializers), the MoE FFN, and the conv nets' ops
-(convolution, pooling, batch norm, dropout, top_k and accuracy), each
-lowered once in PyTorch.
+the startup initializers), the MoE FFN, the conv nets' ops
+(convolution, pooling, batch norm, lrn, dropout, top_k and accuracy),
+and the dense op corpus of the JAX package's activation, elementwise,
+matmul, reduce, manip, creation, loss, metrics and misc modules (every
+type there that needs no LoD, SelectedRows or sub-block), each lowered
+once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,

@@ -1,5 +1,14 @@
-"""relu, square, sqrt, softmax and dropout (counterpart of
-paddle_tpu/ops/activation.py)."""
+"""The activation table, softmax, prelu and dropout (counterpart of
+paddle_tpu/ops/activation.py).
+
+Gradients are the generic ones (autograd over the lowering), so each
+lowering is written as the JAX package's is, where a tie or a kink
+decides the gradient: `clip` is a maximum then a minimum (a tie sends
+half the cotangent each way, as `jnp.clip`'s VJP does; `torch.clamp`
+sends all of it), `abs` takes the positive branch at 0 (`jnp.abs`'s
+derivative there is 1; `torch.abs`'s is 0), and a `where` keeps the
+JAX package's comparison and branch order.
+"""
 from __future__ import annotations
 
 import math
@@ -7,23 +16,89 @@ import math
 import torch
 
 from ..amp import amp_upcast
-from ..core.execution import _M32, _mix, mix32_, one
+from ..core.execution import _M32, _mix, mix32_, one, scalar_like
 from ..core.registry import register_op
 
 
-@register_op("relu", inputs=("X",), outputs=("Out",))
-def relu(ctx, ins, attrs):
-    return {"Out": torch.relu(one(ins, "X"))}
+def clip(x, lo, hi):
+    """min(max(x, lo), hi) with the bounds in x's dtype: at x == lo or
+    x == hi the gradient is 1/2, as `jnp.clip`'s."""
+    return torch.minimum(torch.maximum(x, scalar_like(x, lo)),
+                         scalar_like(x, hi))
 
 
-@register_op("square", inputs=("X",), outputs=("Out",))
-def square(ctx, ins, attrs):
-    return {"Out": torch.square(one(ins, "X"))}
+def abs_(x):
+    """|x| whose derivative at 0 is 1, as `jnp.abs`'s."""
+    return torch.where(x >= 0, x, -x)
 
 
-@register_op("sqrt", inputs=("X",), outputs=("Out",))
-def sqrt(ctx, ins, attrs):
-    return {"Out": torch.sqrt(one(ins, "X"))}
+def _zeros(x):
+    return torch.zeros_like(x)
+
+
+_UNARY = {
+    "sigmoid": (lambda x, a: torch.sigmoid(x), {}),
+    "logsigmoid": (lambda x, a: torch.nn.functional.logsigmoid(x), {}),
+    "exp": (lambda x, a: torch.exp(x), {}),
+    "relu": (lambda x, a: torch.relu(x), {}),
+    "tanh": (lambda x, a: torch.tanh(x), {}),
+    "tanh_shrink": (lambda x, a: x - torch.tanh(x), {}),
+    "softshrink": (
+        lambda x, a: torch.where(
+            x > a["lambda"], x - a["lambda"],
+            torch.where(x < -a["lambda"], x + a["lambda"], _zeros(x))),
+        {"lambda": 0.5}),
+    "sqrt": (lambda x, a: torch.sqrt(x), {}),
+    "abs": (lambda x, a: abs_(x), {}),
+    "ceil": (lambda x, a: torch.ceil(x), {}),
+    "floor": (lambda x, a: torch.floor(x), {}),
+    # half to even on both sides
+    "round": (lambda x, a: torch.round(x), {}),
+    "reciprocal": (lambda x, a: torch.reciprocal(x), {}),
+    "log": (lambda x, a: torch.log(x), {}),
+    "square": (lambda x, a: torch.square(x), {}),
+    # jax.nn.softplus is logaddexp(x, 0): no linear cut-over
+    "softplus": (lambda x, a: torch.logaddexp(x, _zeros(x)), {}),
+    "softsign": (lambda x, a: x / (1 + abs_(x)), {}),
+    "brelu": (lambda x, a: clip(x, a["t_min"], a["t_max"]),
+              {"t_min": 0.0, "t_max": 24.0}),
+    "leaky_relu": (lambda x, a: torch.where(x > 0, x, a["alpha"] * x),
+                   {"alpha": 0.02}),
+    "soft_relu": (
+        lambda x, a: torch.log1p(torch.exp(
+            clip(x, -a["threshold"], a["threshold"]))),
+        {"threshold": 40.0}),
+    "elu": (lambda x, a: torch.where(x > 0, x,
+                                     a["alpha"] * torch.expm1(x)),
+            {"alpha": 1.0}),
+    "relu6": (lambda x, a: clip(x, 0.0, a["threshold"]),
+              {"threshold": 6.0}),
+    "pow": (lambda x, a: torch.pow(x, a["factor"]), {"factor": 1.0}),
+    "stanh": (lambda x, a: a["scale_b"] * torch.tanh(a["scale_a"] * x),
+              {"scale_a": 2.0 / 3.0, "scale_b": 1.7159}),
+    "hard_shrink": (
+        lambda x, a: torch.where(abs_(x) > a["threshold"], x, _zeros(x)),
+        {"threshold": 0.5}),
+    "thresholded_relu": (
+        lambda x, a: torch.where(x > a["threshold"], x, _zeros(x)),
+        {"threshold": 1.0}),
+    "hard_sigmoid": (
+        lambda x, a: clip(a["slope"] * x + a["offset"], 0.0, 1.0),
+        {"slope": 0.2, "offset": 0.5}),
+    "swish": (lambda x, a: x * torch.sigmoid(a["beta"] * x), {"beta": 1.0}),
+}
+
+
+def _unary(name, fn, attrs):
+    @register_op(name, inputs=("X",), outputs=("Out",), attrs=attrs)
+    def lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": _fn(one(ins, "X"), attrs)}
+
+    return lower
+
+
+for _name, (_fn, _attrs) in _UNARY.items():
+    _unary(_name, _fn, _attrs)
 
 
 @register_op("softmax", inputs=("X",), outputs=("Out",))
@@ -31,6 +106,14 @@ def softmax(ctx, ins, attrs):
     """Reference softmax_op.cc: softmax over the last dim.  Under amp a
     bf16 input is upcast to f32 (numerically sensitive)."""
     return {"Out": torch.softmax(amp_upcast(one(ins, "X")), dim=-1)}
+
+
+@register_op("prelu", inputs=("X", "Alpha"), outputs=("Out",))
+def prelu(ctx, ins, attrs):
+    """One learned slope for every negative element."""
+    x = one(ins, "X")
+    alpha = one(ins, "Alpha").reshape(())
+    return {"Out": torch.where(x > 0, x, alpha * x)}
 
 
 # rows of one keyed draw at a time: at most 2^21 elements, so the hash's
@@ -83,7 +166,7 @@ def dropout(ctx, ins, attrs):
     x = one(ins, "X")
     p = float(attrs["dropout_prob"])
     if attrs.get("is_test"):
-        keep = torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
+        keep = scalar_like(x, 1.0 - p)
         return {"Out": x * keep, "Mask": torch.ones_like(x)}
     if x.device.type == "meta":
         mask = torch.empty_like(x)

@@ -1,14 +1,17 @@
 """Elementwise binary ops with the reference's axis-broadcast semantics,
-plus scale / sum / clip (counterpart of paddle_tpu/ops/elementwise.py):
-Y's shape must be a contiguous sub-sequence of X's shape starting at
-`axis` (axis == -1 means trailing alignment)."""
+the comparisons and logicals, plus scale / sum / clip (counterpart of
+paddle_tpu/ops/elementwise.py): Y's shape must be a contiguous
+sub-sequence of X's shape starting at `axis` (axis == -1 means trailing
+alignment).  The logicals broadcast as numpy does, as the JAX
+package's."""
 from __future__ import annotations
 
 import torch
 
 from ..amp import is_bf16_enabled
-from ..core.execution import many, one
+from ..core.execution import many, one, scalar_like
 from ..core.registry import register_op
+from .activation import clip as _clip
 
 
 def _broadcast_y(x, y, axis):
@@ -50,16 +53,16 @@ _make_elementwise("elementwise_sub", torch.sub)
 _make_elementwise("elementwise_mul", torch.mul)
 _make_elementwise("elementwise_div", torch.div)
 _make_elementwise("elementwise_max", torch.maximum)
+_make_elementwise("elementwise_min", torch.minimum)
+_make_elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("scale", inputs=("X",), outputs=("Out",),
              attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
 def scale(ctx, ins, attrs):
     x = one(ins, "X")
-    # device fills (no host copy), rounded to x's type first
-    s = torch.full((), attrs["scale"], dtype=x.dtype, device=x.device)
-    b = torch.full((), attrs.get("bias", 0.0), dtype=x.dtype,
-                   device=x.device)
+    s = scalar_like(x, attrs["scale"])
+    b = scalar_like(x, attrs.get("bias", 0.0))
     if attrs.get("bias_after_scale", True):
         return {"Out": x * s + b}
     return {"Out": (x + b) * s}
@@ -69,7 +72,9 @@ def scale(ctx, ins, attrs):
              attrs={"min": -1.0, "max": 1.0},
              inplace={"Out": "X"})
 def clip(ctx, ins, attrs):
-    return {"Out": torch.clamp(one(ins, "X"), attrs["min"], attrs["max"])}
+    """A maximum then a minimum, as `jnp.clip`: at a bound the gradient
+    is 1/2 (`torch.clamp`'s is 1)."""
+    return {"Out": _clip(one(ins, "X"), attrs["min"], attrs["max"])}
 
 
 @register_op("clip_by_norm", inputs=("X",), outputs=("Out",),
@@ -95,3 +100,39 @@ def sum_op(ctx, ins, attrs):
     for v in xs[1:]:
         acc = acc + v
     return {"Out": acc}
+
+
+def _make_compare(name, fn):
+    @register_op(name, inputs=("X", "Y"), outputs=("Out",),
+                 attrs={"axis": -1}, not_differentiable=True)
+    def lower(ctx, ins, attrs, _fn=fn):
+        x, y = one(ins, "X"), one(ins, "Y")
+        return {"Out": _fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))}
+
+    return lower
+
+
+_make_compare("less_than", torch.lt)
+_make_compare("less_equal", torch.le)
+_make_compare("greater_than", torch.gt)
+_make_compare("greater_equal", torch.ge)
+_make_compare("equal", torch.eq)
+_make_compare("not_equal", torch.ne)
+
+
+def _make_logical(name, fn, unary=False):
+    @register_op(name, inputs=("X",) if unary else ("X", "Y"),
+                 outputs=("Out",), not_differentiable=True)
+    def lower(ctx, ins, attrs, _fn=fn, _unary=unary):
+        x = one(ins, "X")
+        if _unary:
+            return {"Out": _fn(x)}
+        return {"Out": _fn(x, one(ins, "Y"))}
+
+    return lower
+
+
+_make_logical("logical_and", torch.logical_and)
+_make_logical("logical_or", torch.logical_or)
+_make_logical("logical_xor", torch.logical_xor)
+_make_logical("logical_not", torch.logical_not, unary=True)

@@ -1,6 +1,7 @@
-"""Flatten-to-2D GEMM `mul` and its gradient (counterpart of
-paddle_tpu/ops/matmul.py).  Under amp both operands are cast to
-bfloat16 at the input edge, so the product runs in bf16."""
+"""Flatten-to-2D GEMM `mul` and its gradient, the batched `matmul` and
+`bilinear_tensor_product` (counterpart of paddle_tpu/ops/matmul.py).
+Under amp `mul` and `matmul` cast both operands to bfloat16 at the
+input edge, so the product runs in bf16."""
 from __future__ import annotations
 
 import math
@@ -8,7 +9,7 @@ import math
 import torch
 
 from ..amp import amp_cast
-from ..core.execution import one
+from ..core.execution import one, scalar_like
 from ..core.registry import register_grad_lower, register_op
 
 
@@ -45,3 +46,44 @@ def mul_grad(ctx, ins, attrs):
                        .to(x.dtype)],
             "Y@GRAD": [torch.matmul(x2.t(), g2).reshape(y.shape)
                        .to(y.dtype)]}
+
+
+@register_op("matmul", inputs=("X", "Y"), outputs=("Out",),
+             attrs={"transpose_X": False, "transpose_Y": False,
+                    "alpha": 1.0})
+def matmul(ctx, ins, attrs):
+    """Reference matmul_op.h semantics: a 1-D operand is a row (X) or a
+    column (Y) vector, squeezed out of the result; leading batch dims
+    broadcast; `alpha` scales the product in its dtype."""
+    x, y = amp_cast(one(ins, "X"), one(ins, "Y"))
+    tx, ty = attrs["transpose_X"], attrs["transpose_Y"]
+    squeeze_first = squeeze_last = False
+    if x.dim() == 1:
+        x = x[:, None] if tx else x[None, :]
+        tx, squeeze_first = False, True
+    if y.dim() == 1:
+        y = y[None, :] if ty else y[:, None]
+        ty, squeeze_last = False, True
+    if tx:
+        x = x.transpose(-1, -2)
+    if ty:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * scalar_like(out, alpha)
+    if squeeze_first:
+        out = out.squeeze(-2)
+    if squeeze_last:
+        out = out.squeeze(-1)
+    return {"Out": out}
+
+
+@register_op("bilinear_tensor_product", inputs=("X", "Y", "Weight", "Bias"),
+             outputs=("Out",))
+def bilinear_tensor_product(ctx, ins, attrs):
+    """out[b, k] = x[b] W[k] y[b] (+ bias)."""
+    out = torch.einsum("bm,kmn,bn->bk", one(ins, "X"), one(ins, "Weight"),
+                       one(ins, "Y"))
+    b = one(ins, "Bias")
+    return {"Out": out if b is None else out + b}

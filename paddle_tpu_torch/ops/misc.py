@@ -1,11 +1,122 @@
-"""pruning_mask (counterpart of the op in paddle_tpu/ops/misc.py): the
-static-pruning parameter update hook's mask."""
+"""Miscellaneous ops: cos_sim, is_empty, print, sign, minus, fill,
+label_smooth, multiplex and pruning_mask (counterpart of
+paddle_tpu/ops/misc.py)."""
 from __future__ import annotations
 
 import torch
 
-from ..core.execution import one
+from ..core.execution import many, one
 from ..core.registry import register_op
+from ..core.types import canonical_dtype
+from .creation import attr_constant
+
+
+@register_op("cos_sim", inputs=("X", "Y"),
+             outputs=("Out", "XNorm", "YNorm"),
+             diff_outputs=("Out",))
+def cos_sim(ctx, ins, attrs):
+    """Row-wise cosine similarity; a one-row Y broadcasts against every
+    row of X (cos_sim_op.h)."""
+    x, y = one(ins, "X"), one(ins, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+@register_op("is_empty", inputs=("X",), outputs=("Out",),
+             not_differentiable=True)
+def is_empty(ctx, ins, attrs):
+    x = one(ins, "X")
+    return {"Out": torch.full((), x.numel() == 0, dtype=torch.bool,
+                              device=x.device)}
+
+
+_PRINT_COUNTS: dict = {}
+
+
+@register_op("print", inputs=("In",), outputs=("Out",),
+             attrs={"first_n": -1, "message": "", "summarize": 20,
+                    "print_tensor_name": True, "print_tensor_type": True,
+                    "print_tensor_shape": True, "print_tensor_lod": True,
+                    "print_phase": "BOTH"},
+             not_differentiable=True, host=True)
+def print_op(ctx, ins, attrs):
+    """Debug print (reference print_op.cc), an identity pass-through, in
+    the JAX package's format.  `first_n` > 0 prints only this op's first
+    n runs; `print_phase` BACKWARD prints nothing (the op is not
+    differentiated)."""
+    v = one(ins, "In")
+    if attrs.get("print_phase", "BOTH").upper() == "BACKWARD" \
+            or v.device.type == "meta":
+        return {"Out": v}
+    first_n = int(attrs.get("first_n", -1))
+    if first_n > 0:
+        key = id(ctx.op)
+        _PRINT_COUNTS[key] = _PRINT_COUNTS.get(key, 0) + 1
+        if _PRINT_COUNTS[key] > first_n:
+            return {"Out": v}
+    x = v.detach().cpu()
+    x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    parts = [attrs.get("message") or ""]
+    if attrs.get("print_tensor_name", True) and ctx.op is not None:
+        parts.append(f"name={ctx.op.input('In')[0]}")
+    if attrs.get("print_tensor_shape", True):
+        parts.append(f"shape={tuple(x.shape)}")
+    if attrs.get("print_tensor_type", True):
+        parts.append(f"dtype={canonical_dtype(v.dtype)}")
+    n = int(attrs.get("summarize", 20))
+    flat = x.reshape(-1)
+    data = flat if (n < 0 or flat.size <= n) else flat[:n]
+    print(" ".join(p for p in parts if p), "data:", data)
+    return {"Out": v}
+
+
+@register_op("sign", inputs=("X",), outputs=("Out",))
+def sign(ctx, ins, attrs):
+    return {"Out": torch.sign(one(ins, "X"))}
+
+
+@register_op("minus", inputs=("X", "Y"), outputs=("Out",))
+def minus(ctx, ins, attrs):
+    """Out = X - Y (reference minus_op.cc; no axis broadcast)."""
+    return {"Out": one(ins, "X") - one(ins, "Y")}
+
+
+@register_op("fill", inputs=(), outputs=("Out",),
+             attrs={"shape": [], "value": [], "dtype": "float32",
+                    "force_cpu": False},
+             not_differentiable=True)
+def fill(ctx, ins, attrs):
+    """The flat `value` list in `shape` (reference fill_op.cc), built
+    once per device as assign_value's."""
+    return {"Out": attr_constant(attrs["value"],
+                                 attrs.get("dtype", "float32"),
+                                 attrs["shape"], ctx.device).clone()}
+
+
+@register_op("label_smooth", inputs=("X", "PriorDist"), outputs=("Out",),
+             attrs={"epsilon": 0.0}, diff_inputs=("X",))
+def label_smooth(ctx, ins, attrs):
+    """(1 - eps) X + eps prior (uniform 1/num_classes without PriorDist),
+    reference label_smooth_op.h."""
+    x = one(ins, "X")
+    eps = attrs["epsilon"]
+    prior = many(ins, "PriorDist")
+    if prior:
+        return {"Out": (1.0 - eps) * x + eps * prior[0].reshape(
+            (1,) * (x.dim() - 1) + (-1,))}
+    return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}
+
+
+@register_op("multiplex", inputs=("Ids", "X"), outputs=("Out",),
+             dup_inputs=("X",), diff_inputs=("X",))
+def multiplex(ctx, ins, attrs):
+    """Out[i] = X[Ids[i]][i] (reference multiplex_op.h)."""
+    ids = one(ins, "Ids").reshape(-1).long()
+    xs = torch.stack(many(ins, "X"))                    # [K, N, ...]
+    rows = torch.arange(xs.shape[1], device=xs.device)
+    return {"Out": xs[ids, rows]}
 
 
 @register_op("pruning_mask", inputs=("Param",), outputs=("Mask",),

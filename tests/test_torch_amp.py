@@ -28,11 +28,10 @@ bf16 ulps (ulp(v) = 2^(floor(log2|v|) - 7)):
     size of move, a relative difference of at most 2.
 
 Then analogues of the JAX package's tests/test_amp.py tests 1-3, with a
-two-layer fc net in place of the conv net (conv2d is not ported yet):
-bf16 activations with f32 master weights and convergence, amp off
-giving f32 again, and an f32 bias under Adam.  Its test 4 (an
-explicitly bf16 model) needs the `cast` and `square_error_cost` ops of
-ROADMAP A3.
+two-layer fc net in place of the conv net: bf16 activations with f32
+master weights and convergence, amp off giving f32 again, and an f32
+bias under Adam; and its test 4 as it stands there: an explicitly bf16
+model (no amp) trains under Adam, with f32 beta-pow accumulators.
 """
 import os
 import sys
@@ -404,6 +403,41 @@ def test_amp_master_weights_adam_converges():
                    and scope.find_var(n).is_floating_point())
     finally:
         tfluid.amp.disable_bf16()
+
+
+def test_explicit_bf16_adam_actually_trains():
+    """tests/test_amp.py:113 in the port: an explicitly bf16 model (no
+    amp) under Adam.  The beta-pow accumulators must be f32 (bf16 rounds
+    0.999 to 1.0, pinning lr_t at 0) and the update arithmetic f32."""
+    import ml_dtypes
+
+    r = np.random.RandomState(1)
+    xs = r.rand(8, 4).astype(np.float32).astype(ml_dtypes.bfloat16)
+    ys = r.rand(8, 1).astype(np.float32).astype(ml_dtypes.bfloat16)
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[4], dtype="bfloat16")
+        y = tfluid.layers.data(name="y", shape=[1], dtype="bfloat16")
+        pred = tfluid.layers.fc(input=x, size=1)
+        loss = tfluid.layers.mean(
+            tfluid.layers.cast(
+                tfluid.layers.square_error_cost(pred, y), "float32"))
+        tfluid.Adam(learning_rate=0.05).minimize(loss)
+    scope = Scope()
+    exe = tfluid.Executor(CPUPlace())
+    exe.run(startup, scope=scope)
+    b2p = [n for n in scope.local_names() if "beta2_pow" in n]
+    assert scope.find_var(b2p[0]).dtype == torch.float32
+    w0 = scope.find_var("fc_0.w_0").float().clone()
+    tr = [np.asarray(exe.run(main, feed={"x": xs, "y": ys},
+                             fetch_list=[loss], scope=scope)[0])
+          .reshape(-1)[0].item() for _ in range(20)]
+    w1 = scope.find_var("fc_0.w_0").float()
+    assert scope.find_var("fc_0.w_0").dtype == torch.bfloat16
+    assert not torch.allclose(w0, w1), "params frozen"
+    assert tr[-1] < tr[0], tr
+    # beta2_pow actually decays
+    assert float(scope.find_var(b2p[0]).reshape(-1)[0]) < 0.999
 
 
 def test_the_port_casts_at_op_edges_only():

@@ -1,7 +1,8 @@
 """Import isolation of the PyTorch port.
 
-`paddle_tpu_torch`, `chip_smoke.py` and the port's probes
-(`tools/torch_*.py`) must run where JAX is absent:
+`paddle_tpu_torch`, `chip_smoke.py`, the port's probes
+(`tools/torch_*.py`) and the op-case table chip_smoke reads
+(`tests/torch_op_cases.py`) must run where JAX is absent:
 they import neither `jax` (nor `jaxlib`) nor the JAX package
 `paddle_tpu`, not even one of its JAX-free modules.  Two guards: a fresh
 interpreter imports every submodule and chip_smoke's import graph and
@@ -22,6 +23,8 @@ import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_op_cases
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FORBIDDEN=" + ",".join(bad))
@@ -42,6 +45,7 @@ def _sources():
     for f in sorted(os.listdir(tools)):
         if f.startswith("torch_") and f.endswith(".py"):
             yield os.path.join(tools, f)
+    yield os.path.join(ROOT, "tests", "torch_op_cases.py")
 
 
 def test_fresh_import_loads_no_jax_and_no_paddle_tpu():

@@ -1,0 +1,336 @@
+"""The op-test harness of the port's dense op corpus, modelled on
+tests/op_test.py, and the checks of the registry and the harness itself.
+
+Each case of tests/torch_op_cases.py runs three checks:
+
+  1. `check_numpy`: the port's forward (float32, on the CPU) against the
+     case's numpy reference, rtol 1e-5 and atol 1e-6 (integer and bool
+     outputs exactly);
+  2. `check_finite_differences`: the port's generic gradient (autograd
+     over the lowering, `core/execution.generic_grad_lower`, the grad
+     op's own path) against central finite differences of
+     sum(out * cotangent), both in float64 on the CPU (eps 1e-6), rtol
+     1e-6 and atol 1e-8;
+  3. `check_jax`: the port's forward and generic gradient in float32
+     against the JAX package's lowering (`paddle_tpu.core.registry` op
+     info `.lower`, called directly) and `jax.vjp` over it, from the same
+     numpy inputs and cotangents, rtol 1e-5 and atol 1e-6.
+
+Cotangents are seeded per case.  Cases at a kink or a tie (`fd=False`)
+skip check 2: there the JAX package's gradient is the reference.  The
+tests of each op family sit in tests/test_torch_ops_*.py, parametrised
+over the cases, so that `--dist loadfile` spreads them.
+"""
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.core import registry as jreg
+from paddle_tpu.core.execution import ExecContext as JExecContext
+from paddle_tpu.core.execution import data_of
+
+import paddle_tpu_torch  # noqa: F401  (registers the port's ops)
+from paddle_tpu_torch.core import registry as treg
+from paddle_tpu_torch.core.execution import GRAD
+from paddle_tpu_torch.core.execution import ExecContext as TExecContext
+from paddle_tpu_torch.core.execution import generic_grad_lower
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_op_cases import CASES, rng  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+FD_EPS, FD_RTOL, FD_ATOL = 1e-6, 1e-6, 1e-8
+
+# the op types the dense corpus adds (every type with a case)
+CORPUS = sorted({c.op for c in CASES})
+
+
+# -- plumbing ----------------------------------------------------------------
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def _attrs(info, case):
+    return {**info.attrs, **case.attrs}
+
+
+def _torch_ins(case, dtype=torch.float32):
+    """{slot: [tensor]} with float inputs in `dtype`."""
+    out = {}
+    for slot, v in case.ins.items():
+        vals = []
+        for a in _as_list(v):
+            t = torch.from_numpy(np.array(a))
+            vals.append(t.to(dtype) if t.is_floating_point() else t)
+        out[slot] = vals
+    return out
+
+
+def _np(v):
+    """A port tensor or JAX array -> numpy (bf16 read as float32)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    a = np.asarray(v)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _is_float(a):
+    return np.issubdtype(np.asarray(a).dtype, np.floating)
+
+
+def _close(got, want, rtol, atol, what):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape, f"{what}: shape {got.shape} != " \
+                                    f"{want.shape}"
+    if _is_float(want) or _is_float(got):
+        np.testing.assert_allclose(got.astype(np.float64),
+                                   want.astype(np.float64), rtol=rtol,
+                                   atol=atol, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got.astype(np.int64) if got.dtype
+                                      != bool else got,
+                                      want.astype(np.int64) if want.dtype
+                                      != bool else want, err_msg=what)
+
+
+def diff_slots(info, ins):
+    """The input slots the generic gradient differentiates (its rule)."""
+    if info.diff_inputs is not None:
+        return [s for s in info.diff_inputs if s in ins]
+    return [s for s in info.inputs if s in ins
+            and all(_is_float(a) for a in _as_list(ins[s]))]
+
+
+def out_slots(info, outs):
+    """The float outputs that take a cotangent."""
+    slots = info.diff_outputs if info.diff_outputs is not None \
+        else info.outputs
+    return [s for s in slots if s in outs
+            and all(_is_float(_np(v)) for v in _as_list(outs[s]))]
+
+
+def has_gradient(case):
+    """Whether the case has a gradient to check: a differentiable op with
+    a float input slot it differentiates and a float output."""
+    info = treg.get_op_info(case.op)
+    if info.not_differentiable or case.random:
+        return False
+    outs = port_forward(case)
+    return bool(diff_slots(info, case.ins)) and bool(out_slots(info, outs))
+
+
+def port_forward(case, dtype=torch.float32):
+    info = treg.get_op_info(case.op)
+    return info.lower(TExecContext("cpu"), _torch_ins(case, dtype),
+                      _attrs(info, case))
+
+
+def cotangents(case):
+    """{out slot: [numpy cotangent]}, seeded by the case."""
+    info = treg.get_op_info(case.op)
+    outs = port_forward(case)
+    r = rng(case.name + "@cot")
+    return {s: [r.standard_normal(tuple(v.shape)) for v in _as_list(outs[s])]
+            for s in out_slots(info, outs)}
+
+
+def port_gradient(case, cots, dtype=torch.float32):
+    """The port's generic gradient: the "<type>_grad" op's slots fed to
+    core/execution.generic_grad_lower -> {in slot: [grad]}."""
+    info = treg.get_op_info(case.op)
+    attrs = _attrs(info, case)
+    ins = _torch_ins(case, dtype)
+    outs = info.lower(TExecContext("cpu"), ins, attrs)
+    g_ins = dict(ins)
+    for s in info.outputs:
+        if s in outs:
+            g_ins[s] = _as_list(outs[s])
+    for s, cs in cots.items():
+        g_ins[s + GRAD] = [torch.from_numpy(np.array(c)).to(
+            v.dtype if v.is_floating_point() else dtype)
+            for c, v in zip(cs, _as_list(outs[s]))]
+    res = generic_grad_lower(TExecContext("cpu"), g_ins, attrs, info)
+    return {s[:-len(GRAD)]: v for s, v in res.items()}
+
+
+# -- the three checks --------------------------------------------------------
+
+def check_numpy(case):
+    """Check 1: the port's float32 forward against the numpy reference."""
+    outs = port_forward(case)
+    ins = {s: [np.asarray(a, np.float64) if _is_float(a) else np.asarray(a)
+               for a in _as_list(v)] for s, v in case.ins.items()}
+    ins = {s: (v if isinstance(case.ins[s], list) else v[0])
+           for s, v in ins.items()}
+    info = treg.get_op_info(case.op)
+    want = case.ref(ins, _attrs(info, case))
+    for slot, w in want.items():
+        for i, (g, wi) in enumerate(zip(_as_list(outs[slot]), _as_list(w))):
+            _close(g, np.asarray(wi), RTOL, ATOL,
+                   f"{case.name} {slot}[{i}] against numpy")
+
+
+def check_finite_differences(case):
+    """Check 2: the generic gradient against central differences of
+    sum(out * cot) in float64."""
+    info = treg.get_op_info(case.op)
+    attrs = _attrs(info, case)
+    cots = cotangents(case)
+    grads = port_gradient(case, cots, torch.float64)
+    base = _torch_ins(case, torch.float64)
+
+    def loss(ins):
+        outs = info.lower(TExecContext("cpu"), ins, attrs)
+        total = 0.0
+        for s, cs in cots.items():
+            for v, c in zip(_as_list(outs[s]), cs):
+                total += float((v.double() * torch.from_numpy(c)).sum())
+        return total
+
+    for slot in diff_slots(info, case.ins):
+        for i, t in enumerate(base[slot]):
+            if not t.is_floating_point():
+                continue
+            num = np.zeros(tuple(t.shape))
+            flat = t.reshape(-1)
+            for k in range(flat.numel()):
+                orig = float(flat[k])
+                flat[k] = orig + FD_EPS
+                up = loss(base)
+                flat[k] = orig - FD_EPS
+                down = loss(base)
+                flat[k] = orig
+                num.reshape(-1)[k] = (up - down) / (2 * FD_EPS)
+            np.testing.assert_allclose(
+                _np(grads[slot][i]), num, rtol=FD_RTOL, atol=FD_ATOL,
+                err_msg=f"{case.name} d{slot}[{i}] against finite "
+                        "differences")
+
+
+def jax_lowering(case, cots=None):
+    """The JAX package's lowering of the case -> (outputs {slot: [numpy]},
+    gradients {slot: [numpy]} by jax.vjp when `cots` is given)."""
+    jinfo = jreg.get_op_info(case.op)
+    attrs = {**jinfo.attrs, **case.attrs}
+    jins = {s: [jnp.asarray(a) for a in _as_list(v)]
+            for s, v in case.ins.items()}
+    outs = jinfo.lower(JExecContext(), jins, attrs)
+    outs = {s: [data_of(x) for x in _as_list(v)] for s, v in outs.items()
+            if v is not None}
+    if cots is None:
+        return outs, None
+    tinfo = treg.get_op_info(case.op)
+    slots = diff_slots(tinfo, case.ins)
+    leaves = [(s, i) for s in slots for i, a in enumerate(jins[s])
+              if jnp.issubdtype(a.dtype, jnp.floating)]
+
+    def f(*vals):
+        ins = {s: list(v) for s, v in jins.items()}
+        for (s, i), v in zip(leaves, vals):
+            ins[s][i] = v
+        o = jinfo.lower(JExecContext(), ins, attrs)
+        return tuple(data_of(x) for s in cots for x in _as_list(o[s]))
+
+    prim, vjp = jax.vjp(f, *[jins[s][i] for s, i in leaves])
+    flat = [c for s in cots for c in cots[s]]
+    got = vjp(tuple(jnp.asarray(c, p.dtype) for c, p in zip(flat, prim)))
+    grads = {}
+    for (s, i), g in zip(leaves, got):
+        grads.setdefault(s, {})[i] = np.asarray(g)
+    return outs, {s: [d[i] for i in sorted(d)] for s, d in grads.items()}
+
+
+def check_jax(case):
+    """Check 3: the port's float32 forward and generic gradient against
+    the JAX lowering and jax.vjp, from the same inputs and cotangents."""
+    grad = has_gradient(case)
+    cots = cotangents(case) if grad else None
+    jouts, jgrads = jax_lowering(case, cots)
+    touts = port_forward(case)
+    assert set(touts) == set(jouts), (case.name, set(touts), set(jouts))
+    for slot, jv in jouts.items():
+        tv = _as_list(touts[slot])
+        assert len(tv) == len(jv), (case.name, slot)
+        for i, (a, b) in enumerate(zip(tv, jv)):
+            _close(a, b, RTOL, ATOL, f"{case.name} {slot}[{i}] against "
+                                     "the JAX lowering")
+    if not grad:
+        return
+    tgrads = port_gradient(case, cots)
+    assert set(tgrads) == set(jgrads), (case.name, set(tgrads),
+                                        set(jgrads))
+    for slot, jg in jgrads.items():
+        for i, (a, b) in enumerate(zip(tgrads[slot], jg)):
+            _close(a, b, RTOL, ATOL,
+                   f"{case.name} d{slot}[{i}] against jax.vjp")
+
+
+def fd_cases(cases):
+    return [c for c in cases if c.fd and has_gradient(c)]
+
+
+def forward_cases(cases):
+    return [c for c in cases if c.ref is not None]
+
+
+def jax_cases(cases):
+    return [c for c in cases if not c.random]
+
+
+# -- the registry and the harness itself -------------------------------------
+
+def test_the_corpus_is_the_jax_packages_dense_types():
+    """89 op types: every type of the JAX package's activation,
+    elementwise, matmul, reduce, manip, creation, loss, metrics and misc
+    modules that needs no LoD, SelectedRows or sub-block, and nothing
+    else; the port registers 134 in all."""
+    assert len(CORPUS) == 89
+    assert set(CORPUS) <= set(jreg.registered_ops())
+    assert len(treg.registered_ops()) == 134
+    assert set(treg.registered_ops()) <= set(jreg.registered_ops())
+
+
+@pytest.mark.parametrize("op", CORPUS)
+def test_registration_matches_the_jax_package(op):
+    """Slots, attribute defaults, differentiable slots, in-place aliases
+    and the random / host / not-differentiable flags as the JAX
+    package registers them."""
+    j, t = jreg.get_op_info(op), treg.get_op_info(op)
+    for field in ("inputs", "outputs", "dup_inputs", "dup_outputs",
+                  "attrs", "inplace", "random", "not_differentiable",
+                  "host"):
+        assert getattr(t, field) == getattr(j, field), field
+    for field in ("diff_inputs", "diff_outputs"):
+        jv, tv = getattr(j, field), getattr(t, field)
+        assert (tuple(tv) if tv is not None else None) == \
+               (tuple(jv) if jv is not None else None), field
+
+
+def test_the_harness_catches_a_clamp_clip():
+    """Mutation check of check 3: a `clip` lowered with torch.clamp (the
+    port's lowering before this corpus) passes the numpy forward and
+    fails against jax.vjp at its bounds."""
+    from torch_op_cases import Case
+
+    info = treg.get_op_info("clip")
+    case = Case("clip.clamp", "clip",
+                {"X": np.array([-1, 0, 1, 2], np.float32)},
+                ref=lambda ins, a: {"Out": np.clip(ins["X"], -1, 1)},
+                fd=False)
+    lower = info.lower
+    info.lower = lambda ctx, ins, attrs: {"Out": torch.clamp(
+        ins["X"][0], attrs["min"], attrs["max"])}
+    try:
+        check_numpy(case)
+        with pytest.raises(AssertionError, match="jax.vjp"):
+            check_jax(case)
+    finally:
+        info.lower = lower
+    check_jax(case)

@@ -1,0 +1,31 @@
+"""The reductions (paddle_tpu/ops/reduce.py: reduce_mean/max/min/prod,
+cumsum, the norms, argmax, maxout; reduce_max and reduce_min on ties)
+and the manipulation ops (paddle_tpu/ops/manip.py), held by the op-test
+harness (tests/test_torch_op_test.py)."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_op_test import (check_finite_differences, check_jax,  # noqa: E402
+                                check_numpy, fd_cases, forward_cases,
+                                jax_cases)
+from torch_op_cases import cases_of  # noqa: E402
+
+CASES = cases_of("reduce", "manip")
+
+
+@pytest.mark.parametrize("case", forward_cases(CASES), ids=str)
+def test_forward_matches_numpy(case):
+    check_numpy(case)
+
+
+@pytest.mark.parametrize("case", fd_cases(CASES), ids=str)
+def test_gradient_matches_finite_differences(case):
+    check_finite_differences(case)
+
+
+@pytest.mark.parametrize("case", jax_cases(CASES), ids=str)
+def test_matches_the_jax_lowering(case):
+    check_jax(case)

@@ -129,19 +129,16 @@ def _nullcontext():
 def test_dropout_translate_program_matches_jax(is_test):
     """dropout_rate > 0: the embedding and FFN dropouts as the JAX
     package builds them (an inference Program, and a training Program
-    without the optimizer: attention-weight dropout stays out of the
-    flash op either way)."""
-    if not is_test:
-        with pytest.raises(NotImplementedError, match="A3"):
-            _translate(tfluid, tfw, ttr, dropout_rate=0.1, optimize=False)
-        return
-    jm, js, _ = _translate(jfluid, jfw, jtr, 0.1, True, optimize=False)
-    tm, ts, _ = _translate(tfluid, tfw, ttr, 0.1, True, optimize=False)
+    without the optimizer); in training the attentions take the
+    composed path, whose dropout draws over the attention weights (the
+    encoder's, the decoder's and the cross attentions: 3 a layer)."""
+    jm, js, _ = _translate(jfluid, jfw, jtr, 0.1, is_test, optimize=False)
+    tm, ts, _ = _translate(tfluid, tfw, ttr, 0.1, is_test, optimize=False)
     _assert_same_program(jm, tm)
     _assert_same_program(js, ts)
     drops = [op for op in tm.global_block().ops if op.type == "dropout"]
-    assert len(drops) == 2 + 2 * L and all(op.attrs["is_test"]
-                                           for op in drops)
+    assert len(drops) == 2 + 2 * L + (0 if is_test else 3 * L)
+    assert all(op.attrs["is_test"] == is_test for op in drops)
 
 
 def test_lm_with_dropout_layers_matches_jax():

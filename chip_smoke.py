@@ -66,6 +66,11 @@ Phases, one JSON line each:
            max(1, max|CPU|), ints and bools exactly; matmul and cast
            again in bf16 under amp within one bf16 ulp; the drawn
            uniform_random_batch_size_like by distribution;
+  optimizers  each of the 12 optimizer update ops at one CTR table's
+           shape [38462, 10], float32 and bf16 storage, with a dense and
+           a Zipf-duplicated SelectedRows gradient (2048 rows): the card
+           against the CPU within 1e-6 of max(1, max |CPU value|), two
+           card calls bit for bit, and each call's time;
   train_fp32  the same LM and steps in float32 (amp off);
   lm_dropout  the train phase's LM under amp with dropout_rate 0.1, the
            attention weights' included (the composed transpose, matmul,
@@ -158,7 +163,20 @@ Phases, one JSON line each:
            the default mode (segmented around the dropouts, one graph for
            smallnet) against the interpreter bit for bit, images/s, model
            FLOPs against the bf16 peak, device time by group, segments,
-           graphs and peak memory.
+           graphs and peak memory;
+  ctr      DeepFM and wide&deep (models/ctr.py, every slot an
+           is_sparse embedding: SelectedRows gradients) at the DeepFM
+           paper's Criteo setting (26 categorical slots of 38,462 rows,
+           13 dense features, embed_dim 10, hidden 400-400-400, Adam
+           1e-3, float32, batch 2048, Zipf ids): the default mode (one
+           CUDA graph a step) against the interpreter bit for bit, the
+           dense-gradient Program bit for bit, 3 steps on the CPU within
+           1e-5 (losses, Adam's moments; the parameters when no ReLU of
+           the MLP flipped between the two, with the flips counted),
+           one sparse SGD step twice bit for bit (untouched rows
+           unchanged), the loss falling; ms a step, examples/s, idle
+           share, device time by group, peak memory, capture seconds and
+           the interpreted step.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -168,10 +186,12 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step.  The image phases run no kernel of
-the port's own: convolution, pooling, batch norm, lrn and concat are
-cuDNN or plain PyTorch calls there, as they are XLA ops in the JAX
-package.
+profiler's count in a replayed step.  The image, optimizers and ctr
+phases run no kernel of the port's own: convolution, pooling, batch
+norm, lrn and concat are cuDNN or plain PyTorch calls there, and the
+SelectedRows gradients are made dense, and sparse SGD scatters, by
+sorted segment sums in plain PyTorch, as all of these are XLA ops in
+the JAX package.
 Any failed check raises, and the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}.  With no CUDA device,
 or without the package beside it, it exits non-zero and prints no
@@ -275,6 +295,37 @@ I_BATCH = 128
 # several chunks of the keyed draw)
 DROPOUT_CASES = (("alexnet_fc", (128, 4096), 0.5, torch.bfloat16),
                  ("vgg_conv", (128, 64, 32, 32), 0.3, torch.float32))
+
+# the CTR configuration: the DeepFM paper's Criteo setting (Guo et al.,
+# IJCAI 2017, sec. 3.1): 26 categorical and 13 dense fields, embed_dim
+# 10, hidden sizes (400, 400, 400), Adam 1e-3, float32; 38,462 rows a
+# slot (1.0 M rows, the order of Criteo's hashed vocabulary), batch 2048;
+# the paper's dropout 0.5 is not in models/ctr.py, so none.  Ids are
+# drawn Zipf-like (a = 1.1, modulo the rows), so a batch repeats ids as
+# click logs do; labels follow tests/test_ctr.py's interaction rule
+X_MODELS = ("deepfm", "wide_deep")
+X_SLOTS, X_DENSE, X_ROWS, X_EMBED = 26, 13, 38462, 10
+X_HIDDEN, X_BATCH, X_LR, X_ZIPF = (400, 400, 400), 2048, 1e-3, 1.1
+# card against CPU over the first X_CPU_STEPS steps: losses, and every
+# state that is not a parameter (Adam's moments, the beta powers), within
+# X_CPU_RTOL of max(1, |CPU value|) (relative for losses).  The
+# parameters are held so too when no ReLU of the MLP took the other side
+# of zero on the card: cuBLAS and the CPU sum the fc products in other
+# orders, a pre-activation within rounding of 0 can flip its mask, and
+# that example's gradient then changes by a few percent; Adam divides
+# each element's step by its own running RMS, so such an element moves
+# by up to the learning rate (1e-3) whatever the size of the change,
+# and no limit below the learning rate holds a parameter then
+X_CPU_STEPS, X_CPU_RTOL = 3, 1e-5
+# the optimizers phase: each update op at one CTR table's shape, card
+# against CPU within OPT_RTOL of max(1, max |CPU value|)
+OPT_RTOL = 1e-6
+OPT_ATTRS = {"proximal_gd": {"l1": 0.05, "l2": 0.1},
+             "proximal_adagrad": {"l1": 0.05, "l2": 0.1},
+             "ftrl": {"l1": 0.05, "l2": 0.1},
+             "average_accumulates": {"average_window": 0.5,
+                                     "min_average_window": 2,
+                                     "max_average_window": 4}}
 
 
 class CheckFailed(RuntimeError):
@@ -883,7 +934,9 @@ def _kernel_group(name):
     Hopper bf16 GEMMs `nvjet_*` or `sm90_xmma_*` beside the
     `*gemm*`/`cutlass` names of its float32 ones; cuDNN names its
     convolutions' implicit GEMMs by pass (`fprop`, `dgrad`, `wgrad`) and
-    its layout changes `nchwToNhwc`/`nhwcToNchw`."""
+    its layout changes `nchwToNhwc`/`nhwcToNchw`.  `sort_segment` is the
+    ordered accumulation of embedding gradients (`sorted_segment_sum`:
+    cub's radix sort and segment_reduce)."""
     low = name.lower()
     for pat, group in _CONV_GROUPS:
         if pat in low:
@@ -904,6 +957,8 @@ def _kernel_group(name):
         return "fused_update"
     if "memcpy" in low or "memset" in low:
         return "copy"
+    if "radix" in low or "segment_reduce" in low:
+        return "sort_segment"
     return "other"
 
 
@@ -3420,6 +3475,433 @@ def lm_dropout_phase(card, place, dev, flash_cases):
     return seg
 
 
+# -- optimizers and ctr phases ------------------------------------------------
+
+def _zipf_rows(rng, n):
+    """`n` ids in [0, X_ROWS), Zipf-like (a = X_ZIPF): id 1 about a tenth
+    of them, a long tail of ids seen once."""
+    return (rng.zipf(X_ZIPF, n) % X_ROWS).astype(np.int64)
+
+
+def _opt_inputs(op, grad, dtype, rng):
+    """{slot: [value]} on the CPU for update op `op` at one CTR table's
+    shape [X_ROWS, X_EMBED]: the parameter and a dense gradient N(0, 1),
+    or a SelectedRows of X_BATCH Zipf rows; every other float state
+    U(0.5, 1.5) (positive: a valid second moment, and a valid first one);
+    all stored in `dtype` but the learning rate 0.05 and the beta powers
+    (float32, as the optimizers keep them); average_accumulates' sums
+    float32 and its counters int32 (ModelAverage's)."""
+    from paddle_tpu_torch.core.lod import SelectedRows
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    shape = (X_ROWS, X_EMBED)
+    out = {}
+    for slot in get_op_info(op).inputs:
+        if slot == "LearningRate":
+            v = torch.tensor([0.05])
+        elif slot in ("Beta1Pow", "Beta2Pow"):
+            v = torch.tensor([(0.9 if slot == "Beta1Pow" else 0.999) ** 3])
+        elif slot.startswith("InNum") or slot == "InOldNumAccumulates":
+            v = torch.tensor([{"InNumAccumulates": 3, "InNumUpdates": 5}
+                              .get(slot, 2)], dtype=torch.int32)
+        elif slot == "Grad" and grad == "sparse":
+            v = SelectedRows(torch.from_numpy(_zipf_rows(rng, X_BATCH)),
+                             torch.from_numpy(rng.standard_normal(
+                                 (X_BATCH, X_EMBED)).astype(np.float32))
+                             .to(dtype), X_ROWS)
+        elif slot in ("Param", "Grad"):
+            v = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dtype)
+        else:
+            v = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(
+                np.float32))
+            if not slot.startswith("InSum"):
+                v = v.to(dtype)
+        out[slot] = [v]
+    return out
+
+
+def _to_dev(v, dev):
+    from paddle_tpu_torch.core.lod import SelectedRows
+
+    if isinstance(v, SelectedRows):
+        return v.map(lambda t: t.to(dev))
+    return v.to(dev)
+
+
+def optimizers_phase(card, dev):
+    """Each of the 12 update ops (ops/optimizer_ops.py) at one CTR
+    table's shape [38462, 10], float32 and bf16 storage, with a dense and
+    a Zipf-duplicated SelectedRows gradient (2048 rows; average_
+    accumulates takes none): the card against the CPU from the same
+    seeded inputs within OPT_RTOL of max(1, max |CPU value|), two card
+    calls bit-equal (no atomics: the SelectedRows are made dense, and
+    sgd's scatter done, by sorted segment sums), every output stored in
+    its input's dtype; and each call's time between CUDA events."""
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.ops.optimizer_ops import UPDATE_OPS
+
+    import zlib
+
+    phase, t0 = "optimizers", time.perf_counter()
+    cases, worst = {}, {"err": 0.0}
+    for op in UPDATE_OPS:
+        info = get_op_info(op)
+        attrs = {**info.attrs, **OPT_ATTRS.get(op, {})}
+        grads = ("dense",) if op == "average_accumulates" else ("dense",
+                                                                "sparse")
+        for grad in grads:
+            for dtype in (torch.float32, torch.bfloat16):
+                name = f"{op}/{grad}/{str(dtype)[6:]}"
+                rng = np.random.RandomState(zlib.crc32(name.encode()))
+                ins = _opt_inputs(op, grad, dtype, rng)
+                dins = {s: [_to_dev(v, dev) for v in vs]
+                        for s, vs in ins.items()}
+                cpu = info.lower(ExecContext("cpu"), ins, attrs)
+                first = info.lower(ExecContext(dev), dins, attrs)
+                again = info.lower(ExecContext(dev), dins, attrs)
+                errs = {}
+                for slot, want in cpu.items():
+                    src = ins[info.inplace[slot]][0]
+                    got = first[slot]
+                    check(got.dtype == want.dtype == src.dtype,
+                          f"{phase}: {name} {slot} is {got.dtype}, stored "
+                          f"{src.dtype}")
+                    check(torch.equal(got, again[slot]), f"{phase}: {name} "
+                          f"{slot} differs between two card calls")
+                    m = max(1.0, float(want.double().abs().max()))
+                    errs[slot] = float((got.cpu().double() - want.double())
+                                       .abs().max()) / m
+                    check(errs[slot] <= OPT_RTOL, f"{phase}: {name} {slot} "
+                          f"is {errs[slot]} of max(1, |CPU|) off the CPU "
+                          f"(limit {OPT_RTOL})")
+                    if errs[slot] > worst["err"]:
+                        worst = {"err": errs[slot], "case": name,
+                                 "slot": slot}
+                call = lambda: info.lower(  # noqa: E731
+                    ExecContext(dev), dins, attrs)
+                for _ in range(2):
+                    call()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(10):
+                    call()
+                b.record()
+                torch.cuda.synchronize()
+                case = {"max_rel_err": errs, "ms": a.elapsed_time(b) / 10}
+                if grad == "sparse":
+                    rows = ins["Grad"][0].rows
+                    case["rows"] = int(rows.numel())
+                    case["unique_rows"] = int(torch.unique(rows).numel())
+                cases[name] = case
+    emit({"phase": phase, "card": card, "ops": list(UPDATE_OPS),
+          "shape": [X_ROWS, X_EMBED], "sparse_rows": X_BATCH,
+          "zipf_a": X_ZIPF, "cases": cases, "worst": worst,
+          "limit": OPT_RTOL, "repeat_bit_equal": True,
+          "seconds": time.perf_counter() - t0,
+          "timing": "CUDA events around 10 back-to-back calls of the "
+                    "op's lowering (the f32 wrapper included) after 2 "
+                    "warm-up calls, warm L2; ms is a call's share"})
+
+
+def _ctr_program(model, is_sparse, optimizer):
+    """models/ctr.py's `model` at the CTR configuration, its loss the
+    mean of sigmoid_cross_entropy_with_logits (tests/test_ctr.py:39-40),
+    minimized by `optimizer(fluid)` -> (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models import ctr
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        slots = [fluid.layers.data(name=f"slot{i}", shape=[1],
+                                   dtype="int64") for i in range(X_SLOTS)]
+        dense = fluid.layers.data(name="dense", shape=[X_DENSE],
+                                  dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="float32")
+        _, logit = getattr(ctr, model)(
+            slots, [X_ROWS] * X_SLOTS, dense_input=dense,
+            embed_dim=X_EMBED, hidden_sizes=X_HIDDEN, is_sparse=is_sparse)
+        loss = fluid.layers.mean(
+            fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        optimizer(fluid).minimize(loss)
+    return main, startup, loss
+
+
+def _ctr_feeds(n):
+    """`n` seeded batches (host tensors): Zipf ids a slot, U(0, 1) dense
+    features, clicks by tests/test_ctr.py's rule (slot 0 and slot 1 of
+    one parity, and the first dense feature above 0.5)."""
+    rng = np.random.RandomState(SEED)
+    feeds = []
+    for _ in range(n):
+        ids = [_zipf_rows(rng, X_BATCH).reshape(-1, 1)
+               for _ in range(X_SLOTS)]
+        dense = rng.rand(X_BATCH, X_DENSE).astype(np.float32)
+        p = 0.15 + 0.6 * ((ids[0] % 2) == (ids[1] % 2)) + 0.2 * (
+            dense[:, :1] > 0.5)
+        label = (rng.rand(X_BATCH, 1) < p).astype(np.float32)
+        feed = {f"slot{i}": torch.from_numpy(v) for i, v in enumerate(ids)}
+        feed["dense"] = torch.from_numpy(dense)
+        feed["label"] = torch.from_numpy(label)
+        feeds.append(feed)
+    return feeds
+
+
+def _states_rel_diff(got, want):
+    """{name: max |got - want| / max(1, max |want|)} over float states."""
+    return {n: float((got[n].double() - want[n].double()).abs().max())
+            / max(1.0, float(want[n].double().abs().max()))
+            for n in want if want[n].is_floating_point()}
+
+
+def ctr_phase(card, place):
+    """DeepFM and wide&deep (models/ctr.py, every slot an is_sparse
+    embedding) at the CTR configuration.  Each model: G_STEPS Adam steps
+    in the Executor's default mode (one compiled block, captured into a
+    CUDA graph at the first hit and replayed after; a profiled replay),
+    then the same steps interpreted from the same state (bit for bit
+    the replay's losses and states), then the is_sparse=False Program in
+    the default mode (bit for bit the sparse one's), then X_CPU_STEPS
+    steps on the CPU against the card (losses and Adam's states within
+    X_CPU_RTOL, the parameters too unless a ReLU flipped: see
+    X_CPU_RTOL), then one sparse SGD step twice from the same state
+    (bit-equal; a table row no id names unchanged)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    adam = lambda f: f.Adam(learning_rate=X_LR)  # noqa: E731
+    sgd = lambda f: f.SGD(learning_rate=0.1)  # noqa: E731
+    feeds = _ctr_feeds(G_STEPS + 1)
+    unique = [int(np.unique(f["slot0"].numpy()).size) for f in feeds]
+    for model in X_MODELS:
+        phase = f"ctr_{model}"
+        t_phase = time.perf_counter()
+        main, startup, loss = _ctr_program(model, True, adam)
+        blk = main.global_block()
+        types = [op.type for op in blk.ops]
+        grads = [op for op in blk.ops if op.type == "lookup_table_grad"]
+        check(len(grads) == 2 * X_SLOTS
+              and all(op.attrs["is_sparse"] for op in grads),
+              f"{phase}: {len(grads)} embedding gradients, want "
+              f"{2 * X_SLOTS} sparse")
+        persist = _persistables(main)
+        tables = sorted({op.input("W")[0] for op in grads})
+        prev_scope = executor_mod.switch_scope(Scope())
+        exe = None
+        try:
+            scope = fluid.global_scope()
+            exe = fluid.Executor(place, seed=SEED)
+            t0 = time.perf_counter()
+            exe.run(startup)
+            torch.cuda.synchronize()
+            startup_s = time.perf_counter() - t0
+            init = {n: scope.find_var(n).clone() for n in persist}
+
+            def restore():
+                for n in persist:
+                    scope.set_var(n, init[n].clone())
+
+            snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
+                                for n in persist}
+            _reset_peak()
+            run = lambda step: exe.run(  # noqa: E731
+                main, feed=feeds[step], fetch_list=[loss])[0]
+            k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
+                exe, run, {}, {}, {}, ("matmul", "sort_segment"), phase,
+                snapshot)
+            exe.close()
+
+            # the interpreter from the same state and feeds
+            exe = fluid.Executor(place, seed=SEED)
+            restore()
+            run_i = lambda step: exe.run(  # noqa: E731
+                main, feed=feeds[step], fetch_list=[loss],
+                compiled=False)[0]
+            i_loss, i_secs, _ = _timed_steps(run_i, {}, G_STEPS)
+            _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
+            i_profile = _profile_step(lambda: run_i(G_STEPS), ("matmul",),
+                                      phase)
+            exe.close()
+
+            # the dense gradient, default mode, from the same state
+            d_main, _, d_lossv = _ctr_program(model, False, adam)
+            check(sorted(_persistables(d_main)) == sorted(persist),
+                  f"{phase}: the is_sparse=False Program has other states")
+            exe = fluid.Executor(place, seed=SEED)
+            restore()
+            d_loss = [float(exe.run(d_main, feed=feeds[s],
+                                    fetch_list=[d_lossv])[0][0])
+                      for s in range(G_STEPS)]
+            check(d_loss == k_loss, f"{phase}: is_sparse=False losses "
+                  f"{d_loss} differ from is_sparse=True's {k_loss}")
+            diff = [n for n in persist
+                    if not torch.equal(scope.find_var(n), k_state[n])]
+            check(not diff, f"{phase}: is_sparse=False and True states "
+                  f"differ after {G_STEPS} steps: {diff[:5]}")
+            del k_state
+            exe.close()
+
+            # the card against the CPU, at this width, with the MLP's
+            # ReLU outputs
+            relus = [op.output("Out")[0] for op in blk.ops
+                     if op.type == "relu"]
+            exe = fluid.Executor(place, seed=SEED)
+            restore()
+            c_out = [exe.run(main, feed=feeds[s], fetch_list=[loss] + relus,
+                             compiled=False) for s in range(X_CPU_STEPS)]
+            c_loss = [float(o[0][0]) for o in c_out]
+            card_state = {n: scope.find_var(n).cpu() for n in persist}
+            exe.close()
+            executor_mod.switch_scope(Scope())
+            cpu_scope = fluid.global_scope()
+            for n in persist:
+                cpu_scope.set_var(n, init[n].cpu())
+            cpu = fluid.Executor(fluid.CPUPlace(), seed=SEED)
+            t0 = time.perf_counter()
+            cpu_out = [cpu.run(main, feed=feeds[s],
+                               fetch_list=[loss] + relus)
+                       for s in range(X_CPU_STEPS)]
+            cpu_s = time.perf_counter() - t0
+            cpu_loss = [float(o[0][0]) for o in cpu_out]
+            cpu_state = {n: cpu_scope.find_var(n) for n in persist}
+            flips = [int(sum(((a > 0) != (b > 0)).sum()
+                             for a, b in zip(c[1:], h[1:])))
+                     for c, h in zip(c_out, cpu_out)]
+            loss_rel = [abs(a - b) / abs(b) for a, b in zip(c_loss,
+                                                           cpu_loss)]
+            check(c_loss == k_loss[:X_CPU_STEPS],
+                  f"{phase}: the interpreter's first losses {c_loss} are "
+                  f"not the replay's {k_loss[:X_CPU_STEPS]}")
+            check(max(loss_rel) <= X_CPU_RTOL, f"{phase}: card losses "
+                  f"{c_loss} against the CPU's {cpu_loss}")
+            rel = _states_rel_diff(card_state, cpu_state)
+            param_names = {p.name for p in blk.all_parameters()}
+            held = [n for n in rel if n not in param_names or not
+                    any(flips)]
+            worst = max(held, key=rel.get)
+            top = sorted(held, key=rel.get, reverse=True)[:5]
+            check(rel[worst] <= X_CPU_RTOL, f"{phase}: states differ by "
+                  f"more than {X_CPU_RTOL} of max(1, |CPU|) between the "
+                  f"card and the CPU ({sum(flips)} ReLU flips): "
+                  f"{[(n, rel[n]) for n in top]}")
+            p_worst = max(param_names, key=rel.get)
+            beyond = sum(int(((card_state[n].double() - cpu_state[n]
+                               .double()).abs() > X_CPU_RTOL * max(
+                                   1.0, float(cpu_state[n].abs().max())))
+                              .sum()) for n in param_names)
+            del card_state, cpu_state
+            executor_mod.switch_scope(scope)
+
+            # one sparse SGD step, twice from the same state: the
+            # parameters the Adam run started from, the SGD startup's
+            # learning rate
+            s_main, s_startup, s_loss = _ctr_program(model, True, sgd)
+            s_blk = s_main.global_block()
+            s_params = {p.name for p in s_blk.all_parameters()}
+            s_persist = _persistables(s_main)
+            s_tables = sorted({op.input("Param")[0] for op in s_blk.ops
+                               if op.type == "sgd"} & set(tables))
+            exe = fluid.Executor(place, seed=SEED)
+            exe.run(s_startup)
+            s_init = {n: (init[n] if n in s_params else scope.find_var(n))
+                      .clone() for n in s_persist}
+            after = []
+            for _ in range(2):
+                for n in s_persist:
+                    scope.set_var(n, s_init[n].clone())
+                exe.run(s_main, feed=feeds[0], fetch_list=[s_loss],
+                        compiled=False)
+                after.append({n: scope.find_var(n).clone()
+                              for n in s_persist})
+            diff = [n for n in after[0]
+                    if not torch.equal(after[0][n], after[1][n])]
+            check(not diff, f"{phase}: one sparse SGD step from the same "
+                  f"state gave other bits twice: {diff[:5]}")
+            slot_of = {op.input("W")[0]: op.input("Ids")[0] for op in grads}
+            moved = 0
+            for t in s_tables:
+                ids = np.unique(feeds[0][slot_of[t]].numpy())
+                keep = torch.ones(X_ROWS, dtype=torch.bool)
+                keep[torch.from_numpy(ids)] = False
+                keep = keep.to(init[t].device)
+                check(torch.equal(after[0][t][keep], init[t][keep]),
+                      f"{phase}: sparse SGD moved a row of {t} no id names")
+                check(not torch.equal(after[0][t][~keep], init[t][~keep]),
+                      f"{phase}: sparse SGD moved no row of {t}")
+                moved += int(ids.size)
+            exe.close()
+        finally:
+            executor_mod.switch_scope(prev_scope)
+            if exe is not None:
+                exe.close()
+            del exe
+            torch.cuda.empty_cache()
+
+        check(all(np.isfinite(k_loss)) and k_loss[-1] < k_loss[0],
+              f"{phase}: the loss does not fall: {k_loss}")
+        step_s = float(np.median(k_secs[2:]))       # the replays
+        i_step_s = float(np.median(i_secs[1:]))
+        params = blk.all_parameters()
+        emit({"phase": phase, "card": card, "model": model,
+              "source": "Guo et al., DeepFM, IJCAI 2017, sec. 3.1 (Criteo: "
+                        "26 categorical + 13 dense fields, embed_dim 10, "
+                        "hidden 400-400-400, Adam 1e-3); models/ctr.py",
+              "slots": X_SLOTS, "dense": X_DENSE, "rows_per_slot": X_ROWS,
+              "embed_dim": X_EMBED, "hidden": list(X_HIDDEN),
+              "batch": X_BATCH, "optimizer": f"adam {X_LR}",
+              "ids": f"zipf(a={X_ZIPF}) % rows",
+              "slot0_unique_ids_per_batch": unique,
+              "reduced": "no dropout (the paper's 0.5 is not in "
+                         "models/ctr.py)",
+              "ops": len(types), "sparse_grads": len(grads),
+              "params": sum(int(np.prod(p.shape)) for p in params),
+              "embedding_params": sum(int(np.prod(p.shape)) for p in params
+                                      if p.name in tables),
+              "startup_s": startup_s, "steps": G_STEPS,
+              "default_mode": {"losses": k_loss, "step_s": k_secs,
+                               **graph},
+              "interpreter": {"losses": i_loss, "step_s": i_secs,
+                              "bit_equal_to_replay": True},
+              "dense_grad_bit_equal": True,
+              "card_vs_cpu": {"steps": X_CPU_STEPS, "card": c_loss,
+                              "cpu": cpu_loss, "loss_rel_diff": loss_rel,
+                              "relu_flips_per_step": flips,
+                              "relu_outputs": len(relus),
+                              "held_state_max_rel_diff": rel[worst],
+                              "held_state_argmax": worst,
+                              "held": "every state" if not any(flips)
+                              else "every state but the parameters",
+                              "param_max_rel_diff": rel[p_worst],
+                              "param_argmax": p_worst,
+                              "param_elements_beyond_limit": beyond,
+                              "limit": X_CPU_RTOL, "cpu_s": cpu_s},
+              "sparse_sgd": {"repeat_bit_equal": True,
+                             "tables": len(s_tables),
+                             "rows_moved": moved},
+              "ms_per_step": step_s * 1e3,
+              "examples_per_s": X_BATCH / step_s,
+              **_interpreter_record(i_secs, i_profile),
+              "interpreted_examples_per_s": X_BATCH / i_step_s,
+              "profiled_step": profile,
+              "device_ms_by_group": profile["by_group_ms"],
+              "device_idle_share": 1.0 - profile["device_ms"]
+              / (step_s * 1e3),
+              "peak_memory_bytes": graph["peak_memory_bytes"],
+              "peak_reserved_bytes": graph["peak_reserved_bytes"],
+              "capture_s": graph["capture_s"],
+              "seconds": time.perf_counter() - t_phase,
+              "timing": "host clock around exe.run + synchronize; "
+                        "ms_per_step the median of the replayed steps "
+                        "(3..N), the interpreter's of steps 2..N; device "
+                        "time by group from one profiled step; idle share "
+                        "1 - its device time / the median step"})
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -3470,6 +3952,7 @@ def main():
     flash_cases = flash_phase(dev, bw, peaks)
     grads_flash, _ = grads_phase(dev)
     ops_phase(card, dev)
+    optimizers_phase(card, dev)
     from paddle_tpu_torch import CUDAPlace
 
     # the main path runs bf16 amp, the reference cells' mode
@@ -3491,6 +3974,7 @@ def main():
     vgg_segmented_phase(card, CUDAPlace(0))
     dropout_rows_phase(card, dev)
     image_models_phase(card, CUDAPlace(0), peaks)
+    ctr_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",

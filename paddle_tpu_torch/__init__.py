@@ -19,7 +19,11 @@ MoE FFN op, with gate and dispatch in a CUDA kernel; bf16 mixed
 precision (`fluid.amp`), with explicit gradients for `mul` and
 `flash_attention`; conv-net training — conv2d, pool2d, batch_norm,
 dropout and accuracy, the ResNet and VGG builders (models/), with
-explicit conv2d and batch_norm gradients.
+explicit conv2d and batch_norm gradients; the dense op corpus; sparse
+CTR training — the SelectedRows gradient of `embedding(is_sparse=True)`
+(core/lod.py), every optimizer of the JAX package with ModelAverage,
+the learning-rate decay schedules, and the wide&deep and DeepFM
+builders (models/ctr.py).
 """
 from . import (  # noqa: F401
     amp,
@@ -28,6 +32,7 @@ from . import (  # noqa: F401
     initializer,
     kernels,
     layers,
+    learning_rate_decay,
     models,
     nets,
     observability,
@@ -48,6 +53,7 @@ from .core import (  # noqa: F401
 )
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
+from .core.lod import SelectedRows, Tensor  # noqa: F401
 from .core.scope import Scope  # noqa: F401
 from .parallel.executor import (  # noqa: F401
     DistributeTranspiler,
@@ -57,10 +63,23 @@ from .parallel.executor import (  # noqa: F401
 )
 from .optimizer import (  # noqa: F401
     SGD,
+    Adadelta,
+    AdadeltaOptimizer,
+    Adagrad,
+    AdagradOptimizer,
     Adam,
+    Adamax,
+    AdamaxOptimizer,
     AdamOptimizer,
+    DecayedAdagrad,
+    DecayedAdagradOptimizer,
+    Ftrl,
+    FtrlOptimizer,
+    ModelAverage,
     Momentum,
     MomentumOptimizer,
+    RMSProp,
+    RMSPropOptimizer,
     SGDOptimizer,
 )
 from .param_attr import ParamAttr  # noqa: F401

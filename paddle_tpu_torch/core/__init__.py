@@ -12,6 +12,7 @@ from .framework import (  # noqa: F401
     default_startup_program,
     program_guard,
 )
+from .lod import SelectedRows, Tensor  # noqa: F401
 from .resilience import (  # noqa: F401
     FaultInjector,
     RetryError,

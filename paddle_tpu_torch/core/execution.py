@@ -23,6 +23,7 @@ import torch
 
 from . import registry
 from .framework import EMPTY_VAR_NAMES as _EMPTY
+from .lod import SelectedRows
 
 GRAD = "@GRAD"
 
@@ -173,6 +174,26 @@ def _op_rng_tag(op, info) -> str:
     return f"{op.type}:{tuple(op.output_names())}"
 
 
+def _dense_only(fn, op):
+    """`fn` behind a check that no input is a SelectedRows: a lowering
+    that cannot take one raises naming the op and the value, where the
+    JAX package's raises from inside jax.numpy.  Nothing is made dense
+    behind the caller's back."""
+
+    def run(ctx, ins, attrs):
+        for slot, vals in ins.items():
+            for i, v in enumerate(vals):
+                if isinstance(v, SelectedRows):
+                    raise TypeError(
+                        f"op {op.type!r} cannot take the SelectedRows "
+                        f"{op.inputs[slot][i]!r} (input {slot}): only sum, "
+                        "the optimizer updates and split_selected_rows "
+                        "take a sparse gradient")
+        return fn(ctx, ins, attrs)
+
+    return run
+
+
 def resolve_op(op):
     """-> (the callable that runs `op` as fn(ctx, ins, attrs), its merged
     attrs, its random-stream tag hash)."""
@@ -186,6 +207,8 @@ def resolve_op(op):
         fn = info.grad_lower
     else:  # generic "<fwd>_grad" resolved to the forward info
         fn = functools.partial(generic_grad_lower, fwd_info=info)
+    if not (info.sparse and info.type == op.type):
+        fn = _dense_only(fn, op)
     return (fn, {**info.attrs, **op.attrs},
             zlib.crc32(_op_rng_tag(op, info).encode()))
 
@@ -205,6 +228,8 @@ def run_op(ctx: ExecContext, op, env):
 
 
 def _is_float_slot(vals) -> bool:
+    """Whether a slot's values are all float tensors: a SelectedRows
+    (int rows) never is, so it never becomes an autograd leaf."""
     leaves = [v for v in vals if v is not None]
     return bool(leaves) and all(
         isinstance(v, torch.Tensor) and v.is_floating_point()
@@ -278,6 +303,12 @@ def one(ins, slot):
 
 def many(ins, slot) -> List:
     return list(ins.get(slot) or [])
+
+
+def dense_of(v):
+    """A dense value: a SelectedRows made dense, anything else as it is
+    (the JAX package's `_dense_grad`)."""
+    return v.to_dense() if isinstance(v, SelectedRows) else v
 
 
 def scalar_like(x, v):

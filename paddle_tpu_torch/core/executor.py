@@ -46,6 +46,7 @@ from .execution import (DictEnv, ExecContext, ScopeEnv, _mix,
 from .flags import get_flag
 from .framework import EMPTY_VAR_NAMES as _EMPTY
 from .framework import Program, Variable, default_main_program
+from .lod import SelectedRows
 from .scope import Scope, tensor_from_numpy
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_place", "Executor",
@@ -170,6 +171,10 @@ def _to_device_value(v, device):
 
 
 def _to_numpy(v):
+    """A fetched value on the host: a tensor as a numpy array, a
+    SelectedRows as one with numpy rows and values."""
+    if isinstance(v, SelectedRows):
+        return v.map(_to_numpy)
     if isinstance(v, torch.Tensor):
         if v.dtype == torch.bfloat16:
             v = v.float()
@@ -178,10 +183,23 @@ def _to_numpy(v):
 
 
 def _aval(v):
-    """The part of a value a cache key holds: shape and dtype."""
+    """The part of a value a cache key holds: shape and dtype (a
+    SelectedRows': its rows' and values' shapes and its height)."""
     if isinstance(v, torch.Tensor):
         return tuple(v.shape), v.dtype
+    if isinstance(v, SelectedRows):
+        return ("SelectedRows", tuple(v.rows.shape), tuple(v.value.shape),
+                v.value.dtype, v.height)
     return (type(v).__name__,)
+
+
+def _tensors(v):
+    """The tensors a value holds: itself, or a SelectedRows' two."""
+    if isinstance(v, torch.Tensor):
+        return (v,)
+    if isinstance(v, SelectedRows):
+        return (v.rows, v.value)
+    return ()
 
 
 def _run_flags():
@@ -190,6 +208,14 @@ def _run_flags():
     conv_layout the convolutions' memory format."""
     return (get_flag("amp_bf16"), get_flag("serving_kernels"),
             get_flag("conv_layout"))
+
+
+def _clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, SelectedRows):
+        return v.map(torch.clone)
+    return v
 
 
 def _owns_storage(t) -> bool:
@@ -253,8 +279,7 @@ class _Plan:
         return after
 
     def _write_through(self, env, pairs, live):
-        held = {_ptr(env[m]) for m in live
-                if isinstance(env.get(m), torch.Tensor)}
+        held = {_ptr(t) for m in live for t in _tensors(env.get(m))}
         for n, b in pairs:
             v = env.get(n)
             if not (isinstance(v, torch.Tensor) and v.shape == b.shape
@@ -302,6 +327,9 @@ class _Entry:
         bufs, rebind, seen = {}, {}, set()
         for n, v in vals.items():
             if not isinstance(v, torch.Tensor):
+                # a SelectedRows gradient is made and used inside one
+                # block; one that crosses a host op between segments is
+                # refused here, never run outside the graph instead
                 raise TypeError(f"CUDA graph capture of {where}: input "
                                 f"{n!r} is a {type(v).__name__}, not a "
                                 "tensor")
@@ -347,8 +375,8 @@ class _Entry:
                  and v.shape == bufs[n].shape and v.dtype == bufs[n].dtype]
         ptrs = {_ptr(bufs[n]) for n in names}
         for n, v in outs.items():
-            if isinstance(v, torch.Tensor) and _ptr(v) in ptrs:
-                outs[n] = v.clone()
+            if any(_ptr(t) in ptrs for t in _tensors(v)):
+                outs[n] = _clone(v)
         for n in names:
             bufs[n].copy_(outs[n])
             outs[n] = bufs[n]
@@ -624,11 +652,10 @@ class Executor:
     @staticmethod
     def _copied_out(graphed, values):
         """A graph's outputs are overwritten by its next replay: fetches
-        are cloned out of its pool."""
+        are cloned out of its pool (a SelectedRows' rows and values)."""
         if not graphed:
             return values
-        return [v.clone() if isinstance(v, torch.Tensor) else v
-                for v in values]
+        return [_clone(v) for v in values]
 
     # -- interpreter ---------------------------------------------------------
     def _run_interpreted(self, program, scope, feed, fetch_names, seed):

@@ -17,7 +17,8 @@ the slots it differentiates.
 
 `host` marks an op that must run on the host, eagerly, between the
 compiled Executor's device segments (core/executor.py); `random` an op
-that draws from its context's generator.  `lowering_generation()`
+that draws from its context's generator; `sparse` an op whose lowering
+takes SelectedRows values (core/lod.py).  `lowering_generation()`
 changes whenever any op's `lower` or `grad_lower` is set — by
 `register_op`, `register_grad_lower` or a plain assignment — so the
 Executor's cache never serves a plan (or a CUDA graph) resolved against
@@ -68,6 +69,9 @@ class OpInfo:
     not_differentiable: bool = False
     # True if the op runs on the host (never inside a compiled segment)
     host: bool = False
+    # True if the lowering takes SelectedRows inputs (sum, the optimizer
+    # updates, split_selected_rows); any other op meeting one raises
+    sparse: bool = False
 
     def __setattr__(self, name, value):
         if name in ("lower", "grad_lower"):
@@ -92,6 +96,7 @@ def register_op(
     dup_inputs: Sequence[str] = (),
     dup_outputs: Sequence[str] = (),
     host: bool = False,
+    sparse: bool = False,
 ):
     """Decorator: register `fn` as the torch lowering for op `type`."""
 
@@ -109,6 +114,7 @@ def register_op(
         info.random = random
         info.not_differentiable = not_differentiable
         info.host = host
+        info.sparse = sparse
         _REGISTRY[type] = info
         return fn
 

@@ -1,4 +1,5 @@
 """Model builders on the layers DSL (counterpart of paddle_tpu/models/)."""
+from . import ctr  # noqa: F401
 from .alexnet import alexnet  # noqa: F401
 from .googlenet import googlenet, inception, smallnet_mnist_cifar  # noqa: F401
 from .transformer import (  # noqa: F401

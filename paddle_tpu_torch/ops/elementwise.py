@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from ..amp import is_bf16_enabled
-from ..core.execution import many, one, scalar_like
+from ..core.execution import dense_of, many, one, scalar_like
+from ..core.lod import SelectedRows
 from ..core.registry import register_op
 from .activation import clip as _clip
 
@@ -89,16 +90,23 @@ def clip_by_norm(ctx, ins, attrs):
 
 
 @register_op("sum", inputs=("X",), outputs=("Out",),
-             dup_inputs=("X",))
+             dup_inputs=("X",), sparse=True)
 def sum_op(ctx, ins, attrs):
-    """Fan-in accumulator over dense tensors (the sparse SelectedRows
-    branch of the JAX op is queue A1)."""
+    """Fan-in accumulator, over dense and SelectedRows values as the JAX
+    package's: all sparse in, a SelectedRows out (rows and values
+    concatenated in input order: a shared table's partial gradients);
+    any dense in, the dense sum in input order, each SelectedRows made
+    dense where it stands (a regularized sparse gradient)."""
     xs = [v for v in many(ins, "X") if v is not None]
     if not xs:
         return {"Out": None}
-    acc = xs[0]
+    if all(isinstance(v, SelectedRows) for v in xs):
+        return {"Out": SelectedRows(torch.cat([v.rows for v in xs]),
+                                    torch.cat([v.value for v in xs]),
+                                    xs[0].height)}
+    acc = dense_of(xs[0])
     for v in xs[1:]:
-        acc = acc + v
+        acc = acc + dense_of(v)
     return {"Out": acc}
 
 

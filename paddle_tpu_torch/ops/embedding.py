@@ -1,6 +1,7 @@
-"""Embedding lookup and its dense gradient (counterpart of
-paddle_tpu/ops/embedding.py).  The `is_sparse` gradient needs the
-SelectedRows type (ROADMAP A1) and raises.
+"""Embedding lookup and its gradient (counterpart of
+paddle_tpu/ops/embedding.py): dense, or with `is_sparse` a SelectedRows
+of the looked-up rows (core/lod.py), which the optimizer updates and
+`sum` take.
 
 On a CUDA device the dense gradient is a segment sum with a fixed
 order (`sorted_segment_sum`) instead of `index_add_`, whose CUDA kernel
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core.execution import one
+from ..core.lod import SelectedRows
 from ..core.registry import register_op
 
 
@@ -35,21 +37,22 @@ def lookup_table(ctx, ins, attrs):
 @register_op("lookup_table_grad", inputs=("Ids", "W", "Out@GRAD"),
              outputs=("W@GRAD",))
 def lookup_table_grad(ctx, ins, attrs):
-    """Dense W@GRAD: the output rows scatter-added into a zero table,
+    """W@GRAD.  With `is_sparse`: SelectedRows(the flat ids, the output
+    rows with padding_idx's zeroed, W's height), duplicates kept.
+    Otherwise dense: the output rows scatter-added into a zero table,
     duplicate ids accumulating in the order they occur (index_add_ on
-    the CPU, `sorted_segment_sum` on a card)."""
-    if attrs.get("is_sparse"):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True needs the SelectedRows "
-            "gradient type, which is not ported yet (ROADMAP A1); build "
-            "the embedding with is_sparse=False")
+    the CPU, `sorted_segment_sum` on a card) — the bits the sparse
+    gradient gives when it is made dense."""
     ids = one(ins, "Ids")
     w = one(ins, "W")
     flat = ids.reshape(-1).long()
-    og2 = one(ins, "Out@GRAD").reshape(-1, w.shape[1]).to(w.dtype)
+    og2 = one(ins, "Out@GRAD").reshape(-1, w.shape[1])
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         og2 = torch.where((flat == pad)[:, None], torch.zeros_like(og2), og2)
+    if attrs.get("is_sparse"):
+        return {"W@GRAD": SelectedRows(flat, og2, w.shape[0])}
+    og2 = og2.to(w.dtype)
     if og2.device.type == "cuda":
         return {"W@GRAD": sorted_segment_sum(flat, og2, w.shape[0])}
     return {"W@GRAD": torch.zeros_like(w).index_add_(0, flat, og2)}

@@ -37,7 +37,7 @@ def slice_op(ctx, ins, attrs):
              dup_inputs=("X",), attrs={"axis": 0})
 def concat(ctx, ins, attrs):
     """The inputs joined along `axis` in slot order (the JAX package's
-    LoD branch waits for ROADMAP A1's LoDTensor)."""
+    LoD branch waits for ROADMAP A7's LoDTensor)."""
     return {"Out": torch.cat(many(ins, "X"), dim=int(attrs["axis"]))}
 
 

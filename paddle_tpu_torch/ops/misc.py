@@ -1,11 +1,12 @@
 """Miscellaneous ops: cos_sim, is_empty, print, sign, minus, fill,
-label_smooth, multiplex and pruning_mask (counterpart of
-paddle_tpu/ops/misc.py)."""
+label_smooth, multiplex, split_selected_rows and pruning_mask
+(counterpart of paddle_tpu/ops/misc.py)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.execution import many, one
+from ..core.lod import SelectedRows
 from ..core.registry import register_op
 from ..core.types import canonical_dtype
 from .creation import attr_constant
@@ -117,6 +118,25 @@ def multiplex(ctx, ins, attrs):
     xs = torch.stack(many(ins, "X"))                    # [K, N, ...]
     rows = torch.arange(xs.shape[1], device=xs.device)
     return {"Out": xs[ids, rows]}
+
+
+@register_op("split_selected_rows", inputs=("X",), outputs=("Out",),
+             dup_outputs=("Out",), attrs={"height_sections": []},
+             not_differentiable=True, host=True, sparse=True)
+def split_selected_rows(ctx, ins, attrs):
+    """Route a SelectedRows' rows into one output per section of the
+    height, by row range, each row made relative to its section's start
+    and kept in its input order (split_selected_rows_op.h FindOutIdx):
+    the sparse-gradient sharding step of the pserver transpiler.  A host
+    op: the outputs' sizes depend on the rows' values."""
+    x = one(ins, "X")
+    rows = x.rows.reshape(-1)
+    start, outs = 0, []
+    for h in (int(s) for s in attrs["height_sections"]):
+        keep = (rows >= start) & (rows < start + h)
+        outs.append(SelectedRows(rows[keep] - start, x.value[keep], h))
+        start += h
+    return {"Out": outs}
 
 
 @register_op("pruning_mask", inputs=("Param",), outputs=("Mask",),

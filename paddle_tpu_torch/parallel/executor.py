@@ -48,6 +48,7 @@ from ..core.execution import DictEnv, ExecContext, _mix, run_op
 from ..core.executor import (CUDAPlace, Executor, _to_device_value,
                              _to_numpy, resolve_place)
 from ..core.framework import Variable, default_startup_program
+from ..core.lod import SelectedRows
 from ..core.scope import Scope
 from ..core.types import torch_dtype
 from ..observability import metrics as obs_metrics
@@ -78,7 +79,15 @@ def _plan_flags() -> tuple:
 def _bucket_grad(t, name, dtype):
     """A gradient flattened into its bucket, which holds `dtype` (its
     parameter's): another dtype (a bf16 gradient of an f32 master
-    weight) raises rather than being promoted by the concatenation."""
+    weight) raises rather than being promoted by the concatenation, and
+    a SelectedRows (an is_sparse embedding's) raises as the JAX
+    package's does: sparse tables under data parallelism are A8."""
+    if isinstance(t, SelectedRows):
+        raise TypeError(
+            f"gradient {name!r} is a SelectedRows (an is_sparse "
+            "embedding's): sparse tables under data parallelism are not "
+            "ported yet (ROADMAP A8); build the embedding with "
+            "is_sparse=False")
     if t.dtype != torch_dtype(dtype):
         raise TypeError(f"gradient {name!r} is {t.dtype}, but its bucket "
                         f"holds {dtype} (its parameter's dtype)")

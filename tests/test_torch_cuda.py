@@ -615,6 +615,53 @@ def test_embedding_grad_is_repeatable_on_the_card(dev):
     assert not first[3].any() and not first[64:].any()
 
 
+# -- the SelectedRows gradient -----------------------------------------------
+
+@pytest.mark.parametrize("op", ["sgd", "adam"])
+def test_sparse_update_is_repeatable_on_the_card(dev, op):
+    """A SelectedRows of 4096 rows drawn from 64 ids into a [1000, 16]
+    table: the update gives the same bits on two calls; the densify
+    (SelectedRows.to_dense) and sgd's scatter give the CPU's bits
+    (ordered segment sums, no atomics), adam's arithmetic is within
+    1e-6 * max(1, max|CPU|) of the CPU's (its sqrt and division differ
+    by an ulp); sgd leaves the rows no id names untouched."""
+    from paddle_tpu_torch.core.lod import SelectedRows
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    gen = torch.Generator().manual_seed(1)
+    rows, d = 1000, 16
+    ids = torch.randint(0, 64, (4096,), generator=gen)
+    value = torch.randn((4096, d), generator=gen)
+    p = torch.randn((rows, d), generator=gen)
+    info = get_op_info(op)
+    state = {"Moment1": torch.zeros(rows, d), "Moment2": torch.zeros(rows, d),
+             "Beta1Pow": torch.tensor([0.9]),
+             "Beta2Pow": torch.tensor([0.999])}
+
+    def run(device):
+        ins = {"Param": [p.to(device)],
+               "Grad": [SelectedRows(ids.to(device), value.to(device),
+                                     rows)],
+               "LearningRate": [torch.tensor([0.1], device=device)]}
+        if op == "adam":
+            ins.update({k: [v.to(device)] for k, v in state.items()})
+        return info.lower(None, ins, dict(info.attrs))["ParamOut"]
+
+    first, second = run(dev), run(dev)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    grad = SelectedRows(ids, value, rows)
+    assert torch.equal(grad.map(lambda t: t.to(dev)).to_dense().cpu(),
+                       grad.to_dense())
+    cpu = run("cpu")
+    if op == "sgd":
+        assert torch.equal(first.cpu(), cpu)
+        assert torch.equal(first[64:].cpu(), p[64:])
+    else:
+        tol = 1e-6 * max(1.0, float(cpu.abs().max()))
+        assert float((first.cpu() - cpu).abs().max()) <= tol
+
+
 # -- MoE gate + dispatch -----------------------------------------------------
 #
 # Routing is identical (idx, slot_of, slot_token) and expert_in bit-equal

@@ -14,6 +14,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
 
@@ -78,3 +80,27 @@ def test_no_source_imports_jax_or_paddle_tpu():
             offenders += [(os.path.relpath(path, ROOT), node.lineno, n)
                           for n in names if _forbidden(n)]
     assert not offenders, offenders
+
+
+# the modules of the sparse CTR slice: each walked by the fresh-import
+# probe and the AST scan above, and importable alone with no JAX loaded
+SPARSE_CTR_MODULES = ("paddle_tpu_torch.core.lod",
+                      "paddle_tpu_torch.learning_rate_decay",
+                      "paddle_tpu_torch.models.ctr",
+                      "paddle_tpu_torch.optimizer",
+                      "paddle_tpu_torch.ops.optimizer_ops")
+
+
+@pytest.mark.parametrize("module", SPARSE_CTR_MODULES)
+def test_sparse_ctr_module_is_scanned_and_imports_alone(module):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in set(_sources())
+    probe = (f"import sys, {module}\n"
+             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu'))\n"
+             "print('FORBIDDEN=' + ','.join(bad))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "FORBIDDEN="

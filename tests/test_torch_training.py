@@ -365,20 +365,38 @@ def test_main_before_startup_names_the_missing_parameter():
             main, feed=next(_line_batches(1)), fetch_list=[loss])
 
 
-def test_remat_and_sparse_embedding_grads_raise():
-    ids = tfluid.layers.data(name="ids", shape=[SEQ], dtype="int64")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ttr.transformer_decoder(ids, None, V, d_model=D, n_heads=H,
-                                n_layers=1, max_len=SEQ, remat=True)
+@pytest.mark.parametrize("case", ["remat", "sparse"])
+def test_remat_and_sparse_embedding_grads_raise(case):
+    """remat still raises, naming ROADMAP A4.  The sparse embedding
+    gradient no longer does: it is a SelectedRows equal to the JAX
+    package's (rows by value), and made dense it is the dense
+    gradient."""
+    if case == "remat":
+        ids = tfluid.layers.data(name="ids", shape=[SEQ], dtype="int64")
+        with pytest.raises(NotImplementedError, match="A4"):
+            ttr.transformer_decoder(ids, None, V, d_model=D, n_heads=H,
+                                    n_layers=1, max_len=SEQ, remat=True)
+        return
+    from paddle_tpu.core.registry import get_op_info as jget
+    from paddle_tpu_torch.core.lod import SelectedRows
     from paddle_tpu_torch.core.registry import get_op_info
 
     lower = get_op_info("lookup_table_grad").lower
-    ins = {"Ids": [torch.zeros(2, dtype=torch.int64)],
-           "W": [torch.zeros(4, 3)], "Out@GRAD": [torch.ones(2, 3)]}
-    with pytest.raises(NotImplementedError, match="A1"):
-        lower(None, ins, {"is_sparse": True, "padding_idx": -1})
+    ids, og = np.array([3, 0, 3], np.int64), np.ones((3, 3), np.float32)
+    ins = {"Ids": [torch.as_tensor(ids)], "W": [torch.zeros(4, 3)],
+           "Out@GRAD": [torch.as_tensor(og)]}
+    attrs = {"is_sparse": True, "padding_idx": -1}
+    sparse = lower(None, ins, attrs)["W@GRAD"]
+    want = jget("lookup_table_grad").lower(None, {
+        "Ids": [ids], "W": [np.zeros((4, 3), np.float32)],
+        "Out@GRAD": [og]}, attrs)["W@GRAD"]
+    assert isinstance(sparse, SelectedRows) and sparse.height == want.height
+    np.testing.assert_array_equal(sparse.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_array_equal(sparse.value.numpy(),
+                                  np.asarray(want.value))
     out = lower(None, ins, {"is_sparse": False, "padding_idx": -1})
-    assert out["W@GRAD"][0].tolist() == [2.0, 2.0, 2.0]
+    assert out["W@GRAD"][3].tolist() == [2.0, 2.0, 2.0]
+    assert torch.equal(sparse.to_dense(), out["W@GRAD"])
 
 
 def test_scope_carrier_round_trip_keeps_int64():

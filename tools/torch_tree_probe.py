@@ -12,6 +12,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py conv-fp32 [--package-root DIR]
     python3 tools/torch_tree_probe.py seq2seq [--package-root DIR]
     python3 tools/torch_tree_probe.py image-models [--package-root DIR]
+    python3 tools/torch_tree_probe.py ctr [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -41,6 +42,9 @@ seq2seq    chip_smoke.py's flash phase (every case, the seq2seq shapes
            among them) and its seq2seq phase alone;
 image-models  chip_smoke.py's dropout_rows and image_models phases
            alone;
+ctr        chip_smoke.py's optimizers and ctr phases alone (the update
+           ops at one CTR table's shape; DeepFM and wide&deep with
+           sparse embedding gradients);
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -485,6 +489,15 @@ def image_models(cs, dev):
     cs.image_models_phase(card, CUDAPlace(0), peaks)
 
 
+def ctr(cs, dev):
+    """chip_smoke's optimizers and ctr phases."""
+    from paddle_tpu_torch import CUDAPlace
+
+    card, _, _ = _card(cs)
+    cs.optimizers_phase(card, dev)
+    cs.ctr_phase(card, CUDAPlace(0))
+
+
 def _cudnn_fp32(conv_mod):
     """conv_mod.conv_pinned swapped for one that keeps cuDNN on for
     float32 (deterministic, no benchmark search, TF32 off) -> undo()."""
@@ -626,7 +639,7 @@ def main():
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
                                       "sgd-sweep", "host", "convnets",
                                       "conv-fp32", "seq2seq",
-                                      "image-models"))
+                                      "image-models", "ctr"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -656,7 +669,7 @@ def main():
         {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
          "sgd-sweep": sgd_sweep, "convnets": convnets,
          "conv-fp32": conv_fp32, "seq2seq": seq2seq,
-         "image-models": image_models}[args.probe](cs, dev)
+         "image-models": image_models, "ctr": ctr}[args.probe](cs, dev)
     return 0
 
 

@@ -59,11 +59,12 @@ Phases, one JSON line each:
            capture seconds, the replay's device time and idle share,
            peak allocated and reserved memory, the interpreter's host
            synchronisations;
-  ops      every op type of the dense op corpus (tests/torch_op_cases.py:
-           89 types, their attribute, boundary and tie cases) on the card
-           against the CPU from the same seeded inputs: the forward and
-           the generic gradient in float32 (TF32 off) within 1e-5 of
-           max(1, max|CPU|), ints and bools exactly; matmul and cast
+  ops      every op type of the op corpus (tests/torch_op_cases.py: 89
+           dense types and 19 LoD sequence and recurrent types, their
+           attribute, boundary and tie cases) on the card against the
+           CPU from the same seeded inputs: the forward and the generic
+           gradient in float32 (TF32 off) within 1e-5 of max(1,
+           max|CPU|), ints, bools and LoDs exactly; matmul and cast
            again in bf16 under amp within one bf16 ulp; the drawn
            uniform_random_batch_size_like by distribution;
   optimizers  each of the 12 optimizer update ops at one CTR table's
@@ -176,7 +177,25 @@ Phases, one JSON line each:
            one sparse SGD step twice bit for bit (untouched rows
            unchanged), the loss falling; ms a step, examples/s, idle
            share, device time by group, peak memory, capture seconds and
-           the interpreted step.
+           the interpreted step;
+  rnn      run_rnn's LSTM text classifier at its defaults (vocab 30000,
+           embedding 128 in bf16, fc to 4 x 512, dynamic_lstm hidden 512
+           with peepholes, the last step, fc 2 softmax, Adam 2e-3, batch
+           128, 100 int64 ids a sequence as one LoDTensor): the default
+           mode (one CUDA graph) against the interpreter bit for bit
+           (losses and every state), the loss falling; three seeded
+           ragged LoDs (lengths 10-100) through the same Program, each a
+           capture of its own and replays after; two Adam steps at batch
+           16 with a float32 embedding on the card and on the CPU
+           (losses within 1e-5, every state within 1e-4); ms a step,
+           tokens/s beside the reference's published K40m time, model
+           FLOPs against the fp32 peak, device time by group, idle share,
+           peak memory and capture seconds;
+  rnn_seq2seq  run_seq2seq's `--model rnn` LSTM translator at its
+           defaults (batch 32, source and target 128, hidden and
+           embedding 512, vocab 30000 on both sides, Adam 1e-4, bf16
+           amp): the default mode against the interpreter bit for bit,
+           tokens/s, device time by group and idle share.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -186,8 +205,10 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step.  The image, optimizers and ctr
-phases run no kernel of the port's own: convolution, pooling, batch
+profiler's count in a replayed step.  The image, optimizers, ctr and rnn
+phases run no kernel of the port's own (the JAX package runs the
+recurrence as a `lax.scan` and the sequence ops as XLA gathers and
+segment sums, with no Pallas kernel): convolution, pooling, batch
 norm, lrn and concat are cuDNN or plain PyTorch calls there, and the
 SelectedRows gradients are made dense, and sparse SGD scatters, by
 sorted segment sums in plain PyTorch, as all of these are XLA ops in
@@ -270,6 +291,8 @@ M_GATE_STD = 0.05
 # of max(1, max|CPU value|); matmul and cast again in bf16 under amp,
 # within one bf16 ulp
 OPS_RTOL = 1e-5
+# the corpus's op types: 89 dense, 19 LoD sequence and recurrent
+OPS_TYPES = 108
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -326,6 +349,31 @@ OPT_ATTRS = {"proximal_gd": {"l1": 0.05, "l2": 0.1},
              "average_accumulates": {"average_window": 0.5,
                                      "min_average_window": 2,
                                      "max_average_window": 4}}
+
+
+# the rnn phase: benchmark/run_rnn.py's defaults (:19-48, :97-99): vocab
+# 30000, embedding 128 in bfloat16 (its --dtype), fc to 4 x 512,
+# dynamic_lstm with hidden 512 and peepholes (the layer's default), the
+# last step, fc 2 softmax, cross entropy, Adam 2e-3, batch 128, 100 int64
+# ids a sequence; the reference's own published time for that setting,
+# one K40m (run_rnn.py:23-28, benchmark/README.md:115-135)
+N_VOCAB, N_EMB, N_HID, N_BATCH, N_LEN, N_LR = 30000, 128, 512, 128, 100, 2e-3
+N_REF_MS = 261.0
+# ragged LoDs through the same Program: N_RAGGED seeded length vectors in
+# [N_RAGGED_MIN, N_LEN]; then more recurring LoDs than the graph budget
+# (the budget set to the graphs live, N_OVER new LoDs and N_OVER of the
+# captured ones fed in turns, N_OVER_ROUNDS rounds); card against CPU:
+# N_CPU_STEPS Adam steps at
+# batch N_CPU_BATCH with a float32 embedding, losses within
+# N_CPU_LOSS_RTOL relative, every state within N_CPU_RTOL of max(1,
+# |CPU value|) (the CPU tests hold the CPU path to the JAX package)
+N_RAGGED, N_RAGGED_MIN = 3, 10
+N_OVER, N_OVER_ROUNDS = 2, 3
+N_CPU_BATCH, N_CPU_STEPS, N_CPU_LOSS_RTOL, N_CPU_RTOL = 16, 2, 1e-5, 1e-4
+# run_seq2seq --model rnn at its defaults (:63-103, :155-162): batch 32,
+# source and target length 128, hidden and embedding 512, vocab 30000 on
+# both sides (N_VOCAB), Adam 1e-4, bf16 amp
+Q_BATCH, Q_LEN, Q_HID, Q_EMB, Q_LR = 32, 128, 512, 512, 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -1265,6 +1313,56 @@ def _interpreter_record(i_secs, i_profile):
                 1.0 - i_profile["device_ms"] / step_ms,
             "interpreted_profiled_step": i_profile,
             "interpreted_host_syncs_per_step": i_profile["host_syncs"]}
+
+
+def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
+                             need, i_need=None, after=None):
+    """A training Program's main path without a kernel of the port:
+    the startup, G_STEPS steps of `feed_of(step)` in the Executor's
+    default mode (one miss, one capture, replays) and a profiled replay
+    (`need` its kernel groups), `after(exe)` on that Executor, then the
+    same steps interpreted from the startup's state (losses and every
+    state bit for bit the replay's) and a profiled interpreted step
+    (`i_need`, else `need`).  The scope ends with the interpreter's
+    state -> a record, with the startup's values ("init") and the
+    replay's states ("k_state")."""
+    import paddle_tpu_torch as fluid
+
+    persist = _persistables(main)
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
+    try:
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        init = {n: scope.find_var(n).clone() for n in persist}
+        snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
+                            for n in persist}
+        _reset_peak()
+        run = lambda step: exe.run(  # noqa: E731
+            main, feed=feed_of(step), fetch_list=[loss])[0]
+        k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
+            exe, run, {}, {}, {}, need, phase, snapshot)
+        extra = after(exe) if after is not None else None
+    finally:
+        exe.close()
+    for n in persist:
+        scope.set_var(n, init[n].clone())
+    exe = fluid.Executor(place, seed=SEED)
+    try:
+        run_i = lambda step: exe.run(  # noqa: E731
+            main, feed=feed_of(step), fetch_list=[loss], compiled=False)[0]
+        i_loss, i_secs, _ = _timed_steps(run_i, {}, G_STEPS)
+        _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
+        i_profile = _profile_step(lambda: run_i(G_STEPS), i_need or need,
+                                  phase)
+    finally:
+        exe.close()
+    return {"k_loss": k_loss, "k_secs": k_secs, "profile": profile,
+            "graph": graph, "i_loss": i_loss, "i_secs": i_secs,
+            "i_profile": i_profile, "startup_s": startup_s, "init": init,
+            "k_state": k_state, "states": len(persist), "extra": extra}
 
 
 def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
@@ -2567,33 +2665,13 @@ def resnet50_phase(card, place, peaks):
     exe = None
     try:
         scope = fluid.global_scope()
-        exe = fluid.Executor(place, seed=SEED)
-        t0 = time.perf_counter()
-        exe.run(startup)
-        torch.cuda.synchronize()
-        startup_s = time.perf_counter() - t0
-        init = {n: scope.find_var(n).clone() for n in persist}
-        snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
-                            for n in persist}
-
-        _reset_peak()
-        run = lambda step: exe.run(  # noqa: E731
-            main, feed=feed, fetch_list=[loss])[0]
-        k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
-            exe, run, {}, {}, {}, need, phase, snapshot)
-        exe.close()
-
-        # the interpreter from the same state and feeds
-        exe = fluid.Executor(place, seed=SEED)
-        for n in persist:
-            scope.set_var(n, init[n].clone())
-        run_i = lambda step: exe.run(  # noqa: E731
-            main, feed=feed, fetch_list=[loss], compiled=False)[0]
-        i_loss, i_secs, _ = _timed_steps(run_i, {}, G_STEPS)
-        _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
-        i_profile = _profile_step(lambda: run_i(G_STEPS), need, phase)
-        del k_state
-        exe.close()
+        r = _default_and_interpreter(phase, place, main, startup, loss,
+                                     lambda step: feed, need)
+        k_loss, k_secs, graph, profile = (r["k_loss"], r["k_secs"],
+                                          r["graph"], r["profile"])
+        i_loss, i_secs, i_profile = r["i_loss"], r["i_secs"], r["i_profile"]
+        startup_s, init = r["startup_s"], r["init"]
+        del r
 
         # the default mode again, the convolutions channels-last
         set_flags({"conv_layout": "NHWC"})
@@ -3037,17 +3115,24 @@ def _as_list(v):
     return list(v) if isinstance(v, (list, tuple)) else [v]
 
 
+def _op_inputs(v):
+    """A case slot's inputs: a list of them, or one (an array, or an
+    (array, lod) tuple: a LoDTensor)."""
+    return v if isinstance(v, list) else [v]
+
+
 def _op_grad_slots(info, case, outs):
     """(input slots the generic gradient differentiates, float output
     slots that take a cotangent), by its rule; ((), ()) when the case has
     no gradient."""
     if info.not_differentiable or case.random:
         return (), ()
-    floats = lambda vs: all(np.issubdtype(np.asarray(a).dtype,  # noqa: E731
-                                          np.floating) for a in vs)
+    floats = lambda vs: all(np.issubdtype(  # noqa: E731
+        np.asarray(a[0] if isinstance(a, tuple) else a).dtype, np.floating)
+        for a in vs)
     ins = (info.diff_inputs if info.diff_inputs is not None
            else [s for s in info.inputs if s in case.ins
-                 and floats(_as_list(case.ins[s]))])
+                 and floats(_op_inputs(case.ins[s]))])
     ins = [s for s in ins if s in case.ins]
     out = (info.diff_outputs if info.diff_outputs is not None
            else info.outputs)
@@ -3057,19 +3142,33 @@ def _op_grad_slots(info, case, outs):
 
 
 def _op_run(case, info, dev, dtype, cots=None):
-    """The case's forward on `dev` with float inputs in `dtype` -> (outs,
-    the generic gradient {slot@GRAD: [...]} for `cots`, or None)."""
+    """The case's forward on `dev` with float inputs in `dtype` (an
+    (array, lod) input as a LoDTensor) -> (outs, the generic gradient
+    {slot@GRAD: [...]} for `cots`, or None, each value a tensor: a
+    LoDTensor's data, its LoD under the key (slot, i, "lod"))."""
     from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
                                                  generic_grad_lower)
+    from paddle_tpu_torch.core.lod import LoDTensor
 
-    ins = {}
-    for slot, v in case.ins.items():
-        ts = [torch.from_numpy(np.array(a)).to(dev) for a in _as_list(v)]
-        ins[slot] = [t.to(dtype) if t.is_floating_point() else t
-                     for t in ts]
+    def value(a):
+        arr, lod = a if isinstance(a, tuple) else (a, None)
+        t = torch.from_numpy(np.array(arr)).to(dev)
+        t = t.to(dtype) if t.is_floating_point() else t
+        return t if lod is None else LoDTensor(t, lod)
+
+    def split(res):
+        res = {s: _as_list(v) for s, v in res.items() if v is not None}
+        lods = {(s, i, "lod"): v.lod for s, vs in res.items()
+                for i, v in enumerate(vs) if isinstance(v, LoDTensor)}
+        res = {s: [v.data if isinstance(v, LoDTensor) else v for v in vs]
+               for s, vs in res.items()}
+        return res, lods
+
+    ins = {slot: [value(a) for a in _op_inputs(v)]
+           for slot, v in case.ins.items()}
     attrs = {**info.attrs, **case.attrs}
-    outs = info.lower(ExecContext(dev), ins, attrs)
-    outs = {s: _as_list(v) for s, v in outs.items() if v is not None}
+    outs, lods = split(info.lower(ExecContext(dev), ins, attrs))
+    outs["lods"] = lods
     if not cots:
         return outs, None
     g_ins = dict(ins)
@@ -3077,7 +3176,10 @@ def _op_run(case, info, dev, dtype, cots=None):
     for s, cs in cots.items():
         g_ins[s + GRAD] = [torch.from_numpy(c).to(dev, v.dtype)
                            for c, v in zip(cs, outs[s])]
-    return outs, generic_grad_lower(ExecContext(dev), g_ins, attrs, info)
+    grads, g_lods = split(generic_grad_lower(ExecContext(dev), g_ins, attrs,
+                                             info))
+    grads["lods"] = g_lods
+    return outs, grads
 
 
 def _op_err(card, cpu):
@@ -3100,8 +3202,9 @@ def _op_err(card, cpu):
 
 
 def ops_phase(card, dev):
-    """Every op type of the dense corpus (tests/torch_op_cases.py: 89
-    types, their attribute, boundary and tie cases) on the card and on
+    """Every op type of the corpus (tests/torch_op_cases.py: 89 dense
+    types and the 19 LoD sequence and recurrent types, their attribute,
+    boundary and tie cases, LoD inputs as LoDTensors) on the card and on
     the CPU from the same seeded inputs: the forward and, where the op
     has one, the generic gradient (autograd over the lowering, seeded
     cotangents), in float32 with TF32 off, within OPS_RTOL of max(1,
@@ -3142,6 +3245,7 @@ def ops_phase(card, dev):
                 per_op.setdefault(case.op, 0)
                 continue
             cpu_outs = _op_run(case, info, "cpu", torch.float32)[0]
+            cpu_outs.pop("lods")
             _, out_slots = _op_grad_slots(info, case, cpu_outs)
             r = np.random.RandomState(zlib.crc32(case.name.encode()))
             cots = {s: [r.standard_normal(tuple(v.shape)).astype(np.float32)
@@ -3150,6 +3254,10 @@ def ops_phase(card, dev):
             card_outs, card_g = _op_run(case, info, dev, torch.float32, cots)
             check(set(card_outs) == set(cpu_outs) and set(card_g or {})
                   == set(cpu_g or {}), f"ops {case.name}: slots differ")
+            check(card_outs.pop("lods") == cpu_outs.pop("lods")
+                  and (card_g or {}).pop("lods", None)
+                  == (cpu_g or {}).pop("lods", None),
+                  f"ops {case.name}: the card's LoDs differ from the CPU's")
             pairs = [(f"{s}[{i}]", a, b) for s in cpu_outs
                      for i, (a, b) in enumerate(zip(card_outs[s],
                                                     cpu_outs[s]))]
@@ -3169,6 +3277,7 @@ def ops_phase(card, dev):
                     continue
                 info = get_op_info(case.op)
                 cpu_outs = _op_run(case, info, "cpu", torch.bfloat16)[0]
+                cpu_outs.pop("lods")
                 _, out_slots = _op_grad_slots(info, case, cpu_outs)
                 cots = {s: [np.ones(tuple(v.shape), np.float32)
                             for v in cpu_outs[s]] for s in out_slots}
@@ -3176,6 +3285,8 @@ def ops_phase(card, dev):
                                           cots)
                 card_outs, card_g = _op_run(case, info, dev, torch.bfloat16,
                                             cots)
+                for res in (cpu_outs, cpu_g, card_outs, card_g):
+                    (res or {}).pop("lods", None)
                 pairs = [(a, b) for s in cpu_outs
                          for a, b in zip(card_outs[s], cpu_outs[s])]
                 pairs += [(a, b) for s in (cpu_g or {})
@@ -3201,8 +3312,8 @@ def ops_phase(card, dev):
                           f"ops {case.name}: amp matmul output not bf16")
                 bf16["cases"] += 1
                 bf16["outputs"] += len(pairs)
-    check(len(per_op) == 89, f"ops: {len(per_op)} op types checked, "
-          "want the corpus's 89")
+    check(len(per_op) == OPS_TYPES, f"ops: {len(per_op)} op types checked, "
+          f"want the corpus's {OPS_TYPES}")
     emit({"phase": "ops", "card": card, "op_types": len(per_op),
           "cases": len(cases), "compared_tensors": sum(per_op.values()),
           "tolerance": f"{OPS_RTOL} of max(1, max|CPU|) in float32, TF32 "
@@ -3695,38 +3806,19 @@ def ctr_phase(card, place):
         exe = None
         try:
             scope = fluid.global_scope()
-            exe = fluid.Executor(place, seed=SEED)
-            t0 = time.perf_counter()
-            exe.run(startup)
-            torch.cuda.synchronize()
-            startup_s = time.perf_counter() - t0
-            init = {n: scope.find_var(n).clone() for n in persist}
+            r = _default_and_interpreter(
+                phase, place, main, startup, loss, lambda step: feeds[step],
+                ("matmul", "sort_segment"), i_need=("matmul",))
+            k_loss, k_secs, graph, profile = (r["k_loss"], r["k_secs"],
+                                              r["graph"], r["profile"])
+            i_loss, i_secs = r["i_loss"], r["i_secs"]
+            i_profile, k_state = r["i_profile"], r["k_state"]
+            startup_s, init = r["startup_s"], r["init"]
+            del r
 
             def restore():
                 for n in persist:
                     scope.set_var(n, init[n].clone())
-
-            snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
-                                for n in persist}
-            _reset_peak()
-            run = lambda step: exe.run(  # noqa: E731
-                main, feed=feeds[step], fetch_list=[loss])[0]
-            k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
-                exe, run, {}, {}, {}, ("matmul", "sort_segment"), phase,
-                snapshot)
-            exe.close()
-
-            # the interpreter from the same state and feeds
-            exe = fluid.Executor(place, seed=SEED)
-            restore()
-            run_i = lambda step: exe.run(  # noqa: E731
-                main, feed=feeds[step], fetch_list=[loss],
-                compiled=False)[0]
-            i_loss, i_secs, _ = _timed_steps(run_i, {}, G_STEPS)
-            _bit_equal(phase, k_loss, i_loss, k_state, scope.find_var)
-            i_profile = _profile_step(lambda: run_i(G_STEPS), ("matmul",),
-                                      phase)
-            exe.close()
 
             # the dense gradient, default mode, from the same state
             d_main, _, d_lossv = _ctr_program(model, False, adam)
@@ -3902,6 +3994,354 @@ def ctr_phase(card, place):
                         "1 - its device time / the median step"})
 
 
+# -- rnn phase ----------------------------------------------------------------
+
+def _rnn_program(dtype, vocab=N_VOCAB, emb_dim=N_EMB, hidden=N_HID,
+                 lr=N_LR):
+    """run_rnn's LSTM text classifier (benchmark/run_rnn.py:33-50):
+    embedding in `dtype`, fc to 4 x hidden, dynamic_lstm (peepholes, its
+    default), the last step, fc 2 softmax, cross entropy, Adam ->
+    (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                 lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        emb = fluid.layers.embedding(input=data, size=[vocab, emb_dim],
+                                     dtype=dtype)
+        proj = fluid.layers.fc(input=emb, size=hidden * 4)
+        lstm_out, _ = fluid.layers.dynamic_lstm(input=proj, size=hidden * 4)
+        last = fluid.layers.sequence_pool(lstm_out, pool_type="last")
+        predict = fluid.layers.fc(input=last, size=2, act="softmax")
+        cost = fluid.layers.cross_entropy(input=predict, label=label)
+        loss = fluid.layers.mean(cost)
+        fluid.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def _rnn_s2s_program():
+    """run_seq2seq's `--model rnn` (benchmark/run_seq2seq.py:63-103): an
+    LSTM encoder, its last step expanded over the target and
+    concatenated to the target embedding (a LoD concat), an LSTM
+    decoder, fc softmax over the target vocabulary, cross entropy, Adam
+    -> (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src, tgt, lbl = [fluid.layers.data(name=n, shape=[1], dtype="int64",
+                                           lod_level=1)
+                         for n in ("src", "tgt", "lbl")]
+        src_emb = fluid.layers.embedding(input=src, size=[N_VOCAB, Q_EMB])
+        enc_in = fluid.layers.fc(input=src_emb, size=Q_HID * 4, act="tanh")
+        enc, _ = fluid.layers.dynamic_lstm(input=enc_in, size=Q_HID * 4,
+                                           use_peepholes=False)
+        context = fluid.layers.sequence_last_step(input=enc)
+        tgt_emb = fluid.layers.embedding(input=tgt, size=[N_VOCAB, Q_EMB])
+        ctx_exp = fluid.layers.sequence_expand(x=context, y=tgt_emb)
+        dec_in = fluid.layers.concat([tgt_emb, ctx_exp], axis=1)
+        dec_proj = fluid.layers.fc(input=dec_in, size=Q_HID * 4, act="tanh")
+        dec, _ = fluid.layers.dynamic_lstm(input=dec_proj, size=Q_HID * 4,
+                                           use_peepholes=False)
+        probs = fluid.layers.fc(input=dec, size=N_VOCAB, act="softmax")
+        cost = fluid.layers.cross_entropy(input=probs, label=lbl)
+        loss = fluid.layers.mean(cost)
+        fluid.Adam(learning_rate=Q_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _lod_ids(rng, lens):
+    """Seeded int64 ids in [0, N_VOCAB) as a host LoDTensor, one sequence
+    a length."""
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    ids = rng.randint(0, N_VOCAB, (int(sum(lens)), 1)).astype(np.int64)
+    return LoDTensor(torch.from_numpy(ids), [lod_from_seq_lens(lens)])
+
+
+def _rnn_feed(rng, lens):
+    return {"words": _lod_ids(rng, lens),
+            "label": torch.from_numpy(
+                rng.randint(0, 2, (len(lens), 1)).astype(np.int64))}
+
+
+def _rnn_flops(rows, batch, steps, emb, hidden, out_widths):
+    """A step's model FLOPs: the Program's mul shapes (the input
+    projection over `rows` rows, the heads over `out_widths` as
+    (rows, in, out)) and the recurrence (steps x 2 B D 4D), forward x 3."""
+    fwd = 2 * rows * emb * 4 * hidden + steps * 2 * batch * hidden * 4 * hidden
+    fwd += sum(2 * r * k * n for r, k, n in out_widths)
+    return 3 * fwd
+
+
+def _loss_falls(phase, losses):
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{phase}: the loss does not fall: {losses}")
+
+
+def _ragged_lods(exe, main, loss):
+    """N_RAGGED seeded length vectors in [N_RAGGED_MIN, N_LEN], each fed
+    twice and then once more: a miss and a capture for each new LoD, a
+    replay after.  Then more recurring LoDs than the graph budget:
+    GRAPHS_MAX set to the graphs live, N_OVER new LoDs and N_OVER
+    captured ones fed in turns for N_OVER_ROUNDS rounds: no capture, the
+    new LoDs' hits run eagerly, the captured ones replay; each step
+    timed -> a record."""
+    from paddle_tpu_torch.core import executor as executor_mod
+
+    rng = np.random.RandomState(SEED + 1)
+    lens = [rng.randint(N_RAGGED_MIN, N_LEN + 1, N_BATCH).tolist()
+            for _ in range(N_RAGGED + N_OVER)]
+    feeds = [_rnn_feed(rng, ls) for ls in lens]
+    g0, s0 = exe.graph_stats(), exe.cache_stats()
+    losses = []
+    for rounds in (2, 1):
+        for f in feeds[:N_RAGGED]:
+            for _ in range(rounds):
+                losses.append(float(exe.run(main, feed=f,
+                                            fetch_list=[loss])[0][0]))
+    g1, s1 = exe.graph_stats(), exe.cache_stats()
+    check(g1["captures"] == 1 + N_RAGGED and g1["graphs"] == 1 + N_RAGGED
+          and g1["replays"] - g0["replays"] == N_RAGGED
+          and s1["misses"] - s0["misses"] == N_RAGGED
+          and s1["entries"] - s0["entries"] == N_RAGGED,
+          f"rnn_ragged: graphs {g1} and cache {s1} after {N_RAGGED} new "
+          f"LoDs fed twice and once more: want {1 + N_RAGGED} captures")
+
+    budget = executor_mod.GRAPHS_MAX
+    executor_mod.GRAPHS_MAX = g1["graphs"]
+    secs = {"miss": [], "eager_hit": [], "replay": []}
+    try:
+        seen = set()
+        for _ in range(N_OVER_ROUNDS):
+            for i in list(range(N_RAGGED, N_RAGGED + N_OVER)) + \
+                    list(range(N_OVER)):
+                kind = ("replay" if i < N_RAGGED else
+                        "eager_hit" if i in seen else "miss")
+                seen.add(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feeds[i],
+                                            fetch_list=[loss])[0][0]))
+                secs[kind].append(time.perf_counter() - t0)
+    finally:
+        executor_mod.GRAPHS_MAX = budget
+    g2, s2 = exe.graph_stats(), exe.cache_stats()
+    over = {"captures": g2["captures"] - g1["captures"],
+            "eager_hits": g2["eager_hits"] - g1["eager_hits"],
+            "replays": g2["replays"] - g1["replays"],
+            "misses": s2["misses"] - s1["misses"]}
+    want = {"captures": 0, "eager_hits": N_OVER * (N_OVER_ROUNDS - 1),
+            "replays": N_OVER * N_OVER_ROUNDS, "misses": N_OVER}
+    check(over == want, f"rnn_ragged: past the graph budget {over}, want "
+          f"{want}: no capture, the new LoDs' hits eager")
+    check(all(np.isfinite(losses)), f"rnn_ragged: losses {losses}")
+    capture_s = (g1["capture_s"] - g0["capture_s"]) / N_RAGGED
+    return {"lengths_min_max": [[min(x), max(x)] for x in lens],
+            "rows": [int(sum(x)) for x in lens], "losses": losses,
+            "captures": g1["captures"], "graphs": g1["graphs"],
+            "new_lod_misses": s1["misses"] - s0["misses"],
+            "replays_after": g1["replays"] - g0["replays"],
+            "capture_s_per_lod": capture_s,
+            "past_graph_budget": {
+                "graphs_max": g1["graphs"], "new_lods": N_OVER,
+                "captured_lods": N_OVER, "rounds": N_OVER_ROUNDS, **over,
+                "step_s": secs,
+                "eager_hit_ms": float(np.median(secs["eager_hit"])) * 1e3,
+                "replay_ms": float(np.median(secs["replay"])) * 1e3,
+                "mean_step_ms": sum(map(sum, secs.values())) * 1e3
+                / (N_OVER_ROUNDS * 2 * N_OVER),
+                "timing": "host clock around exe.run after a synchronize "
+                          "(the fetch synchronizes); the ragged captures' "
+                          "mean capture_s_per_lod is what a recapture at "
+                          "every hit would cost instead"}}
+
+
+def _rnn_card_vs_cpu(place):
+    """N_CPU_STEPS Adam steps of run_rnn's Program with a float32
+    embedding at batch N_CPU_BATCH (seeded lengths in [N_RAGGED_MIN,
+    N_LEN]) on the card and on the CPU from the same startup values:
+    losses within N_CPU_LOSS_RTOL relative, every parameter and Adam
+    moment within N_CPU_RTOL of max(1, |CPU value|)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = _rnn_program("float32")
+    persist = _persistables(main)
+    rng = np.random.RandomState(SEED + 2)
+    feeds = [_rnn_feed(rng, rng.randint(N_RAGGED_MIN, N_LEN + 1,
+                                        N_CPU_BATCH).tolist())
+             for _ in range(N_CPU_STEPS)]
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup)
+    init = {n: scope.find_var(n).clone() for n in persist}
+    c_loss = [float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
+              for f in feeds]
+    card = {n: scope.find_var(n).cpu() for n in persist}
+    exe.close()
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        cpu_scope = fluid.global_scope()
+        for n in persist:
+            cpu_scope.set_var(n, init[n].cpu())
+        cpu = fluid.Executor(fluid.CPUPlace(), seed=SEED)
+        t0 = time.perf_counter()
+        cpu_loss = [float(cpu.run(main, feed=f, fetch_list=[loss])[0][0])
+                    for f in feeds]
+        cpu_s = time.perf_counter() - t0
+        want = {n: cpu_scope.find_var(n) for n in persist}
+    finally:
+        executor_mod.switch_scope(prev)
+    rel = _states_rel_diff(card, want)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(c_loss, cpu_loss)]
+    worst = max(rel, key=rel.get)
+    check(max(loss_rel) <= N_CPU_LOSS_RTOL, f"rnn_card_vs_cpu: losses "
+          f"{c_loss} against the CPU's {cpu_loss}")
+    check(rel[worst] <= N_CPU_RTOL, f"rnn_card_vs_cpu: {worst} differs "
+          f"by {rel[worst]} of max(1, |CPU|): "
+          f"{sorted(rel.items(), key=lambda kv: -kv[1])[:5]}")
+    return {"batch": N_CPU_BATCH, "steps": N_CPU_STEPS,
+            "embedding": "float32", "card": c_loss, "cpu": cpu_loss,
+            "loss_rel_diff": loss_rel, "loss_limit": N_CPU_LOSS_RTOL,
+            "state_max_rel_diff": rel[worst], "state_argmax": worst,
+            "state_limit": N_CPU_RTOL, "states": len(rel), "cpu_s": cpu_s}
+
+
+def _rnn_record(r, step_s):
+    profile = r["profile"]
+    return {"default_mode": {"losses": r["k_loss"], "step_s": r["k_secs"],
+                             **r["graph"]},
+            "interpreter": {"losses": r["i_loss"], "step_s": r["i_secs"],
+                            "bit_equal_to_replay": True,
+                            "states_compared": r["states"]},
+            "ms_per_step": step_s * 1e3,
+            **_interpreter_record(r["i_secs"], r["i_profile"]),
+            "profiled_step": profile,
+            "device_ms_by_group": profile["by_group_ms"],
+            "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
+            "peak_memory_bytes": r["graph"]["peak_memory_bytes"],
+            "peak_reserved_bytes": r["graph"]["peak_reserved_bytes"],
+            "capture_s": r["graph"]["capture_s"],
+            "startup_s": r["startup_s"]}
+
+
+_RNN_TIMING = ("host clock around exe.run + synchronize; ms_per_step the "
+               "median of the replayed steps (3..N), the interpreter's of "
+               "steps 2..N; device time by group and idle share (1 - its "
+               "device time / the median step) from one profiled replay")
+
+
+def rnn_phase(card, place, peaks):
+    """run_rnn's LSTM text classifier and run_seq2seq's LSTM translator
+    at their defaults (see the N_ and Q_ constants), each trained in the
+    Executor's default mode (one compiled block: eager at the miss,
+    captured into a CUDA graph at the first hit, replayed after) and a
+    profiled replay, then the same steps interpreted from the same
+    state (losses and every state bit for bit); the classifier also
+    takes N_RAGGED new LoDs through the same Program (a capture each)
+    and N_CPU_STEPS steps card against CPU."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    t_phase = time.perf_counter()
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        main, startup, loss = _rnn_program("bfloat16")
+        types = [op.type for op in main.global_block().ops]
+        check(types.count("lstm") == 1 and types.count("lstm_grad") == 1
+              and types.count("sequence_pool") == 1,
+              f"rnn: the Program's ops {types}")
+        feed = _rnn_feed(np.random.RandomState(SEED), [N_LEN] * N_BATCH)
+        r = _default_and_interpreter(
+            "rnn", place, main, startup, loss, lambda step: feed,
+            ("matmul",), after=lambda exe: _ragged_lods(exe, main, loss))
+        del r["init"], r["k_state"]
+        _loss_falls("rnn", r["k_loss"])
+        ragged = r["extra"]
+        executor_mod.switch_scope(Scope())
+        vs_cpu = _rnn_card_vs_cpu(place)
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+    step_s = float(np.median(r["k_secs"][2:]))
+    tokens = N_BATCH * N_LEN
+    flops = _rnn_flops(tokens, N_BATCH, N_LEN, N_EMB, N_HID,
+                       [(N_BATCH, N_HID, 2)])
+    bound_ms = flops / peaks[torch.float32] * 1e3
+    emit({"phase": "rnn", "card": card,
+          "source": "benchmark/run_rnn.py:19-48, :97-99 (defaults: batch "
+                    "128, hidden 512, --dtype bfloat16)",
+          "vocab": N_VOCAB, "embedding": N_EMB, "embedding_dtype":
+          "bfloat16", "hidden": N_HID, "peepholes": True, "batch": N_BATCH,
+          "seq_len": N_LEN, "optimizer": f"adam {N_LR}", "ops": len(types),
+          "mode": "compiled (CUDA graph replay)", "steps": G_STEPS,
+          **_rnn_record(r, step_s),
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "reference_k40m_ms_per_batch": N_REF_MS,
+          "reference_note": "the reference's own published number "
+                            "(benchmark/README.md:115-135, one K40m, "
+                            "batch 128, hidden 512), not this card's",
+          "model_flops_per_step": flops, "bound_ms": bound_ms,
+          "bound_by": "operations (fp32 peak outside the tensor cores)",
+          "model_flops_share_of_fp32_peak": bound_ms / (step_s * 1e3),
+          "ragged": ragged, "card_vs_cpu": vs_cpu,
+          "timing": _RNN_TIMING + "; tokens a step batch x 100, as "
+                    "run_rnn.py:71 counts them; model FLOPs from the "
+                    "Program's mul shapes and the recurrence's 100 x 2 B "
+                    "D 4D, forward x 3, over the fp32 peak",
+          "seconds": time.perf_counter() - t_phase})
+
+    t_phase = time.perf_counter()
+    fluid.amp.enable_bf16()     # before the Program is built
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        main, startup, loss = _rnn_s2s_program()
+        rng = np.random.RandomState(SEED)
+        feed = {n: _lod_ids(rng, [Q_LEN] * Q_BATCH)
+                for n in ("src", "tgt", "lbl")}
+        r = _default_and_interpreter("rnn_seq2seq", place, main, startup,
+                                     loss, lambda step: feed, ("matmul",))
+        del r["init"], r["k_state"]
+        _loss_falls("rnn_seq2seq", r["k_loss"])
+        n_ops = len(main.global_block().ops)
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+        fluid.amp.disable_bf16()
+    step_s = float(np.median(r["k_secs"][2:]))
+    rows = Q_BATCH * Q_LEN
+    tokens = Q_BATCH * (Q_LEN + Q_LEN)
+    flops = (_rnn_flops(rows, Q_BATCH, Q_LEN, Q_EMB, Q_HID, [])
+             + _rnn_flops(rows, Q_BATCH, Q_LEN, 2 * Q_EMB, Q_HID,
+                          [(rows, Q_HID, N_VOCAB)]))
+    emit({"phase": "rnn_seq2seq", "card": card,
+          "source": "benchmark/run_seq2seq.py:63-103, :155-162 (--model "
+                    "rnn, defaults: batch 32, src and tgt length 128, "
+                    "--dtype bfloat16 = amp)",
+          "vocab": N_VOCAB, "hidden": Q_HID, "embedding": Q_EMB,
+          "batch": Q_BATCH, "src_len": Q_LEN, "tgt_len": Q_LEN,
+          "dtype": "bf16 amp, f32 master weights",
+          "optimizer": f"adam {Q_LR}", "ops": n_ops,
+          "mode": "compiled (CUDA graph replay)", "steps": G_STEPS,
+          **_rnn_record(r, step_s),
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "model_flops_per_step": flops,
+          "bound_ms": flops / peaks[torch.bfloat16] * 1e3,
+          "bound_by": "operations (bf16 tensor peak)",
+          "timing": _RNN_TIMING + "; tokens a step batch x (src + tgt), "
+                    "as run_seq2seq.py:141 counts them",
+          "seconds": time.perf_counter() - t_phase})
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -3975,6 +4415,7 @@ def main():
     dropout_rows_phase(card, dev)
     image_models_phase(card, CUDAPlace(0), peaks)
     ctr_phase(card, CUDAPlace(0))
+    rnn_phase(card, CUDAPlace(0), peaks)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",

@@ -23,7 +23,10 @@ explicit conv2d and batch_norm gradients; the dense op corpus; sparse
 CTR training — the SelectedRows gradient of `embedding(is_sparse=True)`
 (core/lod.py), every optimizer of the JAX package with ModelAverage,
 the learning-rate decay schedules, and the wide&deep and DeepFM
-builders (models/ctr.py).
+builders (models/ctr.py); LoD sequences — the LoDTensor value
+(core/lod.py), the sequence ops (ops/sequence.py), the recurrent ops
+(ops/rnn.py: lstm, lstmp, gru and the unit steps) with their layers,
+and the DataFeeder.
 """
 from . import (  # noqa: F401
     amp,
@@ -45,13 +48,16 @@ from .backward import append_backward, calc_gradient  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace,
     CUDAPlace,
+    LoDTensor,
     Program,
     Variable,
+    create_lod_tensor,
     default_main_program,
     default_startup_program,
     program_guard,
 )
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
 from .core.lod import SelectedRows, Tensor  # noqa: F401
 from .core.scope import Scope  # noqa: F401

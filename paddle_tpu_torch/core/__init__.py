@@ -12,7 +12,13 @@ from .framework import (  # noqa: F401
     default_startup_program,
     program_guard,
 )
-from .lod import SelectedRows, Tensor  # noqa: F401
+from .lod import (  # noqa: F401
+    LoDTensor,
+    SelectedRows,
+    Tensor,
+    TensorArray,
+    create_lod_tensor,
+)
 from .resilience import (  # noqa: F401
     FaultInjector,
     RetryError,

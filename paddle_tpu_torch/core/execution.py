@@ -12,6 +12,11 @@ autograd with the differentiable inputs as leaves, and
 `torch.autograd.grad` pulls the output cotangents back to them.  Every
 registered op is differentiable by construction, as in the JAX package
 (where the same role is played by `jax.vjp`).
+
+LoDTensor values: a lowering registered `lod=True` gets them as they
+are; any other gets their data.  Every gradient op hands each input
+gradient back with its forward input's LoD, as the JAX package's pytree
+cotangent carries it.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 
 from . import registry
 from .framework import EMPTY_VAR_NAMES as _EMPTY
-from .lod import SelectedRows
+from .lod import LoDTensor, SelectedRows
 
 GRAD = "@GRAD"
 
@@ -67,15 +72,22 @@ class ExecContext:
     global row, so a sharded step draws the serial masks.  Shape
     inference passes ``torch.device("meta")`` and no seed.  `op` is the
     op desc a host op's context runs (`run_op` sets it: `print` names
-    its input), else None."""
+    its input), else None.  `tables` holds what lowerings build on the
+    host once and reuse (the sequence ops' index tables, attribute
+    constants), shared by every context derived from this one: the
+    Executor hands each cache entry's runs the entry's own dict, so a
+    table lives exactly as long as the entry (and the CUDA graph) that
+    reads it; any other context starts an empty one."""
 
     def __init__(self, device=None,
                  generator: Optional[torch.Generator] = None,
-                 seed: Optional[int] = None, row_offset: int = 0):
+                 seed: Optional[int] = None, row_offset: int = 0,
+                 tables: Optional[Dict] = None):
         self.device = torch.device(device if device is not None else "cpu")
         self._generator = generator
         self.seed = seed
         self.row_offset = row_offset
+        self.tables = {} if tables is None else tables
         self.op = None
 
     @property
@@ -90,14 +102,14 @@ class ExecContext:
         """Per-op context: the step seed mixed with the op's identity."""
         base = self.seed if self.seed is not None else 0
         return ExecContext(self.device, seed=_mix(base, tag_hash),
-                           row_offset=self.row_offset)
+                           row_offset=self.row_offset, tables=self.tables)
 
     def pure(self) -> "ExecContext":
         """Context for re-running a forward op inside its gradient: the
         same seed with a fresh generator, so the recomputation draws
         the forward's numbers."""
         return ExecContext(self.device, seed=self.seed,
-                           row_offset=self.row_offset)
+                           row_offset=self.row_offset, tables=self.tables)
 
 
 # ---------------------------------------------------------------------------
@@ -174,24 +186,59 @@ def _op_rng_tag(op, info) -> str:
     return f"{op.type}:{tuple(op.output_names())}"
 
 
-def _dense_only(fn, op):
-    """`fn` behind a check that no input is a SelectedRows: a lowering
-    that cannot take one raises naming the op and the value, where the
-    JAX package's raises from inside jax.numpy.  Nothing is made dense
-    behind the caller's back."""
+def _checked(fn, op, sparse_ok, unwrap):
+    """`fn` behind the value rules: a SelectedRows input raises unless
+    `sparse_ok` (naming the op and the value, where the JAX package's
+    raises from inside jax.numpy; nothing is made dense behind the
+    caller's back), and with `unwrap` every LoDTensor input is passed as
+    its data."""
 
     def run(ctx, ins, attrs):
         for slot, vals in ins.items():
             for i, v in enumerate(vals):
-                if isinstance(v, SelectedRows):
+                if isinstance(v, SelectedRows) and not sparse_ok:
                     raise TypeError(
                         f"op {op.type!r} cannot take the SelectedRows "
                         f"{op.inputs[slot][i]!r} (input {slot}): only sum, "
                         "the optimizer updates and split_selected_rows "
                         "take a sparse gradient")
-        return fn(ctx, ins, attrs)
+        return fn(ctx, _data_ins(ins) if unwrap else ins, attrs)
 
     return run
+
+
+def _data_ins(ins):
+    """`ins` with every LoDTensor replaced by its data."""
+    return {s: [data_of(v) for v in vals] for s, vals in ins.items()}
+
+
+def _forward_lowering(info):
+    """The forward lowering as the dispatch runs it: with LoDTensor
+    inputs passed as their data unless the op takes them."""
+    if info.lod:
+        return info.lower
+    return lambda ctx, ins, attrs: info.lower(ctx, _data_ins(ins), attrs)
+
+
+def _with_input_lods(grad_fn):
+    """An explicit gradient lowering on the inputs' data, its
+    "<slot>@GRAD" results re-wrapped with the forward inputs' LoDs."""
+
+    def run(ctx, ins, attrs):
+        return _rewrap_grads(grad_fn(ctx, _data_ins(ins), attrs), ins)
+
+    return run
+
+
+def _rewrap_grads(res, ins):
+    for key, vals in res.items():
+        fwd = ins.get(key[:-len(GRAD)]) if key.endswith(GRAD) else None
+        if not fwd:
+            continue
+        vals = list(vals) if isinstance(vals, (list, tuple)) else [vals]
+        res[key] = [with_lod_of(x, g) if g is not None else g
+                    for x, g in zip(fwd, vals)]
+    return res
 
 
 def resolve_op(op):
@@ -202,13 +249,12 @@ def resolve_op(op):
     except KeyError:
         raise NotImplementedError(f"op '{op.type}' has no lowering") from None
     if info.type == op.type:  # explicit lowering (fwd op, or an own grad op)
-        fn = info.lower
+        fn = _checked(info.lower, op, info.sparse, not info.lod)
     elif info.grad_lower is not None:  # "<fwd>_grad", explicit
-        fn = info.grad_lower
+        fn = _checked(_with_input_lods(info.grad_lower), op, False, False)
     else:  # generic "<fwd>_grad" resolved to the forward info
-        fn = functools.partial(generic_grad_lower, fwd_info=info)
-    if not (info.sparse and info.type == op.type):
-        fn = _dense_only(fn, op)
+        fn = _checked(functools.partial(generic_grad_lower, fwd_info=info),
+                      op, False, False)
     return (fn, {**info.attrs, **op.attrs},
             zlib.crc32(_op_rng_tag(op, info).encode()))
 
@@ -228,9 +274,10 @@ def run_op(ctx: ExecContext, op, env):
 
 
 def _is_float_slot(vals) -> bool:
-    """Whether a slot's values are all float tensors: a SelectedRows
-    (int rows) never is, so it never becomes an autograd leaf."""
-    leaves = [v for v in vals if v is not None]
+    """Whether a slot's values are all float tensors (a LoDTensor's
+    data): a SelectedRows (int rows) never is, so it never becomes an
+    autograd leaf."""
+    leaves = [data_of(v) for v in vals if v is not None]
     return bool(leaves) and all(
         isinstance(v, torch.Tensor) and v.is_floating_point()
         for v in leaves)
@@ -243,7 +290,11 @@ def generic_grad_lower(ctx, ins, attrs, fwd_info):
     fill_zeros_like by append_backward.
 
     Only the tensors of the differentiable input slots become autograd
-    leaves; an input with no path to the chosen outputs gets zeros."""
+    leaves (a LoDTensor's data); the forward is re-run on them with
+    their LoDs, since the sequence ops read them, and its outputs and
+    the cotangents are taken as their data.  An input with no path to
+    the chosen outputs gets zeros; every gradient carries its input's
+    LoD."""
     fwd_ins = {s: ins[s] for s in fwd_info.inputs if s in ins}
     if fwd_info.diff_inputs is not None:
         diff_slots = [s for s in fwd_info.diff_inputs if s in fwd_ins]
@@ -262,17 +313,20 @@ def generic_grad_lower(ctx, ins, attrs, fwd_info):
         for s in diff_slots:
             vals = []
             for v in fwd_ins[s]:
-                if isinstance(v, torch.Tensor) and v.is_floating_point():
-                    v = v.detach().requires_grad_(True)
-                    leaves.append((s, len(vals), v))
+                d = data_of(v)
+                if isinstance(d, torch.Tensor) and d.is_floating_point():
+                    d = d.detach().requires_grad_(True)
+                    leaves.append((s, len(vals), d))
+                    v = with_lod_of(v, d)
                 vals.append(v)
             full[s] = vals
-        outs = fwd_info.lower(ctx.pure(), full, attrs)
+        outs = _forward_lowering(fwd_info)(ctx.pure(), full, attrs)
         ys, cots = [], []
         for s in out_slots:
             vs = outs[s]
             vs = list(vs) if isinstance(vs, (list, tuple)) else [vs]
             for y, g in zip(vs, ins[s + GRAD]):
+                y, g = data_of(y), data_of(g)
                 if y is None or g is None or not y.requires_grad:
                     continue
                 ys.append(y)
@@ -284,7 +338,8 @@ def generic_grad_lower(ctx, ins, attrs, fwd_info):
                  if ys and leaves else [None] * len(leaves))
     res = {s + GRAD: [None] * len(fwd_ins[s]) for s in diff_slots}
     for (s, i, leaf), g in zip(leaves, grads):
-        res[s + GRAD][i] = torch.zeros_like(leaf) if g is None else g
+        res[s + GRAD][i] = with_lod_of(
+            fwd_ins[s][i], torch.zeros_like(leaf) if g is None else g)
     return res
 
 
@@ -303,6 +358,17 @@ def one(ins, slot):
 
 def many(ins, slot) -> List:
     return list(ins.get(slot) or [])
+
+
+def data_of(v):
+    """The dense tensor behind a value (a LoDTensor's data)."""
+    return v.data if isinstance(v, LoDTensor) else v
+
+
+def with_lod_of(v, out_data):
+    """`out_data` with v's LoD if v carries one."""
+    return LoDTensor(out_data, v.lod) if isinstance(v, LoDTensor) \
+        else out_data
 
 
 def dense_of(v):

@@ -26,6 +26,24 @@ same op lowerings (core/execution.py):
 for a block without host ops, segmented with them, the interpreter
 under `jit_granularity="op"`; an explicit `compiled` wins.
 `cache_stats()` counts lookups as the JAX package counts them.
+
+A LoDTensor feed is placed as its data with its LoD kept; the LoD is
+part of every cache key (compiled blocks and device segments alike), so
+each distinct LoD is an entry of its own (a miss, then a capture at its
+first hit, replays after), and a CUDA graph reads the LoDTensor's data
+from a buffer as it reads any tensor.  An entry owns what its plan
+builds on the host (the sequence ops' index tables: `ExecContext.tables`)
+from its eager first run on, so its capture copies nothing from the
+host, and the tables go with the entry.  The cache holds at most
+CACHE_MAX entries (a block's device segments each take one), the least
+recently used going first with its graph and tables.  At most
+GRAPHS_MAX graphs are live: a capture never frees another entry's
+graph, so once GRAPHS_MAX are live a hit of an entry without one runs
+its plan eagerly, as at its miss (`graph_stats()["eager_hits"]`),
+until an entry holding a graph leaves the cache.  So more recurring
+LoDs than GRAPHS_MAX never recapture on every hit, and a stream of new
+LoDs grows neither without end.  A fetched LoDTensor comes back as a
+LoDTensor with numpy data.
 """
 from __future__ import annotations
 
@@ -42,11 +60,12 @@ from . import registry
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
 from .execution import (DictEnv, ExecContext, ScopeEnv, _mix,
-                        gather_inputs, resolve_op, run_op, scatter_outputs)
+                        gather_inputs, resolve_op, run_op,
+                        scatter_outputs)
 from .flags import get_flag
 from .framework import EMPTY_VAR_NAMES as _EMPTY
 from .framework import Program, Variable, default_main_program
-from .lod import SelectedRows
+from .lod import LoDTensor, SelectedRows
 from .scope import Scope, tensor_from_numpy
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_place", "Executor",
@@ -151,10 +170,19 @@ class scope_guard:
 # ---------------------------------------------------------------------------
 
 
+# cache entries an Executor keeps (least recently used evicted first),
+# and of them the entries that may hold a captured CUDA graph (first
+# come: a graph goes only with its entry)
+CACHE_MAX, GRAPHS_MAX = 1024, 32
+
+
 def _feed_tensor(v):
     """Feed value -> a tensor where it stays (numpy arrays, bf16 ones
     included, and Python scalars on the host, without a copy where numpy
-    allows); opaque host objects pass."""
+    allows; a LoDTensor's data, its LoD kept); opaque host objects
+    pass."""
+    if isinstance(v, LoDTensor):
+        return v.map(_feed_tensor)
     if isinstance(v, torch.Tensor):
         return v
     if isinstance(v, (np.ndarray, np.generic)):
@@ -165,15 +193,19 @@ def _feed_tensor(v):
 
 
 def _to_device_value(v, device):
-    """Feed value -> tensor on `device` (opaque host objects pass)."""
+    """Feed value -> tensor on `device` (a LoDTensor's data; opaque host
+    objects pass)."""
     v = _feed_tensor(v)
+    if isinstance(v, LoDTensor):
+        return v.map(lambda d: d.to(device))
     return v.to(device) if isinstance(v, torch.Tensor) else v
 
 
 def _to_numpy(v):
     """A fetched value on the host: a tensor as a numpy array, a
-    SelectedRows as one with numpy rows and values."""
-    if isinstance(v, SelectedRows):
+    SelectedRows as one with numpy rows and values, a LoDTensor as one
+    with numpy data."""
+    if isinstance(v, (SelectedRows, LoDTensor)):
         return v.map(_to_numpy)
     if isinstance(v, torch.Tensor):
         if v.dtype == torch.bfloat16:
@@ -184,9 +216,12 @@ def _to_numpy(v):
 
 def _aval(v):
     """The part of a value a cache key holds: shape and dtype (a
-    SelectedRows': its rows' and values' shapes and its height)."""
+    SelectedRows': its rows' and values' shapes and its height; a
+    LoDTensor's: its data's and its LoD)."""
     if isinstance(v, torch.Tensor):
         return tuple(v.shape), v.dtype
+    if isinstance(v, LoDTensor):
+        return ("LoDTensor", tuple(v.data.shape), v.data.dtype, v.lod)
     if isinstance(v, SelectedRows):
         return ("SelectedRows", tuple(v.rows.shape), tuple(v.value.shape),
                 v.value.dtype, v.height)
@@ -194,9 +229,12 @@ def _aval(v):
 
 
 def _tensors(v):
-    """The tensors a value holds: itself, or a SelectedRows' two."""
+    """The tensors a value holds: itself, a LoDTensor's data, or a
+    SelectedRows' two."""
     if isinstance(v, torch.Tensor):
         return (v,)
+    if isinstance(v, LoDTensor):
+        return (v.data,)
     if isinstance(v, SelectedRows):
         return (v.rows, v.value)
     return ()
@@ -213,9 +251,20 @@ def _run_flags():
 def _clone(v):
     if isinstance(v, torch.Tensor):
         return v.clone()
-    if isinstance(v, SelectedRows):
+    if isinstance(v, (SelectedRows, LoDTensor)):
         return v.map(torch.clone)
     return v
+
+
+def _data(v):
+    """A value's tensor and its LoD (None for a plain tensor)."""
+    if isinstance(v, LoDTensor):
+        return v.data, v.lod
+    return v, None
+
+
+def _rewrap(t, lod):
+    return t if lod is None else LoDTensor(t, lod)
 
 
 def _owns_storage(t) -> bool:
@@ -307,14 +356,17 @@ class _Plan:
 
 
 class _Entry:
-    """One cache entry: a plan and, on a CUDA place after its first hit,
-    the CUDA graph it was captured into.  `outputs` names the values a
-    graph must keep (fetches, written states, a segment's writes)."""
+    """One cache entry: a plan, the host-built tables its runs read
+    (`tables`, the ExecContext's: built at the miss, read by the
+    capture) and, on a CUDA place after its first hit, the CUDA graph
+    it was captured into.  `outputs` names the values a graph must keep
+    (fetches, written states, a segment's writes)."""
 
     def __init__(self, plan: _Plan, outputs):
         self.plan = plan
         self.outputs = list(dict.fromkeys(outputs))
-        self.graph = self.bufs = self.outs = None
+        self.tables = {}
+        self.graph = self.bufs = self.outs = self.lods = None
         self.write_back_bytes = 0
 
     def capture(self, ctx, vals, where):
@@ -323,9 +375,11 @@ class _Entry:
         caller must rebind to the buffer the graph reads)."""
         # state at fixed addresses: the graph reads each input from the
         # tensor it was captured with, one buffer per input, each its
-        # own storage (a view or a second name of one tensor is cloned)
-        bufs, rebind, seen = {}, {}, set()
+        # own storage (a view or a second name of one tensor is cloned);
+        # a LoDTensor's buffer is its data, its LoD fixed by the key
+        bufs, rebind, seen, lods = {}, {}, set(), {}
         for n, v in vals.items():
+            v, lods[n] = _data(v)
             if not isinstance(v, torch.Tensor):
                 # a SelectedRows gradient is made and used inside one
                 # block; one that crosses a host op between segments is
@@ -334,16 +388,17 @@ class _Entry:
                                 f"{n!r} is a {type(v).__name__}, not a "
                                 "tensor")
             if _ptr(v) in seen or not _owns_storage(v):
-                v = rebind[n] = v.clone(memory_format=torch.contiguous_format)
+                v = v.clone(memory_format=torch.contiguous_format)
+                rebind[n] = _rewrap(v, lods[n])
             seen.add(_ptr(v))
             bufs[n] = v
         graph, failed = torch.cuda.CUDAGraph(), []
         try:
             with torch.cuda.graph(graph):
                 try:
-                    env = self.plan.run(ctx, dict(bufs),
-                                        self.plan.write_through(
-                                            bufs, self.outputs))
+                    env = self.plan.run(
+                        ctx, {n: _rewrap(b, lods[n]) for n, b in bufs.items()},
+                        self.plan.write_through(bufs, self.outputs))
                     outs = {n: env[n] for n in self.outputs if n in env}
                     self.write_back_bytes = (self.plan.through_bytes
                                              + self._write_back(bufs, outs))
@@ -359,7 +414,7 @@ class _Entry:
                                f"{what}: {type(err).__name__}: {err}"
                                ) from err
         graph.replay()
-        self.graph, self.bufs, self.outs = graph, bufs, outs
+        self.graph, self.bufs, self.outs, self.lods = graph, bufs, outs, lods
         return outs, rebind
 
     @staticmethod
@@ -389,6 +444,7 @@ class _Entry:
         rebind = {}
         for n, v in vals.items():
             b = self.bufs[n]
+            v = _data(v)[0]
             if v is b:
                 continue
             if v.device.type == "cpu":
@@ -397,14 +453,14 @@ class _Entry:
                 b.copy_(v.pin_memory(), non_blocking=True)
             else:
                 b.copy_(v)
-            rebind[n] = b
+            rebind[n] = _rewrap(b, self.lods[n])
         self.graph.replay()
         return self.outs, rebind
 
     def free(self):
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.bufs = self.outs = None
+        self.graph = self.bufs = self.outs = self.lods = None
 
 
 _EXE_IDS = itertools.count()
@@ -450,8 +506,8 @@ class Executor:
         self._m_recompiles = _M_RECOMPILES.labels(exe=self._exe_id)
         self._m_entries = _M_ENTRIES.labels(exe=self._exe_id)
         self._warm_fps: set = set()
-        self._graph_stats = {"captures": 0, "replays": 0, "capture_s": 0.0,
-                             "write_back_bytes": 0}
+        self._graph_stats = {"captures": 0, "replays": 0, "eager_hits": 0,
+                             "capture_s": 0.0, "write_back_bytes": 0}
 
     def cache_stats(self) -> Dict:
         """The cache's telemetry, with the JAX package's keys: `hits` and
@@ -469,6 +525,7 @@ class Executor:
 
     def graph_stats(self) -> Dict:
         """CUDA graphs: `captures`, `replays` (hits that only replayed),
+        `eager_hits` (hits run eagerly: GRAPHS_MAX graphs were live),
         `capture_s` (seconds in captures, their first replay included),
         `write_back_bytes` (read-write state bytes the captured graphs
         copy back into their buffers, a replay of each) and `graphs`
@@ -611,40 +668,48 @@ class Executor:
     def _lookup(self, key, fp, make, once=None):
         """-> (entry, miss): the cache entry for `key`, made by `make()`
         on a miss."""
-        entry = self._cache.get(key)
+        entry = self._cache.pop(key, None)
         miss = entry is None
         self._note_lookup(not miss, fp, key, once)
         if miss:
-            entry = self._cache[key] = make()
-            self._m_entries.set(len(self._cache))
+            entry = make()
+            while len(self._cache) >= CACHE_MAX:
+                self._cache.pop(next(iter(self._cache))).free()
+        self._cache[key] = entry     # the most recently used goes last
+        self._m_entries.set(len(self._cache))
         return entry, miss
 
     def _run_entry(self, entry, miss, vals, seed, where, publish):
-        """Run a cache entry: eagerly on a miss or on the CPU (`vals`
-        becoming its env, `publish` storing each value it writes for the
-        last time, so an old state's memory goes as the interpreter's
-        does); on a CUDA place captured at the first hit, replayed after
-        -> (outputs, {name: buffer} to rebind)."""
-        ctx = ExecContext(self.device, seed=seed)
-        t0 = time.perf_counter()
-        if miss or self.device.type != "cuda":
-            for n, v in vals.items():
-                vals[n] = _to_device_value(v, self.device)
-            with torch.no_grad():
-                out = entry.plan.run(ctx, vals, publish), {}
-        elif entry.graph is None:
-            with torch.no_grad():
-                out = entry.capture(ctx, {n: _to_device_value(v, self.device)
-                                          for n, v in vals.items()}, where)
-            dt = time.perf_counter() - t0
-            self._graph_stats["captures"] += 1
-            self._graph_stats["capture_s"] += dt
-            self._graph_stats["write_back_bytes"] += entry.write_back_bytes
-            self._m_compile_s.inc(dt)
-            return out
-        else:
+        """Run a cache entry with its own tables: eagerly on a miss, on
+        the CPU, or when GRAPHS_MAX graphs are live (`vals` becoming its
+        env, `publish` storing each value it writes for the last time,
+        so an old state's memory goes as the interpreter's does); on a
+        CUDA place captured at the first hit, replayed after ->
+        (outputs, {name: buffer} to rebind)."""
+        ctx = ExecContext(self.device, seed=seed, tables=entry.tables)
+        if entry.graph is not None:
             self._graph_stats["replays"] += 1
             return entry.replay(vals)
+        t0 = time.perf_counter()
+        if not miss and self.device.type == "cuda":
+            if sum(e.graph is not None
+                   for e in self._cache.values()) < GRAPHS_MAX:
+                with torch.no_grad():
+                    out = entry.capture(ctx, {
+                        n: _to_device_value(v, self.device)
+                        for n, v in vals.items()}, where)
+                dt = time.perf_counter() - t0
+                self._graph_stats["captures"] += 1
+                self._graph_stats["capture_s"] += dt
+                self._graph_stats["write_back_bytes"] += \
+                    entry.write_back_bytes
+                self._m_compile_s.inc(dt)
+                return out
+            self._graph_stats["eager_hits"] += 1
+        for n, v in vals.items():
+            vals[n] = _to_device_value(v, self.device)
+        with torch.no_grad():
+            out = entry.plan.run(ctx, vals, publish), {}
         if miss:
             self._m_compile_s.inc(time.perf_counter() - t0)
         return out
@@ -746,7 +811,8 @@ class Executor:
 
         def publish(i, names, seg_env):
             for n in names:
-                env.set(n, seg_env[n])
+                if n in seg_env:    # an op may leave an output unset
+                    env.set(n, seg_env[n])
 
         outs, rebind = self._run_entry(entry, miss, vals, seed,
                                        f"segment {seg_idx}", publish)

@@ -18,8 +18,11 @@ the slots it differentiates.
 `host` marks an op that must run on the host, eagerly, between the
 compiled Executor's device segments (core/executor.py); `random` an op
 that draws from its context's generator; `sparse` an op whose lowering
-takes SelectedRows values (core/lod.py).  `lowering_generation()`
-changes whenever any op's `lower` or `grad_lower` is set — by
+takes SelectedRows values (core/lod.py); `lod` an op whose lowering
+takes LoDTensor values — it reads their LoD or hands it on (the
+sequence and recurrent ops, and the dense ops the JAX package writes
+with `with_lod_of`).  Any other lowering gets a LoDTensor's data.
+`lowering_generation()` changes whenever any op's `lower` or `grad_lower` is set — by
 `register_op`, `register_grad_lower` or a plain assignment — so the
 Executor's cache never serves a plan (or a CUDA graph) resolved against
 a lowering that was swapped since.
@@ -72,6 +75,9 @@ class OpInfo:
     # True if the lowering takes SelectedRows inputs (sum, the optimizer
     # updates, split_selected_rows); any other op meeting one raises
     sparse: bool = False
+    # True if the lowering takes LoDTensor inputs; any other op gets
+    # their data (core/execution.resolve_op)
+    lod: bool = False
 
     def __setattr__(self, name, value):
         if name in ("lower", "grad_lower"):
@@ -97,6 +103,7 @@ def register_op(
     dup_outputs: Sequence[str] = (),
     host: bool = False,
     sparse: bool = False,
+    lod: bool = False,
 ):
     """Decorator: register `fn` as the torch lowering for op `type`."""
 
@@ -115,6 +122,7 @@ def register_op(
         info.not_differentiable = not_differentiable
         info.host = host
         info.sparse = sparse
+        info.lod = lod
         _REGISTRY[type] = info
         return fn
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import registry
-from .execution import ExecContext
+from .execution import ExecContext, data_of
 from .framework import EMPTY_VAR_NAMES
 from .types import canonical_dtype, torch_dtype
 
@@ -64,6 +64,7 @@ def default_infer_shape(op, block, report=None):
         if not isinstance(vals, (list, tuple)):
             vals = [vals]
         for name, val in zip(names, vals):
+            val = data_of(val)   # a LoDTensor output: its data's shape
             if name in EMPTY_VAR_NAMES or not isinstance(val, torch.Tensor):
                 continue
             var = block.vars.get(name)

@@ -52,6 +52,16 @@ def torch_dtype(name) -> torch.dtype:
     return _TORCH[canonical_dtype(name)]
 
 
+def np_dtype(name):
+    """Canonical name -> numpy dtype (bfloat16 via ml_dtypes)."""
+    name = canonical_dtype(name)
+    if name == "bfloat16":
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
+
+
 def is_float_dtype(d) -> bool:
     return canonical_dtype(d) in FLOAT_DTYPES
 

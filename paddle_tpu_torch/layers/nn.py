@@ -1,7 +1,8 @@
 """NN layers: fc, embedding, flash_attention, the conv-net layers
 (conv2d, pool2d, batch_norm, dropout), layer_norm, matmul, the losses,
 reductions, split, l2_normalize, one_hot, cos_sim, multiplex, the step
-counter and the metrics of a training Program (counterpart of
+counter and the metrics of a training Program, and the sequence and
+recurrent layers over LoD values (counterpart of
 paddle_tpu/layers/nn.py)."""
 from __future__ import annotations
 
@@ -17,7 +18,11 @@ __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "cos_sim", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "split", "l2_normalize",
            "one_hot", "autoincreased_step_counter", "smooth_l1",
-           "multiplex"]
+           "multiplex", "edit_distance", "dynamic_lstm", "dynamic_gru",
+           "sequence_conv", "sequence_pool", "sequence_first_step",
+           "sequence_last_step", "sequence_softmax", "sequence_expand",
+           "sequence_reshape", "lod_reset", "im2sequence", "dynamic_lstmp",
+           "gru_unit", "lstm_unit"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -509,3 +514,286 @@ def multiplex(inputs, index):
                      {"Ids": [index.name], "X": [v.name for v in inputs]},
                      {"Out": [out.name]}, {})
     return out
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None):
+    """Levenshtein distance between hypothesis and reference sequences
+    (reference layers edit_distance / edit_distance_op.cc)."""
+    helper = LayerHelper("edit_distance")
+    if ignored_tokens:
+        erased = helper.create_tmp_variable("int64")
+        helper.append_op("sequence_erase", {"X": [input.name]},
+                         {"Out": [erased.name]},
+                         {"tokens": list(ignored_tokens)})
+        input = erased
+        erased_l = helper.create_tmp_variable("int64")
+        helper.append_op("sequence_erase", {"X": [label.name]},
+                         {"Out": [erased_l.name]},
+                         {"tokens": list(ignored_tokens)})
+        label = erased_l
+    out = helper.create_tmp_variable("float32", stop_gradient=True)
+    seq_num = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op(
+        "edit_distance",
+        {"Hyps": [input.name], "Refs": [label.name]},
+        {"Out": [out.name], "SequenceNum": [seq_num.name]},
+        {"normalized": bool(normalized)})
+    return out, seq_num
+
+
+# ---------------------------------------------------------------------------
+# sequence / recurrent layers (the reference's layers/nn.py dynamic_lstm,
+# dynamic_gru, sequence_conv, sequence_pool, sequence_expand, ...)
+# ---------------------------------------------------------------------------
+
+
+def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
+                 use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """`input` must be a LoD var of width 4*hidden (typically an fc output);
+    `size` is 4*hidden to match the reference API."""
+    helper = LayerHelper("lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    hidden = size // 4
+    weight = helper.create_parameter(param_attr, [hidden, 4 * hidden],
+                                     dtype, suffix="w")
+    bias_size = 7 * hidden if use_peepholes else 4 * hidden
+    bias = helper.create_parameter(bias_attr or {}, [1, bias_size], dtype,
+                                   is_bias=True, suffix="b")
+    h = helper.create_tmp_variable(dtype)
+    c = helper.create_tmp_variable(dtype)
+    bg = helper.create_tmp_variable(dtype, stop_gradient=True)
+    bc = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op(
+        "lstm",
+        {"Input": [input.name], "Weight": [weight.name],
+         "Bias": [bias.name]},
+        {"Hidden": [h.name], "Cell": [c.name], "BatchGate": [bg.name],
+         "BatchCellPreAct": [bc.name]},
+        {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+         "gate_activation": gate_activation,
+         "cell_activation": cell_activation,
+         "candidate_activation": candidate_activation})
+    for v in (h, c):
+        v.shape = (-1, hidden)
+        v.lod_level = input.lod_level
+    return h, c
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, dtype="float32"):
+    """`input` width must be 3*size."""
+    helper = LayerHelper("gru", param_attr=param_attr, bias_attr=bias_attr)
+    weight = helper.create_parameter(param_attr, [size, 3 * size], dtype,
+                                     suffix="w")
+    bias = helper.create_parameter(bias_attr or {}, [1, 3 * size], dtype,
+                                   is_bias=True, suffix="b")
+    h = helper.create_tmp_variable(dtype)
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    bg = helper.create_tmp_variable(dtype, stop_gradient=True)
+    br = helper.create_tmp_variable(dtype, stop_gradient=True)
+    bh = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op(
+        "gru", inputs,
+        {"Hidden": [h.name], "BatchGate": [bg.name],
+         "BatchResetHiddenPrev": [br.name], "BatchHidden": [bh.name]},
+        {"is_reverse": is_reverse, "gate_activation": gate_activation,
+         "activation": candidate_activation})
+    h.shape = (-1, size)
+    h.lod_level = input.lod_level
+    return h
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None):
+    helper = LayerHelper("sequence_conv", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act)
+    dtype = input.dtype
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    w = helper.create_parameter(param_attr, filter_shape, dtype, suffix="w")
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "sequence_conv",
+        {"X": [input.name], "Filter": [w.name]},
+        {"Out": [pre_bias.name]},
+        {"contextStride": filter_stride,
+         "contextStart": -int(filter_size // 2),
+         "contextLength": filter_size})
+    pre_bias.shape = (-1, num_filters)
+    pre_bias.lod_level = input.lod_level
+    pre_act = helper.append_bias_op(pre_bias)
+    out = helper.append_activation(pre_act)
+    out.lod_level = input.lod_level
+    return out
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_tmp_variable(input.dtype)
+    max_index = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("sequence_pool", {"X": [input.name]},
+                     {"Out": [out.name], "MaxIndex": [max_index.name]},
+                     {"pooltype": pool_type.upper()})
+    out.shape = (-1,) + tuple(input.shape[1:])
+    out.lod_level = max(0, input.lod_level - 1)
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def sequence_softmax(input):
+    helper = LayerHelper("sequence_softmax")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("sequence_softmax", {"X": [input.name]},
+                     {"Out": [out.name]})
+    out.shape = input.shape
+    out.lod_level = input.lod_level
+    return out
+
+
+def sequence_expand(x, y, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("sequence_expand", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]})
+    out.shape = x.shape
+    out.lod_level = max(x.lod_level, 1)
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("sequence_reshape", {"X": [input.name]},
+                     {"Out": [out.name]}, {"new_dim": new_dim})
+    out.shape = (-1, new_dim)
+    out.lod_level = input.lod_level
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper("lod_reset")
+    out = helper.create_tmp_variable(x.dtype)
+    inputs = {"X": [x.name]}
+    if y is not None:
+        inputs["Y"] = [y.name]
+    helper.append_op("lod_reset", inputs, {"Out": [out.name]},
+                     {"target_lod": target_lod or []})
+    out.shape = x.shape
+    out.lod_level = max(1, x.lod_level)
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0):
+    helper = LayerHelper("im2sequence")
+    fs = [filter_size] * 2 if isinstance(filter_size, int) else filter_size
+    st = [stride] * 2 if isinstance(stride, int) else stride
+    pd = [padding] * 4 if isinstance(padding, int) else padding
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("im2sequence", {"X": [input.name]},
+                     {"Out": [out.name]},
+                     {"kernels": list(fs), "strides": list(st),
+                      "paddings": list(pd)})
+    out.lod_level = 1
+    return out
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None):
+    """LSTM with recurrent projection (reference layers/nn.py:400
+    dynamic_lstmp / lstmp_op.cc).  `input` is a LoD var of width 4*hidden;
+    `size` = 4*hidden, `proj_size` = projection width."""
+    helper = LayerHelper("lstmp", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    hidden = size // 4
+    weight = helper.create_parameter(param_attr, [proj_size, 4 * hidden],
+                                     dtype, suffix="w")
+    proj_weight = helper.create_parameter(param_attr,
+                                          [hidden, proj_size], dtype,
+                                          suffix="proj_w")
+    bias_size = 7 * hidden if use_peepholes else 4 * hidden
+    bias = helper.create_parameter(bias_attr or {}, [1, bias_size], dtype,
+                                   is_bias=True, suffix="b")
+    proj = helper.create_tmp_variable(dtype)
+    cell = helper.create_tmp_variable(dtype)
+    bg = helper.create_tmp_variable(dtype, stop_gradient=True)
+    bh = helper.create_tmp_variable(dtype, stop_gradient=True)
+    bc = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op(
+        "lstmp",
+        {"Input": [input.name], "Weight": [weight.name],
+         "ProjWeight": [proj_weight.name], "Bias": [bias.name]},
+        {"Projection": [proj.name], "Cell": [cell.name],
+         "BatchGate": [bg.name], "BatchHidden": [bh.name],
+         "BatchCellPreAct": [bc.name]},
+        {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+         "gate_activation": gate_activation,
+         "cell_activation": cell_activation,
+         "candidate_activation": candidate_activation,
+         "proj_activation": proj_activation})
+    return proj, cell
+
+
+def gru_unit(input, hidden, size, weight=None, bias=None, param_attr=None,
+             bias_attr=None, activation="tanh",
+             gate_activation="sigmoid"):
+    """Single GRU step (reference layers/nn.py:693 / gru_unit_op.cc);
+    `input` is the projected gate input of width `size` (= 3*hidden)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    h = size // 3
+    if weight is None:
+        weight = helper.create_parameter(param_attr, [h, 3 * h], dtype,
+                                         suffix="w")
+    if bias is None:
+        bias = helper.create_parameter(bias_attr or {}, [1, 3 * h], dtype,
+                                       is_bias=True, suffix="b")
+    gate = helper.create_tmp_variable(dtype)
+    reset_hidden_pre = helper.create_tmp_variable(dtype)
+    updated_hidden = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "gru_unit",
+        {"Input": [input.name], "HiddenPrev": [hidden.name],
+         "Weight": [weight.name], "Bias": [bias.name]},
+        {"Gate": [gate.name], "ResetHiddenPrev": [reset_hidden_pre.name],
+         "Hidden": [updated_hidden.name]},
+        {"activation": activation, "gate_activation": gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """Single LSTM step (reference layers/nn.py:1942 / lstm_unit_op.cc):
+    gates = fc([x_t, h_prev]); returns (h, c)."""
+    helper = LayerHelper("lstm_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    from .tensor import concat
+    dtype = x_t.dtype
+    size = hidden_t_prev.shape[-1]
+    concat_out = concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(input=concat_out, size=4 * size, param_attr=param_attr,
+                bias_attr=bias_attr)
+    c = helper.create_tmp_variable(dtype)
+    h = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "lstm_unit",
+        {"X": [fc_out.name], "C_prev": [cell_t_prev.name]},
+        {"C": [c.name], "H": [h.name]},
+        {"forget_bias": float(forget_bias)})
+    return h, c

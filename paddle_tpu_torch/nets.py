@@ -1,6 +1,6 @@
 """Composed network patterns (counterpart of paddle_tpu/nets.py): the
-image helpers simple_img_conv_pool and img_conv_group, and multi-head
-scaled dot-product attention."""
+image helpers simple_img_conv_pool and img_conv_group, multi-head
+scaled dot-product attention, and sequence_conv_pool."""
 from __future__ import annotations
 
 import math
@@ -10,7 +10,7 @@ import numpy as np
 from . import layers
 
 __all__ = ["simple_img_conv_pool", "img_conv_group",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -100,3 +100,11 @@ def scaled_dot_product_attention(queries, keys, values,
     ctx = layers.matmul(weights, v)                  # [b, h, s, d/h]
     ctx = layers.transpose(ctx, axis=[0, 2, 1, 3])   # [b, s, h, d/h]
     return layers.reshape(ctx, shape=[0, 0, d_model])
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -7,8 +7,8 @@ the startup initializers), the MoE FFN, the conv nets' ops
 (convolution, pooling, batch norm, lrn, dropout, top_k and accuracy),
 and the dense op corpus of the JAX package's activation, elementwise,
 matmul, reduce, manip, creation, loss, metrics and misc modules (every
-type there that needs no LoD, SelectedRows or sub-block), each lowered
-once in PyTorch.
+type there that needs no LoD, SelectedRows or sub-block), the LoD
+sequence ops and the recurrent ops, each lowered once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -26,4 +26,6 @@ from . import (  # noqa: F401
     norm,
     optimizer_ops,
     reduce,
+    rnn,
+    sequence,
 )

@@ -16,7 +16,8 @@ import math
 import torch
 
 from ..amp import amp_upcast
-from ..core.execution import _M32, _mix, mix32_, one, scalar_like
+from ..core.execution import (_M32, _mix, data_of, mix32_, one, scalar_like,
+                              with_lod_of)
 from ..core.registry import register_op
 
 
@@ -90,9 +91,11 @@ _UNARY = {
 
 
 def _unary(name, fn, attrs):
-    @register_op(name, inputs=("X",), outputs=("Out",), attrs=attrs)
+    @register_op(name, inputs=("X",), outputs=("Out",), attrs=attrs,
+                 lod=True)
     def lower(ctx, ins, attrs, _fn=fn):
-        return {"Out": _fn(one(ins, "X"), attrs)}
+        xv = one(ins, "X")
+        return {"Out": with_lod_of(xv, _fn(data_of(xv), attrs))}
 
     return lower
 
@@ -101,19 +104,22 @@ for _name, (_fn, _attrs) in _UNARY.items():
     _unary(_name, _fn, _attrs)
 
 
-@register_op("softmax", inputs=("X",), outputs=("Out",))
+@register_op("softmax", inputs=("X",), outputs=("Out",), lod=True)
 def softmax(ctx, ins, attrs):
     """Reference softmax_op.cc: softmax over the last dim.  Under amp a
     bf16 input is upcast to f32 (numerically sensitive)."""
-    return {"Out": torch.softmax(amp_upcast(one(ins, "X")), dim=-1)}
+    xv = one(ins, "X")
+    return {"Out": with_lod_of(
+        xv, torch.softmax(amp_upcast(data_of(xv)), dim=-1))}
 
 
-@register_op("prelu", inputs=("X", "Alpha"), outputs=("Out",))
+@register_op("prelu", inputs=("X", "Alpha"), outputs=("Out",), lod=True)
 def prelu(ctx, ins, attrs):
     """One learned slope for every negative element."""
-    x = one(ins, "X")
-    alpha = one(ins, "Alpha").reshape(())
-    return {"Out": torch.where(x > 0, x, alpha * x)}
+    xv = one(ins, "X")
+    x = data_of(xv)
+    alpha = data_of(one(ins, "Alpha")).reshape(())
+    return {"Out": with_lod_of(xv, torch.where(x > 0, x, alpha * x))}
 
 
 # rows of one keyed draw at a time: at most 2^21 elements, so the hash's
@@ -149,7 +155,8 @@ def keyed_uniform_mask(shape, p, seed, row_offset, dtype, device):
 @register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),
              attrs={"dropout_prob": 0.5, "is_test": False, "seed": 0,
                     "fix_seed": False},
-             diff_inputs=("X",), diff_outputs=("Out",), random=True)
+             diff_inputs=("X",), diff_outputs=("Out",), random=True,
+             lod=True)
 def dropout(ctx, ins, attrs):
     """Paddle's "downgrade in infer" dropout: in training Out = X * Mask
     with no 1/(1-p) upscale, Mask a 0/1 tensor of X's dtype keeping each
@@ -163,11 +170,12 @@ def dropout(ctx, ins, attrs):
     identity), or `seed` when `fix_seed`.  The JAX package draws its
     rows from threefry keys, which are not matched bit for bit: the two
     agree in distribution."""
-    x = one(ins, "X")
+    xv = one(ins, "X")
+    x = data_of(xv)
     p = float(attrs["dropout_prob"])
     if attrs.get("is_test"):
         keep = scalar_like(x, 1.0 - p)
-        return {"Out": x * keep, "Mask": torch.ones_like(x)}
+        return {"Out": with_lod_of(xv, x * keep), "Mask": torch.ones_like(x)}
     if x.device.type == "meta":
         mask = torch.empty_like(x)
     else:
@@ -175,7 +183,7 @@ def dropout(ctx, ins, attrs):
             (ctx.seed or 0)
         mask = keyed_uniform_mask(x.shape, p, seed, ctx.row_offset, x.dtype,
                                   x.device)
-    return {"Out": x * mask, "Mask": mask}
+    return {"Out": with_lod_of(xv, x * mask), "Mask": mask}
 
 
 @register_op("dropout_grad", inputs=("Mask", "Out@GRAD"),

@@ -13,7 +13,7 @@ import collections
 import numpy as np
 import torch
 
-from ..core.execution import one, scalar_like
+from ..core.execution import data_of, one, scalar_like, with_lod_of
 from ..core.registry import register_op
 from ..core.types import torch_dtype
 
@@ -26,26 +26,33 @@ _CONSTANTS: "collections.OrderedDict" = collections.OrderedDict()
 _CONSTANTS_MAX = 256
 
 
-def attr_constant(values, dtype, shape, device):
+def attr_constant(ctx, values, dtype, shape):
     """The tensor of `values` (a list attribute) as `dtype` in `shape`
-    on `device`, built at its first use there and reused after."""
+    on ctx's device, built at its first use there and reused after.
+    The run's `ctx.tables` holds it as well: a cache entry of the
+    Executor (and the CUDA graph it captures) keeps the tensor its
+    eager run read, even once _CONSTANTS has dropped it."""
     dtype = torch_dtype(dtype)
     shape = tuple(int(s) for s in shape)
-    device = torch.device(device)
+    device = ctx.device
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     key = (id(values), dtype, shape, device)
-    hit = _CONSTANTS.get(key)
-    if hit is not None and hit[0] is values:
-        _CONSTANTS.move_to_end(key)
-        return hit[1]
-    arr = np.asarray(values, dtype=np.float64 if dtype.is_floating_point
-                     else None).reshape(shape)
-    t = torch.as_tensor(arr).to(dtype=dtype, device=device)
-    _CONSTANTS[key] = (values, t)
-    while len(_CONSTANTS) > _CONSTANTS_MAX:
-        _CONSTANTS.popitem(last=False)
-    return t
+    hit = ctx.tables.get(("constant",) + key)
+    if hit is None or hit[0] is not values:
+        hit = _CONSTANTS.get(key)
+        if hit is not None and hit[0] is values:
+            _CONSTANTS.move_to_end(key)
+        else:
+            arr = np.asarray(values, dtype=np.float64
+                             if dtype.is_floating_point else None)
+            hit = (values, torch.as_tensor(arr.reshape(shape)).to(
+                dtype=dtype, device=device))
+            _CONSTANTS[key] = hit
+            while len(_CONSTANTS) > _CONSTANTS_MAX:
+                _CONSTANTS.popitem(last=False)
+        ctx.tables[("constant",) + key] = hit
+    return hit[1]
 
 
 @register_op("fill_constant", inputs=(), outputs=("Out",),
@@ -115,12 +122,15 @@ def gaussian_random(ctx, ins, attrs):
 
 
 @register_op("fill_zeros_like", inputs=("X",), outputs=("Out",),
-             not_differentiable=True)
+             not_differentiable=True, lod=True)
 def fill_zeros_like(ctx, ins, attrs):
-    return {"Out": torch.zeros_like(one(ins, "X"))}
+    """Zeros of X's shape and dtype, with X's LoD (a missing cotangent of
+    a LoD output)."""
+    xv = one(ins, "X")
+    return {"Out": with_lod_of(xv, torch.zeros_like(data_of(xv)))}
 
 
-@register_op("assign", inputs=("X",), outputs=("Out",))
+@register_op("assign", inputs=("X",), outputs=("Out",), lod=True)
 def assign(ctx, ins, attrs):
     return {"Out": one(ins, "X")}
 
@@ -140,8 +150,8 @@ def assign_value(ctx, ins, attrs):
     (attr_constant); every run copies that tensor on the device, so an
     in-place write to the output (a persistable's write-back) never
     reaches the cached one."""
-    return {"Out": attr_constant(attrs["values"], attrs["dtype"],
-                                 attrs["shape"], ctx.device).clone()}
+    return {"Out": attr_constant(ctx, attrs["values"], attrs["dtype"],
+                                 attrs["shape"]).clone()}
 
 
 @register_op("cast", inputs=("X",), outputs=("Out",),

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from ..amp import is_bf16_enabled
-from ..core.execution import dense_of, many, one, scalar_like
+from ..core.execution import (data_of, dense_of, many, one, scalar_like,
+                              with_lod_of)
 from ..core.lod import SelectedRows
 from ..core.registry import register_op
 from .activation import clip as _clip
@@ -31,15 +32,17 @@ def _broadcast_y(x, y, axis):
 
 def _make_elementwise(name, fn):
     @register_op(name, inputs=("X", "Y"), outputs=("Out",),
-                 attrs={"axis": -1})
+                 attrs={"axis": -1}, lod=True)
     def lower(ctx, ins, attrs, _fn=fn):
-        x, y = one(ins, "X"), one(ins, "Y")
+        xv = one(ins, "X")
+        x, y = data_of(xv), data_of(one(ins, "Y"))
         if _amp_mixed(x, y):
             # under amp, a bf16 activation meeting an f32 side (bias,
             # residual) computes in bf16: the activation chain stays bf16
             # instead of promoting back to f32
             x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
-        return {"Out": _fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))}
+        out = _fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))
+        return {"Out": with_lod_of(xv, out)}
 
     return lower
 
@@ -59,44 +62,50 @@ _make_elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("scale", inputs=("X",), outputs=("Out",),
-             attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
+             attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True},
+             lod=True)
 def scale(ctx, ins, attrs):
-    x = one(ins, "X")
+    xv = one(ins, "X")
+    x = data_of(xv)
     s = scalar_like(x, attrs["scale"])
     b = scalar_like(x, attrs.get("bias", 0.0))
     if attrs.get("bias_after_scale", True):
-        return {"Out": x * s + b}
-    return {"Out": (x + b) * s}
+        return {"Out": with_lod_of(xv, x * s + b)}
+    return {"Out": with_lod_of(xv, (x + b) * s)}
 
 
 @register_op("clip", inputs=("X",), outputs=("Out",),
              attrs={"min": -1.0, "max": 1.0},
-             inplace={"Out": "X"})
+             inplace={"Out": "X"}, lod=True)
 def clip(ctx, ins, attrs):
     """A maximum then a minimum, as `jnp.clip`: at a bound the gradient
     is 1/2 (`torch.clamp`'s is 1)."""
-    return {"Out": _clip(one(ins, "X"), attrs["min"], attrs["max"])}
+    xv = one(ins, "X")
+    return {"Out": with_lod_of(xv, _clip(data_of(xv), attrs["min"],
+                                         attrs["max"]))}
 
 
 @register_op("clip_by_norm", inputs=("X",), outputs=("Out",),
-             attrs={"max_norm": 1.0})
+             attrs={"max_norm": 1.0}, lod=True)
 def clip_by_norm(ctx, ins, attrs):
-    x = one(ins, "X")
+    xv = one(ins, "X")
+    x = data_of(xv)
     norm = torch.sqrt(torch.sum(torch.square(x)))
     factor = torch.where(norm > attrs["max_norm"],
                          attrs["max_norm"] / torch.clamp(norm, min=1e-12),
                          torch.ones_like(norm))
-    return {"Out": x * factor.to(x.dtype)}
+    return {"Out": with_lod_of(xv, x * factor.to(x.dtype))}
 
 
 @register_op("sum", inputs=("X",), outputs=("Out",),
-             dup_inputs=("X",), sparse=True)
+             dup_inputs=("X",), sparse=True, lod=True)
 def sum_op(ctx, ins, attrs):
     """Fan-in accumulator, over dense and SelectedRows values as the JAX
     package's: all sparse in, a SelectedRows out (rows and values
     concatenated in input order: a shared table's partial gradients);
     any dense in, the dense sum in input order, each SelectedRows made
-    dense where it stands (a regularized sparse gradient)."""
+    dense where it stands (a regularized sparse gradient), with the
+    first dense input's LoD."""
     xs = [v for v in many(ins, "X") if v is not None]
     if not xs:
         return {"Out": None}
@@ -104,10 +113,11 @@ def sum_op(ctx, ins, attrs):
         return {"Out": SelectedRows(torch.cat([v.rows for v in xs]),
                                     torch.cat([v.value for v in xs]),
                                     xs[0].height)}
-    acc = dense_of(xs[0])
+    acc = data_of(dense_of(xs[0]))
     for v in xs[1:]:
-        acc = acc + dense_of(v)
-    return {"Out": acc}
+        acc = acc + data_of(dense_of(v))
+    first = next(v for v in xs if not isinstance(v, SelectedRows))
+    return {"Out": with_lod_of(first, acc)}
 
 
 def _make_compare(name, fn):

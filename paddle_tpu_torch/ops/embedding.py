@@ -11,17 +11,18 @@ from __future__ import annotations
 
 import torch
 
-from ..core.execution import one
+from ..core.execution import data_of, one, with_lod_of
 from ..core.lod import SelectedRows
 from ..core.registry import register_op
 
 
 @register_op("lookup_table", inputs=("Ids", "W"), outputs=("Out",),
              attrs={"is_sparse": False, "padding_idx": -1},
-             diff_inputs=("W",))
+             diff_inputs=("W",), lod=True)
 def lookup_table(ctx, ins, attrs):
-    ids = one(ins, "Ids")
-    w = one(ins, "W")
+    ids_v = one(ins, "Ids")
+    ids = data_of(ids_v)
+    w = data_of(one(ins, "W"))
     flat = ids.reshape(-1).long()
     out = w.index_select(0, flat)
     pad = attrs.get("padding_idx", -1)
@@ -31,7 +32,7 @@ def lookup_table(ctx, ins, attrs):
         out_shape = tuple(ids.shape[:-1]) + (w.shape[1],)
     else:
         out_shape = tuple(ids.shape) + (w.shape[1],)
-    return {"Out": out.reshape(out_shape)}
+    return {"Out": with_lod_of(ids_v, out.reshape(out_shape))}
 
 
 @register_op("lookup_table_grad", inputs=("Ids", "W", "Out@GRAD"),

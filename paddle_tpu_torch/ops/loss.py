@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..amp import amp_upcast
-from ..core.execution import one, scalar_like
+from ..core.execution import data_of, one, scalar_like, with_lod_of
 from ..core.registry import register_infer_shape, register_op
 from ..core.shape_inference import input_var, set_output_shape
 from .activation import abs_
@@ -22,19 +22,20 @@ def _take_label(x, label):
 
 
 @register_op("cross_entropy", inputs=("X", "Label"), outputs=("Y",),
-             attrs={"soft_label": False}, diff_inputs=("X",))
+             attrs={"soft_label": False}, diff_inputs=("X",), lod=True)
 def cross_entropy(ctx, ins, attrs):
+    xv = one(ins, "X")
     # numerically sensitive tail: bf16 probabilities upcast to f32
-    x = amp_upcast(one(ins, "X"))
+    x = amp_upcast(data_of(xv))
     # additive eps (not clamp): keeps a finite, recovery-capable gradient
     # -1/(p+eps) when the softmax saturates to p≈0 on the true class
     eps = scalar_like(x, 1e-10 if x.dtype == torch.float32 else 1e-20)
     if attrs.get("soft_label"):
-        lbl = one(ins, "Label")
+        lbl = data_of(one(ins, "Label"))
         y = -torch.sum(lbl * torch.log(x + eps), dim=-1, keepdim=True)
     else:
-        y = -torch.log(_take_label(x, one(ins, "Label")) + eps)
-    return {"Y": y}
+        y = -torch.log(_take_label(x, data_of(one(ins, "Label"))) + eps)
+    return {"Y": with_lod_of(xv, y)}
 
 
 @register_op("softmax_with_cross_entropy", inputs=("Logits", "Label"),

@@ -7,20 +7,22 @@ import math
 
 import torch
 
-from ..core.execution import many, one
+from ..core.execution import data_of, many, one, with_lod_of
+from ..core.lod import LoDTensor
 from ..core.registry import register_op
 
 
 @register_op("reshape", inputs=("X",), outputs=("Out",),
-             attrs={"shape": []})
+             attrs={"shape": []}, lod=True)
 def reshape(ctx, ins, attrs):
-    x = one(ins, "X")
+    xv = one(ins, "X")
+    x = data_of(xv)
     shape = list(attrs["shape"])
     # reference reshape_op: 0 keeps the original dim, -1 infers
     for i, s in enumerate(shape):
         if s == 0:
             shape[i] = x.shape[i]
-    return {"Out": x.reshape(shape)}
+    return {"Out": with_lod_of(xv, x.reshape(shape))}
 
 
 @register_op("slice", inputs=("Input",), outputs=("Out",),
@@ -34,22 +36,29 @@ def slice_op(ctx, ins, attrs):
 
 
 @register_op("concat", inputs=("X",), outputs=("Out",),
-             dup_inputs=("X",), attrs={"axis": 0})
+             dup_inputs=("X",), attrs={"axis": 0}, lod=True)
 def concat(ctx, ins, attrs):
-    """The inputs joined along `axis` in slot order (the JAX package's
-    LoD branch waits for ROADMAP A7's LoDTensor)."""
-    return {"Out": torch.cat(many(ins, "X"), dim=int(attrs["axis"]))}
+    """The inputs joined along `axis` in slot order.  A concat along
+    another axis than the rows keeps the first input's LoD (the seq2seq
+    decoder's [target embedding, expanded context])."""
+    vs = many(ins, "X")
+    out = torch.cat([data_of(v) for v in vs], dim=int(attrs["axis"]))
+    if attrs["axis"] != 0 and isinstance(vs[0], LoDTensor):
+        return {"Out": LoDTensor(out, vs[0].lod)}
+    return {"Out": out}
 
 
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
-             attrs={"k": 1}, diff_outputs=())
+             attrs={"k": 1}, diff_outputs=(), lod=True)
 def top_k(ctx, ins, attrs):
     """The k largest along the last dim, largest first, equal values in
     index order (as `lax.top_k`): a stable descending sort, cut to k."""
-    vals, idx = torch.sort(one(ins, "X"), dim=-1, descending=True,
+    xv = one(ins, "X")
+    vals, idx = torch.sort(data_of(xv), dim=-1, descending=True,
                            stable=True)
     k = int(attrs["k"])
-    return {"Out": vals[..., :k], "Indices": idx[..., :k]}
+    return {"Out": with_lod_of(xv, vals[..., :k]),
+            "Indices": with_lod_of(xv, idx[..., :k])}
 
 
 @register_op("transpose", inputs=("X",), outputs=("Out",),

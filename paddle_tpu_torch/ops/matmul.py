@@ -9,7 +9,7 @@ import math
 import torch
 
 from ..amp import amp_cast
-from ..core.execution import one, scalar_like
+from ..core.execution import data_of, one, scalar_like, with_lod_of
 from ..core.registry import register_grad_lower, register_op
 
 
@@ -22,13 +22,15 @@ def _operands(x, y, attrs):
 
 
 @register_op("mul", inputs=("X", "Y"), outputs=("Out",),
-             attrs={"x_num_col_dims": 1, "y_num_col_dims": 1})
+             attrs={"x_num_col_dims": 1, "y_num_col_dims": 1}, lod=True)
 def mul(ctx, ins, attrs):
-    x = one(ins, "X")
-    y = one(ins, "Y")
+    xv = one(ins, "X")
+    x = data_of(xv)
+    y = data_of(one(ins, "Y"))
     out = torch.matmul(*_operands(x, y, attrs))
     xd, yd = attrs["x_num_col_dims"], attrs["y_num_col_dims"]
-    return {"Out": out.reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:]))}
+    return {"Out": with_lod_of(
+        xv, out.reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:])))}
 
 
 @register_grad_lower("mul")

@@ -1,11 +1,13 @@
-"""Metric ops: accuracy, auc, precision_recall and the host op
-positive_negative_pair (counterpart of paddle_tpu/ops/metrics.py)."""
+"""Metric ops: accuracy, auc, precision_recall and the host ops
+edit_distance and positive_negative_pair (counterpart of
+paddle_tpu/ops/metrics.py)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.execution import many, one
+from ..core.execution import data_of, many, one
+from ..core.lod import LoDTensor
 from ..core.registry import register_op
 
 
@@ -97,6 +99,45 @@ def precision_recall(ctx, ins, attrs):
     acc = states if prev is None else states + prev
     return {"BatchMetrics": _pr_metrics(states),
             "AccumMetrics": _pr_metrics(acc), "AccumStatesInfo": acc}
+
+
+@register_op("edit_distance", inputs=("Hyps", "Refs"),
+             outputs=("Out", "SequenceNum"),
+             attrs={"normalized": False}, not_differentiable=True, host=True,
+             lod=True)
+def edit_distance(ctx, ins, attrs):
+    """Levenshtein distance between each hypothesis and reference
+    sequence (first LoD level; a value with no LoD is one sequence), on
+    the host.  Out [n, 1] float32 (divided by the reference's length
+    when `normalized`), SequenceNum [1] int64, on the inputs' device."""
+    hyps, refs = one(ins, "Hyps"), one(ins, "Refs")
+
+    def seqs(t):
+        d = data_of(t).reshape(-1).tolist()
+        if isinstance(t, LoDTensor) and t.lod:
+            offs = t.lod[0]
+            return [d[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+        return [d]
+
+    outs = []
+    for h, r in zip(seqs(hyps), seqs(refs)):
+        n = len(r)
+        dp = np.arange(n + 1, dtype=np.float32)
+        for i in range(1, len(h) + 1):
+            prev = dp.copy()
+            dp[0] = i
+            for j in range(1, n + 1):
+                cost = 0 if h[i - 1] == r[j - 1] else 1
+                dp[j] = min(prev[j] + 1, dp[j - 1] + 1, prev[j - 1] + cost)
+        d = dp[n]
+        if attrs.get("normalized") and n > 0:
+            d /= n
+        outs.append(d)
+    dev = data_of(hyps).device
+    return {"Out": torch.tensor(np.asarray(outs, np.float32).reshape(-1, 1),
+                                device=dev),
+            "SequenceNum": torch.tensor([len(outs)], dtype=torch.int64,
+                                        device=dev)}
 
 
 @register_op("positive_negative_pair",

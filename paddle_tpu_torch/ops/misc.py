@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.execution import many, one
+from ..core.execution import data_of, many, one, with_lod_of
 from ..core.lod import SelectedRows
 from ..core.registry import register_op
 from ..core.types import canonical_dtype
@@ -14,15 +14,16 @@ from .creation import attr_constant
 
 @register_op("cos_sim", inputs=("X", "Y"),
              outputs=("Out", "XNorm", "YNorm"),
-             diff_outputs=("Out",))
+             diff_outputs=("Out",), lod=True)
 def cos_sim(ctx, ins, attrs):
     """Row-wise cosine similarity; a one-row Y broadcasts against every
     row of X (cos_sim_op.h)."""
-    x, y = one(ins, "X"), one(ins, "Y")
+    xv = one(ins, "X")
+    x, y = data_of(xv), data_of(one(ins, "Y"))
     xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
     yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
     out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
-    return {"Out": out, "XNorm": xn, "YNorm": yn}
+    return {"Out": with_lod_of(xv, out), "XNorm": xn, "YNorm": yn}
 
 
 @register_op("is_empty", inputs=("X",), outputs=("Out",),
@@ -73,15 +74,17 @@ def print_op(ctx, ins, attrs):
     return {"Out": v}
 
 
-@register_op("sign", inputs=("X",), outputs=("Out",))
+@register_op("sign", inputs=("X",), outputs=("Out",), lod=True)
 def sign(ctx, ins, attrs):
-    return {"Out": torch.sign(one(ins, "X"))}
+    xv = one(ins, "X")
+    return {"Out": with_lod_of(xv, torch.sign(data_of(xv)))}
 
 
-@register_op("minus", inputs=("X", "Y"), outputs=("Out",))
+@register_op("minus", inputs=("X", "Y"), outputs=("Out",), lod=True)
 def minus(ctx, ins, attrs):
     """Out = X - Y (reference minus_op.cc; no axis broadcast)."""
-    return {"Out": one(ins, "X") - one(ins, "Y")}
+    xv = one(ins, "X")
+    return {"Out": with_lod_of(xv, data_of(xv) - data_of(one(ins, "Y")))}
 
 
 @register_op("fill", inputs=(), outputs=("Out",),
@@ -91,23 +94,26 @@ def minus(ctx, ins, attrs):
 def fill(ctx, ins, attrs):
     """The flat `value` list in `shape` (reference fill_op.cc), built
     once per device as assign_value's."""
-    return {"Out": attr_constant(attrs["value"],
+    return {"Out": attr_constant(ctx, attrs["value"],
                                  attrs.get("dtype", "float32"),
-                                 attrs["shape"], ctx.device).clone()}
+                                 attrs["shape"]).clone()}
 
 
 @register_op("label_smooth", inputs=("X", "PriorDist"), outputs=("Out",),
-             attrs={"epsilon": 0.0}, diff_inputs=("X",))
+             attrs={"epsilon": 0.0}, diff_inputs=("X",), lod=True)
 def label_smooth(ctx, ins, attrs):
     """(1 - eps) X + eps prior (uniform 1/num_classes without PriorDist),
     reference label_smooth_op.h."""
-    x = one(ins, "X")
+    xv = one(ins, "X")
+    x = data_of(xv)
     eps = attrs["epsilon"]
     prior = many(ins, "PriorDist")
     if prior:
-        return {"Out": (1.0 - eps) * x + eps * prior[0].reshape(
-            (1,) * (x.dim() - 1) + (-1,))}
-    return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}
+        out = (1.0 - eps) * x + eps * data_of(prior[0]).reshape(
+            (1,) * (x.dim() - 1) + (-1,))
+    else:
+        out = (1.0 - eps) * x + eps / x.shape[-1]
+    return {"Out": with_lod_of(xv, out)}
 
 
 @register_op("multiplex", inputs=("Ids", "X"), outputs=("Out",),

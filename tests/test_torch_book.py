@@ -3,7 +3,12 @@ steps, conv 40) and tests/book/test_image_classification.py (VGG 60,
 ResNet-8 50) trained in the port and in the JAX package over the book's
 full step counts, on the book files' own synthetic data (`_make_data`),
 from the JAX startup's parameters, in each package's default mode
-(ROADMAP A3's book criterion).
+(ROADMAP A3's book criterion).  The LoD books too:
+tests/book/test_understand_sentiment.py (the LSTM and the conv net,
+DataFeeder feeds) and tests/book/test_recommender_system.py
+(`sequence_pool`, `nets.sequence_conv_pool`, `create_lod_tensor` feeds),
+their nets built by the book files' own functions with each package as
+their `fluid`, 20 steps each, every step's loss within the limits below.
 
 Tolerances.  Every step's loss within 1e-5 relative plus 5e-7 absolute:
 late in training the cross-entropy is -log(p) with p within 1e-4 of 1,
@@ -61,6 +66,7 @@ def _book(name):
 
 DIGITS = _book("test_recognize_digits")
 IMAGE = _book("test_image_classification")
+LOD_STEPS = 20
 
 
 @pytest.fixture(autouse=True)
@@ -178,3 +184,48 @@ def test_book_program_trains_like_jax(case):
     assert tloss[-1] < tloss[0]
     assert np.mean(tacc[-5:]) == np.mean(jacc[-5:])
     assert np.mean(tacc[-5:]) > CASES[case][5]
+
+
+def _lod_book(case, fluid, fw):
+    """(main, startup, loss, the feeds) of a LoD book case, built and fed
+    by the book file's functions with `fluid` as its package."""
+    book = _book("test_recommender_system" if case == "recommender"
+                 else "test_understand_sentiment")
+    book.fluid = fluid
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    r = np.random.RandomState(0)
+    with fluid.program_guard(main, startup):
+        if case == "recommender":
+            loss, _ = book.build_model()
+            fluid.SGD(learning_rate=0.2).minimize(loss)
+            batches = [book.make_batch(r) for _ in range(8)]
+        else:
+            data = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                     lod_level=1)
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64")
+            net = book._lstm_net if case == "sentiment_lstm" \
+                else book._conv_net
+            loss, _ = net(data, label)
+            fluid.Adam(learning_rate=0.05).minimize(loss)
+            feeder = fluid.DataFeeder(feed_list=[data, label])
+            batches = [feeder.feed(book._make_batch(r)) for _ in range(4)]
+    return main, startup, loss, [batches[i % len(batches)]
+                                 for i in range(LOD_STEPS)]
+
+
+@pytest.mark.parametrize("case", ["sentiment_lstm", "sentiment_conv",
+                                  "recommender"])
+def test_lod_book_program_trains_like_jax(case):
+    jm, js, jl, jfeeds = _lod_book(case, jfluid, jfw)
+    tm, ts, tl, tfeeds = _lod_book(case, tfluid, tfw)
+    _assert_same_program(jm, tm)
+    jexe, texe, _ = _start_both(jm, js, tm, ts)
+    jloss = [float(np.asarray(jexe.run(jm, feed=f, fetch_list=[jl])[0])
+                   .reshape(-1)[0]) for f in jfeeds]
+    tloss = [float(texe.run(tm, feed=f, fetch_list=[tl])[0].reshape(-1)[0])
+             for f in tfeeds]
+    assert np.all(np.isfinite(tloss))
+    np.testing.assert_allclose(tloss, jloss, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    assert tloss[-1] < tloss[0]

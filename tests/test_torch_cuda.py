@@ -1443,3 +1443,150 @@ def test_lrn_and_concat_on_the_card_match_cpu(dev):
     cat = get_op_info("concat").lower(
         ExecContext(dev), {"X": [t.to(dev) for t in parts]}, {"axis": 1})
     assert torch.equal(cat["Out"].cpu(), x)
+
+
+# -- LoD sequences and the recurrence ----------------------------------------
+
+def _lod_grad(op, ins, attrs, dev, seed=0):
+    """The generic gradient of `op` on the card for seeded cotangents of
+    its Out (Hidden for lstm) -> {slot@GRAD: [tensor]}."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 data_of,
+                                                 generic_grad_lower)
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    info = get_op_info(op)
+    attrs = {**info.attrs, **attrs}
+    outs = info.lower(ExecContext(dev), ins, attrs)
+    slot = "Hidden" if op == "lstm" else "Out"
+    out = data_of(outs[slot])
+    gen = torch.Generator().manual_seed(seed)
+    g = dict(ins)
+    g.update({s: [v] for s, v in outs.items() if v is not None})
+    g[slot + GRAD] = [torch.randn(out.shape, generator=gen).to(dev)]
+    res = generic_grad_lower(ExecContext(dev), g, attrs, info)
+    return {k: [data_of(v) for v in vs] for k, vs in res.items()}
+
+
+def test_lod_gradients_are_bit_equal_call_to_call(dev):
+    """sequence_expand (rows repeated), SUM pooling (segment sums) and
+    dynamic_lstm (padded gather, recurrence, repack) give the same
+    gradient bits on two calls: no atomics on the path."""
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    gen = torch.Generator().manual_seed(0)
+    lens = [int(n) for n in torch.randint(1, 60, (64,), generator=gen)]
+    lod = [lod_from_seq_lens(lens)]
+    n, d = sum(lens), 32
+    x = torch.randn((n, 4 * d), generator=gen).to(dev)
+    cases = [
+        ("sequence_expand",
+         {"X": [torch.randn((64, 48), generator=gen).to(dev)],
+          "Y": [LoDTensor(torch.zeros((n, 1), device=dev), lod)]}, {}),
+        ("sequence_pool", {"X": [LoDTensor(x, lod)]}, {"pooltype": "SUM"}),
+        ("lstm", {"Input": [LoDTensor(x, lod)],
+                  "Weight": [(0.1 * torch.randn((d, 4 * d), generator=gen))
+                             .to(dev)],
+                  "Bias": [torch.randn((1, 7 * d), generator=gen).to(dev)]},
+         {}),
+    ]
+    for op, ins, attrs in cases:
+        a = _lod_grad(op, ins, attrs, dev)
+        b = _lod_grad(op, ins, attrs, dev)
+        assert set(a) == set(b) and a, op
+        for k in a:
+            for u, v in zip(a[k], b[k]):
+                assert torch.equal(u, v), f"{op} {k}"
+
+
+def _lod_classifier_runs(feeds, order, compiled, cache_max=None,
+                         graphs_max=None):
+    """A small LSTM classifier trained on `feeds[i]` for i in `order` on
+    the card from a seeded startup, the Executor's bounds set for the
+    run -> (losses, graph_stats())."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        emb = fluid.layers.embedding(input=words, size=[100, 16])
+        proj = fluid.layers.fc(input=emb, size=32)
+        h, _ = fluid.layers.dynamic_lstm(input=proj, size=32)
+        last = fluid.layers.sequence_pool(h, pool_type="last")
+        pred = fluid.layers.fc(input=last, size=2, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        fluid.Adam(learning_rate=1e-3).minimize(loss)
+    bounds = (executor_mod.CACHE_MAX, executor_mod.GRAPHS_MAX)
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        executor_mod.CACHE_MAX = cache_max or bounds[0]
+        executor_mod.GRAPHS_MAX = graphs_max or bounds[1]
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=0)
+        torch.manual_seed(0)
+        exe.run(startup)
+        out = [float(exe.run(main, feed=feeds[i], fetch_list=[loss],
+                             compiled=compiled)[0][0]) for i in order]
+        stats = exe.graph_stats()
+        exe.close()
+        return out, stats
+    finally:
+        executor_mod.CACHE_MAX, executor_mod.GRAPHS_MAX = bounds
+        executor_mod.switch_scope(prev)
+
+
+def _lod_feeds(lengths):
+    import numpy as np
+
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    r = np.random.RandomState(0)
+    feeds = []
+    for lens in lengths:
+        ids = r.randint(0, 100, (sum(lens), 1)).astype(np.int64)
+        feeds.append({"words": LoDTensor(ids, [lod_from_seq_lens(lens)]),
+                      "label": r.randint(0, 2, (len(lens), 1))
+                      .astype(np.int64)})
+    return feeds
+
+
+@pytest.mark.parametrize("graphs_max", [32, 1], ids=["two_graphs",
+                                                   "one_graph_cap"])
+def test_lod_feed_is_captured_and_replayed_under_two_lods(dev, graphs_max):
+    """One Program, two LoDs fed in turns: a miss and a capture for each
+    LoD, replays after, each replay's loss the interpreter's.  With room
+    for one graph, the first LoD's graph stays and the other LoD's hits
+    run eagerly (one capture, two replays, three eager hits), with the
+    same losses."""
+    feeds = _lod_feeds(([3, 7, 2, 5], [6, 1, 4, 4]))
+    order = [0, 0, 1, 1, 0, 1, 0, 1]
+    k_loss, stats = _lod_classifier_runs(feeds, order, None,
+                                         graphs_max=graphs_max)
+    i_loss, _ = _lod_classifier_runs(feeds, order, False)
+    if graphs_max == 1:
+        assert stats["captures"] == 1 and stats["replays"] == 2
+        assert stats["eager_hits"] == 3 and stats["graphs"] == 1
+    else:
+        assert stats["captures"] == 2 and stats["replays"] == 4
+        assert stats["eager_hits"] == 0
+    assert k_loss == i_loss
+
+
+def test_a_lod_fed_again_after_its_entry_went_is_captured_again(dev):
+    """Three LoDs through a cache of two entries: each LoD's entry (its
+    graph and index tables with it) goes two LoDs later, so the first
+    LoD fed again is a miss that rebuilds its tables, a capture at its
+    next hit that reads them, and a replay after, each loss the
+    interpreter's."""
+    feeds = _lod_feeds(([3, 7, 2, 5], [6, 1, 4, 4], [2, 2, 9, 1]))
+    order = [0, 0, 1, 1, 2, 2, 0, 0, 0]
+    k_loss, stats = _lod_classifier_runs(feeds, order, None, cache_max=2)
+    i_loss, _ = _lod_classifier_runs(feeds, order, False)
+    assert stats["captures"] == 4 and stats["replays"] == 1
+    assert stats["graphs"] == 2 and stats["eager_hits"] == 0
+    assert k_loss == i_loss

@@ -16,7 +16,9 @@ Each case of tests/torch_op_cases.py runs three checks:
      info `.lower`, called directly) and `jax.vjp` over it, from the same
      numpy inputs and cotangents, rtol 1e-5 and atol 1e-6.
 
-Cotangents are seeded per case.  Cases at a kink or a tie (`fd=False`)
+An input given as (array, lod) is a LoDTensor in both packages; each
+output's LoD is held to the numpy reference's and the JAX lowering's,
+and each gradient to its input's.  Cotangents are seeded per case.  Cases at a kink or a tie (`fd=False`)
 skip check 2: there the JAX package's gradient is the reference.  The
 tests of each op family sit in tests/test_torch_ops_*.py, parametrised
 over the cases, so that `--dist loadfile` spreads them.
@@ -33,12 +35,14 @@ import torch
 from paddle_tpu.core import registry as jreg
 from paddle_tpu.core.execution import ExecContext as JExecContext
 from paddle_tpu.core.execution import data_of
+from paddle_tpu.core.lod import LoDTensor as JLoDTensor
 
 import paddle_tpu_torch  # noqa: F401  (registers the port's ops)
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.execution import GRAD
 from paddle_tpu_torch.core.execution import ExecContext as TExecContext
 from paddle_tpu_torch.core.execution import generic_grad_lower
+from paddle_tpu_torch.core.lod import LoDTensor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_op_cases import CASES, rng  # noqa: E402
@@ -46,14 +50,42 @@ from torch_op_cases import CASES, rng  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-6
 FD_EPS, FD_RTOL, FD_ATOL = 1e-6, 1e-6, 1e-8
 
-# the op types the dense corpus adds (every type with a case)
+# the op types the dense corpus and the LoD slice add (every type with a
+# case)
 CORPUS = sorted({c.op for c in CASES})
+LOD_TYPES = sorted({c.op for c in CASES
+                    if c.op in ("lod_reset", "im2sequence", "edit_distance")
+                    or c.op.startswith(("sequence_", "lstm", "gru"))})
 
 
 # -- plumbing ----------------------------------------------------------------
 
 def _as_list(v):
     return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def _inputs(v):
+    """A slot's inputs: a list of them, or one (an array, or an
+    (array, lod) tuple)."""
+    return v if isinstance(v, list) else [v]
+
+
+def _arr(a):
+    """The array of an input (an (array, lod) tuple's first item)."""
+    return a[0] if isinstance(a, tuple) else a
+
+
+def _lod(v):
+    """The LoD of a value of either package, as lists; None without."""
+    if isinstance(v, (LoDTensor, JLoDTensor)):
+        return [list(level) for level in v.lod]
+    if isinstance(v, tuple):
+        return [list(level) for level in v[1]]
+    return None
+
+
+def data_of_port(v):
+    return v.data if isinstance(v, LoDTensor) else v
 
 
 def _attrs(info, case):
@@ -65,15 +97,19 @@ def _torch_ins(case, dtype=torch.float32):
     out = {}
     for slot, v in case.ins.items():
         vals = []
-        for a in _as_list(v):
-            t = torch.from_numpy(np.array(a))
-            vals.append(t.to(dtype) if t.is_floating_point() else t)
+        for a in _inputs(v):
+            t = torch.from_numpy(np.array(_arr(a)))
+            t = t.to(dtype) if t.is_floating_point() else t
+            vals.append(LoDTensor(t, a[1]) if isinstance(a, tuple) else t)
         out[slot] = vals
     return out
 
 
 def _np(v):
-    """A port tensor or JAX array -> numpy (bf16 read as float32)."""
+    """A port tensor or JAX array -> numpy (bf16 read as float32; a
+    LoDTensor's data)."""
+    if isinstance(v, (LoDTensor, JLoDTensor, tuple)):
+        v = v[0] if isinstance(v, tuple) else v.data
     if isinstance(v, torch.Tensor):
         v = v.detach()
         return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
@@ -86,6 +122,8 @@ def _is_float(a):
 
 
 def _close(got, want, rtol, atol, what):
+    assert _lod(got) == _lod(want), f"{what}: LoD {_lod(got)} != " \
+                                    f"{_lod(want)}"
     got, want = _np(got), _np(want)
     assert got.shape == want.shape, f"{what}: shape {got.shape} != " \
                                     f"{want.shape}"
@@ -105,7 +143,7 @@ def diff_slots(info, ins):
     if info.diff_inputs is not None:
         return [s for s in info.diff_inputs if s in ins]
     return [s for s in info.inputs if s in ins
-            and all(_is_float(a) for a in _as_list(ins[s]))]
+            and all(_is_float(_arr(a)) for a in _inputs(ins[s]))]
 
 
 def out_slots(info, outs):
@@ -155,7 +193,7 @@ def port_gradient(case, cots, dtype=torch.float32):
     for s, cs in cots.items():
         g_ins[s + GRAD] = [torch.from_numpy(np.array(c)).to(
             v.dtype if v.is_floating_point() else dtype)
-            for c, v in zip(cs, _as_list(outs[s]))]
+            for c, v in zip(cs, [data_of_port(o) for o in _as_list(outs[s])])]
     res = generic_grad_lower(TExecContext("cpu"), g_ins, attrs, info)
     return {s[:-len(GRAD)]: v for s, v in res.items()}
 
@@ -165,16 +203,20 @@ def port_gradient(case, cots, dtype=torch.float32):
 def check_numpy(case):
     """Check 1: the port's float32 forward against the numpy reference."""
     outs = port_forward(case)
-    ins = {s: [np.asarray(a, np.float64) if _is_float(a) else np.asarray(a)
-               for a in _as_list(v)] for s, v in case.ins.items()}
-    ins = {s: (v if isinstance(case.ins[s], list) else v[0])
-           for s, v in ins.items()}
+
+    def as64(a):
+        x = np.asarray(_arr(a))
+        x = x.astype(np.float64) if _is_float(x) else x
+        return (x, a[1]) if isinstance(a, tuple) else x
+
+    ins = {s: ([as64(a) for a in v] if isinstance(v, list) else as64(v))
+           for s, v in case.ins.items()}
     info = treg.get_op_info(case.op)
     want = case.ref(ins, _attrs(info, case))
     for slot, w in want.items():
-        for i, (g, wi) in enumerate(zip(_as_list(outs[slot]), _as_list(w))):
-            _close(g, np.asarray(wi), RTOL, ATOL,
-                   f"{case.name} {slot}[{i}] against numpy")
+        for i, (g, wi) in enumerate(zip(_as_list(outs[slot]), _inputs(w))):
+            _close(g, wi if isinstance(wi, tuple) else np.asarray(wi),
+                   RTOL, ATOL, f"{case.name} {slot}[{i}] against numpy")
 
 
 def check_finite_differences(case):
@@ -191,11 +233,13 @@ def check_finite_differences(case):
         total = 0.0
         for s, cs in cots.items():
             for v, c in zip(_as_list(outs[s]), cs):
-                total += float((v.double() * torch.from_numpy(c)).sum())
+                total += float((data_of_port(v).double()
+                                * torch.from_numpy(c)).sum())
         return total
 
     for slot in diff_slots(info, case.ins):
         for i, t in enumerate(base[slot]):
+            t = data_of_port(t)
             if not t.is_floating_point():
                 continue
             num = np.zeros(tuple(t.shape))
@@ -219,11 +263,11 @@ def jax_lowering(case, cots=None):
     gradients {slot: [numpy]} by jax.vjp when `cots` is given)."""
     jinfo = jreg.get_op_info(case.op)
     attrs = {**jinfo.attrs, **case.attrs}
-    jins = {s: [jnp.asarray(a) for a in _as_list(v)]
+    jins = {s: [JLoDTensor(jnp.asarray(a[0]), a[1]) if isinstance(a, tuple)
+                else jnp.asarray(a) for a in _inputs(v)]
             for s, v in case.ins.items()}
     outs = jinfo.lower(JExecContext(), jins, attrs)
-    outs = {s: [data_of(x) for x in _as_list(v)] for s, v in outs.items()
-            if v is not None}
+    outs = {s: _as_list(v) for s, v in outs.items() if v is not None}
     if cots is None:
         return outs, None
     tinfo = treg.get_op_info(case.op)
@@ -234,16 +278,21 @@ def jax_lowering(case, cots=None):
     def f(*vals):
         ins = {s: list(v) for s, v in jins.items()}
         for (s, i), v in zip(leaves, vals):
-            ins[s][i] = v
+            x = ins[s][i]
+            ins[s][i] = JLoDTensor(v, x.lod) if isinstance(x, JLoDTensor) \
+                else v
         o = jinfo.lower(JExecContext(), ins, attrs)
         return tuple(data_of(x) for s in cots for x in _as_list(o[s]))
 
-    prim, vjp = jax.vjp(f, *[jins[s][i] for s, i in leaves])
+    prim, vjp = jax.vjp(f, *[data_of(jins[s][i]) for s, i in leaves])
     flat = [c for s in cots for c in cots[s]]
     got = vjp(tuple(jnp.asarray(c, p.dtype) for c, p in zip(flat, prim)))
     grads = {}
     for (s, i), g in zip(leaves, got):
-        grads.setdefault(s, {})[i] = np.asarray(g)
+        x = jins[s][i]   # the gradient carries its input's LoD
+        grads.setdefault(s, {})[i] = (JLoDTensor(np.asarray(g), x.lod)
+                                      if isinstance(x, JLoDTensor)
+                                      else np.asarray(g))
     return outs, {s: [d[i] for i in sorted(d)] for s, d in grads.items()}
 
 
@@ -253,7 +302,7 @@ def check_jax(case):
     grad = has_gradient(case)
     cots = cotangents(case) if grad else None
     jouts, jgrads = jax_lowering(case, cots)
-    touts = port_forward(case)
+    touts = {s: v for s, v in port_forward(case).items() if v is not None}
     assert set(touts) == set(jouts), (case.name, set(touts), set(jouts))
     for slot, jv in jouts.items():
         tv = _as_list(touts[slot])
@@ -287,14 +336,17 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 def test_the_corpus_is_the_jax_packages_dense_types():
-    """89 op types: every type of the JAX package's activation,
+    """108 op types: every type of the JAX package's activation,
     elementwise, matmul, reduce, manip, creation, loss, metrics and misc
-    modules that needs no LoD, SelectedRows or sub-block, and nothing
-    else; the port registers 144 in all (with the nine optimizer types
-    and split_selected_rows of tests/test_torch_optimizers.py)."""
-    assert len(CORPUS) == 89
+    modules that needs no LoD, SelectedRows or sub-block (89), and the
+    19 LoD sequence and recurrent types; the port registers 163 of the
+    JAX package's 233 in all (with the nine optimizer types and
+    split_selected_rows of tests/test_torch_optimizers.py)."""
+    assert len(CORPUS) == 108
+    assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 144
+    assert len(treg.registered_ops()) == 163
+    assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
 
 

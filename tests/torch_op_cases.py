@@ -3,10 +3,12 @@
 chip_smoke.py's ops phase.  numpy only: it imports neither torch nor
 JAX, so the card's script can read it.
 
-A case names an op type, its inputs ({slot: array or [arrays]}, float32
-unless the op takes ints or bools), its attributes (over the op's
+A case names an op type, its inputs ({slot: array or [arrays], or
+(array, lod) for a LoDTensor; float32 unless the op takes ints or
+bools}), its attributes (over the op's
 registered defaults), and a numpy reference of the forward in float64
-(`ref(ins, attrs) -> {slot: array}`, the slots it gives are compared).
+(`ref(ins, attrs) -> {slot: array or (array, lod)}`, the slots it gives
+are compared; a LoD input reaches it as (array, lod)).
 `fd=False` marks an input at a kink or a tie (a threshold, |x| at 0, a
 repeated maximum): there the gradient is held to `jax.vjp` only, since a
 finite difference straddles the kink.  Inputs of the other cases keep
@@ -851,6 +853,287 @@ def _misc_cases():
     ]
 
 
+# -- LoD sequences and recurrences (paddle_tpu/ops/sequence.py, rnn.py,
+# metrics.py edit_distance) ---------------------------------------------------
+
+def _lens(lod):
+    return np.diff(np.asarray(lod, np.int64))
+
+
+def _segments(x, lod):
+    return [x[lod[i]:lod[i + 1]] for i in range(len(lod) - 1)]
+
+
+def _pool_ref(ins, a):
+    x, lods = ins["X"]
+    lod, pt = lods[-1], a["pooltype"].upper()
+    out = []
+    for seg in _segments(x, lod):
+        n = max(len(seg), 1)
+        if pt == "MAX":
+            out.append(seg.max(0) if len(seg) else
+                       np.full(x.shape[1:], np.finfo(np.float32).min))
+        elif pt == "LAST":
+            out.append(seg[-1])
+        elif pt == "FIRST":
+            out.append(seg[0])
+        else:
+            div = {"SUM": 1.0, "AVERAGE": n, "SQRT": np.sqrt(n)}[pt]
+            out.append(seg.sum(0) / div)
+    out = np.stack(out)
+    return {"Out": (out, lods[:-1]) if len(lods) > 1 else out}
+
+
+def _softmax_ref(ins, a):
+    x, lods = ins["X"]
+    out = np.concatenate([np.exp(s - s.max()) / np.exp(s - s.max()).sum()
+                          for s in _segments(x.reshape(-1), lods[-1])])
+    return {"Out": (out.reshape(x.shape), lods)}
+
+
+def _expand_ref(ins, a):
+    x = ins["X"][0] if isinstance(ins["X"], tuple) else ins["X"]
+    y, ylods = ins["Y"]
+    return {"Out": (np.repeat(x, _lens(ylods[-1]), axis=0), ylods)}
+
+
+def _seq_concat_ref(ins, a):
+    (x0, l0), (x1, l1) = ins["X"]
+    parts, lens = [], []
+    for s0, s1 in zip(_segments(x0, l0[-1]), _segments(x1, l1[-1])):
+        parts += [s0, s1]
+        lens.append(len(s0) + len(s1))
+    return {"Out": (np.concatenate(parts), [list(np.cumsum([0] + lens))])}
+
+
+def _erase_ref(ins, a):
+    x, lods = ins["X"]
+    keep = [s[~np.isin(s.reshape(-1), a["tokens"])]
+            for s in _segments(x, lods[-1])]
+    return {"Out": (np.concatenate(keep),
+                    [list(np.cumsum([0] + [len(k) for k in keep]))])}
+
+
+def _slice_ref(ins, a):
+    x, lods = ins["X"]
+    off, ln = ins["Offset"].reshape(-1), ins["Length"].reshape(-1)
+    segs = _segments(x, lods[-1])
+    return {"Out": (np.concatenate([s[o:o + n] for s, o, n in
+                                    zip(segs, off, ln)]),
+                    [list(np.cumsum([0] + list(ln)))])}
+
+
+def _seq_conv_ref(ins, a):
+    x, lods = ins["X"]
+    w, c_len, c_start = ins["Filter"], a["contextLength"], a["contextStart"]
+    rows = []
+    for lo, hi in zip(lods[-1][:-1], lods[-1][1:]):
+        for r in range(lo, hi):
+            ctx = [x[r + c_start + j] if lo <= r + c_start + j < hi
+                   else np.zeros(x.shape[1]) for j in range(c_len)]
+            rows.append(np.concatenate(ctx))
+    return {"Out": (np.stack(rows) @ w, lods)}
+
+
+def _seq_pad_ref(ins, a):
+    x, lods = ins["X"]
+    segs = _segments(x, lods[-1])
+    t = max(a["padded_length"], max(len(s) for s in segs))
+    out = np.full((len(segs), t) + x.shape[1:], a["pad_value"])
+    for i, s in enumerate(segs):
+        out[i, :len(s)] = s
+    return {"Out": out, "Length": _lens(lods[-1])}
+
+
+def _unpad_ref(ins, a):
+    x, lens = ins["X"], ins["Length"].reshape(-1)
+    return {"Out": (np.concatenate([x[i, :n] for i, n in enumerate(lens)]),
+                    [list(np.cumsum([0] + list(lens)))])}
+
+
+def _edit_ref(ins, a):
+    out = []
+    for h, r in zip(_segments(ins["Hyps"][0].reshape(-1), ins["Hyps"][1][0]),
+                    _segments(ins["Refs"][0].reshape(-1),
+                              ins["Refs"][1][0])):
+        d = np.arange(len(r) + 1, dtype=np.float64)
+        for i in range(1, len(h) + 1):
+            prev, d[0] = d.copy(), i
+            for j in range(1, len(r) + 1):
+                d[j] = min(prev[j] + 1, d[j - 1] + 1,
+                           prev[j - 1] + (h[i - 1] != r[j - 1]))
+        out.append(d[-1] / len(r) if a["normalized"] and len(r) else d[-1])
+    return {"Out": np.asarray(out).reshape(-1, 1),
+            "SequenceNum": np.asarray([len(out)])}
+
+
+def _lstm_unit_ref(ins, a):
+    gi, gf, go, gc = np.split(ins["X"], 4, axis=1)
+    c = _sig(gf + a["forget_bias"]) * ins["C_prev"] + _sig(gi) * np.tanh(gc)
+    return {"C": c, "H": _sig(go) * np.tanh(c)}
+
+
+def _gru_unit_ref(ins, a):
+    x = ins["Input"] + ins["Bias"].reshape(-1)
+    h, w = ins["HiddenPrev"], ins["Weight"]
+    d = h.shape[1]
+    ur = _sig(x[:, :2 * d] + h @ w[:, :2 * d])
+    u, r = ur[:, :d], ur[:, d:]
+    cand = np.tanh(x[:, 2 * d:] + (r * h) @ w[:, 2 * d:])
+    return {"Gate": np.concatenate([u, r, cand], 1), "ResetHiddenPrev": r * h,
+            "Hidden": h + u * (cand - h)}
+
+
+def _sequence_cases():
+    r = rng("sequence")
+    lod = [[0, 2, 5, 9]]
+    x = _f32(r.standard_normal((9, 3)))
+    empty = [[0, 3, 3, 7]]
+    xe = _f32(r.standard_normal((7, 2)))
+    ties = _f32([[1, 2], [3, 2], [3, 0], [-1, 5], [-1, 5], [0, 0]])
+    nested = [[0, 2, 3], [0, 2, 5, 9]]
+    cases = []
+    for pt in ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST"):
+        cases.append(Case(f"sequence_pool.{pt.lower()}", "sequence_pool",
+                          {"X": (x, lod)}, {"pooltype": pt}, ref=_pool_ref))
+    cases += [
+        Case("sequence_pool.max_ties", "sequence_pool",
+             {"X": (ties, [[0, 3, 6]])}, {"pooltype": "MAX"}, ref=_pool_ref,
+             fd=False),
+        Case("sequence_pool.max_empty", "sequence_pool",
+             {"X": (xe, empty)}, {"pooltype": "MAX"}, ref=_pool_ref,
+             fd=False),
+        Case("sequence_pool.sum_empty", "sequence_pool",
+             {"X": (xe, empty)}, {"pooltype": "SUM"}, ref=_pool_ref),
+        Case("sequence_pool.average_nested", "sequence_pool",
+             {"X": (x, nested)}, {"pooltype": "AVERAGE"}, ref=_pool_ref),
+        Case("sequence_softmax.0", "sequence_softmax",
+             {"X": (_f32(r.standard_normal((9, 1))), lod)},
+             ref=_softmax_ref),
+        Case("sequence_expand.0", "sequence_expand",
+             {"X": _f32(r.standard_normal((3, 2))),
+              "Y": (_f32(np.zeros((6, 1))), [[0, 1, 4, 6]])},
+             ref=_expand_ref),
+        Case("sequence_expand.2level", "sequence_expand",
+             {"X": (_f32(r.standard_normal((3, 2))), [[0, 1, 3]]),
+              "Y": (_f32(np.zeros((7, 1))), [[0, 2, 3], [0, 3, 4, 7]])},
+             ref=_expand_ref),
+        Case("sequence_concat.0", "sequence_concat",
+             {"X": [(_f32(r.standard_normal((4, 2))), [[0, 2, 3, 4]]),
+                    (_f32(r.standard_normal((5, 2))), [[0, 1, 1, 5]])]},
+             ref=_seq_concat_ref),
+        Case("sequence_reshape.0", "sequence_reshape",
+             {"X": (_f32(r.standard_normal((4, 6))), [[0, 1, 4]])},
+             {"new_dim": 3},
+             ref=lambda ins, a: {"Out": (ins["X"][0].reshape(-1, 3),
+                                         [[0, 2, 8]])}),
+        Case("sequence_erase.0", "sequence_erase",
+             {"X": (np.array([[2], [1], [5], [2], [3], [4], [5], [6]],
+                             np.int64), [[0, 3, 3, 8]])},
+             {"tokens": [2, 5]}, ref=_erase_ref),
+        Case("sequence_slice.0", "sequence_slice",
+             {"X": (_f32(r.standard_normal((7, 2))), [[0, 3, 7]]),
+              "Offset": np.array([[1], [0]], np.int64),
+              "Length": np.array([[2], [3]], np.int64)}, ref=_slice_ref),
+        Case("lod_reset.attr", "lod_reset",
+             {"X": _f32(r.standard_normal((5, 2)))},
+             {"target_lod": [0, 2, 5]},
+             ref=lambda ins, a: {"Out": (ins["X"], [[0, 2, 5]])}),
+        Case("lod_reset.y_lod", "lod_reset",
+             {"X": (_f32(r.standard_normal((5, 2))), [[0, 5]]),
+              "Y": (_f32(np.zeros((5, 1))), [[0, 1, 3, 5]])},
+             ref=lambda ins, a: {"Out": (ins["X"][0], [[0, 1, 3, 5]])}),
+        Case("lod_reset.y_values", "lod_reset",
+             {"X": _f32(r.standard_normal((5, 2))),
+              "Y": np.array([0, 4, 5], np.int64)},
+             ref=lambda ins, a: {"Out": (ins["X"], [[0, 4, 5]])}),
+        Case("im2sequence.0", "im2sequence",
+             {"X": _f32(r.standard_normal((2, 2, 5, 5)))},
+             {"kernels": [2, 3], "strides": [1, 2],
+              "paddings": [0, 1, 1, 0]}),
+        Case("sequence_conv.0", "sequence_conv",
+             {"X": (x, lod), "Filter": _f32(r.standard_normal((9, 4)))},
+             ref=_seq_conv_ref),
+        Case("sequence_conv.start0", "sequence_conv",
+             {"X": (x, lod), "Filter": _f32(r.standard_normal((6, 2)))},
+             {"contextLength": 2, "contextStart": 0}, ref=_seq_conv_ref),
+        Case("sequence_pad.0", "sequence_pad", {"X": (x, lod)},
+             {"pad_value": 0.5}, ref=_seq_pad_ref),
+        Case("sequence_pad.fixed", "sequence_pad", {"X": (x, lod)},
+             {"padded_length": 6}, ref=_seq_pad_ref),
+        Case("sequence_unpad.0", "sequence_unpad",
+             {"X": _f32(r.standard_normal((3, 4, 2))),
+              "Length": np.array([2, 4, 1], np.int64)}, ref=_unpad_ref),
+        Case("sequence_mask.0", "sequence_mask",
+             {"X": np.array([1, 3, 2], np.int64)}, {"maxlen": 4},
+             ref=lambda ins, a: {"Y": np.arange(4)[None, :]
+                                 < ins["X"][:, None]}),
+        Case("sequence_mask.longest", "sequence_mask",
+             {"X": np.array([1, 3, 2], np.int64)},
+             ref=lambda ins, a: {"Y": np.arange(3)[None, :]
+                                 < ins["X"][:, None]}),
+        Case("edit_distance.0", "edit_distance",
+             {"Hyps": (np.array([1, 2, 3, 4, 5, 6, 7], np.int64)
+                       .reshape(-1, 1), [[0, 3, 7]]),
+              "Refs": (np.array([1, 3, 3, 5, 6, 8], np.int64)
+                       .reshape(-1, 1), [[0, 2, 6]])}, ref=_edit_ref),
+        Case("edit_distance.normalized", "edit_distance",
+             {"Hyps": (np.array([1, 2, 3, 4, 5], np.int64).reshape(-1, 1),
+                       [[0, 0, 5]]),
+              "Refs": (np.array([2, 3, 4, 1, 1, 1], np.int64).reshape(-1, 1),
+                       [[0, 3, 6]])}, {"normalized": True}, ref=_edit_ref),
+    ]
+    return cases
+
+
+def _rnn_cases():
+    r = rng("rnn")
+    d, p = 3, 2
+    lod = [[0, 2, 5, 9]]
+    n = lod[0][-1]
+
+    def w(*shape, scale=0.5):
+        return _f32(scale * r.standard_normal(shape))
+
+    gates4 = w(n, 4 * d, scale=1.0)
+    return [
+        Case("lstm.peepholes", "lstm",
+             {"Input": (gates4, lod), "Weight": w(d, 4 * d),
+              "Bias": w(1, 7 * d)}),
+        Case("lstm.no_peepholes", "lstm",
+             {"Input": (gates4, lod), "Weight": w(d, 4 * d),
+              "Bias": w(1, 4 * d)}, {"use_peepholes": False}),
+        Case("lstm.reverse", "lstm",
+             {"Input": (gates4, lod), "Weight": w(d, 4 * d),
+              "Bias": w(1, 7 * d)}, {"is_reverse": True}),
+        Case("lstm.h0_c0", "lstm",
+             {"Input": (gates4, lod), "H0": w(3, d), "C0": w(3, d),
+              "Weight": w(d, 4 * d), "Bias": w(1, 7 * d)},
+             {"candidate_activation": "identity"}),
+        Case("lstmp.0", "lstmp",
+             {"Input": (gates4, lod), "Weight": w(p, 4 * d),
+              "ProjWeight": w(d, p), "Bias": w(1, 7 * d)}),
+        Case("lstmp.reverse", "lstmp",
+             {"Input": (gates4, lod), "Weight": w(p, 4 * d),
+              "ProjWeight": w(d, p), "Bias": w(1, 4 * d)},
+             {"is_reverse": True, "use_peepholes": False}),
+        Case("gru.0", "gru",
+             {"Input": (w(n, 3 * d, scale=1.0), lod), "Weight": w(d, 3 * d),
+              "Bias": w(1, 3 * d)}),
+        Case("gru.h0_reverse", "gru",
+             {"Input": (w(n, 3 * d, scale=1.0), lod), "H0": w(3, d),
+              "Weight": w(d, 3 * d), "Bias": w(1, 3 * d)},
+             {"is_reverse": True}),
+        Case("lstm_unit.0", "lstm_unit",
+             {"X": w(3, 4 * d, scale=1.0), "C_prev": w(3, d)},
+             {"forget_bias": 0.5}, ref=_lstm_unit_ref),
+        Case("gru_unit.0", "gru_unit",
+             {"Input": w(3, 3 * d, scale=1.0), "HiddenPrev": w(3, d),
+              "Weight": w(d, 3 * d), "Bias": w(1, 3 * d)},
+             ref=_gru_unit_ref),
+    ]
+
+
 GROUPS = {
     "activation": _activation_cases,
     "elementwise": _elementwise_cases,
@@ -861,6 +1144,8 @@ GROUPS = {
     "loss": _loss_cases,
     "metrics": _metric_cases,
     "misc": _misc_cases,
+    "sequence": _sequence_cases,
+    "rnn": _rnn_cases,
 }
 
 CASES = [c for make in GROUPS.values() for c in make()]

@@ -13,6 +13,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py seq2seq [--package-root DIR]
     python3 tools/torch_tree_probe.py image-models [--package-root DIR]
     python3 tools/torch_tree_probe.py ctr [--package-root DIR]
+    python3 tools/torch_tree_probe.py rnn [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -45,6 +46,9 @@ image-models  chip_smoke.py's dropout_rows and image_models phases
 ctr        chip_smoke.py's optimizers and ctr phases alone (the update
            ops at one CTR table's shape; DeepFM and wide&deep with
            sparse embedding gradients);
+rnn        chip_smoke.py's ops phase (the LoD op cases among the rest)
+           and its rnn phases alone (run_rnn's LSTM classifier, ragged
+           LoDs, card against CPU, run_seq2seq's LSTM translator);
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -634,12 +638,21 @@ def conv_fp32(cs, dev):
         executor_mod.switch_scope(prev)
 
 
+def rnn(cs, dev):
+    """chip_smoke's ops phase and its rnn phases."""
+    from paddle_tpu_torch import CUDAPlace
+
+    card, _, peaks = _card(cs)
+    cs.ops_phase(card, dev)
+    cs.rnn_phase(card, CUDAPlace(0), peaks)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
                                       "sgd-sweep", "host", "convnets",
                                       "conv-fp32", "seq2seq",
-                                      "image-models", "ctr"))
+                                      "image-models", "ctr", "rnn"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -669,7 +682,8 @@ def main():
         {"paged": paged, "dp-memory": dp_memory, "moe-memory": moe_memory,
          "sgd-sweep": sgd_sweep, "convnets": convnets,
          "conv-fp32": conv_fp32, "seq2seq": seq2seq,
-         "image-models": image_models, "ctr": ctr}[args.probe](cs, dev)
+         "image-models": image_models, "ctr": ctr,
+         "rnn": rnn}[args.probe](cs, dev)
     return 0
 
 

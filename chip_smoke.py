@@ -60,8 +60,9 @@ Phases, one JSON line each:
            peak allocated and reserved memory, the interpreter's host
            synchronisations;
   ops      every op type of the op corpus (tests/torch_op_cases.py: 89
-           dense types and 19 LoD sequence and recurrent types, their
-           attribute, boundary and tie cases) on the card against the
+           dense types, 19 LoD sequence and recurrent types and the 4
+           IfElse split and merge types, their attribute, boundary and
+           tie cases) on the card against the
            CPU from the same seeded inputs: the forward and the generic
            gradient in float32 (TF32 off) within 1e-5 of max(1,
            max|CPU|), ints, bools and LoDs exactly; matmul and cast
@@ -195,7 +196,24 @@ Phases, one JSON line each:
            defaults (batch 32, source and target 128, hidden and
            embedding 512, vocab 30000 on both sides, Adam 1e-4, bf16
            amp): the default mode against the interpreter bit for bit,
-           tokens/s, device time by group and idle share.
+           tokens/s, device time by group and idle share;
+  book08   book/08's machine translation (the Programs of
+           tests/book/test_machine_translation.py, built here by a copy
+           of its functions) at the scale of run_seq2seq's LSTM
+           translator (vocab 30000 on both sides, embedding and hidden
+           512, fc to 4 x 512 into dynamic_lstm, the shared `vemb`
+           table, Adam 1e-4, float32; the book's copy task at batch 32,
+           source lengths 10-127): mt_train (the DynamicRNN decoder)
+           and mt_attention (the attention decoder, source padded to
+           128), each in the default mode (one CUDA graph a LoD, two
+           more seeded LoDs after the timed one) against the
+           interpreter bit for bit; mt_decode, the While + beam_search
+           decoder (beam 2, top-k 4, 32 iterations) over 32 sources
+           with mt_train's parameters; mt_card_vs_cpu, batch 8 (source
+           lengths 10-32) on the card and on the CPU: two Adam steps
+           (losses within 1e-5, states within 1e-4) and the decode (ids
+           and LoDs equal, scores within 1e-5, the smallest
+           chosen-vs-rejected score gap of the beams).
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -205,10 +223,11 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step.  The image, optimizers, ctr and rnn
-phases run no kernel of the port's own (the JAX package runs the
-recurrence as a `lax.scan` and the sequence ops as XLA gathers and
-segment sums, with no Pallas kernel): convolution, pooling, batch
+profiler's count in a replayed step.  The image, optimizers, ctr, rnn
+and book08 phases run no kernel of the port's own (the JAX package runs the
+recurrence as a `lax.scan`, the sequence ops as XLA gathers and
+segment sums and the While loop and beam search on the host, with no
+Pallas kernel): convolution, pooling, batch
 norm, lrn and concat are cuDNN or plain PyTorch calls there, and the
 SelectedRows gradients are made dense, and sparse SGD scatters, by
 sorted segment sums in plain PyTorch, as all of these are XLA ops in
@@ -220,6 +239,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -291,8 +311,9 @@ M_GATE_STD = 0.05
 # of max(1, max|CPU value|); matmul and cast again in bf16 under amp,
 # within one bf16 ulp
 OPS_RTOL = 1e-5
-# the corpus's op types: 89 dense, 19 LoD sequence and recurrent
-OPS_TYPES = 108
+# the corpus's op types: 89 dense, 19 LoD sequence and recurrent, the 4
+# IfElse split and merge ops (host ops) and their gradient ops
+OPS_TYPES = 112
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -374,6 +395,22 @@ N_CPU_BATCH, N_CPU_STEPS, N_CPU_LOSS_RTOL, N_CPU_RTOL = 16, 2, 1e-5, 1e-4
 # source and target length 128, hidden and embedding 512, vocab 30000 on
 # both sides (N_VOCAB), Adam 1e-4, bf16 amp
 Q_BATCH, Q_LEN, Q_HID, Q_EMB, Q_LR = 32, 128, 512, 512, 1e-4
+# the book08 phase: book/08 (tests/book/test_machine_translation.py) at
+# run_seq2seq's LSTM-translator scale (benchmark/run_seq2seq.py:63-103):
+# vocab 30000 on both sides, embedding and hidden 512, float32, Adam 1e-4;
+# the book's copy task (<s> = 0, <e> = 1) at batch 32 with source lengths
+# drawn in [B_MIN_LEN, B_MAX_LEN], so every target with its <s> or <e> is
+# at most 128 tokens; the attention decoder pads the source to B_MAXS;
+# B_LODS more seeded LoDs after the timed one.  The decoder: beam 2, top-k
+# 4 (the book's BEAM and TOPK) and B_DECODE_LEN While iterations over
+# B_BATCH sources.  Card against CPU at batch B_CPU_BATCH and source
+# lengths up to B_CPU_MAX_LEN (cut so the CPU runs it): B_CPU_STEPS Adam
+# steps, losses within N_CPU_LOSS_RTOL and states within N_CPU_RTOL; the
+# decode's ids and LoDs equal, its scores within B_SCORE_RTOL relative
+B_VOCAB, B_EMB, B_HID, B_LR, B_START, B_END = 30000, 512, 512, 1e-4, 0, 1
+B_BATCH, B_MIN_LEN, B_MAX_LEN, B_MAXS, B_LODS = 32, 10, 127, 128, 2
+B_BEAM, B_TOPK, B_DECODE_LEN = 2, 4, 32
+B_CPU_BATCH, B_CPU_MAX_LEN, B_CPU_STEPS, B_SCORE_RTOL = 8, 32, 2, 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -3203,7 +3240,8 @@ def _op_err(card, cpu):
 
 def ops_phase(card, dev):
     """Every op type of the corpus (tests/torch_op_cases.py: 89 dense
-    types and the 19 LoD sequence and recurrent types, their attribute,
+    types, the 19 LoD sequence and recurrent types and the 4 IfElse
+    split and merge types, their attribute,
     boundary and tie cases, LoD inputs as LoDTensors) on the card and on
     the CPU from the same seeded inputs: the forward and, where the op
     has one, the generic gradient (autograd over the lowering, seeded
@@ -3213,7 +3251,6 @@ def ops_phase(card, dev):
     CPU's.  The drawn op (uniform_random_batch_size_like) is held by
     distribution on the card: its range, mean and variance within 4
     sigma.  `print` writes its lines into a buffer here."""
-    import contextlib
     import io
     import zlib
 
@@ -4342,6 +4379,584 @@ def rnn_phase(card, place, peaks):
           "seconds": time.perf_counter() - t_phase})
 
 
+# -- book08 phase -------------------------------------------------------------
+
+def _mt_encoder(fluid):
+    """book/08's encoder (test_machine_translation.py:27-35 and its
+    `_encoder_full_seq`) at B_ widths -> (the LSTM's states, the last
+    step)."""
+    src = fluid.layers.data(name="src_word_id", shape=[1], dtype="int64",
+                            lod_level=1)
+    emb = fluid.layers.embedding(input=src, size=[B_VOCAB, B_EMB],
+                                 param_attr={"name": "vemb"})
+    fc1 = fluid.layers.fc(input=emb, size=B_HID * 4, act="tanh")
+    hidden, _ = fluid.layers.dynamic_lstm(input=fc1, size=B_HID * 4,
+                                          use_peepholes=False)
+    return hidden, fluid.layers.sequence_last_step(input=hidden)
+
+
+def _mt_decoder_train(fluid, context):
+    """book/08's `decoder_train` (:38-52): a DynamicRNN over the target."""
+    trg = fluid.layers.data(name="target_language_word", shape=[1],
+                            dtype="int64", lod_level=1)
+    trg_emb = fluid.layers.embedding(input=trg, size=[B_VOCAB, B_EMB],
+                                     param_attr={"name": "vemb"})
+    rnn = fluid.layers.DynamicRNN()
+    with rnn.block():
+        word = rnn.step_input(trg_emb)
+        pre_state = rnn.memory(init=context)
+        state = fluid.layers.fc(input=[word, pre_state], size=B_HID,
+                                act="tanh")
+        score = fluid.layers.fc(input=state, size=B_VOCAB, act="softmax")
+        rnn.update_memory(pre_state, state)
+        rnn.output(score)
+    return rnn()
+
+
+def _mt_decoder_attention(fluid, enc_seq, context):
+    """book/08's `decoder_train_attention` (:197-244), the source padded
+    to B_MAXS and masked by the fed `att_mask`."""
+    pd = fluid.layers
+    blk = fluid.default_main_program().current_block
+    padded = blk.create_var(name="enc_padded", dtype="float32")
+    length = blk.create_var(name="enc_len", dtype="int64",
+                            stop_gradient=True)
+    blk.append_op("sequence_pad", {"X": [enc_seq.name]},
+                  {"Out": [padded.name], "Length": [length.name]},
+                  {"pad_value": 0.0, "padded_length": B_MAXS})
+    padded.shape = (-1, B_MAXS, B_HID)
+    padded.stop_gradient = False
+    mask = pd.data(name="att_mask", shape=[B_MAXS], dtype="float32")
+    trg = pd.data(name="target_language_word", shape=[1], dtype="int64",
+                  lod_level=1)
+    trg_emb = pd.embedding(input=trg, size=[B_VOCAB, B_EMB],
+                           param_attr={"name": "vemb"})
+    rnn = pd.DynamicRNN()
+    with rnn.block():
+        word = rnn.step_input(trg_emb)
+        enc_s = rnn.static_input(padded)
+        m = rnn.static_input(mask)
+        pre_state = rnn.memory(init=context)
+        query = pd.fc(input=pre_state, size=B_HID, bias_attr=False)
+        q3 = pd.reshape(query, shape=[-1, B_HID, 1])
+        scores = pd.reshape(pd.matmul(enc_s, q3), shape=[-1, B_MAXS])
+        scores = pd.elementwise_add(scores,
+                                    pd.scale(m, scale=1e9, bias=-1e9))
+        att = pd.softmax(scores)
+        ctx = pd.reshape(pd.matmul(pd.reshape(att, shape=[-1, 1, B_MAXS]),
+                                   enc_s), shape=[-1, B_HID])
+        state = pd.fc(input=[word, pre_state, ctx], size=B_HID, act="tanh")
+        score = pd.fc(input=state, size=B_VOCAB, act="softmax")
+        rnn.update_memory(pre_state, state)
+        rnn.output(score)
+    return rnn()
+
+
+def _mt_decoder_decode(fluid, context, vocab=B_VOCAB, emb=B_EMB, hid=B_HID,
+                       max_len=B_DECODE_LEN, beam=B_BEAM, topk=B_TOPK):
+    """book/08's `decoder_decode` (:55-97): a While loop of `max_len`
+    iterations over tensor arrays with beam_search, then
+    beam_search_decode -> its (ids, scores)."""
+    pd = fluid.layers
+    array_len = pd.fill_constant(shape=[1], dtype="int64", value=max_len)
+    counter = pd.zeros(shape=[1], dtype="int64")
+    state_array = pd.create_array("float32")
+    pd.array_write(context, array=state_array, i=counter)
+    ids_array = pd.create_array("int64")
+    scores_array = pd.create_array("float32")
+    init_ids = pd.data(name="init_ids", shape=[1], dtype="int64",
+                       lod_level=2)
+    init_scores = pd.data(name="init_scores", shape=[1], dtype="float32",
+                          lod_level=2)
+    pd.array_write(init_ids, array=ids_array, i=counter)
+    pd.array_write(init_scores, array=scores_array, i=counter)
+    cond = pd.less_than(x=counter, y=array_len)
+    while_op = pd.While(cond=cond)
+    with while_op.block():
+        pre_ids = pd.array_read(array=ids_array, i=counter)
+        pre_state = pd.array_read(array=state_array, i=counter)
+        pre_score = pd.array_read(array=scores_array, i=counter)
+        pre_state_expanded = pd.sequence_expand(pre_state, pre_score)
+        pre_ids_emb = pd.embedding(input=pre_ids, size=[vocab, emb],
+                                   param_attr={"name": "vemb"})
+        state = pd.fc(input=[pre_ids_emb, pre_state_expanded], size=hid,
+                      act="tanh")
+        score = pd.fc(input=state, size=vocab, act="softmax")
+        topk_scores, topk_indices = pd.topk(score, k=topk)
+        selected_ids, selected_scores = pd.beam_search(
+            pre_ids, topk_indices, topk_scores, beam, end_id=B_END,
+            level=0)
+        pd.increment(x=counter, value=1, in_place=True)
+        pd.array_write(state, array=state_array, i=counter)
+        pd.array_write(selected_ids, array=ids_array, i=counter)
+        pd.array_write(selected_scores, array=scores_array, i=counter)
+        pd.less_than(x=counter, y=array_len, cond=cond)
+    return pd.beam_search_decode(ids=ids_array, scores=scores_array)
+
+
+def _mt_program(kind):
+    """-> (main, startup, the loss or the decode's (ids, scores)) of
+    book/08's `kind` in "train", "attention" or "decode"."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        enc_seq, context = _mt_encoder(fluid)
+        if kind == "decode":
+            return main, startup, _mt_decoder_decode(fluid, context)
+        out = (_mt_decoder_attention(fluid, enc_seq, context)
+               if kind == "attention" else _mt_decoder_train(fluid, context))
+        label = fluid.layers.data(name="target_language_next_word",
+                                  shape=[1], dtype="int64", lod_level=1)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=out,
+                                                            label=label))
+        fluid.Adam(learning_rate=B_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _mt_lod(seqs):
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    flat = np.concatenate(seqs).astype(np.int64).reshape(-1, 1)
+    return LoDTensor(torch.from_numpy(flat),
+                     [lod_from_seq_lens([len(s) for s in seqs])])
+
+
+def _mt_feed(rng, n, max_len, attention=False):
+    """The book's copy task (`_make_batch`, :100-110) at B_VOCAB: source
+    lengths in [B_MIN_LEN, max_len], tokens in [2, B_VOCAB), target in
+    <s> + source, next word source + <e>; with `attention` the book's
+    [n, B_MAXS] validity mask -> (feed, tokens: sources + targets)."""
+    srcs = [rng.randint(2, B_VOCAB, (int(rng.randint(B_MIN_LEN,
+                                                     max_len + 1)),))
+            for _ in range(n)]
+    feed = {"src_word_id": _mt_lod(srcs),
+            "target_language_word": _mt_lod(
+                [np.concatenate([[B_START], s]) for s in srcs]),
+            "target_language_next_word": _mt_lod(
+                [np.concatenate([s, [B_END]]) for s in srcs])}
+    if attention:
+        m = np.zeros((n, B_MAXS), np.float32)
+        for i, s in enumerate(srcs):
+            m[i, :len(s)] = 1.0
+        feed["att_mask"] = torch.from_numpy(m)
+    return feed, sum(2 * len(s) + 1 for s in srcs)
+
+
+def _mt_decode_feed(rng, n, max_len):
+    """n sources and the decoder's start: one <s> a source, score 1, in
+    the book's two-level LoD (:165-172)."""
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    srcs = [rng.randint(2, B_VOCAB, (int(rng.randint(B_MIN_LEN,
+                                                     max_len + 1)),))
+            for _ in range(n)]
+    lod = [list(range(n + 1))] * 2
+    return {"src_word_id": _mt_lod(srcs),
+            "init_ids": LoDTensor(torch.full((n, 1), B_START,
+                                             dtype=torch.int64), lod),
+            "init_scores": LoDTensor(torch.ones((n, 1)), lod)}
+
+
+def _mt_flops(tokens_src, tokens_trg, batch, src_len, attention):
+    """A step's model FLOPs, forward x 3: the encoder's fc and LSTM over
+    the padded [batch, src_len] (the recurrence runs every padded step),
+    and per target row the state fc (2 inputs, or 3 with the attention's
+    context, plus its query fc and the two [B_MAXS]-wide products) and
+    the [B_HID, B_VOCAB] softmax fc."""
+    enc = 2 * tokens_src * B_EMB * 4 * B_HID \
+        + 2 * batch * src_len * B_HID * 4 * B_HID
+    per_row = 2 * (3 if attention else 2) * B_HID * B_HID \
+        + 2 * B_HID * B_VOCAB
+    if attention:
+        per_row += 2 * B_HID * B_HID + 4 * B_MAXS * B_HID
+    return 3 * (enc + tokens_trg * per_row)
+
+
+def _mt_more_lods(phase, exe, main, loss, feeds):
+    """Each of `feeds` (a new LoD) fed three times: a miss (eager), the
+    first hit (a capture) and a replay -> a record; every LoD its own
+    cache entry and graph."""
+    g0, s0 = exe.graph_stats(), exe.cache_stats()
+    losses, replay_s = [], []
+    for feed in feeds:
+        for k in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0][0]))
+            if k == 2:
+                replay_s.append(time.perf_counter() - t0)
+    g1, s1 = exe.graph_stats(), exe.cache_stats()
+    n = len(feeds)
+    got = {"misses": s1["misses"] - s0["misses"],
+           "entries": s1["entries"] - s0["entries"],
+           "captures": g1["captures"] - g0["captures"],
+           "replays": g1["replays"] - g0["replays"],
+           "eager_hits": g1["eager_hits"] - g0["eager_hits"]}
+    check(got == {"misses": n, "entries": n, "captures": n, "replays": n,
+                  "eager_hits": 0},
+          f"{phase}: {n} new LoDs fed three times each gave {got}: want a "
+          "miss, a capture and a replay each")
+    check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    return {"lods": n, **got, "per_lod": {k: v / n for k, v in got.items()},
+            "losses": losses, "replay_ms": [x * 1e3 for x in replay_s],
+            "capture_s_per_lod": (g1["capture_s"] - g0["capture_s"]) / n}
+
+
+def _mt_train(card, place, peaks, kind):
+    """mt_train or mt_attention: the default mode against the
+    interpreter, two more LoDs -> (the record, the trained states)."""
+    import paddle_tpu_torch as fluid
+
+    phase = "mt_train" if kind == "train" else "mt_attention"
+    main, startup, loss = _mt_program(kind)
+    types = [op.type for op in main.global_block().ops]
+    check(types.count("dynamic_rnn") == 1
+          and types.count("dynamic_rnn_grad") == 1,
+          f"{phase}: the Program's ops {types}")
+    rng = np.random.RandomState(SEED + (3 if kind == "train" else 4))
+    attention = kind == "attention"
+    feed, tokens = _mt_feed(rng, B_BATCH, B_MAX_LEN, attention)
+    more = [_mt_feed(rng, B_BATCH, B_MAX_LEN, attention)[0]
+            for _ in range(B_LODS)]
+    r = _default_and_interpreter(
+        phase, place, main, startup, loss, lambda step: feed, ("matmul",),
+        after=lambda exe: _mt_more_lods(phase, exe, main, loss, more))
+    _loss_falls(phase, r["k_loss"])
+    scope = fluid.global_scope()
+    trained = {n: scope.find_var(n).clone() for n in _persistables(main)}
+    step_s = float(np.median(r["k_secs"][2:]))
+    src = feed["src_word_id"]
+    tokens_src = src.lod[0][-1]
+    flops = _mt_flops(tokens_src, tokens - tokens_src, B_BATCH,
+                      max(src.seq_lens()), attention)
+    bound_ms = flops / peaks[torch.float32] * 1e3
+    del r["init"], r["k_state"]
+    rec = {"phase": phase, "card": card,
+           "source": "tests/book/test_machine_translation.py:"
+                     + ("38-52" if kind == "train" else "197-244")
+                     + " at benchmark/run_seq2seq.py:63-103's widths",
+           "vocab": B_VOCAB, "embedding": B_EMB, "hidden": B_HID,
+           "dtype": "float32", "optimizer": f"adam {B_LR}",
+           "batch": B_BATCH, "source_lengths": src.seq_lens(),
+           "max_src_len": B_MAXS if attention else None,
+           "ops": len(types), "mode": "compiled (CUDA graph replay)",
+           "steps": G_STEPS, **_rnn_record(r, step_s),
+           "interpreted_ms_per_step_3_6":
+               float(np.median(r["i_secs"][2:])) * 1e3,
+           "more_lods": r["extra"], "tokens_per_step": tokens,
+           "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
+           "bound_ms": bound_ms,
+           "bound_by": "operations (fp32 peak outside the tensor cores)",
+           "timing": _RNN_TIMING + "; tokens a step the sources' and the "
+                     "targets' tokens, batch x (source + target) as "
+                     "run_seq2seq.py:141 counts them; model FLOPs from the "
+                     "Program's mul shapes, forward x 3"}
+    return rec, trained
+
+
+@contextlib.contextmanager
+def _wrapped_lowering(op_type, wrap):
+    """`op_type`'s lowering replaced by `wrap(lowering)` while inside (a
+    new lowering generation: the Executor resolves its plans anew)."""
+    from paddle_tpu_torch.core import registry
+
+    info = registry.get_op_info(op_type)
+    lower = info.lower
+    info.lower = wrap(lower)
+    try:
+        yield
+    finally:
+        info.lower = lower
+
+
+def _timed(secs):
+    """A lowering wrapper appending each call's seconds to `secs` (host
+    clock, a synchronize at its end): the `while` op's run alone,
+    without the encoder's segments."""
+    def wrap(lower):
+        def timed(ctx, ins, attrs):
+            t0 = time.perf_counter()
+            out = lower(ctx, ins, attrs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return wrap
+
+
+def _beam_record(steps):
+    """A beam_search lowering wrapper appending to `steps`, at each call,
+    one tuple a source: (its selected ids, its selected candidates a
+    prefix, their scores, its gap).  The gap is the one between the
+    beam_size-th best candidate's score (the last chosen) and the next
+    one's (the first rejected), relative to the chosen one; None where
+    the source has no such pair."""
+    from paddle_tpu_torch.ops.control_flow import _abs_offsets
+
+    def wrap(lower):
+        def recording(ctx, ins, attrs):
+            beam = attrs["beam_size"]
+            high = _abs_offsets(ins["ids"][0].lod, attrs["level"])
+            sc = ins["scores"][0].data.reshape(high[-1], -1).cpu().numpy()
+            out = lower(ctx, ins, attrs)
+            low = out["selected_ids"].lod[1]
+            ids = out["selected_ids"].data.reshape(-1).cpu().numpy()
+            scs = out["selected_scores"].data.reshape(-1).cpu().numpy()
+            step = []
+            for s in range(len(high) - 1):
+                v = np.sort(sc[high[s]:high[s + 1]].reshape(-1))[::-1]
+                gap = (float((v[beam - 1] - v[beam]) / abs(v[beam - 1]))
+                       if len(v) > beam else None)
+                a, b = low[high[s]], low[high[s + 1]]
+                step.append((tuple(ids[a:b].tolist()),
+                             tuple(np.diff(low[high[s]:high[s + 1] + 1])
+                                   .tolist()), scs[a:b], gap))
+            steps.append(step)
+            return out
+        return recording
+    return wrap
+
+
+def _rel(got, want):
+    """max |got - want| / |want| over the elements (0.0 for none)."""
+    return (float(np.max(np.abs(got - want) / np.abs(want)))
+            if np.size(want) else 0.0)
+
+
+def _decode_verdict(got_steps, want_steps, got, want, rtol):
+    """A decode (`got`: beam_search_decode's (ids, scores), `got_steps`:
+    its `_beam_record`) against a reference one, step by step.  Up to
+    the first step where a source's selection differs, every source's
+    selections must be equal and its scores within `rtol` relative.
+    Such a step passes only where each differing source's
+    chosen-vs-rejected gap in the reference is within `rtol`: a near
+    tie that the two devices' rounding flipped, not a port fault; the
+    decodes after it are not compared.  With no such step the decodes'
+    ids and LoDs must be equal and their scores within `rtol`.
+    -> (ok, a record of what was compared)."""
+    gaps = [src[3] for step in want_steps for src in step
+            if src[3] is not None]
+    rec = {"beam_steps": len(want_steps),
+           "min_chosen_vs_rejected_gap": min(gaps) if gaps else None,
+           "first_differing_step": None, "decode_equal": False}
+    if len(got_steps) != len(want_steps):
+        return False, rec
+    step_rel = 0.0
+    for t, (gs, ws) in enumerate(zip(got_steps, want_steps)):
+        if len(gs) != len(ws):
+            return False, {**rec, "first_differing_step": t}
+        diff = [s for s, (g, w) in enumerate(zip(gs, ws)) if g[:2] != w[:2]]
+        step_rel = max([step_rel] + [_rel(g[2], w[2]) for s, (g, w)
+                                     in enumerate(zip(gs, ws))
+                                     if s not in diff])
+        rec["step_score_max_rel_diff"] = step_rel
+        if diff:
+            at = [ws[s][3] for s in diff]
+            return (step_rel <= rtol and all(g is not None and g <= rtol
+                                             for g in at),
+                    {**rec, "first_differing_step": t,
+                     "differing_sources": diff, "their_gaps": at})
+    (g_ids, g_sc), (w_ids, w_sc) = got, want
+    same = (g_ids.lod == w_ids.lod and g_sc.lod == w_sc.lod
+            and np.array_equal(g_ids.data, w_ids.data))
+    score_rel = _rel(g_sc.data, w_sc.data) if same else None
+    return (same and step_rel <= rtol and score_rel <= rtol,
+            {**rec, "decode_equal": same,
+             "decode_score_max_rel_diff": score_rel})
+
+
+def _mt_decode(card, place, trained):
+    """mt_decode: the While + beam-search decoder over B_BATCH sources
+    with mt_train's parameters, in the Executor's default mode (segmented:
+    the encoder's device segments captured, the While loop and its body
+    on the host, op by op) -> a record."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, (ids, scores) = _mt_program("decode")
+    scope = fluid.global_scope()
+    persist = _persistables(main)
+    check(set(persist) <= set(trained),
+          f"mt_decode: parameters {sorted(set(persist) - set(trained))} "
+          "were not trained by mt_train")
+    for n in persist:
+        scope.set_var(n, trained[n].clone())
+    feed = _mt_decode_feed(np.random.RandomState(SEED + 5), B_BATCH,
+                           B_MAX_LEN)
+    exe = fluid.Executor(place, seed=SEED)
+    _reset_peak()
+    try:
+        run = lambda: exe.run(main, feed=feed,  # noqa: E731
+                              fetch_list=[ids, scores])
+        secs, outs = [], []
+        for _ in range(4):      # a miss, a capture, then replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run())
+            secs.append(time.perf_counter() - t0)
+        profile = _profile_step(run, ("matmul",), "mt_decode")
+        segs = exe._segments(main.global_block(), exe._fingerprint(main))
+        graphs = exe.graph_stats()
+        peak = torch.cuda.max_memory_allocated()
+        while_s = []
+        with _wrapped_lowering("while", _timed(while_s)):
+            for _ in range(3):
+                run()
+    finally:
+        exe.close()
+    first = outs[0]
+    for o in outs[1:]:
+        check(o[0].lod == first[0].lod
+              and np.array_equal(o[0].data, first[0].data)
+              and np.array_equal(o[1].data, first[1].data),
+              "mt_decode: a decode of the same sources differs from the "
+              "first")
+    sent = first[0]
+    check(len(sent.lod[0]) - 1 == B_BATCH and sent.lod == first[1].lod
+          and sent.lod[0][-1] >= B_BATCH
+          and all(1 <= b - a <= B_DECODE_LEN + 1
+                  for a, b in zip(sent.lod[1], sent.lod[1][1:]))
+          and ((sent.data >= 0) & (sent.data < B_VOCAB)).all()
+          and np.isfinite(first[1].data).all(),
+          f"mt_decode: the sentences' LoD {sent.lod} or ids out of range")
+    total_s = float(np.median(secs[2:]))
+    return {"phase": "mt_decode", "card": card,
+            "source": "tests/book/test_machine_translation.py:55-97, "
+                      "beam 2 and top-k 4 (its BEAM, TOPK), "
+                      f"{B_DECODE_LEN} iterations (its MAX_LEN is 6)",
+            "sources": B_BATCH, "source_lengths": feed["src_word_id"]
+            .seq_lens(), "beam": B_BEAM, "topk": B_TOPK,
+            "while_iterations": B_DECODE_LEN,
+            "segments": [["host" if h else "device", len(o)]
+                         for h, o, _ in segs],
+            "graphs": graphs, "sentences": sent.lod[0][-1],
+            "tokens": int(sent.lod[1][-1]), "step_s": secs,
+            "total_ms": total_s * 1e3,
+            "while_ms": [x * 1e3 for x in while_s],
+            "ms_per_while_iteration": float(np.median(while_s)) * 1e3
+            / B_DECODE_LEN,
+            "sentences_per_s": B_BATCH / total_s,
+            "peak_memory_bytes": peak, "profiled_run": profile,
+            "device_ms_by_group": profile["by_group_ms"],
+            "host_share": 1.0 - profile["device_ms"] / profile["event_ms"],
+            "timing": "host clock around exe.run (its fetch synchronizes), "
+                      "the median of runs 3-4 (run 1 a miss of each device "
+                      "segment, run 2 their captures); ms per While "
+                      "iteration: the while op's own time (host clock "
+                      "around its lowering, a synchronize at its end; the "
+                      "median of three runs) over its iterations; host share "
+                      "1 - device time / the profiled run's span between "
+                      "CUDA events"}
+
+
+def _mt_card_vs_cpu(place, trained):
+    """mt_train at batch B_CPU_BATCH, source lengths up to
+    B_CPU_MAX_LEN: B_CPU_STEPS Adam steps on the card and on the CPU
+    from the same startup values (losses, every state); then the decoder
+    over B_CPU_BATCH sources with mt_train's `trained` parameters on
+    both, held step by step by `_decode_verdict` at B_SCORE_RTOL
+    -> a record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = _mt_program("train")
+    persist = _persistables(main)
+    rng = np.random.RandomState(SEED + 6)
+    feeds = [_mt_feed(rng, B_CPU_BATCH, B_CPU_MAX_LEN)[0]
+             for _ in range(B_CPU_STEPS)]
+    dmain, _, (ids, scores) = _mt_program("decode")
+    dfeed = _mt_decode_feed(rng, B_CPU_BATCH, B_CPU_MAX_LEN)
+    dpersist = _persistables(dmain)
+
+    def decode(exe, scope):
+        for n in dpersist:
+            scope.set_var(n, trained[n].to(exe.device))
+        return exe.run(dmain, feed=dfeed, fetch_list=[ids, scores])
+
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup)
+    init = {n: scope.find_var(n).clone() for n in persist}
+    c_loss = [float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
+              for f in feeds]
+    card = {n: scope.find_var(n).cpu() for n in persist}
+    c_steps, p_steps = [], []
+    with _wrapped_lowering("beam_search", _beam_record(c_steps)):
+        c_out = decode(exe, scope)
+    exe.close()
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        cpu_scope = fluid.global_scope()
+        for n in persist:
+            cpu_scope.set_var(n, init[n].cpu())
+        cpu = fluid.Executor(fluid.CPUPlace(), seed=SEED)
+        t0 = time.perf_counter()
+        cpu_loss = [float(cpu.run(main, feed=f, fetch_list=[loss])[0][0])
+                    for f in feeds]
+        cpu_s = time.perf_counter() - t0
+        want = {n: cpu_scope.find_var(n) for n in persist}
+        with _wrapped_lowering("beam_search", _beam_record(p_steps)):
+            p_out = decode(cpu, cpu_scope)
+    finally:
+        executor_mod.switch_scope(prev)
+    rel = _states_rel_diff(card, want)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(c_loss, cpu_loss)]
+    worst = max(rel, key=rel.get)
+    check(max(loss_rel) <= N_CPU_LOSS_RTOL, f"mt_card_vs_cpu: losses "
+          f"{c_loss} against the CPU's {cpu_loss}")
+    check(rel[worst] <= N_CPU_RTOL, f"mt_card_vs_cpu: {worst} differs by "
+          f"{rel[worst]} of max(1, |CPU|): "
+          f"{sorted(rel.items(), key=lambda kv: -kv[1])[:5]}")
+    ok, decode = _decode_verdict(c_steps, p_steps, c_out, p_out,
+                                 B_SCORE_RTOL)
+    check(ok, f"mt_card_vs_cpu: the card's decode differs from the CPU's "
+          f"beyond a near tie within {B_SCORE_RTOL}: {decode}")
+    return {"batch": B_CPU_BATCH, "steps": B_CPU_STEPS,
+            "max_source_length": B_CPU_MAX_LEN, "card": c_loss,
+            "cpu": cpu_loss, "loss_rel_diff": loss_rel,
+            "loss_limit": N_CPU_LOSS_RTOL,
+            "state_max_rel_diff": rel[worst], "state_argmax": worst,
+            "state_limit": N_CPU_RTOL, "states": len(rel), "cpu_s": cpu_s,
+            "decode_sentences": p_out[0].lod[0][-1],
+            "decode_score_limit": B_SCORE_RTOL, **decode}
+
+
+def book08_phase(card, place, peaks):
+    """book/08 at the bench scale: mt_train and mt_attention (the default
+    mode against the interpreter bit for bit, one graph a LoD), mt_decode
+    with mt_train's parameters, and batch B_CPU_BATCH card against CPU
+    (see the B_ constants); one line each."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        t_phase = time.perf_counter()
+        rec, trained = _mt_train(card, place, peaks, "train")
+        emit({**rec, "seconds": time.perf_counter() - t_phase})
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        rec = _mt_decode(card, place, trained)
+        emit({**rec, "seconds": time.perf_counter() - t_phase})
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        rec = _mt_card_vs_cpu(place, trained)
+        emit({"phase": "mt_card_vs_cpu", "card": card, **rec,
+              "seconds": time.perf_counter() - t_phase})
+        del trained
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        rec, _ = _mt_train(card, place, peaks, "attention")
+        emit({**rec, "seconds": time.perf_counter() - t_phase})
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -4416,6 +5031,7 @@ def main():
     image_models_phase(card, CUDAPlace(0), peaks)
     ctr_phase(card, CUDAPlace(0))
     rnn_phase(card, CUDAPlace(0), peaks)
+    book08_phase(card, CUDAPlace(0), peaks)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",

@@ -71,8 +71,11 @@ class ExecContext:
     first row; 0 in the serial Executor): dropout keys its masks by
     global row, so a sharded step draws the serial masks.  Shape
     inference passes ``torch.device("meta")`` and no seed.  `op` is the
-    op desc a host op's context runs (`run_op` sets it: `print` names
-    its input), else None.  `tables` holds what lowerings build on the
+    op desc the context runs, `env` the values it runs against and
+    `root` the context it was derived from (`op_context` sets the three
+    in every mode: `print` names its input, a control-flow op runs its
+    `op.sub_block()` against `env`, a loop draws each iteration's random
+    stream from `root.child(i)`), else None.  `tables` holds what lowerings build on the
     host once and reuse (the sequence ops' index tables, attribute
     constants), shared by every context derived from this one: the
     Executor hands each cache entry's runs the entry's own dict, so a
@@ -88,7 +91,7 @@ class ExecContext:
         self.seed = seed
         self.row_offset = row_offset
         self.tables = {} if tables is None else tables
-        self.op = None
+        self.op = self.env = self.root = None
 
     @property
     def generator(self) -> Optional[torch.Generator]:
@@ -107,9 +110,12 @@ class ExecContext:
     def pure(self) -> "ExecContext":
         """Context for re-running a forward op inside its gradient: the
         same seed with a fresh generator, so the recomputation draws
-        the forward's numbers."""
-        return ExecContext(self.device, seed=self.seed,
-                           row_offset=self.row_offset, tables=self.tables)
+        the forward's numbers, and the same op, env and root, so a
+        lowering that runs a sub-block finds it."""
+        c = ExecContext(self.device, seed=self.seed,
+                        row_offset=self.row_offset, tables=self.tables)
+        c.op, c.env, c.root = self.op, self.env, self.root
+        return c
 
 
 # ---------------------------------------------------------------------------
@@ -259,13 +265,19 @@ def resolve_op(op):
             zlib.crc32(_op_rng_tag(op, info).encode()))
 
 
+def op_context(ctx: ExecContext, op, env, tag: int) -> ExecContext:
+    """The context op `op` (random-stream tag `tag`) runs in against
+    `env`: derived from `ctx`, with its op, env and root set."""
+    child = ctx.child(tag)
+    child.op, child.env, child.root = op, env, ctx
+    return child
+
+
 def run_op(ctx: ExecContext, op, env):
     """Execute one op desc against `env`."""
     ins = gather_inputs(op, env)
     fn, attrs, tag = resolve_op(op)
-    child = ctx.child(tag)
-    child.op = op
-    scatter_outputs(op, env, fn(child, ins, attrs))
+    scatter_outputs(op, env, fn(op_context(ctx, op, env, tag), ins, attrs))
 
 
 # ---------------------------------------------------------------------------

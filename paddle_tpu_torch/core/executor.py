@@ -60,12 +60,12 @@ from . import registry
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
 from .execution import (DictEnv, ExecContext, ScopeEnv, _mix,
-                        gather_inputs, resolve_op, run_op,
+                        gather_inputs, op_context, resolve_op, run_op,
                         scatter_outputs)
 from .flags import get_flag
 from .framework import EMPTY_VAR_NAMES as _EMPTY
 from .framework import Program, Variable, default_main_program
-from .lod import LoDTensor, SelectedRows
+from .lod import LoDTensor, SelectedRows, TensorArray
 from .scope import Scope, tensor_from_numpy
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_place", "Executor",
@@ -204,9 +204,11 @@ def _to_device_value(v, device):
 def _to_numpy(v):
     """A fetched value on the host: a tensor as a numpy array, a
     SelectedRows as one with numpy rows and values, a LoDTensor as one
-    with numpy data."""
+    with numpy data, a TensorArray as one of such values."""
     if isinstance(v, (SelectedRows, LoDTensor)):
         return v.map(_to_numpy)
+    if isinstance(v, TensorArray):
+        return TensorArray([_to_numpy(t) for t in v.tensors])
     if isinstance(v, torch.Tensor):
         if v.dtype == torch.bfloat16:
             v = v.float()
@@ -347,7 +349,7 @@ class _Plan:
         denv.d = env    # the dict itself: what the caller holds is the env
         for i, (op, fn, attrs, tag) in enumerate(self.steps):
             self.at = i
-            scatter_outputs(op, denv, fn(ctx.child(tag),
+            scatter_outputs(op, denv, fn(op_context(ctx, op, denv, tag),
                                          gather_inputs(op, env), attrs))
             if after is not None and i in self.finals:
                 after(i, self.finals[i], env)
@@ -739,6 +741,12 @@ class Executor:
 
     # -- segmented: cached device segments between eager host ops -----------
     def _op_is_host(self, op) -> bool:
+        """Whether `op` runs eagerly between device segments: a host op
+        (`while`, `conditional_block`, the tensor-array and beam-search
+        ops), an op placed on the CPU, a random op on a card, or an op
+        with any such op in its sub-block, at any depth of nesting (a
+        `dynamic_rnn` whose step holds a `print` or, on a card, a
+        dropout)."""
         try:
             info = registry.get_op_info(op.type)
         except KeyError:

@@ -132,8 +132,11 @@ class SelectedRows:
 
 
 class TensorArray:
-    """LoDTensorArray: an ordered list of tensors (the dynamic RNN's
-    outputs, beam search's trajectories).  No op reads one yet."""
+    """LoDTensorArray: an ordered list of values (tensors or LoDTensors;
+    None at an index not written yet) — the While loop's per-iteration
+    states and beam search's per-step ids and scores.  A host value:
+    only host ops (ops/control_flow.py) read or write one, and a write
+    makes a new array, so an array read earlier keeps its values."""
 
     __slots__ = ("tensors",)
 

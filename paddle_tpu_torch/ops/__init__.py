@@ -8,11 +8,14 @@ the startup initializers), the MoE FFN, the conv nets' ops
 and the dense op corpus of the JAX package's activation, elementwise,
 matmul, reduce, manip, creation, loss, metrics and misc modules (every
 type there that needs no LoD, SelectedRows or sub-block), the LoD
-sequence ops and the recurrent ops, each lowered once in PyTorch.
+sequence ops, the recurrent ops and the control-flow ops (while,
+conditional blocks, tensor arrays, rank tables, beam search and the
+recurrence over a step block), each lowered once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
     attention,
+    control_flow,
     conv,
     creation,
     elementwise,

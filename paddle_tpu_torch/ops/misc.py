@@ -1,6 +1,7 @@
 """Miscellaneous ops: cos_sim, is_empty, print, sign, minus, fill,
-label_smooth, multiplex, split_selected_rows and pruning_mask
-(counterpart of paddle_tpu/ops/misc.py)."""
+label_smooth, multiplex, rnn_memory_helper, get_places, cond,
+split_selected_rows and pruning_mask (counterpart of
+paddle_tpu/ops/misc.py)."""
 from __future__ import annotations
 
 import torch
@@ -124,6 +125,47 @@ def multiplex(ctx, ins, attrs):
     xs = torch.stack(many(ins, "X"))                    # [K, N, ...]
     rows = torch.arange(xs.shape[1], device=xs.device)
     return {"Out": xs[ids, rows]}
+
+
+@register_op("rnn_memory_helper", inputs=("X",), outputs=("Out",))
+def rnn_memory_helper(ctx, ins, attrs):
+    """Identity (the reference rnn_memory_helper_op.cc, which exists so
+    an RNN memory always has a gradient slot; the generic gradient is
+    the identity's)."""
+    return {"Out": data_of(one(ins, "X"))}
+
+
+@register_op("get_places", inputs=(), outputs=("Out",),
+             attrs={"device_count": 0, "device_type": ""},
+             not_differentiable=True, host=True)
+def get_places_op(ctx, ins, attrs):
+    """The places of the executing context's device kind, as a host
+    value (the reference get_places_op.cc): every CUDA device under a
+    CUDA place, `[CPUPlace()]` under a CPU one; `device_count` > 0 keeps
+    the first that many."""
+    from ..core.executor import CPUPlace, CUDAPlace
+
+    if ctx.device.type == "cuda":
+        places = [CUDAPlace(i) for i in range(torch.cuda.device_count())]
+    else:
+        places = [CPUPlace()]
+    n = int(attrs.get("device_count") or 0)
+    return {"Out": places[:n] if n else places}
+
+
+@register_op("cond", inputs=("Cond",), outputs=(),
+             not_differentiable=True, host=True)
+def cond(ctx, ins, attrs):
+    """Scalar-condition branch: run `sub_block` when Cond is true, else
+    `else_block` when the op has one (the reference cond_op.cc, the
+    scope-based predecessor of conditional_block)."""
+    from .control_flow import _run_block, _truthy
+
+    sub = ctx.op.sub_block("sub_block" if _truthy(one(ins, "Cond"))
+                           else "else_block")
+    if sub is not None:
+        _run_block(ctx.root, sub.ops, ctx.env)
+    return {}
 
 
 @register_op("split_selected_rows", inputs=("X",), outputs=("Out",),

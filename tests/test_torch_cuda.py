@@ -1590,3 +1590,127 @@ def test_a_lod_fed_again_after_its_entry_went_is_captured_again(dev):
     assert stats["captures"] == 4 and stats["replays"] == 1
     assert stats["graphs"] == 2 and stats["eager_hits"] == 0
     assert k_loss == i_loss
+
+
+def _dyn_rnn_runs(feeds, order, compiled):
+    """A DynamicRNN decoder step (book/08's: fc of the word and the
+    state, tanh, an fc softmax head) trained with Adam on `feeds[i]` for
+    i in `order` on the card from a seeded startup -> (losses,
+    graph_stats())."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        emb = fluid.layers.embedding(input=words, size=[100, 16])
+        rnn = fluid.layers.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(emb)
+            h = rnn.memory(shape=[32], value=0.0)
+            nh = fluid.layers.fc(input=[word, h], size=32, act="tanh")
+            rnn.update_memory(h, nh)
+            rnn.output(fluid.layers.fc(input=nh, size=100, act="softmax"))
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(rnn(), label))
+        fluid.Adam(learning_rate=1e-3).minimize(loss)
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=0)
+        torch.manual_seed(0)
+        exe.run(startup)
+        out = [float(exe.run(main, feed=feeds[i], fetch_list=[loss],
+                             compiled=compiled)[0][0]) for i in order]
+        stats = exe.graph_stats()
+        exe.close()
+        return out, stats
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def test_dynamic_rnn_step_is_captured_and_replayed_under_two_lods(dev):
+    """A training step holding a `dynamic_rnn` (no host op in its block,
+    so a device op) is one CUDA graph a LoD: two LoDs fed in turns, a
+    miss and a capture each, replays after, every loss the
+    interpreter's bit for bit."""
+    feeds = _lod_feeds(([3, 7, 2, 5], [6, 1, 4, 4]))
+    for f in feeds:
+        f["label"] = f["words"]
+    order = [0, 0, 1, 1, 0, 1, 0, 1]
+    k_loss, stats = _dyn_rnn_runs(feeds, order, None)
+    i_loss, _ = _dyn_rnn_runs(feeds, order, False)
+    assert stats["captures"] == 2 and stats["replays"] == 4
+    assert stats["eager_hits"] == 0 and stats["graphs"] == 2
+    assert k_loss == i_loss
+
+
+def test_while_beam_search_decode_on_the_card_equals_the_cpu(dev):
+    """book/08's While + beam_search decoder (chip_smoke's builder at a
+    small width) on the card (segmented: the loop a host op, its body op
+    by op on the card) and on the CPU from the same parameters: every
+    step's selections equal, the same sentences and LoDs, scores within
+    1e-5 (chip_smoke's `_decode_verdict`).  The input is tie-free: at
+    every step each source's last chosen candidate is apart from its
+    first rejected one by far more than the two devices' rounding
+    (recorded on the CPU run, checked below)."""
+    import numpy as np
+
+    import chip_smoke
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.scope import Scope
+
+    hidden = 16
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        context = fluid.layers.data(name="context", shape=[hidden],
+                                    dtype="float32")
+        ids, scores = chip_smoke._mt_decoder_decode(
+            fluid, context, vocab=12, emb=hidden, hid=hidden, max_len=5,
+            beam=2, topk=4)
+    n = 3
+    lod = [list(range(n + 1))] * 2
+    feed = {"context": np.random.RandomState(8).randn(n, hidden)
+            .astype(np.float32),
+            "init_ids": LoDTensor(np.zeros((n, 1), np.int64), lod),
+            "init_scores": LoDTensor(np.ones((n, 1), np.float32), lod)}
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    out, params = {}, None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        prev = executor_mod.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(place, seed=0)
+            if params is None:
+                torch.manual_seed(0)
+                exe.run(startup)
+                params = {p: fluid.global_scope().find_var(p).clone()
+                          for p in persist}
+            for p, v in params.items():
+                fluid.global_scope().set_var(p, v.to(exe.device))
+            runs = []
+            for _ in range(3):
+                steps = []
+                with chip_smoke._wrapped_lowering(
+                        "beam_search", chip_smoke._beam_record(steps)):
+                    runs.append((steps, exe.run(main, feed=feed,
+                                                fetch_list=[ids, scores])))
+            out[str(place)] = runs
+            exe.close()
+        finally:
+            executor_mod.switch_scope(prev)
+    c_steps, c_out = out["CPUPlace"][0]
+    assert len(c_out[0].lod[0]) == n + 1 and c_out[0].lod[0][-1] >= n
+    for k_steps, k_out in out["CUDAPlace(0)"]:
+        ok, rec = chip_smoke._decode_verdict(k_steps, c_steps, k_out, c_out,
+                                             1e-5)
+        assert ok and rec["decode_equal"], rec
+    gap = rec["min_chosen_vs_rejected_gap"]
+    assert gap > 1e-3, f"a near tie in the input: smallest gap {gap}"

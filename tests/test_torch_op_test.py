@@ -19,7 +19,9 @@ Each case of tests/torch_op_cases.py runs three checks:
 An input given as (array, lod) is a LoDTensor in both packages; each
 output's LoD is held to the numpy reference's and the JAX lowering's,
 and each gradient to its input's.  Cotangents are seeded per case.  Cases at a kink or a tie (`fd=False`)
-skip check 2: there the JAX package's gradient is the reference.  The
+skip check 2: there the JAX package's gradient is the reference.  Host
+ops whose JAX lowering computes in numpy (`vjp=False`: the IfElse split
+and merge) skip check 3's gradient, which jax.vjp cannot trace.  The
 tests of each op family sit in tests/test_torch_ops_*.py, parametrised
 over the cases, so that `--dist loadfile` spreads them.
 """
@@ -298,8 +300,10 @@ def jax_lowering(case, cots=None):
 
 def check_jax(case):
     """Check 3: the port's float32 forward and generic gradient against
-    the JAX lowering and jax.vjp, from the same inputs and cotangents."""
-    grad = has_gradient(case)
+    the JAX lowering and jax.vjp, from the same inputs and cotangents
+    (the forward alone where the JAX lowering is host numpy: `vjp`
+    False)."""
+    grad = has_gradient(case) and case.vjp
     cots = cotangents(case) if grad else None
     jouts, jgrads = jax_lowering(case, cots)
     touts = {s: v for s, v in port_forward(case).items() if v is not None}
@@ -335,19 +339,49 @@ def jax_cases(cases):
 
 # -- the registry and the harness itself -------------------------------------
 
+# the JAX package's op types the port does not register yet, by ROADMAP
+# item: A7.2 (book/07), A7.3 (CTC, sampling, detection, readers and io),
+# A3's conv rest, A8's collectives, A10's io ops, A11's distributed ops,
+# and A4b's recompute
+NOT_PORTED = {
+    "A7.2": ["chunk_eval", "crf_decoding", "linear_chain_crf"],
+    "A7.3": ["bipartite_match", "box_coder", "create_batch_reader",
+             "create_random_data_generator", "create_shuffle_reader",
+             "ctc_align", "detection_map", "hsigmoid", "iou_similarity",
+             "mine_hard_examples", "multiclass_nms", "nce", "prior_box",
+             "read", "roi_pool", "target_assign", "warpctc"],
+    "A3": ["conv2d_transpose", "conv3d", "conv3d_transpose", "conv_shift",
+           "max_pool2d_with_index", "max_pool3d_with_index", "pool3d",
+           "row_conv", "spp", "unpool"],
+    "A8": ["c_allgather", "c_allreduce_max", "c_allreduce_mean",
+           "c_allreduce_sum", "c_broadcast", "c_ppermute",
+           "c_reducescatter"],
+    "A10": ["feed", "fetch", "load", "load_combine", "save",
+            "save_combine"],
+    "A11": ["listen_and_serv", "recv", "send"],
+    "A4b": ["recompute"],
+}
+
+
 def test_the_corpus_is_the_jax_packages_dense_types():
-    """108 op types: every type of the JAX package's activation,
+    """112 op types: every type of the JAX package's activation,
     elementwise, matmul, reduce, manip, creation, loss, metrics and misc
-    modules that needs no LoD, SelectedRows or sub-block (89), and the
-    19 LoD sequence and recurrent types; the port registers 163 of the
-    JAX package's 233 in all (with the nine optimizer types and
-    split_selected_rows of tests/test_torch_optimizers.py)."""
-    assert len(CORPUS) == 108
+    modules that needs no LoD, SelectedRows or sub-block (89), the 19
+    LoD sequence and recurrent types, and the IfElse split and merge
+    with their gradient ops (4).  The port registers 186 of the JAX
+    package's 233 in all (with the nine optimizer types and
+    split_selected_rows of tests/test_torch_optimizers.py and the
+    control-flow types of tests/test_torch_control_flow.py); the 47 it
+    does not are NOT_PORTED's, by name."""
+    assert len(CORPUS) == 112
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 163
+    assert len(treg.registered_ops()) == 186
     assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
+    missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
+    assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
+    assert len(missing) == 47
 
 
 @pytest.mark.parametrize("op", CORPUS)

@@ -13,7 +13,11 @@ are compared; a LoD input reaches it as (array, lod)).
 repeated maximum): there the gradient is held to `jax.vjp` only, since a
 finite difference straddles the kink.  Inputs of the other cases keep
 at least 0.05 away from every kink.  `random=True` marks an op whose
-values are drawn: it is held by distribution.
+values are drawn: it is held by distribution.  `vjp=False` marks a host
+op whose JAX lowering computes in numpy, which `jax.vjp` cannot trace
+(the IfElse split and merge): its generic gradient is held to finite
+differences only, and the explicit gradient op the Program runs is a
+case of its own.
 """
 from __future__ import annotations
 
@@ -26,10 +30,10 @@ __all__ = ["Case", "CASES", "cases_of", "rng"]
 
 class Case:
     def __init__(self, name, op, ins, attrs=None, ref=None, fd=True,
-                 random=False):
+                 random=False, vjp=True):
         self.name, self.op, self.ins = name, op, ins
         self.attrs = dict(attrs or {})
-        self.ref, self.fd, self.random = ref, fd, random
+        self.ref, self.fd, self.random, self.vjp = ref, fd, random, vjp
 
     def __repr__(self):
         return self.name
@@ -1134,6 +1138,117 @@ def _rnn_cases():
     ]
 
 
+# -- control flow: the IfElse split and merge (paddle_tpu/ops/
+# control_flow.py:101-221; tests/test_ifelse.py's OpTest cases) ------------
+
+def _branches(x, mask, level):
+    """(true rows, false rows, true lens, false lens; lens None for a
+    dense input) of split_lod_tensor."""
+    m = np.asarray(mask).reshape(-1).astype(bool)
+    if isinstance(x, tuple):
+        offs = x[1][level]
+        rows = [list(range(offs[s], offs[s + 1])) for s in range(len(m))]
+        pick = lambda k: [r for s, rs in enumerate(rows)  # noqa: E731
+                          if m[s] == k for r in rs]
+        lens = lambda k: [len(rs) for s, rs in enumerate(rows)  # noqa: E731
+                          if m[s] == k]
+        return pick(True), pick(False), lens(True), lens(False)
+    idx = np.arange(len(m))
+    return idx[m].tolist(), idx[~m].tolist(), None, None
+
+
+def _branch(a, rows, lens):
+    out = a[rows]
+    return out if lens is None else (out, [_offsets(lens)])
+
+
+def _offsets(lens):
+    return np.concatenate([[0], np.cumsum(lens)]).astype(int).tolist()
+
+
+def _split_lod_ref(ins, a):
+    t, f, tl, fl = _branches(ins["X"], ins["Mask"], a["level"])
+    x = _arr_of(ins["X"])
+    return {"OutTrue": _branch(x, t, tl), "OutFalse": _branch(x, f, fl)}
+
+
+def _merge_lod_ref(ins, a):
+    t, f, _, _ = _branches(ins["X"], ins["Mask"], a["level"])
+    vt, vf = _arr_of(ins["InTrue"]), _arr_of(ins["InFalse"])
+    out = np.zeros((len(t) + len(f),) + vt.shape[1:], vt.dtype)
+    out[t], out[f] = vt, vf
+    x = ins["X"]
+    return {"Out": (out, x[1]) if isinstance(x, tuple) else out}
+
+
+def _split_grad_ref(ins, a):
+    t, f, _, _ = _branches(ins["X"], ins["Mask"], a["level"])
+    x = ins["X"]
+    g = np.zeros_like(_arr_of(x))
+    g[t] = _arr_of(ins["OutTrue@GRAD"])
+    g[f] = _arr_of(ins["OutFalse@GRAD"])
+    return {"X@GRAD": (g, x[1]) if isinstance(x, tuple) else g}
+
+
+def _merge_grad_ref(ins, a):
+    t, f, tl, fl = _branches(ins["X"], ins["Mask"], a["level"])
+    g = ins["Out@GRAD"]
+    return {"InTrue@GRAD": _branch(g, t, tl),
+            "InFalse@GRAD": _branch(g, f, fl)}
+
+
+def _arr_of(v):
+    return v[0] if isinstance(v, tuple) else v
+
+
+def _control_flow_cases():
+    r = rng("control_flow")
+    x = np.arange(20, dtype=np.float32).reshape(10, 2)
+    mask = (np.arange(10) % 3 == 0).reshape(10, 1)
+    lod = [[0, 3, 5, 7]]
+    seq_mask = np.array([[1], [0], [1]], bool)
+    m6 = np.array([1, 0, 0, 1, 1, 0], bool).reshape(6, 1)
+    return [
+        Case("split_lod_tensor.dense", "split_lod_tensor",
+             {"X": x, "Mask": mask}, ref=_split_lod_ref, vjp=False),
+        Case("split_lod_tensor.lod", "split_lod_tensor",
+             {"X": (_f32(r.standard_normal((7, 2))), lod),
+              "Mask": seq_mask}, ref=_split_lod_ref, vjp=False),
+        Case("merge_lod_tensor.dense", "merge_lod_tensor",
+             {"X": np.zeros((6, 3), np.float32), "Mask": m6,
+              "InTrue": _f32(r.rand(3, 3)), "InFalse": _f32(r.rand(3, 3))},
+             ref=_merge_lod_ref, vjp=False),
+        Case("merge_lod_tensor.lod", "merge_lod_tensor",
+             {"X": (np.zeros((7, 1), np.float32), lod), "Mask": seq_mask,
+              "InTrue": (_f32(r.standard_normal((5, 2))), [[0, 3, 5]]),
+              "InFalse": (_f32(r.standard_normal((2, 2))), [[0, 2]])},
+             ref=_merge_lod_ref, vjp=False),
+        Case("split_lod_tensor_grad.dense", "split_lod_tensor_grad",
+             {"X": x, "Mask": mask,
+              "OutTrue@GRAD": _f32(r.standard_normal((4, 2))),
+              "OutFalse@GRAD": _f32(r.standard_normal((6, 2)))},
+             ref=_split_grad_ref, vjp=False),
+        Case("split_lod_tensor_grad.lod", "split_lod_tensor_grad",
+             {"X": (_f32(r.standard_normal((7, 2))), lod),
+              "Mask": seq_mask,
+              "OutTrue@GRAD": (_f32(r.standard_normal((5, 2))),
+                               [[0, 3, 5]]),
+              "OutFalse@GRAD": (_f32(r.standard_normal((2, 2))), [[0, 2]])},
+             ref=_split_grad_ref, vjp=False),
+        Case("merge_lod_tensor_grad.dense", "merge_lod_tensor_grad",
+             {"X": np.zeros((6, 3), np.float32), "Mask": m6,
+              "InTrue": _f32(r.rand(3, 3)), "InFalse": _f32(r.rand(3, 3)),
+              "Out@GRAD": _f32(r.standard_normal((6, 3)))},
+             ref=_merge_grad_ref, vjp=False),
+        Case("merge_lod_tensor_grad.lod", "merge_lod_tensor_grad",
+             {"X": (np.zeros((7, 1), np.float32), lod), "Mask": seq_mask,
+              "InTrue": (_f32(r.standard_normal((5, 2))), [[0, 3, 5]]),
+              "InFalse": (_f32(r.standard_normal((2, 2))), [[0, 2]]),
+              "Out@GRAD": _f32(r.standard_normal((7, 2)))},
+             ref=_merge_grad_ref, vjp=False),
+    ]
+
+
 GROUPS = {
     "activation": _activation_cases,
     "elementwise": _elementwise_cases,
@@ -1146,6 +1261,7 @@ GROUPS = {
     "misc": _misc_cases,
     "sequence": _sequence_cases,
     "rnn": _rnn_cases,
+    "control_flow": _control_flow_cases,
 }
 
 CASES = [c for make in GROUPS.values() for c in make()]

@@ -14,6 +14,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py image-models [--package-root DIR]
     python3 tools/torch_tree_probe.py ctr [--package-root DIR]
     python3 tools/torch_tree_probe.py rnn [--package-root DIR]
+    python3 tools/torch_tree_probe.py book08 [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -49,6 +50,9 @@ ctr        chip_smoke.py's optimizers and ctr phases alone (the update
 rnn        chip_smoke.py's ops phase (the LoD op cases among the rest)
            and its rnn phases alone (run_rnn's LSTM classifier, ragged
            LoDs, card against CPU, run_seq2seq's LSTM translator);
+book08     chip_smoke.py's ops phase and its book08 phase alone
+           (book/08's DynamicRNN translator and its attention variant,
+           the While + beam-search decoder, card against CPU);
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -647,12 +651,22 @@ def rnn(cs, dev):
     cs.rnn_phase(card, CUDAPlace(0), peaks)
 
 
+def book08(cs, dev):
+    """chip_smoke's ops phase and its book08 phase (book/08's DynamicRNN
+    translators and the While + beam-search decoder)."""
+    from paddle_tpu_torch import CUDAPlace
+
+    card, _, peaks = _card(cs)
+    cs.ops_phase(card, dev)
+    cs.book08_phase(card, CUDAPlace(0), peaks)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
                                       "sgd-sweep", "host", "convnets",
                                       "conv-fp32", "seq2seq",
-                                      "image-models", "ctr", "rnn"))
+                                      "image-models", "ctr", "rnn", "book08"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -683,7 +697,7 @@ def main():
          "sgd-sweep": sgd_sweep, "convnets": convnets,
          "conv-fp32": conv_fp32, "seq2seq": seq2seq,
          "image-models": image_models, "ctr": ctr,
-         "rnn": rnn}[args.probe](cs, dev)
+         "rnn": rnn, "book08": book08}[args.probe](cs, dev)
     return 0
 
 

@@ -60,9 +60,9 @@ Phases, one JSON line each:
            peak allocated and reserved memory, the interpreter's host
            synchronisations;
   ops      every op type of the op corpus (tests/torch_op_cases.py: 89
-           dense types, 19 LoD sequence and recurrent types and the 4
-           IfElse split and merge types, their attribute, boundary and
-           tie cases) on the card against the
+           dense types, 19 LoD sequence and recurrent types, the 4
+           IfElse split and merge types and the 3 CRF types, their
+           attribute, boundary and tie cases) on the card against the
            CPU from the same seeded inputs: the forward and the generic
            gradient in float32 (TF32 off) within 1e-5 of max(1,
            max|CPU|), ints, bools and LoDs exactly; matmul and cast
@@ -213,7 +213,32 @@ Phases, one JSON line each:
            lengths 10-32) on the card and on the CPU: two Adam steps
            (losses within 1e-5, states within 1e-4) and the decode (ids
            and LoDs equal, scores within 1e-5, the smallest
-           chosen-vs-rejected score gap of the beams).
+           chosen-vs-rejected score gap of the beams);
+  book07   book/07's semantic-role tagger (db_lstm: eight is_sparse
+           embeddings, 8 alternating LSTMs, linear_chain_crf, its
+           crf_decoding and chunk_eval) at the book's published widths
+           (see the L_ constants), batch 10, SGD: the default mode (one
+           device segment replayed as a CUDA graph a LoD, then the host
+           chunk_eval; two more seeded LoDs) against the interpreter bit
+           for bit, the loss falling, the eval program of
+           fluid.io.get_inference_program on a fresh batch, and two steps
+           on the card and on the CPU (losses within 1e-5, states within
+           1e-4, Viterbi paths equal); ms a step, tokens/s, device time
+           by group, kernels, idle share, chunk_eval's host ms, peak
+           memory;
+  dp_gspmd the GSPMD step's two forms: resnet50_dp1, run_scaling's
+           ResNet-50 step (bf16, batch 64) through
+           ParallelExecutor(mesh={"dp": 1}) and ShardingTranspiler
+           (overlap="auto") under a one-rank NCCL group (the sync-BN
+           form) against the Executor; dp2_one_card, two gloo ranks on
+           the one card (this script run again as `--dp2-worker`):
+           run_scaling's default ResNet (bf16 and float32; sync-BN) and
+           book07 (replicated) against one process's serial run at the
+           global batch (the ResNets within twice a band of the serial
+           steps summed in other orders), the ranks bit-equal; the
+           first step's gradients; ms a step per arm and form,
+           all-reduces a step by kind, peak memory (see the P_
+           constants).
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -223,10 +248,11 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step.  The image, optimizers, ctr, rnn
-and book08 phases run no kernel of the port's own (the JAX package runs the
-recurrence as a `lax.scan`, the sequence ops as XLA gathers and
-segment sums and the While loop and beam search on the host, with no
+profiler's count in a replayed step.  The image, optimizers, ctr, rnn,
+book08, book07 and dp_gspmd phases run no kernel of the port's own (the
+JAX package runs the recurrences and the CRF as `lax.scan`, the sequence
+ops as XLA gathers and segment sums, the While loop, beam search and
+chunk_eval on the host and the GSPMD step's collectives in XLA, with no
 Pallas kernel): convolution, pooling, batch
 norm, lrn and concat are cuDNN or plain PyTorch calls there, and the
 SelectedRows gradients are made dense, and sparse SGD scatters, by
@@ -312,8 +338,9 @@ M_GATE_STD = 0.05
 # within one bf16 ulp
 OPS_RTOL = 1e-5
 # the corpus's op types: 89 dense, 19 LoD sequence and recurrent, the 4
-# IfElse split and merge ops (host ops) and their gradient ops
-OPS_TYPES = 112
+# IfElse split and merge ops (host ops) and their gradient ops, and the 3
+# CRF ops (chunk_eval a host op)
+OPS_TYPES = 115
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -411,6 +438,51 @@ B_VOCAB, B_EMB, B_HID, B_LR, B_START, B_END = 30000, 512, 512, 1e-4, 0, 1
 B_BATCH, B_MIN_LEN, B_MAX_LEN, B_MAXS, B_LODS = 32, 10, 127, 128, 2
 B_BEAM, B_TOPK, B_DECODE_LEN = 2, 4, 32
 B_CPU_BATCH, B_CPU_MAX_LEN, B_CPU_STEPS, B_SCORE_RTOL = 8, 32, 2, 1e-5
+# the book07 phase: book/07's semantic-role tagger (db_lstm of Paddle's
+# python/paddle/v2/fluid/tests/book/test_label_semantic_roles.py) at its
+# published widths: the CoNLL-05 dictionaries (44068 words, 3162
+# predicates, 59 labels), 2 marks, word_dim 32, mark_dim 5, hidden_dim 512
+# (each feature's fc and the dynamic_lstm size, 4 x its hidden 128), depth
+# 8, the CRF transition `crfw` at learning rate mix_hidden_lr 1e-3,
+# chunk_eval over IOB with 29 chunk types, batch 10 (BATCH_SIZE); SGD at
+# L_LR, the book's 1e-4 (at 0.01 the loss goes 135 -> 1027 -> 1.8e6 -> NaN
+# in five steps, on the card and on the CPU).  A synthetic CoNLL-shaped
+# feed: sentence lengths drawn in
+# [L_MIN_LEN, L_MAX_LEN], labels from a rule on the word ids so the loss
+# can fall; L_LODS more LoDs after the timed one; card against CPU over
+# L_CPU_STEPS steps (losses within N_CPU_LOSS_RTOL, every state within
+# N_CPU_RTOL of max(1, |CPU value|), the Viterbi paths equal)
+L_WORDS, L_PREDS, L_LABELS, L_MARKS = 44068, 3162, 59, 2
+L_WORD_DIM, L_MARK_DIM, L_HIDDEN, L_DEPTH, L_CRF_LR = 32, 5, 512, 8, 1e-3
+L_LR, L_BATCH, L_MIN_LEN, L_MAX_LEN, L_LODS, L_CPU_STEPS = \
+    1e-4, 10, 5, 60, 2, 2
+# the dp_gspmd phase: benchmark/run_scaling.py's step (:33-88; bf16
+# throughout, Momentum 0.1 / 0.9): resnet50_dp1 at --depth 50 --img 224
+# --batch-per-dev 64 (resnet_imagenet, 1000 classes) under a one-rank
+# NCCL group, both arms against the Executor at batch 64; dp2_one_card at
+# run_scaling's defaults (depth 32, img 32, batch 64 a rank:
+# resnet_cifar10, 10 classes) and book07's program on two gloo ranks of
+# the one card against one process's serial run at the global batch.
+# Held over the first P_HELD steps: losses within one bf16 ulp (float32:
+# N_CPU_LOSS_RTOL relative), parameters, velocities and running
+# statistics within P_STATE_RTOL of max(1, |reference|) after the first
+# step and after P_HELD steps, and the first step's gradients (Momentum's
+# velocities after it) within P_STATE_RTOL of their largest magnitude;
+# the ranks bit-equal; G_STEPS steps timed.  run_scaling's step at lr 0.1
+# is ill-conditioned: any change in the order its sums are taken in moves
+# its float32 states by about 1e-3 after one step and 0.1 after three
+# (ReLUs flip).  So rank 0 also runs a band of the serial steps summed in
+# other orders, P2_PERMS runs with each batch's rows permuted and, for
+# the float32 ResNet, the float64 program from the same values; each
+# limit of dp2_one_card's ResNets is twice the band's largest reading
+# where that exceeds the fixed one.  book07 (replicated) has no band
+P_DEPTH, P_IMG, P_BATCH, P_CLASSES = 50, 224, 64, 1000
+P2_DEPTH, P2_IMG, P2_BATCH, P2_CLASSES = 32, 32, 64, 10
+P_LR, P_MOMENTUM, P_HELD, P_STATE_RTOL = 0.1, 0.9, 3, 1e-2
+# the band's row permutations, and the program each ResNet's band also
+# runs in another dtype
+P2_PERMS = 6
+P2_TWIN = {"resnet_cifar10": None, "resnet_cifar10_fp32": "float64"}
 
 
 class CheckFailed(RuntimeError):
@@ -3240,8 +3312,8 @@ def _op_err(card, cpu):
 
 def ops_phase(card, dev):
     """Every op type of the corpus (tests/torch_op_cases.py: 89 dense
-    types, the 19 LoD sequence and recurrent types and the 4 IfElse
-    split and merge types, their attribute,
+    types, the 19 LoD sequence and recurrent types, the 4 IfElse
+    split and merge types and the 3 CRF types, their attribute,
     boundary and tie cases, LoD inputs as LoDTensors) on the card and on
     the CPU from the same seeded inputs: the forward and, where the op
     has one, the generic gradient (autograd over the lowering, seeded
@@ -4957,6 +5029,752 @@ def book08_phase(card, place, peaks):
         torch.cuda.empty_cache()
 
 
+# -- book07 phase --------------------------------------------------------------
+
+_SRL_FEEDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+              "verb", "mark")
+
+
+def _srl_program(words=L_WORDS, preds=L_PREDS, labels=L_LABELS,
+                 hidden=L_HIDDEN, depth=L_DEPTH):
+    """book/07's db_lstm with its CRF head, SGD at L_LR, crf_decoding and
+    chunk_eval -> (main, startup, loss, the decoded path, (precision,
+    recall, F1), the emission)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    layers = fluid.layers
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        feats = [layers.data(name=n, shape=[1], dtype="int64", lod_level=1)
+                 for n in _SRL_FEEDS]
+        target = layers.data(name="target", shape=[1], dtype="int64",
+                             lod_level=1)
+        embs = [layers.embedding(
+            input=x, size=[words, L_WORD_DIM], is_sparse=True,
+            param_attr=fluid.ParamAttr(name="emb", trainable=False))
+            for x in feats[:6]]
+        embs.append(layers.embedding(input=feats[6],
+                                     size=[preds, L_WORD_DIM],
+                                     is_sparse=True,
+                                     param_attr={"name": "vemb"}))
+        embs.append(layers.embedding(input=feats[7],
+                                     size=[L_MARKS, L_MARK_DIM],
+                                     is_sparse=True))
+        acts = dict(candidate_activation="relu", gate_activation="sigmoid",
+                    cell_activation="sigmoid")
+        hidden_0 = layers.sums(input=[layers.fc(input=e, size=hidden)
+                                      for e in embs])
+        pair = [hidden_0, layers.dynamic_lstm(input=hidden_0, size=hidden,
+                                              **acts)[0]]
+        for i in range(1, depth):
+            mix = layers.sums(input=[layers.fc(input=pair[0], size=hidden),
+                                     layers.fc(input=pair[1], size=hidden)])
+            pair = [mix, layers.dynamic_lstm(input=mix, size=hidden,
+                                             is_reverse=i % 2 == 1,
+                                             **acts)[0]]
+        feature = layers.sums(input=[layers.fc(input=pair[0], size=labels),
+                                     layers.fc(input=pair[1], size=labels)])
+        cost = layers.linear_chain_crf(
+            input=feature, label=target,
+            param_attr=fluid.ParamAttr(name="crfw", learning_rate=L_CRF_LR))
+        loss = layers.mean(cost)
+        fluid.SGD(learning_rate=L_LR).minimize(loss)
+        decode = layers.crf_decoding(input=feature,
+                                     param_attr=fluid.ParamAttr(name="crfw"))
+        precision, recall, f1, *_ = layers.chunk_eval(
+            input=decode, label=target, chunk_scheme="IOB",
+            num_chunk_types=(labels - 1) // 2)
+    return main, startup, loss, decode, (precision, recall, f1), feature
+
+
+def _srl_feed(rng, n, words=L_WORDS, preds=L_PREDS, labels=L_LABELS):
+    """A CoNLL-05-shaped batch of `n` sentences -> (feed, tokens): the
+    five context slots the predicate's neighbours, the predicate and the
+    context repeated over the sentence, the mark 1 within two words of
+    the predicate; IOB labels by a rule on the word ids (a word divisible
+    by 7 opens a chunk of two, by 11 a chunk of one, of type word % the
+    chunk types; every other word O)."""
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    types, other = (labels - 1) // 2, labels - 1
+    lens = rng.randint(L_MIN_LEN, L_MAX_LEN + 1, n)
+    cols = {k: [] for k in _SRL_FEEDS + ("target",)}
+    for ln in lens:
+        w = rng.randint(0, words, ln)
+        p = rng.randint(0, ln)
+        ctx = [w[min(max(p + d, 0), ln - 1)] for d in (-2, -1, 0, 1, 2)]
+        for k, c in zip(_SRL_FEEDS[1:6], ctx):
+            cols[k].append(np.full(ln, c))
+        cols["word"].append(w)
+        cols["verb"].append(np.full(ln, rng.randint(0, preds)))
+        cols["mark"].append((np.abs(np.arange(ln) - p) <= 2).astype(int))
+        tag = np.full(ln, other)
+        i = 0
+        while i < ln:
+            t = int(w[i] % types)
+            if w[i] % 7 == 0 and i + 1 < ln:
+                tag[i], tag[i + 1] = 2 * t, 2 * t + 1
+                i += 2
+                continue
+            if w[i] % 11 == 0:
+                tag[i] = 2 * t
+            i += 1
+        cols["target"].append(tag)
+    lod = [lod_from_seq_lens(lens)]
+    return ({k: LoDTensor(np.concatenate(v).astype(np.int64)[:, None], lod)
+             for k, v in cols.items()}, int(lens.sum()))
+
+
+def _host_timed(secs):
+    """A host op's lowering wrapper appending each call's host seconds
+    to `secs`: the card drained first, so its wait for the device
+    segment before it is not counted."""
+    def wrap(lower):
+        def timed(ctx, ins, attrs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lower(ctx, ins, attrs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return wrap
+
+
+def _segment_runs(exe, program):
+    """[[kind, ops]] of the block's maximal runs of device ops and of
+    host ops, as the Executor's segmented mode splits it."""
+    runs = []
+    for op in program.global_block().ops:
+        kind = "host" if exe._op_is_host(op) else "device"
+        if runs and runs[-1][0] == kind:
+            runs[-1][1] += 1
+        else:
+            runs.append([kind, 1])
+    return runs
+
+
+def _srl_train(card, place):
+    """book07's train and eval parts -> a record."""
+    import paddle_tpu_torch as fluid
+
+    phase = "book07"
+    main, startup, loss, _, metrics, _ = _srl_program()
+    types = [op.type for op in main.global_block().ops]
+    check(types.count("lstm") == L_DEPTH and types.count("chunk_eval") == 1
+          and types.count("linear_chain_crf_grad") == 1
+          and types.count("crf_decoding") == 1,
+          f"{phase}: the Program's ops {types}")
+    rng = np.random.RandomState(SEED + 7)
+    feed, tokens = _srl_feed(rng, L_BATCH)
+    more = [_srl_feed(rng, L_BATCH)[0] for _ in range(L_LODS)]
+    fresh, _ = _srl_feed(rng, L_BATCH)
+    eval_prog = fluid.io.get_inference_program(list(metrics), main)
+
+    def after(exe):
+        segs = _segment_runs(exe, main)
+        extra = _mt_more_lods(phase, exe, main, loss, more)
+        p, r, f1 = [float(np.asarray(v)) for v in exe.run(
+            eval_prog, feed=fresh, fetch_list=list(metrics))]
+        check(all(0.0 <= v <= 1.0 for v in (p, r, f1)),
+              f"{phase}: eval precision/recall/F1 {p} / {r} / {f1}")
+        return {"segments": segs, "more_lods": extra,
+                "eval": {"precision": p, "recall": r, "f1": f1,
+                         "ops": len(eval_prog.global_block().ops)}}
+
+    chunk_s = []
+    with _wrapped_lowering("chunk_eval", _host_timed(chunk_s)):
+        r = _default_and_interpreter(phase, place, main, startup, loss,
+                                     lambda step: feed,
+                                     ("matmul", "sort_segment"),
+                                     after=after)
+    segs = r["extra"]["segments"]
+    check(segs == [["device", len(types) - 1], ["host", 1]],
+          f"{phase}: segments {segs}: want one device segment, then the "
+          "host chunk_eval")
+    _loss_falls(phase, r["k_loss"])
+    step_s = float(np.median(r["k_secs"][2:]))
+    del r["init"], r["k_state"]
+    return {"phase": phase, "card": card,
+            "source": "Paddle's python/paddle/v2/fluid/tests/book/"
+                      "test_label_semantic_roles.py db_lstm (this repo's "
+                      "tests/book/test_label_semantic_roles.py:58-90 at "
+                      "test width)",
+            "words": L_WORDS, "predicates": L_PREDS, "labels": L_LABELS,
+            "word_dim": L_WORD_DIM, "mark_dim": L_MARK_DIM,
+            "hidden_dim": L_HIDDEN, "depth": L_DEPTH,
+            "optimizer": f"sgd {L_LR}, crfw x {L_CRF_LR}",
+            "batch": L_BATCH, "sentence_lengths": feed["word"].seq_lens(),
+            "ops": len(types), "segments": segs,
+            "mode": "segmented (one device segment replayed as a CUDA "
+                    "graph a LoD, then the host chunk_eval)",
+            "steps": G_STEPS, **_rnn_record(r, step_s),
+            "interpreted_ms_per_step_3_6":
+                float(np.median(r["i_secs"][2:])) * 1e3,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+            "chunk_eval_host_ms": float(np.median(chunk_s)) * 1e3,
+            "chunk_eval_calls": len(chunk_s),
+            "more_lods": r["extra"]["more_lods"],
+            "eval": r["extra"]["eval"],
+            "timing": _RNN_TIMING + "; chunk_eval_host_ms the median "
+                      "host time of a chunk_eval call, the card drained "
+                      "before it"}
+
+
+def _viterbi_gaps(emission, transition, lod):
+    """float64 Viterbi over each sequence -> per row, the margin by which
+    the decoded tag's chosen predecessor beats the runner-up (at a
+    sequence's last row the smaller of that and the final tag's
+    margin over the next best; inf where there is no runner-up)."""
+    start, end, trans = transition[0], transition[1], transition[2:]
+    gaps = np.full(len(emission), np.inf)
+
+    def margin(v):
+        top = np.sort(v)[::-1]
+        return float(top[0] - top[1]) if len(top) > 1 else np.inf
+
+    for s in range(len(lod) - 1):
+        em = emission[lod[s]:lod[s + 1]]
+        alphas = [start + em[0]]
+        for t in range(1, len(em)):
+            alphas.append((alphas[-1][:, None] + trans).max(0) + em[t])
+        final = alphas[-1] + end
+        tag = int(final.argmax())
+        gaps[lod[s + 1] - 1] = margin(final)
+        for t in range(len(em) - 1, 0, -1):
+            scores = alphas[t - 1] + trans[:, tag]
+            row = lod[s] + t
+            gaps[row] = min(gaps[row], margin(scores))
+            tag = int(scores.argmax())
+    return gaps
+
+
+def _srl_card_vs_cpu(card, place):
+    """L_CPU_STEPS SGD steps of book07's program at full width on the
+    card and on the CPU from the same startup values -> a record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss, decode, _, feature = _srl_program()
+    persist = _persistables(main)
+    rng = np.random.RandomState(SEED + 8)
+    feeds = [_srl_feed(rng, L_BATCH)[0] for _ in range(L_CPU_STEPS)]
+    fetch = [loss, decode, feature, "crfw"]
+
+    def run(exe):
+        return [exe.run(main, feed=f, fetch_list=fetch) for f in feeds]
+
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup)
+    init = {n: scope.find_var(n).clone() for n in persist}
+    c_out = run(exe)
+    card = {n: scope.find_var(n).cpu() for n in persist}
+    exe.close()
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        cpu_scope = fluid.global_scope()
+        for n in persist:
+            cpu_scope.set_var(n, init[n].cpu())
+        t0 = time.perf_counter()
+        p_out = run(fluid.Executor(fluid.CPUPlace(), seed=SEED))
+        cpu_s = time.perf_counter() - t0
+        want = {n: cpu_scope.find_var(n) for n in persist}
+    finally:
+        executor_mod.switch_scope(prev)
+    c_loss = [float(o[0][0]) for o in c_out]
+    p_loss = [float(o[0][0]) for o in p_out]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(c_loss, p_loss)]
+    rel = _states_rel_diff(card, want)
+    worst = max(rel, key=rel.get)
+    paths = []
+    for step, (c, p) in enumerate(zip(c_out, p_out)):
+        cp = np.asarray(c[1].data).reshape(-1)
+        pp = np.asarray(p[1].data).reshape(-1)
+        lod = p[1].lod[0]
+        diff = np.flatnonzero(cp != pp)
+        rec = {"step": step, "rows": len(pp), "differing_rows": len(diff)}
+        gaps = _viterbi_gaps(np.asarray(p[2].data, np.float64),
+                             np.asarray(p[3], np.float64), lod)
+        rec["smallest_gap"] = float(gaps.min())
+        if len(diff):
+            rec["first_differing_row"] = int(diff[0])
+            rec["gap_at_first_difference"] = float(gaps[diff[0]])
+        paths.append(rec)
+    record = {"batch": L_BATCH, "steps": L_CPU_STEPS, "card": c_loss,
+              "cpu": p_loss, "loss_rel_diff": loss_rel,
+              "loss_limit": N_CPU_LOSS_RTOL,
+              "state_max_rel_diff": rel[worst], "state_argmax": worst,
+              "state_limit": N_CPU_RTOL, "states": len(rel), "cpu_s": cpu_s,
+              "viterbi_paths": paths}
+    emit({"phase": "book07_card_vs_cpu", "card": card, **record})
+    check(max(loss_rel) <= N_CPU_LOSS_RTOL, f"book07_card_vs_cpu: losses "
+          f"{c_loss} against the CPU's {p_loss}")
+    check(rel[worst] <= N_CPU_RTOL, f"book07_card_vs_cpu: {worst} differs "
+          f"by {rel[worst]} of max(1, |CPU|)")
+    check(all(p["differing_rows"] == 0 for p in paths),
+          f"book07_card_vs_cpu: the card's Viterbi paths differ from the "
+          f"CPU's: {paths}")
+    return record
+
+
+def book07_phase(card, place):
+    """book/07's tagger at its published widths: the default mode
+    against the interpreter (one device segment a LoD, the host
+    chunk_eval), the pruned eval program, and card against CPU (see the
+    L_ constants); one line each."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        t_phase = time.perf_counter()
+        rec = _srl_train(card, place)
+        emit({**rec, "seconds": time.perf_counter() - t_phase})
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        _srl_card_vs_cpu(card, place)
+        emit({"phase": "book07_card_vs_cpu_done",
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+
+
+# -- dp_gspmd phase ------------------------------------------------------------
+
+def _scaling_program(depth, img, classes, dtype="bfloat16"):
+    """benchmark/run_scaling.py's step (:46-59): bf16 images, ResNet
+    (resnet_cifar10 up to 64 pixels, else resnet_imagenet), cross entropy,
+    Momentum -> (main, startup, loss); `dtype` float32 runs it in float32
+    throughout."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="img", shape=[3, img, img],
+                                 dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        if img <= 64:
+            predict = models.resnet_cifar10(data, class_dim=classes,
+                                            depth=min(depth, 32))
+        else:
+            predict = models.resnet_imagenet(data, class_dim=classes,
+                                             depth=depth)
+        avg = fluid.layers.mean(fluid.layers.cross_entropy(input=predict,
+                                                           label=label))
+        fluid.Momentum(learning_rate=P_LR,
+                       momentum=P_MOMENTUM).minimize(avg)
+    return main, startup, avg
+
+
+def _steps_held(run_step, snapshot, steps=G_STEPS):
+    """`steps` steps of `run_step(step)` -> (losses, seconds, {1: the
+    `snapshot()` after the first step, P_HELD: after P_HELD steps})."""
+    held = {}
+
+    def step(i):
+        out = run_step(i)
+        if i + 1 in (1, P_HELD):
+            torch.cuda.synchronize()
+            held[i + 1] = snapshot()
+        return out
+
+    losses, secs, _ = _timed_steps(step, {}, steps)
+    return losses, secs, held
+
+
+def _grads_rel_diff(got, want):
+    """{velocity: max |got - want| / max |want|} over Momentum's
+    velocities, which after the first step are its gradients."""
+    return {n: float((got[n].double() - want[n].double()).abs().max())
+            / max(float(want[n].double().abs().max()), 1e-30)
+            for n in want if n.endswith("_velocity_acc")}
+
+
+def _held_against(what, losses, held, ref_losses, ref_held, bf16,
+                  band=()):
+    """-> a record of `losses` (the first P_HELD) and the states `held`
+    after the first step and after P_HELD steps against the reference's:
+    loss differences in bf16 ulps (bf16) or relative, the states' by
+    _states_rel_diff, the first step's gradients by _grads_rel_diff (the
+    batch norms' scales and shifts on their own too).  `band` holds the
+    same records of runs that take the reference's steps in other
+    orders: each limit is then twice the band's largest reading where
+    that is the larger.  `failed` names what is outside its limit."""
+    n = P_HELD
+    diff = [abs(a - b) / (_bf16_ulp(b) if bf16 else abs(b))
+            for a, b in zip(losses[:n], ref_losses[:n])]
+    base = 1.0 if bf16 else N_CPU_LOSS_RTOL
+    lims = [max([base] + [2 * b["loss_diff"][i] for b in band])
+            for i in range(n)]
+    rec = {"what": what, "losses": losses[:n], "reference": ref_losses[:n],
+           "loss_diff": diff, "loss_limit": lims,
+           "loss_unit": "bf16 ulps" if bf16 else "relative"}
+    failed = [] if (all(np.isfinite(losses[:n])) and all(
+        d <= lim for d, lim in zip(diff, lims))) else ["losses"]
+    checks = [(f"after_step_{k}", "state_max_rel_diff",
+               _states_rel_diff(held[k], {m: ref_held[k][m]
+                                          for m in held[k]}))
+              for k in sorted(held)]
+    grads = _grads_rel_diff(held[1], ref_held[1])
+    if grads:
+        checks += [("grads_after_step_1", "grad_max_rel_diff", grads),
+                   ("bn_grads_after_step_1", "grad_max_rel_diff",
+                    {m: v for m, v in grads.items()
+                     if m.startswith("batch_norm")})]
+    for key, metric, rel in checks:
+        if not rel:
+            continue
+        worst = max(rel, key=rel.get)
+        lim = max([P_STATE_RTOL] + [2 * b[key][metric] for b in band])
+        rec[key] = {metric: rel[worst], "argmax": worst,
+                    "tensors": len(rel), "limit": lim}
+        if rel[worst] > lim:
+            failed.append(key.replace("_", " "))
+    rec["failed"] = failed
+    return rec
+
+
+def _per_step(calls, steps):
+    return {k.replace("_all_reduce", "").replace("_all_gather",
+                                                 "_gather"): v / steps
+            for k, v in calls.items()}
+
+
+def _resnet50_dp1(card, place):
+    """run_scaling's ResNet-50 step under a one-rank NCCL group: the
+    Executor (interpreted) and the two arms, each G_STEPS steps from the
+    same startup values -> a record."""
+    import socket
+
+    import paddle_tpu_torch as fluid
+    import torch.distributed as dist
+
+    phase = "resnet50_dp1"
+    r = np.random.RandomState(0)
+    feed = {"img": torch.from_numpy(r.rand(P_BATCH, 3, P_IMG, P_IMG)
+                                    .astype(np.float32)).to(torch.bfloat16),
+            "label": r.randint(0, P_CLASSES, (P_BATCH, 1)).astype(np.int64)}
+    main, startup, loss = _scaling_program(P_DEPTH, P_IMG, P_CLASSES)
+    persist = _persistables(main)
+    scope = fluid.global_scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup)
+    init = {n: scope.find_var(n).clone() for n in persist}
+    _reset_peak()
+    e_loss, e_secs, e_held = _steps_held(
+        lambda i: exe.run(main, feed=feed, fetch_list=[loss],
+                          compiled=False)[0],
+        lambda: {n: scope.find_var(n).clone() for n in persist})
+    exe.close()
+    rec = {"phase": phase, "card": card,
+           "source": "benchmark/run_scaling.py:33-88 --depth 50 --img 224 "
+                     "--batch-per-dev 64",
+           "batch": P_BATCH, "dtype": "bfloat16",
+           "optimizer": f"momentum {P_LR} / {P_MOMENTUM}",
+           "executor": {"losses": e_loss,
+                        "ms_per_step_3_6":
+                            float(np.median(e_secs[2:])) * 1e3,
+                        "peak_memory_bytes":
+                            torch.cuda.max_memory_allocated()},
+           "arms": {}}
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        for arm in ("parallel_executor", "sharding_transpiler"):
+            main, startup, loss = _scaling_program(P_DEPTH, P_IMG, P_CLASSES)
+            if arm == "parallel_executor":
+                pe = fluid.ParallelExecutor(main, ["img", "label"], [loss],
+                                            mesh={"dp": 1},
+                                            startup_program=startup)
+            else:
+                t = fluid.ShardingTranspiler()
+                t.transpile(program=main, startup_program=startup,
+                            mesh={"dp": 1}, overlap="auto",
+                            shard_optimizer_states=False)
+                pe = t.build_executor(["img", "label"], [loss])
+            check(pe.gspmd_form == "sync_bn",
+                  f"{phase}: {arm} took the {pe.gspmd_form} form")
+            for n in persist:
+                if n in pe._states:
+                    pe.set_state(n, init[n])
+            _reset_peak()
+            losses, secs, held = _steps_held(
+                lambda i: pe.run(feed, return_numpy=False)[0],
+                lambda: {n: pe.state(n, return_numpy=False)
+                         for n in persist if n in pe._states})
+            got = _held_against(arm, losses, held, e_loss, e_held, True)
+            rec["arms"][arm] = {
+                "form": pe.gspmd_form, "overlap_info": pe.overlap_info,
+                "gspmd_info": pe.gspmd_info, "losses": losses,
+                "ms_per_step_3_6": float(np.median(secs[2:])) * 1e3,
+                "all_reduces_per_step": _per_step(pe.collective_calls,
+                                                  G_STEPS),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "against_executor": got}
+            pe.close()
+            del pe
+    finally:
+        dist.destroy_process_group()
+    emit(rec)
+    failed = []
+    for arm, a in rec["arms"].items():
+        if a["against_executor"]["failed"]:
+            failed.append(f"{phase}: {arm} against the Executor: "
+                          f"{a['against_executor']}")
+        if not (a["all_reduces_per_step"]["stat"] > 0
+                and a["all_reduces_per_step"]["grad"] > 0):
+            failed.append(f"{phase}: {arm} all-reduces "
+                          f"{a['all_reduces_per_step']}")
+    return failed
+
+
+def _dp2_programs():
+    """{name: (build() -> (main, startup, loss), feed_of(rng), bf16)} of
+    the dp2_one_card part: run_scaling's default step at the global batch
+    of two ranks (bf16, as run_scaling runs it, and in float32), and
+    book07's program."""
+    def resnet(dtype):
+        return lambda: _scaling_program(P2_DEPTH, P2_IMG, P2_CLASSES, dtype)
+
+    def resnet_feed(dtype):
+        def feed(r):
+            x = r.rand(2 * P2_BATCH, 3, P2_IMG, P2_IMG).astype(np.float32)
+            return {"img": torch.from_numpy(x).to(getattr(torch, dtype)),
+                    "label": r.randint(0, P2_CLASSES, (2 * P2_BATCH, 1))
+                    .astype(np.int64)}
+        return feed
+
+    def srl():
+        return _srl_program()[:3]
+
+    return {"resnet_cifar10": (resnet("bfloat16"), resnet_feed("bfloat16"),
+                               True),
+            "resnet_cifar10_fp32": (resnet("float32"),
+                                    resnet_feed("float32"), False),
+            "book07": (srl, lambda r: _srl_feed(r, L_BATCH)[0], False)}
+
+
+def _dp2_serial(main, loss, init, feeds, steps=G_STEPS):
+    """The Executor's steps at the global batch on the card from `init`
+    -> {"losses", "held", "ms_per_step_3_6"}."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    for n, v in init.items():
+        scope.set_var(n, v.clone())
+    exe = fluid.Executor(fluid.CUDAPlace(0), seed=SEED)
+    losses, secs, held = _steps_held(
+        lambda i: exe.run(main, feed=feeds[i], fetch_list=[loss],
+                          scope=scope, compiled=False)[0],
+        lambda: {n: scope.find_var(n).cpu() for n in init}, steps)
+    exe.close()
+    return {"losses": losses, "held": held,
+            "ms_per_step_3_6": float(np.median(secs[2:])) * 1e3}
+
+
+def _dp2_band(main, loss, init, feeds, twin):
+    """The serial steps again in other orders: P2_PERMS runs with each
+    batch's rows permuted, and where `twin` names a dtype, the program
+    in that dtype from the same values -> {name: _dp2_serial's record}."""
+    r = np.random.RandomState(SEED + 11)
+    band = {}
+    for k in range(P2_PERMS):
+        perms = [torch.from_numpy(r.permutation(len(f["label"])))
+                 for f in feeds]
+        band[f"rows_permuted_{k}"] = _dp2_serial(
+            main, loss, init, [{n: torch.as_tensor(v)[p]
+                                for n, v in f.items()}
+                               for f, p in zip(feeds, perms)], P_HELD)
+    if twin:
+        dt = getattr(torch, twin)
+
+        def cast(v):
+            v = torch.as_tensor(v)
+            return v.to(dt) if v.is_floating_point() else v
+
+        main2, _, loss2 = _scaling_program(P2_DEPTH, P2_IMG, P2_CLASSES,
+                                           twin)
+        band[twin] = _dp2_serial(
+            main2, loss2, {n: cast(v) for n, v in init.items()},
+            [{n: cast(v) for n, v in f.items()} for f in feeds], P_HELD)
+    return band
+
+
+def _dp2_worker(rank, port, out_dir):
+    """One of the two gloo ranks on the one card: each dp2 program through
+    ParallelExecutor(mesh={"dp": 2}) for G_STEPS steps; rank 0 then runs
+    the Executor at the global batch from the same values, and the
+    ResNets' bands."""
+    import paddle_tpu_torch as fluid
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    out = {}
+    try:
+        for name, (build, feed_of, _) in _dp2_programs().items():
+            main, startup, loss = build()
+            persist = _persistables(main)
+            r = np.random.RandomState(SEED + 9)
+            feeds = [feed_of(r) for _ in range(G_STEPS)]
+            pe = fluid.ParallelExecutor(main, list(feeds[0]), [loss],
+                                        mesh={"dp": 2},
+                                        startup_program=startup,
+                                        place=fluid.CUDAPlace(0))
+            init = {n: pe.state(n, return_numpy=False) for n in persist
+                    if n in pe._states}
+            _reset_peak()
+            losses, secs, held = _steps_held(
+                lambda i: pe.run(feeds[i], return_numpy=False)[0],
+                lambda: {n: pe.state(n, return_numpy=False).cpu()
+                         for n in init})
+            rec = {"form": pe.gspmd_form, "losses": losses, "held": held,
+                   "gspmd_info": pe.gspmd_info,
+                   "ms_per_step_3_6": float(np.median(secs[2:])) * 1e3,
+                   "all_reduces_per_step": _per_step(pe.collective_calls,
+                                                     G_STEPS),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            pe.close()
+            del pe
+            if rank == 0:
+                rec["serial"] = _dp2_serial(main, loss, init, feeds)
+                if name in P2_TWIN:
+                    rec["band"] = _dp2_band(main, loss, init, feeds,
+                                            P2_TWIN[name])
+            out[name] = rec
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _dp2_ranks(worker):
+    """The two gloo ranks, each `worker` + [rank, port, out_dir] run as a
+    process on the one card -> their records."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            worker + [str(rank), str(port), d],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"dp2_one_card: rank {rank} exited "
+                  f"{p.returncode}: {log[-3000:]}")
+        return [torch.load(os.path.join(d, f"rank{r}.pt"))
+                for r in range(2)]
+
+
+def _dp2_verdict(card, ranks):
+    """Every rank's results bit-equal, and rank 0's equal to its serial
+    run at the global batch within the limits (the ResNets': their
+    bands') -> (a record, what failed)."""
+    phase = "dp2_one_card"
+    rec = {"phase": phase, "card": card, "ranks": 2,
+           "backend": "gloo (CUDA tensors through the host)",
+           "timing_note": "gloo all-reduces through the host, both ranks "
+                          "sharing one card: not a scaling number",
+           "programs": {}}
+    held_recs = []
+    for name, (_, _, bf16) in _dp2_programs().items():
+        a, b = ranks[0][name], ranks[1][name]
+        same = (a["losses"] == b["losses"] and all(
+            torch.equal(a["held"][k][n], b["held"][k][n])
+            for k in a["held"] for n in a["held"][k]))
+        ref = a["serial"]
+        band = [_held_against(k, r["losses"], r["held"], ref["losses"],
+                              ref["held"], bf16)
+                for k, r in a.get("band", {}).items()]
+        got = _held_against(name, a["losses"], a["held"], ref["losses"],
+                            ref["held"], bf16, band)
+        got["band"] = {r["what"]: {
+            key: r[key] for key in r if key == "loss_diff"
+            or key.startswith(("after_step", "grads", "bn_grads"))}
+            for r in band}
+        held_recs.append(got)
+        rec["programs"][name] = {
+            "form": a["form"], "gspmd_info": a["gspmd_info"],
+            "global_batch": (L_BATCH if name == "book07"
+                             else 2 * P2_BATCH),
+            "ranks_bit_equal": same, "losses": a["losses"],
+            "ms_per_step_3_6": [a["ms_per_step_3_6"], b["ms_per_step_3_6"]],
+            "serial_ms_per_step_3_6": ref["ms_per_step_3_6"],
+            "all_reduces_per_step": a["all_reduces_per_step"],
+            "peak_memory_bytes": [a["peak_memory_bytes"],
+                                  b["peak_memory_bytes"]],
+            "against_serial": got}
+    failed = []
+    forms = {n: p["form"] for n, p in rec["programs"].items()}
+    if forms != {"resnet_cifar10": "sync_bn", "book07": "replicated",
+                 "resnet_cifar10_fp32": "sync_bn"}:
+        failed.append(f"{phase}: forms {forms}")
+    for name, p in rec["programs"].items():
+        if not p["ranks_bit_equal"]:
+            failed.append(f"{phase}: {name}: the two ranks' losses or "
+                          "states differ")
+    failed += [f"{phase}: {got['what']} against the serial run: "
+               f"{got['failed']}" for got in held_recs if got["failed"]]
+    return rec, failed
+
+
+def _dp2_one_card(card):
+    """Two processes on the one card over a gloo group (NCCL refuses two
+    ranks on one device), this script run again as `--dp2-worker` ->
+    what failed (_dp2_verdict)."""
+    rec, failed = _dp2_verdict(card, _dp2_ranks(
+        [sys.executable, os.path.abspath(__file__), "--dp2-worker"]))
+    emit(rec)
+    return failed
+
+
+def dp_gspmd_phase(card, place):
+    """The GSPMD step's forms on the card: resnet50_dp1 (NCCL, one rank)
+    and dp2_one_card (two gloo ranks); one line each."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        t_phase = time.perf_counter()
+        failed = _resnet50_dp1(card, place)
+        emit({"phase": "resnet50_dp1_done",
+              "seconds": time.perf_counter() - t_phase})
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        failed += _dp2_one_card(card)
+        emit({"phase": "dp2_one_card_done",
+              "seconds": time.perf_counter() - t_phase})
+        check(not failed, "; ".join(failed))
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -5032,6 +5850,8 @@ def main():
     ctr_phase(card, CUDAPlace(0))
     rnn_phase(card, CUDAPlace(0), peaks)
     book08_phase(card, CUDAPlace(0), peaks)
+    book07_phase(card, CUDAPlace(0))
+    dp_gspmd_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -5134,4 +5954,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp2-worker"]:
+        # a rank of the dp_gspmd phase's dp2_one_card part
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _dp2_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -26,13 +26,15 @@ the learning-rate decay schedules, and the wide&deep and DeepFM
 builders (models/ctr.py); LoD sequences — the LoDTensor value
 (core/lod.py), the sequence ops (ops/sequence.py), the recurrent ops
 (ops/rnn.py: lstm, lstmp, gru and the unit steps) with their layers,
-and the DataFeeder.
+and the DataFeeder; control flow, tensor arrays and beam search; the
+linear-chain CRF ops with chunk_eval, and `io`'s inference pruning.
 """
 from . import (  # noqa: F401
     amp,
     backward,
     clip,
     initializer,
+    io,
     kernels,
     layers,
     learning_rate_decay,

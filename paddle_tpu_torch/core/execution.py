@@ -80,17 +80,22 @@ class ExecContext:
     constants), shared by every context derived from this one: the
     Executor hands each cache entry's runs the entry's own dict, so a
     table lives exactly as long as the entry (and the CUDA graph) that
-    reads it; any other context starts an empty one."""
+    reads it; any other context starts an empty one.  `sync_group` is
+    the process group a data-parallel step's training-mode batch_norm
+    all-reduces its statistics over (ParallelExecutor's sync-BN form;
+    None everywhere else, and the lowerings then run as in the
+    serial Executor)."""
 
     def __init__(self, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None, row_offset: int = 0,
-                 tables: Optional[Dict] = None):
+                 tables: Optional[Dict] = None, sync_group=None):
         self.device = torch.device(device if device is not None else "cpu")
         self._generator = generator
         self.seed = seed
         self.row_offset = row_offset
         self.tables = {} if tables is None else tables
+        self.sync_group = sync_group
         self.op = self.env = self.root = None
 
     @property
@@ -105,7 +110,8 @@ class ExecContext:
         """Per-op context: the step seed mixed with the op's identity."""
         base = self.seed if self.seed is not None else 0
         return ExecContext(self.device, seed=_mix(base, tag_hash),
-                           row_offset=self.row_offset, tables=self.tables)
+                           row_offset=self.row_offset, tables=self.tables,
+                           sync_group=self.sync_group)
 
     def pure(self) -> "ExecContext":
         """Context for re-running a forward op inside its gradient: the
@@ -113,7 +119,8 @@ class ExecContext:
         the forward's numbers, and the same op, env and root, so a
         lowering that runs a sub-block finds it."""
         c = ExecContext(self.device, seed=self.seed,
-                        row_offset=self.row_offset, tables=self.tables)
+                        row_offset=self.row_offset, tables=self.tables,
+                        sync_group=self.sync_group)
         c.op, c.env, c.root = self.op, self.env, self.root
         return c
 

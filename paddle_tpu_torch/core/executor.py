@@ -357,6 +357,70 @@ class _Plan:
         return env
 
 
+def _input_buffers(vals, where):
+    """A capture's inputs at fixed addresses: the graph reads each from
+    the tensor it was captured with, one buffer per input, each its own
+    storage (a view or a second name of one tensor is cloned).  A
+    LoDTensor's buffer is its data, its LoD fixed by the cache key; a
+    SelectedRows (a sparse gradient crossing a host op between segments)
+    is two buffers, its rows and its values, their shapes fixed by the
+    key -> ({name: buffer}, {name: LoD}, {name: SelectedRows of
+    buffers}, {name: value} the caller must rebind)."""
+    bufs, rebind, seen, lods, sparse = {}, {}, set(), {}, {}
+
+    def own(t):
+        if _ptr(t) in seen or not _owns_storage(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+        seen.add(_ptr(t))
+        return t
+
+    for n, v in vals.items():
+        if isinstance(v, SelectedRows):
+            sr = SelectedRows(own(v.rows), own(v.value), v.height)
+            sparse[n] = sr
+            if sr.rows is not v.rows or sr.value is not v.value:
+                rebind[n] = sr
+            continue
+        t, lods[n] = _data(v)
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"CUDA graph capture of {where}: input {n!r} "
+                            f"is a {type(t).__name__}, not a tensor")
+        bufs[n] = own(t)
+        if bufs[n] is not t:
+            rebind[n] = _rewrap(bufs[n], lods[n])
+    return bufs, lods, sparse, rebind
+
+
+def _copy_in(dst, src):
+    if src.device.type == "cpu" and dst.device.type != "cpu":
+        # a host feed goes through pinned memory, asynchronously (the
+        # host allocator keeps the block until the copy ran)
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+def _copy_inputs(vals, bufs, lods, sparse):
+    """A replay's inputs copied into the captured buffers where they are
+    not those buffers already -> {name: value} to rebind."""
+    rebind = {}
+    for n, v in vals.items():
+        if n in sparse:
+            sr = sparse[n]
+            if v.rows is not sr.rows or v.value is not sr.value:
+                _copy_in(sr.rows, v.rows)
+                _copy_in(sr.value, v.value)
+                rebind[n] = sr
+            continue
+        b = bufs[n]
+        v = _data(v)[0]
+        if v is b:
+            continue
+        _copy_in(b, v)
+        rebind[n] = _rewrap(b, lods[n])
+    return rebind
+
+
 class _Entry:
     """One cache entry: a plan, the host-built tables its runs read
     (`tables`, the ExecContext's: built at the miss, read by the
@@ -368,38 +432,21 @@ class _Entry:
         self.plan = plan
         self.outputs = list(dict.fromkeys(outputs))
         self.tables = {}
-        self.graph = self.bufs = self.outs = self.lods = None
+        self.graph = self.bufs = self.outs = self.lods = self.sparse = None
         self.write_back_bytes = 0
 
     def capture(self, ctx, vals, where):
         """Capture the plan into a CUDA graph with `vals` as its inputs,
         then replay it once -> (outputs, {name: buffer} of the inputs the
         caller must rebind to the buffer the graph reads)."""
-        # state at fixed addresses: the graph reads each input from the
-        # tensor it was captured with, one buffer per input, each its
-        # own storage (a view or a second name of one tensor is cloned);
-        # a LoDTensor's buffer is its data, its LoD fixed by the key
-        bufs, rebind, seen, lods = {}, {}, set(), {}
-        for n, v in vals.items():
-            v, lods[n] = _data(v)
-            if not isinstance(v, torch.Tensor):
-                # a SelectedRows gradient is made and used inside one
-                # block; one that crosses a host op between segments is
-                # refused here, never run outside the graph instead
-                raise TypeError(f"CUDA graph capture of {where}: input "
-                                f"{n!r} is a {type(v).__name__}, not a "
-                                "tensor")
-            if _ptr(v) in seen or not _owns_storage(v):
-                v = v.clone(memory_format=torch.contiguous_format)
-                rebind[n] = _rewrap(v, lods[n])
-            seen.add(_ptr(v))
-            bufs[n] = v
+        bufs, lods, sparse, rebind = _input_buffers(vals, where)
         graph, failed = torch.cuda.CUDAGraph(), []
         try:
             with torch.cuda.graph(graph):
                 try:
                     env = self.plan.run(
-                        ctx, {n: _rewrap(b, lods[n]) for n, b in bufs.items()},
+                        ctx, {**{n: _rewrap(b, lods[n])
+                                 for n, b in bufs.items()}, **sparse},
                         self.plan.write_through(bufs, self.outputs))
                     outs = {n: env[n] for n in self.outputs if n in env}
                     self.write_back_bytes = (self.plan.through_bytes
@@ -417,6 +464,7 @@ class _Entry:
                                ) from err
         graph.replay()
         self.graph, self.bufs, self.outs, self.lods = graph, bufs, outs, lods
+        self.sparse = sparse
         return outs, rebind
 
     @staticmethod
@@ -443,26 +491,14 @@ class _Entry:
         """Copy each input that is not its captured buffer into that
         buffer (feeds always; a state the scope rebound since), then
         replay -> (outputs, {name: buffer} of the inputs copied)."""
-        rebind = {}
-        for n, v in vals.items():
-            b = self.bufs[n]
-            v = _data(v)[0]
-            if v is b:
-                continue
-            if v.device.type == "cpu":
-                # a host feed goes through pinned memory, asynchronously
-                # (the host allocator keeps the block until the copy ran)
-                b.copy_(v.pin_memory(), non_blocking=True)
-            else:
-                b.copy_(v)
-            rebind[n] = _rewrap(b, self.lods[n])
+        rebind = _copy_inputs(vals, self.bufs, self.lods, self.sparse)
         self.graph.replay()
         return self.outs, rebind
 
     def free(self):
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.bufs = self.outs = self.lods = None
+        self.graph = self.bufs = self.outs = self.lods = self.sparse = None
 
 
 _EXE_IDS = itertools.count()

@@ -18,7 +18,8 @@ __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "cos_sim", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "split", "l2_normalize",
            "one_hot", "autoincreased_step_counter", "smooth_l1",
-           "multiplex", "edit_distance", "dynamic_lstm", "dynamic_gru",
+           "multiplex", "edit_distance", "linear_chain_crf",
+           "crf_decoding", "chunk_eval", "dynamic_lstm", "dynamic_gru",
            "sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "sequence_softmax", "sequence_expand",
            "sequence_reshape", "lod_reset", "im2sequence", "dynamic_lstmp",
@@ -540,6 +541,73 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None):
         {"normalized": bool(normalized)})
     return out, seq_num
 
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF negative log-likelihood [S, 1] over a LoD emission
+    sequence (reference layers/nn.py linear_chain_crf,
+    linear_chain_crf_op.cc).  The transition parameter is [D+2, D]: the
+    start and end rows first."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(param_attr, [size + 2, size],
+                                         input.dtype, suffix="transition")
+    alpha = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    em_exps = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    tr_exps = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    log_likelihood = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "linear_chain_crf",
+        {"Emission": [input.name], "Transition": [transition.name],
+         "Label": [label.name]},
+        {"Alpha": [alpha.name], "EmissionExps": [em_exps.name],
+         "TransitionExps": [tr_exps.name],
+         "LogLikelihood": [log_likelihood.name]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi decode with the transition parameter linear_chain_crf
+    learned, found by the name in `param_attr`."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    name = (param_attr or {}).get("name")
+    block = helper.main_program.global_block()
+    if name and name in block.vars:
+        transition = block.vars[name]
+    else:
+        size = input.shape[-1]
+        transition = helper.create_parameter(param_attr, [size + 2, size],
+                                             input.dtype,
+                                             suffix="transition")
+    path = helper.create_tmp_variable("int64", stop_gradient=True)
+    inputs = {"Emission": [input.name], "Transition": [transition.name]}
+    if label is not None:
+        inputs["Label"] = [label.name]
+    helper.append_op("crf_decoding", inputs, {"ViterbiPath": [path.name]})
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """-> (precision, recall, f1, n_infer, n_label, n_correct) of the
+    chunks in `input` against `label` (reference chunk_eval_op.cc)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_tmp_variable("float32", stop_gradient=True)
+    recall = helper.create_tmp_variable("float32", stop_gradient=True)
+    f1 = helper.create_tmp_variable("float32", stop_gradient=True)
+    n_infer = helper.create_tmp_variable("int64", stop_gradient=True)
+    n_label = helper.create_tmp_variable("int64", stop_gradient=True)
+    n_correct = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op(
+        "chunk_eval",
+        {"Inference": [input.name], "Label": [label.name]},
+        {"Precision": [precision.name], "Recall": [recall.name],
+         "F1-Score": [f1.name], "NumInferChunks": [n_infer.name],
+         "NumLabelChunks": [n_label.name],
+         "NumCorrectChunks": [n_correct.name]},
+        {"chunk_scheme": chunk_scheme, "num_chunk_types": num_chunk_types,
+         "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, n_infer, n_label, n_correct
 
 # ---------------------------------------------------------------------------
 # sequence / recurrent layers (the reference's layers/nn.py dynamic_lstm,

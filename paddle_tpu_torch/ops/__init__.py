@@ -10,7 +10,8 @@ matmul, reduce, manip, creation, loss, metrics and misc modules (every
 type there that needs no LoD, SelectedRows or sub-block), the LoD
 sequence ops, the recurrent ops and the control-flow ops (while,
 conditional blocks, tensor arrays, rank tables, beam search and the
-recurrence over a step block), each lowered once in PyTorch.
+recurrence over a step block) and the linear-chain CRF ops, each
+lowered once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -18,6 +19,7 @@ from . import (  # noqa: F401
     control_flow,
     conv,
     creation,
+    crf,
     elementwise,
     embedding,
     loss,

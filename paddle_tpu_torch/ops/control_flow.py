@@ -560,16 +560,10 @@ def _captured(ctx, ins):
 def parallel_do(ctx, ins, attrs):
     """The sub-block over the whole batch on the executing device: its
     results are the serial run's, as the JAX package's (whose dp mesh
-    only annotates the same computation).  Splitting the batch across
-    cards is ROADMAP A8: more than one place with a process group of
-    more than one rank raises."""
-    if int(attrs.get("num_places", 1)) > 1 \
-            and torch.distributed.is_available() \
-            and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "parallel_do over more than one place across a process group "
-            "is not ported (ROADMAP A8): run it in one process")
+    only annotates the same computation).  Under a process group of
+    several ranks the same holds: ParallelExecutor runs a program with
+    sub-blocks in its replicated form, every rank over the global
+    batch, so each rank computes the serial result."""
     env = _ChainEnv({}, _captured(ctx, ins))
     for name, v in zip(attrs["input_names"], many(ins, "Inputs")):
         env.set(name, data_of(v))

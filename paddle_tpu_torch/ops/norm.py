@@ -2,6 +2,8 @@
 paddle_tpu/ops/norm.py), with an explicit batch_norm gradient."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.execution import one
@@ -28,6 +30,30 @@ def _affine(x, inv, mean, scale, bias, bshape):
         b.to(x.dtype).reshape(bshape)
 
 
+def _synced_stats(x, axes, bshape, group):
+    """The batch mean and biased variance over every rank's rows, in
+    float32 with the global element count: float32/float64 input sums x
+    first, then the centred sum of (x - mean)^2 (two all-reduces, the
+    serial two-pass variance); bf16/f16 input sums x and x^2 in one
+    all-reduce (E[x^2] - mean^2, clamped at 0, as the serial one-pass
+    variance).  `group.all_reduce(t)` sums t in place over the ranks,
+    `group.size` is their count; every rank holds as many rows."""
+    n = x.numel() // math.prod(bshape) * group.size
+    if x.dtype in (torch.float32, torch.float64):
+        total = group.all_reduce(torch.sum(x, dim=axes, dtype=_F32))
+        mean = total / n
+        centred = x - mean.to(x.dtype).reshape(bshape)
+        sq = group.all_reduce(torch.sum(torch.square(centred), dim=axes,
+                                        dtype=_F32))
+        return mean, sq / n
+    xf = x.to(_F32)
+    sums = group.all_reduce(torch.cat([torch.sum(xf, dim=axes),
+                                       torch.sum(torch.square(xf),
+                                                 dim=axes)]))
+    mean, ex2 = torch.chunk(sums / n, 2)
+    return mean, torch.clamp_min(ex2 - torch.square(mean), 0.0)
+
+
 @register_op("batch_norm",
              inputs=("X", "Scale", "Bias", "Mean", "Variance"),
              outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
@@ -47,7 +73,15 @@ def batch_norm(ctx, ins, attrs):
 
     The lowering is pure: MeanOut/VarianceOut are new tensors written
     under the Mean/Variance names (an in-place update would run twice,
-    since the generic gradient re-runs forward lowerings)."""
+    since the generic gradient re-runs forward lowerings).
+
+    With `ctx.sync_group` (ParallelExecutor's sync-BN form: each rank
+    holds its rows of the global batch) a training-mode call
+    all-reduces its statistics over the group, so SavedMean,
+    SavedVariance, MeanOut and VarianceOut are the serial values on
+    every rank (`_synced_stats`).  The generic gradient never re-runs
+    this lowering, which would run the all-reduces again: batch_norm
+    has its explicit gradient (`batch_norm_grad`)."""
     x = one(ins, "X")
     scale, bias = one(ins, "Scale"), one(ins, "Bias")
     mean, var = one(ins, "Mean"), one(ins, "Variance")
@@ -58,13 +92,18 @@ def batch_norm(ctx, ins, attrs):
         y = _affine(x, inv, mean.to(_F32), scale, bias, bshape)
         return {"Y": y, "MeanOut": mean, "VarianceOut": var,
                 "SavedMean": mean, "SavedVariance": var}
-    use_mean = torch.mean(x, dim=axes, dtype=_F32)
-    if x.dtype in (torch.float32, torch.float64):
-        centred = x - use_mean.to(x.dtype).reshape(bshape)
-        use_var = torch.mean(torch.square(centred), dim=axes, dtype=_F32)
+    group = ctx.sync_group
+    if group is not None:
+        use_mean, use_var = _synced_stats(x, axes, bshape, group)
     else:
-        ex2 = torch.mean(torch.square(x.to(_F32)), dim=axes)
-        use_var = torch.clamp_min(ex2 - torch.square(use_mean), 0.0)
+        use_mean = torch.mean(x, dim=axes, dtype=_F32)
+        if x.dtype in (torch.float32, torch.float64):
+            centred = x - use_mean.to(x.dtype).reshape(bshape)
+            use_var = torch.mean(torch.square(centred), dim=axes,
+                                 dtype=_F32)
+        else:
+            ex2 = torch.mean(torch.square(x.to(_F32)), dim=axes)
+            use_var = torch.clamp_min(ex2 - torch.square(use_mean), 0.0)
     inv = torch.rsqrt(use_var + eps)
     y = _affine(x, inv, use_mean, scale, bias, bshape)
     mean_out = mom * mean.to(_F32) + (1.0 - mom) * use_mean
@@ -87,7 +126,9 @@ def batch_norm_grad(ctx, ins, attrs):
 
     (the last two terms training only); dX is the sum of the float32
     terms cast to X's dtype and dY * a in X's dtype.  The variance's
-    clamp at 0 (bf16) is taken as inactive."""
+    clamp at 0 (bf16) is taken as inactive.  Under `ctx.sync_group`
+    (training mode) dX takes dA, dB and N over every rank's rows, one
+    all-reduce of [dA, dB]; dScale and dBias stay this rank's."""
     x = one(ins, "X")
     dy = one(ins, "Y@GRAD").to(x.dtype)
     scale, bias = one(ins, "Scale"), one(ins, "Bias")
@@ -99,20 +140,32 @@ def batch_norm_grad(ctx, ins, attrs):
     else:
         m, inv = one(ins, "SavedMean"), one(ins, "SavedVariance")
     a = inv * scale.to(_F32)
-    d_a = torch.sum(dy * x, dim=axes, dtype=_F32).to(x.dtype).to(_F32)
-    d_b = torch.sum(dy, dim=axes, dtype=_F32).to(x.dtype).to(_F32)
-    d_a = d_a - m * d_b
+    d_a = torch.sum(dy * x, dim=axes, dtype=_F32)
+    d_b = torch.sum(dy, dim=axes, dtype=_F32)
+    n = x.numel() // a.numel()     # elements a channel
+    # Scale@GRAD and Bias@GRAD stay this rank's sums: the data-parallel
+    # step's gradient all-reduce sums them over the ranks (and divides
+    # by their count, as it does every gradient)
+    d_scale = (d_a.to(x.dtype).to(_F32) - m * d_b.to(x.dtype).to(_F32)) * inv
+    d_bias = d_b.to(x.dtype).to(_F32)
+    group = None if test else ctx.sync_group
+    if group is not None:
+        # dX reads the sums over every rank's rows and the global count
+        sums = group.all_reduce(torch.cat([d_a, d_b]))
+        d_a, d_b = torch.chunk(sums, 2)
+        n *= group.size
+    d_b = d_b.to(x.dtype).to(_F32)
+    d_a = d_a.to(x.dtype).to(_F32) - m * d_b
     dx = dy * a.to(x.dtype).reshape(bshape)
     if not test:
-        n = x.numel() // a.numel()     # elements a channel
         dvar = -0.5 * inv * inv * inv * scale.to(_F32) * d_a
         c1 = 2.0 * dvar / n
         c0 = (-a * d_b - 2.0 * m * dvar) / n
         t = x * c1.reshape(bshape)
         dx = dx + t.add_(c0.reshape(bshape)).to(x.dtype)
     return {"X@GRAD": [dx],
-            "Scale@GRAD": [(d_a * inv).to(scale.dtype)],
-            "Bias@GRAD": [d_b.to(bias.dtype)]}
+            "Scale@GRAD": [d_scale.to(scale.dtype)],
+            "Bias@GRAD": [d_bias.to(bias.dtype)]}
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),

@@ -28,11 +28,32 @@ With a batch-mean loss, the mean over the global batch equals the mean
 over ranks of the per-rank means, so the step is the serial step up to
 float associativity; at world 1 it is the serial step bit for bit.
 
-Not ported (ROADMAP A8/A9): the GSPMD step (`overlap="off"` at world
-> 1), tensor-parallel placements (`param_shardings`, spmd model axes),
-ZeRO-1 (`shard_optimizer_states=True` at world > 1),
-`compiled_collectives`, the sharded checkpoint mixin, the pipeline
-executors, and the pserver transpiler mode (A11).
+Where the overlap is off (asked for, or ruled out by the program), the
+JAX package runs its GSPMD step: one `jax.jit` of the serial program
+over sharded inputs, in which XLA inserts the collectives.  Here, with a
+process group (at dp 1 too), that step takes one of two forms, named in
+`gspmd_form`; `overlap_info` keeps the JAX package's report:
+
+  * "sync_bn", for a program whose only blocker is training-mode
+    `batch_norm` (or none): the overlap step's shape — local rows,
+    bucketed gradient all-reduce, the update outside — with each
+    training-mode batch_norm all-reducing its statistics over the group
+    (`ExecContext.sync_group`, ops/norm.py), so the batch statistics,
+    the running statistics and every gradient are the serial ones;
+  * "replicated", for every other program the overlap refuses (control
+    flow, LoD feeds, random ops other than dropout, a loss that is not
+    a mean, a sparse embedding gradient): every rank runs the whole
+    program over the global batch and calls no collective.  No
+    scaling, but the serial result on every rank.
+
+Without a process group (a mesh of one) the whole program runs as in the
+serial Executor.
+
+Not ported (ROADMAP A8b/A9): tensor-parallel placements
+(`param_shardings`, spmd model axes), ZeRO-1
+(`shard_optimizer_states=True` at world > 1), `compiled_collectives`,
+the sharded checkpoint mixin, the pipeline executors, and the pserver
+transpiler mode (A11).
 """
 from __future__ import annotations
 
@@ -81,17 +102,36 @@ def _bucket_grad(t, name, dtype):
     parameter's): another dtype (a bf16 gradient of an f32 master
     weight) raises rather than being promoted by the concatenation, and
     a SelectedRows (an is_sparse embedding's) raises as the JAX
-    package's does: sparse tables under data parallelism are A8."""
+    package's overlap step does."""
     if isinstance(t, SelectedRows):
         raise TypeError(
             f"gradient {name!r} is a SelectedRows (an is_sparse "
-            "embedding's): sparse tables under data parallelism are not "
-            "ported yet (ROADMAP A8); build the embedding with "
-            "is_sparse=False")
+            "embedding's): sparse tables in the bucketed overlap step are "
+            "not ported yet (ROADMAP A8b); build the embedding with "
+            "is_sparse=False, or pass overlap='off' (every rank then runs "
+            "the global batch)")
     if t.dtype != torch_dtype(dtype):
         raise TypeError(f"gradient {name!r} is {t.dtype}, but its bucket "
                         f"holds {dtype} (its parameter's dtype)")
     return t.reshape(-1)
+
+
+class _StatGroup:
+    """The sync-BN form's statistics group (`ExecContext.sync_group`,
+    read by ops/norm.py's batch_norm): `all_reduce(t)` sums `t` in place
+    over the mesh's ranks, counted in the executor's
+    `collective_calls["stat_all_reduce"]`; `size` is the rank count."""
+
+    def __init__(self, pe):
+        self._pe = pe
+        self.size = pe.dp
+
+    def all_reduce(self, t):
+        import torch.distributed as dist
+
+        self._pe.collective_calls["stat_all_reduce"] += 1
+        dist.all_reduce(t, group=self._pe.mesh.group)
+        return t
 
 
 class ParallelExecutor:
@@ -128,7 +168,7 @@ class ParallelExecutor:
             raise NotImplementedError(
                 f"mesh axes {dict(mesh.shape)}: only a data-parallel mesh "
                 f"over {batch_axis!r} runs here; tensor, sequence and "
-                "pipeline axes are not ported yet (ROADMAP A8/A9)")
+                "pipeline axes are not ported yet (ROADMAP A8b/A9)")
         self.dp = int(mesh.shape[batch_axis])
         self.place = CUDAPlace(0) if place is None else place
         self.device = resolve_place(self.place)
@@ -151,18 +191,18 @@ class ParallelExecutor:
                 raise NotImplementedError(
                     f"model-parallel placements over "
                     f"{spmd_plan.model_axes}: tensor parallelism is not "
-                    "ported yet (ROADMAP A8)")
+                    "ported yet (ROADMAP A8b)")
         placed = sorted(n for n, s in (param_shardings or {}).items()
                         if s is not None and any(e is not None
                                                  for e in tuple(s)))
         if placed:
             raise NotImplementedError(
                 f"param_shardings on {placed}: tensor parallelism is not "
-                "ported yet (ROADMAP A8)")
+                "ported yet (ROADMAP A8b)")
         if shard_optimizer_states and self.dp > 1:
             raise NotImplementedError(
                 "shard_optimizer_states=True (ZeRO-1) at dp > 1 is not "
-                "ported yet (ROADMAP A8); pass shard_optimizer_states="
+                "ported yet (ROADMAP A8b); pass shard_optimizer_states="
                 "False")
         self._feed_specs = dict(spmd_plan.feed_specs) if spmd_plan \
             else {}
@@ -178,29 +218,43 @@ class ParallelExecutor:
         from ..kernels import registry as _kernel_registry
 
         self._kernel_selection = _kernel_registry.Selection()
-        if overlap != "off":
-            cfg, reason = self._analyze_overlap(program, blk)
-            if cfg is None:
-                if overlap == "bucketed":
+        # the GSPMD step's form with a process group (module docstring):
+        # "sync_bn" runs the overlap step's shape with synced batch-norm
+        # statistics, "replicated" the whole program on every rank;
+        # None where the overlap step runs, or without a group
+        # (gspmd_info: the replicated form's reason, or the sync-BN
+        # form's buckets as overlap_info gives the overlap step's)
+        self.gspmd_form = None
+        self.gspmd_info = {}
+        self._stat_group = None
+        if overlap != "off" or mesh.group is not None:
+            cfg, reason, blocker = self._analyze_overlap(program, blk)
+            if overlap != "off":
+                if reason is None:
+                    self._overlap_cfg = cfg
+                    self.overlap_info = {"mode": "bucketed"}
+                elif overlap == "bucketed":
                     raise ValueError(
                         f"overlap='bucketed' is not applicable to this "
                         f"program: {reason}")
-                self.overlap_info = {"mode": "off", "reason": reason}
-            else:
-                self._overlap_cfg = cfg
-                self.overlap_info = {"mode": "bucketed"}
-        if self._overlap_cfg is None and self.dp > 1:
-            raise NotImplementedError(
-                f"the GSPMD step (overlap off: "
-                f"{self.overlap_info['reason']}) at dp {self.dp} is not "
-                "ported yet (ROADMAP A8); only the bucketed overlap step "
-                "runs across ranks")
+                else:
+                    self.overlap_info = {"mode": "off", "reason": reason}
+            if self._overlap_cfg is None and mesh.group is not None:
+                if blocker is not None:
+                    self.gspmd_form = "replicated"
+                    self.gspmd_info = {"reason": blocker}
+                else:
+                    self._overlap_cfg = cfg
+                    self.gspmd_form = "sync_bn"
+                    self._stat_group = _StatGroup(self)
         # collectives this executor issued (none without a process
-        # group): one all-reduce per gradient bucket, and the fetches'
-        # all-reduce (means) or all-gather (per-row values)
+        # group): one all-reduce per gradient bucket, the fetches'
+        # all-reduce (means) or all-gather (per-row values), and the
+        # sync-BN form's batch-norm statistics (forward and backward)
         self.collective_calls = {"grad_all_reduce": 0,
                                  "fetch_all_reduce": 0,
-                                 "fetch_all_gather": 0}
+                                 "fetch_all_gather": 0,
+                                 "stat_all_reduce": 0}
         # --- states from the startup program, on this rank's device ------
         startup = startup_program or default_startup_program()
         scope = Scope()
@@ -235,23 +289,40 @@ class ParallelExecutor:
     # -- compute/collective overlap (bucketed grad all-reduce) --------------
     def _analyze_overlap(self, program, block):
         """Validate the program for the overlapped step and extract its
-        structure.  Returns (cfg, None) or (None, reason), with the JAX
-        package's reasons.
+        structure -> (cfg, reason, blocker): `reason` is None where the
+        overlap step runs the program, else the JAX package's reason;
+        `blocker` is None where the GSPMD step's sync-BN form runs it,
+        for which batch_norm may be what `reason` names, else the form's
+        own reason; `cfg` is the structure where either runs, else None.
 
         The overlapped step runs every op up to the first gradient
         consumer on this rank's rows, reduces the parameter gradients
         with bucketed all-reduces, and runs the update section (grad
-        clip + optimizer ops) on the reduced values."""
+        clip + optimizer ops) on the reduced values.
+
+        The sync-BN form all-reduces training-mode batch_norm's statistics
+        and carries its running statistics out of the section; it
+        refuses a sparse embedding gradient, which a bucket cannot carry
+        (the overlap step raises at its first run, as the JAX package's
+        does).  Any blocker found after the first batch_norm leaves the
+        JAX package's reason that batch_norm's."""
         from ..core import registry as op_registry
         from ..core.framework import (EMPTY_VAR_NAMES, GRAD_SUFFIX,
                                       Parameter, grad_var_name)
         from .spmd import backward_start_index
 
+        # the first reason only batch_norm gives, which the JAX package's
+        # analysis stops at, and the sync-BN form's own blocker
+        bn_reason = sparse = None
+
+        def refuse(blocker):
+            return None, bn_reason or blocker, blocker
+
         ops = block.ops
         opt_ops = [op for op in ops
                    if "Param" in op.inputs and "ParamOut" in op.outputs]
         if not opt_ops:
-            return None, ("no optimizer ops — the overlap lowers a "
+            return refuse("no optimizer ops — the overlap lowers a "
                           "training step")
         # the reduction point is the first consumer of any RAW parameter
         # gradient — NOT the optimizer's Grad input, which may be a
@@ -266,12 +337,12 @@ class ParallelExecutor:
                 if g in all_produced:
                     grad_of[g] = v.name
         if not grad_of:
-            return None, "no parameter gradients in the program"
+            return refuse("no parameter gradients in the program")
         grad_names = set(grad_of)
         split = next((i for i, op in enumerate(ops)
                       if set(op.input_names()) & grad_names), None)
         if split is None:
-            return None, "no op consumes the parameter gradients"
+            return refuse("no op consumes the parameter gradients")
         produced = set()
         last_prod = {}
         for i, op in enumerate(ops[:split]):
@@ -281,20 +352,20 @@ class ParallelExecutor:
                     last_prod[n] = i
         if not grad_names <= produced:
             missing = sorted(grad_names - produced)
-            return None, (f"gradient(s) {missing} are produced after "
+            return refuse(f"gradient(s) {missing} are produced after "
                           "their first consumer")
 
         # the grad reduction is a mean over ranks, which equals the
         # serial gradient ONLY for a batch-MEAN loss
         seed_idx = backward_start_index(block)
         if seed_idx >= split:
-            return None, "no backward section (loss@GRAD seed) found"
+            return refuse("no backward section (loss@GRAD seed) found")
         seed_out = ops[seed_idx].output_names()[0]
         loss_name = seed_out[:-len(GRAD_SUFFIX)]
         loss_var = block.vars.get(loss_name)
         if loss_var is None or loss_var.op is None or \
                 loss_var.op.type != "mean":
-            return None, (
+            return refuse(
                 f"loss {loss_name!r} is not produced by a mean op — "
                 "per-shard gradients averaged over dp only equal the "
                 "serial gradient for a batch-mean loss")
@@ -304,31 +375,39 @@ class ParallelExecutor:
         for i, op in enumerate(ops):
             if any(isinstance(v, dict) and "__block__" in v
                    for v in op.attrs.values()):
-                return None, f"control-flow op {op.type!r} (sub-blocks)"
+                return refuse(f"control-flow op {op.type!r} (sub-blocks)")
             try:
                 info = op_registry.get_op_info(op.type)
             except KeyError:
-                return None, f"unregistered op {op.type!r}"
+                return refuse(f"unregistered op {op.type!r}")
             if info.random and not op.attrs.get("is_test", False):
                 if i >= split:
-                    return None, (
+                    return refuse(
                         f"stochastic op {op.type!r} in the update "
                         "section — its draws would differ from serial")
                 if op.type != "dropout":
-                    return None, (
+                    return refuse(
                         f"stochastic op {op.type!r}: only dropout has "
                         "the batch-position-keyed PRNG that keeps "
                         "per-shard draws equal to serial")
-            if i < split:
-                if (op.type == "batch_norm"
-                        and not op.attrs.get("is_test", False)):
-                    return None, ("training-mode batch_norm couples "
-                                  "rows across the dp shards")
-                if any(n and n in persistable
-                       for n in op.output_names()):
-                    return None, (
-                        f"op {op.type!r} writes persistable state "
-                        "inside the sharded section")
+            if i >= split:
+                continue
+            writes = any(n and n in persistable for n in op.output_names())
+            if op.type == "batch_norm":
+                # what batch_norm alone blocks, the sync-BN form lifts
+                if bn_reason is None and not op.attrs.get("is_test", False):
+                    bn_reason = ("training-mode batch_norm couples rows "
+                                 "across the dp shards")
+                elif bn_reason is None and writes:
+                    bn_reason = ("op 'batch_norm' writes persistable "
+                                 "state inside the sharded section")
+            elif writes:
+                return refuse(f"op {op.type!r} writes persistable state "
+                              "inside the sharded section")
+            elif op.type == "lookup_table" and op.attrs.get("is_sparse") \
+                    and grad_var_name(op.input("W")[0]) in grad_names:
+                sparse = "sparse embedding gradient: a SelectedRows is " \
+                    "not bucketed"
 
         # the update section may read only persistables, the reduced
         # grads, and its own intermediates
@@ -338,7 +417,7 @@ class ParallelExecutor:
                 if (not n or n in EMPTY_VAR_NAMES or n in grad_names
                         or n in upd_prod or n in persistable):
                     continue
-                return None, (
+                return refuse(
                     f"update-section op {op.type} reads forward value "
                     f"{n!r} (e.g. a per-example regularizer input)")
             upd_prod.update(op.output_names())
@@ -348,20 +427,20 @@ class ParallelExecutor:
             if v is None:
                 continue
             if v.lod_level:
-                return None, f"LoD feed {n!r} (host-side metadata)"
+                return refuse(f"LoD feed {n!r} (host-side metadata)")
             if not v.shape or v.shape[0] != -1:
-                return None, f"feed {n!r} has no leading batch dim"
+                return refuse(f"feed {n!r} has no leading batch dim")
             spec = self._feed_specs.get(n)
             if spec is not None and (
                     not spec or spec[0] != self.batch_axis):
-                return None, (
+                return refuse(
                     f"feed {n!r} is annotated {spec}, not sharded over "
                     f"the '{self.batch_axis}' batch axis")
 
         fetch_kinds = {}
         for n in self.fetch_names:
             if n not in produced:
-                return None, (f"fetch {n!r} is produced by the update "
+                return refuse(f"fetch {n!r} is produced by the update "
                               "section (not supported under overlap)")
             v = block.vars.get(n)
             if v is not None and v.shape and v.shape[0] == -1:
@@ -371,7 +450,7 @@ class ParallelExecutor:
             # batch-mean quantities, so require a mean-semantics producer
             if v is None or v.op is None or v.op.type not in (
                     "mean", "accuracy"):
-                return None, (
+                return refuse(
                     f"fetch {n!r} is not a per-row output or a batch "
                     "mean — its per-shard values cannot be combined")
             fetch_kinds[n] = "mean"
@@ -379,14 +458,26 @@ class ParallelExecutor:
         inside_state = sorted({
             n for op in ops[:split] for n in op.input_names()
             if n in persistable})
-        grad_order = sorted(grad_names, key=lambda g: last_prod[g])
+        # the running statistics batch_norm writes (no other op may
+        # write a persistable here)
+        inside_writes = sorted({
+            n for op in ops[:split] for n in op.output_names()
+            if n in persistable})
+        # production order, and an op's own output order among the
+        # gradients one op makes (layer_norm_grad's, batch_norm_grad's):
+        # every rank must lay its buckets out alike, so no tie may fall
+        # to the iteration order of a set (Python's per-process hash)
+        grad_order = sorted(grad_names, key=lambda g: (
+            last_prod[g], ops[last_prod[g]].output_names().index(g)))
         grad_meta = []
         for g in grad_order:
             pv = block.vars.get(grad_of[g])
             if pv is None or pv.shape is None or any(
                     d < 0 for d in pv.shape):
-                return None, f"parameter {grad_of[g]!r} has no static shape"
+                return refuse(f"parameter {grad_of[g]!r} has no static shape")
             grad_meta.append((g, tuple(pv.shape), pv.dtype or "float32"))
+        if sparse and bn_reason:
+            return refuse(sparse)
         return {
             "split": split,
             "inside": tuple(ops[:split]),
@@ -394,8 +485,9 @@ class ParallelExecutor:
             "grad_meta": grad_meta,
             "last_prod": last_prod,
             "inside_state": inside_state,
+            "inside_writes": inside_writes,
             "fetch_kinds": fetch_kinds,
-        }, None
+        }, bn_reason, sparse
 
     def _refresh_plan(self):
         """(Re)build the buckets and the fused-update plan when the flags
@@ -437,7 +529,9 @@ class ParallelExecutor:
             (flat.untyped_storage().data_ptr()
              for _, _, _, flat, _ in fused_plan))
         self._plan = (buckets, issue_after, fused_plan)
-        self.overlap_info.update(
+        # the sync-BN form keeps overlap_info the JAX package's report
+        (self.overlap_info if self.gspmd_form is None
+         else self.gspmd_info).update(
             buckets=len(buckets), grads=len(cfg["grad_meta"]),
             split=cfg["split"],
             update=("fused" if fused_plan is not None else
@@ -541,10 +635,11 @@ class ParallelExecutor:
     # -- execution -----------------------------------------------------------
     def _local_feeds(self, feed):
         """This rank's rows of the global feed, on its device (the
-        overlap analysis has checked that every feed is batch-major)."""
+        overlap analysis has checked that every feed is batch-major);
+        the whole feed in the replicated form."""
         out = {}
         for n, v in feed.items():
-            if self.dp > 1:
+            if self.dp > 1 and self.gspmd_form != "replicated":
                 rows = len(v)
                 if rows % self.dp:
                     raise ValueError(
@@ -572,8 +667,7 @@ class ParallelExecutor:
     def _overlap_step(self, feeds, ctx):
         cfg = self._overlap_cfg
         buckets, issue_after, fused_plan = self._plan
-        states = self._states
-        env = DictEnv({**{n: states[n] for n in cfg["inside_state"]},
+        env = DictEnv({**{n: self._states[n] for n in cfg["inside_state"]},
                        **feeds})
         group = self.mesh.group
         pending = []
@@ -588,6 +682,10 @@ class ParallelExecutor:
                 pending.append((b, flat,
                                 self._all_reduce(flat, "grad_all_reduce")
                                 if group is not None else None))
+        # the running statistics the section wrote (the sync-BN form's
+        # batch_norm: the same serial values on every rank)
+        states = {**self._states,
+                  **{n: env.get(n) for n in cfg["inside_writes"]}}
         flats, grads = {}, {}
         for b, flat, handle in pending:
             if handle is not None:
@@ -635,7 +733,8 @@ class ParallelExecutor:
         return fetches, {n: env.d.get(n, states[n]) for n in states}
 
     def _plain_step(self, feeds, ctx):
-        """The whole program on one rank (overlap off, world 1)."""
+        """The whole program over the feed: a mesh of one with the
+        overlap off, or every rank of the replicated form."""
         env = DictEnv({**self._states, **feeds})
         for op in self.program.global_block().ops:
             run_op(ctx, op, env)
@@ -666,9 +765,11 @@ class ParallelExecutor:
             self._step += 1
             # dropout masks are batch-position keyed: offset this rank's
             # rows (_local_feeds' slice) so the composed draw is serial's
-            mb = len(next(iter(feeds.values()))) if feeds else 0
+            mb = (len(next(iter(feeds.values())))
+                  if feeds and self._overlap_cfg is not None else 0)
             ctx = ExecContext(self.device, seed=seed,
-                              row_offset=self.mesh.rank * mb)
+                              row_offset=self.mesh.rank * mb,
+                              sync_group=self._stat_group)
             step = (self._overlap_step if self._overlap_cfg is not None
                     else self._plain_step)
             fetches, self._states = step(feeds, ctx)
@@ -693,7 +794,7 @@ class ParallelExecutor:
     def compiled_collectives(self, feed: Dict) -> Dict[str, int]:
         raise NotImplementedError(
             "compiled_collectives reads the collectives of a compiled XLA "
-            "program; the port has no compiled step (ROADMAP A8) — "
+            "program; the port has no compiled step (ROADMAP A8b) — "
             "ParallelExecutor.collective_calls counts the collectives "
             "issued")
 

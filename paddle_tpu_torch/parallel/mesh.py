@@ -5,11 +5,11 @@ names device axes over ICI; here a `Mesh` names axis sizes over the
 process group whose ranks each drive one device (NCCL between CUDA
 devices, gloo between CPU processes).  Only data-parallel meshes run
 yet: the executors read the batch axis, and a model axis raises at the
-executor (ROADMAP A8/A9).
+executor (ROADMAP A8b/A9).
 
 The JAX module's `shard_map`, `pvary`, `count_collectives` and
 `collective_bytes` read or build XLA programs and have no counterpart
-here (ROADMAP A8).
+here (ROADMAP A8b).
 """
 from __future__ import annotations
 

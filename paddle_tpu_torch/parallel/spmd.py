@@ -10,7 +10,7 @@ port's `parallel.mesh.PartitionSpec`.
 
 The executors of this package run the data-parallel placement only: a
 plan that places parameters over a model axis (`SpmdPlan.model_axes`)
-raises at the executor (ROADMAP A8).
+raises at the executor (ROADMAP A8b).
 
 The propagation is deliberately conservative: it understands the op
 families the strategy implementations use (matmul, elementwise, LN,

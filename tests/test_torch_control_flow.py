@@ -528,19 +528,25 @@ def test_get_places():
 
 
 def test_parallel_do_across_ranks_raises_naming_a8(monkeypatch):
-    """More than one place with a process group of several ranks is A8."""
+    """More than one place with a process group of several ranks no
+    longer raises (it did while the GSPMD step was ROADMAP A8): the op
+    runs its sub-block over the whole batch, so a rank's loss is the
+    serial network's, as ParallelExecutor's replicated form runs it on
+    every rank (tests/test_torch_parallel.py holds that across gloo
+    ranks)."""
     tfw.reset_unique_names()
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         loss = _parallel_do(tfluid, True)[0]
     exe = tfluid.Executor(CPUPlace())
     exe.run(startup)
+    feed = {"x": np.random.RandomState(3).rand(4, 8).astype(np.float32)}
+    want, = exe.run(main, feed=feed, fetch_list=[loss])
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        exe.run(main, feed={"x": np.ones((4, 8), np.float32)},
-                fetch_list=[loss])
+    got, = exe.run(main, feed=feed, fetch_list=[loss])
+    np.testing.assert_array_equal(got, want)
 
 
 # -- beyond the JAX package's tests -------------------------------------------

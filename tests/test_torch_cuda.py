@@ -1714,3 +1714,181 @@ def test_while_beam_search_decode_on_the_card_equals_the_cpu(dev):
         assert ok and rec["decode_equal"], rec
     gap = rec["min_chosen_vs_rejected_gap"]
     assert gap > 1e-3, f"a near tie in the input: smallest gap {gap}"
+
+
+def _crf_runs(feeds, order, compiled):
+    """A tagger step (embedding, fc, linear_chain_crf, SGD) with its
+    crf_decoding on `feeds[i]` for i in `order` on the card from a
+    seeded startup -> (losses, decoded paths, graph_stats())."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        emb = fluid.layers.embedding(input=words, size=[100, 16])
+        feature = fluid.layers.fc(input=emb, size=7)
+        loss = fluid.layers.mean(fluid.layers.linear_chain_crf(
+            input=feature, label=label, param_attr={"name": "crfw"}))
+        fluid.SGD(learning_rate=0.1).minimize(loss)
+        path = fluid.layers.crf_decoding(input=feature,
+                                         param_attr={"name": "crfw"})
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=0)
+        torch.manual_seed(0)
+        exe.run(startup)
+        losses, paths = [], []
+        for i in order:
+            lo, pa = exe.run(main, feed=feeds[i], fetch_list=[loss, path],
+                             compiled=compiled)
+            losses.append(float(lo[0]))
+            paths.append(np.asarray(pa.data).reshape(-1).tolist())
+        stats = exe.graph_stats()
+        exe.close()
+        return losses, paths, stats
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def test_crf_step_is_captured_and_replayed_under_two_lods(dev):
+    """linear_chain_crf (forward, generic gradient) and crf_decoding are
+    device ops: the step is one CUDA graph a LoD, two LoDs fed in turns,
+    a miss and a capture each, replays after, every loss and decoded
+    path the interpreter's bit for bit."""
+    feeds = _lod_feeds(([3, 7, 2, 5], [6, 1, 4, 4]))
+    for f in feeds:
+        f["label"] = type(f["words"])(f["words"].data % 7, f["words"].lod)
+    order = [0, 0, 1, 1, 0, 1, 0, 1]
+    k_loss, k_path, stats = _crf_runs(feeds, order, None)
+    i_loss, i_path, _ = _crf_runs(feeds, order, False)
+    assert stats["captures"] == 2 and stats["replays"] == 4
+    assert stats["eager_hits"] == 0 and stats["graphs"] == 2
+    assert k_loss == i_loss and k_path == i_path
+
+
+def test_sync_bn_form_under_one_nccl_rank_is_the_executor(dev):
+    """A conv + batch-norm net through ParallelExecutor(mesh={"dp": 1})
+    under a one-rank NCCL group: the sync-BN form, its statistics
+    all-reduced through NCCL (two a layer forward, one backward, a
+    step), 3 Momentum steps within 1e-5 of the Executor on the card
+    (losses relative; parameters, velocities and running statistics
+    absolute: a sum over the group then a division, where the Executor
+    takes a mean)."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    def build():
+        fw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data(name="img", shape=[3, 8, 8],
+                                    dtype="float32")
+            label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+            h = fluid.layers.conv2d(img, num_filters=8, filter_size=3,
+                                    padding=1)
+            h = fluid.layers.batch_norm(input=h, act="relu")
+            pred = fluid.layers.fc(input=h, size=4, act="softmax")
+            loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+            fluid.Momentum(learning_rate=0.1, momentum=0.9).minimize(loss)
+        return main, startup, loss
+
+    r = np.random.RandomState(0)
+    feeds = [{"img": r.rand(16, 3, 8, 8).astype(np.float32),
+              "label": r.randint(0, 4, (16, 1)).astype(np.int64)}
+             for _ in range(3)]
+    main, startup, loss = build()
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=0)
+        exe.run(startup)
+        init = {v.name: fluid.global_scope().find_var(v.name).clone()
+                for v in main.list_vars() if v.persistable}
+        want = [float(exe.run(main, feed=f, fetch_list=[loss],
+                              compiled=False)[0][0]) for f in feeds]
+        want_states = {n: fluid.global_scope().find_var(n).cpu()
+                       for n in init}
+    finally:
+        executor_mod.switch_scope(prev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        pe = fluid.ParallelExecutor(main, ["img", "label"], [loss],
+                                    mesh={"dp": 1}, startup_program=startup)
+        assert pe.gspmd_form == "sync_bn"
+        for n, v in init.items():
+            if n in pe._states:
+                pe.set_state(n, v)
+        got = [float(pe.run(f)[0][0]) for f in feeds]
+        assert pe.collective_calls["stat_all_reduce"] == 3 * 3
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        for n, v in want_states.items():
+            if n in pe._states:
+                np.testing.assert_allclose(pe.state(n), v.numpy(), rtol=0,
+                                           atol=1e-5, err_msg=n)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sparse_gradient_across_a_host_op_is_captured(dev):
+    """tools/torch_tree_probe.py's sparse-host program: an is_sparse
+    embedding's SelectedRows gradient reaches its sgd across a host
+    `print`, so the update segment's capture takes a SelectedRows input
+    (rows and values as two buffers; it raised a TypeError before).
+    Three steps in the default mode (a miss, a capture of both device
+    segments, a replay of both) against the interpreter bit for bit."""
+    import os
+    import sys
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    from torch_tree_probe import sparse_host_feeds, sparse_host_program
+
+    main, startup, loss = sparse_host_program(fluid)
+    params = [p.name for p in main.global_block().all_parameters()]
+    res = {}
+    for compiled in (None, False):
+        prev = executor_mod.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(fluid.CUDAPlace(0), seed=0)
+            torch.manual_seed(0)
+            exe.run(startup)
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                    compiled=compiled)[0][0])
+                      for f in sparse_host_feeds()]
+            res[compiled] = (losses, {
+                n: fluid.global_scope().find_var(n).cpu() for n in params},
+                exe.graph_stats())
+            exe.close()
+        finally:
+            executor_mod.switch_scope(prev)
+    (k_loss, k_params, stats), (i_loss, i_params, _) = res[None], res[False]
+    assert stats["captures"] == 2 and stats["replays"] == 2
+    assert k_loss == i_loss
+    for n in params:
+        assert torch.equal(k_params[n], i_params[n]), n
+    assert np.all(np.isfinite(k_loss))

@@ -340,11 +340,10 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 # the JAX package's op types the port does not register yet, by ROADMAP
-# item: A7.2 (book/07), A7.3 (CTC, sampling, detection, readers and io),
+# item: A7.3 (CTC, sampling, detection, readers and io),
 # A3's conv rest, A8's collectives, A10's io ops, A11's distributed ops,
 # and A4b's recompute
 NOT_PORTED = {
-    "A7.2": ["chunk_eval", "crf_decoding", "linear_chain_crf"],
     "A7.3": ["bipartite_match", "box_coder", "create_batch_reader",
              "create_random_data_generator", "create_shuffle_reader",
              "ctc_align", "detection_map", "hsigmoid", "iou_similarity",
@@ -364,24 +363,24 @@ NOT_PORTED = {
 
 
 def test_the_corpus_is_the_jax_packages_dense_types():
-    """112 op types: every type of the JAX package's activation,
+    """115 op types: every type of the JAX package's activation,
     elementwise, matmul, reduce, manip, creation, loss, metrics and misc
     modules that needs no LoD, SelectedRows or sub-block (89), the 19
-    LoD sequence and recurrent types, and the IfElse split and merge
-    with their gradient ops (4).  The port registers 186 of the JAX
-    package's 233 in all (with the nine optimizer types and
+    LoD sequence and recurrent types, the IfElse split and merge with
+    their gradient ops (4), and the 3 CRF types.  The port registers 189
+    of the JAX package's 233 in all (with the nine optimizer types and
     split_selected_rows of tests/test_torch_optimizers.py and the
-    control-flow types of tests/test_torch_control_flow.py); the 47 it
+    control-flow types of tests/test_torch_control_flow.py); the 44 it
     does not are NOT_PORTED's, by name."""
-    assert len(CORPUS) == 112
+    assert len(CORPUS) == 115
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 186
+    assert len(treg.registered_ops()) == 189
     assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
     missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
     assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
-    assert len(missing) == 47
+    assert len(missing) == 44
 
 
 @pytest.mark.parametrize("op", CORPUS)

@@ -406,3 +406,63 @@ def test_a_sparse_gradient_under_data_parallelism_raises_as_in_jax():
     pe = t.build_executor(["ids", "y"], [loss], place=CPUPlace())
     with pytest.raises(TypeError, match="SelectedRows.*ROADMAP A8"):
         pe.run(feed)
+
+
+# -- a sparse gradient across a host op between device segments ---------------
+
+def test_capture_buffers_hold_a_selected_rows_as_two_buffers():
+    """A SelectedRows input of a captured segment (a sparse gradient that
+    crossed a host op) is held as two buffers, its rows and its values:
+    a view is cloned into a buffer of its own, a replay copies a new
+    value's rows and values into them (and rebinds the name), and the
+    buffers themselves pass without a copy.  Before, the capture refused
+    it with a TypeError, on the card only."""
+    from paddle_tpu_torch.core.executor import _copy_inputs, _input_buffers
+
+    ids = torch.tensor([9, 1, 3, 1])
+    sr = SelectedRows(ids[1:], torch.ones(3, DIM), HEIGHT)
+    dense = torch.zeros(2, DIM)
+    bufs, lods, sparse, rebind = _input_buffers({"g": sr, "x": dense}, "t")
+    assert set(bufs) == {"x"} and bufs["x"] is dense and set(sparse) == {"g"}
+    held = sparse["g"]
+    assert held.value is sr.value and held.height == HEIGHT
+    assert held.rows is not sr.rows and torch.equal(held.rows, sr.rows)
+    assert rebind == {"g": held}
+    new = SelectedRows(torch.tensor([4, 5, 6]), torch.full((3, DIM), 2.0),
+                       HEIGHT)
+    got = _copy_inputs({"g": new, "x": dense}, bufs, lods, sparse)
+    assert got == {"g": held}
+    assert torch.equal(held.rows, new.rows)
+    assert torch.equal(held.value, new.value)
+    assert _copy_inputs({"g": held, "x": dense}, bufs, lods, sparse) == {}
+    with pytest.raises(TypeError, match="not a tensor"):
+        _input_buffers({"a": object()}, "t")
+
+
+@pytest.mark.parametrize("compiled", [None, False],
+                         ids=["default", "interpreted"])
+def test_sparse_gradient_across_a_host_op_trains_like_jax(compiled):
+    """tools/torch_tree_probe.py's sparse-host program (an is_sparse
+    embedding whose gradient reaches its sgd across a `print` of the
+    loss): three steps in both packages, from the JAX startup's values,
+    in the port's default (segmented) mode and interpreted."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    from torch_tree_probe import sparse_host_feeds, sparse_host_program
+
+    jfw.reset_unique_names()
+    jm, js, jl = sparse_host_program(jfluid)
+    tfw.reset_unique_names()
+    tm, ts, tl = sparse_host_program(tfluid)
+    _assert_same_program(jm, tm)
+    types = [op.type for op in tm.global_block().ops]
+    assert types.index("lookup_table_grad") < types.index("print") \
+        < types.index("sgd")
+    jexe, texe, names = _start_both(jm, js, tm, ts)
+    feeds = sparse_host_feeds()
+    jl_ = [float(np.asarray(jexe.run(jm, feed=f, fetch_list=[jl])[0])[0])
+           for f in feeds]
+    tl_ = [float(texe.run(tm, feed=f, fetch_list=[tl],
+                          compiled=compiled)[0][0]) for f in feeds]
+    _assert_losses_close(jl_, tl_)
+    _assert_params_close(names)

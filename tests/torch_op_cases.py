@@ -1249,6 +1249,119 @@ def _control_flow_cases():
     ]
 
 
+
+# -- the linear-chain CRF ops (paddle_tpu/ops/crf.py:47-281) -----------------
+
+def _crf_parts(ins):
+    x, lods = ins["Emission"]
+    tr = np.asarray(ins["Transition"], np.float64)
+    return np.asarray(x, np.float64), lods[0], tr[0], tr[1], tr[2:]
+
+
+def _crf_nll_ref(ins, a):
+    """The forward algorithm a sequence at a time, in float64."""
+    x, lod, start, end, trans = _crf_parts(ins)
+    lab = np.asarray(_arr_of(ins["Label"])).reshape(-1)
+    alpha_rows, nll = np.zeros_like(x), []
+    for s in range(len(lod) - 1):
+        em, tags = x[lod[s]:lod[s + 1]], lab[lod[s]:lod[s + 1]]
+        alpha = start + em[0]
+        alpha_rows[lod[s]] = alpha
+        for t in range(1, len(em)):
+            z = alpha[:, None] + trans
+            m = z.max(0)
+            alpha = m + np.log(np.exp(z - m).sum(0)) + em[t]
+            alpha_rows[lod[s] + t] = alpha
+        z = alpha + end
+        log_z = z.max() + np.log(np.exp(z - z.max()).sum())
+        gold = (start[tags[0]] + end[tags[-1]] + em[np.arange(len(em)),
+                                                    tags].sum()
+                + sum(trans[tags[t - 1], tags[t]]
+                      for t in range(1, len(em))))
+        nll.append(log_z - gold)
+    ex = np.exp(x - x.max(1, keepdims=True))
+    return {"LogLikelihood": np.asarray(nll)[:, None],
+            "Alpha": (alpha_rows, [lod]),
+            "EmissionExps": (ex / ex.sum(1, keepdims=True), [lod]),
+            "TransitionExps": np.exp(np.asarray(ins["Transition"]))}
+
+
+def _viterbi_ref(ins, a):
+    """Viterbi a sequence at a time, ties to the first index."""
+    x, lod, start, end, trans = _crf_parts(ins)
+    path = np.zeros(len(x), np.int64)
+    for s in range(len(lod) - 1):
+        em = x[lod[s]:lod[s + 1]]
+        alpha, ptrs = start + em[0], []
+        for t in range(1, len(em)):
+            z = alpha[:, None] + trans
+            ptrs.append(z.argmax(0))
+            alpha = z.max(0) + em[t]
+        tag = int((alpha + end).argmax())
+        tags = [tag]
+        for p in reversed(ptrs):
+            tag = int(p[tag])
+            tags.append(tag)
+        path[lod[s]:lod[s + 1]] = tags[::-1]
+    if "Label" in ins:
+        lab = np.asarray(_arr_of(ins["Label"])).reshape(-1)
+        path = (path == lab).astype(np.int64)
+    return {"ViterbiPath": (path[:, None], [lod])}
+
+
+def _crf_cases():
+    r = rng("crf")
+    d = 3
+
+    def crf_ins(lod, label_2d=True, ints=False):
+        n = lod[0][-1]
+        em = (r.randint(0, 2, (n, d)) if ints
+              else r.standard_normal((n, d)))
+        tr = (r.randint(0, 2, (d + 2, d)) if ints
+              else 0.5 * r.standard_normal((d + 2, d)))
+        lab = r.randint(0, d, (n, 1) if label_2d else (n,)).astype(np.int64)
+        return {"Emission": (_f32(em), lod), "Transition": _f32(tr),
+                "Label": (lab, lod)}
+
+    def decode_ins(lod, label=False, ints=False):
+        ins = crf_ins(lod, ints=ints)
+        if not label:
+            del ins["Label"]
+        return ins
+
+    # IOB, IOE, IOBES and plain tags over 2 chunk types (O = the last)
+    def tags(n_tag, n):
+        return r.randint(0, 2 * n_tag + 1, (n, 1)).astype(np.int64)
+
+    lod = [[0, 4, 5, 11, 14]]
+    chunk = [Case(f"chunk_eval.{scheme}", "chunk_eval",
+                  {"Inference": (tags(k, 14), lod),
+                   "Label": (tags(k, 14), lod)},
+                  {"chunk_scheme": scheme, "num_chunk_types": 2})
+             for scheme, k in (("IOB", 2), ("IOE", 2), ("IOBES", 4),
+                               ("plain", 1))]
+    chunk.append(Case("chunk_eval.excluded", "chunk_eval",
+                      {"Inference": (tags(2, 14), lod),
+                       "Label": (tags(2, 14), lod)},
+                      {"chunk_scheme": "IOB", "num_chunk_types": 2,
+                       "excluded_chunk_types": [1]}))
+    return [
+        Case("linear_chain_crf.0", "linear_chain_crf",
+             crf_ins([[0, 3, 5, 9]]), ref=_crf_nll_ref),
+        Case("linear_chain_crf.t1_label_1d", "linear_chain_crf",
+             crf_ins([[0, 1, 2, 5]], label_2d=False), ref=_crf_nll_ref),
+        Case("linear_chain_crf.all_t1", "linear_chain_crf",
+             crf_ins([[0, 1, 2, 3]]), ref=_crf_nll_ref),
+        Case("crf_decoding.0", "crf_decoding", decode_ins([[0, 2, 6, 7]]),
+             ref=_viterbi_ref),
+        Case("crf_decoding.label", "crf_decoding",
+             decode_ins([[0, 2, 6, 7]], label=True), ref=_viterbi_ref),
+        Case("crf_decoding.ties", "crf_decoding",
+             decode_ins([[0, 4, 9, 10]], ints=True), ref=_viterbi_ref),
+        Case("crf_decoding.all_t1", "crf_decoding",
+             decode_ins([[0, 1, 2]]), ref=_viterbi_ref),
+    ] + chunk
+
 GROUPS = {
     "activation": _activation_cases,
     "elementwise": _elementwise_cases,
@@ -1262,6 +1375,7 @@ GROUPS = {
     "sequence": _sequence_cases,
     "rnn": _rnn_cases,
     "control_flow": _control_flow_cases,
+    "crf": _crf_cases,
 }
 
 CASES = [c for make in GROUPS.values() for c in make()]

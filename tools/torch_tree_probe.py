@@ -15,6 +15,10 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py ctr [--package-root DIR]
     python3 tools/torch_tree_probe.py rnn [--package-root DIR]
     python3 tools/torch_tree_probe.py book08 [--package-root DIR]
+    python3 tools/torch_tree_probe.py sparse-host [--package-root DIR]
+    python3 tools/torch_tree_probe.py dp2-fault
+    python3 tools/torch_tree_probe.py replays [--package-root DIR]
+    python3 tools/torch_tree_probe.py gloo-dtypes [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -53,6 +57,27 @@ rnn        chip_smoke.py's ops phase (the LoD op cases among the rest)
 book08     chip_smoke.py's ops phase and its book08 phase alone
            (book/08's DynamicRNN translator and its attention variant,
            the While + beam-search decoder, card against CPU);
+sparse-host  the smallest program whose SelectedRows gradient crosses a
+           host op between device segments: an is_sparse embedding, an
+           fc and a mean square loss under SGD, with a `print` of the
+           loss inserted between the embedding's lookup_table_grad and
+           its sgd; three steps in the Executor's default mode on the
+           card (a miss, a capture, a replay) against the interpreter
+           and the CPU, or the error the default mode raised;
+dp2-fault  chip_smoke.py's dp2_one_card part with a fault planted in
+           both ranks at run time: batch_norm's gradient all-reduces
+           Scale@GRAD and Bias@GRAD over the group, so the bucket
+           all-reduce sums them a second time (dp times too large);
+           the part's readings and what its verdict failed, which must
+           not be empty;
+replays    chip_smoke.py's replayed recurrent and seq2seq steps alone:
+           its flash phase (the seq2seq path's kernels), seq2seq, rnn,
+           rnn_seq2seq and book08 phases, each step time from its line
+           (no ops phase: a parent checkout registers fewer op types);
+gloo-dtypes  two processes on the one card over a gloo group: whether
+           all_reduce and all_gather take CUDA tensors of each dtype the
+           data-parallel step reduces (float32, bfloat16, float16,
+           float64, int64), and the summed values;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -661,12 +686,191 @@ def book08(cs, dev):
     cs.book08_phase(card, CUDAPlace(0), peaks)
 
 
+def sparse_host_program(fluid):
+    """(main, startup, loss): an is_sparse embedding's gradient read by
+    its sgd across a host `print` of the loss."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(input=ids, size=[64, 8],
+                                     is_sparse=True)
+        pred = fluid.layers.fc(input=emb, size=1)
+        loss = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=pred, label=y))
+        fluid.SGD(learning_rate=0.1).minimize(loss)
+    block = main.global_block()
+    at = next(i for i, op in enumerate(block.ops)
+              if op.type == "lookup_table_grad") + 1
+    out = block.create_var(name=loss.name + ".printed", shape=loss.shape,
+                           dtype=loss.dtype)
+    block.insert_op(at, "print", {"In": [loss.name]}, {"Out": [out.name]},
+                    {"first_n": 1})
+    return main, startup, loss
+
+
+def sparse_host_feeds(steps=3, batch=16):
+    r = np.random.RandomState(7)
+    return [{"ids": r.randint(0, 64, (batch, 1)).astype(np.int64),
+             "y": r.standard_normal((batch, 1)).astype(np.float32)}
+            for _ in range(steps)]
+
+
+def sparse_host(cs, dev):
+    """The default mode on the card (segments: forward and backward, the
+    host print, the update) against the interpreter and the CPU."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss = sparse_host_program(fluid)
+    feeds = sparse_host_feeds()
+    params = [p.name for p in main.global_block().all_parameters()]
+    out = {}
+    for mode, place, compiled in (("default", fluid.CUDAPlace(0), None),
+                                  ("interpreted", fluid.CUDAPlace(0), False),
+                                  ("cpu", fluid.CPUPlace(), False)):
+        prev = executor_mod.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(place, seed=0)
+            exe.run(startup)
+            if mode != "default":
+                for n in params:
+                    fluid.global_scope().set_var(
+                        n, torch.from_numpy(out["init"][n]).to(exe.device))
+            else:
+                out["init"] = {n: fluid.global_scope().find_var(n)
+                               .cpu().numpy() for n in params}
+            try:
+                losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                        compiled=compiled)[0][0])
+                          for f in feeds]
+            except Exception as e:   # the record is the error itself
+                out[mode] = {"raised": f"{type(e).__name__}: {e}"[:600]}
+                continue
+            out[mode] = {"losses": losses, "params": {
+                n: fluid.global_scope().find_var(n).cpu().numpy()
+                for n in params}}
+            if mode == "default":
+                out[mode]["graphs"] = exe.graph_stats()
+        finally:
+            executor_mod.switch_scope(prev)
+    rec = {"probe": "sparse-host", "segments": [
+        op.type for op in main.global_block().ops]}
+    for mode in ("default", "interpreted", "cpu"):
+        r = out[mode]
+        if "raised" in r:
+            rec[mode] = r
+            continue
+        rec[mode] = {"losses": r["losses"], **({"graphs": r["graphs"]}
+                                               if "graphs" in r else {})}
+        if mode != "interpreted" and "raised" not in out["interpreted"]:
+            ref = out["interpreted"]
+            rec[mode]["bit_equal_to_interpreter"] = bool(
+                r["losses"] == ref["losses"] and all(
+                    np.array_equal(r["params"][n], ref["params"][n])
+                    for n in params))
+            rec[mode]["max_param_diff"] = max(
+                float(np.abs(r["params"][n] - ref["params"][n]).max())
+                for n in params)
+    emit(rec)
+
+
+def _plant_double_reduce():
+    """batch_norm's gradient with Scale@GRAD and Bias@GRAD all-reduced over
+    the sync-BN form's group (the fault dp2-fault plants)."""
+    from paddle_tpu_torch.core import registry
+
+    info = registry.get_op_info("batch_norm")
+    inner = info.grad_lower
+
+    def faulty(ctx, ins, attrs):
+        out = inner(ctx, ins, attrs)
+        if ctx.sync_group is not None and not attrs.get("is_test"):
+            for k in ("Scale@GRAD", "Bias@GRAD"):
+                out[k] = [ctx.sync_group.all_reduce(out[k][0].clone())]
+        return out
+
+    info.grad_lower = faulty
+
+
+def dp2_fault(cs, dev):
+    card, _, _ = _card(cs)
+    rec, failed = cs._dp2_verdict(card, cs._dp2_ranks(
+        [sys.executable, os.path.abspath(__file__), "--dp2-fault-worker"]))
+    emit({"probe": "dp2-fault", "planted": "Scale@GRAD and Bias@GRAD "
+          "all-reduced in batch_norm's gradient", "failed": failed,
+          "programs": {n: p["against_serial"]
+                       for n, p in rec["programs"].items()}})
+
+
+def replays(cs, dev):
+    """chip_smoke's flash, seq2seq, rnn and book08 phases."""
+    from paddle_tpu_torch import CUDAPlace
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    card, bw, peaks = _card(cs)
+    fa.build()
+    flash_cases = cs.flash_phase(dev, bw, peaks)
+    cs.seq2seq_phase(card, CUDAPlace(0), peaks, flash_cases)
+    cs.rnn_phase(card, CUDAPlace(0), peaks)
+    cs.book08_phase(card, CUDAPlace(0), peaks)
+
+
+def _gloo_rank(rank, port, out_path):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    res = {}
+    try:
+        for name in ("float32", "bfloat16", "float16", "float64", "int64"):
+            dt = getattr(torch, name)
+            t = torch.full((5,), rank + 1, dtype=dt, device="cuda")
+            try:
+                dist.all_reduce(t, async_op=True).wait()
+                parts = [torch.empty_like(t) for _ in range(2)]
+                dist.all_gather(parts, t)
+                res[name] = {"all_reduce": t.float().cpu().tolist(),
+                             "all_gather_ok": all(
+                                 bool((p == t).all()) for p in parts),
+                             "device": str(t.device)}
+            except Exception as e:
+                res[name] = {"raised": f"{type(e).__name__}: {e}"[:300]}
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+
+def gloo_dtypes(cs, dev):
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gloo.json")
+        mp.spawn(_gloo_rank, args=(port, path), nprocs=2, join=True)
+        with open(path) as f:
+            emit({"probe": "gloo-dtypes", "ranks": 2, "device": "cuda:0",
+                  "dtypes": json.load(f)})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("paged", "dp-memory", "moe-memory",
                                       "sgd-sweep", "host", "convnets",
                                       "conv-fp32", "seq2seq",
-                                      "image-models", "ctr", "rnn", "book08"))
+                                      "image-models", "ctr", "rnn", "book08",
+                                      "sparse-host", "dp2-fault",
+                                      "replays",
+                                      "gloo-dtypes"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -697,9 +901,19 @@ def main():
          "sgd-sweep": sgd_sweep, "convnets": convnets,
          "conv-fp32": conv_fp32, "seq2seq": seq2seq,
          "image-models": image_models, "ctr": ctr,
-         "rnn": rnn, "book08": book08}[args.probe](cs, dev)
+         "rnn": rnn, "book08": book08,
+         "sparse-host": sparse_host, "dp2-fault": dp2_fault,
+         "replays": replays,
+         "gloo-dtypes": gloo_dtypes}[args.probe](cs, dev)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp2-fault-worker"]:
+        # a rank of dp2-fault: chip_smoke.py's dp2 worker, fault planted
+        sys.path.insert(0, ROOT)
+        _plant_double_reduce()
+        _smoke()._dp2_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -61,13 +61,20 @@ Phases, one JSON line each:
            synchronisations;
   ops      every op type of the op corpus (tests/torch_op_cases.py: 89
            dense types, 19 LoD sequence and recurrent types, the 4
-           IfElse split and merge types and the 3 CRF types, their
+           IfElse split and merge types, the 3 CRF types and the 8
+           device types of CTC, the sampled losses and detection, their
            attribute, boundary and tie cases) on the card against the
            CPU from the same seeded inputs: the forward and the generic
            gradient in float32 (TF32 off) within 1e-5 of max(1,
            max|CPU|), ints, bools and LoDs exactly; matmul and cast
            again in bf16 under amp within one bf16 ulp; the drawn
            uniform_random_batch_size_like by distribution;
+  ops_working  hsigmoid and nce at 30000 classes, width 512, 12800 rows
+           (nce: 10 negatives), roi_pool at Fast R-CNN's shape and
+           warpctc at the ocr_ctc phase's, card against CPU within 1e-5
+           of max(1, max|CPU|), each gradient bit for bit over two card
+           calls, each one's time and warpctc's kernels a call beside
+           F.ctc_loss; the detection host ops' ms at SSD300's width;
   optimizers  each of the 12 optimizer update ops at one CTR table's
            shape [38462, 10], float32 and bf16 storage, with a dense and
            a Zipf-duplicated SelectedRows gradient (2048 rows): the card
@@ -238,7 +245,24 @@ Phases, one JSON line each:
            steps summed in other orders), the ranks bit-equal; the
            first step's gradients; ms a step per arm and form,
            all-reduces a step by kind, peak memory (see the P_
-           constants).
+           constants);
+  ssd      MobileNet-SSD300 on VOC's geometry (see the SSD_ constants):
+           the default mode (three device segments around the host
+           bipartite_match and mine_hard_examples, each a CUDA graph)
+           against the interpreter bit for bit, the loss falling, three
+           more ground-truth LoDs, the decode (detection_output,
+           detection_map) on the batch; then card against CPU at batch
+           2, a step at a time from the CPU's state (losses, matches,
+           mined negatives, detections; states but those a flipped ReLU
+           may move); images/s, the host ops' ms and share, decode ms
+           and its NMS share;
+  ocr_ctc  CRNN-CTC (see the OCR_ constants) as the ssd phase: one CUDA
+           graph, three more label LoDs, the greedy decode and edit
+           distance, card against CPU at batch 4; images/s and the
+           decode's host ms;
+  readers  the random -> shuffle(64) -> batch(32) reader chain at the
+           ssd phase's image shape: the card's batches on cuda:0 and
+           equal to the CPU chain's bit for bit.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -249,11 +273,13 @@ after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
 profiler's count in a replayed step.  The image, optimizers, ctr, rnn,
-book08, book07 and dp_gspmd phases run no kernel of the port's own (the
-JAX package runs the recurrences and the CRF as `lax.scan`, the sequence
-ops as XLA gathers and segment sums, the While loop, beam search and
-chunk_eval on the host and the GSPMD step's collectives in XLA, with no
-Pallas kernel): convolution, pooling, batch
+book08, book07, dp_gspmd, ssd, ocr_ctc and readers phases run no kernel
+of the port's own (the JAX package runs the recurrences, the CRF and CTC
+as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
+gathers, einsums and segment sums, the While loop, beam search,
+chunk_eval, matching, mining, NMS, mAP and the readers on the host and
+the GSPMD step's collectives in XLA, with no Pallas kernel):
+convolution, pooling, batch
 norm, lrn and concat are cuDNN or plain PyTorch calls there, and the
 SelectedRows gradients are made dense, and sparse SGD scatters, by
 sorted segment sums in plain PyTorch, as all of these are XLA ops in
@@ -338,9 +364,10 @@ M_GATE_STD = 0.05
 # within one bf16 ulp
 OPS_RTOL = 1e-5
 # the corpus's op types: 89 dense, 19 LoD sequence and recurrent, the 4
-# IfElse split and merge ops (host ops) and their gradient ops, and the 3
-# CRF ops (chunk_eval a host op)
-OPS_TYPES = 115
+# IfElse split and merge ops (host ops) and their gradient ops, the 3
+# CRF ops (chunk_eval a host op), and the 8 device ops of CTC, the
+# sampled losses and detection
+OPS_TYPES = 123
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -482,6 +509,49 @@ P_LR, P_MOMENTUM, P_HELD, P_STATE_RTOL = 0.1, 0.9, 3, 1e-2
 # the band's row permutations, and the program each ResNet's band also
 # runs in another dtype
 P2_PERMS = 6
+
+# the ssd phase: MobileNet-SSD300 on VOC's geometry (PaddlePaddle/models
+# fluid/object_detection/mobilenet_ssd.py, 2018, on MobileNet v1 at width
+# 1.0, Howard et al. 2017 Table 1): 300x300x3, 21 classes, the heads on
+# module 11 (512 @ 19x19), module 13 (1024 @ 10x10) and four extra blocks
+# (5x5, 3x3, 2x2, 1x1): 2278 priors; ssd_loss (overlap 0.5, neg_pos_ratio
+# 3), reduce_sum / the priors matched, RMSProp 1e-3, float32, batch 32;
+# 1-6 ground-truth boxes an image (VOC averages about 2.4).  RMSProp's
+# first update, from a zero mean square, moves every weight by about
+# lr / sqrt(1 - rho) = 4.5 x lr whatever its gradient: from random
+# weights the loss jumps after it, so the loss is held from the second
+# step (SSD_LOSS_FROM)
+SSD_IMG, SSD_CLASSES, SSD_SCALE, SSD_LR, SSD_BATCH = 300, 21, 1.0, 1e-3, 32
+SSD_LOSS_FROM = 1
+SSD_BOXES, SSD_PRIORS, SSD_LODS = (1, 6), 2278, 3
+# the ocr_ctc phase: CRNN-CTC (PaddlePaddle/models fluid/ocr_recognition/
+# crnn_ctc_model.py, 2018): 1x48x512 images, conv groups of 16, 32, 64
+# and 128 filters, each pooled (128 x 3 x 32), im2sequence to 32 steps of
+# 384, fc to 3 x 200 into a forward and a reverse GRU of 200, fc to 95 + 1
+# classes; warpctc (blank 95, norm_by_times), reduce_sum, Momentum 1e-3 /
+# 0.9, float32, batch 32; labels of 3-12 characters
+OCR_IMG, OCR_FILTERS, OCR_HIDDEN, OCR_CLASSES = (1, 48, 512), \
+    (16, 32, 64, 128), 200, 95
+OCR_LR, OCR_BATCH, OCR_LABEL_LENS, OCR_LODS = 1e-3, 32, (3, 12), 3
+# card against CPU (cut so the CPU runs them): SSD_CPU_STEPS and
+# OCR_CPU_STEPS steps at batch SSD_CPU_BATCH and OCR_CPU_BATCH, each
+# program in CPU_DTYPE, losses within N_CPU_LOSS_RTOL, every state within
+# N_CPU_RTOL; the matches, the mined negatives and the decoded ids equal,
+# where a decision taken on the host from the card's values may differ
+# only where the CPU's own margin there is within DECIDE_RTOL (a flipped
+# near tie).  In float32 the two sides' summation orders flip ReLUs
+# whose inputs lie within rounding of zero (15-17 of 18.4 M a step in
+# the SSD), and each flip reroutes the gradient of every parameter below
+# it; in float64 the inputs would have to lie within 1e-16 of zero
+SSD_CPU_BATCH, SSD_CPU_STEPS, OCR_CPU_BATCH, OCR_CPU_STEPS = 2, 2, 4, 2
+CPU_DTYPE = "float64"
+DECIDE_RTOL = 1e-5
+# the ops_working phase: hsigmoid and nce at run_rnn's 128 x 100 tokens,
+# 30000 classes, width 512 (nce with 10 negatives); roi_pool at Fast
+# R-CNN's shape (Girshick 2015: 2 images, 128 ROIs each, VGG-16's conv5 of
+# 512 x 38 x 50 for a 600 x 800 image, 7 x 7 bins, spatial scale 1/16)
+W_ROWS, W_WIDTH, W_CLASSES, W_NEG = 12800, 512, 30000, 10
+W_ROI_X, W_ROIS = (2, 512, 38, 50), 128
 P2_TWIN = {"resnet_cifar10": None, "resnet_cifar10_fp32": "float64"}
 
 
@@ -1204,7 +1274,7 @@ def _profile_step(run_step, need, phase, gemm_dim=None, kinds=None):
 
 
 def _default_mode_path(exe, run, counts, want, kinds, need, phase,
-                       snapshot):
+                       snapshot, segments=1):
     """The main path in the Executor's default mode: G_STEPS timed steps
     (the miss runs the block eagerly, the first hit captures it into a
     CUDA graph and replays it, every later hit replays) and a profiled
@@ -1212,9 +1282,10 @@ def _default_mode_path(exe, run, counts, want, kinds, need, phase,
     warm-up), the graphs (one capture, then replays), the wrappers'
     counts (`want` a step on the eager run and on the capture, none on a
     replay) and the kernels the profiler saw the replay run (`want`
-    again, by `kinds`).  -> (losses, step seconds, per-step counts,
-    `snapshot()` after the timed steps, the profile, a record for the
-    phase's line)."""
+    again, by `kinds`).  A segmented block's `segments` device segments
+    are each a cache entry and a graph of their own.  -> (losses, step
+    seconds, per-step counts, `snapshot()` after the timed steps, the
+    profile, a record for the phase's line)."""
     s0, g0 = exe.cache_stats(), exe.graph_stats()
     losses, secs, per_step = _timed_steps(run, counts, G_STEPS)
     state = snapshot()
@@ -1244,11 +1315,14 @@ def _default_mode_path(exe, run, counts, want, kinds, need, phase,
     stats = {k: s1[k] - s0[k] for k in ("hits", "misses", "entries",
                                         "recompiles_after_warmup")}
     graphs = {k: g1[k] - g0[k] for k in ("captures", "replays")}
-    check(stats == {"hits": G_STEPS - 1 + windows, "misses": 1,
-                    "entries": 1, "recompiles_after_warmup": 0}
-          and graphs == {"captures": 1, "replays": G_STEPS - 2 + windows},
+    n = segments
+    check(stats == {"hits": n * (G_STEPS - 1 + windows), "misses": n,
+                    "entries": n, "recompiles_after_warmup": 0}
+          and graphs == {"captures": n,
+                         "replays": n * (G_STEPS - 2 + windows)},
           f"{phase}: the main Program's cache {stats} and graphs {graphs}: "
-          "want one miss, then hits replaying one captured graph")
+          f"want one miss a segment ({n}), then hits replaying one "
+          "captured graph a segment")
     return losses, secs, per_step, state, profile, {
         "cache": stats, "graphs": graphs, "profile_windows": windows,
         "capture_s": g1["capture_s"] - g0["capture_s"],
@@ -1425,7 +1499,7 @@ def _interpreter_record(i_secs, i_profile):
 
 
 def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
-                             need, i_need=None, after=None):
+                             need, i_need=None, after=None, segments=1):
     """A training Program's main path without a kernel of the port:
     the startup, G_STEPS steps of `feed_of(step)` in the Executor's
     default mode (one miss, one capture, replays) and a profiled replay
@@ -1434,7 +1508,8 @@ def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
     state bit for bit the replay's) and a profiled interpreted step
     (`i_need`, else `need`).  The scope ends with the interpreter's
     state -> a record, with the startup's values ("init") and the
-    replay's states ("k_state")."""
+    replay's states ("k_state").  A segmented block has `segments`
+    device segments, each its own entry and graph."""
     import paddle_tpu_torch as fluid
 
     persist = _persistables(main)
@@ -1452,7 +1527,7 @@ def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
         run = lambda step: exe.run(  # noqa: E731
             main, feed=feed_of(step), fetch_list=[loss])[0]
         k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
-            exe, run, {}, {}, {}, need, phase, snapshot)
+            exe, run, {}, {}, {}, need, phase, snapshot, segments)
         extra = after(exe) if after is not None else None
     finally:
         exe.close()
@@ -3230,11 +3305,18 @@ def _op_inputs(v):
     return v if isinstance(v, list) else [v]
 
 
+# drawn ops whose draws are a keyed hash of (the op's seed, the global
+# row, the sample): the same numbers on the card and on the CPU, so
+# their cases are held card against CPU like the others
+_KEYED_DRAWS = ("nce",)
+
+
 def _op_grad_slots(info, case, outs):
     """(input slots the generic gradient differentiates, float output
     slots that take a cotangent), by its rule; ((), ()) when the case has
     no gradient."""
-    if info.not_differentiable or case.random:
+    if info.not_differentiable or (case.random
+                                   and case.op not in _KEYED_DRAWS):
         return (), ()
     floats = lambda vs: all(np.issubdtype(  # noqa: E731
         np.asarray(a[0] if isinstance(a, tuple) else a).dtype, np.floating)
@@ -3322,7 +3404,8 @@ def ops_phase(card, dev):
     with bf16 inputs under amp, each element within one bf16 ulp of the
     CPU's.  The drawn op (uniform_random_batch_size_like) is held by
     distribution on the card: its range, mean and variance within 4
-    sigma.  `print` writes its lines into a buffer here."""
+    sigma; nce's keyed negatives are the CPU's, so it is held as the
+    rest.  `print` writes its lines into a buffer here."""
     import io
     import zlib
 
@@ -3337,7 +3420,7 @@ def ops_phase(card, dev):
     with contextlib.redirect_stdout(printed):
         for case in cases:
             info = get_op_info(case.op)
-            if case.random:
+            if case.random and case.op not in _KEYED_DRAWS:
                 out = _op_run(case, info, dev, torch.float32)[0]["Out"][0]
                 lo, hi = case.attrs["min"], case.attrs["max"]
                 n = out.numel()
@@ -4189,9 +4272,10 @@ def _rnn_flops(rows, batch, steps, emb, hidden, out_widths):
     return 3 * fwd
 
 
-def _loss_falls(phase, losses):
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"{phase}: the loss does not fall: {losses}")
+def _loss_falls(phase, losses, start=0):
+    """The losses finite and the last below the one at step `start`."""
+    check(all(np.isfinite(losses)) and losses[-1] < losses[start],
+          f"{phase}: the loss does not fall from step {start}: {losses}")
 
 
 def _ragged_lods(exe, main, loss):
@@ -4647,10 +4731,11 @@ def _mt_flops(tokens_src, tokens_trg, batch, src_len, attention):
     return 3 * (enc + tokens_trg * per_row)
 
 
-def _mt_more_lods(phase, exe, main, loss, feeds):
+def _mt_more_lods(phase, exe, main, loss, feeds, segments=1):
     """Each of `feeds` (a new LoD) fed three times: a miss (eager), the
     first hit (a capture) and a replay -> a record; every LoD its own
-    cache entry and graph."""
+    cache entry and graph (one a device segment of a segmented block:
+    `segments`)."""
     g0, s0 = exe.graph_stats(), exe.cache_stats()
     losses, replay_s = [], []
     for feed in feeds:
@@ -4662,7 +4747,7 @@ def _mt_more_lods(phase, exe, main, loss, feeds):
             if k == 2:
                 replay_s.append(time.perf_counter() - t0)
     g1, s1 = exe.graph_stats(), exe.cache_stats()
-    n = len(feeds)
+    n = len(feeds) * segments
     got = {"misses": s1["misses"] - s0["misses"],
            "entries": s1["entries"] - s0["entries"],
            "captures": g1["captures"] - g0["captures"],
@@ -4670,9 +4755,10 @@ def _mt_more_lods(phase, exe, main, loss, feeds):
            "eager_hits": g1["eager_hits"] - g0["eager_hits"]}
     check(got == {"misses": n, "entries": n, "captures": n, "replays": n,
                   "eager_hits": 0},
-          f"{phase}: {n} new LoDs fed three times each gave {got}: want a "
-          "miss, a capture and a replay each")
+          f"{phase}: {len(feeds)} new LoDs fed three times each gave "
+          f"{got}: want a miss, a capture and a replay each a segment")
     check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    n = len(feeds)
     return {"lods": n, **got, "per_lod": {k: v / n for k, v in got.items()},
             "losses": losses, "replay_ms": [x * 1e3 for x in replay_s],
             "capture_s_per_lod": (g1["capture_s"] - g0["capture_s"]) / n}
@@ -5782,6 +5868,1032 @@ _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "replayed step")
 
 
+# -- ssd and ocr_ctc phases -------------------------------------------------
+
+def _conv_bn(fluid, x, filter_size, num_filters, stride, padding, groups=1,
+             act="relu", is_test=False):
+    """mobilenet_ssd.py conv_bn: a conv with no bias, then batch norm."""
+    conv = fluid.layers.conv2d(input=x, num_filters=num_filters,
+                               filter_size=filter_size, stride=stride,
+                               padding=padding, groups=groups, act=None,
+                               bias_attr=False)
+    return fluid.layers.batch_norm(input=conv, act=act, is_test=is_test)
+
+
+def _ssd_net(fluid, img, classes, scale, is_test):
+    """MobileNet-SSD's network (mobilenet_ssd.py mobile_net) -> (the
+    locations [N, priors, 4], the confidences [N, priors, classes], the
+    priors [priors, 4], their variances)."""
+    def dw_sep(x, f1, f2, groups, stride):
+        x = _conv_bn(fluid, x, 3, int(f1 * scale), stride, 1,
+                     groups=int(groups * scale), is_test=is_test)
+        return _conv_bn(fluid, x, 1, int(f2 * scale), 1, 0, is_test=is_test)
+
+    def extra(x, f1, f2):
+        x = _conv_bn(fluid, x, 1, int(f1 * scale), 1, 0, is_test=is_test)
+        return _conv_bn(fluid, x, 3, int(f2 * scale), 2, 1, is_test=is_test)
+
+    x = _conv_bn(fluid, img, 3, int(32 * scale), 2, 1, is_test=is_test)
+    for f1, f2, stride in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                           (128, 256, 2), (256, 256, 1), (256, 512, 2)):
+        x = dw_sep(x, f1, f2, f1, stride)
+    for _ in range(5):
+        x = dw_sep(x, 512, 512, 512, 1)
+    module11 = x
+    x = dw_sep(x, 512, 1024, 512, 2)
+    module13 = dw_sep(x, 1024, 1024, 1024, 1)
+    maps = [module11, module13]
+    for f1, f2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+        maps.append(extra(maps[-1], f1, f2))
+    ars = [[2.0]] + [[2.0, 3.0]] * 5
+    box, var = fluid.layers.prior_box(maps, img, min_ratio=20, max_ratio=90,
+                                      aspect_ratios=ars,
+                                      base_size=img.shape[2], offset=0.5,
+                                      flip=True, clip=True)
+    locs, confs = [], []
+    for m, ar in zip(maps, ars):
+        k = 2 * len(ar) + 2        # 1, each ratio and its flip, the max
+        h, w = m.shape[2], m.shape[3]
+        for out, n, width in ((locs, 4, 4), (confs, classes, classes)):
+            head = fluid.layers.conv2d(input=m, num_filters=k * n,
+                                       filter_size=3, padding=1)
+            head = fluid.layers.transpose(head, axis=[0, 2, 3, 1])
+            out.append(fluid.layers.reshape(head, shape=[-1, h * w * k,
+                                                         width]))
+    return (fluid.layers.concat(locs, axis=1),
+            fluid.layers.concat(confs, axis=1), box, var)
+
+
+def _ssd_program(fluid, fw, img=SSD_IMG, classes=SSD_CLASSES,
+                 scale=SSD_SCALE, lr=SSD_LR, dtype="float32"):
+    """MobileNet-SSD trained with ssd_loss and decoded -> (main, startup,
+    the loss, the decode program, its detections, its mAP).  The loss is
+    ssd_loss's reduce_sum over the priors times `inv_matched` (a [1]
+    feed: 1 / the priors matched, one a ground-truth box); RMSProp at
+    `lr`.  The
+    decode program is the network again in test mode (batch norm's
+    running statistics; the same parameter names), the box decode and
+    multiclass_nms at their defaults (detection_output), and
+    detection_map against `gt_map` rows (label, box, difficult)."""
+    def build(is_test):
+        image = fluid.layers.data(name="image", shape=[3, img, img],
+                                  dtype=dtype)
+        return image, _ssd_net(fluid, image, classes, scale, is_test)
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        _, (loc, conf, box, var) = build(False)
+        gt_box = fluid.layers.data(name="gt_box", shape=[4],
+                                   dtype=dtype, lod_level=1)
+        gt_label = fluid.layers.data(name="gt_label", shape=[1],
+                                     dtype="int64", lod_level=1)
+        inv = fluid.layers.data(name="inv_matched", shape=[1],
+                                dtype=dtype, append_batch_size=False)
+        cost = fluid.layers.ssd_loss(loc, conf, gt_box, gt_label, box, var,
+                                     overlap_threshold=0.5,
+                                     neg_pos_ratio=3.0)
+        loss = fluid.layers.elementwise_mul(fluid.layers.reduce_sum(cost),
+                                            inv)
+        fluid.RMSProp(learning_rate=lr).minimize(loss)
+    fw.reset_unique_names()
+    decode = fluid.Program()
+    with fluid.program_guard(decode, fluid.Program()):
+        _, (loc, conf, box, var) = build(True)
+        scores = fluid.layers.transpose(fluid.layers.softmax(conf),
+                                        axis=[0, 2, 1])
+        nmsed = fluid.layers.detection_output(loc, scores, box, var)
+        gt_map = fluid.layers.data(name="gt_map", shape=[6],
+                                   dtype=dtype, lod_level=1)
+        m_ap = fluid.layers.detection_map(nmsed, gt_map)
+    return main, startup, loss, decode, nmsed, m_ap
+
+
+def _ssd_feed(rng, n, img=SSD_IMG, classes=SSD_CLASSES,
+              boxes=SSD_BOXES, dtype=np.float32):
+    """A VOC-shaped batch of `n` images -> (the train feed, the decode
+    feed): images uniform in [-1, 1), `boxes` (a (low, high) range) ground
+    truth boxes an image, labels in 1..classes-1, normalised corners with
+    sides of at least 0.05, a `difficult` flag one box in eight; the
+    float values in `dtype`."""
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    counts = rng.randint(boxes[0], boxes[1] + 1, n)
+    g = int(counts.sum())
+    lo = rng.uniform(0.0, 0.8, (g, 2))
+    hi = np.minimum(lo + rng.uniform(0.05, 0.6, (g, 2)), 1.0)
+    box = np.concatenate([lo, hi], 1).astype(np.float32)
+    label = rng.randint(1, classes, (g, 1)).astype(np.int64)
+    difficult = (rng.uniform(size=(g, 1)) < 0.125).astype(np.float32)
+    lod = [lod_from_seq_lens(counts)]
+    image = rng.uniform(-1, 1, (n, 3, img, img)).astype(np.float32)
+    train = {"image": image.astype(dtype),
+             "gt_box": LoDTensor(box.astype(dtype), lod),
+             "gt_label": LoDTensor(label, lod),
+             "inv_matched": np.asarray([1.0 / g], dtype)}
+    gt_map = np.concatenate([label.astype(np.float32), box, difficult],
+                            1).astype(dtype)
+    return train, {"image": train["image"], "gt_map": LoDTensor(gt_map, lod)}
+
+
+def _crnn_net(fluid, images, filters, hidden, classes, is_test,
+              dtype="float32"):
+    """CRNN-CTC's encoder (crnn_ctc_model.py encoder_net): four conv
+    groups (crnn_ctc_model.py conv_bn_pool: two 3x3 convs, each with batch
+    norm and ReLU, then a 2x2 max pool; nets.img_conv_group's ops),
+    im2sequence over the feature map's height, two fc into a forward and
+    a reverse GRU, an fc over both to classes + 1."""
+    x = images
+    for f in filters:
+        for _ in range(2):
+            x = fluid.layers.conv2d(input=x, num_filters=f, filter_size=3,
+                                    padding=1)
+            x = fluid.layers.batch_norm(input=x, act="relu",
+                                        is_test=is_test)
+        x = fluid.layers.pool2d(input=x, pool_size=2, pool_type="max",
+                                pool_stride=2)
+    seq = fluid.layers.im2sequence(input=x, stride=[1, 1],
+                                   filter_size=[x.shape[2], 1])
+    fc_1 = fluid.layers.fc(input=seq, size=hidden * 3)
+    fc_2 = fluid.layers.fc(input=seq, size=hidden * 3)
+    fwd = fluid.layers.dynamic_gru(input=fc_1, size=hidden,
+                                   candidate_activation="relu", dtype=dtype)
+    bwd = fluid.layers.dynamic_gru(input=fc_2, size=hidden, is_reverse=True,
+                                   candidate_activation="relu", dtype=dtype)
+    return fluid.layers.fc(input=[fwd, bwd], size=classes + 1)
+
+
+def _crnn_program(fluid, fw, img=OCR_IMG, filters=OCR_FILTERS,
+                  hidden=OCR_HIDDEN, classes=OCR_CLASSES, lr=OCR_LR,
+                  dtype="float32"):
+    """CRNN-CTC trained with warpctc (blank = classes, norm_by_times),
+    reduce_sum, Momentum -> (main, startup, the loss, the decode program,
+    its greedy decode, its edit distances).  The decode program is the
+    network in test mode (the same parameter names), ctc_greedy_decoder
+    and edit_distance against the labels."""
+    def build(is_test):
+        images = fluid.layers.data(name="pixel", shape=list(img),
+                                   dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        return label, _crnn_net(fluid, images, filters, hidden, classes,
+                                is_test, dtype)
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        label, fc_out = build(False)
+        cost = fluid.layers.warpctc(input=fc_out, label=label,
+                                    blank=classes, norm_by_times=True)
+        loss = fluid.layers.reduce_sum(cost)
+        fluid.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    fw.reset_unique_names()
+    decode = fluid.Program()
+    with fluid.program_guard(decode, fluid.Program()):
+        label, fc_out = build(True)
+        decoded = fluid.layers.ctc_greedy_decoder(input=fc_out,
+                                                  blank=classes)
+        dist, _ = fluid.layers.edit_distance(decoded, label)
+    return main, startup, loss, decode, decoded, dist
+
+
+def _crnn_feed(rng, n, img=OCR_IMG, classes=OCR_CLASSES,
+               lens=OCR_LABEL_LENS, dtype=np.float32):
+    """`n` images uniform in [0, 1) (drawn in float32, held in `dtype`)
+    and label sequences of lengths drawn in `lens` over the classes (the
+    blank excluded)."""
+    from paddle_tpu_torch.core.lod import LoDTensor, lod_from_seq_lens
+
+    counts = rng.randint(lens[0], lens[1] + 1, n)
+    label = rng.randint(0, classes, (int(counts.sum()), 1)).astype(np.int64)
+    return {"pixel": rng.uniform(0, 1, (n,) + tuple(img)).astype(
+        np.float32).astype(dtype),
+        "label": LoDTensor(label, [lod_from_seq_lens(counts)])}
+
+
+@contextlib.contextmanager
+def _host_op_times(types):
+    """Each host op type's lowering timed (`_host_timed`) while inside ->
+    {type: [seconds a call]}."""
+    secs = {t: [] for t in types}
+    with contextlib.ExitStack() as stack:
+        for t in types:
+            stack.enter_context(_wrapped_lowering(t, _host_timed(secs[t])))
+        yield secs
+
+
+def _host_ms(secs):
+    return {t: {"ms_per_call": float(np.median(v)) * 1e3, "calls": len(v)}
+            for t, v in secs.items() if v}
+
+
+def _op_var(program, op_type, slot, io="outputs"):
+    """The name bound to `slot` of the first `op_type` op."""
+    op = next(o for o in program.global_block().ops if o.type == op_type)
+    return getattr(op, io)[slot][0]
+
+
+def _match_rounds(dist, eps=1e-6):
+    """bipartite_match's greedy rounds on one image's [rows, cols]
+    distances -> [(column, row, best, runner-up)]: each round's choice
+    and the margin it won by (ops/detection.py bipartite_match_np)."""
+    rows = dist.shape[0]
+    cand = np.where(dist.T >= eps, dist.T, -np.inf).astype(np.float64)
+    rounds = []
+    for _ in range(rows):
+        flat = np.argsort(-cand, axis=None, kind="stable")[:2]
+        j, m = divmod(int(flat[0]), rows)
+        best = cand[j, m]
+        if best == -np.inf:
+            break
+        second = cand.reshape(-1)[flat[1]] if len(flat) > 1 else -np.inf
+        rounds.append((j, m, float(best), float(second)))
+        cand[j, :] = -np.inf
+        cand[:, m] = -np.inf
+    return rounds
+
+
+def _near(a, b, rtol=DECIDE_RTOL):
+    return abs(a - b) <= rtol * max(1.0, abs(a), abs(b))
+
+
+def _ssd_decisions(card, cpu, offs):
+    """The card's bipartite matches and mined negatives against the
+    CPU's, decision by decision -> (ok, a record).  `card` and `cpu` are
+    (DistMat, match indices, class losses, NegIndices data, its LoD).
+    A differing match round passes only where the CPU's winner beat its
+    runner-up by at most DECIDE_RTOL (a flipped near tie); an image whose
+    matches differ is not held on its negatives.  Differing negatives
+    pass only where the CPU's last chosen and first passed-over
+    candidates' losses are within DECIDE_RTOL."""
+    c_dist, c_match, _, c_neg, c_lod = card
+    p_dist, p_match, p_loss, p_neg, p_lod = cpu
+    rec = {"images": len(offs) - 1, "match_flips": [], "negative_flips": []}
+    for b in range(len(offs) - 1):
+        if np.array_equal(c_match[b], p_match[b]):
+            cn = c_neg[c_lod[b]:c_lod[b + 1]].reshape(-1)
+            pn = p_neg[p_lod[b]:p_lod[b + 1]].reshape(-1)
+            if np.array_equal(cn, pn):
+                continue
+            cands = np.flatnonzero(p_match[b] == -1)
+            order = cands[np.argsort(-p_loss[b][cands], kind="stable")]
+            k = len(pn)
+            last, nxt = p_loss[b][order[k - 1]], (
+                p_loss[b][order[k]] if k < len(order) else -np.inf)
+            ok = _near(float(last), float(nxt))
+            rec["negative_flips"].append({"image": b, "cpu_margin": float(
+                last - nxt), "near_tie": ok})
+            if not ok:
+                return False, rec
+            continue
+        c_r = _match_rounds(c_dist[offs[b]:offs[b + 1]])
+        p_r = _match_rounds(p_dist[offs[b]:offs[b + 1]])
+        first = 0
+        while first < min(len(c_r), len(p_r)) and \
+                c_r[first][:2] == p_r[first][:2]:
+            first += 1
+        rnd = p_r[first] if first < len(p_r) else None
+        ok = rnd is not None and _near(rnd[2], rnd[3])
+        rec["match_flips"].append({"image": b, "round": first,
+                                   "cpu_margin": None if rnd is None
+                                   else rnd[2] - rnd[3], "near_tie": ok})
+        if not ok:
+            return False, rec
+    return True, rec
+
+
+def _ssd_train(card, place, peaks):
+    """The ssd phase's training part -> (its record, the decode's)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    phase = "ssd"
+    main, startup, loss, decode, nmsed, m_ap = _ssd_program(fluid, fw)
+    blk = main.global_block()
+    priors = blk.vars[_op_var(main, "iou_similarity", "Y", "inputs")].shape[0]
+    check(priors == SSD_PRIORS, f"{phase}: {priors} priors, want "
+          f"{SSD_PRIORS}")
+    rng = np.random.RandomState(SEED + 17)
+    feed, dfeed = _ssd_feed(rng, SSD_BATCH)
+    more = [_ssd_feed(rng, SSD_BATCH)[0] for _ in range(SSD_LODS)]
+    boxes = feed["gt_box"].seq_lens()
+    decode_rec = {}
+
+    def after(exe):
+        segs = _segment_runs(exe, main)
+        extra = _mt_more_lods(phase, exe, main, loss, more, segments=3)
+        decode_rec.update(_ssd_decode(exe, decode, nmsed, m_ap, dfeed))
+        return {"segments": segs, "more_lods": extra}
+
+    with _host_op_times(("bipartite_match", "mine_hard_examples")) as secs:
+        r = _default_and_interpreter(phase, place, main, startup, loss,
+                                     lambda step: feed, ("matmul",),
+                                     after=after, segments=3)
+    segs = r["extra"]["segments"]
+    check([k for k, _ in segs] == ["device", "host", "device", "host",
+                                   "device"],
+          f"{phase}: segments {segs}: want three device segments around "
+          "the host bipartite_match and mine_hard_examples")
+    _loss_falls(phase, r["k_loss"], SSD_LOSS_FROM)
+    step_s = float(np.median(r["k_secs"][2:]))
+    host = _host_ms(secs)
+    host_s = sum(v["ms_per_call"] for v in host.values()) / 1e3
+    flops = _model_flops(main, SSD_BATCH)
+    del r["init"], r["k_state"]
+    return {"phase": phase, "card": card,
+            "source": "PaddlePaddle/models fluid/object_detection/"
+                      "mobilenet_ssd.py (2018), MobileNet v1 width 1.0 "
+                      "(Howard et al. 2017, Table 1); the widths PERF.md "
+                      "section 4 gives where not checkable offline",
+            "image": SSD_IMG, "classes": SSD_CLASSES, "priors": priors,
+            "batch": SSD_BATCH, "optimizer": f"rmsprop {SSD_LR}",
+            "loss_held_from_step": SSD_LOSS_FROM,
+            "gt_boxes_per_image": boxes, "ops": len(blk.ops),
+            "segments": segs, "steps": G_STEPS, **_rnn_record(r, step_s),
+            "images_per_s": SSD_BATCH / step_s,
+            "model_flops_per_step": flops,
+            "fp32_flops_share": flops / step_s / peaks[torch.float32],
+            "host_ops": host, "host_share_of_step": host_s / step_s,
+            "more_lods": r["extra"]["more_lods"],
+            "timing": _RNN_TIMING + "; host_ops the median host ms of a "
+                      "call (the card drained before it), over the default "
+                      "and the interpreted steps"}, decode_rec
+
+
+def _ssd_decode(exe, decode, nmsed, m_ap, dfeed):
+    """The decode program three times on the training batch (a miss, a
+    capture of its device segment, a replay) -> a record: the replay's
+    ms for the batch, the host ops' ms, detections and mAP."""
+    with _host_op_times(("multiclass_nms", "detection_map")) as secs:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det, m = exe.run(decode, feed=dfeed, fetch_list=[nmsed, m_ap],
+                             return_numpy=False)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+    rows, lod = _to_host(det)
+    m = float(_to_host(m)[0].reshape(-1)[0])
+    check(rows.ndim == 2 and rows.shape[1] == 6 and np.isfinite(rows).all()
+          and 0.0 <= m <= 1.0 and len(lod[0]) == SSD_BATCH + 1,
+          f"ssd decode: detections {rows.shape}, mAP {m}")
+    host = _host_ms(secs)
+    ms = runs[-1] * 1e3
+    return {"decode_ms": ms, "decode_runs_ms": [x * 1e3 for x in runs],
+            "images": SSD_BATCH, "detections": int(rows.shape[0]),
+            "detections_per_image": [b - a for a, b in zip(lod[0][:-1],
+                                                           lod[0][1:])],
+            "mAP": m, "host_ops": host,
+            "nms_share": host["multiclass_nms"]["ms_per_call"] / ms}
+
+
+def _to_host(v):
+    """A fetched value as (numpy data, its LoD or None)."""
+    lod = getattr(v, "lod", None)
+    d = v.data if lod is not None else v
+    d = d.detach().cpu().numpy() if isinstance(d, torch.Tensor) \
+        else np.asarray(d)
+    return d, lod
+
+
+def _step_on(place, program, state, feed, fetch):
+    """One run of `program` on `place` (None: the CPU) from `state` (CPU
+    tensors) -> (its fetches as (numpy, LoD) pairs, the states after it
+    as CPU tensors)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        scope = fluid.global_scope()
+        dev = place.torch_device() if place is not None else "cpu"
+        for n, v in state.items():
+            scope.set_var(n, v.to(dev))
+        exe = fluid.Executor(place or fluid.CPUPlace(), seed=SEED)
+        out = [_to_host(v) for v in exe.run(program, feed=feed,
+                                              fetch_list=fetch,
+                                              return_numpy=False)]
+        after = {n: scope.find_var(n).cpu() for n in state}
+        exe.close()
+        return out, after
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def _card_vs_cpu(phase, card, place, train, decode, decide=None, **info):
+    """A program's steps on the card against the CPU, then its decode ->
+    a record (one line, with `info`).  `train` is (main, startup, feeds, fetch): each
+    feed is one step, run on `place` and on the CPU from the CPU's state
+    before it; fetch[0] is the loss.  Each step holds the loss within
+    N_CPU_LOSS_RTOL, every state after it within N_CPU_RTOL of max(1,
+    |CPU|), and, where given, `decide(card fetches, CPU fetches, feed)`
+    -> (ok, a record) on the decisions taken on the host.  `decode` is
+    (program, feed, fetch, verdict): run on both from the CPU's last
+    state and held by `verdict(card fetches, CPU fetches)` -> (ok, a
+    record)."""
+    main, startup, feeds, fetch = train
+    t0 = time.perf_counter()
+    state = _startup_state(place, startup, main)
+    steps, fails = [], []
+    for i, feed in enumerate(feeds):
+        c, c_state = _step_on(place, main, state, feed, fetch)
+        p, p_state = _step_on(None, main, state, feed, fetch)
+        c_loss, p_loss = (float(v[0][0].reshape(-1)[0]) for v in (c, p))
+        rel = _states_rel_diff(c_state, p_state)
+        worst = max(rel, key=rel.get)
+        ok, dec = decide(c, p, feed) if decide else (True, {})
+        steps.append({"card": c_loss, "cpu": p_loss,
+                      "loss_rel_diff": abs(c_loss - p_loss) / abs(p_loss),
+                      "states": len(rel), "state_max_rel_diff": rel[worst],
+                      "state_argmax": worst, **dec})
+        if not ok:
+            fails.append(f"step {i}: a decision differs from the CPU's "
+                         f"beyond a near tie: {dec}")
+        if not steps[-1]["loss_rel_diff"] <= N_CPU_LOSS_RTOL:
+            fails.append(f"step {i}: loss {c_loss} against the CPU's "
+                         f"{p_loss}")
+        if not rel[worst] <= N_CPU_RTOL:
+            fails.append(f"step {i}: {worst} differs by {rel[worst]} of "
+                         "max(1, |CPU|)")
+        state = p_state
+    program, dfeed, dfetch, verdict = decode
+    ok, rec = verdict(*(_step_on(pl, program, state, dfeed, dfetch)[0]
+                        for pl in (place, None)))
+    if not ok:
+        fails.append(f"the decode differs from the CPU's beyond a near "
+                     f"tie: {rec}")
+    record = {"phase": phase, "card": card, **info, "steps": steps,
+              "loss_limit": N_CPU_LOSS_RTOL, "state_limit": N_CPU_RTOL,
+              "decision_rule": f"a differing decision passes where the "
+                               f"CPU's margin there is within "
+                               f"{DECIDE_RTOL}",
+              "decode": rec, "seconds_both": time.perf_counter() - t0}
+    emit(record)
+    check(not fails, f"{phase}: " + "; ".join(fails))
+    return record
+
+
+def _ssd_card_vs_cpu(card, place, img=SSD_IMG, **cut):
+    """`_card_vs_cpu` on the SSD (`_ssd_program`'s widths, or `cut`) in
+    CPU_DTYPE at batch SSD_CPU_BATCH over SSD_CPU_STEPS steps: the
+    bipartite matches and mined negatives by `_ssd_decisions`, the
+    decode's detections by `_nms_verdict`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    main, startup, loss, decode, nmsed, m_ap = _ssd_program(
+        fluid, fw, img=img, dtype=CPU_DTYPE, **cut)
+    rng = np.random.RandomState(SEED + 18)
+    pairs = [_ssd_feed(rng, SSD_CPU_BATCH, img=img, dtype=CPU_DTYPE)
+             for _ in range(SSD_CPU_STEPS)]
+    fetch = [loss.name, _op_var(main, "bipartite_match", "DistMat",
+                                "inputs"),
+             _op_var(main, "bipartite_match", "ColToRowMatchIndices"),
+             _op_var(main, "mine_hard_examples", "ClsLoss", "inputs"),
+             _op_var(main, "mine_hard_examples", "NegIndices")]
+
+    def decide(c, p, feed):
+        return _ssd_decisions(
+            (c[1][0], c[2][0], None, c[4][0], c[4][1][0]),
+            (p[1][0], p[2][0], p[3][0].reshape(SSD_CPU_BATCH, -1), p[4][0],
+             p[4][1][0]), feed["gt_box"].lod[0])
+
+    def verdict(c, p):
+        ok, rec = _nms_verdict(c[0][0], c[0][1][0], p[0][0], p[0][1][0])
+        return ok, {**rec, "detections": int(p[0][0].shape[0]),
+                    "mAP": [float(v[1][0].reshape(-1)[0]) for v in (c, p)]}
+
+    return _card_vs_cpu("ssd_card_vs_cpu", card, place,
+                        (main, startup, [f for f, _ in pairs], fetch),
+                        (decode, pairs[0][1], [nmsed, m_ap], verdict),
+                        decide, batch=SSD_CPU_BATCH, dtype=CPU_DTYPE)
+
+
+def _nms_verdict(c_det, c_lod, p_det, p_lod, nms_threshold=0.3):
+    """detection_output's rows (label, score, box) on the card against
+    the CPU's, an image at a time, decision by decision -> (ok, a
+    record).  Rows agree when the labels are equal and the score and the
+    corners within DECIDE_RTOL.  At an image's first differing row the
+    card may differ only by a flipped near tie on the CPU: the two rows'
+    scores within DECIDE_RTOL (an order or a cut among near-equal
+    scores), or a box one side kept whose IoU with a higher-scored box
+    of its class the other side kept is within DECIDE_RTOL of the NMS
+    threshold.  Rows after that point are not held."""
+    from paddle_tpu_torch.ops.detection import iou_matrix_np
+
+    def agree(a, b):
+        return a[0] == b[0] and all(_near(float(x), float(y))
+                                    for x, y in zip(a[1:], b[1:]))
+
+    rec = {"images": len(p_lod) - 1, "differing_images": [],
+           "equal": True}
+    for b in range(len(p_lod) - 1):
+        c = c_det[c_lod[b]:c_lod[b + 1]] if b + 1 < len(c_lod) else \
+            c_det[:0]
+        p = p_det[p_lod[b]:p_lod[b + 1]]
+        r = 0
+        while r < min(len(c), len(p)) and agree(c[r], p[r]):
+            r += 1
+        if r == len(c) == len(p):
+            continue
+        rec["equal"] = False
+        why = None
+        if r < min(len(c), len(p)) and _near(float(c[r][1]),
+                                             float(p[r][1])):
+            why = "score near tie"
+        else:
+            for side, other in ((c, p), (p, c)):
+                if r >= len(side):
+                    continue
+                row = side[r]
+                peers = other[(other[:, 0] == row[0])
+                              & (other[:, 1] >= row[1])]
+                if len(peers):
+                    iou = iou_matrix_np(row[None, 2:6], peers[:, 2:6])
+                    if _near(float(iou.max()), nms_threshold):
+                        why = "IoU near the threshold"
+        rec["differing_images"].append({"image": b, "row": r,
+                                        "near_tie": why})
+        if why is None:
+            return False, rec
+    return True, rec
+
+
+def _startup_state(place, startup, main):
+    """The startup's persistables on `place` -> CPU tensors."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(startup)
+        state = {n: fluid.global_scope().find_var(n).cpu()
+                 for n in _persistables(main)}
+        exe.close()
+        return state
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def ssd_phase(card, place, peaks):
+    """MobileNet-SSD300 on VOC's geometry (see the SSD_ constants): the
+    default mode (three device segments between the host bipartite_match
+    and mine_hard_examples, each captured and replayed) against the
+    interpreter bit for bit on one batch, the loss falling, SSD_LODS
+    more ground-truth LoDs; the decode program (detection_output's box
+    decode and multiclass_nms, detection_map) on the batch; then card
+    against CPU at batch SSD_CPU_BATCH; one line each."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        t_phase = time.perf_counter()
+        rec, dec = _ssd_train(card, place, peaks)
+        emit({**rec, "decode": dec,
+              "seconds": time.perf_counter() - t_phase})
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        _ssd_card_vs_cpu(card, place)
+        emit({"phase": "ssd_card_vs_cpu_done",
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+
+
+def _ocr_train(card, place):
+    """The ocr_ctc phase's training part -> its record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    phase = "ocr_ctc"
+    main, startup, loss, decode, decoded, dist = _crnn_program(fluid, fw)
+    rng = np.random.RandomState(SEED + 19)
+    feed = _crnn_feed(rng, OCR_BATCH)
+    more = [_crnn_feed(rng, OCR_BATCH) for _ in range(OCR_LODS)]
+    dec = {}
+
+    def after(exe):
+        segs = _segment_runs(exe, main)
+        extra = _mt_more_lods(phase, exe, main, loss, more)
+        with _host_op_times(("ctc_align", "edit_distance")) as secs:
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, d = exe.run(decode, feed=feed, fetch_list=[decoded, dist],
+                                 return_numpy=False)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+        d = _to_host(d)[0]
+        check(np.isfinite(d).all() and d.shape == (OCR_BATCH, 1),
+              f"{phase}: edit distances {d.shape}")
+        dec.update({"decode_ms": runs[-1] * 1e3,
+                    "decode_runs_ms": [x * 1e3 for x in runs],
+                    "host_ops": _host_ms(secs),
+                    "mean_edit_distance": float(d.mean()),
+                    "decoded_chars": int(_to_host(out)[0].shape[0])})
+        return {"segments": segs, "more_lods": extra}
+
+    r = _default_and_interpreter(phase, place, main, startup, loss,
+                                 lambda step: feed, ("matmul",), after=after)
+    segs = r["extra"]["segments"]
+    check(segs == [["device", len(main.global_block().ops)]],
+          f"{phase}: segments {segs}: want one device segment")
+    _loss_falls(phase, r["k_loss"])
+    step_s = float(np.median(r["k_secs"][2:]))
+    del r["init"], r["k_state"]
+    return {"phase": phase, "card": card,
+            "source": "PaddlePaddle/models fluid/ocr_recognition/"
+                      "crnn_ctc_model.py (2018); the widths PERF.md "
+                      "section 4 gives where not checkable offline",
+            "image": list(OCR_IMG), "filters": list(OCR_FILTERS),
+            "hidden": OCR_HIDDEN, "classes": OCR_CLASSES + 1,
+            "batch": OCR_BATCH, "optimizer": f"momentum {OCR_LR} / 0.9",
+            "label_lengths": feed["label"].seq_lens(),
+            "ops": len(main.global_block().ops), "segments": segs,
+            "steps": G_STEPS, **_rnn_record(r, step_s),
+            "images_per_s": OCR_BATCH / step_s, "decode": dec,
+            "more_lods": r["extra"]["more_lods"],
+            "timing": _RNN_TIMING}
+
+
+def _greedy_verdict(c_ids, p_ids, p_logits):
+    """The card's per-frame argmax against the CPU's: equal, or differing
+    only at frames where the CPU's two best logits are within
+    DECIDE_RTOL -> (ok, differing frames, the CPU's largest margin
+    among them)."""
+    diff = np.flatnonzero(c_ids.reshape(-1) != p_ids.reshape(-1))
+    if not len(diff):
+        return True, 0, None
+    top2 = -np.sort(-p_logits[diff], axis=1)[:, :2]
+    margins = top2[:, 0] - top2[:, 1]
+    ok = all(_near(float(a), float(b)) for a, b in top2)
+    return ok, len(diff), float(margins.max())
+
+
+def _ocr_card_vs_cpu(card, place, img=OCR_IMG, classes=OCR_CLASSES,
+                     lens=OCR_LABEL_LENS, **cut):
+    """`_card_vs_cpu` on the CRNN-CTC (`_crnn_program`'s widths, or
+    `cut`) in CPU_DTYPE at batch OCR_CPU_BATCH over OCR_CPU_STEPS
+    Momentum steps; the greedy decode's per-frame argmax equal but at the
+    CPU's near ties (`_greedy_verdict`) and the decoded ids equal where
+    no frame differs."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    main, startup, loss, decode, decoded, dist = _crnn_program(
+        fluid, fw, img=img, classes=classes, dtype=CPU_DTYPE, **cut)
+    rng = np.random.RandomState(SEED + 20)
+    feeds = [_crnn_feed(rng, OCR_CPU_BATCH, img=img, classes=classes,
+                        lens=lens, dtype=CPU_DTYPE)
+             for _ in range(OCR_CPU_STEPS)]
+
+    def verdict(c, p):
+        ok, n_diff, margin = _greedy_verdict(c[1][0], p[1][0], p[2][0])
+        equal = bool(np.array_equal(c[0][0], p[0][0])
+                     and c[0][1] == p[0][1])
+        return ok and (n_diff or equal), {
+            "differing_frames": n_diff, "cpu_margin_there": margin,
+            "decoded_equal": equal}
+
+    return _card_vs_cpu(
+        "ocr_ctc_card_vs_cpu", card, place,
+        (main, startup, feeds, [loss.name]),
+        (decode, feeds[0], [decoded, _op_var(decode, "top_k", "Indices"),
+                            _op_var(decode, "top_k", "X", "inputs")],
+         verdict), batch=OCR_CPU_BATCH, dtype=CPU_DTYPE)
+
+
+def ocr_ctc_phase(card, place):
+    """CRNN-CTC (see the OCR_ constants): the default mode (one CUDA
+    graph) against the interpreter bit for bit on one batch, the loss
+    falling, OCR_LODS more label LoDs, the greedy decode and edit
+    distance; then card against CPU at batch OCR_CPU_BATCH; one line
+    each."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        t_phase = time.perf_counter()
+        rec = _ocr_train(card, place)
+        emit({**rec, "seconds": time.perf_counter() - t_phase})
+        t_phase = time.perf_counter()
+        executor_mod.switch_scope(Scope())
+        _ocr_card_vs_cpu(card, place)
+        emit({"phase": "ocr_ctc_card_vs_cpu_done",
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+
+
+# -- ops phase at working sizes (CTC, sampling, detection) --------------------
+
+def _working_cases():
+    """(name, op, inputs {slot: numpy or (numpy, lod)}, attrs, the input
+    slots whose gradient is compared) at the working sizes."""
+    r = np.random.RandomState(SEED + 21)
+    rows, d, k = W_ROWS, W_WIDTH, W_CLASSES
+    x = (0.1 * r.standard_normal((rows, d))).astype(np.float32)
+    label = r.randint(0, k, (rows, 1)).astype(np.int64)
+    t_lens = [OCR_IMG[2] // 16] * OCR_BATCH
+    l_lens = r.randint(OCR_LABEL_LENS[0], OCR_LABEL_LENS[1] + 1, OCR_BATCH)
+    n_img, c, h, w = W_ROI_X
+    rois = []
+    for _ in range(n_img * W_ROIS):
+        x1, y1 = r.uniform(0, w * 16 - 64), r.uniform(0, h * 16 - 64)
+        rois.append([x1, y1, x1 + r.uniform(32, w * 16 - x1),
+                     y1 + r.uniform(32, h * 16 - y1)])
+    return [
+        ("hsigmoid", "hsigmoid", {
+            "X": x, "W": (0.05 * r.standard_normal((k - 1, d))).astype(
+                np.float32),
+            "Bias": np.zeros(k - 1, np.float32), "Label": label},
+         {"num_classes": k}, ("X", "W", "Bias")),
+        ("nce", "nce", {
+            "Input": x, "Weight": (0.05 * r.standard_normal((k, d))).astype(
+                np.float32),
+            "Bias": np.zeros(k, np.float32), "Label": label},
+         {"num_total_classes": k, "num_neg_samples": W_NEG},
+         ("Input", "Weight", "Bias")),
+        ("roi_pool", "roi_pool", {
+            "X": r.standard_normal(W_ROI_X).astype(np.float32),
+            "ROIs": (np.asarray(rois, np.float32),
+                     [[i * W_ROIS for i in range(n_img + 1)]])},
+         {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 1 / 16},
+         ("X",)),
+        ("warpctc", "warpctc", {
+            "Logits": (r.standard_normal((sum(t_lens), OCR_CLASSES + 1))
+                       .astype(np.float32), [list(np.cumsum([0] + t_lens))]),
+            "Label": (r.randint(0, OCR_CLASSES, (int(l_lens.sum()), 1))
+                      .astype(np.int64), [list(np.cumsum([0] + list(
+                          l_lens)))])},
+         {"blank": OCR_CLASSES, "norm_by_times": True}, ("Logits",)),
+    ]
+
+
+def _working_run(op, ins, attrs, slots, dev):
+    """The op's forward and generic gradient (ones as the cotangent) on
+    `dev` -> (outputs, gradients, a runner for timing: fwd, fwd + bwd)."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 generic_grad_lower)
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    info = get_op_info(op)
+    attrs = {**info.attrs, **attrs}
+    vals = {}
+    for s, a in ins.items():
+        arr, lod = a if isinstance(a, tuple) else (a, None)
+        t = torch.from_numpy(arr).to(dev)
+        vals[s] = [t if lod is None else LoDTensor(t, lod)]
+    ctx = ExecContext(dev, seed=SEED)
+    out_slot = info.diff_outputs[0]
+
+    def fwd():
+        return info.lower(ctx, vals, attrs)
+
+    def both():
+        outs = fwd()
+        o = outs[out_slot]
+        o = o.data if isinstance(o, LoDTensor) else o
+        g = dict(vals, **{s: [v] for s, v in outs.items()})
+        g[out_slot + GRAD] = [torch.ones_like(o)]
+        return outs, generic_grad_lower(ctx, g, attrs, info)
+
+    outs, grads = both()
+    data = lambda v: v.data if isinstance(v, LoDTensor) else v  # noqa: E731
+    return ({s: data(v) for s, v in outs.items() if v is not None},
+            {s: data(grads[s + GRAD][0]) for s in slots}, fwd, both)
+
+
+def _host_op_inputs(r):
+    """SSD300's host ops at full width (batch SSD_BATCH, 2278 priors, 21
+    classes): the program's priors against a VOC-shaped feed's boxes ->
+    {op: (inputs, attrs)}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.core import executor as executor_mod
+
+    fw.reset_unique_names()
+    prog, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, start):
+        img = fluid.layers.data(name="image", shape=[3, SSD_IMG, SSD_IMG],
+                                dtype="float32")
+        box = _ssd_net(fluid, img, SSD_CLASSES, SSD_SCALE, True)[2]
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(start)
+        priors = exe.run(prog, feed={"image": np.zeros(
+            (1, 3, SSD_IMG, SSD_IMG), np.float32)}, fetch_list=[box])[0]
+    finally:
+        executor_mod.switch_scope(prev)
+    feed, dfeed = _ssd_feed(r, SSD_BATCH)
+    gt = feed["gt_box"]
+    n, m, c = SSD_BATCH, len(priors), SSD_CLASSES
+    lo = r.uniform(0, 0.8, (n, m, 2))
+    boxes = np.concatenate([lo, lo + r.uniform(0.02, 0.3, (n, m, 2))], -1)
+    logits = r.standard_normal((n, c, m))
+    scores = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    return priors, gt, boxes.astype(np.float32), scores.astype(np.float32), \
+        dfeed["gt_map"], r.uniform(0, 3, (n, m)).astype(np.float32)
+
+
+def _host_ops_at_width(dev):
+    """bipartite_match, mine_hard_examples, multiclass_nms and
+    detection_map at SSD300's width on the card's values -> {op: ms a
+    call, the read-backs included}.  multiclass_nms sorts and takes its
+    IoUs and greedy passes on the values' device: its rows and LoD on
+    the card must equal the CPU's bit for bit."""
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    r = np.random.RandomState(SEED + 22)
+    priors, gt, boxes, scores, gt_map, loss = _host_op_inputs(r)
+    ctx = ExecContext(dev)
+
+    def op(name, ins, **attrs):
+        info = get_op_info(name)
+        return lambda: info.lower(ctx, ins, {**info.attrs, **attrs})
+
+    def on(a, lod=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return t if lod is None else LoDTensor(t, lod)
+
+    iou = get_op_info("iou_similarity").lower(
+        ctx, {"X": [on(gt.data, gt.lod)], "Y": [on(priors)]}, {})["Out"]
+    match = op("bipartite_match", {"DistMat": [iou]})()
+    runs = {
+        "bipartite_match": op("bipartite_match", {"DistMat": [iou]}),
+        "mine_hard_examples": op("mine_hard_examples", {
+            "ClsLoss": [on(loss)],
+            "MatchIndices": [match["ColToRowMatchIndices"]],
+            "MatchDist": [match["ColToRowMatchDist"]]}),
+        "multiclass_nms": op("multiclass_nms", {"BBoxes": [on(boxes)],
+                                                "Scores": [on(scores)]}),
+    }
+    det = runs["multiclass_nms"]()["Out"]
+    cpu = get_op_info("multiclass_nms").lower(
+        ExecContext(torch.device("cpu")), {
+            "BBoxes": [torch.from_numpy(boxes)],
+            "Scores": [torch.from_numpy(scores)]},
+        dict(get_op_info("multiclass_nms").attrs))["Out"]
+    check(det.lod == cpu.lod and torch.equal(det.data.cpu(), cpu.data),
+          "ops_working: multiclass_nms at SSD300's width differs between "
+          "the card and the CPU")
+    runs["detection_map"] = op("detection_map", {
+        "DetectRes": [det], "Label": [on(gt_map.data, gt_map.lod)]})
+    out = {}
+    for name, fn in runs.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"ms_per_call": float(np.median(times)) * 1e3,
+                     "calls": len(times)}
+    out["multiclass_nms"]["detections"] = int(det.data.shape[0])
+    out["multiclass_nms"]["card_equals_cpu"] = True
+    return out
+
+
+def _ctc_kernels(fwd, both):
+    """Kernels a call launches (torch.profiler): the warpctc forward, and
+    the forward with its generic gradient."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for fn in (fwd, both):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(ev.count for ev in prof.key_averages()
+                          if ev.device_type == DeviceType.CUDA))
+    return {"forward": counts[0], "forward_and_gradient": counts[1]}
+
+
+def ops_working_phase(card, dev):
+    """hsigmoid and nce at W_CLASSES classes, width W_WIDTH, on W_ROWS
+    rows (nce with W_NEG negatives), roi_pool at Fast R-CNN's shape,
+    warpctc at the ocr_ctc phase's: the card against the CPU (forward and
+    generic gradient within OPS_RTOL of max(1, max |CPU|), the drawn
+    SampleLabels equal), each gradient bit for bit over two card calls,
+    each op's time (forward, forward + gradient) and warpctc's kernels a
+    call, beside F.ctc_loss's time on the same inputs; then the
+    detection host ops at SSD300's width."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    rec = {}
+    for name, op, ins, attrs, slots in _working_cases():
+        c_out, c_grad, fwd, both = _working_run(op, ins, attrs, slots, dev)
+        _, c_grad2, _, _ = _working_run(op, ins, attrs, slots, dev)
+        p_out, p_grad, _, _ = _working_run(op, ins, attrs, slots, "cpu")
+        errs = {f"out.{s}": _op_err(c_out[s], p_out[s]) for s in p_out}
+        errs.update({f"grad.{s}": _op_err(c_grad[s], p_grad[s])
+                     for s in p_grad})
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= OPS_RTOL, f"ops_working {name}: {worst} card "
+              f"against CPU {errs[worst]} > {OPS_RTOL}")
+        same = all(torch.equal(c_grad[s], c_grad2[s]) for s in slots)
+        check(same, f"ops_working {name}: two card gradients differ")
+        r = {"errors": errs, "gradient_repeatable": same,
+             "forward_ms": cold_ms(fwd, 5, flush),
+             "forward_and_gradient_ms": cold_ms(both, 5, flush)}
+        if op == "warpctc":
+            r["kernels_per_call"] = _ctc_kernels(fwd, both)
+            lv, lab = ins["Logits"], ins["Label"]
+            logp = torch.from_numpy(lv[0]).to(dev).reshape(
+                OCR_BATCH, -1, lv[0].shape[1]).transpose(0, 1).log_softmax(2)
+            tgt = torch.from_numpy(lab[0].reshape(-1)).to(dev)
+            tl = torch.full((OCR_BATCH,), logp.shape[0], dtype=torch.long,
+                            device=dev)
+            ll = torch.tensor(np.diff(lab[1][0]), device=dev)
+            r["library_ms"] = cold_ms(lambda: F.ctc_loss(
+                logp, tgt, tl, ll, blank=OCR_CLASSES, reduction="none"), 5,
+                flush)
+            r["library"] = "F.ctc_loss forward (cuDNN or native)"
+        rec[name] = r
+    rec["host_ops_ssd300"] = _host_ops_at_width(dev)
+    emit({"phase": "ops_working", "card": card, "tolerance": OPS_RTOL,
+          "rows": W_ROWS, "width": W_WIDTH, "classes": W_CLASSES,
+          "negatives": W_NEG, "roi_x": list(W_ROI_X),
+          "rois_per_image": W_ROIS, **rec,
+          "timing": "cold_ms: CUDA events around a call after the L2 "
+                    "was overwritten, median of 5 after a warm-up; host "
+                    "ops: host clock, the card drained before and after, "
+                    "median of 3",
+          "seconds": time.perf_counter() - t0})
+
+
+def readers_phase(card, place):
+    """The reader chain at the ssd phase's image shape: random [3, 300,
+    300] samples through shuffle(64) and batch(32), made by a startup
+    program and read by main: on the card each batch on cuda:0 and equal
+    to the CPU chain's bit for bit; the read's ms."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    def chain(where):
+        main, startup = fluid.Program(), fluid.Program()
+        sb, mb = startup.global_block(), main.global_block()
+        for n in ("raw", "shuf", "batch"):
+            sb.create_var(name=n, persistable=True)
+            mb.create_var(name=n, persistable=True)
+        out = mb.create_var(name="image", dtype="float32")
+        sb.append_op("create_random_data_generator", {}, {"Out": ["raw"]},
+                     {"shape_concat": [3, SSD_IMG, SSD_IMG], "ranks": [3],
+                      "lod_levels": [0], "min": -1.0, "max": 1.0,
+                      "seed": SEED})
+        sb.append_op("create_shuffle_reader", {"UnderlyingReader": ["raw"]},
+                     {"Out": ["shuf"]}, {"buffer_size": 64})
+        sb.append_op("create_batch_reader", {"UnderlyingReader": ["shuf"]},
+                     {"Out": ["batch"]}, {"batch_size": SSD_BATCH})
+        mb.append_op("read", {"Reader": ["batch"]}, {"Out": [out.name]}, {})
+        prev = executor_mod.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(where)
+            exe.run(startup)
+            got, secs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got.append(exe.run(main, fetch_list=[out],
+                                   return_numpy=False)[0])
+                secs.append(time.perf_counter() - t0)
+            return got, secs
+        finally:
+            executor_mod.switch_scope(prev)
+
+    card_out, secs = chain(place)
+    cpu_out, _ = chain(fluid.CPUPlace())
+    for a, b in zip(card_out, cpu_out):
+        check(a.device == torch.device("cuda", 0)
+              and tuple(a.shape) == (SSD_BATCH, 3, SSD_IMG, SSD_IMG)
+              and torch.equal(a.cpu(), b),
+              f"readers: a batch on {a.device} {tuple(a.shape)} differs "
+              "from the CPU chain's")
+    emit({"phase": "readers", "card": card, "batches": len(card_out),
+          "shape": list(card_out[0].shape), "device": str(card_out[0].device),
+          "bit_equal_to_cpu": True, "read_ms": [x * 1e3 for x in secs],
+          "timing": "host clock around exe.run (the shuffle buffer's 64 "
+                    "draws fall in the first read)"})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5825,6 +6937,7 @@ def main():
     flash_cases = flash_phase(dev, bw, peaks)
     grads_flash, _ = grads_phase(dev)
     ops_phase(card, dev)
+    ops_working_phase(card, dev)
     optimizers_phase(card, dev)
     from paddle_tpu_torch import CUDAPlace
 
@@ -5852,6 +6965,9 @@ def main():
     book08_phase(card, CUDAPlace(0), peaks)
     book07_phase(card, CUDAPlace(0))
     dp_gspmd_phase(card, CUDAPlace(0))
+    ssd_phase(card, CUDAPlace(0), peaks)
+    ocr_ctc_phase(card, CUDAPlace(0))
+    readers_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",

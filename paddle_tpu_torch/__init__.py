@@ -27,7 +27,10 @@ builders (models/ctr.py); LoD sequences — the LoDTensor value
 (core/lod.py), the sequence ops (ops/sequence.py), the recurrent ops
 (ops/rnn.py: lstm, lstmp, gru and the unit steps) with their layers,
 and the DataFeeder; control flow, tensor arrays and beam search; the
-linear-chain CRF ops with chunk_eval, and `io`'s inference pruning.
+linear-chain CRF ops with chunk_eval, and `io`'s inference pruning;
+CTC (ops/ctc.py), hsigmoid and nce (ops/sampling.py), the SSD detection
+ops and layers (ops/detection.py, layers/detection.py) and the reader
+ops (ops/reader.py).
 """
 from . import (  # noqa: F401
     amp,

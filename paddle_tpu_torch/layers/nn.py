@@ -1,9 +1,9 @@
 """NN layers: fc, embedding, flash_attention, the conv-net layers
 (conv2d, pool2d, batch_norm, dropout), layer_norm, matmul, the losses,
 reductions, split, l2_normalize, one_hot, cos_sim, multiplex, the step
-counter and the metrics of a training Program, and the sequence and
-recurrent layers over LoD values (counterpart of
-paddle_tpu/layers/nn.py)."""
+counter and the metrics of a training Program, the sequence and
+recurrent layers over LoD values, CTC and the sampled losses
+(counterpart of paddle_tpu/layers/nn.py)."""
 from __future__ import annotations
 
 import math
@@ -23,7 +23,8 @@ __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "sequence_softmax", "sequence_expand",
            "sequence_reshape", "lod_reset", "im2sequence", "dynamic_lstmp",
-           "gru_unit", "lstm_unit"]
+           "gru_unit", "lstm_unit", "warpctc", "ctc_align",
+           "ctc_greedy_decoder", "nce", "hsigmoid"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -542,6 +543,106 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None):
     return out, seq_num
 
 
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """The CTC loss [num_seqs, 1] of LoD logits against LoD labels
+    (reference layers/nn.py warpctc; computed natively, ops/ctc.py)."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_tmp_variable("float32")
+    grad = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op(
+        "warpctc",
+        {"Logits": [input.name], "Label": [label.name]},
+        {"Loss": [loss.name], "WarpCTCGrad": [grad.name]},
+        {"blank": int(blank), "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def ctc_align(input, blank=0, merge_repeated=True):
+    """Greedy CTC decode's collapse (reference ctc_align_op.cc)."""
+    helper = LayerHelper("ctc_align")
+    out = helper.create_tmp_variable("int64", stop_gradient=True)
+    out.lod_level = 1
+    helper.append_op("ctc_align", {"Input": [input.name]},
+                     {"Output": [out.name]},
+                     {"blank": int(blank),
+                      "merge_repeated": bool(merge_repeated)})
+    return out
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Each step's argmax, then the CTC collapse (reference layers/nn.py
+    ctc_greedy_decoder: top_k with k 1, then ctc_align)."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    _, ids = topk(input, k=1)
+    out = helper.create_tmp_variable("int64")
+    out.lod_level = 1
+    helper.append_op(
+        "ctc_align", {"Input": [ids.name]}, {"Output": [out.name]},
+        {"blank": blank, "merge_repeated": True})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None):
+    """The noise-contrastive estimation loss [batch, 1] (reference
+    layers/nn.py nce); `bias_attr=False` makes no bias."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr)
+    dim = int(input.shape[1])
+    w = helper.create_parameter(helper.param_attr,
+                                [num_total_classes, dim], input.dtype,
+                                suffix="w")
+    b = None
+    if bias_attr is not False:
+        ba = {} if bias_attr in (None, True) else dict(bias_attr)
+        b = helper.create_parameter(ba, [num_total_classes], input.dtype,
+                                    is_bias=True, suffix="b")
+    if num_neg_samples is None:
+        num_neg_samples = 10
+    cost = helper.create_tmp_variable(input.dtype)
+    sample_logits = helper.create_tmp_variable(input.dtype,
+                                               stop_gradient=True)
+    sample_labels = helper.create_tmp_variable("int64", stop_gradient=True)
+    inputs = {"Input": [input.name], "Label": [label.name],
+              "Weight": [w.name]}
+    if b is not None:
+        inputs["Bias"] = [b.name]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight.name]
+    helper.append_op(
+        "nce", inputs,
+        {"Cost": [cost.name], "SampleLogits": [sample_logits.name],
+         "SampleLabels": [sample_labels.name]},
+        {"num_total_classes": int(num_total_classes),
+         "num_neg_samples": int(num_neg_samples)})
+    cost.shape = (-1, 1)
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None):
+    """The hierarchical sigmoid cost [batch, 1] (reference
+    gserver/layers/HierarchicalSigmoidLayer.cpp); `bias_attr=False`
+    makes no bias."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dim = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr, [num_classes - 1, dim],
+                                input.dtype, suffix="w")
+    b = None
+    if bias_attr is not False:
+        ba = {} if bias_attr in (None, True) else dict(bias_attr)
+        b = helper.create_parameter(ba, [num_classes - 1], input.dtype,
+                                    is_bias=True, suffix="b")
+    out = helper.create_tmp_variable(input.dtype)
+    pre_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    inputs = {"X": [input.name], "Label": [label.name], "W": [w.name]}
+    if b is not None:
+        inputs["Bias"] = [b.name]
+    helper.append_op("hsigmoid", inputs,
+                     {"Out": [out.name], "PreOut": [pre_out.name]},
+                     {"num_classes": int(num_classes)})
+    out.shape = (-1, 1)
+    return out
 
 def linear_chain_crf(input, label, param_attr=None):
     """The CRF negative log-likelihood [S, 1] over a LoD emission

@@ -10,7 +10,8 @@ matmul, reduce, manip, creation, loss, metrics and misc modules (every
 type there that needs no LoD, SelectedRows or sub-block), the LoD
 sequence ops, the recurrent ops and the control-flow ops (while,
 conditional blocks, tensor arrays, rank tables, beam search and the
-recurrence over a step block) and the linear-chain CRF ops, each
+recurrence over a step block), the linear-chain CRF ops, CTC, the
+sampled losses (hsigmoid, nce), the detection ops and the readers, each
 lowered once in PyTorch.
 """
 from . import (  # noqa: F401
@@ -20,6 +21,8 @@ from . import (  # noqa: F401
     conv,
     creation,
     crf,
+    ctc,
+    detection,
     elementwise,
     embedding,
     loss,
@@ -30,7 +33,9 @@ from . import (  # noqa: F401
     moe,
     norm,
     optimizer_ops,
+    reader,
     reduce,
     rnn,
+    sampling,
     sequence,
 )

@@ -135,8 +135,28 @@ def keyed_uniform_mask(shape, p, seed, row_offset, dtype, device):
     the CPU and a CUDA device draw the same mask.  u is the hash's top
     24 bits times 2^-24: a float32 in [0, 1), never rounded up to 1."""
     rows = int(shape[0])
-    cols = math.prod(shape[1:])
-    mask = torch.empty((rows, cols), dtype=dtype, device=device)
+    mask = torch.empty((rows, math.prod(shape[1:])), dtype=dtype,
+                       device=device)
+    for r0, h in _keyed_hashes(rows, mask.shape[1], seed, row_offset,
+                               device):
+        u = (h >> 8).to(torch.float32).mul_(2.0 ** -24)
+        mask[r0:r0 + len(h)] = u >= p
+    return mask.reshape(shape)
+
+
+def keyed_randint(rows, cols, high, seed, row_offset, device):
+    """[rows, cols] int64 in [0, high), uniform up to a bias below
+    high / 2^32, from the hash of (seed, global row, column) that
+    `keyed_uniform_mask` draws from: (h * high) >> 32."""
+    out = torch.empty((rows, cols), dtype=torch.int64, device=device)
+    for r0, h in _keyed_hashes(rows, cols, seed, row_offset, device):
+        out[r0:r0 + len(h)] = (h * high) >> 32
+    return out
+
+
+def _keyed_hashes(rows, cols, seed, row_offset, device):
+    """Yields (first row, [n, cols] int64 32-bit hashes of (seed, global
+    row row_offset + i, column)) over the rows, a chunk at a time."""
     key = _mix(seed, 0)     # small user seeds too get 63 scrambled bits
     k0, k1 = key & _M32, key >> 32
     i64 = torch.int64
@@ -146,10 +166,7 @@ def keyed_uniform_mask(shape, p, seed, row_offset, dtype, device):
         r = torch.arange(row_offset + r0, row_offset + min(rows, r0 + step),
                          dtype=i64, device=device)
         row = mix32_(mix32_((r & _M32) ^ k0) ^ k1)
-        h = mix32_(row[:, None] ^ col[None, :])
-        u = (h >> 8).to(torch.float32).mul_(2.0 ** -24)
-        mask[r0:r0 + len(r)] = u >= p
-    return mask.reshape(shape)
+        yield r0, mix32_(row[:, None] ^ col[None, :])
 
 
 @register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),

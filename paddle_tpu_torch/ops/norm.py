@@ -12,6 +12,12 @@ from ..core.registry import register_grad_lower, register_op
 _F32 = torch.float32
 
 
+def _acc(x):
+    """batch_norm's accumulation dtype: float64 for float64 input, else
+    float32."""
+    return torch.float64 if x.dtype == torch.float64 else _F32
+
+
 def _bn_axes(x, attrs):
     """-> (the reduced axes, the per-channel broadcast shape)."""
     layout = attrs.get("data_layout", "NCHW")
@@ -23,16 +29,16 @@ def _bn_axes(x, attrs):
 
 def _affine(x, inv, mean, scale, bias, bshape):
     """y = x * a + b in x's dtype, a = inv * scale and b = bias - mean * a
-    per channel in float32."""
-    a = inv * scale.to(_F32)
-    b = bias.to(_F32) - mean * a
+    per channel in inv's dtype."""
+    a = inv * scale.to(inv.dtype)
+    b = bias.to(inv.dtype) - mean * a
     return x * a.to(x.dtype).reshape(bshape) + \
         b.to(x.dtype).reshape(bshape)
 
 
 def _synced_stats(x, axes, bshape, group):
     """The batch mean and biased variance over every rank's rows, in
-    float32 with the global element count: float32/float64 input sums x
+    `_acc(x)` with the global element count: float32/float64 input sums x
     first, then the centred sum of (x - mean)^2 (two all-reduces, the
     serial two-pass variance); bf16/f16 input sums x and x^2 in one
     all-reduce (E[x^2] - mean^2, clamped at 0, as the serial one-pass
@@ -40,11 +46,11 @@ def _synced_stats(x, axes, bshape, group):
     `group.size` is their count; every rank holds as many rows."""
     n = x.numel() // math.prod(bshape) * group.size
     if x.dtype in (torch.float32, torch.float64):
-        total = group.all_reduce(torch.sum(x, dim=axes, dtype=_F32))
+        total = group.all_reduce(torch.sum(x, dim=axes, dtype=_acc(x)))
         mean = total / n
         centred = x - mean.to(x.dtype).reshape(bshape)
         sq = group.all_reduce(torch.sum(torch.square(centred), dim=axes,
-                                        dtype=_F32))
+                                        dtype=_acc(x)))
         return mean, sq / n
     xf = x.to(_F32)
     sums = group.all_reduce(torch.cat([torch.sum(xf, dim=axes),
@@ -64,7 +70,8 @@ def _synced_stats(x, axes, bshape, group):
              inplace={"MeanOut": "Mean", "VarianceOut": "Variance"})
 def batch_norm(ctx, ins, attrs):
     """Paddle's batch norm, as the JAX package computes it (not
-    `F.batch_norm`): statistics accumulated in float32; the variance
+    `F.batch_norm`): statistics accumulated in float32 (float64 for
+    float64 input, which the JAX package never sees); the variance
     two-pass (centred) for float32/float64 input and E[x^2] - m^2 in one
     pass for bf16/f16; the running update mom * old + (1 - mom) * batch
     with the biased batch variance, kept in the state's dtype;
@@ -87,27 +94,28 @@ def batch_norm(ctx, ins, attrs):
     mean, var = one(ins, "Mean"), one(ins, "Variance")
     eps, mom = attrs["epsilon"], attrs["momentum"]
     axes, bshape = _bn_axes(x, attrs)
+    acc = _acc(x)
     if attrs.get("is_test"):
-        inv = torch.rsqrt(var.to(_F32) + eps)
-        y = _affine(x, inv, mean.to(_F32), scale, bias, bshape)
+        inv = torch.rsqrt(var.to(acc) + eps)
+        y = _affine(x, inv, mean.to(acc), scale, bias, bshape)
         return {"Y": y, "MeanOut": mean, "VarianceOut": var,
                 "SavedMean": mean, "SavedVariance": var}
     group = ctx.sync_group
     if group is not None:
         use_mean, use_var = _synced_stats(x, axes, bshape, group)
     else:
-        use_mean = torch.mean(x, dim=axes, dtype=_F32)
+        use_mean = torch.mean(x, dim=axes, dtype=acc)
         if x.dtype in (torch.float32, torch.float64):
             centred = x - use_mean.to(x.dtype).reshape(bshape)
             use_var = torch.mean(torch.square(centred), dim=axes,
-                                 dtype=_F32)
+                                 dtype=acc)
         else:
             ex2 = torch.mean(torch.square(x.to(_F32)), dim=axes)
             use_var = torch.clamp_min(ex2 - torch.square(use_mean), 0.0)
     inv = torch.rsqrt(use_var + eps)
     y = _affine(x, inv, use_mean, scale, bias, bshape)
-    mean_out = mom * mean.to(_F32) + (1.0 - mom) * use_mean
-    var_out = mom * var.to(_F32) + (1.0 - mom) * use_var
+    mean_out = mom * mean.to(acc) + (1.0 - mom) * use_mean
+    var_out = mom * var.to(acc) + (1.0 - mom) * use_var
     return {"Y": y, "MeanOut": mean_out.to(mean.dtype),
             "VarianceOut": var_out.to(var.dtype),
             "SavedMean": use_mean, "SavedVariance": inv}
@@ -124,7 +132,7 @@ def batch_norm_grad(ctx, ins, attrs):
         dvar = -0.5 inv^3 scale (dA - m dB)      (training only),
         dX = dY * a + (2 dvar / N) X + (-a dB - 2 m dvar) / N
 
-    (the last two terms training only); dX is the sum of the float32
+    (the last two terms training only); dX is the sum of the `_acc(X)`
     terms cast to X's dtype and dY * a in X's dtype.  The variance's
     clamp at 0 (bf16) is taken as inactive.  Under `ctx.sync_group`
     (training mode) dX takes dA, dB and N over every rank's rows, one
@@ -134,31 +142,32 @@ def batch_norm_grad(ctx, ins, attrs):
     scale, bias = one(ins, "Scale"), one(ins, "Bias")
     axes, bshape = _bn_axes(x, attrs)
     test = bool(attrs.get("is_test"))
+    acc = _acc(x)
     if test:
-        m = one(ins, "Mean").to(_F32)
-        inv = torch.rsqrt(one(ins, "Variance").to(_F32) + attrs["epsilon"])
+        m = one(ins, "Mean").to(acc)
+        inv = torch.rsqrt(one(ins, "Variance").to(acc) + attrs["epsilon"])
     else:
         m, inv = one(ins, "SavedMean"), one(ins, "SavedVariance")
-    a = inv * scale.to(_F32)
-    d_a = torch.sum(dy * x, dim=axes, dtype=_F32)
-    d_b = torch.sum(dy, dim=axes, dtype=_F32)
+    a = inv * scale.to(acc)
+    d_a = torch.sum(dy * x, dim=axes, dtype=acc)
+    d_b = torch.sum(dy, dim=axes, dtype=acc)
     n = x.numel() // a.numel()     # elements a channel
     # Scale@GRAD and Bias@GRAD stay this rank's sums: the data-parallel
     # step's gradient all-reduce sums them over the ranks (and divides
     # by their count, as it does every gradient)
-    d_scale = (d_a.to(x.dtype).to(_F32) - m * d_b.to(x.dtype).to(_F32)) * inv
-    d_bias = d_b.to(x.dtype).to(_F32)
+    d_scale = (d_a.to(x.dtype).to(acc) - m * d_b.to(x.dtype).to(acc)) * inv
+    d_bias = d_b.to(x.dtype).to(acc)
     group = None if test else ctx.sync_group
     if group is not None:
         # dX reads the sums over every rank's rows and the global count
         sums = group.all_reduce(torch.cat([d_a, d_b]))
         d_a, d_b = torch.chunk(sums, 2)
         n *= group.size
-    d_b = d_b.to(x.dtype).to(_F32)
-    d_a = d_a.to(x.dtype).to(_F32) - m * d_b
+    d_b = d_b.to(x.dtype).to(acc)
+    d_a = d_a.to(x.dtype).to(acc) - m * d_b
     dx = dy * a.to(x.dtype).reshape(bshape)
     if not test:
-        dvar = -0.5 * inv * inv * inv * scale.to(_F32) * d_a
+        dvar = -0.5 * inv * inv * inv * scale.to(acc) * d_a
         c1 = 2.0 * dvar / n
         c0 = (-a * d_b - 2.0 * m * dvar) / n
         t = x * c1.reshape(bshape)

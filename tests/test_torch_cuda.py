@@ -1892,3 +1892,161 @@ def test_sparse_gradient_across_a_host_op_is_captured(dev):
     for n in params:
         assert torch.equal(k_params[n], i_params[n]), n
     assert np.all(np.isfinite(k_loss))
+
+
+def test_ssd_step_default_mode_is_the_interpreter_on_the_card(dev):
+    """A cut MobileNet-SSD (chip_smoke's `_ssd_program` at 64x64, width 0.25,
+    batch 4, up to three boxes an image): three RMSProp steps in the
+    default mode (three device segments between the host bipartite_match
+    and mine_hard_examples, each captured and replayed) and three
+    interpreted from the same state, the losses and every state bit for
+    bit."""
+    import numpy as np
+
+    import chip_smoke
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss, *_ = chip_smoke._ssd_program(fluid, fw, img=64,
+                                                      scale=0.25)
+    feed, _ = chip_smoke._ssd_feed(np.random.RandomState(2), 4, img=64,
+                                   boxes=(1, 3))
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+        exe.run(startup)
+        init = {n: fluid.global_scope().find_var(n).clone() for n in names}
+        runs = []
+        for compiled in (None, False):
+            executor_mod.switch_scope(Scope())
+            for n in names:
+                fluid.global_scope().set_var(n, init[n].clone())
+            exe = fluid.Executor(fluid.CUDAPlace(0), seed=1)
+            losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    compiled=compiled)[0].reshape(-1)[0])
+                      for _ in range(3)]
+            if compiled is None:
+                stats = exe.graph_stats()
+                assert stats["captures"] == 3 and stats["replays"] == 3
+            runs.append((losses, {n: fluid.global_scope().find_var(n)
+                                  .clone() for n in names}))
+            exe.close()
+    finally:
+        executor_mod.switch_scope(prev)
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][0][-1] < runs[0][0][0]
+    _same_bits(runs[0][1], runs[1][1])
+
+
+def _a73_grad_cases():
+    """(op, inputs, attrs) of the new ops with a gradient, at small
+    working shapes with repeated rows (tree nodes, sampled classes,
+    overlapping ROIs) so a scatter-add would collide."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    r = np.random.RandomState(0)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        r.standard_normal(s).astype(np.float32))
+    lod = [[0, 9, 20, 32]]
+    t_lens = [9, 11, 12]
+    logits = LoDTensor(f32(sum(t_lens), 12), lod)
+    labels = LoDTensor(torch.from_numpy(
+        r.randint(1, 12, (9, 1)).astype(np.int64)), [[0, 3, 5, 9]])
+    rois = torch.from_numpy(np.concatenate([
+        r.uniform(0, 300, (64, 2)), r.uniform(320, 600, (64, 2))],
+        1).astype(np.float32))
+    return [
+        ("warpctc", {"Logits": logits, "Label": labels},
+         {"blank": 0, "norm_by_times": True}),
+        ("hsigmoid", {"X": f32(256, 32), "W": f32(999, 32),
+                      "Bias": f32(999),
+                      "Label": torch.from_numpy(r.randint(
+                          0, 1000, (256, 1)).astype(np.int64))},
+         {"num_classes": 1000}),
+        ("nce", {"Input": f32(256, 32), "Weight": f32(50, 32),
+                 "Bias": f32(50), "Label": torch.from_numpy(r.randint(
+                     0, 50, (256, 1)).astype(np.int64))},
+         {"num_total_classes": 50, "num_neg_samples": 10}),
+        ("roi_pool", {"X": f32(2, 16, 38, 50),
+                      "ROIs": LoDTensor(rois, [[0, 30, 64]])},
+         {"pooled_height": 7, "pooled_width": 7,
+          "spatial_scale": 1.0 / 16}),
+    ]
+
+
+@pytest.mark.parametrize("case", _a73_grad_cases(), ids=lambda c: c[0])
+def test_new_gradients_are_repeatable_on_the_card(dev, case):
+    """warpctc, hsigmoid, nce and roi_pool: the generic gradient twice on
+    the card gives the same bits (fixed-order sums, no atomics), and the
+    CPU's within 1e-5 of its largest."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 generic_grad_lower)
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    op, ins, attrs = case
+    info = get_op_info(op)
+    attrs = {**info.attrs, **attrs}
+
+    def run(device):
+        vals = {k: [v.map(lambda t: t.to(device)) if isinstance(v, LoDTensor)
+                    else v.to(device)] for k, v in ins.items()}
+        ctx = ExecContext(device, seed=5)
+        outs = info.lower(ctx, vals, attrs)
+        out_slot = info.diff_outputs[0]
+        o = outs[out_slot]
+        o = o.data if isinstance(o, LoDTensor) else o
+        g = dict(vals, **{s: [v] for s, v in outs.items()})
+        g[out_slot + GRAD] = [torch.ones_like(o)]
+        res = generic_grad_lower(ctx, g, attrs, info)
+        return {k: (v[0].data if isinstance(v[0], LoDTensor) else v[0])
+                .cpu() for k, v in res.items()}
+
+    a, b, cpu = run(dev), run(dev), run("cpu")
+    _same_bits(a, b)
+    for k in a:
+        tol = 1e-5 * max(1.0, float(cpu[k].abs().max()))
+        assert float((a[k] - cpu[k]).abs().max()) <= tol, k
+
+
+def test_reader_outputs_land_on_the_card(dev):
+    """The random -> shuffle -> batch reader chain made by a startup
+    program and read by main on a CUDAPlace: each batch on cuda:0, equal
+    to the CPU chain's bit for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    def chain(place):
+        main, startup = fluid.Program(), fluid.Program()
+        sb, mb = startup.global_block(), main.global_block()
+        for n in ("raw", "shuf", "batch"):
+            sb.create_var(name=n, persistable=True)
+            mb.create_var(name=n, persistable=True)
+        out = mb.create_var(name="x", dtype="float32")
+        sb.append_op("create_random_data_generator", {}, {"Out": ["raw"]},
+                     {"shape_concat": [3, 8, 8], "ranks": [3],
+                      "lod_levels": [0], "min": 0.0, "max": 1.0, "seed": 3})
+        sb.append_op("create_shuffle_reader", {"UnderlyingReader": ["raw"]},
+                     {"Out": ["shuf"]}, {"buffer_size": 16})
+        sb.append_op("create_batch_reader", {"UnderlyingReader": ["shuf"]},
+                     {"Out": ["batch"]}, {"batch_size": 8})
+        mb.append_op("read", {"Reader": ["batch"]}, {"Out": [out.name]}, {})
+        prev = executor_mod.switch_scope(Scope())
+        try:
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            return [exe.run(main, fetch_list=[out], return_numpy=False)[0]
+                    for _ in range(3)]
+        finally:
+            executor_mod.switch_scope(prev)
+
+    card, cpu = chain(fluid.CUDAPlace(0)), chain(fluid.CPUPlace())
+    for a, b in zip(card, cpu):
+        assert a.device == torch.device("cuda", 0)
+        assert torch.equal(a.cpu(), b)

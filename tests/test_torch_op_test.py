@@ -340,15 +340,9 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 # the JAX package's op types the port does not register yet, by ROADMAP
-# item: A7.3 (CTC, sampling, detection, readers and io),
-# A3's conv rest, A8's collectives, A10's io ops, A11's distributed ops,
-# and A4b's recompute
+# item: A3's conv rest, A8's collectives, A10's io ops, A11's distributed
+# ops, and A4b's recompute
 NOT_PORTED = {
-    "A7.3": ["bipartite_match", "box_coder", "create_batch_reader",
-             "create_random_data_generator", "create_shuffle_reader",
-             "ctc_align", "detection_map", "hsigmoid", "iou_similarity",
-             "mine_hard_examples", "multiclass_nms", "nce", "prior_box",
-             "read", "roi_pool", "target_assign", "warpctc"],
     "A3": ["conv2d_transpose", "conv3d", "conv3d_transpose", "conv_shift",
            "max_pool2d_with_index", "max_pool3d_with_index", "pool3d",
            "row_conv", "spp", "unpool"],
@@ -363,24 +357,28 @@ NOT_PORTED = {
 
 
 def test_the_corpus_is_the_jax_packages_dense_types():
-    """115 op types: every type of the JAX package's activation,
+    """123 op types: every type of the JAX package's activation,
     elementwise, matmul, reduce, manip, creation, loss, metrics and misc
     modules that needs no LoD, SelectedRows or sub-block (89), the 19
     LoD sequence and recurrent types, the IfElse split and merge with
-    their gradient ops (4), and the 3 CRF types.  The port registers 189
-    of the JAX package's 233 in all (with the nine optimizer types and
-    split_selected_rows of tests/test_torch_optimizers.py and the
-    control-flow types of tests/test_torch_control_flow.py); the 44 it
+    their gradient ops (4), the 3 CRF types, and the 8 device types of
+    CTC, the sampled losses and detection (warpctc, hsigmoid, nce,
+    prior_box, box_coder, iou_similarity, target_assign, roi_pool).  The
+    port registers 206 of the JAX package's 233 in all (with the nine
+    optimizer types and split_selected_rows of
+    tests/test_torch_optimizers.py, the control-flow types of
+    tests/test_torch_control_flow.py, the detection host ops of
+    tests/test_torch_detection.py, ctc_align and the readers); the 27 it
     does not are NOT_PORTED's, by name."""
-    assert len(CORPUS) == 115
+    assert len(CORPUS) == 123
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 189
+    assert len(treg.registered_ops()) == 206
     assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
     missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
     assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
-    assert len(missing) == 44
+    assert len(missing) == 27
 
 
 @pytest.mark.parametrize("op", CORPUS)

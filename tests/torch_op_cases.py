@@ -1362,6 +1362,291 @@ def _crf_cases():
              decode_ins([[0, 1, 2]]), ref=_viterbi_ref),
     ] + chunk
 
+# -- CTC, the sampled losses and the detection geometry (paddle_tpu/ops/
+# ctc.py:42-124, sampling.py:22-106, detection.py:34-249 and :387-444) --------
+
+def _ctc_ref(ins, a):
+    """The CTC loss a sequence at a time: the alpha recursion over the
+    blank-extended labels in float64 probabilities."""
+    x, (lod,) = ins["Logits"]
+    lab, (llod,) = ins["Label"]
+    lab = np.asarray(lab).reshape(-1)
+    blank, loss = a["blank"], []
+    for i in range(len(lod) - 1):
+        z = x[lod[i]:lod[i + 1]]
+        p = np.exp(z - z.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        ext = [blank]
+        for v in lab[llod[i]:llod[i + 1]]:
+            ext += [int(v), blank]
+        s = len(ext)
+        alpha = np.zeros(s)
+        alpha[0] = p[0, ext[0]]
+        if s > 1:
+            alpha[1] = p[0, ext[1]]
+        for t in range(1, len(z)):
+            nxt = alpha.copy()
+            nxt[1:] += alpha[:-1]
+            for k in range(2, s):
+                if ext[k] != blank and ext[k] != ext[k - 2]:
+                    nxt[k] += alpha[k - 2]
+            alpha = nxt * p[t, ext]
+        nll = -np.log(alpha[-1] + (alpha[-2] if s > 1 else 0.0))
+        loss.append(nll / len(z) if a["norm_by_times"] else nll)
+    return {"Loss": np.asarray(loss)[:, None],
+            "WarpCTCGrad": (np.zeros_like(x), [list(lod)])}
+
+
+def _ctc_cases():
+    r = rng("ctc")
+
+    def ins(t_lens, l_lens, c=5, blank=0, repeat=False, dtype=np.int64):
+        lod = [list(np.cumsum([0] + t_lens))]
+        llod = [list(np.cumsum([0] + l_lens))]
+        labels = [b for b in range(c) if b != blank]
+        lab = r.choice(labels, sum(l_lens))
+        if repeat:      # every other label its predecessor's
+            lab[1::2] = lab[0::2][:len(lab[1::2])]
+        return {"Logits": (_f32(r.standard_normal((sum(t_lens), c))), lod),
+                "Label": (lab.astype(dtype).reshape(-1, 1), llod)}
+
+    return [
+        Case("warpctc.ragged", "warpctc", ins([5, 3, 7], [2, 1, 3]),
+             ref=_ctc_ref),
+        Case("warpctc.repeats_blank_last", "warpctc",
+             ins([6, 8], [3, 4], blank=4, repeat=True), {"blank": 4},
+             ref=_ctc_ref),
+        Case("warpctc.empty_labels", "warpctc", ins([3, 4], [0, 2]),
+             ref=_ctc_ref),
+        Case("warpctc.all_empty", "warpctc", ins([3, 2], [0, 0]),
+             ref=_ctc_ref),
+        Case("warpctc.t1", "warpctc", ins([1, 1], [1, 0], dtype=np.int32),
+             ref=_ctc_ref),
+        Case("warpctc.norm_by_times", "warpctc", ins([4, 6, 2], [2, 3, 1]),
+             {"norm_by_times": True}, ref=_ctc_ref),
+    ]
+
+
+def _hsigmoid_ref(ins, a):
+    x, w = ins["X"], ins["W"]
+    k = a["num_classes"]
+    bias = ins.get("Bias")
+    cost, pre_all = [], []
+    max_len = max((k - 1).bit_length(), 1)
+    for b, lab in enumerate(np.asarray(ins["Label"]).reshape(-1)):
+        c = int(lab) + k
+        length = c.bit_length() - 1
+        pre = np.zeros(max_len)
+        total = 0.0
+        for j in range(length):
+            node = (c >> (j + 1)) - 1
+            v = x[b] @ w[node] + (bias.reshape(-1)[node] if bias is not None
+                                  else 0.0)
+            v = min(max(v, -40.0), 40.0)
+            pre[j] = v
+            total += np.logaddexp(v, 0.0) - ((c >> j) & 1) * v
+        cost.append(total)
+        pre_all.append(pre)
+    return {"Out": np.asarray(cost)[:, None], "PreOut": np.asarray(pre_all)}
+
+
+def _sampling_cases():
+    r = rng("sampling")
+
+    def hs(b, d, k, bias=True):
+        out = {"X": _f32(0.5 * r.standard_normal((b, d))),
+               "W": _f32(0.5 * r.standard_normal((k - 1, d))),
+               "Label": r.randint(0, k, (b, 1)).astype(np.int64)}
+        if bias:
+            out["Bias"] = _f32(0.1 * r.standard_normal((k - 1,)))
+        return out
+
+    def nce_ins(b, d, v, true=1, weight=False):
+        out = {"Input": _f32(0.5 * r.standard_normal((b, d))),
+               "Label": r.randint(0, v, (b, true)).astype(np.int64),
+               "Weight": _f32(0.5 * r.standard_normal((v, d))),
+               "Bias": _f32(0.1 * r.standard_normal((v,)))}
+        if weight:
+            out["SampleWeight"] = _f32(r.uniform(0.5, 1.5, (b, 1)))
+        return out
+
+    return [
+        Case("hsigmoid.0", "hsigmoid", hs(6, 4, 8), {"num_classes": 8},
+             ref=_hsigmoid_ref),
+        Case("hsigmoid.k11", "hsigmoid", hs(7, 3, 11), {"num_classes": 11},
+             ref=_hsigmoid_ref),
+        Case("hsigmoid.no_bias", "hsigmoid", hs(5, 4, 6, bias=False),
+             {"num_classes": 6}, ref=_hsigmoid_ref),
+        Case("nce.0", "nce", nce_ins(6, 4, 20), {"num_total_classes": 20,
+                                                  "num_neg_samples": 5},
+             random=True),
+        Case("nce.two_true_weighted", "nce", nce_ins(5, 3, 12, 2, True),
+             {"num_total_classes": 12, "num_neg_samples": 4}, random=True),
+    ]
+
+
+def _center(b):
+    return ((b[..., 2] + b[..., 0]) / 2, (b[..., 3] + b[..., 1]) / 2,
+            b[..., 2] - b[..., 0], b[..., 3] - b[..., 1])
+
+
+def _box_coder_ref(ins, a):
+    prior, var = ins["PriorBox"], ins["PriorBoxVar"]
+    t = _arr_of(ins["TargetBox"])
+    pcx, pcy, pw, ph = _center(prior)
+    if a["code_type"] == "encode_center_size":
+        tcx, tcy, tw, th = _center(t)
+        out = np.stack([(tcx[:, None] - pcx) / pw / var[:, 0],
+                        (tcy[:, None] - pcy) / ph / var[:, 1],
+                        np.log(np.abs(tw[:, None] / pw)) / var[:, 2],
+                        np.log(np.abs(th[:, None] / ph)) / var[:, 3]], -1)
+    else:
+        cx = var[:, 0] * t[..., 0] * pw + pcx
+        cy = var[:, 1] * t[..., 1] * ph + pcy
+        w = np.exp(var[:, 2] * t[..., 2]) * pw
+        h = np.exp(var[:, 3] * t[..., 3]) * ph
+        out = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    return {"OutputBox": out}
+
+
+def _iou_np64(a, b):
+    ix = np.clip(np.minimum(a[:, None, 2], b[None, :, 2])
+                 - np.maximum(a[:, None, 0], b[None, :, 0]), 0, None)
+    iy = np.clip(np.minimum(a[:, None, 3], b[None, :, 3])
+                 - np.maximum(a[:, None, 1], b[None, :, 1]), 0, None)
+    inter = ix * iy
+    union = (((a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]))[:, None]
+             + ((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]))[None, :] - inter)
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+
+
+def _iou_ref(ins, a):
+    x = ins["X"]
+    out = _iou_np64(_arr_of(x), ins["Y"])
+    return {"Out": (out, x[1]) if isinstance(x, tuple) else out}
+
+
+def _target_assign_ref(ins, a):
+    x, lod = ins["X"]
+    if x.ndim == 2:
+        x = x[:, None, :]
+    match = np.asarray(ins["MatchIndices"])
+    n, m = match.shape
+    p = x.shape[1]
+    out = np.full((n, m, x.shape[2]), float(a["mismatch_value"]))
+    wt = np.zeros((n, m, 1))
+    for i in range(n):
+        for j in range(m):
+            if match[i, j] > -1:
+                out[i, j] = x[lod[0][i] + match[i, j], j % p]
+                wt[i, j] = 1.0
+    if "NegIndices" in ins:
+        neg, nlod = ins["NegIndices"]
+        for i in range(len(nlod[0]) - 1):
+            for row in np.asarray(neg).reshape(-1)[nlod[0][i]:nlod[0][i + 1]]:
+                out[i, row] = float(a["mismatch_value"])
+                wt[i, row] = 1.0
+    return {"Out": out.astype(x.dtype), "OutWeight": wt}
+
+
+def _roi_pool_ref(ins, a):
+    """Each bin's first maximum in row-major order, a bin at a time."""
+    x = ins["X"]
+    rois, lod = ins["ROIs"]
+    ph, pw = a["pooled_height"], a["pooled_width"]
+    _, c, h, w = x.shape
+    out = np.zeros((len(rois), c, ph, pw))
+    arg = np.zeros((len(rois), c, ph, pw), np.int64)
+    for k, roi in enumerate(rois):
+        img = np.searchsorted(lod[0], k, side="right") - 1
+        x1, y1, x2, y2 = np.round(np.float32(roi) * np.float32(
+            a["spatial_scale"]))
+        bh = np.float32(max(y2 - y1 + 1, 1.0)) / np.float32(ph)
+        bw = np.float32(max(x2 - x1 + 1, 1.0)) / np.float32(pw)
+        for i in range(ph):
+            hs, he = np.floor(i * bh) + y1, np.ceil((i + 1) * bh) + y1
+            for j in range(pw):
+                ws, we = np.floor(j * bw) + x1, np.ceil((j + 1) * bw) + x1
+                hh = [v for v in range(h) if hs <= v < he]
+                ww = [v for v in range(w) if ws <= v < we]
+                if not hh or not ww:
+                    continue
+                blk = x[img][:, hh][:, :, ww].reshape(c, -1)
+                best = blk.argmax(1)
+                out[k, :, i, j] = blk[np.arange(c), best]
+                arg[k, :, i, j] = (np.asarray(hh)[best // len(ww)] * w
+                                   + np.asarray(ww)[best % len(ww)])
+    return {"Out": out, "Argmax": arg}
+
+
+def _boxes(r, n, lo=0.0, hi=1.0):
+    """n corner boxes with positive sides."""
+    a = r.uniform(lo, hi, (n, 2))
+    b = a + r.uniform(0.05, 0.5, (n, 2))
+    return _f32(np.concatenate([a, b], 1))
+
+
+def _detection_cases():
+    r = rng("detection")
+    prior = _boxes(r, 6)
+    pvar = _f32(np.tile([0.5, 0.5, 1.0, 1.0], (6, 1)))
+    gt = _boxes(r, 3)
+    lod = [[0, 2, 3]]
+    match = np.asarray([[1, -1, 0, -1, -1, 0], [-1, 0, -1, -1, 0, -1]],
+                       np.int32)
+    roi_x = _f32(r.standard_normal((2, 2, 7, 9)))
+    rois = _f32([[0, 0, 10, 8], [2.4, 1.6, 6.2, 7.7], [5, 3, 5, 3],
+                 [8, 6, 14, 12], [-3, -2, 1, 1]])
+    tie_x = _f32(r.randint(0, 3, (1, 2, 6, 7)))
+    return [
+        Case("prior_box.0", "prior_box",
+             {"Input": np.zeros((1, 2, 3, 4), np.float32),
+              "Image": np.zeros((1, 3, 30, 40), np.float32)},
+             {"min_sizes": [8.0], "max_sizes": [16.0],
+              "aspect_ratios": [2.0, 3.0]}),
+        Case("prior_box.steps_no_clip", "prior_box",
+             {"Input": np.zeros((1, 2, 2, 2), np.float32),
+              "Image": np.zeros((1, 3, 20, 20), np.float32)},
+             {"min_sizes": [6.0, 12.0], "aspect_ratios": [2.0],
+              "flip": False, "clip": False, "step_w": 11.0, "step_h": 9.0,
+              "offset": 0.25}),
+        Case("box_coder.encode", "box_coder",
+             {"PriorBox": prior, "PriorBoxVar": pvar, "TargetBox": gt},
+             ref=_box_coder_ref),
+        Case("box_coder.decode", "box_coder",
+             {"PriorBox": prior, "PriorBoxVar": pvar,
+              "TargetBox": _f32(0.5 * r.standard_normal((2, 6, 4)))},
+             {"code_type": "decode_center_size"}, ref=_box_coder_ref),
+        Case("iou_similarity.lod", "iou_similarity",
+             {"X": (gt, lod), "Y": prior}, ref=_iou_ref),
+        Case("iou_similarity.touching", "iou_similarity",
+             {"X": _f32([[0, 0, 1, 1], [1, 1, 2, 2], [0, 0, 0, 0]]),
+              "Y": _f32([[1, 0, 2, 1], [0, 0, 2, 2]])}, ref=_iou_ref),
+        Case("target_assign.boxes", "target_assign",
+             {"X": (_f32(r.standard_normal((3, 6, 4))), lod),
+              "MatchIndices": match}, {"mismatch_value": 0},
+             ref=_target_assign_ref),
+        Case("target_assign.labels_neg", "target_assign",
+             {"X": (r.randint(1, 5, (3, 1, 1)).astype(np.int64), lod),
+              "MatchIndices": match,
+              "NegIndices": (np.asarray([[1], [3], [0], [2], [5]], np.int32),
+                             [[0, 2, 5]])},
+             {"mismatch_value": 7}, ref=_target_assign_ref),
+        Case("roi_pool.0", "roi_pool",
+             {"X": roi_x, "ROIs": (rois, [[0, 3, 5]])},
+             {"pooled_height": 3, "pooled_width": 2}, ref=_roi_pool_ref),
+        Case("roi_pool.scaled", "roi_pool",
+             {"X": roi_x, "ROIs": (_f32(rois * 2 + 1), [[0, 2, 5]])},
+             {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+             ref=_roi_pool_ref),
+        Case("roi_pool.ties", "roi_pool",
+             {"X": tie_x, "ROIs": (_f32([[0, 0, 6, 5], [1, 1, 4, 4]]),
+                                   [[0, 2]])},
+             {"pooled_height": 2, "pooled_width": 2}, ref=_roi_pool_ref,
+             fd=False),
+    ]
+
+
 GROUPS = {
     "activation": _activation_cases,
     "elementwise": _elementwise_cases,
@@ -1376,6 +1661,9 @@ GROUPS = {
     "rnn": _rnn_cases,
     "control_flow": _control_flow_cases,
     "crf": _crf_cases,
+    "ctc": _ctc_cases,
+    "sampling": _sampling_cases,
+    "detection": _detection_cases,
 }
 
 CASES = [c for make in GROUPS.values() for c in make()]

@@ -15,6 +15,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py ctr [--package-root DIR]
     python3 tools/torch_tree_probe.py rnn [--package-root DIR]
     python3 tools/torch_tree_probe.py book08 [--package-root DIR]
+    python3 tools/torch_tree_probe.py a73 [--package-root DIR]
     python3 tools/torch_tree_probe.py sparse-host [--package-root DIR]
     python3 tools/torch_tree_probe.py dp2-fault
     python3 tools/torch_tree_probe.py replays [--package-root DIR]
@@ -57,6 +58,10 @@ rnn        chip_smoke.py's ops phase (the LoD op cases among the rest)
 book08     chip_smoke.py's ops phase and its book08 phase alone
            (book/08's DynamicRNN translator and its attention variant,
            the While + beam-search decoder, card against CPU);
+a73        chip_smoke.py's ops and ops_working phases and its ssd,
+           ocr_ctc and readers phases alone (CTC, hsigmoid, nce, the
+           detection ops and the readers; MobileNet-SSD300 and CRNN-CTC
+           trained and decoded, card against CPU);
 sparse-host  the smallest program whose SelectedRows gradient crosses a
            host op between device segments: an is_sparse embedding, an
            fc and a mean square loss under SGD, with a `print` of the
@@ -686,6 +691,19 @@ def book08(cs, dev):
     cs.book08_phase(card, CUDAPlace(0), peaks)
 
 
+def a73(cs, dev):
+    """chip_smoke's ops and ops_working phases and its ssd, ocr_ctc and
+    readers phases (CTC, sampling, detection and the readers)."""
+    from paddle_tpu_torch import CUDAPlace
+
+    card, _, peaks = _card(cs)
+    cs.ops_phase(card, dev)
+    cs.ops_working_phase(card, dev)
+    cs.ssd_phase(card, CUDAPlace(0), peaks)
+    cs.ocr_ctc_phase(card, CUDAPlace(0))
+    cs.readers_phase(card, CUDAPlace(0))
+
+
 def sparse_host_program(fluid):
     """(main, startup, loss): an is_sparse embedding's gradient read by
     its sgd across a host `print` of the loss."""
@@ -868,6 +886,7 @@ def main():
                                       "sgd-sweep", "host", "convnets",
                                       "conv-fp32", "seq2seq",
                                       "image-models", "ctr", "rnn", "book08",
+                                      "a73",
                                       "sparse-host", "dp2-fault",
                                       "replays",
                                       "gloo-dtypes"))
@@ -901,7 +920,7 @@ def main():
          "sgd-sweep": sgd_sweep, "convnets": convnets,
          "conv-fp32": conv_fp32, "seq2seq": seq2seq,
          "image-models": image_models, "ctr": ctr,
-         "rnn": rnn, "book08": book08,
+         "rnn": rnn, "book08": book08, "a73": a73,
          "sparse-host": sparse_host, "dp2-fault": dp2_fault,
          "replays": replays,
          "gloo-dtypes": gloo_dtypes}[args.probe](cs, dev)

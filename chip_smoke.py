@@ -262,7 +262,25 @@ Phases, one JSON line each:
            decode's host ms;
   readers  the random -> shuffle(64) -> batch(32) reader chain at the
            ssd phase's image shape: the card's batches on cuda:0 and
-           equal to the CPU chain's bit for bit.
+           equal to the CPU chain's bit for bit;
+  remat    the train phase's LM (amp) and ResNet-50 (bf16), each
+           without and with recompute segments from the same states,
+           default mode and interpreter bit for bit; losses, the LM's
+           weights, flash launches (wrappers and the captured graph's
+           kernel nodes), ResNet-50's running statistics, and a float64
+           ResNet-50 pair whose running statistics are held; ms a step,
+           peak memory, device time by group;
+  memory_plan  the replayed train, seq2seq and resnet50 steps' peaks
+           with the compiled mode's frees, and the memory_optimize flag
+           on the interpreted ResNet-50 (states bit-equal);
+  generate run_generation's LM decoded by the full forward, the kv
+           cache and beam search, and run_seq2seq's translator: tokens
+           a second, kernels and host syncs a token, kv equal to the
+           full forward, card against CPU at a cut width;
+  image_serve  run_image's serve_one on ResNet-50 through
+           InferenceServer: single-stream ms, requests/s under 256
+           concurrent requests, every result against the Executor's,
+           no capture after construction.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -350,6 +368,28 @@ FLASH_SHAPE = (T_BATCH, T_SEQ, T_HEADS, T_D // T_HEADS)
 # them, batch x (src + tgt)
 S_VOCAB, S_D, S_HEADS, S_LAYERS, S_LEN, S_BATCH = 30000, 512, 8, 6, 128, 32
 S2S_FLASH_SHAPE = (S_BATCH, S_LEN, S_HEADS, S_D // S_HEADS)
+
+# the generate phase: benchmark/run_generation.py's defaults (vocab
+# 32000, context 512, prompt 16, d_model 512, 6 layers, 8 heads, batch 8,
+# beam 4, float32), ctx - prompt = 496 steps; the card-vs-CPU check cut
+# to 2 layers and 64 steps; the translate generator at run_seq2seq's
+# transformer (S_*), 127 steps
+GEN_VOCAB, GEN_CTX, GEN_PROMPT, GEN_D, GEN_LAYERS = 32000, 512, 16, 512, 6
+GEN_HEADS, GEN_BATCH, GEN_BEAM = 8, 8, 4
+GEN_STEPS, GEN_BEAM_STEPS = GEN_CTX - GEN_PROMPT, GEN_CTX - GEN_PROMPT
+GEN_CPU_LAYERS, GEN_CPU_STEPS, GEN_TIE_RTOL = 2, 64, 1e-5
+GEN_FLASH_SHAPE = (GEN_BATCH, GEN_CTX, GEN_HEADS, GEN_D // GEN_HEADS)
+# the image_serve phase: benchmark/run_image.py:154-204's serve_one for
+# ResNet-50 (bf16): buckets, batching window, single-stream requests and
+# concurrent ones
+SRV_BUCKETS, SRV_WINDOW_MS, SRV_SINGLE, SRV_CONCURRENT = \
+    (1, 2, 4, 8, 16), 0.3, 30, 256
+# a served result against the Executor's batch-1 run of the same image:
+# the bucket's batch size changes cuDNN's algorithms, so bf16 roundings
+# flip in ~50 layers; a random walk of 1-ulp flips (2^-8) over sqrt(50)
+# layers is ~4 ulps of the output: held at twice that, in bf16 ulps of
+# max|reference| of the row
+SRV_ULPS = 8
 
 # the MoE configuration: benchmark/run_moe.py's defaults
 M_VOCAB, M_D, M_HEADS, M_LAYERS, M_SEQ, M_BATCH = 30000, 1024, 8, 6, 512, 8
@@ -858,14 +898,17 @@ def _close_bf16(got, want):
 
 
 # the flash phase's cases: (name, dtype, causal, [b, s, h, d]); the LM's
-# training shape, and the seq2seq model's (its encoder self-attention
-# and cross-attention non-causal, its decoder self-attention causal)
+# training shape, the seq2seq model's (its encoder self-attention and
+# cross-attention non-causal, its decoder self-attention causal), and
+# the generate phase's float32 forwards (the LM's, the translator's)
 FLASH_CASES = (("fp32_causal", torch.float32, True, FLASH_SHAPE),
                ("bf16_causal", torch.bfloat16, True, FLASH_SHAPE),
                ("fp32_full", torch.float32, False, FLASH_SHAPE),
                ("bf16_full", torch.bfloat16, False, FLASH_SHAPE),
                ("s2s_bf16_causal", torch.bfloat16, True, S2S_FLASH_SHAPE),
-               ("s2s_bf16_full", torch.bfloat16, False, S2S_FLASH_SHAPE))
+               ("s2s_bf16_full", torch.bfloat16, False, S2S_FLASH_SHAPE),
+               ("gen_fp32_causal", torch.float32, True, GEN_FLASH_SHAPE),
+               ("gen_s2s_fp32_full", torch.float32, False, S2S_FLASH_SHAPE))
 
 
 def flash_phase(dev, bw, peaks):
@@ -1124,16 +1167,20 @@ def _timed_steps(run_step, counts, steps=T_STEPS):
     return losses, secs, per_step
 
 
-def _lm_program(optimizer, dropout_rate=0.0):
+def _lm_program(optimizer, dropout_rate=0.0, remat=False):
     """The run_ridge transformer LM's training Program -> (main, startup,
     loss); with `dropout_rate` its dropouts, the attention weights'
-    included (the composed attention path)."""
+    included (the composed attention path); with `remat` each decoder
+    block a recompute segment (run_ridge's builder reads the `remat`
+    flag)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.models.transformer import transformer_lm
 
     fw.reset_unique_names()
     main, startup = fluid.Program(), fluid.Program()
+    set_flags({"remat": remat})
     with fluid.program_guard(main, startup):
         ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
         lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
@@ -1146,6 +1193,7 @@ def _lm_program(optimizer, dropout_rate=0.0):
             fluid.layers.reshape(lbl, shape=[-1, 1]))
         loss = fluid.layers.mean(cost)
         optimizer.minimize(loss)
+    set_flags({"remat": False})
     return main, startup, loss
 
 
@@ -1274,7 +1322,7 @@ def _profile_step(run_step, need, phase, gemm_dim=None, kinds=None):
 
 
 def _default_mode_path(exe, run, counts, want, kinds, need, phase,
-                       snapshot, segments=1):
+                       snapshot, segments=1, gate_kinds=True):
     """The main path in the Executor's default mode: G_STEPS timed steps
     (the miss runs the block eagerly, the first hit captures it into a
     CUDA graph and replays it, every later hit replays) and a profiled
@@ -1297,8 +1345,13 @@ def _default_mode_path(exe, run, counts, want, kinds, need, phase,
           f"{phase}: wrapper launches per step {per_step}: want {want} on "
           "the eager run and the capture, none on a replay")
     # the profiled step is a replay; the profiler may drop records of a
-    # window (see device_ms): up to three windows.  Its peak memory is a
-    # replay's alone
+    # window (see device_ms): up to three windows.  With `gate_kinds`
+    # False the replay's kernel counts are read, not held (the remat
+    # phase, late in a run: there the profiler dropped one flash forward
+    # of the LM's replay in every window, in whole runs; the phase holds
+    # the captured graph's kernel nodes instead, `_GraphCensus`).  Its
+    # peak memory is a replay's alone
+    gate = bool(kinds) and gate_kinds
     torch.cuda.reset_peak_memory_stats()
     for windows in range(1, 4):
         before = {k: f() for k, f in counts.items()}
@@ -1306,10 +1359,11 @@ def _default_mode_path(exe, run, counts, want, kinds, need, phase,
                                 kinds=kinds)
         check({k: f() - before[k] for k, f in counts.items()} == zero,
               f"{phase}: a wrapper ran during the profiled replay")
-        if profile["kind_counts"] == want:
+        if not gate or profile["kind_counts"] == want:
             break
-    check(profile["kind_counts"] == want, f"{phase}: the profiled replay "
-          f"ran kernels {profile['kind_counts']}, want {want}")
+    check(not gate or profile["kind_counts"] == want, f"{phase}: the "
+          f"profiled replay ran kernels {profile['kind_counts']}, want "
+          f"{want}")
     replay_peak = torch.cuda.max_memory_allocated()
     s1, g1 = exe.cache_stats(), exe.graph_stats()
     stats = {k: s1[k] - s0[k] for k in ("hits", "misses", "entries",
@@ -1499,17 +1553,23 @@ def _interpreter_record(i_secs, i_profile):
 
 
 def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
-                             need, i_need=None, after=None, segments=1):
+                             need, i_need=None, after=None, segments=1,
+                             counts=None, want=None, kinds=None, init=None,
+                             interpret=True, gate_kinds=True):
     """A training Program's main path without a kernel of the port:
-    the startup, G_STEPS steps of `feed_of(step)` in the Executor's
-    default mode (one miss, one capture, replays) and a profiled replay
-    (`need` its kernel groups), `after(exe)` on that Executor, then the
-    same steps interpreted from the startup's state (losses and every
-    state bit for bit the replay's) and a profiled interpreted step
-    (`i_need`, else `need`).  The scope ends with the interpreter's
-    state -> a record, with the startup's values ("init") and the
-    replay's states ("k_state").  A segmented block has `segments`
-    device segments, each its own entry and graph."""
+    the startup (or the states `init`), G_STEPS steps of `feed_of(step)`
+    in the Executor's default mode (one miss, one capture, replays; the
+    wrappers' `counts` growing by `want` a step on the eager run and the
+    capture, the profiled replay running `want` kernels by `kinds`) and
+    a profiled replay (`need` its kernel groups), `after(exe)` on that
+    Executor, then (with `interpret`) the same steps interpreted from
+    the same state (losses and every state bit for bit the replay's) and
+    a profiled interpreted step (`i_need`, else `need`).  The scope ends
+    with the interpreter's state -> a record, with the starting values
+    ("init"), the replay's states ("k_state"), its wrapper counts a step
+    ("k_steps") and the memory the steps started from
+    ("base_memory_bytes").  A segmented block has `segments` device
+    segments, each its own entry and graph."""
     import paddle_tpu_torch as fluid
 
     persist = _persistables(main)
@@ -1517,20 +1577,32 @@ def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
     exe = fluid.Executor(place, seed=SEED)
     try:
         t0 = time.perf_counter()
-        exe.run(startup)
+        if init is None:
+            exe.run(startup)
+        else:
+            for n in persist:
+                scope.set_var(n, init[n].clone())
         torch.cuda.synchronize()
         startup_s = time.perf_counter() - t0
         init = {n: scope.find_var(n).clone() for n in persist}
         snapshot = lambda: {n: scope.find_var(n).clone()  # noqa: E731
                             for n in persist}
         _reset_peak()
+        base = torch.cuda.memory_allocated()
         run = lambda step: exe.run(  # noqa: E731
             main, feed=feed_of(step), fetch_list=[loss])[0]
-        k_loss, k_secs, _, k_state, profile, graph = _default_mode_path(
-            exe, run, {}, {}, {}, need, phase, snapshot, segments)
+        k_loss, k_secs, k_steps, k_state, profile, graph = \
+            _default_mode_path(exe, run, counts or {}, want or {},
+                               kinds or {}, need, phase, snapshot, segments,
+                               gate_kinds)
         extra = after(exe) if after is not None else None
     finally:
         exe.close()
+    if not interpret:
+        return {"k_loss": k_loss, "k_secs": k_secs, "k_steps": k_steps,
+                "profile": profile, "graph": graph, "startup_s": startup_s,
+                "init": init, "k_state": k_state, "states": len(persist),
+                "extra": extra, "base_memory_bytes": base}
     for n in persist:
         scope.set_var(n, init[n].clone())
     exe = fluid.Executor(place, seed=SEED)
@@ -1543,10 +1615,12 @@ def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
                                   phase)
     finally:
         exe.close()
-    return {"k_loss": k_loss, "k_secs": k_secs, "profile": profile,
-            "graph": graph, "i_loss": i_loss, "i_secs": i_secs,
-            "i_profile": i_profile, "startup_s": startup_s, "init": init,
-            "k_state": k_state, "states": len(persist), "extra": extra}
+    return {"k_loss": k_loss, "k_secs": k_secs, "k_steps": k_steps,
+            "profile": profile, "graph": graph, "i_loss": i_loss,
+            "i_secs": i_secs, "i_profile": i_profile,
+            "startup_s": startup_s, "init": init, "k_state": k_state,
+            "states": len(persist), "extra": extra,
+            "base_memory_bytes": base}
 
 
 def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
@@ -2738,11 +2812,12 @@ def moe_phase(card, place, peaks, moe_cases):
 
 # -- image phases -------------------------------------------------------------
 
-def _image_program(model, img, classes, dtype):
+def _image_program(model, img, classes, dtype, remat=False):
     """benchmark/run_image.py's training Program (`build`, :42-66) for
     `model` ("resnet<depth>" through resnet_imagenet, "alexnet",
     "googlenet", "smallnet", "vgg19", or the book's "vgg16_bn_drop")
-    -> (main, startup, loss)."""
+    -> (main, startup, loss); `remat` wraps the ResNets' residual blocks
+    in recompute segments."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import models
     from paddle_tpu_torch.core import framework as fw
@@ -2765,7 +2840,8 @@ def _image_program(model, img, classes, dtype):
             predict = models.vgg(data, class_dim=classes, depth=19)
         else:
             predict = models.resnet_imagenet(data, class_dim=classes,
-                                             depth=int(model[len("resnet"):]))
+                                             depth=int(model[len("resnet"):]),
+                                             remat=remat)
         cost = fluid.layers.cross_entropy(input=predict, label=label)
         avg = fluid.layers.mean(cost)
         fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(avg)
@@ -6894,6 +6970,869 @@ def readers_phase(card, place):
                     "draws fall in the first read)"})
 
 
+# -- remat phase (A4b): rematerialised segments ------------------------------
+
+_FLASH_KINDS = {"fwd": "fwd_kernel<", "dq": "dq_kernel<",
+                "dkv": "dkv_kernel<"}
+
+
+def _flash_counts():
+    """The flash wrappers' counts, zeroed -> ({kind: reader})."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    launches = flash_attention.launches
+    for key in launches:
+        launches[key] = 0
+    return {k: (lambda k=k: launches[k]) for k in launches}
+
+
+class _GraphCensus:
+    """While active, every CUDA graph made (`torch.cuda.CUDAGraph()`, as
+    the Executor makes them) keeps its topology (`keep_graph`: the
+    executable graph is made at the first replay, from the same
+    topology), so its kernel nodes can be counted by name: a witness of
+    what each replay launches that does not depend on the profiler.
+    `kernels(kinds)` dumps the graphs made so far that are still live
+    (cudaGraphDebugDotPrint's DOT, under TMPDIR, deleted after) ->
+    ({kind: kernel nodes whose function's name holds `<kind>_kernel`},
+    the kernel nodes in all)."""
+
+    def __enter__(self):
+        self.orig, self.graphs = torch.cuda.CUDAGraph, []
+
+        def make(*args, **kwargs):
+            graph = self.orig(*args, **{**kwargs, "keep_graph": True})
+            graph.enable_debug_mode()
+            self.graphs.append(graph)
+            return graph
+
+        torch.cuda.CUDAGraph = make
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph = self.orig
+
+    def kernels(self, kinds):
+        import re
+
+        counts, total, dumped, head = {k: 0 for k in kinds}, 0, 0, ""
+        node = re.compile(r'^\s*"(graph_\d+_node_\d+)"\s*\[(.*?)\];',
+                          re.M | re.S)
+        for graph in self.graphs:
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "graph.dot")
+                graph.debug_dump(path)      # writes nothing once reset
+                if not os.path.exists(path):
+                    continue
+                with open(path) as f:
+                    text = f.read()
+            dumped += 1
+            head = head or text[:800]
+            for _, label in node.findall(text):
+                if "KERNEL" not in label.upper():
+                    continue
+                total += 1
+                for k in kinds:
+                    counts[k] += bool(re.search(rf"(?<![A-Za-z_]){k}_kernel",
+                                                label))
+        check(total > 0, f"the dumps of {dumped} of {len(self.graphs)} "
+                         f"graphs show no kernel node: {head!r}")
+        return counts, total
+
+
+def _remat_pair(phase, place, build, feed_of, need, counts=None,
+                want_plain=None, want_remat=None):
+    """The Program `build(remat)` without and with remat: the plain
+    build's default mode from its startup, then the remat build's from
+    the same states, each also interpreted (bit for bit its replay) ->
+    (plain record, remat record).  With `counts` (the flash wrappers')
+    the launches are held on each build's eager run and capture, and
+    the captured graph's flash kernel nodes (`_GraphCensus`: what every
+    replay launches) against `want_*` too; the profiler's count of one
+    replay is read, not held (`_default_mode_path`'s `gate_kinds`: it
+    dropped one record of such a replay in whole runs)."""
+    def one(label, remat, want, init=None):
+        with _GraphCensus() as census:
+            found = {}
+            rec = _default_and_interpreter(
+                label, place, *build(remat), feed_of, need, counts=counts,
+                want=want, kinds=_FLASH_KINDS if counts else None,
+                init=init, gate_kinds=False,
+                after=(lambda exe: found.update(
+                    zip(("kinds", "kernels"), census.kernels(want))))
+                if counts else None)
+        if counts:
+            check(found["kinds"] == want, f"{label}: the captured graph "
+                  f"holds flash kernels {found['kinds']}, want {want}")
+            rec["graph_kernels"] = found
+        return rec
+
+    plain = one(f"{phase}_plain", False, want_plain)
+    init = plain.pop("init")
+    torch.cuda.empty_cache()
+    remat = one(phase, True, want_remat, init)
+    remat.pop("init")
+    plain["init"] = init
+    return plain, remat
+
+
+def _remat_record(plain, remat):
+    def one(r):
+        step_s = float(np.median(r["k_secs"][2:]))
+        g = r["graph"]
+        return {"losses": r["k_loss"], "ms_per_step": step_s * 1e3,
+                "step_s": r["k_secs"],
+                "device_ms": r["profile"]["device_ms"],
+                "device_idle_share":
+                    1.0 - r["profile"]["device_ms"] / (step_s * 1e3),
+                "kernels_per_step": r["profile"]["kernels"],
+                "peak_memory_bytes": g["peak_memory_bytes"],
+                "peak_over_base_bytes":
+                    g["peak_memory_bytes"] - r["base_memory_bytes"],
+                "peak_reserved_bytes": g["peak_reserved_bytes"],
+                "replay_peak_memory_bytes": g["replay_peak_memory_bytes"],
+                "capture_s": g["capture_s"], "cache": g["cache"],
+                "graphs": g["graphs"],
+                "by_group_ms": r["profile"]["by_group_ms"],
+                "by_group_top_kernels":
+                    r["profile"]["by_group_top_kernels"],
+                "interpreted_ms_per_step":
+                    float(np.median(r["i_secs"][1:])) * 1e3,
+                "interpreter_bit_equal": True}
+
+    p, r = one(plain), one(remat)
+    groups = set(p["by_group_ms"]) | set(r["by_group_ms"])
+    return {"plain": p, "remat": r,
+            "device_ms_added_by_group": {
+                g: r["by_group_ms"].get(g, 0.0) - p["by_group_ms"].get(g, 0.0)
+                for g in sorted(groups)},
+            "time_ratio": r["ms_per_step"] / p["ms_per_step"],
+            "peak_saved_bytes": p["peak_over_base_bytes"]
+            - r["peak_over_base_bytes"]}
+
+
+def remat_phase(card, place):
+    """Rematerialisation at full width: the train phase's LM (run_ridge,
+    bf16 amp, Momentum) and run_image's ResNet-50 (pure bf16, Momentum),
+    each without and with remat from the same states, G_STEPS steps in
+    the Executor's default mode (the remat build also interpreted: bit
+    for bit its replay).  Gates: each remat loss within one bf16 ulp of
+    the plain build's; the LM's weight changes within 15 %; the LM's
+    flash launches 2 forwards a layer (the forward and the segment
+    gradient's re-run) and one dQ, one dK/dV (the wrapper's autograd)
+    a step (12/12/12 without remat), by the wrappers on the eager run
+    and the capture and by the captured graph's kernel nodes;
+    ResNet-50's batch-norm running statistics carried out of the
+    segments: after one interpreted step from the same states they
+    equal the plain build's bit for bit (the same forward), after
+    G_STEPS every one has moved, and their distance to the plain
+    build's is recorded (pure-bf16 parameters round their updates, and
+    the explicit and autograd batch-norm gradients round differently);
+    then the same ResNet-50 in float64 (`_remat_stats_f64`), where the
+    running statistics after G_STEPS are held to the plain build's at
+    REMAT_STATS_F64_TOL -> the LM's flash counts."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    # the LM under amp
+    fluid.amp.enable_bf16()
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        def lm(remat):
+            built = _lm_program(fluid.Momentum(learning_rate=0.01,
+                                               momentum=0.9), remat=remat)
+            ops = built[0].global_block().ops
+            check([op.type for op in ops].count("recompute")
+                  == (T_LAYERS if remat else 0),
+                  f"remat_lm: {remat} build has the wrong segments")
+            return built
+
+        counts = _flash_counts()
+        n = T_LAYERS
+        plain, remat = _remat_pair(
+            "remat_lm", place, lm, _train_feed, ("flash_attention", "matmul"),
+            counts, {"fwd": n, "dq": n, "dkv": n},
+            {"fwd": 2 * n, "dq": n, "dkv": n})
+        weights = [k for k, v in remat["k_state"].items()
+                   if v.dim() == 2 and k in plain["k_state"]
+                   and not k.endswith("_velocity_0")
+                   and "velocity" not in k]
+        rel = _param_rel_diff(lambda nm: plain["k_state"][nm],
+                              plain["init"],
+                              {nm: remat["k_state"][nm] for nm in weights})
+        worst = max(rel, key=rel.get)
+        diff, lim, unit = _loss_check("remat_lm", remat["k_loss"],
+                                      plain["k_loss"], True)
+        check(rel[worst] <= PARAM_RTOL_BF16, f"remat_lm: weight {worst} "
+              f"moved {rel[worst]} apart with and without remat")
+        lm_rec = _remat_record(plain, remat)
+        lm_rec.update({"loss_diff": diff, "loss_limit": lim,
+                       "loss_diff_unit": unit,
+                       "weight_change_rel_diff": {
+                           "max": rel[worst], "argmax": worst,
+                           "n_weights": len(rel), "limit": PARAM_RTOL_BF16},
+                       "flash_launches_per_step": {
+                           "plain": plain["k_steps"][0],
+                           "remat": remat["k_steps"][0]},
+                       "flash_replayed_per_step":
+                           remat["profile"]["kind_counts"],
+                       "flash_graph_kernels": {
+                           "plain": plain["graph_kernels"],
+                           "remat": remat["graph_kernels"]}})
+        out["lm"] = lm_rec
+        flash = {"per_step": remat["k_steps"][0],
+                 "replayed_per_step": remat["profile"]["kind_counts"],
+                 "graph_per_step": remat["graph_kernels"]["kinds"]}
+        del plain, remat
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        fluid.amp.disable_bf16()
+        torch.cuda.empty_cache()
+
+    # ResNet-50, pure bf16
+    prev_scope = executor_mod.switch_scope(Scope())
+    try:
+        feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "bfloat16")
+
+        programs = {}
+
+        def rn(remat):
+            built = _image_program(f"resnet{R_DEPTH}", R_IMG, R_CLASSES,
+                                   "bfloat16", remat=remat)
+            check([op.type for op in built[0].global_block().ops].count(
+                "recompute") == (16 if remat else 0),
+                f"remat_resnet50: {remat} build has the wrong segments")
+            programs[remat] = built
+            return built
+
+        plain, remat = _remat_pair(
+            "remat_resnet50", place, rn, lambda step: feed,
+            ("conv_fwd", "conv_dgrad", "conv_wgrad", "pooling"))
+        diff, lim, unit = _loss_check("remat_resnet50", remat["k_loss"],
+                                      plain["k_loss"], True)
+        stats = sorted(k for k in remat["k_state"]
+                       if k.endswith(".mean_0") or k.endswith(".var_0")
+                       or k.endswith("_mean") or k.endswith("_variance"))
+        check(stats, "remat_resnet50: no running statistics found")
+        first = {}
+        scope = fluid.global_scope()
+        for flag, (main, _, loss) in programs.items():
+            for k in plain["init"]:
+                scope.set_var(k, plain["init"][k].clone())
+            exe = fluid.Executor(place, seed=SEED)
+            exe.run(main, feed=feed, fetch_list=[loss], compiled=False)
+            first[flag] = {k: scope.find_var(k).clone() for k in stats}
+            exe.close()
+        unequal = [k for k in stats if not torch.equal(first[True][k],
+                                                       first[False][k])]
+        check(not unequal, f"remat_resnet50: after one step {len(unequal)} "
+              f"running statistics differ from the plain build's: "
+              f"{unequal[:4]}")
+        del first, programs
+        worst, moved = 0.0, 0
+        for k in stats:
+            got, want = remat["k_state"][k].float(), plain["k_state"][k].float()
+            m = max(1.0, float(want.abs().max()))
+            worst = max(worst, float((got - want).abs().max()) / m)
+            moved += bool((got != plain["init"][k].float()).any())
+        check(moved == len(stats), f"remat_resnet50: only {moved} of "
+              f"{len(stats)} running statistics moved")
+        rn_rec = _remat_record(plain, remat)
+        rn_rec.update({"loss_diff": diff, "loss_limit": lim,
+                       "loss_diff_unit": unit,
+                       "running_stats": {
+                           "n": len(stats), "moved": moved,
+                           "first_step_bit_equal": True,
+                           "after_steps_max_diff_of_max_plain": worst}})
+        out["resnet50"] = rn_rec
+        del plain, remat
+    finally:
+        executor_mod.switch_scope(prev_scope)
+        torch.cuda.empty_cache()
+    out["resnet50"]["float64"] = _remat_stats_f64(place)
+    emit({"phase": "remat", "card": card,
+          "phase_s": time.perf_counter() - phase_t0,
+          "lm": {"source": "benchmark/run_ridge.py:136-143 (vocab 30000, "
+                           "d 2048, 16 heads, 12 layers, seq 512, batch 8, "
+                           "bf16 amp, Momentum)", **out["lm"]},
+          "resnet50": {"source": "benchmark/run_image.py:42-66 (224, "
+                                 "batch 128, bf16, Momentum)",
+                       **out["resnet50"]},
+          "timing": "host clock around exe.run + synchronize, the median "
+                    "of the replayed steps (3..N); peak_over_base_bytes "
+                    "the allocated peak over the default mode's steps (its "
+                    "eager run, its capture and replays) less what was "
+                    "allocated before them; device time from one profiled "
+                    "replay"})
+    return flash
+
+
+# float64 ResNet-50, remat against plain after G_STEPS: the running
+# statistics' largest distance over max(1, |plain|).  The two builds
+# differ only in how their gradients round (autograd against the
+# explicit batch-norm gradient), and these steps (one batch again and
+# again from random weights) amplify a difference by orders of
+# magnitude a step, so in bf16 and float32 the statistics part by
+# rounding; a wrong gradient or a statistic written twice would show
+# in float64 too
+REMAT_STATS_F64_TOL = 1e-6
+
+
+def _remat_stats_f64(place):
+    """run_image's ResNet-50 (224, batch 128, Momentum) in float64,
+    without and with remat from the same states, G_STEPS default-mode
+    steps each (the eager run, the capture, replays) -> the losses, the
+    ms of a replayed step, and the running statistics' largest distance
+    to the plain build's over max(1, |plain|), held at
+    REMAT_STATS_F64_TOL; every statistic must have moved."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "float32")
+    feed["img"] = feed["img"].double()
+    runs, init = {}, None
+    for remat in (False, True):
+        prev = executor_mod.switch_scope(Scope())
+        exe = None
+        try:
+            main, startup, loss = _image_program(
+                f"resnet{R_DEPTH}", R_IMG, R_CLASSES, "float64",
+                remat=remat)
+            persist = _persistables(main)
+            scope = fluid.global_scope()
+            exe = fluid.Executor(place, seed=SEED)
+            if init is None:
+                exe.run(startup)
+                init = {n: scope.find_var(n).clone() for n in persist}
+            else:
+                for n in persist:
+                    scope.set_var(n, init[n].clone())
+            losses, secs = [], []
+            for _ in range(G_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(np.asarray(exe.run(
+                    main, feed=feed, fetch_list=[loss])[0]).reshape(-1)[0]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            check(exe.graph_stats()["captures"] == 1,
+                  f"remat_resnet50_f64: {exe.graph_stats()}")
+            stats = sorted(n for n in persist
+                           if n.endswith(".mean_0") or n.endswith(".var_0")
+                           or n.endswith("_mean")
+                           or n.endswith("_variance"))
+            runs[remat] = {"losses": losses,
+                           "ms_per_step": float(np.median(secs[2:])) * 1e3,
+                           "stats": {n: scope.find_var(n).clone()
+                                     for n in stats}}
+        finally:
+            if exe is not None:
+                exe.close()
+            executor_mod.switch_scope(prev)
+            torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    check(plain["stats"] and set(plain["stats"]) == set(remat["stats"]),
+          "remat_resnet50_f64: the builds' running statistics differ in "
+          "name")
+    worst, argmax, moved = 0.0, None, 0
+    for n, want in plain["stats"].items():
+        got = remat["stats"][n]
+        d = float((got - want).abs().max()) / max(1.0,
+                                                  float(want.abs().max()))
+        if d >= worst:
+            worst, argmax = d, n
+        moved += bool((got != init[n]).any())
+    check(moved == len(plain["stats"]), f"remat_resnet50_f64: only {moved} "
+          f"of {len(plain['stats'])} running statistics moved")
+    check(worst <= REMAT_STATS_F64_TOL, f"remat_resnet50_f64: running "
+          f"statistic {argmax} lies {worst} of max(1, |plain|) from the "
+          f"plain build's, limit {REMAT_STATS_F64_TOL}")
+    return {"losses": {"plain": plain["losses"], "remat": remat["losses"]},
+            "ms_per_step": {"plain": plain["ms_per_step"],
+                            "remat": remat["ms_per_step"]},
+            "running_stats": {"n": len(plain["stats"]), "moved": moved,
+                              "after_steps_max_diff_of_max_plain": worst,
+                              "argmax": argmax,
+                              "limit": REMAT_STATS_F64_TOL}}
+
+
+# -- memory_plan phase (A4b): the compiled mode's frees, the flag ------------
+
+def _replay_peak(place, build, feed_of, steps=4):
+    """`build()` -> (main, startup, loss): its startup, then `steps`
+    default-mode steps (the eager miss, the capture, replays) -> the
+    allocated peak over them less what the states held before, the
+    reserved peak, and the median replayed step's ms."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev = executor_mod.switch_scope(Scope())
+    exe = None
+    try:
+        main, startup, loss = build()
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(startup)
+        torch.cuda.synchronize()
+        _reset_peak()
+        base = torch.cuda.memory_allocated()
+        secs = []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed_of(step), fetch_list=[loss])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(exe.graph_stats()["captures"] == 1,
+              f"memory_plan: {exe.graph_stats()}")
+        return {"peak_over_base_bytes":
+                    torch.cuda.max_memory_allocated() - base,
+                "base_bytes": base,
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                "ms_per_replay": float(np.median(secs[2:])) * 1e3}
+    finally:
+        if exe is not None:
+            exe.close()
+        executor_mod.switch_scope(prev)
+        torch.cuda.empty_cache()
+
+
+def memory_plan_steps(place):
+    """The replayed train (amp), seq2seq (amp) and resnet50 steps'
+    peaks (`_replay_peak`), the package's frees as they stand."""
+    import paddle_tpu_torch as fluid
+
+    out = {}
+    fluid.amp.enable_bf16()
+    try:
+        out["train"] = _replay_peak(place, lambda: _lm_program(
+            fluid.Momentum(learning_rate=0.01, momentum=0.9)), _train_feed)
+        feed = _s2s_feed()
+        out["seq2seq"] = _replay_peak(place, _s2s_program,
+                                      lambda step: feed)
+    finally:
+        fluid.amp.disable_bf16()
+    feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "bfloat16")
+    out["resnet50"] = _replay_peak(place, lambda: _image_program(
+        f"resnet{R_DEPTH}", R_IMG, R_CLASSES, "bfloat16"),
+        lambda step: feed)
+    return out
+
+
+def memory_plan_phase(card, place):
+    """The compiled mode drops each value after its last reader (inside
+    a CUDA-graph capture too): the replayed steps' peaks as they stand
+    (`memory_plan_steps`; the same steps with the frees taken out are
+    `tools/torch_tree_probe.py memory-plan`).  Then the `memory_optimize`
+    flag on the interpreted ResNet-50: 2 steps with it off and on from
+    the same states, peak memory and ms a step, the parameters, velocities
+    and running statistics bit-equal."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.core.scope import Scope
+
+    phase_t0 = time.perf_counter()
+    steps = memory_plan_steps(place)
+    main, startup, loss = _image_program(f"resnet{R_DEPTH}", R_IMG,
+                                         R_CLASSES, "bfloat16")
+    feed = _image_feed(R_BATCH, R_IMG, R_CLASSES, "bfloat16")
+    persist = _persistables(main)
+    prev = executor_mod.switch_scope(Scope())
+    runs = {}
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(startup)
+        init = {n: scope.find_var(n).clone() for n in persist}
+        exe.close()
+        for flag in (False, True):
+            set_flags({"memory_optimize": flag})
+            for n in persist:
+                scope.set_var(n, init[n].clone())
+            exe = fluid.Executor(place, seed=SEED)
+            _reset_peak()
+            base = torch.cuda.memory_allocated()
+            losses, secs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            compiled=False)[0].reshape(-1)[0]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            runs[flag] = {"losses": losses, "step_s": secs,
+                          "ms_per_step": secs[-1] * 1e3,
+                          "peak_over_base_bytes":
+                              torch.cuda.max_memory_allocated() - base,
+                          "state": {n: scope.find_var(n).clone()
+                                    for n in persist}}
+            exe.close()
+    finally:
+        set_flags({"memory_optimize": False})
+        executor_mod.switch_scope(prev)
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    check(off["losses"] == on["losses"], f"memory_plan: losses with the "
+          f"flag {on['losses']} differ from without it {off['losses']}")
+    diff = [n for n in persist if not torch.equal(off["state"][n],
+                                                  on["state"][n])]
+    check(not diff, f"memory_plan: {len(diff)} states differ with the "
+          f"memory_optimize flag: {diff[:5]}")
+    for r in runs.values():
+        r.pop("state")
+    emit({"phase": "memory_plan", "card": card,
+          "phase_s": time.perf_counter() - phase_t0,
+          "replayed_steps_with_frees": steps,
+          "interpreted_resnet50": {
+              "source": "benchmark/run_image.py:42-66 (224, batch 128, "
+                        "bf16, Momentum), interpreted, 2 steps",
+              "memory_optimize_off": off, "memory_optimize_on": on,
+              "states_bit_equal": True, "n_states": len(persist)},
+          "timing": "peak_over_base_bytes: the allocated peak over the "
+                    "steps less what the states held before them; the "
+                    "replayed steps' ms the median of steps 3..4; the "
+                    "interpreted ms the second step's"})
+    return steps
+
+
+# -- generate phase (A6): the generation builders ----------------------------
+
+def _gen_states(shapes, seed):
+    """Seeded float32 parameters that make the next-token choice
+    decisive: variance-keeping weights (N(0, 1/fan_in)), unit
+    embeddings, layer-norm scales 1 and biases 0, so the logits spread
+    about 1 (the startup's 0.02-scale tables give near-uniform
+    softmaxes, whose argmax a reordered sum flips)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    names = sorted(shapes)
+    for n in names:
+        shape = shapes[n]
+        if "layer_norm" in n:
+            v = np.ones(shape) if n.endswith(".w_0") else np.zeros(shape)
+        elif len(shape) == 2 and shape[0] == GEN_VOCAB or "embedding" in n:
+            v = rng.normal(0.0, 1.0, shape)
+        elif len(shape) == 2:
+            v = rng.normal(0.0, 1.0 / np.sqrt(shape[0]), shape)
+        else:
+            v = rng.normal(0.0, 0.02, shape)
+        out[n] = v.astype(np.float32)
+    return out
+
+
+def _sync_calls(fn):
+    """`fn()` under torch's sync debug mode -> (its result, how many
+    synchronising calls it made: cudaStreamSynchronize, a device-to-host
+    read, a .item())."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # each synchronising call warns "called a synchronizing CUDA
+    # operation"; setting the mode warns once that it is a prototype
+    return res, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def _decode_timed(fn, tokens, warm):
+    """`fn()` once warm (after `warm()`, a short decode of the same
+    shapes: the forward's graph is captured at its second call, the kv
+    step's at the first) -> (result, ms, ms a token, host syncs)."""
+    warm()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, syncs = _sync_calls(fn)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    return res, ms, ms / tokens, syncs
+
+
+def _kernels_per_call(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total)
+
+
+def _gen_verdict(got, want, probs):
+    """Card ids `got` against the CPU's `want` [B, L]: equal, or each
+    differing row's first differing position a near tie of the CPU's
+    own distribution there (top-2 gap within GEN_TIE_RTOL of the top)
+    -> (ok, the differing rows' (row, position, gap))."""
+    got, want = np.asarray(got), np.asarray(want)
+    rows = []
+    for b in np.flatnonzero((got != want).any(axis=1)):
+        t = int(np.flatnonzero(got[b] != want[b])[0])
+        p = np.sort(probs[b, t - 1])[::-1]
+        rows.append((int(b), t, float((p[0] - p[1]) / p[0])))
+    return all(g <= GEN_TIE_RTOL for _, _, g in rows), rows
+
+
+def generate_phase(card, place):
+    """run_generation's three decoders at its defaults (full_forward:
+    the fixed-width LM re-run a token, its forward one replayed CUDA
+    graph; kv_cache: dense K/V caches, one captured step replayed a
+    position; beam_search_k4), timed once warm: tokens/s, ms and
+    kernels a token, host syncs a token (torch's sync debug mode;
+    gated at zero).  kv_cache's greedy ids equal full_forward's; at 2
+    layers and 64 steps the card's full_forward and kv_cache ids equal
+    the CPU's kv_cache ids but at the CPU's near ties; then the
+    translate generator at run_seq2seq's widths, 127 steps."""
+    from paddle_tpu_torch import CPUPlace
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models import transformer as tr
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    prompt = torch.as_tensor(rng.randint(0, GEN_VOCAB,
+                                         (GEN_BATCH, GEN_PROMPT)),
+                             device=dev)
+    kw = dict(d_model=GEN_D, n_heads=GEN_HEADS, n_layers=GEN_LAYERS)
+    fw.reset_unique_names()
+    _, full = tr.build_lm_generator(GEN_VOCAB, GEN_CTX, place=place, **kw)
+    fw.reset_unique_names()
+    _, kv = tr.build_lm_kv_decoder(GEN_VOCAB, GEN_CTX, place=place, **kw)
+    fw.reset_unique_names()
+    _, beam = tr.build_lm_beam_search(GEN_VOCAB, GEN_CTX,
+                                      beam_size=GEN_BEAM, place=place, **kw)
+    states = {n: torch.as_tensor(v, device=dev) for n, v in
+              _gen_states(kv.state_shapes, SEED).items()}
+    rows = {}
+    runs = (("full_forward", lambda: full(states, prompt, GEN_STEPS),
+             GEN_STEPS),
+            ("kv_cache", lambda: kv(states, prompt, GEN_STEPS), GEN_STEPS),
+            (f"beam_search_k{GEN_BEAM}",
+             lambda: beam(states, prompt, GEN_BEAM_STEPS), GEN_BEAM_STEPS))
+    ids = {}
+    for name, fn, steps in runs:
+        short = {"full_forward": lambda n: full(states, prompt, n),
+                 "kv_cache": lambda n: kv(states, prompt, n)}.get(
+            name, lambda n: beam(states, prompt, n))
+        res, ms, ms_tok, syncs = _decode_timed(fn, steps, lambda: short(2))
+        ids[name] = res[0] if isinstance(res, tuple) else res
+        check(syncs == 0, f"generate {name}: {syncs} host syncs in "
+              f"{steps} steps")
+        k8 = _kernels_per_call(lambda: short(8))
+        rows[name] = {"steps": steps, "ms": ms, "ms_per_token": ms_tok,
+                      "tokens_per_s": GEN_BATCH * steps / (ms / 1e3),
+                      "host_syncs_per_token": syncs / steps,
+                      "kernels_per_token_8_steps": k8 / 8}
+    if torch.equal(ids["kv_cache"], ids["full_forward"]):
+        kv_diff = []
+    else:
+        probs = full.forward({"gen_ids": ids["full_forward"]}, states)[0]
+        ok, kv_diff = _gen_verdict(ids["kv_cache"].cpu(),
+                                      ids["full_forward"].cpu(),
+                                      next(iter(probs.values())).cpu()
+                                      .numpy())
+        check(ok, f"generate: kv_cache's greedy ids differ from "
+              f"full_forward's beyond near ties: {kv_diff}")
+    rows["full_forward"]["graph"] = dict(full.forward.stats)
+    rows[f"beam_search_k{GEN_BEAM}"]["graph"] = dict(beam.forward.stats)
+    rows["kv_cache"]["graphs"] = len(kv.graphs)
+    rows["kv_cache_vs_full_forward"] = {"equal": not kv_diff,
+                                        "near_tie_rows": kv_diff}
+    del full, kv, beam, ids
+    torch.cuda.empty_cache()
+
+    # card vs CPU at a cut depth
+    cut = dict(kw, n_layers=GEN_CPU_LAYERS)
+    built = {}
+    for name, builder, where in (
+            ("full_card", tr.build_lm_generator, place),
+            ("kv_card", tr.build_lm_kv_decoder, place),
+            ("kv_cpu", tr.build_lm_kv_decoder, CPUPlace()),
+            ("full_cpu", tr.build_lm_generator, CPUPlace())):
+        fw.reset_unique_names()
+        built[name] = builder(GEN_VOCAB, GEN_CTX, place=where, **cut)[1]
+    cpu_states = _gen_states(built["kv_cpu"].state_shapes, SEED + 1)
+    card_states = {n: torch.as_tensor(v, device=dev)
+                   for n, v in cpu_states.items()}
+    t0 = time.perf_counter()
+    want = built["kv_cpu"](cpu_states, prompt.cpu(), GEN_CPU_STEPS)
+    cpu_s = time.perf_counter() - t0
+    probs = None
+    verdicts = {}
+    for name in ("full_card", "kv_card"):
+        got = built[name](card_states, prompt, GEN_CPU_STEPS).cpu()
+        if not torch.equal(got, want) and probs is None:
+            probs = built["full_cpu"].forward(
+                {"gen_ids": want}, {n: torch.as_tensor(v) for n, v in
+                                    cpu_states.items()})[0]
+            probs = next(iter(probs.values())).numpy()
+        ok, diff = ((True, []) if torch.equal(got, want)
+                    else _gen_verdict(got, want, probs))
+        check(ok, f"generate card vs CPU: {name} differs from the CPU "
+              f"beyond near ties: {diff}")
+        verdicts[name] = {"equal": not diff, "near_tie_rows": diff}
+    del built
+    torch.cuda.empty_cache()
+
+    # the translate generator at run_seq2seq's transformer
+    fw.reset_unique_names()
+    _, translate = tr.build_translate_generator(
+        S_VOCAB, S_VOCAB, S_LEN, S_LEN, d_model=S_D, n_heads=S_HEADS,
+        n_layers=S_LAYERS, place=place)
+    shapes = {}
+    for n in translate.state_names:
+        v = translate.forward.program.global_block().var(n)
+        shapes[n] = tuple(int(d) for d in v.shape)
+    t_states = {n: torch.as_tensor(v, device=dev) for n, v in
+                _gen_states(shapes, SEED + 2).items()}
+    src = torch.as_tensor(rng.randint(2, S_VOCAB, (S_BATCH, S_LEN)),
+                          device=dev)
+    tgt, ms, ms_tok, syncs = _decode_timed(
+        lambda: translate(t_states, src, S_LEN - 1), S_LEN - 1,
+        lambda: translate(t_states, src, 2))
+    check(syncs == 0, f"generate translate: {syncs} host syncs")
+    check(bool((tgt[:, 0] == 0).all()) and tgt.shape == (S_BATCH, S_LEN),
+          "generate translate: bad output")
+    rows["translate"] = {"steps": S_LEN - 1, "ms": ms,
+                         "ms_per_token": ms_tok,
+                         "tokens_per_s": S_BATCH * (S_LEN - 1) / (ms / 1e3),
+                         "host_syncs_per_token": syncs / (S_LEN - 1),
+                         "graph": dict(translate.forward.stats)}
+    del translate, t_states
+    torch.cuda.empty_cache()
+    emit({"phase": "generate", "card": card,
+          "phase_s": time.perf_counter() - phase_t0,
+          "source": "benchmark/run_generation.py:22-33 defaults (vocab "
+                    "32000, ctx 512, prompt 16, d 512, 6 layers, 8 heads, "
+                    "batch 8, beam 4, float32); translate: "
+                    "benchmark/run_seq2seq.py:39-60 (d 512, 8 heads, 6 + 6 "
+                    "layers, vocab 30000, lengths 128, batch 32), float32",
+          "decoders": rows,
+          "card_vs_cpu": {"layers": GEN_CPU_LAYERS, "steps": GEN_CPU_STEPS,
+                          "cpu_kv_s": cpu_s, **verdicts},
+          "timing": "CUDA events around one warm call (its ids on the "
+                    "card); host syncs counted by torch's sync debug mode "
+                    "over that call; kernels a token from torch.profiler "
+                    "over an 8-step call"})
+    return rows
+
+
+# -- image_serve phase (A6): InferenceServer ---------------------------------
+
+def image_serve_phase(card, place):
+    """benchmark/run_image.py:154-204's serve_one for ResNet-50 (bf16):
+    an InferenceServer over the pruned inference Program, buckets (1, 2,
+    4, 8, 16) captured at construction, window 0.3 ms; 30 single-stream
+    requests, then 256 concurrent ones.  The served value is the
+    classifier's logits (the softmax's input: at random init with unit
+    running variances the softmax saturates to one class for every
+    image, which would hide a result delivered to the wrong request).
+    Every result is held to the Executor's run of the same image (the
+    default mode, batch 1) within SRV_ULPS bf16 ulps of max|reference|
+    a row, and that reference is the nearest of all the images' to it
+    in the L2 norm (a result delivered to the wrong request is nearer
+    another's: the random network's logits differ between images by a
+    few ulps in their largest entries, but in every entry, where
+    rounding flips touch a few); no capture happens after
+    construction."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.io import prune
+    from paddle_tpu_torch.serving import InferenceServer
+
+    phase_t0 = time.perf_counter()
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, R_IMG, R_IMG],
+                                dtype="bfloat16")
+        probs = fluid.models.resnet_imagenet(img, class_dim=R_CLASSES,
+                                             depth=R_DEPTH)
+    soft, = [op for op in main.global_block().ops
+             if op.type == "softmax" and op.output("Out") == [probs.name]]
+    predict = main.global_block().var(soft.input("X")[0])
+    infer = prune(main, [predict], for_test=True)
+    scope = Scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    pool = [torch.from_numpy(rng.rand(1, 3, R_IMG, R_IMG).astype(
+        np.float32)).to(torch.bfloat16)
+        for _ in range(3 + SRV_SINGLE + SRV_CONCURRENT)]
+    warm, single = pool[:3], pool[3:3 + SRV_SINGLE]
+    reqs = pool[3 + SRV_SINGLE:]
+    t0 = time.perf_counter()
+    srv = InferenceServer(infer, "img", predict, scope, place=place,
+                          buckets=SRV_BUCKETS, window_ms=SRV_WINDOW_MS)
+    build_s = time.perf_counter() - t0
+    try:
+        built = srv.graph_stats()
+        for q in warm:
+            srv.submit(q).result(timeout=120)
+        t0 = time.perf_counter()
+        single_out = [srv.submit(q).result(timeout=120) for q in single]
+        single_ms = (time.perf_counter() - t0) / SRV_SINGLE * 1e3
+        d0 = srv.stats()["dispatches"]
+        t0 = time.perf_counter()
+        futs = [srv.submit(q) for q in reqs]
+        conc_out = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+        after = srv.graph_stats()
+    finally:
+        srv.close()
+    check(after["captures"] == built["captures"] == len(SRV_BUCKETS)
+          and after["eager_runs"] == built["eager_runs"],
+          f"image_serve: graphs {built} at construction, {after} after")
+    wants = [exe.run(infer, feed={"img": q}, fetch_list=[predict],
+                     scope=scope)[0] for q in single + reqs]
+    exe.close()
+    refs = np.concatenate(wants).astype(np.float64)
+    worst, cross, misplaced = 0.0, np.inf, 0
+    for i, got in enumerate(single_out + conc_out):
+        diff = refs - np.asarray(got, np.float64)
+        top = float(np.abs(refs[i]).max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        worst = max(worst, float(np.abs(diff[i]).max()) / ulp)
+        l2 = np.sqrt((diff * diff).sum(axis=1))
+        cross = min(cross, float(np.delete(l2, i).min() / max(l2[i], ulp)))
+        misplaced += int(np.argmin(l2) != i)
+    check(worst <= SRV_ULPS, f"image_serve: a result is {worst} bf16 ulps "
+          f"of max|reference| from the Executor's (limit {SRV_ULPS})")
+    check(not misplaced, f"image_serve: {misplaced} results are nearer "
+          "another image's reference than their own")
+    dispatches = stats["dispatches"] - d0
+    emit({"phase": "image_serve", "card": card,
+          "phase_s": time.perf_counter() - phase_t0,
+          "source": "benchmark/run_image.py:154-204 serve_one (resnet50, "
+                    "224, bf16, buckets (1, 2, 4, 8, 16), window 0.3 ms, "
+                    "30 single-stream and 256 concurrent requests)",
+          "construction_s": build_s, "graphs_at_construction": built,
+          "graphs_after": after,
+          "single_stream_ms": single_ms,
+          "requests_per_s": SRV_CONCURRENT / wall,
+          "concurrent_wall_s": wall, "dispatches": dispatches,
+          "mean_batch": SRV_CONCURRENT / dispatches, "stats": stats,
+          "max_err_bf16_ulps": worst, "limit_bf16_ulps": SRV_ULPS,
+          "min_l2_to_another_over_l2_to_own": cross,
+          "nearest_reference_is_own": True,
+          "timing": "host clock: single-stream the mean of 30 submit -> "
+                    "result round trips; requests_per_s 256 requests "
+                    "submitted at once until the last result"})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6968,6 +7907,10 @@ def main():
     ssd_phase(card, CUDAPlace(0), peaks)
     ocr_ctc_phase(card, CUDAPlace(0))
     readers_phase(card, CUDAPlace(0))
+    remat_flash = remat_phase(card, CUDAPlace(0))
+    memory_plan_phase(card, CUDAPlace(0))
+    generate_phase(card, CUDAPlace(0))
+    image_serve_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -7012,6 +7955,18 @@ def main():
                                      "wrappers' count over its path is "
                                      "launches_seq2seq_wrapper",
             "launches_seq2seq_wrapper": s2s_launches[kind],
+            "launches_remat_per_step": remat_flash["per_step"][kind],
+            "replayed_remat_per_step":
+                remat_flash["replayed_per_step"][kind],
+            "graph_remat_per_step": remat_flash["graph_per_step"][kind],
+            "launches_remat_note": "the remat phase's LM (every decoder "
+                                   "block a recompute segment): the "
+                                   "wrappers' count a step on its eager "
+                                   "run and on its capture, and the "
+                                   "captured graph's kernel nodes, which "
+                                   "every replay launches (both held); "
+                                   "the profiler's reading of one "
+                                   "replayed step (read, not held)",
             "max_abs_err": per_case["bf16_causal"]["max_abs_err"],
             **{k: main_case[kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")},

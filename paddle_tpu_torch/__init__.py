@@ -30,7 +30,10 @@ and the DataFeeder; control flow, tensor arrays and beam search; the
 linear-chain CRF ops with chunk_eval, and `io`'s inference pruning;
 CTC (ops/ctc.py), hsigmoid and nce (ops/sampling.py), the SSD detection
 ops and layers (ops/detection.py, layers/detection.py) and the reader
-ops (ops/reader.py).
+ops (ops/reader.py); rematerialised segments (`layers.recompute`) and
+the memory layer (`memory_optimize`, memory_optimization_transpiler.py,
+the compiled mode's frees); `program_to_fn`, the generation builders
+(models/transformer.py) and the one-shot `InferenceServer` (serving/).
 """
 from . import (  # noqa: F401
     amp,
@@ -63,6 +66,7 @@ from .core import (  # noqa: F401
 )
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
+from .memory_optimization_transpiler import memory_optimize  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
 from .core.lod import SelectedRows, Tensor  # noqa: F401
 from .core.scope import Scope  # noqa: F401

@@ -69,7 +69,7 @@ from .lod import LoDTensor, SelectedRows, TensorArray
 from .scope import Scope, tensor_from_numpy
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_place", "Executor",
-           "global_scope", "scope_guard", "switch_scope"]
+           "global_scope", "scope_guard", "switch_scope", "program_to_fn"]
 
 
 class CPUPlace:
@@ -278,15 +278,32 @@ def _ptr(t) -> int:
     return t.untyped_storage().data_ptr()
 
 
+def _sub_names(program) -> frozenset:
+    """Every name a sub-block of `program` references."""
+    from ..memory_optimization_transpiler import _sub_block_names
+
+    return frozenset(_sub_block_names(program))
+
+
+def _bounded_put(cache: Dict, key, value, cap: int = 256):
+    """Insert into a plan cache, dropping the oldest entry past `cap`."""
+    if key not in cache and len(cache) >= cap:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
 class _Plan:
     """A run of ops resolved once (`resolve_op`: what `run_op` looks up
     at every call), with the names the run reads before writing them
     (`reads`), the names it writes (`writes`), the last op reading each
-    name, the names each op writes for the last time (`finals`) and the
-    program's persistable names (`persistable`)."""
+    name, the names each op writes for the last time (`finals`), the
+    program's persistable names (`persistable`) and the names its
+    sub-blocks reference (`sub_names`: a sub-block op reads them through
+    its context's env, so they are never dropped early)."""
 
-    def __init__(self, ops, persistable=frozenset()):
+    def __init__(self, ops, persistable=frozenset(), sub_names=frozenset()):
         self.persistable = persistable
+        self.sub_names = sub_names
         self.steps, self.reads, self.writes = [], [], []
         self.last_read, last_write = {}, {}
         self.at = None  # index of the op running (capture errors name it)
@@ -311,6 +328,19 @@ class _Plan:
         self.finals = {}
         for n, i in last_write.items():
             self.finals.setdefault(i, []).append(n)
+
+    def dead_after(self, keep) -> Dict[int, list]:
+        """{op index: names} a run may drop right after that op: each
+        name at the last op that reads or writes it, unless it is in
+        `keep` (the values the run hands back), persistable (a state),
+        or referenced by a sub-block.  The compiled mode's counterpart
+        of XLA reusing a dead buffer inside a compiled block: inside a
+        CUDA-graph capture the dropped memory goes back to the graph's
+        pool, and later ops of the same capture reuse it."""
+        from ..memory_optimization_transpiler import dead_frees
+
+        return dead_frees([s[0] for s in self.steps],
+                          set(keep) | self.persistable | self.sub_names)
 
     def write_through(self, bufs, keep):
         """-> an `after` for run() (a capture's): donation, the JAX
@@ -340,21 +370,46 @@ class _Plan:
             env[n] = b
             self.through_bytes += b.numel() * b.element_size()
 
-    def run(self, ctx, env: Dict, after=None) -> Dict:
+    def run(self, ctx, env: Dict, after=None, frees=None) -> Dict:
         """Run every op against the dict `env`, updated in place;
         `after(i, names, env)` runs after each op i that writes `names`
-        for the last time (a state can then be published or donated)."""
+        for the last time (a state can then be published or donated);
+        then the names `frees[i]` (`dead_after`) leave `env`."""
         self.at, self.through_bytes = None, 0
         denv = DictEnv()
         denv.d = env    # the dict itself: what the caller holds is the env
+        frees = frees or {}
         for i, (op, fn, attrs, tag) in enumerate(self.steps):
             self.at = i
             scatter_outputs(op, denv, fn(op_context(ctx, op, denv, tag),
                                          gather_inputs(op, env), attrs))
             if after is not None and i in self.finals:
                 after(i, self.finals[i], env)
+            for n in frees.get(i, ()):
+                env.pop(n, None)
         self.at = None
         return env
+
+
+def _op_is_host(op, device) -> bool:
+    """Whether `op` runs eagerly between device segments: a host op
+    (`while`, `conditional_block`, the tensor-array and beam-search
+    ops), an op placed on the CPU, a random op on a card, or an op with
+    any such op in its sub-block, at any depth of nesting (a
+    `dynamic_rnn` or `recompute` whose block holds a `print` or, on a
+    card, a dropout)."""
+    try:
+        info = registry.get_op_info(op.type)
+    except KeyError:
+        return True
+    if info.host or op.attrs.get("force_cpu"):
+        return True
+    if info.random and device.type == "cuda":
+        # the op's generator is seeded from (seed, run, op): a graph
+        # would replay the captured draws every run
+        return True
+    sub = op.sub_block() if "sub_block" in op.attrs else None
+    return sub is not None and any(_op_is_host(o, device) for o in sub.ops)
 
 
 def _input_buffers(vals, where):
@@ -426,19 +481,23 @@ class _Entry:
     (`tables`, the ExecContext's: built at the miss, read by the
     capture) and, on a CUDA place after its first hit, the CUDA graph
     it was captured into.  `outputs` names the values a graph must keep
-    (fetches, written states, a segment's writes)."""
+    (fetches, written states, a segment's writes); every other value a
+    run drops after its last reader (`frees`: _Plan.dead_after)."""
 
     def __init__(self, plan: _Plan, outputs):
         self.plan = plan
         self.outputs = list(dict.fromkeys(outputs))
+        self.frees = plan.dead_after(self.outputs)
         self.tables = {}
         self.graph = self.bufs = self.outs = self.lods = self.sparse = None
         self.write_back_bytes = 0
 
-    def capture(self, ctx, vals, where):
+    def capture(self, ctx, vals, where, donate=True):
         """Capture the plan into a CUDA graph with `vals` as its inputs,
         then replay it once -> (outputs, {name: buffer} of the inputs the
-        caller must rebind to the buffer the graph reads)."""
+        caller must rebind to the buffer the graph reads).  With
+        `donate=False` the graph writes no input buffer (no state is
+        copied back into the buffer it was read from)."""
         bufs, lods, sparse, rebind = _input_buffers(vals, where)
         graph, failed = torch.cuda.CUDAGraph(), []
         try:
@@ -447,10 +506,12 @@ class _Entry:
                     env = self.plan.run(
                         ctx, {**{n: _rewrap(b, lods[n])
                                  for n, b in bufs.items()}, **sparse},
-                        self.plan.write_through(bufs, self.outputs))
+                        self.plan.write_through(bufs, self.outputs)
+                        if donate else None, self.frees)
                     outs = {n: env[n] for n in self.outputs if n in env}
-                    self.write_back_bytes = (self.plan.through_bytes
-                                             + self._write_back(bufs, outs))
+                    self.write_back_bytes = (
+                        self.plan.through_bytes
+                        + self._write_back(bufs, outs)) if donate else 0
                 except BaseException as e:
                     failed.append(e)
                     raise
@@ -544,6 +605,12 @@ class Executor:
         self._m_recompiles = _M_RECOMPILES.labels(exe=self._exe_id)
         self._m_entries = _M_ENTRIES.labels(exe=self._exe_id)
         self._warm_fps: set = set()
+        # the memory layer's cached plans (memory_optimization_transpiler):
+        # the rename pass's clones, the dead-value frees and the donation
+        # checks, each per (program, feeds, fetches)
+        self._memopt_cache: Dict = {}
+        self._free_plans: Dict = {}
+        self._donation_plans: Dict = {}
         self._graph_stats = {"captures": 0, "replays": 0, "eager_hits": 0,
                              "capture_s": 0.0, "write_back_bytes": 0}
 
@@ -617,6 +684,20 @@ class Executor:
             segs = self._segments(block, fp)
             host = any(h for h, _, _ in segs)
             mode = "segmented" if host or gran == "segment" else "compiled"
+        if any(getattr(block.vars.get(n), "donate", False) for n in feed):
+            # an unsafe donate=True hint fails here, in every mode,
+            # before any op runs
+            self._donation_plan(program, fp, feed.keys(), fetch_names)
+        memopt = bool(get_flag("memory_optimize")) and mode != "compiled"
+        if memopt:
+            # the rename pass on a cached clone (the caller's Program is
+            # never changed), the current feeds and fetches skipped
+            program = self._memopt_program(program, fp, feed.keys(),
+                                           fetch_names)
+            block = program.global_block()
+            fp = self._fingerprint(program)
+            if segs is not None:
+                segs = self._segments(block, fp)
         seed = _mix(program.seed or self._seed, self._step)
         self._step += 1
         t0 = time.perf_counter()
@@ -628,10 +709,10 @@ class Executor:
                                           fetch_names, seed)
             elif mode == "segmented":
                 outs = self._run_segmented(program, fp, segs, scope, feed,
-                                           fetch_names, seed)
+                                           fetch_names, seed, memopt)
             else:
-                outs = self._run_interpreted(program, scope, feed,
-                                             fetch_names, seed)
+                outs = self._run_interpreted(program, fp, scope, feed,
+                                             fetch_names, seed, memopt)
         if obs_metrics.enabled():
             _M_RUN_SECONDS.labels(exe=self._exe_id, mode=mode).observe(
                 time.perf_counter() - t0)
@@ -648,6 +729,9 @@ class Executor:
             e.free()
         self._cache.clear()
         self._segs.clear()
+        for plans in (self._memopt_cache, self._free_plans,
+                      self._donation_plans):
+            plans.clear()
         self._m_entries.set(0)
         if graphs:
             torch.cuda.empty_cache()
@@ -657,6 +741,50 @@ class Executor:
             fam.remove(exe=self._exe_id)
         for mode in _MODES:
             _M_RUN_SECONDS.remove(exe=self._exe_id, mode=mode)
+
+    # -- memory layer (memory_optimization_transpiler) ----------------------
+    def _memopt_program(self, program, fp, feed_names, fetch_names):
+        """The rename pass's clone of `program` for one (feeds, fetches),
+        cached: the feeds and fetches are skipped, so a fetched
+        temporary is never renamed away."""
+        key = (fp, tuple(sorted(feed_names)), tuple(fetch_names))
+        clone = self._memopt_cache.get(key)
+        if clone is None:
+            from ..memory_optimization_transpiler import memory_optimize
+
+            clone = program.clone()
+            memory_optimize(clone, skip_vars=list(feed_names)
+                            + list(fetch_names))
+            _bounded_put(self._memopt_cache, key, clone)
+        return clone
+
+    def _free_plan(self, program, fp, fetch_names):
+        """{op index: names dead after it} (plan_dead_frees), cached."""
+        key = (fp, tuple(fetch_names))
+        plan = self._free_plans.get(key)
+        if plan is None:
+            from ..memory_optimization_transpiler import plan_dead_frees
+
+            plan = plan_dead_frees(program, fetch_names)
+            _bounded_put(self._free_plans, key, plan)
+        return plan
+
+    def _donation_plan(self, program, fp, feed_names, fetch_names):
+        """The donation plan of the `donate=True` feeds, cached; raises
+        DonationError for an unsafe hint (a fetched feed, a persistable,
+        a feed nothing reads)."""
+        key = (fp, tuple(sorted(feed_names)), tuple(fetch_names))
+        plan = self._donation_plans.get(key)
+        if plan is None:
+            from ..memory_optimization_transpiler import plan_donation
+
+            block = program.global_block()
+            hinted = [n for n in feed_names
+                      if getattr(block.vars.get(n), "donate", False)]
+            plan = plan_donation(program, feed_names, fetch_names,
+                                 requested=hinted)
+            _bounded_put(self._donation_plans, key, plan)
+        return plan.check()
 
     # -- shared by the modes -------------------------------------------------
     def _fingerprint(self, program) -> str:
@@ -747,7 +875,7 @@ class Executor:
         for n, v in vals.items():
             vals[n] = _to_device_value(v, self.device)
         with torch.no_grad():
-            out = entry.plan.run(ctx, vals, publish), {}
+            out = entry.plan.run(ctx, vals, publish, entry.frees), {}
         if miss:
             self._m_compile_s.inc(time.perf_counter() - t0)
         return out
@@ -761,40 +889,29 @@ class Executor:
         return [_clone(v) for v in values]
 
     # -- interpreter ---------------------------------------------------------
-    def _run_interpreted(self, program, scope, feed, fetch_names, seed):
+    def _run_interpreted(self, program, fp, scope, feed, fetch_names, seed,
+                         memopt=False):
         local = scope.new_scope()
+        # under memory_optimize each dead local value is erased right
+        # after its last op, so the scope holds live values only
+        frees = self._free_plan(program, fp, fetch_names) if memopt else {}
         try:  # finally: a raising op must not leak the local scope
             env = self._scope_env(program, scope, local)
             with torch.no_grad():
                 for name, v in feed.items():
                     env.set(name, _to_device_value(v, self.device))
                 ctx = ExecContext(self.device, seed=seed)
-                for op in program.global_block().ops:
+                for i, op in enumerate(program.global_block().ops):
                     run_op(ctx, op, env)
+                    for n in frees.get(i, ()):
+                        local.erase(n)
                 return self._fetch(env, fetch_names)
         finally:
             scope.kids.remove(local)
 
     # -- segmented: cached device segments between eager host ops -----------
     def _op_is_host(self, op) -> bool:
-        """Whether `op` runs eagerly between device segments: a host op
-        (`while`, `conditional_block`, the tensor-array and beam-search
-        ops), an op placed on the CPU, a random op on a card, or an op
-        with any such op in its sub-block, at any depth of nesting (a
-        `dynamic_rnn` whose step holds a `print` or, on a card, a
-        dropout)."""
-        try:
-            info = registry.get_op_info(op.type)
-        except KeyError:
-            return True
-        if info.host or op.attrs.get("force_cpu"):
-            return True
-        if info.random and self.device.type == "cuda":
-            # the op's generator is seeded from (seed, run, op): a graph
-            # would replay the captured draws every run
-            return True
-        sub = op.sub_block() if "sub_block" in op.attrs else None
-        return sub is not None and any(self._op_is_host(o) for o in sub.ops)
+        return _op_is_host(op, self.device)
 
     def _segments(self, block, fp):
         """Maximal (is_host, ops, plan) runs of the block's ops; a device
@@ -812,14 +929,18 @@ class Executor:
                     segs.append((h, [op]))
             persistable = frozenset(v.name for v in block.program.list_vars()
                                     if v.persistable)
+            sub = _sub_names(block.program)
             segs = self._segs[key] = [
-                (h, ops, None if h else _Plan(ops, persistable))
+                (h, ops, None if h else _Plan(ops, persistable, sub))
                 for h, ops in segs]
         return segs
 
     def _run_segmented(self, program, fp, segs, scope, feed, fetch_names,
-                       seed):
+                       seed, memopt=False):
         local = scope.new_scope()
+        # under memory_optimize the dead local values are erased after
+        # each segment, host or device (segment granularity)
+        frees = self._free_plan(program, fp, fetch_names) if memopt else {}
         try:  # finally: a raising op must not leak the local scope
             env = self._scope_env(program, scope, local)
             with torch.no_grad():
@@ -827,6 +948,7 @@ class Executor:
                     env.set(name, _to_device_value(v, self.device))
                 ctx = ExecContext(self.device, seed=seed)
                 once, graphed = set(), False  # one recompile count a run
+                op_idx = 0
                 for i, (host, ops, plan) in enumerate(segs):
                     if host:
                         for op in ops:
@@ -834,6 +956,10 @@ class Executor:
                     else:
                         graphed |= self._run_segment(fp, i, plan, env, seed,
                                                      once)
+                    for j in range(op_idx, op_idx + len(ops)):
+                        for n in frees.get(j, ()):
+                            local.erase(n)
+                    op_idx += len(ops)
                 return self._copied_out(graphed,
                                         self._fetch(env, fetch_names))
         finally:
@@ -935,3 +1061,144 @@ class Executor:
                 "the program")
         return self._copied_out(entry.graph is not None,
                                 [outs[n] for n in fetch_names])
+
+
+# ---------------------------------------------------------------------------
+# program_to_fn
+# ---------------------------------------------------------------------------
+
+
+def _analyze_states(program, block, feed_names):
+    """The persistables a block reads before writing them, and those it
+    writes, sub-blocks included (the JAX package's
+    Executor._analyze_states)."""
+    persistable = {v.name for v in program.list_vars() if v.persistable}
+
+    def visit(blk, written, reads, writes):
+        for op in blk.ops:
+            for n in op.input_names():
+                if n in persistable and n not in written:
+                    reads.add(n)
+            sub = op.sub_block() if "sub_block" in op.attrs else None
+            if sub is not None:
+                visit(sub, written, reads, writes)
+            for n in op.output_names():
+                if n in persistable:
+                    writes.add(n)
+                    written.add(n)
+
+    reads, writes = set(), set()
+    visit(block, set(feed_names), reads, writes)
+    return sorted(reads), sorted(writes)
+
+
+class _ProgramFn:
+    """`program_to_fn`'s function: one resolved plan of the block, run
+    eagerly on the CPU; on a CUDA place each distinct set of input shapes
+    is a cache entry whose first call runs eagerly, whose second is
+    captured into a CUDA graph, and whose later calls replay it.
+
+    A graph reads its inputs from buffers of its own (cloned at the
+    capture) and writes no input: every call copies every input in, so
+    the caller's tensors are never changed.  (A tensor's identity and
+    in-place version cannot tell that it is unchanged: a replay, of this
+    graph or another, rewrites its outputs and donated buffers without
+    bumping their versions.)  Blocks with host ops, or on the card
+    random ops (their draws are seeded per call), run eagerly on every
+    call."""
+
+    def __init__(self, program, feed_names, fetch_names, block_idx, place):
+        from ..memory_optimization_transpiler import plan_donation
+
+        block = program.blocks[block_idx]
+        self.feed_names = list(feed_names)
+        self.fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                            for v in fetch_names]
+        self.state_in_names, self.state_out_names = _analyze_states(
+            program, block, self.feed_names)
+        rw = [n for n in self.state_in_names if n in self.state_out_names]
+        # which buffers die inside the step; an unsafe donate=True hint
+        # raises here, at build time
+        hinted = [n for n in self.feed_names
+                  if getattr(block.vars.get(n), "donate", False)]
+        self.donation_plan = plan_donation(
+            program, self.feed_names, self.fetch_names, state_rw_names=rw,
+            requested=hinted).check()
+        self.device = resolve_place(place)
+        self.program = program
+        persistable = frozenset(v.name for v in program.list_vars()
+                                if v.persistable)
+        self._plan = _Plan(block.ops, persistable, _sub_names(program))
+        self._outputs = self.fetch_names + [
+            n for n in self.state_out_names if n not in self.fetch_names]
+        self._frees = self._plan.dead_after(self._outputs)
+        self._graphs = self.device.type == "cuda" and not any(
+            _op_is_host(op, self.device) for op in block.ops)
+        self._entries: Dict = {}
+        self.stats = {"eager_runs": 0, "captures": 0, "replays": 0}
+
+    def _ctx(self, generator):
+        if isinstance(generator, torch.Generator):
+            seed = generator.initial_seed()
+        else:
+            seed = int(generator or 0)
+        return ExecContext(self.device, seed=seed)
+
+    def __call__(self, feeds, states, generator=None):
+        """-> ({fetch name: value}, {state name: value}): the written
+        states' new values and the read-only states as given.  After a
+        replay the fetches and new states are the graph's own outputs,
+        which the next call overwrites: clone what must outlive it."""
+        vals = {n: _to_device_value(v, self.device)
+                for n, v in {**states, **feeds}.items()}
+        key = tuple(sorted((n, _aval(v)) for n, v in vals.items()))
+        ctx = self._ctx(generator)
+        entry = self._entries.get(key) if self._graphs else None
+        with torch.no_grad():
+            if entry is None:
+                if self._graphs:
+                    self._entries[key] = _Entry(self._plan, self._outputs)
+                self.stats["eager_runs"] += 1
+                outs = self._plan.run(ctx, dict(vals), None, self._frees)
+            elif entry.graph is None:
+                private = {n: _clone(v) for n, v in vals.items()}
+                outs = entry.capture(ctx, private, "program_to_fn",
+                                     donate=False)[0]
+                self.stats["captures"] += 1
+            else:
+                outs, _ = entry.replay(vals)
+                self.stats["replays"] += 1
+        missing = [n for n in self.fetch_names if n not in outs]
+        if missing:
+            raise KeyError(f"fetch variable(s) {missing} were never "
+                           "produced by the program")
+        fetches = {n: outs[n] for n in self.fetch_names}
+        new_states = {n: outs[n] if n in self.state_out_names and n in outs
+                      else vals[n]
+                      for n in sorted(set(self.state_in_names)
+                                      | set(self.state_out_names))
+                      if n in outs or n in vals}
+        return fetches, new_states
+
+    def close(self):
+        """Free the captured graphs and their memory pools."""
+        for e in self._entries.values():
+            e.free()
+        self._entries.clear()
+
+
+def program_to_fn(program: Program, feed_names, fetch_names, block_idx=0,
+                  place=None):
+    """A Program block as a function `(feeds, states, generator) ->
+    (fetches, new_states)` over tensors on `place`'s device (None =
+    CUDAPlace(0)); `generator` is a torch.Generator or an int whose
+    seed keys the random ops' draws, as an Executor run's seed does.
+    `new_states` holds every state the block reads or writes (read-only
+    ones as given), so `states = fn(...)[1]` loops.  The function
+    carries `state_in_names`, `state_out_names` and `donation_plan`
+    (an unsafe `donate=True` feed raises DonationError here, at build
+    time); on a card each set of input shapes is captured into one CUDA
+    graph at its second call and replayed after (`_ProgramFn`): a
+    replay's fetches and new states are the graph's own outputs, valid
+    until the next call."""
+    return _ProgramFn(program, feed_names, fetch_names, block_idx, place)

@@ -105,8 +105,10 @@ define_flag("log_recompiles", False,
             "Executor.cache_stats()['recompiles_after_warmup']")
 define_flag("remat", False,
             "default rematerialization for model builders that accept "
-            "remat=None.  Read at BUILD time; layers.recompute is not "
-            "ported (ROADMAP A4), so a training build with it on raises")
+            "remat=None: the transformer encoder and decoder and the "
+            "ResNets wrap each block in layers.recompute, whose "
+            "activations are re-run in the backward instead of kept.  "
+            "Read at BUILD time; never applied to a pipeline build")
 define_flag("serving_kv_dtype", "",
             "default KV-pool storage precision for "
             "models.transformer.build_lm_paged_decoder when the caller "
@@ -139,6 +141,19 @@ define_flag("overlap_bucket_bytes", 4 << 20,
             "overlap the remaining backward (DDP-style).  0 puts every "
             "gradient in its own bucket.  Read when the executor is "
             "built, and again at its first run after a change")
+define_flag("memory_optimize", False,
+            "whole-program memory optimization "
+            "(memory_optimization_transpiler): the interpreted and "
+            "segmented modes run a cached clone of the Program through "
+            "the liveness rename pass (buffer reuse), the current feed "
+            "and fetch lists skipped, and drop each dead local-scope "
+            "value after its last op (at segment granularity in the "
+            "segmented mode); ParallelExecutor drops a step's dead "
+            "values the same way.  The compiled mode drops every value "
+            "after its last reader whatever the flag.  The rename "
+            "re-keys the random streams of renamed temporaries: the "
+            "same distribution, other draws than the unrenamed "
+            "Program's")
 define_flag("serving_spec_k", 4,
             "default speculative-decoding draft length: how many tokens "
             "the draft model proposes per scheduler tick for the target "

@@ -8,7 +8,7 @@ recurrent constructs build one `dynamic_rnn` op over a step sub-block
 decoders (beam search).  `less_than` and `equal` (with the in-place
 `cond` idiom of While loops) shadow the generated wrappers of
 layers/ops.py in `fluid.layers`, as in the JAX package.  `recompute`
-is not ported yet (ROADMAP A4b): it raises.
+builds a rematerialised segment (the `recompute` op).
 """
 from __future__ import annotations
 
@@ -685,6 +685,83 @@ def Print(input, first_n=-1, message=None, summarize=-1,
 
 
 def recompute(fn, name=None):
-    """Not ported: rematerialized segments are ROADMAP A4b."""
-    raise NotImplementedError(
-        "layers.recompute is not ported yet (ROADMAP A4b)")
+    """Build `fn()`'s layers inside a rematerialised segment: the
+    segment's activations are recomputed in the backward instead of
+    stored (the `recompute` op, ops/control_flow.py).  `fn` takes no
+    arguments, reads enclosing-scope Variables, and returns a Variable
+    or a list of them.
+
+        h = fluid.layers.recompute(lambda: big_ffn_stack(x))
+
+    The op reads every outer name the segment references, nested
+    sub-blocks included (`X`), and writes the segment's outputs and the
+    persistables written inside it (batch norm's running statistics),
+    which would otherwise be lost with the segment's env."""
+    helper = LayerHelper("recompute", name=name)
+    program = helper.main_program
+    parent = program.current_block
+    sub = program.create_block()
+    try:
+        result = fn()
+    finally:
+        program.rollback()
+    single = not isinstance(result, (list, tuple))
+    out_vars = [result] if single else list(result)
+    for v in out_vars:
+        if v.name not in sub.vars:
+            raise ValueError(
+                f"recompute: output {v.name!r} was not produced inside "
+                "the segment")
+
+    # read-set: names referenced inside (nested sub-blocks included)
+    # but defined outside the segment
+    reads, defined = [], set()
+
+    def walk(block):
+        defined.update(block.vars)
+        for op in block.ops:
+            for names in op.inputs.values():
+                for n in names:
+                    if n not in defined and n not in reads:
+                        reads.append(n)
+            for names in op.outputs.values():
+                defined.update(names)
+            for a in op.attrs.values():
+                if isinstance(a, dict) and "__block__" in a:
+                    walk(program.blocks[a["__block__"]])
+
+    walk(sub)
+
+    outs = []
+    for v in out_vars:
+        pv = parent.create_var(name=v.name, shape=v.shape, dtype=v.dtype,
+                               lod_level=getattr(v, "lod_level", 0))
+        pv.stop_gradient = v.stop_gradient
+        outs.append(pv)
+    # persistable writes inside the segment, at any depth, carried out
+    # as extra outputs
+    result_names = {v.name for v in out_vars}
+    state_writes = []
+
+    def collect_state(block):
+        for op_ in block.ops:
+            for n in op_.output_names():
+                try:
+                    prog_var = block.var(n)  # ancestor-walking lookup
+                except KeyError:
+                    continue
+                if (prog_var.persistable and n not in result_names
+                        and n not in state_writes):
+                    state_writes.append(n)
+            for a in op_.attrs.values():
+                if isinstance(a, dict) and "__block__" in a:
+                    collect_state(program.blocks[a["__block__"]])
+
+    collect_state(sub)
+    parent.append_op(
+        "recompute",
+        {"X": reads},
+        {"Out": [v.name for v in outs] + state_writes},
+        {"sub_block": {"__block__": sub.idx},
+         "output_names": [v.name for v in outs] + state_writes})
+    return outs[0] if single else outs

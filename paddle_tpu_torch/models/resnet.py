@@ -11,13 +11,11 @@ from ..core.flags import get_flag
 __all__ = ["resnet_imagenet", "resnet_cifar10"]
 
 
-def _check_remat(remat):
-    """remat=None reads the `remat` flag.  Rematerialized residual
-    blocks need layers.recompute, which is not ported: asking raises."""
-    if bool(get_flag("remat")) if remat is None else bool(remat):
-        raise NotImplementedError(
-            "remat needs layers.recompute, which is not ported yet "
-            "(ROADMAP A4b); build with remat=False")
+def _default_remat(remat):
+    """remat=None reads the `remat` flag (build time): every residual
+    block is then wrapped in layers.recompute, its conv and batch-norm
+    activations re-run in the backward instead of kept."""
+    return bool(get_flag("remat")) if remat is None else bool(remat)
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
@@ -65,11 +63,20 @@ def bottleneck(input, ch_in, ch_out, stride, is_test=False,
 
 
 def _layer_warp(block_func, input, ch_in, ch_out, count, stride,
-                is_test=False, data_format="NCHW"):
-    res = block_func(input, ch_in, ch_out, stride, is_test, data_format)
+                is_test=False, data_format="NCHW", remat=False):
+    def blk(x, ci, st):
+        if remat:
+            # a rematerialised residual block: the running statistics of
+            # its batch norms leave the segment as extra outputs
+            return layers.recompute(
+                lambda: block_func(x, ci, ch_out, st, is_test,
+                                   data_format))
+        return block_func(x, ci, ch_out, st, is_test, data_format)
+
+    res = blk(input, ch_in, stride)
     for _ in range(1, count):
         ch_in_cur = ch_out * (4 if block_func is bottleneck else 1)
-        res = block_func(res, ch_in_cur, ch_out, 1, is_test, data_format)
+        res = blk(res, ch_in_cur, 1)
     return res
 
 
@@ -86,8 +93,9 @@ def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False,
                     data_format="NCHW", remat=None):
     """ResNet-18/34 (basic blocks) and 50/101/152 (bottlenecks) for
     224x224 input, softmax over `class_dim`; data_format "NHWC" keeps
-    activations channels-last."""
-    _check_remat(remat)
+    activations channels-last.  `remat=True` wraps every residual block
+    in layers.recompute (None reads the `remat` flag)."""
+    remat = _default_remat(remat)
     stages, block = _IMAGENET[depth]
     conv1 = conv_bn_layer(input, 64, 7, 2, 3, is_test=is_test,
                           data_format=data_format)
@@ -100,7 +108,7 @@ def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False,
     for i, (count, ch_out) in enumerate(zip(stages, [64, 128, 256, 512])):
         stride = 1 if i == 0 else 2
         res = _layer_warp(block, res, ch_in, ch_out, count, stride, is_test,
-                          data_format)
+                          data_format, remat=remat)
         ch_in = ch_out * expansion
     pool2 = layers.pool2d(input=res, pool_type="avg", global_pooling=True,
                           data_format=data_format)
@@ -112,11 +120,14 @@ def resnet_cifar10(input, class_dim=10, depth=32, is_test=False,
     """CIFAR ResNet (basic blocks), depth = 6n + 2 (the book model)."""
     if (depth - 2) % 6:
         raise ValueError(f"depth must be 6n + 2, got {depth}")
-    _check_remat(remat)
+    remat = _default_remat(remat)
     n = (depth - 2) // 6
     conv1 = conv_bn_layer(input, 16, 3, 1, 1, is_test=is_test)
-    res1 = _layer_warp(basicblock, conv1, 16, 16, n, 1, is_test)
-    res2 = _layer_warp(basicblock, res1, 16, 32, n, 2, is_test)
-    res3 = _layer_warp(basicblock, res2, 32, 64, n, 2, is_test)
+    res1 = _layer_warp(basicblock, conv1, 16, 16, n, 1, is_test,
+                       remat=remat)
+    res2 = _layer_warp(basicblock, res1, 16, 32, n, 2, is_test,
+                       remat=remat)
+    res3 = _layer_warp(basicblock, res2, 32, 64, n, 2, is_test,
+                       remat=remat)
     pool = layers.pool2d(input=res3, pool_type="avg", global_pooling=True)
     return layers.fc(input=pool, size=class_dim, act="softmax")

@@ -1,5 +1,5 @@
 """Transformer family: the decoder-only LM, the encoder-decoder
-translator, and the LM's paged decoder.
+translator, the generation builders and the LM's paged decoder.
 
 Counterpart of paddle_tpu/models/transformer.py.  The Program builders
 (`transformer_lm`, `transformer_translate` and their blocks) produce
@@ -8,9 +8,15 @@ names and shapes — so parameter names extracted from it
 (`_lm_param_structure`) name the same trained values in both packages.
 All blocks are pre-LN (LN -> sublayer -> residual add).
 
-`build_lm_paged_decoder` is the serving decode step over a paged KV
-cache, written in PyTorch, with attention through the hand-written CUDA
-paged-attention kernel (kernels/paged_attention.py) on a CUDA device.
+The generation builders decode a closed batch: `build_lm_generator`
+and `build_translate_generator` re-run the fixed-width Program once a
+token (a replayed CUDA graph on a card, flash attention inside it),
+`build_lm_kv_decoder` keeps dense per-layer K/V caches and computes one
+token a step, `build_lm_beam_search` folds a fixed [B, K] beam into the
+batch.  `build_lm_paged_decoder` is the serving decode step over a
+paged KV cache, written in PyTorch, with attention through the
+hand-written CUDA paged-attention kernel (kernels/paged_attention.py) on
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 
 from .. import layers, nets
 from ..core.execution import _M32, mix32_
-from ..core.executor import resolve_place
+from ..core.executor import program_to_fn, resolve_place
 from ..core.flags import get_flag
 from ..core.framework import Program, pipeline_stage, program_guard
 from ..initializer import NormalInitializer
@@ -35,6 +41,10 @@ __all__ = [
     "transformer_decoder",
     "transformer_lm",
     "transformer_translate",
+    "build_lm_generator",
+    "build_lm_kv_decoder",
+    "build_translate_generator",
+    "build_lm_beam_search",
     "build_lm_paged_decoder",
     "states_from_reference",
     "sample_tokens",
@@ -102,26 +112,28 @@ def _encoder_block(x, d_model, n_heads, d_inner, dropout_rate, is_test):
     return layers.elementwise_add(x, f)
 
 
-def _no_remat(remat):
-    """`remat` (None reads the `remat` flag) needs the recompute layer,
-    which is not ported: asking for it raises."""
-    if remat:
-        raise NotImplementedError(
-            "remat needs layers.recompute, which is not ported yet "
-            "(ROADMAP A4b); build with remat=False")
-
-
 def transformer_encoder(src_ids, vocab_size, d_model=256, n_heads=4,
                         n_layers=2, d_inner=None, max_len=2048,
                         dropout_rate=0.0, is_test=False, remat=None):
-    """Bidirectional encoder over [b, s] token ids -> [b, s, d_model]."""
+    """Bidirectional encoder over [b, s] token ids -> [b, s, d_model].
+
+    `remat=True` wraps each block in layers.recompute: the block's
+    activations are re-run in the backward instead of kept, a forward's
+    time for the block's activation memory.  remat=None reads the
+    `remat` flag (build time)."""
     d_inner = d_inner or 4 * d_model
-    _no_remat(bool(get_flag("remat")) if remat is None else remat)
+    if remat is None:
+        remat = bool(get_flag("remat"))
     x = _embed(src_ids, vocab_size, d_model, max_len, dropout_rate,
                is_test)
     for _ in range(n_layers):
-        x = _encoder_block(x, d_model, n_heads, d_inner, dropout_rate,
-                           is_test)
+        if remat:
+            x = layers.recompute(
+                lambda x=x: _encoder_block(x, d_model, n_heads, d_inner,
+                                           dropout_rate, is_test))
+        else:
+            x = _encoder_block(x, d_model, n_heads, d_inner, dropout_rate,
+                               is_test)
     return _pre_ln(x)
 
 
@@ -149,23 +161,36 @@ def transformer_decoder(tgt_ids, enc_out, vocab_size, d_model=256,
 
     `pipeline_stages=S` annotates the block stack with `pipeline_stage`
     (n_layers/S consecutive blocks per stage).  `remat` as in
-    transformer_encoder; the flag never applies to a pipeline build."""
+    transformer_encoder; the flag never applies to a pipeline build, and
+    remat=True with pipeline stages raises."""
     d_inner = d_inner or 4 * d_model
     if remat is None:
+        # the `remat` flag never overrides a pipeline build (the GPipe
+        # schedule already recomputes per microbatch)
         remat = bool(get_flag("remat")) and not pipeline_stages
-    _no_remat(remat)
-    if pipeline_stages and n_layers % pipeline_stages:
-        raise ValueError(
-            f"n_layers {n_layers} must be a multiple of "
-            f"pipeline_stages {pipeline_stages}")
+    if pipeline_stages:
+        if n_layers % pipeline_stages:
+            raise ValueError(
+                f"n_layers {n_layers} must be a multiple of "
+                f"pipeline_stages {pipeline_stages}")
+        if remat:
+            raise NotImplementedError(
+                "remat inside pipeline stages is redundant: the GPipe "
+                "schedule already recomputes per-microbatch")
     x = _embed(tgt_ids, vocab_size, d_model, max_len, dropout_rate,
                is_test)
     for i in range(n_layers):
         stage = (pipeline_stage(i * pipeline_stages // n_layers)
                  if pipeline_stages else contextlib.nullcontext())
         with stage:
-            x = _decoder_block(x, enc_out, d_model, n_heads, d_inner,
-                               dropout_rate, is_test)
+            if remat:
+                x = layers.recompute(
+                    lambda x=x: _decoder_block(x, enc_out, d_model,
+                                               n_heads, d_inner,
+                                               dropout_rate, is_test))
+            else:
+                x = _decoder_block(x, enc_out, d_model, n_heads, d_inner,
+                                   dropout_rate, is_test)
     return _pre_ln(x)
 
 
@@ -324,6 +349,351 @@ def _as(x, dtype, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x).astype(_NP_OF[dtype]), device=device)
+
+
+def _lm_forward_fn(vocab_size, max_len, d_model, n_heads, n_layers,
+                   d_inner, place):
+    """The LM Program at width `max_len` as a `program_to_fn` function
+    -> (startup, fn, the probabilities' name).  On a card its fetches
+    are the graph's own outputs: the decode loops read the row they
+    need before the next call."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        ids_in = layers.data(name="gen_ids", shape=[max_len],
+                             dtype="int64")
+        probs = transformer_lm(ids_in, vocab_size, d_model=d_model,
+                               n_heads=n_heads, n_layers=n_layers,
+                               d_inner=d_inner, max_len=max_len,
+                               is_test=True)
+    fn = program_to_fn(main, ["gen_ids"], [probs.name], place=place)
+    return startup, fn, probs.name
+
+
+def _device_states(states, device):
+    """{name: float32 tensor on `device`}: tensors already there pass
+    as they are (a replay then copies nothing)."""
+    return {n: v if isinstance(v, torch.Tensor) and v.device == device
+            and v.dtype == torch.float32 else _as(v, torch.float32, device)
+            for n, v in states.items()}
+
+
+def _prompt_ids(prompt_ids, width, device, fill=0):
+    """[B, P] prompt -> ([B, width] int64 ids on `device` holding it in
+    front, P)."""
+    prompt = _as(prompt_ids, torch.int64, device)
+    b, p = prompt.shape
+    ids = torch.full((b, width), fill, dtype=torch.int64, device=device)
+    ids[:, :p] = prompt
+    return ids, p
+
+
+def _categorical(logits, generator):
+    """A draw from softmax(logits) per row by the Gumbel-max trick, its
+    noise from `generator` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32).clamp_min_(1e-20)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def _generator(device, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
+def build_lm_generator(vocab_size, max_len, d_model=256, n_heads=4,
+                       n_layers=2, d_inner=None, place=None):
+    """Autoregressive generation for the decoder-only LM: the LM Program
+    at the fixed width `max_len`, as a `program_to_fn` function, re-run
+    once per token (the causal mask makes the positions past the cursor
+    inert, so the fixed-width forward is exact).  On a CUDA place the
+    forward is one CUDA graph, captured at the second token and replayed
+    for every token after; the ids stay on the card, and no token reads
+    anything back to the host.
+
+    Returns (startup_program, generate) where
+      generate(states, prompt_ids [B, P], num_steps, temperature=0.0,
+               seed=0) -> ids [B, max_len] int64 on the device
+    with greedy argmax at temperature 0 and softmax sampling otherwise
+    (Gumbel-max, its noise from a torch.Generator seeded with `seed`;
+    the JAX package draws jax.random.categorical: the same
+    distribution, other numbers).  `states` maps the Program's
+    parameter names (`generate.state_names`) to arrays or tensors."""
+    startup, fn, probs = _lm_forward_fn(vocab_size, max_len, d_model,
+                                        n_heads, n_layers, d_inner, place)
+    device = fn.device
+
+    def generate(states, prompt_ids, num_steps, temperature=0.0, seed=0):
+        g = _device_states(states, device)
+        ids, p = _prompt_ids(prompt_ids, max_len, device)
+        if p + num_steps > max_len:
+            raise ValueError(f"prompt {p} + {num_steps} steps exceeds "
+                             f"max_len {max_len}")
+        gen = _generator(device, seed) if temperature > 0 else None
+        with torch.no_grad():
+            for i in range(p, p + int(num_steps)):
+                step_p = fn({"gen_ids": ids}, g)[0][probs][:, i - 1]
+                if gen is not None:
+                    nxt = _categorical(torch.log(step_p + 1e-9)
+                                       / float(temperature), gen)
+                else:
+                    nxt = step_p.argmax(dim=-1)
+                ids[:, i] = nxt
+        return ids
+
+    generate.state_names = list(fn.state_in_names)
+    generate.forward = fn
+    return startup, generate
+
+
+def build_lm_kv_decoder(vocab_size, max_len, d_model=256, n_heads=4,
+                        n_layers=2, d_inner=None, place=None):
+    """Incremental (KV-cache) generation for the decoder-only LM: per
+    layer dense K/V caches [B, max_len, d_model] and ONE token a step,
+    written in PyTorch over the LM Program's parameters (their names
+    extracted structurally, `_lm_param_structure`), with the JAX
+    package's math: pre-LN, a -inf mask past the cursor, relu in the
+    FFN.  Prompt tokens go through the same step one at a time.
+
+    The step reads its cursor from a device scalar and advances it
+    itself, so on a CUDA place a greedy decode is one CUDA graph of one
+    step, captured once per batch size and replayed once per position,
+    with nothing read back to the host.  Sampling (temperature > 0)
+    runs the same step eagerly, its Gumbel noise drawn from a
+    torch.Generator seeded with `seed`.
+
+    Returns (startup_program, generate) with `build_lm_generator`'s
+    signature."""
+    d_inner = d_inner or 4 * d_model
+    d_head = d_model // n_heads
+    scale = 1.0 / math.sqrt(d_head)
+    startup, shapes, tok_emb, pos_tab, lns, weights, biases = (
+        _lm_param_structure(vocab_size, max_len, d_model, n_heads,
+                            n_layers, d_inner))
+    device = resolve_place(place)
+    graphs = {}     # batch size -> the captured step and its buffers
+
+    def ln(g, x, i):
+        s_, b_ = g[lns[i][0]], g[lns[i][1]]
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(var + 1e-5) * s_ + b_
+
+    def step(g, buf, noise=None):
+        """One position: reads ids at the cursor `pos`, writes each
+        layer's K/V there, writes the next id (the prompt's while the
+        cursor is inside it) at pos + 1, and advances pos, in place."""
+        ids, caches, pos, plen = (buf["ids"], buf["caches"], buf["pos"],
+                                  buf["plen"])
+        b = ids.shape[0]
+
+        def lin(h, i):
+            return h @ g[weights[i]] + g[biases[i]]
+
+        at = pos.view(1)
+        tok = ids.index_select(1, at)[:, 0]
+        x = g[tok_emb][tok] + g[pos_tab].index_select(0, at)
+        visible = torch.arange(max_len, device=ids.device) <= pos
+        for l in range(n_layers):
+            h = ln(g, x, 2 * l)
+            q = lin(h, 6 * l + 0)
+            ck, cv = caches[l]
+            ck.index_copy_(1, at, lin(h, 6 * l + 1)[:, None, :])
+            cv.index_copy_(1, at, lin(h, 6 * l + 2)[:, None, :])
+            qh = q.reshape(b, n_heads, d_head)
+            kh = ck.reshape(b, max_len, n_heads, d_head)
+            vh = cv.reshape(b, max_len, n_heads, d_head)
+            sc = torch.einsum("bhd,bshd->bhs", qh, kh) * scale
+            sc = sc.masked_fill(~visible, float("-inf"))
+            w_att = torch.softmax(sc, dim=-1)
+            ctxh = torch.einsum("bhs,bshd->bhd", w_att, vh)
+            x = x + lin(ctxh.reshape(b, d_model), 6 * l + 3)
+            h2 = ln(g, x, 2 * l + 1)
+            x = x + lin(torch.relu(lin(h2, 6 * l + 4)), 6 * l + 5)
+        logits = lin(ln(g, x, 2 * n_layers), 6 * n_layers)     # [B, V]
+        nxt = (logits.argmax(dim=-1) if noise is None
+               else _categorical(logits / noise[1], noise[0]))
+        nat = at + 1
+        cur = ids.index_select(1, nat)[:, 0]
+        ids.index_copy_(1, nat, torch.where(nat < plen, cur, nxt)[:, None])
+        pos.add_(1)
+
+    def buffers(b):
+        return {"ids": torch.zeros((b, max_len), dtype=torch.int64,
+                                   device=device),
+                "caches": [(torch.zeros((b, max_len, d_model),
+                                        device=device),
+                            torch.zeros((b, max_len, d_model),
+                                        device=device))
+                           for _ in range(n_layers)],
+                "pos": torch.zeros((), dtype=torch.int64, device=device),
+                "plen": torch.zeros((), dtype=torch.int64, device=device)}
+
+    def reset(buf, ids0, p):
+        buf["ids"].copy_(ids0)
+        for ck, cv in buf["caches"]:
+            ck.zero_()
+            cv.zero_()
+        buf["pos"].zero_()
+        buf["plen"].fill_(p)
+
+    def graphed(g, ids0, p):
+        """The batch's captured step (made at its first greedy decode:
+        a warm-up step, then the capture) with the states copied into
+        its private buffers, once a decode: nothing changes them
+        between its positions, and a tensor's identity and version
+        cannot tell whether a graph replay rewrote it since the last."""
+        b = ids0.shape[0]
+        ent = graphs.get(b)
+        if ent is None:
+            gb = {n: v.clone() for n, v in g.items()}
+            buf = buffers(b)
+            reset(buf, ids0, p)
+            step(gb, buf)                 # warm-up: kernels, handles
+            torch.cuda.synchronize(device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step(gb, buf)
+            ent = graphs[b] = {"graph": graph, "g": gb, "buf": buf}
+        else:
+            for n, v in g.items():
+                ent["g"][n].copy_(v)
+        reset(ent["buf"], ids0, p)
+        return ent
+
+    def generate(states, prompt_ids, num_steps, temperature=0.0, seed=0):
+        g = _device_states(states, device)
+        ids0, p = _prompt_ids(prompt_ids, max_len, device)
+        if p + num_steps > max_len:
+            raise ValueError(f"prompt {p} + {num_steps} steps exceeds "
+                             f"max_len {max_len}")
+        n = p + int(num_steps) - 1
+        with torch.no_grad():
+            if temperature > 0 or device.type != "cuda":
+                buf = buffers(ids0.shape[0])
+                reset(buf, ids0, p)
+                noise = ((_generator(device, seed), float(temperature))
+                         if temperature > 0 else None)
+                for _ in range(n):
+                    step(g, buf, noise)
+                return buf["ids"]
+            ent = graphed(g, ids0, p)
+            for _ in range(n):
+                ent["graph"].replay()
+            return ent["buf"]["ids"].clone()
+
+    generate.state_names = sorted(shapes)
+    generate.state_shapes = shapes
+    generate.graphs = graphs
+    return startup, generate
+
+
+def build_translate_generator(src_vocab, tgt_vocab, max_src_len,
+                              max_tgt_len, d_model=256, n_heads=4,
+                              n_layers=2, d_inner=None, bos_id=0,
+                              eos_id=1, place=None):
+    """Greedy translation decode for the encoder-decoder transformer
+    (`build_lm_generator`'s design: the fixed-width translator Program
+    re-run once per target position, one CUDA graph replayed per step
+    on a card, the ids on the device).
+
+    Returns (startup_program, translate) where
+      translate(states, src_ids [B, max_src_len], num_steps) ->
+          tgt ids [B, max_tgt_len] int64 starting with bos_id; a row
+          that emitted eos_id keeps emitting it."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        src = layers.data(name="gen_src", shape=[max_src_len],
+                          dtype="int64")
+        tgt = layers.data(name="gen_tgt", shape=[max_tgt_len],
+                          dtype="int64")
+        probs = transformer_translate(
+            src, tgt, src_vocab, tgt_vocab, d_model=d_model,
+            n_heads=n_heads, n_layers=n_layers, d_inner=d_inner,
+            max_len=max(max_src_len, max_tgt_len), is_test=True)
+    fn = program_to_fn(main, ["gen_src", "gen_tgt"], [probs.name],
+                       place=place)
+    device = fn.device
+
+    def translate(states, src_ids, num_steps):
+        if num_steps >= max_tgt_len:
+            raise ValueError(f"num_steps {num_steps} must be below "
+                             f"max_tgt_len {max_tgt_len}")
+        g = _device_states(states, device)
+        src_t = _as(src_ids, torch.int64, device)
+        tgt_t = torch.full((src_t.shape[0], max_tgt_len), eos_id,
+                           dtype=torch.int64, device=device)
+        tgt_t[:, 0] = bos_id
+        with torch.no_grad():
+            for i in range(1, 1 + int(num_steps)):
+                step_p = fn({"gen_src": src_t, "gen_tgt": tgt_t},
+                            g)[0][probs.name][:, i - 1]
+                nxt = step_p.argmax(dim=-1)
+                # once a row emitted eos, it keeps emitting eos
+                tgt_t[:, i] = torch.where(tgt_t[:, i - 1] == eos_id,
+                                          eos_id, nxt)
+        return tgt_t
+
+    translate.state_names = list(fn.state_in_names)
+    translate.forward = fn
+    return startup, translate
+
+
+def _top_k_lowest_first(x, k):
+    """The k largest of each row, ties to the lower index first (as
+    lax.top_k breaks them; torch.topk promises no order among ties)
+    -> (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def build_lm_beam_search(vocab_size, max_len, beam_size=4, d_model=256,
+                         n_heads=4, n_layers=2, d_inner=None, place=None):
+    """Static-shape beam search for the decoder-only LM: the beam is a
+    fixed [B, K] folded into the batch; each step scores all K beams in
+    one fixed-width forward (B*K rows, `build_lm_generator`'s replayed
+    graph on a card), takes the top K of the K*V continuation scores
+    (ties to the lower index, as lax.top_k) and regathers the winning
+    prefixes.  At the first expansion only beam 0 is a real hypothesis.
+
+    Returns (startup_program, search) where
+      search(states, prompt_ids [B, P], num_steps) ->
+          (ids [B, K, max_len] int64, scores [B, K]) best first; scores
+          are sums of log p (no EOS handling: all beams share one
+          length)."""
+    startup, fn, probs = _lm_forward_fn(vocab_size, max_len, d_model,
+                                        n_heads, n_layers, d_inner, place)
+    device = fn.device
+    K = int(beam_size)
+
+    def search(states, prompt_ids, num_steps):
+        g = _device_states(states, device)
+        ids0, p = _prompt_ids(prompt_ids, max_len, device)
+        if p + num_steps > max_len:
+            raise ValueError(f"prompt {p} + {num_steps} steps exceeds "
+                             f"max_len {max_len}")
+        b = ids0.shape[0]
+        ids = ids0[:, None, :].expand(b, K, max_len).contiguous()
+        scores = torch.zeros((b, K), device=device)
+        with torch.no_grad():
+            for i in range(p, p + int(num_steps)):
+                step_p = fn({"gen_ids": ids.reshape(b * K, max_len)},
+                            g)[0][probs][:, i - 1]
+                cand = scores[:, :, None] + torch.log(
+                    step_p.reshape(b, K, vocab_size) + 1e-9)
+                if i == p:
+                    cand[:, 1:] = float("-inf")
+                scores, top = _top_k_lowest_first(
+                    cand.reshape(b, K * vocab_size), K)
+                src_beam = top // vocab_size
+                ids = ids.gather(1, src_beam[:, :, None].expand(
+                    b, K, max_len))
+                ids[:, :, i] = top % vocab_size
+        return ids, scores
+
+    search.state_names = list(fn.state_in_names)
+    search.forward = fn
+    return startup, search
 
 
 def build_lm_paged_decoder(vocab_size, block_size, max_blocks_per_seq,

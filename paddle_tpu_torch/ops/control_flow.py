@@ -9,7 +9,9 @@ tensor_array_read_write_op.cc, lod_rank_table_op.cc,
 lod_tensor_to_array_op.cc, array_to_lod_tensor_op.cc,
 shrink_rnn_memory_op.cc, max_sequence_len_op.cc,
 reorder_lod_tensor_by_rank_op.cc, beam_search_op.cc,
-beam_search_decode_op.h, parallel_do_op.cc and recurrent_op.cc.
+beam_search_decode_op.h, parallel_do_op.cc and recurrent_op.cc; and
+the rematerialised segment `recompute`, which has no reference
+analogue.
 
 The JAX package's design split stays:
 
@@ -688,6 +690,35 @@ register_op("recurrent",
 
 
 # ---------------------------------------------------------------------------
+# recompute (rematerialisation)
+# ---------------------------------------------------------------------------
+
+
+@register_op("recompute", inputs=("X",), outputs=("Out",),
+             attrs={"output_names": []},
+             dup_inputs=("X",), dup_outputs=("Out",),
+             diff_inputs=("X",), diff_outputs=("Out",), lod=True)
+def recompute(ctx, ins, attrs):
+    """The segment's sub-block over its read-set `X` -> `Out`: the values
+    named in `output_names` (the segment's outputs, then the persistables
+    it writes, such as batch norm's running statistics).
+
+    The sub-block runs against an env of its own, so none of its
+    activations outlives the op: the forward keeps only `Out`.  The
+    gradient is the generic one: `generic_grad_lower` re-runs this
+    lowering under autograd from `X` and pulls the cotangents back, so
+    the segment runs twice forward a step and its activations live only
+    inside its gradient op, where the JAX package's `jax.checkpoint`
+    does the same.  The re-run draws the forward's random numbers (the
+    grad op carries the forward's random-stream tag, and `pure()` keeps
+    the seed), and its persistable writes stay in its own env: the
+    running statistics are written once a step, by the forward."""
+    env = DictEnv(dict(zip(ctx.op.input("X"), many(ins, "X"))))
+    _run_block(ctx.child(0), ctx.op.sub_block().ops, env)
+    return {"Out": [env.get(n) for n in attrs["output_names"]]}
+
+
+# ---------------------------------------------------------------------------
 # build-time shape inference of the sub-block ops: their outputs' shapes are
 # declared by the layer builders that create them, as in the JAX package
 # ---------------------------------------------------------------------------
@@ -697,5 +728,5 @@ def _infer_via_builder(op, block):
     """Output shapes already declared at construction (layers/)."""
 
 
-for _t in ("dynamic_rnn", "recurrent", "parallel_do"):
+for _t in ("dynamic_rnn", "recurrent", "parallel_do", "recompute"):
     register_infer_shape(_t)(_infer_via_builder)

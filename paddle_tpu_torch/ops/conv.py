@@ -10,6 +10,10 @@ algorithm is the heuristics' choice, fixed before a CUDA graph captures
 it) and deterministic algorithms only (a replayed step must give the
 interpreter's bits); float32 ones in PyTorch's own convolution with
 TF32 off (float32 is float32, whatever the caller's global flags say).
+Autograd through a conv lowering (a `recompute` segment's gradient, a
+generic gradient) takes the same pinned backend (`_PinnedConv`), so it
+runs the explicit gradient's `convolution_backward`, not the caller's
+global cuDNN flags (TF32 and non-deterministic algorithms by default).
 
 Layouts: "NHWC" activations keep channels last at the IR level; the
 filter is OIHW either way.  The `conv_layout` flag ("NHWC") runs an
@@ -91,6 +95,30 @@ def _conv_args(attrs):
             _pair(attrs["dilations"]), int(attrs.get("groups") or 1))
 
 
+class _PinnedConv(torch.autograd.Function):
+    """`F.conv2d` with the backend pinned (`conv_pinned`) in its forward
+    and in its backward, which is `_conv2d_grad`'s
+    `convolution_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, p, d, g):
+        ctx.save_for_backward(x, w)
+        ctx.args = (s, p, d, g)
+        with conv_pinned(x.dtype):
+            return F.conv2d(x, w, None, s, p, d, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        s, p, d, g = ctx.args
+        with conv_pinned(x.dtype):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                dy, x, w, None, list(s), list(p), list(d), False, [0, 0],
+                g, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                    False])
+        return dx, dw, None, None, None, None
+
+
 @register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
              attrs={"strides": [1, 1], "paddings": [0, 0],
                     "dilations": [1, 1], "groups": 1, "use_cudnn": True,
@@ -102,8 +130,7 @@ def conv2d(ctx, ins, attrs):
     xt = _as_nchw(x, attrs)
     if _channels_last_flag(attrs, x):
         w = w.contiguous(memory_format=torch.channels_last)
-    with conv_pinned(x.dtype):
-        out = F.conv2d(xt, w, None, s, p, d, g)
+    out = _PinnedConv.apply(xt, w, s, p, d, g)
     return {"Output": _from_nchw(out, attrs)}
 
 

@@ -206,6 +206,18 @@ class ParallelExecutor:
                 "False")
         self._feed_specs = dict(spmd_plan.feed_specs) if spmd_plan \
             else {}
+        # explicit `donate=True` var hints fail HERE (build time) when
+        # unsafe — a donated feed that is also fetched — not mid-train
+        hinted = [n for n in self.feed_names
+                  if getattr(blk.vars.get(n), "donate", False)]
+        if hinted:
+            from ..memory_optimization_transpiler import plan_donation
+
+            reads, writes = self._analyze_states(program, blk)
+            plan_donation(program, self.feed_names, self.fetch_names,
+                          state_rw_names=[n for n in reads if n in writes],
+                          requested=hinted).check()
+        self._frees_by_op = None
         self._seed = seed
         self._step = 0
 
@@ -664,6 +676,30 @@ class ParallelExecutor:
         dist.all_gather(parts, v.contiguous(), group=self.mesh.group)
         return torch.cat(parts)
 
+    def _dead_frees(self):
+        """{id(op): names dead after it} under the `memory_optimize`
+        flag (plan_dead_frees over the whole block: a step drops each
+        value after its last op, the port's counterpart of the JAX
+        package's donated feed buffers), else {}."""
+        from ..core.flags import get_flag
+
+        if not get_flag("memory_optimize"):
+            return {}
+        if self._frees_by_op is None:
+            from ..memory_optimization_transpiler import plan_dead_frees
+
+            ops = self.program.global_block().ops
+            self._frees_by_op = {
+                id(ops[i]): names for i, names in plan_dead_frees(
+                    self.program, self.fetch_names).items()}
+        return self._frees_by_op
+
+    @staticmethod
+    def _run_freeing(ctx, op, env, frees):
+        run_op(ctx, op, env)
+        for n in frees.get(id(op), ()):
+            env.d.pop(n, None)
+
     def _overlap_step(self, feeds, ctx):
         cfg = self._overlap_cfg
         buckets, issue_after, fused_plan = self._plan
@@ -671,8 +707,9 @@ class ParallelExecutor:
                        **feeds})
         group = self.mesh.group
         pending = []
+        frees = self._dead_frees()
         for i, op in enumerate(cfg["inside"]):
-            run_op(ctx, op, env)
+            self._run_freeing(ctx, op, env, frees)
             for b in issue_after.get(i, ()):
                 # a fresh flat buffer per bucket: the all-reduce writes
                 # in place, and a gradient may alias a value the rest of
@@ -729,15 +766,16 @@ class ParallelExecutor:
             return fetches, states
         env = DictEnv({**states, **grads})
         for op in cfg["update"]:
-            run_op(ctx, op, env)
+            self._run_freeing(ctx, op, env, frees)
         return fetches, {n: env.d.get(n, states[n]) for n in states}
 
     def _plain_step(self, feeds, ctx):
         """The whole program over the feed: a mesh of one with the
         overlap off, or every rank of the replicated form."""
         env = DictEnv({**self._states, **feeds})
+        frees = self._dead_frees()
         for op in self.program.global_block().ops:
-            run_op(ctx, op, env)
+            self._run_freeing(ctx, op, env, frees)
         missing = [n for n in self.fetch_names if not env.has(n)]
         if missing:
             raise KeyError(f"fetch variable(s) {missing} were never "

@@ -6,17 +6,22 @@
 * **generation** — `GenerationServer`: continuous (in-flight) batching
   for autoregressive decode over the paged decoder, with admission and
   deadlines, prefix caching, speculative decoding, hot swap and drain.
+* **batching** — `InferenceServer`: the one-shot resident server, its
+  buckets captured into CUDA graphs at construction, with dynamic
+  batching, deadlines and backpressure.
 
-The one-shot `InferenceServer`, the replica wire server and the
-warm-start artifact are not ported yet.
+The replica wire server and the warm-start artifact are not ported
+yet.
 """
-from .batching import RequestDeadlineExceeded, ServerSaturated
+from .batching import (InferenceServer, RequestDeadlineExceeded,
+                       ServerSaturated)
 from .generation import (GenerationServer, GenerationStream,
                          load_generation_model, save_generation_model,
                          server_from_model_dir)
 from .kv_cache import KVPoolExhausted, PagedKVCache
 
 __all__ = [
+    "InferenceServer",
     "ServerSaturated",
     "RequestDeadlineExceeded",
     "PagedKVCache",

@@ -50,7 +50,7 @@ from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.execution import ExecContext as TExecContext
 from paddle_tpu_torch.core.lod import LoDTensor, TensorArray
-from paddle_tpu_torch.core.scope import Scope
+from paddle_tpu_torch.core.scope import Scope, scope_from_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_op_test import (check_finite_differences,  # noqa: E402
@@ -764,8 +764,60 @@ def test_dynamic_rnn_modes_equal_the_interpreter_bit_for_bit(mode):
 
 
 def test_recompute_raises_naming_a4b():
-    with pytest.raises(NotImplementedError, match="A4b"):
-        tfluid.layers.recompute(lambda: None)
+    """layers.recompute no longer raises: a segment of two fc layers
+    builds the JAX package's Program (the `recompute` op over its
+    read-set, one sub-block), and 3 SGD steps from the JAX startup give
+    the JAX package's losses (1e-5 relative) and parameters (atol
+    1e-5), in the default mode and the interpreter."""
+    def build(fluid, fw):
+        fw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[6], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+
+            def segment():
+                h = fluid.layers.fc(input=x, size=16, act="relu")
+                return fluid.layers.fc(input=h, size=8, act="tanh")
+
+            h = fluid.layers.recompute(segment)
+            loss = fluid.layers.mean(fluid.layers.square_error_cost(
+                fluid.layers.fc(input=h, size=1), y))
+            fluid.SGD(learning_rate=0.1).minimize(loss)
+        return main, startup, loss
+
+    jm, js, jl = build(jfluid, jfw)
+    tm, ts, tl = build(tfluid, tfw)
+    assert tm.to_dict() == jm.to_dict()
+    rec = [op for op in tm.global_block().ops if op.type == "recompute"]
+    assert len(rec) == 1 and len(tm.blocks) == 2
+    for compiled in (None, False):
+        _recompute_steps(jm, js, jl, tm, tl, compiled)
+
+
+def _recompute_steps(jm, js, jl, tm, tl, compiled):
+    jscope = jfluid.Scope()
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    jexe.run(js, scope=jscope)
+    names = sorted(v.name for v in jm.list_vars() if v.persistable)
+    tscope = scope_from_numpy({n: np.asarray(jscope.find_var(n))
+                               for n in names}, CPUPlace())
+    texe = tfluid.Executor(CPUPlace())
+    r = np.random.RandomState(0)
+    feed = {"x": r.rand(8, 6).astype(np.float32),
+            "y": r.rand(8, 1).astype(np.float32)}
+    jloss, tloss = [], []
+    for _ in range(3):
+        jloss.append(np.asarray(jexe.run(jm, feed=feed, fetch_list=[jl],
+                                         scope=jscope)[0]).reshape(-1)[0])
+        tloss.append(texe.run(tm, feed=feed, fetch_list=[tl], scope=tscope,
+                              compiled=compiled)[0].reshape(-1)[0])
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    assert tloss[-1] < tloss[0]
+    for n in names:
+        np.testing.assert_allclose(tscope.find_var(n).numpy(),
+                                   np.asarray(jscope.find_var(n)),
+                                   rtol=0, atol=1e-5, err_msg=n)
 
 
 def _cond(fluid):

@@ -246,6 +246,27 @@ def test_conv_explicit_grad_matches_jax_vjp(case, dtype):
     _assert_grads(jg, tg, ref, dtype, CONV_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV_CASES, ids=range(len(CONV_CASES)))
+def test_conv_autograd_grad_is_the_explicit_grad(case, dtype):
+    """Autograd through the conv lowering (a recompute segment's
+    gradient, the generic gradient) runs the explicit gradient's
+    `convolution_backward` on the same backend: the same bits."""
+    op, arrays, attrs = _conv_case(case)
+    tinfo = treg.get_op_info(op)
+    tattrs = {**tinfo.attrs, **attrs}
+    ins = {s: [_torch(a, dtype)] for s, a in arrays.items()}
+    out = _first(tinfo.lower(TExecContext("cpu"), ins, tattrs)["Output"])
+    ins["Output"] = [out]
+    ins["Output@GRAD"] = [_torch(_rand(tuple(out.shape), 11), dtype)]
+    explicit = tinfo.grad_lower(TExecContext("cpu"), ins, tattrs)
+    generic = tgrad(TExecContext("cpu"), ins, tattrs, tinfo)
+    assert set(generic) == set(explicit) == {"Input@GRAD", "Filter@GRAD"}
+    for slot in explicit:
+        assert torch.equal(_first(generic[slot]), _first(explicit[slot])), \
+            slot
+
+
 # -- pool2d ------------------------------------------------------------------
 
 POOL_CASES = [  # (x shape, attrs)

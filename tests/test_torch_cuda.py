@@ -2050,3 +2050,251 @@ def test_reader_outputs_land_on_the_card(dev):
     for a, b in zip(card, cpu):
         assert a.device == torch.device("cuda", 0)
         assert torch.equal(a.cpu(), b)
+
+
+# -- recompute, program_to_fn and InferenceServer (A4b, A6) -------------------
+
+def _remat_lm(amp):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import flags
+
+    flags.set_flags({"remat": True})
+    try:
+        return _graph_lm(amp)
+    finally:
+        flags.set_flags({"remat": False})
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
+def test_remat_step_captured_equals_its_interpreter(dev, amp):
+    """A transformer LM with every block a recompute segment: the
+    default mode's captured and replayed step equals the interpreter bit
+    for bit, and its eager run and capture each launch the flash forward
+    twice a layer (forward and the gradient's re-run) and dQ, dK/dV once
+    (the wrapper's autograd inside the segment)."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    main, startup, loss = _remat_lm(amp)
+    assert [op.type for op in main.global_block().ops].count(
+        "recompute") == 2
+    _, init, _ = _graph_run(main, startup, loss, None, 0, None, amp)
+    for k in flash_attention.launches:
+        flash_attention.launches[k] = 0
+    g_loss, g_final, exe = _graph_run(main, startup, loss, init, 5, None,
+                                      amp)
+    assert dict(flash_attention.launches) == {"fwd": 8, "dq": 4, "dkv": 4}
+    i_loss, i_final, _ = _graph_run(main, startup, loss, init, 5, False,
+                                    amp)
+    assert exe.graph_stats()["captures"] == 1
+    assert exe.graph_stats()["replays"] == 3
+    assert g_loss == i_loss
+    _same_bits(g_final, i_final)
+    exe.close()
+
+
+def test_inference_server_replays_only_graphs_captured_at_construction(dev):
+    """Every bucket is captured while the server is built; dispatches
+    only replay, and their outputs equal the Executor's run of the same
+    images."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as tfw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.io import prune
+    from paddle_tpu_torch.serving import InferenceServer
+
+    tfw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, 16, 16])
+        conv = fluid.layers.conv2d(input=img, num_filters=4, filter_size=3,
+                                   act="relu")
+        bn = fluid.layers.batch_norm(input=conv)
+        pred = fluid.layers.fc(input=bn, size=10, act="softmax")
+    scope = Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    infer = prune(main, [pred], for_test=True)
+    imgs = np.random.RandomState(0).rand(11, 3, 16, 16).astype(np.float32)
+    srv = InferenceServer(infer, "img", pred, scope, buckets=(1, 2, 4, 8),
+                          window_ms=5.0)
+    try:
+        built = srv.graph_stats()
+        assert built == {"eager_runs": 4, "captures": 4, "replays": 0}
+        futs = [srv.submit(imgs[i]) for i in range(11)]
+        outs = np.concatenate([f.result(timeout=60) for f in futs])
+        after = srv.graph_stats()
+        assert after["captures"] == 4 and after["eager_runs"] == 4
+        assert after["replays"] == srv.stats()["dispatches"] > 0
+    finally:
+        srv.close()
+    direct = np.concatenate([exe.run(infer, feed={"img": imgs[i:i + 1]},
+                                     fetch_list=[pred], scope=scope)[0]
+                             for i in range(11)])
+    np.testing.assert_allclose(outs, direct, rtol=1e-5, atol=1e-6)
+
+
+def test_generators_read_nothing_back_per_token(dev):
+    """Greedy decoding with the full-forward generator, the kv decoder
+    and beam search raises no synchronising call under the sync debug
+    mode once warm, and the kv decoder's ids equal the full forward's."""
+    import numpy as np
+
+    from paddle_tpu_torch.core import framework as tfw
+    from paddle_tpu_torch.models import transformer as tr
+
+    V, L = 64, 32
+    built = {}
+    for name in ("build_lm_generator", "build_lm_kv_decoder"):
+        tfw.reset_unique_names()
+        built[name] = getattr(tr, name)(V, L, d_model=64, n_heads=2,
+                                        n_layers=2)[1]
+    tfw.reset_unique_names()
+    beam = tr.build_lm_beam_search(V, L, beam_size=4, d_model=64,
+                                   n_heads=2, n_layers=2)[1]
+    rng = np.random.RandomState(0)
+    states = {n: torch.as_tensor(rng.normal(0, 0.5, s).astype(np.float32),
+                                 device=dev)
+              for n, s in built["build_lm_kv_decoder"].state_shapes.items()}
+    prompt = torch.as_tensor(rng.randint(0, V, (4, 4)), device=dev)
+    full = built["build_lm_generator"](states, prompt, 20)   # warm-up
+    kv = built["build_lm_kv_decoder"](states, prompt, 20)
+    beam(states, prompt, 20)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        full2 = built["build_lm_generator"](states, prompt, 20)
+        kv2 = built["build_lm_kv_decoder"](states, prompt, 20)
+        beam(states, prompt, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(full, full2) and torch.equal(kv, kv2)
+    assert torch.equal(kv, full)
+
+
+def _momentum_program():
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as tfw
+
+    tfw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[6], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(input=x, size=8, act="relu")
+        pred = fluid.layers.fc(input=h, size=1)
+        test = main.clone(for_test=True)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.Momentum(learning_rate=0.1, momentum=0.9).minimize(loss)
+    return main, startup, loss, test, pred
+
+
+def test_program_to_fn_states_advance_through_replays(dev):
+    """`states = fn(feed, states)[1]` on the card: from the third call
+    the function replays its graph, whose new states are its own output
+    tensors, rewritten by every replay without a version bump.  Each
+    call's loss and states follow the interpreted Executor step for
+    step, and every state written moves at every call."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss, _, _ = _momentum_program()
+    scope = Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    fn = texecutor.program_to_fn(main, ["x", "y"], [loss])
+    states = {n: scope.find_var(n).clone() for n in fn.state_in_names}
+    rng = np.random.RandomState(0)
+    for call in range(6):
+        feed = {"x": rng.rand(4, 6).astype(np.float32),
+                "y": rng.rand(4, 1).astype(np.float32)}
+        want, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        compiled=False, return_numpy=False)
+        before = {n: v.clone() for n, v in states.items()}
+        fetches, states = fn(feed, states)
+        torch.testing.assert_close(fetches[loss.name], want, rtol=1e-6,
+                                   atol=1e-7)
+        for n in fn.state_in_names:
+            torch.testing.assert_close(states[n], scope.find_var(n),
+                                       rtol=1e-6, atol=1e-7, msg=n)
+        for n in fn.state_out_names:
+            assert not torch.equal(states[n], before[n]), (call, n)
+    assert fn.stats == {"eager_runs": 1, "captures": 1, "replays": 4}
+    fn.close()
+
+
+def test_program_to_fn_reads_states_an_executor_graph_rewrote(dev):
+    """A forward function reading the scope's states between default-mode
+    training steps: the Executor's replays write the new states into the
+    same tensors without a version bump, and each call of the function
+    sees the states of that moment."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, loss, test, pred = _momentum_program()
+    scope = Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    fn = texecutor.program_to_fn(test, ["x"], [pred])
+    rng = np.random.RandomState(1)
+    probe = rng.rand(4, 6).astype(np.float32)
+    seen = []
+    for step in range(6):
+        feed = {"x": rng.rand(4, 6).astype(np.float32),
+                "y": rng.rand(4, 1).astype(np.float32)}
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        states = {n: scope.find_var(n) for n in fn.state_in_names}
+        got = fn({"x": probe}, states)[0][pred.name].clone()
+        want, = exe.run(test, feed={"x": probe}, fetch_list=[pred],
+                        scope=scope, compiled=False, return_numpy=False)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+        assert not any(torch.equal(got, s) for s in seen), step
+        seen.append(got)
+    assert exe.graph_stats()["replays"] >= 4
+    assert fn.stats["replays"] >= 3
+    fn.close()
+    exe.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_conv_autograd_grad_is_the_explicit_grad_on_the_card(dev, dtype):
+    """Under PyTorch's default global cuDNN flags (TF32 allowed,
+    non-deterministic algorithms allowed), autograd through the conv2d
+    lowering, as a recompute segment's gradient takes it, gives the
+    explicit gradient's bits: its backward runs on the same pinned
+    backend."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.execution import ExecContext
+    from paddle_tpu_torch.core.execution import generic_grad_lower
+
+    c = torch.backends.cudnn
+    old = (c.allow_tf32, c.deterministic, c.benchmark)
+    c.allow_tf32, c.deterministic, c.benchmark = True, False, False
+    try:
+        gen = torch.Generator().manual_seed(0)
+        info = treg.get_op_info("conv2d")
+        attrs = {**info.attrs, "strides": [1, 1], "paddings": [1, 1]}
+        ins = {"Input": [torch.randn((8, 64, 56, 56), generator=gen)
+                         .to(dev, dtype)],
+               "Filter": [torch.randn((64, 64, 3, 3), generator=gen)
+                          .mul(0.05).to(dev, dtype)]}
+        ctx = ExecContext(dev)
+        out = info.lower(ctx, ins, attrs)["Output"]
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        ins["Output"] = [out]
+        ins["Output@GRAD"] = [torch.randn(tuple(out.shape), generator=gen)
+                              .to(dev, dtype)]
+        explicit = info.grad_lower(ctx, ins, attrs)
+        generic = generic_grad_lower(ctx, ins, attrs, info)
+    finally:
+        c.allow_tf32, c.deterministic, c.benchmark = old
+    for slot in ("Input@GRAD", "Filter@GRAD"):
+        assert torch.equal(generic[slot][0], explicit[slot][0]), slot

@@ -21,7 +21,7 @@ must be equal, in float32 and under bf16 amp (dtypes included).  Then
 The encoder's self-attention and the decoder's cross-attention are
 non-causal: the flash op runs both kinds.  The port's default (compiled)
 mode equals its interpreter bit for bit on the CPU, and `remat=True`
-raises naming ROADMAP A4b.
+builds and trains as the JAX package's remat build does.
 """
 import numpy as np
 import pytest
@@ -66,7 +66,7 @@ def _fresh_port_state():
 
 
 def _translate(fluid, fw, tr, dropout_rate=0.0, is_test=False,
-               optimize=True):
+               optimize=True, remat=False):
     """run_seq2seq's build_transformer (:39-60) at a tiny width."""
     fw.reset_unique_names()
     main, startup = fluid.Program(), fluid.Program()
@@ -77,7 +77,7 @@ def _translate(fluid, fw, tr, dropout_rate=0.0, is_test=False,
         logits = tr.transformer_translate(
             src, tgt, SV, TV, d_model=D, n_heads=H, n_layers=L,
             max_len=max(SRC, TGT), dropout_rate=dropout_rate,
-            is_test=is_test, return_logits=True, remat=False)
+            is_test=is_test, return_logits=True, remat=remat)
         cost = fluid.layers.softmax_with_cross_entropy(
             fluid.layers.reshape(logits, shape=[-1, TV]),
             fluid.layers.reshape(lbl, shape=[-1, 1]))
@@ -157,29 +157,37 @@ def test_lm_with_dropout_layers_matches_jax():
 
 
 def test_remat_raises_naming_a4b():
+    """remat no longer raises: with remat=True every encoder and decoder
+    block is a recompute segment, the JAX package's Program, and STEPS
+    Adam steps from the JAX startup train as the JAX package's remat
+    build does (losses 1e-5 relative, parameters atol 1e-5); the
+    `remat` flag builds the same segments with remat=None."""
+    jm, js, _ = _translate(jfluid, jfw, jtr, remat=True)
+    tm, ts, _ = _translate(tfluid, tfw, ttr, remat=True)
+    _assert_same_program(jm, tm)
+    _assert_same_program(js, ts)
+    assert sum(op.type == "recompute"
+               for op in tm.global_block().ops) == 2 * L
+    jl, tl, names, *_ = _train(amp=False, remat=True)
+    _assert_losses_close(jl, tl)
+    assert tl[-1] < tl[0]
+    _assert_params_close(names)
+    tflags.set_flags({"remat": True})
     with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
         src = tfluid.layers.data(name="src", shape=[SRC], dtype="int64")
-        tgt = tfluid.layers.data(name="tgt", shape=[TGT], dtype="int64")
-        with pytest.raises(NotImplementedError, match="A4b"):
-            ttr.transformer_translate(src, tgt, SV, TV, d_model=D,
-                                      n_heads=H, n_layers=1, remat=True)
-        with pytest.raises(NotImplementedError, match="A4b"):
-            ttr.transformer_encoder(src, SV, d_model=D, n_heads=H,
-                                    n_layers=1, remat=True)
-        tflags.set_flags({"remat": True})
-        with pytest.raises(NotImplementedError, match="A4b"):
-            ttr.transformer_encoder(src, SV, d_model=D, n_heads=H,
-                                    n_layers=1)
+        ttr.transformer_encoder(src, SV, d_model=D, n_heads=H, n_layers=1)
+        assert [op.type for op in tfluid.default_main_program()
+                .global_block().ops].count("recompute") == 1
 
 
 # -- training parity ---------------------------------------------------------
 
-def _train(amp, compiled_jax=None):
+def _train(amp, compiled_jax=None, remat=False):
     """STEPS Adam steps on both sides from the JAX startup -> (JAX
     losses, port losses, persistable names, parameter names, initial
     parameters, the port's main Program)."""
-    jm, js, jl = _translate(jfluid, jfw, jtr)
-    tm, ts, tl = _translate(tfluid, tfw, ttr)
+    jm, js, jl = _translate(jfluid, jfw, jtr, remat=remat)
+    tm, ts, tl = _translate(tfluid, tfw, ttr, remat=remat)
     jexe, texe, names = _start_both(jm, js, tm, ts)
     params = sorted(p.name for p in tm.global_block().all_parameters())
     init = {n: np.asarray(jexecutor.global_scope().find_var(n)).copy()

@@ -20,6 +20,8 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py dp2-fault
     python3 tools/torch_tree_probe.py replays [--package-root DIR]
     python3 tools/torch_tree_probe.py gloo-dtypes [--package-root DIR]
+    python3 tools/torch_tree_probe.py memory-plan [--package-root DIR]
+    python3 tools/torch_tree_probe.py a4b-a6 [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -83,6 +85,14 @@ gloo-dtypes  two processes on the one card over a gloo group: whether
            all_reduce and all_gather take CUDA tensors of each dtype the
            data-parallel step reduces (float32, bfloat16, float16,
            float64, int64), and the summed values;
+memory-plan  chip_smoke.py's replayed train (amp), seq2seq (amp) and
+           resnet50 steps (`memory_plan_steps`: peak memory over the
+           eager run, the capture and two replays, and the replay's ms)
+           with the compiled mode's frees taken out (`_Plan.dead_after`
+           returning none), then as the package has them, then without
+           and with again;
+a4b-a6     chip_smoke.py's remat, memory_plan, generate and image_serve
+           phases alone (the kernels built first);
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -836,6 +846,40 @@ def replays(cs, dev):
     cs.book08_phase(card, CUDAPlace(0), peaks)
 
 
+def memory_plan(cs, dev):
+    """The replayed steps' peaks without and with the compiled mode's
+    frees, in turns (without, with, with, without)."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.core import executor as executor_mod
+
+    _card(cs)
+    frees = executor_mod._Plan.dead_after
+    for label in ("without_frees", "with_frees", "with_frees",
+                  "without_frees"):
+        executor_mod._Plan.dead_after = (
+            frees if label == "with_frees"
+            else lambda self, keep: {})
+        try:
+            emit({"probe": "memory-plan", "run": label,
+                  "steps": cs.memory_plan_steps(CUDAPlace(0))})
+        finally:
+            executor_mod._Plan.dead_after = frees
+
+
+def a4b_a6(cs, dev):
+    """chip_smoke's remat, memory_plan, generate and image_serve phases,
+    the kernels built first."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, _, _ = _card(cs)
+    cuda_build.build_all()
+    emit({"remat_flash": cs.remat_phase(card, CUDAPlace(0))})
+    cs.memory_plan_phase(card, CUDAPlace(0))
+    cs.generate_phase(card, CUDAPlace(0))
+    cs.image_serve_phase(card, CUDAPlace(0))
+
+
 def _gloo_rank(rank, port, out_path):
     import torch.distributed as dist
 
@@ -889,7 +933,8 @@ def main():
                                       "a73",
                                       "sparse-host", "dp2-fault",
                                       "replays",
-                                      "gloo-dtypes"))
+                                      "gloo-dtypes", "memory-plan",
+                                      "a4b-a6"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -923,7 +968,8 @@ def main():
          "rnn": rnn, "book08": book08, "a73": a73,
          "sparse-host": sparse_host, "dp2-fault": dp2_fault,
          "replays": replays,
-         "gloo-dtypes": gloo_dtypes}[args.probe](cs, dev)
+         "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
+         "a4b-a6": a4b_a6}[args.probe](cs, dev)
     return 0
 
 

@@ -280,7 +280,26 @@ Phases, one JSON line each:
   image_serve  run_image's serve_one on ResNet-50 through
            InferenceServer: single-stream ms, requests/s under 256
            concurrent requests, every result against the Executor's,
-           no capture after construction.
+           no capture after construction;
+  persist  run_seq2seq's translator (amp, Adam) through the port's
+           Trainer, a snapshot every 2 iterations: killed at iteration 4
+           by the `trainer.iteration` fault site and resumed by a new
+           Trainer in a fresh scope, bit-equal to an uninterrupted run
+           in its steps, losses and every persistable; step 2's snapshot
+           loaded into the uninterrupted run's captured graph replays
+           steps 3-4 bit for bit; the checkpoint's bytes, save and load
+           seconds; then image_serve's ResNet-50 saved as an inference
+           model (one file a variable, and one params file), loaded into
+           a fresh scope and served: logits bit-equal to the in-memory
+           program's; its parameters through Parameters' tar bit for bit;
+  conv_rest  A3's ten ops at published shapes (the CR_ constants):
+           forward and gradient on the card, twice bit for bit, timed,
+           with ATen's convolution route; card against the CPU at batch
+           2 (float32 held to the CPU's float64 no worse than twice the
+           CPU's float32; bf16 within one ulp of the CPU's float32 on the
+           same values); then DCGAN (the DC_ constants) trained 4
+           alternating iterations in the default mode and interpreted,
+           bit for bit, and card against CPU in float64 at batch 8.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -290,9 +309,10 @@ kernel's launch counts are zeroed just before its path and read just
 after.  A CUDA graph's replay runs the captured kernels without their
 wrappers, so on the train, seq2seq and moe paths the counts cover the
 eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step.  The image, optimizers, ctr, rnn,
-book08, book07, dp_gspmd, ssd, ocr_ctc and readers phases run no kernel
-of the port's own (the JAX package runs the recurrences, the CRF and CTC
+profiler's count in a replayed step (and the persist phase's
+uninterrupted seq2seq run's wrapper counts).  The image, optimizers, ctr,
+rnn, book08, book07, dp_gspmd, ssd, ocr_ctc, readers and conv_rest
+phases run no kernel of the port's own (the JAX package runs the recurrences, the CRF and CTC
 as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
 gathers, einsums and segment sums, the While loop, beam search,
 chunk_eval, matching, mining, NMS, mAP and the readers on the host and
@@ -313,6 +333,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -405,9 +426,9 @@ M_GATE_STD = 0.05
 OPS_RTOL = 1e-5
 # the corpus's op types: 89 dense, 19 LoD sequence and recurrent, the 4
 # IfElse split and merge ops (host ops) and their gradient ops, the 3
-# CRF ops (chunk_eval a host op), and the 8 device ops of CTC, the
-# sampled losses and detection
-OPS_TYPES = 123
+# CRF ops (chunk_eval a host op), the 8 device ops of CTC, the
+# sampled losses and detection, and the 10 conv ops of A3's rest
+OPS_TYPES = 133
 
 # the image configurations: benchmark/run_image.py's resnet50 at its
 # defaults (224x224, 1000 classes, batch 128, bf16 throughout: the image,
@@ -593,6 +614,38 @@ DECIDE_RTOL = 1e-5
 W_ROWS, W_WIDTH, W_CLASSES, W_NEG = 12800, 512, 30000, 10
 W_ROI_X, W_ROIS = (2, 512, 38, 50), 128
 P2_TWIN = {"resnet_cifar10": None, "resnet_cifar10_fp32": "float64"}
+
+# the persist phase: run_seq2seq's translator (S_ constants, bf16 amp,
+# Adam) through the port's Trainer for PS_ITERS iterations, a snapshot
+# every PS_EVERY, killed at iteration PS_KILL and resumed; then
+# image_serve's ResNet-50 saved and served from disk
+PS_ITERS, PS_EVERY, PS_KILL = 6, 2, 4
+# the conv_rest phase: A3's ten ops at published shapes, forward and
+# gradient on the card, against the CPU at batch CR_CPU_BATCH.  C3D's
+# conv1 and pool (Tran et al. 2015; the 2x2x2 / 2 pool of its later
+# stages); 3D U-Net's 2x2x2 stride-2 up-convolution (Cicek et al.
+# 2016); SegNet's first encoder pool (Badrinarayanan et al. 2017; and
+# an overlapping 3x3 / 2 case); SPP-net's conv5 pyramid (He et al.
+# 2014); DeepSpeech2's row convolution width (Amodei et al. 2016) with
+# a 20-frame lookahead over a ragged LoD; NTM's shift weighting (Graves
+# et al. 2014)
+CR_C3D, CR_C3D_OUT = (8, 3, 16, 112, 112), 64
+CR_UNET, CR_UNET_OUT = (2, 256, 16, 16, 16), 128
+CR_SEGNET = (4, 64, 360, 480)
+CR_SPP, CR_SPP_HEIGHT = (64, 256, 13, 13), 3
+CR_ROW_BATCH, CR_ROW_LEN, CR_ROW_D, CR_ROW_FUTURE = 32, 500, 1760, 20
+CR_SHIFT, CR_SHIFT_M = (128, 128), 3
+CR_CPU_BATCH = 2
+# DCGAN (Radford et al. 2016, sections 3-4): z 100 -> 4x4x1024 -> ... ->
+# 64x64x3 through conv2d_transpose, the mirror through conv2d; batch
+# norm but at G's output and D's input; ReLU / tanh in G, LeakyReLU 0.2
+# in D; Adam 2e-4, beta1 0.5; batch 128; weights N(0, 0.02).  Cut: 4x4
+# kernels at stride 2, pad 1 (the JAX conv2d_transpose has no
+# output_padding, so the paper's 5x5 cannot map 4 -> 8)
+DC_Z, DC_IMG, DC_BATCH = 100, 64, 128
+DC_G_WIDTHS, DC_D_WIDTHS = (1024, 512, 256, 128), (128, 256, 512, 1024)
+DC_LR, DC_BETA1, DC_STD, DC_SLOPE, DC_ITERS = 2e-4, 0.5, 0.02, 0.2, 4
+DC_CPU_BATCH, DC_CPU_ITERS = 8, 2
 
 
 class CheckFailed(RuntimeError):
@@ -3451,7 +3504,8 @@ def _op_run(case, info, dev, dtype, cots=None):
 
 def _op_err(card, cpu):
     """Card against CPU: max |card - cpu| over max(1, max |cpu|) for
-    floats (the same non-finite positions), 0 or inf for the rest."""
+    floats (the same NaN positions, the same infinities), 0 or inf for
+    the rest."""
     card = card.cpu()
     if card.shape != cpu.shape or card.dtype != cpu.dtype:
         return float("inf")
@@ -3459,8 +3513,10 @@ def _op_err(card, cpu):
         return 0.0 if torch.equal(card, cpu) else float("inf")
     a, b = card.double(), cpu.double()
     fin = torch.isfinite(b)
+    inf = torch.isinf(b)
     if not torch.equal(fin, torch.isfinite(a)) \
-            or not torch.equal(a[~fin], b[~fin]):
+            or not torch.equal(torch.isnan(a), torch.isnan(b)) \
+            or not torch.equal(a[inf], b[inf]):
         return float("inf")
     if not bool(fin.any()):
         return 0.0
@@ -7833,6 +7889,817 @@ def image_serve_phase(card, place):
                     "submitted at once until the last result"})
 
 
+
+# -- the DCGAN (conv_rest phase) ---------------------------------------------
+
+def _dcgan_programs(fluid, fw, z_dim=DC_Z, img=DC_IMG, g_widths=DC_G_WIDTHS,
+                    d_widths=DC_D_WIDTHS, dtype="float32"):
+    """DCGAN's G and D as Paddle's fluid GAN demo builds them, in either
+    package (`fluid`): D's program (a real and a fake batch, one Adam
+    step over D's parameters), G + D's program (one Adam step over G's)
+    and G alone (its clone before D), on one startup, the two nets'
+    parameters shared by name -> (startup, d_prog, dg_prog, g_prog,
+    d_loss, dg_loss, g_img).  A layer that batch norm follows has no
+    bias: its gradient would be rounding noise (the norm removes the
+    mean), which Adam turns into learning-rate-sized moves."""
+    layers = fluid.layers
+    fw.reset_unique_names()
+
+    def attr(name, std=True):
+        return fluid.ParamAttr(name=name, initializer=(
+            fluid.initializer.Normal(0.0, DC_STD) if std else None))
+
+    def bn(x, name, act):
+        return layers.batch_norm(
+            x, act=act, param_attr=attr(name + ".s", False),
+            bias_attr=attr(name + ".o", False),
+            moving_mean_name=name + ".m", moving_variance_name=name + ".v")
+
+    def gen(z):
+        side = img // 2 ** len(g_widths)
+        h = layers.fc(z, g_widths[0] * side * side,
+                      param_attr=attr("g.fc.w"), bias_attr=False)
+        h = bn(layers.reshape(h, shape=[-1, g_widths[0], side, side]),
+               "g.bn0", "relu")
+        outs = list(g_widths[1:]) + [3]
+        for i, c in enumerate(outs, 1):
+            last = i == len(outs)
+            h = layers.conv2d_transpose(
+                h, c, filter_size=4, stride=2, padding=1,
+                param_attr=attr(f"g.ct{i}.w"),
+                bias_attr=attr(f"g.ct{i}.b", False) if last else False,
+                act="tanh" if last else None)
+            if not last:
+                h = bn(h, f"g.bn{i}", "relu")
+        return h
+
+    def disc(x):
+        h = x
+        for i, c in enumerate(d_widths):
+            h = layers.conv2d(h, c, 4, stride=2, padding=1,
+                              param_attr=attr(f"d.c{i}.w"),
+                              bias_attr=False if i else attr("d.c0.b",
+                                                             False))
+            if i:
+                h = bn(h, f"d.bn{i}", None)
+            h = layers.leaky_relu(h, alpha=DC_SLOPE)
+        return layers.fc(h, 1, param_attr=attr("d.fc.w"),
+                         bias_attr=attr("d.fc.b", False))
+
+    def bce(logit, label):
+        return layers.mean(layers.sigmoid_cross_entropy_with_logits(
+            logit, label))
+
+    startup, d_prog, dg_prog = (fluid.Program(), fluid.Program(),
+                                fluid.Program())
+    with fluid.program_guard(d_prog, startup):
+        real = layers.data("real", [3, img, img], dtype=dtype)
+        fake = layers.data("fake", [3, img, img], dtype=dtype)
+        ones = layers.data("ones", [1], dtype=dtype)
+        zeros = layers.data("zeros", [1], dtype=dtype)
+        d_loss = layers.elementwise_add(bce(disc(real), ones),
+                                        bce(disc(fake), zeros))
+        fluid.Adam(learning_rate=DC_LR, beta1=DC_BETA1).minimize(
+            d_loss, startup_program=startup, parameter_list=sorted(
+                p.name for p in d_prog.global_block().all_parameters()))
+    with fluid.program_guard(dg_prog, startup):
+        noise = layers.data("noise", [z_dim], dtype=dtype)
+        g_img = gen(noise)
+        g_prog = dg_prog.clone()
+        ones = layers.data("ones", [1], dtype=dtype)
+        dg_loss = bce(disc(g_img), ones)
+        fluid.Adam(learning_rate=DC_LR, beta1=DC_BETA1).minimize(
+            dg_loss, startup_program=startup, parameter_list=sorted(
+                p.name for p in dg_prog.global_block().all_parameters()
+                if p.name.startswith("g.")))
+    return startup, d_prog, dg_prog, g_prog, d_loss, dg_loss, g_img
+
+
+def _dcgan_batches(iters, batch, z_dim=DC_Z, img=DC_IMG, dtype=np.float32,
+                   seed=SEED):
+    """Each iteration's real images in [-1, 1] and its two noise batches
+    (numpy, from `seed`)."""
+    r = np.random.RandomState(seed)
+    return [{"real": (r.rand(batch, 3, img, img) * 2 - 1).astype(dtype),
+             "z_d": r.standard_normal((batch, z_dim)).astype(dtype),
+             "z_g": r.standard_normal((batch, z_dim)).astype(dtype)}
+            for _ in range(iters)]
+
+
+def _dcgan_iteration(exe, progs, batch, compiled=None, scope=None):
+    """One alternating iteration: G makes a fake batch, D takes a step on
+    it and the real batch, G + D a step for G -> (d_loss, dg_loss)."""
+    _, d_prog, dg_prog, g_prog, d_loss, dg_loss, g_img = progs
+    n = batch["real"].shape[0]
+    one = np.ones((n, 1), batch["real"].dtype)
+    fake, = exe.run(g_prog, feed={"noise": batch["z_d"]},
+                    fetch_list=[g_img], compiled=compiled,
+                    return_numpy=False, scope=scope)
+    d, = exe.run(d_prog, feed={"real": batch["real"], "fake": fake,
+                               "ones": one, "zeros": one * 0},
+                 fetch_list=[d_loss], compiled=compiled, scope=scope)
+    g, = exe.run(dg_prog, feed={"noise": batch["z_g"], "ones": one},
+                 fetch_list=[dg_loss], compiled=compiled, scope=scope)
+    return float(np.asarray(d).reshape(-1)[0]), \
+        float(np.asarray(g).reshape(-1)[0])
+
+
+# -- persist phase -----------------------------------------------------------
+
+def _s2s_reader(iters):
+    """PS_ITERS batches of run_seq2seq's shapes, ids from RandomState(SEED +
+    i), as batch readers yield them (a list of (src, tgt, lbl) rows)."""
+    def reader():
+        for i in range(iters):
+            r = np.random.RandomState(SEED + i)
+            shape = (S_BATCH, S_LEN)
+            src, tgt = (r.randint(0, S_VOCAB, shape) for _ in range(2))
+            lbl = r.randint(0, S_VOCAB, shape + (1,))
+            yield [(src[b], tgt[b], lbl[b]) for b in range(S_BATCH)]
+    return reader
+
+
+def _state_of(main, scope):
+    """Every persistable's tensor in `scope`, cloned."""
+    return {n: scope.find_var(n).clone() for n in _persistables(main)}
+
+
+def _states_equal(got, want):
+    """-> the names whose dtype or bits differ."""
+    return sorted(n for n in want if got[n].dtype != want[n].dtype
+                  or not torch.equal(got[n], want[n]))
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _persist_seq2seq(card, place):
+    """run_seq2seq's translator through the port's Trainer: PS_ITERS
+    iterations with a snapshot every PS_EVERY; a run killed at iteration
+    PS_KILL by the `trainer.iteration` fault site and resumed by a new
+    Trainer in a fresh scope; then step PS_EVERY's snapshot loaded into
+    the uninterrupted run's own scope and Executor (its graph captured)
+    and iterations PS_EVERY + 1 .. 2 PS_EVERY run again."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io, trainer
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.resilience import fault_injector
+    from paddle_tpu_torch.core.scope import Scope
+
+    root = tempfile.mkdtemp(prefix="persist_")
+    fluid.amp.enable_bf16()     # before the Program is built
+    prev_scope = executor_mod.switch_scope(Scope())
+    t_ref = None
+    try:
+        main, startup, loss = _s2s_program()
+        blk = main.global_block()
+        feed_vars = [blk.var(n) for n in ("src", "tgt", "lbl")]
+        reader = _s2s_reader(PS_ITERS)
+
+        def run(ckpt, keep, kill=None, at=None, resume=False):
+            scope = Scope()
+            executor_mod.switch_scope(scope)
+            t = trainer.Trainer(loss, feed_list=feed_vars,
+                                main_program=main, startup_program=startup,
+                                place=place)
+            losses, states = [], {}
+
+            def handler(e):
+                if isinstance(e, trainer.EndIteration):
+                    losses.append(float(e.cost))
+                    if t.step == at:
+                        states.update(_state_of(main, scope))
+            if kill:
+                fault_injector().inject("trainer.iteration", "error",
+                                        nth=kill,
+                                        exc=RuntimeError("killed"))
+            t0 = time.perf_counter()
+            try:
+                t.train(1, reader, event_handler=handler,
+                        checkpoint_dir=None if resume else ckpt,
+                        resume_from=ckpt if resume else None,
+                        checkpoint_every_n_passes=0,
+                        checkpoint_every_n_iters=PS_EVERY,
+                        checkpoint_max_keep=keep)
+            except RuntimeError as e:
+                if not (kill and str(e) == "killed"):
+                    raise
+            finally:
+                fault_injector().clear()
+            torch.cuda.synchronize()
+            return t, scope, losses, states, time.perf_counter() - t0
+
+        counts = _flash_counts()
+        ref_dir = os.path.join(root, "uninterrupted")
+        t_ref, ref_scope, ref_losses, at_4, ref_s = run(
+            ref_dir, 3, at=2 * PS_EVERY)
+        want = _state_of(main, ref_scope)
+        launches = {k: f() for k, f in counts.items()}
+        check(t_ref.step == PS_ITERS and len(ref_losses) == PS_ITERS,
+              f"persist: the uninterrupted run took {t_ref.step} steps")
+        # the wrappers count at the eager first step and at the capture;
+        # the replays launch the captured 3 * S_LAYERS of each a step
+        check(all(v == 2 * 3 * S_LAYERS for v in launches.values()),
+              f"persist: flash launches {launches} over the uninterrupted "
+              f"run, want {2 * 3 * S_LAYERS} of each")
+        graphs = t_ref.exe.graph_stats()
+        check(graphs["captures"] >= 1 and graphs["replays"] >= 1,
+              f"persist: the uninterrupted run's graphs {graphs}")
+
+        run_dir = os.path.join(root, "killed")
+        t_k, _, k_losses, _, kill_s = run(run_dir, 1, kill=PS_KILL)
+        check(t_k.step == PS_KILL - 1, f"persist: the killed run took "
+              f"{t_k.step} steps, want {PS_KILL - 1}")
+        t_k.exe.close()
+        t_r, r_scope, r_losses, _, resume_s = run(run_dir, 1, resume=True)
+        got = _state_of(main, r_scope)
+        t_r.exe.close()
+        differ = _states_equal(got, want)
+        first = (PS_KILL - 1) // PS_EVERY * PS_EVERY   # the snapshot's step
+        check(t_r.step == PS_ITERS and r_losses == ref_losses[first:]
+              and k_losses == ref_losses[:PS_KILL - 1] and not differ,
+              f"persist: the resumed run ({t_r.step} steps, losses "
+              f"{r_losses}) against the uninterrupted ({ref_losses}); "
+              f"persistables differing: {differ[:5]}")
+        del got
+
+        # in process: step PS_EVERY's snapshot into the captured run
+        snaps = {}
+        for name in os.listdir(ref_dir):
+            meta = os.path.join(ref_dir, name, io.META_FILENAME)
+            if os.path.exists(meta):
+                with open(meta) as f:
+                    snaps[json.load(f)["trainer_args"]["step"]] = name
+        snap = os.path.join(ref_dir, snaps[PS_EVERY])
+        executor_mod.switch_scope(ref_scope)
+        replays = t_ref.exe.graph_stats()["replays"]
+        t0 = time.perf_counter()
+        io.load_persistables(t_ref.exe, snap, main)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        feeder = t_ref._feeder()
+        again = []
+        for batch in list(reader())[PS_EVERY:2 * PS_EVERY]:
+            out = t_ref.exe.run(main, feed=feeder.feed(batch),
+                                fetch_list=[loss])
+            again.append(float(out[0].reshape(-1)[0]))
+        in_process = _states_equal(_state_of(main, ref_scope), at_4)
+        replayed = t_ref.exe.graph_stats()["replays"] - replays
+        check(again == ref_losses[PS_EVERY:2 * PS_EVERY]
+              and not in_process and replayed == PS_EVERY,
+              f"persist: the in-process load gave losses {again}, want "
+              f"{ref_losses[PS_EVERY:2 * PS_EVERY]} ({replayed} replays); "
+              f"persistables differing: {in_process[:5]}")
+        t0 = time.perf_counter()
+        io.save_checkpoint(t_ref.exe, os.path.join(root, "timed"), main,
+                           max_keep=1)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(snap)
+        return {"source": "benchmark/run_seq2seq.py:39-60 (transformer "
+                          "defaults: d 512, 8 heads, 6 + 6 layers, vocab "
+                          "30000, batch 32, lengths 128, Adam 1e-4, bf16 "
+                          "amp)",
+                "iterations": PS_ITERS, "snapshot_every": PS_EVERY,
+                "killed_at_iteration": PS_KILL,
+                "resumed_from_step": first, "losses": ref_losses,
+                "persistables": len(want), "persistables_bit_equal": True,
+                "in_process_load_into_captured_graph": {
+                    "snapshot_step": PS_EVERY, "replays": replayed,
+                    "losses": again, "bit_equal": True},
+                "uninterrupted_graphs": graphs,
+                "flash_launches_uninterrupted": launches,
+                "checkpoint_bytes": nbytes, "checkpoint_files": len(
+                    os.listdir(snap)),
+                "save_s": save_s, "load_s": load_s,
+                "load_note": "load_persistables of one snapshot (the "
+                             "in-process load); save_s one "
+                             "save_checkpoint (files, md5, pointer, GC)",
+                "uninterrupted_s": ref_s, "killed_run_s": kill_s,
+                "resumed_run_s": resume_s}
+    finally:
+        if t_ref is not None:
+            t_ref.exe.close()
+        executor_mod.switch_scope(prev_scope)
+        fluid.amp.disable_bf16()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _persist_resnet_serve(card, place):
+    """image_serve's ResNet-50 (bf16) saved with save_inference_model, one
+    file a variable and with params_filename, each loaded into a fresh
+    scope and served by an InferenceServer: its logits for SRV_SINGLE
+    single requests (bucket 1) bit-equal to the in-memory inference
+    Program's server; and the parameters through Parameters.to_tar /
+    from_tar bit for bit."""
+    import io as pyio
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.serving import InferenceServer
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, R_IMG, R_IMG],
+                                dtype="bfloat16")
+        probs = fluid.models.resnet_imagenet(img, class_dim=R_CLASSES,
+                                             depth=R_DEPTH)
+    soft, = [op for op in main.global_block().ops
+             if op.type == "softmax" and op.output("Out") == [probs.name]]
+    predict = main.global_block().var(soft.input("X")[0])
+    scope = Scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    reqs = [torch.from_numpy(rng.rand(1, 3, R_IMG, R_IMG).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(SRV_SINGLE)]
+
+    def serve(program, fetch, sc):
+        srv = InferenceServer(program, "img", fetch, sc, place=place,
+                              buckets=(1,), window_ms=SRV_WINDOW_MS)
+        try:
+            return [np.asarray(srv.submit(q).result(timeout=120))
+                    for q in reqs]
+        finally:
+            srv.close()
+
+    root = tempfile.mkdtemp(prefix="persist_serve_")
+    try:
+        want = serve(io.get_inference_program([predict], main), predict,
+                     scope)
+        layouts = {}
+        for layout, params_filename in (("one_file_a_variable", None),
+                                        ("params_filename", "__params__")):
+            d = os.path.join(root, layout)
+            t0 = time.perf_counter()
+            io.save_inference_model(d, ["img"], [predict], exe,
+                                    main_program=main, scope=scope,
+                                    params_filename=params_filename)
+            save_s = time.perf_counter() - t0
+            sc = Scope()
+            t0 = time.perf_counter()
+            prog, feeds, fetches = io.load_inference_model(
+                d, exe, params_filename=params_filename, scope=sc)
+            load_s = time.perf_counter() - t0
+            got = serve(prog, fetches[0], sc)
+            equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+            check(feeds == ["img"] and equal, f"persist: ResNet-50 served "
+                  f"from {layout} differs from the in-memory program's")
+            layouts[layout] = {"files": len(os.listdir(d)),
+                               "bytes": _dir_bytes(d), "save_s": save_s,
+                               "load_s": load_s, "logits_bit_equal": True}
+        params = Parameters(main, scope)
+        buf = pyio.BytesIO()
+        t0 = time.perf_counter()
+        params.to_tar(buf)
+        tar_s = time.perf_counter() - t0
+        back = Parameters.from_tar(pyio.BytesIO(buf.getvalue()))
+        differ = [n for n in params.names() if not torch.equal(
+            back._tensor(n), scope.find_var(n).cpu())]
+        check(back.names() == params.names() and not differ,
+              f"persist: Parameters tar round trip differs in {differ[:5]}")
+        return {"source": "benchmark/run_image.py:154-204 (resnet50, 224, "
+                          "bf16; buckets (1,): every request alone)",
+                "requests": SRV_SINGLE, "layouts": layouts,
+                "parameters_tar": {"parameters": len(params.names()),
+                                   "bytes": len(buf.getvalue()),
+                                   "to_tar_s": tar_s, "bit_equal": True}}
+    finally:
+        exe.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def persist_phase(card, place):
+    """The seq2seq Trainer killed and resumed, the in-process load into a
+    captured graph, and ResNet-50 served from a saved model (see
+    `_persist_seq2seq`, `_persist_resnet_serve`) -> the flash launches of
+    the uninterrupted seq2seq run."""
+    t0 = time.perf_counter()
+    s2s = _persist_seq2seq(card, place)
+    serve = _persist_resnet_serve(card, place)
+    emit({"phase": "persist", "card": card, "seq2seq_resume": s2s,
+          "resnet50_served_from_disk": serve,
+          "phase_s": time.perf_counter() - t0,
+          "timing": "host clock (time.perf_counter) around the calls, "
+                    "synchronized; the checkpoint files on the machine's "
+                    "local temporary directory (a warm page cache)"})
+    return s2s["flash_launches_uninterrupted"]
+
+
+# -- conv_rest phase ---------------------------------------------------------
+
+def _cr_lod(batch, length, seed=SEED):
+    """A ragged LoD of `batch` sequences of at most `length` rows."""
+    lens = np.random.RandomState(seed).randint(length // 2, length + 1,
+                                               batch)
+    return [[0] + np.cumsum(lens).tolist()]
+
+
+def _cr_cases():
+    """(name, op, inputs at batch n -> {slot: numpy or (numpy, lod)}, attrs,
+    float dtypes) for A3's ten ops at the conv_rest shapes."""
+    def rnd(shape, seed, scale=1.0):
+        return (np.random.RandomState(seed).standard_normal(shape)
+                * scale).astype(np.float32)
+
+    def c3d(n):
+        return {"Input": rnd((n,) + CR_C3D[1:], 1),
+                "Filter": rnd((CR_C3D_OUT, 3, 3, 3, 3), 2, 0.1)}
+
+    def c3d_out(n):
+        return {"X": rnd((n, CR_C3D_OUT) + CR_C3D[2:], 3)}
+
+    def unet(n):
+        return {"Input": rnd((n,) + CR_UNET[1:], 4),
+                "Filter": rnd((CR_UNET[1], CR_UNET_OUT, 2, 2, 2), 5, 0.05)}
+
+    def segnet(shape):
+        return lambda n: {"X": rnd((n,) + shape[1:], 6)}
+
+    def unpool(shape, attrs):
+        """SegNet's pairing: the pooled values and the pool's indices."""
+        def make(n):
+            x = torch.from_numpy(segnet(shape)(n)["X"]).cuda()
+            o, _ = _cr_call("max_pool2d_with_index", {"X": [x]}, attrs,
+                            x.device)
+            return {"X": o["Out"].cpu().numpy(),
+                    "Indices": o["Mask"].cpu().numpy()}
+        return make
+
+    def row(n):
+        lod = _cr_lod(n, CR_ROW_LEN)
+        return {"X": (rnd((lod[0][-1], CR_ROW_D), 7), lod),
+                "Filter": rnd((CR_ROW_FUTURE + 1, CR_ROW_D), 8, 0.1)}
+
+    pool = {"ksize": [2, 2, 2], "strides": [2, 2, 2]}
+    seg2 = {"ksize": [2, 2], "strides": [2, 2]}
+    seg3 = {"ksize": [3, 3], "strides": [2, 2]}
+    # 359 x 479: unpool's size rule maps the 3x3 / 2 pool's 179 x 239
+    # back onto it
+    seg_odd = CR_SEGNET[:2] + (359, 479)
+    both = (torch.float32, torch.bfloat16)
+    return [
+        ("conv3d.c3d_conv1", "conv3d", c3d,
+         {"paddings": [1, 1, 1]}, both),
+        ("pool3d.c3d_pool", "pool3d", c3d_out, pool, (torch.float32,)),
+        ("max_pool3d_with_index.c3d_pool", "max_pool3d_with_index",
+         c3d_out, pool, (torch.float32,)),
+        ("conv3d_transpose.unet_up", "conv3d_transpose", unet,
+         {"strides": [2, 2, 2]}, both),
+        ("conv2d_transpose.dcgan_g2", "conv2d_transpose",
+         lambda n: {"Input": rnd((n, 512, 8, 8), 9),
+                    "Filter": rnd((512, 256, 4, 4), 10, 0.05)},
+         {"strides": [2, 2], "paddings": [1, 1]}, both),
+        ("max_pool2d_with_index.segnet", "max_pool2d_with_index",
+         segnet(CR_SEGNET), seg2, (torch.float32,)),
+        ("max_pool2d_with_index.overlapping", "max_pool2d_with_index",
+         segnet(seg_odd), seg3, (torch.float32,)),
+        ("unpool.segnet", "unpool", unpool(CR_SEGNET, seg2), seg2,
+         (torch.float32,)),
+        ("unpool.overlapping", "unpool", unpool(seg_odd, seg3), seg3,
+         (torch.float32,)),
+        ("spp.sppnet_conv5", "spp",
+         lambda n: {"X": rnd((n,) + CR_SPP[1:], 11)},
+         {"pyramid_height": CR_SPP_HEIGHT}, (torch.float32,)),
+        ("row_conv.deepspeech2", "row_conv", row, {}, (torch.float32,)),
+        ("conv_shift.ntm", "conv_shift",
+         lambda n: {"X": rnd((n, CR_SHIFT[1]), 12),
+                    "Y": rnd((n, CR_SHIFT_M), 13)}, {},
+         (torch.float32,)),
+    ]
+
+
+# each case's full batch (C3D, 3D U-Net, SegNet, SPP-net, DeepSpeech2 and
+# NTM as above; conv2d_transpose at the DCGAN generator's second layer,
+# [128, 512, 8, 8] -> 256 at 16 x 16)
+_CR_FULL = {"conv3d": CR_C3D[0], "pool3d": CR_C3D[0],
+            "max_pool3d_with_index": CR_C3D[0],
+            "conv3d_transpose": CR_UNET[0], "conv2d_transpose": DC_BATCH,
+            "max_pool2d_with_index": CR_SEGNET[0], "unpool": CR_SEGNET[0],
+            "spp": CR_SPP[0], "row_conv": CR_ROW_BATCH,
+            "conv_shift": CR_SHIFT[0]}
+
+
+def _cr_inputs(ins, dev, dtype):
+    """numpy case inputs -> {slot: [value on dev]}, floats in `dtype`, an
+    (array, lod) input as a LoDTensor."""
+    from paddle_tpu_torch.core.lod import LoDTensor
+
+    out = {}
+    for slot, a in ins.items():
+        arr, lod = a if isinstance(a, tuple) else (a, None)
+        t = torch.from_numpy(arr).to(dev)
+        t = t.to(dtype) if t.is_floating_point() else t
+        out[slot] = [LoDTensor(t, lod) if lod else t]
+    return out
+
+
+def _cr_call(op, vals, attrs, dev, cots=None):
+    """The op's forward and, with `cots` ({slot: tensor on dev}), its
+    gradient (the explicit gradient lowering where the op has one, else
+    the generic one) -> ({slot: tensor}, {slot: tensor})."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 generic_grad_lower)
+    from paddle_tpu_torch.core.lod import LoDTensor
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    info = get_op_info(op)
+    attrs = {**info.attrs, **attrs}
+
+    def data(v):
+        return v.data if isinstance(v, LoDTensor) else v
+
+    outs = {s: data(v) for s, v in info.lower(ExecContext(dev), vals,
+                                              attrs).items()}
+    if not cots:
+        return outs, {}
+    g_ins = dict(vals)
+    g_ins.update({s: [outs[s]] for s in info.outputs if s in outs})
+    g_ins.update({s + GRAD: [c] for s, c in cots.items()})
+    fn = info.grad_lower or (lambda c, i, a: generic_grad_lower(c, i, a,
+                                                                info))
+    return outs, {s[:-len(GRAD)]: data(v[0]) for s, v in fn(
+        ExecContext(dev), g_ins, attrs).items() if v and v[0] is not None}
+
+
+def _cr_ulps(card, cpu):
+    """bf16 card against the CPU's float32 on the same bf16 values: max
+    |card - CPU| in bf16 ulps of max |CPU|."""
+    if not cpu.is_floating_point():
+        return _op_err(card, cpu)
+    a, b = card.cpu().double(), cpu.double()
+    ulp = 2.0 ** (np.floor(np.log2(float(b.abs().max()))) - 7)
+    return float((a - b).abs().max()) / ulp
+
+
+def _cr_route(op, ins, attrs, dtype):
+    """ATen's convolution backend for the op's arguments (the lowering's
+    own `_conv_args`) under its pinned flags."""
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.ops.conv import _conv_args, conv_pinned
+
+    if op not in ("conv3d", "conv2d_transpose", "conv3d_transpose"):
+        return "plain PyTorch (no convolution)"
+    x = torch.empty(ins["Input"].shape, dtype=dtype, device="cuda")
+    w = torch.empty(ins["Filter"].shape, dtype=dtype, device="cuda")
+    n, transposed = x.dim() - 2, op.endswith("transpose")
+    s, p, d, g = _conv_args({**get_op_info(op).attrs, **attrs}, n,
+                            groups=not transposed)
+    with conv_pinned(dtype):
+        return str(torch._C._select_conv_backend(
+            x, w, None, list(s), list(p), list(d), transposed, [0] * n, g,
+            None))
+
+
+def _cr_ops(card, dev):
+    """Each op of `_cr_cases` at its full batch on the card (forward, and
+    forward with gradient, timed between CUDA events; two runs bit for
+    bit), then at batch CR_CPU_BATCH on the card and on the CPU from the
+    same inputs and cotangents (bf16: the CPU in float32 on the same
+    bf16 values)."""
+    rows = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    for name, op, make, attrs, dtypes in _cr_cases():
+        full_np = make(_CR_FULL[op])
+        for dtype in dtypes:
+            key = name + ("" if dtype == torch.float32 else ".bf16")
+            full = _cr_inputs(full_np, dev, dtype)
+            outs, _ = _cr_call(op, full, attrs, dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            cots = {s: torch.randn(v.shape, generator=gen, device=dev,
+                                   dtype=v.dtype)
+                    for s, v in outs.items() if v.is_floating_point()}
+            del outs
+            first, again = (_cr_call(op, full, attrs, dev, cots)
+                            for _ in range(2))
+            check(all(torch.equal(a, b) for d1, d2 in zip(first, again)
+                      for a, b in zip(d1.values(), d2.values())),
+                  f"conv_rest {key}: two card runs differ")
+            del first, again
+            fwd_ms = cold_ms(lambda: _cr_call(op, full, attrs, dev), 3,
+                             flush)
+            both_ms = cold_ms(lambda: _cr_call(op, full, attrs, dev, cots),
+                              3, flush)
+            route = _cr_route(op, full_np, attrs, dtype)
+            del full, cots
+            torch.cuda.empty_cache()
+            small = make(CR_CPU_BATCH)
+            if dtype == torch.bfloat16:     # bf16 values, float32 arrays
+                small = {k: torch.from_numpy(v).to(dtype).float().numpy()
+                         for k, v in small.items()}
+            c_vals = _cr_inputs(small, "cpu", torch.float32)
+            c_out, _ = _cr_call(op, c_vals, attrs, "cpu")
+            r = np.random.RandomState(SEED + 1)
+            c_cots = {s: torch.from_numpy(r.standard_normal(
+                tuple(v.shape)).astype(np.float32))
+                for s, v in c_out.items() if v.is_floating_point()}
+            if dtype == torch.bfloat16:
+                c_cots = {k: v.to(dtype).float() for k, v in c_cots.items()}
+            cpu = _cr_call(op, c_vals, attrs, "cpu", c_cots)
+            card_ = _cr_call(op, _cr_inputs(small, dev, dtype), attrs, dev,
+                             {k: v.to(dev, dtype) for k, v in
+                              c_cots.items()})
+            check(set(card_[0]) == set(cpu[0])
+                  and set(card_[1]) == set(cpu[1]),
+                  f"conv_rest {key}: the card's slots differ")
+            errs, lims = {}, {}
+            if dtype == torch.float32:
+                # float32 sums of 400k products (conv3d's weight
+                # gradient) round at ~sqrt(n) * 2^-24 of their largest:
+                # the card is held to float64 no worse than twice the
+                # CPU's float32, and within OPS_RTOL where that is less
+                ref = _cr_call(op, _cr_inputs(small, "cpu", torch.float64),
+                               attrs, "cpu", {k: v.double() for k, v in
+                                              c_cots.items()})
+                for i, kind in enumerate(("out", "grad")):
+                    for sl, want in ref[i].items():
+                        k, got = f"{kind}.{sl}", card_[i][sl]
+                        if not want.is_floating_point():    # exact
+                            errs[k], lims[k] = _op_err(got, want), 0.0
+                            continue
+                        errs[k] = _op_err(got.double(), want)
+                        lims[k] = max(OPS_RTOL, 2 * _op_err(
+                            cpu[i][sl].double(), want))
+            else:
+                for i, kind in enumerate(("out", "grad")):
+                    for sl, c in cpu[i].items():
+                        errs[f"{kind}.{sl}"] = _cr_ulps(card_[i][sl], c)
+                        lims[f"{kind}.{sl}"] = 1.0
+            bad = {k: (errs[k], lims[k]) for k in errs if errs[k] > lims[k]}
+            check(not bad, f"conv_rest {key}: card against the reference "
+                  f"(error, limit): {bad}")
+            rows[key] = {"op": op, "dtype": str(dtype).split(".")[-1],
+                         "shapes": {k: list((v[0] if isinstance(v, tuple)
+                                             else v).shape)
+                                    for k, v in full_np.items()},
+                         "attrs": attrs, "route": route, "fwd_ms": fwd_ms,
+                         "fwd_and_grad_ms": both_ms, "error": errs,
+                         "limit": lims, "error_unit": (
+                             "against the CPU's float64, of max(1, "
+                             "max|float64|); limit max(OPS_RTOL, twice the "
+                             "CPU's float32 error)"
+                             if dtype == torch.float32 else
+                             "bf16 ulps of max|CPU float32 on the bf16 "
+                             "values|; limit one ulp"),
+                         "two_card_runs_bit_equal": True}
+        del full_np
+    return rows
+
+
+def _dcgan_names(progs):
+    return sorted({v.name for p in progs[1:4] for v in p.list_vars()
+                   if v.persistable})
+
+
+def _dcgan_on(place, progs, state, batch):
+    """One iteration on `place` (None: the CPU) from `state` (CPU tensors)
+    in a scope of its own -> (losses, the states after it on the CPU)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        scope = fluid.global_scope()
+        dev = place.torch_device() if place is not None else "cpu"
+        for n, v in state.items():
+            scope.set_var(n, v.to(dev))
+        exe = fluid.Executor(place or fluid.CPUPlace(), seed=SEED)
+        losses = _dcgan_iteration(exe, progs, batch)
+        after = {n: scope.find_var(n).cpu() for n in state}
+        exe.close()
+        return losses, after
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def _dcgan(card, place):
+    """DCGAN at full width in float32: DC_ITERS alternating iterations in
+    the Executor's default mode (each program a CUDA graph from its
+    second run) and again from the same state interpreted, losses and
+    every persistable bit for bit; then card against CPU in float64 at
+    batch DC_CPU_BATCH, an iteration at a time from the CPU's state."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+
+    progs = _dcgan_programs(fluid, fw)
+    names = _dcgan_names(progs)
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(progs[0])
+        init = {n: scope.find_var(n).clone() for n in names}
+        batches = _dcgan_batches(DC_ITERS, DC_BATCH)
+        runs = {}
+        for mode, compiled in (("default", None), ("interpreted", False)):
+            for n, v in init.items():
+                scope.set_var(n, v.clone())
+            losses, secs = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                losses.append(_dcgan_iteration(exe, progs, b, compiled))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            runs[mode] = {"losses": losses, "secs": secs,
+                          "state": {n: scope.find_var(n).clone()
+                                    for n in names}}
+        graphs = exe.graph_stats()
+        exe.close()
+    finally:
+        executor_mod.switch_scope(prev)
+    d, i = runs["default"], runs["interpreted"]
+    differ = _states_equal(d["state"], i["state"])
+    check(d["losses"] == i["losses"] and not differ,
+          f"conv_rest dcgan: default mode {d['losses']} against the "
+          f"interpreter {i['losses']}; states differing {differ[:5]}")
+    check(all(np.isfinite(v) for pair in d["losses"] for v in pair),
+          f"conv_rest dcgan: losses {d['losses']}")
+    check(graphs["captures"] == 3 and graphs["replays"] == 3 * (
+        DC_ITERS - 2), f"conv_rest dcgan: graphs {graphs}")
+    f64 = _dcgan_programs(fluid, fw, dtype=CPU_DTYPE)
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(f64[0])
+        state = {n: fluid.global_scope().find_var(n).cpu()
+                 for n in _dcgan_names(f64)}
+        exe.close()
+    finally:
+        executor_mod.switch_scope(prev)
+    steps = []
+    for b in _dcgan_batches(DC_CPU_ITERS, DC_CPU_BATCH, dtype=np.float64):
+        c_loss, c_state = _dcgan_on(place, f64, state, b)
+        p_loss, p_state = _dcgan_on(None, f64, state, b)
+        rel = _states_rel_diff(c_state, p_state)
+        worst = max(rel, key=rel.get)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(c_loss, p_loss))
+        steps.append({"card": c_loss, "cpu": p_loss,
+                      "loss_rel_diff": loss_rel,
+                      "state_max_rel_diff": rel[worst],
+                      "state_argmax": worst})
+        check(loss_rel <= N_CPU_LOSS_RTOL and rel[worst] <= N_CPU_RTOL,
+              f"conv_rest dcgan: card against CPU {steps[-1]}")
+        state = p_state
+    step_s = float(np.median(d["secs"][2:]))
+    n_params = sum(init[n].numel() for n in names
+                   if n.startswith(("g.", "d.")) and not n.endswith(
+                       (".m", ".v")) and "_moment" not in n
+                   and "pow_acc" not in n)
+    return {"source": "Radford et al. 2016 sections 3-4 (DCGAN: z 100 -> "
+                      "4x4x1024 -> 8x8x512 -> 16x16x256 -> 32x32x128 -> "
+                      "64x64x3, the mirror in D; Adam 2e-4, beta1 0.5; "
+                      "batch 128; N(0, 0.02)); Paddle's fluid GAN demo's "
+                      "program layout",
+            "reduced": ["4x4 kernels at stride 2, pad 1 (the paper's "
+                        "5x5: the JAX conv2d_transpose has no "
+                        "output_padding)", "no bias before batch norm"],
+            "dtype": "float32", "batch": DC_BATCH,
+            "iterations": DC_ITERS, "parameters": int(n_params),
+            "losses_default": d["losses"],
+            "default_equals_interpreted_bit_for_bit": True,
+            "graphs": graphs, "ms_per_iteration": step_s * 1e3,
+            "interpreted_ms_per_iteration": float(np.median(
+                i["secs"][1:])) * 1e3,
+            "images_per_s": DC_BATCH / step_s,
+            "images_per_s_note": "real images a second: batch over an "
+                                 "iteration (G's fake batch, D's step on "
+                                 "it and a real batch, G's step)",
+            "card_vs_cpu": {"dtype": CPU_DTYPE, "batch": DC_CPU_BATCH,
+                            "iterations": steps,
+                            "loss_limit": N_CPU_LOSS_RTOL,
+                            "state_limit": N_CPU_RTOL}}
+
+
+def conv_rest_phase(card, dev, place):
+    """A3's ten ops at published shapes (`_cr_ops`), then DCGAN trains
+    (`_dcgan`)."""
+    t0 = time.perf_counter()
+    rows = _cr_ops(card, dev)
+    emit({"phase": "conv_rest", "part": "ops", "card": card, "ops": rows,
+          "ops_s": time.perf_counter() - t0,
+          "timing": "CUDA events around the call (inputs already on the "
+                    "card, L2 overwritten before each), median of 3 after "
+                    "a warm call"})
+    t1 = time.perf_counter()
+    gan = _dcgan(card, place)
+    emit({"phase": "conv_rest", "part": "dcgan", "card": card, **gan,
+          "dcgan_s": time.perf_counter() - t1,
+          "phase_s": time.perf_counter() - t0,
+          "timing": "host clock around each iteration's three exe.run "
+                    "calls + synchronize; ms_per_iteration the median of "
+                    "the replayed iterations (3..N)"})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7911,6 +8778,8 @@ def main():
     memory_plan_phase(card, CUDAPlace(0))
     generate_phase(card, CUDAPlace(0))
     image_serve_phase(card, CUDAPlace(0))
+    persist_flash = persist_phase(card, CUDAPlace(0))
+    conv_rest_phase(card, dev, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -7955,6 +8824,12 @@ def main():
                                      "wrappers' count over its path is "
                                      "launches_seq2seq_wrapper",
             "launches_seq2seq_wrapper": s2s_launches[kind],
+            "launches_persist": persist_flash[kind],
+            "launches_persist_note": "the persist phase's uninterrupted "
+                                     "seq2seq Trainer run (the wrappers' "
+                                     "count: its eager first step and its "
+                                     "capture; the replays launch the "
+                                     "same kernels)",
             "launches_remat_per_step": remat_flash["per_step"][kind],
             "replayed_remat_per_step":
                 remat_flash["replayed_per_step"][kind],

@@ -33,12 +33,19 @@ ops and layers (ops/detection.py, layers/detection.py) and the reader
 ops (ops/reader.py); rematerialised segments (`layers.recompute`) and
 the memory layer (`memory_optimize`, memory_optimization_transpiler.py,
 the compiled mode's frees); `program_to_fn`, the generation builders
-(models/transformer.py) and the one-shot `InferenceServer` (serving/).
+(models/transformer.py) and the one-shot `InferenceServer` (serving/);
+the rest of the conv ops (ops/conv.py: conv3d, the transposed
+convolutions, pool3d, the max pools with index, spp, unpool, row_conv,
+conv_shift); persistence (the io ops, `io`'s save/load, inference
+models and checkpoints, `Parameters`), the evaluators, the readers and
+the prefetch pipeline (reader/), the profiler's host events, the flight
+recorder and the `Trainer` with kill-and-resume.
 """
 from . import (  # noqa: F401
     amp,
     backward,
     clip,
+    evaluator,
     initializer,
     io,
     kernels,
@@ -49,8 +56,11 @@ from . import (  # noqa: F401
     observability,
     optimizer,
     parallel,
+    profiler,
+    reader,
     regularizer,
     serving,
+    trainer,
 )
 from .backward import append_backward, calc_gradient  # noqa: F401
 from .core import (  # noqa: F401
@@ -66,6 +76,7 @@ from .core import (  # noqa: F401
 )
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
+from .parameters import Parameters  # noqa: F401
 from .memory_optimization_transpiler import memory_optimize  # noqa: F401
 from .core.framework import Block, Operator, pipeline_stage  # noqa: F401
 from .core.lod import SelectedRows, Tensor  # noqa: F401

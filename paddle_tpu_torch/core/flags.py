@@ -161,3 +161,20 @@ define_flag("serving_spec_k", 4,
             "GenerationServer is given a draft model without an "
             "explicit spec_k; greedy outputs stay bit-identical for "
             "any k")
+define_flag("prefetch_depth", 0,
+            "default Trainer.train prefetch depth: N > 0 runs reader + "
+            "DataFeeder.feed + the host-to-device copy N batches ahead "
+            "on a background thread (reader/pipeline.py); 0 keeps the "
+            "serial loop.  Per-call override: Trainer.train(prefetch=N)")
+define_flag("sync_every_n", 1,
+            "default Trainer.train fetch-sync cadence: K > 1 hands "
+            "EndIteration a LazyFetch cost (device->host copy deferred "
+            "until read) and fences the dispatch queue every K steps; "
+            "1 materializes every step (the serial loop).  Per-call "
+            "override: Trainer.train(sync_every_n=K)")
+define_flag("verify", "off",
+            "static program verification before a loaded inference "
+            "model runs: 'off' = skip; 'warn' and 'error' need the "
+            "analysis passes (ROADMAP A12), not ported: "
+            "io.load_inference_model raises NotImplementedError naming "
+            "A12 rather than skip the check")

@@ -381,6 +381,15 @@ class FaultInjector:
             self._last_note[(site, rule.kind)] = now
         _LOG.warning("fault injected at %s: kind=%s (rule %r)",
                      site, rule.kind, rule)
+        try:
+            # the moment a fault fires is the window a post-mortem
+            # wants: dump the flight ring now (a no-op when none is
+            # armed), with the trace active at the site
+            from ..observability import flightrecorder, tracing
+            flightrecorder.on_fault(site, rule.kind,
+                                    trace_id=tracing.current_trace_id())
+        except Exception as e:  # must not mask the fault being raised
+            _LOG.debug("flight-recorder fault dump failed: %r", e)
 
     def fire(self, site: str):
         """Give error/delay rules a shot at this call site."""

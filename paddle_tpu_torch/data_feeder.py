@@ -2,9 +2,9 @@
 (counterpart of paddle_tpu/data_feeder.py; the reference's
 python/paddle/v2/fluid/data_feeder.py DataToLoDTensorConverter).
 
-The JAX package wraps the packing in a `feed.pack` profiler event; this
-one does not yet, as the port's profiler (ROADMAP A10) is still to
-come.  The arrays stay on the host: the Executor places them."""
+The packing is a `feed.pack` profiler event, as in the JAX package.
+The arrays stay on the host: the Executor, or the prefetch pipeline
+(reader/pipeline.py), places them."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,7 +33,15 @@ class DataFeeder:
         """`iterable` of rows, each with one value per feed var:
         lod_level 0 slots are stacked dense; lod_level 1 slots are lists
         of variable-length sequences, packed flat with an offset table;
-        deeper slots are lists of lists of sequences (two LoD levels)."""
+        deeper slots are lists of lists of sequences (two LoD levels).
+        A `feed.pack` profiler event: in the serial loop, host time the
+        device sits idle."""
+        from . import profiler
+
+        with profiler.record_event("feed.pack"):
+            return self._feed(iterable)
+
+    def _feed(self, iterable):
         rows = list(iterable)
         out = {}
         for i, var in enumerate(self.feed_list):

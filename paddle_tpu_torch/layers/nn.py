@@ -24,7 +24,8 @@ __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "sequence_last_step", "sequence_softmax", "sequence_expand",
            "sequence_reshape", "lod_reset", "im2sequence", "dynamic_lstmp",
            "gru_unit", "lstm_unit", "warpctc", "ctc_align",
-           "ctc_greedy_decoder", "nce", "hsigmoid"]
+           "ctc_greedy_decoder", "nce", "hsigmoid", "conv2d_transpose",
+           "row_conv"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -218,6 +219,39 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
          "use_cudnn": use_cudnn, "data_format": data_format})
     pre_act = helper.append_bias_op(pre_bias, dim_start=c_axis,
                                     dim_end=c_axis + 1)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """Transposed 2-D convolution (+ bias over the channel axis, + act);
+    the filter is [C, num_filters, kh, kw].  With no `filter_size`, the
+    filter side that maps the input's height onto `output_size`:
+    output_size - (h - 1) * stride + 2 * padding (both axes)."""
+    helper = LayerHelper("conv2d_transpose", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    stride = _pair_list(stride)
+    padding = _pair_list(padding)
+    if filter_size is None:
+        h = input.shape[2]
+        out_h = output_size[0] if isinstance(output_size, (list, tuple)) \
+            else output_size
+        filter_size = [out_h - (h - 1) * stride[0] + 2 * padding[0]] * 2
+    else:
+        filter_size = _pair_list(filter_size)
+    filter_shape = [num_channels, num_filters] + list(filter_size)
+    w = helper.create_parameter(param_attr, filter_shape, dtype, suffix="w")
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "conv2d_transpose", {"Input": [input.name], "Filter": [w.name]},
+        {"Output": [pre_bias.name]},
+        {"strides": stride, "paddings": padding,
+         "dilations": _pair_list(dilation)})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
     return helper.append_activation(pre_act)
 
 
@@ -506,6 +540,20 @@ def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
                      {"Diff": [diff.name], "Out": [out.name]},
                      {"sigma": sigma or 1.0})
     return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution over the next `future_context_size`
+    rows; the filter is [future_context_size + 1, D]."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    dtype = input.dtype
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    w = helper.create_parameter(param_attr, filter_shape, dtype, suffix="w")
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("row_conv",
+                     {"X": [input.name], "Filter": [w.name]},
+                     {"Out": [out.name]}, {})
+    return helper.append_activation(out)
 
 
 def multiplex(inputs, index):

@@ -1,16 +1,19 @@
 """Observability: metrics registry, trace spans, exemplars, time
-attribution (counterpart of paddle_tpu/observability/; the exporters,
-collector and fleet tools are not ported yet).
+attribution and the flight recorder (counterpart of
+paddle_tpu/observability/; the exporters, collector, timeseries, slo and
+fleet tools are not ported yet, ROADMAP A12).
 
 Switches (env at import, or flags/`set_flags` at runtime):
   * ``PADDLE_TPU_METRICS=on`` — arm the gated instruments (metrics
     created with ``always=True`` count regardless).
   * ``PADDLE_TPU_TRACE=on`` / ``PADDLE_TPU_TRACE_DIR=<dir>`` — record
     spans; with a dir, auto-write ``trace_<pid>.json`` at exit.
+  * ``PADDLE_TPU_FLIGHT_DIR=<dir>`` / ``PADDLE_TPU_FLIGHT=on`` — arm the
+    flight recorder at import (flightrecorder.py).
 """
 from __future__ import annotations
 
-from . import attribution, exemplars, metrics, tracing  # noqa: F401
+from . import attribution, exemplars, flightrecorder, metrics, tracing  # noqa: F401
 from .metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -28,6 +31,7 @@ __all__ = [
     "tracing",
     "exemplars",
     "attribution",
+    "flightrecorder",
     "Counter",
     "Gauge",
     "Histogram",
@@ -65,3 +69,6 @@ def _wire_flags():
 
 
 _wire_flags()
+
+
+flightrecorder.maybe_install_from_env()

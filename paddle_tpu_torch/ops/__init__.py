@@ -11,8 +11,9 @@ type there that needs no LoD, SelectedRows or sub-block), the LoD
 sequence ops, the recurrent ops and the control-flow ops (while,
 conditional blocks, tensor arrays, rank tables, beam search and the
 recurrence over a step block), the linear-chain CRF ops, CTC, the
-sampled losses (hsigmoid, nce), the detection ops and the readers, each
-lowered once in PyTorch.
+sampled losses (hsigmoid, nce), the detection ops, the readers and the
+io ops (save, load and their combined forms, feed, fetch), each lowered
+once in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -25,6 +26,7 @@ from . import (  # noqa: F401
     detection,
     elementwise,
     embedding,
+    io_ops,
     loss,
     manip,
     matmul,

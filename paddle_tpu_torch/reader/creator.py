@@ -1,0 +1,96 @@
+"""Reader creators (reference python/paddle/v2/reader/creator.py):
+np_array, text_file and recordio (counterpart of
+paddle_tpu/reader/creator.py).
+
+`recordio` is the JAX package's self-contained record format (length-
+prefixed pickled records), so either package reads the other's files.
+`cloud_reader` pulls task chunks from the cloud master (the distributed
+runtime, ROADMAP A11) and raises until it is ported.
+"""
+from __future__ import annotations
+
+import glob
+import pickle
+import struct
+
+__all__ = ["np_array", "text_file", "recordio", "cloud_reader",
+           "write_recordio"]
+
+_LEN = struct.Struct("<I")
+
+
+def np_array(x):
+    """Yield rows of a numpy array (reference creator.py:22)."""
+
+    def reader():
+        for row in x:
+            yield row
+
+    return reader
+
+
+def text_file(path):
+    """Yield stripped lines of a text file (reference creator.py:42)."""
+
+    def reader():
+        with open(path) as f:
+            for line in f:
+                yield line.rstrip("\n")
+
+    return reader
+
+
+def write_recordio(path, records) -> int:
+    """Write pickled records length-prefixed; returns the record count
+    (writer half of the recordio analogue)."""
+    n = 0
+    with open(path, "wb") as f:
+        for r in records:
+            payload = pickle.dumps(r)
+            f.write(_LEN.pack(len(payload)))
+            f.write(payload)
+            n += 1
+    return n
+
+
+def _read_recordio_file(path):
+    with open(path, "rb") as f:
+        while True:
+            head = f.read(_LEN.size)
+            if len(head) < _LEN.size:
+                return
+            (n,) = _LEN.unpack(head)
+            yield pickle.loads(f.read(n))
+
+
+def _expand_paths(paths):
+    """Comma-separated string or list -> concrete file list (glob
+    patterns expanded; non-matching entries kept verbatim)."""
+    if isinstance(paths, str):
+        paths = paths.split(",")
+    files = []
+    for p in paths:
+        files.extend(sorted(glob.glob(p)) or [p])
+    return files
+
+
+def recordio(paths, buf_size=100):
+    """Reader over recordio file paths — comma-separated string, glob
+    patterns supported (reference creator.py:60)."""
+    from . import buffered
+
+    files = _expand_paths(paths)
+
+    def reader():
+        for path in files:
+            yield from _read_recordio_file(path)
+
+    return buffered(reader, buf_size)
+
+
+def cloud_reader(paths, master_endpoint, timeout_sec=5, buf_size=64):
+    """The elastic reader over the cloud master's task chunks: needs the
+    distributed runtime, not ported yet (ROADMAP A11)."""
+    raise NotImplementedError(
+        "cloud_reader needs the cloud master (paddle_tpu/cloud), which "
+        "is not ported yet (ROADMAP A11)")

@@ -13,7 +13,8 @@ parameters:
     F1, precision and recall, as the book builds it) gives the same
     precision, recall and F1 on a fresh batch;
   * book/04 trains 30 Adam steps (the book's lr 0.01) on the book's
-    batches.  Its save/load half waits for the port's io (ROADMAP A10).
+    batches.  Its save/load half is
+    tests/test_torch_io.py::test_inference_model_round_trip_across_packages.
 
 Every step's loss within tests/test_torch_book.py's limits (1e-5
 relative plus 5e-7 absolute), and falling.

@@ -2298,3 +2298,151 @@ def test_conv_autograd_grad_is_the_explicit_grad_on_the_card(dev, dtype):
         c.allow_tf32, c.deterministic, c.benchmark = old
     for slot in ("Input@GRAD", "Filter@GRAD"):
         assert torch.equal(generic[slot][0], explicit[slot][0]), slot
+
+
+def _conv_rest_cases():
+    gen = torch.Generator().manual_seed(3)
+
+    def f32(*shape):
+        return torch.randn(shape, generator=gen)
+
+    pool = {"ksize": [3, 3, 3], "strides": [2, 2, 2], "paddings": [1, 1, 1]}
+    return [
+        ("conv3d", {"Input": f32(2, 8, 8, 16, 16),
+                    "Filter": f32(16, 8, 3, 3, 3) * 0.1},
+         {"paddings": [1, 1, 1]}),
+        ("conv2d_transpose", {"Input": f32(8, 64, 8, 8),
+                              "Filter": f32(64, 32, 4, 4) * 0.05},
+         {"strides": [2, 2], "paddings": [1, 1]}),
+        ("conv3d_transpose", {"Input": f32(2, 32, 4, 8, 8),
+                              "Filter": f32(32, 16, 2, 2, 2) * 0.1},
+         {"strides": [2, 2, 2]}),
+        ("pool3d", {"X": f32(2, 8, 8, 16, 16)}, pool),
+        ("max_pool3d_with_index", {"X": f32(2, 8, 8, 16, 16)}, pool),
+        ("max_pool2d_with_index", {"X": f32(2, 8, 33, 47)},
+         {"ksize": [3, 3], "strides": [2, 2]}),
+        ("unpool", {"X": f32(2, 8, 16, 23),
+                    "Indices": torch.randint(0, 33 * 47, (2, 8, 16, 23),
+                                             generator=gen)},
+         {"ksize": [3, 3], "strides": [2, 2]}),
+    ]
+
+
+@pytest.mark.parametrize("case", _conv_rest_cases(), ids=lambda c: c[0])
+def test_conv_rest_routes_are_repeatable_on_the_card(dev, case):
+    """The float32 conv routes (cuDNN off: ATen's own convolutions, TF32
+    off) and the windowed pools' and unpool's gradient-by-gather routes:
+    the forward and the gradient twice on the card give the same bits
+    (no atomics), and the CPU's within 1e-5 of its largest."""
+    from paddle_tpu_torch.core.execution import (GRAD, ExecContext,
+                                                 generic_grad_lower)
+    from paddle_tpu_torch.core.registry import get_op_info
+
+    op, ins, attrs = case
+    info = get_op_info(op)
+    attrs = {**info.attrs, **attrs}
+
+    def run(device):
+        vals = {k: [v.to(device)] for k, v in ins.items()}
+        ctx = ExecContext(device)
+        outs = info.lower(ctx, vals, attrs)
+        slot = (info.diff_outputs or info.outputs)[0]
+        g = dict(vals, **{s: [v] for s, v in outs.items()})
+        g[slot + GRAD] = [torch.cos(outs[slot])]
+        grad = info.grad_lower or (lambda c, i, a: generic_grad_lower(
+            c, i, a, info))
+        res = {k: v[0].cpu() for k, v in grad(ctx, g, attrs).items()}
+        res.update({k: v.cpu() for k, v in outs.items()})
+        return res
+
+    a, b, cpu = run(dev), run(dev), run("cpu")
+    _same_bits(a, b)
+    for k in a:
+        if not a[k].is_floating_point():
+            assert torch.equal(a[k], cpu[k]), k
+            continue
+        tol = 1e-5 * max(1.0, float(cpu[k].abs().max()))
+        assert float((a[k] - cpu[k]).abs().max()) <= tol, k
+
+
+def test_a_snapshot_loaded_into_a_captured_graph_replays_like_a_fresh_run(
+        dev, tmp_path):
+    """An Adam MLP trained 4 steps in the default mode (captured at step
+    2), step 2's snapshot loaded into the same scope and Executor: steps
+    3-4 replayed again give the first time's losses and states, and a
+    fresh process's resume (a new scope and Executor) gives the same."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 32, act="relu")
+        p = fluid.layers.fc(h, 4, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(p, y))
+        fluid.Adam(1e-3).minimize(loss)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    gen = torch.Generator().manual_seed(0)
+    feeds = [{"x": torch.randn((8, 16), generator=gen).numpy(),
+              "y": torch.randint(0, 4, (8, 1), generator=gen).numpy()}
+             for _ in range(4)]
+    prev = executor_mod.switch_scope(Scope())
+    try:
+        scope = fluid.global_scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        losses, states = [], []
+        for i, f in enumerate(feeds):
+            losses.append(float(exe.run(main, feed=f,
+                                        fetch_list=[loss])[0][0]))
+            states.append({n: scope.find_var(n).clone() for n in names})
+            if i == 1:
+                io.save_persistables(exe, str(tmp_path), main)
+        assert exe.graph_stats()["captures"] == 1
+        io.load_persistables(exe, str(tmp_path), main)
+        again = [float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
+                 for f in feeds[2:]]
+        assert again == losses[2:]
+        for n in names:
+            assert torch.equal(scope.find_var(n), states[3][n]), n
+        executor_mod.switch_scope(Scope())
+        fresh = fluid.Executor(fluid.CUDAPlace(0))
+        io.load_persistables(fresh, str(tmp_path), main)
+        resumed = [float(fresh.run(main, feed=f, fetch_list=[loss])[0][0])
+                   for f in feeds[2:]]
+        assert resumed == losses[2:]
+        for n in names:
+            assert torch.equal(fluid.global_scope().find_var(n),
+                               states[3][n]), n
+        exe.close()
+        fresh.close()
+    finally:
+        executor_mod.switch_scope(prev)
+
+
+def test_prefetched_feeds_are_complete_when_the_consumer_reads_them(dev):
+    """prefetch_feeder copies each batch from pinned memory on its
+    worker's own stream; the consumer's stream waits on the copy's
+    event, so a kernel it launches at once reads the whole batch: every
+    batch's sum on the card equals the host's, and each batch is a CUDA
+    tensor."""
+    import numpy as np
+
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.reader import prefetch_feeder
+
+    batches = [np.full((4096, 4096), i + 1, np.float32) for i in range(6)]
+
+    def reader():
+        for b in batches:
+            yield {"x": b}
+
+    sums = []
+    for feed in prefetch_feeder(reader, None, CUDAPlace(0), depth=2)():
+        assert feed["x"].is_cuda
+        sums.append(feed["x"].sum(dtype=torch.float64))
+    assert [float(t) for t in sums] == [float(b.sum(dtype=np.float64))
+                                        for b in batches]

@@ -340,45 +340,41 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 # the JAX package's op types the port does not register yet, by ROADMAP
-# item: A3's conv rest, A8's collectives, A10's io ops and A11's
-# distributed ops
+# item: A8's collectives and A11's distributed ops
 NOT_PORTED = {
-    "A3": ["conv2d_transpose", "conv3d", "conv3d_transpose", "conv_shift",
-           "max_pool2d_with_index", "max_pool3d_with_index", "pool3d",
-           "row_conv", "spp", "unpool"],
     "A8": ["c_allgather", "c_allreduce_max", "c_allreduce_mean",
            "c_allreduce_sum", "c_broadcast", "c_ppermute",
            "c_reducescatter"],
-    "A10": ["feed", "fetch", "load", "load_combine", "save",
-            "save_combine"],
     "A11": ["listen_and_serv", "recv", "send"],
 }
 
 
 def test_the_corpus_is_the_jax_packages_dense_types():
-    """123 op types: every type of the JAX package's activation,
+    """133 op types: every type of the JAX package's activation,
     elementwise, matmul, reduce, manip, creation, loss, metrics and misc
     modules that needs no LoD, SelectedRows or sub-block (89), the 19
     LoD sequence and recurrent types, the IfElse split and merge with
-    their gradient ops (4), the 3 CRF types, and the 8 device types of
-    CTC, the sampled losses and detection (warpctc, hsigmoid, nce,
-    prior_box, box_coder, iou_similarity, target_assign, roi_pool).  The
-    port registers 207 of the JAX package's 233 in all (with the nine
+    their gradient ops (4), the 3 CRF types, the 8 device types of CTC,
+    the sampled losses and detection (warpctc, hsigmoid, nce,
+    prior_box, box_coder, iou_similarity, target_assign, roi_pool), and
+    the 10 conv types of tests/test_torch_ops_conv_rest.py.  The port
+    registers 223 of the JAX package's 233 in all (with the nine
     optimizer types and split_selected_rows of
     tests/test_torch_optimizers.py, the control-flow types of
     tests/test_torch_control_flow.py, `recompute` of
     tests/test_torch_recompute.py, the detection host ops of
-    tests/test_torch_detection.py, ctc_align and the readers); the 26 it
-    does not are NOT_PORTED's, by name."""
-    assert len(CORPUS) == 123
+    tests/test_torch_detection.py, ctc_align, the readers, and the six
+    io ops of tests/test_torch_io.py); the 10 it does not are
+    NOT_PORTED's, by name."""
+    assert len(CORPUS) == 133
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 207
+    assert len(treg.registered_ops()) == 223
     assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
     missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
     assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
-    assert len(missing) == 26
+    assert len(missing) == 10
 
 
 @pytest.mark.parametrize("op", CORPUS)

@@ -1647,6 +1647,280 @@ def _detection_cases():
     ]
 
 
+# -- the rest of the conv ops (paddle_tpu/ops/conv.py:82-336) ----------------
+
+def _np_windows(x, k, s, p, value):
+    """[N, C, *out, prod(k)] windows of x padded by p with `value`, and
+    each window element's flat plane index (-1 in the padding)."""
+    r = len(k)
+    sp = x.shape[2:]
+    pad = ((0, 0), (0, 0)) + tuple((q, q) for q in p)
+    xp = np.pad(x, pad, constant_values=value)
+    ip = np.pad(np.arange(int(np.prod(sp))).reshape(sp), pad[2:],
+                constant_values=-1)
+    out = tuple((sp[i] + 2 * p[i] - k[i]) // s[i] + 1 for i in range(r))
+    wins = np.zeros(x.shape[:2] + out + (int(np.prod(k)),), x.dtype)
+    idx = np.zeros(out + (int(np.prod(k)),), np.int64)
+    for o in np.ndindex(*out):
+        sl = tuple(slice(o[i] * s[i], o[i] * s[i] + k[i]) for i in range(r))
+        wins[(Ellipsis,) + o + (slice(None),)] = xp[(Ellipsis,) + sl] \
+            .reshape(x.shape[:2] + (-1,))
+        idx[o] = ip[sl].reshape(-1)
+    return wins, idx
+
+
+def _np_pool(x, a, rank):
+    k = tuple(a["ksize"])
+    s, p = tuple(a["strides"]), tuple(a["paddings"])
+    if a.get("global_pooling"):
+        k, s, p = x.shape[2:], (1,) * rank, (0,) * rank
+    if a.get("pooling_type", "max") == "max":
+        wins, idx = _np_windows(x, k, s, p, -np.inf)
+        arg = wins.argmax(-1)     # the first maximum
+        vals = np.take_along_axis(wins, arg[..., None], -1)[..., 0]
+        mask = np.take_along_axis(np.broadcast_to(idx, wins.shape),
+                                  arg[..., None], -1)[..., 0]
+        return vals, np.where(vals == -np.inf, -1, mask)
+    sums = _np_windows(x, k, s, p, 0.0)[0].sum(-1)
+    cnt = _np_windows(np.ones((1, 1) + x.shape[2:]), k, s, p, 0.0)[0] \
+        .sum(-1)
+    with np.errstate(invalid="ignore"):
+        return sums / cnt, None
+
+
+def _np_conv(x, w, s, p, d, g=1):
+    """Direct convolution, any rank: w [M, C/g, k...]."""
+    r = x.ndim - 2
+    n, c = x.shape[:2]
+    m, cg = w.shape[:2]
+    k = w.shape[2:]
+    xp = np.pad(x, ((0, 0), (0, 0)) + tuple((q, q) for q in p))
+    out_sp = tuple((x.shape[2 + i] + 2 * p[i] - d[i] * (k[i] - 1) - 1)
+                   // s[i] + 1 for i in range(r))
+    out = np.zeros((n, m) + out_sp)
+    mg = m // g
+    for o in np.ndindex(*out_sp):
+        sl = tuple(slice(o[i] * s[i], o[i] * s[i] + d[i] * (k[i] - 1) + 1,
+                         d[i]) for i in range(r))
+        patch = xp[(slice(None), slice(None)) + sl]      # [N, C, k...]
+        for gi in range(g):
+            pg = patch[:, gi * cg:(gi + 1) * cg].reshape(n, -1)
+            wg = w[gi * mg:(gi + 1) * mg].reshape(mg, -1)
+            out[(slice(None), slice(gi * mg, (gi + 1) * mg)) + o] = \
+                pg @ wg.T
+    return out
+
+
+def _np_conv_transpose(x, w, s, p, d):
+    """Each input element scatters x * w into the output, then the
+    padding is cut: w [C, M, k...]."""
+    r = x.ndim - 2
+    n = x.shape[0]
+    m, k = w.shape[1], w.shape[2:]
+    full = tuple((x.shape[2 + i] - 1) * s[i] + d[i] * (k[i] - 1) + 1
+                 for i in range(r))
+    out = np.zeros((n, m) + full)
+    for o in np.ndindex(*x.shape[2:]):
+        for kk in np.ndindex(*k):
+            pos = tuple(o[i] * s[i] + kk[i] * d[i] for i in range(r))
+            out[(slice(None), slice(None)) + pos] += np.einsum(
+                "nc,cm->nm", x[(slice(None), slice(None)) + o],
+                w[(slice(None), slice(None)) + kk])
+    return out[(slice(None), slice(None)) + tuple(
+        slice(p[i], full[i] - p[i]) for i in range(r))]
+
+
+def _conv3d_ref(ins, a):
+    return {"Output": _np_conv(ins["Input"], ins["Filter"], a["strides"],
+                               a["paddings"], a["dilations"], a["groups"])}
+
+
+def _conv_t_ref(ins, a):
+    return {"Output": _np_conv_transpose(ins["Input"], ins["Filter"],
+                                         a["strides"], a["paddings"],
+                                         a["dilations"])}
+
+
+def _pool3d_ref(ins, a):
+    return {"Out": _np_pool(ins["X"], a, 3)[0]}
+
+
+def _max_index_ref(rank):
+    def ref(ins, a):
+        out, mask = _np_pool(ins["X"], {**a, "pooling_type": "max"}, rank)
+        return {"Out": out, "Mask": mask}
+    return ref
+
+
+def _spp_ref(ins, a):
+    x = ins["X"]
+    n, c, h, w = x.shape
+    outs = []
+    for level in range(a["pyramid_height"]):
+        b = 2 ** level
+        kh, kw = -(-h // b), -(-w // b)
+        pool = {"pooling_type": a["pooling_type"], "ksize": [kh, kw],
+                "strides": [kh, kw], "paddings": [(kh * b - h + 1) // 2,
+                                                  (kw * b - w + 1) // 2]}
+        outs.append(_np_pool(x, pool, 2)[0].reshape(n, -1))
+    return {"Out": np.concatenate(outs, 1)}
+
+
+def _unpool_ref(ins, a):
+    """Written in order, so a later element overwrites an earlier one at
+    a shared index; negative indices count from the end."""
+    x, idx = ins["X"], ins["Indices"]
+    n, c, h, w = x.shape
+    k, s, p = a["ksize"], a["strides"], a["paddings"]
+    oh, ow = (h - 1) * s[0] - 2 * p[0] + k[0], (w - 1) * s[1] - 2 * p[1] + k[1]
+    out = np.zeros((n, c, oh * ow))
+    for i in range(n):
+        for j in range(c):
+            for v, t in zip(x[i, j].reshape(-1), idx[i, j].reshape(-1)):
+                t = t + oh * ow if t < 0 else t
+                if 0 <= t < oh * ow:
+                    out[i, j, t] = v
+    return {"Out": out.reshape(n, c, oh, ow)}
+
+
+def _conv_shift_ref(ins, a):
+    x, y = ins["X"], ins["Y"]
+    n, m = x.shape[1], y.shape[1]
+    out = np.zeros(x.shape)
+    for j in range(n):
+        for k in range(m):
+            out[:, j] += x[:, (j + k - m // 2) % n] * y[:, k]
+    return {"Out": out}
+
+
+def _row_conv_ref(ins, a):
+    """Paddle's row_conv_op: each row's window stops at the end of its
+    sequence."""
+    xv, w = ins["X"], ins["Filter"]
+    x, lod = xv if isinstance(xv, tuple) else (xv, None)
+    if lod is None:
+        return {"Out": np.stack([_row_conv_ref(
+            {"X": (xi, [[0, len(xi)]]), "Filter": w}, a)["Out"][0]
+            for xi in x])}
+    out = np.zeros(x.shape)
+    offs = lod[-1]
+    for b, e in zip(offs[:-1], offs[1:]):
+        for t in range(b, e):
+            for i in range(min(len(w), e - t)):
+                out[t] += x[t + i] * w[i]
+    return {"Out": (out, lod)}
+
+
+def _conv_rest_cases():
+    r = rng("conv_rest")
+    x3 = _f32(r.standard_normal((2, 4, 4, 5, 5)))
+    tie3 = _f32(r.randint(0, 3, (1, 2, 4, 4, 4)))
+    tie2 = _f32(r.randint(0, 3, (2, 2, 5, 6)))
+    x2 = _f32(r.standard_normal((2, 3, 6, 7)))
+    pooled = _f32(r.standard_normal((1, 2, 2, 3)))
+    return [
+        Case("conv3d.0", "conv3d",
+             {"Input": x3, "Filter": _f32(0.3 * r.standard_normal(
+                 (3, 4, 3, 3, 2)))},
+             {"strides": [1, 2, 1], "paddings": [1, 0, 1]}, ref=_conv3d_ref),
+        Case("conv3d.groups_dilated", "conv3d",
+             {"Input": x3, "Filter": _f32(0.3 * r.standard_normal(
+                 (4, 2, 2, 2, 2)))},
+             {"groups": 2, "dilations": [1, 2, 2], "paddings": [0, 1, 1]},
+             ref=_conv3d_ref),
+        Case("conv2d_transpose.0", "conv2d_transpose",
+             {"Input": x2, "Filter": _f32(0.3 * r.standard_normal(
+                 (3, 2, 3, 2)))},
+             {"strides": [2, 1], "paddings": [1, 0]}, ref=_conv_t_ref),
+        Case("conv2d_transpose.dcgan", "conv2d_transpose",
+             {"Input": _f32(r.standard_normal((2, 4, 3, 3))),
+              "Filter": _f32(0.3 * r.standard_normal((4, 3, 4, 4)))},
+             {"strides": [2, 2], "paddings": [1, 1]}, ref=_conv_t_ref),
+        Case("conv2d_transpose.dilated", "conv2d_transpose",
+             {"Input": x2, "Filter": _f32(0.3 * r.standard_normal(
+                 (3, 2, 2, 3)))},
+             {"dilations": [2, 1], "strides": [1, 2]}, ref=_conv_t_ref),
+        Case("conv3d_transpose.unet", "conv3d_transpose",
+             {"Input": _f32(r.standard_normal((2, 3, 2, 3, 2))),
+              "Filter": _f32(0.3 * r.standard_normal((3, 2, 2, 2, 2)))},
+             {"strides": [2, 2, 2]}, ref=_conv_t_ref),
+        Case("conv3d_transpose.padded", "conv3d_transpose",
+             {"Input": _f32(r.standard_normal((1, 2, 3, 3, 2))),
+              "Filter": _f32(0.3 * r.standard_normal((2, 3, 3, 2, 3)))},
+             {"strides": [1, 2, 1], "paddings": [1, 0, 1],
+              "dilations": [1, 1, 2]}, ref=_conv_t_ref),
+        Case("pool3d.max", "pool3d", {"X": x3},
+             {"ksize": [2, 3, 2], "strides": [2, 1, 2],
+              "paddings": [1, 1, 0]}, ref=_pool3d_ref),
+        Case("pool3d.avg_padded", "pool3d", {"X": x3},
+             {"pooling_type": "avg", "ksize": [3, 3, 3],
+              "strides": [2, 2, 2], "paddings": [1, 1, 1]},
+             ref=_pool3d_ref),
+        Case("pool3d.global_avg", "pool3d", {"X": x3},
+             {"pooling_type": "avg", "global_pooling": True},
+             ref=_pool3d_ref),
+        Case("pool3d.ties", "pool3d", {"X": tie3},
+             {"ksize": [3, 3, 3], "strides": [1, 2, 1]}, ref=_pool3d_ref,
+             fd=False),
+        Case("max_pool2d_with_index.0", "max_pool2d_with_index", {"X": x2},
+             {"ksize": [2, 2], "strides": [2, 2]}, ref=_max_index_ref(2),
+             vjp=False),
+        Case("max_pool2d_with_index.padded", "max_pool2d_with_index",
+             {"X": x2}, {"ksize": [3, 3], "strides": [2, 2],
+                         "paddings": [1, 1]}, ref=_max_index_ref(2),
+             vjp=False),
+        Case("max_pool2d_with_index.ties", "max_pool2d_with_index",
+             {"X": tie2}, {"ksize": [3, 3], "strides": [2, 2]},
+             ref=_max_index_ref(2), fd=False, vjp=False),
+        Case("max_pool3d_with_index.0", "max_pool3d_with_index", {"X": x3},
+             {"ksize": [2, 2, 2], "strides": [2, 2, 2]},
+             ref=_max_index_ref(3), vjp=False),
+        Case("max_pool3d_with_index.padded_ties", "max_pool3d_with_index",
+             {"X": tie3}, {"ksize": [2, 3, 3], "strides": [2, 2, 2],
+                           "paddings": [1, 1, 1]},
+             ref=_max_index_ref(3), fd=False, vjp=False),
+        Case("spp.max", "spp", {"X": x2}, {"pyramid_height": 3},
+             ref=_spp_ref),
+        Case("spp.avg", "spp", {"X": x2},
+             {"pyramid_height": 2, "pooling_type": "avg"}, ref=_spp_ref),
+        # 5 rows in 4 bins: ksize 2 and padding 2, so the first bin of
+        # each axis lies wholly in the padding (-inf for max, NaN for avg)
+        Case("spp.all_padding_max", "spp",
+             {"X": _f32(r.standard_normal((1, 2, 5, 5)))},
+             {"pyramid_height": 3}, ref=_spp_ref, fd=False),
+        Case("spp.all_padding_avg", "spp",
+             {"X": _f32(r.standard_normal((1, 2, 5, 5)))},
+             {"pyramid_height": 3, "pooling_type": "avg"}, ref=_spp_ref,
+             fd=False),
+        Case("unpool.0", "unpool",
+             {"X": pooled, "Indices": np.asarray(
+                 [[[[1, 2, 13], [16, 27, 23]], [[0, 3, 5], [17, 18, 28]]]],
+                 np.int64)}, ref=_unpool_ref),
+        # 3x3 windows at stride 2 share rows and columns: 9 and 22 are
+        # two windows' maximum, and the later write wins
+        Case("unpool.overlapping", "unpool",
+             {"X": pooled, "Indices": np.asarray(
+                 [[[[9, 9, 4], [22, 22, 9]], [[0, -1, 5], [40, 22, 22]]]],
+                 np.int64)}, {"ksize": [3, 3], "strides": [2, 2]},
+             ref=_unpool_ref),
+        Case("conv_shift.0", "conv_shift",
+             {"X": _f32(r.standard_normal((3, 7))),
+              "Y": _f32(r.standard_normal((3, 3)))}, ref=_conv_shift_ref),
+        Case("conv_shift.wide", "conv_shift",
+             {"X": _f32(r.standard_normal((2, 5))),
+              "Y": _f32(r.standard_normal((2, 5)))}, ref=_conv_shift_ref),
+        Case("row_conv.dense", "row_conv",
+             {"X": _f32(r.standard_normal((2, 5, 3))),
+              "Filter": _f32(r.standard_normal((3, 3)))}, ref=_row_conv_ref),
+        Case("row_conv.one_sequence", "row_conv",
+             {"X": (_f32(r.standard_normal((6, 4))), [[0, 6]]),
+              "Filter": _f32(r.standard_normal((3, 4)))}, ref=_row_conv_ref),
+        Case("row_conv.one_row", "row_conv",
+             {"X": (_f32(r.standard_normal((1, 4))), [[0, 1]]),
+              "Filter": _f32(r.standard_normal((2, 4)))}, ref=_row_conv_ref),
+    ]
+
+
 GROUPS = {
     "activation": _activation_cases,
     "elementwise": _elementwise_cases,
@@ -1664,6 +1938,7 @@ GROUPS = {
     "ctc": _ctc_cases,
     "sampling": _sampling_cases,
     "detection": _detection_cases,
+    "conv_rest": _conv_rest_cases,
 }
 
 CASES = [c for make in GROUPS.values() for c in make()]

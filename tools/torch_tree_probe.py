@@ -22,6 +22,8 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py gloo-dtypes [--package-root DIR]
     python3 tools/torch_tree_probe.py memory-plan [--package-root DIR]
     python3 tools/torch_tree_probe.py a4b-a6 [--package-root DIR]
+    python3 tools/torch_tree_probe.py a3-a10 [--package-root DIR]
+    python3 tools/torch_tree_probe.py maxpool-routes [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -93,6 +95,13 @@ memory-plan  chip_smoke.py's replayed train (amp), seq2seq (amp) and
            and with again;
 a4b-a6     chip_smoke.py's remat, memory_plan, generate and image_serve
            phases alone (the kernels built first);
+a3-a10     chip_smoke.py's persist, conv_rest and ops phases alone (the
+           kernels built first);
+maxpool-routes  the max pools' two backward routes (`ops/conv.py`
+           `_MaxPool`: a copy where windows are disjoint, else a sorted
+           segment sum) on the same disjoint windows at the conv_rest
+           shapes (C3D's 2x2x2 / 2 pool, SegNet's 2x2 / 2): each one's ms
+           and their results bit for bit;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -880,6 +889,51 @@ def a4b_a6(cs, dev):
     cs.image_serve_phase(card, CUDAPlace(0))
 
 
+def a3_a10(cs, dev):
+    """chip_smoke's persist, conv_rest and ops phases, the kernels built
+    first."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, _, _ = _card(cs)
+    cuda_build.build_all()
+    emit({"persist_flash": cs.persist_phase(card, CUDAPlace(0))})
+    cs.conv_rest_phase(card, dev, CUDAPlace(0))
+    cs.ops_phase(card, dev)
+
+
+def maxpool_routes(cs, dev):
+    """`_MaxPool.backward` by its copy and by its sorted segment sum on
+    the same disjoint windows."""
+    from paddle_tpu_torch.ops.conv import _MaxPool
+
+    class Ctx:
+        def save_for_backward(self, *t):
+            self.saved_tensors = t
+
+        def mark_non_differentiable(self, *t):
+            pass
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, shape, k in (("c3d_pool", (8, 64, 16, 112, 112), (2, 2, 2)),
+                           ("segnet_pool", (4, 64, 360, 480), (2, 2))):
+        x = torch.randn(shape, generator=gen, device=dev)
+        ctx = Ctx()
+        vals, _ = _MaxPool.forward(ctx, x, k, k, (0,) * len(k))
+        g = torch.randn(vals.shape, generator=gen, device=dev)
+        res, ms = {}, {}
+        for route, disjoint in (("copy", True), ("segment_sum", False)):
+            ctx.disjoint = disjoint
+            res[route] = _MaxPool.backward(ctx, g, None)[0]
+            ms[route] = cs.cold_ms(lambda: _MaxPool.backward(ctx, g, None),
+                                   5, flush)
+        emit({"probe": "maxpool-routes", "case": name, "shape": shape,
+              "ksize": k, "backward_ms": ms,
+              "bit_equal": bool(torch.equal(res["copy"],
+                                            res["segment_sum"]))})
+
+
 def _gloo_rank(rank, port, out_path):
     import torch.distributed as dist
 
@@ -934,7 +988,8 @@ def main():
                                       "sparse-host", "dp2-fault",
                                       "replays",
                                       "gloo-dtypes", "memory-plan",
-                                      "a4b-a6"))
+                                      "a4b-a6", "a3-a10",
+                                      "maxpool-routes"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -969,7 +1024,8 @@ def main():
          "sparse-host": sparse_host, "dp2-fault": dp2_fault,
          "replays": replays,
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
-         "a4b-a6": a4b_a6}[args.probe](cs, dev)
+         "a4b-a6": a4b_a6, "a3-a10": a3_a10,
+         "maxpool-routes": maxpool_routes}[args.probe](cs, dev)
     return 0
 
 

@@ -299,18 +299,43 @@ Phases, one JSON line each:
            CPU's float32; bf16 within one ulp of the CPU's float32 on the
            same values); then DCGAN (the DC_ constants) trained 4
            alternating iterations in the default mode and interpreted,
-           bit for bit, and card against CPU in float64 at batch 8.
+           bit for bit, and card against CPU in float64 at batch 8;
+  aot_native  A10b: the flash forward's host time through the op
+           paddle_tpu_torch::flash_attention_fwd against the direct
+           call, a call and in the interpreted LM forward (the
+           flash_attention lowering swapped to call the op); the train
+           phase's LM forward (logits, amp, 12 layers)
+           exported with io.export_aot_model and reloaded on the card:
+           12 flash op nodes and no SDPA, softmax or logsumexp node, 12
+           flash launches a call, logits at the flash phase's bf16 bar
+           against the Executor's forward; a `go` block runs the
+           artifact and sends its logits through a channel, bit-equal to
+           the main thread's; the same at 1 layer loaded on the CPU,
+           within SRV_ULPS of the card; the moe phase's MoE LM forward:
+           6 route op nodes, 6 route launches a call; image_serve's
+           ResNet-50 at batch 16 within SRV_ULPS of the Executor's
+           replayed step and unchanged after the scope is zeroed; the
+           same model saved and run through the C ABI (`_capi`) on the
+           card from a fresh interpreter (ctypes) and from a standalone
+           C host (gcc, where the interpreter has a shared libpython),
+           both within SRV_ULPS; ResNet-50 trained 4 steps at batch 32
+           fed through reader.native_pipeline, losses and states
+           bit-equal to direct feeds; export and load seconds, artifact
+           bytes, ms a call against the Executor's replayed step, and
+           the loader's batches/s against the step rate.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
 phases (paged attention), the dp phase's fused run (fused bucket update) and the moe
-phase's kernel path (MoE gate + dispatch and its backward): each
-kernel's launch counts are zeroed just before its path and read just
-after.  A CUDA graph's replay runs the captured kernels without their
-wrappers, so on the train, seq2seq and moe paths the counts cover the
-eager first step and the capture, and the kernels line adds the
-profiler's count in a replayed step (and the persist phase's
-uninterrupted seq2seq run's wrapper counts).  The image, optimizers, ctr,
+phase's kernel path (MoE gate + dispatch and its backward), and the
+aot_native phase's calls of the loaded artifacts (the flash forward and
+the MoE route kernel through their ops): each kernel's launch counts
+are zeroed just before its path and read just after.  A CUDA graph's
+replay runs the captured kernels without their wrappers, so on the
+train, seq2seq and moe paths the counts cover the eager first step and
+the capture, and the kernels line adds the profiler's count in a
+replayed step (and the persist phase's uninterrupted seq2seq run's
+wrapper counts, and the aot_native phase's artifact calls).  The image, optimizers, ctr,
 rnn, book08, book07, dp_gspmd, ssd, ocr_ctc, readers and conv_rest
 phases run no kernel of the port's own (the JAX package runs the recurrences, the CRF and CTC
 as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
@@ -646,6 +671,16 @@ DC_Z, DC_IMG, DC_BATCH = 100, 64, 128
 DC_G_WIDTHS, DC_D_WIDTHS = (1024, 512, 256, 128), (128, 256, 512, 1024)
 DC_LR, DC_BETA1, DC_STD, DC_SLOPE, DC_ITERS = 2e-4, 0.5, 0.02, 0.2, 4
 DC_CPU_BATCH, DC_CPU_ITERS = 8, 2
+# the aot_native phase: image_serve's ResNet-50 exported at AOT_BATCH
+# and held to the Executor within SRV_ULPS; the train phase's LM forward
+# (T_ constants, amp) and the moe phase's MoE LM forward (M_ constants)
+# exported and reloaded, the LM's artifact loaded on the CPU at
+# AOT_CPU_LAYERS decoder layers (full width) and held to the card's
+# within SRV_ULPS; native_pipeline feeding NP_STEPS ResNet-50 training
+# steps at NP_BATCH; AOT_REPS timed calls (median); AOT_HOST_CALLS
+# calls a reading of the flash op's host time against the direct call
+AOT_BATCH, AOT_CPU_LAYERS, AOT_REPS, AOT_HOST_CALLS = 16, 1, 5, 20
+NP_BATCH, NP_STEPS = 32, 4
 
 
 class CheckFailed(RuntimeError):
@@ -5998,6 +6033,12 @@ _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "capture; a replay runs the captured kernels without the "
                 "wrapper: replayed_per_step is the profiler's count in a "
                 "replayed step")
+_AOT_NOTE = ("launches_aot: the aot_native phase's count over the calls of "
+             "the loaded torch.export artifacts on the card (the LM's, at "
+             "12 and 1 layers, a go block's call among them, for the "
+             "flash forward; the MoE LM's for the route kernel), each "
+             "through the op paddle_tpu_torch::flash_attention_fwd or "
+             "paddle_tpu_torch::moe_gate_route")
 
 
 # -- ssd and ocr_ctc phases -------------------------------------------------
@@ -8700,6 +8741,650 @@ def conv_rest_phase(card, dev, place):
                     "the replayed iterations (3..N)"})
 
 
+# -- aot_native phase (A10b): the AOT artifact, the C ABI, native runtime ----
+
+_CAPI_CHILD = r"""
+import ctypes, sys
+import numpy as np
+so, model_dir, src, dst = sys.argv[1:5]
+dims = [int(d) for d in sys.argv[5:]]
+lib = ctypes.CDLL(so)
+i64, vp = ctypes.c_int64, ctypes.c_void_p
+lib.paddle_tpu_inference_create.restype = i64
+lib.paddle_tpu_inference_create.argtypes = [ctypes.c_char_p]
+lib.paddle_tpu_inference_feed.restype = ctypes.c_int
+lib.paddle_tpu_inference_feed.argtypes = [
+    i64, ctypes.c_char_p, vp, ctypes.POINTER(i64), ctypes.c_int,
+    ctypes.c_int]
+lib.paddle_tpu_inference_run.restype = ctypes.c_int
+lib.paddle_tpu_inference_run.argtypes = [i64]
+lib.paddle_tpu_inference_fetch.restype = i64
+lib.paddle_tpu_inference_fetch.argtypes = [
+    i64, ctypes.c_int, ctypes.POINTER(ctypes.c_float), i64,
+    ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_int)]
+lib.paddle_tpu_inference_destroy.restype = ctypes.c_int
+lib.paddle_tpu_inference_destroy.argtypes = [i64]
+lib.paddle_tpu_last_error.restype = ctypes.c_char_p
+err = lambda: lib.paddle_tpu_last_error().decode()
+x = np.fromfile(src, dtype=np.float32).reshape(dims)
+sid = lib.paddle_tpu_inference_create(model_dir.encode())
+assert sid > 0, err()
+cdims = (i64 * len(dims))(*dims)
+assert lib.paddle_tpu_inference_feed(
+    sid, b"img", x.ctypes.data_as(vp), cdims, len(dims), 0) == 0, err()
+assert lib.paddle_tpu_inference_run(sid) == 1, err()
+cap = 1 << 22
+buf = (ctypes.c_float * cap)()
+odims, ondim = (i64 * 8)(), ctypes.c_int()
+n = lib.paddle_tpu_inference_fetch(sid, 0, buf, cap, odims,
+                                   ctypes.byref(ondim))
+assert n > 0, err()
+np.ctypeslib.as_array(buf)[:n].tofile(dst)
+rt = sys.modules["paddle_tpu_torch.capi_runtime"]
+print("device=" + str(rt._sessions[sid].exe.device))
+assert lib.paddle_tpu_inference_destroy(sid) == 0, err()
+print("ok", ondim.value, *odims[:ondim.value])
+"""
+
+
+def _aot_roundtrip(exe, main, scope, target, specs, root, name, place):
+    """export_aot_model of `target` into root/name, then load_aot_model
+    on `place` -> (call, {export_s, load_s, bytes, files})."""
+    from paddle_tpu_torch import io
+
+    d = os.path.join(root, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    io.export_aot_model(d, specs, [target], exe, main_program=main,
+                        scope=scope)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call, _, _ = io.load_aot_model(d, place)
+    torch.cuda.synchronize()
+    return call, {"export_s": export_s, "load_s": time.perf_counter() - t0,
+                  "bytes": _dir_bytes(d), "files": sorted(os.listdir(d))}
+
+
+class _Tally:
+    """A kernel's launches made inside the wrapped calls alone: its
+    count's change across each call, summed into `n`."""
+
+    def __init__(self, read):
+        self.read, self.n = read, 0
+
+    def wrap(self, fn):
+        def counted(*args):
+            before = self.read()
+            try:
+                return fn(*args)
+            finally:
+                self.n += self.read() - before
+        return counted
+
+
+def _graph_targets(call):
+    """{op target: nodes} of a loaded artifact's graph."""
+    import collections
+
+    return dict(collections.Counter(
+        str(n.target) for n in call.exported_program.graph.nodes
+        if n.op == "call_function"))
+
+
+def _wall_ms(fn, n=AOT_REPS):
+    """Median host-clock ms of `fn` + synchronize over `n` calls after a
+    warm one."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _ulps_of_rows(got, want):
+    """Largest |got - want| of each row in bf16 ulps of the row's
+    max|want| -> the worst row's."""
+    got = np.asarray(got, np.float64).reshape(len(want), -1)
+    want = np.asarray(want, np.float64).reshape(len(want), -1)
+    worst = 0.0
+    for g, w in zip(got, want):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        worst = max(worst, float(np.abs(g - w).max()) / ulp)
+    return worst
+
+
+def _lm_forward(layers):
+    """The train phase's LM forward (run_ridge's transformer_lm at the
+    T_ widths, `layers` decoder layers, bf16 amp: the caller enables
+    it) -> (main, startup, logits)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
+        logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
+                                n_layers=layers, max_len=max(T_SEQ, 2048),
+                                return_logits=True)
+    return main, startup, logits
+
+
+def _flash_op_host_us(dev):
+    """Host µs a call of the flash forward at the LM's shape (bf16,
+    causal) through the op `paddle_tpu_torch::flash_attention_fwd` and
+    through the direct call, in turns (direct, op, op, direct)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(FLASH_SHAPE, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = FLASH_SHAPE[3] ** -0.5
+    routes = {"direct": lambda: fa.flash_attention_fwd(q, k, v, True,
+                                                       scale),
+              "op": lambda: fa.flash_attention_fwd_op(q, k, v, True,
+                                                      scale)}
+    o1, l1 = routes["direct"]()
+    o2, l2 = routes["op"]()
+    check(torch.equal(o1, o2) and torch.equal(l1, l2),
+          "aot_native: the flash op's result differs from the direct "
+          "call's")
+    reads = {"direct": [], "op": []}
+    for name in ("direct", "op", "op", "direct"):
+        reads[name].append(host_us(routes[name], AOT_HOST_CALLS))
+    return {k: float(np.mean(v)) for k, v in reads.items()} | {
+        "reads": reads, "shape": list(FLASH_SHAPE), "dtype": "bfloat16",
+        "calls_a_read": AOT_HOST_CALLS}
+
+
+def _interpreted_host_ms(exe, infer, feed, fetch, scope):
+    """Host ms of one interpreted forward (compiled=False: one run_op an
+    op), its attention lowering the direct launch or the op
+    `paddle_tpu_torch::flash_attention_fwd`, in turns (direct, op, op,
+    direct), 3 steps a turn, each started on an idle card: what the
+    host spends enqueueing the step.  The two routes' logits must be
+    bit-equal (the same kernel)."""
+    from paddle_tpu_torch.core.execution import one
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    def op_route(lower):
+        def lowered(ctx, ins, attrs):
+            q, k, v = one(ins, "Q"), one(ins, "K"), one(ins, "V")
+            scale = (q.shape[-1] ** -0.5 if attrs.get("default_scale", True)
+                     else attrs["scale"])
+            return {"Out": fa.flash_attention_fwd_op(
+                q, k, v, bool(attrs.get("causal", False)), float(scale))[0]}
+        return lowered
+
+    def steps(reads, outs):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(exe.run(infer, feed=feed, fetch_list=[fetch],
+                                scope=scope, return_numpy=False,
+                                compiled=False)[0])
+            reads.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+
+    reads, outs = {"direct": [], "op": []}, {"direct": [], "op": []}
+    for route in ("direct", "op", "op", "direct"):
+        with (_wrapped_lowering("flash_attention", op_route)
+              if route == "op" else contextlib.nullcontext()):
+            steps(reads[route], outs[route])
+    check(all(torch.equal(a, outs["direct"][0])
+              for a in outs["direct"] + outs["op"]),
+          "aot_native: the interpreted LM's logits differ between the "
+          "flash op and the direct launch")
+    med = {k: float(np.median(v)) for k, v in reads.items()}
+    return {**med, "op_minus_direct_us_a_call":
+            (med["op"] - med["direct"]) * 1e3 / T_LAYERS, "reads": reads}
+
+
+def _aot_lm(place, root, tally):
+    """The LM's forward exported and reloaded on the card (12 flash op
+    nodes, no SDPA or plain attention node, 12 launches a call, logits
+    at the bf16 bar against the Executor's forward); a `go` block runs
+    the artifact and sends its logits through a channel (bit-equal to
+    the main thread's); the artifact of AOT_CPU_LAYERS layers loaded on
+    the CPU against the card's.  The artifacts' calls on the card are
+    counted in `tally`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    op_name = "paddle_tpu_torch.flash_attention_fwd.default"
+    ids = np.random.RandomState(SEED).randint(
+        0, T_VOCAB, (T_BATCH, T_SEQ)).astype(np.int64)
+    specs = {"ids": ([T_BATCH, T_SEQ], "int64")}
+    out = {}
+    fluid.amp.enable_bf16()     # before the Programs are built
+    try:
+        for layers in (T_LAYERS, AOT_CPU_LAYERS):
+            main, startup, logits = _lm_forward(layers)
+            scope = Scope()
+            exe = fluid.Executor(place, seed=SEED)
+            try:
+                exe.run(startup, scope=scope)
+                name = f"lm{layers}"
+                call, rec = _aot_roundtrip(exe, main, scope, logits, specs,
+                                           root, name, place)
+                targets = _graph_targets(call)
+                call = tally.wrap(call)
+                plain = sorted(t for t in targets if any(
+                    w in t for w in ("scaled_dot_product", "softmax",
+                                     "logsumexp")))
+                check(targets.get(op_name) == layers and not plain,
+                      f"aot_native: the LM{layers} graph holds "
+                      f"{targets.get(op_name)} flash op nodes (want "
+                      f"{layers}) and plain attention nodes {plain}")
+                before = fa.flash_attention.launches["fwd"]
+                got = call({"ids": ids})[0]
+                torch.cuda.synchronize()
+                per_call = fa.flash_attention.launches["fwd"] - before
+                check(per_call == layers, f"aot_native: one call of the "
+                      f"LM{layers} artifact launched the flash forward "
+                      f"{per_call} times (want {layers})")
+                infer = io.get_inference_program([logits], main)
+                runs = [exe.run(infer, feed={"ids": ids},
+                                fetch_list=[logits], scope=scope,
+                                return_numpy=False)[0] for _ in range(3)]
+                want = runs[-1]
+                ok, lim, rms, rms_lim = _close_bf16(got.float(),
+                                                    want.float())
+                err = float((got.float() - want.float()).abs().max())
+                check(ok, f"aot_native: LM{layers} artifact logits {err} "
+                      f"(rms {rms}) from the Executor's (limits {lim}, "
+                      f"{rms_lim})")
+                rec.update(layers=layers, flash_op_nodes=layers,
+                           flash_launches_a_call=per_call,
+                           max_abs_err_vs_executor=err,
+                           rms_err_vs_executor=rms, limit=lim,
+                           rms_limit=rms_lim,
+                           executor_bit_equal=bool(torch.equal(got, want)),
+                           artifact_ms=_wall_ms(lambda: call(
+                               {"ids": ids})),
+                           executor_replay_ms=_wall_ms(lambda: exe.run(
+                               infer, feed={"ids": ids},
+                               fetch_list=[logits], scope=scope,
+                               return_numpy=False)))
+                if layers == T_LAYERS:
+                    rec["go"] = _aot_go(call, ids, got)
+                    rec["interpreted_step_host_ms"] = _interpreted_host_ms(
+                        exe, infer, {"ids": ids}, logits, scope)
+                else:
+                    t0 = time.perf_counter()
+                    cpu_call, _, _ = io.load_aot_model(
+                        os.path.join(root, name), fluid.CPUPlace())
+                    cpu = cpu_call({"ids": ids})[0]
+                    cpu_s = time.perf_counter() - t0
+                    worst = _ulps_of_rows(got.float().cpu().numpy(),
+                                          cpu.float().numpy())
+                    check(cpu.device.type == "cpu" and worst <= SRV_ULPS,
+                          f"aot_native: the LM{layers} artifact on the "
+                          f"CPU is {worst} bf16 ulps of a row's max from "
+                          f"the card's (limit {SRV_ULPS})")
+                    rec["cpu"] = {"max_err_bf16_ulps": worst,
+                                  "limit_bf16_ulps": SRV_ULPS,
+                                  "load_and_call_s": cpu_s}
+                out[name] = rec
+                del call, got, want, runs
+            finally:
+                exe.close()
+                torch.cuda.empty_cache()
+    finally:
+        fluid.amp.disable_bf16()
+    return out
+
+
+def _aot_go(call, ids, want):
+    """A `go` block runs the loaded artifact and sends its logits
+    through a channel; they must equal the main thread's bit for bit."""
+    import paddle_tpu_torch as fluid
+
+    ch = fluid.make_channel(capacity=1)
+    t0 = time.perf_counter()
+    with fluid.go() as g:
+        g(lambda: fluid.channel_send(ch, call({"ids": ids})[0]))
+    got = fluid.channel_recv(ch)
+    g.wait(timeout=600)
+    secs = time.perf_counter() - t0
+    fluid.channel_close(ch)
+    check(isinstance(got, torch.Tensor) and got.device == want.device
+          and torch.equal(got, want), "aot_native: the logits a go block "
+          "sent differ from the main thread's")
+    return {"bit_equal": True, "device": str(got.device),
+            "round_trip_s": secs}
+
+
+def _aot_moe(place, root, tally):
+    """The MoE LM's forward (the moe phase's configuration, amp)
+    exported and reloaded on the card: M_LAYERS route op nodes, as many
+    route launches a call, logits at the bf16 bar against the
+    Executor's forward; the artifact's calls counted in `tally`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels.moe_dispatch import moe_gate_dispatch
+    from paddle_tpu_torch.models.moe import build_moe_lm
+
+    op_name = "paddle_tpu_torch.moe_gate_route.default"
+    fluid.amp.enable_bf16()     # before the Program is built
+    exe = None
+    try:
+        fw.reset_unique_names()
+        main, startup, _ = build_moe_lm(M_BATCH, M_SEQ, M_VOCAB, M_D,
+                                        M_HEADS, M_LAYERS, M_EXPERTS,
+                                        M_TOPK, M_CF, aux_weight=M_AUX)
+        logits = next(op.input("Logits")[0]
+                      for op in main.global_block().ops
+                      if op.type == "softmax_with_cross_entropy")
+        scope = Scope()
+        exe = fluid.Executor(place, seed=SEED)
+        exe.run(startup, scope=scope)
+        ids = np.random.RandomState(SEED + 1).randint(
+            0, M_VOCAB, (M_BATCH, M_SEQ)).astype(np.int64)
+        call, rec = _aot_roundtrip(exe, main, scope, logits,
+                                   {"ids": ([M_BATCH, M_SEQ], "int64")},
+                                   root, "moe_lm", place)
+        targets = _graph_targets(call)
+        call = tally.wrap(call)
+        check(targets.get(op_name) == M_LAYERS, f"aot_native: the MoE "
+              f"graph holds {targets.get(op_name)} route op nodes (want "
+              f"{M_LAYERS})")
+        before = moe_gate_dispatch.launches
+        got = call({"ids": ids})[0]
+        torch.cuda.synchronize()
+        per_call = moe_gate_dispatch.launches - before
+        check(per_call == M_LAYERS, f"aot_native: one call of the MoE "
+              f"artifact launched the route kernel {per_call} times "
+              f"(want {M_LAYERS})")
+        infer = io.get_inference_program([logits], main)
+        want = [exe.run(infer, feed={"ids": ids}, fetch_list=[logits],
+                        scope=scope, return_numpy=False)[0]
+                for _ in range(3)][-1]
+        ok, lim, rms, rms_lim = _close_bf16(got.float(), want.float())
+        err = float((got.float() - want.float()).abs().max())
+        check(ok, f"aot_native: MoE artifact logits {err} (rms {rms}) "
+              f"from the Executor's (limits {lim}, {rms_lim})")
+        rec.update(route_op_nodes=M_LAYERS, route_launches_a_call=per_call,
+                   max_abs_err_vs_executor=err, rms_err_vs_executor=rms,
+                   limit=lim, rms_limit=rms_lim,
+                   executor_bit_equal=bool(torch.equal(got, want)),
+                   artifact_ms=_wall_ms(lambda: call({"ids": ids})),
+                   executor_replay_ms=_wall_ms(lambda: exe.run(
+                       infer, feed={"ids": ids}, fetch_list=[logits],
+                       scope=scope, return_numpy=False)))
+        return rec
+    finally:
+        fluid.amp.disable_bf16()
+        if exe is not None:
+            exe.close()
+        torch.cuda.empty_cache()
+
+
+def _resnet50_infer():
+    """image_serve's ResNet-50 (bf16) -> (main, startup, logits: the
+    classifier's output, the softmax's input)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    fw.reset_unique_names()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, R_IMG, R_IMG],
+                                dtype="bfloat16")
+        probs = fluid.models.resnet_imagenet(img, class_dim=R_CLASSES,
+                                             depth=R_DEPTH)
+    soft, = [op for op in main.global_block().ops
+             if op.type == "softmax" and op.output("Out") == [probs.name]]
+    return main, startup, main.global_block().var(soft.input("X")[0])
+
+
+def _aot_resnet_and_capi(place, root):
+    """ResNet-50 exported at AOT_BATCH and reloaded (within SRV_ULPS of
+    the Executor's replayed step; unchanged when the scope is zeroed
+    after the export), then saved with save_inference_model and run
+    through the C ABI on the card: from a fresh interpreter through
+    ctypes, and from a standalone C host where the interpreter has a
+    shared libpython."""
+    import site
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io, native
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, startup, predict = _resnet50_infer()
+    scope = Scope()
+    exe = fluid.Executor(place, seed=SEED)
+    try:
+        exe.run(startup, scope=scope)
+        x32 = np.random.RandomState(SEED).rand(
+            AOT_BATCH, 3, R_IMG, R_IMG).astype(np.float32)
+        x = torch.from_numpy(x32).to(torch.bfloat16).to(exe.device)
+        infer = io.get_inference_program([predict], main)
+        run = lambda: exe.run(infer, feed={"img": x},  # noqa: E731
+                              fetch_list=[predict], scope=scope,
+                              return_numpy=False)[0]
+        want = [run() for _ in range(3)][-1].float().cpu().numpy()
+        exe_ms = _wall_ms(run)
+        model_dir = os.path.join(root, "resnet50_model")
+        io.save_inference_model(model_dir, ["img"], [predict], exe,
+                                main_program=main, scope=scope)
+        call, rec = _aot_roundtrip(
+            exe, main, scope, predict,
+            {"img": ([AOT_BATCH, 3, R_IMG, R_IMG], "bfloat16")}, root,
+            "resnet50", place)
+        got = call({"img": x})[0]
+        worst = _ulps_of_rows(got.float().cpu().numpy(), want)
+        check(got.device == exe.device and worst <= SRV_ULPS,
+              f"aot_native: the ResNet-50 artifact is {worst} bf16 ulps "
+              f"of a row's max from the Executor's (limit {SRV_ULPS})")
+        for n in _persistables(main):
+            v = scope.find_var(n)
+            scope.set_var(n, torch.zeros_like(v))
+        again = call({"img": x})[0]
+        check(torch.equal(again, got), "aot_native: zeroing the scope "
+              "after the export changed the artifact's logits")
+        rec.update(batch=AOT_BATCH, max_err_bf16_ulps=worst,
+                   limit_bf16_ulps=SRV_ULPS,
+                   unchanged_after_scope_zeroed=True,
+                   artifact_ms=_wall_ms(lambda: call({"img": x})),
+                   executor_replay_ms=exe_ms)
+        del call, got, again
+    finally:
+        exe.close()
+        torch.cuda.empty_cache()
+
+    src = os.path.join(root, "capi_in.f32")
+    x32.tofile(src)
+    dims = [str(d) for d in x32.shape]
+    t0 = time.perf_counter()
+    so = native.capi_library()
+    capi = {"library": os.path.basename(so),
+            "build_s": time.perf_counter() - t0,
+            "shared_libpython": native.shared_libpython()}
+    env = dict(os.environ)
+    pkg_root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [pkg_root, *site.getsitepackages(),
+         *[p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]])
+    # the session's place: the card by default (CPUPlace only where this
+    # phase is rehearsed on the CPU)
+    device = "cpu" if isinstance(place, fluid.CPUPlace) else "cuda:0"
+    env.pop("PADDLE_TPU_CAPI_PLACE", None)
+    if device == "cpu":
+        env["PADDLE_TPU_CAPI_PLACE"] = "cpu"
+    hosts = [("ctypes", [sys.executable, "-c", _CAPI_CHILD, so])]
+    if capi["shared_libpython"]:
+        t0 = time.perf_counter()
+        hosts.append(("c_host", [native.build_capi_host()]))
+        capi["c_host_build_s"] = time.perf_counter() - t0
+    procs = []      # the hosts run at once, each its own process
+    t0 = time.perf_counter()
+    try:
+        for kind, cmd in hosts:
+            dst = os.path.join(root, f"capi_out_{kind}.f32")
+            args = ([model_dir, "img", src, dst] if kind == "c_host"
+                    else [model_dir, src, dst])
+            procs.append((kind, dst, subprocess.Popen(
+                cmd + args + dims, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env)))
+        for kind, dst, proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            lines = stdout.strip().splitlines()
+            check(proc.returncode == 0 and lines
+                  and lines[-1] == f"ok 2 {AOT_BATCH} {R_CLASSES}",
+                  f"aot_native: the C ABI through {kind} failed (rc "
+                  f"{proc.returncode}): {stdout[-1500:]} {stderr[-3000:]}")
+            if kind == "ctypes":
+                check(f"device={device}" in lines,
+                      f"aot_native: the C ABI session ran on {lines}")
+            out = np.fromfile(dst, dtype=np.float32).reshape(want.shape)
+            worst = _ulps_of_rows(out, want)
+            check(worst <= SRV_ULPS, f"aot_native: the C ABI through "
+                  f"{kind} is {worst} bf16 ulps of a row's max from the "
+                  f"Executor's (limit {SRV_ULPS})")
+            capi[kind] = {"max_err_bf16_ulps": worst, "process_s": secs,
+                          "device": device, "concurrent": len(hosts) > 1}
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    capi["ran"] = [k for k, _ in hosts]
+    return rec, capi
+
+
+def _aot_native_pipeline(place):
+    """ResNet-50 (bf16) training, NP_STEPS steps at NP_BATCH, fed through
+    reader.native_pipeline (FIFO) and fed the same batches directly,
+    from one startup state: the losses and every state bit-equal.  The
+    loader's batches/s alone against the step rate."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.core.scope import Scope
+
+    n = NP_BATCH * NP_STEPS
+    rng = np.random.RandomState(SEED)
+    imgs = rng.rand(n, 3, R_IMG, R_IMG).astype(np.float32)
+    labels = rng.randint(0, R_CLASSES, (n, 1)).astype(np.int64)
+
+    def samples():
+        for i in range(n):
+            yield imgs[i], labels[i]
+
+    slots = [((3, R_IMG, R_IMG), np.float32), ((1,), np.int64)]
+    pipe = reader.native_pipeline(samples, slots, NP_BATCH)
+    t0 = time.perf_counter()
+    batches = list(pipe())
+    loader_s = time.perf_counter() - t0
+    direct = [(imgs[i:i + NP_BATCH], labels[i:i + NP_BATCH])
+              for i in range(0, n, NP_BATCH)]
+    check(len(batches) == NP_STEPS and all(
+        np.array_equal(a, c) and np.array_equal(b, d)
+        for (a, b), (c, d) in zip(batches, direct)),
+        "aot_native: native_pipeline's batches differ from the samples "
+        "stacked in order")
+    main, startup, loss = _image_program(f"resnet{R_DEPTH}", R_IMG,
+                                         R_CLASSES, "bfloat16")
+    scope = Scope()
+    exe = fluid.Executor(place, seed=SEED)
+    exe.run(startup, scope=scope)
+    init = _state_of(main, scope)
+    exe.close()
+    runs = {}
+    for kind in ("direct", "native_pipeline"):
+        for name, v in init.items():
+            scope.set_var(name, v.clone())
+        exe = fluid.Executor(place, seed=SEED)
+        feeds = iter(pipe()) if kind == "native_pipeline" else iter(direct)
+        losses, secs = [], []
+        try:
+            for img, label in feeds:
+                t0 = time.perf_counter()
+                losses.append(exe.run(main, feed={
+                    "img": torch.from_numpy(img).to(torch.bfloat16),
+                    "label": label}, fetch_list=[loss], scope=scope)[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        finally:
+            exe.close()
+        runs[kind] = {"losses": [float(np.asarray(v).reshape(-1)[0])
+                                 for v in losses],
+                      "step_s": secs, "state": _state_of(main, scope)}
+    a, b = runs["direct"], runs["native_pipeline"]
+    differ = _states_equal(b["state"], a["state"])
+    check(len(b["losses"]) == NP_STEPS and a["losses"] == b["losses"]
+          and not differ, f"aot_native: native_pipeline-fed losses "
+          f"{b['losses']} against direct {a['losses']}; states differ in "
+          f"{differ[:5]}")
+    torch.cuda.empty_cache()
+    replayed = b["step_s"][2:]
+    return {"model": f"resnet{R_DEPTH}", "batch": NP_BATCH,
+            "steps": NP_STEPS, "losses": b["losses"],
+            "losses_bit_equal": True, "states_bit_equal": True,
+            "loader_batches_per_s": NP_STEPS / loader_s,
+            "replayed_steps_per_s": len(replayed) / sum(replayed),
+            "step_s": b["step_s"], "direct_step_s": a["step_s"]}
+
+
+def aot_native_phase(card, dev, place):
+    """A10b on the card: the flash op's host cost against the direct
+    call; the LM and MoE LM artifacts (`_aot_lm`, `_aot_moe`); ResNet-50's
+    artifact and the C ABI (`_aot_resnet_and_capi`); native_pipeline
+    feeding ResNet-50 training (`_aot_native_pipeline`) -> the launches
+    made through the loaded artifacts, {"fwd": flash forward, "moe":
+    route kernel}."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.moe_dispatch import moe_gate_dispatch
+
+    t0 = time.perf_counter()
+    native.lib()
+    build_s = time.perf_counter() - t0
+    host = _flash_op_host_us(dev)
+    root = tempfile.mkdtemp(prefix="aot_native_")
+    try:
+        # the main path: the loaded artifacts' calls on the card, counted
+        # from 0 (the Executor references beside them launch the same
+        # kernels at a miss and a capture: not counted)
+        fa.flash_attention.launches["fwd"] = 0
+        moe_gate_dispatch.launches = 0
+        flash = _Tally(lambda: fa.flash_attention.launches["fwd"])
+        route = _Tally(lambda: moe_gate_dispatch.launches)
+        lm = _aot_lm(place, root, flash)
+        moe = _aot_moe(place, root, route)
+        launches = {"fwd": flash.n, "moe": route.n}
+        check(flash.n > 0 and route.n > 0, f"aot_native: the artifacts "
+              f"launched the flash forward {flash.n} and the route kernel "
+              f"{route.n} times")
+        resnet, capi = _aot_resnet_and_capi(place, root)
+        pipeline = _aot_native_pipeline(place)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "aot_native", "card": card,
+          "native_build_s": build_s, "flash_op_host_us": host,
+          "lm": lm, "moe": moe, "resnet50": resnet, "capi": capi,
+          "native_pipeline": pipeline, "artifact_launches": launches,
+          "phase_s": time.perf_counter() - t0,
+          "timing": "host clock around each call + synchronize, median "
+                    f"of {AOT_REPS} after a warm call (artifact_ms, "
+                    "executor_replay_ms); the flash op's host time: "
+                    f"{AOT_HOST_CALLS} calls back to back, no sync, in "
+                    "turns direct/op/op/direct; the artifacts on the "
+                    "machine's local temporary directory (a warm page "
+                    "cache)"})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8780,6 +9465,7 @@ def main():
     image_serve_phase(card, CUDAPlace(0))
     persist_flash = persist_phase(card, CUDAPlace(0))
     conv_rest_phase(card, dev, CUDAPlace(0))
+    aot_launches = aot_native_phase(card, dev, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -8842,6 +9528,8 @@ def main():
                                    "every replay launches (both held); "
                                    "the profiler's reading of one "
                                    "replayed step (read, not held)",
+            **({"launches_aot": aot_launches["fwd"],
+                "launches_aot_note": _AOT_NOTE} if kind == "fwd" else {}),
             "max_abs_err": per_case["bf16_causal"]["max_abs_err"],
             **{k: main_case[kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")},
@@ -8867,6 +9555,8 @@ def main():
         "launches": moe_launches,
         "replayed_per_step": moe_replayed["moe"],
         "launches_note": _REPLAY_NOTE,
+        "launches_aot": aot_launches["moe"],
+        "launches_aot_note": _AOT_NOTE,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
                            for k in ("slot_weight", "combine", "aux")),
         **{k: main_case["route"][k] for k in keys},

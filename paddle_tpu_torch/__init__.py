@@ -39,7 +39,13 @@ convolutions, pool3d, the max pools with index, spp, unpool, row_conv,
 conv_shift); persistence (the io ops, `io`'s save/load, inference
 models and checkpoints, `Parameters`), the evaluators, the readers and
 the prefetch pipeline (reader/), the profiler's host events, the flight
-recorder and the `Trainer` with kill-and-resume.
+recorder and the `Trainer` with kill-and-resume; the AOT artifact
+(`io.export_aot_model`: a `torch.export` program whose hand-written
+kernels are PyTorch ops, `paddle_tpu_torch::flash_attention_fwd` and
+`paddle_tpu_torch::moe_gate_route`), the native runtime
+(native/: channels, thread pool, buddy allocator, the loader behind
+`reader.native_pipeline`), the C inference ABI (`capi_runtime`) and the
+CSP channels (`make_channel`, `go`).
 """
 from . import (  # noqa: F401
     amp,
@@ -75,6 +81,14 @@ from .core import (  # noqa: F401
     program_guard,
 )
 from .core.executor import Executor, global_scope, scope_guard  # noqa: F401
+from .concurrency import (  # noqa: F401
+    Go,
+    channel_close,
+    channel_recv,
+    channel_send,
+    go,
+    make_channel,
+)
 from .data_feeder import DataFeeder  # noqa: F401
 from .parameters import Parameters  # noqa: F401
 from .memory_optimization_transpiler import memory_optimize  # noqa: F401

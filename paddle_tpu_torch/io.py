@@ -22,10 +22,13 @@ snapshot (and a RuntimeWarning), and GC of old snapshots that spares
 incomplete ones younger than 30 minutes (another writer may be mid-
 save).
 
-Not ported: the AOT export (`export_aot_model`, `load_aot_model`: a
-`torch.export` artifact, ROADMAP A10b) and the static verification a
-loaded model gets under PADDLE_TPU_VERIFY=warn|error (the analysis
-passes, ROADMAP A12); both raise NotImplementedError naming the item.
+The AOT artifact (`export_aot_model`, `load_aot_model`) is a
+`torch.export` program of the pruned inference block, its parameters
+passed in as arguments from a side-car snapshot that keeps every bit,
+its hand-written kernels recorded as their PyTorch ops.  Not ported: the
+static verification a loaded model gets under PADDLE_TPU_VERIFY=warn|
+error (the analysis passes, ROADMAP A12), which raises
+NotImplementedError naming the item.
 """
 from __future__ import annotations
 
@@ -38,8 +41,12 @@ import uuid as uuid_mod
 import warnings
 from typing import List, Sequence
 
+import numpy as np
+import torch
+
 from .core.framework import (Parameter, Program, Variable,
                              default_main_program)
+from .core.scope import tensor_from_numpy
 
 __all__ = [
     "save_vars",
@@ -253,20 +260,242 @@ def load_inference_model(dirname, executor, model_filename=None,
             payload["fetch_var_names"])
 
 
-def export_aot_model(dirname, feed_specs, target_vars, executor,
-                     main_program=None, scope=None):
-    """The AOT artifact (a `torch.export` program with its weights) is
-    not ported yet: ROADMAP A10b."""
-    raise NotImplementedError(
-        "export_aot_model: the AOT artifact (torch.export) is not ported "
-        "yet (ROADMAP A10b)")
+AOT_FILENAME = "__aot_torch_export__"
 
 
-def load_aot_model(dirname):
-    """Not ported yet: ROADMAP A10b."""
-    raise NotImplementedError(
-        "load_aot_model: the AOT artifact (torch.export) is not ported "
-        "yet (ROADMAP A10b)")
+class _InferenceModule(torch.nn.Module):
+    """A pruned inference block as a module for torch.export:
+    `forward(params, feeds)` -> the fetches, a tuple.  It runs the
+    block's resolved plan eagerly (`_Plan.run`, the path an Executor or
+    `program_to_fn` takes at a cache miss), never a CUDA-graph capture or
+    replay."""
+
+    def __init__(self, plan, fetch_names, device, seed):
+        super().__init__()
+        self.plan, self.fetch_names = plan, list(fetch_names)
+        self.device, self.seed = device, seed
+
+    def forward(self, params, feeds):
+        from .core.execution import ExecContext
+
+        env = self.plan.run(ExecContext(self.device, seed=self.seed),
+                            {**params, **feeds})
+        return tuple(env[n] for n in self.fetch_names)
+
+
+def _check_exportable(block, feed_names, fetch_names, device):
+    """Raise on what an exported graph cannot carry: a host op (run
+    eagerly between device segments: control flow, tensor arrays, a
+    CPU-placed op, a random op on a card), a LoD feed, a fetch no op
+    produces."""
+    from .core.executor import _op_is_host
+
+    for op in block.ops:
+        if _op_is_host(op, device):
+            raise ValueError(
+                f"export_aot_model: op {op.type!r} (outputs "
+                f"{op.output_names()}) runs on the host between device "
+                "segments, which an exported graph cannot hold; export a "
+                "program without it")
+    for n in feed_names:
+        var = block.vars.get(n)
+        if var is None:
+            raise ValueError(f"export_aot_model: feed {n!r} is not a "
+                             "variable of the program")
+        if var.lod_level:
+            raise ValueError(
+                f"export_aot_model: feed {n!r} has lod_level "
+                f"{var.lod_level}; an exported graph takes dense tensors "
+                "of fixed shapes only")
+    written = {m for op in block.ops for m in op.output_names()}
+    missing = [n for n in fetch_names if n not in written
+               and n not in feed_names]
+    if missing:
+        raise ValueError(f"export_aot_model: fetch variable(s) {missing} "
+                         "are produced by no op of the pruned program")
+
+
+def _param_bits(t):
+    """A parameter as a numpy array holding its exact bits: bf16 (which
+    numpy lacks) as its int16 view."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _param_from_bits(arr, dtype_name):
+    from .core.types import torch_dtype
+
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype_name == "bfloat16":
+        return t.view(torch.bfloat16)
+    return t.to(torch_dtype(dtype_name))
+
+
+def export_aot_model(dirname, feed_specs: dict, target_vars, executor,
+                     main_program=None, scope=None) -> str:
+    """AOT-export the pruned inference function as a `torch.export`
+    program plus a side-car weights snapshot (counterpart of the JAX
+    package's StableHLO export).
+
+    The program is pruned to `target_vars` in test mode
+    (`get_inference_program`) and its block run through its resolved
+    plan (`_Plan.run`) under `torch.export.export(..., strict=False)` at
+    the concrete `feed_specs` shapes, on the executor's device.  The
+    hand-written kernels on the path are recorded as their PyTorch ops
+    (`paddle_tpu_torch::flash_attention_fwd`,
+    `paddle_tpu_torch::moe_gate_route`), so the loaded graph launches
+    them on a card; on the CPU the same ops run their plain versions.
+    The flags the lowerings read (amp, conv_layout) are taken as they
+    stand and fixed in the graph.
+
+    Params are ARGUMENTS (ordered by the `param_names` list of the meta
+    json), their values snapshotted bit for bit to
+    `<artifact>.params.npz` (bf16 as its int16 bits, the dtype in the
+    meta json): baking them in as constants would copy the full
+    parameter size into the graph.  A program with a host op (control
+    flow, tensor arrays, a CPU-placed op, a random op on a card) or a
+    LoD feed raises here, naming it.
+
+    `feed_specs`: {feed_name: (shape, dtype)}.  Writes
+    `<dirname>/__aot_torch_export__` (torch.export.save), its `.json`
+    meta (`feed_specs`, `param_names`, `param_dtypes`,
+    `fetch_var_names`, `device`) and its `.params.npz` -> the artifact
+    path."""
+    from .core.executor import (_Plan, _analyze_states, _sub_names,
+                                global_scope)
+    from .core.types import canonical_dtype, torch_dtype
+
+    program = main_program or default_main_program()
+    inference_program = get_inference_program(target_vars, program)
+    block = inference_program.global_block()
+    fetch_names = [t.name if isinstance(t, Variable) else str(t)
+                   for t in target_vars]
+    feed_names = list(feed_specs)
+    device = executor.device
+    _check_exportable(block, feed_names, fetch_names, device)
+    scope = scope or global_scope()
+    param_names, _ = _analyze_states(inference_program, block, feed_names)
+    params = {}
+    for n in param_names:
+        v = scope.find_var(n) if scope.has_var(n) else None
+        if not isinstance(v, torch.Tensor):
+            raise RuntimeError(
+                f"export_aot_model: persistable {n!r} has no tensor value "
+                "in scope — run the startup program (or load the model) "
+                "first")
+        params[n] = v.to(device)
+    feeds = {n: torch.zeros(tuple(int(d) for d in shape),
+                            dtype=torch_dtype(dtype), device=device)
+             for n, (shape, dtype) in feed_specs.items()}
+    persistable = frozenset(v.name for v in inference_program.list_vars()
+                            if v.persistable)
+    plan = _Plan(block.ops, persistable, _sub_names(inference_program))
+    module = _InferenceModule(plan, fetch_names, device,
+                              inference_program.seed or 0)
+    with torch.no_grad():
+        exported = torch.export.export(module, (params, feeds),
+                                       strict=False)
+    _conv_pin(exported)     # one conv backend for the whole graph
+    # the trace's example inputs are the parameters themselves: saved
+    # with the graph they would write every weight a second time
+    exported.example_inputs = None
+    os.makedirs(dirname, exist_ok=True)
+    path = os.path.join(dirname, AOT_FILENAME)
+    with open(path, "wb") as f:   # a file object: any name will do
+        torch.export.save(exported, f)
+    np.savez(path + ".params.npz",
+             **{n: _param_bits(v) for n, v in params.items()})
+    with open(path + ".json", "w") as f:
+        json.dump({"feed_specs": {n: [[int(d) for d in s],
+                                      canonical_dtype(d_)]
+                                  for n, (s, d_) in feed_specs.items()},
+                   "param_names": list(param_names),
+                   "param_dtypes": {n: canonical_dtype(v.dtype)
+                                    for n, v in params.items()},
+                   "fetch_var_names": fetch_names,
+                   "device": device.type}, f)
+    return path
+
+
+def _conv_pin(exported):
+    """The dtype whose pinned convolution backend (ops/conv.py
+    `conv_pinned`) the graph's convolutions ran under when traced, or
+    None when it has none.  The backend is a global setting, not a node
+    of the graph, so the loaded callable sets it around each call; a
+    graph whose convolutions would need two backends raises."""
+    from .ops.conv import conv_pinned_class
+
+    dtypes = set()
+    for node in exported.graph.nodes:
+        if node.op == "call_function" and "convolution" in str(node.target):
+            val = node.args[0].meta.get("val")
+            if val is not None:
+                dtypes.add(val.dtype)
+    classes = {conv_pinned_class(d) for d in dtypes}
+    if len(classes) > 1:
+        raise ValueError(
+            "export_aot_model: the graph's convolutions run in "
+            f"{sorted(str(d) for d in dtypes)}, which pin different "
+            "convolution backends; an artifact runs under one")
+    return next(iter(dtypes)) if dtypes else None
+
+
+def load_aot_model(dirname, place=None):
+    """-> (callable(feeds) -> [fetch tensors], feed_specs,
+    fetch_var_names).  Loads the `torch.export` artifact that
+    `export_aot_model` wrote and its side-car weights snapshot — no
+    Program, Scope or op registry involved, only the kernels' ops.  It
+    runs on `place`'s device (None = CUDAPlace(0), raising with no
+    card); an artifact exported on the other device is moved there
+    (`torch.export.passes.move_to_device_pass`).  `feeds` is {name:
+    array or tensor} of the exported shapes; the fetches come back as
+    tensors on that device.  The callable carries the loaded
+    ExportedProgram as `call.exported_program`."""
+    from contextlib import nullcontext
+
+    from .core.executor import resolve_place
+    from .core.types import torch_dtype
+    from .ops.conv import conv_pinned
+
+    device = resolve_place(place)
+    path = os.path.join(dirname, AOT_FILENAME)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    with open(path, "rb") as f:
+        exported = torch.export.load(f)
+    if meta.get("device", device.type) != device.type:
+        from torch.export.passes import move_to_device_pass
+
+        exported = move_to_device_pass(exported, device)
+    with np.load(path + ".params.npz") as z:
+        params = {n: _param_from_bits(z[n], meta["param_dtypes"][n]).to(
+            device) for n in meta["param_names"]}
+    specs = {n: (tuple(shape), torch_dtype(dt))
+             for n, (shape, dt) in meta["feed_specs"].items()}
+    pin = _conv_pin(exported)
+    module = exported.module()
+
+    def call(feeds):
+        missing = [n for n in specs if n not in feeds]
+        if missing:
+            raise KeyError(f"load_aot_model: missing feeds {missing}")
+        args = {}
+        for n, (shape, dtype) in specs.items():
+            v = feeds[n]
+            t = v if isinstance(v, torch.Tensor) else tensor_from_numpy(v)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"load_aot_model: feed {n!r} has shape "
+                                 f"{tuple(t.shape)}; the artifact was "
+                                 f"exported at {shape}")
+            args[n] = t.to(device=device, dtype=dtype)
+        with torch.no_grad(), (conv_pinned(pin) if pin is not None
+                               else nullcontext()):
+            return list(module(params, args))
+
+    call.exported_program = exported
+    return call, meta["feed_specs"], meta["fetch_var_names"]
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ runs for every CUDA call of the `flash_attention` op
 (ops/attention.py), and the fused bucket update and MoE gate/dispatch
 through `Selection.require`; each raises on a call it does not take.
 On the CPU the registry and the flag decide, as in the JAX package.
+The flash forward and the MoE routing forward are also PyTorch ops
+(`paddle_tpu_torch::flash_attention_fwd`, `paddle_tpu_torch::
+moe_gate_route`), which a program traced by torch.export records in
+place of the ctypes launch.
 """
 from .registry import (  # noqa: F401
     FALLBACK_METRIC,

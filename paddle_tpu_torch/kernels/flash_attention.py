@@ -26,8 +26,12 @@ function in plain PyTorch) and counts its launches in
 versions — `flash_attention` runs `flash_attention_reference` under
 autograd; a CUDA tensor launches the kernels or raises.
 `flash_attention_supports` says which calls the kernels take; a CUDA
-call they do not take raises.  Causal masking is top-left aligned:
-query row i sees key positions 0..i, also when seq_q != seq_k.
+call they do not take raises.  The forward kernel is also the PyTorch
+op `paddle_tpu_torch::flash_attention_fwd` (`flash_attention_fwd_op`),
+which `flash_attention` takes while torch.export traces, so an exported
+program (io.export_aot_model) launches the kernel after a reload.
+Causal masking is top-left aligned: query row i sees key positions
+0..i, also when seq_q != seq_k.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_fwd_reference", "flash_attention_dq_reference",
            "flash_attention_dkv_reference", "flash_attention_bwd",
            "attention_delta", "saved_lse", "build",
-           "SUPPORTED_HEAD_DIMS", "SOURCE"]
+           "flash_attention_fwd_op", "SUPPORTED_HEAD_DIMS", "SOURCE"]
 
 SOURCE = "flash_attention.cu"
 NEG_INF = -1e30  # the kernels' finite mask value
@@ -368,13 +372,49 @@ class _FlashAttention(torch.autograd.Function):
                                      ctx.scale), None, None)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool, scale: float
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as the PyTorch op
+    `paddle_tpu_torch::flash_attention_fwd` -> (o, lse): what a traced
+    program (torch.export, io.export_aot_model) records in place of the
+    ctypes launch, which a fake tensor cannot make.  On CUDA tensors it
+    is `flash_attention_fwd` (one launch, counted); on CPU tensors
+    `flash_attention_fwd_reference`; fake and meta tensors get shapes
+    and dtypes only.  `scale` is explicit (no None)."""
+    return flash_attention_fwd(q, k, v, causal, scale)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, causal, scale):
+    o, lse = flash_attention_fwd_reference(q, k, v, causal, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (q.new_empty((b, sq, h, v.shape[3])),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Attention over [batch, seq, heads, head_dim] tensors (K/V may have
     another seq length).  `scale` None means 1/sqrt(head_dim).  CPU and
     meta tensors run the plain version; CUDA tensors launch the kernels
     (forward now, dQ and dK/dV when autograd asks for gradients) or
     raise when the kernels cannot take them.  On a card the result
-    carries the forward's logsumexp (`saved_lse`)."""
+    carries the forward's logsumexp (`saved_lse`).  While torch.export
+    traces, on any device, the forward is the op
+    `paddle_tpu_torch::flash_attention_fwd` (`flash_attention_fwd_op`)
+    and the result carries no logsumexp: an exported program is an
+    inference program.  Eager calls keep the direct launch, whose host
+    cost is lower than the op's dispatch (PERF.md)."""
+    if torch.compiler.is_exporting():
+        return flash_attention_fwd_op(q, k, v, bool(causal),
+                                      _scale(q, scale))[0]
     if q.device.type != "cuda":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     _validate(q, k, v)

@@ -31,7 +31,12 @@ backward kernel.  Both gradients are the plain composition's VJP at the
 routing the forward chose — the gradient the JAX package takes (its
 Pallas kernel has no VJP, so it trains through the plain composition).
 Selection goes through kernels/registry.py ("moe_gate_dispatch"); the
-built callable carries the routing form as `.route`.
+built callable carries the routing form as `.route`.  The routing
+form's forward is also the PyTorch op `paddle_tpu_torch::moe_gate_route`
+(`moe_gate_route_op`, no autograd), which `moe_gate_route` and
+`moe_dense` take while torch.export traces, on any device, so an
+exported program (io.export_aot_model) launches the kernel after a
+reload.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ __all__ = ["moe_dispatch_supports", "build_moe_gate_dispatch",
            "moe_routing_reference", "moe_gate_dispatch_vjp",
            "moe_gate_route_vjp", "moe_gate_route_backward",
            "moe_gate_route_launch", "moe_gate_dispatch_launch",
-           "moe_route_backward_launch", "build", "SOURCE", "MAX_EXPERTS"]
+           "moe_route_backward_launch", "moe_gate_route_op", "build",
+           "SOURCE", "MAX_EXPERTS"]
 
 SOURCE = "moe_dispatch.cu"
 MAX_EXPERTS = 64
@@ -492,6 +498,41 @@ class _MoeGateDispatch(torch.autograd.Function):
                 None, None, None)
 
 
+@torch.library.custom_op("paddle_tpu_torch::moe_gate_route",
+                         mutates_args=(), device_types="cuda")
+def moe_gate_route_op(x: torch.Tensor, gate_w: torch.Tensor,
+                      num_experts: int, capacity: int, top_k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """The routing-form forward kernel as the PyTorch op
+    `paddle_tpu_torch::moe_gate_route` -> (expert_in, slot_weight, aux,
+    slot_of, slot_token): what a traced program (torch.export,
+    io.export_aot_model) records in place of the ctypes launch.  On CUDA
+    tensors it launches the kernel (one count in
+    `moe_gate_dispatch.launches`) or raises; on CPU tensors it is
+    `moe_gate_route_reference`; fake and meta tensors get shapes and
+    dtypes only.  No autograd: the training path keeps _MoeGateRoute."""
+    out = moe_gate_route_launch(x, gate_w, num_experts, capacity, top_k)
+    _count_forward()
+    return out[:5]
+
+
+@moe_gate_route_op.register_kernel("cpu")
+def _moe_gate_route_cpu(x, gate_w, num_experts, capacity, top_k):
+    return tuple(t.contiguous() for t in moe_gate_route_reference(
+        x, gate_w, num_experts, capacity, top_k))
+
+
+@moe_gate_route_op.register_fake
+def _moe_gate_route_fake(x, gate_w, num_experts, capacity, top_k):
+    T, D = x.shape
+    E, C, k = num_experts, capacity, top_k
+    f32, i32 = torch.float32, torch.int32
+    return (x.new_empty((E, C, D)), x.new_empty((E, C), dtype=f32),
+            x.new_empty((1, 1), dtype=f32), x.new_empty((k, T), dtype=i32),
+            x.new_empty((E, C), dtype=i32))
+
+
 def moe_gate_route(x, gate_w, num_experts: int, capacity: int,
                    top_k: int = 1):
     """Gate + capacity dispatch in routing form: x [T, D] f32, gate_w
@@ -499,7 +540,12 @@ def moe_gate_route(x, gate_w, num_experts: int, capacity: int,
     slot_of [k, T] int32, slot_token [E, C] int32), differentiable in x
     and gate_w through expert_in, slot_weight and aux.  CPU and meta
     tensors run the plain version; CUDA tensors launch the kernel (one
-    count per call) or raise."""
+    count per call) or raise.  While torch.export traces, on any
+    device, it is the op `paddle_tpu_torch::moe_gate_route`
+    (`moe_gate_route_op`, no autograd)."""
+    if torch.compiler.is_exporting():
+        return moe_gate_route_op(x, gate_w, int(num_experts),
+                                 int(capacity), int(top_k))
     if x.device.type != "cuda":
         return moe_gate_route_reference(x, gate_w, num_experts, capacity,
                                         top_k)

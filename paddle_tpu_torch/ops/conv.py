@@ -76,7 +76,7 @@ def conv_pinned(dtype):
     c, m = torch.backends.cudnn, torch.backends.cuda.matmul
     old = (c.enabled, c.benchmark, c.deterministic, c.allow_tf32,
            m.allow_tf32)
-    c.enabled = dtype not in (torch.float32, torch.float64)
+    c.enabled = conv_pinned_class(dtype)
     c.benchmark, c.deterministic, c.allow_tf32 = False, True, False
     m.allow_tf32 = False
     try:
@@ -84,6 +84,12 @@ def conv_pinned(dtype):
     finally:
         (c.enabled, c.benchmark, c.deterministic, c.allow_tf32,
          m.allow_tf32) = old
+
+
+def conv_pinned_class(dtype) -> bool:
+    """Whether `conv_pinned(dtype)` enables cuDNN (bf16/f16) or not
+    (float32/float64): the two backends it pins."""
+    return dtype not in (torch.float32, torch.float64)
 
 
 def _channels_last_flag(attrs, x) -> bool:

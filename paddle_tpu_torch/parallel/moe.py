@@ -162,7 +162,8 @@ def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
     kernels.registry.Selection for fallback-series ownership (defaults
     to this module's one)."""
     from ..core.types import canonical_dtype
-    from ..kernels.moe_dispatch import moe_gate_route_reference
+    from ..kernels.moe_dispatch import (moe_gate_route,
+                                        moe_gate_route_reference)
 
     E = gate_w.shape[1]
     T = x.shape[0]
@@ -178,6 +179,9 @@ def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
              picker.pick("moe_gate_dispatch", platform=x.device.type, **ctx))
     if fused is not None:
         routed = fused.route(x, gate_w)
+    elif torch.compiler.is_exporting():
+        # a traced program records the kernel's op on every device
+        routed = moe_gate_route(x, gate_w, E, capacity, top_k)
     else:
         routed = moe_gate_route_reference(x, gate_w, E, capacity, top_k)
     expert_in, slot_weight, aux2, slot_of, slot_token = routed

@@ -5,8 +5,9 @@ Reference: python/paddle/v2/reader/decorator.py (map_readers, shuffle,
 chain, compose, buffered, firstn, xmap_readers, PipeReader) and
 minibatch.py (batch).  Pure Python: the same decorators give the same
 samples in the same order as the JAX package's for the same seeds.
-`native_pipeline` needs the C++ loader (paddle_tpu/native, ROADMAP
-A10b) and raises until it is ported.
+`native_pipeline` runs the port's C++ loader (native/src/loader.cc,
+the JAX package's source), so it yields the same batches for the same
+seed.
 """
 from __future__ import annotations
 
@@ -313,12 +314,28 @@ def bucket_by_length(reader, batch_size, boundaries, seq_slots=(0,),
 
 def native_pipeline(reader, slots, batch_size, shuffle_buf=0, seed=0,
                     prefetch_depth=2, drop_last=False):
-    """The fused native shuffle + batch + double buffer: needs the C++
-    loader, not ported yet (ROADMAP A10b)."""
-    raise NotImplementedError(
-        "native_pipeline needs the native loader (paddle_tpu/native), "
-        "which is not ported yet (ROADMAP A10b); compose shuffle, batch "
-        "and buffered instead")
+    """Fused shuffle+batch+double_buffer on native threads: yields tuples of
+    stacked numpy arrays, one per slot.
+
+    The native replacement for `shuffle(...) |> batch(...) |> buffered(...)`
+    when samples are fixed-shape: shuffling, the stacking memcpy and prefetch
+    all run off the GIL in C++ (native/src/loader.cc), overlapping the input
+    pipeline with device compute — the role Paddle's double_buffer reader
+    (framework/reader.h) and PyDataProvider2's async pool play.
+
+    slots: [(shape, dtype), ...] of one sample's components.
+    """
+    from ..native import NativeLoader
+
+    loader = NativeLoader(slots, batch_size, shuffle_buf=shuffle_buf,
+                          seed=seed, prefetch_depth=prefetch_depth,
+                          drop_last=drop_last)
+
+    def batch_reader():
+        return loader.run(reader)
+
+    batch_reader.loader = loader
+    return batch_reader
 
 
 class PipeReader:

@@ -2446,3 +2446,183 @@ def test_prefetched_feeds_are_complete_when_the_consumer_reads_them(dev):
         sums.append(feed["x"].sum(dtype=torch.float64))
     assert [float(t) for t in sums] == [float(b.sum(dtype=np.float64))
                                         for b in batches]
+
+
+# -- A10b: the kernels as ops, the AOT artifact, the C ABI on the card -------
+
+def test_kernel_ops_launch_the_kernels_like_the_direct_calls(dev):
+    """The ops paddle_tpu_torch::flash_attention_fwd and
+    paddle_tpu_torch::moe_gate_route launch the same kernels as the
+    direct calls (bit-equal results, one count a call)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((2, 64, 4, 64), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = fa.flash_attention.launches["fwd"]
+    o1, l1 = fa.flash_attention_fwd(q, k, v, True, 0.125)
+    o2, l2 = fa.flash_attention_fwd_op(q, k, v, True, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert fa.flash_attention.launches["fwd"] == before + 2
+    x = torch.randn((96, 32), generator=g, device=dev)
+    gw = torch.randn((32, 8), generator=g, device=dev) * 0.5
+    before = md.moe_gate_dispatch.launches
+    got = md.moe_gate_route_op(x, gw, 8, 24, 2)
+    want = md.moe_gate_route_launch(x, gw, 8, 24, 2)[:5]
+    torch.cuda.synchronize()
+    assert md.moe_gate_dispatch.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _small_lm(fluid, amp):
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    fw.reset_unique_names()
+    if amp:
+        fluid.amp.enable_bf16()
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            ids = fluid.layers.data(name="ids", shape=[64], dtype="int64")
+            logits = transformer_lm(ids, 100, d_model=128, n_heads=2,
+                                    n_layers=3, max_len=64,
+                                    return_logits=True)
+    finally:
+        if amp:
+            fluid.amp.disable_bf16()
+    return main, startup, logits
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
+def test_exported_lm_launches_the_flash_kernel_after_a_reload(dev, amp,
+                                                             tmp_path):
+    """A 3-layer LM exported on the card and reloaded: 3 flash op nodes,
+    3 forward launches a call, logits bit-equal to the Executor's
+    eager forward (the same kernels and ops)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main, startup, logits = _small_lm(fluid, amp)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), Scope()
+    exe.run(startup, scope=scope)
+    ids = np.random.RandomState(0).randint(0, 100, (2, 64)).astype(np.int64)
+    if amp:
+        fluid.amp.enable_bf16()
+    try:
+        io.export_aot_model(str(tmp_path), {"ids": ([2, 64], "int64")},
+                            [logits], exe, main_program=main, scope=scope)
+        want = exe.run(io.get_inference_program([logits], main),
+                       feed={"ids": ids}, fetch_list=[logits], scope=scope,
+                       return_numpy=False)[0]
+    finally:
+        if amp:
+            fluid.amp.disable_bf16()
+    call, _, _ = io.load_aot_model(str(tmp_path))
+    nodes = [str(n.target) for n in call.exported_program.graph.nodes]
+    assert nodes.count("paddle_tpu_torch.flash_attention_fwd.default") == 3
+    before = fa.flash_attention.launches["fwd"]
+    got = call({"ids": ids})[0]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches["fwd"] == before + 3
+    assert got.is_cuda and torch.equal(got, want)
+    exe.close()
+
+
+def test_artifacts_move_between_the_cpu_and_the_card(dev, tmp_path):
+    """An artifact exported on the CPU runs on the card (its flash op then
+    launches the kernel) and one exported on the card runs on the CPU
+    (the plain version), both within 1e-4 of the other device's."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main, startup, logits = _small_lm(fluid, False)
+    ids = np.random.RandomState(1).randint(0, 100, (2, 64)).astype(np.int64)
+    cpu_exe, scope = fluid.Executor(fluid.CPUPlace()), Scope()
+    cpu_exe.run(startup, scope=scope)
+    io.export_aot_model(str(tmp_path / "cpu"), {"ids": ([2, 64], "int64")},
+                        [logits], cpu_exe, main_program=main, scope=scope)
+    card_exe = fluid.Executor(fluid.CUDAPlace(0))
+    card_scope = Scope()
+    for n in scope.local_names():
+        card_scope.set_var(n, scope.find_var(n).to(dev))
+    io.export_aot_model(str(tmp_path / "card"), {"ids": ([2, 64], "int64")},
+                        [logits], card_exe, main_program=main,
+                        scope=card_scope)
+    before = fa.flash_attention.launches["fwd"]
+    on_card = io.load_aot_model(str(tmp_path / "cpu"))[0]({"ids": ids})[0]
+    torch.cuda.synchronize()
+    assert on_card.is_cuda and fa.flash_attention.launches["fwd"] == \
+        before + 3
+    on_cpu = io.load_aot_model(str(tmp_path / "card"),
+                               fluid.CPUPlace())[0]({"ids": ids})[0]
+    assert on_cpu.device.type == "cpu"
+    tol = 1e-4 * max(1.0, float(on_cpu.abs().max()))
+    assert float((on_card.cpu() - on_cpu).abs().max()) <= tol
+    card_exe.close()
+
+
+def test_capi_session_runs_on_the_card_by_default(dev, tmp_path,
+                                                  monkeypatch):
+    """The port's C ABI, driven through ctypes in this process: the
+    session's Executor is on cuda:0 and its output equals the
+    Executor's run of the same model."""
+    import ctypes
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import capi_runtime, io, native
+    from paddle_tpu_torch.core.scope import Scope
+
+    monkeypatch.delenv("PADDLE_TPU_CAPI_PLACE", raising=False)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        out = fluid.layers.fc(input=fluid.layers.fc(x, 8, act="relu"),
+                              size=3, act="softmax")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), Scope()
+    exe.run(startup, scope=scope)
+    io.save_inference_model(str(tmp_path), ["x"], [out], exe,
+                            main_program=main, scope=scope)
+    xv = np.random.RandomState(2).rand(2, 4).astype(np.float32)
+    want = exe.run(main, feed={"x": xv}, fetch_list=[out], scope=scope)[0]
+    lib = ctypes.CDLL(native.capi_library())
+    i64 = ctypes.c_int64
+    lib.paddle_tpu_inference_create.restype = i64
+    lib.paddle_tpu_inference_create.argtypes = [ctypes.c_char_p]
+    lib.paddle_tpu_inference_feed.argtypes = [
+        i64, ctypes.c_char_p, ctypes.c_void_p, ctypes.POINTER(i64),
+        ctypes.c_int, ctypes.c_int]
+    lib.paddle_tpu_inference_run.argtypes = [i64]
+    lib.paddle_tpu_inference_fetch.restype = i64
+    lib.paddle_tpu_inference_fetch.argtypes = [
+        i64, ctypes.c_int, ctypes.POINTER(ctypes.c_float), i64,
+        ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_int)]
+    lib.paddle_tpu_inference_destroy.argtypes = [i64]
+    lib.paddle_tpu_last_error.restype = ctypes.c_char_p
+    sid = lib.paddle_tpu_inference_create(str(tmp_path).encode())
+    assert sid > 0, lib.paddle_tpu_last_error()
+    assert capi_runtime._sessions[sid].exe.device == dev
+    dims = (i64 * 2)(2, 4)
+    assert lib.paddle_tpu_inference_feed(
+        sid, b"x", xv.ctypes.data_as(ctypes.c_void_p), dims, 2, 0) == 0
+    assert lib.paddle_tpu_inference_run(sid) == 1
+    buf, odims, ondim = (ctypes.c_float * 6)(), (i64 * 8)(), ctypes.c_int()
+    assert lib.paddle_tpu_inference_fetch(sid, 0, buf, 6, odims,
+                                          ctypes.byref(ondim)) == 6
+    np.testing.assert_array_equal(np.ctypeslib.as_array(buf).reshape(2, 3),
+                                  want)
+    assert lib.paddle_tpu_inference_destroy(sid) == 0
+    exe.close()

@@ -441,10 +441,31 @@ def test_verification_of_a_loaded_model_raises_naming_a12(mode, tmp_path):
 
 
 def test_aot_export_raises_naming_a10b(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tio.export_aot_model(str(tmp_path), {}, [], None)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tio.load_aot_model(str(tmp_path))
+    """A10b is ported: the AOT artifact of fit_a_line's regression and of
+    the JAX package's, from the same parameters, agree with each other
+    and with the Executor (tests/test_torch_aot.py holds the rest)."""
+    jm, js, feeds, jpred, feed = _fit_a_line(jfluid, jfw)
+    main, startup, _, pred, _ = _fit_a_line(tfluid, tfw)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    jexe.run(js, scope=jscope)
+    exe, scope = tfluid.Executor(CPU), Scope()
+    exe.run(startup, scope=scope)
+    for p in main.global_block().all_parameters():
+        scope.set_var(p.name, torch.from_numpy(
+            np.asarray(jscope.find_var(p.name)).copy()))
+    spec = {"x": ([16, 13], "float32")}
+    jio.export_aot_model(str(tmp_path / "j"), spec, [jpred], jexe,
+                         main_program=jm, scope=jscope)
+    tio.export_aot_model(str(tmp_path / "t"), spec, [pred], exe,
+                         main_program=main, scope=scope)
+    call, specs, fetches = tio.load_aot_model(str(tmp_path / "t"), CPU)
+    assert specs == {"x": [[16, 13], "float32"]} and fetches == [pred.name]
+    got = call(feed)[0].numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jio.load_aot_model(str(tmp_path / "j"))[0](feed)[0]),
+        rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(
+        got, exe.run(main, feed=feed, fetch_list=[pred], scope=scope)[0])
 
 
 def test_entry_points_default_to_the_card():

@@ -11,6 +11,7 @@ import statement (including lazy ones inside functions).
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -104,3 +105,41 @@ def test_sparse_ctr_module_is_scanned_and_imports_alone(module):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "FORBIDDEN="
+
+
+# the port's C, C++ and CUDA sources: the native runtime (and its C
+# inference ABI, which embeds the interpreter) and the kernels.  A
+# kernel's source names the TPU kernel it replaces by file
+# (paddle_tpu/kernels/<file>.py, as the guide to the kernels asks); no
+# source names a module of the JAX package (paddle_tpu.<module>), and the
+# native runtime's name the JAX package in no form
+NATIVE_SRC = os.path.join(PKG, "native", "src")
+C_SOURCE_DIRS = (NATIVE_SRC, os.path.join(PKG, "kernels", "csrc"))
+_JAX_MODULE = re.compile(r"\bpaddle_tpu(?!_torch)\.\w")
+_JAX_PACKAGE_NAME = re.compile(r"\bpaddle_tpu(?!_torch)(?=[./\"'\s:]|$)")
+
+
+def _c_sources():
+    for d in C_SOURCE_DIRS:
+        for f in sorted(os.listdir(d)):
+            if f.endswith((".c", ".cc", ".h", ".cu", ".cuh")):
+                yield os.path.join(d, f)
+
+
+def test_c_sources_name_no_module_of_the_jax_package():
+    """No C source imports or names a module of paddle_tpu (the extern-C
+    names paddle_tpu_inference_* are the ABI's, not a module); the C
+    inference ABI imports the port's runtime."""
+    offenders, imports = [], []
+    for path in _c_sources():
+        native = os.path.dirname(path) == NATIVE_SRC
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if _JAX_MODULE.search(line) or (
+                        native and _JAX_PACKAGE_NAME.search(line)):
+                    offenders.append((os.path.relpath(path, ROOT), i, line))
+                imports += re.findall(r'PyImport_ImportModule\("([^"]+)"\)',
+                                      line)
+    assert not offenders, offenders
+    assert imports == ["paddle_tpu_torch.capi_runtime"]
+    assert len(list(_c_sources())) >= 10

@@ -355,8 +355,18 @@ def test_creators_read_the_jax_packages_files(tmp_path):
 
 
 def test_unported_readers_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="A10b"):
-        treader.native_pipeline(_source(), [((1,), "float32")], 2)
+    """native_pipeline (A10b) is ported and yields the JAX package's
+    batches; cloud_reader still raises naming A11."""
+    samples = lambda: ((np.array([i], np.float32),  # noqa: E731
+                        np.array([2 * i], np.int64)) for i in range(23))
+    slots = [((1,), "float32"), ((1,), "int64")]
+    got = list(treader.native_pipeline(samples, slots, 5, shuffle_buf=8,
+                                       seed=3)())
+    want = list(jreader.native_pipeline(samples, slots, 5, shuffle_buf=8,
+                                        seed=3)())
+    assert [len(b[0]) for b in got] == [5, 5, 5, 5, 3]
+    assert all(a.tobytes() == b.tobytes()
+               for g, w in zip(got, want) for a, b in zip(g, w))
     with pytest.raises(NotImplementedError, match="A11"):
         treader.creator.cloud_reader("x", "localhost:1")
 

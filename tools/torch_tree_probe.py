@@ -24,6 +24,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py a4b-a6 [--package-root DIR]
     python3 tools/torch_tree_probe.py a3-a10 [--package-root DIR]
     python3 tools/torch_tree_probe.py maxpool-routes [--package-root DIR]
+    python3 tools/torch_tree_probe.py a10b [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -102,6 +103,9 @@ maxpool-routes  the max pools' two backward routes (`ops/conv.py`
            segment sum) on the same disjoint windows at the conv_rest
            shapes (C3D's 2x2x2 / 2 pool, SegNet's 2x2 / 2): each one's ms
            and their results bit for bit;
+a10b       chip_smoke.py's aot_native phase alone (the kernels built
+           first): the LM, MoE LM and ResNet-50 torch.export artifacts,
+           the C inference ABI, native_pipeline and a go block;
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -902,6 +906,16 @@ def a3_a10(cs, dev):
     cs.ops_phase(card, dev)
 
 
+def a10b(cs, dev):
+    """chip_smoke's aot_native phase alone, the kernels built first."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, _, _ = _card(cs)
+    cuda_build.build_all()
+    emit({"aot_launches": cs.aot_native_phase(card, dev, CUDAPlace(0))})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -989,7 +1003,7 @@ def main():
                                       "replays",
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
-                                      "maxpool-routes"))
+                                      "maxpool-routes", "a10b"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1025,7 +1039,8 @@ def main():
          "replays": replays,
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
-         "maxpool-routes": maxpool_routes}[args.probe](cs, dev)
+         "maxpool-routes": maxpool_routes, "a10b": a10b}[args.probe](cs,
+                                                                  dev)
     return 0
 
 

@@ -46,10 +46,10 @@ Phases, one JSON line each:
            trained from one seeded startup in the Executor's default
            mode, as the JAX package's cells run: the block compiled,
            run eagerly at its miss, captured into a CUDA graph at its
-           first hit and replayed after (6 timed steps and one profiled
-           replay: one miss, then hits, no recompile; the kernels
-           counted at the eager run and the capture, and by the
-           profiler in the replay); then 6 from the same state in the
+           first hit and replayed after (G_STEPS = 5 timed steps and
+           one profiled replay: one miss, then hits, no recompile; the
+           kernels counted at the eager run and the capture, and by the
+           profiler in the replay); then 5 from the same state in the
            interpreter (compiled=False), whose losses and parameters
            must equal the replay's bit for bit, and 6 on the plain path
            (interpreted; the op's lowering and its gradient swapped for
@@ -107,7 +107,7 @@ Phases, one JSON line each:
            32000, d_model 512, 8 heads, 6 layers, d_inner 2048) with
            seeded random weights, written as a model dir and served
            through server_from_model_dir (8 slots, 256 KV blocks):
-           16 staggered requests per kv_dtype on the plain path and on
+           12 staggered requests per kv_dtype on the plain path and on
            the kernel path, batched-vs-solo bit identity, pool drain;
   spec     the same model as its own draft (spec_k 3, the W=4 kernel):
            accept rate 1.0 and the plain greedy tokens;
@@ -191,7 +191,7 @@ Phases, one JSON line each:
            with peepholes, the last step, fc 2 softmax, Adam 2e-3, batch
            128, 100 int64 ids a sequence as one LoDTensor): the default
            mode (one CUDA graph) against the interpreter bit for bit
-           (losses and every state), the loss falling; three seeded
+           (losses and every state), the loss falling; two seeded
            ragged LoDs (lengths 10-100) through the same Program, each a
            capture of its own and replays after; two Adam steps at batch
            16 with a float32 embedding on the card and on the CPU
@@ -212,8 +212,8 @@ Phases, one JSON line each:
            table, Adam 1e-4, float32; the book's copy task at batch 32,
            source lengths 10-127): mt_train (the DynamicRNN decoder)
            and mt_attention (the attention decoder, source padded to
-           128), each in the default mode (one CUDA graph a LoD, two
-           more seeded LoDs after the timed one) against the
+           128), each in the default mode (one CUDA graph a LoD, one
+           more seeded LoD after the timed one) against the
            interpreter bit for bit; mt_decode, the While + beam_search
            decoder (beam 2, top-k 4, 32 iterations) over 32 sources
            with mt_train's parameters; mt_card_vs_cpu, batch 8 (source
@@ -226,7 +226,7 @@ Phases, one JSON line each:
            crf_decoding and chunk_eval) at the book's published widths
            (see the L_ constants), batch 10, SGD: the default mode (one
            device segment replayed as a CUDA graph a LoD, then the host
-           chunk_eval; two more seeded LoDs) against the interpreter bit
+           chunk_eval; one more seeded LoD) against the interpreter bit
            for bit, the loss falling, the eval program of
            fluid.io.get_inference_program on a fresh batch, and two steps
            on the card and on the CPU (losses within 1e-5, states within
@@ -282,8 +282,8 @@ Phases, one JSON line each:
            concurrent requests, every result against the Executor's,
            no capture after construction;
   persist  run_seq2seq's translator (amp, Adam) through the port's
-           Trainer, a snapshot every 2 iterations: killed at iteration 4
-           by the `trainer.iteration` fault site and resumed by a new
+           Trainer, 4 iterations, a snapshot every 2: killed at iteration
+           3 by the `trainer.iteration` fault site and resumed by a new
            Trainer in a fresh scope, bit-equal to an uninterrupted run
            in its steps, losses and every persistable; step 2's snapshot
            loaded into the uninterrupted run's captured graph replays
@@ -295,7 +295,7 @@ Phases, one JSON line each:
   conv_rest  A3's ten ops at published shapes (the CR_ constants):
            forward and gradient on the card, twice bit for bit, timed,
            with ATen's convolution route; card against the CPU at batch
-           2 (float32 held to the CPU's float64 no worse than twice the
+           1 (float32 held to the CPU's float64 no worse than twice the
            CPU's float32; bf16 within one ulp of the CPU's float32 on the
            same values); then DCGAN (the DC_ constants) trained 4
            alternating iterations in the default mode and interpreted,
@@ -304,15 +304,16 @@ Phases, one JSON line each:
            paddle_tpu_torch::flash_attention_fwd against the direct
            call, a call and in the interpreted LM forward (the
            flash_attention lowering swapped to call the op); the train
-           phase's LM forward (logits, amp, 12 layers)
-           exported with io.export_aot_model and reloaded on the card:
-           12 flash op nodes and no SDPA, softmax or logsumexp node, 12
-           flash launches a call, logits at the flash phase's bf16 bar
+           phase's LM forward (logits, amp, AOT_LM_LAYERS = 4 layers at
+           full width) exported with io.export_aot_model and reloaded on
+           the card: 4 flash op nodes and no SDPA, softmax or logsumexp
+           node, 4 flash launches a call, logits at the flash phase's bf16 bar
            against the Executor's forward; a `go` block runs the
            artifact and sends its logits through a channel, bit-equal to
            the main thread's; the same at 1 layer loaded on the CPU,
-           within SRV_ULPS of the card; the moe phase's MoE LM forward:
-           6 route op nodes, 6 route launches a call; image_serve's
+           within SRV_ULPS of the card; the moe phase's MoE LM forward
+           at AOT_MOE_LAYERS = 2 layers: 2 route op nodes, 2 route
+           launches a call; image_serve's
            ResNet-50 at batch 16 within SRV_ULPS of the Executor's
            replayed step and unchanged after the scope is zeroed; the
            same model saved and run through the C ABI (`_capi`) on the
@@ -322,7 +323,34 @@ Phases, one JSON line each:
            fed through reader.native_pipeline, losses and states
            bit-equal to direct feeds; export and load seconds, artifact
            bytes, ms a call against the Executor's replayed step, and
-           the loader's batches/s against the step rate.
+           the loader's batches/s against the step rate;
+  tools    A10c, two lines.  "profiler" (run inside the train phase, on
+           its replayed graph; its seconds are its own):
+           profiler.profile_compiled_ops over 3 replays of the LM's
+           step (each flash kernel 3 x 12 calls under its op's scope,
+           flash_attention:... or flash_attention_grad:..., 95 % of the
+           table's device time scoped, its total within 2 % of
+           _profile_step's device time over 3 replays; the top 15 rows
+           printed), xla_profiler's Chrome trace of a replay (the three
+           flash kernels named), program_to_code and draw_block_graphviz
+           over the LM's training Program (one op node an op).  "cli"
+           (after seq2seq): the seq2seq phase's translator written as a
+           CLI config and run through paddle_tpu_torch.cli.main in this
+           process: train 4 batches with --save_dir (the flash wrappers
+           18 a kernel on the eager run and on the capture; a profiled
+           replay runs 18 of each), test on that pass (its losses those
+           of the trained scope's test program run again, bit for bit),
+           merge (the merged model's logits, loaded with
+           load_inference_model, the test program's forward bit for
+           bit), time 10 batches (within 1.5x of the seq2seq phase's
+           replayed step), and the time job again as `python -m
+           paddle_tpu_torch.cli`; then --job=checkgrad on a small fc
+           config in the default mode and interpreted (both pass, the
+           numeric gradients within 1e-6).
+
+Every phase line carries `seconds`, its wall time (since the line
+before it, but for lines that time their own part), and a `timing`
+line before the kernels line lists them all.
 
 The main paths are the train phase's kernel path (flash attention; the
 train_fp32 and seq2seq phases' too), the kernel-path serve and spec
@@ -377,7 +405,7 @@ _CARD_PEAKS = (("H200", 4.8e12, 67e12, 989e12, 495e12),
 
 V, D_MODEL, N_HEADS, N_LAYERS, D_INNER = 32000, 512, 8, 6, 2048
 BLOCK, MAX_BLOCKS, SLOTS, KV_BLOCKS = 16, 32, 8, 256
-N_REQUESTS, SEED = 16, 0
+N_REQUESTS, SEED = 12, 0
 KV_DTYPES = ("fp32", "bf16", "int8")
 
 # the training configuration: benchmark/run_ridge.py's defaults
@@ -385,8 +413,8 @@ T_VOCAB, T_D, T_HEADS, T_LAYERS, T_SEQ, T_BATCH = 30000, 2048, 16, 12, 512, 8
 T_STEPS = 4
 # the train and moe phases' steps in each mode: in the default mode the
 # miss (eager), the first hit (captured into a CUDA graph, then
-# replayed) and 4 replays
-G_STEPS = 6
+# replayed) and 3 replays
+G_STEPS = 5
 # kernel path vs plain path: per-step loss, and each weight matrix's
 # change over the steps (||dW_kernel - dW_plain|| / ||dW_plain||).  At
 # random init the attention is near uniform, so dS = P (dP - delta) is a
@@ -422,7 +450,8 @@ S2S_FLASH_SHAPE = (S_BATCH, S_LEN, S_HEADS, S_D // S_HEADS)
 # transformer (S_*), 127 steps
 GEN_VOCAB, GEN_CTX, GEN_PROMPT, GEN_D, GEN_LAYERS = 32000, 512, 16, 512, 6
 GEN_HEADS, GEN_BATCH, GEN_BEAM = 8, 8, 4
-GEN_STEPS, GEN_BEAM_STEPS = GEN_CTX - GEN_PROMPT, GEN_CTX - GEN_PROMPT
+# beam search decodes GEN_BEAM_STEPS positions
+GEN_STEPS, GEN_BEAM_STEPS = GEN_CTX - GEN_PROMPT, 128
 GEN_CPU_LAYERS, GEN_CPU_STEPS, GEN_TIE_RTOL = 2, 64, 1e-5
 GEN_FLASH_SHAPE = (GEN_BATCH, GEN_CTX, GEN_HEADS, GEN_D // GEN_HEADS)
 # the image_serve phase: benchmark/run_image.py:154-204's serve_one for
@@ -528,7 +557,7 @@ N_REF_MS = 261.0
 # batch N_CPU_BATCH with a float32 embedding, losses within
 # N_CPU_LOSS_RTOL relative, every state within N_CPU_RTOL of max(1,
 # |CPU value|) (the CPU tests hold the CPU path to the JAX package)
-N_RAGGED, N_RAGGED_MIN = 3, 10
+N_RAGGED, N_RAGGED_MIN = 2, 10
 N_OVER, N_OVER_ROUNDS = 2, 3
 N_CPU_BATCH, N_CPU_STEPS, N_CPU_LOSS_RTOL, N_CPU_RTOL = 16, 2, 1e-5, 1e-4
 # run_seq2seq --model rnn at its defaults (:63-103, :155-162): batch 32,
@@ -548,7 +577,7 @@ Q_BATCH, Q_LEN, Q_HID, Q_EMB, Q_LR = 32, 128, 512, 512, 1e-4
 # steps, losses within N_CPU_LOSS_RTOL and states within N_CPU_RTOL; the
 # decode's ids and LoDs equal, its scores within B_SCORE_RTOL relative
 B_VOCAB, B_EMB, B_HID, B_LR, B_START, B_END = 30000, 512, 512, 1e-4, 0, 1
-B_BATCH, B_MIN_LEN, B_MAX_LEN, B_MAXS, B_LODS = 32, 10, 127, 128, 2
+B_BATCH, B_MIN_LEN, B_MAX_LEN, B_MAXS, B_LODS = 32, 10, 127, 128, 1
 B_BEAM, B_TOPK, B_DECODE_LEN = 2, 4, 32
 B_CPU_BATCH, B_CPU_MAX_LEN, B_CPU_STEPS, B_SCORE_RTOL = 8, 32, 2, 1e-5
 # the book07 phase: book/07's semantic-role tagger (db_lstm of Paddle's
@@ -568,7 +597,7 @@ B_CPU_BATCH, B_CPU_MAX_LEN, B_CPU_STEPS, B_SCORE_RTOL = 8, 32, 2, 1e-5
 L_WORDS, L_PREDS, L_LABELS, L_MARKS = 44068, 3162, 59, 2
 L_WORD_DIM, L_MARK_DIM, L_HIDDEN, L_DEPTH, L_CRF_LR = 32, 5, 512, 8, 1e-3
 L_LR, L_BATCH, L_MIN_LEN, L_MAX_LEN, L_LODS, L_CPU_STEPS = \
-    1e-4, 10, 5, 60, 2, 2
+    1e-4, 10, 5, 60, 1, 2
 # the dp_gspmd phase: benchmark/run_scaling.py's step (:33-88; bf16
 # throughout, Momentum 0.1 / 0.9): resnet50_dp1 at --depth 50 --img 224
 # --batch-per-dev 64 (resnet_imagenet, 1000 classes) under a one-rank
@@ -639,12 +668,14 @@ DECIDE_RTOL = 1e-5
 W_ROWS, W_WIDTH, W_CLASSES, W_NEG = 12800, 512, 30000, 10
 W_ROI_X, W_ROIS = (2, 512, 38, 50), 128
 P2_TWIN = {"resnet_cifar10": None, "resnet_cifar10_fp32": "float64"}
+# dp2_one_card's steps a program (at least P_HELD)
+P2_STEPS = 4
 
 # the persist phase: run_seq2seq's translator (S_ constants, bf16 amp,
 # Adam) through the port's Trainer for PS_ITERS iterations, a snapshot
 # every PS_EVERY, killed at iteration PS_KILL and resumed; then
 # image_serve's ResNet-50 saved and served from disk
-PS_ITERS, PS_EVERY, PS_KILL = 6, 2, 4
+PS_ITERS, PS_EVERY, PS_KILL = 4, 2, 3
 # the conv_rest phase: A3's ten ops at published shapes, forward and
 # gradient on the card, against the CPU at batch CR_CPU_BATCH.  C3D's
 # conv1 and pool (Tran et al. 2015; the 2x2x2 / 2 pool of its later
@@ -660,7 +691,7 @@ CR_SEGNET = (4, 64, 360, 480)
 CR_SPP, CR_SPP_HEIGHT = (64, 256, 13, 13), 3
 CR_ROW_BATCH, CR_ROW_LEN, CR_ROW_D, CR_ROW_FUTURE = 32, 500, 1760, 20
 CR_SHIFT, CR_SHIFT_M = (128, 128), 3
-CR_CPU_BATCH = 2
+CR_CPU_BATCH = 1
 # DCGAN (Radford et al. 2016, sections 3-4): z 100 -> 4x4x1024 -> ... ->
 # 64x64x3 through conv2d_transpose, the mirror through conv2d; batch
 # norm but at G's output and D's input; ReLU / tanh in G, LeakyReLU 0.2
@@ -680,6 +711,10 @@ DC_CPU_BATCH, DC_CPU_ITERS = 8, 2
 # steps at NP_BATCH; AOT_REPS timed calls (median); AOT_HOST_CALLS
 # calls a reading of the flash op's host time against the direct call
 AOT_BATCH, AOT_CPU_LAYERS, AOT_REPS, AOT_HOST_CALLS = 16, 1, 5, 20
+# the artifacts' depth: the LM's and the MoE LM's decoder layers at their
+# full widths (an export's and a load's seconds go with the parameters
+# written and read)
+AOT_LM_LAYERS, AOT_MOE_LAYERS = 4, 2
 NP_BATCH, NP_STEPS = 32, 4
 
 
@@ -692,7 +727,31 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
-def emit(obj):
+# every phase line's `seconds`: the wall time since the previous phase
+# line (the first: since the clock started), less the time set aside for
+# a line of its own (`_aside`); a line that measures its own keeps it,
+# and PHASE_SECONDS (the closing `timing` line) has the wall time of each
+_CLOCK = {"last": time.perf_counter(), "aside": 0.0}
+PHASE_SECONDS = []      # [(phase, part, seconds)] in the order emitted
+
+
+def _aside(seconds):
+    """Take `seconds` out of the next phase line's time: they are a later
+    line's own (the tools phase's profiler part runs inside train)."""
+    _CLOCK["aside"] += seconds
+
+
+def emit(obj, aside=False):
+    """Print `obj` as a JSON line; a phase line gets its seconds.  With
+    `aside` its own `seconds` were set aside from an earlier line's
+    (`_aside`), and PHASE_SECONDS counts them."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        wall = now - _CLOCK["last"] - _CLOCK["aside"]
+        obj.setdefault("seconds", wall)
+        _CLOCK["last"], _CLOCK["aside"] = now, 0.0
+        PHASE_SECONDS.append([obj["phase"], obj.get("part"),
+                              obj["seconds"] if aside else wall])
     print(json.dumps(obj), flush=True)
 
 
@@ -1712,7 +1771,7 @@ def _default_and_interpreter(phase, place, main, startup, loss, feed_of,
 
 
 def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
-                 keep=()):
+                 keep=(), on_replay=None):
     """A transformer Program's flash main path, under the caller's amp
     setting: G_STEPS steps in the Executor's default mode (eager at the
     miss, captured into a CUDA graph at the first hit, replayed after)
@@ -1724,7 +1783,9 @@ def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
     flash op and its gradient swapped for the plain composition).
     -> a dict of the three paths' readings, with the startup's values
     ("init") and the replay's of the states in `keep` ("kept"); the
-    scope holds the plain path's."""
+    scope holds the plain path's.  `on_replay(exe, run)`, when given,
+    runs after the default mode's steps, its graph live (its result is
+    the dict's "on_replay")."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -1762,6 +1823,7 @@ def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
                 ("flash_attention", "matmul"), phase,
                 lambda: {n: scope.find_var(n).clone() for n in snapshot})
         k_total = dict(launches)
+        extra = on_replay(exe, run) if on_replay is not None else None
         # the graph and its pool go before the interpreter's runs
         exe.close()
         exe = fluid.Executor(place, seed=SEED)
@@ -1807,7 +1869,7 @@ def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
     finally:
         exe.close()
     return {"want": want, "startup_s": startup_s, "init": init,
-            "kept": kept,
+            "kept": kept, "on_replay": extra,
             "params": sum(int(np.prod(p.shape)) for p in params),
             "k_loss": k_loss, "k_secs": k_secs, "profile": profile,
             "p_loss": p_loss, "p_secs": p_secs, "i_secs": i_secs,
@@ -1826,13 +1888,16 @@ def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
                            "plain_attention_grads": plain.grad_calls}}
 
 
-def train_phase(card, place, peaks, flash_cases, amp):
+def train_phase(card, place, peaks, flash_cases, amp, tools=False):
     """The run_ridge LM trained in the Executor's default mode (the block
     compiled: eager at the miss, then a CUDA graph, captured at the first
     hit and replayed), under bf16 amp (phase "train", the main path) or
     in float32 ("train_fp32"); then the interpreter and the plain path
     from the same state (`_flash_paths`), and each weight matrix's
-    change on the kernel and plain paths."""
+    change on the kernel and plain paths.  With `tools`, the tools
+    phase's profiler part runs on the replayed graph (`_tools_profiler`)
+    -> (the wrappers' launches, the replayed step's kernels, the tools
+    record or None)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.core.scope import Scope
@@ -1848,7 +1913,9 @@ def train_phase(card, place, peaks, flash_cases, amp):
                    if len(p.shape) == 2]
         # the replay is held to the interpreter over the parameters
         r = _flash_paths(phase, place, main, startup, loss, _train_feed,
-                         list(_grad_names(main)), keep=weights)
+                         list(_grad_names(main)), keep=weights,
+                         on_replay=(lambda exe, run: _tools_profiler(
+                             card, exe, main, run)) if tools else None)
         # each weight's change on the kernel path (the replay's) and on
         # the plain path (the scope's now)
         param_rel = _param_rel_diff(fluid.global_scope().find_var,
@@ -1911,7 +1978,8 @@ def train_phase(card, place, peaks, flash_cases, amp):
                     "replayed step; peak memory over the default mode's "
                     "steps (allocated, and reserved with the graph's "
                     "pool)"})
-    return r["kernel_path"]["launches"], profile["kind_counts"]
+    return (r["kernel_path"]["launches"], profile["kind_counts"],
+            r["on_replay"])
 
 
 # -- seq2seq phase -----------------------------------------------------------
@@ -2032,7 +2100,7 @@ def seq2seq_phase(card, place, peaks, flash_cases):
                     "dense peak; attention from the flash phase's s2s "
                     "cases (cold kernel ms x launches a step); device "
                     "time and idle share from one profiled replay"})
-    return graph["launches"], profile["kind_counts"]
+    return graph["launches"], profile["kind_counts"], step_ms
 
 
 # -- serve / spec phases -----------------------------------------------------
@@ -5883,7 +5951,7 @@ def _dp2_worker(rank, port, out_dir):
             main, startup, loss = build()
             persist = _persistables(main)
             r = np.random.RandomState(SEED + 9)
-            feeds = [feed_of(r) for _ in range(G_STEPS)]
+            feeds = [feed_of(r) for _ in range(P2_STEPS)]
             pe = fluid.ParallelExecutor(main, list(feeds[0]), [loss],
                                         mesh={"dp": 2},
                                         startup_program=startup,
@@ -5894,17 +5962,18 @@ def _dp2_worker(rank, port, out_dir):
             losses, secs, held = _steps_held(
                 lambda i: pe.run(feeds[i], return_numpy=False)[0],
                 lambda: {n: pe.state(n, return_numpy=False).cpu()
-                         for n in init})
+                         for n in init}, P2_STEPS)
             rec = {"form": pe.gspmd_form, "losses": losses, "held": held,
                    "gspmd_info": pe.gspmd_info,
                    "ms_per_step_3_6": float(np.median(secs[2:])) * 1e3,
                    "all_reduces_per_step": _per_step(pe.collective_calls,
-                                                     G_STEPS),
+                                                     P2_STEPS),
                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
             pe.close()
             del pe
             if rank == 0:
-                rec["serial"] = _dp2_serial(main, loss, init, feeds)
+                rec["serial"] = _dp2_serial(main, loss, init, feeds,
+                                            P2_STEPS)
                 if name in P2_TWIN:
                     rec["band"] = _dp2_band(main, loss, init, feeds,
                                             P2_TWIN[name])
@@ -6035,7 +6104,7 @@ _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "replayed step")
 _AOT_NOTE = ("launches_aot: the aot_native phase's count over the calls of "
              "the loaded torch.export artifacts on the card (the LM's, at "
-             "12 and 1 layers, a go block's call among them, for the "
+             "4 and 1 layers, a go block's call among them, for the "
              "flash forward; the MoE LM's for the route kernel), each "
              "through the op paddle_tpu_torch::flash_attention_fwd or "
              "paddle_tpu_torch::moe_gate_route")
@@ -7376,6 +7445,9 @@ def remat_phase(card, place):
 # rounding; a wrong gradient or a statistic written twice would show
 # in float64 too
 REMAT_STATS_F64_TOL = 1e-6
+# the float64 pair's default-mode steps (the eager run, the capture, a
+# replay)
+REMAT_F64_STEPS = 3
 
 
 def _remat_stats_f64(place):
@@ -7409,7 +7481,7 @@ def _remat_stats_f64(place):
                 for n in persist:
                     scope.set_var(n, init[n].clone())
             losses, secs = [], []
-            for _ in range(G_STEPS):
+            for _ in range(REMAT_F64_STEPS):
                 t0 = time.perf_counter()
                 losses.append(float(np.asarray(exe.run(
                     main, feed=feed, fetch_list=[loss])[0]).reshape(-1)[0]))
@@ -8946,8 +9018,9 @@ def _interpreted_host_ms(exe, infer, feed, fetch, scope):
 
 
 def _aot_lm(place, root, tally):
-    """The LM's forward exported and reloaded on the card (12 flash op
-    nodes, no SDPA or plain attention node, 12 launches a call, logits
+    """The LM's forward (AOT_LM_LAYERS layers) exported and reloaded on
+    the card (a flash op node a layer, no SDPA or plain attention node,
+    a launch a layer a call, logits
     at the bf16 bar against the Executor's forward); a `go` block runs
     the artifact and sends its logits through a channel (bit-equal to
     the main thread's); the artifact of AOT_CPU_LAYERS layers loaded on
@@ -8965,7 +9038,7 @@ def _aot_lm(place, root, tally):
     out = {}
     fluid.amp.enable_bf16()     # before the Programs are built
     try:
-        for layers in (T_LAYERS, AOT_CPU_LAYERS):
+        for layers in (AOT_LM_LAYERS, AOT_CPU_LAYERS):
             main, startup, logits = _lm_forward(layers)
             scope = Scope()
             exe = fluid.Executor(place, seed=SEED)
@@ -9013,7 +9086,7 @@ def _aot_lm(place, root, tally):
                                infer, feed={"ids": ids},
                                fetch_list=[logits], scope=scope,
                                return_numpy=False)))
-                if layers == T_LAYERS:
+                if layers == AOT_LM_LAYERS:
                     rec["go"] = _aot_go(call, ids, got)
                     rec["interpreted_step_host_ms"] = _interpreted_host_ms(
                         exe, infer, {"ids": ids}, logits, scope)
@@ -9064,7 +9137,7 @@ def _aot_go(call, ids, want):
 
 def _aot_moe(place, root, tally):
     """The MoE LM's forward (the moe phase's configuration, amp)
-    exported and reloaded on the card: M_LAYERS route op nodes, as many
+    exported and reloaded on the card: AOT_MOE_LAYERS route op nodes, as many
     route launches a call, logits at the bf16 bar against the
     Executor's forward; the artifact's calls counted in `tally`."""
     import paddle_tpu_torch as fluid
@@ -9080,7 +9153,7 @@ def _aot_moe(place, root, tally):
     try:
         fw.reset_unique_names()
         main, startup, _ = build_moe_lm(M_BATCH, M_SEQ, M_VOCAB, M_D,
-                                        M_HEADS, M_LAYERS, M_EXPERTS,
+                                        M_HEADS, AOT_MOE_LAYERS, M_EXPERTS,
                                         M_TOPK, M_CF, aux_weight=M_AUX)
         logits = next(op.input("Logits")[0]
                       for op in main.global_block().ops
@@ -9095,16 +9168,16 @@ def _aot_moe(place, root, tally):
                                    root, "moe_lm", place)
         targets = _graph_targets(call)
         call = tally.wrap(call)
-        check(targets.get(op_name) == M_LAYERS, f"aot_native: the MoE "
+        check(targets.get(op_name) == AOT_MOE_LAYERS, f"aot_native: the MoE "
               f"graph holds {targets.get(op_name)} route op nodes (want "
-              f"{M_LAYERS})")
+              f"{AOT_MOE_LAYERS})")
         before = moe_gate_dispatch.launches
         got = call({"ids": ids})[0]
         torch.cuda.synchronize()
         per_call = moe_gate_dispatch.launches - before
-        check(per_call == M_LAYERS, f"aot_native: one call of the MoE "
+        check(per_call == AOT_MOE_LAYERS, f"aot_native: one call of the MoE "
               f"artifact launched the route kernel {per_call} times "
-              f"(want {M_LAYERS})")
+              f"(want {AOT_MOE_LAYERS})")
         infer = io.get_inference_program([logits], main)
         want = [exe.run(infer, feed={"ids": ids}, fetch_list=[logits],
                         scope=scope, return_numpy=False)[0]
@@ -9113,7 +9186,7 @@ def _aot_moe(place, root, tally):
         err = float((got.float() - want.float()).abs().max())
         check(ok, f"aot_native: MoE artifact logits {err} (rms {rms}) "
               f"from the Executor's (limits {lim}, {rms_lim})")
-        rec.update(route_op_nodes=M_LAYERS, route_launches_a_call=per_call,
+        rec.update(route_op_nodes=AOT_MOE_LAYERS, route_launches_a_call=per_call,
                    max_abs_err_vs_executor=err, rms_err_vs_executor=rms,
                    limit=lim, rms_limit=rms_lim,
                    executor_bit_equal=bool(torch.equal(got, want)),
@@ -9385,6 +9458,439 @@ def aot_native_phase(card, dev, place):
     return launches
 
 
+
+# -- tools phase: the CLI jobs, checkgrad, the device profiler, the
+# debugger (A10c) ----------------------------------------------------------
+
+# profile_compiled_ops's replayed steps; the 2 % bar between its table's
+# total and _profile_step's device time over as many replayed steps; the
+# share of the table's device time that must carry an op scope
+TOOLS_STEPS, TOOLS_TOTAL_RTOL, TOOLS_SCOPED = 3, 0.02, 0.95
+# the CLI's translator: batches of the train job, the time job, and the
+# test job (test_reader); the time job's ms a batch against the seq2seq
+# phase's replayed step
+CLI_TRAIN, CLI_TIME, CLI_TEST, CLI_TIME_RATIO = 4, 10, 2, 1.5
+# checkgrad's per-sample numeric gradients, default mode against the
+# interpreter
+CHECKGRAD_RTOL = 1e-6
+_FLASH_KINDS = {"fwd": "fwd_kernel<", "dq": "dq_kernel<",
+                "dkv": "dkv_kernel<"}
+_FLASH_SCOPES = {"fwd": "flash_attention:", "dq": "flash_attention_grad:",
+                 "dkv": "flash_attention_grad:"}
+
+
+def _tools_profiler(card, exe, main, run):
+    """The tools phase's profiler and host-tools parts on the train
+    phase's LM, its replayed graph live (`run(step)` one more replayed
+    step): profile_compiled_ops over TOOLS_STEPS replays (each flash
+    kernel 3 x 12 calls under its op's scope, TOOLS_SCOPED of the device
+    time scoped, the total within TOOLS_TOTAL_RTOL of _profile_step's
+    device time over as many replays), xla_profiler's trace of one
+    replay (the three flash kernels named in it), program_to_code and
+    draw_block_graphviz over the training Program (one op node an op),
+    and the per-op ranges' host cost: TOOLS_STEPS interpreted steps
+    without them and with them installed (no capture running)
+    -> the record of the tools line's "profiler" part; its seconds are
+    set aside from the train line's."""
+    from paddle_tpu_torch import debugger, profiler
+    from paddle_tpu_torch.core.execution import op_scopes
+
+    t0 = time.perf_counter()
+    phase = "tools"
+    ops = main.global_block().ops
+    n_attn = sum(op.type == "flash_attention" for op in ops)
+    replay = lambda: run(G_STEPS)  # noqa: E731
+    t1 = time.perf_counter()
+    rows = profiler.profile_compiled_ops(replay, steps=TOOLS_STEPS,
+                                         print_table=False)
+    table_s = time.perf_counter() - t1
+    print(profiler.format_op_table(rows, limit=15), flush=True)
+    flash = {}
+    for kind, pat in _FLASH_KINDS.items():
+        mine = [r for r in rows if pat in r["name"]]
+        flash[kind] = {"calls": sum(r["calls"] for r in mine),
+                       "rows": len(mine),
+                       "total_ms": sum(r["total"] for r in mine) * 1e3,
+                       "scopes": sorted({r["scope"] for r in mine})}
+        check(flash[kind]["calls"] == TOOLS_STEPS * n_attn,
+              f"{phase}: {flash[kind]['calls']} {kind} kernels in the "
+              f"table over {TOOLS_STEPS} replays, want "
+              f"{TOOLS_STEPS} x {n_attn}")
+        check(all(sc.startswith(_FLASH_SCOPES[kind])
+                  for sc in flash[kind]["scopes"]),
+              f"{phase}: {kind} kernels under scopes "
+              f"{flash[kind]['scopes']}, want {_FLASH_SCOPES[kind]}...")
+    total_ms = sum(r["total"] for r in rows) * 1e3
+    scoped_ms = sum(r["total"] for r in rows if r["scope"]) * 1e3
+    check(scoped_ms >= TOOLS_SCOPED * total_ms,
+          f"{phase}: {scoped_ms} of the table's {total_ms} device ms carry "
+          f"an op scope, want at least {TOOLS_SCOPED}")
+    prof = _profile_step(lambda: [replay() for _ in range(TOOLS_STEPS)],
+                         ("flash_attention", "matmul"), phase)
+    total_rel = abs(total_ms - prof["device_ms"]) / prof["device_ms"]
+    check(total_rel <= TOOLS_TOTAL_RTOL,
+          f"{phase}: the table's total {total_ms} ms against "
+          f"_profile_step's {prof['device_ms']} device ms over "
+          f"{TOOLS_STEPS} replays ({total_rel} apart)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiler.xla_profiler(tmp) as log_dir:
+            replay()
+        path = os.path.join(log_dir, "trace.json")
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        trace_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    found = {k: sum(pat in n for n in names)
+             for k, pat in _FLASH_KINDS.items()}
+    check(all(found.values()), f"{phase}: xla_profiler's trace names the "
+          f"flash kernels {found}")
+    t1 = time.perf_counter()
+    code = debugger.program_to_code(main)
+    code_s = time.perf_counter() - t1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dot_")
+    try:
+        t1 = time.perf_counter()
+        dot = debugger.draw_block_graphviz(
+            main.global_block(), path=os.path.join(tmp, "lm.dot"))
+        dot_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(dot.count("shape=box") == len(ops),
+          f"{phase}: the .dot holds {dot.count('shape=box')} op nodes for "
+          f"{len(ops)} ops")
+
+    def interpreted():
+        secs = []
+        for _ in range(TOOLS_STEPS):
+            t1 = time.perf_counter()
+            exe.run(main, feed=_train_feed(G_STEPS), compiled=False)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        return float(np.median(secs)) * 1e3
+
+    ranges_off = interpreted()
+    with op_scopes(profiler._range):
+        ranges_on = interpreted()
+    seconds = time.perf_counter() - t0
+    _aside(seconds)
+    return {"phase": phase, "part": "profiler", "card": card,
+            "model": "the train phase's LM (run_ridge, amp, 12 layers)",
+            "replayed_steps": TOOLS_STEPS, "table_rows": len(rows),
+            "table_s": table_s,
+            "top_rows": [[r["name"][:120], r["scope"], r["calls"],
+                          r["total"] * 1e3] for r in rows[:15]],
+            "flash": flash, "table_total_ms": total_ms,
+            "scoped_ms": scoped_ms, "scoped_share": scoped_ms / total_ms,
+            "profile_step_device_ms": prof["device_ms"],
+            "total_rel_diff": total_rel,
+            "trace_flash_kernel_names": found,
+            "trace_kernel_names": len(names), "trace_bytes": trace_bytes,
+            "ops": len(ops), "program_to_code_lines": code.count("\n") + 1,
+            "program_to_code_s": code_s, "dot_op_nodes":
+                dot.count("shape=box"), "dot_bytes": len(dot),
+            "draw_block_graphviz_s": dot_s,
+            "interpreted_ms_ranges_off": ranges_off,
+            "interpreted_ms_ranges_on": ranges_on, "seconds": seconds,
+            "timing": "profile_compiled_ops over replays of the train "
+                      "phase's captured step (CUPTI kernel times; the "
+                      "replay's kernels scoped by an eager re-run of its "
+                      "plan); _profile_step over as many replays; host "
+                      "clock for the host tools; the ranges' cost: the "
+                      "median of TOOLS_STEPS interpreted steps each way "
+                      "(host clock + synchronize), no capture running"}
+
+
+_CLI_S2S_CONFIG = """
+import numpy as np
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.models.transformer import transformer_translate
+
+V, D, H, L, N, B = {vocab}, {d}, {heads}, {layers}, {length}, {batch}
+
+
+def _feed(seed):
+    # run_seq2seq's feed (:117-126): the same batch every step
+    r = np.random.RandomState(seed)
+    shape = (B, N)
+    return {{"src": r.randint(0, V, shape).astype(np.int64),
+            "tgt": r.randint(0, V, shape).astype(np.int64),
+            "lbl": r.randint(0, V, shape + (1,)).astype(np.int64)}}
+
+
+def build():
+    fluid.amp.enable_bf16()     # run_seq2seq --dtype bfloat16
+    src = fluid.layers.data(name="src", shape=[N], dtype="int64")
+    tgt = fluid.layers.data(name="tgt", shape=[N], dtype="int64")
+    lbl = fluid.layers.data(name="lbl", shape=[N, 1], dtype="int64")
+    logits = transformer_translate(
+        src, tgt, V, V, d_model=D, n_heads=H, n_layers=L, dropout_rate=0.0,
+        is_test=False, return_logits=True, remat=False)
+    loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+        fluid.layers.reshape(logits, shape=[-1, V]),
+        fluid.layers.reshape(lbl, shape=[-1, 1])))
+
+    def reader():
+        for _ in range({train}):
+            yield _feed(0)
+
+    def test_reader():
+        for i in range({test}):
+            yield _feed(1 + i)
+
+    return {{"loss": loss, "reader": reader, "test_reader": test_reader,
+            "optimizer": fluid.Adam(learning_rate=1e-4),
+            "infer_targets": [logits], "feed_order": ["src", "tgt"]}}
+"""
+
+_CLI_FC_CONFIG = """
+import numpy as np
+import paddle_tpu_torch as fluid
+
+
+def build():
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+    pred = fluid.layers.fc(input=x, size=1)
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+
+    def reader():
+        r = np.random.RandomState(0)
+        w = np.array([[1.0], [2.0], [-1.0], [0.5]], np.float32)
+        for _ in range(8):
+            xb = r.rand(16, 4).astype(np.float32)
+            yield {"x": xb, "y": xb @ w}
+
+    return {"loss": loss, "reader": reader,
+            "optimizer": fluid.SGD(learning_rate=0.1),
+            "infer_targets": [pred], "feed_order": ["x", "y"]}
+"""
+
+
+def _cli(argv):
+    """paddle_tpu_torch.cli.main(argv) in this process, bf16 amp off
+    again after it (the translator's config turns it on) -> the job's
+    result."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import cli
+
+    try:
+        return cli.main(argv)
+    finally:
+        fluid.amp.disable_bf16()
+
+
+def _cli_translator(card, place, s2s_ms, root, cfg):
+    """(a): run_seq2seq's translator through the CLI: train CLI_TRAIN
+    batches with --save_dir, test on that pass, time CLI_TIME batches,
+    merge; the test program re-run on the trained scope, the merged
+    model served, one replayed step profiled; the time job once more as
+    a subprocess -> (the record, the wrappers' launches over the jobs)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    phase = "tools"
+    save, merged = os.path.join(root, "save"), os.path.join(root, "merged")
+    base = ["--config", cfg]
+    launches = flash_attention.launches
+    for key in launches:
+        launches[key] = 0
+    secs = {}
+
+    t0 = time.perf_counter()
+    tr = _cli([*base, "--job", "train", "--batches_per_pass",
+               str(CLI_TRAIN), "--save_dir", save, "--log_period", "1"])
+    secs["train"] = time.perf_counter() - t0
+    train_launches = dict(launches)
+    n_attn = sum(op.type == "flash_attention"
+                 for op in tr["cfg"]["main"].global_block().ops)
+    want = {k: 2 * n_attn for k in launches}     # the eager run, capture
+    check(train_launches == want, f"{phase}: the train job's flash "
+          f"launches {train_launches}, want {want} (eager and capture)")
+    g = tr["exe"].graph_stats()
+    check(g["captures"] == 1 and g["replays"] == CLI_TRAIN - 2,
+          f"{phase}: the train job's graphs {g}")
+    pass_dir = os.path.join(save, "pass-00000")
+
+    t0 = time.perf_counter()
+    te = _cli([*base, "--job", "test", "--init_model_path", pass_dir])
+    secs["test"] = time.perf_counter() - t0
+    # one more run of the trained scope's test program, bit for bit
+    mod = cli._load_config(cfg)
+    prev = executor_mod.switch_scope(tr["scope"])
+    fluid.amp.enable_bf16()
+    try:
+        test_cfg = cli._build(mod)
+        test_prog = test_cfg["main"].clone(for_test=True)
+        exe = fluid.Executor(place)
+        again = [float(exe.run(test_prog, feed=feed,
+                               fetch_list=[test_cfg["loss"]])[0]
+                       .reshape(-1)[0])
+                 for feed in test_cfg["test_reader"]()]
+        feed = next(iter(test_cfg["test_reader"]()))
+        forward = exe.run(test_prog, feed=feed,
+                          fetch_list=test_cfg["infer_targets"],
+                          return_numpy=False)[0].clone()
+        exe.close()
+    finally:
+        fluid.amp.disable_bf16()
+        executor_mod.switch_scope(prev)
+    check(te["costs"] == again, f"{phase}: the test job's losses "
+          f"{te['costs']}, the trained scope's test program's {again}")
+    te["exe"].close()
+
+    t0 = time.perf_counter()
+    _cli([*base, "--job", "merge", "--init_model_path", pass_dir,
+          "--save_dir", merged])
+    secs["merge"] = time.perf_counter() - t0
+    scope = fluid.Scope()
+    prev = executor_mod.switch_scope(scope)
+    fluid.amp.enable_bf16()
+    try:
+        exe = fluid.Executor(place)
+        prog, feeds, fetches = fluid.io.load_inference_model(
+            merged, exe, model_filename="__model__",
+            params_filename="__params__")
+        served = exe.run(prog, feed={n: feed[n] for n in feeds},
+                         fetch_list=fetches, return_numpy=False)[0]
+        exe.close()
+    finally:
+        fluid.amp.disable_bf16()
+        executor_mod.switch_scope(prev)
+    check(served.is_cuda and torch.equal(served, forward),
+          f"{phase}: the merged model's logits differ from the test "
+          "program's forward")
+
+    # a replayed step of the train job's graph: 18 of each flash kernel
+    kinds = _FLASH_KINDS
+    tr_cfg = tr["cfg"]
+    prev = executor_mod.switch_scope(tr["scope"])
+    fluid.amp.enable_bf16()
+    try:
+        before = dict(launches)
+        feed = next(iter(tr_cfg["reader"]()))
+        prof = _profile_step(lambda: tr["exe"].run(
+            tr_cfg["main"], feed=feed, fetch_list=[tr_cfg["loss"]]),
+            ("flash_attention", "matmul"), phase, kinds=kinds)
+        check(dict(launches) == before,
+              f"{phase}: a wrapper ran during the profiled replay")
+    finally:
+        fluid.amp.disable_bf16()
+        executor_mod.switch_scope(prev)
+        tr["exe"].close()
+    per_step = {k: n_attn for k in kinds}
+    check(prof["kind_counts"] == per_step, f"{phase}: the train job's "
+          f"replayed step ran flash kernels {prof['kind_counts']}, want "
+          f"{per_step}")
+    train_costs = tr["costs"][0]
+    del tr, te
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tm = _cli([*base, "--job", "time", "--batches_per_pass", str(CLI_TIME)])
+    secs["time"] = time.perf_counter() - t0
+    time_ms = tm["ms_per_batch"]
+    tm["exe"].close()
+    del tm
+    torch.cuda.empty_cache()
+    ratio = time_ms / s2s_ms
+    check(1 / CLI_TIME_RATIO <= ratio <= CLI_TIME_RATIO,
+          f"{phase}: the time job's {time_ms} ms a batch against the "
+          f"seq2seq phase's replayed {s2s_ms} ms (x{ratio})")
+    total = dict(launches)
+
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", *base, "--job",
+         "time", "--batches_per_pass", str(CLI_TIME)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    secs["time_subprocess"] = time.perf_counter() - t0
+    line = [ln for ln in sub.stdout.splitlines() if "ms/batch" in ln]
+    check(sub.returncode == 0 and line, f"{phase}: `python -m "
+          f"paddle_tpu_torch.cli --job=time` exited {sub.returncode}: "
+          f"{sub.stderr[-2000:]}")
+    sub_ms = float(line[-1].split()[1])
+    return {"model": "run_seq2seq's translator (benchmark/run_seq2seq.py"
+                     ":39-60 defaults, amp, Adam 1e-4)",
+            "train_costs": train_costs, "test_costs": again,
+            "test_bit_equal": True, "merged_bit_equal": True,
+            "train_launches": train_launches,
+            "replayed_step_kernels": prof["kind_counts"],
+            "replayed_step_device_ms": prof["device_ms"],
+            "time_ms_per_batch": time_ms, "seq2seq_ms_per_step": s2s_ms,
+            "time_over_seq2seq": ratio, "time_subprocess_ms": sub_ms,
+            "job_seconds": secs}, total
+
+
+def _cli_checkgrad(root):
+    """(b): --job=checkgrad on the small fc config, in the default mode
+    and interpreted: both pass, their per-sample numeric gradients
+    within CHECKGRAD_RTOL."""
+    from paddle_tpu_torch.core import flags
+
+    phase = "tools"
+    cfg = os.path.join(root, "fc_config.py")
+    with open(cfg, "w") as f:
+        f.write(_CLI_FC_CONFIG)
+    argv = ["--config", cfg, "--job", "checkgrad"]
+    default = _cli(argv)
+    flags.set_flags({"jit_granularity": "op"})
+    try:
+        interp = _cli(argv)
+    finally:
+        flags.set_flags({"jit_granularity": "block"})
+    g = default["exe"].graph_stats()
+    check(g["replays"] > 0, f"{phase}: checkgrad's default mode "
+          f"replayed no graph: {g}")
+    worst = 0.0
+    for name, d in default["params"].items():
+        i = interp["params"][name]
+        check(np.array_equal(d["indices"], i["indices"])
+              and np.all(d["numeric"] != 0),
+              f"{phase}: checkgrad {name}: indices or zero gradients")
+        rel = np.abs(d["numeric"] - i["numeric"]) / np.maximum(
+            np.abs(i["numeric"]), 1e-30)
+        worst = max(worst, float(rel.max()))
+    check(worst <= CHECKGRAD_RTOL, f"{phase}: checkgrad's numeric "
+          f"gradients {worst} apart, default mode against the interpreter")
+    for r in (default, interp):
+        r["exe"].close()
+    return {"worst_rel_err_default": default["worst"],
+            "worst_rel_err_interpreted": interp["worst"],
+            "numeric_default_vs_interpreted": worst,
+            "graph_stats": {k: g[k] for k in ("captures", "replays")}}
+
+
+def tools_cli_phase(card, place, s2s_ms):
+    """The tools phase's CLI part: (a) the translator's jobs, (b)
+    checkgrad -> the wrappers' flash launches over (a)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cfg = os.path.join(root, "s2s_config.py")
+        with open(cfg, "w") as f:
+            f.write(_CLI_S2S_CONFIG.format(
+                vocab=S_VOCAB, d=S_D, heads=S_HEADS, layers=S_LAYERS,
+                length=S_LEN, batch=S_BATCH, train=CLI_TRAIN,
+                test=CLI_TEST))
+        translator, launches = _cli_translator(card, place, s2s_ms, root,
+                                               cfg)
+        checkgrad = _cli_checkgrad(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "tools", "part": "cli", "card": card,
+          "translator": translator, "launches": launches,
+          "checkgrad": checkgrad,
+          "timing": "host clock around each job in this process (the "
+                    "time job's own ms a batch: its clock read after a "
+                    "device synchronize); the subprocess's as it prints"})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9433,13 +9939,15 @@ def main():
     from paddle_tpu_torch import CUDAPlace
 
     # the main path runs bf16 amp, the reference cells' mode
-    flash_launches, flash_replayed = train_phase(
-        card, CUDAPlace(0), peaks, flash_cases, amp=True)
-    fp32_launches, _ = train_phase(card, CUDAPlace(0), peaks, flash_cases,
-                                   amp=False)
+    flash_launches, flash_replayed, tools_profile = train_phase(
+        card, CUDAPlace(0), peaks, flash_cases, amp=True, tools=True)
+    emit(tools_profile, aside=True)     # the tools phase's profiler part
+    fp32_launches, _, _ = train_phase(card, CUDAPlace(0), peaks,
+                                      flash_cases, amp=False)
     lm_dropout_phase(card, CUDAPlace(0), dev, flash_cases)
-    s2s_launches, s2s_replayed = seq2seq_phase(card, CUDAPlace(0), peaks,
-                                               flash_cases)
+    s2s_launches, s2s_replayed, s2s_ms = seq2seq_phase(
+        card, CUDAPlace(0), peaks, flash_cases)
+    tools_launches = tools_cli_phase(card, CUDAPlace(0), s2s_ms)
     launches = serve_phases(card, CUDAPlace(0))
     fused_launches, largest = dp_phase(card, CUDAPlace(0), peaks)
     fused_cases = fused_update_phase(dev, bw, flops, largest)
@@ -9511,6 +10019,14 @@ def main():
                                      "launches_seq2seq_wrapper",
             "launches_seq2seq_wrapper": s2s_launches[kind],
             "launches_persist": persist_flash[kind],
+            "launches_tools": tools_launches[kind],
+            "launches_tools_note": "the tools phase's CLI jobs on the "
+                                   "seq2seq translator, in this process "
+                                   "(the wrappers' count: the train, "
+                                   "test and time jobs' eager runs and "
+                                   "captures and the checks' runs; "
+                                   "their replays launch the same "
+                                   "kernels)",
             "launches_persist_note": "the persist phase's uninterrupted "
                                      "seq2seq Trainer run (the wrappers' "
                                      "count: its eager first step and its "
@@ -9582,6 +10098,8 @@ def main():
             main_case["backward"]["dense_function_backward_ms"],
         "library_note": "no PyTorch call computes this gradient",
         "case": "top2"})
+    emit({"phase": "timing", "phases": PHASE_SECONDS,
+          "total_s": sum(w for _, _, w in PHASE_SECONDS)})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

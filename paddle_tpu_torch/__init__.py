@@ -45,13 +45,18 @@ kernels are PyTorch ops, `paddle_tpu_torch::flash_attention_fwd` and
 `paddle_tpu_torch::moe_gate_route`), the native runtime
 (native/: channels, thread pool, buddy allocator, the loader behind
 `reader.native_pipeline`), the C inference ABI (`capi_runtime`) and the
-CSP channels (`make_channel`, `go`).
+CSP channels (`make_channel`, `go`); the user-facing tools: the `paddle
+train` CLI's jobs (`python -m paddle_tpu_torch.cli`), the profiler's
+device half on torch.profiler, the debugger, image, plot and the
+dataset parsers (dataset/).
 """
 from . import (  # noqa: F401
     amp,
     backward,
     clip,
+    debugger,
     evaluator,
+    image,
     initializer,
     io,
     kernels,
@@ -62,6 +67,7 @@ from . import (  # noqa: F401
     observability,
     optimizer,
     parallel,
+    plot,
     profiler,
     reader,
     regularizer,

@@ -20,6 +20,7 @@ cotangent carries it.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import zlib
 from typing import Dict, List, Optional
@@ -280,11 +281,52 @@ def op_context(ctx: ExecContext, op, env, tag: int) -> ExecContext:
     return child
 
 
+# ---------------------------------------------------------------------------
+# per-op scopes
+# ---------------------------------------------------------------------------
+
+# None (every run_op and plan step adds nothing), or while the profiler's
+# device half or a scope-annotating export is on, a callable(name) -> a
+# context manager each op runs inside: a torch.profiler range, or fx
+# node metadata (profiler.py)
+_scope_factory = None
+
+
+def op_scope_name(op) -> str:
+    """The JAX package's per-op named scope: "<type>:<first output>"."""
+    outs = op.output_names()
+    return f"{op.type}:{outs[0]}" if outs else op.type
+
+
+def current_op_scopes():
+    """The installed scope factory, or None."""
+    return _scope_factory
+
+
+@contextlib.contextmanager
+def op_scopes(factory):
+    """Run every op inside `factory(op_scope_name(op))` while the block
+    is open (nested installs restore the outer one)."""
+    global _scope_factory
+    outer, _scope_factory = _scope_factory, factory
+    try:
+        yield
+    finally:
+        _scope_factory = outer
+
+
 def run_op(ctx: ExecContext, op, env):
-    """Execute one op desc against `env`."""
+    """Execute one op desc against `env` (inside its scope while
+    `op_scopes` is on)."""
     ins = gather_inputs(op, env)
     fn, attrs, tag = resolve_op(op)
-    scatter_outputs(op, env, fn(op_context(ctx, op, env, tag), ins, attrs))
+    if _scope_factory is None:
+        scatter_outputs(op, env, fn(op_context(ctx, op, env, tag), ins,
+                                    attrs))
+        return
+    with _scope_factory(op_scope_name(op)):
+        scatter_outputs(op, env, fn(op_context(ctx, op, env, tag), ins,
+                                    attrs))
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,8 @@ from . import registry
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
 from .execution import (DictEnv, ExecContext, ScopeEnv, _mix,
-                        gather_inputs, op_context, resolve_op, run_op,
-                        scatter_outputs)
+                        current_op_scopes, gather_inputs, op_context,
+                        op_scope_name, resolve_op, run_op, scatter_outputs)
 from .flags import get_flag
 from .framework import EMPTY_VAR_NAMES as _EMPTY
 from .framework import Program, Variable, default_main_program
@@ -379,16 +379,26 @@ class _Plan:
         denv = DictEnv()
         denv.d = env    # the dict itself: what the caller holds is the env
         frees = frees or {}
-        for i, (op, fn, attrs, tag) in enumerate(self.steps):
+        scopes = current_op_scopes()
+        for i, step in enumerate(self.steps):
             self.at = i
-            scatter_outputs(op, denv, fn(op_context(ctx, op, denv, tag),
-                                         gather_inputs(op, env), attrs))
-            if after is not None and i in self.finals:
-                after(i, self.finals[i], env)
-            for n in frees.get(i, ()):
-                env.pop(n, None)
+            if scopes is None:
+                self._step(ctx, denv, i, step, after, frees)
+            else:   # the op's write-through copies inside its scope too
+                with scopes(op_scope_name(step[0])):
+                    self._step(ctx, denv, i, step, after, frees)
         self.at = None
         return env
+
+    def _step(self, ctx, denv, i, step, after, frees):
+        op, fn, attrs, tag = step
+        env = denv.d
+        scatter_outputs(op, denv, fn(op_context(ctx, op, denv, tag),
+                                     gather_inputs(op, env), attrs))
+        if after is not None and i in self.finals:
+            after(i, self.finals[i], env)
+        for n in frees.get(i, ()):
+            env.pop(n, None)
 
 
 def _op_is_host(op, device) -> bool:
@@ -490,6 +500,7 @@ class _Entry:
         self.frees = plan.dead_after(self.outputs)
         self.tables = {}
         self.graph = self.bufs = self.outs = self.lods = self.sparse = None
+        self.donate = True
         self.write_back_bytes = 0
 
     def capture(self, ctx, vals, where, donate=True):
@@ -525,7 +536,7 @@ class _Entry:
                                ) from err
         graph.replay()
         self.graph, self.bufs, self.outs, self.lods = graph, bufs, outs, lods
-        self.sparse = sparse
+        self.sparse, self.donate = sparse, donate
         return outs, rebind
 
     @staticmethod
@@ -553,13 +564,55 @@ class _Entry:
         buffer (feeds always; a state the scope rebound since), then
         replay -> (outputs, {name: buffer} of the inputs copied)."""
         rebind = _copy_inputs(vals, self.bufs, self.lods, self.sparse)
-        self.graph.replay()
+        if _replay_observer is None:
+            self.graph.replay()
+        else:
+            with _replay_observer(self):
+                self.graph.replay()
         return self.outs, rebind
+
+    def rerun_inputs(self):
+        """Copies of the graph's input buffers, for `rerun`."""
+        return ({n: b.clone() for n, b in self.bufs.items()},
+                {n: sr.map(torch.clone) for n, sr in self.sparse.items()})
+
+    def rerun(self, inputs):
+        """Run the captured plan eagerly as its capture ran it (the same
+        write-through and write-back) on `inputs` (`rerun_inputs()`): the
+        kernels every replay launches, in their order, with per-op scopes
+        when they are on (the profiler's device half attributes a
+        replay's kernels by it).  Nothing the graph reads or writes
+        changes."""
+        bufs, sparse = inputs
+        env = {**{n: _rewrap(b, self.lods[n]) for n, b in bufs.items()},
+               **sparse}
+        device = next(iter(bufs.values())).device if bufs else None
+        ctx = ExecContext(device, seed=0, tables=self.tables)
+        with torch.no_grad():
+            env = self.plan.run(
+                ctx, env, self.plan.write_through(bufs, self.outputs)
+                if self.donate else None, self.frees)
+            if self.donate:
+                self._write_back(bufs, {n: env[n] for n in self.outputs
+                                        if n in env})
 
     def free(self):
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.bufs = self.outs = self.lods = self.sparse = None
+
+
+# None, or while the profiler's device half is on, a callable(entry) ->
+# a context manager each replay of `entry`'s graph runs inside
+_replay_observer = None
+
+
+def observe_replays(observer):
+    """Install `observer` (or None) for every replay -> the one it
+    replaces."""
+    global _replay_observer
+    outer, _replay_observer = _replay_observer, observer
+    return outer
 
 
 _EXE_IDS = itertools.count()
@@ -902,12 +955,39 @@ class Executor:
                     env.set(name, _to_device_value(v, self.device))
                 ctx = ExecContext(self.device, seed=seed)
                 for i, op in enumerate(program.global_block().ops):
-                    run_op(ctx, op, env)
+                    self._run_op(ctx, op, env)
                     for n in frees.get(i, ()):
                         local.erase(n)
                 return self._fetch(env, fetch_names)
         finally:
             scope.kids.remove(local)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_op(self, ctx, op, env):
+        """run_op, timed as a profiler event named by the op's type while
+        the profiler's host half is on (reference executor.cc:124
+        RecordEvent; the card is synchronised before the clock is read)."""
+        from .. import profiler
+
+        if not profiler.is_enabled():
+            run_op(ctx, op, env)
+            return
+        with profiler.record_event(op.type, sync=self._sync):
+            run_op(ctx, op, env)
+
+    def _timed_entry(self, event, entry, miss, vals, seed, where, publish):
+        """_run_entry, timed as the profiler event `event` while the
+        profiler's host half is on (the JAX package's `xla_block` /
+        `xla_segment_<i>`: here `compiled_block` / `segment_<i>`)."""
+        from .. import profiler
+
+        if not profiler.is_enabled():
+            return self._run_entry(entry, miss, vals, seed, where, publish)
+        with profiler.record_event(event, sync=self._sync):
+            return self._run_entry(entry, miss, vals, seed, where, publish)
 
     # -- segmented: cached device segments between eager host ops -----------
     def _op_is_host(self, op) -> bool:
@@ -952,7 +1032,7 @@ class Executor:
                 for i, (host, ops, plan) in enumerate(segs):
                     if host:
                         for op in ops:
-                            run_op(ctx, op, env)
+                            self._run_op(ctx, op, env)
                     else:
                         graphed |= self._run_segment(fp, i, plan, env, seed,
                                                      once)
@@ -984,8 +1064,9 @@ class Executor:
                 if n in seg_env:    # an op may leave an output unset
                     env.set(n, seg_env[n])
 
-        outs, rebind = self._run_entry(entry, miss, vals, seed,
-                                       f"segment {seg_idx}", publish)
+        outs, rebind = self._timed_entry(f"segment_{seg_idx}", entry, miss,
+                                         vals, seed, f"segment {seg_idx}",
+                                         publish)
         for n in plan.writes:
             if n in outs:
                 env.set(n, outs[n])
@@ -1046,8 +1127,9 @@ class Executor:
                 if n in states:
                     scope.set_var(n, env[n])
 
-        outs, rebind = self._run_entry(entry, miss, vals, seed,
-                                       "the compiled block", publish)
+        outs, rebind = self._timed_entry("compiled_block", entry, miss,
+                                         vals, seed, "the compiled block",
+                                         publish)
         for n in writes:
             if n in outs:
                 scope.set_var(n, outs[n])

@@ -2626,3 +2626,100 @@ def test_capi_session_runs_on_the_card_by_default(dev, tmp_path,
                                   want)
     assert lib.paddle_tpu_inference_destroy(sid) == 0
     exe.close()
+
+
+# -- the user-facing tools (A10c): checkgrad and the device profiler ---------
+
+_CHECKGRAD_CONFIG = """
+import numpy as np
+import paddle_tpu_torch as fluid
+
+def build():
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+    pred = fluid.layers.fc(input=x, size=1)
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+
+    def reader():
+        r = np.random.RandomState(0)
+        w = np.array([[1.0], [2.0], [-1.0], [0.5]], np.float32)
+        for _ in range(8):
+            xb = r.rand(16, 4).astype(np.float32)
+            yield {"x": xb, "y": xb @ w}
+
+    return {"loss": loss, "reader": reader,
+            "optimizer": fluid.SGD(learning_rate=0.1),
+            "infer_targets": [pred], "feed_order": ["x", "y"]}
+"""
+
+
+def test_checkgrad_default_mode_equals_the_interpreter_on_the_card(
+        dev, tmp_path):
+    """`--job=checkgrad` on the card: the default mode (each perturbed
+    loss a replay of one captured graph, the parameter set anew in the
+    scope between replays) gives the interpreter's numeric gradients
+    bit for bit, and both pass; a replay reading a stale parameter would
+    give numeric gradients of 0."""
+    import numpy as np
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.core import flags
+
+    cfg = tmp_path / "config.py"
+    cfg.write_text(_CHECKGRAD_CONFIG)
+    argv = ["--config", str(cfg), "--job", "checkgrad"]
+    default = cli.main(argv)
+    assert default["exe"].graph_stats()["replays"] > 0
+    flags.set_flags({"jit_granularity": "op"})
+    try:
+        interp = cli.main(argv)
+    finally:
+        flags.set_flags({"jit_granularity": "block"})
+    assert interp["exe"].graph_stats()["captures"] == 0
+    for name, d in default["params"].items():
+        i = interp["params"][name]
+        assert np.array_equal(d["indices"], i["indices"])
+        assert np.array_equal(d["numeric"], i["numeric"]), name
+        assert np.all(d["numeric"] != 0), name
+    assert default["worst"] < 1e-2 and interp["worst"] < 1e-2
+
+
+def test_profile_compiled_ops_scopes_a_replayed_flash_step(dev):
+    """profile_compiled_ops over replayed steps of a 2-layer LM: each
+    flash kernel (forward, dQ, dK/dV) shows once a layer a step under
+    its op's scope (flash_attention:… for the forward,
+    flash_attention_grad:… for the backward), and the table's scoped
+    device time is nearly all of it."""
+    from paddle_tpu_torch import profiler
+
+    main, startup, loss = _graph_lm(False)
+    _, init, _ = _graph_run(main, startup, loss, None, 0, None, False)
+    _, _, exe = _graph_run(main, startup, loss, init, 3, None, False)
+    assert exe.graph_stats()["replays"] == 1
+    from paddle_tpu_torch.core import executor as texecutor
+    from paddle_tpu_torch.core.scope import Scope
+
+    scope = Scope()
+    for n, v in init.items():
+        scope.set_var(n, v.clone())
+    prev = texecutor.switch_scope(scope)
+    try:
+        for step in range(2):
+            exe.run(main, feed=_graph_feed(step), fetch_list=[loss])
+        rows = profiler.profile_compiled_ops(
+            lambda: exe.run(main, feed=_graph_feed(0), fetch_list=[loss],
+                            return_numpy=False), steps=3,
+            print_table=False)
+    finally:
+        texecutor.switch_scope(prev)
+    assert rows == sorted(rows, key=lambda r: -r["total"])
+    for kind, op in (("fwd_kernel", "flash_attention:"),
+                     ("dq_kernel", "flash_attention_grad:"),
+                     ("dkv_kernel", "flash_attention_grad:")):
+        mine = [r for r in rows if kind in r["name"]]
+        assert sum(r["calls"] for r in mine) == 3 * 2, (kind, mine)
+        assert all(r["scope"].startswith(op) for r in mine), mine
+    total = sum(r["total"] for r in rows)
+    scoped = sum(r["total"] for r in rows if r["scope"])
+    assert scoped >= 0.95 * total
+    exe.close()

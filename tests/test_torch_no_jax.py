@@ -143,3 +143,49 @@ def test_c_sources_name_no_module_of_the_jax_package():
     assert not offenders, offenders
     assert imports == ["paddle_tpu_torch.capi_runtime"]
     assert len(list(_c_sources())) >= 10
+
+
+# the user-facing tools (A10c): each walked by the fresh-import probe and
+# the AST scan above, importable alone with no JAX loaded, and loading
+# none of the optional packages the card's machine lacks (PIL,
+# matplotlib) or the corpora's own (sklearn, nltk, scipy) at import
+A10C_MODULES = ("paddle_tpu_torch.cli", "paddle_tpu_torch.debugger",
+                "paddle_tpu_torch.image", "paddle_tpu_torch.plot",
+                "paddle_tpu_torch.profiler", "paddle_tpu_torch.dataset",
+                "paddle_tpu_torch.dataset.common",
+                "paddle_tpu_torch.dataset.flowers",
+                "paddle_tpu_torch.dataset.voc2012",
+                "paddle_tpu_torch.dataset.sentiment")
+
+
+_OPTIONAL_PROBE = r"""
+import importlib, sys
+tops = ("jax", "jaxlib", "paddle_tpu", "PIL", "matplotlib", "sklearn",
+        "nltk", "scipy")
+for m in sys.argv[1:]:
+    importlib.import_module(m)
+    bad = sorted(n for n in sys.modules if n.split(".")[0] in tops)
+    print(m + " FORBIDDEN=" + ",".join(bad))
+"""
+
+
+@pytest.fixture(scope="module")
+def tools_imports():
+    """One fresh interpreter importing the tools modules in turn -> {module:
+    the forbidden modules loaded once it was imported}."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _OPTIONAL_PROBE,
+                          *A10C_MODULES], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(ln.split(" ", 1) for ln in res.stdout.splitlines()
+                if " FORBIDDEN=" in ln)
+
+
+@pytest.mark.parametrize("module", A10C_MODULES)
+def test_tools_module_is_scanned_and_imports_alone(module, tools_imports):
+    path = os.path.join(ROOT, *module.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
+    assert path in set(_sources())
+    assert tools_imports[module] == "FORBIDDEN="

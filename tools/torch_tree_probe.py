@@ -106,6 +106,10 @@ maxpool-routes  the max pools' two backward routes (`ops/conv.py`
 a10b       chip_smoke.py's aot_native phase alone (the kernels built
            first): the LM, MoE LM and ResNet-50 torch.export artifacts,
            the C inference ABI, native_pipeline and a go block;
+a10c       chip_smoke.py's tools phase with what it reads: the flash
+           phase, the train phase (amp) with the tools profiler part on
+           its replayed graph, the seq2seq phase, then the tools CLI
+           part (the translator's jobs, checkgrad);
 host       chip_smoke.py's train phase LM (bf16 amp; --fp32: float32)
            trained chip_smoke's T_STEPS steps, then one more under
            torch.profiler: the step's wall time, device time, and the
@@ -916,6 +920,22 @@ def a10b(cs, dev):
     emit({"aot_launches": cs.aot_native_phase(card, dev, CUDAPlace(0))})
 
 
+def a10c(cs, dev):
+    """chip_smoke's tools phase and the phases it reads (flash, train
+    under amp, seq2seq), the kernels built first."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, bw, peaks = _card(cs)
+    cuda_build.build_all()
+    flash_cases = cs.flash_phase(dev, bw, peaks)
+    _, _, tools = cs.train_phase(card, CUDAPlace(0), peaks, flash_cases,
+                                 amp=True, tools=True)
+    cs.emit(tools, aside=True)
+    _, _, s2s_ms = cs.seq2seq_phase(card, CUDAPlace(0), peaks, flash_cases)
+    cs.tools_cli_phase(card, CUDAPlace(0), s2s_ms)
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1003,7 +1023,7 @@ def main():
                                       "replays",
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
-                                      "maxpool-routes", "a10b"))
+                                      "maxpool-routes", "a10b", "a10c"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1039,8 +1059,8 @@ def main():
          "replays": replays,
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
-         "maxpool-routes": maxpool_routes, "a10b": a10b}[args.probe](cs,
-                                                                  dev)
+         "maxpool-routes": maxpool_routes, "a10b": a10b,
+         "a10c": a10c}[args.probe](cs, dev)
     return 0
 
 

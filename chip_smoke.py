@@ -273,6 +273,24 @@ Phases, one JSON line each:
   memory_plan  the replayed train, seq2seq and resnet50 steps' peaks
            with the compiled mode's frees, and the memory_optimize flag
            on the interpreted ResNet-50 (states bit-equal);
+  analysis the analysis package (A12) over the main path, no training
+           step of its own: Program.verify(level="error") over the
+           train LM, seq2seq, ResNet-50, book/08's DynamicRNN
+           translator and While decoder, DeepFM (is_sparse), SSD300 and
+           CRNN-CTC (train and decode) at full width, zero error
+           diagnostics; the cost model's static FLOPs of the LM (amp,
+           batch 8), seq2seq (32) and ResNet-50 (128) steps within
+           [0.5, 2.5]x of the model FLOPs, their static bytes and
+           roofline on the card's DEVICE_SPECS row beside the replayed
+           step ms (the calibration ratio) and memory_plan's peaks;
+           the serve phase's decode backend resolved "cuda", the
+           decoder's; the paged kernel row's bytes-bound beside the
+           kernels phase's; `cli verify --json`, `cli analyze --json`
+           (the LM's config) and `cli concurrency --sched` as
+           subprocesses, the last one's exit code 0.  (The train phase's
+           Executor runs under PADDLE_TPU_VERIFY=error: its line's
+           `verify` holds the one verification's seconds and the runs
+           that hit the pre-flight cache);
   generate run_generation's LM decoded by the full forward, the kv
            cache and beam search, and run_seq2seq's translator: tokens
            a second, kernels and host syncs a token, kv equal to the
@@ -395,13 +413,14 @@ import time
 import numpy as np
 import torch
 
-# published dense peaks (NVIDIA data sheets, without sparsity): HBM
-# bytes/s, fp32 FLOP/s outside the tensor cores, bf16 and TF32 FLOP/s on
-# the tensor cores
-_CARD_PEAKS = (("H200", 4.8e12, 67e12, 989e12, 495e12),
-               ("H100 NVL", 3.9e12, 60e12, 835e12, 418e12),
-               ("H100 PCIe", 2.0e12, 51e12, 756e12, 378e12),
-               ("H100", 3.35e12, 67e12, 989e12, 495e12))
+# published dense peaks (NVIDIA data sheets, without sparsity) beyond the
+# port's chip table (analysis/cost_model.DEVICE_SPECS: HBM bytes/s and
+# the bf16 tensor-core peak): fp32 FLOP/s outside the tensor cores and
+# TF32 FLOP/s on them, by the same keys
+_CARD_PEAKS = {"H200": (67e12, 495e12),
+               "H100 NVL": (60e12, 418e12),
+               "H100 PCIe": (51e12, 378e12),
+               "H100": (67e12, 495e12)}
 
 V, D_MODEL, N_HEADS, N_LAYERS, D_INNER = 32000, 512, 8, 6, 2048
 BLOCK, MAX_BLOCKS, SLOTS, KV_BLOCKS = 16, 32, 8, 256
@@ -733,6 +752,11 @@ def check(cond, what):
 # and PHASE_SECONDS (the closing `timing` line) has the wall time of each
 _CLOCK = {"last": time.perf_counter(), "aside": 0.0}
 PHASE_SECONDS = []      # [(phase, part, seconds)] in the order emitted
+# what the analysis phase reads of earlier phases: the replayed step's
+# median ms of the train (amp), seq2seq and resnet50 phases, and the
+# serve phase's spec and its decoder's paged-attention label
+STEP_MS = {}
+SERVE = {}
 
 
 def _aside(seconds):
@@ -757,12 +781,18 @@ def emit(obj, aside=False):
 
 def card_peaks(name):
     """-> (bytes/s, {torch.float32: scalar fp32, torch.bfloat16: bf16
-    tensor, "tf32": TF32 tensor FLOP/s}) of the card."""
-    for key, bw, fp32, bf16, tf32 in _CARD_PEAKS:
-        if key in name:
-            return bw, {torch.float32: fp32, torch.bfloat16: bf16,
-                        "tf32": tf32}
-    raise CheckFailed(f"no published peaks for card {name!r}")
+    tensor, "tf32": TF32 tensor FLOP/s}) of the card: its row of the
+    port's chip table (bandwidth, bf16) and of _CARD_PEAKS."""
+    from paddle_tpu_torch.analysis.cost_model import (DEVICE_SPECS,
+                                                      device_for_card)
+
+    try:
+        key = device_for_card(name)
+    except KeyError:
+        raise CheckFailed(f"no published peaks for card {name!r}")
+    bf16, bw = DEVICE_SPECS[key]
+    fp32, tf32 = _CARD_PEAKS[key]
+    return bw, {torch.float32: fp32, torch.bfloat16: bf16, "tf32": tf32}
 
 
 def _ptxas_summary(log):
@@ -1888,6 +1918,49 @@ def _flash_paths(phase, place, main, startup, loss, feed_of, snapshot,
                            "plain_attention_grads": plain.grad_calls}}
 
 
+@contextlib.contextmanager
+def _verify_error(**programs):
+    """PADDLE_TPU_VERIFY=error over the block: every Executor.run of a
+    Program goes through analysis.preflight, whose cache miss runs
+    verify_program.  -> a record of the runs (preflight calls) and the
+    verifications of each named Program, with the verifications'
+    seconds and the Programs' op counts."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.core.flags import set_flags
+
+    names = {id(p): n for n, p in programs.items()}
+    rec = {"mode": "error", "runs": dict.fromkeys(programs, 0),
+           "verifications": dict.fromkeys(programs, 0),
+           "verify_s": dict.fromkeys(programs, 0.0),
+           "ops": {n: len(p.global_block().ops)
+                   for n, p in programs.items()}}
+    real_preflight, real_verify = analysis.preflight, analysis.verify_program
+
+    def preflight(program, *a, **kw):
+        if id(program) in names:
+            rec["runs"][names[id(program)]] += 1
+        return real_preflight(program, *a, **kw)
+
+    def verify_program(program, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_verify(program, *a, **kw)
+        finally:
+            if id(program) in names:
+                n = names[id(program)]
+                rec["verifications"][n] += 1
+                rec["verify_s"][n] += time.perf_counter() - t0
+
+    analysis.preflight, analysis.verify_program = preflight, verify_program
+    set_flags({"verify": "error"})
+    try:
+        yield rec
+    finally:
+        set_flags({"verify": "off"})
+        analysis.preflight = real_preflight
+        analysis.verify_program = real_verify
+
+
 def train_phase(card, place, peaks, flash_cases, amp, tools=False):
     """The run_ridge LM trained in the Executor's default mode (the block
     compiled: eager at the miss, then a CUDA graph, captured at the first
@@ -1911,11 +1984,15 @@ def train_phase(card, place, peaks, flash_cases, amp, tools=False):
             fluid.Momentum(learning_rate=0.01, momentum=0.9))
         weights = [p.name for p in main.global_block().all_parameters()
                    if len(p.shape) == 2]
-        # the replay is held to the interpreter over the parameters
-        r = _flash_paths(phase, place, main, startup, loss, _train_feed,
-                         list(_grad_names(main)), keep=weights,
-                         on_replay=(lambda exe, run: _tools_profiler(
-                             card, exe, main, run)) if tools else None)
+        # the replay is held to the interpreter over the parameters; the
+        # main path (amp) runs every Executor under PADDLE_TPU_VERIFY=error
+        with (_verify_error(main=main, startup=startup) if amp
+              else contextlib.nullcontext()) as verify:
+            r = _flash_paths(phase, place, main, startup, loss,
+                             _train_feed, list(_grad_names(main)),
+                             keep=weights,
+                             on_replay=(lambda exe, run: _tools_profiler(
+                                 card, exe, main, run)) if tools else None)
         # each weight's change on the kernel path (the replay's) and on
         # the plain path (the scope's now)
         param_rel = _param_rel_diff(fluid.global_scope().find_var,
@@ -1935,6 +2012,14 @@ def train_phase(card, place, peaks, flash_cases, amp, tools=False):
     p_an = _param_count(T_VOCAB, T_D, T_LAYERS, T_SEQ)
     step_s = float(np.median(r["k_secs"][2:]))       # the replays
     plain_step_s = float(np.median(r["p_secs"][1:]))
+    if amp:
+        STEP_MS["train"] = step_s * 1e3
+        check(verify["verifications"]["main"] == 1
+              and verify["runs"]["main"] > G_STEPS,
+              f"{phase}: the main Program verified "
+              f"{verify['verifications']['main']} times over "
+              f"{verify['runs']['main']} runs (want once: every later run "
+              "a pre-flight cache hit)")
     fc = flash_cases["bf16_causal" if amp else "fp32_causal"]
     attn_ms = sum(fc[kind]["ms"] * n for kind, n in r["want"].items())
     profile = r["profile"]
@@ -1967,6 +2052,7 @@ def train_phase(card, place, peaks, flash_cases, amp, tools=False):
           "device_idle_share": 1.0 - profile["device_ms"] / (step_s * 1e3),
           "peak_memory_bytes": r["kernel_path"]["peak_memory_bytes"],
           "peak_reserved_bytes": r["kernel_path"]["peak_reserved_bytes"],
+          **({"verify": verify} if amp else {}),
           "timing": "host clock around exe.run + synchronize; ms_per_step "
                     "the median of the replayed steps (3..N), the "
                     "interpreter's and the plain path's of steps 2..N; "
@@ -2058,6 +2144,7 @@ def seq2seq_phase(card, place, peaks, flash_cases):
     tokens = S_BATCH * (S_LEN + S_LEN)
     step_s = float(np.median(r["k_secs"][2:]))       # the replays
     step_ms = step_s * 1e3
+    STEP_MS["seq2seq"] = step_ms
     bound_ms = flops / peaks[torch.bfloat16] * 1e3
     per_kind = {"s2s_bf16_full": 2 * S_LAYERS, "s2s_bf16_causal": S_LAYERS}
     attn_ms = sum(flash_cases[c][kind]["ms"] * n
@@ -2215,6 +2302,8 @@ def serve_phases(card, place):
             try:
                 picked = srv.stats()["decode_kernel"]
                 check(picked == "cuda", f"kernel server picked {picked}")
+                SERVE.update(spec=spec, decode_kernel=srv._decoder.kernels[
+                    "paged_attention_decode"])
                 out, st, perf = _serve(srv, prompts, max_news)
                 solo = [srv.generate(prompts[i], max_news[i], timeout=600)
                         for i in solo_ids]
@@ -3118,6 +3207,7 @@ def resnet50_phase(card, place, peaks):
     i_step_s = float(np.median(i_secs[1:]))
     n_step_s = float(np.median(n_secs[2:]))
     step_ms = step_s * 1e3
+    STEP_MS["resnet50"] = step_ms
     bound_ms = flops / peaks[torch.bfloat16] * 1e3
     emit({"phase": phase, "card": card, "model": f"resnet{R_DEPTH}",
           "source": "benchmark/run_image.py:42-66 (resnet50, defaults "
@@ -7667,6 +7757,231 @@ def memory_plan_phase(card, place):
     return steps
 
 
+# -- analysis phase (A12): the verifier, the cost model, the lint -----------
+
+# the train LM's config for `cli verify` / `cli analyze` (the train phase's
+# Program: run_ridge's LM under bf16 amp, built in build())
+_ANALYSIS_CONFIG = """
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.models.transformer import transformer_lm
+
+
+def build():
+    fluid.amp.enable_bf16()
+    try:
+        ids = fluid.layers.data(name="ids", shape=[{seq}], dtype="int64")
+        lbl = fluid.layers.data(name="lbl", shape=[{seq}, 1], dtype="int64")
+        logits = transformer_lm(ids, {vocab}, d_model={d}, n_heads={h},
+                                n_layers={layers}, max_len={max_len},
+                                return_logits=True)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.reshape(logits, shape=[-1, {vocab}]),
+            fluid.layers.reshape(lbl, shape=[-1, 1])))
+        fluid.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    finally:
+        fluid.amp.disable_bf16()
+    return {{"loss": loss}}
+"""
+
+
+def _analysis_programs():
+    """Every main-path Program the earlier phases build, at full width
+    and under the flags they build it with -> {name: (main, batch, feed
+    names or None, fetch names)}; batch None where the phase's steps
+    are not costed."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+
+    out = {}
+    fluid.amp.enable_bf16()
+    try:
+        main, _, loss = _lm_program(fluid.Momentum(learning_rate=0.01,
+                                                   momentum=0.9))
+        out["train"] = (main, T_BATCH, ["ids", "lbl"], [loss.name])
+        main, _, loss = _s2s_program()
+        out["seq2seq"] = (main, S_BATCH, None, [loss.name])
+    finally:
+        fluid.amp.disable_bf16()
+    main, _, loss = _image_program(f"resnet{R_DEPTH}", R_IMG, R_CLASSES,
+                                   "bfloat16")
+    out["resnet50"] = (main, R_BATCH, ["img", "label"], [loss.name])
+    main, _, loss = _mt_program("train")
+    out["book08_dynamic_rnn"] = (main, None, None, [loss.name])
+    main, _, (ids, scores) = _mt_program("decode")
+    out["book08_while_decoder"] = (main, None, None, [ids.name,
+                                                      scores.name])
+    main, _, loss = _ctr_program(
+        "deepfm", True, lambda f: f.Adam(learning_rate=X_LR))
+    out["deepfm_sparse"] = (main, None, None, [loss.name])
+    main, _, loss, decode, nmsed, m_ap = _ssd_program(fluid, fw)
+    out["ssd300"] = (main, None, None, [loss.name])
+    out["ssd300_decode"] = (decode, None, None, [nmsed.name])
+    main, _, loss, decode, decoded, dist = _crnn_program(fluid, fw)
+    out["crnn_ctc"] = (main, None, None, [loss.name])
+    out["crnn_ctc_decode"] = (decode, None, None, [decoded.name])
+    return out
+
+
+def analysis_phase(card, plan_steps, paged_case, bw):
+    """The analysis package over the main path, no training step of its
+    own: (a) `Program.verify(level="error")` over every main-path
+    Program at full width, zero error diagnostics; (b) the cost model's
+    static FLOPs of the train LM (amp, batch 8), seq2seq (batch 32) and
+    ResNet-50 (batch 128) steps within [0.5, 2.5]x of `_model_flops`, and
+    their static bytes and roofline seconds on the card's chip-table row
+    beside the replayed step ms their phases measured (the calibration
+    ratio), the static peak beside memory_plan's replayed peaks; (c)
+    `analyze_generation_spec` on the serve phase's spec resolving the
+    decode backend the decoder chose ("cuda"), and the paged kernel
+    row's bytes-bound beside the kernels phase's bound; (d) `cli verify
+    --json` and `cli analyze --json` over the train LM's config and `cli
+    concurrency --sched` over paddle_tpu_torch/, as subprocesses (started
+    first, running beside (a)-(c)), the last one's exit code 0."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import cost_model as cm
+
+    phase_t0 = time.perf_counter()
+    device = cm.device_for_card(card["name"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = os.path.join(root, "train_lm.py")
+    with open(cfg, "w") as f:
+        f.write(_ANALYSIS_CONFIG.format(
+            seq=T_SEQ, vocab=T_VOCAB, d=T_D, h=T_HEADS, layers=T_LAYERS,
+            max_len=max(T_SEQ, 2048)))
+    cli = [sys.executable, "-m", "paddle_tpu_torch.cli"]
+    procs = {name: subprocess.Popen(cli + argv, cwd=here, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, argv in (
+                 ("verify", ["verify", cfg, "--json"]),
+                 ("analyze", ["analyze", cfg, "--json", "--batch",
+                              str(T_BATCH), "--device", device]),
+                 ("concurrency", ["concurrency", "--sched"]))}
+    try:
+        t0 = time.perf_counter()
+        programs = _analysis_programs()
+        build_s = time.perf_counter() - t0
+        verified = {}
+        for name, (main, batch, feeds, fetches) in programs.items():
+            t0 = time.perf_counter()
+            diags = main.verify(level="error", feed_names=feeds,
+                                fetch_names=fetches)
+            counts = {}
+            for d in diags:
+                counts[d.severity] = counts.get(d.severity, 0) + 1
+            verified[name] = {"ops": sum(len(b.ops) for b in main.blocks),
+                              "blocks": len(main.blocks),
+                              "verify_s": time.perf_counter() - t0,
+                              "diagnostics": counts}
+        costed = {}
+        for name in ("train", "seq2seq", "resnet50"):
+            main, batch, feeds, fetches = programs[name]
+            est = analysis.estimate_program(main, batch_size=batch,
+                                            feed_names=feeds,
+                                            fetch_names=fetches,
+                                            device=device)
+            model = _model_flops(main, batch)
+            ratio = est.total_flops / model
+            check(0.5 <= ratio <= 2.5, f"analysis: {name}'s static FLOPs "
+                  f"{est.total_flops} are {ratio}x chip_smoke's model "
+                  f"FLOPs {model}, outside [0.5, 2.5]")
+            roof_s = cm.roofline_seconds(est.total_flops, est.total_bytes,
+                                         device)
+            step_ms = STEP_MS[name]
+            plan = plan_steps[name]
+            measured_peak = plan["base_bytes"] + plan["peak_over_base_bytes"]
+            peak = est.peak_hbm["peak_bytes"]
+            costed[name] = {
+                "batch": batch, "static_flops": est.total_flops,
+                "model_flops": model, "flops_ratio": ratio,
+                "flops_band": [0.5, 2.5],
+                "static_bytes": est.total_bytes,
+                "unknown_ops": sum(est.unknown_types.values()),
+                "roofline_ms": roof_s * 1e3,
+                "bound": est.roofline().get("bound"),
+                "measured_step_ms": step_ms,
+                "calibration_ratio": step_ms / (roof_s * 1e3),
+                "static_peak_bytes": peak,
+                "replayed_peak_bytes": measured_peak,
+                "peak_ratio": peak / measured_peak,
+                "peak_band": [0.3, 3.0]}
+        rep = analysis.analyze_generation_spec(SERVE["spec"],
+                                               device=device)
+        backend = rep["kernels"][0]["backend"]
+        check(backend == "cuda" == SERVE["decode_kernel"],
+              f"analysis: the decode backend resolves {backend!r}, the "
+              f"serve phase's decoder ran {SERVE['decode_kernel']!r}")
+        ctx = BLOCK * MAX_BLOCKS
+        row = cm.serving_kernel_cost(
+            "paged_attention_decode", dict(SERVE["spec"], n_layers=1),
+            slots=SLOTS, context=ctx // 2, kv_dtype="fp32", window=1)
+        lint_t0 = time.perf_counter()
+        cli_out = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            cli_out[name] = {"rc": proc.returncode, "stdout": out,
+                             "stderr": err[-2000:]}
+        cli_wait_s = time.perf_counter() - lint_t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    errors = {n: v["diagnostics"].get("error", 0)
+              for n, v in verified.items()}
+    check(not any(errors.values()), f"analysis: error diagnostics {errors}")
+    conc = cli_out["concurrency"]
+    check(conc["rc"] == 0, f"analysis: cli concurrency --sched exited "
+          f"{conc['rc']}: {conc['stdout'][-2000:]} {conc['stderr']}")
+    summary = {}
+    for name in ("verify", "analyze"):
+        r = cli_out[name]
+        check(r["rc"] == 0, f"analysis: cli {name} exited {r['rc']}: "
+              f"{r['stdout'][-2000:]} {r['stderr']}")
+        doc = json.loads(r["stdout"])
+        if name == "verify":
+            summary[name] = {"rc": r["rc"], "failed": doc["failed"],
+                             "programs": [
+                                 {"label": p["label"], "status": p["status"],
+                                  "n_diagnostics": len(p["diagnostics"])}
+                                 for p in doc["programs"]]}
+        else:
+            summary[name] = {"rc": r["rc"], "programs": [
+                {"label": p["label"], **{k: p["roofline"].get(k) for k in (
+                    "device", "batch_size", "est_flops",
+                    "est_hbm_traffic_gb", "est_peak_hbm_gb", "bound",
+                    "unknown_ops")}} for p in doc["programs"]]}
+    summary["concurrency"] = {"rc": conc["rc"],
+                              "tail": conc["stdout"].strip().splitlines()[-6:]}
+    emit({"phase": "analysis", "card": card, "device_row": device,
+          "device_spec": {"bf16_flops": cm.DEVICE_SPECS[device][0],
+                          "hbm_bytes_per_s": cm.DEVICE_SPECS[device][1]},
+          "build_s": build_s, "verified": verified, "costed": costed,
+          "decode": {"backend": backend,
+                     "decoder": SERVE["decode_kernel"],
+                     "rows": [{k: r.get(k) for k in (
+                         "kernel", "backend", "flops", "bytes")}
+                         for r in rep["kernels"]]},
+          "paged_kernel_row": {
+              "geometry": f"{SLOTS} slots of context {ctx} (the row at "
+                          f"{ctx // 2}, analyze_generation_spec's mean "
+                          "fill), fp32, W=1, one layer",
+              "bytes": row["bytes"],
+              "bytes_bound_ms": row["bytes"] / bw * 1e3,
+              "kernels_phase_bound_ms": paged_case["bound_ms"],
+              "kernels_phase_ms": paged_case["ms"]},
+          "cli": summary, "cli_wait_s": cli_wait_s,
+          "phase_s": time.perf_counter() - phase_t0,
+          "timing": "verify_s: Program.verify(level='error') on the host; "
+                    "measured_step_ms: the train, seq2seq and resnet50 "
+                    "phases' median replayed step; replayed_peak_bytes: "
+                    "memory_plan's base + peak over base; the CLI "
+                    "subprocesses run beside the builds and verifications "
+                    "(cli_wait_s: the wait for them after)"})
+
+
 # -- generate phase (A6): the generation builders ----------------------------
 
 def _gen_states(shapes, seed):
@@ -9968,7 +10283,8 @@ def main():
     ocr_ctc_phase(card, CUDAPlace(0))
     readers_phase(card, CUDAPlace(0))
     remat_flash = remat_phase(card, CUDAPlace(0))
-    memory_plan_phase(card, CUDAPlace(0))
+    plan_steps = memory_plan_phase(card, CUDAPlace(0))
+    analysis_phase(card, plan_steps, cases["fp32_w1"], bw)
     generate_phase(card, CUDAPlace(0))
     image_serve_phase(card, CUDAPlace(0))
     persist_flash = persist_phase(card, CUDAPlace(0))

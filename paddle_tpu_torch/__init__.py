@@ -48,10 +48,15 @@ kernels are PyTorch ops, `paddle_tpu_torch::flash_attention_fwd` and
 CSP channels (`make_channel`, `go`); the user-facing tools: the `paddle
 train` CLI's jobs (`python -m paddle_tpu_torch.cli`), the profiler's
 device half on torch.profiler, the debugger, image, plot and the
-dataset parsers (dataset/).
+dataset parsers (dataset/); the static analysis package (analysis/: the
+Program verifier behind `Program.verify` and the executors' pre-flight,
+the cost model on the card's chip table, the concurrency lint and the
+schedule checker) with the CLI's verify, analyze and concurrency
+commands.
 """
 from . import (  # noqa: F401
     amp,
+    analysis,
     backward,
     clip,
     debugger,

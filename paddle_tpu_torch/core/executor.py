@@ -725,6 +725,14 @@ class Executor:
         feed = feed or {}
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
+        # static pre-flight (PADDLE_TPU_VERIFY=warn|error, default off —
+        # preflight gates internally): a bad graph fails here, before
+        # any op runs; cached per (program, version) so steady-state
+        # loops pay one flag read + dict probe
+        from ..analysis import preflight
+
+        preflight(program, feed_names=feed.keys(),
+                  fetch_names=fetch_names)
         block = program.global_block()
         fp = self._fingerprint(program)
         # the JAX package's choice: 'block' = a compiled block when no

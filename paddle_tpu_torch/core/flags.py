@@ -173,8 +173,10 @@ define_flag("sync_every_n", 1,
             "1 materializes every step (the serial loop).  Per-call "
             "override: Trainer.train(sync_every_n=K)")
 define_flag("verify", "off",
-            "static program verification before a loaded inference "
-            "model runs: 'off' = skip; 'warn' and 'error' need the "
-            "analysis passes (ROADMAP A12), not ported: "
-            "io.load_inference_model raises NotImplementedError naming "
-            "A12 rather than skip the check")
+            "static program verification before execution "
+            "(paddle_tpu_torch.analysis, docs/analysis.md): 'off' = "
+            "skip; 'warn' = run the analyzer in Executor.run / "
+            "ParallelExecutor / io.load_inference_model and warn on "
+            "findings; 'error' = additionally raise "
+            "ProgramVerificationError on error-severity diagnostics.  "
+            "Cached per program version")

@@ -515,6 +515,25 @@ class Program:
 
         return hashlib.sha1(payload.encode()).hexdigest()
 
+    # -- static analysis -----------------------------------------------------
+    def verify(self, level: Optional[str] = "error", passes=None,
+               feed_names=None, fetch_names=None):
+        """Run the static analyzer (paddle_tpu_torch.analysis) over this
+        program and return every Diagnostic.
+
+        `level`: raise ProgramVerificationError when any diagnostic is
+        at or above this severity ("error" default; "warn"/"warning",
+        "info"); None or "off" never raises — inspect the returned list.
+        `passes`: restrict to specific pass ids (docs/analysis.md).
+        `feed_names`/`fetch_names`: optional runtime context that
+        sharpens the def-before-use and dead-op passes.
+        """
+        from ..analysis import verify_program
+
+        return verify_program(self, level=level, passes=passes,
+                              feed_names=feed_names,
+                              fetch_names=fetch_names)
+
     # -- clone / serialization ----------------------------------------------
     def clone(self, for_test: bool = False) -> "Program":
         """Deep-copy the program.  `for_test=True` flips is_test attrs

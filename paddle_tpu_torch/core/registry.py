@@ -78,6 +78,14 @@ class OpInfo:
     # True if the lowering takes LoDTensor inputs; any other op gets
     # their data (core/execution.resolve_op)
     lod: bool = False
+    # static cost metadata (analysis/cost_model.py): `cost_kind` names the
+    # estimator class ("matmul", "conv", "attention", "moe", "embedding",
+    # "elementwise", "reduction", "norm", "data", "collective", "free");
+    # `cost_fn(op, resolve)` (register_op_cost) overrides the class with an
+    # exact per-op estimator.  Ops with neither report as cost-UNKNOWN —
+    # the analyzer surfaces them instead of silently counting zero.
+    cost_kind: Optional[str] = None
+    cost_fn: Callable = None
 
     def __setattr__(self, name, value):
         if name in ("lower", "grad_lower"):
@@ -104,12 +112,16 @@ def register_op(
     host: bool = False,
     sparse: bool = False,
     lod: bool = False,
+    cost: Optional[str] = None,
 ):
-    """Decorator: register `fn` as the torch lowering for op `type`."""
+    """Decorator: register `fn` as the torch lowering for op `type`
+    (`cost`: its estimator class for analysis/cost_model.py)."""
 
     def deco(fn):
         info = _REGISTRY.get(type) or OpInfo(type=type)
         info.lower = fn
+        if cost is not None:
+            info.cost_kind = cost
         info.inputs = tuple(inputs)
         info.outputs = tuple(outputs)
         info.dup_inputs = tuple(dup_inputs)
@@ -136,6 +148,35 @@ def register_infer_shape(type: str):
         return fn
 
     return deco
+
+
+def register_op_cost(type: str, kind: Optional[str] = None):
+    """Attach static cost metadata to op `type`'s OpInfo.
+
+    Used as a decorator, registers an exact estimator
+    `fn(op, resolve) -> analysis.cost_model.OpCost` (`resolve(name)`
+    returns the `(shape, dtype)` of a var with -1 dims already
+    substituted).  Called bare — `register_op_cost("relu",
+    kind="elementwise")` — it records just the estimator class.  Either
+    form may target an op registered elsewhere (the analysis layer
+    annotates the existing corpus without touching every lowering)."""
+    info = _REGISTRY.setdefault(type, OpInfo(type=type))
+    if kind is not None:
+        info.cost_kind = kind
+
+    def deco(fn):
+        info.cost_fn = fn
+        return fn
+
+    return deco
+
+
+def set_op_cost_kind(type: str, kind: str, overwrite: bool = False):
+    """Record the estimator class for `type` (no-op for unregistered ops
+    — cost metadata must never invent op types)."""
+    info = _REGISTRY.get(type)
+    if info is not None and (overwrite or info.cost_kind is None):
+        info.cost_kind = kind
 
 
 def register_grad_maker(type: str):

@@ -439,3 +439,16 @@ def fault_injector() -> FaultInjector:
                 inj.load_env()
                 _INJECTOR = inj
     return _INJECTOR
+
+
+def sched_fault_armed(name: str) -> bool:
+    """Schedule-checker regression-pin hook: True only inside a test
+    that reintroduces a historical race via
+    analysis.schedcheck.arm_fault (docs/analysis.md "Schedule
+    checking").  Guarded lazy import so runtime modules (serving) never
+    pay for — or cycle on — the analysis package."""
+    try:
+        from ..analysis.schedcheck import fault_armed
+    except Exception:
+        return False
+    return fault_armed(name)

@@ -29,7 +29,9 @@ def default_infer_shape(op, block, report=None):
     meta tensors.  `report(kind, **details)` (optional) receives:
       * kind="infer-fail",    error=exc     — the lowering raised;
       * kind="unknown-input", name=var_name — an input var has no
-        declared shape/dtype yet, so nothing can be inferred.
+        declared shape/dtype yet, so nothing can be inferred;
+      * kind="dtype-mismatch", name, declared, inferred — another op
+        already declared this output with a different dtype.
     """
     info = registry.get_op_info(op.type)
     if info.type != op.type:
@@ -72,7 +74,17 @@ def default_infer_shape(op, block, report=None):
                 continue
             var.shape = tuple(
                 -1 if d == _SENTINEL else int(d) for d in val.shape)
-            var.dtype = canonical_dtype(val.dtype)
+            inferred = canonical_dtype(val.dtype)
+            if (report is not None and var.dtype is not None
+                    and var.dtype != inferred
+                    and var.op is not None and var.op is not op):
+                # a DIFFERENT op (the var's recorded producer) already
+                # declared another dtype for this shared name; a lone
+                # writer re-inferred under changed flags (amp) is not a
+                # program bug
+                report("dtype-mismatch", name=name, declared=var.dtype,
+                       inferred=inferred)
+            var.dtype = inferred
 
 
 def set_output_shape(op, block, slot, shape, dtype=None):

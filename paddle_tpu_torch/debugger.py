@@ -6,11 +6,9 @@ Mirror of the reference's python/paddle/v2/fluid/debuger.py
 net_drawer.py: render a Program as readable pseudo-code and as a .dot
 graph.  Pure text emission — no graphviz python package required; feed
 the .dot to `dot -Tpng` offline.  The same Program built in either
-package gives the same text and the same .dot.
-
-The analyzer's annotations (`diagnostics=`, `verify=True`: the
-verifier's findings beside the ops they flag) wait for the analysis
-passes (ROADMAP A12) and raise NotImplementedError until then.
+package gives the same text and the same .dot; the verifier's
+annotations (`diagnostics=`, `verify=True`) put each finding beside the
+op it flags.
 """
 from __future__ import annotations
 
@@ -51,12 +49,13 @@ def _var_to_code(v) -> str:
             f", dtype={v.dtype}, lod={getattr(v, 'lod_level', 0)}")
 
 
-def _no_diagnostics(diagnostics, verify=False):
-    if diagnostics is not None or verify:
-        raise NotImplementedError(
-            "debugger: annotating a Program with the verifier's "
-            "diagnostics needs the analysis passes, not ported yet "
-            "(ROADMAP A12)")
+def _diag_index(diagnostics):
+    """{(block_idx, op_idx): [Diagnostic]} (program/block-level entries
+    keyed with op_idx None are kept under (block_idx, None))."""
+    index = {}
+    for d in diagnostics or ():
+        index.setdefault((d.block_idx, d.op_idx), []).append(d)
+    return index
 
 
 def program_to_code(program: Program, skip_vars: bool = False,
@@ -64,23 +63,33 @@ def program_to_code(program: Program, skip_vars: bool = False,
     """Render every block of `program` as indented pseudo-code
     (reference debuger.py pprint_program_codes).
 
-    `diagnostics` and `verify=True` (the verifier's annotations) raise
-    NotImplementedError naming ROADMAP A12.
+    `diagnostics`: analysis Diagnostic list (Program.verify output) —
+    flagged ops get `// !! [severity] pass-id: message` annotations so a
+    dump shows WHERE the verifier complained.  `verify=True` runs the
+    analyzer itself (never raising) and annotates with its findings.
     """
-    _no_diagnostics(diagnostics, verify)
+    if verify and diagnostics is None:
+        diagnostics = program.verify(level=None)
+    index = _diag_index(diagnostics)
     lines = []
     for block in program.blocks:
         head = f"// block {block.idx}"
         if block.parent_idx >= 0:
             head += f" (parent {block.parent_idx})"
         lines.append(head + " {")
+        for d in index.get((block.idx, None), ()):
+            lines.append(f"  // !! [{d.severity}] {d.pass_id}: "
+                         f"{d.message}")
         if not skip_vars:
             for name in sorted(block.vars):
                 lines.append("  " + _var_to_code(block.vars[name]))
             if block.vars and block.ops:
                 lines.append("")
-        for op in block.ops:
+        for i, op in enumerate(block.ops):
             lines.append("  " + _op_to_code(op))
+            for d in index.get((block.idx, i), ()):
+                lines.append(f"    // !! [{d.severity}] {d.pass_id}: "
+                             f"{d.message}")
             sub = op.attrs.get("sub_block")
             if sub is not None:
                 lines.append(f"    // -> sub_block {sub}")
@@ -96,6 +105,10 @@ def _dot_id(name: str) -> str:
     return re.sub(r"[^0-9a-zA-Z_]", "_", name)
 
 
+_SEVERITY_COLORS = {"error": "salmon", "warning": "orange",
+                    "info": "khaki"}
+
+
 def draw_block_graphviz(block, path: Optional[str] = None,
                         highlights: Optional[Set[str]] = None,
                         diagnostics=None) -> str:
@@ -104,10 +117,14 @@ def draw_block_graphviz(block, path: Optional[str] = None,
     and writes it to `path` if given (reference debuger.py
     draw_block_graphviz).
 
-    `diagnostics` (the verifier's findings) raises NotImplementedError
-    naming ROADMAP A12."""
-    _no_diagnostics(diagnostics)
+    `diagnostics` (analysis Diagnostic list): ops flagged by the
+    verifier are colored by worst severity (error=salmon,
+    warning=orange, info=khaki) with the pass ids in the label."""
     highlights = highlights or set()
+    diag_by_op = {}
+    for d in diagnostics or ():
+        if d.block_idx == block.idx and d.op_idx is not None:
+            diag_by_op.setdefault(d.op_idx, []).append(d)
     lines = ["digraph G {", "  rankdir=TB;"]
     seen_vars: Set[str] = set()
 
@@ -130,9 +147,17 @@ def draw_block_graphviz(block, path: Optional[str] = None,
         lines.append(f'  var_{_dot_id(name)} [{" ".join(style)} '
                      f'label="{label}"];')
 
+    from .analysis import max_severity
+
     for i, op in enumerate(block.ops):
+        color, label = "lightblue", op.type
+        flagged = diag_by_op.get(i)
+        if flagged:
+            color = _SEVERITY_COLORS[max_severity(flagged)]
+            label += "\\n!! " + ",".join(
+                sorted({d.pass_id for d in flagged}))
         lines.append(f'  op_{i} [shape=box style=filled '
-                     f'fillcolor="lightblue" label="{op.type}"];')
+                     f'fillcolor="{color}" label="{label}"];')
         for names in op.inputs.values():
             for n in names:
                 if not n:

@@ -25,10 +25,9 @@ save).
 The AOT artifact (`export_aot_model`, `load_aot_model`) is a
 `torch.export` program of the pruned inference block, its parameters
 passed in as arguments from a side-car snapshot that keeps every bit,
-its hand-written kernels recorded as their PyTorch ops.  Not ported: the
-static verification a loaded model gets under PADDLE_TPU_VERIFY=warn|
-error (the analysis passes, ROADMAP A12), which raises
-NotImplementedError naming the item.
+its hand-written kernels recorded as their PyTorch ops.  A loaded
+inference model is verified under PADDLE_TPU_VERIFY=warn|error
+(analysis.preflight) before its parameters load.
 """
 from __future__ import annotations
 
@@ -229,23 +228,6 @@ def save_inference_model(dirname, feeded_var_names: Sequence[str],
     return fetch_names
 
 
-def _preflight(program):
-    """The JAX package's `analysis.preflight` of a loaded Program: off by
-    default; its passes are not ported."""
-    from .core.flags import get_flag
-
-    mode = str(get_flag("verify") or "off").lower()
-    if mode == "off":
-        return
-    if mode not in ("warn", "error"):
-        raise ValueError(
-            f"PADDLE_TPU_VERIFY must be off|warn|error, got {mode!r}")
-    raise NotImplementedError(
-        f"PADDLE_TPU_VERIFY={mode}: the static verification of a loaded "
-        "inference model needs the analysis passes, which are not ported "
-        "yet (ROADMAP A12); set it to 'off'")
-
-
 def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None, scope=None):
     """-> (inference Program, feed names, fetch names), the persistables
@@ -253,7 +235,12 @@ def load_inference_model(dirname, executor, model_filename=None,
     with open(os.path.join(dirname, model_filename or MODEL_FILENAME)) as f:
         payload = json.load(f)
     program = Program.from_dict(payload["program"])
-    _preflight(program)
+    # PADDLE_TPU_VERIFY pre-flight (off by default): a deserialized bad
+    # program fails here, before any parameter is loaded
+    from .analysis import preflight
+
+    preflight(program, feed_names=payload.get("feed_var_names"),
+              fetch_names=payload.get("fetch_var_names"))
     load_persistables(executor, dirname, program, filename=params_filename,
                       scope=scope)
     return (program, payload["feed_var_names"],

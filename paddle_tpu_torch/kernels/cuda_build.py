@@ -101,6 +101,10 @@ def build_all(sources: Optional[Iterable[str]] = None
     sources = list(sources)
     with _lock:
         todo = [s for s in sources if s not in _loaded]
+        # lint: blocking-under-lock-ok — the nvcc processes ARE the
+        # critical section: the first caller builds each shared object
+        # once, and every other thread must wait for exactly that build
+        # before it loads the library
         _compile_locked(todo)
         for source in todo:
             _loaded[source] = ctypes.CDLL(_target(source)[1])

@@ -29,7 +29,8 @@ def _causal_scale(attrs):
 
 @register_op("flash_attention", inputs=("Q", "K", "V"), outputs=("Out",),
              attrs={"causal": False, "scale": 1.0, "default_scale": True,
-                    "min_seq_k": -1})
+                    "min_seq_k": -1},
+             cost="attention")
 def flash_attention_op(ctx, ins, attrs):
     """Q/K/V: [batch, seq, heads, head_dim]."""
     causal, scale = _causal_scale(attrs)

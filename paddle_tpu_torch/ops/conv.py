@@ -158,7 +158,8 @@ class _PinnedConv(torch.autograd.Function):
 @register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
              attrs={"strides": [1, 1], "paddings": [0, 0],
                     "dilations": [1, 1], "groups": 1, "use_cudnn": True,
-                    "data_format": "NCHW"})
+                    "data_format": "NCHW"},
+             cost="conv")
 def conv2d(ctx, ins, attrs):
     """Output in the (amp-cast) input's dtype, float32 accumulated."""
     x, w = amp_cast(one(ins, "Input"), one(ins, "Filter"))

@@ -22,7 +22,8 @@ def _operands(x, y, attrs):
 
 
 @register_op("mul", inputs=("X", "Y"), outputs=("Out",),
-             attrs={"x_num_col_dims": 1, "y_num_col_dims": 1}, lod=True)
+             attrs={"x_num_col_dims": 1, "y_num_col_dims": 1}, lod=True,
+             cost="matmul")
 def mul(ctx, ins, attrs):
     xv = one(ins, "X")
     x = data_of(xv)
@@ -52,7 +53,8 @@ def mul_grad(ctx, ins, attrs):
 
 @register_op("matmul", inputs=("X", "Y"), outputs=("Out",),
              attrs={"transpose_X": False, "transpose_Y": False,
-                    "alpha": 1.0})
+                    "alpha": 1.0},
+             cost="matmul")
 def matmul(ctx, ins, attrs):
     """Reference matmul_op.h semantics: a 1-D operand is a row (X) or a
     column (Y) vector, squeezed out of the result; leading batch dims

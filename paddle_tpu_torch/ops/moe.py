@@ -18,7 +18,8 @@ from ..core.registry import register_op
              outputs=("Out", "AuxLoss"),
              attrs={"top_k": 1, "capacity_factor": 1.25},
              diff_inputs=("X", "GateW", "WIn", "WOut"),
-             diff_outputs=("Out", "AuxLoss"))
+             diff_outputs=("Out", "AuxLoss"),
+             cost="moe")
 def moe_ffn(ctx, ins, attrs):
     from ..parallel.moe import moe_dense
 

@@ -178,6 +178,13 @@ class ParallelExecutor:
             v.name if isinstance(v, Variable) else str(v)
             for v in fetch_list
         ]
+        # PADDLE_TPU_VERIFY pre-flight, same contract as Executor.run
+        # (gated inside preflight): a bad graph fails here, before the
+        # first step
+        from ..analysis import preflight
+
+        preflight(program, feed_names=self.feed_names,
+                  fetch_names=self.fetch_names)
         from .spmd import has_annotations, propagate_sharding
 
         blk = program.global_block()

@@ -66,6 +66,7 @@ import json
 import os
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -73,7 +74,8 @@ import numpy as np
 import torch
 
 from ..core.executor import resolve_place
-from ..core.resilience import fault_injector
+from ..core.resilience import (fault_injector,
+                               sched_fault_armed as _sched_fault)
 from ..kernels.cuda_build import build_counts
 from ..observability import attribution as obs_attr
 from ..observability import metrics as obs_metrics
@@ -189,6 +191,13 @@ class GenerationStream:
             return list(self._tokens)
 
     def __iter__(self):
+        if _sched_fault("stream.yield-under-lock"):
+            # the historical bug, reintroducible ONLY for the schedule
+            # checker's regression pin (tests/test_torch_concurrency_
+            # analysis.py): yielding with the lock held lets a slow
+            # consumer stall the scheduler's _put
+            yield from self._iter_yield_under_lock()
+            return
         i = 0
         with self._cond:
             self._watchers += 1
@@ -213,6 +222,24 @@ class GenerationStream:
                     return
         finally:
             with self._cond:
+                self._watchers -= 1
+
+    def _iter_yield_under_lock(self):
+        i = 0
+        with self._cond:
+            self._watchers += 1
+            try:
+                while True:
+                    self._cond.wait_for(
+                        lambda: self._done or len(self._tokens) > i)
+                    while i < len(self._tokens):
+                        yield self._tokens[i]   # lock HELD across yield
+                        i += 1
+                    if self._done:
+                        if self._exc is not None:
+                            raise self._exc
+                        return
+            finally:
                 self._watchers -= 1
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
@@ -1165,10 +1192,48 @@ def server_from_model_dir(dirname: str, *, block_size: Optional[int] = None,
             d_inner=dspec.get("d_inner"), kv_dtype=kvd, place=place)
     else:
         draft_states = None
-    return GenerationServer(
+    server = GenerationServer(
         decoder, states,
         slots=int(slots or spec.get("slots", 8)),
         kv_blocks=int(kv_blocks or spec.get("kv_blocks", 64)),
         draft_decoder=draft_decoder, draft_states=draft_states,
         spec_k=(spec_k if spec_k is not None else spec.get("spec_k")),
         place=place, **kw)
+    _publish_static_decode_floor(spec, server)
+    return server
+
+
+def _publish_static_decode_floor(spec: dict, server: GenerationServer):
+    """Publish the static roofline floor for the decode phase so the
+    collector's calibration detector can band measured-vs-static
+    (docs/observability.md "Time attribution"); publish_static_floor
+    does nothing while metrics are off.  Best-effort: the cost model
+    not covering a spec must never block serving."""
+    try:
+        from ..analysis.cost_model import (analyze_generation_spec,
+                                           roofline_seconds,
+                                           serving_kernel_cost)
+        rows = analyze_generation_spec(
+            spec, slots=server._slots)["kernels"]
+        step = rows[0]
+        # band against the backend the DECODER actually selected (the
+        # registry's spec-level resolution can disagree with a build
+        # that fell back on shape, or with the CPU place a caller asked
+        # for) — the calibration ratio must compare measured time to
+        # the floor of what runs, not of the plain path
+        backend = ("cuda" if getattr(server._decoder, "kernels", {})
+                   .get("paged_attention_decode") == "cuda"
+                   else "plain")
+        if step.get("backend") != backend:
+            step = serving_kernel_cost(
+                "paged_decode_step", spec, slots=server._slots,
+                context=(int(spec.get("block_size", 16))
+                         * int(spec.get("max_blocks_per_seq", 64)))
+                // 2,
+                kv_dtype=str(spec.get("kv_dtype") or "fp32"),
+                backend=backend)
+        obs_attr.publish_static_floor("generation", {
+            "decode": roofline_seconds(step["flops"], step["bytes"]),
+        })
+    except Exception as e:
+        warnings.warn(f"static decode floor unavailable: {e!r}")

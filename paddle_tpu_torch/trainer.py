@@ -6,12 +6,14 @@ and v2/event.py (BeginPass/EndPass/BeginIteration/EndIteration).  The
 Trainer and `infer` run on CUDAPlace(0) unless given a place (the JAX
 package's default to the CPU); without a card they raise.
 
+With metrics on, `train` publishes the compute phase's static roofline
+floor (the cost model's estimate of the main Program on the card's
+chip-table row) for the calibration detector, as the JAX package does.
+
 Not ported: `cluster=` (the elastic cluster's membership and view
 subscription, ROADMAP A11) raises; the fleet telemetry announcement
-(`maybe_announce`, ROADMAP A12) does nothing while
-PADDLE_TPU_TELEMETRY_REGISTRY is unset and raises when it is set; the
-static roofline floor the JAX package publishes for its calibration
-detector needs the cost model (A12) and is not published.
+(`maybe_announce`, ROADMAP A12's second part) does nothing while
+PADDLE_TPU_TELEMETRY_REGISTRY is unset and raises when it is set.
 """
 from __future__ import annotations
 
@@ -340,6 +342,7 @@ class Trainer:
                         feed = feeder.feed(b)
                     yield feed
             return packed()
+        self._publish_static_floor()
         if resume_from is not None and checkpoint_dir is None:
             checkpoint_dir = resume_from
         first_pass, skip_batches = 0, 0
@@ -467,6 +470,25 @@ class Trainer:
             if checkpoint_dir is not None and checkpoint_every_n_passes > 0 \
                     and (pass_id + 1) % checkpoint_every_n_passes == 0:
                 _save(pass_id + 1, 0)
+
+    def _publish_static_floor(self):
+        """Static roofline floor for the compute phase on the card's
+        chip-table row (analysis.cost_model), for the collector's
+        calibration-drift detector (docs/observability.md "Time
+        attribution").  Best-effort and gated: never slows or breaks an
+        uninstrumented run."""
+        if not obs_metrics.enabled():
+            return
+        try:
+            from .analysis.cost_model import (estimate_program,
+                                              roofline_seconds)
+            est = estimate_program(self.main_program)
+            obs_attr.publish_static_floor("trainer", {
+                "compute": roofline_seconds(est.total_flops,
+                                            est.total_bytes),
+            })
+        except Exception:
+            pass
 
     def test(self, reader: Callable, feeder: Optional[DataFeeder] = None,
              fetch_list: Optional[Sequence] = None):

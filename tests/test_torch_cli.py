@@ -199,7 +199,6 @@ def test_cli_merge_job(configs, jax_pass, tmp_path):
 
 
 @pytest.mark.parametrize("sub,item", [
-    ("verify", "A12"), ("analyze", "A12"), ("concurrency", "A12"),
     ("metrics", "A12's second part"), ("trace", "A12's second part"),
     ("top", "A12's second part"), ("slo", "A12's second part"),
     ("why", "A12's second part"), ("trace-of", "A12's second part"),

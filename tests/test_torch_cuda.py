@@ -2723,3 +2723,41 @@ def test_profile_compiled_ops_scopes_a_replayed_flash_step(dev):
     scoped = sum(r["total"] for r in rows if r["scope"])
     assert scoped >= 0.95 * total
     exe.close()
+
+
+def test_verify_error_stops_a_bad_program_before_any_launch(dev):
+    """Under PADDLE_TPU_VERIFY=error the Executor's pre-flight rejects a
+    use-before-def program placed on CUDAPlace(0) before any op runs:
+    no flash kernel launches and nothing is allocated on the card; off,
+    the same program reaches the card and fails at the missing var."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.analysis import ProgramVerificationError
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    p = fluid.Program()
+    b = p.global_block()
+    for n in ("q", "k"):
+        b.create_var(name=n, shape=[2, 128, 4, 64], dtype="bfloat16")
+    b.append_op("flash_attention",
+                {"Q": ["q"], "K": ["k"], "V": ["v_never_made"]},
+                {"Out": ["o"]}, {"causal": True})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {n: torch.randn(2, 128, 4, 64, device=dev,
+                           dtype=torch.bfloat16) for n in ("q", "k")}
+    torch.cuda.synchronize()
+    before = dict(flash_attention.launches)
+    allocated = torch.cuda.memory_allocated()
+    flags.set_flags({"verify": "error"})
+    try:
+        with pytest.raises(ProgramVerificationError,
+                           match="def-before-use"):
+            exe.run(p, feed=feed, fetch_list=["o"])
+    finally:
+        flags.set_flags({"verify": "off"})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    assert torch.cuda.memory_allocated() == allocated
+    with pytest.raises(Exception) as ei:
+        exe.run(p, feed=feed, fetch_list=["o"])
+    assert not isinstance(ei.value, ProgramVerificationError)

@@ -430,14 +430,21 @@ def test_inference_model_in_the_port_round_trips_with_both_layouts(
 
 @pytest.mark.parametrize("mode", ["warn", "error"])
 def test_verification_of_a_loaded_model_raises_naming_a12(mode, tmp_path):
+    """A12's analysis is ported (the test keeps its name): a loaded clean
+    model verifies without a finding at or above warning and loads."""
+    import warnings
+
     main, startup, feeds, pred, _ = _fit_a_line(tfluid, tfw)
     exe = tfluid.Executor(CPU)
     exe.run(startup)
     tio.save_inference_model(str(tmp_path), feeds, [pred], exe,
                              main_program=main)
     tflags.set_flags({"verify": mode})
-    with pytest.raises(NotImplementedError, match="A12"):
-        tio.load_inference_model(str(tmp_path), exe, scope=Scope())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        prog, got_feeds, fetches = tio.load_inference_model(
+            str(tmp_path), exe, scope=Scope())
+    assert got_feeds == feeds and len(fetches) == 1
 
 
 def test_aot_export_raises_naming_a10b(tmp_path):

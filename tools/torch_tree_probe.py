@@ -936,6 +936,26 @@ def a10c(cs, dev):
     cs.tools_cli_phase(card, CUDAPlace(0), s2s_ms)
 
 
+def a12(cs, dev):
+    """chip_smoke's analysis phase and the phases it reads (kernels for
+    the paged case, flash, train under amp — PADDLE_TPU_VERIFY=error —
+    seq2seq, serve, resnet50, memory_plan), the kernels built first."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, bw, peaks = _card(cs)
+    cuda_build.build_all()
+    cases = cs.kernels_phase(dev, bw, peaks[torch.float32])
+    flash_cases = cs.flash_phase(dev, bw, peaks)
+    cs.train_phase(card, CUDAPlace(0), peaks, flash_cases, amp=True)
+    cs.seq2seq_phase(card, CUDAPlace(0), peaks, flash_cases)
+    cs.serve_phases(card, CUDAPlace(0))
+    cs.resnet50_phase(card, CUDAPlace(0), peaks)
+    plan_steps = cs.memory_plan_phase(card, CUDAPlace(0))
+    cs.analysis_phase(card, plan_steps, cases["fp32_w1"], bw)
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1023,7 +1043,8 @@ def main():
                                       "replays",
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
-                                      "maxpool-routes", "a10b", "a10c"))
+                                      "maxpool-routes", "a10b", "a10c",
+                                      "a12"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1060,7 +1081,7 @@ def main():
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
          "maxpool-routes": maxpool_routes, "a10b": a10b,
-         "a10c": a10c}[args.probe](cs, dev)
+         "a10c": a10c, "a12": a12}[args.probe](cs, dev)
     return 0
 
 

@@ -246,6 +246,23 @@ Phases, one JSON line each:
            first step's gradients; ms a step per arm and form,
            all-reduces a step by kind, peak memory (see the P_
            constants);
+  tp_zero  tensor parallelism and ZeRO-1: the train phase's LM through
+           ShardingTranspiler(mesh={"dp": 2, "tp": 2}) with
+           shard_optimizer_states=True and Megatron's placement
+           (parallel/tensor_parallel.py megatron_placement: q, k, v and
+           the FFN's first fc column-split with their biases, the
+           attention output and the FFN's second fc row-split), four
+           gloo ranks on the one card (this script run again as
+           `--tp-zero-worker`), against the serial Executor's steps from
+           the same startup (run first and freed): bf16 amp at 12
+           layers for 3 steps, the losses within 2e-2 relative; float32
+           (TF32 off) at 2 layers for 2 steps, every parameter within
+           2e-4 relative and 1e-5 absolute; the flash kernels on each
+           rank's local heads ([4, 512, 8, 128]), one of each a layer a
+           step; the ranks' losses equal; the collective record a step
+           (6 all-reduces over tp a layer, ZeRO-1's all-gathers over
+           dp) by kind and bytes, ms a step and peak memory a rank (see
+           the TZ_ constants);
   ssd      MobileNet-SSD300 on VOC's geometry (see the SSD_ constants):
            the default mode (three device segments around the host
            bipartite_match and mine_hard_examples, each a CUDA graph)
@@ -381,7 +398,8 @@ replay runs the captured kernels without their wrappers, so on the
 train, seq2seq and moe paths the counts cover the eager first step and
 the capture, and the kernels line adds the profiler's count in a
 replayed step (and the persist phase's uninterrupted seq2seq run's
-wrapper counts, and the aot_native phase's artifact calls).  The image, optimizers, ctr,
+wrapper counts, the aot_native phase's artifact calls, and the
+tp_zero ranks' own counts: each process counts its own launches).  The image, optimizers, ctr,
 rnn, book08, book07, dp_gspmd, ssd, ocr_ctc, readers and conv_rest
 phases run no kernel of the port's own (the JAX package runs the recurrences, the CRF and CTC
 as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
@@ -1344,12 +1362,13 @@ def _timed_steps(run_step, counts, steps=T_STEPS):
     return losses, secs, per_step
 
 
-def _lm_program(optimizer, dropout_rate=0.0, remat=False):
+def _lm_program(optimizer, dropout_rate=0.0, remat=False,
+                n_layers=T_LAYERS):
     """The run_ridge transformer LM's training Program -> (main, startup,
     loss); with `dropout_rate` its dropouts, the attention weights'
     included (the composed attention path); with `remat` each decoder
     block a recompute segment (run_ridge's builder reads the `remat`
-    flag)."""
+    flag); `n_layers` cuts its depth."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.core.flags import set_flags
@@ -1362,7 +1381,7 @@ def _lm_program(optimizer, dropout_rate=0.0, remat=False):
         ids = fluid.layers.data(name="ids", shape=[T_SEQ], dtype="int64")
         lbl = fluid.layers.data(name="lbl", shape=[T_SEQ, 1], dtype="int64")
         logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
-                                n_layers=T_LAYERS, max_len=max(T_SEQ, 2048),
+                                n_layers=n_layers, max_len=max(T_SEQ, 2048),
                                 dropout_rate=dropout_rate,
                                 return_logits=True)
         cost = fluid.layers.softmax_with_cross_entropy(
@@ -6187,6 +6206,309 @@ def dp_gspmd_phase(card, place):
         torch.cuda.empty_cache()
 
 
+# the tp_zero phase: the train phase's LM (run_ridge's width, bf16 amp,
+# Momentum 0.01 / 0.9) trained through ShardingTranspiler(mesh={"dp": 2,
+# "tp": 2}, shard_optimizer_states=True) with Megatron's placement
+# (parallel/tensor_parallel.py megatron_placement) on TZ_RANKS gloo ranks
+# on the one card, TZ_STEPS steps, against the serial Executor's steps
+# from the same startup: losses within TZ_AMP_LOSS_RTOL (the tp
+# all-reduce sums bf16 partial products that serial's GEMM sums in one
+# f32 accumulator); then the same width at TZ_FP32_LAYERS layers in
+# float32 (TF32 off), TZ_FP32_STEPS steps, every parameter within
+# TZ_FP32_RTOL / TZ_FP32_ATOL (tests/test_spmd_sharding.py:425-427's)
+TZ_MESH, TZ_RANKS, TZ_STEPS = {"dp": 2, "tp": 2}, 4, 3
+TZ_FP32_LAYERS, TZ_FP32_STEPS = 2, 2
+TZ_AMP_LOSS_RTOL, TZ_FP32_RTOL, TZ_FP32_ATOL = 2e-2, 2e-4, 1e-5
+
+
+def _tz_arms():
+    """{arm: (amp, n_layers, steps)} of the tp_zero phase, in run order
+    (the float32 arm first: the smaller one)."""
+    return {"fp32_2_layers": (False, TZ_FP32_LAYERS, TZ_FP32_STEPS),
+            "amp_12_layers": (True, T_LAYERS, TZ_STEPS)}
+
+
+def _tz_program(amp, n_layers):
+    import paddle_tpu_torch as fluid
+
+    if amp:
+        fluid.amp.enable_bf16()     # before the Program is built
+    else:
+        fluid.amp.disable_bf16()
+    return _lm_program(fluid.Momentum(learning_rate=0.01, momentum=0.9),
+                       n_layers=n_layers)
+
+
+def _tz_serial(arm, out_dir):
+    """The serial Executor's steps of `arm` on the card from the startup
+    a fresh Executor runs (the ranks' ParallelExecutor runs the same
+    startup with the same seed) -> its record; its parameters written
+    to out_dir for the ranks and freed."""
+    import paddle_tpu_torch as fluid
+
+    amp, n_layers, steps = _tz_arms()[arm]
+    main, startup, loss = _tz_program(amp, n_layers)
+    params = [p.name for p in main.global_block().all_parameters()]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    _reset_peak()
+    losses, secs, _ = _timed_steps(
+        lambda i: exe.run(main, feed=_train_feed(i), fetch_list=[loss],
+                          scope=scope, compiled=False)[0], {}, steps)
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({n: scope.find_var(n).cpu() for n in params},
+               os.path.join(out_dir, f"serial_{arm}.pt"))
+    exe.close()
+    del scope, exe
+    _reset_peak()
+    fluid.amp.disable_bf16()
+    return {"losses": losses, "ms_per_step": [s * 1e3 for s in secs],
+            "peak_memory_bytes": peak, "parameters": len(params)}
+
+
+def _tz_worker(rank, port, out_dir):
+    """One of the TZ_RANKS gloo ranks on the one card: each arm through
+    ShardingTranspiler(mesh=TZ_MESH) with Megatron's placement and
+    ZeRO-1; rank 0 holds the whole parameters (`state`, gathered over
+    the mesh) against the serial run's."""
+    import paddle_tpu_torch as fluid
+    import torch.distributed as dist
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops import attention as attention_op
+    from paddle_tpu_torch.parallel import PartitionSpec
+    from paddle_tpu_torch.parallel.mesh import (collective_bytes,
+                                                count_collectives)
+    from paddle_tpu_torch.parallel.tensor_parallel import \
+        megatron_placement
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TZ_RANKS, rank=rank)
+    # the shapes the flash op hands the kernels (each rank's local heads)
+    shapes = []
+    wrapped = attention_op.flash_attention
+
+    def record_shape(q, k, v, **kw):
+        shapes.append([list(q.shape), str(q.dtype).split(".")[-1]])
+        return wrapped(q, k, v, **kw)
+
+    attention_op.flash_attention = record_shape
+    out = {}
+    try:
+        for arm, (amp, n_layers, steps) in _tz_arms().items():
+            t_arm = time.perf_counter()
+            main, startup, loss = _tz_program(amp, n_layers)
+            params = [p.name for p in main.global_block().all_parameters()]
+            specs = megatron_placement(main)
+            t = fluid.ShardingTranspiler()
+            t.transpile(program=main, startup_program=startup, mesh=TZ_MESH,
+                        shard_optimizer_states=True)
+            t0 = time.perf_counter()
+            pe = t.build_executor(
+                ["ids", "lbl"], [loss], place=fluid.CUDAPlace(0),
+                param_shardings={n: PartitionSpec(*s)
+                                 for n, s in specs.items()})
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            _reset_peak()
+            for k in fa.flash_attention.launches:
+                fa.flash_attention.launches[k] = 0
+            shapes.clear()
+            losses, secs, _ = _timed_steps(
+                lambda i: pe.run(_train_feed(i), return_numpy=False)[0],
+                {}, steps)
+            launches = dict(fa.flash_attention.launches)
+            record = list(pe.collective_record)
+            rec = {"form": pe.gspmd_form, "overlap_info": pe.overlap_info,
+                   "gspmd_info": pe.gspmd_info, "losses": losses,
+                   "ms_per_step": [s * 1e3 for s in secs],
+                   "build_s": build_s,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "flash_launches": launches,
+                   "flash_shapes": sorted({json.dumps(x) for x in shapes}),
+                   "collectives_per_step": count_collectives(record),
+                   "collective_bytes_per_step": collective_bytes(record),
+                   "collectives_by_axis": {
+                       a: count_collectives([c for c in record
+                                             if c.axis == a])
+                       for a in TZ_MESH},
+                   "calls": dict(pe.collective_calls),
+                   "zero_states": len(pe._zero_states),
+                   "placed": len(specs),
+                   "local_parameters": sum(
+                       pe._states[n].numel() for n in params)}
+            # each rank holds its blocks of the parameters against the
+            # same blocks of the serial run's (the file mapped, not read
+            # whole): no gather; the phase takes the largest over ranks
+            t0 = time.perf_counter()
+            serial = torch.load(os.path.join(out_dir, f"serial_{arm}.pt"),
+                                mmap=True)
+            lays = pe._tp.base
+            diffs = {}
+            for n in params:
+                mine = pe._states[n].float()
+                want = serial[n]
+                if n in lays:
+                    want = pe._model_groups[lays[n][1]].block(
+                        want, lays[n][0])
+                want = want.to(mine.device).float()
+                d = (mine - want).abs()
+                diffs[n] = {"max_abs": float(d.max()),
+                            "max_abs_want": float(want.abs().max()),
+                            "outside_tol": int((d > TZ_FP32_ATOL
+                                                + TZ_FP32_RTOL
+                                                * want.abs()).sum())}
+            rec["param_diffs"] = diffs
+            rec["compare_s"] = time.perf_counter() - t0
+            rec["arm_s"] = time.perf_counter() - t_arm
+            pe.close()
+            del pe, serial
+            _reset_peak()
+            out[arm] = rec
+            fluid.amp.disable_bf16()
+    finally:
+        attention_op.flash_attention = wrapped
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _tz_ranks(out_dir):
+    """The TZ_RANKS gloo ranks, this script run again as
+    `--tp-zero-worker RANK PORT DIR`, each a process on the one card ->
+    their records."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-zero-worker",
+         str(rank), str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(TZ_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"tp_zero: rank {rank} exited "
+              f"{p.returncode}: {log[-3000:]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+            for r in range(TZ_RANKS)]
+
+
+def tp_zero_phase(card):
+    """Tensor parallelism and ZeRO-1 on the card: the serial arms first
+    (and freed), then the four ranks (_tz_worker); one line -> the amp
+    arm's flash launches, {kind: [each rank's count]}."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    amp_was = fluid.amp.is_bf16_enabled()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            serial = {arm: _tz_serial(arm, d) for arm in _tz_arms()}
+            serial_s = time.perf_counter() - t_phase
+            ranks = _tz_ranks(d)
+    finally:
+        (fluid.amp.enable_bf16 if amp_was else fluid.amp.disable_bf16)()
+    phase = "tp_zero"
+    rec = {"phase": phase, "card": card, "mesh": TZ_MESH,
+           "ranks": TZ_RANKS, "backend": "gloo (four processes on the one "
+           "card; NCCL refuses two ranks on one device)",
+           "timing_note": "four ranks share the card and every collective "
+                          "goes through gloo: a correctness run, not a "
+                          "scaling number", "arms": {}}
+    failed = []
+    for arm, (amp, n_layers, steps) in _tz_arms().items():
+        r0, ref = ranks[0][arm], serial[arm]
+        same = all(r[arm]["losses"] == r0["losses"] for r in ranks)
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(r0["losses"], ref["losses"])]
+        # each parameter over the ranks' blocks: its largest difference
+        # relative to its largest magnitude, and the elements outside
+        # the float32 gate's tolerance
+        diffs = {}
+        for n in r0["param_diffs"]:
+            per = [r[arm]["param_diffs"][n] for r in ranks]
+            diffs[n] = {"max_abs": max(p["max_abs"] for p in per),
+                        "max_rel": max(p["max_abs"] for p in per) / max(
+                            max(p["max_abs_want"] for p in per), 1e-30),
+                        "outside_tol": sum(p["outside_tol"] for p in per)}
+        worst = max(diffs, key=lambda n: diffs[n]["max_rel"])
+        outside = {n: v["outside_tol"] for n, v in diffs.items()
+                   if v["outside_tol"]}
+        kinds = {k: [r[arm]["flash_launches"][k] for r in ranks]
+                 for k in r0["flash_launches"]}
+        a = {"amp": amp, "n_layers": n_layers, "steps": steps,
+             "form": r0["form"], "overlap_info": r0["overlap_info"],
+             "losses": r0["losses"], "serial_losses": ref["losses"],
+             "loss_rel_diff": loss_rel, "ranks_same_losses": same,
+             "largest_param_rel_diff": {worst: diffs[worst]},
+             "params_outside_fp32_tol": outside,
+             "ms_per_step": {f"rank{i}": r[arm]["ms_per_step"]
+                             for i, r in enumerate(ranks)},
+             "serial_ms_per_step": ref["ms_per_step"],
+             "peak_memory_bytes": [r[arm]["peak_memory_bytes"]
+                                   for r in ranks],
+             "serial_peak_memory_bytes": ref["peak_memory_bytes"],
+             "local_parameters": [r[arm]["local_parameters"]
+                                  for r in ranks],
+             "zero_states": r0["zero_states"], "placed": r0["placed"],
+             "collectives_per_step": r0["collectives_per_step"],
+             "collective_bytes_per_step": r0["collective_bytes_per_step"],
+             "collectives_by_axis": r0["collectives_by_axis"],
+             "flash_launches": kinds, "flash_shapes": r0["flash_shapes"],
+             "build_s": [r[arm]["build_s"] for r in ranks],
+             "compare_s": [r[arm]["compare_s"] for r in ranks],
+             "rank_arm_s": [r[arm]["arm_s"] for r in ranks]}
+        if amp:
+            a["gate"] = f"losses within {TZ_AMP_LOSS_RTOL} relative"
+            if not all(x <= TZ_AMP_LOSS_RTOL for x in loss_rel):
+                failed.append(f"{phase}: {arm} losses {loss_rel}")
+        else:
+            a["gate"] = (f"every parameter within {TZ_FP32_RTOL} relative "
+                         f"and {TZ_FP32_ATOL} absolute")
+            if outside:
+                failed.append(f"{phase}: {arm} parameters outside the "
+                              f"tolerance: {outside}")
+        if not same:
+            failed.append(f"{phase}: {arm}: the ranks' losses differ")
+        if r0["form"] != "sharded":
+            failed.append(f"{phase}: {arm} form {r0['form']}")
+        if not all(np.isfinite(r0["losses"])):
+            failed.append(f"{phase}: {arm} losses not finite")
+        # the attention ran through the kernels on each rank's local
+        # heads: one forward, dQ and dK/dV launch a layer a step
+        want = {k: n_layers * steps for k in kinds}
+        if any(v != [want[k]] * TZ_RANKS for k, v in kinds.items()):
+            failed.append(f"{phase}: {arm} flash launches {kinds}")
+        local = [T_BATCH // TZ_MESH["dp"], T_SEQ,
+                 T_HEADS // TZ_MESH["tp"], T_D // T_HEADS]
+        if [json.loads(x)[0] for x in r0["flash_shapes"]] != [local]:
+            failed.append(f"{phase}: {arm} flash shapes "
+                          f"{r0['flash_shapes']}")
+        tp_reduce = r0["collectives_by_axis"]["tp"].get("all-reduce", 0)
+        if tp_reduce != 6 * n_layers or "all-gather" not in \
+                r0["collectives_by_axis"]["dp"]:
+            failed.append(f"{phase}: {arm} collectives "
+                          f"{r0['collectives_by_axis']}")
+        rec["arms"][arm] = a
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["serial_arms_s"] = serial_s
+    emit(rec)
+    check(not failed, "; ".join(failed))
+    return rec["arms"]["amp_12_layers"]["flash_launches"]
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
@@ -10279,6 +10601,7 @@ def main():
     book08_phase(card, CUDAPlace(0), peaks)
     book07_phase(card, CUDAPlace(0))
     dp_gspmd_phase(card, CUDAPlace(0))
+    tz_launches = tp_zero_phase(card)
     ssd_phase(card, CUDAPlace(0), peaks)
     ocr_ctc_phase(card, CUDAPlace(0))
     readers_phase(card, CUDAPlace(0))
@@ -10362,6 +10685,12 @@ def main():
                                    "replayed step (read, not held)",
             **({"launches_aot": aot_launches["fwd"],
                 "launches_aot_note": _AOT_NOTE} if kind == "fwd" else {}),
+            "launches_tp_zero": tz_launches[kind],
+            "launches_tp_zero_note": "the tp_zero phase's amp run, each "
+                                     "of its four ranks' wrapper count "
+                                     "(3 interpreted steps, 12 layers: "
+                                     "one a layer a step, on the rank's "
+                                     "local heads)",
             "max_abs_err": per_case["bf16_causal"]["max_abs_err"],
             **{k: main_case[kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")},
@@ -10428,5 +10757,10 @@ if __name__ == "__main__":
         # a rank of the dp_gspmd phase's dp2_one_card part
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _dp2_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-zero-worker"]:
+        # a rank of the tp_zero phase
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _tz_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -52,7 +52,10 @@ dataset parsers (dataset/); the static analysis package (analysis/: the
 Program verifier behind `Program.verify` and the executors' pre-flight,
 the cost model on the card's chip table, the concurrency lint and the
 schedule checker) with the CLI's verify, analyze and concurrency
-commands.
+commands; sharding and collectives (parallel/): ZeRO-1, tensor
+parallelism over a 'tp' mesh axis from `layers.shard` annotations or
+`param_shardings`, a process group a mesh axis, `shard_map`, the c_*
+collective ops and the sharded embedding.
 """
 from . import (  # noqa: F401
     amp,

@@ -85,18 +85,23 @@ class ExecContext:
     the process group a data-parallel step's training-mode batch_norm
     all-reduces its statistics over (ParallelExecutor's sync-BN form;
     None everywhere else, and the lowerings then run as in the
-    serial Executor)."""
+    serial Executor).  `groups` maps each mesh axis the run spans to
+    its collectives (`parallel.mesh.AxisGroup`): the c_* collective ops
+    run over `groups[ring_id]`, and raise where the axis is not there,
+    as the JAX package's do outside shard_map."""
 
     def __init__(self, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None, row_offset: int = 0,
-                 tables: Optional[Dict] = None, sync_group=None):
+                 tables: Optional[Dict] = None, sync_group=None,
+                 groups: Optional[Dict] = None):
         self.device = torch.device(device if device is not None else "cpu")
         self._generator = generator
         self.seed = seed
         self.row_offset = row_offset
         self.tables = {} if tables is None else tables
         self.sync_group = sync_group
+        self.groups = {} if groups is None else groups
         self.op = self.env = self.root = None
 
     @property
@@ -112,7 +117,7 @@ class ExecContext:
         base = self.seed if self.seed is not None else 0
         return ExecContext(self.device, seed=_mix(base, tag_hash),
                            row_offset=self.row_offset, tables=self.tables,
-                           sync_group=self.sync_group)
+                           sync_group=self.sync_group, groups=self.groups)
 
     def pure(self) -> "ExecContext":
         """Context for re-running a forward op inside its gradient: the
@@ -121,7 +126,7 @@ class ExecContext:
         lowering that runs a sub-block finds it."""
         c = ExecContext(self.device, seed=self.seed,
                         row_offset=self.row_offset, tables=self.tables,
-                        sync_group=self.sync_group)
+                        sync_group=self.sync_group, groups=self.groups)
         c.op, c.env, c.root = self.op, self.env, self.root
         return c
 

@@ -7,3 +7,4 @@ from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403  (shadows ops.less_than etc.)
 from .detection import *  # noqa: F401,F403
+from .dist import *  # noqa: F401,F403

@@ -1,9 +1,11 @@
-"""ParallelExecutor: data-parallel training of a Program over a mesh.
+"""ParallelExecutor: data- and tensor-parallel training of a Program
+over a mesh.
 
 Counterpart of paddle_tpu/parallel/executor.py.  Each process of a
 `torch.distributed` group drives one device and holds a full copy of
-the parameters; the feed is the GLOBAL batch, and each rank runs the
-program on its own rows of it.
+the parameters (its blocks of those placed over a model axis, in the
+"sharded" form below); the feed is the GLOBAL batch, and each rank runs
+the program on its own rows of it.
 
 The data-parallel step is the JAX package's bucketed overlap step
 (`overlap="bucketed"`, or "auto" where the program allows it).  The
@@ -31,8 +33,8 @@ float associativity; at world 1 it is the serial step bit for bit.
 Where the overlap is off (asked for, or ruled out by the program), the
 JAX package runs its GSPMD step: one `jax.jit` of the serial program
 over sharded inputs, in which XLA inserts the collectives.  Here, with a
-process group (at dp 1 too), that step takes one of two forms, named in
-`gspmd_form`; `overlap_info` keeps the JAX package's report:
+process group (at dp 1 too), that step takes one of three forms, named
+in `gspmd_form`; `overlap_info` keeps the JAX package's report:
 
   * "sync_bn", for a program whose only blocker is training-mode
     `batch_norm` (or none): the overlap step's shape — local rows,
@@ -44,16 +46,43 @@ process group (at dp 1 too), that step takes one of two forms, named in
     flow, LoD feeds, random ops other than dropout, a loss that is not
     a mean, a sparse embedding gradient): every rank runs the whole
     program over the global batch and calls no collective.  No
-    scaling, but the serial result on every rank.
+    scaling, but the serial result on every rank;
+  * "sharded", for a program with placements over a model axis (the
+    spmd plan's, from `layers.shard` annotations, or explicit
+    `param_shardings`): tensor parallelism.  Each rank holds its blocks
+    of the placed parameters and its rows of the batch, and runs the
+    ops on local blocks by the rules of parallel/tensor_parallel.py
+    (Megatron's column- and row-parallel products, local elementwise
+    ops, reshapes and attention heads; an all-gather before any other
+    op); the gradients are all-reduced over the batch axis's group in
+    buckets, as in the overlap step, whose shape this form keeps where
+    the program allows it (else every rank runs the global batch).
+    `overlap="auto"` stands down for it with the JAX package's reason,
+    and `overlap="bucketed"` raises.
+
+Each mesh axis has its own process group (`Mesh.axis_group`): the
+gradient, statistics and fetch collectives run over the batch axis's,
+the tensor-parallel ones over the model axis's.
+
+ZeRO-1 (`shard_optimizer_states=True`, every form): an optimizer
+accumulator `<param>_<name>_acc` whose dim 0 divides by dp is split
+over the batch axis (one that follows its parameter's placement keeps
+that instead, as the JAX package's `_spec_for` decides).  The
+gradients still reach every rank reduced; each rank updates the rows it
+owns, and an all-gather over dp restores the whole parameter.  `state`
+of a split state returns the whole array (a collective: every rank of
+the mesh calls it), `set_state` writes this rank's block.
+
+Every collective a step issues is recorded (`collective_record`: kind,
+dtype, shape, axis), and `compiled_collectives(feed)` counts one step's
+record by the JAX package's kind names.
 
 Without a process group (a mesh of one) the whole program runs as in the
 serial Executor.
 
-Not ported (ROADMAP A8b/A9): tensor-parallel placements
-(`param_shardings`, spmd model axes), ZeRO-1
-(`shard_optimizer_states=True` at world > 1), `compiled_collectives`,
-the sharded checkpoint mixin, the pipeline executors, and the pserver
-transpiler mode (A11).
+Not ported: the sharded checkpoint mixin, the pipeline executors and
+the 'pp', 'sp' and 'ep' axes (ROADMAP A9), and the pserver transpiler
+mode (A11).
 """
 from __future__ import annotations
 
@@ -65,7 +94,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.execution import DictEnv, ExecContext, _mix, run_op
+from ..core.execution import (DictEnv, ExecContext, _mix, gather_inputs,
+                              op_context, resolve_op, run_op,
+                              scatter_outputs)
 from ..core.executor import (CUDAPlace, Executor, _to_device_value,
                              _to_numpy, resolve_place)
 from ..core.framework import Variable, default_startup_program
@@ -74,7 +105,8 @@ from ..core.scope import Scope
 from ..core.types import torch_dtype
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
-from .mesh import make_mesh
+from .mesh import PartitionSpec, count_collectives, make_mesh
+from .tensor_parallel import TensorParallel, grad_base
 
 __all__ = ["ParallelExecutor", "DistributeTranspiler",
            "SimpleDistributeTranspiler", "ShardingTranspiler"]
@@ -85,6 +117,14 @@ _PE_IDS = itertools.count()
 _M_RUN_SECONDS = obs_metrics.histogram(
     "paddle_tpu_executor_run_seconds",
     "Executor.run wall latency by execution mode", ("exe", "mode"))
+
+
+def _spec_axes(spec):
+    """The axis names a placement spec mentions."""
+    for e in tuple(spec or ()):
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                yield a
 
 
 def _plan_flags() -> tuple:
@@ -106,10 +146,10 @@ def _bucket_grad(t, name, dtype):
     if isinstance(t, SelectedRows):
         raise TypeError(
             f"gradient {name!r} is a SelectedRows (an is_sparse "
-            "embedding's): sparse tables in the bucketed overlap step are "
-            "not ported yet (ROADMAP A8b); build the embedding with "
-            "is_sparse=False, or pass overlap='off' (every rank then runs "
-            "the global batch)")
+            "embedding's): the bucketed overlap step takes dense "
+            "gradients only, as the JAX package's does; build the "
+            "embedding with is_sparse=False, or pass overlap='off' (every "
+            "rank then runs the global batch)")
     if t.dtype != torch_dtype(dtype):
         raise TypeError(f"gradient {name!r} is {t.dtype}, but its bucket "
                         f"holds {dtype} (its parameter's dtype)")
@@ -117,9 +157,9 @@ def _bucket_grad(t, name, dtype):
 
 
 class _StatGroup:
-    """The sync-BN form's statistics group (`ExecContext.sync_group`,
-    read by ops/norm.py's batch_norm): `all_reduce(t)` sums `t` in place
-    over the mesh's ranks, counted in the executor's
+    """The batch-norm statistics group (`ExecContext.sync_group`, read by
+    ops/norm.py's batch_norm): `all_reduce(t)` sums `t` in place over
+    the batch axis's ranks, counted in the executor's
     `collective_calls["stat_all_reduce"]`; `size` is the rank count."""
 
     def __init__(self, pe):
@@ -127,11 +167,14 @@ class _StatGroup:
         self.size = pe.dp
 
     def all_reduce(self, t):
-        import torch.distributed as dist
-
-        self._pe.collective_calls["stat_all_reduce"] += 1
-        dist.all_reduce(t, group=self._pe.mesh.group)
+        self._pe._count("stat_all_reduce")
+        self._pe._dp_group.all_reduce_(t)
         return t
+
+
+# mesh axes whose strategies are A9's (pipeline, sequence, expert
+# parallelism)
+_A9_AXES = ("pp", "sp", "ep")
 
 
 class ParallelExecutor:
@@ -164,12 +207,13 @@ class ParallelExecutor:
                 f"{overlap!r}")
         self.mesh = mesh
         self.batch_axis = batch_axis
-        if set(mesh.axis_names) != {batch_axis}:
+        a9 = sorted(a for a in mesh.axis_names
+                    if a in _A9_AXES and mesh.shape[a] > 1)
+        if a9:
             raise NotImplementedError(
-                f"mesh axes {dict(mesh.shape)}: only a data-parallel mesh "
-                f"over {batch_axis!r} runs here; tensor, sequence and "
-                "pipeline axes are not ported yet (ROADMAP A8b/A9)")
-        self.dp = int(mesh.shape[batch_axis])
+                f"mesh axes {a9} of {dict(mesh.shape)}: pipeline, sequence "
+                "and expert parallelism are not ported yet (ROADMAP A9)")
+        self.dp = int(mesh.shape.get(batch_axis, 1))
         self.place = CUDAPlace(0) if place is None else place
         self.device = resolve_place(self.place)
         self.program = program
@@ -185,7 +229,8 @@ class ParallelExecutor:
 
         preflight(program, feed_names=self.feed_names,
                   fetch_names=self.fetch_names)
-        from .spmd import has_annotations, propagate_sharding
+        from .spmd import has_annotations, propagate_sharding, \
+            spec_to_partition
 
         blk = program.global_block()
         if spmd_plan is None and has_annotations(blk):
@@ -194,23 +239,19 @@ class ParallelExecutor:
         self._spmd_plan = spmd_plan
         if spmd_plan is not None:
             spmd_plan.check()
-            if spmd_plan.model_axes:
-                raise NotImplementedError(
-                    f"model-parallel placements over "
-                    f"{spmd_plan.model_axes}: tensor parallelism is not "
-                    "ported yet (ROADMAP A8b)")
-        placed = sorted(n for n, s in (param_shardings or {}).items()
-                        if s is not None and any(e is not None
-                                                 for e in tuple(s)))
-        if placed:
-            raise NotImplementedError(
-                f"param_shardings on {placed}: tensor parallelism is not "
-                "ported yet (ROADMAP A8b)")
-        if shard_optimizer_states and self.dp > 1:
-            raise NotImplementedError(
-                "shard_optimizer_states=True (ZeRO-1) at dp > 1 is not "
-                "ported yet (ROADMAP A8b); pass shard_optimizer_states="
-                "False")
+            # the plan's placements under the explicit ones (explicit
+            # names win), as the JAX package folds them
+            derived = {n: spec_to_partition(s)
+                       for n, s in spmd_plan.param_specs.items()}
+            derived.update(param_shardings or {})
+            param_shardings = derived
+        self._param_shardings = dict(param_shardings or {})
+        for n, spec in self._param_shardings.items():
+            for a in _spec_axes(spec):
+                if a not in mesh.shape:
+                    raise ValueError(
+                        f"placement {spec} of {n!r}: axis {a!r} is not "
+                        f"found in mesh {tuple(mesh.axis_names)}")
         self._feed_specs = dict(spmd_plan.feed_specs) if spmd_plan \
             else {}
         # explicit `donate=True` var hints fail HERE (build time) when
@@ -227,6 +268,29 @@ class ParallelExecutor:
         self._frees_by_op = None
         self._seed = seed
         self._step = 0
+        # collectives this executor issued (none without a process
+        # group): one all-reduce per gradient bucket, the fetches'
+        # all-reduce (means) or all-gather (per-row values), and the
+        # sync-BN form's batch-norm statistics (forward and backward);
+        # the tensor-parallel and ZeRO-1 collectives join under their
+        # own keys ("tp_all_reduce", "tp_all_gather", "zero_all_gather")
+        # once issued
+        self.collective_calls = {"grad_all_reduce": 0,
+                                 "fetch_all_reduce": 0,
+                                 "fetch_all_gather": 0,
+                                 "stat_all_reduce": 0}
+        # every collective of the last step (mesh.Collective entries)
+        self.collective_record = []
+        self._record = []
+        self._dp_group = mesh.axis_group(batch_axis) \
+            if batch_axis in mesh.shape else None
+        # the model axes a placement splits a tensor over (size > 1)
+        self._model_axes = sorted({
+            e for spec in self._param_shardings.values()
+            for e in _spec_axes(spec)
+            if e != batch_axis and mesh.shape.get(e, 1) > 1})
+        self._model_groups = {a: mesh.axis_group(a)
+                              for a in self._model_axes}
 
         # compute/collective overlap: 'auto' falls back to the plain step
         # (reason kept in overlap_info) where the program shape rules the
@@ -239,10 +303,11 @@ class ParallelExecutor:
         self._kernel_selection = _kernel_registry.Selection()
         # the GSPMD step's form with a process group (module docstring):
         # "sync_bn" runs the overlap step's shape with synced batch-norm
-        # statistics, "replicated" the whole program on every rank;
-        # None where the overlap step runs, or without a group
-        # (gspmd_info: the replicated form's reason, or the sync-BN
-        # form's buckets as overlap_info gives the overlap step's)
+        # statistics, "replicated" the whole program on every rank,
+        # "sharded" the tensor-parallel step; None where the overlap
+        # step runs, or without a group (gspmd_info: the replicated
+        # form's reason, or the buckets as overlap_info gives the
+        # overlap step's)
         self.gspmd_form = None
         self.gspmd_info = {}
         self._stat_group = None
@@ -259,36 +324,150 @@ class ParallelExecutor:
                 else:
                     self.overlap_info = {"mode": "off", "reason": reason}
             if self._overlap_cfg is None and mesh.group is not None:
-                if blocker is not None:
+                if self._model_axes:
+                    sub = sorted({op.type for op in blk.ops if any(
+                        isinstance(v, dict) and "__block__" in v
+                        for v in op.attrs.values())})
+                    if sub:
+                        raise NotImplementedError(
+                            f"placements over {self._model_axes} with "
+                            f"sub-block ops {sub}: the tensor-parallel "
+                            "step runs ops on local blocks, and a "
+                            "sub-block's ops would read them whole; not "
+                            "supported")
+                    self.gspmd_form = "sharded"
+                    self.gspmd_info = {"model_axes": self._model_axes}
+                    if blocker is None:
+                        self._overlap_cfg = cfg
+                    else:
+                        self.gspmd_info["reason"] = blocker
+                elif blocker is not None:
                     self.gspmd_form = "replicated"
                     self.gspmd_info = {"reason": blocker}
                 else:
                     self._overlap_cfg = cfg
                     self.gspmd_form = "sync_bn"
-                    self._stat_group = _StatGroup(self)
-        # collectives this executor issued (none without a process
-        # group): one all-reduce per gradient bucket, the fetches'
-        # all-reduce (means) or all-gather (per-row values), and the
-        # sync-BN form's batch-norm statistics (forward and backward)
-        self.collective_calls = {"grad_all_reduce": 0,
-                                 "fetch_all_reduce": 0,
-                                 "fetch_all_gather": 0,
-                                 "stat_all_reduce": 0}
+            if self._overlap_cfg is not None and self.gspmd_form in (
+                    "sync_bn", "sharded"):
+                self._stat_group = _StatGroup(self)
         # --- states from the startup program, on this rank's device ------
         startup = startup_program or default_startup_program()
         scope = Scope()
         Executor(self.place).run(startup, scope=scope)
         self._state_in, self._state_out = self._analyze_states(program, blk)
+        # each state's placement (the JAX package's NamedSharding spec),
+        # its model-axis layout and whether ZeRO-1 splits its rows
+        self.state_specs: Dict[str, PartitionSpec] = {}
+        layouts = {}
+        self._zero_states = set()
+        zero = bool(shard_optimizer_states)
         self._states = {}
         for n in self._state_in:
             if not scope.has_var(n):
                 raise RuntimeError(
                     f"state var {n!r} not produced by the startup program")
-            self._states[n] = scope.find_var(n)
+            val = scope.find_var(n)
+            spec, by_zero = self._spec_for(n, val, zero)
+            self.state_specs[n] = spec
+            if by_zero and self.dp > 1:
+                self._zero_states.add(n)
+                val = self._dp_group.block(val, 0).clone()
+            lay = self._layout_of(n, spec, val)
+            if lay is not None:
+                layouts[n] = lay
+                val = self._model_groups[lay[1]].block(val, lay[0]).clone()
+            self._states[n] = val
+        del scope
+        # the update ops that read a ZeRO-1 split accumulator
+        self._zero_ops = {id(op) for op in blk.ops
+                          if "Param" in op.inputs and "ParamOut" in op.outputs
+                          and set(op.input_names()) & self._zero_states}
+        self._tp = None
+        if self.gspmd_form == "sharded":
+            for n in self.feed_names:
+                lay = self._layout_of(n, self._feed_specs.get(n), None)
+                if lay is not None:
+                    layouts[n] = lay
+            self._tp = TensorParallel(self._model_groups, layouts,
+                                      self._count)
+            if self._overlap_cfg is not None:
+                # the buckets hold this rank's blocks of the gradients
+                cfg = self._overlap_cfg
+                self._overlap_cfg = dict(cfg, grad_meta=[
+                    (g, self._local_shape(grad_base(g), shape, layouts), dt)
+                    for g, shape, dt in cfg["grad_meta"]])
+        # every axis's collectives (an op context's `groups`: the c_*
+        # ops name them by ring_id), each recorded in the step's record
+        self._axis_groups = {}
+        if mesh.group is not None:
+            for a in mesh.axis_names:
+                g = (self._dp_group if a == batch_axis
+                     else self._model_groups.get(a) or mesh.axis_group(a))
+                g.record = self._record
+                self._axis_groups[a] = g
         self._plan = None
         self._plan_state = None
         self._flat_storages = frozenset()
         self._refresh_plan()
+
+    def _count(self, kind):
+        self.collective_calls[kind] = self.collective_calls.get(kind, 0) + 1
+
+    # -- placements ------------------------------------------------------------
+    def _spec_for(self, name, val, zero):
+        """-> (the state's PartitionSpec, whether ZeRO-1 gave it): the
+        JAX package's `_spec_for` — an explicit placement wins (a
+        parameter's, and its accumulators' `<param>_<name>_acc`), then
+        ZeRO-1 splits an accumulator's dim 0 over the batch axis where
+        it divides."""
+        shape = tuple(val.shape) if isinstance(val, torch.Tensor) else ()
+        for pname, spec in self._param_shardings.items():
+            spec = PartitionSpec(*tuple(spec or ()))
+            if name == pname:
+                return spec, False
+            if name.startswith(pname + "_") and name.endswith("_acc"):
+                if shape and len(spec) <= len(shape):
+                    return spec, False
+        if zero and name.endswith("_acc") and len(shape) >= 1:
+            if shape[0] % self.dp == 0 and shape[0] >= self.dp:
+                return PartitionSpec(self.batch_axis), True
+        return PartitionSpec(), False
+
+    def _layout_of(self, name, spec, val):
+        """The model-axis layout (dim, axis) a spec gives a value, or
+        None: the port splits a tensor along one dim over one model
+        axis; a batch-axis entry keeps the dim whole (XLA would shard
+        and gather it: the same numbers)."""
+        if not spec:
+            return None
+        found = []
+        for d, e in enumerate(spec):
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a in self._model_groups:
+                    found.append((d, a))
+        if not found:
+            return None
+        if len(found) > 1 or any(isinstance(spec[d], tuple)
+                                 for d, _ in found):
+            raise ValueError(
+                f"{name!r} is placed {spec}: the port splits a tensor "
+                "along one dim over one model axis")
+        d, a = found[0]
+        if val is not None and (val.dim() <= d or val.shape[d]
+                                % self.mesh.shape[a]):
+            raise ValueError(
+                f"{name!r} {tuple(val.shape)} is placed {spec}: dim {d} "
+                f"does not divide by the {a!r} axis size "
+                f"{self.mesh.shape[a]}")
+        return found[0]
+
+    def _local_shape(self, name, shape, layouts):
+        lay = layouts.get(name)
+        if lay is None:
+            return shape
+        shape = list(shape)
+        shape[lay[0]] //= self.mesh.shape[lay[1]]
+        return tuple(shape)
 
     @staticmethod
     def _analyze_states(program, block):
@@ -331,11 +510,12 @@ class ParallelExecutor:
         from .spmd import backward_start_index
 
         # the first reason only batch_norm gives, which the JAX package's
-        # analysis stops at, and the sync-BN form's own blocker
-        bn_reason = sparse = None
+        # analysis stops at, and the sync-BN form's own blocker; the
+        # model-parallel placements' reason, which the sharded form lifts
+        bn_reason = sparse = placed = None
 
         def refuse(blocker):
-            return None, bn_reason or blocker, blocker
+            return None, placed or bn_reason or blocker, blocker
 
         ops = block.ops
         opt_ops = [op for op in ops
@@ -373,6 +553,18 @@ class ParallelExecutor:
             missing = sorted(grad_names - produced)
             return refuse(f"gradient(s) {missing} are produced after "
                           "their first consumer")
+        names = sorted(n for n, sp in self._param_shardings.items()
+                       if sp is not None and any(e is not None
+                                                 for e in tuple(sp)))
+        if self._spmd_plan is not None and self._spmd_plan.model_axes:
+            placed = (f"model-parallel placements over "
+                      f"{self._spmd_plan.model_axes} — the GSPMD step keeps "
+                      "them sharded; the manual-dp overlap would gather "
+                      "them")
+        elif names:
+            placed = (f"explicit param_shardings on {names} — the GSPMD "
+                      "step keeps them sharded; the manual-dp overlap would "
+                      "gather them")
 
         # the grad reduction is a mean over ranks, which equals the
         # serial gradient ONLY for a batch-MEAN loss
@@ -495,7 +687,7 @@ class ParallelExecutor:
                     d < 0 for d in pv.shape):
                 return refuse(f"parameter {grad_of[g]!r} has no static shape")
             grad_meta.append((g, tuple(pv.shape), pv.dtype or "float32"))
-        if sparse and bn_reason:
+        if sparse and (bn_reason or self._model_axes):
             return refuse(sparse)
         return {
             "split": split,
@@ -506,7 +698,7 @@ class ParallelExecutor:
             "inside_state": inside_state,
             "inside_writes": inside_writes,
             "fetch_kinds": fetch_kinds,
-        }, bn_reason, sparse
+        }, placed or bn_reason, sparse
 
     def _refresh_plan(self):
         """(Re)build the buckets and the fused-update plan when the flags
@@ -655,33 +847,44 @@ class ParallelExecutor:
     def _local_feeds(self, feed):
         """This rank's rows of the global feed, on its device (the
         overlap analysis has checked that every feed is batch-major);
-        the whole feed in the replicated form."""
+        the whole feed where every rank runs the global batch.  A feed
+        placed over a model axis gets this rank's block of it."""
         out = {}
+        split = self.dp > 1 and self._overlap_cfg is not None
         for n, v in feed.items():
-            if self.dp > 1 and self.gspmd_form != "replicated":
+            if split:
                 rows = len(v)
                 if rows % self.dp:
                     raise ValueError(
                         f"feed {n!r}: batch {rows} is not divisible by "
                         f"dp {self.dp}")
                 mb = rows // self.dp
-                v = v[self.mesh.rank * mb:(self.mesh.rank + 1) * mb]
-            out[n] = _to_device_value(v, self.device)
+                i = self._dp_group.index
+                v = v[i * mb:(i + 1) * mb]
+            v = _to_device_value(v, self.device)
+            lay = self._tp.base.get(n) if self._tp is not None else None
+            if lay is not None:
+                v = self._model_groups[lay[1]].block(v, lay[0]).contiguous()
+            out[n] = v
         return out
 
     def _all_reduce(self, t, kind):
-        import torch.distributed as dist
-
-        self.collective_calls[kind] += 1
-        return dist.all_reduce(t, group=self.mesh.group, async_op=True)
+        """An asynchronous all-reduce of `t` over the batch axis (None:
+        no group there)."""
+        if self._dp_group is None or self._dp_group.group is None:
+            return None
+        self._count(kind)
+        return self._dp_group.all_reduce_(t, async_op=True)
 
     def _gather_rows(self, v):
-        import torch.distributed as dist
+        self._count("fetch_all_gather")
+        return self._dp_group.all_gather(v, 0)
 
-        self.collective_calls["fetch_all_gather"] += 1
-        parts = [torch.empty_like(v) for _ in range(self.dp)]
-        dist.all_gather(parts, v.contiguous(), group=self.mesh.group)
-        return torch.cat(parts)
+    def _whole(self, n, v):
+        """A fetched value whole over the model axes (an all-gather of
+        its blocks where it is split)."""
+        lay = self._tp.layout(n) if self._tp is not None else None
+        return v if lay is None else self._tp._gather(v, lay)
 
     def _dead_frees(self):
         """{id(op): names dead after it} under the `memory_optimize`
@@ -701,18 +904,56 @@ class ParallelExecutor:
                     self.program, self.fetch_names).items()}
         return self._frees_by_op
 
-    @staticmethod
-    def _run_freeing(ctx, op, env, frees):
-        run_op(ctx, op, env)
+    def _run_freeing(self, ctx, op, env, frees):
+        if id(op) in self._zero_ops:
+            self._run_zero(ctx, op, env)
+        elif self._tp is not None:
+            self._tp.run(ctx, op, env)
+        else:
+            run_op(ctx, op, env)
         for n in frees.get(id(op), ()):
             env.d.pop(n, None)
+
+    def _run_zero(self, ctx, op, env):
+        """An update op under ZeRO-1: on this rank's rows of the
+        parameter (its split accumulators hold only those), then the
+        new rows all-gathered over the batch axis into the whole
+        parameter."""
+        ins = gather_inputs(op, env)
+        pshape = tuple(ins["Param"][0].shape)
+        g = self._dp_group
+        m = pshape[0] // self.dp
+        for slot, names in op.inputs.items():
+            for i, n in enumerate(names):
+                v = ins[slot][i]
+                if n not in self._zero_states and isinstance(
+                        v, torch.Tensor) and tuple(v.shape) == pshape:
+                    ins[slot][i] = v[g.index * m:(g.index + 1) * m]
+        fn, attrs, tag = resolve_op(op)
+        outs = fn(op_context(ctx, op, env, tag), ins, attrs)
+        for slot, names in op.outputs.items():
+            if slot not in outs:
+                continue
+            vs = outs[slot] if isinstance(outs[slot], (list, tuple)) \
+                else [outs[slot]]
+            whole = []
+            for n, v in zip(names, vs):
+                if n not in self._zero_states and isinstance(
+                        v, torch.Tensor) and v.dim() and \
+                        tuple(v.shape) == (m,) + pshape[1:]:
+                    self._count("zero_all_gather")
+                    v = g.all_gather(v, 0)
+                whole.append(v)
+            outs[slot] = whole
+        scatter_outputs(op, env, outs)
 
     def _overlap_step(self, feeds, ctx):
         cfg = self._overlap_cfg
         buckets, issue_after, fused_plan = self._plan
         env = DictEnv({**{n: self._states[n] for n in cfg["inside_state"]},
                        **feeds})
-        group = self.mesh.group
+        grouped = self._dp_group is not None and \
+            self._dp_group.group is not None
         pending = []
         frees = self._dead_frees()
         for i, op in enumerate(cfg["inside"]):
@@ -724,8 +965,7 @@ class ParallelExecutor:
                 flat = torch.cat([_bucket_grad(env.get(g), g, dtype)
                                   for g, _, dtype in buckets[b]])
                 pending.append((b, flat,
-                                self._all_reduce(flat, "grad_all_reduce")
-                                if group is not None else None))
+                                self._all_reduce(flat, "grad_all_reduce")))
         # the running statistics the section wrote (the sync-BN form's
         # batch_norm: the same serial values on every rank)
         states = {**self._states,
@@ -744,10 +984,10 @@ class ParallelExecutor:
                 off += size
         fetches = {}
         for n, kind in cfg["fetch_kinds"].items():
-            v = env.get(n)
-            if group is not None and kind == "batch":
+            v = self._whole(n, env.get(n))
+            if grouped and kind == "batch":
                 v = self._gather_rows(v)
-            elif group is not None:
+            elif grouped:
                 v = v.clone()
                 self._all_reduce(v, "fetch_all_reduce").wait()
                 v = v / self.dp
@@ -778,7 +1018,8 @@ class ParallelExecutor:
 
     def _plain_step(self, feeds, ctx):
         """The whole program over the feed: a mesh of one with the
-        overlap off, or every rank of the replicated form."""
+        overlap off, or every rank of the replicated form (and of the
+        sharded form where the overlap's shape does not apply)."""
         env = DictEnv({**self._states, **feeds})
         frees = self._dead_frees()
         for op in self.program.global_block().ops:
@@ -790,7 +1031,8 @@ class ParallelExecutor:
         new_states = {n: env.d.get(n, v) for n, v in self._states.items()}
         for n in self._state_out:
             new_states[n] = env.d[n]
-        return {n: env.get(n) for n in self.fetch_names}, new_states
+        return ({n: self._whole(n, env.get(n)) for n in self.fetch_names},
+                new_states)
 
     def run(self, feed: Dict, fetch_list=None, return_numpy=True):
         """One training step on the global batch `feed` -> the values of
@@ -805,19 +1047,24 @@ class ParallelExecutor:
         self._refresh_plan()
         with obs_tracing.span("executor.run", mode="parallel"), \
                 torch.no_grad():
+            self._record.clear()
+            if self._tp is not None:
+                self._tp.start_step()
             feeds = self._local_feeds(feed)
             seed = _mix(self.program.seed or self._seed, self._step)
             self._step += 1
             # dropout masks are batch-position keyed: offset this rank's
             # rows (_local_feeds' slice) so the composed draw is serial's
-            mb = (len(next(iter(feeds.values())))
-                  if feeds and self._overlap_cfg is not None else 0)
-            ctx = ExecContext(self.device, seed=seed,
-                              row_offset=self.mesh.rank * mb,
-                              sync_group=self._stat_group)
+            split = self.dp > 1 and self._overlap_cfg is not None
+            mb = len(next(iter(feeds.values()))) if feeds and split else 0
+            ctx = ExecContext(
+                self.device, seed=seed,
+                row_offset=self._dp_group.index * mb if split else 0,
+                sync_group=self._stat_group, groups=self._axis_groups)
             step = (self._overlap_step if self._overlap_cfg is not None
                     else self._plain_step)
             fetches, self._states = step(feeds, ctx)
+            self.collective_record = list(self._record)
             out = [fetches[n] for n in fetch_names]
             if return_numpy:
                 out = [_to_numpy(v) for v in out]
@@ -837,18 +1084,43 @@ class ParallelExecutor:
         self._kernel_selection.close()
 
     def compiled_collectives(self, feed: Dict) -> Dict[str, int]:
-        raise NotImplementedError(
-            "compiled_collectives reads the collectives of a compiled XLA "
-            "program; the port has no compiled step (ROADMAP A8b) — "
-            "ParallelExecutor.collective_calls counts the collectives "
-            "issued")
+        """{kind: count} of the collectives one step issues for `feed`
+        (the JAX package's kind names; where it counts the collectives
+        of the step's optimized HLO, here the step is run on copies of
+        the states and its collective record counted, the states left
+        as they were).  Every rank of the mesh calls it, as every rank
+        runs a step: dp-N gives all-reduces only, a mesh of one {}."""
+        saved = {n: v.clone() for n, v in self._states.items()}
+        step, calls = self._step, dict(self.collective_calls)
+        try:
+            self.run(feed)
+            return count_collectives(self.collective_record)
+        finally:
+            for n, v in saved.items():
+                if self._in_bucket(self._states[n]):
+                    self._states[n].copy_(v)
+                else:
+                    self._states[n] = v
+            self._step, self.collective_calls = step, calls
+
+    def _split_of(self, name):
+        """How state `name` is split: (model-axis layout or None,
+        whether ZeRO-1 splits its rows)."""
+        lay = self._tp.base.get(name) if self._tp is not None else None
+        return lay, name in self._zero_states
 
     def state(self, name, return_numpy=True):
         """The state's current value, as a copy that later steps do not
         change (a fused parameter is a view of its bucket's flat buffer,
         which every step updates in place): a numpy array, or with
-        return_numpy=False a tensor on the device."""
+        return_numpy=False a tensor on the device.  A state split over
+        the mesh is gathered whole (every rank calls this together)."""
         v = self._states[name]
+        lay, rows = self._split_of(name)
+        if rows:
+            v = self._dp_group.all_gather(v, 0)
+        if lay is not None:
+            v = self._model_groups[lay[1]].all_gather(v, lay[0])
         if not return_numpy:
             return v.clone()
         # a CPU tensor's array shares its memory
@@ -856,13 +1128,20 @@ class ParallelExecutor:
             else _to_numpy(v)
 
     def set_state(self, name, value):
-        """Replace a state's value; a fused parameter's is written into
-        its slice of the bucket's flat buffer."""
+        """Replace a state's value (whole; a split state keeps this
+        rank's block of it); a fused parameter's is written into its
+        slice of the bucket's flat buffer."""
         if name not in self._states:
             raise KeyError(f"{name!r} is not a state of this executor")
         value = _to_device_value(
             value if isinstance(value, torch.Tensor) else np.asarray(value),
             self.device)
+        lay, rows = self._split_of(name)
+        if lay is not None:
+            value = self._model_groups[lay[1]].block(value, lay[0])
+        if rows:
+            value = self._dp_group.block(value, 0)
+        value = value.contiguous()
         view = self._states[name]
         if not self._in_bucket(view):
             self._states[name] = value
@@ -880,9 +1159,10 @@ class DistributeTranspiler:
 
     `transpile` records the mesh layout and completes the program's
     sharding annotations, `get_trainer_program` returns the ORIGINAL
-    program, and `build_executor` yields a ParallelExecutor whose
-    gradient aggregation is the bucketed all-reduce over the dp axis.
-    The pserver mode (`pservers=...`) is not ported (ROADMAP A11)."""
+    program, and `build_executor` yields a ParallelExecutor over the
+    mesh (dp x tp, with ZeRO-1 unless `shard_optimizer_states=False`, as
+    in the JAX package).  The pserver mode (`pservers=...`) is not
+    ported (ROADMAP A11)."""
 
     def __init__(self):
         self._mesh_axes = None

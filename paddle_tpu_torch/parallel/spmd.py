@@ -8,9 +8,9 @@ bias-follows-activation, batch over the data axis), and report every
 inconsistency as a structured finding.  `spec_to_partition` returns the
 port's `parallel.mesh.PartitionSpec`.
 
-The executors of this package run the data-parallel placement only: a
-plan that places parameters over a model axis (`SpmdPlan.model_axes`)
-raises at the executor (ROADMAP A8b).
+ParallelExecutor folds the plan's placements under any explicit
+`param_shardings` and runs a plan over a model axis (`SpmdPlan.model_axes`)
+in its tensor-parallel "sharded" form (parallel/tensor_parallel.py).
 
 The propagation is deliberately conservative: it understands the op
 families the strategy implementations use (matmul, elementwise, LN,

@@ -8,12 +8,11 @@ both packages under reset unique names; each diagnostic's
 `(pass_id, severity, block_idx, op_idx, op_type)` must be equal.
 
 The one expected difference: a fixture using an op type the port does
-not register yet (the collectives and the distributed send/recv ops,
-tests/test_torch_op_test.py NOT_PORTED) adds one `op-arity`
-"not registered" error per such op, and — as such an op has no
-registered attrs, no lowering and no `host` flag in the port — the
-diagnostics that depend on those move too.  Each such fixture pins its
-exact difference in EXTRA / MISSING below.
+not register yet (the distributed send/recv ops, tests/test_torch_op_test.py
+NOT_PORTED) adds one `op-arity` "not registered" error per such op, and —
+as such an op has no `host` flag in the port — the cost model's finding
+moves too.  Each such fixture pins its exact difference in EXTRA /
+MISSING below; the collective fixtures give the JAX package's findings.
 
 Then the hooks: `Program.verify`, the pre-flight in `Executor.run`,
 `ParallelExecutor` and `io.load_inference_model` under
@@ -390,44 +389,23 @@ FIXTURES = {name[3:]: fn for name, fn in dict(globals()).items()
             if name.startswith("fx_")}
 
 _UNREG = "op-arity", "error"
-_ORDERING = ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_max",
-             "c_allreduce_sum")
 # The port's differences, pinned: fixture -> diagnostics the port adds
 # (EXTRA) and the JAX package's it lacks (MISSING), as (pass_id,
 # severity, block_idx, op_idx, op_type).  Every one follows from an op
-# the port does not register yet (NOT_PORTED), which has no OpInfo
-# there: op-arity reports it "not registered"; with no registered attrs
-# the collective's default ring_id="dp" is absent, so distributed-lint
-# reads the op's own attrs (as the JAX package does for any
-# unregistered op) and finds no ring; with no OpInfo there is no
-# lowering for shape inference to fail in (the JAX package's collective
-# lowerings fail outside a mesh) and the dead-op pass skips the op; and
-# the cost model counts `send` as unknown where the JAX package's `host`
-# flag costs it zero (one more cost-model info).
+# the port does not register yet (NOT_PORTED: A11's send), which has no
+# OpInfo there: op-arity reports it "not registered", and the cost model
+# counts it as unknown where the JAX package's `host` flag costs it
+# zero (one more cost-model info).  The c_* collectives are registered:
+# their fixtures give the JAX package's own findings (a shape-inference
+# warning outside a mesh, where both packages' lowerings raise on the
+# unbound axis; the dead-op info; distributed-lint on the ring).
 EXTRA = {
-    "collective_default_ring": [
-        (*_UNREG, 0, 0, "c_allreduce_sum"),
-        ("distributed-lint", "error", 0, 0, "c_allreduce_sum")],
-    "collective_empty_ring": [(*_UNREG, 0, 0, "c_allreduce_sum")],
     "send_without_endpoints": [(*_UNREG, 0, 0, "send"),
                                ("cost-model", "info", 0, None, None)],
     "epmap_arity": [(*_UNREG, 0, 0, "send"),
                     ("cost-model", "info", 0, None, None)],
-    "collective_ordering_mismatch": [
-        (*_UNREG, 0, i, t) for i, t in enumerate(_ORDERING)],
 }
-MISSING = {
-    "collective_default_ring": [
-        ("shape-inference", "warning", 0, 0, "c_allreduce_sum"),
-        ("dead-op", "info", 0, 0, "c_allreduce_sum")],
-    "collective_empty_ring": [
-        ("shape-inference", "warning", 0, 0, "c_allreduce_sum"),
-        ("dead-op", "info", 0, 0, "c_allreduce_sum")],
-    "collective_ordering_mismatch": [
-        (p, sev, 0, i, t) for p, sev in (("shape-inference", "warning"),
-                                         ("dead-op", "info"))
-        for i, t in enumerate(_ORDERING)],
-}
+MISSING = {}
 
 
 def _both(name):

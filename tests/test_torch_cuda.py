@@ -2761,3 +2761,113 @@ def test_verify_error_stops_a_bad_program_before_any_launch(dev):
     with pytest.raises(Exception) as ei:
         exe.run(p, feed=feed, fetch_list=["o"])
     assert not isinstance(ei.value, ProgramVerificationError)
+
+
+_TP_WORKER = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch.parallel import collective as coll
+from paddle_tpu_torch.parallel.mesh import Mesh
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=4, rank=rank)
+mesh = Mesh({"dp": 2, "tp": 2}, dist.group.WORLD)
+tp = mesh.axis_group("tp")
+res = {}
+v = torch.arange(4.0, device="cuda") + 10 * rank
+c = float(rank + 1)
+for kind in ("copy_to", "reduce_from", "gather_from", "scatter_to"):
+    leaf = v.clone().requires_grad_(True)
+    fn = getattr(coll, kind)
+    y = fn(leaf, tp, 0) if kind in ("gather_from", "scatter_to") \
+        else fn(leaf, tp)
+    y = y * (torch.arange(8.0, device="cuda") if kind == "gather_from"
+             else c)
+    y.sum().backward()
+    res[kind] = {"fwd": y.detach().cpu().tolist(),
+                 "grad": leaf.grad.cpu().tolist(),
+                 "device": str(leaf.grad.device)}
+res["permute"] = tp.permute(v, 1).cpu().tolist()
+dist.destroy_process_group()
+if rank in (0, 3):
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+"""
+
+
+def test_tp_autograd_collectives_on_cuda_tensors(dev, tmp_path):
+    """Megatron's regions as autograd Functions, four gloo ranks on the
+    one card (a dp2 x tp2 mesh, its tp groups {0, 1} and {2, 3}): the
+    forward and the conjugate backward on CUDA tensors, the gradients
+    left on the card; a permute over tp (send/recv through host copies
+    on gloo)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    out = str(tmp_path / "tp")
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_WORKER, str(r),
+                               str(port), out], env=env, cwd=root,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    for p in procs:
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log[-3000:]
+    for rank in (0, 3):
+        with open(f"{out}.{rank}") as f:
+            res = json.load(f)
+        mates = [rank - rank % 2, rank - rank % 2 + 1]
+        i, c = rank % 2, rank + 1.0
+        v = {m: [float(j + 10 * m) for j in range(4)] for m in mates}
+        assert res["copy_to"]["fwd"] == [x * c for x in v[rank]]
+        assert res["copy_to"]["grad"] == [sum(m + 1.0 for m in mates)] * 4
+        assert res["reduce_from"]["fwd"] == [
+            (a + b) * c for a, b in zip(v[mates[0]], v[mates[1]])]
+        assert res["reduce_from"]["grad"] == [c] * 4
+        assert res["gather_from"]["fwd"] == [
+            x * j for j, x in enumerate(v[mates[0]] + v[mates[1]])]
+        assert res["gather_from"]["grad"] == [float(j) for j in
+                                              range(4 * i, 4 * i + 4)]
+        assert res["scatter_to"]["fwd"] == [x * c for x in
+                                            v[rank][2 * i:2 * i + 2]]
+        assert res["scatter_to"]["grad"] == [mates[0] + 1.0] * 2 + [
+            mates[1] + 1.0] * 2
+        assert all(res[k]["device"].startswith("cuda") for k in
+                   ("copy_to", "reduce_from", "gather_from", "scatter_to"))
+        assert res["permute"] == v[mates[1 - i]]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_on_local_heads_is_the_full_heads_result(dev, dtype):
+    """A tensor-parallel rank's attention: the kernels on each half of
+    the heads (the LM's local [4, 512, 8, 128] at tp 2) give the full
+    [4, 512, 16, 128] call's output and gradients, bit for bit (a head
+    is a grid slice of its own)."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, g = (torch.randn((4, 512, 16, 128), generator=gen)
+                  .to(dev, dtype) for _ in range(4))
+
+    def run(q, k, v, g):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention(q, k, v, causal=True)
+        out.backward(g)
+        return [out.detach(), q.grad, k.grad, v.grad]
+
+    full = run(q, k, v, g)
+    halves = [run(*(t[:, :, h:h + 8].contiguous() for t in (q, k, v, g)))
+              for h in (0, 8)]
+    for a, b, want in zip(*halves, full):
+        assert torch.equal(torch.cat([a, b], dim=2), want)

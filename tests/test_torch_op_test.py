@@ -340,11 +340,8 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 # the JAX package's op types the port does not register yet, by ROADMAP
-# item: A8's collectives and A11's distributed ops
+# item: A11's distributed ops
 NOT_PORTED = {
-    "A8": ["c_allgather", "c_allreduce_max", "c_allreduce_mean",
-           "c_allreduce_sum", "c_broadcast", "c_ppermute",
-           "c_reducescatter"],
     "A11": ["listen_and_serv", "recv", "send"],
 }
 
@@ -358,23 +355,24 @@ def test_the_corpus_is_the_jax_packages_dense_types():
     the sampled losses and detection (warpctc, hsigmoid, nce,
     prior_box, box_coder, iou_similarity, target_assign, roi_pool), and
     the 10 conv types of tests/test_torch_ops_conv_rest.py.  The port
-    registers 223 of the JAX package's 233 in all (with the nine
+    registers 230 of the JAX package's 233 in all (with the nine
     optimizer types and split_selected_rows of
     tests/test_torch_optimizers.py, the control-flow types of
     tests/test_torch_control_flow.py, `recompute` of
     tests/test_torch_recompute.py, the detection host ops of
     tests/test_torch_detection.py, ctc_align, the readers, and the six
-    io ops of tests/test_torch_io.py); the 10 it does not are
-    NOT_PORTED's, by name."""
+    io ops of tests/test_torch_io.py, and the seven c_* collectives of
+    tests/test_torch_collective.py); the 3 it does not are NOT_PORTED's,
+    by name."""
     assert len(CORPUS) == 133
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 223
+    assert len(treg.registered_ops()) == 230
     assert len(jreg.registered_ops()) == 233
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
     missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
     assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
-    assert len(missing) == 10
+    assert len(missing) == 3
 
 
 @pytest.mark.parametrize("op", CORPUS)

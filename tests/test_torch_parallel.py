@@ -963,21 +963,6 @@ def test_gspmd_form_choice(bn, sparse, overlap, form, reason, blocker):
 
 def test_not_ported_strategies_raise():
     main, startup, loss, params, feeds = _mlp(tfluid, tfw, "sgd")
-    kw = dict(startup_program=startup, place=CPUPlace())
-    cases = [
-        (dict(mesh={"dp": 1}, param_shardings={
-            params[0]: PartitionSpec(None, "tp")}), "A8b"),
-        (dict(mesh={"dp": 1, "tp": 1}), "A8b"),
-        (dict(mesh=Mesh({"dp": 2}, group=object()), overlap="bucketed",
-              shard_optimizer_states=True), "A8b"),
-    ]
-    for extra, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            tfluid.ParallelExecutor(main, feeds, [loss], **kw, **extra)
-    pe = tfluid.ParallelExecutor(main, feeds, [loss], mesh={"dp": 1},
-                                 shard_optimizer_states=True, **kw)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        pe.compiled_collectives(_batches(1)[0])
     with pytest.raises(NotImplementedError, match="A11"):
         tfluid.DistributeTranspiler().transpile(
             program=main, startup_program=startup,
@@ -987,6 +972,99 @@ def test_not_ported_strategies_raise():
                 mesh={"dp": 1, "pp": 2})
     with pytest.raises(NotImplementedError, match="A9"):
         t.build_executor(feeds, [loss], place=CPUPlace())
+    for axis in ("pp", "sp", "ep"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            tfluid.ParallelExecutor(
+                main, feeds, [loss], mesh=Mesh({"dp": 1, axis: 2},
+                                               group=object()),
+                startup_program=startup, place=CPUPlace())
+
+
+@pytest.mark.parametrize("case", ["tp_axis_missing", "tp_axis_of_one",
+                                  "zero_bucketed", "compiled_collectives",
+                                  "bucketed_with_placements",
+                                  "sub_block_refused"])
+def test_the_a8b_strategies_build_and_run(case):
+    """What raised before tensor parallelism and ZeRO-1 were ported: a
+    placement over an axis the mesh lacks raises as the JAX package
+    does; a mesh with a 'tp' axis of one, a placement over it and ZeRO-1
+    run as the serial Executor; the bucketed overlap step takes ZeRO-1
+    (the JAX package's placements); a mesh of one issues no collective;
+    overlap='bucketed' refuses explicit placements with the JAX
+    package's reason; a tensor-parallel program with a sub-block op is
+    refused (its inner ops would read local blocks whole)."""
+    main, startup, loss, params, feeds = _mlp(tfluid, tfw, "momentum")
+    kw = dict(startup_program=startup, place=CPUPlace())
+    if case == "sub_block_refused":
+        # a recompute segment's ops would read the local blocks whole
+        tfw.reset_unique_names()
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup):
+            x = tfluid.layers.data(name="x", shape=[FEATS], dtype="float32")
+            h = tfluid.layers.recompute(
+                lambda: tfluid.layers.fc(input=x, size=HIDDEN, act="relu"))
+            loss = tfluid.layers.mean(tfluid.layers.fc(input=h, size=1))
+            tfluid.SGD(learning_rate=0.1).minimize(loss)
+        with pytest.raises(NotImplementedError, match="sub-block ops"):
+            tfluid.ParallelExecutor(
+                main, ["x"], [loss], mesh=Mesh({"dp": 1, "tp": 2},
+                                               group=object()),
+                param_shardings={"fc_0.w_0": PartitionSpec(None, "tp")},
+                startup_program=startup, place=CPUPlace())
+        return
+    if case == "bucketed_with_placements":
+        # the JAX package's refusal: its overlap step would gather them
+        jmain, jstartup, jloss, _, _ = _mlp(jfluid, jfw, "momentum")
+        msgs = []
+        for fluid, m, st, ls, P, extra in (
+                (jfluid, jmain, jstartup, jloss,
+                 jfluid.parallel.PartitionSpec, {}),
+                (tfluid, main, startup, loss, PartitionSpec,
+                 {"place": CPUPlace()})):
+            with pytest.raises(ValueError, match="param_shardings") as e:
+                fluid.ParallelExecutor(
+                    m, feeds, [ls], mesh={"dp": 1, "tp": 1},
+                    startup_program=st, overlap="bucketed",
+                    param_shardings={params[0]: P(None, "tp")}, **extra)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        return
+    if case == "tp_axis_missing":
+        with pytest.raises(ValueError, match="not found in mesh"):
+            tfluid.ParallelExecutor(main, feeds, [loss], mesh={"dp": 1},
+                                    param_shardings={params[0]: PartitionSpec(
+                                        None, "tp")}, **kw)
+        return
+    if case == "zero_bucketed":
+        pe = tfluid.ParallelExecutor(
+            main, feeds, [loss], mesh={"dp": 1}, overlap="bucketed",
+            shard_optimizer_states=True, **kw)
+        assert pe.overlap_info["mode"] == "bucketed"
+        accs = sorted(n for n in pe.state_specs if n.endswith("_acc"))
+        # the JAX package's placements; one rank keeps every row
+        assert accs and all(pe.state_specs[n] == PartitionSpec("dp")
+                            for n in accs), pe.state_specs
+        assert not pe._zero_states
+    else:
+        pe = tfluid.ParallelExecutor(
+            main, feeds, [loss], mesh={"dp": 1, "tp": 1},
+            param_shardings={params[0]: PartitionSpec(None, "tp")},
+            shard_optimizer_states=True, **kw)
+        assert pe.state_specs[params[0]] == PartitionSpec(None, "tp")
+    batches = _batches(3)
+    if case == "compiled_collectives":
+        assert pe.compiled_collectives(batches[0]) == {}
+    exe = tfluid.Executor(CPUPlace())
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    for n in pe._states:
+        scope.set_var(n, torch.from_numpy(pe.state(n)))
+    for b in batches:
+        got = pe.run(b)[0]
+        want = exe.run(main, feed=b, fetch_list=[loss], scope=scope)[0]
+        np.testing.assert_array_equal(got, want)
+    for n in params:
+        np.testing.assert_array_equal(pe.state(n), scope.find_var(n).numpy())
 
 
 def test_meshes_and_places():

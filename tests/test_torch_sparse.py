@@ -378,7 +378,8 @@ def test_clipping_a_sparse_gradient_raises_as_in_jax(case):
 
 def test_a_sparse_gradient_under_data_parallelism_raises_as_in_jax():
     """The JAX package's bucketed dp step cannot ravel a SelectedRows (a
-    TypeError); the port's raises a TypeError naming ROADMAP A8."""
+    TypeError); the port's raises a TypeError naming that rule: the
+    bucketed step takes dense gradients only."""
     def build(fluid, fw):
         fw.reset_unique_names()
         main, startup = fluid.Program(), fluid.Program()
@@ -404,7 +405,8 @@ def test_a_sparse_gradient_under_data_parallelism_raises_as_in_jax():
     startup, loss, t = build(tfluid, tfw)
     tfluid.Executor(CPUPlace()).run(startup)
     pe = t.build_executor(["ids", "y"], [loss], place=CPUPlace())
-    with pytest.raises(TypeError, match="SelectedRows.*ROADMAP A8"):
+    with pytest.raises(TypeError, match="SelectedRows.*dense gradients "
+                                        "only, as the JAX package's"):
         pe.run(feed)
 
 

@@ -25,6 +25,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py a3-a10 [--package-root DIR]
     python3 tools/torch_tree_probe.py maxpool-routes [--package-root DIR]
     python3 tools/torch_tree_probe.py a10b [--package-root DIR]
+    python3 tools/torch_tree_probe.py tp-zero [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -87,7 +88,14 @@ replays    chip_smoke.py's replayed recurrent and seq2seq steps alone:
 gloo-dtypes  two processes on the one card over a gloo group: whether
            all_reduce and all_gather take CUDA tensors of each dtype the
            data-parallel step reduces (float32, bfloat16, float16,
-           float64, int64), and the summed values;
+           float64, int64), and the summed values; then four processes
+           on the card, with a gloo sub-group an axis of a dp2 x tp2
+           mesh made as parallel/mesh.py makes them: for each collective
+           kind the tensor-parallel and ZeRO-1 paths and the c_* ops
+           issue (all_reduce sum and max, all_gather, all_gather_into_
+           tensor, reduce_scatter, reduce_scatter_tensor, broadcast,
+           send/recv, batch_isend_irecv) and each dtype, whether gloo
+           takes CUDA tensors and gives the right values;
 memory-plan  chip_smoke.py's replayed train (amp), seq2seq (amp) and
            resnet50 steps (`memory_plan_steps`: peak memory over the
            eager run, the capture and two replays, and the replay's ms)
@@ -106,6 +114,9 @@ maxpool-routes  the max pools' two backward routes (`ops/conv.py`
 a10b       chip_smoke.py's aot_native phase alone (the kernels built
            first): the LM, MoE LM and ResNet-50 torch.export artifacts,
            the C inference ABI, native_pipeline and a go block;
+tp-zero    chip_smoke.py's tp_zero phase alone (the kernels built
+           first): tensor parallelism and ZeRO-1 on four gloo ranks on the
+           card against the serial Executor;
 a10c       chip_smoke.py's tools phase with what it reads: the flash
            phase, the train phase (amp) with the tools profiler part on
            its replayed graph, the seq2seq phase, then the tools CLI
@@ -956,6 +967,18 @@ def a12(cs, dev):
     cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
 
 
+def tp_zero(cs, dev):
+    """chip_smoke's tp_zero phase alone (the kernels built first): the
+    run_ridge LM at dp2 x tp2 with ZeRO-1 on four gloo ranks against the
+    serial Executor, amp at 12 layers and float32 at 2."""
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, _, _ = _card(cs)
+    cuda_build.build_all()
+    cs.tp_zero_phase(card)
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1016,6 +1039,100 @@ def _gloo_rank(rank, port, out_path):
             json.dump(res, f)
 
 
+_GLOO_KINDS = ("all_reduce_sum", "all_reduce_max", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "broadcast", "send_recv",
+               "batch_isend_irecv")
+
+
+def _gloo_kind(kind, t, group, ranks, me):
+    """Run collective `kind` on CUDA tensor `t` over `group` (global
+    `ranks`, this process global rank `me`) -> whether the values are
+    right."""
+    import torch.distributed as dist
+
+    n, i = len(ranks), ranks.index(me)
+    want_sum = sum(r + 1 for r in ranks)
+    if kind in ("all_reduce_sum", "all_reduce_max"):
+        op = dist.ReduceOp.SUM if kind.endswith("sum") else dist.ReduceOp.MAX
+        x = t.clone()
+        dist.all_reduce(x, op=op, group=group)
+        want = want_sum if kind.endswith("sum") else max(ranks) + 1
+        return x.device.type == "cuda" and bool((x == want).all())
+    if kind == "all_gather":
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return all(bool((p == r + 1).all()) for p, r in zip(parts, ranks))
+    if kind == "all_gather_into_tensor":
+        out = torch.empty((n * t.numel(),), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+        return all(bool((p == r + 1).all())
+                   for p, r in zip(out.chunk(n), ranks))
+    if kind == "reduce_scatter":
+        out = torch.empty_like(t)
+        dist.reduce_scatter(out, [t.clone() for _ in range(n)], group=group)
+        return bool((out == want_sum).all())
+    if kind == "reduce_scatter_tensor":
+        out = torch.empty((t.numel() // n,), dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t.clone(), group=group)
+        return bool((out == want_sum).all())
+    if kind == "broadcast":
+        x = t.clone()
+        dist.broadcast(x, src=ranks[0], group=group)
+        return bool((x == ranks[0] + 1).all())
+    nxt, prv = ranks[(i + 1) % n], ranks[(i - 1) % n]
+    got = torch.empty_like(t)
+    if kind == "send_recv":
+        if i % 2 == 0:
+            dist.send(t, nxt, group=group)
+            dist.recv(got, prv, group=group)
+        else:
+            dist.recv(got, prv, group=group)
+            dist.send(t, nxt, group=group)
+    else:
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, nxt, group),
+            dist.P2POp(dist.irecv, got, prv, group)])
+        for r in reqs:
+            r.wait()
+    return bool((got == prv + 1).all())
+
+
+def _gloo_mesh_rank(rank, port, out_path, kind):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=4, rank=rank)
+    # the dp x tp = 2 x 2 mesh's axis groups, made in parallel/mesh.py's
+    # order on every rank: tp {0,1} {2,3}, then dp {0,2} {1,3}
+    groups = {}
+    for axis, members in (("tp", ((0, 1), (2, 3))),
+                          ("dp", ((0, 2), (1, 3)))):
+        for ranks in members:
+            g = dist.new_group(list(ranks), backend="gloo")
+            if rank in ranks:
+                groups[axis] = (g, list(ranks))
+    res = {}
+    try:
+        for name in ("float32", "bfloat16", "int64"):
+            for axis, (g, ranks) in groups.items():
+                t = torch.full((4,), rank + 1, dtype=getattr(torch, name),
+                               device="cuda")
+                try:
+                    ok = _gloo_kind(kind, t, g, ranks, rank)
+                    res[f"{name}.{axis}"] = "ok" if ok else "wrong values"
+                except Exception as e:
+                    res[f"{name}.{axis}"] = \
+                        f"raised {type(e).__name__}: {e}"[:200]
+                dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+
 def gloo_dtypes(cs, dev):
     import socket
 
@@ -1030,6 +1147,24 @@ def gloo_dtypes(cs, dev):
         with open(path) as f:
             emit({"probe": "gloo-dtypes", "ranks": 2, "device": "cuda:0",
                   "dtypes": json.load(f)})
+    kinds = {}
+    for kind in _GLOO_KINDS:
+        # one spawn a kind: gloo aborts the process on a CUDA pointer it
+        # cannot take (writev: Bad address), so a kind's crash is its own
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "gloo_mesh.json")
+            try:
+                mp.spawn(_gloo_mesh_rank, args=(port, path, kind),
+                         nprocs=4, join=True)
+                with open(path) as f:
+                    kinds[kind] = json.load(f)
+            except Exception as e:
+                kinds[kind] = f"crashed: {type(e).__name__}: {e}"[:200]
+    emit({"probe": "gloo-kinds", "ranks": 4, "mesh": {"dp": 2, "tp": 2},
+          "device": "cuda:0", "kinds": kinds})
 
 
 def main():
@@ -1044,7 +1179,7 @@ def main():
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
                                       "maxpool-routes", "a10b", "a10c",
-                                      "a12"))
+                                      "a12", "tp-zero"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1081,7 +1216,7 @@ def main():
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
          "maxpool-routes": maxpool_routes, "a10b": a10b,
-         "a10c": a10c, "a12": a12}[args.probe](cs, dev)
+         "a10c": a10c, "a12": a12, "tp-zero": tp_zero}[args.probe](cs, dev)
     return 0
 
 

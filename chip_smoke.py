@@ -263,6 +263,21 @@ Phases, one JSON line each:
            (6 all-reduces over tp a layer, ZeRO-1's all-gathers over
            dp) by kind and bytes, ms a step and peak memory a rank (see
            the TZ_ constants);
+  a9       pipeline, sequence and expert parallelism on four gloo ranks
+           on the one card (this script run again as `--a9-worker`),
+           each arm against the serial Executor's steps from the same
+           startup (run first and freed): the train phase's LM built
+           with pipeline_stages=4 through ShardingTranspiler(mesh={"dp":
+           1, "pp": 4}).build_executor (PipelineExecutor, GPipe, 4
+           microbatches, amp); 4 layers at {"pp": 2, "tp": 2} with 1F1B
+           (amp) and at {"pp": 2, "sp": 2} with GPipe (float32, ring
+           attention); the moe phase's LM through ParallelExecutor(mesh=
+           {"dp": 1, "ep": 4}) with its experts placed P("ep") (amp);
+           2 steps an arm; then ring and Ulysses attention at [2, 512,
+           16, 128] against attention_reference and moe_ffn_a2a against
+           moe_ffn; ms a rank-step, peak memory a rank, the collectives a
+           step by axis, kind and bytes, flash and route launches a rank
+           (see the A9_ constants);
   ssd      MobileNet-SSD300 on VOC's geometry (see the SSD_ constants):
            the default mode (three device segments around the host
            bipartite_match and mine_hard_examples, each a CUDA graph)
@@ -399,7 +414,7 @@ train, seq2seq and moe paths the counts cover the eager first step and
 the capture, and the kernels line adds the profiler's count in a
 replayed step (and the persist phase's uninterrupted seq2seq run's
 wrapper counts, the aot_native phase's artifact calls, and the
-tp_zero ranks' own counts: each process counts its own launches).  The image, optimizers, ctr,
+tp_zero and a9 ranks' own counts: each process counts its own launches).  The image, optimizers, ctr,
 rnn, book08, book07, dp_gspmd, ssd, ocr_ctc, readers and conv_rest
 phases run no kernel of the port's own (the JAX package runs the recurrences, the CRF and CTC
 as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
@@ -1363,12 +1378,13 @@ def _timed_steps(run_step, counts, steps=T_STEPS):
 
 
 def _lm_program(optimizer, dropout_rate=0.0, remat=False,
-                n_layers=T_LAYERS):
+                n_layers=T_LAYERS, pipeline_stages=None):
     """The run_ridge transformer LM's training Program -> (main, startup,
     loss); with `dropout_rate` its dropouts, the attention weights'
     included (the composed attention path); with `remat` each decoder
     block a recompute segment (run_ridge's builder reads the `remat`
-    flag); `n_layers` cuts its depth."""
+    flag); `n_layers` cuts its depth; `pipeline_stages` tags the blocks
+    with their pipeline stage."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.core.flags import set_flags
@@ -1383,7 +1399,8 @@ def _lm_program(optimizer, dropout_rate=0.0, remat=False,
         logits = transformer_lm(ids, T_VOCAB, d_model=T_D, n_heads=T_HEADS,
                                 n_layers=n_layers, max_len=max(T_SEQ, 2048),
                                 dropout_rate=dropout_rate,
-                                return_logits=True)
+                                return_logits=True,
+                                pipeline_stages=pipeline_stages)
         cost = fluid.layers.softmax_with_cross_entropy(
             fluid.layers.reshape(logits, shape=[-1, T_VOCAB]),
             fluid.layers.reshape(lbl, shape=[-1, 1]))
@@ -6509,11 +6526,444 @@ def tp_zero_phase(card):
     return rec["arms"]["amp_12_layers"]["flash_launches"]
 
 
+# the a9 phase: model parallelism and MoE on A9_RANKS gloo ranks on the
+# one card (this script run again as `--a9-worker`), each arm held to
+# the serial Executor's steps from the same startup (run first, in this
+# process, their parameters written to a temp dir and freed):
+#   pp4_gpipe     the train phase's LM (run_ridge's width, 12 layers,
+#                 bf16 amp, Momentum 0.01 / 0.9) built with
+#                 pipeline_stages=4, ShardingTranspiler(mesh={"dp": 1,
+#                 "pp": 4}).build_executor -> PipelineExecutor, GPipe,
+#                 A9_MICRO microbatches;
+#   pp2_tp2_1f1b  the same width at 4 layers, amp, {"pp": 2, "tp": 2},
+#                 1F1B (the stage's weights Megatron-split);
+#   pp2_sp2       the same width at 4 layers, float32 (TF32 off),
+#                 {"pp": 2, "sp": 2}, GPipe: ring attention on local
+#                 [mb, 256, 16, 128] blocks;
+#   ep4           run_moe's LM (the moe phase's M_* width) under amp
+#                 through ParallelExecutor(mesh={"dp": 1, "ep": 4}) with
+#                 every w_in / w_out placed P("ep"): 2 experts a rank;
+#   raw           ring_attention and all_to_all_attention at
+#                 [2, 512, 16, 128] float32, causal and full, against
+#                 attention_reference; moe_ffn_a2a against moe_ffn at a
+#                 per-source capacity of 16 (A9_MOE_*: nothing drops).
+# Gates: amp arms' losses within A9_AMP_RTOL relative of serial (the
+# tp_zero phase's amp gate), and the largest parameter difference from
+# serial within A9_AMP_PARAM of the largest serial update of the arm (the
+# ranks start from the serial startup's values; bf16 steps of other
+# shapes round differently, so this catches a lost or misplaced
+# gradient, not rounding; each parameter's figure is reported); the
+# float32 arm's parameters within A9_FP32_RTOL / A9_FP32_ATOL
+# elementwise; the raw forms within A9_RAW_ATOL of their reference.
+A9_RANKS, A9_STEPS, A9_MICRO = 4, 2, 4
+A9_AMP_RTOL, A9_FP32_RTOL, A9_FP32_ATOL, A9_RAW_ATOL = 2e-2, 2e-4, 1e-5, 1e-4
+A9_AMP_PARAM = 0.25
+A9_RAW_SHAPE = (2, 512, 16, 128)
+A9_MOE_T, A9_MOE_CF = 64, 4.0
+
+
+def _a9_arms():
+    """{arm: (kind, amp, n_layers, mesh, executor keywords)} in run
+    order."""
+    return {
+        "pp4_gpipe": ("lm", True, T_LAYERS, {"dp": 1, "pp": 4},
+                      {"schedule": "gpipe"}),
+        "pp2_tp2_1f1b": ("lm", True, 4, {"dp": 1, "pp": 2, "tp": 2},
+                         {"schedule": "1f1b"}),
+        "pp2_sp2": ("lm", False, 4, {"dp": 1, "pp": 2, "sp": 2},
+                    {"schedule": "gpipe"}),
+        "ep4": ("moe", True, M_LAYERS, {"dp": 1, "ep": 4}, {}),
+    }
+
+
+def _a9_program(kind, amp, n_layers, stages):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.models.moe import build_moe_lm
+
+    (fluid.amp.enable_bf16 if amp else fluid.amp.disable_bf16)()
+    if kind == "moe":
+        fw.reset_unique_names()
+        return build_moe_lm(M_BATCH, M_SEQ, M_VOCAB, M_D, M_HEADS, n_layers,
+                            M_EXPERTS, M_TOPK, M_CF, aux_weight=M_AUX)
+    return _lm_program(fluid.Momentum(learning_rate=0.01, momentum=0.9),
+                       n_layers=n_layers, pipeline_stages=stages)
+
+
+def _a9_serial(arm, out_dir):
+    """The serial Executor's steps of `arm` on the card -> its record;
+    its parameters written to out_dir for the ranks, then freed."""
+    import paddle_tpu_torch as fluid
+
+    kind, amp, n_layers, mesh, _ = _a9_arms()[arm]
+    main, startup, loss = _a9_program(kind, amp, n_layers, mesh.get("pp"))
+    params = [p.name for p in main.global_block().all_parameters()]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    _reset_peak()
+    losses, secs, _ = _timed_steps(
+        lambda i: exe.run(main, feed=_train_feed(i), fetch_list=[loss],
+                          scope=scope, compiled=False)[0], {}, A9_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({n: scope.find_var(n).cpu() for n in params},
+               os.path.join(out_dir, f"serial_{arm}.pt"))
+    exe.close()
+    del scope, exe
+    _reset_peak()
+    fluid.amp.disable_bf16()
+    return {"losses": losses, "ms_per_step": [x * 1e3 for x in secs],
+            "peak_memory_bytes": peak, "parameters": len(params)}
+
+
+def _a9_diffs(states, init, serial, blocks):
+    """{param: its largest difference from serial, the largest serial
+    update from the start (`init`: this rank's values before the steps),
+    the elements outside the float32 gate} for this rank's `states`
+    against the same blocks of the serial run's (`blocks(name,
+    tensor)`)."""
+    out = {}
+    for n, mine in states.items():
+        want = blocks(n, serial[n]).to(mine.device).float()
+        d = (mine.float() - want).abs()
+        out[n] = {"max_abs": float(d.max()),
+                  "max_update": float((want - init[n].float()).abs().max()),
+                  "outside_tol": int((d > A9_FP32_ATOL
+                                      + A9_FP32_RTOL * want.abs()).sum())}
+    return out
+
+
+def _a9_record(pe, axes):
+    from paddle_tpu_torch.parallel.mesh import (collective_bytes,
+                                                count_collectives)
+
+    record = list(pe.collective_record)
+    return {a: {"counts": count_collectives([c for c in record
+                                             if c.axis == a]),
+                "bytes": collective_bytes([c for c in record
+                                           if c.axis == a])}
+            for a in axes}
+
+
+def _a9_arm(arm, out_dir):
+    """One arm on this rank -> its record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.moe_dispatch import (
+        moe_gate_dispatch, moe_gate_route_backward)
+    from paddle_tpu_torch.parallel import PartitionSpec
+
+    kind, amp, n_layers, mesh, kw = _a9_arms()[arm]
+    t_arm = time.perf_counter()
+    main, startup, loss = _a9_program(kind, amp, n_layers, mesh.get("pp"))
+    params = [p.name for p in main.global_block().all_parameters()]
+    t0 = time.perf_counter()
+    if kind == "lm":
+        t = fluid.ShardingTranspiler()
+        t.transpile(program=main, startup_program=startup, mesh=mesh)
+        pe = t.build_executor(["ids", "lbl"], [loss],
+                              place=fluid.CUDAPlace(0), n_micro=A9_MICRO,
+                              **kw)
+    else:
+        experts = [n for n in params if ".w_in" in n or ".w_out" in n]
+        pe = fluid.ParallelExecutor(
+            main, ["ids", "lbl"], [loss], mesh=mesh,
+            startup_program=startup, place=fluid.CUDAPlace(0),
+            param_shardings={n: PartitionSpec("ep") for n in experts})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if kind == "lm":
+        held = [n for n in params if n in pe._states]
+        lays = pe._tp_layouts
+    else:
+        held, lays = params, pe._tp.base
+    init = {n: pe._states[n].clone() for n in held}
+    _reset_peak()
+    # the main path: the counts zeroed just before, read just after
+    for k in fa.flash_attention.launches:
+        fa.flash_attention.launches[k] = 0
+    moe_gate_dispatch.launches = 0
+    moe_gate_route_backward.launches = 0
+    losses, secs, _ = _timed_steps(
+        lambda i: pe.run(_train_feed(i), return_numpy=False)[0], {},
+        A9_STEPS)
+    rec = {"type": type(pe).__name__, "losses": losses,
+           "ms_per_step": [x * 1e3 for x in secs], "build_s": build_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches": dict(fa.flash_attention.launches),
+           "route_launches": {"route": moe_gate_dispatch.launches,
+                              "route_backward":
+                                  moe_gate_route_backward.launches},
+           "collectives_per_step": _a9_record(pe, mesh)}
+    t0 = time.perf_counter()
+    serial = torch.load(os.path.join(out_dir, f"serial_{arm}.pt"),
+                        mmap=True)
+    if kind == "lm":
+        rec["stage"] = pe.stage
+        rec["tp_param_specs"] = len(pe.tp_param_specs)
+    mine = {n: pe._states[n] for n in held}
+    groups = {a: pe.mesh.axis_group(a) for a in mesh}
+
+    def blocks(n, t):
+        lay = lays.get(n)
+        return t if lay is None else groups[lay[1]].block(t, lay[0])
+
+    rec["param_diffs"] = _a9_diffs(mine, init, serial, blocks)
+    rec["held_parameters"] = len(mine)
+    rec["local_parameter_elements"] = sum(v.numel() for v in mine.values())
+    rec["compare_s"] = time.perf_counter() - t0
+    rec["arm_s"] = time.perf_counter() - t_arm
+    pe.close()
+    del pe, serial, init
+    _reset_peak()
+    fluid.amp.disable_bf16()
+    return rec
+
+
+def _a9_raw(dev):
+    """ring / Ulysses attention and moe_ffn_a2a on the four ranks."""
+    import importlib
+
+    from paddle_tpu_torch.kernels.moe_dispatch import moe_gate_dispatch
+    from paddle_tpu_torch.parallel import make_mesh
+
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    moe = importlib.import_module("paddle_tpu_torch.parallel.moe")
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn(A9_RAW_SHAPE, generator=gen).to(dev)
+               for _ in range(3))
+    mesh = make_mesh({"sp": A9_RANKS})
+    out = {}
+    for causal in (False, True):
+        ref = ra.attention_reference(q, k, v, causal=causal)
+        for form, fn in (("ring", ra.ring_attention),
+                         ("ulysses", ra.all_to_all_attention)):
+            got = fn(q, k, v, mesh, "sp", causal=causal)
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(q, k, v, mesh, "sp", causal=causal)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            out[f"{form}_{'causal' if causal else 'full'}"] = {
+                "max_abs_err": float((got - ref).abs().max()),
+                "ms": sorted(secs)[1] * 1e3}
+    ep = make_mesh({"ep": A9_RANKS})
+    x = torch.randn(A9_MOE_T, M_D, generator=gen).to(dev)
+    gw = (torch.randn(M_D, M_EXPERTS, generator=gen) * M_GATE_STD).to(dev)
+    wi = (torch.randn(M_EXPERTS, M_D, 4 * M_D, generator=gen)
+          * M_D ** -0.5).to(dev)
+    wo = (torch.randn(M_EXPERTS, 4 * M_D, M_D, generator=gen)
+          * (4 * M_D) ** -0.5).to(dev)
+    before = moe_gate_dispatch.launches
+    y_rep, aux_rep = moe.moe_ffn(x, gw, wi, wo, ep, capacity_factor=A9_MOE_CF,
+                                 top_k=M_TOPK)
+    y_a2a, aux_a2a = moe.moe_ffn_a2a(x, gw, wi, wo, ep,
+                                     capacity_factor=A9_MOE_CF,
+                                     top_k=M_TOPK)
+    out["moe_a2a_vs_replicated"] = {
+        "tokens": A9_MOE_T,
+        "capacity": moe._capacity(A9_MOE_T, M_EXPERTS, A9_MOE_CF, M_TOPK),
+        "a2a_capacity": moe._capacity(A9_MOE_T // A9_RANKS, M_EXPERTS,
+                                      A9_MOE_CF, M_TOPK),
+        "max_abs_err": float((y_a2a - y_rep).abs().max()),
+        "max_abs_y": float(y_rep.abs().max()),
+        "aux": [float(aux_rep), float(aux_a2a)],
+        "route_launches": moe_gate_dispatch.launches - before}
+    return out
+
+
+def _a9_worker(rank, port, out_dir):
+    """One of the A9_RANKS gloo ranks on the one card: every arm, then
+    the raw forms."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=A9_RANKS, rank=rank)
+    out = {}
+    try:
+        for arm in _a9_arms():
+            out[arm] = _a9_arm(arm, out_dir)
+        t0 = time.perf_counter()
+        out["raw"] = _a9_raw(torch.device("cuda", 0))
+        out["raw"]["seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"a9_rank{rank}.pt"))
+
+
+def _a9_ranks(out_dir):
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--a9-worker",
+         str(rank), str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(A9_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"a9: rank {rank} exited "
+              f"{p.returncode}: {log[-3000:]}")
+    return [torch.load(os.path.join(out_dir, f"a9_rank{r}.pt"))
+            for r in range(A9_RANKS)]
+
+
+def a9_phase(card):
+    """Pipeline, tensor x pipeline, sequence x pipeline and expert
+    parallelism on the card: the serial arms first (and freed), then the
+    four ranks (_a9_worker); one line -> {kernel kind: {arm: [each
+    rank's launches]}}."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    amp_was = fluid.amp.is_bf16_enabled()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            serial = {arm: _a9_serial(arm, d) for arm in _a9_arms()}
+            serial_s = time.perf_counter() - t_phase
+            ranks = _a9_ranks(d)
+    finally:
+        (fluid.amp.enable_bf16 if amp_was else fluid.amp.disable_bf16)()
+    phase = "a9"
+    rec = {"phase": phase, "card": card, "ranks": A9_RANKS,
+           "steps": A9_STEPS, "n_micro": A9_MICRO,
+           "backend": "gloo (four processes on the one card; every "
+                      "stage hop, ring shift and all_to_all through host "
+                      "copies)",
+           "timing_note": "four ranks share the card: a correctness run, "
+                          "not a scaling number", "arms": {}}
+    failed = []
+    launches = {"fwd": {}, "dq": {}, "dkv": {}, "route": {},
+                "route_backward": {}}
+    for arm, (kind, amp, n_layers, mesh, kw) in _a9_arms().items():
+        r0, ref = ranks[0][arm], serial[arm]
+        same = all(r[arm]["losses"] == r0["losses"] for r in ranks)
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(r0["losses"], ref["losses"])]
+        diffs = {}
+        for r in ranks:
+            for n, v in r[arm]["param_diffs"].items():
+                cur = diffs.setdefault(n, {"max_abs": 0.0,
+                                           "max_update": 0.0,
+                                           "outside_tol": 0})
+                cur["max_abs"] = max(cur["max_abs"], v["max_abs"])
+                cur["max_update"] = max(cur["max_update"], v["max_update"])
+                cur["outside_tol"] += v["outside_tol"]
+        for v in diffs.values():
+            v["max_rel"] = v["max_abs"] / max(v["max_update"], 1e-30)
+        worst = max(diffs, key=lambda n: diffs[n]["max_rel"])
+        outside = {n: v["outside_tol"] for n, v in diffs.items()
+                   if v["outside_tol"]}
+        flash = {k: [r[arm]["flash_launches"][k] for r in ranks]
+                 for k in ("fwd", "dq", "dkv")}
+        route = {k: [r[arm]["route_launches"][k] for r in ranks]
+                 for k in ("route", "route_backward")}
+        for k, v in {**flash, **route}.items():
+            launches[k][arm] = v
+        a = {"kind": kind, "amp": amp, "n_layers": n_layers, "mesh": mesh,
+             **kw, "executor": r0["type"],
+             "stages": [r[arm].get("stage") for r in ranks],
+             "losses": r0["losses"], "serial_losses": ref["losses"],
+             "loss_rel_diff": loss_rel, "ranks_same_losses": same,
+             "largest_param_rel_diff": {worst: diffs[worst]},
+             "params_held": len(diffs),
+             "ms_per_rank_step": {f"rank{i}": r[arm]["ms_per_step"]
+                                  for i, r in enumerate(ranks)},
+             "serial_ms_per_step": ref["ms_per_step"],
+             "peak_memory_bytes": [r[arm]["peak_memory_bytes"]
+                                   for r in ranks],
+             "serial_peak_memory_bytes": ref["peak_memory_bytes"],
+             "local_parameter_elements": [
+                 r[arm]["local_parameter_elements"] for r in ranks],
+             "collectives_per_step": {f"rank{i}": r[arm][
+                 "collectives_per_step"] for i, r in enumerate(ranks)},
+             "flash_launches": flash, "route_launches": route,
+             "build_s": [r[arm]["build_s"] for r in ranks],
+             "rank_arm_s": [r[arm]["arm_s"] for r in ranks]}
+        if "tp_param_specs" in r0:
+            a["tp_param_specs"] = r0["tp_param_specs"]
+        a["largest_param_diff"] = max(v["max_abs"] for v in diffs.values())
+        a["largest_serial_update"] = max(v["max_update"]
+                                         for v in diffs.values())
+        a["param_diff_over_update"] = a["largest_param_diff"] / max(
+            a["largest_serial_update"], 1e-30)
+        if amp:
+            a["gate"] = (f"losses within {A9_AMP_RTOL} relative; the "
+                         f"largest parameter difference within "
+                         f"{A9_AMP_PARAM} of the largest serial update")
+            if not all(x <= A9_AMP_RTOL for x in loss_rel) or \
+                    a["param_diff_over_update"] > A9_AMP_PARAM:
+                failed.append(f"{phase}: {arm} losses {loss_rel}, "
+                              f"parameters {a['param_diff_over_update']}")
+        else:
+            a["gate"] = (f"every parameter within {A9_FP32_RTOL} relative "
+                         f"and {A9_FP32_ATOL} absolute")
+            if outside:
+                failed.append(f"{phase}: {arm} parameters outside the "
+                              f"tolerance: {outside}")
+        if not same:
+            failed.append(f"{phase}: {arm}: the ranks' losses differ")
+        if not all(np.isfinite(r0["losses"])):
+            failed.append(f"{phase}: {arm} losses not finite")
+        if len(diffs) != ref["parameters"]:
+            failed.append(f"{phase}: {arm} ranks hold {len(diffs)} of "
+                          f"{ref['parameters']} parameters")
+        # the kernels ran on the main path: flash on every pipeline rank
+        # (none under sp, which rings), the route kernels on every ep rank
+        if kind == "lm":
+            per = n_layers // mesh["pp"] * A9_MICRO * A9_STEPS
+            want = 0 if mesh.get("sp", 1) > 1 else per
+            if any(v != [want] * A9_RANKS for v in flash.values()):
+                failed.append(f"{phase}: {arm} flash launches {flash}, "
+                              f"want {want} each")
+            if r0["type"] != "PipelineExecutor":
+                failed.append(f"{phase}: {arm} built {r0['type']}")
+        else:
+            if route["route"] != [2 * n_layers * A9_STEPS] * A9_RANKS or \
+                    route["route_backward"] != [n_layers * A9_STEPS] * \
+                    A9_RANKS:
+                failed.append(f"{phase}: {arm} route launches {route}")
+        rec["arms"][arm] = a
+    raw = {k: v for k, v in ranks[0]["raw"].items()}
+    for k, v in raw.items():
+        if isinstance(v, dict) and "max_abs_err" in v:
+            errs = [r["raw"][k]["max_abs_err"] for r in ranks]
+            v["max_abs_err"] = max(errs)
+            if not v["max_abs_err"] <= A9_RAW_ATOL:
+                failed.append(f"{phase}: raw {k} error {errs}")
+    rec["raw"] = raw
+    rec["raw_gate"] = f"within {A9_RAW_ATOL} absolute of the reference"
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["serial_arms_s"] = serial_s
+    emit(rec)
+    check(not failed, "; ".join(failed))
+    return launches
+
+
 _REPLAY_NOTE = ("launches: the wrappers' count over the main path, which "
                 "runs them at the Executor's eager first step and at the "
                 "capture; a replay runs the captured kernels without the "
                 "wrapper: replayed_per_step is the profiler's count in a "
                 "replayed step")
+_A9_NOTE = ("launches_a9: the a9 phase's count on its main path, {arm: "
+            "[each of its four ranks' wrapper count over the arm's "
+            "steps]}: the pipeline arms' stages (none under sp, whose "
+            "attention rings), the ep arm's routing")
 _AOT_NOTE = ("launches_aot: the aot_native phase's count over the calls of "
              "the loaded torch.export artifacts on the card (the LM's, at "
              "4 and 1 layers, a go block's call among them, for the "
@@ -10602,6 +11052,7 @@ def main():
     book07_phase(card, CUDAPlace(0))
     dp_gspmd_phase(card, CUDAPlace(0))
     tz_launches = tp_zero_phase(card)
+    a9_launches = a9_phase(card)
     ssd_phase(card, CUDAPlace(0), peaks)
     ocr_ctc_phase(card, CUDAPlace(0))
     readers_phase(card, CUDAPlace(0))
@@ -10686,6 +11137,8 @@ def main():
             **({"launches_aot": aot_launches["fwd"],
                 "launches_aot_note": _AOT_NOTE} if kind == "fwd" else {}),
             "launches_tp_zero": tz_launches[kind],
+            "launches_a9": a9_launches[kind],
+            "launches_a9_note": _A9_NOTE,
             "launches_tp_zero_note": "the tp_zero phase's amp run, each "
                                      "of its four ranks' wrapper count "
                                      "(3 interpreted steps, 12 layers: "
@@ -10718,6 +11171,8 @@ def main():
         "launches_note": _REPLAY_NOTE,
         "launches_aot": aot_launches["moe"],
         "launches_aot_note": _AOT_NOTE,
+        "launches_a9": a9_launches["route"],
+        "launches_a9_note": _A9_NOTE,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
                            for k in ("slot_weight", "combine", "aux")),
         **{k: main_case["route"][k] for k in keys},
@@ -10733,6 +11188,8 @@ def main():
                          "gradient by jax.vjp of moe_gate and the dispatch "
                          "einsum (its Pallas kernel has no VJP)",
         "launches": moe_bwd_launches,
+        "launches_a9": a9_launches["route_backward"],
+        "launches_a9_note": _A9_NOTE,
         "replayed_per_step": moe_replayed["moe_bwd"],
         "launches_note": _REPLAY_NOTE,
         "max_abs_err": max(c["max_abs_err"][k] for c in moe_cases.values()
@@ -10757,6 +11214,11 @@ if __name__ == "__main__":
         # a rank of the dp_gspmd phase's dp2_one_card part
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _dp2_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--a9-worker"]:
+        # a rank of the a9 phase
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _a9_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     if sys.argv[1:2] == ["--tp-zero-worker"]:
         # a rank of the tp_zero phase

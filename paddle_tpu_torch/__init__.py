@@ -115,6 +115,7 @@ from .parallel.executor import (  # noqa: F401
     ShardingTranspiler,
     SimpleDistributeTranspiler,
 )
+from .parallel.pipeline_program import PipelineExecutor  # noqa: F401
 from .optimizer import (  # noqa: F401
     SGD,
     Adadelta,

@@ -124,10 +124,9 @@ class pipeline_stage:
     block with pipeline stage `i`.
 
     This is the DSL surface of pipeline parallelism: a stage annotation
-    on Program ops (attrs["pipeline_stage"]), consumed by the JAX
-    package's PipelineExecutor.  Nothing in this package schedules by
-    it yet; it is carried so Programs serialize like the JAX
-    package's.
+    on Program ops (attrs["pipeline_stage"]), consumed by
+    parallel/pipeline_program.py's PipelineExecutor (the op's gradient
+    op carries it too).
     """
 
     def __init__(self, idx: int):

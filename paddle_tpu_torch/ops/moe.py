@@ -21,14 +21,22 @@ from ..core.registry import register_op
              diff_outputs=("Out", "AuxLoss"),
              cost="moe")
 def moe_ffn(ctx, ins, attrs):
-    from ..parallel.moe import moe_dense
+    """Under expert parallelism the tensor-parallel rule sets `ep_axis`
+    (parallel/tensor_parallel.py): WIn/WOut are this rank's experts'
+    blocks and the op runs `moe_ep_local` over that axis's group."""
+    from ..parallel.moe import moe_dense, moe_ep_local
 
     x = one(ins, "X")
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1])
-    y, aux = moe_dense(flat, one(ins, "GateW"), one(ins, "WIn"),
-                       one(ins, "WOut"),
-                       capacity_factor=float(attrs["capacity_factor"]),
-                       top_k=int(attrs["top_k"]))
+    kw = dict(capacity_factor=float(attrs["capacity_factor"]),
+              top_k=int(attrs["top_k"]))
+    ep = attrs.get("ep_axis")
+    if ep is not None and x.device.type != "meta":
+        y, aux = moe_ep_local(flat, one(ins, "GateW"), one(ins, "WIn"),
+                              one(ins, "WOut"), ctx.groups[ep], **kw)
+    else:
+        y, aux = moe_dense(flat, one(ins, "GateW"), one(ins, "WIn"),
+                           one(ins, "WOut"), **kw)
     return {"Out": y.reshape(*lead, y.shape[-1]),
             "AuxLoss": aux.reshape(1)}

@@ -15,7 +15,9 @@ gives its output's shape without communicating.
 four tensor-parallel regions as `torch.autograd.Function`s, each with
 its conjugate backward: identity forward with an all-reduce backward,
 all-reduce forward with an identity backward, all-gather forward with a
-split backward, split forward with an all-gather backward.  The tensor-
+split backward, split forward with an all-gather backward.  `ppermute`
+(a ring shift whose backward is the inverse shift) and `all_to_all`
+(whose backward swaps the two dims) carry ring and Ulysses attention.  The tensor-
 parallel step (parallel/tensor_parallel.py) builds its lowerings from
 them, so the generic gradient, which re-runs a forward lowering under
 autograd, gets each collective's gradient right.
@@ -33,6 +35,7 @@ from ..core.registry import register_op
 from .mesh import AxisGroup, Mesh
 
 __all__ = ["copy_to", "reduce_from", "gather_from", "scatter_to",
+           "ppermute", "all_to_all",
            "shard_embedding_table", "sharded_embedding_lookup",
            "sharded_embedding_grad"]
 
@@ -208,6 +211,49 @@ def gather_from(x, group: AxisGroup, dim: int):
 
 def scatter_to(x, group: AxisGroup, dim: int):
     return _ScatterTo.apply(x, group, dim)
+
+
+class _Ppermute(torch.autograd.Function):
+    """The ring shift `AxisGroup.permute(x, shift)`; its backward is the
+    inverse shift of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return group.permute(x, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.permute(g.contiguous(), -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """`AxisGroup.all_to_all`; its backward is the all_to_all with the
+    two dims swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return group.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.group.all_to_all(g.contiguous(), concat_dim, split_dim),
+                None, None, None)
+
+
+def ppermute(x, group: AxisGroup, shift: int = 1):
+    """Differentiable ring shift over `group`: axis index i receives the
+    `x` of index (i - shift) mod n (`jax.lax.ppermute` with the pairs
+    (j, j + shift))."""
+    return _Ppermute.apply(x, group, shift)
+
+
+def all_to_all(x, group: AxisGroup, split_dim: int, concat_dim: int):
+    """Differentiable `jax.lax.all_to_all(x, axis, split_dim, concat_dim,
+    tiled=True)` over `group`."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -80,9 +80,17 @@ record by the JAX package's kind names.
 Without a process group (a mesh of one) the whole program runs as in the
 serial Executor.
 
-Not ported: the sharded checkpoint mixin, the pipeline executors and
-the 'pp', 'sp' and 'ep' axes (ROADMAP A9), and the pserver transpiler
-mode (A11).
+Expert parallelism: a `moe_ffn` op whose expert weights are placed
+P("ep") runs its rank's experts by the tensor-parallel rule
+(parallel/tensor_parallel.py).  A mesh axis that no placement names
+(a 'pp', 'sp' or 'ep' axis of an unannotated program) runs replicated
+over its ranks, as the JAX package's.  The pipeline executor is
+parallel/pipeline_program.py's `PipelineExecutor`, to which
+`ShardingTranspiler.build_executor` dispatches a program with
+`pipeline_stage` annotations over a 'pp' axis.  `save_checkpoint` /
+`restore_checkpoint` come from parallel/checkpoint.py.
+
+Not ported: the pserver transpiler mode (A11).
 """
 from __future__ import annotations
 
@@ -105,6 +113,7 @@ from ..core.scope import Scope
 from ..core.types import torch_dtype
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
+from .checkpoint import ShardedCheckpointMixin
 from .mesh import PartitionSpec, count_collectives, make_mesh
 from .tensor_parallel import TensorParallel, grad_base
 
@@ -172,12 +181,7 @@ class _StatGroup:
         return t
 
 
-# mesh axes whose strategies are A9's (pipeline, sequence, expert
-# parallelism)
-_A9_AXES = ("pp", "sp", "ep")
-
-
-class ParallelExecutor:
+class ParallelExecutor(ShardedCheckpointMixin):
     """Data-parallel executor over `mesh` ({"dp": n} or a `Mesh`).
 
     `place` is this rank's device: CUDAPlace(0) unless told otherwise
@@ -207,12 +211,6 @@ class ParallelExecutor:
                 f"{overlap!r}")
         self.mesh = mesh
         self.batch_axis = batch_axis
-        a9 = sorted(a for a in mesh.axis_names
-                    if a in _A9_AXES and mesh.shape[a] > 1)
-        if a9:
-            raise NotImplementedError(
-                f"mesh axes {a9} of {dict(mesh.shape)}: pipeline, sequence "
-                "and expert parallelism are not ported yet (ROADMAP A9)")
         self.dp = int(mesh.shape.get(batch_axis, 1))
         self.place = CUDAPlace(0) if place is None else place
         self.device = resolve_place(self.place)
@@ -1127,6 +1125,50 @@ class ParallelExecutor:
         return _to_numpy(v).copy() if v.device.type == "cpu" \
             else _to_numpy(v)
 
+    # -- checkpoint layout (parallel/checkpoint.py) ---------------------------
+    def _ckpt_names(self):
+        """{state: its global shape}."""
+        out = {}
+        for n, v in self._states.items():
+            shape = list(v.shape)
+            lay, rows = self._split_of(n)
+            if rows:
+                shape[0] *= self.dp
+            if lay is not None:
+                shape[lay[0]] *= self.mesh.shape[lay[1]]
+            out[n] = tuple(shape)
+        return out
+
+    def _ckpt_blocks(self):
+        """[(name, this rank's block, global shape, its index slices,
+        whether this rank writes it: coordinate 0 on every axis that
+        does not split it)]."""
+        coord = {a: (self.mesh.axis_index(a) if self.mesh.group is not None
+                     else 0) for a in self.mesh.axis_names}
+        shapes = self._ckpt_names()
+        out = []
+        for n, v in self._states.items():
+            lay, rows = self._split_of(n)
+            idx = [(0, d) for d in shapes[n]]
+            split = set()
+            if rows:
+                m = v.shape[0]
+                idx[0] = (coord[self.batch_axis] * m,
+                          (coord[self.batch_axis] + 1) * m)
+                split.add(self.batch_axis)
+            if lay is not None:
+                m = v.shape[lay[0]]
+                i = coord[lay[1]]
+                idx[lay[0]] = (i * m, (i + 1) * m)
+                split.add(lay[1])
+            primary = all(c == 0 for a, c in coord.items() if a not in split)
+            out.append((n, v, shapes[n], idx, primary))
+        return out
+
+    def _ckpt_place(self, data):
+        for n, v in data.items():
+            self.set_state(n, v.to(self._states[n].dtype))
+
     def set_state(self, name, value):
         """Replace a state's value (whole; a split state keeps this
         rank's block of it); a fused parameter's is written into its
@@ -1237,14 +1279,25 @@ class DistributeTranspiler:
 
     def build_executor(self, feed_names, fetch_list, startup_program=None,
                        **kw):
-        """A ParallelExecutor for the transpiled program (pass
-        `place=CPUPlace()` to run on the CPU).  A 'pp' mesh axis needs
-        the pipeline executors, which are not ported (ROADMAP A9)."""
-        if self._mesh_axes.get("pp", 1) > 1:
-            raise NotImplementedError(
-                "a 'pp' mesh axis needs PipelineExecutor, which is not "
-                "ported yet (ROADMAP A9)")
+        """Lower the transpiled program onto the mesh (pass
+        `place=CPUPlace()` to run on the CPU): `pipeline_stage`
+        annotations and a 'pp' axis go to PipelineExecutor (dp x pp x
+        tp x sp, GPipe or 1F1B), everything else to ParallelExecutor,
+        as the JAX package dispatches."""
         startup_program = startup_program or self._startup
+        if self._uses_pipeline():
+            from .pipeline_program import PipelineExecutor
+
+            mesh = dict(self._mesh_axes)
+            kw.setdefault("tp_axis",
+                          "tp" if mesh.get("tp", 1) > 1 else None)
+            kw.setdefault("sp_axis",
+                          "sp" if mesh.get("sp", 1) > 1 else None)
+            kw.setdefault("batch_axis", self._batch_axis)
+            kw.setdefault("shard_optimizer_states", self._shard_opt)
+            return PipelineExecutor(
+                self._program, feed_names, fetch_list, mesh=mesh,
+                startup_program=startup_program, **kw)
         kw.setdefault("overlap", self._overlap)
         kw.setdefault("spmd_plan", self._plan)
         kw.setdefault("batch_axis", self._batch_axis)
@@ -1252,6 +1305,13 @@ class DistributeTranspiler:
         return ParallelExecutor(
             self._program, feed_names, fetch_list,
             mesh=self._mesh_axes, startup_program=startup_program, **kw)
+
+
+    def _uses_pipeline(self) -> bool:
+        if not self._program or self._mesh_axes.get("pp", 1) <= 1:
+            return False
+        return any("pipeline_stage" in op.attrs
+                   for op in self._program.global_block().ops)
 
 
 class ShardingTranspiler(DistributeTranspiler):

@@ -86,11 +86,12 @@ class AxisGroup:
     Every collective issued is appended to `record` when it is a list.
 
     A gloo group takes CUDA tensors as they are for all-reduce,
-    all-gather, broadcast and reduce-scatter (on the H100 machine's
-    torch, every dtype the steps move, on sub-groups of a 2 x 2 mesh:
-    tools/torch_tree_probe.py gloo-dtypes), but send/recv of a CUDA
-    tensor aborts the process there, so a permute on a gloo group runs
-    on host copies.  An NCCL group never copies."""
+    all-gather, broadcast, reduce-scatter and all_to_all_single (on the
+    H100 machine's torch, every dtype the steps move, on sub-groups of a
+    2 x 2 mesh: tools/torch_tree_probe.py gloo-dtypes), but send/recv of
+    a CUDA tensor (isend + recv too) aborts the process there, so a
+    permute and the stage hops' send/recv on a gloo group run on host
+    copies.  An NCCL group never copies."""
 
     def __init__(self, axis: str, size: int, index, group,
                  ranks: Sequence[int]):
@@ -221,6 +222,62 @@ class AxisGroup:
         got = got.to(t.device) if host else got
         self._note("collective-permute", got)
         return got
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """`jax.lax.all_to_all(..., tiled=True)`: `t` cut into `size`
+        blocks along `split_dim`, block j sent to axis index j, and the
+        blocks received concatenated along `concat_dim` in axis order."""
+        import torch.distributed as dist
+
+        if self.group is None:
+            return t
+        if t.shape[split_dim] % self.size:
+            raise ValueError(f"all_to_all: dim {split_dim} of size "
+                             f"{t.shape[split_dim]} is not divisible by the "
+                             f"{self.axis!r} axis size {self.size}")
+        src = t.movedim(split_dim, 0).contiguous()
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src, group=self.group)
+        out = torch.cat([c.movedim(0, split_dim)
+                         for c in got.chunk(self.size)], dim=concat_dim)
+        self._note("all-to-all", out)
+        return out
+
+    def send(self, t: torch.Tensor, to: int):
+        """Send `t` to axis index `to` without waiting -> a handle whose
+        `wait()` returns once the buffer may be reused (it holds the
+        buffer: a CUDA tensor on a gloo group is sent from a host copy).
+        Recorded as a collective-permute, the JAX package's stage hop."""
+        import torch.distributed as dist
+
+        buf = (t.cpu() if t.is_cuda and self.gloo else t).contiguous()
+        work = dist.isend(buf, self.ranks[to], group=self.group)
+        self._note("collective-permute", buf)
+        return _Sent(work, buf)
+
+    def recv(self, shape, dtype, frm: int, device) -> torch.Tensor:
+        """A tensor of `shape` and `dtype` received from axis index
+        `frm`, on `device`."""
+        import torch.distributed as dist
+
+        dev = torch.device(device)
+        host = dev.type == "cuda" and self.gloo
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if host else dev)
+        dist.recv(buf, self.ranks[frm], group=self.group)
+        return buf.to(dev) if host else buf
+
+
+class _Sent:
+    """A pending send and the buffer it reads."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self):
+        self.work.wait()
+        self.buf = None
 
 
 # (id(process group), mesh axes) -> (the group, {axis: (its sub-group,

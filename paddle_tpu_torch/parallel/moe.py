@@ -11,9 +11,22 @@ a hand-written CUDA kernel on a card, its plain version on the CPU), and
 `moe_combine` gathers at most two expert rows a token instead of
 contracting a dense [T, E, C] combine.
 
-The expert-parallel forms `moe_ffn` and `moe_ffn_a2a` (replicated
-routing over an 'ep' mesh axis, and all_to_all dispatch) are not ported
-yet (ROADMAP A9).
+Two expert-parallel forms over an 'ep' mesh axis (one process a mesh
+position, global tensors in and out on every rank, differentiable with
+torch autograd through parallel/collective.py's conjugate collectives):
+
+  * `moe_ffn`: replicated routing (every rank gates every token), each
+    rank runs its E/n experts on their capacity slots, and the expert
+    outputs are all-gathered over 'ep' before the combine;
+  * `moe_ffn_a2a`: token-sharded routing (the GShard layout): each rank
+    gates its own T/n tokens at a per-source capacity, one all_to_all
+    regroups the capacity buffers expert-major, a second returns the
+    outputs, and the aux loss is averaged over 'ep'.
+
+`moe_ep_local` is the sharded ParallelExecutor's form of the `moe_ffn`
+op with its expert weights placed over 'ep' (parallel/tensor_parallel.py):
+routing on the rank's whole token set, its experts, the combine of its
+experts' rows only, and one all-reduce of the output over 'ep'.
 """
 from __future__ import annotations
 
@@ -23,8 +36,8 @@ import torch
 
 from ..kernels.registry import Selection
 
-__all__ = ["moe_gate", "moe_dense", "moe_combine", "load_balance",
-           "drop_rate"]
+__all__ = ["moe_gate", "moe_dense", "moe_combine", "moe_ffn", "moe_ffn_a2a",
+           "moe_ep_local", "load_balance", "drop_rate"]
 
 
 def _one_hot(idx, n):
@@ -161,34 +174,134 @@ def moe_dense(x, gate_w, w_in, w_out, capacity_factor: float = 1.25,
     tensors, so both give the same bits).  `selection` takes an existing
     kernels.registry.Selection for fallback-series ownership (defaults
     to this module's one)."""
-    from ..core.types import canonical_dtype
-    from ..kernels.moe_dispatch import (moe_gate_route,
-                                        moe_gate_route_reference)
-
     E = gate_w.shape[1]
-    T = x.shape[0]
     if capacity is None:
-        capacity = _capacity(T, E, capacity_factor, top_k)
-
-    picker = selection if selection is not None else _SELECTION
-    ctx = dict(tokens=int(T), d_model=int(x.shape[1]), num_experts=int(E),
-               capacity=int(capacity), top_k=int(top_k),
-               dtype=canonical_dtype(x.dtype))
-    fused = (picker.require("moe_gate_dispatch", **ctx)
-             if x.device.type == "cuda" else
-             picker.pick("moe_gate_dispatch", platform=x.device.type, **ctx))
-    if fused is not None:
-        routed = fused.route(x, gate_w)
-    elif torch.compiler.is_exporting():
-        # a traced program records the kernel's op on every device
-        routed = moe_gate_route(x, gate_w, E, capacity, top_k)
-    else:
-        routed = moe_gate_route_reference(x, gate_w, E, capacity, top_k)
-    expert_in, slot_weight, aux2, slot_of, slot_token = routed
+        capacity = _capacity(x.shape[0], E, capacity_factor, top_k)
+    expert_in, slot_weight, aux2, slot_of, slot_token = _route(
+        x, gate_w, E, capacity, top_k, selection)
     expert_out = _expert_mm(expert_in.to(x.dtype), w_in, w_out, activation)
     y = moe_combine(expert_out.float(), slot_weight, slot_of,
                     slot_token).to(x.dtype)
     return y, aux2[0, 0]
+
+
+def _route(x, gate_w, E, capacity, top_k, selection=None):
+    """Gate and dispatch in routing form -> (expert_in [E, C, D],
+    slot_weight [E, C], aux [1, 1], slot_of [k, T], slot_token [E, C]):
+    the CUDA kernel on a card (a call it does not take raises), the
+    kernel tier's choice on the CPU."""
+    from ..core.types import canonical_dtype
+    from ..kernels.moe_dispatch import (moe_gate_route,
+                                        moe_gate_route_reference)
+
+    picker = selection if selection is not None else _SELECTION
+    ctx = dict(tokens=int(x.shape[0]), d_model=int(x.shape[1]),
+               num_experts=int(E), capacity=int(capacity),
+               top_k=int(top_k), dtype=canonical_dtype(x.dtype))
+    fused = (picker.require("moe_gate_dispatch", **ctx)
+             if x.device.type == "cuda" else
+             picker.pick("moe_gate_dispatch", platform=x.device.type, **ctx))
+    if fused is not None:
+        return fused.route(x, gate_w)
+    if torch.compiler.is_exporting():
+        # a traced program records the kernel's op on every device
+        return moe_gate_route(x, gate_w, E, capacity, top_k)
+    return moe_gate_route_reference(x, gate_w, E, capacity, top_k)
+
+
+def _check_ep(E, n, what="experts"):
+    if E % n:
+        raise ValueError(f"{what} {E} must divide the ep axis size {n}")
+
+
+def moe_ffn(x, gate_w, w_in, w_out, mesh, axis: str = "ep",
+            capacity_factor: float = 1.25, top_k: int = 1,
+            activation=torch.relu) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel FFN, replicated routing.  x: [T, D], gate_w:
+    [D, E], w_in: [E, D, H], w_out: [E, H, D], global on every rank, E
+    divisible by the axis size.  Returns (y [T, D], aux_loss), global on
+    every rank."""
+    from .collective import gather_from, scatter_to
+
+    g = mesh.axis_group(axis)
+    E = gate_w.shape[1]
+    _check_ep(E, g.size)
+    capacity = _capacity(x.shape[0], E, capacity_factor, top_k)
+    expert_in, slot_weight, aux2, slot_of, slot_token = _route(
+        x, gate_w, E, capacity, top_k)
+    # this rank's experts; the blocks' gradients all-gathered back
+    out = _expert_mm(scatter_to(expert_in.to(x.dtype), g, 0),
+                     scatter_to(w_in, g, 0), scatter_to(w_out, g, 0),
+                     activation)
+    y = moe_combine(gather_from(out, g, 0).float(), slot_weight, slot_of,
+                    slot_token).to(x.dtype)
+    return y, aux2[0, 0]
+
+
+def moe_ffn_a2a(x, gate_w, w_in, w_out, mesh, axis: str = "ep",
+                capacity_factor: float = 1.25, top_k: int = 1,
+                activation=torch.relu) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel FFN with token-sharded routing and all_to_all
+    dispatch.  x: [T, D] with T divisible by the axis size; capacity is
+    per (expert, source rank): C_loc = capacity_factor * top_k * (T/n) /
+    E, so a hot expert drops a rank's overflow locally.  Returns (y
+    [T, D], aux_loss averaged over the axis), global on every rank."""
+    from .collective import all_to_all, copy_to, gather_from, \
+        reduce_from, scatter_to
+
+    g = mesh.axis_group(axis)
+    E, n = gate_w.shape[1], g.size
+    _check_ep(E, n)
+    _check_ep(x.shape[0], n, "tokens")
+    c_loc = _capacity(x.shape[0] // n, E, capacity_factor, top_k)
+    x_blk = scatter_to(x, g, 0)
+    expert_in, slot_weight, aux2, slot_of, slot_token = _route(
+        x_blk, copy_to(gate_w, g), E, c_loc, top_k)
+    # [E, C_loc, D] -> [E/n, n * C_loc, D]: this rank's experts, every
+    # source's slots
+    buf = all_to_all(expert_in.to(x.dtype), g, 0, 1)
+    out = _expert_mm(buf, scatter_to(w_in, g, 0), scatter_to(w_out, g, 0),
+                     activation)
+    out = all_to_all(out, g, 1, 0)                        # [E, C_loc, D]
+    y = moe_combine(out.float(), slot_weight, slot_of,
+                    slot_token).to(x.dtype)
+    return gather_from(y, g, 0), reduce_from(aux2[0, 0] / n, g)
+
+
+def moe_ep_local(x, gate_w, w_in_blk, w_out_blk, group,
+                 capacity_factor: float = 1.25, top_k: int = 1,
+                 activation=torch.relu):
+    """The `moe_ffn` op on a rank holding its E/n experts' weights
+    (`w_in_blk` [E/n, D, H], `w_out_blk` [E/n, H, D]) over `group` (the
+    'ep' axis): routing on every token of `x` [T, D] (the same tokens on
+    every rank of the axis), this rank's experts on their capacity
+    slots, the combine of their rows only, and the partial outputs
+    summed over the axis (`reduce_from`: an all-reduce forward, the
+    identity backward).  The aux loss, which every rank computes whole,
+    enters the sum as its n-th part, so its gradient is counted once.
+    The caller makes x's and gate_w's gradients whole (`copy_to`: the
+    tensor-parallel rule's)."""
+    from .collective import reduce_from
+
+    n, i = group.size, group.index
+    E = gate_w.shape[1]
+    e_loc = w_in_blk.shape[0]
+    if e_loc * n != E:
+        raise ValueError(f"{e_loc} experts a rank over an ep axis of {n}: "
+                         f"the gate has {E}")
+    capacity = _capacity(x.shape[0], E, capacity_factor, top_k)
+    expert_in, slot_weight, aux2, slot_of, slot_token = _route(
+        x, gate_w, E, capacity, top_k)
+    lo = i * e_loc
+    out = _expert_mm(expert_in[lo:lo + e_loc].to(x.dtype), w_in_blk,
+                     w_out_blk, activation)
+    # this rank's slots only: another rank's slot index reads as dropped
+    first, last = lo * capacity, (lo + e_loc) * capacity
+    mine = (slot_of >= first) & (slot_of < last)
+    y = moe_combine(out.float(), slot_weight[lo:lo + e_loc],
+                    torch.where(mine, slot_of - first, -1),
+                    slot_token[lo:lo + e_loc]).to(x.dtype)
+    return reduce_from(y, group), reduce_from(aux2[0, 0] / n, group)
 
 
 def load_balance(x, gate_w) -> dict:

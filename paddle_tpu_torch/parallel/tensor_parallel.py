@@ -23,6 +23,10 @@ The rules (`TensorParallel._rule`), Megatron's:
     all-reduced), the shard-local unary ops (`_UNARY_LOCAL`), `sum`,
     `transpose`, a `softmax`/`layer_norm` that does not reduce over the
     split dim, and the optimizer updates run locally;
+  * `moe_ffn` with its expert weights split on dim 0 (over 'ep') runs
+    the rank's experts (parallel/moe.py `moe_ep_local`): routing on
+    every token, the combine of its experts' rows, one all-reduce of
+    the output, and X's and the gate's gradients all-reduced;
   * `reshape` keeps a split of d as a split of h in [b, s, d] -> [b, s,
     h, d/h] when the split dim leads its group (h % axis size == 0) and
     the reverse merge; its `shape` attribute is global and is made
@@ -223,6 +227,15 @@ class TensorParallel:
             r = self._reshape_rule(ins, vals, attrs, outputs, axis)
             if r is not None:
                 return r
+        elif op_type == "moe_ffn":
+            # expert parallelism: the rank's experts (moe_ep_local), the
+            # output summed over the axis; X's and the gate's gradients
+            # all-reduced
+            if (one("WIn") == (0, axis) and one("WOut") == (0, axis)
+                    and one("X") is None and one("GateW") is None):
+                return local({n: None for n in outs},
+                             attrs={"ep_axis": axis},
+                             copy=(("X", 0), ("GateW", 0)))
         elif op_type == "flash_attention":
             lq = one("Q")
             if lq is not None and lq[0] in (0, 2) and \

@@ -2871,3 +2871,156 @@ def test_flash_attention_on_local_heads_is_the_full_heads_result(dev, dtype):
               for h in (0, 8)]
     for a, b, want in zip(*halves, full):
         assert torch.equal(torch.cat([a, b], dim=2), want)
+
+
+# -- A9: pipeline, sequence and expert parallelism on the card ----------------
+
+_A9_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import paddle_tpu_torch as fluid
+import paddle_tpu_torch.core.framework as fw
+from paddle_tpu_torch.models.transformer import transformer_lm
+from paddle_tpu_torch.parallel import make_mesh
+from paddle_tpu_torch.parallel.ring_attention import ring_attention_local
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank)
+res = {}
+try:
+    # ring attention on CUDA tensors against the same ring on the CPU
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, g = (torch.randn((2, 128, 4, 64), generator=gen)
+                  for _ in range(4))
+    grp = make_mesh({"sp": 2}).axis_group("sp")
+    ring = {}
+    for where in ("cpu", "cuda"):
+        ts = [t.narrow(1, rank * 64, 64).to(where).requires_grad_(True)
+              for t in (q, k, v)]
+        o = ring_attention_local(*ts, grp, causal=True)
+        (o * g.narrow(1, rank * 64, 64).to(where)).sum().backward()
+        ring[where] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    res["ring_device"] = str(o.device)
+    res["ring_err"] = max(float((a - b).abs().max())
+                          for a, b in zip(ring["cpu"], ring["cuda"]))
+
+    # a GPipe step of a small LM at pp 2 on the card against the CPU
+    def build():
+        fw.reset_unique_names()
+        pm, ps = fluid.Program(), fluid.Program()
+        with fluid.program_guard(pm, ps):
+            ids = fluid.layers.data(name="ids", shape=[64], dtype="int64")
+            lab = fluid.layers.data(name="lab", shape=[64, 1], dtype="int64")
+            lg = transformer_lm(ids, 50, d_model=64, n_heads=2, n_layers=2,
+                                max_len=64, return_logits=True,
+                                pipeline_stages=2)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(
+                    fluid.layers.reshape(lg, shape=[-1, 50]),
+                    fluid.layers.reshape(lab, shape=[-1, 1])))
+            fluid.Momentum(learning_rate=0.05, momentum=0.9).minimize(loss)
+        return pm, ps, loss
+
+    r = np.random.RandomState(0)
+    feed = {"ids": r.randint(0, 50, (4, 64)).astype(np.int64),
+            "lab": r.randint(0, 50, (4, 64, 1)).astype(np.int64)}
+    runs = {}
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        pm, ps, loss = build()
+        pe = fluid.PipelineExecutor(pm, ["ids", "lab"], [loss],
+                                    mesh={"dp": 1, "pp": 2},
+                                    startup_program=ps, n_micro=2,
+                                    place=place)
+        if "cpu" in runs:
+            for n, v in runs["cpu"]["init"].items():
+                pe.set_state(n, v)
+        init = {n: pe.state(n) for n in sorted(pe._meta)}
+        l = float(pe.run(feed)[0][0])
+        runs["cuda" if isinstance(place, fluid.CUDAPlace) else "cpu"] = {
+            "init": init, "loss": l,
+            "params": {p.name: pe.state(p.name)
+                       for p in pm.global_block().all_parameters()},
+            "devices": sorted({str(v.device) for v in pe._states.values()})}
+    res["pp_loss"] = [runs["cpu"]["loss"], runs["cuda"]["loss"]]
+    res["pp_param_err"] = max(
+        float(np.abs(runs["cpu"]["params"][n] - v).max())
+        for n, v in runs["cuda"]["params"].items())
+    res["pp_devices"] = runs["cuda"]["devices"]
+finally:
+    dist.destroy_process_group()
+with open(f"{out}.{rank}", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def test_a9_ring_and_gpipe_on_cuda_are_the_cpu_result(dev, tmp_path):
+    """Two gloo ranks on the one card: ring attention (its K/V shifts
+    through host copies) on CUDA tensors gives its CPU result and
+    gradients; a GPipe step of a small staged LM on CUDAPlace gives the
+    CPU run's loss and parameters from the same states."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    out = str(tmp_path / "a9")
+    procs = [subprocess.Popen([sys.executable, "-c", _A9_WORKER, str(r),
+                               str(port), out], env=env, cwd=root,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    for p in procs:
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log[-3000:]
+    for rank in range(2):
+        with open(f"{out}.{rank}") as f:
+            res = json.load(f)
+        assert res["ring_device"].startswith("cuda")
+        assert res["ring_err"] < 1e-5, res["ring_err"]
+        cpu, cuda = res["pp_loss"]
+        assert abs(cpu - cuda) <= 1e-4 * abs(cpu), res["pp_loss"]
+        assert res["pp_param_err"] < 1e-4, res["pp_param_err"]
+        assert all(d.startswith("cuda") for d in res["pp_devices"])
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_ep_rule_route_kernel_at_world_one_is_moe_dense(dev, top_k):
+    """The ep rule's form (`moe_ep_local`) over an 'ep' axis of one, the
+    route kernel's path, gives moe_dense's output and gradients on the
+    card; the forward kernel and the backward kernel each launch."""
+    from paddle_tpu_torch.kernels.moe_dispatch import (
+        moe_gate_dispatch, moe_gate_route_backward)
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.moe import moe_dense, moe_ep_local
+
+    gen = torch.Generator().manual_seed(5)
+    t_n, d, e_n, h = 256, 128, 8, 256
+    x, gw, wi, wo, g = (torch.randn(s, generator=gen) * c for s, c in (
+        ((t_n, d), 1.0), ((d, e_n), 0.1), ((e_n, d, h), 0.1),
+        ((e_n, h, d), 0.1), ((t_n, d), 1.0)))
+    group = make_mesh({"ep": 1}).axis_group("ep")
+    res = {}
+    for name, fn in (("dense", moe_dense),
+                     ("ep", lambda *a, **kw: moe_ep_local(*a, group,
+                                                          **kw))):
+        ts = [t.to(dev).requires_grad_(True) for t in (x, gw, wi, wo)]
+        before = (moe_gate_dispatch.launches,
+                  moe_gate_route_backward.launches)
+        y, aux = fn(*ts, capacity_factor=1.25, top_k=top_k)
+        ((y * g.to(dev)).sum() + aux).backward()
+        res[name] = [y.detach(), aux.detach()] + [t.grad for t in ts]
+        assert moe_gate_dispatch.launches > before[0]
+        assert moe_gate_route_backward.launches > before[1]
+    for a, b in zip(res["ep"], res["dense"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

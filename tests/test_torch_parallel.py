@@ -967,17 +967,54 @@ def test_not_ported_strategies_raise():
         tfluid.DistributeTranspiler().transpile(
             program=main, startup_program=startup,
             pservers="127.0.0.1:6174", params_grads=[])
+    # A9 is ported: as in the JAX package, ParallelExecutor runs an
+    # unannotated program replicated over an axis no placement names
+    # (no model axis, no sharded form) ...
+    for axis in ("pp", "sp", "ep"):
+        pe = tfluid.ParallelExecutor(
+            main, feeds, [loss], mesh=Mesh({"dp": 1, axis: 2},
+                                           group=object()),
+            startup_program=startup, place=CPUPlace())
+        assert pe._model_axes == [] and pe.gspmd_form != "sharded"
+    # ... and build_executor gives a staged program over 'pp' to
+    # PipelineExecutor (the unannotated one stays with ParallelExecutor)
     t = tfluid.ShardingTranspiler()
     t.transpile(program=main, startup_program=startup,
                 mesh={"dp": 1, "pp": 2})
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.build_executor(feeds, [loss], place=CPUPlace())
-    for axis in ("pp", "sp", "ep"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tfluid.ParallelExecutor(
-                main, feeds, [loss], mesh=Mesh({"dp": 1, axis: 2},
-                                               group=object()),
-                startup_program=startup, place=CPUPlace())
+    assert not t._uses_pipeline()
+    import paddle_tpu_torch.parallel.pipeline_program as pipeline_program
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    tfw.reset_unique_names()
+    staged, staged_startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(staged, staged_startup):
+        ids = tfluid.layers.data(name="ids", shape=[8], dtype="int64")
+        lab = tfluid.layers.data(name="lab", shape=[8, 1], dtype="int64")
+        lg = transformer_lm(ids, 8, d_model=8, n_heads=2, n_layers=2,
+                            max_len=8, return_logits=True,
+                            pipeline_stages=2)
+        staged_loss = tfluid.layers.mean(
+            tfluid.layers.softmax_with_cross_entropy(
+                tfluid.layers.reshape(lg, shape=[-1, 8]),
+                tfluid.layers.reshape(lab, shape=[-1, 1])))
+        tfluid.SGD(learning_rate=0.1).minimize(staged_loss)
+    made = []
+
+    class Recorded:
+        def __init__(self, *args, **kw):
+            made.append(kw)
+
+    t = tfluid.ShardingTranspiler()
+    t.transpile(program=staged, startup_program=staged_startup,
+                mesh={"dp": 1, "pp": 2})
+    real = pipeline_program.PipelineExecutor
+    pipeline_program.PipelineExecutor = Recorded
+    try:
+        pe = t.build_executor(["ids", "lab"], [staged_loss],
+                              place=CPUPlace())
+    finally:
+        pipeline_program.PipelineExecutor = real
+    assert isinstance(pe, Recorded) and made[0]["mesh"] == {"dp": 1, "pp": 2}
 
 
 @pytest.mark.parametrize("case", ["tp_axis_missing", "tp_axis_of_one",

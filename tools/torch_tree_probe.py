@@ -26,6 +26,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py maxpool-routes [--package-root DIR]
     python3 tools/torch_tree_probe.py a10b [--package-root DIR]
     python3 tools/torch_tree_probe.py tp-zero [--package-root DIR]
+    python3 tools/torch_tree_probe.py a9 [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -94,8 +95,10 @@ gloo-dtypes  two processes on the one card over a gloo group: whether
            kind the tensor-parallel and ZeRO-1 paths and the c_* ops
            issue (all_reduce sum and max, all_gather, all_gather_into_
            tensor, reduce_scatter, reduce_scatter_tensor, broadcast,
-           send/recv, batch_isend_irecv) and each dtype, whether gloo
-           takes CUDA tensors and gives the right values;
+           send/recv, batch_isend_irecv, and the pipeline's and the
+           Ulysses / MoE paths' isend + recv and all_to_all_single) and
+           each dtype, whether gloo takes CUDA tensors and gives the
+           right values;
 memory-plan  chip_smoke.py's replayed train (amp), seq2seq (amp) and
            resnet50 steps (`memory_plan_steps`: peak memory over the
            eager run, the capture and two replays, and the replay's ms)
@@ -117,6 +120,10 @@ a10b       chip_smoke.py's aot_native phase alone (the kernels built
 tp-zero    chip_smoke.py's tp_zero phase alone (the kernels built
            first): tensor parallelism and ZeRO-1 on four gloo ranks on the
            card against the serial Executor;
+a9         chip_smoke.py's a9 phase alone (the kernels built first):
+           pipeline (GPipe, 1F1B with tp, GPipe with sp) and expert
+           parallelism on four gloo ranks on the card against the serial
+           Executor, and the raw ring / Ulysses / MoE forms;
 a10c       chip_smoke.py's tools phase with what it reads: the flash
            phase, the train phase (amp) with the tools profiler part on
            its replayed graph, the seq2seq phase, then the tools CLI
@@ -979,6 +986,16 @@ def tp_zero(cs, dev):
     cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
 
 
+def a9(cs, dev):
+    """chip_smoke's a9 phase alone (the kernels built first)."""
+    from paddle_tpu_torch.kernels import cuda_build
+
+    card, _, _ = _card(cs)
+    cuda_build.build_all()
+    cs.a9_phase(card)
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1042,7 +1059,7 @@ def _gloo_rank(rank, port, out_path):
 _GLOO_KINDS = ("all_reduce_sum", "all_reduce_max", "all_gather",
                "all_gather_into_tensor", "reduce_scatter",
                "reduce_scatter_tensor", "broadcast", "send_recv",
-               "batch_isend_irecv")
+               "batch_isend_irecv", "isend_recv", "all_to_all_single")
 
 
 def _gloo_kind(kind, t, group, ranks, me):
@@ -1080,8 +1097,21 @@ def _gloo_kind(kind, t, group, ranks, me):
         x = t.clone()
         dist.broadcast(x, src=ranks[0], group=group)
         return bool((x == ranks[0] + 1).all())
+    if kind == "all_to_all_single":
+        # block j of every rank to rank j: rank i gets block i of each
+        src = torch.cat([t.clone() for _ in range(n)])
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src, group=group)
+        return all(bool((c == r + 1).all())
+                   for c, r in zip(got.chunk(n), ranks))
     nxt, prv = ranks[(i + 1) % n], ranks[(i - 1) % n]
     got = torch.empty_like(t)
+    if kind == "isend_recv":
+        # the pipeline's hop: a send not waited on, then a blocking recv
+        work = dist.isend(t, nxt, group=group)
+        dist.recv(got, prv, group=group)
+        work.wait()
+        return bool((got == prv + 1).all())
     if kind == "send_recv":
         if i % 2 == 0:
             dist.send(t, nxt, group=group)
@@ -1179,7 +1209,7 @@ def main():
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
                                       "maxpool-routes", "a10b", "a10c",
-                                      "a12", "tp-zero"))
+                                      "a12", "tp-zero", "a9"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1216,7 +1246,8 @@ def main():
          "gloo-dtypes": gloo_dtypes, "memory-plan": memory_plan,
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
          "maxpool-routes": maxpool_routes, "a10b": a10b,
-         "a10c": a10c, "a12": a12, "tp-zero": tp_zero}[args.probe](cs, dev)
+         "a10c": a10c, "a12": a12, "tp-zero": tp_zero,
+         "a9": a9}[args.probe](cs, dev)
     return 0
 
 

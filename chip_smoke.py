@@ -46,12 +46,12 @@ Phases, one JSON line each:
            trained from one seeded startup in the Executor's default
            mode, as the JAX package's cells run: the block compiled,
            run eagerly at its miss, captured into a CUDA graph at its
-           first hit and replayed after (G_STEPS = 5 timed steps and
+           first hit and replayed after (G_STEPS = 3 timed steps and
            one profiled replay: one miss, then hits, no recompile; the
            kernels counted at the eager run and the capture, and by the
-           profiler in the replay); then 5 from the same state in the
+           profiler in the replay); then 3 from the same state in the
            interpreter (compiled=False), whose losses and parameters
-           must equal the replay's bit for bit, and 6 on the plain path
+           must equal the replay's bit for bit, and 3 on the plain path
            (interpreted; the op's lowering and its gradient swapped for
            the plain composition inside this script): per-step losses
            and every weight matrix's change compared; every parameter
@@ -374,6 +374,29 @@ Phases, one JSON line each:
            bit-equal to direct feeds; export and load seconds, artifact
            bytes, ms a call against the Executor's replayed step, and
            the loader's batches/s against the step rate;
+  pserver  A11's wire: Programs transpiled by DistributeTranspiler's
+           pserver mode, trained with their trainers on the card and two
+           pservers an arm on the host (subprocesses started through
+           paddle_tpu_torch.launch; each pserver runs the Program's own
+           optimizer ops in a CPU Executor).  ctr_t1: the ctr row's
+           DeepFM (is_sparse, Adam, batch 2048) with one trainer in this
+           process, 3 rounds, held against the serial Executor from the
+           same parameters at the float32 gate (2e-4 / 1e-5); ctr_t2:
+           the same model with two trainer processes, their batches
+           through cloud_reader from a Master over RecordIO chunks and
+           their pservers found through a Registry, 4 rounds (both
+           trainers' parameters bit-equal and equal to a GET from the
+           pservers; every chunk dispatched and finished once);
+           vgg16_cluster: run_cluster_vgg16's 2 x 2 at its defaults,
+           aggregate samples/s; seq2seq_t1: the seq2seq phase's
+           translator (amp, Adam) with one trainer, 3 rounds (the eager
+           run, the capture, a replay after a pull), against the serial
+           Executor: losses, each parameter's change over the rounds
+           (PS_S2S_ constants) and the serial step's flash launches;
+           two serial runs give the card's own spread beside it.  For
+           each arm: ms a round, split into the device segment and the
+           host part (device-to-host copies, the wire round, the copies
+           back), bytes and frames by verb a round, peak memory;
   tools    A10c, two lines.  "profiler" (run inside the train phase, on
            its replayed graph; its seconds are its own):
            profiler.profile_compiled_ops over 3 replays of the LM's
@@ -413,8 +436,9 @@ replay runs the captured kernels without their wrappers, so on the
 train, seq2seq and moe paths the counts cover the eager first step and
 the capture, and the kernels line adds the profiler's count in a
 replayed step (and the persist phase's uninterrupted seq2seq run's
-wrapper counts, the aot_native phase's artifact calls, and the
-tp_zero and a9 ranks' own counts: each process counts its own launches).  The image, optimizers, ctr,
+wrapper counts, the aot_native phase's artifact calls, the pserver
+phase's seq2seq_t1 trainer, and the tp_zero and a9 ranks' own counts:
+each process counts its own launches).  The image, optimizers, ctr,
 rnn, book08, book07, dp_gspmd, ssd, ocr_ctc, readers and conv_rest
 phases run no kernel of the port's own (the JAX package runs the recurrences, the CRF and CTC
 as `lax.scan`, the sequence, sampling and detection geometry ops as XLA
@@ -441,6 +465,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -465,8 +490,8 @@ T_VOCAB, T_D, T_HEADS, T_LAYERS, T_SEQ, T_BATCH = 30000, 2048, 16, 12, 512, 8
 T_STEPS = 4
 # the train and moe phases' steps in each mode: in the default mode the
 # miss (eager), the first hit (captured into a CUDA graph, then
-# replayed) and 3 replays
-G_STEPS = 5
+# replayed) and a replay
+G_STEPS = 3
 # kernel path vs plain path: per-step loss, and each weight matrix's
 # change over the steps (||dW_kernel - dW_plain|| / ||dW_plain||).  At
 # random init the attention is near uniform, so dS = P (dP - delta) is a
@@ -721,7 +746,7 @@ W_ROWS, W_WIDTH, W_CLASSES, W_NEG = 12800, 512, 30000, 10
 W_ROI_X, W_ROIS = (2, 512, 38, 50), 128
 P2_TWIN = {"resnet_cifar10": None, "resnet_cifar10_fp32": "float64"}
 # dp2_one_card's steps a program (at least P_HELD)
-P2_STEPS = 4
+P2_STEPS = 3
 
 # the persist phase: run_seq2seq's translator (S_ constants, bf16 amp,
 # Adam) through the port's Trainer for PS_ITERS iterations, a snapshot
@@ -2106,9 +2131,10 @@ def train_phase(card, place, peaks, flash_cases, amp, tools=False):
 
 # -- seq2seq phase -----------------------------------------------------------
 
-def _s2s_program():
+def _s2s_program(with_opt=False):
     """run_seq2seq's transformer translator (`build_transformer`, :39-60)
-    -> (main, startup, loss)."""
+    -> (main, startup, loss), and minimize's (optimize ops, params and
+    grads) with `with_opt`."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.models.transformer import transformer_translate
@@ -2127,8 +2153,8 @@ def _s2s_program():
             fluid.layers.reshape(logits, shape=[-1, S_VOCAB]),
             fluid.layers.reshape(lbl, shape=[-1, 1]))
         loss = fluid.layers.mean(cost)
-        fluid.Adam(learning_rate=1e-4).minimize(loss)
-    return main, startup, loss
+        opt = fluid.Adam(learning_rate=1e-4).minimize(loss)
+    return (main, startup, loss, opt) if with_opt else (main, startup, loss)
 
 
 def _s2s_feed():
@@ -4270,10 +4296,11 @@ def optimizers_phase(card, dev):
                     "warm-up calls, warm L2; ms is a call's share"})
 
 
-def _ctr_program(model, is_sparse, optimizer):
+def _ctr_program(model, is_sparse, optimizer, with_opt=False):
     """models/ctr.py's `model` at the CTR configuration, its loss the
     mean of sigmoid_cross_entropy_with_logits (tests/test_ctr.py:39-40),
-    minimized by `optimizer(fluid)` -> (main, startup, loss)."""
+    minimized by `optimizer(fluid)` -> (main, startup, loss), and
+    minimize's (optimize ops, params and grads) with `with_opt`."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import framework as fw
     from paddle_tpu_torch.models import ctr
@@ -4291,8 +4318,8 @@ def _ctr_program(model, is_sparse, optimizer):
             embed_dim=X_EMBED, hidden_sizes=X_HIDDEN, is_sparse=is_sparse)
         loss = fluid.layers.mean(
             fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
-        optimizer(fluid).minimize(loss)
-    return main, startup, loss
+        opt = optimizer(fluid).minimize(loss)
+    return (main, startup, loss, opt) if with_opt else (main, startup, loss)
 
 
 def _ctr_feeds(n):
@@ -6233,7 +6260,7 @@ def dp_gspmd_phase(card, place):
 # f32 accumulator); then the same width at TZ_FP32_LAYERS layers in
 # float32 (TF32 off), TZ_FP32_STEPS steps, every parameter within
 # TZ_FP32_RTOL / TZ_FP32_ATOL (tests/test_spmd_sharding.py:425-427's)
-TZ_MESH, TZ_RANKS, TZ_STEPS = {"dp": 2, "tp": 2}, 4, 3
+TZ_MESH, TZ_RANKS, TZ_STEPS = {"dp": 2, "tp": 2}, 4, 2
 TZ_FP32_LAYERS, TZ_FP32_STEPS = 2, 2
 TZ_AMP_LOSS_RTOL, TZ_FP32_RTOL, TZ_FP32_ATOL = 2e-2, 2e-4, 1e-5
 
@@ -6964,6 +6991,10 @@ _A9_NOTE = ("launches_a9: the a9 phase's count on its main path, {arm: "
             "[each of its four ranks' wrapper count over the arm's "
             "steps]}: the pipeline arms' stages (none under sp, whose "
             "attention rings), the ep arm's routing")
+_PS_NOTE = ("launches_pserver: the pserver phase's seq2seq_t1 arm, the "
+            "wrappers' count over its trainer's three rounds on the card "
+            "(the device segment's eager run and its capture, each the "
+            "serial step's launches; the third round a replay)")
 _AOT_NOTE = ("launches_aot: the aot_native phase's count over the calls of "
              "the loaded torch.export artifacts on the card (the LM's, at "
              "4 and 1 layers, a go block's call among them, for the "
@@ -6972,7 +7003,947 @@ _AOT_NOTE = ("launches_aot: the aot_native phase's count over the calls of "
              "paddle_tpu_torch::moe_gate_route")
 
 
-# -- ssd and ocr_ctc phases -------------------------------------------------
+# -- pserver phase (A11's wire): trainers on the card, pservers on the host --
+
+# arm -> (model, trainer processes, rounds): ctr_t1 and seq2seq_t1 train
+# in this process, held against the serial Executor; ctr_t2 and
+# vgg16_cluster in two worker processes on the card.  Two pservers an
+# arm, on the host, in subprocesses started through
+# paddle_tpu_torch.launch.
+PS_ARMS = {"ctr_t1": ("ctr", 1, 3), "ctr_t2": ("ctr", 2, 4),
+           "vgg16_cluster": ("vgg16", 2, 6), "seq2seq_t1": ("s2s", 1, 3)}
+PS_PSERVERS = 2
+# the arms whose pservers have static endpoints, all served by the same
+# two pserver processes (ctr_t2's come through its registry); the two
+# trainer processes run ctr_t2, then vgg16_cluster
+PS_STATIC = ("ctr_t1", "vgg16_cluster", "seq2seq_t1")
+# vgg16_cluster: benchmark/run_cluster_vgg16.py's build (:44-59) at its
+# defaults (:174-176); its first round warms up, the rest are timed
+PS_VGG_BATCH, PS_VGG_CLASSES = 128, 10
+# ctr_t2: the seeded CTR set as RecordIO chunks of one batch each, two
+# tasks of four chunks: one a trainer, one chunk a round.  A first task
+# of four empty chunks is held open by the phase until both trainers
+# are done: the master starts the next pass at the first get_task after
+# the pass's last FIN, and a reader still polling would take a task of
+# it
+PS_CTR_CHUNKS, PS_CTR_CHUNKS_PER_TASK = 8, 4
+# seq2seq_t1's gate (amp): the first round's parameters (one pserver
+# update, from the card's gradients) within the float32 gate of the
+# serial step's; each later round's update of the whole model within
+# PS_S2S_UPDATE_RTOL of the serial step's (L2), and each loss from the
+# second round within PS_S2S_LOSS_MOVE of the serial loss's move from
+# the first.  The host's and the card's Adam round an ulp apart in a
+# few elements, and amp's bf16 casts carry that ulp into later
+# gradients; a dropped, repeated or stale round is a round's update
+# off (1)
+PS_S2S_LOSS_MOVE, PS_S2S_UPDATE_RTOL = 0.1, 0.25
+
+
+def _ps_build(arm):
+    """The arm's Program, built alike by its pservers and trainers ->
+    (main, startup, loss, optimize ops, params and grads)."""
+    import paddle_tpu_torch as fluid
+
+    model = PS_ARMS[arm][0]
+    if model == "ctr":
+        main, startup, loss, opt = _ctr_program(
+            "deepfm", True, lambda f: f.Adam(learning_rate=X_LR),
+            with_opt=True)
+    elif model == "s2s":
+        main, startup, loss, opt = _s2s_program(with_opt=True)
+    else:
+        from paddle_tpu_torch.core import framework as fw
+        from paddle_tpu_torch.models.vgg import vgg16_bn_drop
+
+        fw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data(name="pixel", shape=[3, 32, 32],
+                                    dtype="float32")
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64")
+            predict = vgg16_bn_drop(img, class_dim=PS_VGG_CLASSES)
+            loss = fluid.layers.mean(
+                fluid.layers.cross_entropy(input=predict, label=label))
+            opt = fluid.SGD(learning_rate=0.01).minimize(loss)
+    return (main, startup, loss) + tuple(opt)
+
+
+def _ps_transpile(arm, built, pservers):
+    import paddle_tpu_torch as fluid
+
+    main, startup, _, opt_ops, pg = built
+    t = fluid.DistributeTranspiler()
+    with fluid.program_guard(main, startup):
+        t.transpile(optimize_ops=opt_ops, params_grads=pg,
+                    trainers=PS_ARMS[arm][1], pservers=pservers)
+    return t
+
+
+def _ps_batches(arm, master_ep=None, out_dir=None):
+    """The arm's batches, a generator of host feeds: ctr_t1 _ctr_feeds'
+    seeded batches; ctr_t2 read through cloud_reader from the master
+    (one RecordIO chunk of 2048 records a batch); vgg16 one seeded batch
+    every round, as run_cluster_vgg16 feeds it (:104-106); seq2seq
+    _s2s_feed."""
+    model = PS_ARMS[arm][0]
+    if arm == "ctr_t1":
+        yield from _ctr_feeds(PS_ARMS[arm][2])
+    elif arm == "ctr_t2":
+        import paddle_tpu_torch as fluid
+
+        reader = fluid.reader.creator.cloud_reader(
+            os.path.join(out_dir, "ctr_chunk*.rec"), master_ep,
+            timeout_sec=30, buf_size=X_BATCH)
+        rows = []
+        for rec in reader():
+            rows.append(rec)
+            if len(rows) == X_BATCH:
+                ids = np.asarray([r[0] for r in rows], np.int64)
+                feed = {f"slot{i}": torch.from_numpy(
+                    np.ascontiguousarray(ids[:, i:i + 1]))
+                    for i in range(X_SLOTS)}
+                feed["dense"] = torch.from_numpy(
+                    np.asarray([r[1] for r in rows], np.float32))
+                feed["label"] = torch.from_numpy(
+                    np.asarray([[r[2]] for r in rows], np.float32))
+                rows = []
+                yield feed
+    elif model == "vgg16":
+        r = np.random.RandomState(0)
+        feed = {"pixel": r.rand(PS_VGG_BATCH, 3, 32, 32).astype(np.float32),
+                "label": r.randint(0, PS_VGG_CLASSES,
+                                   (PS_VGG_BATCH, 1)).astype(np.int64)}
+        while True:
+            yield feed
+    else:
+        feed = _s2s_feed()
+        while True:
+            yield feed
+
+
+def _ps_write_ctr_chunks(out_dir):
+    """The seeded CTR set (_ctr_feeds' batches) as RecordIO chunks, one
+    batch a chunk, a record (26 ids, 13 dense features, the click) ->
+    (the held task's empty chunks, the set's chunks)."""
+    from paddle_tpu_torch.reader.creator import write_recordio
+
+    held = []
+    for c in range(PS_CTR_CHUNKS_PER_TASK):
+        held.append(os.path.join(out_dir, f"ctr_hold{c}.rec"))
+        write_recordio(held[-1], [])
+    paths = []
+    for c, feed in enumerate(_ctr_feeds(PS_CTR_CHUNKS)):
+        ids = np.concatenate([feed[f"slot{i}"].numpy()
+                              for i in range(X_SLOTS)], axis=1).tolist()
+        dense = feed["dense"].numpy().tolist()
+        label = feed["label"].numpy()[:, 0].tolist()
+        path = os.path.join(out_dir, f"ctr_chunk{c}.rec")
+        write_recordio(path, list(zip(ids, dense, label)))
+        paths.append(path)
+    return held, paths
+
+
+def _ps_digest(values):
+    """sha256 over the values' bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(values):
+        t = values[n].detach().cpu().contiguous()
+        h.update(n.encode() + t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ps_round_counters(pool):
+    """bytes and frames the pool's clients have moved so far."""
+    out = {"bytes_sent": 0, "bytes_recv": 0, "frames": {}}
+    for c in list(pool._clients.values()):
+        out["bytes_sent"] += c.bytes_sent
+        out["bytes_recv"] += c.bytes_recv
+        for verb, n in c.frames.items():
+            out["frames"][verb] = out["frames"].get(verb, 0) + n
+    return out
+
+
+def _ps_train(arm, pservers, trainer_id, built=None, batches=None,
+              snapshots=False):
+    """One trainer of `arm` on the card against the pservers `pservers`:
+    the startup program (its recv ops pull the pservers' parameters),
+    then the arm's rounds of the transpiled program -> its record:
+    losses; each round's ms, split into the device segment and the
+    host part (the send op: device-to-host copies, the wire round —
+    bucketed sends, barrier, pull — and the host-to-device copies into
+    the parameters); bytes and frames a round; the flash wrappers'
+    launches a round; peak memory; with `snapshots`, the parameters
+    after each round.  `built`: the arm's (_ps_build, transpiler), else
+    built here; `batches`: its feeds, else _ps_batches'."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.ops import distributed as dist_ops
+    from paddle_tpu_torch.parallel import comm
+
+    model, _, rounds = PS_ARMS[arm]
+    flash = flash_attention.launches
+    if model == "s2s":
+        fluid.amp.enable_bf16()
+    marks = {"begin": time.time()}
+    if built is None:
+        b = _ps_build(arm)
+        built = b, _ps_transpile(arm, b, pservers)
+    (main, startup, loss, _, pg), t = built
+    names = sorted(p.name for p, _ in pg)
+    marks["built"] = time.time()
+    prev_scope = executor_mod.switch_scope(Scope())
+    scope = executor_mod.global_scope()
+    secs = {"host": [], "wire": [], "h2d": []}
+    orig_round, orig_into = comm.elastic_round, dist_ops._into_scope
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def host_part(lower):
+        def run(ctx, ins, attrs):
+            torch.cuda.synchronize()    # the device segment ends here
+            return timed("host", lower)(ctx, ins, attrs)
+        return run
+
+    exe = None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        marks["startup"] = time.time()
+        init = {n: scope.find_var(n).detach().clone() for n in names}
+        pool = comm.comm_pool()
+        prog = t.get_trainer_program()
+        batches = batches if batches is not None else _ps_batches(arm)
+        losses, round_s, per_round, snaps = [], [], [], []
+        comm.elastic_round = timed("wire", orig_round)
+        dist_ops._into_scope = timed("h2d", orig_into)
+        with _wrapped_lowering("send", host_part):
+            for _ in range(rounds):
+                feed = next(batches)
+                before = _ps_round_counters(pool)
+                f0 = dict(flash)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, = exe.run(prog, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                round_s.append(time.perf_counter() - t0)
+                losses.append(float(np.asarray(out).reshape(-1)[0]))
+                after = _ps_round_counters(pool)
+                per_round.append({
+                    "bytes_sent": after["bytes_sent"] - before["bytes_sent"],
+                    "bytes_recv": after["bytes_recv"] - before["bytes_recv"],
+                    "frames": {v: n - before["frames"].get(v, 0)
+                               for v, n in after["frames"].items()
+                               if n - before["frames"].get(v, 0)},
+                    "flash": {k: flash[k] - f0[k] for k in flash}})
+                if snapshots:
+                    snaps.append({n: scope.find_var(n).detach().clone()
+                                  for n in names})
+        marks["rounds"] = time.time()
+        final = {n: scope.find_var(n).detach().clone() for n in names}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        comm.elastic_round, dist_ops._into_scope = orig_round, orig_into
+        if exe is not None:
+            exe.close()
+        executor_mod.switch_scope(prev_scope)
+        comm.reset_comm_pool()
+        if model == "s2s":
+            fluid.amp.disable_bf16()
+    rounds_ms = []
+    for i, s in enumerate(round_s):
+        host, wire, h2d = secs["host"][i], secs["wire"][i], secs["h2d"][i]
+        rounds_ms.append({"round_ms": s * 1e3,
+                          "device_segment_ms": (s - host) * 1e3,
+                          "host_ms": host * 1e3,
+                          "d2h_ms": (host - wire - h2d) * 1e3,
+                          "wire_ms": wire * 1e3, "h2d_ms": h2d * 1e3,
+                          **per_round[i]})
+    marks["closed"] = time.time()
+    return {"arm": arm, "trainer_id": trainer_id, "losses": losses,
+            "marks": marks,
+            "rounds": rounds_ms, "startup_s": startup_s,
+            "peak_memory_bytes": peak, "n_params": sum(
+                v.numel() for v in final.values()),
+            "digest": _ps_digest(final), "init": init, "final": final,
+            "snapshots": snaps}
+
+
+def _ps_serve(startup, pserver):
+    """One arm's pserver: its startup program, then its listen_and_serv
+    program (serving until a client stops it), in a CPU Executor and a
+    scope of its own."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    exe.run(pserver, scope=scope)
+
+
+def _ps_worker(kind, out_dir, master_ep=None):
+    """A process of the pserver phase, its role from TRAINING_ROLE (the
+    launcher's environment):
+
+    * "static" PSERVER (two of them): the i-th pserver of each static
+      arm (PS_STATIC; i its SERVER_ENDPOINT's place in ctr_t1's list,
+      the other arms' endpoints in the phase's endpoints.json), each
+      arm's server on a thread of its own;
+    * "ctr_t2" PSERVER: one of ctr_t2's, found through the registry;
+    * "ctr_t2" TRAINER (two of them): ctr_t2's trainer (pservers from
+      the registry, batches through cloud_reader), then
+      vgg16_cluster's; both Programs built first, then each arm waits
+      for its go file and writes its record."""
+    import threading
+
+    from paddle_tpu_torch.cloud.registry import resolve_pserver_cluster
+
+    t_entry = time.time()
+    role = os.environ["TRAINING_ROLE"]
+    with open(os.path.join(out_dir, "endpoints.json")) as f:
+        static_eps = json.load(f)
+    if kind == "static":
+        i = static_eps["ctr_t1"].index(os.environ["SERVER_ENDPOINT"])
+        serving = []
+        for arm in PS_STATIC:
+            # every Program is built here, before the next arm's
+            # thread starts: the default programs and unique names
+            # are process-global
+            eps = static_eps[arm]
+            t = _ps_transpile(arm, _ps_build(arm), ",".join(eps))
+            serving.append(threading.Thread(target=_ps_serve, args=(
+                t.get_startup_program(eps[i]),
+                t.get_pserver_program(eps[i]))))
+            serving[-1].start()
+        for th in serving:
+            th.join()
+        return
+    pservers, my_ep, lease = resolve_pserver_cluster(timeout_s=120.0)
+    if role == "PSERVER":
+        t = _ps_transpile(kind, _ps_build(kind), pservers)
+        _ps_serve(t.get_startup_program(my_ep), t.get_pserver_program(my_ep))
+        lease.release()
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tid = int(os.environ["PADDLE_INIT_TRAINER_ID"])
+    torch.cuda.init()
+    # the Programs are built while earlier arms run (a fresh process's
+    # first build also pays the lazy imports)
+    plan = []
+    for arm, eps in (("ctr_t2", pservers),
+                     ("vgg16_cluster", ",".join(static_eps["vgg16_cluster"]))):
+        b = _ps_build(arm)
+        plan.append((arm, eps, (b, _ps_transpile(arm, b, eps)),
+                     _ps_batches(arm, master_ep, out_dir)))
+    t_ready = time.time()
+    with open(os.path.join(out_dir, f"ready_{tid}"), "w"):
+        pass
+    for arm, eps, built, batches in plan:
+        while not os.path.exists(os.path.join(out_dir, f"go_{arm}")):
+            time.sleep(0.02)
+        t_go = time.time()
+        rec = _ps_train(arm, eps, tid, built, batches)
+        del rec["init"], rec["final"], rec["snapshots"]
+        rec["clock"] = {"entry": t_entry, "ready": t_ready, "go": t_go,
+                        **rec.pop("marks"), "done": time.time()}
+        path = os.path.join(out_dir, f"{arm}_trainer{tid}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+    # out at once: ctr_t2's cloud_reader worker still polls the master
+    # (the held task keeps the pass open), and closing it would wait
+    # out its join timeout
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _ps_free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _ps_wait_ready(out_dir, static_eps, registry, timeout=300):
+    """Until both trainer processes have built their Programs (their
+    ready files) and every pserver serves: the arms then run on a quiet
+    host, their rounds timed without processes booting beside them."""
+    import socket
+
+    deadline = time.time() + timeout
+    want = [f"ready_{tid}" for tid in range(PS_ARMS["ctr_t2"][1])]
+    while not all(os.path.exists(os.path.join(out_dir, w)) for w in want):
+        check(time.time() < deadline, "pserver: trainers not ready")
+        time.sleep(0.05)
+    for ep in static_eps:
+        host, port = ep.rsplit(":", 1)
+        while True:
+            try:
+                socket.create_connection((host, int(port)), 1.0).close()
+                break
+            except OSError:
+                check(time.time() < deadline, f"pserver: {ep} not up")
+                time.sleep(0.05)
+    check(registry.wait_ready("pserver", PS_PSERVERS,
+                              max(deadline - time.time(), 0.0)),
+          "pserver: the registry's pservers not up")
+
+
+def _ps_go(arm, out_dir):
+    """Release the arm's trainer processes (_ps_worker) -> the time."""
+    with open(os.path.join(out_dir, f"go_{arm}"), "w"):
+        pass
+    return time.time()
+
+
+def _ps_launch(kind, out_dir, trainers=0, registry=False, extra=(),
+               endpoints=None):
+    """Start the phase's processes of `kind` through
+    paddle_tpu_torch.launch (each sends its output to the phase's log,
+    _ps_log_to) -> (procs, the registry or None)."""
+    from paddle_tpu_torch import launch
+
+    script = os.path.abspath(__file__)
+    args = ["--pserver-worker", kind, out_dir, *extra]
+    if registry:
+        reg, procs = launch.launch_registry_cluster(
+            script, args, PS_PSERVERS, trainers)
+        return procs, reg
+    return launch.launch_pserver_cluster(
+        script, args, PS_PSERVERS, trainers,
+        endpoints=",".join(endpoints)), None
+
+
+def _ps_log_to(out_dir):
+    """Send this process's output (its descriptors 1 and 2) to the
+    pserver phase's log, processes.log in `out_dir`."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    fd = os.open(os.path.join(out_dir, "processes.log"),
+                 os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+
+
+def _ps_records(arm, out_dir, procs, timeout=300):
+    """The trainers' records of `arm`, once both are written (a trainer
+    process that exits early fails the phase with the log's tail)."""
+    deadline = time.time() + timeout
+    paths = [os.path.join(out_dir, f"{arm}_trainer{tid}.json")
+             for tid in range(PS_ARMS[arm][1])]
+    while not all(os.path.exists(p) for p in paths):
+        bad = [p.returncode for role, p in procs
+               if role == "trainer" and p.poll() not in (None, 0)]
+        if bad or time.time() > deadline:
+            with open(os.path.join(out_dir, "processes.log")) as f:
+                tail = f.read()[-4000:]
+            raise CheckFailed(f"pserver: {arm} trainers exited {bad} or "
+                              f"timed out: {tail}")
+        time.sleep(0.02)
+    recs = []
+    for path in paths:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _ps_stop(eps):
+    """STOP the pservers at `eps` over the wire."""
+    from paddle_tpu_torch.parallel.pserver import VariableClient
+
+    for ep in eps or ():
+        try:
+            VariableClient(ep, connect_timeout=5.0).stop_server()
+        except Exception:
+            pass
+
+
+def _ps_reap(procs):
+    """Wait for the phase's processes (a kill past 30 s)."""
+    for _, p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _ps_pulled(arm, eps):
+    """The arm's parameters as a VariableClient GETs them from their
+    pservers -> {name: host tensor}."""
+    from paddle_tpu_torch.parallel.pserver import VariableClient
+
+    t = _ps_transpile(arm, _ps_build(arm), ",".join(eps))
+    out = {}
+    for ep in eps:
+        names = [p.name for p, _ in t._pairs_by_ep[ep]]
+        c = VariableClient(ep, connect_timeout=30.0)
+        out.update(zip(names, c.get_vars(names)))
+        c.close()
+    return out
+
+
+def _ps_serial(arm, init):
+    """The arm's untranspiled Program on the serial Executor on the card,
+    started from `init` (the trainer's pulled parameters), over the
+    trainer's batches -> (losses, {param: final value}, flash launches a
+    step, [{param: value} after each step], {param: Adam's second
+    moment at the end})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.core.scope import Scope
+
+    model, _, rounds = PS_ARMS[arm]
+    if model == "s2s":
+        fluid.amp.enable_bf16()
+    prev = executor_mod.switch_scope(Scope())
+    exe = None
+    try:
+        main, startup, loss, _, pg = _ps_build(arm)
+        scope = executor_mod.global_scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for n, v in init.items():
+            scope.find_var(n).copy_(v)
+        batches = _ps_batches(arm)
+        reads = _flash_counts()
+        losses, flash, snaps = [], [], []
+        for _ in range(rounds):
+            before = {k: r() for k, r in reads.items()}
+            out, = exe.run(main, feed=next(batches), fetch_list=[loss])
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+            flash.append({k: r() - before[k] for k, r in reads.items()})
+            snaps.append({p.name: scope.find_var(p.name).detach().clone()
+                          for p, _ in pg})
+        final = snaps[-1]
+        moment2 = {p.name: scope.find_var(f"{p.name}_moment2_acc")
+                   .detach().clone() for p, _ in pg}
+    finally:
+        if exe is not None:
+            exe.close()
+        executor_mod.switch_scope(prev)
+        if model == "s2s":
+            fluid.amp.disable_bf16()
+    return losses, final, flash, snaps, moment2
+
+
+def _ps_steady(rounds):
+    """The rounds past the device segment's eager run (the first) and
+    its capture (the second), or the last where there are no more."""
+    return rounds[2:] or rounds[-1:]
+
+
+def _ps_summary(recs):
+    """An arm's figures over its trainers' records: ms a round (the
+    median over the steady rounds, _ps_steady; the first two apart),
+    its device and host parts, bytes and frames a round, peak
+    memory."""
+    def med(key, r):
+        return float(np.median([x[key] for x in _ps_steady(r["rounds"])]))
+
+    keys = ("round_ms", "device_segment_ms", "host_ms", "d2h_ms",
+            "wire_ms", "h2d_ms")
+    per = [{k: med(k, r) for k in keys} for r in recs]
+    out = {k: float(np.mean([p[k] for p in per])) for k in keys}
+    out["host_share"] = out["host_ms"] / out["round_ms"]
+    out["first_rounds_ms"] = [[x["round_ms"] for x in r["rounds"][:2]]
+                              for r in recs]
+    last = [r["rounds"][-1] for r in recs]
+    out["bytes_sent_per_round"] = [x["bytes_sent"] for x in last]
+    out["bytes_recv_per_round"] = [x["bytes_recv"] for x in last]
+    out["frames_per_round"] = [x["frames"] for x in last]
+    out["peak_memory_bytes"] = [r["peak_memory_bytes"] for r in recs]
+    out["startup_s"] = [r["startup_s"] for r in recs]
+    out["losses"] = [r["losses"] for r in recs]
+    return out
+
+
+def _ps_round_diffs(got, want, init):
+    """Each round's parameters (`got`, [{param: value}]) against the
+    serial steps' (`want`), both from `init`: the elements not
+    bit-equal, the largest difference, the elements outside the float32
+    gate, and the round's update of the whole model off the serial
+    step's (||update - serial update|| / ||serial update||, L2)."""
+    out = []
+    prev_g = prev_w = init
+    for g, w in zip(got, want):
+        rec = {"not_bit_equal": 0, "max_abs": 0.0, "outside_fp32_tol": 0}
+        num = den = 0.0
+        for n, b in w.items():
+            a, b = g[n].to(b.device).float(), b.float()
+            d = (a - b).abs()
+            rec["not_bit_equal"] += int((a != b).sum())
+            rec["max_abs"] = max(rec["max_abs"], float(d.max()))
+            rec["outside_fp32_tol"] += int(
+                (d > A9_FP32_ATOL + A9_FP32_RTOL * b.abs()).sum())
+            upd = b - prev_w[n].to(b.device).float()
+            num += float((a - prev_g[n].to(b.device).float() - upd)
+                         .square().sum())
+            den += float(upd.square().sum())
+        rec["update_err"] = (num / den) ** 0.5 if den else float(num > 0)
+        out.append(rec)
+        prev_g, prev_w = g, w
+    return out
+
+
+def _ps_outside_grads(final, serial, moment2, steps, beta2=0.999):
+    """The elements outside the float32 gate, by the serial run's RMS
+    gradient over its steps (Adam's unbiased second moment): how many,
+    how many had none, its quantiles; beside Adam's epsilon in the same
+    units at each step (epsilon / sqrt(1 - beta2^t): the update is lr *
+    m_hat / (sqrt(v_hat) + that))."""
+    rms = []
+    for n, w in serial.items():
+        w = w.float()
+        d = (final[n].to(w.device).float() - w).abs()
+        bad = d > A9_FP32_ATOL + A9_FP32_RTOL * w.abs()
+        if bad.any():
+            rms.append((moment2[n].float()[bad] / (1 - beta2 ** steps))
+                       .sqrt().cpu())
+    rms = torch.cat(rms) if rms else torch.zeros(0)
+    q = (0.5, 0.9, 0.99, 1.0)
+    return {"count": rms.numel(), "serial_grad_zero": int((rms == 0).sum()),
+            "grad_rms_quantiles": dict(zip(map(str, q), (
+                np.quantile(rms.numpy(), q).tolist()
+                if rms.numel() else []))),
+            "adam_eps_in_grad_units": [1e-8 / (1 - beta2 ** t) ** 0.5
+                                       for t in range(1, steps + 1)]}
+
+
+def _ps_adam_host_vs_card(n=1 << 22):
+    """The adam op's lowering on the host and on the card from the same
+    float32 inputs (gradients of both signs over eight decades; two
+    steps, the second from the first's states) -> {output: the
+    elements not bit-equal}; and the two inexact ops of its parameter
+    step, sqrt and the division, each on the same inputs on the host
+    and on the card, against the correctly rounded result (float64,
+    then rounded to float32) -> {op: elements that differ, host vs
+    card, host vs correct, card vs correct}."""
+    from paddle_tpu_torch.ops.optimizer_ops import adam
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def grad():
+        scale = 10.0 ** -torch.randint(3, 11, (n,), generator=gen).float()
+        return torch.randn(n, generator=gen) * scale
+
+    def differ(a, b):
+        return int((a != b).sum())
+
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    state = {"Param": torch.randn(n, generator=gen) * 0.02,
+             "Moment1": torch.zeros(n), "Moment2": torch.zeros(n)}
+    out = {}
+    for step, g in enumerate((grad(), grad()), 1):
+        ins = dict(state, Grad=g, LearningRate=torch.tensor([1e-4]),
+                   Beta1Pow=torch.tensor([0.9 ** step]),
+                   Beta2Pow=torch.tensor([0.999 ** step]))
+        host = adam(None, {k: [v] for k, v in ins.items()}, attrs)
+        card = adam(None, {k: [v.cuda()] for k, v in ins.items()}, attrs)
+        for k, v in host.items():
+            out[f"step{step}.{k}"] = differ(v, card[k].cpu())
+        root = torch.sqrt(host["Moment2Out"])
+        for op, fn, args in (
+                ("sqrt", torch.sqrt, (host["Moment2Out"],)),
+                ("div", torch.div, (1e-4 * host["Moment1Out"], root + 1e-8))):
+            h, c = fn(*args), fn(*(x.cuda() for x in args)).cpu()
+            want = fn(*(x.double() for x in args)).float()
+            out[f"step{step}.{op}"] = {"host_vs_card": differ(h, c),
+                                       "host_vs_correct": differ(h, want),
+                                       "card_vs_correct": differ(c, want)}
+        state = {"Param": host["ParamOut"], "Moment1": host["Moment1Out"],
+                 "Moment2": host["Moment2Out"]}
+    return out
+
+
+def _ps_t1_arm(arm, eps, failed):
+    """A one-trainer arm in this process, held against the serial
+    Executor from the same parameters; a second serial run from them
+    gives the card's own spread between two runs of one step."""
+    model, _, rounds = PS_ARMS[arm]
+    reads = _flash_counts()
+    r = _ps_train(arm, ",".join(eps), 0, snapshots=True)
+    flash_total = {k: v() for k, v in reads.items()}
+    pulled = _ps_pulled(arm, eps)
+    same_as_pull = all(torch.equal(r["final"][n].cpu(), pulled[n])
+                       for n in pulled)
+    s_losses, s_final, s_flash, s_snaps, s_m2 = _ps_serial(arm, r["init"])
+    b_losses, _, _, b_snaps, _ = _ps_serial(arm, r["init"])
+    # reported as the a9 phase reports them (_a9_diffs: each
+    # parameter's largest difference, the largest serial update, the
+    # elements outside the float32 gate)
+    diffs = _a9_diffs(r["final"], r["init"], s_final, lambda n, t: t)
+    worst = max(diffs, key=lambda n: diffs[n]["max_abs"])
+    outside = {n: d["outside_tol"] for n, d in diffs.items()
+               if d["outside_tol"]}
+    largest = max(d["max_update"] for d in diffs.values())
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], s_losses)]
+    per_round = _ps_round_diffs(r["snapshots"], s_snaps, r["init"])
+    rec = {"model": model, "trainers": 1, "rounds": rounds,
+           "n_params": r["n_params"], **_ps_summary([r]),
+           "per_round": r["rounds"], "serial_losses": s_losses,
+           "loss_rel_diff": loss_rel,
+           "largest_param_diff": {worst: diffs[worst]},
+           "largest_serial_update": largest,
+           "param_diff_over_update": diffs[worst]["max_abs"] / max(
+               largest, 1e-30),
+           "params_outside_fp32_tol": outside,
+           "rounds_vs_serial": per_round,
+           "serial_vs_serial": {
+               "losses": b_losses,
+               "rounds": _ps_round_diffs(b_snaps, s_snaps, r["init"])},
+           "outside_elements": _ps_outside_grads(r["final"], s_final, s_m2,
+                                                 rounds),
+           "adam_host_vs_card_not_bit_equal": _ps_adam_host_vs_card(),
+           "trainer_params_equal_pservers": same_as_pull}
+    del r, s_snaps, b_snaps, s_m2
+    if not same_as_pull:
+        failed.append(f"pserver: {arm}: the trainer's parameters are not "
+                      "the pservers'")
+    if not all(np.isfinite(rec["losses"][0])):
+        failed.append(f"pserver: {arm} losses {rec['losses']}")
+    if model == "s2s":
+        moves = [abs(x - s_losses[0]) for x in s_losses]
+        rec["gate"] = (f"the first round's parameters within {TZ_FP32_RTOL} "
+                       f"relative and {TZ_FP32_ATOL} absolute; each later "
+                       f"round's update within {PS_S2S_UPDATE_RTOL} of the "
+                       f"serial step's (L2); losses within "
+                       f"{TZ_AMP_LOSS_RTOL} relative, and from the second "
+                       f"round within {PS_S2S_LOSS_MOVE} of the serial "
+                       "loss's move from the first")
+        if not all(x <= TZ_AMP_LOSS_RTOL for x in loss_rel):
+            failed.append(f"pserver: {arm} losses {loss_rel}")
+        if not all(abs(a - b) <= PS_S2S_LOSS_MOVE * m for a, b, m in zip(
+                rec["losses"][0][1:], s_losses[1:], moves[1:])):
+            failed.append(f"pserver: {arm} losses {rec['losses'][0]} vs "
+                          f"serial {s_losses}, beyond {PS_S2S_LOSS_MOVE} of "
+                          "the serial moves")
+        if per_round[0]["outside_fp32_tol"]:
+            failed.append(f"pserver: {arm} first round's parameters "
+                          f"{per_round[0]}")
+        errs = [x["update_err"] for x in per_round[1:]]
+        if not all(e <= PS_S2S_UPDATE_RTOL for e in errs):
+            failed.append(f"pserver: {arm} later rounds' updates off the "
+                          f"serial steps' by {errs}")
+        got = [x["flash"] for x in rec["per_round"]]
+        rec["flash_launches_per_round"] = got
+        rec["serial_flash_launches_per_step"] = s_flash
+        # the serial step's flash kernels each round: the eager run, then
+        # the capture, then a replay (no wrapper call), as the serial
+        # steps run
+        if got != s_flash or not all(v for x in got[:2]
+                                     for v in x.values()):
+            failed.append(f"pserver: {arm} flash launches {got} vs the "
+                          f"serial steps' {s_flash}")
+    else:
+        rec["gate"] = (f"losses and every parameter within {TZ_FP32_RTOL} "
+                       f"relative and {TZ_FP32_ATOL} absolute")
+        if outside or not all(x <= TZ_FP32_RTOL for x in loss_rel):
+            failed.append(f"pserver: {arm} parameters outside the "
+                          f"tolerance {outside}, loss rel {loss_rel}")
+    return rec, flash_total
+
+
+def _ps_t2_arm(arm, recs, eps, failed):
+    """A two-trainer arm's figures from its trainers' records; both
+    trainers' parameters equal bit for bit, and equal to what a
+    VariableClient GETs from the pservers."""
+    pulled = _ps_digest(_ps_pulled(arm, eps))
+    digests = [r["digest"] for r in recs]
+    rec = {"model": PS_ARMS[arm][0], "trainers": len(recs),
+           "rounds": PS_ARMS[arm][2], "n_params": recs[0]["n_params"],
+           "clock": [r["clock"] for r in recs],
+           **_ps_summary(recs),
+           "per_round": [r["rounds"] for r in recs],
+           "trainers_params_equal": len(set(digests)) == 1,
+           "trainers_equal_pservers": digests[0] == pulled}
+    if not (rec["trainers_params_equal"] and rec["trainers_equal_pservers"]):
+        failed.append(f"pserver: {arm} parameter digests {digests} vs the "
+                      f"pservers' {pulled}")
+    if not all(np.isfinite(x) for r in recs for x in r["losses"]):
+        failed.append(f"pserver: {arm} losses not finite")
+    return rec
+
+
+def pserver_phase(card):
+    """A11's wire on the card: DeepFM over two pservers with one trainer
+    (ctr_t1) and two (ctr_t2: its batches through cloud_reader from a
+    Master, its pservers found through a Registry), vgg16 over two
+    pservers and two trainers (vgg16_cluster), and the seq2seq
+    translator over two pservers (seq2seq_t1).  The pservers are host
+    subprocesses; the one-trainer arms train here and are held against
+    the serial Executor -> the flash launches of seq2seq_t1's rounds.
+
+    Six processes boot at once — two pserver processes serving every
+    static arm, ctr_t2's two registry pservers and the two trainer
+    processes — and the arms run one by one once all are up."""
+    from paddle_tpu_torch.cloud import Master
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pserver_")
+    failed, arms, secs, clock = [], {}, {}, {"start": time.time()}
+    procs, master, reg, prep, t2 = [], None, None, None, {}
+    static_eps = {arm: [f"127.0.0.1:{_ps_free_port()}"
+                        for _ in range(PS_PSERVERS)] for arm in PS_STATIC}
+    try:
+        with open(os.path.join(out_dir, "endpoints.json"), "w") as f:
+            json.dump(static_eps, f)
+        open(os.path.join(out_dir, "processes.log"), "w").close()
+        procs += _ps_launch("static", out_dir,
+                            endpoints=static_eps["ctr_t1"])[0]
+
+        def start_ctr_t2():
+            # the chunks, the master (its first use builds the native
+            # library) and the registry cluster: ctr_t2's two pservers
+            # and the two trainer processes
+            try:
+                t2["held"], paths = _ps_write_ctr_chunks(out_dir)
+                t2["master"] = Master(failure_max=3, timeout_s=300)
+                ep = f"127.0.0.1:{t2['master'].serve(0)}"
+                t2["master"].set_dataset(t2["held"] + paths,
+                                         PS_CTR_CHUNKS_PER_TASK)
+                t2["task"] = t2["master"].get_task()
+                t2["launched"] = _ps_launch("ctr_t2", out_dir,
+                                            trainers=2, registry=True,
+                                            extra=[ep])
+                clock["spawned_ctr_t2"] = time.time()
+            except BaseException as e:   # raised after the join
+                t2["error"] = e
+
+        prep = threading.Thread(target=start_ctr_t2)
+        prep.start()
+        clock["spawned"] = time.time()
+        prep.join()
+        master = t2.get("master")
+        if "launched" in t2:
+            t2_procs, reg = t2["launched"]
+            procs += t2_procs
+        if "error" in t2:
+            raise t2["error"]
+        held_task = t2["task"]
+        check(held_task[1] == t2["held"], f"pserver: ctr_t2 held "
+              f"{held_task}")
+        _ps_wait_ready(out_dir, [ep for eps in static_eps.values()
+                                 for ep in eps], reg)
+        clock["ready"] = time.time()
+
+        t0 = time.perf_counter()
+        arms["ctr_t1"], _ = _ps_t1_arm("ctr_t1", static_eps["ctr_t1"],
+                                       failed)
+        _ps_stop(static_eps["ctr_t1"])
+        secs["ctr_t1"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        clock["go_ctr_t2"] = _ps_go("ctr_t2", out_dir)
+        recs = _ps_records("ctr_t2", out_dir, procs)
+        eps = [a for _, a in sorted(reg.list("pserver").items())]
+        arms["ctr_t2"] = _ps_t2_arm("ctr_t2", recs, eps, failed)
+        before = master.counts()
+        master.task_finished(held_task[0])
+        counts = master.counts()
+        # the trainers' two tasks done while the held one was pending,
+        # then all three done, in one pass
+        want = {"todo": 0, "pending": 0,
+                "done": PS_CTR_CHUNKS // PS_CTR_CHUNKS_PER_TASK + 1,
+                "discarded": 0, "pass": 0}
+        if before != dict(want, pending=1, done=want["done"] - 1):
+            failed.append(f"pserver: ctr_t2 master counts with the held "
+                          f"task pending {before}")
+        arms["ctr_t2"].update(master_counts=counts, chunks=PS_CTR_CHUNKS,
+                              chunks_per_task=PS_CTR_CHUNKS_PER_TASK,
+                              registry_endpoints=eps)
+        if counts != want:
+            failed.append(f"pserver: ctr_t2 master counts {counts}, want "
+                          f"{want} (every chunk dispatched and finished "
+                          "once)")
+        _ps_stop(eps)
+        secs["ctr_t2"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        clock["go_vgg16_cluster"] = _ps_go("vgg16_cluster", out_dir)
+        recs = _ps_records("vgg16_cluster", out_dir, procs)
+        arms["vgg16_cluster"] = v = _ps_t2_arm(
+            "vgg16_cluster", recs, static_eps["vgg16_cluster"], failed)
+        # run_cluster_vgg16's figure: each trainer's batch x timed
+        # rounds over their time, summed over the trainers
+        v["aggregate_samples_per_s"] = sum(
+            PS_VGG_BATCH * len(_ps_steady(rr)) / (sum(
+                x["round_ms"] for x in _ps_steady(rr)) / 1e3)
+            for rr in v["per_round"])
+        v["batch"] = PS_VGG_BATCH
+        _ps_stop(static_eps["vgg16_cluster"])
+        secs["vgg16_cluster"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        arms["seq2seq_t1"], flash = _ps_t1_arm(
+            "seq2seq_t1", static_eps["seq2seq_t1"], failed)
+        _ps_stop(static_eps["seq2seq_t1"])
+        secs["seq2seq_t1"] = time.perf_counter() - t0
+    finally:
+        if prep is not None and prep.is_alive():
+            prep.join()     # a raise before its join: reap its processes
+            if "launched" in t2:
+                procs += t2["launched"][0]
+                reg = t2["launched"][1]
+        master = master or t2.get("master")
+        for arm in PS_STATIC:   # a no-op for the servers stopped already
+            if arm not in secs:
+                _ps_stop(static_eps[arm])
+        if reg is not None and "ctr_t2" not in secs:
+            _ps_stop(list(reg.list("pserver").values()))
+        _ps_reap(procs)
+        if reg is not None:
+            reg.close()
+        if master is not None:
+            master.stop()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for arm, s in secs.items():
+        arms[arm]["arm_s"] = s
+        # the trainer processes' clocks from the phase's start: entry,
+        # CUDA up, the arm's go, done
+        arms[arm]["clock"] = [{k: v - clock["start"] for k, v in c.items()}
+                              for c in arms[arm].get("clock", ())]
+    emit({"phase": "pserver", "card": card, "pservers": PS_PSERVERS,
+          "clock": {k: v - clock["start"] for k, v in clock.items()},
+          "processes": len(procs),
+          "placement": "the pservers' optimizer ops on the host "
+                       "(Executor(CPUPlace()) in each pserver process), "
+                       "the trainers' forward and backward on the card",
+          "split_method": "balanced_split", "arms": arms,
+          "timing": "host clock; a round: exe.run of the transpiled "
+                    "program + synchronize; its device segment until the "
+                    "send op starts (a synchronize there), its host part "
+                    "the send op: device-to-host copies, the wire round "
+                    "(bucketed SEND_BATCH frames, the barrier with the "
+                    "pservers' optimize, the GET_BATCH pull) and the "
+                    "host-to-device copies into the parameters; medians "
+                    "over the rounds after the first two (the first runs "
+                    "eagerly, the second captures the segment); bytes "
+                    "are serialized payload bytes, frames by verb, of "
+                    "the last round",
+          "phase_s": time.perf_counter() - t_phase})
+    check(not failed, "; ".join(failed))
+    return flash
 
 def _conv_bn(fluid, x, filter_size, num_filters, stride, padding, groups=1,
              act="relu", is_test=False):
@@ -11064,6 +12035,9 @@ def main():
     persist_flash = persist_phase(card, CUDAPlace(0))
     conv_rest_phase(card, dev, CUDAPlace(0))
     aot_launches = aot_native_phase(card, dev, CUDAPlace(0))
+    # after aot_native, whose native pipeline builds the native library
+    # the master and the registry run on
+    ps_launches = pserver_phase(card)
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -11137,6 +12111,8 @@ def main():
             **({"launches_aot": aot_launches["fwd"],
                 "launches_aot_note": _AOT_NOTE} if kind == "fwd" else {}),
             "launches_tp_zero": tz_launches[kind],
+            "launches_pserver": ps_launches[kind],
+            "launches_pserver_note": _PS_NOTE,
             "launches_a9": a9_launches[kind],
             "launches_a9_note": _A9_NOTE,
             "launches_tp_zero_note": "the tp_zero phase's amp run, each "
@@ -11219,6 +12195,12 @@ if __name__ == "__main__":
         # a rank of the a9 phase
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _a9_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--pserver-worker"]:
+        # a pserver (host) or a trainer (card) of the pserver phase
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _ps_log_to(sys.argv[3])
+        _ps_worker(*sys.argv[2:])
         sys.exit(0)
     if sys.argv[1:2] == ["--tp-zero-worker"]:
         # a rank of the tp_zero phase

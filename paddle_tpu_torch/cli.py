@@ -50,7 +50,7 @@ AST lint over paddle_tpu_torch/ and the schedule checker's protocol
 models).  The other subcommands of the JAX package's CLI raise naming
 the ROADMAP item they wait for: `metrics`, `trace`, `top`, `slo`, `why`
 and `trace-of` (A12's observability part), `serve` and `autoscale`
-(A11).
+(A11's second slice).
 """
 from __future__ import annotations
 
@@ -70,8 +70,8 @@ _WAITING = {
     "slo": "A12's second part, the observability rest",
     "why": "A12's second part, the observability rest",
     "trace-of": "A12's second part, the observability rest",
-    "serve": "A11, the distributed runtime and fleet",
-    "autoscale": "A11, the distributed runtime and fleet",
+    "serve": "A11's second slice, the serving fleet",
+    "autoscale": "A11's second slice, the serving fleet",
 }
 
 

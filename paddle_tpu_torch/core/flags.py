@@ -130,6 +130,16 @@ define_flag("serving_kernels", "auto",
             "ParallelExecutor for the fused bucket update (at build and "
             "at its first run after a change), and by the moe_ffn op for "
             "gate + dispatch at every call")
+define_flag("comm_bucket_bytes", 4 << 20,
+            "size cap (bytes) for fused pserver transfers: send ops "
+            "pack grads into arrival-order buckets (DDP-style) and "
+            "ship each bucket as ONE SEND_BATCH frame "
+            "(parallel/comm.py + parallel/pserver.py).  0 disables "
+            "fusion — every var goes in its own legacy SEND frame "
+            "(the pre-bucketing wire path; also the automatic "
+            "fallback against a server that predates the batch "
+            "verbs).  An oversized var still ships, alone in its "
+            "bucket")
 define_flag("overlap_bucket_bytes", 4 << 20,
             "size cap (bytes) for the compute/collective-overlap "
             "gradient buckets of ParallelExecutor(overlap='bucketed'|"

@@ -16,8 +16,9 @@ compiler's version and target and the interpreter's version, as
 kernels/cuda_build.py keys the CUDA builds:
 
 - `_native` (`channel.cc`, `threadpool.cc`, `allocator.cc`,
-  `loader.cc`): `Channel`, `ThreadPool`, `BuddyAllocator`,
-  `NativeLoader`;
+  `loader.cc`, `master.cc`, `registry.cc`): `Channel`, `ThreadPool`,
+  `BuddyAllocator`, `NativeLoader`, and the task-dispatch master and
+  the TTL-lease registry behind cloud/master.py and cloud/registry.py;
 - `_capi` (`capi.cc`): the C inference ABI, which embeds CPython and
   calls `paddle_tpu_torch.capi_runtime` (`capi_library`).  Its include
   and link flags come from `sysconfig`; it links the shared libpython
@@ -48,7 +49,7 @@ SRC_DIR = os.path.join(_DIR, "src")
 BUILD_DIR = os.path.join(_DIR, "_build")
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")
 NATIVE_SOURCES = ("channel.cc", "threadpool.cc", "allocator.cc",
-                  "loader.cc")
+                  "loader.cc", "master.cc", "registry.cc")
 _lock = threading.Lock()
 _lib = None
 _toolchains = {}

@@ -1,7 +1,10 @@
 """Observability: metrics registry, trace spans, exemplars, time
 attribution and the flight recorder (counterpart of
 paddle_tpu/observability/; the exporters, collector, timeseries, slo and
-fleet tools are not ported yet, ROADMAP A12).
+fleet tools are not ported yet, ROADMAP A12's second part: until then
+`maybe_announce`, the collector's announcement of a trainer or a
+pserver, does nothing without PADDLE_TPU_TELEMETRY_REGISTRY and raises
+with it).
 
 Switches (env at import, or flags/`set_flags` at runtime):
   * ``PADDLE_TPU_METRICS=on`` — arm the gated instruments (metrics
@@ -44,7 +47,21 @@ __all__ = [
     "span",
     "activate",
     "current_context",
+    "maybe_announce",
 ]
+
+
+def maybe_announce(kind: str):
+    """The fleet telemetry announcement of a `kind` member ("trainer",
+    "pserver") to the collector: nothing while
+    PADDLE_TPU_TELEMETRY_REGISTRY is unset."""
+    import os
+
+    if os.environ.get("PADDLE_TPU_TELEMETRY_REGISTRY"):
+        raise NotImplementedError(
+            f"PADDLE_TPU_TELEMETRY_REGISTRY is set: announcing this {kind} "
+            "to the telemetry collector is not ported yet (ROADMAP A12's "
+            "second part)")
 
 
 def _wire_flags():

@@ -11,8 +11,9 @@ flushed to ``<dir>/flight_<pid>.json`` on a short period (default 0.5 s,
 written to a temporary and renamed), so a SIGKILLed process leaves its
 last seconds on disk; SIGTERM, an uncaught exception, an injected fault
 (core/resilience calls :func:`on_fault`) and interpreter exit dump at
-once.  The wire verbs that ask a live pserver or replica for its dump
-belong to the distributed runtime (ROADMAP A11).
+once.  A live pserver answers its dump over the wire (the FLIGHT verb,
+parallel/pserver.py); a serving replica's comes with ROADMAP A11's
+second slice.
 
 Arming: ``PADDLE_TPU_FLIGHT_DIR=<dir>`` at package import (a memory-only
 ring with ``PADDLE_TPU_FLIGHT=on``), or ``flightrecorder.install(dir=...)``.

@@ -12,8 +12,9 @@ sequence ops, the recurrent ops and the control-flow ops (while,
 conditional blocks, tensor arrays, rank tables, beam search and the
 recurrence over a step block), the linear-chain CRF ops, CTC, the
 sampled losses (hsigmoid, nce), the detection ops, the readers and the
-io ops (save, load and their combined forms, feed, fetch), each lowered
-once in PyTorch.
+io ops (save, load and their combined forms, feed, fetch) and the
+pserver transfer ops (send, recv, listen_and_serv), each lowered once
+in PyTorch.
 """
 from . import (  # noqa: F401
     activation,
@@ -24,6 +25,7 @@ from . import (  # noqa: F401
     crf,
     ctc,
     detection,
+    distributed,
     elementwise,
     embedding,
     io_ops,

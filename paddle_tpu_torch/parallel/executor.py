@@ -90,7 +90,10 @@ parallel/pipeline_program.py's `PipelineExecutor`, to which
 `pipeline_stage` annotations over a 'pp' axis.  `save_checkpoint` /
 `restore_checkpoint` come from parallel/checkpoint.py.
 
-Not ported: the pserver transpiler mode (A11).
+`DistributeTranspiler`'s pserver mode (`pservers="h:p,h:p"`) rewrites
+the trainer program as the JAX package's does (optimizer ops out, one
+fused `send` in) and builds each endpoint's `listen_and_serv` program;
+the pservers run on the host (parallel/pserver.py).
 """
 from __future__ import annotations
 
@@ -1196,25 +1199,45 @@ class ParallelExecutor(ShardedCheckpointMixin):
 
 
 class DistributeTranspiler:
-    """The reference's transpiler workflow, spmd mode
-    (reference distribute_transpiler.py:133).
+    """The reference's transpiler workflow (reference
+    distribute_transpiler.py:133), in its two modes:
 
-    `transpile` records the mesh layout and completes the program's
-    sharding annotations, `get_trainer_program` returns the ORIGINAL
-    program, and `build_executor` yields a ParallelExecutor over the
-    mesh (dp x tp, with ZeRO-1 unless `shard_optimizer_states=False`, as
-    in the JAX package).  The pserver mode (`pservers=...`) is not
-    ported (ROADMAP A11)."""
+    * pserver (`pservers="h:p,h:p"`): the trainer program loses its
+      optimizer ops and gains ONE fused `send` (grads out by `epmap`,
+      params back by `out_epmap`, whole-param placement by
+      `split_method`, default `balanced_split`); each endpoint's
+      `get_pserver_program` is one `listen_and_serv` op whose sub-block
+      holds the optimizer ops of the params placed there.  The trainer
+      program and the pserver programs are the JAX package's, op for op
+      and attribute for attribute.  The port's one addition: the
+      trainer's startup program ends with one `recv` op a pserver,
+      pulling the parameters it owns, so a trainer on a card starts
+      from the pservers' parameters (parallel/pserver.py says why);
+      `get_startup_program(endpoint)` is the startup program without
+      them.
+    * spmd (the default without pservers): records the mesh layout and
+      completes the program's sharding annotations;
+      `get_trainer_program` returns the ORIGINAL program, and
+      `build_executor` yields a ParallelExecutor over the mesh (dp x
+      tp, with ZeRO-1 unless `shard_optimizer_states=False`, as in the
+      JAX package)."""
 
     def __init__(self):
         self._mesh_axes = None
         self._program = None
         self._startup = None
+        self._pserver_startup = None
         self._shard_opt = True
         self._mode = None
         self._plan = None
         self._overlap = "auto"
         self._batch_axis = "dp"
+        self._endpoints = []
+        self._assign = {}
+        self._pairs_by_ep = {}
+        self._optimize_ops = []
+        self._trainers = 1
+        self._sync_mode = True
 
     def transpile(self, optimize_ops=None, params_grads=None,
                   trainers=1, pservers: str = "", program=None,
@@ -1225,24 +1248,16 @@ class DistributeTranspiler:
                   shard_optimizer_states: bool = True,
                   split_method=None, sync_mode: bool = True,
                   overlap: str = "auto", batch_axis: str = "dp"):
-        """Prepare `program` for data-parallel execution over
-        `mesh_axes` (alias `mesh`; default {"dp": trainers}): record the
-        mesh on the program, complete its sharding annotations, and
-        raise on inconsistent specs here, at transpile time.  `overlap`
-        is the ParallelExecutor overlap mode."""
+        """Prepare `program` for distributed execution.  `mode`
+        "pserver" is implied by a non-empty `pservers` list; "spmd"
+        (the default otherwise) records `mesh_axes` (alias `mesh`;
+        default {"dp": trainers}) on the program, completes its
+        sharding annotations, and raises on inconsistent specs here, at
+        transpile time.  `overlap` is the ParallelExecutor overlap
+        mode; `sync_mode=False` makes the pservers apply each grad on
+        arrival (ASGD)."""
         from ..core.framework import default_main_program
 
-        endpoints = [e.strip() for e in (pservers or "").split(",")
-                     if e.strip()]
-        if mode is None:
-            mode = "pserver" if endpoints else "spmd"
-        if mode not in ("pserver", "spmd"):
-            raise ValueError(f"mode must be 'pserver' or 'spmd', "
-                             f"got {mode!r}")
-        if mode == "pserver":
-            raise NotImplementedError(
-                "the pserver transpiler mode (send/recv, listen_and_serv) "
-                "is not ported yet (ROADMAP A11); use the spmd mode")
         self._program = program or default_main_program()
         self._startup = startup_program or default_startup_program()
         if mesh_axes is None and mesh is not None:
@@ -1251,9 +1266,23 @@ class DistributeTranspiler:
             mesh_axes = {"dp": trainers}
         self._mesh_axes = mesh_axes
         self._shard_opt = shard_optimizer_states
+        self._endpoints = [e.strip() for e in (pservers or "").split(",")
+                           if e.strip()]
+        self._optimize_ops = list(optimize_ops or [])
+        self._trainers = trainers
+        self._sync_mode = sync_mode
         self._overlap = overlap
         self._batch_axis = batch_axis
+        if mode is None:
+            mode = "pserver" if self._endpoints else "spmd"
+        if mode not in ("pserver", "spmd"):
+            raise ValueError(f"mode must be 'pserver' or 'spmd', "
+                             f"got {mode!r}")
         self._mode = mode
+        if mode == "pserver":
+            if self._endpoints and params_grads:
+                self._transpile_pserver(list(params_grads), split_method)
+            return
         self._transpile_spmd()
 
     def _transpile_spmd(self):
@@ -1266,15 +1295,113 @@ class DistributeTranspiler:
             self._program, mesh_axes=self._program.mesh_axes,
             batch_axis=self._batch_axis).check()
 
+    # -- pserver mode (host-side pservers, trainers on their cards) ---------
+    def _transpile_pserver(self, params_grads, split_method=None):
+        """Rewrite the trainer program: optimizer ops out, ONE fused
+        send op in (reference distribute_transpiler.py:134-231;
+        whole-param placement per a distributed_spliter policy, default
+        balanced_split — size-weighted so no pserver owns nearly all
+        the bytes; round_robin/hash_name stay selectable); then end the
+        trainer's startup program with one recv a pserver."""
+        from . import distributed_spliter
+
+        if split_method is None:
+            split_method = distributed_spliter.balanced_split
+        eps = self._endpoints
+        self._pairs_by_ep = {ep: [] for ep in eps}
+        placement = split_method([p for p, _ in params_grads], eps)
+        for (p, g), ep in zip(params_grads, placement):
+            self._assign[p.name] = ep
+            self._pairs_by_ep[ep].append((p, g))
+
+        block = self._program.global_block()
+        drop = set(id(op) for op in self._optimize_ops)
+        block.ops[:] = [op for op in block.ops if id(op) not in drop]
+        if params_grads:
+            # one bucketed send across ALL endpoints: per-var epmap for
+            # the grads, out_epmap for the param pulls.  The runtime
+            # (ops/distributed.py + parallel/comm.py) packs each
+            # endpoint's grads into arrival-order buckets and overlaps
+            # endpoints
+            block.append_op(
+                "send",
+                {"X": [g.name for _, g in params_grads]},
+                {"Out": [p.name for p, _ in params_grads]},
+                {"endpoints": list(eps),
+                 "epmap": [self._assign[p.name]
+                           for p, _ in params_grads],
+                 "out_epmap": [self._assign[p.name]
+                               for p, _ in params_grads]})
+        self._program.bump_version()
+        # the pservers initialize with the startup program as given;
+        # the trainer's then pulls what they drew (parallel/pserver.py)
+        self._pserver_startup = self._startup.clone()
+        sblock = self._startup.global_block()
+        for ep in eps:
+            names = [p.name for p, _ in self._pairs_by_ep[ep]]
+            if not names:
+                continue
+            for n in names:
+                if not sblock.has_var(n):
+                    src = self._find_var(n)
+                    sblock.create_var(name=n, shape=src.shape,
+                                      dtype=src.dtype, persistable=True)
+            sblock.append_op("recv", {"X": []}, {"Out": names},
+                             {"endpoint": ep})
+        self._startup.bump_version()
+
     def get_trainer_program(self):
         return self._program
 
     def get_pserver_program(self, endpoint=None):
-        """No pserver role in the spmd mode: the original program, for
-        API parity."""
-        return self._program
+        """Build the per-endpoint pserver program: one listen_and_serv op
+        whose sub-block holds the optimizer ops of the params assigned to
+        this endpoint (reference distribute_transpiler.py:523-618).
+
+        In the spmd mode (no `pservers` given) there is no pserver role
+        and the original program is returned for API parity."""
+        if not self._endpoints:
+            return self._program
+        from ..core.framework import Program, program_guard
+        from ..layers.io import ListenAndServ
+
+        pairs = self._pairs_by_ep.get(endpoint, [])
+        mine = {p.name for p, _ in pairs}
+        prog, startup = Program(), Program()
+        with program_guard(prog, startup):
+            serv = ListenAndServ(endpoint, fan_in=self._trainers,
+                                 sync_mode=self._sync_mode)
+            with serv.do():
+                sub = prog.current_block
+                for op in self._optimize_ops:
+                    param_in = op.inputs.get("Param", [])
+                    if param_in and param_in[0] not in mine:
+                        continue
+                    for n in (op.input_names() + op.output_names()):
+                        if not sub.has_var(n):
+                            src = self._find_var(n)
+                            sub.create_var(
+                                name=n,
+                                shape=src.shape if src else None,
+                                dtype=src.dtype if src else "float32",
+                                persistable=True)
+                    sub.append_op(op.type, dict(op.inputs),
+                                  dict(op.outputs), dict(op.attrs))
+        return prog
+
+    def _find_var(self, name):
+        for blk in self._program.blocks:
+            if blk.has_var(name):
+                return blk.var(name)
+        return None
 
     def get_startup_program(self, endpoint=None, pserver_program=None):
+        """The startup program a pserver initializes its params,
+        accumulators and learning rates with: the trainer's, without the
+        recv ops the pserver mode appended to it (reference
+        get_startup_program :620)."""
+        if self._pserver_startup is not None:
+            return self._pserver_startup
         return self._startup or default_startup_program()
 
     def build_executor(self, feed_names, fetch_list, startup_program=None,
@@ -1285,7 +1412,7 @@ class DistributeTranspiler:
         tp x sp, GPipe or 1F1B), everything else to ParallelExecutor,
         as the JAX package dispatches."""
         startup_program = startup_program or self._startup
-        if self._uses_pipeline():
+        if self._mode == "spmd" and self._uses_pipeline():
             from .pipeline_program import PipelineExecutor
 
             mesh = dict(self._mesh_axes)
@@ -1298,14 +1425,14 @@ class DistributeTranspiler:
             return PipelineExecutor(
                 self._program, feed_names, fetch_list, mesh=mesh,
                 startup_program=startup_program, **kw)
-        kw.setdefault("overlap", self._overlap)
-        kw.setdefault("spmd_plan", self._plan)
-        kw.setdefault("batch_axis", self._batch_axis)
+        if self._mode == "spmd":
+            kw.setdefault("overlap", self._overlap)
+            kw.setdefault("spmd_plan", self._plan)
+            kw.setdefault("batch_axis", self._batch_axis)
         kw.setdefault("shard_optimizer_states", self._shard_opt)
         return ParallelExecutor(
             self._program, feed_names, fetch_list,
             mesh=self._mesh_axes, startup_program=startup_program, **kw)
-
 
     def _uses_pipeline(self) -> bool:
         if not self._program or self._mesh_axes.get("pp", 1) <= 1:

@@ -4,8 +4,9 @@ paddle_tpu/reader/creator.py).
 
 `recordio` is the JAX package's self-contained record format (length-
 prefixed pickled records), so either package reads the other's files.
-`cloud_reader` pulls task chunks from the cloud master (the distributed
-runtime, ROADMAP A11) and raises until it is ported.
+`cloud_reader` pulls task chunks (recordio files) from the cloud master
+(cloud/master.py): the same tasks, in the same order, as the JAX
+package's reader gets from the same master.
 """
 from __future__ import annotations
 
@@ -89,8 +90,22 @@ def recordio(paths, buf_size=100):
 
 
 def cloud_reader(paths, master_endpoint, timeout_sec=5, buf_size=64):
-    """The elastic reader over the cloud master's task chunks: needs the
-    distributed runtime, not ported yet (ROADMAP A11)."""
-    raise NotImplementedError(
-        "cloud_reader needs the cloud master (paddle_tpu/cloud), which "
-        "is not ported yet (ROADMAP A11)")
+    """Elastic cloud reader: the master shards the file list into tasks
+    and hands them to trainers; any trainer may die/join (reference
+    creator.py:91 cloud_reader over etcd; here the transport is the
+    native master service, cloud/master.py)."""
+    from ..cloud.master import MasterClient, task_record_reader
+    from . import buffered
+
+    files = _expand_paths(paths)
+    client = MasterClient(master_endpoint, timeout=timeout_sec)
+    client.set_dataset(files)
+
+    def chunk_reader(chunk_path):
+        yield from _read_recordio_file(chunk_path)
+
+    reader = buffered(task_record_reader(client, chunk_reader), buf_size)
+    # exposed so callers can release the connection (a live client blocks
+    # a graceful master shutdown)
+    reader.master_client = client
+    return reader

@@ -11,9 +11,10 @@ floor (the cost model's estimate of the main Program on the card's
 chip-table row) for the calibration detector, as the JAX package does.
 
 Not ported: `cluster=` (the elastic cluster's membership and view
-subscription, ROADMAP A11) raises; the fleet telemetry announcement
-(`maybe_announce`, ROADMAP A12's second part) does nothing while
-PADDLE_TPU_TELEMETRY_REGISTRY is unset and raises when it is set.
+subscription, ROADMAP A11's second slice) raises; the fleet telemetry
+announcement (`observability.maybe_announce`, ROADMAP A12's second
+part) does nothing while PADDLE_TPU_TELEMETRY_REGISTRY is unset and
+raises when it is set.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from .observability import attribution as obs_attr
 from .observability import flightrecorder
 from .observability import metrics as obs_metrics
 from .observability import tracing as obs_tracing
+from .observability import maybe_announce
 
 # train-loop telemetry (docs/observability.md): gated by
 # PADDLE_TPU_METRICS, so the serial loop's semantics and cost are
@@ -297,12 +299,12 @@ class Trainer:
         tests/test_torch_trainer.py).
 
         `cluster=` (the elastic cluster) is not ported: it raises,
-        naming ROADMAP A11."""
+        naming ROADMAP A11's second slice."""
         if cluster is not None:
             raise NotImplementedError(
                 "Trainer.train(cluster=...): the elastic cluster (view "
                 "subscription, membership lease) is not ported yet "
-                "(ROADMAP A11)")
+                "(ROADMAP A11's second slice)")
         from . import io
         from .core.resilience import fault_injector
         from .reader.pipeline import prefetch_feeder
@@ -322,7 +324,7 @@ class Trainer:
         event_handler = event_handler or (lambda e: None)
         feeder = feeder or self._feeder()
         fetches = [self.loss] + self.fetch_list
-        _maybe_announce("trainer")
+        maybe_announce("trainer")
         if prefetch is None:
             prefetch = int(get_flag("prefetch_depth"))
         if sync_every_n is None:
@@ -546,14 +548,3 @@ def infer(output, feed, program=None, scope=None, place=None,
                               for o in outputs],
                   scope=scope, return_numpy=return_numpy)
     return res[0] if not isinstance(output, (list, tuple)) else res
-
-
-def _maybe_announce(kind):
-    """The fleet telemetry announcement (the collector, ROADMAP A12):
-    nothing while PADDLE_TPU_TELEMETRY_REGISTRY is unset."""
-    import os
-
-    if os.environ.get("PADDLE_TPU_TELEMETRY_REGISTRY"):
-        raise NotImplementedError(
-            f"PADDLE_TPU_TELEMETRY_REGISTRY is set: announcing this {kind} "
-            "to the telemetry collector is not ported yet (ROADMAP A12)")

@@ -391,20 +391,14 @@ FIXTURES = {name[3:]: fn for name, fn in dict(globals()).items()
 _UNREG = "op-arity", "error"
 # The port's differences, pinned: fixture -> diagnostics the port adds
 # (EXTRA) and the JAX package's it lacks (MISSING), as (pass_id,
-# severity, block_idx, op_idx, op_type).  Every one follows from an op
-# the port does not register yet (NOT_PORTED: A11's send), which has no
-# OpInfo there: op-arity reports it "not registered", and the cost model
-# counts it as unknown where the JAX package's `host` flag costs it
-# zero (one more cost-model info).  The c_* collectives are registered:
-# their fixtures give the JAX package's own findings (a shape-inference
-# warning outside a mesh, where both packages' lowerings raise on the
-# unbound axis; the dead-op info; distributed-lint on the ring).
-EXTRA = {
-    "send_without_endpoints": [(*_UNREG, 0, 0, "send"),
-                               ("cost-model", "info", 0, None, None)],
-    "epmap_arity": [(*_UNREG, 0, 0, "send"),
-                    ("cost-model", "info", 0, None, None)],
-}
+# severity, block_idx, op_idx, op_type).  None: every op type is
+# registered in both packages (A11's send too, which both cost at zero
+# as a host op), so every fixture gives the JAX package's own findings.
+# The c_* collectives' fixtures give its findings as well (a
+# shape-inference warning outside a mesh, where both packages'
+# lowerings raise on the unbound axis; the dead-op info;
+# distributed-lint on the ring).
+EXTRA = {}
 MISSING = {}
 
 
@@ -430,17 +424,18 @@ def test_diagnostics_match_the_jax_package(name):
 
 
 def test_every_not_ported_fixture_differs_only_as_pinned():
-    """Each EXTRA entry names an op-arity "not registered" error for each
-    NOT_PORTED op of its fixture — the only op types the two packages'
-    registries differ on."""
+    """No op type is left unported (NOT_PORTED is empty), so no fixture
+    differs: the send fixtures give the JAX package's diagnostics, with
+    no op-arity "not registered" error for their `send`."""
     from test_torch_op_test import NOT_PORTED
 
-    unported = {t for ts in NOT_PORTED.values() for t in ts}
-    for name, extra in EXTRA.items():
+    assert not NOT_PORTED and not EXTRA and not MISSING
+    for name in ("send_without_endpoints", "epmap_arity"):
         p, _ = FIXTURES[name](tfluid, tfw)
-        ops = [(i, op.type) for i, op in enumerate(p.global_block().ops)]
-        assert [(k[3], k[4]) for k in extra if k[:2] == _UNREG] == ops
-        assert {t for _, t in ops} <= unported
+        assert [op.type for op in p.global_block().ops] == ["send"]
+        want, got = _both(name)
+        assert got == want
+        assert not [k for k in got if k[:2] == _UNREG]
 
 
 # ---------------------------------------------------------------------------

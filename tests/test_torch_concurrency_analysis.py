@@ -12,6 +12,9 @@ against the JAX package's, on the CPU.
     `buggy=True` variants caught (the JAX package's tests run its own);
   * the GenerationStream regression pin on the port's real code: clean
     at head, the yield-under-lock stall found with the fault armed;
+  * the VariableServer accept-vs-stop pin on the port's real accept
+    loop and stop(): clean at head, the stopped server serving a
+    connection found with `pserver.accept-stop-race` armed;
   * the lint over paddle_tpu_torch/ has no unsuppressed error, and the
     nvcc build under kernels/cuda_build.py's lock is a suppressed info;
     CUDA events and streams are not thread primitives;
@@ -278,3 +281,111 @@ def test_pin_generation_stream_slow_consumer():
                             max_schedules=150, random_schedules=20)
     assert res.violation is not None, "yield-under-lock stall not found"
     assert "deadlock" in str(res.violation)
+
+
+class _FakeConn:
+    """Scripted connection: feeds one HELLO frame, records replies."""
+
+    def __init__(self, frames: bytes):
+        self._buf = bytearray(frames)
+        self.replied = False
+        self.accepted_stopping = False
+
+    def recv_into(self, view):
+        sched.yield_point("conn-recv")
+        if not self._buf:
+            return 0   # peer closed -> graceful ConnectionError
+        n = min(len(view), len(self._buf))
+        view[:n] = self._buf[:n]
+        del self._buf[:n]
+        return n
+
+    def sendall(self, data):
+        sched.yield_point("conn-send")
+        if data:
+            self.replied = True
+
+    def close(self):
+        pass
+
+
+class _FakeListenSocket:
+    """accept() semantics under the schedule checker: shutdown() aborts
+    a blocked accept immediately; close() ALONE leaves a backlogged
+    connection acceptable — the kernel grace window stop()'s
+    shutdown-before-close exists for."""
+
+    def __init__(self, stopping_getter):
+        self._cond = threading.Condition()
+        self._pending = []
+        self._closed = False
+        self._shut = False
+        self._stopping = stopping_getter
+
+    def deliver(self, conn):
+        with self._cond:
+            self._pending.append(conn)
+            self._cond.notify_all()
+
+    def accept(self):
+        with self._cond:
+            while not (self._pending or self._closed or self._shut):
+                self._cond.wait()
+            if self._shut:
+                raise OSError("accept aborted by shutdown")
+            if self._pending:
+                conn = self._pending.pop(0)
+                conn.accepted_stopping = self._stopping()
+                return conn, ("127.0.0.1", 0)
+            raise OSError("socket closed")
+
+    def shutdown(self, how):
+        with self._cond:
+            self._shut = True
+            self._cond.notify_all()
+
+    def close(self):
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+
+def _accept_stop_model():
+    """The port's REAL VariableServer accept loop + stop(), on fake
+    sockets: a connection that lands after stop() set _stopping must
+    never be served."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch.parallel import pserver as ps
+
+    srv = ps.VariableServer(None, tfluid.Scope(), None)
+    fake = _FakeListenSocket(lambda: srv._stopping)
+    srv._sock = fake
+    conn = _FakeConn(bytes(ps._frame_bytes("HELLO", "peer")))
+
+    acceptor = threading.Thread(target=srv._accept_loop, daemon=True)
+    client = threading.Thread(target=lambda: fake.deliver(conn))
+    stopper = threading.Thread(target=srv.stop)
+    acceptor.start()
+    client.start()
+    stopper.start()
+    client.join()
+    stopper.join()
+    acceptor.join(timeout=1)
+    return conn
+
+
+def _accept_stop_invariant(conn):
+    assert not (conn.accepted_stopping and conn.replied), \
+        "stopped VariableServer served a connection"
+
+
+def test_pin_pserver_accept_stop_race():
+    res = sched.explore(_accept_stop_model, _accept_stop_invariant,
+                        max_schedules=200, random_schedules=20)
+    assert res.ok, res.violation
+    assert not sched.fault_armed("pserver.accept-stop-race")
+    with sched.arm_fault("pserver.accept-stop-race"):
+        res = sched.explore(_accept_stop_model, _accept_stop_invariant,
+                            max_schedules=200, random_schedules=20)
+    assert res.violation is not None, "accept-vs-stop race not found"
+    assert "served a connection" in str(res.violation)

@@ -3024,3 +3024,177 @@ def test_ep_rule_route_kernel_at_world_one_is_moe_dense(dev, top_k):
         assert moe_gate_route_backward.launches > before[1]
     for a, b in zip(res["ep"], res["dense"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# -- A11's wire: trainers on the card, pservers on the host ------------------
+
+def _ps_cluster(build, n_pservers=2, trainers=1):
+    """`build(fluid)` -> (main, startup, loss, optimize ops, params and
+    grads), transpiled over `n_pservers` host pservers served from
+    threads of this process -> (transpiler, endpoints, stop)."""
+    import socket
+    import threading
+    import time
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.pserver import VariableClient
+
+    eps = []
+    for _ in range(n_pservers):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            eps.append(f"127.0.0.1:{sk.getsockname()[1]}")
+    main, startup, loss, opt_ops, pg = build(fluid)
+    t = fluid.DistributeTranspiler()
+    with fluid.program_guard(main, startup):
+        t.transpile(optimize_ops=opt_ops, params_grads=pg,
+                    trainers=trainers, pservers=",".join(eps))
+    threads = []
+    for ep in eps:
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(t.get_startup_program(ep),
+                                             scope=scope)
+        th = threading.Thread(target=lambda p=t.get_pserver_program(ep),
+                              s=scope: fluid.Executor(fluid.CPUPlace())
+                              .run(p, scope=s), daemon=True)
+        th.start()
+        threads.append(th)
+    for ep in eps:
+        host, port = ep.rsplit(":", 1)
+        for _ in range(500):
+            try:
+                socket.create_connection((host, int(port)), 0.2).close()
+                break
+            except OSError:
+                time.sleep(0.02)
+
+    def stop():
+        from paddle_tpu_torch.ops.distributed import reset_clients
+
+        for ep in eps:
+            VariableClient(ep).stop_server()
+        for th in threads:
+            th.join(timeout=10)
+        reset_clients()
+
+    return (main, startup, loss, pg), t, eps, stop
+
+
+def _ps_mlp(is_sparse):
+    def build(fluid):
+        from paddle_tpu_torch.core import framework as fw
+
+        fw.reset_unique_names()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
+            x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+            emb = fluid.layers.embedding(ids, size=[50, 8],
+                                         is_sparse=is_sparse)
+            h = fluid.layers.fc(
+                input=fluid.layers.concat(
+                    [fluid.layers.reshape(emb, shape=[-1, 8]), x], axis=1),
+                size=16, act="relu")
+            loss = fluid.layers.mean(fluid.layers.square_error_cost(
+                input=fluid.layers.fc(input=h, size=1), label=y))
+            opt_ops, pg = fluid.Adam(learning_rate=0.01).minimize(loss)
+        return main, startup, loss, opt_ops, pg
+    return build
+
+
+def _ps_feeds(n):
+    import numpy as np
+
+    r = np.random.RandomState(3)
+    return [{"ids": r.randint(0, 50, (32, 1)).astype(np.int64),
+             "x": r.rand(32, 8).astype(np.float32),
+             "y": r.rand(32, 1).astype(np.float32)} for _ in range(n)]
+
+
+@pytest.mark.parametrize("is_sparse", [False, True], ids=["dense", "sparse"])
+def test_pserver_rounds_on_the_card_are_the_serial_executors(dev, is_sparse):
+    """A trainer on the card over two host pservers: its startup's recv
+    ops leave it the pservers' parameters (not the card's own draws);
+    every round — the eager first, the capture, then replays — reads
+    the parameters the previous round pulled into the same tensors
+    (their storage never moves), and the losses and parameters are the
+    serial Executor's on the card from the same start.  With is_sparse
+    the embedding's gradient crosses the host as a SelectedRows of the
+    card's rows and values."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.pserver import VariableClient
+
+    (main, startup, loss, pg), t, eps, stop = _ps_cluster(
+        _ps_mlp(is_sparse))
+    names = [p.name for p, _ in pg]
+    try:
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        pulled = {}
+        for ep in eps:
+            mine = [p.name for p, _ in t._pairs_by_ep[ep]]
+            c = VariableClient(ep)
+            pulled.update(zip(mine, c.get_vars(mine)))
+            c.close()
+        for n in names:
+            v = scope.find_var(n)
+            assert v.device.type == "cuda"
+            assert torch.equal(v.cpu(), pulled[n]), n
+        init = {n: scope.find_var(n).clone() for n in names}
+        ptrs = {n: scope.find_var(n).data_ptr() for n in names}
+        feeds = _ps_feeds(5)
+        losses = [float(np.asarray(exe.run(
+            t.get_trainer_program(), feed=f, fetch_list=[loss],
+            scope=scope)[0]).reshape(-1)[0]) for f in feeds]
+        assert {n: scope.find_var(n).data_ptr() for n in names} == ptrs
+        assert exe.graph_stats()["replays"] >= 3
+        final = {n: scope.find_var(n).clone() for n in names}
+    finally:
+        stop()
+    s_main, s_startup, s_loss, _, _ = _ps_mlp(is_sparse)(fluid)
+    s_scope = fluid.Scope()
+    s_exe = fluid.Executor(fluid.CUDAPlace(0))
+    s_exe.run(s_startup, scope=s_scope)
+    for n, v in init.items():
+        s_scope.find_var(n).copy_(v)
+    s_losses = [float(np.asarray(s_exe.run(
+        s_main, feed=f, fetch_list=[s_loss], scope=s_scope)[0])
+        .reshape(-1)[0]) for f in feeds]
+    np.testing.assert_allclose(losses, s_losses, rtol=2e-4, atol=1e-5)
+    for n in names:
+        torch.testing.assert_close(final[n], s_scope.find_var(n),
+                                   rtol=2e-4, atol=1e-5)
+
+
+def test_a_bf16_card_tensor_crosses_the_wire_bit_for_bit(dev):
+    """bf16 on the card: serialized as its bits under "bfloat16", held by
+    a host pserver, pulled back and copied onto the card — the same bits,
+    and a SelectedRows of card rows and values likewise."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lod import SelectedRows
+    from paddle_tpu_torch.parallel import pserver as ps
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 33, generator=g).bfloat16().to(dev)
+    back = ps.deserialize_var(ps.serialize_var(x)).to(dev)
+    assert back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
+    srv = ps.VariableServer(None, fluid.Scope(), None)
+    c = ps.VariableClient(f"127.0.0.1:{srv.serve(0)}")
+    try:
+        c.put_vars([("w", x), ("sr", SelectedRows(
+            torch.tensor([3, 1, 3], device=dev), x[:3], 64))])
+        w, sr = c.get_vars(["w", "sr"])
+    finally:
+        c.close()
+        srv.stop()
+    assert torch.equal(w.to(dev).view(torch.int16), x.view(torch.int16))
+    assert sr.rows.tolist() == [3, 1, 3] and sr.height == 64
+    assert np.array_equal(sr.value.view(torch.int16).numpy(),
+                          x[:3].cpu().view(torch.int16).numpy())

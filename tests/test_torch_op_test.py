@@ -340,10 +340,8 @@ def jax_cases(cases):
 # -- the registry and the harness itself -------------------------------------
 
 # the JAX package's op types the port does not register yet, by ROADMAP
-# item: A11's distributed ops
-NOT_PORTED = {
-    "A11": ["listen_and_serv", "recv", "send"],
-}
+# item: none (A11's send, recv and listen_and_serv are registered)
+NOT_PORTED = {}
 
 
 def test_the_corpus_is_the_jax_packages_dense_types():
@@ -355,24 +353,25 @@ def test_the_corpus_is_the_jax_packages_dense_types():
     the sampled losses and detection (warpctc, hsigmoid, nce,
     prior_box, box_coder, iou_similarity, target_assign, roi_pool), and
     the 10 conv types of tests/test_torch_ops_conv_rest.py.  The port
-    registers 230 of the JAX package's 233 in all (with the nine
+    registers all 233 of the JAX package's types (with the nine
     optimizer types and split_selected_rows of
     tests/test_torch_optimizers.py, the control-flow types of
     tests/test_torch_control_flow.py, `recompute` of
     tests/test_torch_recompute.py, the detection host ops of
     tests/test_torch_detection.py, ctc_align, the readers, and the six
-    io ops of tests/test_torch_io.py, and the seven c_* collectives of
-    tests/test_torch_collective.py); the 3 it does not are NOT_PORTED's,
-    by name."""
+    io ops of tests/test_torch_io.py, the seven c_* collectives of
+    tests/test_torch_collective.py, and send, recv and listen_and_serv
+    of tests/test_torch_pserver.py): both registries hold the same 233,
+    and NOT_PORTED is empty."""
     assert len(CORPUS) == 133
     assert len(LOD_TYPES) == 19
     assert set(CORPUS) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 230
+    assert len(treg.registered_ops()) == 233
     assert len(jreg.registered_ops()) == 233
-    assert set(treg.registered_ops()) <= set(jreg.registered_ops())
+    assert set(treg.registered_ops()) == set(jreg.registered_ops())
     missing = sorted(set(jreg.registered_ops()) - set(treg.registered_ops()))
     assert missing == sorted(n for ns in NOT_PORTED.values() for n in ns)
-    assert len(missing) == 3
+    assert missing == []
 
 
 @pytest.mark.parametrize("op", CORPUS)

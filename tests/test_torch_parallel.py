@@ -963,10 +963,22 @@ def test_gspmd_form_choice(bn, sparse, overlap, form, reason, blocker):
 
 def test_not_ported_strategies_raise():
     main, startup, loss, params, feeds = _mlp(tfluid, tfw, "sgd")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfluid.DistributeTranspiler().transpile(
-            program=main, startup_program=startup,
-            pservers="127.0.0.1:6174", params_grads=[])
+    # A11's pserver mode is ported: as in the JAX package, a pserver
+    # list with no params_grads transpiles and leaves the program as
+    # it was, and each endpoint's pserver program is one
+    # listen_and_serv op (tests/test_torch_pserver.py runs the mode)
+    jmain, jstartup, _, _, _ = _mlp(jfluid, jfw, "sgd")
+    for fluid, prog, start in ((jfluid, jmain, jstartup),
+                               (tfluid, main, startup)):
+        before = [op.type for op in prog.global_block().ops]
+        t = fluid.DistributeTranspiler()
+        t.transpile(program=prog, startup_program=start,
+                    pservers="127.0.0.1:6174", params_grads=[])
+        assert t._mode == "pserver"
+        assert [op.type for op in t.get_trainer_program()
+                .global_block().ops] == before
+        assert [op.type for op in t.get_pserver_program("127.0.0.1:6174")
+                .global_block().ops] == ["listen_and_serv"]
     # A9 is ported: as in the JAX package, ParallelExecutor runs an
     # unannotated program replicated over an axis no placement names
     # (no model axis, no sharded form) ...

@@ -261,7 +261,7 @@ def test_trainer_events_test_and_infer():
 def test_unported_trainer_surfaces_raise_naming_their_items(monkeypatch):
     main, startup, x, y, pred, loss = _mlp()
     t = _trainer(main, startup, x, y, loss, Scope())
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11's second slice"):
         t.train(1, _batches(), cluster="localhost:1")
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY", "localhost:1")
     with pytest.raises(NotImplementedError, match="A12"):
@@ -354,9 +354,11 @@ def test_creators_read_the_jax_packages_files(tmp_path):
     p.close()
 
 
-def test_unported_readers_raise_naming_their_items():
+def test_unported_readers_raise_naming_their_items(tmp_path):
     """native_pipeline (A10b) is ported and yields the JAX package's
-    batches; cloud_reader still raises naming A11."""
+    batches; cloud_reader (A11) is ported: over a master it yields the
+    records the JAX package's cloud_reader yields from the same chunks.
+    Nothing raises any more."""
     samples = lambda: ((np.array([i], np.float32),  # noqa: E731
                         np.array([2 * i], np.int64)) for i in range(23))
     slots = [((1,), "float32"), ((1,), "int64")]
@@ -367,8 +369,27 @@ def test_unported_readers_raise_naming_their_items():
     assert [len(b[0]) for b in got] == [5, 5, 5, 5, 3]
     assert all(a.tobytes() == b.tobytes()
                for g, w in zip(got, want) for a, b in zip(g, w))
-    with pytest.raises(NotImplementedError, match="A11"):
-        treader.creator.cloud_reader("x", "localhost:1")
+    from paddle_tpu.cloud.master import Master as JMaster
+    from paddle_tpu_torch.cloud.master import Master as TMaster
+
+    chunks = []
+    for c in range(3):
+        path = str(tmp_path / f"chunk{c}.rec")
+        jreader.creator.write_recordio(path, [(c, i) for i in range(4)])
+        chunks.append(path)
+    records = {}
+    for name, master_cls, creator in (
+            ("jax", JMaster, jreader.creator),
+            ("port", TMaster, treader.creator)):
+        master = master_cls(timeout_s=30.0)
+        port = master.serve(0)
+        r = creator.cloud_reader(",".join(chunks), f"127.0.0.1:{port}")
+        records[name] = [tuple(x) for x in r()]
+        r.master_client.close()
+        master.stop()
+    assert records["port"] == records["jax"]
+    assert sorted(records["port"]) == [(c, i) for c in range(3)
+                                       for i in range(4)]
 
 
 def _failing(after):

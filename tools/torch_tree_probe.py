@@ -27,6 +27,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py a10b [--package-root DIR]
     python3 tools/torch_tree_probe.py tp-zero [--package-root DIR]
     python3 tools/torch_tree_probe.py a9 [--package-root DIR]
+    python3 tools/torch_tree_probe.py pserver [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -124,6 +125,10 @@ a9         chip_smoke.py's a9 phase alone (the kernels built first):
            pipeline (GPipe, 1F1B with tp, GPipe with sp) and expert
            parallelism on four gloo ranks on the card against the serial
            Executor, and the raw ring / Ulysses / MoE forms;
+pserver    chip_smoke.py's pserver phase alone (the flash kernels built
+           first; the phase builds the native library itself): DeepFM,
+           vgg16_cluster and the seq2seq translator with their trainers
+           on the card and their pservers on the host;
 a10c       chip_smoke.py's tools phase with what it reads: the flash
            phase, the train phase (amp) with the tools profiler part on
            its replayed graph, the seq2seq phase, then the tools CLI
@@ -996,6 +1001,17 @@ def a9(cs, dev):
     cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
 
 
+def pserver(cs, dev):
+    """chip_smoke's pserver phase alone (the flash kernels built
+    first)."""
+    from paddle_tpu_torch.kernels import flash_attention
+
+    card, _, _ = _card(cs)
+    flash_attention.build()
+    cs.pserver_phase(card)
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1209,7 +1225,7 @@ def main():
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
                                       "maxpool-routes", "a10b", "a10c",
-                                      "a12", "tp-zero", "a9"))
+                                      "a12", "tp-zero", "a9", "pserver"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1247,7 +1263,7 @@ def main():
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
          "maxpool-routes": maxpool_routes, "a10b": a10b,
          "a10c": a10c, "a12": a12, "tp-zero": tp_zero,
-         "a9": a9}[args.probe](cs, dev)
+         "a9": a9, "pserver": pserver}[args.probe](cs, dev)
     return 0
 
 

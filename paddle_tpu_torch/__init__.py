@@ -137,6 +137,6 @@ from .optimizer import (  # noqa: F401
     RMSPropOptimizer,
     SGDOptimizer,
 )
-from .param_attr import ParamAttr  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

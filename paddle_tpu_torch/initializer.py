@@ -4,6 +4,7 @@ Xavier/MSRA, each emitting fill_constant / uniform_random /
 gaussian_random ops into the startup block)."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 __all__ = [
@@ -17,6 +18,8 @@ __all__ = [
     "NormalInitializer",
     "XavierInitializer",
     "MSRAInitializer",
+    "force_init_on_cpu",
+    "init_on_cpu",
 ]
 
 
@@ -34,7 +37,7 @@ class ConstantInitializer(Initializer):
             "fill_constant", {}, {"Out": [var.name]},
             {"shape": list(var.shape), "dtype": var.dtype,
              "value": self.value,
-             "force_cpu": False})
+             "force_cpu": force_init_on_cpu()})
 
 
 class UniformInitializer(Initializer):
@@ -46,7 +49,7 @@ class UniformInitializer(Initializer):
             "uniform_random", {}, {"Out": [var.name]},
             {"shape": list(var.shape), "dtype": var.dtype,
              "min": self.low, "max": self.high, "seed": self.seed,
-             "force_cpu": False})
+             "force_cpu": force_init_on_cpu()})
 
 
 class NormalInitializer(Initializer):
@@ -58,7 +61,7 @@ class NormalInitializer(Initializer):
             "gaussian_random", {}, {"Out": [var.name]},
             {"shape": list(var.shape), "dtype": var.dtype,
              "mean": self.loc, "std": self.scale, "seed": self.seed,
-             "force_cpu": False})
+             "force_cpu": force_init_on_cpu()})
 
 
 def _fan_in_out(var):
@@ -114,3 +117,30 @@ Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+
+
+# ---------------------------------------------------------------------------
+# init-on-cpu context (the JAX package's initializer.py:124-147): the
+# initializer ops created inside carry force_cpu=True.  The attribute
+# travels with the Program; the lowerings draw on the op's device as
+# before.
+# ---------------------------------------------------------------------------
+
+_force_init_on_cpu_ = False
+
+
+def force_init_on_cpu() -> bool:
+    return _force_init_on_cpu_
+
+
+@contextlib.contextmanager
+def init_on_cpu():
+    """`with init_on_cpu():` — initializer ops created inside carry
+    force_cpu=True; the previous state comes back on exit."""
+    global _force_init_on_cpu_
+    pre_state = _force_init_on_cpu_
+    _force_init_on_cpu_ = True
+    try:
+        yield
+    finally:
+        _force_init_on_cpu_ = pre_state

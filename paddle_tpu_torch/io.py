@@ -38,7 +38,7 @@ import shutil
 import time
 import uuid as uuid_mod
 import warnings
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -540,11 +540,12 @@ def save_checkpoint(executor, dirname, main_program=None, trainer_args=None,
 
 
 def publish_checkpoint(dirname, cp_uuid, cp_dir, trainer_args=None,
-                       max_keep: int = 3) -> dict:
+                       max_keep: int = 3, md5: Optional[str] = None) -> dict:
     """Finish a snapshot directory: its meta record, the atomic
     `__latest__` pointer (written to a temporary, then renamed), GC ->
-    the meta record."""
-    meta = {"uuid": cp_uuid, "md5": _md5_of_dir(cp_dir),
+    the meta record.  `md5`: the directory's digest (`_md5_of_dir`'s),
+    when the writer took it while writing; else read back here."""
+    meta = {"uuid": cp_uuid, "md5": md5 or _md5_of_dir(cp_dir),
             "timestamp": time.time(), "trainer_args": trainer_args or {}}
     with open(os.path.join(cp_dir, META_FILENAME), "w") as f:
         json.dump(meta, f)

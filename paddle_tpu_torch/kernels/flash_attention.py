@@ -58,10 +58,17 @@ _count_lock = threading.Lock()
 _lib = None
 
 
+def _acc(q):
+    """The plain version's accumulation dtype: float64 for float64
+    inputs, else float32 (the kernels')."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def _scores(q, k, causal, scale):
-    """Scaled float32 scores [b, h, sq, sk]; causal positions past the
-    diagonal (top-left aligned) take the kernels' finite mask value."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    """Scaled scores [b, h, sq, sk] (float32, float64 for float64
+    inputs); causal positions past the diagonal (top-left aligned) take
+    the kernels' finite mask value."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(_acc(q)), k.to(_acc(q))) * scale
     if causal:
         keep = (torch.arange(q.shape[1], device=q.device)[:, None]
                 >= torch.arange(k.shape[1], device=q.device)[None, :])
@@ -75,12 +82,22 @@ def _scale(q, scale):
 
 def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
     """The forward kernel's plain version: -> (o in q's dtype, lse
-    float32 [b, h, sq]), computed in float32 with materialized scores."""
+    float32 [b, h, sq]), computed in float32 (float64 for float64
+    inputs) with materialized scores.  A float32 CPU tensor is computed
+    in float64 and rounded back: in float32 the softmax's gradient
+    cancels to rounding noise where the exact gradient is zero (a key
+    projection's bias, whose row of scores all move by one constant),
+    and Adam's normalised step turns that noise into lr-sized moves.
+    The card's plain version stays float32, as its kernels compute."""
+    if q.device.type == "cpu" and q.dtype == torch.float32:
+        o, lse = flash_attention_fwd_reference(
+            q.double(), k.double(), v.double(), causal, scale)
+        return o.float(), lse
     s = _scores(q, k, causal, _scale(q, scale))
     lse = torch.logsumexp(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
-                     v.float())
-    return o.to(q.dtype), lse
+                     v.to(s.dtype))
+    return o.to(q.dtype), lse.float()
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None):

@@ -32,6 +32,7 @@ __all__ = [
     "kernels_mode",
     "kernels_armed",
     "Selection",
+    "select",
     "FALLBACK_METRIC",
 ]
 
@@ -165,3 +166,10 @@ class Selection:
         for key in dict.fromkeys(self._counted):
             _M_FALLBACKS.remove(kernel=key[0], reason=key[1])
         self._counted = []
+
+
+def select(name: str, **ctx):
+    """One-off selection with no reclamation ledger (prefer a Selection
+    for anything with a close() lifecycle): `ctx` carries `platform`,
+    as Selection.pick takes it."""
+    return Selection().pick(name, **ctx)

@@ -71,6 +71,9 @@ class LayerHelper:
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None, suffix="w"):
         attr = dict(attr or {})
+        if attr.get("weight_norm_dim") is not None:
+            return self._create_weight_normalize(attr, shape, dtype,
+                                                 suffix)
         name = attr.get("name") or unique_name(f"{self.name}.{suffix}")
         init = attr.get("initializer") or default_initializer
         if init is None:
@@ -96,6 +99,67 @@ class LayerHelper:
         sv = sb.create_parameter(name, shape, dtype)
         init(sv, sb)
         return main_p
+
+    def _create_weight_normalize(self, attr, shape, dtype, suffix):
+        """w = g * v / ||v|| (the JAX package's _create_weight_normalize:
+        dim=None -> scalar g; dim=k on <=2-D weights -> g[shape[k]]).
+        v and g are the trainable Parameters; the returned w is a
+        Variable recomputed by ops in the main program, so gradients
+        reach v and g through the ops' gradients."""
+        dim = int(attr.pop("weight_norm_dim"))
+        shape = [int(s) for s in shape]
+        if dim >= 0 and len(shape) > 2:
+            raise NotImplementedError(
+                "WeightNormParamAttr dim is supported for <=2-D weights")
+        base = attr.pop("name", None) or unique_name(
+            f"{self.name}.{suffix}")
+        v = self.create_parameter({**attr, "name": base + ".w_v"},
+                                  shape, dtype, suffix=suffix)
+        g_shape = [1] if dim < 0 else [shape[dim]]
+        g = self.create_parameter(
+            {**attr, "name": base + ".w_g",
+             "initializer": ConstantInitializer(1.0)},
+            g_shape, dtype, suffix=suffix)
+
+        reduce_dims = (list(range(len(shape))) if dim < 0 else
+                       [d for d in range(len(shape)) if d != dim])
+
+        def norm_ops(block, out_name):
+            sq = unique_name(base + ".w_sq")
+            ssum = unique_name(base + ".w_ssum")
+            for n in (sq, ssum, out_name):
+                if not block.has_var(n):
+                    block.create_var(name=n, dtype=dtype)
+            block.append_op("square", {"X": [v.name]}, {"Out": [sq]}, {})
+            block.append_op("reduce_sum", {"X": [sq]}, {"Out": [ssum]},
+                            {"dim": reduce_dims, "keep_dim": False,
+                             "reduce_all": dim < 0})
+            block.append_op("sqrt", {"X": [ssum]}, {"Out": [out_name]},
+                            {})
+
+        # startup: g <- ||v_init||
+        sb = self.startup_program.global_block()
+        init_norm = unique_name(base + ".w_initnorm")
+        norm_ops(sb, init_norm)
+        sb.append_op("assign", {"X": [init_norm]}, {"Out": [g.name]}, {})
+
+        # main: w = v * (g / ||v||), broadcast over `dim`
+        mb = self.main_program.current_block
+        norm_name = unique_name(base + ".w_norm")
+        norm_ops(mb, norm_name)
+        ratio = mb.create_var(name=unique_name(base + ".w_ratio"),
+                              dtype=dtype, shape=g_shape)
+        mb.append_op("elementwise_div", {"X": [g.name], "Y": [norm_name]},
+                     {"Out": [ratio.name]}, {"axis": -1})
+        w = mb.create_var(name=base, dtype=dtype, shape=shape)
+        mb.append_op("elementwise_mul", {"X": [v.name], "Y": [ratio.name]},
+                     {"Out": [w.name]}, {"axis": max(dim, 0)})
+        # tracked per Program (a class-level list would pin every past
+        # program in memory)
+        self.main_program.params_with_weight_norm = (
+            getattr(self.main_program, "params_with_weight_norm", []))
+        self.main_program.params_with_weight_norm.append(w)
+        return w
 
     # -- common layer plumbing ----------------------------------------------
     def append_op(self, *a, **kw):

@@ -13,7 +13,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "flash_attention", "moe_ffn",
            "accuracy", "conv2d", "pool2d", "batch_norm", "layer_norm", "lrn",
-           "mean", "matmul", "reduce_sum", "reduce_mean", "reduce_max",
+           "mean", "mul", "matmul", "auc", "reduce_sum", "reduce_mean", "reduce_max",
            "reduce_min", "topk", "cross_entropy", "square_error_cost",
            "cos_sim", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "split", "l2_normalize",
@@ -355,6 +355,29 @@ def mean(x, name=None):
     out = helper.create_tmp_variable(x.dtype)
     helper.append_op("mean", {"X": [x.name]}, {"Out": [out.name]})
     return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    helper = LayerHelper("mul")
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("mul", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]},
+                     {"x_num_col_dims": x_num_col_dims,
+                      "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200):
+    """Area-under-curve metric from prediction scores (the auc op reads
+    raw scores, so no top_k pre-pass is emitted)."""
+    helper = LayerHelper("auc")
+    auc_out = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op(
+        "auc",
+        {"Out": [input.name], "Label": [label.name]},
+        {"AUC": [auc_out.name]},
+        {"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):

@@ -9,7 +9,7 @@ import numpy as np
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group",
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
            "scaled_dot_product_attention", "sequence_conv_pool"]
 
 
@@ -55,6 +55,14 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                                      dropout_prob=conv_batchnorm_drop_rate[i])
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in two along `dim`, the second half a
+    sigmoid gate on the first."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    gate = layers.sigmoid(b)
+    return layers.elementwise_mul(a, gate)
 
 
 def scaled_dot_product_attention(queries, keys, values,

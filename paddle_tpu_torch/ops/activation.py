@@ -19,6 +19,7 @@ from ..amp import amp_upcast
 from ..core.execution import (_M32, _mix, data_of, mix32_, one, scalar_like,
                               with_lod_of)
 from ..core.registry import register_op
+from ._math import sqrt as _sqrt
 
 
 def clip(x, lo, hi):
@@ -49,7 +50,7 @@ _UNARY = {
             x > a["lambda"], x - a["lambda"],
             torch.where(x < -a["lambda"], x + a["lambda"], _zeros(x))),
         {"lambda": 0.5}),
-    "sqrt": (lambda x, a: torch.sqrt(x), {}),
+    "sqrt": (lambda x, a: _sqrt(x), {}),
     "abs": (lambda x, a: abs_(x), {}),
     "ceil": (lambda x, a: torch.ceil(x), {}),
     "floor": (lambda x, a: torch.floor(x), {}),

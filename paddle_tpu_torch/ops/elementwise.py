@@ -13,6 +13,7 @@ from ..core.execution import (data_of, dense_of, many, one, scalar_like,
                               with_lod_of)
 from ..core.lod import SelectedRows
 from ..core.registry import register_op
+from ._math import sqrt as _sqrt
 from .activation import clip as _clip
 
 
@@ -90,7 +91,7 @@ def clip(ctx, ins, attrs):
 def clip_by_norm(ctx, ins, attrs):
     xv = one(ins, "X")
     x = data_of(xv)
-    norm = torch.sqrt(torch.sum(torch.square(x)))
+    norm = _sqrt(torch.sum(torch.square(x)))
     factor = torch.where(norm > attrs["max_norm"],
                          attrs["max_norm"] / torch.clamp(norm, min=1e-12),
                          torch.ones_like(norm))

@@ -8,6 +8,7 @@ import torch
 
 from ..core.execution import one
 from ..core.registry import register_grad_lower, register_op
+from ._math import sqrt as _sqrt
 
 _F32 = torch.float32
 
@@ -187,7 +188,7 @@ def layer_norm(ctx, ins, attrs):
     axes = tuple(range(a, x.dim()))
     mean = x.mean(dim=axes, keepdim=True)
     var = torch.square(x - mean).mean(dim=axes, keepdim=True)
-    y = (x - mean) / torch.sqrt(var + attrs["epsilon"])
+    y = (x - mean) / _sqrt(var + attrs["epsilon"])
     scale = one(ins, "Scale")
     bias = one(ins, "Bias")
     norm_shape = [1] * a + list(x.shape[a:])

@@ -29,6 +29,7 @@ from ..core.execution import dense_of, one, scalar_like
 from ..core.lod import SelectedRows
 from ..core.registry import get_op_info, register_op
 from .embedding import sorted_segment_sum
+from ._math import sqrt as _sqrt
 
 UPDATE_OPS = ("sgd", "momentum", "adam", "adamax", "adagrad", "adadelta",
               "decayed_adagrad", "rmsprop", "ftrl", "proximal_gd",
@@ -117,10 +118,10 @@ def adam(ctx, ins, attrs):
     lr = _lr(ins, p)
     b1, b2 = scalar_like(p, attrs["beta1"]), scalar_like(p, attrs["beta2"])
     eps = scalar_like(p, attrs["epsilon"])
-    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    lr_t = lr * _sqrt(1 - b2p) / (1 - b1p)
     m1_out = b1 * m1 + (1 - b1) * g
     m2_out = b2 * m2 + (1 - b2) * torch.square(g)
-    p_out = p - lr_t * m1_out / (torch.sqrt(m2_out) + eps)
+    p_out = p - lr_t * m1_out / (_sqrt(m2_out) + eps)
     return {"ParamOut": p_out, "Moment1Out": m1_out, "Moment2Out": m2_out}
 
 
@@ -160,7 +161,7 @@ def adagrad(ctx, ins, attrs):
     eps = scalar_like(p, attrs["epsilon"])
     g = _grad(ins)
     m_out = m + torch.square(g)
-    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    p_out = p - lr * g / (_sqrt(m_out) + eps)
     return {"ParamOut": p_out, "MomentOut": m_out}
 
 
@@ -180,7 +181,7 @@ def adadelta(ctx, ins, attrs):
     rho = scalar_like(p, attrs["rho"])
     eps = scalar_like(p, attrs["epsilon"])
     asg_out = rho * asg + (1 - rho) * torch.square(g)
-    update = -torch.sqrt((asu + eps) / (asg_out + eps)) * g
+    update = -_sqrt((asu + eps) / (asg_out + eps)) * g
     asu_out = rho * asu + (1 - rho) * torch.square(update)
     return {"ParamOut": p + update, "AvgSquaredGradOut": asg_out,
             "AvgSquaredUpdateOut": asu_out}
@@ -200,7 +201,7 @@ def decayed_adagrad(ctx, ins, attrs):
     decay = scalar_like(p, attrs["decay"])
     eps = scalar_like(p, attrs["epsilon"])
     m_out = decay * m + (1 - decay) * torch.square(g)
-    return {"ParamOut": p - lr * g / (torch.sqrt(m_out) + eps),
+    return {"ParamOut": p - lr * g / (_sqrt(m_out) + eps),
             "MomentOut": m_out}
 
 
@@ -221,7 +222,7 @@ def rmsprop(ctx, ins, attrs):
     mu = scalar_like(p, attrs["momentum"])
     eps = scalar_like(p, attrs["epsilon"])
     ms_out = decay * ms + (1 - decay) * torch.square(g)
-    mom_out = mu * mom + lr * g / torch.sqrt(ms_out + eps)
+    mom_out = mu * mom + lr * g / _sqrt(ms_out + eps)
     return {"ParamOut": p - mom_out, "MeanSquareOut": ms_out,
             "MomentOut": mom_out}
 
@@ -284,7 +285,7 @@ def proximal_adagrad(ctx, ins, attrs):
     lr = _lr(ins, p)
     l1, l2 = scalar_like(p, attrs["l1"]), scalar_like(p, attrs["l2"])
     m_out = m + torch.square(g)
-    lr_t = lr / torch.sqrt(m_out)
+    lr_t = lr / _sqrt(m_out)
     return {"ParamOut": _proximal(p - lr_t * g, lr_t, l1, l2),
             "MomentOut": m_out}
 

@@ -25,13 +25,27 @@ answers ERR to a batch verb falls back to per-var frames permanently
 for that endpoint (see pserver.py), so one `CommPool` can serve mixed
 old/new pserver fleets.
 
-**Elastic clusters** (the JAX package's cloud/cluster.py) are ROADMAP
-A11's second slice: `set_cluster`, and a ``PADDLE_TPU_CONTROLLER``
-environment variable, raise naming it.  Until then `elastic_round` is
-exactly `CommPool.send_round` over the transpile-time endpoint map.
+**Elastic clusters** (cloud/cluster.py): when a cluster subscription
+is armed (`set_cluster` or the ``PADDLE_TPU_CONTROLLER`` env var),
+`elastic_round` re-derives each round's endpoint map from the
+controller's current epoch-numbered view instead of the transpile-time
+epmap, and a round that dies mid-flight (SIGKILLed pserver, shard
+migrated away between view fetch and GET) waits for the next stable
+view and replays against the new placement — no process restart.  The
+transpiled epmap stays as the static fallback for vars the view does
+not place.
+
+The replay is exactly once where the servers say what happened (the
+port's pservers answer a BARRIER "applied" or "released"): a grad whose
+endpoint applied its round is not sent again, and a pull is kept only
+from an endpoint whose round is settled.  The JAX package replays the
+whole round (at least once), so a survivor's shard there may take a
+round's update twice; against a server that does not say, the port
+keeps a completed endpoint's round as applied.
 """
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -47,6 +61,8 @@ __all__ = ["CommPool", "comm_pool", "reset_comm_pool", "set_cluster",
            "get_cluster", "reset_cluster", "elastic_round",
            "ensure_param_provider"]
 
+_LOG = logging.getLogger("paddle_tpu_torch.comm")
+
 # 64 B .. 1 GiB, x4 steps — grad rounds span tiny RNN cells to
 # full embedding tables
 _BYTE_BUCKETS = tuple(float(1 << i) for i in range(6, 31, 2))
@@ -60,6 +76,10 @@ _M_ROUND_BYTES = obs_metrics.histogram(
     "serialized payload bytes moved per round, by direction (frame "
     "heads excluded so the directions are comparable)",
     ("direction",), buckets=_BYTE_BUCKETS)
+_M_ROUND_RETRIES = obs_metrics.counter(
+    "paddle_tpu_comm_round_retries_total",
+    "elastic rounds retried against a fresh cluster view after a "
+    "mid-round failure (dead pserver / migrated shard)")
 # per-endpoint round attribution: the straggler detector
 # (observability/attribution.py) compares endpoints' mean round time,
 # so one slow pserver shows up as a z-score instead of hiding inside
@@ -73,9 +93,22 @@ _M_EP_ROUND = obs_metrics.histogram(
 
 
 def _default_client(endpoint: str) -> VariableClient:
-    """Pool client factory (the elastic cluster's short retry budget
-    comes with A11's second slice)."""
-    return VariableClient(endpoint)
+    """Pool client factory.  Under an elastic cluster subscription the
+    retry budget is deliberately SHORT (env-tunable via
+    PADDLE_TPU_ELASTIC_RETRY_*): a dead pserver is not coming back on
+    this endpoint — the recovery path is failing the round fast and
+    replaying it against the controller's next view, not sitting in a
+    multi-minute reconnect loop."""
+    if get_cluster() is None:
+        return VariableClient(endpoint)
+    from ..core.resilience import RetryPolicy
+
+    return VariableClient(
+        endpoint, connect_timeout=2.0, request_timeout=15.0,
+        barrier_timeout=15.0,
+        retry_policy=RetryPolicy.from_env(
+            "ELASTIC_RETRY", max_attempts=2, base_delay=0.05,
+            max_delay=0.25, deadline=2.0))
 
 
 class CommPool:
@@ -145,6 +178,23 @@ class CommPool:
         worker so endpoints overlap.  Endpoints appearing only in
         ``get_items`` are read without a barrier (recv-op semantics).
         Returns pulled values aligned with ``get_items``."""
+        results, errors = self._run_round(send_items, get_items,
+                                          bucket_bytes)
+        if errors:
+            raise next(iter(errors.values()))
+        out, idx = [], {ep: 0 for ep, _ in get_items}
+        for ep, name in get_items:
+            out.append(results[ep][0][idx[ep]])
+            idx[ep] += 1
+        return out
+
+    def _run_round(self, send_items, get_items, bucket_bytes=None):
+        """send_round's body -> ({endpoint: (pulled values, bytes sent,
+        bytes received, the barrier's word or None)} for the endpoints
+        whose barrier came back, {endpoint: exception} for those that
+        failed, in endpoint order; an endpoint whose pull failed after
+        its barrier is in both, its values None).  Every submitted
+        endpoint is drained before it returns."""
         t0 = time.perf_counter()
         sends: Dict[str, list] = {}
         for ep, name, value in send_items:
@@ -160,54 +210,53 @@ class CommPool:
             te0 = time.perf_counter()
             with obs_tracing.activate(ctx), \
                     obs_tracing.span("comm.endpoint_round", endpoint=ep):
+                said = None
                 if ep in sends:
                     c.send_vars(sends[ep], bucket_bytes)
                     with obs_attr.phase("trainer", "barrier_wait"):
-                        c.send_batch_barrier()
+                        said = c.send_batch_barrier()
+                vals, failed = [], None
                 if ep in gets:
-                    with obs_attr.phase("trainer", "get"):
-                        vals = c.get_vars(gets[ep], bucket_bytes)
-                else:
-                    vals = []
+                    try:
+                        with obs_attr.phase("trainer", "get"):
+                            vals = c.get_vars(gets[ep], bucket_bytes)
+                    except Exception as e:
+                        # the round itself is settled (the barrier
+                        # said so); the caller learns the pull failed
+                        vals, failed = None, e
             _M_EP_ROUND.labels(endpoint=ep).observe(
                 time.perf_counter() - te0)
-            return vals, c.bytes_sent - s0, c.bytes_recv - r0
+            return vals, c.bytes_sent - s0, c.bytes_recv - r0, said, failed
 
         eps = sorted(set(sends) | set(gets))
         results: Dict[str, tuple] = {}
+        errors: Dict[str, BaseException] = {}
         if eps:
             # ALWAYS go through the per-endpoint worker — even for one
             # endpoint: two caller threads sharing the pool would
             # otherwise interleave frames on the same non-thread-safe
             # client socket; the worker is what serializes them
             futs = {}
-            submit_exc = None
             for ep in eps:
                 try:
                     futs[ep] = self._worker(ep).submit(run_ep, ep)
                 except BaseException as e:
                     # pool closed mid-loop: stop submitting, but still
                     # drain what IS in flight below
-                    submit_exc = e
+                    errors[ep] = e
                     break
-            first_exc = None
             for ep, f in futs.items():
                 # drain EVERY submitted future before raising: an
                 # abandoned in-flight worker would race the caller's
                 # error handling on the shared clients
                 try:
-                    results[ep] = f.result()
+                    *results[ep], failed = f.result()
+                    if failed is not None:
+                        errors[ep] = failed
                 except BaseException as e:
-                    if first_exc is None:
-                        first_exc = e
-            if first_exc is None:
-                first_exc = submit_exc
-            if first_exc is not None:
-                raise first_exc
-        out, idx = [], {ep: 0 for ep in gets}
-        for ep, name in get_items:
-            out.append(results[ep][0][idx[ep]])
-            idx[ep] += 1
+                    errors[ep] = e
+            if errors:
+                errors = {ep: errors[ep] for ep in eps if ep in errors}
         dt = time.perf_counter() - t0
         _M_ROUND_SECONDS.observe(dt)
         obs_attr.observe_phase("trainer", "send_round", dt)
@@ -215,7 +264,7 @@ class CommPool:
             sum(r[1] for r in results.values()))
         _M_ROUND_BYTES.labels(direction="recv").observe(
             sum(r[2] for r in results.values()))
-        return out
+        return results, errors
 
     def forget(self, endpoint: str):
         """Drop the pooled client/worker for one endpoint so the next
@@ -289,39 +338,49 @@ _CLUSTER = None
 _CLUSTER_TRIED_ENV = False
 
 
-_SECOND_SLICE = ("the elastic cluster (cloud/cluster.py: membership "
-                 "views, shard migration) is not ported yet (ROADMAP "
-                 "A11's second slice)")
-
-
 def set_cluster(cluster):
-    """Arm the process-wide cluster subscription (the JAX package's
-    ClusterClient, ClusterController or controller address): raises
-    naming A11's second slice, unless `cluster` is None (no
-    subscription, the state this port is always in)."""
+    """Arm the process-wide cluster subscription: `cluster` is a
+    cloud.cluster.ClusterClient, a ClusterController (in-process
+    clusters/tests), or a controller address string.  The send/recv ops
+    then route every round through `elastic_round`."""
     global _CLUSTER, _CLUSTER_TRIED_ENV
-    if cluster is not None:
-        raise NotImplementedError(f"comm.set_cluster: {_SECOND_SLICE}")
+    from ..cloud.cluster import ClusterClient, ClusterController
+
+    if cluster is None or isinstance(cluster, ClusterClient):
+        pass
+    elif isinstance(cluster, (str, ClusterController)):
+        cluster = ClusterClient(cluster)
+    else:
+        raise TypeError(f"set_cluster: expected ClusterClient, "
+                        f"ClusterController or address, got {cluster!r}")
     with _POOL_LOCK:
-        _CLUSTER = None
+        _CLUSTER = cluster
         _CLUSTER_TRIED_ENV = True
-    return None
+    return cluster
 
 
 def get_cluster():
-    """The armed cluster subscription: None.  A
-    ``PADDLE_TPU_CONTROLLER`` environment variable asks for one, which
-    raises naming A11's second slice rather than training against the
-    static endpoint map in its place."""
-    global _CLUSTER_TRIED_ENV
+    """The armed cluster subscription, building one from the
+    ``PADDLE_TPU_CONTROLLER`` env var on first call; None when the
+    process is not part of an elastic cluster."""
+    global _CLUSTER, _CLUSTER_TRIED_ENV
     with _POOL_LOCK:
         if _CLUSTER is not None or _CLUSTER_TRIED_ENV:
             return _CLUSTER
-    if os.environ.get("PADDLE_TPU_CONTROLLER", "").strip():
-        raise NotImplementedError(
-            f"PADDLE_TPU_CONTROLLER is set: {_SECOND_SLICE}")
+    # build OUTSIDE the lock (imports + construction), publish under
+    # it: TRIED_ENV flips only together with the client so a
+    # concurrent first caller can never observe "tried, but None" and
+    # silently fall back to the static epmap for its round
+    client = None
+    addr = os.environ.get("PADDLE_TPU_CONTROLLER", "").strip()
+    if addr:
+        from ..cloud.cluster import ClusterClient
+
+        client = ClusterClient(addr)
     with _POOL_LOCK:
-        _CLUSTER_TRIED_ENV = True
+        if _CLUSTER is None and not _CLUSTER_TRIED_ENV:
+            _CLUSTER_TRIED_ENV = True
+            _CLUSTER = client
         return _CLUSTER
 
 
@@ -349,30 +408,123 @@ def _elastic_wait_s() -> float:
 def ensure_param_provider(scope):
     """Arm trainer-held shard recovery on the cluster subscription: the
     data-path scope's parameter copies (refreshed by every round's
-    pull) become a recovery source when a pserver dies snapshotless.
-    The subscription comes with A11's second slice; until then there is
-    none to arm (get_cluster() is None, or raises where one is asked
-    for)."""
-    del scope
-    get_cluster()
+    pull), read as numpy on the host, become a recovery source when a
+    pserver dies snapshotless.  First scope wins; later calls are
+    no-ops."""
+    import numpy as np
+    import torch
+
+    cluster = get_cluster()
+    if cluster is None or getattr(cluster, "_provider", None) is not None:
+        return
+
+    def provider(name):
+        v = scope.find_var(name) if scope.has_var(name) else None
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            if v.dtype == torch.bfloat16:
+                return v    # the wire carries bf16 as its bits
+            return v.numpy()
+        try:
+            return np.asarray(v)
+        except Exception:
+            return v  # LoDTensor/SelectedRows ship as-is
+
+    cluster.set_param_provider(provider)
 
 
 def elastic_round(sends, gets, bucket_bytes: Optional[int] = None,
                   scope=None) -> List[object]:
-    """One send/recv round.
+    """One send/recv round that survives membership changes.
 
     ``sends``: [(placement_key, wire_name, value, fallback_ep)] — the
     placement key is the PARAM name (cluster views place params; grads
     ride to their param's owner), the wire name is what the pserver
     stores (the grad name).  ``gets``: [(placement_key, wire_name,
-    fallback_ep)].  Without a cluster subscription (the only state
-    until A11's second slice) this is exactly CommPool.send_round over
-    the fallback endpoints; the JAX package's replay of a failed round
-    against the controller's next view comes with that slice."""
+    fallback_ep)].  Without a cluster subscription this is exactly
+    CommPool.send_round over the fallback endpoints.
+
+    With one, each attempt maps keys through the CURRENT stable view's
+    placement.  An attempt that fails somewhere (dead pserver: retries
+    exhausted; stale placement: the server's ERR for an unknown var;
+    a barrier a view change released without the round) forgets the
+    failed connections, waits for a FRESH stable view (the controller
+    publishes one once the dead member's TTL lease expires and shards
+    have migrated), and replays what is left against the new
+    placement: the grads of endpoints whose round was not applied, and
+    the pulls not yet settled.  An endpoint that applied the round keeps
+    it — its grads are not sent twice — and its parameters are pulled
+    from wherever the new view places them."""
+    from .pserver import BarrierTimeoutError
+
+    pool = comm_pool()
+    cluster = get_cluster()
+    if cluster is None:
+        return pool.send_round(
+            [(ep, n, v) for _, n, v, ep in sends],
+            [(ep, n) for _, n, ep in gets], bucket_bytes)
     if scope is not None:
         ensure_param_provider(scope)
-    else:
-        get_cluster()   # None, or raises where a cluster is asked for
-    return comm_pool().send_round(
-        [(ep, n, v) for _, n, v, ep in sends],
-        [(ep, n) for _, n, ep in gets], bucket_bytes)
+    wait_s = _elastic_wait_s()
+    todo_s = list(range(len(sends)))
+    todo_g = list(range(len(gets)))
+    pulled: Dict[int, object] = {}
+    last_exc = None
+    for attempt in range(8):
+        view = cluster.ready_view(timeout_s=wait_s)
+        place = view.placement
+        s_eps = [place.get(sends[i][0], sends[i][3]) for i in todo_s]
+        g_eps = [place.get(gets[i][0], gets[i][2]) for i in todo_g]
+        results, errors = pool._run_round(
+            [(ep, sends[i][1], sends[i][2])
+             for i, ep in zip(todo_s, s_eps)],
+            [(ep, gets[i][1]) for i, ep in zip(todo_g, g_eps)],
+            bucket_bytes)
+        sent_to = set(s_eps)
+        # an endpoint's round is settled when its barrier came back and,
+        # if it took grads, it applied them (a JAX server does not say:
+        # its barrier's return counts as applied); its pull counts when
+        # the round is settled and the pull itself succeeded
+        settled = {ep for ep, r in results.items()
+                   if ep not in sent_to or r[3] != "released"}
+        idx: Dict[str, int] = {}
+        left_g = []
+        for i, ep in zip(todo_g, g_eps):
+            k = idx.get(ep, 0)
+            idx[ep] = k + 1
+            if ep in settled and ep not in errors:
+                pulled[i] = results[ep][0][k]
+            else:
+                left_g.append(i)
+        todo_s = [i for i, ep in zip(todo_s, s_eps) if ep not in settled]
+        todo_g = left_g
+        if not todo_s and not todo_g:
+            return [pulled[i] for i in range(len(gets))]
+        for ep in errors:
+            pool.forget(ep)
+        failed = [e for e in errors.values()
+                  if not isinstance(e, (OSError, ConnectionError,
+                                        RuntimeError, BarrierTimeoutError))]
+        if failed:
+            raise failed[0]
+        last_exc = (next(iter(errors.values())) if errors else
+                    RuntimeError("elastic round: a view change released "
+                                 "the round's barrier"))
+        _M_ROUND_RETRIES.inc()
+        _LOG.warning(
+            "elastic round failed under view %d (%s); waiting for a "
+            "fresh cluster view", view.epoch, last_exc)
+        # wait briefly for a NEWER view (the usual cause: a member
+        # died and the controller is rebalancing).  If none comes, the
+        # failure was transient — a barrier timed out on round-skew, a
+        # peer was mid-replay — so replay against the CURRENT view;
+        # the attempt cap bounds the total spin.
+        nxt = cluster.wait_view(view.epoch + 1,
+                                timeout_s=min(wait_s, 5.0))
+        if nxt is None:
+            _LOG.warning(
+                "elastic round: no newer view than %d; replaying "
+                "against the current placement", view.epoch)
+    raise last_exc

@@ -57,6 +57,7 @@ import os
 import socket
 import struct
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -122,6 +123,10 @@ _KNOWN_VERBS = frozenset(
      # consolidation), FENCE/COMMIT are the controller's two-phase
      # view change
      "PUT_BATCH", "DROP", "HAVE", "FENCE", "COMMIT",
+     # STATE (the port's): the optimizer state an elastic server keeps
+     # beside each named parameter, which a migration moves with it;
+     # the JAX package's server answers ERR and parameters move alone
+     "STATE",
      # FLIGHT returns the process flight-recorder ring on demand
      # (observability/flightrecorder.py) — post-mortems of a LIVE but
      # misbehaving pserver without attaching a debugger
@@ -496,6 +501,66 @@ def _recv_frame(sock: socket.socket):
     return head["verb"], head["name"], payload, head.get("trace")
 
 
+class _HashedStream:
+    """A write-only, unseekable file object: each chunk written goes to
+    `f` and, on another thread, into an md5 (hashlib releases the GIL),
+    so a file's digest costs no pass of its own after the write.
+    Unseekable, a zip writer puts each member's sizes after its data (a
+    data descriptor) instead of seeking back.  Chunks are hashed as
+    written, not copied: a buffer handed to `write` must stay unchanged
+    until `hexdigest` (np.savez hands over new bytes objects)."""
+
+    def __init__(self, f, head: bytes):
+        import hashlib
+        import queue
+
+        self._f, self._n = f, 0
+        self._md5 = hashlib.md5(head)
+        self._chunks = queue.Queue(maxsize=8)
+        self._hasher = threading.Thread(target=self._hash, daemon=True)
+        self._hasher.start()
+
+    def _hash(self):
+        while True:
+            chunk = self._chunks.get()
+            if chunk is None:
+                return
+            self._md5.update(chunk)
+
+    def write(self, b) -> int:
+        n = self._f.write(b)
+        self._chunks.put(b)
+        self._n += n
+        return n
+
+    def tell(self) -> int:
+        return self._n
+
+    def read(self, *_):
+        # np.savez takes an object with `read` for a file object
+        raise OSError("a write-only stream")
+
+    def flush(self):
+        self._f.flush()
+
+    def hexdigest(self) -> str:
+        self._chunks.put(None)
+        self._hasher.join()
+        return self._md5.hexdigest()
+
+
+def _savez_hashed(f, name: str, arrays) -> str:
+    """np.savez of `arrays` into the open file `f` -> the md5 of the
+    snapshot directory holding it as `name` (io._md5_of_dir's: the
+    name's bytes, then the file's), taken while writing."""
+    stream = _HashedStream(f, name.encode())
+    try:
+        np.savez(stream, **arrays)
+    finally:
+        digest = stream.hexdigest()
+    return digest
+
+
 class VariableServer:
     """Holds a scope; applies the optimize program after `fan_in` barriers.
 
@@ -524,6 +589,15 @@ class VariableServer:
         self.elastic = elastic
         self._fenced = False
         self._view_epoch = 0
+        # elastic: param -> the persistable state its slice writes
+        # beside it (an Adam parameter's moments and its own copies of
+        # the epilogue's state, the beta powers); grad -> {private copy:
+        # the shared var it starts from} (_build_async_slices)
+        self._companions: Dict[str, list] = {}
+        self._private: Dict[str, Dict[str, str]] = {}
+        # rounds a COMMIT released without their optimize (a barrier
+        # reply says "released" for them, "applied" otherwise)
+        self._released: set = set()
         # enable_batch=False turns off the fused SEND_BATCH/GET_BATCH
         # verbs, making this server answer exactly like one predating
         # them (ERR "unknown verb") — the wire-compat tests pin the
@@ -555,6 +629,10 @@ class VariableServer:
         self._next_trainer = 0
         self._sock: Optional[socket.socket] = None
         self._threads = []
+        # live trainer connections: stop() shuts them down, so a stopped
+        # server answers nothing (as a killed one), not only no new
+        # connection
+        self._conns: set = set()
         self._stopping = False
         self.port = None
         if snapshot_dir:
@@ -623,6 +701,15 @@ class VariableServer:
                 self._sock.close()
         except OSError:
             pass
+        if not _sched_fault("pserver.accept-stop-race"):
+            # and the live connections, so a stopped server answers
+            # nothing, as a killed one (the armed fault is the old
+            # behaviour, for the schedule checker's pin)
+            for conn in list(self._conns):
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except (OSError, AttributeError):
+                    pass
         with self._lock:
             self._lock.notify_all()
 
@@ -645,6 +732,7 @@ class VariableServer:
                 except OSError:
                     pass
                 return
+            self._conns.add(conn)
             t = threading.Thread(target=self._serve_conn, args=(conn,),
                                  daemon=True)
             t.start()
@@ -788,6 +876,10 @@ class VariableServer:
                             for n in names:
                                 doomed.add(n)
                                 doomed.add(n + "@GRAD")
+                                # an elastic server's state of the
+                                # param goes with it (its new owner
+                                # holds it now)
+                                doomed.update(self._companions.get(n, ()))
                             with self._lock:
                                 for sn in list(
                                         self.scope.local_names()):
@@ -809,6 +901,13 @@ class VariableServer:
                                         if self.scope.has_var(n)]
                             reply = ("OK", "",
                                      json.dumps(held).encode())
+                        elif verb == "STATE":
+                            # which persistables travel with each named
+                            # parameter (empty off elastic mode)
+                            names = json.loads(bytes(payload))
+                            reply = ("OK", "", json.dumps(
+                                {n: self._companions.get(n, [])
+                                 for n in names}).encode())
                         elif verb == "FENCE":
                             self._apply_fence(int(name))
                             reply = ("OK", "", b"")
@@ -819,11 +918,15 @@ class VariableServer:
                                                attrs.get("fan_in"))
                             reply = ("OK", "", b"")
                         elif verb == "BARRIER":
+                            outcome = "applied"
                             if self.sync:
                                 with obs_attr.phase("pserver",
                                                     "barrier"):
-                                    self._barrier()
-                            reply = ("OK", "", b"")
+                                    outcome = self._barrier()
+                            # "released": a COMMIT let this barrier go
+                            # without the round's optimize (a JAX
+                            # client reads only the verb)
+                            reply = ("OK", outcome, b"")
                         elif verb == "GET":
                             val = self._blocking_get(name)
                             reply_parts = (
@@ -861,6 +964,7 @@ class VariableServer:
         except (ConnectionError, OSError):
             pass
         finally:
+            self._conns.discard(conn)
             conn.close()
 
     # -- per-shard snapshot (go/pserver/service.go:120-203) -----------------
@@ -868,10 +972,13 @@ class VariableServer:
         if self.program is None:
             return {}
         out = {}
-        for v in self.program.list_vars():
-            if not v.persistable or not self.scope.has_var(v.name):
+        names = [v.name for v in self.program.list_vars() if v.persistable]
+        for priv in self._private.values():
+            names.extend(priv)
+        for name in names:
+            if not self.scope.has_var(name):
                 continue
-            val = self.scope.find_var(v.name)
+            val = self.scope.find_var(name)
             if not isinstance(val, torch.Tensor):
                 continue
             val = val.detach().cpu()
@@ -879,7 +986,7 @@ class VariableServer:
                 # npz has no bfloat16: widened without loss, narrowed
                 # back to the scope's dtype on restore
                 val = val.float()
-            out[v.name] = val.numpy().copy()
+            out[name] = val.numpy().copy()
         return out
 
     def snapshot(self, max_keep: int = 3) -> Optional[str]:
@@ -900,14 +1007,21 @@ class VariableServer:
 
         from .. import io as _io
 
+        from .checkpoint import PSERVER_SHARD_FILENAME
+
         host, rnd = data
         cp_uuid = uuid_mod.uuid4().hex
         cp_dir = os.path.join(self.snapshot_dir,
                               f"{_io.CHECKPOINT_PREFIX}_{cp_uuid}")
         os.makedirs(cp_dir, exist_ok=True)
-        np.savez(os.path.join(cp_dir, "pserver_shard.npz"), **host)
+        t0 = time.perf_counter()
+        with open(os.path.join(cp_dir, PSERVER_SHARD_FILENAME), "wb") as f:
+            digest = _savez_hashed(f, PSERVER_SHARD_FILENAME, host)
         _io.publish_checkpoint(self.snapshot_dir, cp_uuid, cp_dir,
-                               {"round": rnd}, max_keep)
+                               {"round": rnd}, max_keep, md5=digest)
+        flightrecorder.note("pserver.snapshot", round=rnd,
+                            seconds=time.perf_counter() - t0,
+                            bytes=sum(v.nbytes for v in host.values()))
         return cp_uuid
 
     def restore_snapshot(self):
@@ -944,19 +1058,35 @@ class VariableServer:
         self._updates_since_snapshot = 0
         return (self._shard_vars(), self._round)
 
-    def _barrier(self):
+    def _barrier(self) -> str:
+        """-> "applied" when the round's optimize ran, "released" when a
+        COMMIT let the barrier go without it (its grads were cleared as
+        pre-view state)."""
         snap = None
         with self._lock:
             # view-change fence: no optimize step may straddle a
             # placement change, so barriers arriving mid-rebalance hold
             # until the controller COMMITs the new view (reads and the
             # migration verbs stay live — the fence only quiesces the
-            # round machinery)
-            while self._fenced and not self._stopping:
-                self._lock.wait(timeout=0.1)
+            # round machinery).  The COMMIT clears the grads this
+            # barrier stands for, so it is released uncounted: counting
+            # it would run an optimize of nothing, or of a peer's
+            # later grads
+            if self._fenced:
+                while self._fenced and not self._stopping:
+                    self._lock.wait(timeout=0.1)
+                return "released"
             self._barriers += 1
             if self._barriers >= self.fan_in:
-                self._run_optimize()
+                try:
+                    self._run_optimize()
+                except Exception:
+                    # the round is refused whole (an elastic server
+                    # checks before it runs a slice): its grads go, its
+                    # waiters are released without it, and the error
+                    # reaches this barrier's trainer, which replays
+                    self._clear_round()
+                    raise
                 self._barriers = 0
                 self._round += 1
                 snap = self._maybe_snapshot_data()
@@ -965,8 +1095,11 @@ class VariableServer:
                 rnd = self._round
                 while self._round == rnd and not self._stopping:
                     self._lock.wait(timeout=0.1)
+                if rnd in self._released:
+                    return "released"
         if snap is not None:
             self._write_snapshot(snap)
+        return "applied"
 
     # -- two-phase view change (cloud/cluster.py ClusterController) ---------
     def _apply_fence(self, epoch: int):
@@ -996,23 +1129,48 @@ class VariableServer:
             if self._barriers:
                 # release mid-round waiters without an optimize: their
                 # grads were just cleared as pre-view state
-                self._round += 1
+                self._clear_round()
             self._barriers = 0
             self._fenced = False
             self._lock.notify_all()
 
-    def _slice_program(self, keep):
+    def _clear_round(self):
+        """Release the round in progress without its optimize (caller
+        holds self._lock): its grad slots go, its waiters hear
+        "released"."""
+        for n in list(self.scope.local_names()):
+            if ".trainer_" in n:
+                self.scope.erase(n)
+        self._released = {r for r in self._released
+                          if r > self._round - 64}
+        self._released.add(self._round)
+        self._round += 1
+        self._barriers = 0
+        self._lock.notify_all()
+
+    def _slice_program(self, keep, rename=None):
+        """A Program of the ops `keep`, declaring the vars they use (as
+        persistables); `rename` maps a var name to the name the slice
+        reads and writes instead (an elastic slice's private copy of
+        shared epilogue state)."""
         from ..core.framework import Program
 
+        rename = rename or {}
         src = self.program.global_block()
         prog = Program()
         blk = prog.global_block()
+        used = [n for op_ in keep for d in (op_.inputs, op_.outputs)
+                for ns in d.values() for n in ns]
+        for n in dict.fromkeys(used):
+            v = src.vars.get(n)
+            if v is not None:
+                blk.create_var(name=rename.get(n, n), shape=v.shape,
+                               dtype=v.dtype, persistable=True)
         for op_ in keep:
-            for v in src.vars.values():
-                if not blk.has_var(v.name):
-                    blk.create_var(name=v.name, shape=v.shape,
-                                   dtype=v.dtype, persistable=True)
-            blk.append_op(op_.type, dict(op_.inputs), dict(op_.outputs),
+            def slots(d):
+                return {k: [rename.get(n, n) for n in ns]
+                        for k, ns in d.items()}
+            blk.append_op(op_.type, slots(op_.inputs), slots(op_.outputs),
                           dict(op_.attrs))
         return prog
 
@@ -1026,7 +1184,7 @@ class VariableServer:
         src = self.program.global_block()
         grads = {n for op_ in src.ops
                  for n in op_.inputs.get("Grad", [])}
-        selected = {}
+        kept = {}
         claimed = set()
         claimed_by = {}  # id(op) -> first grad slice that claimed it
         for g in sorted(grads):
@@ -1049,13 +1207,50 @@ class VariableServer:
                     claimed.add(id(op_))
                     produced.update(n for ns in op_.outputs.values()
                                     for n in ns)
-            selected[g] = self._slice_program(keep)
+            kept[g] = keep
         epilogue = [op_ for op_ in src.ops if id(op_) not in claimed]
-        self._async_progs = selected
-        self._async_epilogue = (self._slice_program(epilogue)
-                                if epilogue else None)
         self._async_grads = grads
         self._async_built = True
+        if self.elastic:
+            self._elastic_slices(src, kept, epilogue)
+            return
+        self._async_progs = {g: self._slice_program(k)
+                             for g, k in kept.items()}
+        self._async_epilogue = (self._slice_program(epilogue)
+                                if epilogue else None)
+
+    def _elastic_slices(self, src, kept, epilogue):
+        """Elastic slices own all their state.  A parameter's slice runs
+        the epilogue's ops too (Adam's beta-power scales, a decay's
+        step), on its own copies of the state they write, named
+        ``<var>@<param>`` and started from the shared var; the shared
+        epilogue goes.  Every round still advances that state once for
+        each parameter updated, as the shared epilogue did, but the
+        state now moves with its parameter: a migrated parameter takes
+        its step count to its new owner, and a round replayed for some
+        parameters advances only theirs.  Records each parameter's
+        companions (the persistables its slice writes besides it, for
+        the STATE verb and DROP) and each slice's private copies."""
+        written = {n for op_ in epilogue for ns in op_.outputs.values()
+                   for n in ns}
+        persistable = {v.name for v in src.vars.values() if v.persistable}
+        order = {id(op_): i for i, op_ in enumerate(src.ops)}
+        self._async_progs, self._companions, self._private = {}, {}, {}
+        for g, ops in kept.items():
+            param = next((op_.inputs["Param"][0] for op_ in ops
+                          if op_.inputs.get("Param")), None)
+            if param is None:
+                param = g[:-len("@GRAD")] if g.endswith("@GRAD") else g
+            rename = {n: f"{n}@{param}" for n in sorted(written)}
+            keep = sorted(ops + epilogue, key=lambda o: order[id(o)])
+            self._async_progs[g] = self._slice_program(keep, rename)
+            self._private[g] = {p: n for n, p in rename.items()}
+            outs = {n for op_ in ops for ns in op_.outputs.values()
+                    for n in ns if n in persistable and n != param
+                    and n not in written}
+            self._companions[param] = sorted(outs) + sorted(
+                rename.values())
+        self._async_epilogue = None
 
     def _apply_async(self, name, value):
         self._apply_async_bucket([(name, value)])
@@ -1153,17 +1348,25 @@ class VariableServer:
                 # this server's shard is whatever the current view
                 # placed on it, and params migrated away (DROPped) must
                 # not be touched by stale program ops
-                ran = False
+                # (each slice carries its parameter's share of the
+                # epilogue's state: _elastic_slices).  A grad whose
+                # parameter this server does not hold (a trainer routed
+                # by a view older than a migration) refuses the round
+                # before any slice runs, so no round is half applied
+                absent = sorted(
+                    b for b in names if b in self._async_progs
+                    and not self.scope.has_var(
+                        b[:-len("@GRAD")] if b.endswith("@GRAD") else b))
+                if absent:
+                    raise KeyError(
+                        f"pserver does not hold the parameters of "
+                        f"{absent[:3]} (placed elsewhere by the current "
+                        "view)")
                 for base in sorted(names):
                     prog = self._async_progs.get(base)
                     if prog is not None:
+                        self._ensure_state(base)
                         self.exe.run(prog, scope=self.scope)
-                        ran = True
-                if ran and self._async_epilogue is not None:
-                    # shared schedule state (Adam beta pows, global
-                    # step) advances once per optimize round, exactly
-                    # like the non-elastic full-program run
-                    self.exe.run(self._async_epilogue, scope=self.scope)
             else:
                 self.exe.run(self.program, scope=self.scope)
         # per-iteration sparse-row clearing (listen_and_serv_op.cc:171):
@@ -1173,6 +1376,24 @@ class VariableServer:
             self.scope.erase(base)
             for p in parts:
                 self.scope.erase(p)
+
+    def _ensure_state(self, grad: str):
+        """Before an elastic slice runs: its private copies of the
+        epilogue's state start from the shared vars, and state a DROP
+        took with an earlier copy of the parameter (a parameter
+        installed again by recovery, with no state to carry) starts as
+        the optimizer's accumulators do, at zeros of the parameter's
+        shape."""
+        for priv, shared in self._private.get(grad, {}).items():
+            if not self.scope.has_var(priv) and self.scope.has_var(shared):
+                self.scope.set_var(priv, self.scope.find_var(shared).clone())
+        param = grad[:-len("@GRAD")] if grad.endswith("@GRAD") else grad
+        if not self.scope.has_var(param):
+            return
+        like = self.scope.find_var(param)
+        for n in self._companions.get(param, ()):
+            if not self.scope.has_var(n) and isinstance(like, torch.Tensor):
+                self.scope.set_var(n, torch.zeros_like(like))
 
     def _blocking_get(self, name: str):
         # The fan-in optimize runs atomically under the server lock, so a
@@ -1559,6 +1780,16 @@ class VariableClient:
             raise RuntimeError(f"pserver error on HAVE: {rverb}")
         return set(json.loads(bytes(rpayload)))
 
+    def state_of(self, names):
+        """{param: the persistables an elastic server keeps beside it}
+        (its optimizer state, which a migration moves with it).  A
+        server that does not speak STATE raises RuntimeError."""
+        rverb, _, rpayload = self._request(
+            "STATE", "", json.dumps(list(names)).encode())
+        if rverb != "OK":
+            raise RuntimeError(f"pserver error on STATE: {rverb}")
+        return json.loads(bytes(rpayload))
+
     def fence(self, epoch: int):
         """Two-phase view change, phase 1: quiesce rounds (idempotent —
         re-fencing an already-fenced server just renews the epoch)."""
@@ -1574,8 +1805,11 @@ class VariableClient:
         if rverb != "OK":
             raise RuntimeError(f"pserver error on COMMIT: {rverb}")
 
-    def send_batch_barrier(self, timeout: Optional[float] = None):
-        """Sync-round barrier.  `timeout` (or the instance-level
+    def send_batch_barrier(self, timeout: Optional[float] = None) -> str:
+        """Sync-round barrier -> the server's word on the round:
+        "applied" (its optimize ran), "released" (a view change let the
+        barrier go without it) or "" (a server that does not say, the
+        JAX package's).  `timeout` (or the instance-level
         barrier_timeout) bounds the wait; expiry raises
         BarrierTimeoutError — the sync-SGD signature of a trainer that
         died before barriering this round."""
@@ -1584,8 +1818,8 @@ class VariableClient:
         timeout = self.barrier_timeout if timeout is None else timeout
         t0 = _time.perf_counter()
         try:
-            rverb, _, _ = self._request("BARRIER", idempotent=False,
-                                        timeout=timeout)
+            rverb, rname, _ = self._request("BARRIER", idempotent=False,
+                                            timeout=timeout)
             _M_BARRIER_WAIT.observe(_time.perf_counter() - t0)
         except (socket.timeout, TimeoutError) as e:
             raise BarrierTimeoutError(
@@ -1594,6 +1828,7 @@ class VariableClient:
                 "wedged") from e
         if rverb != "OK":
             raise RuntimeError(f"pserver error at barrier: {rverb}")
+        return rname
 
     def get_var(self, name: str):
         rverb, _, rpayload = self._request("GET", name)

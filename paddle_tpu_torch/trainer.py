@@ -10,11 +10,11 @@ With metrics on, `train` publishes the compute phase's static roofline
 floor (the cost model's estimate of the main Program on the card's
 chip-table row) for the calibration detector, as the JAX package does.
 
-Not ported: `cluster=` (the elastic cluster's membership and view
-subscription, ROADMAP A11's second slice) raises; the fleet telemetry
-announcement (`observability.maybe_announce`, ROADMAP A12's second
-part) does nothing while PADDLE_TPU_TELEMETRY_REGISTRY is unset and
-raises when it is set.
+`train(cluster=...)` joins an elastic cluster (cloud/cluster.py) for
+the loop.  Not ported: the fleet telemetry announcement
+(`observability.maybe_announce`, ROADMAP A12's second part) does
+nothing while PADDLE_TPU_TELEMETRY_REGISTRY is unset and raises when
+it is set.
 """
 from __future__ import annotations
 
@@ -298,23 +298,85 @@ class Trainer:
         final parameters are bit-identical (test-enforced,
         tests/test_torch_trainer.py).
 
-        `cluster=` (the elastic cluster) is not ported: it raises,
-        naming ROADMAP A11's second slice."""
-        if cluster is not None:
-            raise NotImplementedError(
-                "Trainer.train(cluster=...): the elastic cluster (view "
-                "subscription, membership lease) is not ported yet "
-                "(ROADMAP A11's second slice)")
+        Elastic clusters: `cluster=` (a cloud.cluster.ClusterClient,
+        an in-process ClusterController, or a controller address
+        string) arms the process-wide view subscription, registers this
+        trainer as a TTL-leased cluster member for the duration of the
+        loop, and publishes the program's send-op param descs to the
+        controller (idempotent — first definition wins).  The program's
+        send/recv rounds then resolve endpoints through the
+        controller's current view and survive pserver membership
+        changes without a restart; the lease, released on clean exit
+        (or expired by TTL on a crash), is what lets the controller
+        shrink fan-in and the master reclaim this trainer's task
+        chunks.  The subscription is armed before the startup program
+        runs, so its recv ops pull from the view's owners."""
         from . import io
         from .core.resilience import fault_injector
         from .reader.pipeline import prefetch_feeder
 
-        self.start()
-        return self._train_loop(
-            num_passes, reader, event_handler, feeder, checkpoint_dir,
-            checkpoint_every_n_passes, checkpoint_max_keep,
-            checkpoint_every_n_iters, resume_from, prefetch, sync_every_n,
-            io, fault_injector, prefetch_feeder)
+        lease = None
+        prev_cluster = client = None
+        armed = False
+        try:
+            if cluster is not None:
+                from .parallel.comm import get_cluster, set_cluster
+
+                # the subscription is process-global: remember what was
+                # armed before (usually nothing) and restore it on
+                # exit, so a later train()/executor run in this process
+                # does not route rounds through a controller that may
+                # be gone.  Arming INSIDE the try: if define()/join()
+                # fail against an unreachable controller, the finally
+                # still restores the prior subscription
+                prev_cluster = get_cluster()
+                client = set_cluster(cluster)
+                armed = True
+                descs = self._send_param_descs()
+                if descs:
+                    client.define(descs)
+                lease = client.join("trainer")
+            self.start()
+            return self._train_loop(
+                num_passes, reader, event_handler, feeder,
+                checkpoint_dir, checkpoint_every_n_passes,
+                checkpoint_max_keep, checkpoint_every_n_iters,
+                resume_from, prefetch, sync_every_n, io, fault_injector,
+                prefetch_feeder)
+        finally:
+            if lease is not None:
+                lease.release()
+            if armed:
+                from .parallel.comm import set_cluster
+
+                set_cluster(prev_cluster)
+                if client is not cluster and client is not prev_cluster:
+                    # we built this ClusterClient from an address /
+                    # controller the caller passed; callers who pass a
+                    # client keep ownership of theirs
+                    try:
+                        client.close()
+                    except Exception:
+                        pass
+
+    def _send_param_descs(self):
+        """VarDescs of the params this program's send ops place (the
+        fused send's Out list), for ClusterClient.define — shapes come
+        from the program vars so the controller's balanced_split can
+        weigh bytes."""
+        from .parallel.distributed_spliter import VarDesc
+
+        blk = self.main_program.global_block()
+        descs = []
+        for op in blk.ops:
+            if op.type != "send":
+                continue
+            for name in op.output("Out"):
+                v = blk.vars.get(name)
+                descs.append(VarDesc(
+                    name, tuple(getattr(v, "shape", None) or ()),
+                    str(getattr(v, "dtype", "float32"))))
+        return descs
 
     def _train_loop(self, num_passes, reader, event_handler, feeder,
                     checkpoint_dir, checkpoint_every_n_passes,

@@ -478,15 +478,22 @@ def test_round_frames_and_buckets_pinned(cap):
 
 
 def test_the_elastic_cluster_waits_for_a11s_second_slice(monkeypatch):
+    """A11's second slice is here: set_cluster and a
+    PADDLE_TPU_CONTROLLER environment arm a ClusterClient subscription
+    (tests/test_torch_elastic.py drives it) instead of raising."""
+    from paddle_tpu_torch.cloud.cluster import ClusterClient
+
     comm.reset_cluster()
     assert comm.get_cluster() is None
     assert comm.set_cluster(None) is None
-    with pytest.raises(NotImplementedError, match="A11's second slice"):
-        comm.set_cluster("127.0.0.1:1")
+    c = comm.set_cluster("127.0.0.1:1")
+    assert isinstance(c, ClusterClient) and comm.get_cluster() is c
+    with pytest.raises(TypeError):
+        comm.set_cluster(object())
     comm.reset_cluster()
     monkeypatch.setenv("PADDLE_TPU_CONTROLLER", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="A11's second slice"):
-        comm.get_cluster()
+    c = comm.get_cluster()
+    assert isinstance(c, ClusterClient) and c._addr == ("127.0.0.1", 1)
     monkeypatch.delenv("PADDLE_TPU_CONTROLLER")
     comm.reset_cluster()
     assert comm.get_cluster() is None

@@ -3198,3 +3198,37 @@ def test_a_bf16_card_tensor_crosses_the_wire_bit_for_bit(dev):
     assert sr.rows.tolist() == [3, 1, 3] and sr.height == 64
     assert np.array_equal(sr.value.view(torch.int16).numpy(),
                           x[:3].cpu().view(torch.int16).numpy())
+
+
+def test_the_card_sqrt_is_torch_sqrt_on_the_device(dev, monkeypatch):
+    """The host's correctly rounded sqrt (ops/_math.py) leaves the card
+    path as it was: on a CUDA tensor the sqrt op and adam call
+    torch.sqrt on the device, never a float64 copy."""
+    from paddle_tpu_torch.core.registry import get_op_info
+    from paddle_tpu_torch.ops import _math
+
+    real, seen = torch.sqrt, []
+
+    def spy(x, *a, **kw):
+        seen.append((x.device.type, x.dtype))
+        return real(x, *a, **kw)
+
+    monkeypatch.setattr(torch, "sqrt", spy)
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand(1 << 16, generator=g) * 1e-6).to(dev)
+    out = _math.sqrt(x)
+    assert seen == [("cuda", torch.float32)]
+    assert torch.equal(out, real(x))
+    seen.clear()
+    got = get_op_info("sqrt").lower(None, {"X": [x]}, {})["Out"]
+    got = got[0] if isinstance(got, (list, tuple)) else got
+    assert torch.equal(got, real(x)) and seen == [("cuda", torch.float32)]
+    seen.clear()
+    ins = {"Param": x, "Grad": x, "Moment1": x, "Moment2": x,
+           "LearningRate": torch.tensor([1e-4], device=dev),
+           "Beta1Pow": torch.tensor([0.9], device=dev),
+           "Beta2Pow": torch.tensor([0.999], device=dev)}
+    get_op_info("adam").lower(None, {k: [v] for k, v in ins.items()},
+                              {"beta1": 0.9, "beta2": 0.999,
+                               "epsilon": 1e-8})
+    assert seen and all(s == ("cuda", torch.float32) for s in seen)

@@ -261,8 +261,14 @@ def test_trainer_events_test_and_infer():
 def test_unported_trainer_surfaces_raise_naming_their_items(monkeypatch):
     main, startup, x, y, pred, loss = _mlp()
     t = _trainer(main, startup, x, y, loss, Scope())
-    with pytest.raises(NotImplementedError, match="A11's second slice"):
-        t.train(1, _batches(), cluster="localhost:1")
+    # cluster= is ported (tests/test_torch_elastic.py): an unreachable
+    # controller fails the call, and the subscription is put back
+    from paddle_tpu_torch.parallel import comm
+
+    monkeypatch.setenv("PADDLE_TPU_CLUSTER_RETRY_MAX_ATTEMPTS", "1")
+    with pytest.raises(OSError):
+        t.train(1, _batches(), cluster="127.0.0.1:1")
+    assert comm.get_cluster() is None
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY", "localhost:1")
     with pytest.raises(NotImplementedError, match="A12"):
         t.train(1, _batches())

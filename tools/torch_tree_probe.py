@@ -28,6 +28,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py tp-zero [--package-root DIR]
     python3 tools/torch_tree_probe.py a9 [--package-root DIR]
     python3 tools/torch_tree_probe.py pserver [--package-root DIR]
+    python3 tools/torch_tree_probe.py elastic [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -129,6 +130,10 @@ pserver    chip_smoke.py's pserver phase alone (the flash kernels built
            first; the phase builds the native library itself): DeepFM,
            vgg16_cluster and the seq2seq translator with their trainers
            on the card and their pservers on the host;
+elastic    chip_smoke.py's elastic phase alone (the flash kernels built
+           first): the seq2seq translator through Trainer.train(cluster=)
+           on the card, three elastic host pservers, one SIGKILLed and
+           one joining, against the serial Executor;
 a10c       chip_smoke.py's tools phase with what it reads: the flash
            phase, the train phase (amp) with the tools profiler part on
            its replayed graph, the seq2seq phase, then the tools CLI
@@ -1012,6 +1017,17 @@ def pserver(cs, dev):
     cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
 
 
+def elastic(cs, dev):
+    """chip_smoke's elastic phase alone (the flash kernels built
+    first)."""
+    from paddle_tpu_torch.kernels import flash_attention
+
+    card, _, _ = _card(cs)
+    flash_attention.build()
+    cs.elastic_phase(card)
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1225,7 +1241,8 @@ def main():
                                       "gloo-dtypes", "memory-plan",
                                       "a4b-a6", "a3-a10",
                                       "maxpool-routes", "a10b", "a10c",
-                                      "a12", "tp-zero", "a9", "pserver"))
+                                      "a12", "tp-zero", "a9", "pserver",
+                                      "elastic"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1263,7 +1280,8 @@ def main():
          "a4b-a6": a4b_a6, "a3-a10": a3_a10,
          "maxpool-routes": maxpool_routes, "a10b": a10b,
          "a10c": a10c, "a12": a12, "tp-zero": tp_zero,
-         "a9": a9, "pserver": pserver}[args.probe](cs, dev)
+         "a9": a9, "pserver": pserver,
+         "elastic": elastic}[args.probe](cs, dev)
     return 0
 
 

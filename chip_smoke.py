@@ -413,7 +413,49 @@ Phases, one JSON line each:
            placement balanced_split over the live endpoints; ms a round
            (device, D2H, wire, H2D), SIGKILL to the next stable view,
            the replayed round, the join's bytes and seconds, the view
-           epochs;
+           epochs.  A TelemetryCollector here scrapes the cluster on a
+           registry of its own: the trainer (this process, at
+           Trainer.train) and each pserver (at its lease) announce; the
+           collector must list the trainer and pservers 0 and 1, reclaim
+           pserver 1's series within max(fail_limit x period, the
+           announcement's TTL) of its SIGKILL, and list pserver 2 once
+           it joins;
+  fleet    A11's serving fleet at the serve phase's width and weights:
+           the model saved with its warm-start artifact (the kernels'
+           build cache and its manifest); a ReplicaRouter hosting the
+           registry, a TelemetryCollector on it and an Autoscaler (min
+           1, max 3) spawning `python -m paddle_tpu_torch.cli serve`
+           replicas (--telemetry); one replica's token rate in a
+           closed-loop burst, then an open-loop ramp of seeded greedy
+           requests (prompts 16-64, max_new 32-128) at 0.3x, 1.5x and
+           0.1x that rate; the peak runs until the scale-out replica
+           (15-20 s from spawn to serving) has served beside the floor
+           one for 4 s, when the busiest autoscaler-owned replica, with
+           several streams on it, is SIGKILLed; the tail runs until a
+           scale-in has brought the fleet back to one replica, which
+           then serves a closing closed-loop burst.  Held: zero failed
+           requests; every stream equal token for token to the same
+           request decoded by an in-process GenerationServer on the
+           same weights (the resumed ones included); at least 2
+           replicas serving at the peak, the kill cutting >= 2 streams,
+           a drain-then-retire scale-in and 1 at the end; every
+           scale-out replica warm (0 compiles, 0 misses, >= 1 hit, 0
+           rebuilds after warmup, decode on the kernel) and, once it
+           served tokens, its own paged-attention launch count above
+           0; a --cold replica (the build dir empty) compiling >= 1
+           source; no crash loop; the router and every spawned replica
+           listed and scraped by the collector, the killed one's series
+           reclaimed within the bound, a retired one delisted; the
+           federation dump holding member/kind-labelled series of the
+           replicas and the router; `cli top` rendering the fleet,
+           `cli slo --check` evaluating the serving lines (its verdict
+           reported as it falls), `cli why` naming the decode phase,
+           `cli trace-of` joining the router's p99 exemplar to a
+           tail-sampled trace.  Reports the rate, the ramp's tokens/s
+           by phase and over the peak's two-replica stretch, a warm and
+           a cold replica's seconds from spawn to first token, SIGKILL
+           to the resumed streams, the scale events, each replica's
+           launches;
   tools    A10c, two lines.  "profiler" (run inside the train phase, on
            its replayed graph; its seconds are its own):
            profiler.profile_compiled_ops over 3 replays of the LM's
@@ -477,9 +519,11 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -8029,7 +8073,7 @@ class _ElasticThreads:
 
     def __init__(self, build, root):
         self.build, self.root = build, root
-        self.servers, self.leases = {}, {}
+        self.servers, self.leases, self.announcements = {}, {}, {}
 
     def snapshot_dir(self, i):
         return os.path.join(self.root, f"ps{i}")
@@ -8039,15 +8083,25 @@ class _ElasticThreads:
             self.servers[i] = _el_server(self.build, self.snapshot_dir(i))
         return f"127.0.0.1:{self.servers[i].port}"
 
-    def lease(self, i, registry_addr, ttl_s):
+    def lease(self, i, registry_addr, ttl_s, telemetry=None):
         from paddle_tpu_torch.cloud.registry import Lease, RegistryClient
+        from paddle_tpu_torch.observability.collector import announce
 
         self.leases[i] = Lease(RegistryClient(registry_addr), "pserver",
                                self.endpoint(i), ttl_s=ttl_s)
+        if telemetry:
+            # a thread's pserver shares the process registry: its own
+            # endpoint and lease stand for the process a pserver is
+            self.announcements[i] = announce(telemetry, "pserver",
+                                             member=f"pserver{i}")
 
     def kill(self, i):
         self.servers[i].stop()
         self.leases[i]._stop.set()
+        ann = self.announcements.pop(i, None)
+        if ann is not None:
+            ann.lease._stop.set()
+            ann.http.close()
 
     def close(self):
         for i, srv in self.servers.items():
@@ -8055,6 +8109,9 @@ class _ElasticThreads:
             lease = self.leases.get(i)
             if lease is not None and not lease._stop.is_set():
                 lease.release()
+        for ann in self.announcements.values():
+            ann.close()
+        self.announcements.clear()
 
 
 class _ElasticProcs:
@@ -8094,10 +8151,11 @@ class _ElasticProcs:
         with open(path) as f:
             return f.read().strip()
 
-    def lease(self, i, registry_addr, ttl_s):
+    def lease(self, i, registry_addr, ttl_s, telemetry=None):
         path = os.path.join(self.root, f"lease{i}")
         with open(path + ".tmp", "w") as f:
-            json.dump({"registry": registry_addr, "ttl_s": ttl_s}, f)
+            json.dump({"registry": registry_addr, "ttl_s": ttl_s,
+                       "telemetry": telemetry}, f)
         os.replace(path + ".tmp", path)
 
     def kill(self, i):
@@ -8144,9 +8202,169 @@ def _el_worker(i, root):
         cfg = json.load(f)
     lease = Lease(RegistryClient(cfg["registry"]), "pserver",
                   f"127.0.0.1:{srv.port}", ttl_s=cfg["ttl_s"])
+    if cfg.get("telemetry"):
+        # the pserver joins the fleet's telemetry as it joins the
+        # cluster: the hook its serve() calls, armed now
+        from paddle_tpu_torch.observability.collector import \
+            maybe_announce
+
+        os.environ["PADDLE_TPU_TELEMETRY_REGISTRY"] = cfg["telemetry"]
+        os.environ["PADDLE_TPU_TELEMETRY_MEMBER"] = f"pserver{i}"
+        maybe_announce("pserver")
     while not srv._stopping:
         time.sleep(0.1)
     lease.release()
+
+
+# the elastic phase's telemetry: the collector's scrape period, and the
+# TTL of a member's announcement (collector.announce's default, which
+# maybe_announce keeps)
+EL_SCRAPE_S, EL_ANNOUNCE_TTL = 0.5, 2.0
+
+
+class _MemberWatch:
+    """A watcher over a TelemetryCollector, noting on one clock when each
+    member is first listed and first scraped, when its series leave the
+    collector's store and when it is delisted."""
+
+    def __init__(self, coll):
+        self.coll = coll
+        self.t0 = time.perf_counter()
+        self.marks, self.members = {}, {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _now(self):
+        return time.perf_counter() - self.t0
+
+    def mark(self, key):
+        self.marks[key] = self._now()
+
+    def wait(self, pred, timeout=30.0):
+        """Block until `pred(members)` holds (or `timeout`) -> whether it
+        held."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            with self._lock:
+                if pred(self.members):
+                    return True
+            if time.perf_counter() > deadline:
+                return False
+            time.sleep(0.05)
+
+    def _has_series(self, member):
+        store = self.coll.series
+        return any(member in store.label_values(n, "member")
+                   for n in store.series_names()
+                   if n != "paddle_tpu_member_up")
+
+    def _watch(self):
+        while not self._stop.wait(0.05):
+            t = self._now()
+            listed = {m["member"]: m for m in self.coll.members()}
+            with self._lock:
+                for name, m in listed.items():
+                    rec = self.members.setdefault(
+                        name, {"kind": m["kind"], "listed_s": t})
+                    if m["up"]:
+                        rec.setdefault("scraped_s", t)
+                for name, rec in self.members.items():
+                    if ("scraped_s" in rec and "reclaimed_s" not in rec
+                            and not self._has_series(name)):
+                        rec["reclaimed_s"] = t
+                    if name not in listed:
+                        rec.setdefault("delisted_s", t)
+
+    def snapshot(self):
+        with self._lock:
+            return {"members": {n: dict(r) for n, r in
+                                self.members.items()},
+                    "marks": dict(self.marks),
+                    "scrapes": self.coll.scrapes,
+                    "fail_limit": self.coll.fail_limit,
+                    "period_s": self.coll.period_s,
+                    "scrape_timeout_s": self.coll.scrape_timeout_s}
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+class _ElTelemetry(_MemberWatch):
+    """The elastic phase's fleet telemetry: a Registry and a
+    TelemetryCollector (a scrape every EL_SCRAPE_S) in this process,
+    watched."""
+
+    def __init__(self):
+        from paddle_tpu_torch.cloud.registry import Registry
+        from paddle_tpu_torch.observability.collector import \
+            TelemetryCollector
+
+        self.registry = Registry()
+        self.addr = f"127.0.0.1:{self.registry.serve(0)}"
+        coll = TelemetryCollector(registry=self.registry,
+                                  period_s=EL_SCRAPE_S)
+        coll.start()
+        super().__init__(coll)
+
+    def close(self):
+        """Stop the watcher, delist this process (the trainer) and close
+        the collector and the registry."""
+        from paddle_tpu_torch.observability import collector
+
+        self.stop()
+        if collector._ENV_ANNOUNCEMENT is not None:
+            collector._ENV_ANNOUNCEMENT.close()
+        os.environ.pop("PADDLE_TPU_TELEMETRY_REGISTRY", None)
+        self.coll.close()
+        self.registry.close()
+
+
+def _el_telemetry_verdict(tel):
+    """The elastic phase's telemetry facts -> (failures, record): the
+    trainer and every pserver listed and scraped; pserver EL_KILLED's
+    series reclaimed within max(fail_limit x period, the announcement's
+    TTL), plus one period and a scrape's timeout, of its SIGKILL; the
+    joiner listed only after its lease; the others still listed."""
+    failed, members, marks = [], tel["members"], tel["marks"]
+    trainers = sorted(n for n, r in members.items()
+                      if r["kind"] == "trainer")
+    if len(trainers) != 1:
+        failed.append(f"telemetry: trainers listed {trainers}")
+    for i in range(EL_PSERVERS):
+        r = members.get(f"pserver{i}")
+        if r is None or r["kind"] != "pserver" or "scraped_s" not in r:
+            failed.append(f"telemetry: pserver{i} never scraped ({r})")
+    bound = (max(tel["fail_limit"] * tel["period_s"], EL_ANNOUNCE_TTL)
+             + tel["period_s"] + tel["scrape_timeout_s"])
+    killed = members.get(f"pserver{EL_KILLED}", {})
+    out = {"bound_s": bound}
+    if "kill" in marks and "reclaimed_s" in killed:
+        out["kill_to_reclaimed_s"] = killed["reclaimed_s"] - marks["kill"]
+        if out["kill_to_reclaimed_s"] > bound:
+            failed.append(f"telemetry: pserver{EL_KILLED}'s series "
+                          f"reclaimed {out['kill_to_reclaimed_s']:.2f} s "
+                          f"after its SIGKILL (> {bound} s)")
+    else:
+        failed.append(f"telemetry: pserver{EL_KILLED}'s series never "
+                      f"reclaimed ({killed}, marks {marks})")
+    if "delisted_s" in killed and "kill" in marks:
+        out["kill_to_delisted_s"] = killed["delisted_s"] - marks["kill"]
+    else:
+        failed.append(f"telemetry: pserver{EL_KILLED} never delisted")
+    joiner = members.get("pserver2", {})
+    if "join" not in marks or joiner.get("listed_s", -1) < marks["join"]:
+        failed.append(f"telemetry: the joiner listed at "
+                      f"{joiner.get('listed_s')} s, its lease at "
+                      f"{marks.get('join')} s")
+    else:
+        out["join_to_listed_s"] = joiner["listed_s"] - marks["join"]
+    for name in trainers + ["pserver0", "pserver2"]:
+        if "delisted_s" in members.get(name, {}):
+            failed.append(f"telemetry: {name} delisted while serving")
+    return failed, out
 
 
 class _FeedAsIs:
@@ -8159,7 +8377,7 @@ class _FeedAsIs:
 
 def _el_run(build, feeds, place, pservers, amp=False,
             kill_round=EL_KILL_ROUND, join_round=EL_JOIN_ROUND,
-            on_card=True):
+            on_card=True, telemetry=None):
     """One trainer over an elastic cluster: a ClusterController here,
     `pservers` (_ElasticProcs or _ElasticThreads) leased in index
     order, two at first; the trainer built by `build` (-> main,
@@ -8167,9 +8385,12 @@ def _el_run(build, feeds, place, pservers, amp=False,
     trained through Trainer.train(cluster=) over `feeds` (one a round).
     Pserver EL_KILLED is killed at round `kill_round`'s send, once its
     snapshot of the round before is written; pserver 2 joins before
-    round `join_round`.  -> the run's record: losses, the parameters
-    after startup and after each round, each round's ms (device, D2H,
-    wire, H2D), the views, the kill and join figures, the final GET and
+    round `join_round`.  With `telemetry` (an _ElTelemetry), each
+    pserver announces to its collector at its lease and this process
+    as the trainer at Trainer.train; the kill and the join are marked
+    on its clock.  -> the run's record: losses, the parameters after
+    startup and after each round, each round's ms (device, D2H, wire,
+    H2D), the views, the kill and join figures, the final GET and
     placement."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.cloud.cluster import ClusterController
@@ -8203,9 +8424,11 @@ def _el_run(build, feeds, place, pservers, amp=False,
         eps = [pservers.endpoint(i) for i in range(2)]
         pservers.endpoint(2)    # booted now, leased at the join
         mark("pservers_serving")
+        tel_addr = telemetry.addr if telemetry is not None else None
         for i in range(2):
             pservers.lease(i, ctl.registry_addr,
-                           EL_TTL_KILLED if i == EL_KILLED else EL_TTL)
+                           EL_TTL_KILLED if i == EL_KILLED else EL_TTL,
+                           telemetry=tel_addr)
             deadline = time.time() + 60
             while len(ctl._reg.list("pserver")) < i + 1:
                 check(time.time() < deadline,
@@ -8245,6 +8468,8 @@ def _el_run(build, feeds, place, pservers, amp=False,
                 rec["view_before_kill"] = ctl.view().epoch
                 pservers.kill(EL_KILLED)
                 rec["killed_at"] = time.perf_counter()
+                if telemetry is not None:
+                    telemetry.mark("kill")
             return orig_round(sends, gets, *a, **kw)
 
         def host_part(lower):
@@ -8257,6 +8482,14 @@ def _el_run(build, feeds, place, pservers, amp=False,
             if isinstance(event, BeginIteration):
                 r = event.batch_id + 1
                 if r == 1:
+                    if telemetry is not None:
+                        # the trainer announced at train(): every member
+                        # scraped once before the rounds start
+                        telemetry.wait(lambda m: all(
+                            "scraped_s" in m.get(f"pserver{i}", {})
+                            for i in range(2)) and any(
+                            x["kind"] == "trainer" and "scraped_s" in x
+                            for x in m.values()))
                     mark("startup_done")
                     rec["init"] = params()
                     rec["views"].append(ctl.view().epoch)
@@ -8272,7 +8505,13 @@ def _el_run(build, feeds, place, pservers, amp=False,
                     before = ctl.view().epoch
                     t0 = time.perf_counter()
                     joiner = pservers.endpoint(2)
-                    pservers.lease(2, ctl.registry_addr, EL_TTL)
+                    if telemetry is not None:
+                        telemetry.mark("join")
+                    pservers.lease(2, ctl.registry_addr, EL_TTL,
+                                   telemetry=tel_addr)
+                    if telemetry is not None:
+                        telemetry.wait(lambda m: "scraped_s" in m.get(
+                            "pserver2", {}))
                     v = ctl.wait_view(before + 1, timeout_s=120)
                     while v is not None and joiner not in v.endpoints:
                         v = ctl.wait_view(v.epoch + 1, timeout_s=120)
@@ -8313,10 +8552,16 @@ def _el_run(build, feeds, place, pservers, amp=False,
         comm.elastic_round = timed("wire", wire)
         dist_ops._into_scope = timed("h2d", orig_into)
         reads = _flash_counts()
+        if telemetry is not None:
+            # Trainer.train announces this process as the trainer
+            os.environ["PADDLE_TPU_TELEMETRY_REGISTRY"] = telemetry.addr
         with _wrapped_lowering("send", host_part):
             trainer.train(1, lambda: iter(feeds), event_handler=handler,
                           feeder=_FeedAsIs(), cluster=ctl.addr)
         mark("rounds_done")
+        if telemetry is not None:
+            telemetry.wait(lambda m: {"reclaimed_s", "delisted_s"} <= set(
+                m.get(f"pserver{EL_KILLED}", {})))
         rec["flash"] = {k: r() for k, r in reads.items()}
         if "killed_at" in rec:
             after = [x for x in ctl.transitions
@@ -8370,6 +8615,8 @@ def _el_run(build, feeds, place, pservers, amp=False,
             for ep in view.endpoints}
         rec["transitions"] = list(ctl.transitions)
         rec["clock"]["first_view"] = ctl.transitions[0]["at"] - t_start
+        if telemetry is not None:
+            rec["telemetry"] = telemetry.snapshot()
         mark("checked")
     finally:
         comm.elastic_round, dist_ops._into_scope = orig_round, orig_into
@@ -8440,12 +8687,18 @@ def elastic_phase(card, procs=None):
         procs = _ElasticProcs(
             tempfile.mkdtemp(prefix="chip_smoke_elastic_"), EL_PSERVERS)
     failed = []
+    telemetry = _ElTelemetry()
     try:
         t0 = time.perf_counter()
-        rec = _el_run(lambda: _ps_build("s2s_elastic"),
-                      [_s2s_feed()] * EL_ROUNDS, CUDAPlace(0), procs,
-                      amp=True)
+        try:
+            rec = _el_run(lambda: _ps_build("s2s_elastic"),
+                          [_s2s_feed()] * EL_ROUNDS, CUDAPlace(0), procs,
+                          amp=True, telemetry=telemetry)
+        finally:
+            telemetry.close()
         run_s = time.perf_counter() - t0
+        bad, tel_out = _el_telemetry_verdict(rec["telemetry"])
+        failed += [f"elastic: {b}" for b in bad]
         t0 = time.perf_counter()
         s_losses, _, s_flash, s_snaps, _ = _ps_serial("s2s_elastic",
                                                       rec["init"])
@@ -8468,6 +8721,7 @@ def elastic_phase(card, procs=None):
             for x in rec["transitions"]]
         out["final_get_bit_equal"] = (
             f"{len(rec['final_get_equal'])} of {len(rec['params'])}")
+        out["telemetry"] = {**rec["telemetry"], **tel_out}
         out["pserver_boot_s"] = procs.boot_s
         del rec, s_snaps
     finally:
@@ -8491,6 +8745,782 @@ def elastic_phase(card, procs=None):
           "phase_s": time.perf_counter() - t_phase})
     check(not failed, "; ".join(failed))
     return out["flash"]
+
+
+# -- fleet phase (A11's serving fleet): router, autoscaler, replicas --------
+
+# the replicas: the serve phase's LM, weights and request shapes.  The
+# autoscaler's band and clocks; its backlog thresholds in seconds of one
+# replica's work (reserved tokens over its closed-loop tokens/s), and its
+# windowed router p99 (hot above 2 s, cold at or below 1.5 s: the tail's
+# requests take about 1 s alone).  The ramp's phases as multiples of one
+# replica's rate: the low phase runs FLEET_LOW_S; the peak at least
+# FLEET_PEAK_S and on until FLEET_AFTER_KILL_S after the SIGKILL.  A
+# replica takes 15-20 s from spawn to serving on the card, so the peak
+# lasts until the scale-out replica serves: its backlog (about half a
+# second of one replica's work for each second before then, some 100
+# requests) stays well below a replica's 256-request admission queue.
+# Once two replicas have served for FLEET_KILL_AFTER_S, the busiest
+# owned replica is SIGKILLed, with more than one stream on it; the tail
+# runs until the fleet is back to one replica by a scale-in, at most
+# FLEET_TAIL_MAX_S
+FLEET_MIN, FLEET_MAX = 1, 3
+FLEET_POLICY = {"p99_high_s": 2.0, "p99_low_s": 1.5, "sustain_s": 0.6,
+                "idle_sustain_s": 3.0, "cooldown_s": 3.0}
+FLEET_BACKLOG_HIGH_S, FLEET_BACKLOG_LOW_S = 0.6, 0.15
+FLEET_POLL_S, FLEET_WINDOW_S, FLEET_SCRAPE_S = 0.2, 20.0, 0.5
+FLEET_RAMP = (0.3, 1.5, 0.1)
+FLEET_LOW_S, FLEET_PEAK_S, FLEET_PEAK_MAX_S = 6.0, 20.0, 60.0
+FLEET_KILL_AFTER_S, FLEET_AFTER_KILL_S = 4.0, 2.0
+FLEET_TAIL_MAX_S = 120.0
+FLEET_TTL_S = 2.0           # each replica's registry and telemetry lease
+FLEET_CUT_GAP_S = 0.1       # a started stream's gap at the kill: cut
+FLEET_PROMPT, FLEET_NEW = (16, 64), (32, 128)
+FLEET_BURST = 32            # closed-loop requests, SLOTS in flight
+FLEET_TAIL_S = 0.5          # the tail sampler's threshold (seconds)
+
+
+def _runs(values):
+    """[[value, times in a row], ...] of a sequence."""
+    out = []
+    for v in values:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return out
+
+
+def _fleet_requests(n, seed):
+    r = np.random.RandomState(seed)
+    return [(r.randint(0, V, int(r.randint(FLEET_PROMPT[0],
+                                           FLEET_PROMPT[1] + 1))).tolist(),
+             int(r.randint(FLEET_NEW[0], FLEET_NEW[1] + 1)))
+            for _ in range(n)]
+
+
+class _FleetLauncher:
+    """SubprocessReplicaLauncher that names each replica's telemetry
+    member (`<prefix><n>`, n counting its spawns), notes its spawn time
+    (for its time to first token) and logs its stderr to a file."""
+
+    def __init__(self, model_dir, registry_addr, env, log, use_gpu,
+                 extra=(), prefix="replica"):
+        from paddle_tpu_torch.cloud.autoscaler import \
+            SubprocessReplicaLauncher
+
+        self.inner = SubprocessReplicaLauncher(
+            model_dir, registry_addr, use_gpu=use_gpu, ttl_s=FLEET_TTL_S,
+            drain_grace_s=30.0, extra_args=list(extra), env=env,
+            stderr=log)
+        self.env, self.prefix = env, prefix
+        self.spawned = []       # [(handle, perf_counter at spawn)]
+        self.members = {}       # handle pid -> its telemetry member
+        self._lock = threading.Lock()
+
+    def spawn(self):
+        with self._lock:
+            member = f"{self.prefix}{len(self.spawned)}"
+            self.inner.env = dict(self.env,
+                                  PADDLE_TPU_TELEMETRY_MEMBER=member)
+            h = self.inner.spawn()
+            self.spawned.append((h, time.perf_counter()))
+            self.members[h.pid] = member
+        return h
+
+
+def _first_token_s(addr, t_spawn, prompt, max_new):
+    """One request straight to the replica at `addr` -> (seconds from
+    `t_spawn` to its first token, the tokens)."""
+    from paddle_tpu_torch.serving.replica import replica_stream
+
+    first, toks = None, []
+    for tok in replica_stream(addr, {"op": "generate", "prompt": prompt,
+                                     "max_new": max_new,
+                                     "temperature": 0.0, "seed": 0}):
+        if first is None:
+            first = time.perf_counter() - t_spawn
+        toks.append(tok)
+    return first, toks
+
+
+class _ColdReplica(threading.Thread):
+    """Spawns one replica and, once its banner names its address, sends
+    it one request (`record`: its seconds from spawn to first token and
+    its stats), then ends it gracefully."""
+
+    def __init__(self, launcher, prompt):
+        super().__init__(daemon=True)
+        self.launcher, self.prompt, self.record = launcher, prompt, {}
+        self.handle = launcher.spawn()
+        self.start()
+
+    def run(self):
+        try:
+            addr = _banner_addr(self.handle)
+            self.record["first_token_s"], _ = _first_token_s(
+                addr, self.launcher.spawned[0][1], self.prompt, 8)
+            self.record["stats"] = _replica_stats(addr)
+        except Exception as e:  # noqa: BLE001 (reported by the phase)
+            self.record["error"] = repr(e)
+        finally:
+            self.handle.terminate()
+
+    def close(self):
+        self.join(timeout=60)
+        if self.handle.alive():
+            self.handle.kill()
+        self.handle.wait(timeout=60)
+
+
+def _banner_addr(handle, timeout=300.0):
+    deadline = time.time() + timeout
+    while handle.addr is None:
+        check(handle.alive() and time.time() < deadline,
+              f"fleet: replica pid {handle.pid} printed no banner")
+        time.sleep(0.05)
+    return handle.addr
+
+
+class _Streams:
+    """Router streams, each drained by a thread of its own that notes
+    every token's arrival (perf_counter)."""
+
+    def __init__(self):
+        self.items = []         # [(request index, stream, [(t, tok)])]
+        self._lock = threading.Lock()
+        self._threads = []
+
+    def submit(self, router, idx, req):
+        stream = router.submit(req[0], req[1], temperature=0.0, seed=0)
+        got = []
+
+        def drain():
+            try:
+                for tok in stream:
+                    got.append((time.perf_counter(), tok))
+            except Exception:
+                pass    # the stream's result() raises it below
+        t = threading.Thread(target=drain, daemon=True)
+        t.start()
+        with self._lock:
+            self.items.append((idx, stream, got))
+            self._threads.append(t)
+
+    def in_flight(self):
+        with self._lock:
+            return [(i, s, g) for i, s, g in self.items if not s.done]
+
+    def join(self, timeout=600.0):
+        deadline = time.time() + timeout
+        for t in list(self._threads):
+            t.join(max(0.0, deadline - time.time()))
+
+
+def _open_loop(router, streams, reqs, start, rate, seconds, until=None):
+    """Submit requests reqs[start:] at `rate` a second, evenly spaced,
+    for `seconds` and on until `until(now)` (asked every 50 ms) holds ->
+    the next request index."""
+    t0 = time.perf_counter()
+    i, asked, done = start, -1.0, until is None
+    while True:
+        now = time.perf_counter() - t0
+        if until is not None and now - asked >= 0.05:
+            asked, done = now, until(now)
+        if now >= seconds and done:
+            return i
+        due = start + int(now * rate) + 1
+        while i < min(due, len(reqs)):
+            streams.submit(router, i, reqs[i])
+            i += 1
+        check(i < len(reqs), "fleet: the request pool ran out")
+        time.sleep(0.005)
+
+
+def _closed_loop(router, reqs, idxs, n):
+    """reqs[i] for i in `idxs` through the router, `n` in flight (each
+    finished request replaced at once) -> (the seconds it took, {i:
+    tokens})."""
+    todo, lock, out = list(idxs), threading.Lock(), {}
+
+    def worker():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop()
+            out[i] = router.submit(reqs[i][0], reqs[i][1], temperature=0.0,
+                                   seed=0).result(timeout=600)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return time.perf_counter() - t0, out
+
+
+def _decode_all(srv, items):
+    """{key: (prompt, max_new)} through an in-process GenerationServer,
+    greedy, its admission queue kept below its bound -> {key: tokens}."""
+    from paddle_tpu_torch.serving import ServerSaturated
+
+    pending, out = list(items.items()), {}
+    streams = {}
+    while pending or streams:
+        while pending:
+            key, (prompt, max_new) = pending[0]
+            try:
+                streams[key] = srv.submit(prompt, max_new)
+            except ServerSaturated:
+                break
+            pending.pop(0)
+        for key in [k for k, s in streams.items() if s.done]:
+            out[key] = streams.pop(key).result(timeout=60)
+        time.sleep(0.01)
+    return out
+
+
+def _replica_stats(addr):
+    from paddle_tpu_torch.serving.replica import replica_call
+
+    return replica_call(addr, {"op": "stats"}, timeout_s=10)["stats"]
+
+
+class _StatsWatch:
+    """Polls every live replica's stats once a second: each address's
+    first reading (its warmup accounting) and its last."""
+
+    def __init__(self, router):
+        self.router, self.first, self.last = router, {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(1.0):
+            self.poll()
+
+    def poll(self):
+        for addr in self.router.live_replicas(refresh=False):
+            try:
+                st = _replica_stats(addr)
+            except (OSError, ValueError, KeyError):
+                continue    # dying or killed: its last reading stands
+            self.first.setdefault(addr, st)
+            self.last[addr] = st
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def _capture(fn, argv):
+    """A CLI subcommand in this process -> (its exit code, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    return rc, out.getvalue()
+
+
+def _fleet_tools(router_addr, dump, peak_dump, trace_dir, out_dir, root):
+    """The telemetry tools against the fleet: the federation dump's
+    member/kind labels, `cli top`, `cli slo --check` (on `dump` and on
+    `peak_dump`, the fleet's at the peak), `cli why`, `cli trace-of`
+    -> (failures, record)."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.observability.collector import \
+        parse_prometheus_text
+
+    failed, rec = [], {}
+    with open(dump) as f:
+        text = f.read()
+    fams = parse_prometheus_text(text)
+    kinds = {}
+    for fam in fams.values():
+        for smp in fam["samples"]:
+            lbl = smp["labels"]
+            if "member" in lbl and "kind" in lbl:
+                kinds.setdefault(lbl["kind"], set()).add(lbl["member"])
+    rec["dump"] = {"bytes": len(text), "families": len(fams),
+                   "members_by_kind": {k: sorted(v)
+                                       for k, v in kinds.items()}}
+    for kind, fam in (("generation",
+                       "paddle_tpu_serving_generation_requests_total"),
+                      ("router", "paddle_tpu_serving_router_requests_total")):
+        if not any(s["labels"].get("kind") == kind
+                   for s in fams.get(fam, {}).get("samples", ())):
+            failed.append(f"fleet: the dump has no {fam} series of kind "
+                          f"{kind}")
+    rc, top = _capture(cli.cmd_top, ["--registry", router_addr,
+                                     "--samples", "2", "--period", "0.5"])
+    rec["top"] = top
+    if rc != 0 or "generation" not in top or "router" not in top:
+        failed.append(f"fleet: cli top (rc {rc}) rendered {top!r}")
+    # the SLOs' verdicts stand as they fall, on the dump taken at the
+    # peak (just before the SIGKILL) and on the closing one; the tool
+    # must evaluate the serving lines and exit as its table says
+    for key, path in (("slo_peak", peak_dump), ("slo", dump)):
+        rc, slo = _capture(cli.cmd_slo, [
+            "--check", "--spec", os.path.join(root, "tools", "slo.json"),
+            "--prom", path])
+        rows = [ln.rstrip() for ln in slo.splitlines()[1:]]
+        alerting = [ln.rsplit(None, 3)[0] for ln in rows
+                    if ln.endswith(" ALERT")]
+        serving = [ln for ln in rows if ln.startswith(
+            ("serving p99", "serving.first_token p99"))]
+        rec[key] = {"rc": rc, "met": rc == 0, "alerting": alerting,
+                    "table": slo}
+        if (rc != (1 if alerting else 0) or len(serving) != 2
+                or any(ln.endswith("no-data") for ln in serving)):
+            failed.append(f"fleet: cli slo --check (rc {rc}) on "
+                          f"{os.path.basename(path)}:\n{slo}")
+    rc, why = _capture(cli.cmd_why, ["--kind", "generation", "--prom",
+                                     dump])
+    rec["why"] = why
+    rows = [ln.split() for ln in why.splitlines()[1:] if ln.strip()]
+    if rc != 0 or not any("decode" in r for r in rows):
+        failed.append(f"fleet: cli why named no decode phase: {why!r}")
+    rc, tof = _capture(cli.cmd_trace_of, [
+        "--metric", "router", "--prom", dump, "--trace-dir", trace_dir,
+        "--out", out_dir])
+    rec["trace_of"] = tof
+    joined = [ln.split(None, 1)[1] for ln in tof.splitlines()
+              if ln.startswith("trace ")]
+    if rc != 0 or not joined:
+        failed.append(f"fleet: cli trace-of joined no trace: {tof!r}")
+    else:
+        with open(joined[0]) as f:
+            events = json.load(f)["traceEvents"]
+        pids = {e["pid"] for e in events}
+        names = sorted({e["name"] for e in events})
+        rec["trace"] = {"events": len(events), "pids": len(pids),
+                        "names": names}
+        if len(pids) < 2 or "router.request" not in names:
+            failed.append(f"fleet: the joined trace spans {len(pids)} "
+                          f"process(es): {names}")
+    return failed, rec
+
+
+def _fleet_members_verdict(snap, launcher, owned, killed_pid):
+    """The fleet's members in the collector -> (failures, record): the
+    router and every replica the autoscaler spawned listed and scraped;
+    the SIGKILLed replica's series reclaimed within max(fail_limit x
+    period, the lease's TTL), plus one period and a scrape's timeout, of
+    the kill; a retired replica delisted; the ones the autoscaler still
+    owns (pids `owned`) still listed."""
+    failed, rec = [], {}
+    members, marks = snap["members"], snap["marks"]
+    bound = (max(snap["fail_limit"] * snap["period_s"], FLEET_TTL_S)
+             + snap["period_s"] + snap["scrape_timeout_s"])
+    router = members.get("router", {})
+    if router.get("kind") != "router" or "scraped_s" not in router \
+            or "delisted_s" in router:
+        failed.append(f"fleet telemetry: the router member {router}")
+    for h, _ in launcher.spawned:
+        name = launcher.members[h.pid]
+        r = members.get(name)
+        rec[name] = dict(r or {}, pid=h.pid, owned=h.pid in owned)
+        if r is None or r["kind"] != "generation" or "scraped_s" not in r:
+            failed.append(f"fleet telemetry: {name} never scraped ({r})")
+            continue
+        if h.pid in owned:
+            if "delisted_s" in r:
+                failed.append(f"fleet telemetry: {name} delisted while "
+                              f"serving")
+        elif h.pid == killed_pid:
+            if "reclaimed_s" not in r or "delisted_s" not in r:
+                failed.append(f"fleet telemetry: the killed {name} not "
+                              f"reclaimed and delisted ({r})")
+                continue
+            rec[name].update(
+                kill_to_reclaimed_s=r["reclaimed_s"] - marks["kill"],
+                kill_to_delisted_s=r["delisted_s"] - marks["kill"],
+                bound_s=bound)
+            if rec[name]["kill_to_reclaimed_s"] > bound:
+                failed.append(f"fleet telemetry: the killed {name}'s "
+                              f"series reclaimed "
+                              f"{rec[name]['kill_to_reclaimed_s']:.2f} s "
+                              f"after its SIGKILL (> {bound} s)")
+        elif "delisted_s" not in r:
+            failed.append(f"fleet telemetry: the retired {name} still "
+                          f"listed ({r})")
+    return failed, rec
+
+
+def fleet_phase(card, place):
+    """A11's serving fleet on the card (see the module docstring) -> the
+    record of the phase line."""
+    from paddle_tpu_torch.cloud.autoscaler import (Autoscaler,
+                                                   AutoscalerPolicy)
+    from paddle_tpu_torch.cloud.router import ReplicaRouter
+    from paddle_tpu_torch.core import framework as fw
+    from paddle_tpu_torch.core.executor import resolve_place
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.transformer import build_lm_paged_decoder
+    from paddle_tpu_torch.observability import (collector, exemplars,
+                                                tracing)
+    from paddle_tpu_torch.serving import (save_generation_model,
+                                          server_from_model_dir)
+    from paddle_tpu_torch.serving.generation import (WARM_START_DIRNAME,
+                                                     WARM_START_MANIFEST)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    trace_dir = os.path.join(tmp, "traces")
+    os.makedirs(trace_dir)
+    log = open(os.path.join(tmp, "replicas.log"), "w")
+    failed, out = [], {}
+    fw.reset_unique_names()
+    _, dec = build_lm_paged_decoder(V, BLOCK, MAX_BLOCKS, d_model=D_MODEL,
+                                    n_heads=N_HEADS, n_layers=N_LAYERS,
+                                    d_inner=D_INNER, place=place)
+    states = _random_states(dec.state_shapes, SEED)   # the serve phase's
+    del dec
+    spec = {"vocab_size": V, "d_model": D_MODEL, "n_heads": N_HEADS,
+            "n_layers": N_LAYERS, "d_inner": D_INNER, "block_size": BLOCK,
+            "max_blocks_per_seq": MAX_BLOCKS, "slots": SLOTS,
+            "kv_blocks": KV_BLOCKS}
+    t0 = time.perf_counter()
+    model_dir = save_generation_model(os.path.join(tmp, "lm"), states,
+                                      spec, warm_start=True, place=place)
+    out["artifact_s"] = time.perf_counter() - t0
+    with open(os.path.join(model_dir, WARM_START_DIRNAME,
+                           WARM_START_MANIFEST)) as f:
+        manifest = json.load(f)
+    out["manifest"] = manifest
+    on_card = resolve_place(place).type == "cuda"
+    check(set(manifest["sources"]) == ({pa.SOURCE} if on_card else set())
+          and manifest["compute_capability"] == (
+              list(torch.cuda.get_device_capability(0)) if on_card
+              else None),
+          f"fleet: warm-start manifest {manifest}")
+    reqs = _fleet_requests(4000, SEED + 2)
+    env = dict(os.environ, PADDLE_TPU_METRICS="on",
+               PADDLE_TPU_EXEMPLARS="on", PADDLE_TPU_TRACE_DIR=trace_dir,
+               PADDLE_TPU_TAIL_SAMPLE=str(FLEET_TAIL_S),
+               PADDLE_TPU_FLIGHT_DIR=trace_dir,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("PADDLE_TPU_COMPILATION_CACHE_DIR", None)
+    env.pop("PADDLE_TPU_TELEMETRY_REGISTRY", None)
+    # this process is the router member: its latency histogram keeps
+    # exemplars and its slow requests' traces are tail-sampled
+    exemplars.set_armed(True)
+    tracing.arm_tail_sampler(threshold_s=FLEET_TAIL_S, out_dir=trace_dir,
+                             max_kept=1 << 14)
+    router = ReplicaRouter(desired=8, refresh_s=0.1)
+    coll = collector.TelemetryCollector(registry_addr=router.registry_addr,
+                                        period_s=FLEET_SCRAPE_S)
+    coll.start()
+    members = _MemberWatch(coll)
+    ann = collector.announce(router.registry_addr, "router",
+                             member="router")
+    launcher = _FleetLauncher(model_dir, router.registry_addr, env, log,
+                              int(on_card),
+                              extra=("--telemetry", router.registry_addr))
+    policy = AutoscalerPolicy(FLEET_MIN, FLEET_MAX, **FLEET_POLICY)
+    scaler = Autoscaler(router, launcher, policy, poll_s=FLEET_POLL_S,
+                        window_s=FLEET_WINDOW_S, spawn_timeout_s=300.0,
+                        drain_grace_s=30.0)
+    watch = streams = None
+    # the cold replica (the build dir empty, the artifact ignored; no
+    # registry, no telemetry) boots beside the floor replica and answers
+    # one request
+    cold_dir = os.path.join(tmp, "cold_build")
+    os.makedirs(cold_dir)
+    cold = _ColdReplica(_FleetLauncher(
+        model_dir, "", dict(env, PADDLE_TPU_COMPILATION_CACHE_DIR=cold_dir),
+        log, int(on_card), extra=("--cold",), prefix="cold"), reqs[0][0])
+    # the autoscaler's notes on the phase's clock
+    timeline, note = [], scaler._note
+
+    def noted(what):
+        timeline.append([time.perf_counter() - t_phase, what])
+        note(what)
+    scaler._note = noted
+    try:
+        # the floor replica, warm from the artifact; its first token
+        t0 = time.perf_counter()
+        scaler.ensure_min(timeout_s=300)
+        live = router.live_replicas()
+        check(len(live) == 1, f"fleet: ensure_min left {live}")
+        h, t_spawn = launcher.spawned[0]
+        out["warm_first_token_s"], _ = _first_token_s(
+            live[0], t_spawn, reqs[0][0], 8)
+        out["floor_up_s"] = time.perf_counter() - t0
+        watch = _StatsWatch(router)
+
+        # one replica's sustained rate: a closed-loop burst
+        burst = range(1, 1 + FLEET_BURST)
+        burst_s, closed = _closed_loop(router, reqs, burst, SLOTS)
+        tokens_per_s = sum(reqs[i][1] for i in burst) / burst_s
+        req_per_s = tokens_per_s / float(np.mean([m for _, m in reqs]))
+        out["closed_loop"] = {"requests": len(burst), "seconds": burst_s,
+                              "tokens_per_s": tokens_per_s,
+                              "requests_per_s": req_per_s}
+
+        # the open-loop ramp: low, the peak (on until the scale-out
+        # replica has served beside the floor one and the busiest owned
+        # replica is SIGKILLed), the tail (until a scale-in leaves one)
+        scaler.policy = AutoscalerPolicy(
+            FLEET_MIN, FLEET_MAX,
+            backlog_high=FLEET_BACKLOG_HIGH_S * tokens_per_s,
+            backlog_low=FLEET_BACKLOG_LOW_S * tokens_per_s, **FLEET_POLICY)
+        scaler.start()
+        streams, kill, two = _Streams(), {}, {}
+        sizes = {"peak": [], "tail": []}
+        nxt = 1 + FLEET_BURST
+        marks = [("low", time.perf_counter())]
+        nxt = _open_loop(router, streams, reqs, nxt,
+                         FLEET_RAMP[0] * req_per_s, FLEET_LOW_S)
+
+        def live_now(phase):
+            live = router.live_replicas(include_draining=False,
+                                        refresh=False)
+            sizes[phase].append(len(live))
+            return live
+
+        def maybe_kill(live):
+            owned = scaler.owned_pids()
+            serving = [a for a in owned if a in live]
+            if len(serving) < 2:
+                return
+            t = time.perf_counter()
+            two.setdefault("t", t)
+            load = router.stats()["replicas"]
+            addr = max(serving, key=lambda a: load.get(a, 0))
+            # more than one request's tokens: several streams on it
+            if (t - two["t"] < FLEET_KILL_AFTER_S
+                    or load.get(addr, 0) <= FLEET_NEW[1]):
+                return
+            # the fleet's federation dump at the peak, for `cli slo`
+            coll.scrape_once()
+            kill["peak_dump"] = coll.write_federation(
+                os.path.join(tmp, "peak.prom"))
+            in_flight = streams.in_flight()
+            kill.update(addr=addr, pid=owned[addr],
+                        t=time.perf_counter(), live=len(live),
+                        outstanding=load[addr],
+                        streams_in_flight=len(in_flight),
+                        retries_before=router.stats()["retries"],
+                        in_flight=[(i, len(g)) for i, _, g in in_flight])
+            members.mark("kill")
+            os.kill(owned[addr], signal.SIGKILL)
+
+        def peak_done(now):
+            live = live_now("peak")
+            if "pid" not in kill:
+                maybe_kill(live)
+            check(now < FLEET_PEAK_MAX_S or "pid" in kill,
+                  f"fleet: no SIGKILL {FLEET_PEAK_MAX_S} s into the peak "
+                  f"(sizes {_runs(sizes['peak'])}, two serving since "
+                  f"{two.get('t')})")
+            return ("pid" in kill and time.perf_counter() - kill["t"]
+                    >= FLEET_AFTER_KILL_S)
+
+        marks.append(("peak", time.perf_counter()))
+        nxt = _open_loop(router, streams, reqs, nxt,
+                         FLEET_RAMP[1] * req_per_s, FLEET_PEAK_S,
+                         until=peak_done)
+        marks.append(("tail", time.perf_counter()))
+
+        def scaled_in(now):
+            live = live_now("tail")
+            check(now < FLEET_TAIL_MAX_S, f"fleet: {len(live)} replicas "
+                  f"{FLEET_TAIL_MAX_S} s into the tail")
+            return (len(live) == 1
+                    and not scaler.status()["pending_spawns"]
+                    and any(e.startswith("scale-in complete")
+                            for e in scaler.events))
+
+        nxt = _open_loop(router, streams, reqs, nxt,
+                         FLEET_RAMP[2] * req_per_s, 0.0, until=scaled_in)
+        streams.join()
+        scaler.stop()
+        marks.append(("close", time.perf_counter()))
+        # the fleet, back at one replica and no longer scaled, serves a
+        # closing closed-loop burst: the dump's latency and phase series
+        # are the live members'
+        close_s, closing = _closed_loop(
+            router, reqs, range(nxt, nxt + FLEET_BURST), SLOTS)
+        closed.update(closing)
+        out["closing"] = {"requests": len(closing), "seconds": close_s,
+                          "tokens_per_s": sum(
+                              map(len, closing.values())) / close_s}
+        watch.poll()
+        final = router.live_replicas(include_draining=False)
+        rstats = router.stats()
+
+        # every stream whole, equal to the in-process reference
+        results, bad = dict(closed), []
+        for i, s, got in streams.items:
+            try:
+                results[i] = s.result(timeout=60)
+            except Exception as e:  # noqa: BLE001 (a failed request)
+                bad.append((i, repr(e)))
+        t_in = time.perf_counter()
+        ref = server_from_model_dir(model_dir, place=place)
+        try:
+            want = _decode_all(ref, {i: reqs[i] for i in results})
+        finally:
+            ref.close()
+        out["reference_s"] = time.perf_counter() - t_in
+        cold.join(timeout=600)
+        check("stats" in cold.record, f"fleet: the cold replica never "
+              f"served: {cold.record}")
+        out["cold"] = {"first_token_s": cold.record["first_token_s"],
+                       **{k: cold.record["stats"][k] for k in (
+                           "warm_start", "compiles", "compile_seconds",
+                           "cache_hits", "cache_misses", "warmup_s",
+                           "decode_kernel", "paged_attention_launches")}}
+        if out["cold"]["compiles"] < 1 or out["cold"]["warm_start"]:
+            failed.append(f"fleet: the cold replica built nothing: "
+                          f"{out['cold']}")
+        if (out["cold"]["decode_kernel"] != "cuda"
+                or out["cold"]["paged_attention_launches"] < 1):
+            failed.append(f"fleet: the cold replica decoded off the "
+                          f"kernel: {out['cold']}")
+        differ = sorted(i for i in results if results[i] != want[i])
+        if bad or rstats["requests_failed"]:
+            failed.append(f"fleet: {len(bad)} streams failed "
+                          f"({rstats['requests_failed']} at the router): "
+                          f"{bad[:3]}")
+        if differ:
+            failed.append(f"fleet: {len(differ)} of {len(results)} "
+                          f"streams differ from the reference: "
+                          f"{differ[:5]}")
+        # the streams the kill found started: seconds from the kill to
+        # each one's next token (a cut one's includes its retry and its
+        # wait in the survivor's queue)
+        gaps = []
+        for i, _, got in streams.items:
+            if dict(kill["in_flight"]).get(i):
+                after = [t for t, _ in got if t > kill["t"]]
+                if after:
+                    gaps.append(after[0] - kill["t"])
+        # a stream on a survivor goes on within ticks (5 ms each); a
+        # gap of FLEET_CUT_GAP_S or more is a cut one's
+        cut = [g for g in gaps if g >= FLEET_CUT_GAP_S]
+        kill_out = {k: v for k, v in kill.items()
+                    if k not in ("in_flight", "t", "peak_dump")}
+        kill_out.update(
+            retries=rstats["retries"] - kill["retries_before"],
+            started_streams=len(gaps), started_cut=len(cut),
+            kill_to_resumed_s=max(gaps) if gaps else None,
+            median_gap_s=float(np.median(gaps)) if gaps else None,
+            cut_median_gap_s=float(np.median(cut)) if cut else None,
+            cut_min_gap_s=min(cut) if cut else None)
+        if kill_out["retries"] < 2:
+            failed.append(f"fleet: the SIGKILL cut {kill_out['retries']} "
+                          f"stream(s), not several")
+
+        # the ramp by phase: tokens delivered; the peak's two-replica
+        # stretch, from the first poll that saw two serve to the kill
+        by_phase = {}
+        spans = list(zip(marks, marks[1:])) + [
+            (("peak_two_replicas", two["t"]), ("kill", kill["t"]))]
+        for (name, ta), (_, tb) in spans:
+            toks = sum(1 for _, _, g in streams.items for t, _ in g
+                       if ta <= t < tb)
+            by_phase[name] = {"seconds": tb - ta, "tokens": toks,
+                              "tokens_per_s": toks / (tb - ta)}
+        st = scaler.status()
+        member_of = {h.addr: launcher.members[h.pid]
+                     for h, _ in launcher.spawned if h.addr}
+        warm = {a: {"member": member_of.get(a), **{k: s.get(k) for k in (
+            "warm_start", "compiles", "cache_hits", "cache_misses",
+            "warmup_s", "decode_kernel")}} for a, s in watch.first.items()}
+        for a, s in watch.last.items():
+            warm[a]["recompiles_after_warmup"] = s[
+                "recompiles_after_warmup"]
+            warm[a]["generated_tokens"] = s["generated_tokens"]
+            warm[a]["paged_attention_launches"] = s[
+                "paged_attention_launches"]
+        for a, s in warm.items():
+            if not (s["warm_start"] and s["compiles"] == 0
+                    and s["cache_misses"] == 0 and s["cache_hits"] >= 1
+                    and s["recompiles_after_warmup"] == 0
+                    and s["decode_kernel"] == "cuda"):
+                failed.append(f"fleet: replica {a} not warm: {s}")
+            if s["generated_tokens"] and not s["paged_attention_launches"]:
+                failed.append(f"fleet: replica {a} served "
+                              f"{s['generated_tokens']} tokens and "
+                              f"launched no paged-attention kernel")
+        if max(sizes["peak"]) < 2:
+            failed.append(f"fleet: the peak never had two replicas: "
+                          f"{_runs(sizes['peak'])}")
+        if len(final) != 1 or not any(
+                e.startswith("scale-in complete") for e in scaler.events):
+            failed.append(f"fleet: final {final}, no scale-in: "
+                          f"{scaler.events}")
+        if st["crashloops"]:
+            failed.append(f"fleet: {st['crashloops']} crash loops")
+
+        # the tools, on a federation dump of the fleet as it ends
+        tracing.tail_sampler().flush(force=True)
+        coll.scrape_once()
+        dump = coll.write_federation(os.path.join(tmp, "fleet.prom"))
+        bad_tools, tools = _fleet_tools(router.registry_addr, dump,
+                                        kill["peak_dump"], trace_dir,
+                                        os.path.join(tmp, "joined"), root)
+        failed += bad_tools
+        # every member this phase started, in the collector
+        bad_members, tools["members"] = _fleet_members_verdict(
+            members.snapshot(), launcher,
+            set(scaler.owned_pids().values()), kill["pid"])
+        failed += bad_members
+        out.update(
+            requests=len(results), tokens=sum(map(len, results.values())),
+            streams_equal_reference=len(results) - len(differ),
+            requests_failed=rstats["requests_failed"] + len(bad),
+            sizes={p: _runs(v) for p, v in sizes.items()},
+            final=len(final), peak=max(sizes["peak"]),
+            ramp=by_phase, kill=kill_out, replicas=warm,
+            scale_events=[e for e in scaler.events
+                          if e.startswith(("scale", "spawn", "retire",
+                                           "replica"))],
+            timeline=timeline, crashloops=st["crashloops"],
+            marks={n: t - t_phase for n, t in marks},
+            two_replicas_at_s=two["t"] - t_phase,
+            kill_at_s=kill["t"] - t_phase,
+            tools=tools, rates=[r * req_per_s for r in FLEET_RAMP])
+    except CheckFailed as e:
+        # the record so far still goes out on the phase line
+        failed.append(str(e))
+        out["timeline"] = timeline
+    finally:
+        if watch is not None:
+            watch.close()
+        members.stop()
+        cold.close()
+        scaler.close(retire_owned=True)
+        for h, _ in launcher.spawned:
+            if h.alive():
+                h.kill()
+            h.wait(timeout=60)
+        ann.close()
+        coll.close()
+        router.close()
+        tracing.disarm_tail_sampler()
+        exemplars.set_armed(False)
+        log.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    if failed:
+        with open(os.path.join(tmp, "replicas.log")) as f:
+            tail = f.read()[-3000:]
+        failed.append(f"replica log tail: {tail}")
+    else:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "fleet", "card": card, "model": spec,
+          "policy": dict(FLEET_POLICY, min=FLEET_MIN, max=FLEET_MAX,
+                         poll_s=FLEET_POLL_S, window_s=FLEET_WINDOW_S),
+          "ramp_rates_x": FLEET_RAMP, **out})
+    check(not failed, "; ".join(failed))
+    return out
 
 
 def _conv_bn(fluid, x, filter_size, num_filters, stride, padding, groups=1,
@@ -12594,6 +13624,7 @@ def main():
         el_launches = elastic_phase(card, el_procs)
     finally:
         el_procs.close()    # a no-op once the elastic phase closed them
+    fleet = fleet_phase(card, CUDAPlace(0))
 
     main_case = cases["fp32_w1"]    # the decode step's case
     entry = {"name": "paged_attention_decode", "route": "cuda",
@@ -12604,7 +13635,17 @@ def main():
              **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "device_ms", "splits", "ctas")},
-             "case": "fp32_w1", "cases": cases}
+             "case": "fp32_w1", "cases": cases,
+             "fleet_note": "the fleet phase's replicas decode through "
+                           "this kernel in processes of their own; "
+                           "each replica's wrapper counts there, and "
+                           "fleet_launches holds each one's count since "
+                           "its warmup, from its last stats",
+             "fleet_launches": {
+                 s["member"] or a: s["paged_attention_launches"]
+                 for a, s in fleet["replicas"].items()},
+             "fleet_cold_launches": fleet["cold"][
+                 "paged_attention_launches"]}
     entries = [entry]
     src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
     main_case = flash_cases["bf16_causal"]      # the amp train path's

@@ -41,16 +41,18 @@ resumed or merged by the other.
 `main(argv)` returns the job's result (costs, times, gradients, the
 executor and scope it ran), for callers that run the CLI in-process.
 
-The static-analysis subcommands exit with their status (0 clean):
-`verify TARGET...` (the Program verifier over a saved model dir or a
+The subcommands exit with their status (0 clean): the static analysis
+— `verify TARGET...` (the Program verifier over a saved model dir or a
 config's programs), `analyze TARGET...` (the cost model's roofline on a
 card of `--device`, the peak-memory and comm estimates, the budget gate;
 generation model dirs too) and `concurrency [PATHS...] [--sched]` (the
 AST lint over paddle_tpu_torch/ and the schedule checker's protocol
-models).  The other subcommands of the JAX package's CLI raise naming
-the ROADMAP item they wait for: `metrics`, `trace`, `top`, `slo`, `why`
-and `trace-of` (A12's observability part), `serve` and `autoscale`
-(A11's second slice).
+models); the telemetry tools — `metrics` (render or diff JSON
+snapshots), `trace` (a config under tracing), `top` (the live fleet
+table), `slo` (the SLO gate), `why` (per-phase time attribution) and
+`trace-of` (a latency exemplar joined to its trace); and the serving
+fleet — `serve` (one replica of a saved generation model) and
+`autoscale` (a router plus an autoscaler of `serve` replicas).
 """
 from __future__ import annotations
 
@@ -61,19 +63,6 @@ import sys
 import time
 
 import numpy as np
-
-# subcommand -> the ROADMAP item it waits for
-_WAITING = {
-    "metrics": "A12's second part, the observability rest",
-    "trace": "A12's second part, the observability rest",
-    "top": "A12's second part, the observability rest",
-    "slo": "A12's second part, the observability rest",
-    "why": "A12's second part, the observability rest",
-    "trace-of": "A12's second part, the observability rest",
-    "serve": "A11's second slice, the serving fleet",
-    "autoscale": "A11's second slice, the serving fleet",
-}
-
 
 def _load_config(path):
     spec = importlib.util.spec_from_file_location("paddle_cli_config",
@@ -313,6 +302,729 @@ def job_merge(cfg, args):
         model_filename="__model__", params_filename="__params__")
     print(f"merged model written to {out}")
     return {"dir": out, "exe": exe}
+
+
+def _snapshot_scalars(snap):
+    """{(name, label-items) -> (type, value)} for counters/gauges plus
+    histogram _count/_sum pseudo-series — the diffable subset of a
+    JSON snapshot."""
+    out = {}
+    for name, m in snap.get("metrics", {}).items():
+        for s in m["samples"]:
+            key_labels = tuple(sorted(s["labels"].items()))
+            if m["type"] == "histogram":
+                out[(name + "_count", key_labels)] = (
+                    "counter", float(s["value"]["count"]))
+                out[(name + "_sum", key_labels)] = (
+                    "counter", float(s["value"]["sum"]))
+            else:
+                out[(name, key_labels)] = (m["type"],
+                                           float(s["value"]))
+    return out
+
+
+def _print_metrics_diff(path_a, path_b, snap_a, snap_b):
+    """Counter deltas (and gauge before->after) between two snapshots
+    — the poor man's rate view over the atexit dumps."""
+    from paddle_tpu_torch.observability.exporters import _fmt_labels
+
+    a = _snapshot_scalars(snap_a)
+    b = _snapshot_scalars(snap_b)
+    dt = float(snap_b.get("time", 0)) - float(snap_a.get("time", 0))
+    rows = []
+    for key in sorted(set(a) | set(b)):
+        name, labels = key
+        kind_a, va = a.get(key, (None, 0.0))
+        kind_b, vb = b.get(key, (None, 0.0))
+        kind = kind_b or kind_a
+        label = _fmt_labels(dict(labels))
+        if kind == "gauge":
+            if va != vb:
+                rows.append((f"{name}{label}", "gauge",
+                             f"{va:g} -> {vb:g}"))
+        else:
+            delta = vb - va
+            if delta:
+                per_s = f"  ({delta / dt:.6g}/s)" if dt > 0 else ""
+                rows.append((f"{name}{label}", kind or "counter",
+                             f"{delta:+g}{per_s}"))
+    print(f"{path_a} -> {path_b}"
+          + (f"  (dt {dt:.3f}s)" if dt > 0 else ""))
+    if not rows:
+        print("no series moved between the two snapshots")
+        return
+    name_w = max(len(r[0]) for r in rows)
+    print(f"{'Metric':<{name_w}}  {'Type':<9}  Delta")
+    for n, t, v in rows:
+        print(f"{n:<{name_w}}  {t:<9}  {v}")
+
+
+def cmd_metrics(argv):
+    """`python -m paddle_tpu_torch.cli metrics DUMP.json` — render a JSON
+    metrics snapshot (observability.exporters.write_json, or the
+    --metrics_out of `cli trace`) as a table.  `--diff A.json B.json`
+    instead prints the counter deltas (and per-second rates, from the
+    snapshots' timestamps) between two dumps."""
+    import json
+
+    from paddle_tpu_torch.observability.exporters import format_metrics_table
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli metrics",
+        description="render or diff metrics JSON snapshots")
+    ap.add_argument("snapshot", nargs="?", default="",
+                    help="JSON snapshot file written by "
+                    "observability.exporters.write_json")
+    ap.add_argument("--diff", nargs=2, metavar=("A.json", "B.json"),
+                    help="print counter deltas between two snapshots "
+                    "(A = earlier, B = later)")
+    args = ap.parse_args(argv)
+    if args.diff:
+        path_a, path_b = args.diff
+        with open(path_a) as f:
+            snap_a = json.load(f)
+        with open(path_b) as f:
+            snap_b = json.load(f)
+        _print_metrics_diff(path_a, path_b, snap_a, snap_b)
+        return 0
+    if not args.snapshot:
+        raise SystemExit("metrics: give a snapshot file or --diff A B")
+    with open(args.snapshot) as f:
+        snap = json.load(f)
+    n = len(snap.get("metrics", {}))
+    print(f"{args.snapshot}: {n} metric(s) from pid "
+          f"{snap.get('pid', '?')}")
+    print(format_metrics_table(snap))
+    return 0
+
+
+def cmd_trace(argv):
+    """`python -m paddle_tpu_torch.cli trace CONFIG OUT.json [--steps N]` —
+    run a build() config file for a few steps with span recording on and
+    write the Chrome-trace JSON (open in chrome://tracing or
+    https://ui.perfetto.dev)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.observability import exporters, metrics, tracing
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli trace",
+        description="run a config under tracing; emit Chrome trace JSON")
+    ap.add_argument("config", help="python file defining build() "
+                    "(CLI config contract)")
+    ap.add_argument("out", help="Chrome-trace JSON output path")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--use_gpu", "--use_tpu", dest="use_gpu", type=int,
+                    default=1,
+                    help="1: CUDAPlace(0), raising without a card; 0: the "
+                    "CPU (--use_tpu: the JAX package's name, an alias)")
+    ap.add_argument("--metrics_out", default="",
+                    help="also write a metrics JSON snapshot here "
+                    "(view with `cli metrics`)")
+    args = ap.parse_args(argv)
+
+    from paddle_tpu_torch.core.executor import scope_guard
+    from paddle_tpu_torch.core.scope import Scope
+
+    metrics.set_enabled(True)
+    tracing.set_enabled(True)
+    mod = _load_config(args.config)
+    with scope_guard(Scope()):
+        cfg = _build(mod)
+        if "reader" not in cfg:
+            raise SystemExit("trace needs 'reader' from build()")
+        loss = cfg["loss"]
+        opt = cfg.get("optimizer") or fluid.SGD(learning_rate=0.01)
+        with fluid.program_guard(cfg["main"], cfg["startup"]):
+            opt.minimize(loss)
+        exe = fluid.Executor(_place(args.use_gpu))
+        exe.run(cfg["startup"])
+        it = iter(cfg["reader"]())
+        steps = 0
+        with tracing.span("cli.trace", config=args.config):
+            for i in range(args.steps):
+                feed = next(it, None)
+                if feed is None:
+                    break
+                with tracing.span("trainer.step", batch_id=i):
+                    exe.run(cfg["main"], feed=feed, fetch_list=[loss])
+                steps += 1
+    path = tracing.write_chrome_trace(args.out)
+    print(f"trace: {steps} step(s), {len(tracing.finished_spans())} "
+          f"span(s) -> {path}")
+    if args.metrics_out:
+        print(f"metrics snapshot -> "
+              f"{exporters.write_json(args.metrics_out)}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# `top` / `slo` subcommands: the fleet telemetry plane
+# (docs/observability.md "Fleet telemetry")
+# ---------------------------------------------------------------------------
+
+# which series feed each fleet-table column, per member kind; the
+# fallback row renders "-" for kinds without a mapping
+_TOP_COLUMNS = {
+    "generation": {
+        "qps": "paddle_tpu_serving_generation_requests_total",
+        "latency": "paddle_tpu_serving_generation_seconds",
+        "queue": "paddle_tpu_serving_generation_queue_depth",
+        "util": "paddle_tpu_serving_kv_pool_utilization",
+    },
+    "serving": {
+        "qps": "paddle_tpu_serving_requests_total",
+        "latency": "paddle_tpu_serving_request_seconds",
+        "queue": "paddle_tpu_serving_queue_depth",
+    },
+    "pserver": {
+        "qps": "paddle_tpu_pserver_requests_total",
+        "latency": "paddle_tpu_pserver_optimize_seconds",
+    },
+    "trainer": {
+        "qps": "paddle_tpu_trainer_steps_total",
+        "latency": "paddle_tpu_trainer_step_seconds",
+    },
+    "router": {
+        "qps": "paddle_tpu_serving_router_requests_total",
+        "latency": "paddle_tpu_serving_router_request_seconds",
+        "queue": "paddle_tpu_serving_router_outstanding_tokens",
+    },
+}
+
+
+def _fmt_stat(v, fmt="{:.3g}"):
+    import math
+
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return "-"
+    return fmt.format(v)
+
+
+def format_fleet_table(coll, window_s: float = 60.0) -> str:
+    """The `cli top` table: one row per member with windowed qps /
+    p50 / p99 / queue depth / KV utilization from the collector's
+    fleet time-series."""
+    rows = []
+    for m in coll.members():
+        cols = _TOP_COLUMNS.get(m["kind"], {})
+        lbl = {"member": m["member"]}
+        qps = p50 = p99 = queue = util = None
+        if "qps" in cols:
+            qps = coll.series.rate(cols["qps"], window_s, labels=lbl)
+        if "latency" in cols:
+            p50 = coll.series.p50(cols["latency"], window_s,
+                                  labels=lbl)
+            p99 = coll.series.p99(cols["latency"], window_s,
+                                  labels=lbl)
+        if "queue" in cols:
+            queue = coll.series.latest(cols["queue"], labels=lbl)
+        if "util" in cols:
+            util = coll.series.latest(cols["util"], labels=lbl)
+        rows.append((m["member"], m["kind"],
+                     "up" if m["up"] else "DOWN",
+                     _fmt_stat(qps), _fmt_stat(p50, "{:.4g}"),
+                     _fmt_stat(p99, "{:.4g}"), _fmt_stat(queue),
+                     _fmt_stat(util, "{:.2f}")))
+    header = ("MEMBER", "KIND", "UP", "QPS", "P50", "P99", "QUEUE",
+              "KV_UTIL")
+    widths = [max([len(header[i])] + [len(r[i]) for r in rows])
+              for i in range(len(header))]
+    lines = ["  ".join(h.ljust(w) for h, w in zip(header, widths))]
+    for r in rows:
+        lines.append("  ".join(c.ljust(w) for c, w in zip(r, widths)))
+    if not rows:
+        lines.append("(no members announced yet)")
+    return "\n".join(lines)
+
+
+def format_straggler_lines(coll, window_s: float = 60.0,
+                           flag_at: float = 3.0) -> str:
+    """Comm-endpoint straggler scores for the `cli top` footer: one
+    line per endpoint whose mean round time drifts above its peers',
+    the SLO-able detector threshold marked.  Empty string when the
+    fleet has no per-endpoint round data (no distributed training
+    running, or a single pserver)."""
+    from paddle_tpu_torch.observability import attribution
+
+    scores = attribution.straggler_scores(coll.series,
+                                          window_s=window_s)
+    drifted = {ep: s for ep, s in scores.items() if s > 0.5}
+    if not drifted:
+        return ""
+    lines = ["stragglers (round-time z-score vs peers):"]
+    for ep, s in sorted(drifted.items(), key=lambda t: -t[1]):
+        mark = "  << STRAGGLER" if s >= flag_at else ""
+        lines.append(f"  {ep}  {s:.1f}{mark}")
+    return "\n".join(lines)
+
+
+def cmd_top(argv):
+    """`python -m paddle_tpu_torch.cli top --registry HOST:PORT` — the live
+    fleet table: every announced member (trainers, pservers, serving
+    replicas, routers) with windowed qps, p50/p99 latency, queue depth
+    and KV-pool utilization from a TelemetryCollector scrape, plus the
+    SLO scoreboard when --slo points at a spec file.  One render after
+    --samples scrapes by default; --watch refreshes until ^C."""
+    import time as _time
+
+    from paddle_tpu_torch.observability import slo as slo_mod
+    from paddle_tpu_torch.observability.collector import TelemetryCollector
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli top",
+        description="live fleet telemetry table "
+        "(docs/observability.md 'Fleet telemetry')")
+    ap.add_argument("--registry", required=True,
+                    help="TTL-lease registry HOST:PORT the fleet's "
+                    "members announce() in")
+    ap.add_argument("--period", type=float, default=0.5,
+                    help="scrape period seconds")
+    ap.add_argument("--samples", type=int, default=4,
+                    help="scrapes before the (first) render — two or "
+                    "more make windowed rates/quantiles meaningful")
+    ap.add_argument("--window", type=float, default=60.0,
+                    help="window seconds for qps/p50/p99")
+    ap.add_argument("--slo", default="",
+                    help="SLO spec file (tools/slo.json) to score "
+                    "against the fleet series")
+    ap.add_argument("--watch", action="store_true",
+                    help="keep refreshing until interrupted")
+    args = ap.parse_args(argv)
+
+    coll = TelemetryCollector(registry_addr=args.registry,
+                              period_s=args.period)
+    specs = slo_mod.load_slos(args.slo) if args.slo else []
+    try:
+        while True:
+            for i in range(max(args.samples, 1)):
+                if i:  # sleep BETWEEN scrapes, never after the last
+                    _time.sleep(args.period)
+                coll.scrape_once()
+            print(format_fleet_table(coll, window_s=args.window))
+            straggler = format_straggler_lines(coll,
+                                               window_s=args.window)
+            if straggler:
+                print(straggler)
+            if specs:
+                print()
+                print(slo_mod.format_slo_table(
+                    slo_mod.evaluate(specs, coll.series)))
+            if not args.watch:
+                break
+            print()
+            # --samples 1 never sleeps inside the scrape loop; without
+            # this the watch loop would hammer every member endpoint
+            _time.sleep(args.period)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        coll.close()
+    return 0
+
+
+def cmd_slo(argv):
+    """`python -m paddle_tpu_torch.cli slo --check [--spec tools/slo.json]`
+    — evaluate the fleet SLOs and exit nonzero on violation.  Two
+    modes: `--registry HOST:PORT` samples a live fleet through a
+    TelemetryCollector and applies the full multiwindow burn-rate rule;
+    `--prom DUMP` gates a single Prometheus dump (federation output or
+    any scrape) on lifetime stats — the CI smoke mode."""
+    import time as _time
+
+    from paddle_tpu_torch.observability import slo as slo_mod
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli slo",
+        description="evaluate SLO specs against fleet telemetry "
+        "(docs/observability.md 'Fleet telemetry')")
+    ap.add_argument("--spec", default="tools/slo.json",
+                    help="SLO spec file (grammar + dict forms)")
+    ap.add_argument("--check", action="store_true",
+                    help="exit nonzero when any objective alerts")
+    ap.add_argument("--registry", default="",
+                    help="live mode: scrape this fleet registry")
+    ap.add_argument("--prom", default="",
+                    help="snapshot mode: gate this Prometheus text "
+                    "dump")
+    ap.add_argument("--period", type=float, default=0.5)
+    ap.add_argument("--samples", type=int, default=6,
+                    help="live mode: scrapes before evaluating")
+    args = ap.parse_args(argv)
+
+    specs = slo_mod.load_slos(args.spec)
+    if bool(args.registry) == bool(args.prom):
+        raise SystemExit(
+            "slo: give exactly one of --registry (live) or --prom "
+            "(snapshot)")
+    if args.prom:
+        from paddle_tpu_torch.observability.collector import \
+            parse_prometheus_text
+
+        with open(args.prom) as f:
+            families = parse_prometheus_text(f.read())
+        statuses = slo_mod.evaluate_snapshot(specs, families)
+    else:
+        from paddle_tpu_torch.observability.collector import \
+            TelemetryCollector
+
+        coll = TelemetryCollector(registry_addr=args.registry,
+                                  period_s=args.period)
+        try:
+            for i in range(max(args.samples, 2)):
+                if i:  # sleep BETWEEN scrapes, never after the last
+                    _time.sleep(args.period)
+                coll.scrape_once()
+            statuses = slo_mod.evaluate(specs, coll.series)
+        finally:
+            coll.close()
+    print(slo_mod.format_slo_table(statuses))
+    bad = slo_mod.failed(statuses)
+    print(f"slo: {len(statuses)} objective(s) — "
+          + ("FAILED" if bad else "all met"))
+    if args.check and bad:
+        return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# `why` / `trace-of` subcommands: the time-attribution plane
+# (docs/observability.md "Time attribution")
+# ---------------------------------------------------------------------------
+
+
+def cmd_why(argv):
+    """`python -m paddle_tpu_torch.cli why [--kind generation|trainer|
+    pserver]` — the fleet "where does the time go" table: per
+    (kind, member, phase) share of attributed time.  Two modes like
+    `cli slo`: `--prom DUMP` reads lifetime sums from a federated
+    Prometheus dump; `--registry HOST:PORT` scrapes a live fleet and
+    shows windowed rates."""
+    import time as _time
+
+    from paddle_tpu_torch.observability import attribution
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli why",
+        description="per-phase time attribution across the fleet "
+        "(docs/observability.md 'Time attribution')")
+    ap.add_argument("--kind", default="",
+                    choices=[""] + list(attribution.KINDS),
+                    help="restrict to one member kind")
+    ap.add_argument("--prom", default="",
+                    help="snapshot mode: a federated Prometheus dump")
+    ap.add_argument("--registry", default="",
+                    help="live mode: scrape this fleet registry")
+    ap.add_argument("--period", type=float, default=0.5)
+    ap.add_argument("--samples", type=int, default=4)
+    ap.add_argument("--window", type=float, default=60.0)
+    args = ap.parse_args(argv)
+
+    kind = args.kind or None
+    if bool(args.registry) == bool(args.prom):
+        raise SystemExit("why: give exactly one of --registry (live) "
+                         "or --prom (snapshot)")
+    if args.prom:
+        from paddle_tpu_torch.observability.collector import \
+            parse_prometheus_text
+
+        with open(args.prom) as f:
+            parsed = parse_prometheus_text(f.read())
+        rows = attribution.why_rows_from_parsed(parsed, kind)
+    else:
+        from paddle_tpu_torch.observability.collector import \
+            TelemetryCollector
+
+        coll = TelemetryCollector(registry_addr=args.registry,
+                                  period_s=args.period)
+        try:
+            for i in range(max(args.samples, 2)):
+                if i:
+                    _time.sleep(args.period)
+                coll.scrape_once()
+            rows = attribution.why_rows(coll.series, kind,
+                                        window_s=args.window)
+        finally:
+            coll.close()
+    print(attribution.format_why_table(rows))
+    return 0
+
+
+def cmd_trace_of(argv):
+    """`python -m paddle_tpu_torch.cli trace-of --metric serving.request
+    --prom DUMP [--trace-dir DIR]` — resolve a latency outlier to its
+    trace: pick the histogram exemplar nearest the requested quantile
+    (p99 by default) from a federated dump, and, when --trace-dir
+    holds the fleet's trace/flight files, assemble the end-to-end
+    Chrome trace for that trace id."""
+    from paddle_tpu_torch.observability import attribution
+    from paddle_tpu_torch.observability import slo as slo_mod
+    from paddle_tpu_torch.observability.collector import (
+        assemble_traces, parse_prometheus_text)
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli trace-of",
+        description="histogram exemplar -> joined Chrome trace "
+        "(docs/observability.md 'Time attribution')")
+    ap.add_argument("--metric", required=True,
+                    help="histogram family (short alias like "
+                    "'serving.request' or full paddle_tpu_* name)")
+    ap.add_argument("--prom", required=True,
+                    help="federated Prometheus dump with exemplars")
+    ap.add_argument("--p99", action="store_true",
+                    help="target the p99 outlier (the default)")
+    ap.add_argument("--q", type=float, default=0.99,
+                    help="target quantile (overrides --p99)")
+    ap.add_argument("--trace-dir", default="",
+                    help="fleet trace dir: also write the joined "
+                    "Chrome trace for the picked trace id")
+    ap.add_argument("--out", default="",
+                    help="output dir for the joined trace "
+                    "(default: --trace-dir)")
+    args = ap.parse_args(argv)
+
+    with open(args.prom) as f:
+        parsed = parse_prometheus_text(f.read())
+    name = args.metric
+    if name not in parsed:
+        name = slo_mod.ALIASES.get(args.metric, name)
+    if name not in parsed and not name.startswith("paddle_tpu_"):
+        name = "paddle_tpu_" + name
+    ex = attribution.pick_exemplar(parsed, name, q=args.q)
+    if ex is None:
+        print(f"trace-of: no exemplars on {name!r} — run the fleet "
+              "with PADDLE_TPU_EXEMPLARS=on and PADDLE_TPU_TRACE=on")
+        return 1
+    qs = ex.get("quantile_s")
+    print(f"metric   {name}")
+    if qs is not None:
+        print(f"p{args.q * 100:g}      {qs:.6g}s")
+    print(f"exemplar {ex['value']:.6g}s  labels={ex['labels']}")
+    print(f"trace_id {ex['trace_id']}")
+    if args.trace_dir:
+        joined = assemble_traces(args.trace_dir,
+                                 args.out or args.trace_dir)
+        path = joined.get(ex["trace_id"])
+        if path:
+            print(f"trace    {path}")
+        else:
+            print(f"trace    (trace_id not found under "
+                  f"{args.trace_dir} — was the member running with "
+                  "PADDLE_TPU_TRACE_DIR pointed there?)")
+            return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# `serve` subcommand: one generation replica (docs/serving.md)
+# ---------------------------------------------------------------------------
+
+
+def cmd_serve(argv):
+    """`python -m paddle_tpu_torch.cli serve MODEL_DIR [--port P]` — front a
+    continuous-batching GenerationServer with the TCP replica protocol
+    (serving/replica.py).  MODEL_DIR is a directory written by
+    serving.save_generation_model (generation.json spec + params npz).
+    With --registry (or PADDLE_TPU_REGISTRY), the replica registers
+    under a TTL lease so a cloud.router.ReplicaRouter front door
+    discovers, health-checks, and hot-swaps it."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.serving import ReplicaServer, server_from_model_dir
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli serve",
+        description="serve a saved generation model as one replica")
+    ap.add_argument("model_dir", help="save_generation_model output dir")
+    ap.add_argument("--port", type=int, default=0,
+                    help="TCP port (0 = ephemeral, printed on start)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="decode slots (0 = model spec / default 8)")
+    ap.add_argument("--kv_blocks", type=int, default=0,
+                    help="KV pool blocks (0 = model spec / default 64)")
+    ap.add_argument("--block_size", type=int, default=0,
+                    help="KV block size in positions (0 = spec / 16)")
+    ap.add_argument("--kv_dtype", default="",
+                    help="KV pool precision: fp32|bf16|int8 ('' = "
+                    "model spec / PADDLE_TPU_SERVING_KV_DTYPE / fp32); "
+                    "docs/serving.md 'KV quantization'")
+    ap.add_argument("--spec_k", type=int, default=0,
+                    help="speculative draft tokens per tick (0 = model "
+                    "spec / flag default; needs draft params in the "
+                    "model dir)")
+    ap.add_argument("--no_draft", action="store_true",
+                    help="ignore draft params in the model dir "
+                    "(disable speculative decoding)")
+    ap.add_argument("--registry",
+                    default=os.environ.get("PADDLE_TPU_REGISTRY", ""),
+                    help="TTL-lease registry HOST:PORT to register "
+                    "with (kind 'generation')")
+    ap.add_argument("--ttl", type=float, default=2.0,
+                    help="registry lease TTL seconds")
+    ap.add_argument("--drain_grace", "--drain-grace", type=float,
+                    default=30.0, dest="drain_grace",
+                    help="graceful-SIGTERM drain budget seconds: on "
+                    "SIGTERM the replica stops admission, releases "
+                    "its lease, finishes in-flight streams within "
+                    "this budget, delists telemetry, then exits "
+                    "(docs/serving.md 'Autoscaling')")
+    ap.add_argument("--cold", action="store_true",
+                    help="ignore the model dir's warm-start "
+                    "kernel_cache artifact (build the CUDA kernels "
+                    "with nvcc — the baseline the artifact is measured "
+                    "against)")
+    ap.add_argument("--telemetry",
+                    default=os.environ.get(
+                        "PADDLE_TPU_TELEMETRY_REGISTRY", ""),
+                    help="fleet telemetry registry HOST:PORT — the "
+                    "replica announces its /metrics endpoint there "
+                    "for a TelemetryCollector (docs/observability.md "
+                    "'Fleet telemetry')")
+    ap.add_argument("--use_gpu", "--use_tpu", dest="use_gpu", type=int,
+                    default=1,
+                    help="1: CUDAPlace(0), raising without a card; 0: the "
+                    "CPU (--use_tpu: the JAX package's name, an alias)")
+    args = ap.parse_args(argv)
+    if args.telemetry:
+        # ReplicaServer's env-gated maybe_announce() does the work
+        os.environ["PADDLE_TPU_TELEMETRY_REGISTRY"] = args.telemetry
+
+    server = server_from_model_dir(
+        args.model_dir, slots=args.slots or None,
+        kv_blocks=args.kv_blocks or None,
+        block_size=args.block_size or None,
+        kv_dtype=args.kv_dtype or None,
+        spec_k=args.spec_k or None,
+        use_draft=not args.no_draft,
+        warm_start=not args.cold,
+        place=_place(args.use_gpu))
+    rep = ReplicaServer(server, port=args.port, host=args.host,
+                        registry_addr=args.registry or None,
+                        ttl_s=args.ttl,
+                        drain_grace_s=args.drain_grace,
+                        own_announcement=True)
+    # graceful scale-in: SIGTERM drains before exit, chaining onto the
+    # flight recorder's dump handler when PADDLE_TPU_FLIGHT_DIR is set
+    rep.install_sigterm()
+    suffix = (f", registered in {args.registry}" if args.registry
+              else "")
+    ws = server.warmup_stats
+    if server.warm_start_dir:
+        suffix += (f" (warm start: {ws['cache_hits']} kernel builds "
+                   f"loaded, {ws['cache_misses']} built, "
+                   f"warmup {ws['warmup_s']:.2f}s)")
+    else:
+        suffix += (f" (cold start: {ws['compiles']} kernel builds, "
+                   f"{ws['cache_hits']} loaded, "
+                   f"warmup {ws['warmup_s']:.2f}s)")
+    print(f"serving {args.model_dir} on {rep.addr}{suffix}", flush=True)
+    try:
+        rep.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        rep.close()
+        server.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# `autoscale` subcommand: the self-scaling serving front door
+# ---------------------------------------------------------------------------
+
+
+def cmd_autoscale(argv):
+    """`python -m paddle_tpu_torch.cli autoscale MODEL_DIR [--min 1 --max 4]`
+    — run the self-scaling front door: a ReplicaRouter (hosting the
+    TTL-lease replica registry unless --registry joins an existing
+    one) plus an Autoscaler that spawns/retires `cli serve` replicas
+    of MODEL_DIR from the router's windowed backlog/p99 signals
+    (docs/serving.md "Autoscaling").  Prints a status line every
+    --status_period seconds until interrupted; on exit the spawned
+    replicas are retired gracefully."""
+    import time as _time
+
+    from paddle_tpu_torch.cloud.autoscaler import (Autoscaler,
+                                             AutoscalerPolicy,
+                                             SubprocessReplicaLauncher)
+    from paddle_tpu_torch.cloud.router import ReplicaRouter
+
+    ap = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.cli autoscale",
+        description="signal-driven autoscaling serving fleet")
+    ap.add_argument("model_dir", help="save_generation_model output "
+                    "dir (ship it with warm_start=True so scale-out "
+                    "replicas load the CUDA kernels instead of building "
+                    "them)")
+    ap.add_argument("--registry", default="",
+                    help="join an existing replica registry instead "
+                    "of hosting one")
+    ap.add_argument("--min", type=int, default=1, dest="min_replicas")
+    ap.add_argument("--max", type=int, default=4, dest="max_replicas")
+    ap.add_argument("--p99_high", type=float, default=2.0,
+                    help="scale-out latency target seconds")
+    ap.add_argument("--backlog_high", type=float, default=512,
+                    help="scale-out reserved-token backlog threshold")
+    ap.add_argument("--backlog_low", type=float, default=32,
+                    help="scale-in idle backlog threshold (hysteresis "
+                    "floor)")
+    ap.add_argument("--sustain", type=float, default=3.0,
+                    help="seconds the hot signal must hold")
+    ap.add_argument("--idle_sustain", type=float, default=10.0,
+                    help="seconds the cold signal must hold")
+    ap.add_argument("--cooldown", type=float, default=15.0,
+                    help="refractory seconds after any scale action")
+    ap.add_argument("--poll", type=float, default=0.5)
+    ap.add_argument("--window", type=float, default=15.0,
+                    help="signal window seconds (router.signals)")
+    ap.add_argument("--drain_grace", "--drain-grace", type=float,
+                    default=30.0, dest="drain_grace")
+    ap.add_argument("--spawn_timeout", type=float, default=300.0)
+    ap.add_argument("--status_period", type=float, default=5.0)
+    ap.add_argument("--use_gpu", "--use_tpu", dest="use_gpu", type=int,
+                    default=1,
+                    help="1: CUDAPlace(0), raising without a card; 0: the "
+                    "CPU (--use_tpu: the JAX package's name, an alias)")
+    args = ap.parse_args(argv)
+
+    policy = AutoscalerPolicy(
+        args.min_replicas, args.max_replicas,
+        p99_high_s=args.p99_high, backlog_high=args.backlog_high,
+        backlog_low=args.backlog_low, sustain_s=args.sustain,
+        idle_sustain_s=args.idle_sustain, cooldown_s=args.cooldown)
+    router = ReplicaRouter(registry_addr=args.registry or None,
+                           desired=max(args.max_replicas * 2, 8))
+    launcher = SubprocessReplicaLauncher(
+        args.model_dir, router.registry_addr, use_gpu=args.use_gpu,
+        drain_grace_s=args.drain_grace)
+    scaler = Autoscaler(router, launcher, policy, poll_s=args.poll,
+                        window_s=args.window,
+                        spawn_timeout_s=args.spawn_timeout,
+                        drain_grace_s=args.drain_grace)
+    print(f"autoscale: fronting {args.model_dir}; replica registry at "
+          f"{router.registry_addr} (band {args.min_replicas}.."
+          f"{args.max_replicas})", flush=True)
+    try:
+        # inside the try: a Ctrl-C during the cold boot (the floor
+        # replica can take minutes on the compile path) must still
+        # reach the finally and retire whatever was already spawned
+        scaler.ensure_min()
+        scaler.start()
+        while True:
+            _time.sleep(args.status_period)
+            st = scaler.status()
+            sig = router.signals(args.window)
+            print(f"autoscale: live={len(st['live'])} "
+                  f"pending={st['pending_spawns']} "
+                  f"qps={_fmt_stat(sig['qps'])} "
+                  f"p99={_fmt_stat(sig['p99'], '{:.4g}')} "
+                  f"backlog={_fmt_stat(sig['outstanding_tokens'])} "
+                  f"| {st['last_event']}", flush=True)
+    except KeyboardInterrupt:
+        print("autoscale: retiring owned replicas", flush=True)
+    finally:
+        scaler.close(retire_owned=True)
+        router.close()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -808,30 +1520,24 @@ def cmd_concurrency(argv):
     return 1 if failed else 0
 
 
-def _waiting(name):
-    def cmd(argv):
-        raise NotImplementedError(
-            f"paddle_tpu_torch.cli {name}: not ported yet; it waits for "
-            f"ROADMAP {_WAITING[name]}")
-    return cmd
-
-
 def main(argv=None):
     """Run one job (or subcommand) -> the job's result dict, with the
     scope it ran in under "scope"."""
     argv = sys.argv[1:] if argv is None else list(argv)
     subcommands = {"verify": cmd_verify, "analyze": cmd_analyze,
-                   "concurrency": cmd_concurrency}
+                   "metrics": cmd_metrics, "trace": cmd_trace,
+                   "serve": cmd_serve, "autoscale": cmd_autoscale,
+                   "concurrency": cmd_concurrency,
+                   "top": cmd_top, "slo": cmd_slo,
+                   "why": cmd_why, "trace-of": cmd_trace_of}
     if argv and argv[0] in subcommands:
         sys.exit(subcommands[argv[0]](argv[1:]))
-    if argv and argv[0] in _WAITING:
-        return _waiting(argv[0])(argv[1:])
     ap = argparse.ArgumentParser(
         prog="paddle_tpu_torch.cli",
         description="legacy `paddle train` workflow over Program/Executor"
-        " on the card (subcommands: verify, analyze and concurrency, the "
-        "static analysis; the JAX package's metrics|trace|serve|autoscale|"
-        "top|slo|why|trace-of are not ported yet)")
+        " on the card (plus subcommands: `python -m paddle_tpu_torch.cli "
+        "verify|analyze|concurrency|metrics|trace|serve|autoscale|"
+        "top|slo|why|trace-of --help`)")
     ap.add_argument("--config", required=True, help="python config file "
                     "defining build()")
     ap.add_argument("--job", default="train",

@@ -10,8 +10,10 @@ the registry are native C++ (native/src/master.cc, registry.cc, the
 JAX package's sources); this package is their Python surface.
 
 The elastic cluster (cluster.py: ClusterView, ClusterController,
-ClusterClient) is here; the serving front door (router, autoscaler) is
-ROADMAP A11's second half: its names raise naming it.
+ClusterClient) and the serving front door (router.py: ReplicaRouter;
+autoscaler.py: Autoscaler, AutoscalerPolicy, SubprocessReplicaLauncher)
+are here; the front door loads on first use, so cloud-only users
+(masters, pservers, cluster controllers) stay light.
 """
 from .cluster import ClusterClient, ClusterController, ClusterView
 from .master import Master, MasterClient, task_record_reader
@@ -24,15 +26,15 @@ __all__ = ["Master", "MasterClient", "task_record_reader",
            "Autoscaler", "AutoscalerPolicy",
            "SubprocessReplicaLauncher"]
 
-_SECOND_HALF = ("ReplicaRouter", "NoReplicasAvailable", "Autoscaler",
-                "AutoscalerPolicy", "SubprocessReplicaLauncher", "router",
-                "autoscaler")
-
 
 def __getattr__(name):
-    if name in _SECOND_HALF:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.cloud.{name}: the serving front door "
-            "(cloud/router.py, cloud/autoscaler.py) is not ported yet "
-            "(ROADMAP A11's second half)")
+    if name in ("ReplicaRouter", "NoReplicasAvailable"):
+        from . import router
+
+        return getattr(router, name)
+    if name in ("Autoscaler", "AutoscalerPolicy",
+                "SubprocessReplicaLauncher"):
+        from . import autoscaler
+
+        return getattr(autoscaler, name)
     raise AttributeError(name)

@@ -103,6 +103,13 @@ define_flag("log_recompiles", False,
             "a cache hit): a feed shape/dtype or a run-time flag changed "
             "on the hot path.  Counted unconditionally in "
             "Executor.cache_stats()['recompiles_after_warmup']")
+define_flag("compilation_cache_dir", "",
+            "directory the CUDA kernels are built into and loaded from "
+            "(kernels/cuda_build.py); '' = kernels/_build in the "
+            "package.  Builds are keyed by source text and nvcc flags, "
+            "so a relaunched process (or a replica started from a "
+            "model dir's warm-start artifact) loads them instead of "
+            "running nvcc.  Read at each library load")
 define_flag("remat", False,
             "default rematerialization for model builders that accept "
             "remat=None: the transformer encoder and decoder and the "

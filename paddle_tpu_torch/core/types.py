@@ -28,6 +28,7 @@ _TORCH = {
 _FROM_TORCH = {v: k for k, v in _TORCH.items()}
 
 FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+INT_DTYPES = ("int8", "uint8", "int16", "int32", "int64")
 
 
 def canonical_dtype(d) -> str:

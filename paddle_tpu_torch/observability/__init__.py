@@ -1,22 +1,35 @@
-"""Observability: metrics registry, trace spans, exemplars, time
-attribution and the flight recorder (counterpart of
-paddle_tpu/observability/; the exporters, collector, timeseries, slo and
-fleet tools are not ported yet, ROADMAP A12's second part: until then
-`maybe_announce`, the collector's announcement of a trainer or a
-pserver, does nothing without PADDLE_TPU_TELEMETRY_REGISTRY and raises
-with it).
+"""Observability: metrics registry, trace spans, exporters, time
+attribution, the flight recorder and the fleet telemetry plane
+(counterpart of paddle_tpu/observability/).
+
+    from paddle_tpu_torch.observability import metrics, tracing, exporters
+
+    STEPS = metrics.counter("paddle_tpu_trainer_steps_total", "steps")
+    with tracing.span("trainer.step", batch_id=i):
+        ...
+        STEPS.inc()
+    exporters.write_prometheus("/tmp/metrics.prom")
+    tracing.write_chrome_trace("/tmp/trace.json")
+
+The metric names, text formats and wire are the JAX package's, so one
+collector scrapes members of either package.
 
 Switches (env at import, or flags/`set_flags` at runtime):
   * ``PADDLE_TPU_METRICS=on`` — arm the gated instruments (metrics
     created with ``always=True`` count regardless).
   * ``PADDLE_TPU_TRACE=on`` / ``PADDLE_TPU_TRACE_DIR=<dir>`` — record
     spans; with a dir, auto-write ``trace_<pid>.json`` at exit.
+  * ``PADDLE_TPU_METRICS_DUMP=<path>`` — auto-write the Prometheus text
+    dump at exit.
   * ``PADDLE_TPU_FLIGHT_DIR=<dir>`` / ``PADDLE_TPU_FLIGHT=on`` — arm the
     flight recorder at import (flightrecorder.py).
+  * ``PADDLE_TPU_TELEMETRY_REGISTRY=<host:port>`` — trainers, pservers
+    and replicas announce themselves to the collector
+    (collector.maybe_announce).
 """
 from __future__ import annotations
 
-from . import attribution, exemplars, flightrecorder, metrics, tracing  # noqa: F401
+from . import attribution, collector, exemplars, exporters, flightrecorder, metrics, slo, timeseries, tracing  # noqa: F401,E501
 from .metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -27,14 +40,20 @@ from .metrics import (  # noqa: F401
     histogram,
     registry,
 )
+from .timeseries import TimeSeriesStore  # noqa: F401
 from .tracing import SpanContext, activate, current_context, span  # noqa: F401
 
 __all__ = [
     "metrics",
     "tracing",
+    "exporters",
     "exemplars",
     "attribution",
+    "timeseries",
     "flightrecorder",
+    "slo",
+    "collector",
+    "TimeSeriesStore",
     "Counter",
     "Gauge",
     "Histogram",
@@ -47,21 +66,7 @@ __all__ = [
     "span",
     "activate",
     "current_context",
-    "maybe_announce",
 ]
-
-
-def maybe_announce(kind: str):
-    """The fleet telemetry announcement of a `kind` member ("trainer",
-    "pserver") to the collector: nothing while
-    PADDLE_TPU_TELEMETRY_REGISTRY is unset."""
-    import os
-
-    if os.environ.get("PADDLE_TPU_TELEMETRY_REGISTRY"):
-        raise NotImplementedError(
-            f"PADDLE_TPU_TELEMETRY_REGISTRY is set: announcing this {kind} "
-            "to the telemetry collector is not ported yet (ROADMAP A12's "
-            "second part)")
 
 
 def _wire_flags():

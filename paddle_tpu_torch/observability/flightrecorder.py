@@ -12,8 +12,8 @@ written to a temporary and renamed), so a SIGKILLed process leaves its
 last seconds on disk; SIGTERM, an uncaught exception, an injected fault
 (core/resilience calls :func:`on_fault`) and interpreter exit dump at
 once.  A live pserver answers its dump over the wire (the FLIGHT verb,
-parallel/pserver.py); a serving replica's comes with ROADMAP A11's
-second slice.
+parallel/pserver.py), a serving replica with its `flight` op
+(serving/replica.py).
 
 Arming: ``PADDLE_TPU_FLIGHT_DIR=<dir>`` at package import (a memory-only
 ring with ``PADDLE_TPU_FLIGHT=on``), or ``flightrecorder.install(dir=...)``.

@@ -606,9 +606,10 @@ def maybe_arm_tail_from_env() -> Optional[TailSampler]:
 # ---------------------------------------------------------------------------
 
 
-def chrome_trace_events() -> List[dict]:
-    """Finished spans as Chrome-trace event dicts (`ph: "X"`,
-    microsecond ts/dur, trace/span ids in args)."""
+def chrome_trace_events(include_profiler: bool = True) -> List[dict]:
+    """Finished spans (and, optionally, the profiler's aggregated range
+    events) as Chrome-trace event dicts (`ph: "X"`, microsecond ts/dur,
+    trace/span ids in args)."""
     events = []
     for s in finished_spans():
         events.append({
@@ -626,10 +627,42 @@ def chrome_trace_events() -> List[dict]:
                 **s["attrs"],
             },
         })
+    if include_profiler:
+        events.extend(_profiler_chrome_events())
     return events
 
 
-def write_chrome_trace(path: Optional[str] = None) -> str:
+def _profiler_chrome_events() -> List[dict]:
+    """The profiler's per-name duration lists as back-to-back events on
+    one synthetic track per name.  The profiler stores durations only
+    (no wall placement), so these tracks visualize per-event COST
+    distribution, not real concurrency — the span tracks carry the
+    wall-clock story."""
+    from .. import profiler
+
+    events = []
+    pid = os.getpid()
+    with profiler._events_lock:
+        snapshot = {name: list(ts) for name, ts in
+                    profiler._events.items()}
+    for i, (name, durations) in enumerate(sorted(snapshot.items())):
+        tid = 1_000_000 + i
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+            "args": {"name": f"profiler:{name}"},
+        })
+        ts = 0.0
+        for dur in durations:
+            events.append({
+                "ph": "X", "cat": "profiler", "name": name,
+                "ts": ts, "dur": dur * 1e6, "pid": pid, "tid": tid,
+            })
+            ts += dur * 1e6
+    return events
+
+
+def write_chrome_trace(path: Optional[str] = None,
+                       include_profiler: bool = True) -> str:
     """Write `{"traceEvents": [...]}` JSON; default path is
     ``<trace_dir>/trace_<pid>.json``.  Returns the path written."""
     import json
@@ -641,7 +674,7 @@ def write_chrome_trace(path: Optional[str] = None) -> str:
         os.makedirs(_TRACE_DIR, exist_ok=True)
         path = os.path.join(_TRACE_DIR, f"trace_{os.getpid()}.json")
     payload = {
-        "traceEvents": chrome_trace_events(),
+        "traceEvents": chrome_trace_events(include_profiler),
         "displayTimeUnit": "ms",
         "otherData": {"producer": "paddle_tpu_torch.observability",
                       "dropped_spans": dropped_spans()},

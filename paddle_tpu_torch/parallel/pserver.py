@@ -70,7 +70,7 @@ from ..observability import attribution as obs_attr
 from ..observability import flightrecorder
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
-from ..observability import maybe_announce as obs_maybe_announce
+from ..observability.collector import maybe_announce as obs_maybe_announce
 
 __all__ = ["VariableServer", "VariableClient", "BarrierTimeoutError",
            "serialize_var", "deserialize_var", "serialize_var_parts",

@@ -9,16 +9,26 @@
 * **batching** — `InferenceServer`: the one-shot resident server, its
   buckets captured into CUDA graphs at construction, with dynamic
   batching, deadlines and backpressure.
+* **replica** — a TCP front for one `GenerationServer` process
+  (JSON-line protocol: generate/ping/stats/flight/swap/drain/resume/
+  stop, the JAX package's wire byte for byte) so replicas can be
+  health-checked, drained and hot-swapped remotely.
 
-The replica wire server and the warm-start artifact are not ported
-yet.
+A model dir saved with `warm_start=True` ships the kernels' build cache
+beside the parameters (`build_warm_start_artifact`), so a replica
+started from it loads its CUDA kernels instead of building them.  The
+multi-replica front door (router, autoscaler) lives in
+`paddle_tpu_torch.cloud`.
 """
 from .batching import (InferenceServer, RequestDeadlineExceeded,
                        ServerSaturated)
 from .generation import (GenerationServer, GenerationStream,
+                         build_warm_start_artifact,
                          load_generation_model, save_generation_model,
                          server_from_model_dir)
 from .kv_cache import KVPoolExhausted, PagedKVCache
+from .replica import (ReplicaError, ReplicaServer, ReplicaShed,
+                      replica_call, replica_stream)
 
 __all__ = [
     "InferenceServer",
@@ -31,4 +41,10 @@ __all__ = [
     "save_generation_model",
     "load_generation_model",
     "server_from_model_dir",
+    "build_warm_start_artifact",
+    "ReplicaServer",
+    "ReplicaError",
+    "ReplicaShed",
+    "replica_call",
+    "replica_stream",
 ]

@@ -77,6 +77,7 @@ from ..core.executor import resolve_place
 from ..core.resilience import (fault_injector,
                                sched_fault_armed as _sched_fault)
 from ..kernels.cuda_build import build_counts
+from ..kernels.paged_attention import paged_attention
 from ..observability import attribution as obs_attr
 from ..observability import metrics as obs_metrics
 from ..observability import tracing as obs_tracing
@@ -85,11 +86,25 @@ from .kv_cache import KVPoolExhausted, PagedKVCache
 
 __all__ = ["GenerationServer", "GenerationStream",
            "save_generation_model", "load_generation_model",
-           "server_from_model_dir"]
+           "server_from_model_dir", "build_warm_start_artifact"]
 
 MODEL_SPEC_FILENAME = "generation.json"
 MODEL_PARAMS_FILENAME = "generation_params.npz"
 MODEL_DRAFT_PARAMS_FILENAME = "generation_draft_params.npz"
+# the warm-start artifact: the CUDA kernels' build cache shipped NEXT TO
+# the model (save_generation_model(warm_start=True) /
+# build_warm_start_artifact).  What a fresh replica of this package pays
+# before its first token is the nvcc build of its kernels (nothing here
+# is XLA-compiled, and CUDA graphs do not serialize); the libraries are
+# keyed by source text and nvcc flags (kernels/cuda_build.py), so a copy
+# beside the model is exact for any replica built from the same
+# sources.  A replica started from the dir points
+# PADDLE_TPU_COMPILATION_CACHE_DIR at it and LOADS the libraries instead
+# of building them.  The manifest names each source's key, the nvcc
+# that built them and the card's compute capability; an artifact whose
+# manifest does not match the card or the sources is not used.
+WARM_START_DIRNAME = "kernel_cache"
+WARM_START_MANIFEST = "manifest.json"
 
 _SERVER_IDS = itertools.count()
 # stats()-backing series are always=True (the stats contract predates
@@ -421,6 +436,10 @@ class GenerationServer:
                                 - c0["cache_misses"]),
         }
         self._compiles_after_warmup_base = int(c1["compiles"])
+        self._launches_after_warmup_base = paged_attention.launches
+        # set by server_from_model_dir when a warm-start artifact armed
+        # the build of this server
+        self.warm_start_dir: Optional[str] = None
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -464,7 +483,9 @@ class GenerationServer:
         """Enqueue one generation request; returns its token stream.
 
         Requests whose prompt+max_new budget can never fit a sequence's
-        block-table capacity are rejected with ValueError up front; a
+        block-table capacity, or whose prompt holds a token id outside
+        the vocabulary, are rejected with ValueError up front (a bad id
+        reaching the tick would fail every sequence batched with it); a
         full admission queue raises ServerSaturated (backpressure); a
         request still queued when `deadline_ms` passes is shed with
         RequestDeadlineExceeded instead of occupying a slot."""
@@ -473,6 +494,11 @@ class GenerationServer:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        vocab = self._decoder.vocab_size
+        if min(prompt) < 0 or max(prompt) >= vocab:
+            raise ValueError(
+                f"prompt token ids must lie in the vocabulary [0, "
+                f"{vocab}): got {min(prompt)}..{max(prompt)}")
         stream = GenerationStream(prompt, max_new_tokens)
         expires = (time.monotonic() + deadline_ms / 1000.0
                    if deadline_ms is not None else None)
@@ -612,10 +638,14 @@ class GenerationServer:
         tick counters, shed accounting, live occupancy, KV-pool state,
         prefix-cache hit accounting and speculative accept rates.
         `decode_kernel` is "cuda" or "plain:<reason>";
+        `paged_attention_launches` counts the kernel's launches in the
+        process since this server's warmup (a replica process serves
+        one server);
         `recompiles_after_warmup` counts kernel builds since warmup (in
         a one-server process any nonzero value is a build paid inside
-        request latency); `warm_start` is always False — there is no
-        warm-start artifact in this package."""
+        request latency); `warm_start` is True when a warm-start
+        artifact (the kernels' build cache beside the model) armed the
+        build."""
         with self._lock:
             active = sum(1 for s in self._active if s is not None)
             qdepth = len(self._queue)
@@ -636,6 +666,9 @@ class GenerationServer:
                "kv_dtype": getattr(self._decoder, "kv_dtype", "fp32"),
                "decode_kernel": self._decoder.kernels[
                    "paged_attention_decode"],
+               "paged_attention_launches": (
+                   paged_attention.launches
+                   - self._launches_after_warmup_base),
                "kv_bytes_resident": (self._cache.used_blocks
                                      * self._cache.bytes_per_block),
                "draft_proposed": int(self._m_proposed.value),
@@ -643,7 +676,7 @@ class GenerationServer:
                "spec_k": self._spec_k if self._draft is not None else 0,
                "draining": draining,
                "recompiles_after_warmup": recompiles,
-               "warm_start": False}
+               "warm_start": bool(self.warm_start_dir)}
         out.update(self.warmup_stats)
         out.update(self._cache.prefix_stats())
         return out
@@ -1101,7 +1134,9 @@ def _host(v) -> np.ndarray:
 
 def save_generation_model(dirname: str, states: Dict[str, np.ndarray],
                           spec: Dict,
-                          draft_states: Optional[Dict] = None) -> str:
+                          draft_states: Optional[Dict] = None,
+                          warm_start: bool = False,
+                          place=None) -> str:
     """Persist a generation model: `generation.json` (architecture
     spec: vocab_size/d_model/n_heads/n_layers/d_inner, plus optional
     serving defaults block_size/max_blocks_per_seq/slots/kv_blocks/
@@ -1110,7 +1145,15 @@ def save_generation_model(dirname: str, states: Dict[str, np.ndarray],
     speculative-decoding draft model's parameters land in a second npz
     and spec["draft"] must name its architecture ({d_model, n_heads,
     n_layers[, d_inner]}; vocab and block geometry are shared with the
-    target).  The format is the JAX package's."""
+    target).  The format is the JAX package's.
+
+    `warm_start=True` additionally ships the cold-start artifact: the
+    server's warmup runs once, at save time, on `place` (default
+    CUDAPlace(0)), and every CUDA library its steps load is built into
+    ``<dirname>/kernel_cache`` beside a manifest
+    (build_warm_start_artifact).  A replica later started from the dir
+    loads them — its time-to-first-token is bounded by model load, not
+    nvcc."""
     os.makedirs(dirname, exist_ok=True)
     for key in ("vocab_size", "d_model", "n_heads", "n_layers"):
         if key not in spec:
@@ -1130,6 +1173,8 @@ def save_generation_model(dirname: str, states: Dict[str, np.ndarray],
         json.dump(spec, f, indent=1, sort_keys=True)
     np.savez(os.path.join(dirname, MODEL_PARAMS_FILENAME),
              **{n: _host(v) for n, v in states.items()})
+    if warm_start:
+        build_warm_start_artifact(dirname, place=place)
     return dirname
 
 
@@ -1150,6 +1195,83 @@ def load_generation_model(dirname: str, with_draft: bool = False):
     return states, spec, draft_states
 
 
+def _capability(place) -> Optional[List[int]]:
+    """[major, minor] compute capability of the card `place` names;
+    None for the CPU."""
+    dev = resolve_place(place)
+    if dev.type != "cuda":
+        return None
+    return list(torch.cuda.get_device_capability(dev))
+
+
+def _kernel_sources(server) -> List[str]:
+    """The csrc sources of the CUDA kernels the server's steps launch:
+    paged attention's, where a decoder picked it."""
+    from ..kernels import paged_attention
+
+    return [paged_attention.SOURCE] if any(
+        getattr(dec, "kernels", {}).get("paged_attention_decode") == "cuda"
+        for dec in (server._decoder, server._draft)) else []
+
+
+def _artifact_mismatch(cache: str, place) -> Optional[str]:
+    """Why the warm-start artifact at `cache` does not fit this card and
+    these sources; None when it does."""
+    from ..kernels import cuda_build
+
+    try:
+        with open(os.path.join(cache, WARM_START_MANIFEST)) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        return f"no readable manifest ({e!r})"
+    have = _capability(place)
+    if manifest.get("compute_capability") != have:
+        return (f"built for compute capability "
+                f"{manifest.get('compute_capability')}, the place has "
+                f"{have}")
+    for source, key in sorted(manifest.get("sources", {}).items()):
+        try:
+            now = cuda_build.source_key(source)
+        except OSError:
+            return f"source {source} is gone"
+        if now != key:
+            return f"source {source} changed (key {key} -> {now})"
+    return None
+
+
+def build_warm_start_artifact(dirname: str, place=None) -> str:
+    """Grow a saved generation model dir's warm-start artifact: build its
+    serving decoder(s) on `place` (default CUDAPlace(0)) and run the
+    server warmup with the compilation_cache_dir flag pointed at
+    ``<dirname>/kernel_cache``, so every CUDA library the steps load is
+    built there (a library this process loaded earlier from another
+    build dir is copied: same key, same bytes), then write the manifest:
+    each source's key, `nvcc --version`, the nvcc flags and the card's
+    compute capability.  Returns the artifact path."""
+    from ..kernels import cuda_build
+
+    cache = os.path.join(dirname, WARM_START_DIRNAME)
+    srv = server_from_model_dir(dirname, place=place,
+                                warm_cache_dir=cache)
+    try:
+        sources = _kernel_sources(srv)
+    finally:
+        srv.close()
+    built = cuda_build.export_builds(sources, cache)
+    manifest = {
+        "sources": {s: cuda_build.source_key(s) for s in sources},
+        "libraries": {s: os.path.basename(p) for s, p in built.items()},
+        "nvcc": cuda_build.nvcc_version() if sources else None,
+        "nvcc_flags": list(cuda_build.NVCC_FLAGS),
+        "compute_capability": _capability(place),
+    }
+    tmp = os.path.join(cache, f"{WARM_START_MANIFEST}.{os.getpid()}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    os.replace(tmp, os.path.join(cache, WARM_START_MANIFEST))
+    return cache
+
+
 def server_from_model_dir(dirname: str, *, block_size: Optional[int] = None,
                           max_blocks_per_seq: Optional[int] = None,
                           slots: Optional[int] = None,
@@ -1157,6 +1279,8 @@ def server_from_model_dir(dirname: str, *, block_size: Optional[int] = None,
                           kv_dtype: Optional[str] = None,
                           spec_k: Optional[int] = None,
                           use_draft: bool = True,
+                          warm_start: bool = True,
+                          warm_cache_dir: Optional[str] = None,
                           place=None,
                           **kw) -> GenerationServer:
     """Build a GenerationServer from a saved model dir, on `place`
@@ -1164,12 +1288,42 @@ def server_from_model_dir(dirname: str, *, block_size: Optional[int] = None,
 
     Resets the framework unique-name counters to rebuild the decoder
     under the names the parameters were saved with — intended for
-    fresh serving processes, not mid-session.  `kv_dtype` overrides the
-    spec's pool precision; a model dir with draft params arms
-    speculative decoding unless `use_draft=False`."""
+    fresh serving processes (cli serve, replicas), not mid-session.
+    `kv_dtype` overrides the spec's pool precision; a model dir with
+    draft params arms speculative decoding unless `use_draft=False`.
+
+    When the dir ships a warm-start artifact (``kernel_cache/``, written
+    by ``save_generation_model(warm_start=True)``) whose manifest fits
+    the place's card and the sources, and no compilation cache dir is
+    already configured, the build+warmup runs with
+    PADDLE_TPU_COMPILATION_CACHE_DIR pointed at the artifact and the
+    CUDA kernels LOAD instead of building
+    (``warmup_stats['cache_misses'] == 0``); the prior flag value is
+    restored afterwards.  An artifact that does not fit is not used (a
+    warning says why) and the kernels build as without one.
+    ``warm_start=False`` opts out; ``warm_cache_dir`` forces a cache
+    dir (creating it — how build_warm_start_artifact writes the
+    artifact in the first place)."""
+    from ..core import flags as core_flags
     from ..core import framework as fw
     from ..models.transformer import build_lm_paged_decoder
 
+    cache = warm_cache_dir or ""
+    prev = core_flags.get_flag("compilation_cache_dir")
+    if not cache and warm_start and not prev:
+        shipped = os.path.join(dirname, WARM_START_DIRNAME)
+        if os.path.isdir(shipped):
+            why = _artifact_mismatch(shipped, place)
+            if why is None:
+                cache = shipped
+            else:
+                warnings.warn(f"warm-start artifact {shipped} not used: "
+                              f"{why}")
+    # an EXPLICIT warm_cache_dir always arms (build_warm_start_artifact
+    # must write the artifact even when the operator runs with a global
+    # cache configured); the shipped-artifact auto-arm never stomps a
+    # configured cache
+    armed = bool(cache) and (warm_cache_dir is not None or not prev)
     states, spec, draft_states = load_generation_model(
         dirname, with_draft=True)
     bs = int(block_size or spec.get("block_size", 16))
@@ -1177,28 +1331,39 @@ def server_from_model_dir(dirname: str, *, block_size: Optional[int] = None,
              or spec.get("max_blocks_per_seq",
                          -(-int(spec.get("max_len", 256)) // bs)))
     kvd = kv_dtype or spec.get("kv_dtype")
-    fw.reset_unique_names()
-    _, decoder = build_lm_paged_decoder(
-        spec["vocab_size"], bs, nb, d_model=spec["d_model"],
-        n_heads=spec["n_heads"], n_layers=spec["n_layers"],
-        d_inner=spec.get("d_inner"), kv_dtype=kvd, place=place)
-    draft_decoder = None
-    if draft_states is not None and use_draft:
-        dspec = spec["draft"]
+    try:
+        if armed:
+            core_flags.set_flags({"compilation_cache_dir": cache})
         fw.reset_unique_names()
-        _, draft_decoder = build_lm_paged_decoder(
-            spec["vocab_size"], bs, nb, d_model=dspec["d_model"],
-            n_heads=dspec["n_heads"], n_layers=dspec["n_layers"],
-            d_inner=dspec.get("d_inner"), kv_dtype=kvd, place=place)
-    else:
-        draft_states = None
-    server = GenerationServer(
-        decoder, states,
-        slots=int(slots or spec.get("slots", 8)),
-        kv_blocks=int(kv_blocks or spec.get("kv_blocks", 64)),
-        draft_decoder=draft_decoder, draft_states=draft_states,
-        spec_k=(spec_k if spec_k is not None else spec.get("spec_k")),
-        place=place, **kw)
+        _, decoder = build_lm_paged_decoder(
+            spec["vocab_size"], bs, nb, d_model=spec["d_model"],
+            n_heads=spec["n_heads"], n_layers=spec["n_layers"],
+            d_inner=spec.get("d_inner"), kv_dtype=kvd, place=place)
+        draft_decoder = None
+        if draft_states is not None and use_draft:
+            dspec = spec["draft"]
+            fw.reset_unique_names()
+            _, draft_decoder = build_lm_paged_decoder(
+                spec["vocab_size"], bs, nb, d_model=dspec["d_model"],
+                n_heads=dspec["n_heads"], n_layers=dspec["n_layers"],
+                d_inner=dspec.get("d_inner"), kv_dtype=kvd, place=place)
+        else:
+            draft_states = None
+        server = GenerationServer(
+            decoder, states,
+            slots=int(slots or spec.get("slots", 8)),
+            kv_blocks=int(kv_blocks or spec.get("kv_blocks", 64)),
+            draft_decoder=draft_decoder, draft_states=draft_states,
+            spec_k=(spec_k if spec_k is not None
+                    else spec.get("spec_k")),
+            place=place, **kw)
+    finally:
+        if armed:
+            # the libraries are loaded; later in-process builds must
+            # follow the caller's own cache configuration
+            core_flags.set_flags({"compilation_cache_dir": prev})
+    if armed:
+        server.warm_start_dir = cache
     _publish_static_decode_floor(spec, server)
     return server
 

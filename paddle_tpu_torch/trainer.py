@@ -11,10 +11,9 @@ floor (the cost model's estimate of the main Program on the card's
 chip-table row) for the calibration detector, as the JAX package does.
 
 `train(cluster=...)` joins an elastic cluster (cloud/cluster.py) for
-the loop.  Not ported: the fleet telemetry announcement
-(`observability.maybe_announce`, ROADMAP A12's second part) does
-nothing while PADDLE_TPU_TELEMETRY_REGISTRY is unset and raises when
-it is set.
+the loop.  With PADDLE_TPU_TELEMETRY_REGISTRY set, `train` announces the
+process as a "trainer" member to the fleet telemetry collector
+(`observability.collector.maybe_announce`).
 """
 from __future__ import annotations
 
@@ -35,7 +34,7 @@ from .observability import attribution as obs_attr
 from .observability import flightrecorder
 from .observability import metrics as obs_metrics
 from .observability import tracing as obs_tracing
-from .observability import maybe_announce
+from .observability.collector import maybe_announce
 
 # train-loop telemetry (docs/observability.md): gated by
 # PADDLE_TPU_METRICS, so the serial loop's semantics and cost are

@@ -3232,3 +3232,84 @@ def test_the_card_sqrt_is_torch_sqrt_on_the_device(dev, monkeypatch):
                               {"beta1": 0.9, "beta2": 0.999,
                                "epsilon": 1e-8})
     assert seen and all(s == ("cuda", torch.float32) for s in seen)
+
+
+# -- the serving warm-start artifact: the kernels' build cache -------------
+
+_WARM_PROBE = r"""
+import json, sys
+from paddle_tpu_torch import CUDAPlace
+from paddle_tpu_torch.serving import server_from_model_dir
+srv = server_from_model_dir(sys.argv[1], place=CUDAPlace(0),
+                            warm_start=sys.argv[2] == "warm")
+tokens = srv.generate([1, 2, 3], 6, timeout=300)
+st = srv.stats()
+print(json.dumps(dict(srv.warmup_stats, warm_start=st["warm_start"],
+                      decode_kernel=st["decode_kernel"],
+                      launches=st["paged_attention_launches"],
+                      tokens=tokens)))
+srv.close()
+"""
+
+
+def test_warm_start_artifact_loads_the_kernels_it_built(dev, tmp_path):
+    """save_generation_model(warm_start=True) on the card puts the
+    paged-attention library (copied from this process's build, or built)
+    into the model dir's kernel_cache beside a manifest naming its key
+    and the card; a fresh process serving the dir loads it (hits, no
+    miss, no compile), and one with the build dir empty and the artifact
+    ignored compiles it; both decode on the kernel (its launches after
+    warmup counted in the server's stats), the same tokens."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import paddle_tpu_torch.core.framework as fw
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import cuda_build
+    from paddle_tpu_torch.models.transformer import build_lm_paged_decoder
+    from paddle_tpu_torch.serving import save_generation_model
+    from paddle_tpu_torch.serving.generation import (WARM_START_DIRNAME,
+                                                     WARM_START_MANIFEST)
+
+    fw.reset_unique_names()
+    _, dec = build_lm_paged_decoder(64, 16, 4, d_model=64, n_heads=2,
+                                    n_layers=1, place=CUDAPlace(0))
+    gen = torch.Generator().manual_seed(0)
+    states = {n: (torch.randn(s, generator=gen) * 0.02).numpy()
+              for n, s in dec.state_shapes.items()}
+    d = save_generation_model(
+        str(tmp_path / "m"), states,
+        {"vocab_size": 64, "d_model": 64, "n_heads": 2, "n_layers": 1,
+         "block_size": 16, "max_blocks_per_seq": 4, "slots": 2,
+         "kv_blocks": 16}, warm_start=True, place=CUDAPlace(0))
+    cache = os.path.join(d, WARM_START_DIRNAME)
+    with open(os.path.join(cache, WARM_START_MANIFEST)) as f:
+        manifest = json.load(f)
+    key = cuda_build.source_key("paged_attention.cu")
+    assert manifest["sources"] == {"paged_attention.cu": key}
+    assert manifest["compute_capability"] == list(
+        torch.cuda.get_device_capability(0))
+    assert os.path.exists(os.path.join(cache,
+                                       f"paged_attention-{key}.so"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PADDLE_TPU_COMPILATION_CACHE_DIR", None)
+    runs = {}
+    for mode, extra in (("warm", {}), ("cold", {
+            "PADDLE_TPU_COMPILATION_CACHE_DIR": str(tmp_path / "empty")})):
+        res = subprocess.run(
+            [sys.executable, "-c", _WARM_PROBE, d, mode], cwd=root,
+            env=dict(env, **extra), capture_output=True, text=True,
+            timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        runs[mode] = json.loads(res.stdout.strip().splitlines()[-1])
+    warm, cold = runs["warm"], runs["cold"]
+    assert warm["warm_start"] and warm["decode_kernel"] == "cuda"
+    assert (warm["compiles"], warm["cache_misses"]) == (0, 0)
+    assert warm["cache_hits"] >= 1
+    assert not cold["warm_start"] and cold["decode_kernel"] == "cuda"
+    assert cold["compiles"] >= 1 and cold["cache_misses"] >= 1
+    assert warm["launches"] >= 5 and cold["launches"] >= 5
+    assert warm["tokens"] == cold["tokens"]

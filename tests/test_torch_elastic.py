@@ -910,6 +910,38 @@ def test_s2s_elastic_arm_through_a_kill_and_a_join_is_serial(tmp_path):
     assert rec["views"][-1] > rec["views"][0]
 
 
+def test_the_elastic_arm_under_a_collector_lists_and_reclaims_members(
+        tmp_path, monkeypatch):
+    """chip_smoke's elastic run under its telemetry at a small size:
+    the trainer (this process, at Trainer.train) and each pserver (at its
+    lease) announce to the collector; the killed pserver's series are
+    reclaimed within its bound, the joiner is listed after its lease,
+    and the verdict passes (and refuses a joiner listed before it)."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.observability import collector
+
+    monkeypatch.setattr(collector, "_ENV_TRIED", False)
+    monkeypatch.setattr(collector, "_ENV_ANNOUNCEMENT", None)
+    monkeypatch.delenv("PADDLE_TPU_TELEMETRY_REGISTRY", raising=False)
+    tel = cs._ElTelemetry()
+    try:
+        rec = cs._el_run(_tiny_build, _tiny_feeds(), fluid.CPUPlace(),
+                         cs._ElasticThreads(_tiny_build, str(tmp_path)),
+                         on_card=False, telemetry=tel)
+    finally:
+        tel.close()
+    assert "PADDLE_TPU_TELEMETRY_REGISTRY" not in os.environ
+    failed, out = cs._el_telemetry_verdict(rec["telemetry"])
+    assert failed == [], failed
+    assert out["kill_to_reclaimed_s"] <= out["bound_s"]
+    members = rec["telemetry"]["members"]
+    assert sorted(r["kind"] for r in members.values()) == [
+        "pserver", "pserver", "pserver", "trainer"]
+    early = dict(rec["telemetry"], members=dict(
+        members, pserver2=dict(members["pserver2"], listed_s=0.0)))
+    assert any("joiner" in f for f in cs._el_telemetry_verdict(early)[0])
+
+
 def test_parameters_moved_without_their_adam_state_are_refused(
         tmp_path, monkeypatch):
     """The repair the arm rests on: moved the JAX package's way, a

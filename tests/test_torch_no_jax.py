@@ -207,9 +207,9 @@ def _jax_all(*parts):
 def test_cloud_cluster_is_scanned_and_clouds_names_are_the_jax_packages():
     """cloud/cluster.py (the elastic cluster) is in the scanned sources,
     imports alone with no JAX, and the port's `cloud` names are the JAX
-    package's — its `__all__` and those of its master, registry and
-    cluster modules — every one working but the serving front door's
-    (router, autoscaler), which raise naming A11's second half."""
+    package's — its `__all__` and those of its master, registry,
+    cluster, router and autoscaler modules — every one of them working,
+    the serving front door's (router, autoscaler) included."""
     path = os.path.join(PKG, "cloud", "cluster.py")
     assert path in set(_sources())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -230,6 +230,10 @@ def test_cloud_cluster_is_scanned_and_clouds_names_are_the_jax_packages():
     jax_names = set(_jax_all("cloud", "__init__.py"))
     for mod in ("master.py", "registry.py", "cluster.py"):
         jax_names |= set(_jax_all("cloud", mod))
+    front_door_modules = set()
+    for mod in ("router.py", "autoscaler.py"):
+        front_door_modules |= set(_jax_all("cloud", mod))
+    assert front_door <= front_door_modules
     jax_names.discard("task_record_reader")
     port = set(cloud.__all__)
     assert jax_names <= port | {"task_record_reader"}
@@ -237,9 +241,57 @@ def test_cloud_cluster_is_scanned_and_clouds_names_are_the_jax_packages():
                                 "resolve_pserver_cluster"}
     assert front_door <= jax_names
     for name in sorted(port):
-        if name in front_door:
-            with pytest.raises(NotImplementedError,
-                               match="A11's second half"):
-                getattr(cloud, name)
-        else:
-            assert getattr(cloud, name) is not None, name
+        assert getattr(cloud, name) is not None, name
+    import paddle_tpu_torch.cloud.autoscaler as autoscaler
+    import paddle_tpu_torch.cloud.router as router
+
+    assert set(_jax_all("cloud", "router.py")) == set(router.__all__)
+    assert set(_jax_all("cloud", "autoscaler.py")) == set(
+        autoscaler.__all__)
+
+
+# the modules of the fleet slice (the telemetry plane and the serving
+# fleet): each walked by the fresh-import probe and the AST scan above,
+# importable alone with no JAX loaded, with the JAX module's `__all__`
+FLEET_MODULES = ("paddle_tpu_torch.observability.timeseries",
+                 "paddle_tpu_torch.observability.exporters",
+                 "paddle_tpu_torch.observability.slo",
+                 "paddle_tpu_torch.observability.collector",
+                 "paddle_tpu_torch.serving.replica",
+                 "paddle_tpu_torch.cloud.router",
+                 "paddle_tpu_torch.cloud.autoscaler")
+
+
+@pytest.fixture(scope="module")
+def fleet_imports():
+    """Each fleet module imported alone in a fresh interpreter (all of
+    them at once) -> {module: the forbidden modules loaded once it was
+    imported}."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = {module: subprocess.Popen(
+        [sys.executable, "-c", _OPTIONAL_PROBE, module], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for module in FLEET_MODULES}
+    out = {}
+    for module, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=180)
+        assert proc.returncode == 0, stderr[-3000:]
+        line = [ln for ln in stdout.splitlines()
+                if " FORBIDDEN=" in ln][-1]
+        out[module] = line.split(" ", 1)[1]
+    return out
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_module_is_scanned_and_imports_alone(module, fleet_imports):
+    import importlib
+
+    parts = module.split(".")
+    path = os.path.join(ROOT, *parts) + ".py"
+    assert path in set(_sources())
+    found = fleet_imports[module].split("=", 1)[1]
+    assert not [m for m in found.split(",")
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
+                and m], found
+    mod = importlib.import_module(module)
+    assert set(mod.__all__) == set(_jax_all(parts[1], parts[2] + ".py"))

@@ -721,8 +721,29 @@ def test_flight_record_and_the_telemetry_announce(monkeypatch):
     finally:
         c.close()
         srv.stop()
-    monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY", "127.0.0.1:1")
+    # with PADDLE_TPU_TELEMETRY_REGISTRY set, serving announces the
+    # process as a "pserver" member that a collector discovers
+    from paddle_tpu_torch.cloud.registry import Registry
+    from paddle_tpu_torch.observability import collector
+
+    reg = Registry()
+    monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY",
+                       f"127.0.0.1:{reg.serve(0)}")
+    monkeypatch.setattr(collector, "_ENV_TRIED", False)
+    monkeypatch.setattr(collector, "_ENV_ANNOUNCEMENT", None)
     srv = ps.VariableServer(None, fluid.Scope(), None)
-    with pytest.raises(NotImplementedError, match="A12's second part"):
+    coll = None
+    try:
         srv.serve(0)
-    srv.stop()
+        ann = collector._ENV_ANNOUNCEMENT
+        assert ann is not None and ann.kind == "pserver"
+        coll = collector.TelemetryCollector(registry=reg)
+        coll.scrape_once()
+        assert [m["kind"] for m in coll.members()] == ["pserver"]
+    finally:
+        srv.stop()
+        if coll is not None:
+            coll.close()
+        if collector._ENV_ANNOUNCEMENT is not None:
+            collector._ENV_ANNOUNCEMENT.close()
+        reg.close()

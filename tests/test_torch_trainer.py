@@ -269,9 +269,26 @@ def test_unported_trainer_surfaces_raise_naming_their_items(monkeypatch):
     with pytest.raises(OSError):
         t.train(1, _batches(), cluster="127.0.0.1:1")
     assert comm.get_cluster() is None
-    monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY", "localhost:1")
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the telemetry announcement is ported: train() announces the
+    # process as a "trainer" member in the registry the env names
+    from paddle_tpu_torch.cloud.registry import Registry
+    from paddle_tpu_torch.observability import collector
+
+    reg = Registry()
+    monkeypatch.setenv("PADDLE_TPU_TELEMETRY_REGISTRY",
+                       f"127.0.0.1:{reg.serve(0)}")
+    monkeypatch.setattr(collector, "_ENV_TRIED", False)
+    monkeypatch.setattr(collector, "_ENV_ANNOUNCEMENT", None)
+    try:
         t.train(1, _batches())
+        ann = collector._ENV_ANNOUNCEMENT
+        assert ann is not None and ann.kind == "trainer"
+        listed = list(reg.list(collector.TELEMETRY_KIND).values())
+        assert [a.split("|")[0] for a in listed] == ["trainer"]
+    finally:
+        if collector._ENV_ANNOUNCEMENT is not None:
+            collector._ENV_ANNOUNCEMENT.close()
+        reg.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer_mod.Trainer(loss, feed_list=[x, y], main_program=main,

@@ -29,6 +29,7 @@ checkouts of the port on the same card (for instance a parent commit's
     python3 tools/torch_tree_probe.py a9 [--package-root DIR]
     python3 tools/torch_tree_probe.py pserver [--package-root DIR]
     python3 tools/torch_tree_probe.py elastic [--package-root DIR]
+    python3 tools/torch_tree_probe.py fleet [--package-root DIR]
 
 paged      device time (torch.profiler) and launch grid of the
            paged-attention decode kernel at the kernels phase's shapes
@@ -133,7 +134,13 @@ pserver    chip_smoke.py's pserver phase alone (the flash kernels built
 elastic    chip_smoke.py's elastic phase alone (the flash kernels built
            first): the seq2seq translator through Trainer.train(cluster=)
            on the card, three elastic host pservers, one SIGKILLed and
-           one joining, against the serial Executor;
+           one joining, against the serial Executor, under a
+           telemetry collector;
+fleet      chip_smoke.py's fleet phase alone (the paged-attention
+           kernel built first): the serve row's LM saved with its
+           warm-start artifact, `cli serve` replicas behind a
+           ReplicaRouter and an Autoscaler through a ramp and a
+           SIGKILL, a cold replica, the telemetry tools on the fleet;
 a10c       chip_smoke.py's tools phase with what it reads: the flash
            phase, the train phase (amp) with the tools profiler part on
            its replayed graph, the seq2seq phase, then the tools CLI
@@ -1028,6 +1035,18 @@ def elastic(cs, dev):
     cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
 
 
+def fleet(cs, dev):
+    """chip_smoke's fleet phase alone (the paged-attention kernel built
+    first, as the serve phase leaves it)."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.kernels import paged_attention
+
+    card, _, _ = _card(cs)
+    paged_attention.build()
+    cs.fleet_phase(card, CUDAPlace(0))
+    cs.emit({"phase": "timing", "phases": cs.PHASE_SECONDS})
+
+
 def maxpool_routes(cs, dev):
     """`_MaxPool.backward` by its copy and by its sorted segment sum on
     the same disjoint windows."""
@@ -1242,7 +1261,7 @@ def main():
                                       "a4b-a6", "a3-a10",
                                       "maxpool-routes", "a10b", "a10c",
                                       "a12", "tp-zero", "a9", "pserver",
-                                      "elastic"))
+                                      "elastic", "fleet"))
     ap.add_argument("--fp32", action="store_true",
                     help="host: the float32 train step (default: amp)")
     ap.add_argument("--mode", choices=("interpreted", "compiled"),
@@ -1281,7 +1300,7 @@ def main():
          "maxpool-routes": maxpool_routes, "a10b": a10b,
          "a10c": a10c, "a12": a12, "tp-zero": tp_zero,
          "a9": a9, "pserver": pserver,
-         "elastic": elastic}[args.probe](cs, dev)
+         "elastic": elastic, "fleet": fleet}[args.probe](cs, dev)
     return 0
 
 
